@@ -1,0 +1,17 @@
+"""mxnet_tpu_torch — the PyTorch/CUDA port of ``mxnet_tpu``.
+
+The JAX package ``mxnet_tpu`` stays the reference; this package mirrors
+its module structure and names, imports ``torch`` and never ``jax``, and
+imports nothing of ``mxnet_tpu``.  Every kernel that the JAX package
+wrote in Pallas for the TPU is written again by hand for Hopper (sm_90a)
+under ``ops/kernels`` (CUDA C++ sources in ``csrc/``), each beside a
+plain PyTorch version that CPU tensors take.
+
+Ported so far: the LLM serving slice — ``models.decoder.CausalLM`` served
+by ``serving.DecodeEngine`` over a paged KV cache.  Entry points run on
+``cuda`` unless ``device="cpu"`` is passed (``context.resolve``).
+"""
+from . import config, context, faults, profiler  # noqa: F401
+from .context import cpu, gpu  # noqa: F401
+
+__all__ = ["config", "context", "faults", "profiler", "cpu", "gpu"]
