@@ -15,8 +15,9 @@ plain version):
    its bound and (where one exists) one PyTorch call's time.
 3. Main path: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
-   ``--seed``) served by ``DecodeEngine`` (16 slots, page size 16,
-   prefill chunk 64) with 48 requests, first with the fused decode
+   ``--seed``, with random biases and LN affines, which the kernel checks
+   use too) served by ``DecodeEngine`` (16 slots, page size 16, prefill
+   chunk 64) with 48 requests, first with the fused decode
    kernel, then with ``MXNET_DECODE_FUSED=0``.  Kernel launch counts are
    set to 0 before each run and read after it.  Then, for 3 requests,
    teacher-forced prefill + decode through each engine's programs is held
@@ -104,6 +105,21 @@ def tables_for(rng, lengths, pps, first_page=1):
         t[b, :n] = pages[k:k + n]
         k += n
     return t
+
+
+def perturb_affine(torch, lm, seed):
+    """Random biases and LN betas (N(0, 0.1)) and LN gammas (1 + N(0,
+    0.1)), in place.  The initialiser leaves them at 0 and 1, where a
+    kernel that dropped or swapped one would still agree with its plain
+    version and with ``full_forward``."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in lm.named_parameters():
+            if p.dim() == 1:
+                base = 1.0 if name.endswith(("ln1g", "ln2g")) else 0.0
+                p.copy_(base + 0.1 * torch.randn(p.shape, device=DEV,
+                                                 generator=g))
+    return lm
 
 
 # ---------------------------------------------------------------------------
@@ -209,9 +225,10 @@ def check_fused(torch, timer, report, lm, lm_gqa):
         tb = torch.tensor(tb_np, device=DEV)
         ln = torch.tensor(after, dtype=torch.int32, device=DEV)
         layers = model.params()["layers"]
+        table = fc.WeightTable(layers, x.device)
         kp1, vp1 = kp0.clone(), vp0.clone()
         kp2, vp2 = kp0.clone(), vp0.clone()
-        _, _, xk = fc.decode_layer_group(x, kp1, vp1, layers, meta, tb, ln,
+        _, _, xk = fc.decode_layer_group(x, kp1, vp1, table, meta, tb, ln,
                                          cfg)
         _, _, xp = fc.decode_layer_group_plain(x, kp2, vp2, layers, meta, tb,
                                                ln, cfg)
@@ -219,7 +236,7 @@ def check_fused(torch, timer, report, lm, lm_gqa):
         err_p = float(max((kp1[:, :, 1:] - kp2[:, :, 1:]).abs().max(),
                           (vp1[:, :, 1:] - vp2[:, :, 1:]).abs().max()))
         err = max(err_x, err_p)
-        ms = timer(lambda: fc.decode_layer_group(x, kp1, vp1, layers, meta,
+        ms = timer(lambda: fc.decode_layer_group(x, kp1, vp1, table, meta,
                                                  tb, ln, cfg), iters=10)
         plain = timer(lambda: fc.decode_layer_group_plain(
             x, kp2, vp2, layers, meta, tb, ln, cfg), iters=10)
@@ -240,7 +257,7 @@ def check_fused(torch, timer, report, lm, lm_gqa):
             raise AssertionError("decode_layer_group disagrees with its plain "
                                  "version")
         timer.flush.zero_()
-        phases = fc.phase_times(x, kp1, vp1, layers, meta, tb, ln, cfg)
+        phases = fc.phase_times(x, kp1, vp1, table, meta, tb, ln, cfg)
         log("  phases, us summed over %d layers: %s" % (L, ", ".join(
             "%s %.1f" % (k, sum(v) / 1e3) for k, v in phases.items())))
         if model is lm:
@@ -445,9 +462,11 @@ def main():
 
     timer = Timer(torch)
     report = {}
-    lm = dec.CausalLM(**WIDTHS, device=DEV, seed=args.seed)
-    lm_gqa = dec.CausalLM(**dict(WIDTHS, num_layers=2, num_kv_heads=4),
-                          device=DEV, seed=args.seed + 1)
+    lm = perturb_affine(torch, dec.CausalLM(**WIDTHS, device=DEV,
+                                            seed=args.seed), args.seed)
+    lm_gqa = perturb_affine(torch, dec.CausalLM(
+        **dict(WIDTHS, num_layers=2, num_kv_heads=4), device=DEV,
+        seed=args.seed + 1), args.seed + 1)
     check_bias_gelu(torch, timer, report)
     check_paged_attention(torch, timer, report)
     check_fused(torch, timer, report, lm, lm_gqa)

@@ -212,20 +212,30 @@ def make_decode_step_fused(cfg, page_size, layer_group=0):
     ``fused_cell.decode_layer_group`` launch per layer group (default:
     all layers in one group).  Same signature and in-place page contract
     as :func:`make_decode_step`.  The kernel reads each layer's weights
-    through a pointer table built once per group, so no weights are
+    through a pointer table (``fused_cell.WeightTable``) built once per
+    group when the step first sees a weight set, so no weights are
     stacked or copied per step."""
     S = int(page_size)
     groups = _group_bounds(cfg.num_layers, layer_group)
+    seen = {}       # the last weight set's layer list -> its group tables
+
+    def tables(layers, device):
+        if seen.get("layers") is not layers:
+            seen["tables"] = [_fused.WeightTable(layers[lo:hi], device)
+                              for lo, hi in groups]
+            seen["layers"] = layers
+        return seen["tables"]
 
     def step(params, k_pages, v_pages, tokens, positions, page_tables,
              active):
         x, wp, ws, lengths = _step_inputs(params, cfg, S, tokens, positions,
                                           page_tables, active)
         meta = torch.stack([wp, ws])
-        for lo, hi in groups:
+        for (lo, hi), table in zip(groups, tables(params["layers"],
+                                                  k_pages.device)):
             _, _, x = _fused.decode_layer_group(
-                x.contiguous(), k_pages[lo:hi], v_pages[lo:hi],
-                params["layers"][lo:hi], meta, page_tables, lengths, cfg)
+                x.contiguous(), k_pages[lo:hi], v_pages[lo:hi], table, meta,
+                page_tables, lengths, cfg)
         logits = _logits(x, params)
         return (k_pages, v_pages,
                 logits.argmax(dim=-1).to(torch.int32), logits)

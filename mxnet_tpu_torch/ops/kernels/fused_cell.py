@@ -26,7 +26,7 @@ from . import _build
 from .epilogue import bias_gelu_plain
 from .paged_attention import paged_attention_reference
 
-__all__ = ["decode_layer_group", "decode_layer_group_plain",
+__all__ = ["decode_layer_group", "decode_layer_group_plain", "WeightTable",
            "WEIGHT_ORDER", "PHASES", "grid_blocks", "phase_times"]
 
 #: the kernel's phases per layer, separated by grid-wide barriers
@@ -40,9 +40,34 @@ WEIGHT_ORDER = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# device pointer tables, keyed by the weights' addresses (weights are
-# frozen while served, so a group's table is built once)
-_tables = {}
+
+class WeightTable:
+    """A layer group's weights and the ``(Lg, 16)`` int64 table of their
+    addresses, in :data:`WEIGHT_ORDER`, through which the kernel reads
+    them.  It holds the layer dicts, so the addresses stay valid while it
+    lives.  Build it once per weight set: the fused decode step builds
+    one per group when it first sees a weight set.  It iterates as the
+    list of layer dicts, which is what the plain version reads."""
+
+    def __init__(self, layers, device):
+        ptrs = []
+        for lp in layers:
+            for k in WEIGHT_ORDER:
+                t = lp[k]
+                if (t.dtype != torch.float32 or t.device != device
+                        or not t.is_contiguous()):
+                    raise ValueError("decode_layer_group: weight %r must be "
+                                     "a contiguous float32 tensor on %s"
+                                     % (k, device))
+                ptrs.append(t.data_ptr())
+        self.layers = list(layers)
+        self.ptrs = torch.tensor(ptrs, dtype=torch.int64, device=device)
+
+    def __len__(self):
+        return len(self.layers)
+
+    def __iter__(self):
+        return iter(self.layers)
 
 
 def decode_layer_group_plain(x, kp, vp, layers, meta, page_tables, lengths,
@@ -94,31 +119,15 @@ def grid_blocks(cfg):
     return n.value
 
 
-def _weight_table(layers, device):
-    ptrs = []
-    for lp in layers:
-        for k in WEIGHT_ORDER:
-            t = lp[k]
-            if (t.dtype != torch.float32 or t.device != device
-                    or not t.is_contiguous()):
-                raise ValueError("decode_layer_group: weight %r must be a "
-                                 "contiguous float32 tensor on %s" % (k, device))
-            ptrs.append(t.data_ptr())
-    key = (str(device), tuple(ptrs))
-    tab = _tables.get(key)
-    if tab is None:
-        tab = _tables[key] = torch.tensor(ptrs, dtype=torch.int64,
-                                          device=device)
-    return tab
-
-
 def decode_layer_group(x, kp, vp, layers, meta, page_tables, lengths, cfg):
     """Run ``Lg`` decoder layers as ONE persistent kernel launch.
 
     x:           (B, C) fp32 activations entering the group
     kp/vp:       (Lg, KVH, P, S, D) this group's page pools, updated in
                  place (a view of the engine's pools)
-    layers:      ``Lg`` per-layer weight dicts (keys of WEIGHT_ORDER)
+    layers:      ``Lg`` per-layer weight dicts (keys of WEIGHT_ORDER), or
+                 a :class:`WeightTable` of them (a list of dicts builds
+                 one for this call)
     meta:        (2, B) int32 — rows: write page, write slot
     page_tables: (B, pages_per_seq) int32
     lengths:     (B,) or (B, 1) int32 valid context lengths (0 = inactive)
@@ -176,13 +185,17 @@ def _launch(x, kp, vp, layers, meta, page_tables, lengths, cfg, stamps):
             raise ValueError("decode_layer_group: %s must be a contiguous "
                              "%s tensor on %s (got %s on %s)"
                              % (name, dt, dev, t.dtype, t.device))
+    table = (layers if isinstance(layers, WeightTable)
+             else WeightTable(layers, dev))
+    if table.ptrs.device != dev:
+        raise ValueError("decode_layer_group: the weight table lives on %s, "
+                         "the activations on %s" % (table.ptrs.device, dev))
     lib = _lib()
-    wtab = _weight_table(layers, dev)
     x_out = x.clone()
     scratch = torch.empty(lib.mxt_decode_layer_group_scratch(B, C, F, KVH, D),
                           dtype=torch.float32, device=dev)
     rc = lib.mxt_decode_layer_group(
-        x_out.data_ptr(), kp.data_ptr(), vp.data_ptr(), wtab.data_ptr(),
+        x_out.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.ptrs.data_ptr(),
         meta.data_ptr(), page_tables.data_ptr(), lengths.data_ptr(),
         scratch.data_ptr(), None if stamps is None else stamps.data_ptr(),
         B, C, F, H, KVH, D, P, S, pps, Lg, 1.0 / (D ** 0.5),

@@ -4,9 +4,8 @@
   KV cache with chunked prefill and preemption by recompute; decode runs
   the fused decode-layer-group kernel, or the per-op step with the
   paged-attention and bias_gelu kernels.
-- ``PageAllocator`` / ``PrefixCache`` / ``pack_session`` (``kvcache.py``)
-  — host-side page bookkeeping and the session wire format, shared byte
-  for byte with the JAX package.
+- ``PageAllocator`` (``kvcache.py``) — host-side page bookkeeping, the
+  JAX package's allocator.
 - ``ServingMetrics`` (``metrics.py``), ``SLOPolicy`` (``autoscale.py``)
   and the error taxonomy (``errors.py``).
 
@@ -27,12 +26,10 @@ from .errors import (BadRequestError, DeadlineExceededError,
                      DeadlineInfeasibleError, KVLeakError, QueueFullError,
                      ServerClosedError, ServingError)
 from .generate import DecodeEngine
-from .kvcache import (PageAllocator, PrefixCache, pack_session, pages_for,
-                      unpack_session)
+from .kvcache import PageAllocator, pages_for
 from .metrics import LatencyHistogram, ModelMetrics, ServingMetrics
 
-__all__ = ["DecodeEngine", "PageAllocator", "PrefixCache", "pack_session",
-           "unpack_session", "pages_for", "ServingMetrics", "ModelMetrics",
-           "LatencyHistogram", "SLOPolicy", "ServingError",
+__all__ = ["DecodeEngine", "PageAllocator", "pages_for", "ServingMetrics",
+           "ModelMetrics", "LatencyHistogram", "SLOPolicy", "ServingError",
            "BadRequestError", "QueueFullError", "ServerClosedError",
            "DeadlineExceededError", "DeadlineInfeasibleError", "KVLeakError"]

@@ -1,8 +1,10 @@
 """Page-granular KV-cache allocator for continuous-batching decode.
 
-A copy of ``mxnet_tpu/serving/kvcache.py``: everything here runs on the
-host, so both packages share one allocator behaviour and one session
-wire format byte for byte.
+The allocator half of ``mxnet_tpu/serving/kvcache.py``, copied: it runs
+on the host, so both packages share one allocator behaviour.  The
+prefix cache (``PrefixCache``, with the allocator's ``share``/``fork``)
+and the session wire format (``pack_session``) come with the slices
+that port them.
 
 The vLLM memory model at the serving layer: the device-side KV cache is
 a fixed pool of ``total_pages`` pages of ``page_size`` tokens each
@@ -12,12 +14,9 @@ attention over it); this module owns the HOST-side bookkeeping —
 - a LIFO **free list** (freed pages are re-used hottest-first),
 - per-owner **page lists** (the sequence's page table, in allocation
   order == token order),
-- per-page **refcounts**: a page may appear in several owners' page
-  tables at once (vLLM-style prefix sharing); it returns to the free
-  list only when the last reference drops.  :meth:`PageAllocator.share`
-  attaches existing pages to another owner, :meth:`PageAllocator.fork`
-  is the copy-on-write bookkeeping half (the caller copies the device
-  contents),
+- per-page **refcounts**: a page returns to the free list only when
+  its last reference drops (every page has one owner until the prefix
+  cache is ported),
 - exact **occupancy accounting** (used/total, peak, shared pages,
   alloc/free/fail counters) — the admission-control signal and the
   serving metric.
@@ -26,18 +25,6 @@ Page 0 is reserved as the *scratch page*: inactive batch slots and
 padded prefill tokens scatter their (garbage) KV there, so the decode
 step never needs a dynamic shape or a host round-trip to mask writes.
 It is excluded from the free list and from occupancy math.
-
-On top of the allocator this module provides the two pieces that make
-KV state portable and shareable:
-
-- :func:`pack_session` / :func:`unpack_session` — the flat, CRC-guarded
-  wire format for one session's page table + live pages (the
-  serialization half of KV migration; the engine owns gathering and
-  scattering the device arrays),
-- :class:`PrefixCache` — content-addressed prompt-prefix pages (full
-  pages keyed by their exact token prefix, plus the trailing partial
-  page), shared copy-on-write so N sequences with a common system
-  prompt pay its prefill once.
 
 The allocator is synchronous and oblivious to device timing: a freed
 page goes back on the (LIFO) free list immediately and may be handed
@@ -54,18 +41,12 @@ rather than an error.  Invariant violations raise the typed
 """
 from __future__ import annotations
 
-import json
-import struct
 import threading
-import zlib
-
-import numpy as onp
 
 from .. import faults
 from .errors import KVLeakError
 
-__all__ = ["CacheOOM", "PageAllocator", "PrefixCache", "pages_for",
-           "pack_session", "unpack_session"]
+__all__ = ["CacheOOM", "PageAllocator", "pages_for"]
 
 #: page id reserved for garbage writes from inactive/padded batch rows
 SCRATCH_PAGE = 0
@@ -89,33 +70,20 @@ class PageAllocator:
     ``total_pages`` counts the scratch page, mirroring the device
     arrays' leading page dimension; capacity available to sequences is
     ``total_pages - 1``.  A page freshly allocated has refcount 1;
-    :meth:`share` bumps it (prefix hits, cache retention), and
-    :meth:`free`/:meth:`fork` drop references — the page rejoins the
-    free list only at refcount zero, so occupancy counts every
-    physically-resident page exactly once however many tables map it.
+    :meth:`free` drops it, and the page rejoins the free list at
+    refcount zero.
     """
 
-    def __init__(self, total_pages, page_size, kv_dtype="float32",
-                 page_bytes=0, scale_page_bytes=0):
+    def __init__(self, total_pages, page_size, page_bytes=0):
         if total_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the scratch page)")
         if page_size < 1:
             raise ValueError("page_size must be >= 1")
-        if str(kv_dtype) not in ("float32", "int8"):
-            raise ValueError("kv_dtype must be float32 or int8, got %r"
-                             % (kv_dtype,))
         self.total_pages = int(total_pages)
         self.page_size = int(page_size)
-        # quantized pools: int8 pages carry a parallel scales
-        # pool indexed by the SAME page ids, so one refcount/free-list
-        # conservation check covers both pools — check_leaks needs no
-        # second ledger.  The byte costs are optional engine-supplied
-        # geometry (k+v codes per page, k+v scales per page) so stats()
-        # can report physical bytes and the per-token cost with the
-        # scales amortized over the page.
-        self.kv_dtype = str(kv_dtype)
+        # k+v bytes per page, so stats() can report physical bytes and
+        # the per-token cost
         self.page_bytes = int(page_bytes)
-        self.scale_page_bytes = int(scale_page_bytes)
         self._lock = threading.Lock()
         # LIFO: freshly freed pages go back out first (warm reuse)
         self._free = list(range(self.total_pages - 1, SCRATCH_PAGE, -1))
@@ -123,7 +91,6 @@ class PageAllocator:
         self._refs = {}    # page -> live reference count
         self.peak_used = 0
         self.counters = {"allocs": 0, "frees": 0, "failed_allocs": 0,
-                         "shares": 0, "forks": 0, "trims": 0,
                          "leak_checks": 0}
         self.last_leak = []
 
@@ -151,44 +118,6 @@ class PageAllocator:
             self.peak_used = max(self.peak_used, self._used_locked())
             return pages
 
-    def share(self, owner, pages):
-        """Attach already-live ``pages`` to ``owner``'s table as shared
-        (read-only by convention) references — the prefix-cache hit
-        path.  Refcounts go up; occupancy does not."""
-        pages = list(pages)
-        with self._lock:
-            for p in pages:
-                if p not in self._refs:
-                    raise ValueError("share: page %d is not live" % p)
-            for p in pages:
-                self._refs[p] += 1
-            self._owned.setdefault(owner, []).extend(pages)
-            self.counters["shares"] += len(pages)
-        return pages
-
-    def fork(self, owner, page):
-        """Copy-on-write bookkeeping: replace ``owner``'s reference to a
-        shared ``page`` with a fresh private page (same position in the
-        table) and drop the shared reference.  Returns the new page id;
-        the CALLER must copy the device contents old -> new before
-        writing.  Raises :class:`CacheOOM` when no page is free."""
-        with self._lock:
-            table = self._owned.get(owner)
-            if not table or page not in table:
-                raise ValueError("fork: owner %r does not hold page %d"
-                                 % (owner, page))
-            if not self._free:
-                self.counters["failed_allocs"] += 1
-                raise CacheOOM("kv cache exhausted: fork needs 1 page")
-            new = self._free.pop()
-            self._refs[new] = 1
-            table[table.index(page)] = new
-            self._deref_locked(page)
-            self.counters["allocs"] += 1
-            self.counters["forks"] += 1
-            self.peak_used = max(self.peak_used, self._used_locked())
-            return new
-
     def _deref_locked(self, page):
         left = self._refs[page] - 1
         if left:
@@ -214,36 +143,6 @@ class PageAllocator:
             for p in reversed(pages):
                 self._deref_locked(p)
             return self.counters["frees"] - freed0
-
-    def trim(self, owner, keep):
-        """Truncate ``owner``'s page list to its first ``keep`` pages,
-        dereferencing the tail in reverse allocation order — the
-        speculative-decode rollback primitive (rejected draft tokens
-        hand their pages straight back).  Copy-on-write aware the same
-        way :meth:`free` is: a trimmed page that other owners (a prefix
-        cache entry, a peer sequence) still reference only drops this
-        owner's refcount and stays resident; it rejoins the free list at
-        refcount zero.  The page CONTAINING the new write boundary is
-        kept — when it is shared, the caller must :meth:`fork` it before
-        re-writing rolled-back offsets (the engine's ``_rollback_kv``
-        does exactly that).  Returns the number of references dropped;
-        unknown owners and ``keep >= len(pages)`` trim 0 (idempotent).
-        """
-        keep = max(0, int(keep))
-        with self._lock:
-            pages = self._owned.get(owner)
-            if pages is None or len(pages) <= keep:
-                return 0
-            tail = pages[keep:]
-            del pages[keep:]
-            if not pages:
-                del self._owned[owner]
-            # reversed: LIFO free list re-issues the rolled-back pages
-            # first, same warm-reuse policy as free()
-            for p in reversed(tail):
-                self._deref_locked(p)
-            self.counters["trims"] += 1
-            return len(tail)
 
     def pages(self, owner):
         """The owner's page list (copy), allocation order == token order."""
@@ -284,11 +183,7 @@ class PageAllocator:
     def check_leaks(self):
         """Conservation check: every allocatable page is either in the
         free list (refcount 0) or referenced by at least one owner list,
-        with refcounts exactly matching the table references.  With an
-        int8 pool the per-page scales ride the SAME page ids as the
-        codes (``QPages`` keeps the two device arrays parallel), so
-        this single check conserves the scales pool too — a page id can
-        no more leak its scale row than its code block.  Raises
+        with refcounts exactly matching the table references.  Raises
         the typed :class:`KVLeakError` (leaked/duplicated page ids
         attached) on violation; returns the owner count when clean."""
         with self._lock:
@@ -337,273 +232,11 @@ class PageAllocator:
                 "owners": len(self._owned),
                 "shared_pages": self._shared_locked(),
                 "leaked_pages": len(self.last_leak),
-                "kv_dtype": self.kv_dtype,
                 "counters": dict(self.counters),
             }
             if self.page_bytes:
-                # physical footprint incl. the int8 scales pool, and the
-                # per-resident-token cost with scales amortized over the
-                # page — the capacity lever the bench's 1.9x gate pins
-                per_page = self.page_bytes + self.scale_page_bytes
-                out["scale_page_bytes"] = self.scale_page_bytes
-                out["pool_bytes"] = per_page * cap
-                out["used_bytes"] = per_page * used
+                out["pool_bytes"] = self.page_bytes * cap
+                out["used_bytes"] = self.page_bytes * used
                 out["kv_bytes_per_token"] = round(
-                    per_page / self.page_size, 2)
+                    self.page_bytes / self.page_size, 2)
             return out
-
-
-# -- session wire format --------------------------------------------------
-#
-# One exported session is a flat self-describing buffer:
-#
-#   v1: b"MXKV" | u32 header_len | header JSON | k_pages | v_pages
-#   v2: b"MXKV" | u32 header_len | header JSON | k_pages | v_pages
-#                                              | k_scales | v_scales
-#
-# The header carries the session metadata dict, the block shape/dtype of
-# the gathered pages (layers, kv_heads, n_pages, page_size, head_dim),
-# and a CRC32 over the raw page bytes — a torn transfer fails loudly at
-# import instead of decoding against garbage.  numpy round-trips the
-# bytes exactly, so serialize -> ship -> import is bit-identical (the
-# oracle the migration tests pin).
-#
-# Format v2 carries an int8-quantized cache: the header gains
-# ``kv_dtype`` plus the scales blocks' dtype/shape and their OWN CRC —
-# scales are ~1/(4*head_dim) of the payload but corrupting one poisons a
-# whole page of tokens, so they fail independently and loudly.  A v1
-# blob (no ``kv_dtype`` key) still unpacks: old fp sessions keep
-# migrating into new replicas unchanged.
-
-_MAGIC = b"MXKV"
-_U32 = struct.Struct(">I")
-
-
-def pack_session(meta, k_block, v_block, k_scales=None, v_scales=None):
-    """Serialize one session: ``meta`` (JSON-safe dict) plus the k/v
-    page blocks (numpy arrays, identical shape/dtype) into one buffer.
-    With ``k_scales``/``v_scales`` (int8 pages: per-(layer, kv_head,
-    page) f32 scales) the blob is format v2; without, the v1 wire is
-    emitted byte-for-byte as before."""
-    k = onp.ascontiguousarray(k_block)
-    v = onp.ascontiguousarray(v_block)
-    if k.shape != v.shape or k.dtype != v.dtype:
-        raise ValueError("pack_session: k/v block shape or dtype mismatch")
-    kb, vb = k.tobytes(), v.tobytes()
-    head = {
-        "v": 1,
-        "meta": meta,
-        "dtype": k.dtype.str,
-        "shape": list(k.shape),
-        "crc": zlib.crc32(vb, zlib.crc32(kb)) & 0xFFFFFFFF,
-    }
-    tail = []
-    if (k_scales is None) != (v_scales is None):
-        raise ValueError("pack_session: k/v scales must come together")
-    if k_scales is not None:
-        ks = onp.ascontiguousarray(k_scales)
-        vs = onp.ascontiguousarray(v_scales)
-        if ks.shape != vs.shape or ks.dtype != vs.dtype:
-            raise ValueError(
-                "pack_session: k/v scales shape or dtype mismatch")
-        ksb, vsb = ks.tobytes(), vs.tobytes()
-        head["v"] = 2
-        head["kv_dtype"] = onp.dtype(k.dtype).name
-        head["s_dtype"] = ks.dtype.str
-        head["s_shape"] = list(ks.shape)
-        head["s_crc"] = zlib.crc32(vsb, zlib.crc32(ksb)) & 0xFFFFFFFF
-        tail = [ksb, vsb]
-    header = json.dumps(head).encode("utf-8")
-    return b"".join([_MAGIC, _U32.pack(len(header)), header, kb, vb]
-                    + tail)
-
-
-def unpack_session(blob, with_scales=False):
-    """Inverse of :func:`pack_session`; returns ``(meta, k_block,
-    v_block)``, or ``(meta, k_block, v_block, k_scales, v_scales)``
-    with ``with_scales=True`` (the scales are ``None`` for a v1/fp
-    blob).  Raises ``ValueError`` on a torn or corrupt buffer (bad
-    magic, truncation, CRC mismatch on either the page payload or the
-    v2 scales payload)."""
-    if len(blob) < len(_MAGIC) + _U32.size or blob[:4] != _MAGIC:
-        raise ValueError("unpack_session: bad magic (torn transfer?)")
-    (hlen,) = _U32.unpack_from(blob, 4)
-    off = 4 + _U32.size
-    if len(blob) < off + hlen:
-        raise ValueError("unpack_session: truncated header")
-    header = json.loads(blob[off:off + hlen].decode("utf-8"))
-    off += hlen
-    dtype = onp.dtype(header["dtype"])
-    shape = tuple(header["shape"])
-    nbytes = dtype.itemsize * int(onp.prod(shape)) if shape else 0
-    quantized = "kv_dtype" in header
-    if quantized:
-        s_dtype = onp.dtype(header["s_dtype"])
-        s_shape = tuple(header["s_shape"])
-        snbytes = (s_dtype.itemsize * int(onp.prod(s_shape))
-                   if s_shape else 0)
-    else:
-        snbytes = 0
-    if len(blob) != off + 2 * nbytes + 2 * snbytes:
-        raise ValueError("unpack_session: truncated page payload "
-                         "(%d != %d)"
-                         % (len(blob) - off, 2 * nbytes + 2 * snbytes))
-    kb = blob[off:off + nbytes]
-    vb = blob[off + nbytes:off + 2 * nbytes]
-    crc = zlib.crc32(vb, zlib.crc32(kb)) & 0xFFFFFFFF
-    if crc != header["crc"]:
-        raise ValueError("unpack_session: CRC mismatch (torn transfer)")
-    k = onp.frombuffer(kb, dtype=dtype).reshape(shape)
-    v = onp.frombuffer(vb, dtype=dtype).reshape(shape)
-    ks = vs = None
-    if quantized:
-        soff = off + 2 * nbytes
-        ksb = blob[soff:soff + snbytes]
-        vsb = blob[soff + snbytes:soff + 2 * snbytes]
-        scrc = zlib.crc32(vsb, zlib.crc32(ksb)) & 0xFFFFFFFF
-        if scrc != header["s_crc"]:
-            raise ValueError(
-                "unpack_session: scales CRC mismatch (torn transfer)")
-        ks = onp.frombuffer(ksb, dtype=s_dtype).reshape(s_shape)
-        vs = onp.frombuffer(vsb, dtype=s_dtype).reshape(s_shape)
-    if with_scales:
-        return header["meta"], k, v, ks, vs
-    return header["meta"], k, v
-
-
-# -- prefix cache ---------------------------------------------------------
-class _PrefixEntry:
-    __slots__ = ("key", "page", "tokens", "partial", "owner", "tick")
-
-    def __init__(self, key, page, tokens, partial, owner, tick):
-        self.key = key          # exact token prefix this page completes
-        self.page = page
-        self.tokens = tokens    # cache positions this entry vouches for
-        self.partial = partial  # True: trailing partially-filled page
-        self.owner = owner      # allocator owner holding the cache's ref
-        self.tick = tick        # LRU clock
-
-
-class PrefixCache:
-    """Content-addressed prompt-prefix pages, shared copy-on-write.
-
-    Full pages are keyed by the exact token prefix they complete
-    (position-dependent KV makes anything weaker unsound); the trailing
-    partial page of a prompt is cached too, keyed by the full prefix it
-    holds.  A lookup returns the longest chain of cached pages covering
-    a strict prefix of the prompt (at least one token is always left to
-    prefill — its logits seed generation).  The cache holds one
-    allocator reference per entry, so hit pages stay live across the
-    inserting sequence's exit; eviction is LRU and only reclaims pool
-    space once no sequence shares the page.
-
-    Writers never mutate a shared full page (decode appends past it);
-    a hit on a *partial* page is forked copy-on-write by the engine
-    before its first write lands (``cow_forks`` in the metrics).
-    """
-
-    def __init__(self, alloc):
-        self.alloc = alloc
-        self._lock = threading.Lock()
-        self._entries = {}   # key tuple -> _PrefixEntry
-        self._serial = 0
-        self._tick = 0
-        self.counters = {"hits": 0, "misses": 0, "inserts": 0,
-                         "evictions": 0, "tokens_saved": 0}
-
-    def __len__(self):
-        with self._lock:
-            return len(self._entries)
-
-    def lookup(self, prompt):
-        """Longest cached cover of a strict prefix of ``prompt``;
-        returns ``(pages, covered_tokens, partial_hit)`` (all falsy on
-        a miss).  The returned pages are NOT yet referenced — the
-        caller must :meth:`PageAllocator.share` them immediately."""
-        S = self.alloc.page_size
-        limit = len(prompt) - 1          # always leave >=1 token to prefill
-        with self._lock:
-            self._tick += 1
-            pages, covered = [], 0
-            while covered + S <= limit:
-                e = self._entries.get(tuple(prompt[:covered + S]))
-                if e is None or e.partial:
-                    break
-                e.tick = self._tick
-                pages.append(e.page)
-                covered += S
-            partial = False
-            for m in range(min(S - 1, limit - covered), 0, -1):
-                e = self._entries.get(tuple(prompt[:covered + m]))
-                if e is not None and e.partial:
-                    e.tick = self._tick
-                    pages.append(e.page)
-                    covered += m
-                    partial = True
-                    break
-            if covered:
-                self.counters["hits"] += 1
-                self.counters["tokens_saved"] += covered
-            else:
-                self.counters["misses"] += 1
-            return pages, covered, partial
-
-    def insert(self, tokens, owner_pages):
-        """Publish a freshly-prefilled sequence's pages: every full page
-        (and the trailing partial one) becomes a cache entry under its
-        exact prefix key, with the cache taking one shared reference.
-        Existing entries win (first writer published identical KV)."""
-        S = self.alloc.page_size
-        new = 0
-        with self._lock:
-            self._tick += 1
-            nfull = len(tokens) // S
-            for i in range(min(nfull, len(owner_pages))):
-                new += self._insert_locked(tuple(tokens[:(i + 1) * S]),
-                                           owner_pages[i], S, False)
-            m = len(tokens) - nfull * S
-            if m and nfull < len(owner_pages):
-                new += self._insert_locked(tuple(tokens),
-                                           owner_pages[nfull], m, True)
-        return new
-
-    def _insert_locked(self, key, page, tokens, partial):
-        if key in self._entries:
-            self._entries[key].tick = self._tick
-            return 0
-        self._serial += 1
-        owner = ("pfx", self._serial)
-        try:
-            self.alloc.share(owner, [page])
-        except ValueError:      # page raced off (owner already freed)
-            return 0
-        self._entries[key] = _PrefixEntry(key, page, tokens, partial,
-                                          owner, self._tick)
-        self.counters["inserts"] += 1
-        return 1
-
-    def evict_one(self):
-        """Drop the LRU entry (pool pressure).  Returns True when an
-        entry was dropped — its page rejoins the pool only if no
-        sequence still shares it."""
-        with self._lock:
-            if not self._entries:
-                return False
-            key = min(self._entries.values(), key=lambda e: e.tick).key
-            e = self._entries.pop(key)
-            self.counters["evictions"] += 1
-        self.alloc.free(e.owner)
-        return True
-
-    def clear(self):
-        with self._lock:
-            entries = list(self._entries.values())
-            self._entries.clear()
-        for e in entries:
-            self.alloc.free(e.owner)
-        return len(entries)
-
-    def stats(self):
-        with self._lock:
-            return {"entries": len(self._entries),
-                    "counters": dict(self.counters)}

@@ -1,6 +1,7 @@
 """Port parity: ``mxnet_tpu_torch.models.decoder`` against
 ``mxnet_tpu.models.decoder`` on the CPU, with the JAX model's weights
-carried across by ``params_from_jax``.
+carried across by ``params_from_jax``.  The biases and LN affines are
+random, so each of them is held against JAX too.
 
 - every weight leaf round-trips exactly;
 - the KV append lays tokens out as the JAX ``.at[li, :, wp, ws, :]``
@@ -31,9 +32,23 @@ GEOM = dict(vocab_size=64, num_layers=2, units=32, hidden_size=64,
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+def _tiny_lm_with_affine(**geom):
+    """The JAX ``decoder_tiny_lm(seed=0)`` with random biases, LN betas,
+    and LN gammas about 1.  Its initialiser leaves them at 0 and 1, where
+    a port that dropped or swapped one would still agree."""
+    jlm = jdec.decoder_tiny_lm(seed=0, **geom)
+    rng = np.random.default_rng(7)
+    for name, p in jlm.collect_params().items():
+        if name.endswith(("bias", "beta", "gamma")):
+            base = 1.0 if name.endswith("gamma") else 0.0
+            p.set_data((base + 0.1 * rng.standard_normal(p.shape))
+                       .astype(np.float32))
+    return jlm
+
+
 @pytest.fixture(scope="module")
 def models():
-    jlm = jdec.decoder_tiny_lm(seed=0, **GEOM)
+    jlm = _tiny_lm_with_affine(**GEOM)
     params_np = jax.tree.map(np.asarray, jlm.jax_params())
     tlm = tdec.CausalLM(**GEOM, device="cpu").load_jax_params(params_np)
     return jlm, tlm, params_np

@@ -3,7 +3,8 @@
 ``decode_layer_group(..., mode="interpret")`` — the Pallas kernel run by
 the interpreter — on the geometry of ``test_fused_cell.py``'s decode
 parity test: vocab 64, 2 layers, units 32, 4 heads over 2 KV heads, page
-size 8, 4 slots with one inactive.
+size 8, 4 slots with one inactive.  The biases and LN affines are random,
+so a kernel that dropped or swapped one of them would disagree.
 """
 from __future__ import annotations
 
@@ -26,9 +27,23 @@ GEOM = dict(vocab_size=64, num_layers=2, units=32, hidden_size=64,
 S, B, PPS, TOTAL = 8, 4, 8, 16
 
 
+def _tiny_lm_with_affine(**geom):
+    """The JAX ``decoder_tiny_lm(seed=0)`` with random biases, LN betas,
+    and LN gammas about 1.  Its initialiser leaves them at 0 and 1, where
+    a port that dropped or swapped one would still agree."""
+    jlm = jdec.decoder_tiny_lm(seed=0, **geom)
+    rng = np.random.default_rng(7)
+    for name, p in jlm.collect_params().items():
+        if name.endswith(("bias", "beta", "gamma")):
+            base = 1.0 if name.endswith("gamma") else 0.0
+            p.set_data((base + 0.1 * rng.standard_normal(p.shape))
+                       .astype(np.float32))
+    return jlm
+
+
 @pytest.fixture(scope="module")
 def models():
-    jlm = jdec.decoder_tiny_lm(seed=0, **GEOM)
+    jlm = _tiny_lm_with_affine(**GEOM)
     params_np = jax.tree.map(np.asarray, jlm.jax_params())
     tlm = tdec.CausalLM(**GEOM, device="cpu").load_jax_params(params_np)
     return jlm, tlm

@@ -1,10 +1,12 @@
 """Port parity: ``mxnet_tpu_torch.serving.DecodeEngine`` against the JAX
 ``mxnet_tpu.serving.DecodeEngine`` on the CPU, on the weights of the JAX
-``decoder_tiny_lm(seed=0)`` carried across by ``params_from_jax``.
+``decoder_tiny_lm(seed=0)``, with random biases and LN affines, carried
+across by ``params_from_jax``.
 
 The traffic mixes prompt lengths across several prefill chunks, runs a
 page pool small enough to force preemption, and ends one stream on EOS
-(an EOS id taken from the port's own greedy decode, in this run).  The
+(an EOS id taken from the port's own greedy decode, in this run, that
+only that stream holds).  The
 port's token streams must equal the JAX engine's, computed in the same
 run; where one differs, the port's ``full_forward`` logits must show a
 near-tie (top-2 margin below 1e-4) at the first differing position.  The
@@ -44,16 +46,35 @@ def _greedy(tlm, prompt, n):
     return toks[len(prompt):]
 
 
+def _tiny_lm_with_affine(**geom):
+    """The JAX ``decoder_tiny_lm(seed=0)`` with random biases, LN betas,
+    and LN gammas about 1.  Its initialiser leaves them at 0 and 1, where
+    a port that dropped or swapped one would still agree."""
+    jlm = jdec.decoder_tiny_lm(seed=0, **geom)
+    rng = np.random.default_rng(7)
+    for name, p in jlm.collect_params().items():
+        if name.endswith(("bias", "beta", "gamma")):
+            base = 1.0 if name.endswith("gamma") else 0.0
+            p.set_data((base + 0.1 * rng.standard_normal(p.shape))
+                       .astype(np.float32))
+    return jlm
+
+
 @pytest.fixture(scope="module")
 def setup():
-    jlm = jdec.decoder_tiny_lm(seed=0)
+    jlm = _tiny_lm_with_affine()
     params_np = jax.tree.map(np.asarray, jlm.jax_params())
     cfg = jlm.config
     tlm = tdec.decoder_tiny_lm(device="cpu").load_jax_params(params_np)
     rng = np.random.default_rng(0)
     reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(), m)
             for n, m in zip(PROMPT_LENS, MAX_NEW)]
-    eos = _greedy(tlm, reqs[0][0], 5)[4]
+    # EOS: a token of request 0's greedy stream that no other request's
+    # greedy stream holds, so only request 0 ends on it and the others
+    # still fill the pool
+    streams = [_greedy(tlm, p, n) for p, n in reqs]
+    others = {t for st in streams[1:] for t in st}
+    eos = next(t for t in streams[0] if t not in others)
     eng = jserving.DecodeEngine(jlm, name="llm", eos_id=eos,
                                 prefix_cache=False, async_decode=False,
                                 **ENGINE)
@@ -141,15 +162,36 @@ def test_decode_step_fault_fails_batch_typed(setup):
     assert eng.alloc.num_used == 0
 
 
-def test_pack_session_bytes_match_jax():
-    """The host-side wire format is shared byte for byte."""
-    rng = np.random.default_rng(0)
-    k = rng.standard_normal((2, 2, 3, 4, 8)).astype(np.float32)
-    v = rng.standard_normal(k.shape).astype(np.float32)
-    meta = {"pos": 11, "pending": 5, "history": [1, 2, 3]}
-    blob = tkv.pack_session(meta, k, v)
-    assert blob == jkv.pack_session(meta, k, v)
-    m2, k2, v2 = jkv.unpack_session(blob)
-    assert m2 == meta
-    np.testing.assert_array_equal(k2, k)
-    np.testing.assert_array_equal(v2, v)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_page_allocator_matches_jax(seed):
+    """One random run of allocations and frees, through an exhausted
+    pool, hands out the same page ids, fails the same allocations and
+    keeps the same accounts in both packages."""
+    rng = np.random.default_rng(seed)
+    j = jkv.PageAllocator(9, 4, page_bytes=64)
+    t = tkv.PageAllocator(9, 4, page_bytes=64)
+    ooms = 0
+    for _ in range(80):
+        owner = int(rng.integers(0, 4))
+        if rng.random() < 0.6:
+            n = int(rng.integers(1, 4))
+            try:
+                want = j.alloc(owner, n)
+            except jkv.CacheOOM:
+                want = "oom"
+            try:
+                got = t.alloc(owner, n)
+            except tkv.CacheOOM:
+                got = "oom"
+            ooms += got == "oom"
+        else:
+            want, got = j.free(owner), t.free(owner)
+        assert got == want
+        js, ts = j.stats(), t.stats()
+        for k, v in ts.items():
+            if k == "counters":
+                assert v == {c: js[k][c] for c in v}
+            else:
+                assert v == js[k], k
+        assert t.check_leaks() == j.check_leaks()
+    assert ooms and t.peak_used == 8
