@@ -12,16 +12,21 @@ plain version):
 2. Kernel checks: each kernel against its plain PyTorch version on the
    card, at the main path's full-width shapes and at a GQA geometry, with
    the tolerance stated; each kernel's time, its plain version's time,
-   its bound and (where one exists) one PyTorch call's time.
+   its bound and (where one exists) one PyTorch call's time.  The
+   quantized-serving kernels (``quant_matmul`` int8 and int4, paged
+   attention over int8 pages) are checked at the three GEMM shapes of a
+   layer and M in {1, 16, 64}, and at B 16, H 12 (KVH 12 and 4).
 3. Main path: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
    ``--seed``, with random biases and LN affines, which the kernel checks
    use too) served by ``DecodeEngine`` (16 slots, page size 16, prefill
-   chunk 64) with 48 requests, first with the fused decode
-   kernel, then with ``MXNET_DECODE_FUSED=0``.  Kernel launch counts are
-   set to 0 before each run and read after it.  Then, for 3 requests,
+   chunk 64) with 48 requests, four times: with the fused decode kernel;
+   with ``MXNET_DECODE_FUSED=0``; with int8 weights and int8 KV pages;
+   with int4 weights (group 128) and fp KV pages.  Kernel launch counts
+   are set to 0 before each run and read after it.  Then, for 3 requests,
    teacher-forced prefill + decode through each engine's programs is held
-   against ``full_forward``.
+   against ``full_forward`` (over the quantized weights for int4), and for
+   the int8-KV run against the same programs on CPU copies of the params.
 4. The kernels line, the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -46,6 +51,18 @@ TOL_BIAS_GELU = 1e-5     # one fp32 erf per element
 TOL_ATTENTION = 1e-4     # fp32 online vs two-pass softmax over <= 512 keys
 TOL_FUSED = 1e-3         # fp32, 12 layers, GEMV sums in another order
 TOL_LOGITS = 1e-3        # teacher-forced logits vs full_forward, fp32
+# quant_matmul vs its plain version (dequantize, then x @ w.T): the kernel
+# adds its fp32 products in another order (8 warps split K), and for int8
+# applies the per-channel scale after the sum rather than to each weight,
+# so the two round differently: ~1e-5 at most on outputs of order 1
+# (x ~ N(0, 1), Xavier weights, up to 3072 inputs)
+TOL_QMM = 1e-4
+# teacher-forced logits with int8 KV pages, card vs CPU copies of the
+# params and pages: K/V that differ in the last fp32 bit between the two
+# devices can round to neighbouring int8 codes at a .5 boundary, moving
+# one element by one step of its page's scale (~amax/127); such flips in
+# 12 layers move logits of order 0.2 by up to ~1e-2
+TOL_LOGITS_INT8KV = 2e-2
 
 WIDTHS = dict(vocab_size=30522, num_layers=12, units=768, hidden_size=3072,
               num_heads=12, num_kv_heads=12, max_length=512)
@@ -67,7 +84,10 @@ def card_line():
 class Timer:
     """Median device time of ``fn`` over ``iters`` launches, each after a
     write of a buffer larger than the 50 MB L2, so every launch starts
-    with a cold cache as the serving path's kernels mostly do."""
+    with a cold cache as the serving path's kernels mostly do.  A ~0.1 ms
+    spin kernel sits between the flush and the start event, so the host
+    has enqueued ``fn``'s launches before the card reaches them: the time
+    is the card's, not the wrapper's Python."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -79,6 +99,7 @@ class Timer:
         ms = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(200_000)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -270,6 +291,114 @@ def check_fused(torch, timer, report, lm, lm_gqa):
                 shape="12 layers, B=16, full width, mixed lengths")
 
 
+QMM_SHAPES = ((768, 768), (3072, 768), (768, 3072))   # (O, I) of a layer
+
+
+def check_quant_matmul(torch, timer, report):
+    """quant_matmul int8 and int4 (group 128) against quant_matmul_plain at
+    the three GEMM shapes of a layer, for one token, a decode batch and a
+    prefill chunk.  The row in the kernels line is (3072, 768) at M 16, a
+    decode step's FFN1."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.kernels import quant_matmul as qm
+    g = torch.Generator(device=DEV).manual_seed(6)
+    for fmt in ("w8", "w4"):
+        for O, I in QMM_SHAPES:
+            bound_w = (6.0 / (O + I)) ** 0.5
+            w = (torch.rand(O, I, device=DEV, generator=g) * 2 - 1) * bound_w
+            qw = qm.quantize_w8(w) if fmt == "w8" else qm.quantize_w4(w, 128)
+            wd = qm.dequantize_weight(qw)
+            for M in (1, 16, 64):
+                x = torch.randn(M, I, device=DEV, generator=g)
+                out = qm.quant_matmul(x, qw)
+                ref = qm.quant_matmul_plain(x, qw)
+                err = float((out - ref).abs().max())
+                ms = timer(lambda: qm.quant_matmul(x, qw))
+                plain = timer(lambda: qm.quant_matmul_plain(x, qw))
+                lib = timer(lambda: F.linear(x, wd))
+                nbytes = (qw.q.numel() + 4 * qw.s.numel()
+                          + 4 * (M * I + M * O))
+                bms, by = bound(nbytes, 2 * M * O * I)
+                log("quant_matmul_%s (M=%d, O=%d, I=%d): max_abs_err %.3g "
+                    "(tol %g) kernel %.4f ms plain %.4f ms F.linear(fp32 "
+                    "dequantized) %.4f ms bound %.4f ms (%s)"
+                    % (fmt, M, O, I, err, TOL_QMM, ms, plain, lib, bms, by))
+                if not err <= TOL_QMM:
+                    raise AssertionError("quant_matmul_%s disagrees with its "
+                                         "plain version" % fmt)
+                if (O, I, M) == (3072, 768, 16):
+                    report["quant_matmul_" + fmt] = dict(
+                        name="quant_matmul_" + fmt, route="cuda",
+                        source="mxnet_tpu_torch/csrc/quant_matmul.cu",
+                        replaces="mxnet_tpu/ops/pallas/quant_matmul.py:%d"
+                        % (179 if fmt == "w8" else 185),
+                        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                        bound_by=by, library_ms=lib,
+                        shape="M=16 O=3072 I=768 (decode FFN1)")
+
+
+def check_paged_attention_int8(torch, timer, report):
+    """paged_attention over int8 QPages against gather_pages_deq +
+    attend_ctx, at the decode batch's shapes and at GQA."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.kernels import paged_attention as pa
+    rng = np.random.default_rng(7)
+    B, D, P, pps = SLOTS, 64, SLOTS * 32 + 1, 32
+    lengths = rng.integers(1, 513, B)
+    lengths[3] = 0
+    lengths[5] = 512
+    for H, KVH in ((12, 12), (12, 4)):
+        g = torch.Generator(device=DEV).manual_seed(8)
+        q = torch.randn(B, H, D, device=DEV, generator=g)
+
+        def pages():
+            codes = torch.randint(-127, 128, (KVH, P, PAGE, D), device=DEV,
+                                  generator=g).to(torch.int8)
+            scales = torch.rand(KVH, P, device=DEV, generator=g) * 0.05
+            return pa.QPages(q=codes, s=scales)
+
+        kp, vp = pages(), pages()
+        ln = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+        tb = torch.tensor(tables_for(rng, lengths, pps), device=DEV)
+        out = pa.paged_attention(q, kp, vp, ln, tb)
+        ref = pa.paged_attention_reference(q, kp, vp, ln, tb)
+        err = float((out - ref).abs().max())
+        if not torch.all(out[3] == 0):
+            raise AssertionError("paged_attention int8: length-0 row not "
+                                 "zero")
+        ms = timer(lambda: pa.paged_attention(q, kp, vp, ln, tb))
+        plain = timer(lambda: pa.paged_attention_reference(q, kp, vp, ln,
+                                                           tb))
+        kc = pa.gather_pages_deq(kp.q, kp.s, tb)
+        vc = pa.gather_pages_deq(vp.q, vp.s, tb)
+        mask = (torch.arange(pps * PAGE, device=DEV)[None, None, None, :]
+                < ln.reshape(B, 1, 1, 1))
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kc, vc, attn_mask=mask,
+            enable_gqa=(H != KVH)))
+        toks = int(lengths.sum())
+        pages_read = int(sum(-(-int(n) // PAGE) for n in lengths))
+        nbytes = (2 * toks * KVH * D + 2 * 4 * pages_read * KVH
+                  + 4 * (2 * B * H * D + B + B * pps))
+        bms, by = bound(nbytes, 4 * H * D * toks)
+        log("paged_attention_int8 B=%d H=%d KVH=%d D=%d lengths %d..%d: "
+            "max_abs_err %.3g (tol %g) kernel %.4f ms plain %.4f ms "
+            "sdpa(dequantized, gathered) %.4f ms bound %.4f ms"
+            % (B, H, KVH, D, lengths.min(), lengths.max(), err,
+               TOL_ATTENTION, ms, plain, lib, bms))
+        if not err <= TOL_ATTENTION:
+            raise AssertionError("paged_attention int8 disagrees with its "
+                                 "plain version")
+        if H == KVH:
+            report["paged_attention_int8"] = dict(
+                name="paged_attention_int8", route="cuda",
+                source="mxnet_tpu_torch/csrc/paged_attention.cu",
+                replaces="mxnet_tpu/ops/pallas/paged_attention.py:251",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib,
+                shape="B=16 H=12 KVH=12 D=64 int8 pages, mixed lengths")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -280,14 +409,37 @@ def traffic(seed, n):
              int(rng.integers(16, 129))) for _ in range(n)]
 
 
-def serve(torch, lm, reqs, fused):
+KERNELS = ("bias_gelu", "paged_attention", "decode_layer_group",
+           "quant_matmul_w8", "quant_matmul_w4", "paged_attention_int8")
+
+
+def launch_counts(reset=False):
+    """Every kernel wrapper's launch count (set to 0 first when ``reset``)."""
     from mxnet_tpu_torch.ops.kernels import epilogue as ep
     from mxnet_tpu_torch.ops.kernels import fused_cell as fc
     from mxnet_tpu_torch.ops.kernels import paged_attention as pa
+    from mxnet_tpu_torch.ops.kernels import quant_matmul as qm
+    counters = {"bias_gelu": (ep.bias_gelu, "launches"),
+                "paged_attention": (pa.paged_attention, "launches"),
+                "decode_layer_group": (fc.decode_layer_group, "launches"),
+                "quant_matmul_w8": (qm.quant_matmul, "launches_w8"),
+                "quant_matmul_w4": (qm.quant_matmul, "launches_w4"),
+                "paged_attention_int8": (pa.paged_attention,
+                                         "launches_int8")}
+    if reset:
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+
+def serve(torch, lm, reqs, label, fused, **quant):
+    """Serve ``reqs`` through a fresh engine; check every request's length
+    and that the run launched exactly the kernels of its path."""
     from mxnet_tpu_torch.serving import DecodeEngine
     os.environ["MXNET_DECODE_FUSED"] = "1" if fused else "0"
     eng = DecodeEngine(lm, name="smoke", slots=SLOTS, page_size=PAGE,
-                       max_ctx=MAX_CTX, prefill_chunk=CHUNK, device=DEV)
+                       max_ctx=MAX_CTX, prefill_chunk=CHUNK, device=DEV,
+                       **quant)
     eng.warmup()
     prefill_fn, chunk_ms = eng._prefill_fn, []
 
@@ -300,16 +452,12 @@ def serve(torch, lm, reqs, fused):
 
     eng._prefill_fn = timed_prefill
     torch.cuda.synchronize()
-    ep.bias_gelu.launches = 0
-    pa.paged_attention.launches = 0
-    fc.decode_layer_group.launches = 0
+    launch_counts(reset=True)
     t0 = time.perf_counter()
     futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
     outs = [f.result(timeout=900) for f in futs]
     wall = time.perf_counter() - t0
-    counts = {"bias_gelu": ep.bias_gelu.launches,
-              "paged_attention": pa.paged_attention.launches,
-              "decode_layer_group": fc.decode_layer_group.launches}
+    counts = launch_counts()
     if not eng.stop():
         raise AssertionError("engine worker did not stop")
     snap = eng.metrics.snapshot()["models"]["smoke"]
@@ -320,66 +468,104 @@ def serve(torch, lm, reqs, fused):
                                  % ({k: o[k] for k in ("finish_reason",
                                                        "completion_tokens")},))
     L = lm.config.num_layers
-    groups = eng.launch_stats["layer_groups"]
-    if fused:
-        ok = (counts["decode_layer_group"] == steps * groups
-              and counts["paged_attention"] == 0)
+    chunks = len(chunk_ms)
+    want = dict.fromkeys(KERNELS, 0)
+    if eng.decode_fused:
+        want["decode_layer_group"] = steps * eng.launch_stats["layer_groups"]
+        want["bias_gelu"] = chunks * L
     else:
-        ok = (counts["paged_attention"] == steps * L
-              and counts["decode_layer_group"] == 0)
-    ok = ok and counts["bias_gelu"] >= len(chunk_ms) * L > 0
+        attn = ("paged_attention_int8" if eng.kv_dtype == "int8"
+                else "paged_attention")
+        want[attn] = steps * L
+        want["bias_gelu"] = (chunks + steps) * L
+    if eng.quant is not None:
+        fmt = "w8" if eng.quant[0] == "int8" else "w4"
+        want["quant_matmul_" + fmt] = 6 * L * (steps + chunks)
     gen = sum(len(o["tokens"]) for o in outs)
     step = snap["generate"]["decode_step"]
-    log("serve fused=%s: %d requests, %d tokens in %.3f s = %.1f tokens/s; "
-        "%d decode steps p50 %.3f ms p99 %.3f ms; %d prefill chunks p50 "
-        "%.3f ms total %.1f ms; launches %s"
-        % (fused, len(outs), gen, wall, gen / wall, steps, step["p50_ms"],
-           step["p99_ms"], len(chunk_ms), statistics.median(chunk_ms),
+    log("serve %s (decode %s, weights %s, kv %s): %d requests, %d tokens in "
+        "%.3f s = %.1f tokens/s; %d decode steps p50 %.3f ms p99 %.3f ms; %d "
+        "prefill chunks p50 %.3f ms total %.1f ms; launches %s"
+        % (label, "fused" if eng.decode_fused else "per-op",
+           eng.quant and "/".join(map(str, eng.quant)), eng.kv_dtype,
+           len(outs), gen, wall, gen / wall, steps, step["p50_ms"],
+           step["p99_ms"], chunks, statistics.median(chunk_ms),
            sum(chunk_ms), counts))
-    if not ok:
-        raise AssertionError("launch counts do not match the path: %s, "
-                             "%d steps, %d chunks" % (counts, steps,
-                                                      len(chunk_ms)))
+    if counts != want or not chunks or not steps:
+        raise AssertionError("launch counts do not match the path: %s, want "
+                             "%s (%d steps, %d chunks)"
+                             % (counts, want, steps, chunks))
     eng._prefill_fn = prefill_fn
-    return eng, outs, counts, dict(tokens_per_s=gen / wall,
-                                   decode_step_p50_ms=step["p50_ms"],
-                                   prefill_chunk_p50_ms=statistics.median(
-                                       chunk_ms))
+    return eng, outs, counts, dict(
+        tokens_per_s=gen / wall, decode_step_p50_ms=step["p50_ms"],
+        decode_step_p99_ms=step["p99_ms"],
+        prefill_chunk_p50_ms=statistics.median(chunk_ms))
 
 
-def teacher_forced(torch, eng, lm, seqs):
-    """Largest |logit - full_forward logit| over every position of each
-    sequence, computed through the engine's own prefill and decode
-    programs on a fresh one-sequence page pool."""
-    from mxnet_tpu_torch.models import decoder as dec
-    cfg, params = lm.config, lm.params()
-    worst = 0.0
+def fresh_pool(torch, kv_dtype, shape, dev):
+    from mxnet_tpu_torch.ops.kernels import paged_attention as pa
+    if kv_dtype == "int8":
+        return pa.QPages(q=torch.zeros(shape, dtype=torch.int8, device=dev),
+                         s=torch.ones(shape[:3], device=dev))
+    return torch.zeros(shape, device=dev)
+
+
+def params_to(params, dev):
+    """A copy of a params dict (fp or quantized leaves) on ``dev``."""
+    def leaf(t):
+        return (type(t)(*(a.to(dev) for a in t)) if isinstance(t, tuple)
+                else t.to(dev))
+    return {"embed": leaf(params["embed"]), "pos": leaf(params["pos"]),
+            "layers": [{k: leaf(v) for k, v in lp.items()}
+                       for lp in params["layers"]]}
+
+
+def teacher_forced(torch, eng, params, seqs, dev=None):
+    """Logits at every position from the middle of each sequence on,
+    through the engine's own prefill and decode programs on a fresh
+    one-sequence page pool of the engine's KV format on ``dev``; one
+    (positions, vocab) tensor per sequence."""
+    cfg, out, dev = eng.cfg, [], dev or DEV
     for seq in seqs:
         n_pre = len(seq) // 2
         pps = -(-len(seq) // PAGE)
         shape = (cfg.num_layers, cfg.num_kv_heads, pps + 1, PAGE,
                  cfg.head_dim)
-        kp = torch.zeros(shape, device=DEV)
-        vp = torch.zeros(shape, device=DEV)
-        row = torch.arange(1, pps + 1, dtype=torch.int32, device=DEV)
+        kp = fresh_pool(torch, eng.kv_dtype, shape, dev)
+        vp = fresh_pool(torch, eng.kv_dtype, shape, dev)
+        row = torch.arange(1, pps + 1, dtype=torch.int32, device=dev)
         got = []
         for c0 in range(0, n_pre, CHUNK):
             n = min(CHUNK, n_pre - c0)
-            toks = torch.zeros(CHUNK, dtype=torch.int64, device=DEV)
+            toks = torch.zeros(CHUNK, dtype=torch.int64, device=dev)
             toks[:n] = torch.tensor(seq[c0:c0 + n])
             _, _, _, last = eng._prefill_fn(params, kp, vp, toks, c0, n, row)
         got.append(last)
         for t in range(n_pre, len(seq) - 1):
             _, _, _, lg = eng._decode_fn(
-                params, kp, vp, torch.tensor([seq[t]], device=DEV),
-                torch.tensor([t], device=DEV), row[None],
-                torch.ones(1, dtype=torch.bool, device=DEV))
+                params, kp, vp, torch.tensor([seq[t]], device=dev),
+                torch.tensor([t], device=dev), row[None],
+                torch.ones(1, dtype=torch.bool, device=dev))
             got.append(lg[0])
-        ref = dec.full_forward(params, cfg, torch.tensor([seq[:-1]],
-                                                         device=DEV))[0]
-        worst = max(worst, float((torch.stack(got) - ref[n_pre - 1:]).abs()
-                                 .max()))
-    return worst
+        out.append(torch.stack(got).float().to(DEV))
+    return out
+
+
+def full_logits(torch, params, cfg, seqs):
+    """``full_forward`` logits at the positions :func:`teacher_forced`
+    reads."""
+    from mxnet_tpu_torch.models import decoder as dec
+    return [dec.full_forward(params, cfg, torch.tensor(
+        [seq[:-1]], device=DEV))[0][len(seq) // 2 - 1:] for seq in seqs]
+
+
+def max_err(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def top1_agreement(a, b):
+    hit = sum(int((x.argmax(-1) == y.argmax(-1)).sum()) for x, y in zip(a, b))
+    return hit / sum(x.shape[0] for x in a)
 
 
 def profile(torch, lm, reqs, fused):
@@ -470,38 +656,80 @@ def main():
     check_bias_gelu(torch, timer, report)
     check_paged_attention(torch, timer, report)
     check_fused(torch, timer, report, lm, lm_gqa)
+    check_quant_matmul(torch, timer, report)
+    check_paged_attention_int8(torch, timer, report)
     del timer
     if args.kernels_only:
         log("kernel checks passed")
         return 0
 
     reqs = traffic(args.seed, args.requests)
-    eng_f, outs_f, counts_f, perf_f = serve(torch, lm, reqs, fused=True)
-    eng_p, outs_p, counts_p, perf_p = serve(torch, lm, reqs, fused=False)
+    runs = {}
+    for label, fused, quant in (
+            ("fused", True, {}), ("per_op", False, {}),
+            # quantized serving asks for the fused step and must be given
+            # the per-op one
+            ("int8_kv8", True, dict(quantize="int8", kv_dtype="int8")),
+            ("int4", True, dict(quantize="int4", quant_group=128))):
+        runs[label] = serve(torch, lm, reqs, label, fused, **quant)
+    outs_f, outs_p = runs["fused"][1], runs["per_op"][1]
     same = sum(a["tokens"] == b["tokens"] for a, b in zip(outs_f, outs_p))
     log("fused and per-op streams identical for %d of %d requests"
         % (same, len(reqs)))
     seqs = [p + o["tokens"] for (p, _), o in zip(reqs[:3], outs_f[:3])]
-    for eng, label in ((eng_f, "fused"), (eng_p, "per-op")):
-        err = teacher_forced(torch, eng, lm, seqs)
+    cfg, params = lm.config, lm.params()
+    fp_ref = full_logits(torch, params, cfg, seqs)
+    for label in ("fused", "per_op"):
+        err = max_err(teacher_forced(torch, runs[label][0], params, seqs),
+                      fp_ref)
         log("teacher-forced %s prefill+decode vs full_forward over %d "
             "sequences: max_abs_err %.3g (tol %g)"
             % (label, len(seqs), err, TOL_LOGITS))
         if not err <= TOL_LOGITS:
             raise AssertionError("engine logits disagree with full_forward")
+    # int4 weights, fp KV: the engine's programs against full_forward over
+    # the same integer weights (quant_matmul_plain)
+    eng4 = runs["int4"][0]
+    tf4 = teacher_forced(torch, eng4, eng4.params, seqs)
+    err = max_err(tf4, full_logits(torch, eng4.params, cfg, seqs))
+    log("teacher-forced int4 prefill+decode vs full_forward(int4 weights) "
+        "over %d sequences: max_abs_err %.3g (tol %g); top-1 agreement with "
+        "the fp32 model %.4f" % (len(seqs), err, TOL_LOGITS,
+                                 top1_agreement(tf4, fp_ref)))
+    if not err <= TOL_LOGITS:
+        raise AssertionError("int4 engine logits disagree with full_forward")
+    # int8 weights, int8 KV: the same programs on the card and on CPU copies
+    # of the params (where the plain versions serve), over the first 96
+    # tokens of each sequence
+    eng8 = runs["int8_kv8"][0]
+    tf8 = teacher_forced(torch, eng8, eng8.params, seqs)
+    short = [q[:96] for q in seqs]
+    with torch.no_grad():
+        on_card = teacher_forced(torch, eng8, eng8.params, short)
+        on_cpu = teacher_forced(torch, eng8, params_to(eng8.params, "cpu"),
+                                short, dev="cpu")
+    err = max_err(on_card, on_cpu)
+    log("teacher-forced int8/int8-KV prefill+decode, card vs CPU copies over "
+        "%d sequences of 96 tokens: max_abs_err %.3g (tol %g); top-1 "
+        "agreement with the fp32 model %.4f"
+        % (len(short), err, TOL_LOGITS_INT8KV, top1_agreement(tf8, fp_ref)))
+    if not err <= TOL_LOGITS_INT8KV:
+        raise AssertionError("int8-KV engine logits on the card disagree "
+                             "with the CPU")
     if args.profile:
         for fused in (True, False):
             profile(torch, lm, reqs[:16], fused)
-    for name, counts in (("fused", counts_f), ("per-op", counts_p)):
-        log("launches in the %s run: %s" % (name, counts))
     kernels = []
-    for name in ("bias_gelu", "paged_attention", "decode_layer_group"):
+    for name in KERNELS:
         row = report[name]
-        row["launches"] = counts_f[name] + counts_p[name]
+        row["launches"] = sum(run[2][name] for run in runs.values())
+        if not row["launches"]:
+            raise AssertionError("%s was not launched on the main path"
+                                 % name)
         kernels.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    log(json.dumps({"serve": {"fused": perf_f, "per_op": perf_p}}))
+    log(json.dumps({"serve": {k: run[3] for k, run in runs.items()}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -122,6 +122,24 @@ register("MXNET_DECODE_LAYER_GROUP", int, 0, "honored",
          "decoder layers per fused decode-step kernel launch (0 = all "
          "layers in ONE group — one launch per token per engine step)",
          "serving.DecodeEngine")
+register("MXNET_QUANT_WEIGHTS", str, "", "honored",
+         "weight-only quantized LLM serving: 'int8' (per-output-channel "
+         "scales) or 'int4' (per-group, see MXNET_QUANT_GROUP) quantizes "
+         "the decode GEMM weights of a model given to a DecodeEngine; '' "
+         "serves fp32.  Activations stay fp32: the quant_matmul kernel "
+         "dequantizes inside", "serving.DecodeEngine")
+register("MXNET_QUANT_GROUP", int, 128, "honored",
+         "int4 scale-group size (input elements per scale), shrunk to "
+         "divide the input dim", "serving.DecodeEngine")
+register("MXNET_QUANT_KV", str, "", "honored",
+         "KV-cache page dtype of the LLM engine: 'int8' stores pages as "
+         "int8 codes + one scale per (layer, kv_head, page); '' keeps fp32 "
+         "pages", "serving.DecodeEngine")
+register("MXNET_QUANT_MATMUL", str, "", "honored",
+         "the JAX package's dequant-matmul lane switch; the port has one "
+         "lane (the kernel on CUDA tensors, the plain version on CPU "
+         "tensors), so any value but '' raises ValueError",
+         "serving.DecodeEngine")
 register("MXNET_SLO_DEFAULT_TIER", str, "latency", "honored",
          "SLO admission: tier assigned to requests that carry none "
          "('latency' is protected; 'bulk' is shed first under overload)",
@@ -149,7 +167,5 @@ for _name, _help in [
     ("MXNET_GEN_SPECULATE", "speculative decoding"),
     ("MXNET_GEN_PAGESTORE", "session migration through the page store"),
     ("MXNET_GEN_ROLE", "prefill/decode role specialization"),
-    ("MXNET_QUANT_WEIGHTS", "weight-only quantized serving"),
-    ("MXNET_QUANT_KV", "int8 KV pages"),
 ]:
     register(_name, str, "", "not_ported", _help, "serving.DecodeEngine")

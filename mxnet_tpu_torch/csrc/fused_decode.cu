@@ -311,10 +311,12 @@ __global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
       }
       __syncthreads();
       const size_t head0 = (size_t)kvh * g * D;
-      mxt::attend_group(qkv + (size_t)b * N + head0, kp, vp,
+      const size_t pool0 = (size_t)kvh * a.P * a.S * D;
+      mxt::attend_group(qkv + (size_t)b * N + head0,
+                        mxt::F32Pages{kp + pool0, vp + pool0},
                         a.tables + (size_t)b * a.pps, a.pps, a.lengths[b],
-                        kvh, a.P, a.S, D, g, a.scale,
-                        att + (size_t)b * C + head0, smem);
+                        a.S, D, g, a.scale, att + (size_t)b * C + head0,
+                        smem);
     }
     sync();
 

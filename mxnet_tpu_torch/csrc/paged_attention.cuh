@@ -19,12 +19,48 @@
 // tile of keys and values, the logits and the running output in shared
 // memory.  The softmax is the online (running max / running sum) form in
 // fp32.
+//
+// The page type is a template parameter (F32Pages or I8Pages below).  int8
+// pages (the JAX package's QPages, attended there in XLA through
+// gather_pages_deq + attend_ctx, mxnet_tpu/ops/pallas/paged_attention.py:
+// 237-247) are dequantized as they are staged: each code times its page's
+// latched per-head scale, one fp32 multiply, as the plain version does.
+// They move a quarter of the bytes of fp pages (4 codes per 4-byte load).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace mxt {
+
+// fp32 pages of one KV head: (P, S, D) for keys and for values
+struct F32Pages {
+  const float* k;
+  const float* v;
+  __device__ __forceinline__ void load4(size_t off, int /*page*/, float4& kr,
+                                        float4& vr) const {
+    kr = __ldcg(reinterpret_cast<const float4*>(k + off));
+    vr = __ldcg(reinterpret_cast<const float4*>(v + off));
+  }
+};
+
+// int8 pages of one KV head: codes (P, S, D) and per-page scales (P,)
+struct I8Pages {
+  const signed char* k;
+  const signed char* v;
+  const float* ks;
+  const float* vs;
+  __device__ __forceinline__ void load4(size_t off, int page, float4& kr,
+                                        float4& vr) const {
+    const char4 a = __ldcg(reinterpret_cast<const char4*>(k + off));
+    const char4 b = __ldcg(reinterpret_cast<const char4*>(v + off));
+    const float sa = __ldcg(ks + page), sb = __ldcg(vs + page);
+    kr = make_float4((float)a.x * sa, (float)a.y * sa, (float)a.z * sa,
+                     (float)a.w * sa);
+    vr = make_float4((float)b.x * sb, (float)b.y * sb, (float)b.z * sb,
+                     (float)b.w * sb);
+  }
+};
 
 constexpr int ATTN_TILE = 64;   // keys per tile
 constexpr int STAGE_LOADS = 4;  // float4 loads in flight per staging thread
@@ -53,17 +89,18 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // q:      the group's g query rows, row i at q + i * D (heads kvh*g .. +g-1)
-// kp/vp:  one layer's page pools, (KVH, P, S, D)
+// kv:     the KV head's pages (F32Pages or I8Pages), offset to that head
 // table:  the sequence's page-table row (pps entries)
 // out:    the group's g output rows, row i at out + i * D
-// D is a multiple of 4 and the pools are 16-byte aligned (float4 loads).
+// D is a multiple of 4 and the pools are aligned for 4-element loads.
 // A length of 0 (an inactive batch row) writes zeros.
 // Page pools, q and out are read with L2-only loads: inside the fused
 // kernel other blocks write them earlier in the same launch.
-__device__ void attend_group(const float* q, const float* kp, const float* vp,
-                             const int* table, int pps, int length, int kvh,
-                             int P, int S, int D, int g, float scale,
-                             float* out, float* smem) {
+template <class Pages>
+__device__ void attend_group(const float* q, const Pages& kv,
+                             const int* table, int pps, int length, int S,
+                             int D, int g, float scale, float* out,
+                             float* smem) {
   const int tid = threadIdx.x, nth = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
   const int gD = g * D;
@@ -90,8 +127,6 @@ __device__ void attend_group(const float* q, const float* kp, const float* vp,
     l_s[i] = 0.f;
   }
   const size_t page_stride = (size_t)S * D;
-  const float* kh = kp + (size_t)kvh * P * page_stride;
-  const float* vh = vp + (size_t)kvh * P * page_stride;
 
   const int D4 = D >> 2;
   for (int t0 = 0; t0 < length; t0 += ATTN_TILE) {
@@ -107,11 +142,10 @@ __device__ void attend_group(const float* q, const float* kp, const float* vp,
         const int e = e0 + u * nth;
         if (e < n4) {
           const int j = e / D4, t = t0 + j;
-          const size_t off =
-              (size_t)table[min(t / S, pps - 1)] * page_stride +
-              (size_t)(t % S) * D + (size_t)(e - j * D4) * 4;
-          kr[u] = __ldcg(reinterpret_cast<const float4*>(kh + off));
-          vr[u] = __ldcg(reinterpret_cast<const float4*>(vh + off));
+          const int page = table[min(t / S, pps - 1)];
+          const size_t off = (size_t)page * page_stride +
+                             (size_t)(t % S) * D + (size_t)(e - j * D4) * 4;
+          kv.load4(off, page, kr[u], vr[u]);
         }
       }
 #pragma unroll

@@ -15,7 +15,16 @@ positions, tied LM head) with the pieces an LLM server needs:
   batch: KV append, the paged-attention kernel, the ``bias_gelu`` kernel
   between torch matmuls, greedy next token.
 - :func:`make_decode_step_fused` — the same step as one
-  ``fused_cell.decode_layer_group`` kernel launch per layer group.
+  ``fused_cell.decode_layer_group`` kernel launch per layer group (fp
+  weights and fp pages only).
+
+Quantized serving: the six GEMM leaves (:data:`_QUANT_KINDS`) may be
+``quant_matmul.QuantW8``/``QuantW4`` (``serving.quantize``), which every
+GEMM routes through the ``quant_matmul`` kernel (:func:`_dot_t`); and the
+page pools may be ``paged_attention.QPages`` (int8 codes + one scale per
+(layer, KV head, page)), which :func:`_kv_append` quantizes with the
+page-start scale latch and the paged-attention kernel dequantizes as it
+reads.
 
 The KV page pools ``(layers, KVH, total_pages, page_size, head_dim)`` are
 updated IN PLACE by every step; the steps return the same tensors.  This
@@ -40,6 +49,7 @@ from .. import context
 from ..ops.kernels import epilogue as _epilogue
 from ..ops.kernels import fused_cell as _fused
 from ..ops.kernels import paged_attention as _paged
+from ..ops.kernels import quant_matmul as _qmm
 
 __all__ = ["DecoderConfig", "CausalLM", "full_forward", "make_decode_step",
            "make_decode_step_fused", "make_prefill_chunk", "params_from_jax",
@@ -47,6 +57,10 @@ __all__ = ["DecoderConfig", "CausalLM", "full_forward", "make_decode_step",
 
 LAYER_KEYS = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
               "w1", "b1", "w2", "b2", "ln1g", "ln1b", "ln2g", "ln2b")
+
+#: the GEMM leaves quantize_lm replaces with QuantW8/QuantW4 structures
+#: (biases, LN params and embeddings stay fp32)
+_QUANT_KINDS = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 
 class DecoderConfig(NamedTuple):
@@ -66,26 +80,39 @@ def _ln(x, gamma, beta, eps=1e-5):
     return F.layer_norm(x.float(), x.shape[-1:], gamma, beta, eps).to(x.dtype)
 
 
-def _proj(x, w, b=None):
-    """Dense with the gluon (out, in) weight convention: x @ w.T + b."""
-    return F.linear(x, w, b)
+def _dot_t(x, w, plain=False):
+    """``x @ w.T`` for an integer weight leaf (``QuantW8``/``QuantW4``,
+    gluon's (out, in) layout): the ``quant_matmul`` kernel, or its plain
+    version when ``plain``."""
+    return (_qmm.quant_matmul_plain if plain else _qmm.quant_matmul)(x, w)
+
+
+def _proj(x, w, b=None, plain=False):
+    """Dense: x @ w.T + b.  fp weights take ``F.linear`` (bias inside the
+    matmul); integer ones :func:`_dot_t`, with the bias added after, as in
+    the JAX package."""
+    if not _qmm.is_quantized(w):
+        return F.linear(x, w, b)
+    y = _dot_t(x, w, plain)
+    return y if b is None else y + b
 
 
 def _ffn(x, lp, plain=False):
-    """PositionwiseFFN math; ``plain`` selects the plain bias_gelu."""
+    """PositionwiseFFN math; ``plain`` selects the plain bias_gelu and
+    quant_matmul."""
     gelu = _epilogue.bias_gelu_plain if plain else _epilogue.bias_gelu
-    h = gelu(_proj(x, lp["w1"]), lp["b1"])
-    return _proj(h, lp["w2"], lp["b2"])
+    h = gelu(_proj(x, lp["w1"], plain=plain), lp["b1"])
+    return _proj(h, lp["w2"], lp["b2"], plain)
 
 
-def _qkv(x, lp, cfg):
+def _qkv(x, lp, cfg, plain=False):
     """x: (..., C) -> q (..., H, D), k/v (..., KVH, D)."""
     lead = x.shape[:-1]
-    q = _proj(x, lp["wq"], lp["bq"]).reshape(
+    q = _proj(x, lp["wq"], lp["bq"], plain).reshape(
         lead + (cfg.num_heads, cfg.head_dim))
-    k = _proj(x, lp["wk"], lp["bk"]).reshape(
+    k = _proj(x, lp["wk"], lp["bk"], plain).reshape(
         lead + (cfg.num_kv_heads, cfg.head_dim))
-    v = _proj(x, lp["wv"], lp["bv"]).reshape(
+    v = _proj(x, lp["wv"], lp["bv"], plain).reshape(
         lead + (cfg.num_kv_heads, cfg.head_dim))
     return q, k, v
 
@@ -93,22 +120,69 @@ def _qkv(x, lp, cfg):
 def _layer_tail(x, att_merged, lp, plain=False):
     """Post-attention epilogue: proj + residual LN + FFN + residual LN
     (post-LN, the TransformerLayer convention)."""
-    o = _proj(att_merged, lp["wo"], lp["bo"])
+    o = _proj(att_merged, lp["wo"], lp["bo"], plain)
     x = _ln(x + o, lp["ln1g"], lp["ln1b"])
     return _ln(x + _ffn(x, lp, plain), lp["ln2g"], lp["ln2b"])
 
 
+def _quantized(params):
+    return any(_qmm.is_quantized(lp[k]) for lp in params["layers"]
+               for k in _QUANT_KINDS)
+
+
+# ---------------------------------------------------------------------------
+# KV page access: fp tensors or int8 QPages behind one set of helpers
+# ---------------------------------------------------------------------------
 def _kv_append(pages, li, wp, ws, val):
     """Scatter new tokens into layer ``li``'s pages, in place.
 
-    ``wp``/``ws``: (..., T) write page/slot per token (decode passes T=1,
-    prefill the chunk); ``val``: ``ws.shape + (KVH, D)``, the layout of
-    the JAX package's ``pages.at[li, :, wp, ws, :].set(val)``.  NumPy
-    counts the integer ``li`` as an advanced index, so there the index
-    dimensions go first; torch applies ``li`` as a plain index and keeps
-    the (adjacent) page/slot dimensions in place, behind the KV-head axis
-    — hence the explicit move of ``val``'s head axis to the front."""
-    pages[li][:, wp.long(), ws.long(), :] = val.movedim(-2, 0)
+    ``wp``/``ws``: (..., T) write page/slot per token; the last axis holds
+    consecutive positions of one sequence (decode passes T=1, prefill the
+    chunk); ``val``: ``ws.shape + (KVH, D)``, the layout of the JAX
+    package's ``pages.at[li, :, wp, ws, :].set(val)``.  NumPy counts the
+    integer ``li`` as an advanced index, so there the index dimensions go
+    first; torch applies ``li`` as a plain index and keeps the (adjacent)
+    page/slot dimensions in place, behind the KV-head axis — hence the
+    explicit moves of the head axis of ``val``, of the codes and of the
+    scales.
+
+    int8 :class:`~..ops.kernels.paged_attention.QPages` quantize with the
+    page-start scale latch: a token landing at page slot 0 sets its page's
+    per-head scale to ``amax / 127``; every other token reuses the scale
+    its page start latched — looked up in this call's window when the
+    start is in it (``src = t - ws``), from the scales pool otherwise."""
+    wpl, wsl = wp.long(), ws.long()
+    if not isinstance(pages, _paged.QPages):
+        pages[li][:, wpl, wsl, :] = val.movedim(-2, 0)
+        return
+    vf = val.to(torch.float32)
+    amax = vf.abs().amax(dim=-1)                        # ws.shape + (KVH,)
+    fresh = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    old = pages.s[li][:, wpl].movedim(0, -1)            # ws.shape + (KVH,)
+    t = ws.shape[-1]
+    src = torch.arange(t, device=ws.device) - wsl       # page-start index
+    start_fresh = torch.take_along_dim(
+        fresh, src.clamp(0, t - 1)[..., None], dim=-2)
+    snew = torch.where((src >= 0)[..., None], start_fresh, old)
+    codes = torch.round(vf / snew[..., None]).clamp(-127, 127).to(torch.int8)
+    pages.q[li][:, wpl, wsl, :] = codes.movedim(-2, 0)
+    pages.s[li][:, wpl] = snew.movedim(-1, 0)
+
+
+def _kv_layer(pages, li):
+    """Layer ``li``'s page view (``QPages[li]`` would index the tuple's
+    fields, not the layer axis)."""
+    if isinstance(pages, _paged.QPages):
+        return _paged.QPages(q=pages.q[li], s=pages.s[li])
+    return pages[li]
+
+
+def _gather_kv(pages_li, tables):
+    """Contiguous fp32 per-sequence context from one layer's pages: a
+    plain gather for fp pages, gather + dequantize for int8."""
+    if isinstance(pages_li, _paged.QPages):
+        return _paged.gather_pages_deq(pages_li.q, pages_li.s, tables)
+    return _paged.gather_pages(pages_li, tables)
 
 
 def _repeat_kv(t, g, dim):
@@ -127,7 +201,8 @@ def full_forward(params, cfg, tokens):
     """tokens: (B, L) int -> logits (B, L, vocab) float32.
 
     Whole-sequence causal attention and the whole layer stack in plain
-    PyTorch (no kernel), the oracle for the incremental paged paths."""
+    PyTorch (no kernel; quantized GEMMs take ``quant_matmul_plain``), the
+    oracle for the incremental paged paths."""
     B, L = tokens.shape
     g = cfg.num_heads // cfg.num_kv_heads
     scale = 1.0 / (cfg.head_dim ** 0.5)
@@ -135,7 +210,7 @@ def full_forward(params, cfg, tokens):
     x = params["embed"][tokens] + params["pos"][:L]
     causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
     for lp in params["layers"]:
-        q, k, v = _qkv(x, lp, cfg)                      # (B, L, H/KVH, D)
+        q, k, v = _qkv(x, lp, cfg, plain=True)          # (B, L, H/KVH, D)
         q4 = q.transpose(1, 2).float() * scale           # (B, H, L, D)
         k4 = _repeat_kv(k.transpose(1, 2), g, 1).float()
         v4 = _repeat_kv(v.transpose(1, 2), g, 1).float()
@@ -168,8 +243,9 @@ def make_decode_step(cfg, page_size):
     """The per-op batched decode step for (cfg, page_size).
 
     fn(params, k_pages, v_pages, tokens, positions, page_tables, active)
+      params:     fp or quantized weights (GEMMs through quant_matmul)
       k_pages/v_pages: (layers, KVH, total_pages, page_size, head_dim),
-                       updated in place
+                       or QPages of that layout, updated in place
       tokens:     (B,) int — this step's input token per slot
       positions:  (B,) int — cache index the token lands at
       page_tables:(B, pages_per_seq) int32
@@ -188,8 +264,9 @@ def make_decode_step(cfg, page_size):
             q, k, v = _qkv(x, lp, cfg)                  # (B, H/KVH, D)
             _kv_append(k_pages, li, wp[:, None], ws[:, None], k[:, None])
             _kv_append(v_pages, li, wp[:, None], ws[:, None], v[:, None])
-            att = _paged.paged_attention(q.contiguous(), k_pages[li],
-                                         v_pages[li], lengths, page_tables)
+            att = _paged.paged_attention(
+                q.contiguous(), _kv_layer(k_pages, li),
+                _kv_layer(v_pages, li), lengths, page_tables)
             x = _layer_tail(x, att.reshape(B, cfg.units), lp)
         logits = _logits(x, params)
         return (k_pages, v_pages,
@@ -214,13 +291,22 @@ def make_decode_step_fused(cfg, page_size, layer_group=0):
     as :func:`make_decode_step`.  The kernel reads each layer's weights
     through a pointer table (``fused_cell.WeightTable``) built once per
     group when the step first sees a weight set, so no weights are
-    stacked or copied per step."""
+    stacked or copied per step.
+
+    The kernel takes fp32 weights and fp32 pages only: quantized weights
+    or ``QPages`` raise ``ValueError`` (the engine serves them with the
+    per-op step, as the JAX engine does)."""
     S = int(page_size)
     groups = _group_bounds(cfg.num_layers, layer_group)
     seen = {}       # the last weight set's layer list -> its group tables
 
-    def tables(layers, device):
+    def tables(params, device):
+        layers = params["layers"]
         if seen.get("layers") is not layers:
+            if _quantized(params):
+                raise ValueError("make_decode_step_fused: the fused decode "
+                                 "kernel takes fp32 weights; quantized "
+                                 "weights take make_decode_step")
             seen["tables"] = [_fused.WeightTable(layers[lo:hi], device)
                               for lo, hi in groups]
             seen["layers"] = layers
@@ -228,11 +314,14 @@ def make_decode_step_fused(cfg, page_size, layer_group=0):
 
     def step(params, k_pages, v_pages, tokens, positions, page_tables,
              active):
+        if isinstance(k_pages, _paged.QPages):
+            raise ValueError("make_decode_step_fused: the fused decode "
+                             "kernel takes fp32 pages; int8 QPages take "
+                             "make_decode_step")
         x, wp, ws, lengths = _step_inputs(params, cfg, S, tokens, positions,
                                           page_tables, active)
         meta = torch.stack([wp, ws])
-        for (lo, hi), table in zip(groups, tables(params["layers"],
-                                                  k_pages.device)):
+        for (lo, hi), table in zip(groups, tables(params, k_pages.device)):
             _, _, x = _fused.decode_layer_group(
                 x.contiguous(), k_pages[lo:hi], v_pages[lo:hi], table, meta,
                 page_tables, lengths, cfg)
@@ -255,14 +344,15 @@ def make_prefill_chunk(cfg, page_size, chunk):
 
     The chunk's KV is scattered into the sequence's pages first (padded
     tokens go to the scratch page), then the chunk's queries attend over
-    the gathered pages (prefix + chunk) under a causal mask."""
+    the gathered pages (prefix + chunk, read back dequantized from int8
+    QPages) under a causal mask."""
     S = int(page_size)
     P = int(chunk)
     g = cfg.num_heads // cfg.num_kv_heads
     scale = 1.0 / (cfg.head_dim ** 0.5)
 
     def prefill(params, k_pages, v_pages, tokens, pos0, n_valid, page_row):
-        dev = k_pages.device
+        dev = page_row.device
         pps = page_row.shape[0]
         idx = int(pos0) + torch.arange(P, device=dev)
         valid = torch.arange(P, device=dev) < int(n_valid)
@@ -279,8 +369,8 @@ def make_prefill_chunk(cfg, page_size, chunk):
             q, k, v = _qkv(x, lp, cfg)                  # (P, H/KVH, D)
             _kv_append(k_pages, li, wp, ws, k)
             _kv_append(v_pages, li, wp, ws, v)
-            kc = _paged.gather_pages(k_pages[li], page_row[None])[0]
-            vc = _paged.gather_pages(v_pages[li], page_row[None])[0]
+            kc = _gather_kv(_kv_layer(k_pages, li), page_row[None])[0]
+            vc = _gather_kv(_kv_layer(v_pages, li), page_row[None])[0]
             kr = _repeat_kv(kc, g, 0).float()            # (H, ctx, D)
             vr = _repeat_kv(vc, g, 0).float()
             qf = q.float().transpose(0, 1) * scale       # (H, P, D)
@@ -394,8 +484,14 @@ class CausalLM(nn.Module):
     def load_jax_params(self, params_np):
         """Load the nested dict of numpy arrays that ``np.asarray`` makes
         of ``mxnet_tpu``'s ``CausalLM.jax_params()``.  Afterwards both
-        packages compute the same function."""
+        packages compute the same function.  A quantized pytree (integer
+        GEMM leaves) has no place in the fp parameters: load it with
+        ``serving.quantize.QuantizedLM.load_jax_params``."""
         state = params_from_jax(params_np)
+        if any(_qmm.is_quantized(t) for t in state.values()):
+            raise ValueError("load_jax_params: the pytree holds quantized "
+                             "weights; wrap the model with quantize_lm and "
+                             "load it through QuantizedLM.load_jax_params")
         own = dict(self.named_parameters())
         if set(state) != set(own):
             raise ValueError("load_jax_params: parameter names differ: %s"
@@ -413,17 +509,29 @@ class CausalLM(nn.Module):
                             torch.as_tensor(tokens, device=self.device))
 
 
+def _leaf_from_jax(leaf):
+    """A float32 CPU tensor, or the port's ``QuantW8``/``QuantW4`` for a
+    JAX quantized leaf (a ``(q, s)`` NamedTuple of numpy arrays)."""
+    if tuple(getattr(leaf, "_fields", ())) == ("q", "s"):
+        cls = (_qmm.QuantW4 if type(leaf).__name__ == "QuantW4"
+               else _qmm.QuantW8)
+        return cls(q=torch.tensor(leaf.q),
+                   s=torch.tensor(leaf.s, dtype=torch.float32))
+    return torch.tensor(leaf, dtype=torch.float32)
+
+
 def params_from_jax(params_np):
-    """Flat ``{parameter name: float32 CPU tensor}`` from the nested dict
-    of numpy arrays of a JAX ``CausalLM.jax_params()``: ``embed``,
-    ``pos`` and ``layers.<i>.<key>`` — the names of :class:`CausalLM`'s
-    parameters."""
-    out = {"embed": torch.tensor(params_np["embed"], dtype=torch.float32),
-           "pos": torch.tensor(params_np["pos"], dtype=torch.float32)}
+    """Flat ``{parameter name: CPU tensor}`` from the nested dict of numpy
+    arrays of a JAX ``CausalLM.jax_params()`` (or of its
+    ``serving.quantize.quantize_params``): ``embed``, ``pos`` and
+    ``layers.<i>.<key>`` — the names of :class:`CausalLM`'s parameters.
+    fp leaves become float32 tensors; quantized GEMM leaves the port's
+    ``QuantW8``/``QuantW4`` of the same codes and scales."""
+    out = {"embed": _leaf_from_jax(params_np["embed"]),
+           "pos": _leaf_from_jax(params_np["pos"])}
     for i, lp in enumerate(params_np["layers"]):
         for k in LAYER_KEYS:
-            out["layers.%d.%s" % (i, k)] = torch.tensor(
-                lp[k], dtype=torch.float32)
+            out["layers.%d.%s" % (i, k)] = _leaf_from_jax(lp[k])
     return out
 
 

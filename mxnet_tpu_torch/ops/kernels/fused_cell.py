@@ -18,6 +18,7 @@ buffer donation.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -95,7 +96,9 @@ def decode_layer_group_plain(x, kp, vp, layers, meta, page_tables, lengths,
     return kp, vp, x
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
+    """The loaded library with its entry points typed (once)."""
     lib = _build.load("fused_decode")
     fn = lib.mxt_decode_layer_group
     fn.argtypes = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P]

@@ -14,25 +14,45 @@ a page-table row, and attention reads through the table.
   sequence's pages into a contiguous cache (:func:`gather_pages`), then
   masked fp32 softmax (:func:`attend_ctx`).  Length-0 rows give zeros.
 - :func:`copy_page` — duplicate one physical page, in place.
+- :class:`QPages` — int8 pages: codes ``q`` in the fp layout and one fp32
+  scale per (KV head, page) in ``s``; :func:`paged_attention` on QPages
+  launches the int8-page variant of the kernel (counted in
+  ``paged_attention.launches_int8``), whose plain version is
+  :func:`gather_pages_deq` + :func:`attend_ctx`.
 
 The kernel replaces the upstream TPU Pallas kernel
 ``jax.experimental.pallas.ops.tpu.paged_attention`` that the JAX package
-calls at ``mxnet_tpu/ops/pallas/paged_attention.py:251``.  The int8
-``QPages`` dequant-at-read of that module is not ported yet.
+calls at ``mxnet_tpu/ops/pallas/paged_attention.py:251``; its int8 variant
+replaces the XLA dequant-gather path of that module (``:237-247``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_reference", "gather_pages",
-           "attend_ctx", "copy_page"]
+           "gather_pages_deq", "attend_ctx", "copy_page", "QPages"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+class QPages(NamedTuple):
+    """int8 KV page pool + parallel per-(page, head) scales pool.
+
+    ``q``: int8 codes in the fp page layout, ``(KVH, P, S, D)`` per layer
+    or ``(L, KVH, P, S, D)`` stacked.  ``s``: f32 scales, one per (KV
+    head, page), ``(KVH, P)`` / ``(L, KVH, P)``; ``token ≈ q * s`` for
+    every token in the page.  A page's scale is latched by the write at
+    page slot 0 (``amax(token) / 127``); later writes into the page reuse
+    it (``models.decoder._kv_append``)."""
+    q: torch.Tensor
+    s: torch.Tensor
 
 
 def gather_pages(pages, page_indices):
@@ -48,11 +68,32 @@ def gather_pages(pages, page_indices):
     return g.transpose(0, 1).reshape(b, kvh, pps * s, d)
 
 
+def gather_pages_deq(codes, scales, page_indices):
+    """Gather + dequantize int8 pages into contiguous fp32 caches.
+
+    codes: (KVH, P, S, D) int8; scales: (KVH, P) f32; page_indices:
+    (B, pages_per_seq) int -> (B, KVH, pages_per_seq * S, D) f32, the
+    layout of :func:`gather_pages`, each page's tokens times its scale."""
+    kvh, _, s, d = codes.shape
+    b, pps = page_indices.shape
+    idx = page_indices.long()
+    g = codes[:, idx].transpose(0, 1)                  # (B, KVH, pps, S, D)
+    sg = scales[:, idx].transpose(0, 1)                # (B, KVH, pps)
+    ctx = g.to(torch.float32) * sg[..., None, None]
+    return ctx.reshape(b, kvh, pps * s, d)
+
+
 def copy_page(pages, src, dst):
     """``pages[..., dst, :, :] <- pages[..., src, :, :]``, in place, on any
     layout whose page axis is third from last (the kernel layout
-    ``(KVH, P, S, D)`` and the engine's ``(L, KVH, P, S, D)``).  Returns
-    ``pages``.  The JAX package returns an updated copy instead."""
+    ``(KVH, P, S, D)`` and the engine's ``(L, KVH, P, S, D)``).  On
+    :class:`QPages` the codes page and its scale entry (page axis last in
+    the scales pool) are both copied.  Returns ``pages``.  The JAX package
+    returns an updated copy instead."""
+    if isinstance(pages, QPages):
+        pages.q[..., dst, :, :] = pages.q[..., src, :, :]
+        pages.s[..., dst] = pages.s[..., src]
+        return pages
     pages[..., dst, :, :] = pages[..., src, :, :]
     return pages
 
@@ -79,19 +120,29 @@ def attend_ctx(q, k_ctx, v_ctx, lengths, scale):
 def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices,
                               scale=None):
     """Gather-based plain version: pages -> contiguous view -> masked fp32
-    softmax.  Correct for any GQA grouping and for length-0 rows."""
+    softmax.  Correct for any GQA grouping and for length-0 rows.  On
+    :class:`QPages` the gather dequantizes (:func:`gather_pages_deq`)."""
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    k_ctx = gather_pages(k_pages, page_indices)
-    v_ctx = gather_pages(v_pages, page_indices)
+    if isinstance(k_pages, QPages):
+        k_ctx = gather_pages_deq(k_pages.q, k_pages.s, page_indices)
+        v_ctx = gather_pages_deq(v_pages.q, v_pages.s, page_indices)
+    else:
+        k_ctx = gather_pages(k_pages, page_indices)
+        v_ctx = gather_pages(v_pages, page_indices)
     return attend_ctx(q, k_ctx, v_ctx, lengths, scale)
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
+    """The loaded library with its entry points typed (once)."""
     lib = _build.load("paged_attention")
     fn = lib.mxt_paged_attention
     fn.argtypes = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]
+    fn.restype = _I
+    fn = lib.mxt_paged_attention_i8
+    fn.argtypes = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]
     fn.restype = _I
     return lib
 
@@ -100,55 +151,82 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None):
     """Decode-phase paged attention (one query token per sequence).
 
     q:            (B, num_heads, head_dim) fp32
-    k_pages/v_pages: (num_kv_heads, total_pages, page_size, head_dim) fp32
+    k_pages/v_pages: (num_kv_heads, total_pages, page_size, head_dim) fp32,
+                  or :class:`QPages` of that layout (int8 codes, fp32
+                  scales (num_kv_heads, total_pages))
     lengths:      (B,) int32 valid context length per sequence (0 for an
                   inactive row, whose output is zeros)
     page_indices: (B, pages_per_seq) int32 page-table rows
     scale:        softmax scale, ``1/sqrt(head_dim)`` by default
 
     Returns (B, num_heads, head_dim).  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (counted in
-    ``paged_attention.launches``)."""
+    version; a CUDA tensor launches the kernel, counted in
+    ``paged_attention.launches`` (fp pages) or
+    ``paged_attention.launches_int8`` (int8 pages)."""
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, lengths,
                                           page_indices, scale=scale)
     if q.device.type != "cuda":
         raise ValueError("paged_attention: unsupported device %s" % q.device)
+    int8 = isinstance(k_pages, QPages)
+    if int8 != isinstance(v_pages, QPages):
+        raise ValueError("paged_attention: k_pages and v_pages must both be "
+                         "QPages or both fp tensors")
+    kc, vc = (k_pages.q, v_pages.q) if int8 else (k_pages, v_pages)
     B, H, D = q.shape
-    KVH, P, S, Dk = k_pages.shape
+    KVH, P, S, Dk = kc.shape
     pps = page_indices.shape[-1]
-    if (Dk != D or v_pages.shape != k_pages.shape or H % KVH
+    if (Dk != D or vc.shape != kc.shape or H % KVH
             or tuple(lengths.shape) != (B,)
             or tuple(page_indices.shape) != (B, pps)):
         raise ValueError(
             "paged_attention: bad shapes q %s pages %s/%s lengths %s "
-            "tables %s" % (tuple(q.shape), tuple(k_pages.shape),
-                           tuple(v_pages.shape), tuple(lengths.shape),
+            "tables %s" % (tuple(q.shape), tuple(kc.shape),
+                           tuple(vc.shape), tuple(lengths.shape),
                            tuple(page_indices.shape)))
-    for name, t, dt in (("q", q, torch.float32),
-                        ("k_pages", k_pages, torch.float32),
-                        ("v_pages", v_pages, torch.float32),
-                        ("lengths", lengths, torch.int32),
-                        ("page_indices", page_indices, torch.int32)):
-        if t.dtype != dt or t.device != q.device or not t.is_contiguous():
+    page_dt = torch.int8 if int8 else torch.float32
+    checks = [("q", q, torch.float32, q.shape),
+              ("k_pages", kc, page_dt, kc.shape),
+              ("v_pages", vc, page_dt, kc.shape),
+              ("lengths", lengths, torch.int32, lengths.shape),
+              ("page_indices", page_indices, torch.int32,
+               page_indices.shape)]
+    if int8:
+        checks += [("k scales", k_pages.s, torch.float32, (KVH, P)),
+                   ("v scales", v_pages.s, torch.float32, (KVH, P))]
+    for name, t, dt, shape in checks:
+        if (t.dtype != dt or t.device != q.device or not t.is_contiguous()
+                or tuple(t.shape) != tuple(shape)):
             raise ValueError("paged_attention: %s must be a contiguous %s "
-                             "tensor on %s (got %s on %s)"
-                             % (name, dt, q.device, t.dtype, t.device))
+                             "tensor of shape %s on %s (got %s %s on %s)"
+                             % (name, dt, tuple(shape), q.device, t.dtype,
+                                tuple(t.shape), t.device))
     if D % 4:
         raise ValueError("paged_attention: head_dim must be a multiple of 4")
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     lib = _lib()
     out = torch.empty_like(q)
-    if B:
+    if not B:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if int8:
+        rc = lib.mxt_paged_attention_i8(
+            q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+            k_pages.s.data_ptr(), v_pages.s.data_ptr(), lengths.data_ptr(),
+            page_indices.data_ptr(), out.data_ptr(), B, H, KVH, P, S, D, pps,
+            float(scale), stream)
+        _build.check(lib, rc, "paged_attention (int8 pages)")
+        paged_attention.launches_int8 += 1
+    else:
         rc = lib.mxt_paged_attention(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
-            B, H, KVH, P, S, D, pps, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lengths.data_ptr(),
+            page_indices.data_ptr(), out.data_ptr(), B, H, KVH, P, S, D,
+            pps, float(scale), stream)
         _build.check(lib, rc, "paged_attention")
         paged_attention.launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.launches_int8 = 0

@@ -4,6 +4,9 @@
   KV cache with chunked prefill and preemption by recompute; decode runs
   the fused decode-layer-group kernel, or the per-op step with the
   paged-attention and bias_gelu kernels.
+- ``quantize_lm`` / ``QuantizedLM`` (``quantize.py``) — weight-only int8 /
+  int4 serving through the ``quant_matmul`` kernel; int8 KV pages are the
+  engine's ``kv_dtype="int8"``.
 - ``PageAllocator`` (``kvcache.py``) — host-side page bookkeeping, the
   JAX package's allocator.
 - ``ServingMetrics`` (``metrics.py``), ``SLOPolicy`` (``autoscale.py``)
@@ -18,6 +21,9 @@ Quick start::
     eng = DecodeEngine(lm, slots=16, page_size=16, prefill_chunk=64)
     print(eng.submit([101, 2023, 2003], max_new_tokens=16).result())
     eng.stop()
+    # quantized: int8 weights and int8 KV pages
+    eng = DecodeEngine(quantize_lm(lm, "int8"), kv_dtype="int8", slots=16,
+                       page_size=16, prefill_chunk=64)
 """
 from __future__ import annotations
 
@@ -28,8 +34,10 @@ from .errors import (BadRequestError, DeadlineExceededError,
 from .generate import DecodeEngine
 from .kvcache import PageAllocator, pages_for
 from .metrics import LatencyHistogram, ModelMetrics, ServingMetrics
+from .quantize import QuantizedLM, quantize_lm
 
-__all__ = ["DecodeEngine", "PageAllocator", "pages_for", "ServingMetrics",
+__all__ = ["DecodeEngine", "QuantizedLM", "quantize_lm", "PageAllocator",
+           "pages_for", "ServingMetrics",
            "ModelMetrics", "LatencyHistogram", "SLOPolicy", "ServingError",
            "BadRequestError", "QueueFullError", "ServerClosedError",
            "DeadlineExceededError", "DeadlineInfeasibleError", "KVLeakError"]

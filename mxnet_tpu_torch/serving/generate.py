@@ -18,6 +18,13 @@ The port of ``mxnet_tpu/serving/generate.py``'s synchronous core:
   launch per ``MXNET_DECODE_LAYER_GROUP`` layers); ``MXNET_DECODE_FUSED=0``
   selects the per-op step (paged-attention and bias_gelu kernels between
   torch matmuls).  Both run hand-written kernels on the card.
+- **Quantized serving** — ``quantize="int8"|"int4"`` (or a model wrapped by
+  ``quantize.quantize_lm``, or ``MXNET_QUANT_WEIGHTS``/``MXNET_QUANT_GROUP``)
+  serves weight-only quantized GEMMs through the ``quant_matmul`` kernel;
+  ``kv_dtype="int8"`` (or ``MXNET_QUANT_KV``) stores the KV pages as int8
+  codes with one scale per (layer, KV head, page), read by the int8-page
+  paged-attention kernel.  Either one takes the per-op decode step: the
+  fused kernel is fp-only, as in the JAX engine.
 
 The KV page pools are tensors on the engine's device, updated in place by
 every step (the JAX engine donates them to each jitted step instead).
@@ -28,8 +35,8 @@ Not ported yet, and refused with ``NotImplementedError`` when asked for:
 the async decode pipeline (``async_decode``/``MXNET_GEN_ASYNC``),
 decode sessions and migration (``session=``, ``migrate``, ``pagestore``),
 the prefix cache (``prefix_cache``/``MXNET_GEN_PREFIX_CACHE``),
-speculative decoding, quantized weights and KV, tensor parallelism
-(``sharding``) and role specialization.
+speculative decoding, tensor parallelism (``sharding``) and role
+specialization.
 
 Admission control mirrors the JAX engine: a bounded queue sheds with
 ``QueueFullError``, draining rejects with ``ServerClosedError``,
@@ -52,11 +59,13 @@ import torch
 from .. import config as _config
 from .. import context, faults
 from ..models import decoder as _decoder
+from ..ops.kernels import paged_attention as _paged
 from .autoscale import SLOPolicy
 from .errors import (BadRequestError, DeadlineExceededError, QueueFullError,
                      ServerClosedError, ServingError)
 from .kvcache import CacheOOM, PageAllocator, pages_for
 from .metrics import ServingMetrics
+from .quantize import quantize_lm
 
 __all__ = ["DecodeEngine"]
 
@@ -116,8 +125,7 @@ def _not_ported(what):
 
 def _refuse_unported(prefix_cache, async_decode, dispatch_ahead, role,
                      migrate, pagestore, speculate, spec_k, drafter,
-                     draft_model, sharding, quantize, quant_group,
-                     kv_dtype):
+                     draft_model, sharding):
     """Raise NotImplementedError for every feature of the JAX engine that
     the port lacks and the caller (or the environment) asks for."""
     asks = [
@@ -129,16 +137,10 @@ def _refuse_unported(prefix_cache, async_decode, dispatch_ahead, role,
         ("speculative decoding",
          speculate or spec_k or drafter or draft_model,
          "MXNET_GEN_SPECULATE"),
-        ("quantized weights", quantize or quant_group,
-         "MXNET_QUANT_WEIGHTS"),
     ]
     for what, arg, env in asks:
         if arg or (arg is None and _config.requested(env)):
             _not_ported(what)
-    kv = kv_dtype if kv_dtype is not None else (
-        os.environ.get("MXNET_QUANT_KV") or "float32")
-    if str(kv) != "float32":
-        _not_ported("kv_dtype=%r (int8 KV pages)" % (kv,))
     r = role if role is not None else (
         os.environ.get("MXNET_GEN_ROLE") or "mixed")
     if str(r) != "mixed":
@@ -160,6 +162,29 @@ def _decode_fused():
                      % flag)
 
 
+def _check_quant_matmul_lane():
+    """MXNET_QUANT_MATMUL: only '' is taken.  The JAX package's '0'
+    (plain lane) and 'interpret' have no counterpart: CUDA tensors always
+    launch the kernel, CPU tensors run the plain version."""
+    flag = str(_config.get("MXNET_QUANT_MATMUL") or "").strip()
+    if flag:
+        raise ValueError("MXNET_QUANT_MATMUL=%r: the port has no interpret "
+                         "or plain lane on the card (CUDA tensors launch the "
+                         "quant_matmul kernel, CPU tensors run its plain "
+                         "version); leave it unset" % flag)
+
+
+def _kernels_per_layer(quant, kv_dtype):
+    """Kernel launches per layer of one per-op decode step and of one
+    prefill chunk."""
+    decode = {"paged_attention_int8" if kv_dtype == "int8"
+              else "paged_attention": 1, "bias_gelu": 1}
+    prefill = {"bias_gelu": 1}
+    if quant is not None:
+        decode["quant_matmul"] = prefill["quant_matmul"] = 6
+    return decode, prefill
+
+
 class DecodeEngine:
     """Continuous-batching decode scheduler for one causal LM.
 
@@ -179,6 +204,11 @@ class DecodeEngine:
       prefill_chunk  — prompt tokens cached per engine step
                        (``MXNET_GEN_PREFILL_CHUNK``)
 
+    Quantized serving (``quantize``/``quant_group``/``kv_dtype``, or a
+    ``quantize.QuantizedLM``, or ``MXNET_QUANT_WEIGHTS``/
+    ``MXNET_QUANT_GROUP``/``MXNET_QUANT_KV``) runs the per-op step; its
+    format lands in ``stats()["quant"]``.
+
     ``MXNET_DECODE_FUSED`` picks the decode step and
     ``MXNET_DECODE_LAYER_GROUP`` the layers per fused launch; the kernel
     launches one step makes land in ``stats()["launches"]``.
@@ -194,8 +224,25 @@ class DecodeEngine:
                  quantize=None, quant_group=None, kv_dtype=None):
         _refuse_unported(prefix_cache, async_decode, dispatch_ahead, role,
                          migrate, pagestore, speculate, spec_k, drafter,
-                         draft_model, sharding, quantize, quant_group,
-                         kv_dtype)
+                         draft_model, sharding)
+        _check_quant_matmul_lane()
+        # weights and KV pages quantize independently; a QuantizedLM
+        # passed in keeps its own format
+        qmode = getattr(model, "quant_mode", None)
+        want = str(quantize if quantize is not None
+                   else _config.get("MXNET_QUANT_WEIGHTS") or "")
+        if qmode is None and want:
+            model = quantize_lm(model, want, group=int(
+                quant_group if quant_group is not None
+                else _config.get("MXNET_QUANT_GROUP")))
+            qmode = model.quant_mode
+        self.quant = model.quant_token() if qmode is not None else None
+        self.kv_dtype = str(kv_dtype if kv_dtype is not None
+                            else _config.get("MXNET_QUANT_KV")
+                            or "float32")
+        if self.kv_dtype not in ("float32", "int8"):
+            raise ValueError("kv_dtype must be float32 or int8, got %r"
+                             % (self.kv_dtype,))
         self.device = context.resolve(device)
         if model.device != self.device:
             raise ValueError(
@@ -227,38 +274,49 @@ class DecodeEngine:
 
         cfg = self.cfg
         elems = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim
-        self.alloc = PageAllocator(total, self.page_size,
-                                   page_bytes=elems * self.page_size * 4)
+        int8 = self.kv_dtype == "int8"
+        self.alloc = PageAllocator(
+            total, self.page_size, kv_dtype=self.kv_dtype,
+            page_bytes=elems * self.page_size * (1 if int8 else 4),
+            scale_page_bytes=(2 * cfg.num_layers * cfg.num_kv_heads * 4
+                              if int8 else 0))
         shape = (cfg.num_layers, cfg.num_kv_heads, total, self.page_size,
                  cfg.head_dim)
-        self._kp = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        self._vp = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        self._kp = self._fresh_pool(shape)
+        self._vp = self._fresh_pool(shape)
         self._tables = onp.zeros((self.slots, self.pages_per_seq),
                                  onp.int32)
         self._tables_dev = None  # device copy, rebuilt when rows change
 
         self.decode_fused = _decode_fused()
+        if self.decode_fused and (self.quant is not None or int8):
+            _log.info("decode engine %r: the fused decode kernel is fp-only; "
+                      "quantized serving (quant=%r kv=%s) runs the per-op "
+                      "step", name, self.quant, self.kv_dtype)
+            self.decode_fused = False
         self.layer_group = (int(_config.get("MXNET_DECODE_LAYER_GROUP"))
                             or cfg.num_layers)
+        L = cfg.num_layers
+        decode_k, prefill_k = _kernels_per_layer(self.quant, self.kv_dtype)
         if self.decode_fused:
             self._decode_fn = _decoder.make_decode_step_fused(
                 cfg, self.page_size, self.layer_group)
-            groups = len(_decoder._group_bounds(cfg.num_layers,
-                                                self.layer_group))
+            groups = len(_decoder._group_bounds(L, self.layer_group))
             per_step = {"decode_layer_group": groups}
         else:
             self._decode_fn = _decoder.make_decode_step(cfg, self.page_size)
-            groups = cfg.num_layers
-            per_step = {"paged_attention": cfg.num_layers,
-                        "bias_gelu": cfg.num_layers}
+            groups = L
+            per_step = {k: n * L for k, n in decode_k.items()}
         self._prefill_fn = _decoder.make_prefill_chunk(
             cfg, self.page_size, self.prefill_chunk)
-        # kernel launches of one decode step (on the CPU the same calls
-        # run the plain versions)
+        # kernel launches of one decode step and of one prefill chunk (on
+        # the CPU the same calls run the plain versions)
         self.launch_stats = {"fused": self.decode_fused,
                              "layer_groups": groups,
                              "launches_per_step": sum(per_step.values()),
-                             "kernels": per_step}
+                             "kernels": per_step,
+                             "prefill_chunk_kernels": {
+                                 k: n * L for k, n in prefill_k.items()}}
         self.metrics.observe_decode_launches(self.name, self.launch_stats)
 
         self._slots = [_Slot(i) for i in range(self.slots)]
@@ -737,6 +795,18 @@ class DecodeEngine:
         worker.join(timeout)
         return not worker.is_alive()
 
+    def _fresh_pool(self, shape):
+        """A zeroed KV page pool: an fp32 tensor, or int8 ``QPages``
+        (codes, per-page-per-head scales).  Scales start at one, so the
+        pages no token has opened (the scratch page, inactive slots)
+        dequantize to zeros, as the fp pool does."""
+        if self.kv_dtype == "int8":
+            return _paged.QPages(
+                q=torch.zeros(shape, dtype=torch.int8, device=self.device),
+                s=torch.ones(shape[:3], dtype=torch.float32,
+                             device=self.device))
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
     def _tokens_resident(self):
         """Logical tokens currently cached in pool pages."""
         with self._cond:
@@ -755,5 +825,12 @@ class DecodeEngine:
                 "slo": {"service_rate": self.slo.service_rate(),
                         "default_tier": self.slo.default_tier},
                 "kv": self.alloc.stats(),
+                "quant": {
+                    "weights": self.quant[0] if self.quant else None,
+                    "group": (self.quant[1] if self.quant
+                              and len(self.quant) > 1 else None),
+                    "kv_dtype": self.kv_dtype,
+                    "tokens_resident": self._tokens_resident(),
+                },
                 "decode_fused": self.decode_fused,
                 "launches": dict(self.launch_stats)}

@@ -1,7 +1,8 @@
 """Page-granular KV-cache allocator for continuous-batching decode.
 
 The allocator half of ``mxnet_tpu/serving/kvcache.py``, copied: it runs
-on the host, so both packages share one allocator behaviour.  The
+on the host, so both packages share one allocator behaviour, int8 page
+accounting included (``kv_dtype``, ``scale_page_bytes``).  The
 prefix cache (``PrefixCache``, with the allocator's ``share``/``fork``)
 and the session wire format (``pack_session``) come with the slices
 that port them.
@@ -74,16 +75,25 @@ class PageAllocator:
     refcount zero.
     """
 
-    def __init__(self, total_pages, page_size, page_bytes=0):
+    def __init__(self, total_pages, page_size, kv_dtype="float32",
+                 page_bytes=0, scale_page_bytes=0):
         if total_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the scratch page)")
         if page_size < 1:
             raise ValueError("page_size must be >= 1")
+        if str(kv_dtype) not in ("float32", "int8"):
+            raise ValueError("kv_dtype must be float32 or int8, got %r"
+                             % (kv_dtype,))
         self.total_pages = int(total_pages)
         self.page_size = int(page_size)
-        # k+v bytes per page, so stats() can report physical bytes and
-        # the per-token cost
+        # int8 pages carry a parallel scales pool indexed by the same page
+        # ids, so one free list and one conservation check cover both.
+        # The byte costs (k+v codes per page, k+v scales per page) let
+        # stats() report physical bytes and the per-token cost with the
+        # scales spread over the page.
+        self.kv_dtype = str(kv_dtype)
         self.page_bytes = int(page_bytes)
+        self.scale_page_bytes = int(scale_page_bytes)
         self._lock = threading.Lock()
         # LIFO: freshly freed pages go back out first (warm reuse)
         self._free = list(range(self.total_pages - 1, SCRATCH_PAGE, -1))
@@ -232,11 +242,14 @@ class PageAllocator:
                 "owners": len(self._owned),
                 "shared_pages": self._shared_locked(),
                 "leaked_pages": len(self.last_leak),
+                "kv_dtype": self.kv_dtype,
                 "counters": dict(self.counters),
             }
             if self.page_bytes:
-                out["pool_bytes"] = self.page_bytes * cap
-                out["used_bytes"] = self.page_bytes * used
+                per_page = self.page_bytes + self.scale_page_bytes
+                out["scale_page_bytes"] = self.scale_page_bytes
+                out["pool_bytes"] = per_page * cap
+                out["used_bytes"] = per_page * used
                 out["kv_bytes_per_token"] = round(
-                    self.page_bytes / self.page_size, 2)
+                    per_page / self.page_size, 2)
             return out

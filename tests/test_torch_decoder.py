@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from mxnet_tpu.models import decoder as jdec
 from mxnet_tpu_torch.models import decoder as tdec
+from torch_parity import tiny_lm_with_affine
 
 torch.set_num_threads(2)
 
@@ -32,23 +33,9 @@ GEOM = dict(vocab_size=64, num_layers=2, units=32, hidden_size=64,
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def _tiny_lm_with_affine(**geom):
-    """The JAX ``decoder_tiny_lm(seed=0)`` with random biases, LN betas,
-    and LN gammas about 1.  Its initialiser leaves them at 0 and 1, where
-    a port that dropped or swapped one would still agree."""
-    jlm = jdec.decoder_tiny_lm(seed=0, **geom)
-    rng = np.random.default_rng(7)
-    for name, p in jlm.collect_params().items():
-        if name.endswith(("bias", "beta", "gamma")):
-            base = 1.0 if name.endswith("gamma") else 0.0
-            p.set_data((base + 0.1 * rng.standard_normal(p.shape))
-                       .astype(np.float32))
-    return jlm
-
-
 @pytest.fixture(scope="module")
 def models():
-    jlm = _tiny_lm_with_affine(**GEOM)
+    jlm = tiny_lm_with_affine(**GEOM)
     params_np = jax.tree.map(np.asarray, jlm.jax_params())
     tlm = tdec.CausalLM(**GEOM, device="cpu").load_jax_params(params_np)
     return jlm, tlm, params_np

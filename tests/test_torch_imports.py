@@ -36,6 +36,8 @@ def test_import_loads_no_jax_and_no_reference_package():
                      or m == "mxnet_tpu" or m.startswith("mxnet_tpu."))
         assert "mxnet_tpu_torch.serving.generate" in names, names
         assert "mxnet_tpu_torch.ops.kernels.fused_cell" in names, names
+        assert "mxnet_tpu_torch.ops.kernels.quant_matmul" in names, names
+        assert "mxnet_tpu_torch.serving.quantize" in names, names
         print(len(names), bad)
         sys.exit(1 if bad else 0)
     """)
@@ -80,8 +82,7 @@ def test_resolve_cpu():
 @pytest.mark.parametrize("kwargs", [
     {"prefix_cache": True}, {"async_decode": True}, {"dispatch_ahead": 2},
     {"migrate": True}, {"pagestore": "localhost:1"}, {"speculate": True},
-    {"draft_model": object()}, {"quantize": "int8"}, {"kv_dtype": "int8"},
-    {"sharding": object()}, {"role": "prefill"},
+    {"draft_model": object()}, {"sharding": object()}, {"role": "prefill"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_engine_features_raise(tiny_lm, kwargs):
     with pytest.raises(NotImplementedError):
@@ -91,14 +92,30 @@ def test_unported_engine_features_raise(tiny_lm, kwargs):
 
 @pytest.mark.parametrize("var,value", [
     ("MXNET_GEN_ASYNC", "1"), ("MXNET_GEN_PREFIX_CACHE", "1"),
-    ("MXNET_GEN_SPECULATE", "1"), ("MXNET_QUANT_KV", "int8"),
-    ("MXNET_GEN_ROLE", "decode")])
+    ("MXNET_GEN_SPECULATE", "1"), ("MXNET_GEN_ROLE", "decode")])
 def test_unported_features_asked_by_env_raise(monkeypatch, tiny_lm, var,
                                               value):
     monkeypatch.setenv(var, value)
     with pytest.raises(NotImplementedError):
         DecodeEngine(tiny_lm, device="cpu", slots=2, page_size=4,
                      max_ctx=16)
+
+
+@pytest.mark.parametrize("kwargs,env", [
+    ({"quantize": "fp8"}, None), ({"kv_dtype": "fp8"}, None),
+    ({}, ("MXNET_QUANT_MATMUL", "interpret")),
+    ({}, ("MXNET_QUANT_MATMUL", "0"))],
+    ids=["quantize-fp8", "kv_dtype-fp8", "quant_matmul-interpret",
+         "quant_matmul-0"])
+def test_unsupported_quantization_asks_raise(monkeypatch, tiny_lm, kwargs,
+                                            env):
+    """Formats the JAX engine refuses too, and the JAX package's
+    dequant-matmul lanes, which the port does not have: ValueError."""
+    if env:
+        monkeypatch.setenv(*env)
+    with pytest.raises(ValueError):
+        DecodeEngine(tiny_lm, device="cpu", slots=2, page_size=4,
+                     max_ctx=16, **kwargs)
 
 
 def test_sessions_raise(tiny_lm):

@@ -22,12 +22,12 @@ import torch
 import jax
 
 import mxnet_tpu.serving as jserving
-from mxnet_tpu.models import decoder as jdec
 from mxnet_tpu.serving import kvcache as jkv
 from mxnet_tpu_torch import faults
 from mxnet_tpu_torch.models import decoder as tdec
 from mxnet_tpu_torch.serving import DecodeEngine, ServingError
 from mxnet_tpu_torch.serving import kvcache as tkv
+from torch_parity import tiny_lm_with_affine
 
 torch.set_num_threads(2)
 
@@ -46,23 +46,9 @@ def _greedy(tlm, prompt, n):
     return toks[len(prompt):]
 
 
-def _tiny_lm_with_affine(**geom):
-    """The JAX ``decoder_tiny_lm(seed=0)`` with random biases, LN betas,
-    and LN gammas about 1.  Its initialiser leaves them at 0 and 1, where
-    a port that dropped or swapped one would still agree."""
-    jlm = jdec.decoder_tiny_lm(seed=0, **geom)
-    rng = np.random.default_rng(7)
-    for name, p in jlm.collect_params().items():
-        if name.endswith(("bias", "beta", "gamma")):
-            base = 1.0 if name.endswith("gamma") else 0.0
-            p.set_data((base + 0.1 * rng.standard_normal(p.shape))
-                       .astype(np.float32))
-    return jlm
-
-
 @pytest.fixture(scope="module")
 def setup():
-    jlm = _tiny_lm_with_affine()
+    jlm = tiny_lm_with_affine()
     params_np = jax.tree.map(np.asarray, jlm.jax_params())
     cfg = jlm.config
     tlm = tdec.decoder_tiny_lm(device="cpu").load_jax_params(params_np)
