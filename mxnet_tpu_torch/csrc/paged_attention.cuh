@@ -25,7 +25,9 @@
 // gather_pages_deq + attend_ctx, mxnet_tpu/ops/pallas/paged_attention.py:
 // 237-247) are dequantized as they are staged: each code times its page's
 // latched per-head scale, one fp32 multiply, as the plain version does.
-// They move a quarter of the bytes of fp pages (4 codes per 4-byte load).
+// They move a quarter of the bytes of fp pages, 16 codes per 16-byte load
+// (fp pages: 4 values per 16-byte load), so a tile takes a quarter of the
+// load instructions.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,8 +35,12 @@
 
 namespace mxt {
 
+// A page type gives VEC, the values of a key or value row that one
+// 16-byte load brings.
+
 // fp32 pages of one KV head: (P, S, D) for keys and for values
 struct F32Pages {
+  static constexpr int VEC = 4;
   const float* k;
   const float* v;
   __device__ __forceinline__ void load4(size_t off, int /*page*/, float4& kr,
@@ -44,26 +50,46 @@ struct F32Pages {
   }
 };
 
-// int8 pages of one KV head: codes (P, S, D) and per-page scales (P,)
+// int8 pages of one KV head: codes (P, S, D) and per-page scales (P,).
+// load() brings 16 codes of a key row and of a value row and their page's
+// scales into registers; stage() writes them, dequantized, into a padded
+// key row of shared memory (scalar stores) and a value row (float4).
 struct I8Pages {
+  static constexpr int VEC = 16;
+  struct Raw {
+    uint4 k, v;     // 16 codes each
+    float sk, sv;   // their page's scales
+  };
   const signed char* k;
   const signed char* v;
   const float* ks;
   const float* vs;
-  __device__ __forceinline__ void load4(size_t off, int page, float4& kr,
-                                        float4& vr) const {
-    const char4 a = __ldcg(reinterpret_cast<const char4*>(k + off));
-    const char4 b = __ldcg(reinterpret_cast<const char4*>(v + off));
-    const float sa = __ldcg(ks + page), sb = __ldcg(vs + page);
-    kr = make_float4((float)a.x * sa, (float)a.y * sa, (float)a.z * sa,
-                     (float)a.w * sa);
-    vr = make_float4((float)b.x * sb, (float)b.y * sb, (float)b.z * sb,
-                     (float)b.w * sb);
+  __device__ __forceinline__ Raw load(size_t off, int page) const {
+    return {__ldcg(reinterpret_cast<const uint4*>(k + off)),
+            __ldcg(reinterpret_cast<const uint4*>(v + off)),
+            __ldcg(ks + page), __ldcg(vs + page)};
+  }
+  // signed byte b of a 4-byte word
+  __device__ __forceinline__ static float code(unsigned w, int b) {
+    return (float)((int)(w << (24 - 8 * b)) >> 24);
+  }
+  __device__ __forceinline__ static void stage(const Raw& r, float* kd,
+                                               float* vd) {
+    const unsigned kw[4] = {r.k.x, r.k.y, r.k.z, r.k.w};
+    const unsigned vw[4] = {r.v.x, r.v.y, r.v.z, r.v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) kd[4 * i + b] = code(kw[i], b) * r.sk;
+      *reinterpret_cast<float4*>(vd + 4 * i) =
+          make_float4(code(vw[i], 0) * r.sv, code(vw[i], 1) * r.sv,
+                      code(vw[i], 2) * r.sv, code(vw[i], 3) * r.sv);
+    }
   }
 };
 
 constexpr int ATTN_TILE = 64;   // keys per tile
-constexpr int STAGE_LOADS = 4;  // float4 loads in flight per staging thread
+constexpr int STAGE_LOADS = 4;  // 16-byte loads in flight per staging thread
 
 // floats of shared memory one attend_group call uses
 __host__ __device__ inline int attend_smem_floats(int g, int D) {
@@ -92,7 +118,7 @@ __device__ __forceinline__ float warp_max(float v) {
 // kv:     the KV head's pages (F32Pages or I8Pages), offset to that head
 // table:  the sequence's page-table row (pps entries)
 // out:    the group's g output rows, row i at out + i * D
-// D is a multiple of 4 and the pools are aligned for 4-element loads.
+// D is a multiple of Pages::VEC and the pools are 16-byte aligned.
 // A length of 0 (an inactive batch row) writes zeros.
 // Page pools, q and out are read with L2-only loads: inside the fused
 // kernel other blocks write them earlier in the same launch.
@@ -128,37 +154,65 @@ __device__ void attend_group(const float* q, const Pages& kv,
   }
   const size_t page_stride = (size_t)S * D;
 
-  const int D4 = D >> 2;
+  constexpr int V = Pages::VEC;
+  const int D4 = D >> 2, DV = D / V;  // float4s, loads per row
   for (int t0 = 0; t0 < length; t0 += ATTN_TILE) {
     const int nt = min(ATTN_TILE, length - t0);
-    const int n4 = nt * D4;
     __syncthreads();
-    // stage the tile's key and value rows: STAGE_LOADS independent float4
-    // loads in flight per thread before any is stored
-    for (int e0 = tid; e0 < n4; e0 += nth * STAGE_LOADS) {
-      float4 kr[STAGE_LOADS], vr[STAGE_LOADS];
+    // stage the tile's key and value rows: STAGE_LOADS independent
+    // 16-byte loads in flight per thread before any is stored (one loop
+    // per page type: fp32 keeps its loads in float4 registers)
+    if constexpr (V == 4) {
+      const int n4 = nt * D4;
+      for (int e0 = tid; e0 < n4; e0 += nth * STAGE_LOADS) {
+        float4 kr[STAGE_LOADS], vr[STAGE_LOADS];
 #pragma unroll
-      for (int u = 0; u < STAGE_LOADS; ++u) {
-        const int e = e0 + u * nth;
-        if (e < n4) {
-          const int j = e / D4, t = t0 + j;
-          const int page = table[min(t / S, pps - 1)];
-          const size_t off = (size_t)page * page_stride +
-                             (size_t)(t % S) * D + (size_t)(e - j * D4) * 4;
-          kv.load4(off, page, kr[u], vr[u]);
+        for (int u = 0; u < STAGE_LOADS; ++u) {
+          const int e = e0 + u * nth;
+          if (e < n4) {
+            const int j = e / D4, t = t0 + j;
+            const int page = table[min(t / S, pps - 1)];
+            const size_t off = (size_t)page * page_stride +
+                               (size_t)(t % S) * D + (size_t)(e - j * D4) * 4;
+            kv.load4(off, page, kr[u], vr[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < STAGE_LOADS; ++u) {
+          const int e = e0 + u * nth;
+          if (e < n4) {
+            const int j = e / D4, d = (e - j * D4) * 4;
+            float* kd = k_s + j * (D + 1) + d;  // padded row: scalar stores
+            kd[0] = kr[u].x;
+            kd[1] = kr[u].y;
+            kd[2] = kr[u].z;
+            kd[3] = kr[u].w;
+            *reinterpret_cast<float4*>(v_s + j * D + d) = vr[u];
+          }
         }
       }
+    } else {
+      const int nv = nt * DV;
+      for (int e0 = tid; e0 < nv; e0 += nth * STAGE_LOADS) {
+        typename Pages::Raw r[STAGE_LOADS];
 #pragma unroll
-      for (int u = 0; u < STAGE_LOADS; ++u) {
-        const int e = e0 + u * nth;
-        if (e < n4) {
-          const int j = e / D4, d = (e - j * D4) * 4;
-          float* kd = k_s + j * (D + 1) + d;  // padded row: scalar stores
-          kd[0] = kr[u].x;
-          kd[1] = kr[u].y;
-          kd[2] = kr[u].z;
-          kd[3] = kr[u].w;
-          *reinterpret_cast<float4*>(v_s + j * D + d) = vr[u];
+        for (int u = 0; u < STAGE_LOADS; ++u) {
+          const int e = e0 + u * nth;
+          if (e < nv) {
+            const int j = e / DV, t = t0 + j;
+            const int page = table[min(t / S, pps - 1)];
+            const size_t off = (size_t)page * page_stride +
+                               (size_t)(t % S) * D + (size_t)(e - j * DV) * V;
+            r[u] = kv.load(off, page);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < STAGE_LOADS; ++u) {
+          const int e = e0 + u * nth;
+          if (e < nv) {
+            const int j = e / DV, d = (e - j * DV) * V;
+            Pages::stage(r[u], k_s + j * (D + 1) + d, v_s + j * D + d);
+          }
         }
       }
     }

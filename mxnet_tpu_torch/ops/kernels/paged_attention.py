@@ -201,8 +201,10 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None):
                              "tensor of shape %s on %s (got %s %s on %s)"
                              % (name, dt, tuple(shape), q.device, t.dtype,
                                 tuple(t.shape), t.device))
-    if D % 4:
-        raise ValueError("paged_attention: head_dim must be a multiple of 4")
+    vec = 16 if int8 else 4       # values per 16-byte load
+    if D % vec:
+        raise ValueError("paged_attention: head_dim must be a multiple of %d"
+                         % vec)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     lib = _lib()
