@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's LLM serving path on one CUDA card.
+"""Drive the PyTorch/CUDA port's LLM serving and BERT training paths on
+one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases (any failure exits non-zero; nothing falls back to the CPU or to a
 plain version):
 
-1. Set-up: build every kernel of the path from ``mxnet_tpu_torch/csrc``
+1. Set-up: build every kernel of the paths from ``mxnet_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel; Triton compiles at first
    launch), print the card's name and power limit, turn TF32 off.
 2. Kernel checks: each kernel against its plain PyTorch version on the
-   card, at the main path's full-width shapes and at a GQA geometry, with
+   card, at the main paths' full-width shapes and at a GQA geometry, with
    the tolerance stated; each kernel's time, its plain version's time,
    its bound and (where one exists) one PyTorch call's time.  The
    quantized-serving kernels (``quant_matmul`` int8 and int4, paged
    attention over int8 pages) are checked at the three GEMM shapes of a
-   layer and M in {1, 16, 64}, and at B 16, H 12 (KVH 12 and 4).
-3. Main path: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
+   layer and M in {1, 16, 64}, and at B 16, H 12 (KVH 12 and 4).  The
+   training kernels: ``bias_gelu_backward`` at (4096, 3072), (4096, 768)
+   and (4095, 3072) in float32 and bfloat16; ``bias_dropout_residual``
+   forward (rates 0, 0.1, 0.5) and backward (0.1, 0.5) at (4096, 768) and
+   (4095, 766), the mask held exactly.  ``--kernels-only`` stops here.
+3. Serving: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
    ``--seed``, with random biases and LN affines, which the kernel checks
    use too) served by ``DecodeEngine`` (16 slots, page size 16, prefill
@@ -27,7 +32,18 @@ plain version):
    teacher-forced prefill + decode through each engine's programs is held
    against ``full_forward`` (over the quantized weights for int4), and for
    the int8-KV run against the same programs on CPU copies of the params.
-4. The kernels line, the card line and, last, the result line
+4. Training: ``BERTModel`` at BERT-base widths (the same widths, 2 token
+   types, dropout 0.1, ``use_flash=False``, fused epilogues; Xavier
+   weights from ``--seed`` with random biases and LN affines) takes 10
+   Adam steps (lr 1e-4) through ``gluon.Trainer`` on a fixed MLM + NSP
+   batch of B 32, L 128 with valid lengths 64..128.  The loss must fall,
+   each step must launch ``bias_gelu`` and its backward 13 times and
+   ``bias_dropout_residual`` forward and backward 24 times each (counts
+   set to 0 before the phase), and every tensor autograd saves must be on
+   the card.  Then one Adam step at B 2, L 32, dropout 0, on the card and
+   on CPU copies of the weights: loss, gradients and weights agree.
+5. The kernels line (launches summed over the serving runs and the
+   training phase), the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -63,6 +79,13 @@ TOL_QMM = 1e-4
 # one element by one step of its page's scale (~amax/127); such flips in
 # 12 layers move logits of order 0.2 by up to ~1e-2
 TOL_LOGITS_INT8KV = 2e-2
+# bias_gelu_backward: fp32 erf and exp a few ulps from torch's, on dx of
+# order 1 (x, g ~ N(0, 1)); in bf16 the check allows one bf16 step of the
+# plain version's value (within_bf16_step) and this much beyond it
+TOL_BIAS_GELU_BWD = 1e-5
+# bias_dropout_residual: the kernels do the plain version's fp32 adds and
+# multiplies in the same order with round-to-nearest, so 0 is expected
+TOL_BDR = 1e-6
 
 WIDTHS = dict(vocab_size=30522, num_layers=12, units=768, hidden_size=3072,
               num_heads=12, num_kv_heads=12, max_length=512)
@@ -150,7 +173,7 @@ def check_bias_gelu(torch, timer, report):
     from mxnet_tpu_torch.ops.kernels import epilogue as ep
     g = torch.Generator(device=DEV).manual_seed(1)
     rows = {}
-    for R in (64, 16):                    # prefill chunk, per-op decode
+    for R in (64, 16, 4096):     # prefill chunk, per-op decode, training
         C = 3072
         x = torch.randn(R, C, device=DEV, generator=g)
         b = torch.randn(C, device=DEV, generator=g)
@@ -399,6 +422,140 @@ def check_paged_attention_int8(torch, timer, report):
                 shape="B=16 H=12 KVH=12 D=64 int8 pages, mixed lengths")
 
 
+def within_bf16_step(out, ref):
+    """Largest |out - ref| beyond one bfloat16 step of ref (2**-7 relative):
+    two fp32 results a few ulps apart can round to neighbouring bf16
+    values, no further.  0 when every element is within a step."""
+    d = (out.float() - ref.float()).abs() - ref.float().abs() * 2.0 ** -7
+    return max(0.0, float(d.max()))
+
+
+def check_bias_gelu_backward(torch, timer, report):
+    """bias_gelu_backward (Triton) against its plain version at the
+    training path's shapes: (4096, 3072) is FFN1 at B 32, L 128 and
+    (4096, 768) the MLM transform; 4095 rows leave a ragged last block."""
+    from mxnet_tpu_torch.ops.kernels import epilogue as ep
+    g = torch.Generator(device=DEV).manual_seed(9)
+    for R, C in ((4096, 3072), (4096, 768), (4095, 3072)):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(R, C, device=DEV, generator=g).to(dt)
+            b = torch.randn(C, device=DEV, generator=g).to(dt)
+            gr = torch.randn(R, C, device=DEV, generator=g).to(dt)
+            out = ep.bias_gelu_backward(x, gr, b)
+            ref = ep.bias_gelu_backward_plain(x, gr, b)
+            if dt == torch.float32:
+                err = float((out - ref).abs().max())
+                ok = err <= TOL_BIAS_GELU_BWD
+            else:
+                err = within_bf16_step(out, ref)
+                ok = err <= TOL_BIAS_GELU_BWD
+            if not ok:
+                raise AssertionError("bias_gelu_backward (%d, %d) %s "
+                                     "disagrees with its plain version: %g"
+                                     % (R, C, dt, err))
+            if dt != torch.float32 or (R, C) == (4095, 3072):
+                log("bias_gelu_backward (%d, %d) %s: max_abs_err %.3g (tol "
+                    "%g%s)" % (R, C, str(dt)[6:], err, TOL_BIAS_GELU_BWD,
+                               ", beyond one bf16 step"
+                               if dt != torch.float32 else ""))
+                continue
+            ms = timer(lambda: ep.bias_gelu_backward(x, gr, b))
+            plain = timer(lambda: ep.bias_gelu_backward_plain(x, gr, b))
+            u = x + b
+            lib = timer(lambda: torch.ops.aten.gelu_backward(gr, u))
+            bms, by = bound(4 * (3 * R * C + C), 20 * R * C)
+            log("bias_gelu_backward (%d, %d) float32: max_abs_err %.3g (tol "
+                "%g) kernel %.4f ms plain %.4f ms aten.gelu_backward(g, "
+                "x+b precomputed, omits the add) %.4f ms bound %.4f ms (%s)"
+                % (R, C, err, TOL_BIAS_GELU_BWD, ms, plain, lib, bms, by))
+            if (R, C) == (4096, 3072):
+                report["bias_gelu_backward"] = dict(
+                    name="bias_gelu_backward", route="triton",
+                    source="mxnet_tpu_torch/ops/kernels/epilogue.py",
+                    replaces="mxnet_tpu/ops/pallas/epilogue.py:140",
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib)
+
+
+def check_bias_dropout_residual(torch, timer, report):
+    """bias_dropout_residual forward (rates 0, 0.1, 0.5) and backward (0.1,
+    0.5) against their plain versions at (4096, 768), the training path's
+    residual joins at B 32, L 128, and at (4095, 766), whose rows take the
+    one-element path.  The mask is held exactly: with x = 1, b = 0, r = 0
+    the output is the keep scale or 0, and not one element may differ; the
+    dropped share must lie within 0.005 of the rate.  Values then on random
+    inputs, float32 and bfloat16."""
+    from mxnet_tpu_torch.ops.kernels import epilogue as ep
+    g = torch.Generator(device=DEV).manual_seed(10)
+    for R, C in ((4096, 768), (4095, 766)):
+        for rate in (0.0, 0.1, 0.5):
+            seed = torch.randint(0, 2 ** 32, (1,), dtype=torch.int64,
+                                 device=DEV, generator=g)
+            one = torch.ones(R, C, device=DEV)
+            zb, zr = torch.zeros(C, device=DEV), torch.zeros(R, C, device=DEV)
+            mk = ep._bdr_forward(one, zb, zr, rate, seed)
+            mp = ep.bias_dropout_residual_plain(one, zb, zr, rate, seed)
+            mism = int((mk != mp).sum())
+            dropped = float((mk == 0).float().mean())
+            if mism or abs(dropped - rate) > 0.005:
+                raise AssertionError(
+                    "bias_dropout_residual mask (%d, %d) rate %g: %d "
+                    "mismatches, dropped share %.5f" % (R, C, rate, mism,
+                                                         dropped))
+            errs = []
+            for dt in (torch.float32, torch.bfloat16):
+                x, r = (torch.randn(R, C, device=DEV, generator=g).to(dt)
+                        for _ in range(2))
+                b = torch.randn(C, device=DEV, generator=g).to(dt)
+                gr = torch.randn(R, C, device=DEV, generator=g).to(dt)
+                errs.append(float((ep._bdr_forward(x, b, r, rate, seed)
+                                   - ep.bias_dropout_residual_plain(
+                                       x, b, r, rate, seed)).float().abs()
+                                  .max()))
+                if rate:
+                    errs.append(float(
+                        (ep._bdr_backward(gr, rate, seed)
+                         - ep.bias_dropout_residual_backward_plain(
+                             gr, rate, seed)).float().abs().max()))
+            err = max(errs)
+            log("bias_dropout_residual (%d, %d) rate %g: mask mismatches %d, "
+                "dropped %.5f; max_abs_err fwd%s f32/bf16 %s (tol %g)"
+                % (R, C, rate, mism, dropped, "/bwd" if rate else "",
+                   " ".join("%.3g" % e for e in errs), TOL_BDR))
+            if not err <= TOL_BDR:
+                raise AssertionError("bias_dropout_residual disagrees with its "
+                                     "plain version")
+            if (R, C, rate) != (4096, 768, 0.1):
+                continue
+            x, r, gr = (torch.randn(R, C, device=DEV, generator=g)
+                        for _ in range(3))
+            b = torch.randn(C, device=DEV, generator=g)
+            for key, fn, plain_fn, nbytes, err_k in (
+                    ("bias_dropout_residual_fwd",
+                     lambda: ep._bdr_forward(x, b, r, rate, seed),
+                     lambda: ep.bias_dropout_residual_plain(x, b, r, rate,
+                                                            seed),
+                     4 * (3 * R * C + C), errs[0]),
+                    ("bias_dropout_residual_bwd",
+                     lambda: ep._bdr_backward(gr, rate, seed),
+                     lambda: ep.bias_dropout_residual_backward_plain(
+                         gr, rate, seed),
+                     4 * 2 * R * C, errs[1])):
+                ms = timer(fn)
+                plain = timer(plain_fn)
+                bms, by = bound(nbytes, 20 * R * C)
+                log("%s (%d, %d) rate %g float32: kernel %.4f ms plain %.4f "
+                    "ms bound %.4f ms (%s); no PyTorch call takes a hash mask"
+                    % (key, R, C, rate, ms, plain, bms, by))
+                report[key] = dict(
+                    name=key, route="cuda",
+                    source="mxnet_tpu_torch/csrc/epilogue.cu",
+                    replaces="mxnet_tpu/ops/pallas/epilogue.py:%d"
+                    % (213 if key.endswith("fwd") else 221),
+                    max_abs_err=err_k, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -410,7 +567,9 @@ def traffic(seed, n):
 
 
 KERNELS = ("bias_gelu", "paged_attention", "decode_layer_group",
-           "quant_matmul_w8", "quant_matmul_w4", "paged_attention_int8")
+           "quant_matmul_w8", "quant_matmul_w4", "paged_attention_int8",
+           "bias_gelu_backward", "bias_dropout_residual_fwd",
+           "bias_dropout_residual_bwd")
 
 
 def launch_counts(reset=False):
@@ -425,7 +584,12 @@ def launch_counts(reset=False):
                 "quant_matmul_w8": (qm.quant_matmul, "launches_w8"),
                 "quant_matmul_w4": (qm.quant_matmul, "launches_w4"),
                 "paged_attention_int8": (pa.paged_attention,
-                                         "launches_int8")}
+                                         "launches_int8"),
+                "bias_gelu_backward": (ep.bias_gelu_backward, "launches"),
+                "bias_dropout_residual_fwd": (ep.bias_dropout_residual,
+                                              "launches_fwd"),
+                "bias_dropout_residual_bwd": (ep.bias_dropout_residual,
+                                              "launches_bwd")}
     if reset:
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
@@ -568,6 +732,31 @@ def top1_agreement(a, b):
     return hit / sum(x.shape[0] for x in a)
 
 
+def device_summary(torch, prof, wall):
+    """The device's busy share of a profiled window of ``wall`` seconds, its
+    number of kernel spans, and the 8 kernels with the most device time
+    as (name, ms)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return (100.0 * busy / 1e6 / wall, len(spans),
+            "; ".join("%s %.1f" % (k[:60], v / 1e3) for k, v in top))
+
+
 def profile(torch, lm, reqs, fused):
     """torch.profiler over one engine serving ``reqs``: the device's busy
     share of the window and the kernels that took the most device time."""
@@ -586,27 +775,218 @@ def profile(torch, lm, reqs, fused):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.stop()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
-                e.time_range.end - e.time_range.start)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    busy, n, top = device_summary(torch, prof, wall)
     log("profile fused=%s: %d requests in %.3f s, device busy %.1f%% "
         "(%d kernel spans); top kernels by device ms: %s"
-        % (fused, len(reqs), wall, 100.0 * busy / 1e6 / wall, len(spans),
-           "; ".join("%s %.1f" % (k[:60], v / 1e3) for k, v in top)))
+        % (fused, len(reqs), wall, busy, n, top))
+
+
+# ---------------------------------------------------------------------------
+# phase 4: training BERT-base
+# ---------------------------------------------------------------------------
+BERT = dict(vocab_size=30522, num_layers=12, units=768, hidden_size=3072,
+            num_heads=12, max_length=512, token_types=2)
+TRAIN_B, TRAIN_L, TRAIN_STEPS, TRAIN_LR = 32, 128, 10, 1e-4
+#: kernel launches of one training step at dropout > 0: FFN1 in 12 layers
+#: plus the MLM transform, and the two residual joins of 12 layers
+PER_STEP = {"bias_gelu": 13, "bias_gelu_backward": 13,
+            "bias_dropout_residual_fwd": 24, "bias_dropout_residual_bwd": 24}
+# one Adam step, card vs CPU copies at dropout 0: fp32 sums in another
+# order over 12 layers.  The loss and each gradient tensor (relative to
+# its largest element) agree to ~1e-6; these allow 100x that
+TOL_STEP_LOSS = 1e-4
+TOL_STEP_GRAD = 1e-3
+# after the step: Adam's first update is lr * g / (|g| + 3.2e-7), so a
+# weight moves by at most lr whichever device; a gradient within rounding
+# of 0 may move the two copies apart by up to 2 lr.  At most this share
+# of weights may differ by more than 1% of lr
+TOL_STEP_SHARE = 1e-4
+
+
+def bert_model(torch, seed, dropout, device):
+    """``BERTModel`` at BERT-base widths, Xavier weights from ``seed`` and
+    random biases and LN affines (N(0, 0.1), gammas 1 + N(0, 0.1)) drawn
+    on the CPU, so the same seed gives the same weights on any device."""
+    from mxnet_tpu_torch.models import bert
+    net = bert.BERTModel(**BERT, dropout=dropout, use_flash=False,
+                         device=device, seed=seed, init="xavier")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if p.dim() == 1:
+                base = 1.0 if name.endswith("gamma") else 0.0
+                p.copy_(base + 0.1 * torch.randn(p.shape, generator=g))
+    return net
+
+
+def pretrain_batch(torch, seed, B, L, device):
+    """A fixed MLM + NSP batch from a numpy seed: valid lengths from L/2 to
+    L, two segments per row (token types 0 then 1), MLM labels at every
+    position, NSP labels."""
+    rng = np.random.default_rng(seed)
+    valid = rng.integers(L // 2, L + 1, B)
+    split = rng.integers(1, valid)
+    types = (np.arange(L)[None, :] >= split[:, None]).astype(np.int64)
+    V = BERT["vocab_size"]
+    arrays = dict(tokens=rng.integers(0, V, (B, L)), types=types,
+                  valid=valid, mlm=rng.integers(0, V, (B, L)),
+                  nsp=rng.integers(0, 2, B))
+    return {k: torch.tensor(v, device=device) for k, v in arrays.items()}
+
+
+def pretrain_loss(torch, net, batch):
+    """Per-sample MLM + NSP cross entropy, (B,)."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    ce = SoftmaxCrossEntropyLoss()
+    mlm, nsp = net(batch["tokens"], batch["types"], batch["valid"])
+    return ce(mlm, batch["mlm"]) + ce(nsp, batch["nsp"])
+
+
+def train_flops(B, L):
+    """Matmul FLOPs of one training step (forward and backward, 3x the
+    forward): the layers' GEMMs, attention's two batched products, the MLM
+    transform and the tied logits."""
+    C, F, V, N = (BERT["units"], BERT["hidden_size"], BERT["vocab_size"],
+                  BERT["num_layers"])
+    per_token = (N * (2 * (4 * C * C + 2 * C * F) + 4 * L * C)
+                 + 2 * C * C + 2 * C * V)
+    return 3 * per_token * B * L
+
+
+def train(torch, seed, profile_steps=0):
+    """``TRAIN_STEPS`` Adam steps of BERT-base at dropout 0.1 on a fixed
+    batch through the user's entry points; checks the loss falls, the
+    launches per step, and that every tensor autograd saves (the (B, L)
+    ids and masks, the (B, H, L, L) attention probabilities) is on the
+    card."""
+    from mxnet_tpu_torch.gluon import Trainer
+    net = bert_model(torch, seed, 0.1, DEV)
+    batch = pretrain_batch(torch, seed, TRAIN_B, TRAIN_L, DEV)
+    trainer = Trainer(dict(net.named_parameters()), "adam",
+                      {"learning_rate": TRAIN_LR})
+    saved = []
+
+    def pack(t):
+        saved.append((tuple(t.shape), t.device.type))
+        return t
+
+    def eval_loss():
+        net.eval()
+        with torch.no_grad():
+            out = float(pretrain_loss(torch, net, batch).mean())
+        net.train()
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    losses, step_ms, evals = [], [], []
+    for step in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        if step == 0:
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                loss = pretrain_loss(torch, net, batch)
+        else:
+            loss = pretrain_loss(torch, net, batch)
+        loss.backward(torch.ones_like(loss))
+        trainer.step(TRAIN_B)
+        losses.append(float(loss.detach().mean()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if step in (0, TRAIN_STEPS - 1):
+            # the loss without dropout after the first and the last update
+            evals.append(eval_loss())
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    p50 = statistics.median(step_ms[1:])
+    flops = train_flops(TRAIN_B, TRAIN_L)
+    log("train BERT-base B=%d L=%d dropout 0.1, Adam lr %g: loss %s; step "
+        "p50 %.3f ms (first %.1f ms), %.1f tokens/s, %.2f TFLOP/s of matmul "
+        "(%.2f TFLOP per step); peak memory %.2f GB; launches %s"
+        % (TRAIN_B, TRAIN_L, TRAIN_LR, " ".join("%.4f" % v for v in losses),
+           p50, step_ms[0], TRAIN_B * TRAIN_L / p50 * 1e3,
+           flops / p50 / 1e9, flops / 1e12, peak_gb, counts))
+    log("train: loss without dropout after step 1 %.6f, after step %d %.6f"
+        % (evals[0], TRAIN_STEPS, evals[1]))
+    if not (all(np.isfinite(losses + evals)) and evals[1] < evals[0]):
+        raise AssertionError("training loss did not fall: %s" % evals)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({k: n * TRAIN_STEPS for k, n in PER_STEP.items()})
+    # the two dropout-free forwards: bias_gelu and the forward joins
+    # (rate 0) once more each
+    want["bias_gelu"] += 2 * PER_STEP["bias_gelu"]
+    want["bias_dropout_residual_fwd"] += 2 * PER_STEP[
+        "bias_dropout_residual_fwd"]
+    if counts != want:
+        raise AssertionError("training launches do not match the path: %s, "
+                             "want %s" % (counts, want))
+    H = BERT["num_heads"]
+    off = [s for s in saved if s[1] != torch.device(DEV).type]
+    shapes = {s[0] for s in saved}
+    if off or not {(TRAIN_B, TRAIN_L), (TRAIN_B, H, TRAIN_L, TRAIN_L)} <= shapes:
+        raise AssertionError("%d saved tensors off the card (first %s), or no "
+                             "(B, L) / (B, H, L, L) among them"
+                             % (len(off), off[:4]))
+    log("train: %d tensors saved for backward in step 1, all on %s"
+        % (len(saved), DEV))
+    if profile_steps:
+        from torch.profiler import ProfilerActivity
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(profile_steps):
+                loss = pretrain_loss(torch, net, batch)
+                loss.backward(torch.ones_like(loss))
+                trainer.step(TRAIN_B)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, n, top = device_summary(torch, prof, wall)
+        log("profile train: %d steps in %.3f s, device busy %.1f%% (%d "
+            "kernel spans); top kernels by device ms: %s"
+            % (profile_steps, wall, busy, n, top))
+    return counts, dict(step_p50_ms=p50, tokens_per_s=TRAIN_B * TRAIN_L / p50
+                        * 1e3, eval_loss_after_first=evals[0],
+                        eval_loss_after_last=evals[1],
+                        peak_memory_gb=peak_gb)
+
+
+def card_vs_cpu_step(torch, seed):
+    """One Adam step of BERT-base at dropout 0, B 2, L 32, on the card and
+    on the CPU (the plain versions) from the same weights and batch: the
+    loss, every gradient and the updated weights agree."""
+    from mxnet_tpu_torch.gluon import Trainer
+    B, L = 2, 32
+    res = {}
+    for dev in (DEV, "cpu"):
+        net = bert_model(torch, seed + 1, 0.0, dev)
+        trainer = Trainer(dict(net.named_parameters()), "adam",
+                          {"learning_rate": TRAIN_LR})
+        loss = pretrain_loss(torch, net, pretrain_batch(torch, seed + 1, B,
+                                                        L, dev))
+        loss.backward(torch.ones_like(loss))
+        grads = {n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+        trainer.step(B)
+        res[dev] = (loss.detach().cpu(), grads,
+                    {n: p.detach().cpu() for n, p in net.named_parameters()})
+        del net, trainer
+    (lc, gc, wc), (lp, gp, wp) = res[DEV], res["cpu"]
+    loss_err = float(((lc - lp).abs() / lp.abs()).max())
+    grad_err = max(float((gc[n] - gp[n]).abs().max())
+                   / max(float(gp[n].abs().max()), 1e-30) for n in gp)
+    w_max = max(float((wc[n] - wp[n]).abs().max()) for n in wp)
+    far = sum(int(((wc[n] - wp[n]).abs() > 0.01 * TRAIN_LR).sum())
+              for n in wp)
+    share = far / sum(t.numel() for t in wp.values())
+    log("one Adam step, card vs CPU copies (B=%d L=%d dropout 0): loss rel "
+        "err %.3g (tol %g); gradients max err / tensor max %.3g (tol %g); "
+        "weights max abs diff %.3g (bound 2 lr = %g), share beyond 1%% of lr "
+        "%.3g (tol %g)" % (B, L, loss_err, TOL_STEP_LOSS, grad_err,
+                           TOL_STEP_GRAD, w_max, 2 * TRAIN_LR, share,
+                           TOL_STEP_SHARE))
+    if not (loss_err <= TOL_STEP_LOSS and grad_err <= TOL_STEP_GRAD
+            and w_max <= 2 * TRAIN_LR and share <= TOL_STEP_SHARE):
+        raise AssertionError("training step on the card disagrees with the "
+                             "CPU")
 
 
 def main():
@@ -616,7 +996,8 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile 16 requests through each decode step")
+                    help="also profile 16 requests through each decode step "
+                    "and 3 training steps")
     args = ap.parse_args()
 
     import torch
@@ -658,6 +1039,8 @@ def main():
     check_fused(torch, timer, report, lm, lm_gqa)
     check_quant_matmul(torch, timer, report)
     check_paged_attention_int8(torch, timer, report)
+    check_bias_gelu_backward(torch, timer, report)
+    check_bias_dropout_residual(torch, timer, report)
     del timer
     if args.kernels_only:
         log("kernel checks passed")
@@ -719,17 +1102,22 @@ def main():
     if args.profile:
         for fused in (True, False):
             profile(torch, lm, reqs[:16], fused)
+    train_counts, train_stats = train(torch, args.seed,
+                                      3 if args.profile else 0)
+    card_vs_cpu_step(torch, args.seed)
     kernels = []
     for name in KERNELS:
         row = report[name]
-        row["launches"] = sum(run[2][name] for run in runs.values())
+        row["launches"] = (sum(run[2][name] for run in runs.values())
+                           + train_counts[name])
         if not row["launches"]:
             raise AssertionError("%s was not launched on the main path"
                                  % name)
         kernels.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    log(json.dumps({"serve": {k: run[3] for k, run in runs.items()}}))
+    log(json.dumps({"serve": {k: run[3] for k, run in runs.items()},
+                    "train": train_stats}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,17 @@ wrote in Pallas for the TPU is written again by hand for Hopper (sm_90a)
 under ``ops/kernels`` (CUDA C++ sources in ``csrc/``), each beside a
 plain PyTorch version that CPU tensors take.
 
-Ported so far: the LLM serving slice — ``models.decoder.CausalLM`` served
-by ``serving.DecodeEngine`` over a paged KV cache.  Entry points run on
-``cuda`` unless ``device="cpu"`` is passed (``context.resolve``).
+Ported so far:
+
+- the LLM serving slice — ``models.decoder.CausalLM`` served by
+  ``serving.DecodeEngine`` over a paged KV cache, in fp32 or quantized;
+- the training slice — ``models.bert.BERTModel`` (MLM + NSP) trained by
+  ``gluon.Trainer`` with MXNet's optimizers (``optimizer``), on
+  ``gluon.nn`` layers, ``gluon.loss``, ``initializer`` and ``ops.nn``,
+  through the fused epilogue kernels with their gradients.
+
+Entry points run on ``cuda`` unless ``device="cpu"`` is passed
+(``context.resolve``).
 """
 from . import config, context, faults, profiler  # noqa: F401
 from .context import cpu, gpu  # noqa: F401

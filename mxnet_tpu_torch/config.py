@@ -140,6 +140,13 @@ register("MXNET_QUANT_MATMUL", str, "", "honored",
          "lane (the kernel on CUDA tensors, the plain version on CPU "
          "tensors), so any value but '' raises ValueError",
          "serving.DecodeEngine")
+register("MXNET_FUSE_EPILOGUE", str, "1", "honored",
+         "fused transformer epilogues: Dense(gelu), PositionwiseFFN and "
+         "BERT run bias-free GEMMs followed by the fused bias_gelu and "
+         "bias_dropout_residual kernels; '0'/'false'/'False'/'off' takes "
+         "the unfused add/activation/dropout chain (read by "
+         "ops.kernels.epilogue.fuse_epilogue_enabled)",
+         "models.bert, gluon.nn.Dense")
 register("MXNET_SLO_DEFAULT_TIER", str, "latency", "honored",
          "SLO admission: tier assigned to requests that carry none "
          "('latency' is protected; 'bulk' is shed first under overload)",

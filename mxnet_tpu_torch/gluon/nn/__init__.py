@@ -1,0 +1,4 @@
+"""Gluon layers of the port."""
+from .basic_layers import Dense, Dropout, Embedding, LayerNorm  # noqa: F401
+
+__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm"]

@@ -1,2 +1,2 @@
 """Models of the port."""
-from . import decoder  # noqa: F401
+from . import bert, decoder  # noqa: F401

@@ -1,10 +1,18 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-- ``epilogue.bias_gelu``              — Triton (``epilogue.py``)
+- ``epilogue.bias_gelu``              — Triton (``epilogue.py``), forward
+- ``epilogue.bias_gelu_backward``     — Triton (``epilogue.py``)
+- ``epilogue.bias_dropout_residual``  — CUDA (``csrc/epilogue.cu``),
+  forward and backward, over the hash mask of ``dropout_hash``
 - ``paged_attention.paged_attention`` — CUDA (``csrc/paged_attention.cu``)
 - ``fused_cell.decode_layer_group``   — CUDA (``csrc/fused_decode.cu``)
+- ``quant_matmul.quant_matmul``       — CUDA (``csrc/quant_matmul.cu``),
+  int8 and int4 weights
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
 it launches its kernel (built on first use by ``_build``) or raises.
-Each wrapper counts its launches in a ``launches`` attribute.
+Each wrapper counts its launches in a ``launches`` attribute
+(``launches_fwd``/``launches_bwd`` for ``bias_dropout_residual``).  The
+epilogue ops are ``torch.autograd.Function``s whose backward is a kernel
+too: the training slice (``models.bert``) runs them forward and back.
 """

@@ -1,20 +1,27 @@
-"""Port parity: ``mxnet_tpu_torch.ops.kernels.epilogue.bias_gelu`` against
-``mxnet_tpu.ops.pallas.epilogue.bias_gelu`` on the CPU.
+"""Port parity: ``mxnet_tpu_torch.ops.kernels.epilogue`` (``bias_gelu``
+with its backward, ``bias_dropout_residual`` forward and backward) and
+``dropout_hash`` against ``mxnet_tpu.ops.pallas.epilogue`` on the CPU.
 
 The same numpy inputs go through the JAX function (its XLA path, and the
-Pallas kernel in interpret mode) and the port's wrapper, which takes its
-plain PyTorch version for CPU tensors.  The Triton kernel itself runs
+Pallas kernels in interpret mode) and the port's wrappers, which take
+their plain PyTorch versions for CPU tensors.  The hash and the dropout
+mask must match exactly.  The Triton and CUDA kernels themselves run
 only on the card (``chip_smoke.py``).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mxnet_tpu.ops.pallas import epilogue as jep
+from mxnet_tpu.ops.pallas.flash_attention import hash_keep_bits as jhash
+from mxnet_tpu_torch.ops.kernels import dropout_hash as thash
 from mxnet_tpu_torch.ops.kernels import epilogue as tep
 
 torch.set_num_threads(2)
@@ -59,3 +66,166 @@ def test_bias_gelu_cpu_takes_plain_version():
     out = tep.bias_gelu(x, b)
     assert tep.bias_gelu.launches == before
     assert torch.equal(out, tep.bias_gelu_plain(x, b))
+
+
+def _mode_env(monkeypatch, mode):
+    monkeypatch.setenv("MXNET_EPILOGUE_KERNEL",
+                       "0" if mode == "xla" else "interpret")
+    return None if mode == "xla" else "interpret"
+
+
+@pytest.mark.parametrize("mode", ["xla", "interpret"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bias_gelu_backward_matches_jax(monkeypatch, mode, dtype):
+    """dx and db of the autograd.Function against jax.vjp of the JAX op."""
+    _mode_env(monkeypatch, mode)
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((2, 8, 128)) * 3).astype(np.float32)
+    b = rng.standard_normal(128).astype(np.float32)
+    g = rng.standard_normal((2, 8, 128)).astype(np.float32)
+    jdt, tdt = _DT[dtype]
+    _, vjp = jax.vjp(jep.bias_gelu, jnp.asarray(x, jdt), jnp.asarray(b, jdt))
+    jdx, jdb = vjp(jnp.asarray(g, jdt))
+    xt = torch.tensor(x).to(tdt).requires_grad_()
+    bt = torch.tensor(b).to(tdt).requires_grad_()
+    before = tep.bias_gelu_backward.launches
+    tep.bias_gelu(xt, bt).backward(torch.tensor(g).to(tdt))
+    assert tep.bias_gelu_backward.launches == before
+    assert xt.grad.dtype == tdt and bt.grad.dtype == tdt
+    jdx = np.asarray(jdx.astype(jnp.float32))
+    jdb = np.asarray(jdb.astype(jnp.float32))
+    if dtype == "float32":
+        # erf and exp a few ulps apart; gelu' is O(1), g ~ N(0, 1)
+        np.testing.assert_allclose(xt.grad.numpy(), jdx, rtol=1e-5,
+                                   atol=1e-6)
+        # db sums 16 such rows in fp32
+        np.testing.assert_allclose(bt.grad.numpy(), jdb, rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        # one bf16 rounding of dx; db is the fp32 sum of 16 bf16 dx values
+        # rounded once to bf16: two neighbouring bf16 values at most
+        np.testing.assert_allclose(xt.grad.float().numpy(), jdx,
+                                   rtol=2.0 ** -7, atol=1e-6)
+        np.testing.assert_allclose(bt.grad.float().numpy(), jdb,
+                                   rtol=2.0 ** -7, atol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2 ** 31, 2 ** 32 - 1])
+def test_hash_matches_jax_exactly(seed):
+    rows = np.array([0, 1, 2, 127, 128, 4095, 65535, 2 ** 20 - 1, 2 ** 20],
+                    np.int64)[:, None]
+    cols = np.concatenate([np.arange(0, 64), np.array([767, 768, 3071,
+                                                      30521])])[None, :]
+    ref = jhash(jnp.uint32(seed), 0, jnp.asarray(rows, jnp.int32),
+                jnp.asarray(cols, jnp.int32))
+    out = thash.hash_keep_bits(seed, 0, torch.tensor(rows),
+                               torch.tensor(cols))
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.asarray(ref).astype(np.int64))
+    # keep mask and scale of a whole tile, against _keep_scale_rows
+    for rate in (0.1, 0.5):
+        ref = jep._keep_scale_rows(jnp.uint32(seed), 1000, (16, 96), rate)
+        out = thash.keep_scale_rows(seed, 1000, (16, 96), rate)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+SEED = 0xDEADBEEF
+
+
+@pytest.mark.parametrize("mode", ["xla", "interpret"])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bias_dropout_residual_matches_jax(monkeypatch, mode, rate, dtype):
+    """Forward and backward against JAX's op given the same seed: the mask
+    exactly (x = 1, b = 0, r = 0 gives keep scale or 0), values within
+    tolerance."""
+    jmode = _mode_env(monkeypatch, mode)
+    jdt, tdt = _DT[dtype]
+    shape = (3, 8, 96)                   # R = 24 rows of the (R, C) view
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(shape).astype(np.float32)
+    b = rng.standard_normal(shape[-1]).astype(np.float32)
+    r = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    seed = jnp.asarray([SEED], jnp.uint32)
+
+    def jax_op(x, b, r):
+        C = x.shape[-1]
+        return jep._bias_dropout_residual(
+            x.reshape(-1, C), b, r.reshape(-1, C), seed, rate,
+            jmode).reshape(x.shape)
+
+    ones = np.ones(shape, np.float32)
+    zb, zr = np.zeros(shape[-1], np.float32), np.zeros(shape, np.float32)
+    jmask = jax_op(jnp.asarray(ones, jdt), jnp.asarray(zb, jdt),
+                   jnp.asarray(zr, jdt))
+    tmask = tep.bias_dropout_residual(torch.tensor(ones).to(tdt),
+                                      torch.tensor(zb).to(tdt),
+                                      torch.tensor(zr).to(tdt), rate,
+                                      seed=SEED)
+    np.testing.assert_array_equal(tmask.float().numpy(),
+                                  np.asarray(jmask.astype(jnp.float32)))
+    dropped = float((tmask == 0).float().mean())
+    assert abs(dropped - rate) < 0.05
+
+    jout, vjp = jax.vjp(jax_op, jnp.asarray(x, jdt), jnp.asarray(b, jdt),
+                        jnp.asarray(r, jdt))
+    jdx, jdb, jdr = vjp(jnp.asarray(g, jdt))
+    xt, bt, rt = (torch.tensor(a).to(tdt).requires_grad_()
+                  for a in (x, b, r))
+    before = (tep.bias_dropout_residual.launches_fwd,
+              tep.bias_dropout_residual.launches_bwd)
+    out = tep.bias_dropout_residual(xt, bt, rt, rate, seed=SEED)
+    out.backward(torch.tensor(g).to(tdt))
+    assert before == (tep.bias_dropout_residual.launches_fwd,
+                      tep.bias_dropout_residual.launches_bwd)
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))      # noqa: E731
+    if dtype == "float32":
+        # the same fp32 adds and multiplies in the same order
+        tol = dict(rtol=1e-6, atol=1e-6)
+        db_tol = dict(rtol=1e-5, atol=1e-5)          # fp32 sum of 24 rows
+    else:
+        # one bf16 rounding at the end, at most a bf16 step apart
+        tol = dict(rtol=2.0 ** -7, atol=1e-6)
+        db_tol = dict(rtol=2.0 ** -7, atol=2.0 ** -7)
+    np.testing.assert_allclose(out.detach().float().numpy(), f32(jout),
+                               **tol)
+    np.testing.assert_allclose(xt.grad.float().numpy(), f32(jdx), **tol)
+    np.testing.assert_allclose(rt.grad.float().numpy(), f32(jdr), **tol)
+    np.testing.assert_allclose(bt.grad.float().numpy(), f32(jdb), **db_tol)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_bias_dropout_residual_saves_no_activation(rate):
+    """Only the one-element seed is saved for the backward: no mask and no
+    activation."""
+    saved = []
+
+    def pack(t):
+        saved.append(tuple(t.shape))
+        return t
+
+    x = torch.randn(16, 64, requires_grad=True)
+    b = torch.randn(64, requires_grad=True)
+    r = torch.randn(16, 64, requires_grad=True)
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = tep.bias_dropout_residual(x, b, r, rate, seed=7)
+    assert all(math.prod(s) <= 1 for s in saved), saved
+    assert len(saved) == (1 if rate else 0)
+    out.sum().backward()
+    if not rate:
+        torch.testing.assert_close(x.grad, torch.ones_like(x))
+    torch.testing.assert_close(r.grad, torch.ones_like(r))
+
+
+def test_bias_dropout_residual_seed_from_generator():
+    """Without ``seed=``, the uint32 seed comes from the caller's generator:
+    the same generator state gives the same mask."""
+    x, b, r = torch.ones(32, 64), torch.zeros(64), torch.zeros(32, 64)
+    outs = [tep.bias_dropout_residual(
+        x, b, r, 0.5, generator=torch.Generator().manual_seed(s))
+        for s in (1, 1, 2)]
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], outs[2])
+    with pytest.raises(ValueError):
+        tep.bias_dropout_residual(x, b, r, 1.0)

@@ -1,5 +1,6 @@
 """The port stands alone: importing ``mxnet_tpu_torch`` and every module of
-its serving slice loads neither ``jax`` nor any ``mxnet_tpu`` module; its
+its serving and training slices loads neither ``jax`` nor any
+``mxnet_tpu`` module; its
 entry points run on CUDA unless the CPU is asked for; and every feature
 of the JAX engine that the port lacks is refused, not ignored.
 """
@@ -38,6 +39,11 @@ def test_import_loads_no_jax_and_no_reference_package():
         assert "mxnet_tpu_torch.ops.kernels.fused_cell" in names, names
         assert "mxnet_tpu_torch.ops.kernels.quant_matmul" in names, names
         assert "mxnet_tpu_torch.serving.quantize" in names, names
+        for mod in ("models.bert", "gluon.trainer", "gluon.loss",
+                    "gluon.nn.basic_layers", "optimizer", "initializer",
+                    "ops.nn", "ops.optimizer_ops",
+                    "ops.kernels.dropout_hash", "ops.kernels.epilogue"):
+            assert "mxnet_tpu_torch." + mod in names, (mod, names)
         print(len(names), bad)
         sys.exit(1 if bad else 0)
     """)
