@@ -52,19 +52,12 @@ def _dense_nobias(dense, x):
     return _ops.fully_connected(x, dense.weight, no_bias=True, flatten=False)
 
 
-class _Gen:
-    """Shared access to the owning model's dropout generator."""
-
-    def __init__(self):
-        self.generator = None
-
-
 class MultiHeadAttention(nn.Module):
     """Self-attention: fused QKV projection, scaled dot products, masked
     softmax over the keys, attention-probability dropout."""
 
     def __init__(self, units, num_heads, dropout=0.0, use_flash=True,
-                 device=None, gen=None):
+                 device=None, generator=None):
         super().__init__()
         if units % num_heads:
             raise ValueError("units must divide into num_heads")
@@ -73,7 +66,7 @@ class MultiHeadAttention(nn.Module):
         self._units, self._num_heads = units, num_heads
         self._head_dim = units // num_heads
         self._dropout = dropout
-        self._gen = gen or _Gen()
+        self._generator = generator
         self.qkv = gnn.Dense(3 * units, flatten=False, in_units=units,
                              device=device)
         self.proj = gnn.Dense(units, flatten=False, in_units=units,
@@ -96,7 +89,7 @@ class MultiHeadAttention(nn.Module):
         else:
             att = _ops.softmax(att, axis=-1)
         att = _ops.dropout(att, self._dropout, self.training,
-                           self._gen.generator)
+                           self._generator)
         out = torch.matmul(att, v).transpose(1, 2).reshape(B, L, C)
         if fuse_epilogue_enabled():
             return _dense_nobias(self.proj, out)
@@ -105,7 +98,7 @@ class MultiHeadAttention(nn.Module):
 
 class PositionwiseFFN(nn.Module):
     def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
-                 device=None, gen=None):
+                 device=None, generator=None):
         super().__init__()
         self.ffn1 = gnn.Dense(hidden_size, flatten=False, in_units=units,
                               device=device)
@@ -113,7 +106,7 @@ class PositionwiseFFN(nn.Module):
                               device=device)
         self._activation = activation
         self._dropout = dropout
-        self._gen = gen or _Gen()
+        self._generator = generator
 
     def forward(self, x):
         """FFN2's output; its bias left out when the fused epilogues are
@@ -123,7 +116,7 @@ class PositionwiseFFN(nn.Module):
             h = _ops.bias_gelu(_dense_nobias(self.ffn1, x), self.ffn1.bias)
         else:
             h = _ops.activation(self.ffn1(x), self._activation)
-        h = _ops.dropout(h, self._dropout, self.training, self._gen.generator)
+        h = _ops.dropout(h, self._dropout, self.training, self._generator)
         return _dense_nobias(self.ffn2, h) if fused else self.ffn2(h)
 
 
@@ -131,19 +124,19 @@ class TransformerLayer(nn.Module):
     """Post-LN encoder layer (BERT convention)."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
-                 use_flash=True, device=None, gen=None):
+                 use_flash=True, device=None, generator=None):
         super().__init__()
-        self._gen = gen or _Gen()
+        self._generator = generator
         self.attention = MultiHeadAttention(units, num_heads, dropout,
-                                            use_flash, device, self._gen)
+                                            use_flash, device, generator)
         self.ffn = PositionwiseFFN(units, hidden_size, dropout,
-                                   device=device, gen=self._gen)
+                                   device=device, generator=generator)
         self.ln1 = gnn.LayerNorm(in_channels=units, device=device)
         self.ln2 = gnn.LayerNorm(in_channels=units, device=device)
         self._dropout = dropout
 
     def forward(self, x, mask=None):
-        gen = self._gen.generator
+        gen = self._generator
         if fuse_epilogue_enabled():
             h = self.attention(x, mask)
             x = self.ln1(_ops.bias_dropout_residual(
@@ -162,12 +155,12 @@ class TransformerLayer(nn.Module):
 class BERTEncoder(nn.Module):
     def __init__(self, num_layers=12, units=768, hidden_size=3072,
                  num_heads=12, dropout=0.1, max_length=512, use_flash=True,
-                 device=None, gen=None):
+                 device=None, generator=None):
         super().__init__()
         self._units = units
         self.layers = nn.ModuleList(
             TransformerLayer(units, hidden_size, num_heads, dropout,
-                             use_flash, device, gen)
+                             use_flash, device, generator)
             for _ in range(num_layers))
 
     def forward(self, x, mask=None):
@@ -200,7 +193,7 @@ class BERTModel(nn.Module):
         dev = context.resolve(device)
         self._units, self._max_length = units, max_length
         self._dropout = dropout
-        self._gen = _Gen()
+        self._generator = torch.Generator(device=dev)
         self.word_embed = gnn.Embedding(vocab_size, units, device=dev)
         self.token_type_embed = gnn.Embedding(token_types, units, device=dev)
         self.position_embed = nn.Parameter(
@@ -208,7 +201,7 @@ class BERTModel(nn.Module):
         self.embed_ln = gnn.LayerNorm(in_channels=units, device=dev)
         self.encoder = BERTEncoder(num_layers, units, hidden_size, num_heads,
                                    dropout, max_length, use_flash, dev,
-                                   self._gen)
+                                   self._generator)
         self.pooler = gnn.Dense(units, activation="tanh", flatten=False,
                                 in_units=units, device=dev)
         self.mlm_dense = gnn.Dense(units, flatten=False, in_units=units,
@@ -229,7 +222,7 @@ class BERTModel(nn.Module):
     @property
     def generator(self):
         """The ``torch.Generator`` (on the model's device) of dropout."""
-        return self._gen.generator
+        return self._generator
 
     def initialize(self, init=None, seed=0):
         """Fill every parameter with ``init`` (default ``Uniform(0.07)``;
@@ -239,8 +232,7 @@ class BERTModel(nn.Module):
         gen = torch.Generator().manual_seed(int(seed))
         for name, p in self.named_parameters():
             init(name, p, gen)
-        self._gen.generator = torch.Generator(
-            device=self.device).manual_seed(int(seed))
+        self._generator.manual_seed(int(seed))
         return self
 
     def forward(self, tokens, token_types=None, mask=None):

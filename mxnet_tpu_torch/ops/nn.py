@@ -120,10 +120,10 @@ def bias_gelu(data, bias):
 
 
 def bias_dropout_residual(data, bias, residual, p=0.0, training=False,
-                          generator=None, mode=None, seed=None):
+                          generator=None, mode=None):
     """``npx.bias_dropout_residual``: residual + dropout(data + bias).  The
     rate ``p`` applies only when ``training`` (or ``mode == "always"``);
     the hash mask is rebuilt in the backward, so no mask is stored."""
     rate = float(p) if (training or mode == "always") else 0.0
     return _epilogue.bias_dropout_residual(data, bias, residual, rate=rate,
-                                           seed=seed, generator=generator)
+                                           generator=generator)

@@ -135,6 +135,11 @@ class SGD(Optimizer):
 
 @register
 class Adam(Optimizer):
+    """Adam; the parameters that share a learning rate and a weight decay
+    update together, in one ``multi_adam_update``."""
+
+    _decoupled = False
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
@@ -148,20 +153,26 @@ class Adam(Optimizer):
         return (self._get_lr(index) * (1.0 - self.beta2 ** t) ** 0.5
                 / (1.0 - self.beta1 ** t))
 
-    def step_one(self, index, weight, grad, state):
-        mean, var = state
-        _ops.adam_update(weight, grad, mean, var, self._corrected_lr(index),
-                         self.beta1, self.beta2, self.epsilon,
-                         self._get_wd(index), self.rescale_grad, self._clip())
+    @torch.no_grad()
+    def update(self, indices, weights, grads, states):
+        if not isinstance(indices, (list, tuple)):
+            indices, weights, grads, states = ([indices], [weights],
+                                               [grads], [states])
+        groups = {}
+        for i, w, g, s in zip(indices, weights, grads, states):
+            self._update_count(i)
+            key = (self._corrected_lr(i), self._get_wd(i))
+            groups.setdefault(key, []).append((w, g, s))
+        for (lr, wd), items in groups.items():
+            _ops.multi_adam_update(
+                [w for w, _, _ in items], [g for _, g, _ in items],
+                [s[0] for _, _, s in items], [s[1] for _, _, s in items],
+                lr, self.beta1, self.beta2, self.epsilon, wd,
+                self.rescale_grad, self._clip(), decoupled=self._decoupled)
 
 
 @register
 class AdamW(Adam):
     """Adam with decoupled weight decay (``eta`` 1)."""
 
-    def step_one(self, index, weight, grad, state):
-        mean, var = state
-        _ops.adamw_update(weight, grad, mean, var, self._corrected_lr(index),
-                          1.0, self.beta1, self.beta2, self.epsilon,
-                          self._get_wd(index), self.rescale_grad,
-                          self._clip())
+    _decoupled = True
