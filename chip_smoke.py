@@ -523,8 +523,8 @@ def check_bias_dropout_residual(torch, timer, report):
                 % (R, C, rate, mism, dropped, "/bwd" if rate else "",
                    " ".join("%.3g" % e for e in errs), TOL_BDR))
             if not err <= TOL_BDR:
-                raise AssertionError("bias_dropout_residual disagrees with its "
-                                     "plain version")
+                raise AssertionError("bias_dropout_residual disagrees with "
+                                     "its plain version")
             if (R, C, rate) != (4096, 768, 0.1):
                 continue
             x, r, gr = (torch.randn(R, C, device=DEV, generator=g)
@@ -922,8 +922,8 @@ def train(torch, seed, profile_steps=0):
                              "want %s" % (counts, want))
     H = BERT["num_heads"]
     off = [s for s in saved if s[1] != torch.device(DEV).type]
-    shapes = {s[0] for s in saved}
-    if off or not {(TRAIN_B, TRAIN_L), (TRAIN_B, H, TRAIN_L, TRAIN_L)} <= shapes:
+    need = {(TRAIN_B, TRAIN_L), (TRAIN_B, H, TRAIN_L, TRAIN_L)}
+    if off or not need <= {s[0] for s in saved}:
         raise AssertionError("%d saved tensors off the card (first %s), or no "
                              "(B, L) / (B, H, L, L) among them"
                              % (len(off), off[:4]))

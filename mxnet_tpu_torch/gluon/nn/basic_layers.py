@@ -20,8 +20,8 @@ from ...ops.kernels.epilogue import fuse_epilogue_enabled
 __all__ = ["Dense", "Embedding", "LayerNorm", "Dropout"]
 
 
-def _param(shape, device, dtype, fill=None):
-    t = torch.empty(shape, device=device, dtype=dtype)
+def _param(shape, device, fill=None):
+    t = torch.empty(shape, device=device)
     if fill is not None:
         t.fill_(fill)
     return nn.Parameter(t)
@@ -29,12 +29,12 @@ def _param(shape, device, dtype, fill=None):
 
 class Dense(nn.Module):
     """Fully-connected layer: ``activation(x @ weight.T + bias)``, weight
-    (units, in_units).  With activation ``gelu``, a bias and
+    (units, in_units), fp32.  With activation ``gelu`` and
     ``MXNET_FUSE_EPILOGUE`` on, the GEMM runs bias-free and the fused
     ``bias_gelu`` kernel adds the bias and applies the GELU."""
 
-    def __init__(self, units, activation=None, use_bias=True, flatten=True,
-                 in_units=0, dtype=torch.float32, device=None):
+    def __init__(self, units, activation=None, flatten=True, in_units=0,
+                 device=None):
         super().__init__()
         if in_units <= 0:
             raise ValueError("Dense: in_units must be given (deferred shape "
@@ -43,15 +43,11 @@ class Dense(nn.Module):
         self._units = units
         self._flatten = flatten
         self._activation = activation
-        self.weight = _param((units, in_units), dev, dtype)
-        if use_bias:
-            self.bias = _param((units,), dev, dtype, 0.0)
-        else:
-            self.register_parameter("bias", None)
+        self.weight = _param((units, in_units), dev)
+        self.bias = _param((units,), dev, 0.0)
 
     def forward(self, x):
-        if (self._activation == "gelu" and self.bias is not None
-                and fuse_epilogue_enabled()):
+        if self._activation == "gelu" and fuse_epilogue_enabled():
             out = _ops.fully_connected(x, self.weight, no_bias=True,
                                        flatten=self._flatten)
             return _ops.bias_gelu(out, self.bias)
@@ -67,14 +63,13 @@ class Dense(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Embedding lookup, weight (input_dim, output_dim)."""
+    """Embedding lookup, weight (input_dim, output_dim), fp32."""
 
-    def __init__(self, input_dim, output_dim, dtype=torch.float32,
-                 device=None):
+    def __init__(self, input_dim, output_dim, device=None):
         super().__init__()
         dev = context.resolve(device)
         self._input_dim, self._output_dim = input_dim, output_dim
-        self.weight = _param((input_dim, output_dim), dev, dtype)
+        self.weight = _param((input_dim, output_dim), dev)
 
     def forward(self, x):
         return _ops.embedding(x, self.weight)
@@ -87,17 +82,14 @@ class LayerNorm(nn.Module):
     """LayerNorm over ``axis`` with fp32 statistics; ``gamma`` starts at 1
     and ``beta`` at 0."""
 
-    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
-                 in_channels=0, dtype=torch.float32, device=None):
+    def __init__(self, axis=-1, epsilon=1e-5, in_channels=0, device=None):
         super().__init__()
         if in_channels <= 0:
             raise ValueError("LayerNorm: in_channels must be given")
         dev = context.resolve(device)
         self._axis, self._epsilon = axis, epsilon
-        self.gamma = _param((in_channels,), dev, dtype, 1.0)
-        self.beta = _param((in_channels,), dev, dtype, 0.0)
-        self.gamma.requires_grad_(scale)
-        self.beta.requires_grad_(center)
+        self.gamma = _param((in_channels,), dev, 1.0)
+        self.beta = _param((in_channels,), dev, 0.0)
 
     def forward(self, x):
         return _ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,

@@ -1,9 +1,11 @@
 """Trainer (the port of ``mxnet_tpu/gluon/trainer.py`` on one device).
 
 ``Trainer(params, optimizer, optimizer_params)`` applies an MXNet
-optimizer (:mod:`mxnet_tpu_torch.optimizer`) to a set of parameters.
+optimizer (:mod:`mxnet_tpu_torch.optimizer`) to a set of parameters (a
+dict such as ``dict(model.named_parameters())``, or a list).
 ``step(batch_size)`` sets ``rescale_grad = scale / batch_size`` and
-updates, in place, every parameter that holds a gradient.  MXNet's
+updates, in place, every parameter that holds a gradient; a parameter
+without one is left as it is.  MXNet's
 backward writes each gradient afresh (``grad_req="write"``) where torch's
 adds to it, so ``step`` hands the gradients back as ``None`` once it has
 applied them: the next backward writes new ones.
@@ -68,15 +70,9 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
-    def allreduce_grads(self):
-        """One device: each gradient is already whole."""
-
-    def step(self, batch_size, ignore_stale_grad=False):
-        """Apply one update with gradients normalised by ``batch_size``."""
-        self.allreduce_grads()
-        self.update(batch_size, ignore_stale_grad)
-
-    def update(self, batch_size, ignore_stale_grad=False):
+    def step(self, batch_size):
+        """Apply one update with gradients normalised by ``batch_size``,
+        then hand the gradients back as None."""
         self._optimizer.rescale_grad = self._scale / batch_size
         idxs, ws, gs, sts = [], [], [], []
         for i, p in enumerate(self._params):

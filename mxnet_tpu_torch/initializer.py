@@ -1,5 +1,5 @@
 """Weight initializers (the port of a subset of ``mxnet_tpu/initializer.py``):
-``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal`` and ``Xavier``,
+``Zero``, ``One``, ``Uniform``, ``Normal`` and ``Xavier``,
 with ``register``/``create``.
 
 An initializer is called on a parameter's name and tensor and fills the
@@ -17,8 +17,8 @@ import math
 
 import torch
 
-__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Xavier", "register", "create"]
+__all__ = ["Initializer", "Zero", "One", "Uniform", "Normal", "Xavier",
+           "register", "create"]
 
 _REGISTRY = {}
 
@@ -70,16 +70,6 @@ class Zero(Initializer):
 class One(Initializer):
     def _draw(self, name, shape, generator):
         return torch.ones(shape)
-
-
-@register
-class Constant(Initializer):
-    def __init__(self, value=0.0):
-        super().__init__(value=value)
-        self.value = value
-
-    def _draw(self, name, shape, generator):
-        return torch.full(shape, float(self.value))
 
 
 @register

@@ -23,25 +23,13 @@ __all__ = ["activation", "fully_connected", "embedding", "layer_norm",
 
 
 def activation(x, act_type):
-    """``npx.activation``: relu, sigmoid, tanh, softrelu, softsign, silu,
-    gelu (exact erf) or gelu_tanh."""
-    if act_type == "relu":
-        return F.relu(x)
-    if act_type == "sigmoid":
-        return torch.sigmoid(x)
+    """``npx.activation`` for the types the ported models use: tanh and
+    gelu (exact erf)."""
     if act_type == "tanh":
         return torch.tanh(x)
-    if act_type == "softrelu":
-        return F.softplus(x)
-    if act_type == "softsign":
-        return F.softsign(x)
-    if act_type in ("swish", "silu"):
-        return F.silu(x)
     if act_type == "gelu":
         return F.gelu(x)
-    if act_type == "gelu_tanh":
-        return F.gelu(x, approximate="tanh")
-    raise ValueError("unknown act_type %r" % (act_type,))
+    raise ValueError("act_type %r is not ported (tanh, gelu)" % (act_type,))
 
 
 def fully_connected(x, weight, bias=None, no_bias=False, flatten=True):
@@ -66,11 +54,11 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     return out.movedim(-1, axis).to(x.dtype)
 
 
-def dropout(x, p=0.5, training=True, generator=None, axes=None, mode=None):
-    """Inverted dropout, active when ``training`` or ``mode == "always"``:
-    keep each element with probability 1 - p and scale it by 1/(1 - p).
-    ``axes`` share one mask draw along those axes."""
-    if p <= 0.0 or not (training or mode == "always"):
+def dropout(x, p=0.5, training=True, generator=None, axes=None):
+    """Inverted dropout, active when ``training``: keep each element with
+    probability 1 - p and scale it by 1/(1 - p).  ``axes`` share one mask
+    draw along those axes."""
+    if p <= 0.0 or not training:
         return x
     shape = list(x.shape)
     for ax in axes or ():
@@ -120,10 +108,10 @@ def bias_gelu(data, bias):
 
 
 def bias_dropout_residual(data, bias, residual, p=0.0, training=False,
-                          generator=None, mode=None):
+                          generator=None):
     """``npx.bias_dropout_residual``: residual + dropout(data + bias).  The
-    rate ``p`` applies only when ``training`` (or ``mode == "always"``);
-    the hash mask is rebuilt in the backward, so no mask is stored."""
-    rate = float(p) if (training or mode == "always") else 0.0
+    rate ``p`` applies only when ``training``; the hash mask is rebuilt in
+    the backward, so no mask is stored."""
+    rate = float(p) if training else 0.0
     return _epilogue.bias_dropout_residual(data, bias, residual, rate=rate,
                                            generator=generator)

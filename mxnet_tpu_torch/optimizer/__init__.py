@@ -33,18 +33,17 @@ def create(name, **kwargs):
 
 class Optimizer:
     """Base optimizer: learning rate, weight decay, ``rescale_grad``,
-    ``clip_gradient``, per-index ``lr_mult``/``wd_mult`` (or a parameter's
-    ``lr_mult``/``wd_mult`` attribute, through ``param_dict``), and the
-    per-index update count."""
+    ``clip_gradient``, per-index ``lr_mult``/``wd_mult`` (or, for the
+    parameters in ``param_dict``, their ``lr_mult``/``wd_mult``
+    attributes, 1 when unset), and the per-index update count."""
 
-    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
-                 clip_gradient=None, learning_rate=None, param_dict=None):
+    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
+                 learning_rate=None, param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate if learning_rate is not None else 0.01
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.param_dict = param_dict or {}
-        self.idx2name = param_idx2name or {}
         self.num_update = 0
         self._index_update_count = {}
         self.lr_mult = {}
@@ -59,11 +58,7 @@ class Optimizer:
     def _mult(self, index, table, attr):
         if index in self.param_dict:
             return getattr(self.param_dict[index], attr, 1.0)
-        if index in table:
-            return table[index]
-        if index in self.idx2name:
-            return table.get(self.idx2name[index], 1.0)
-        return 1.0
+        return table.get(index, 1.0)
 
     def _get_lr(self, index):
         return self.lr * self._mult(index, self.lr_mult, "lr_mult")

@@ -4,9 +4,9 @@ units, 2 heads, vocab 1000), with the JAX model's weights carried across
 by name (``load_jax_params``) and random biases and LN affines.
 
 - parameter names equal the JAX ``collect_params()`` keys;
-- MLM and NSP logits match at dropout 0, with and without a (B,)
-  valid-length mask (one row of length 0), with ``MXNET_FUSE_EPILOGUE``
-  on and off;
+- MLM and NSP logits match at dropout 0, without a mask, with a (B,)
+  valid-length mask (one row of length 0) and with a dense causal mask,
+  with ``MXNET_FUSE_EPILOGUE`` on and off, and with untied embeddings;
 - every parameter's gradient of the summed MLM + NSP loss matches the JAX
   ``autograd.record()``/``backward()`` gradient;
 - ``use_flash=True`` raises; without a GPU the model needs
@@ -64,13 +64,22 @@ def test_parameter_names_match_jax(models):
     assert sorted(names) == sorted(jnet.collect_params())
 
 
+def mask_of(kind, batch):
+    """None, the (B,) valid lengths, or a dense causal (1, 1, L, L) mask."""
+    if kind == "lengths":
+        return batch["valid"]
+    if kind == "dense":
+        return np.tril(np.ones((L, L), bool))[None, None]
+    return None
+
+
 @pytest.mark.parametrize("fuse", ["1", "0"])
-@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("masked", ["none", "lengths", "dense"])
 def test_logits_match_jax(monkeypatch, models, batch, fuse, masked):
     monkeypatch.setenv("MXNET_FUSE_EPILOGUE", fuse)
     jnet, params = models
     net = port_model(params).eval()
-    mask = batch["valid"] if masked else None
+    mask = mask_of(masked, batch)
     jm, jn = jnet(mnp.array(batch["tokens"]), mnp.array(batch["types"]),
                   None if mask is None else mnp.array(mask))
     with torch.no_grad():
@@ -80,6 +89,17 @@ def test_logits_match_jax(monkeypatch, models, batch, fuse, masked):
     assert tm.shape == (B, L, V) and tn.shape == (B, 2)
     np.testing.assert_allclose(tm.numpy(), jm.asnumpy(), **TOL)
     np.testing.assert_allclose(tn.numpy(), jn.asnumpy(), **TOL)
+
+
+def test_untied_logits_match_jax(batch):
+    jnet, params = tiny_bert_with_affine(tie_embeddings=False)
+    assert "mlm_decoder.weight" in params
+    net = port_model(params, tie_embeddings=False).eval()
+    jm, _ = jnet(mnp.array(batch["tokens"]), None, mnp.array(batch["valid"]))
+    with torch.no_grad():
+        tm, _ = net(torch.tensor(batch["tokens"]), None,
+                    torch.tensor(batch["valid"]))
+    np.testing.assert_allclose(tm.numpy(), jm.asnumpy(), **TOL)
 
 
 def jax_grads(jnet, batch):
