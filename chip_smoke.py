@@ -20,7 +20,16 @@ plain version):
    training kernels: ``bias_gelu_backward`` at (4096, 3072), (4096, 768)
    and (4095, 3072) in float32 and bfloat16; ``bias_dropout_residual``
    forward (rates 0, 0.1, 0.5) and backward (0.1, 0.5) at (4096, 768) and
-   (4095, 766), the mask held exactly.  ``--kernels-only`` stops here.
+   (4095, 766), the mask held exactly.  Flash attention (#5 forward, #6
+   dq, #7 dk/dv) against ``flash_attention_plain``, its backward and
+   autograd through it: float32 and bfloat16, D 64 and 128, (B, H, L) of
+   (32, 12, 128), (4, 12, 2048) and a ragged (2, 6, 200), with no mask,
+   causal, a window of 32 and kv_length with a row of length 0, at
+   dropout 0 and 0.1 (96 cases); the dropout mask read off the output
+   (q = k = 0, V = I) in every element at rates 0.1 and 0.5 and seeds 0
+   and 2**32 - 1; the three kernels timed at the training shape in fp32
+   and bf16 beside their plain versions and SDPA.  ``--kernels-only``
+   stops here.
 3. Serving: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
    ``--seed``, with random biases and LN affines, which the kernel checks
@@ -30,20 +39,27 @@ plain version):
    with int4 weights (group 128) and fp KV pages.  Kernel launch counts
    are set to 0 before each run and read after it.  Then, for 3 requests,
    teacher-forced prefill + decode through each engine's programs is held
-   against ``full_forward`` (over the quantized weights for int4), and for
-   the int8-KV run against the same programs on CPU copies of the params.
+   against ``full_forward`` (which attends through the flash forward
+   kernel; over the quantized weights for int4), and for the int8-KV run
+   against the same programs on CPU copies of the params.
 4. Training: ``BERTModel`` at BERT-base widths (the same widths, 2 token
-   types, dropout 0.1, ``use_flash=False``, fused epilogues; Xavier
-   weights from ``--seed`` with random biases and LN affines) takes 10
-   Adam steps (lr 1e-4) through ``gluon.Trainer`` on a fixed MLM + NSP
-   batch of B 32, L 128 with valid lengths 64..128.  The loss must fall,
-   each step must launch ``bias_gelu`` and its backward 13 times and
-   ``bias_dropout_residual`` forward and backward 24 times each (counts
-   set to 0 before the phase), and every tensor autograd saves must be on
-   the card.  Then one Adam step at B 2, L 32, dropout 0, on the card and
-   on CPU copies of the weights: loss, gradients and weights agree.
+   types, dropout 0.1, ``use_flash=True``, fused epilogues; Xavier
+   weights from ``--seed`` with random biases and LN affines), three
+   times through ``gluon.Trainer`` with Adam (lr 1e-4) on a fixed MLM +
+   NSP batch (valid lengths L/2..L): 10 steps at B 32, L 128 in fp32; the
+   same under ``amp.convert_hybrid_block(net, "bfloat16")``, whose step-1
+   loss must agree with fp32's and whose parameters stay fp32 while the
+   flash and epilogue kernels run in bf16; and 3 AMP steps at B 4, L 2048
+   (``max_length=2048``).  In each the dropout-free loss must fall, each
+   step must launch ``bias_gelu`` and its backward 13 times,
+   ``bias_dropout_residual`` forward and backward 24 times each and each
+   flash kernel 12 times (counts set to 0 before the phase), every
+   tensor autograd saves must be on the card, and none may be a (B, H,
+   L, L) attention matrix.  Then one Adam step at B 2, L 32, dropout 0,
+   on the card and on CPU copies of the weights: loss, gradients and
+   weights agree.
 5. The kernels line (launches summed over the serving runs and the
-   training phase), the card line and, last, the result line
+   training phases), the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -116,13 +132,13 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(96 << 20, dtype=torch.uint8, device=DEV)
 
-    def __call__(self, fn, iters=20):
+    def __call__(self, fn, iters=20, spin=200_000):
         torch = self.torch
         fn()
         ms = []
         for _ in range(iters):
             self.flush.zero_()
-            torch.cuda._sleep(200_000)
+            torch.cuda._sleep(spin)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -133,8 +149,8 @@ class Timer:
         return statistics.median(ms)
 
 
-def bound(nbytes, flops):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound(nbytes, flops, peak=FP32_FLOPS):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -556,6 +572,224 @@ def check_bias_dropout_residual(torch, timer, report):
                     bound_by=by, library_ms=None)
 
 
+# flash attention #5-#7 against flash_attention_plain on the card.  fp32:
+# the kernel's online softmax and its fp32 sums run in another order than
+# the plain version's two-pass softmax and cuBLAS products, over up to
+# 2048 keys: ~1e-6 of the largest element; these allow 100x that.  bf16:
+# the kernels round P (forward) and dS (backward) to bf16 where the plain
+# version does, but an exp a few ulps apart can round to the neighbouring
+# bf16 value, and the outputs are rounded to bf16 at the end: two bf16
+# steps (2**-7) of the largest element.  Against autograd through the
+# plain forward in bf16: the kernels' delta = sum dO * O reads the output
+# rounded to bf16 (as the JAX kernel's does, flash_attention.py:466), and
+# dS = P (dP - delta) cancels where dP is close to delta, so that rounding
+# (2**-9 of O) reaches a few percent of dS's largest element; 2**-5.
+TOL_FLASH_F32 = 1e-4
+TOL_FLASH_BF16 = 2.0 ** -7
+TOL_FLASH_GRAD_BF16 = 2.0 ** -5
+BF16_FLOPS = 989e12
+#: (B, H, L) of the flash checks: the training shape, the long-context
+#: shape and a ragged L
+FLASH_SHAPES = ((32, 12, 128), (4, 12, 2048), (2, 6, 200))
+
+
+def rel_err(a, b):
+    """max |a - b| over the largest |b|, in fp32 (0 for two zero
+    tensors)."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def flash_case(torch, fa, g, B, H, L, D, dt, mask, rate):
+    """One flash check: the kernels' out, lse, dq, dk, dv against the plain
+    version (forward and backward with the kernels' rounding) and against
+    autograd through the plain forward.  Returns the worst error of each
+    and the tolerances."""
+    q, k, v, do = (torch.randn(B, H, L, D, device=DEV, generator=g).to(dt)
+                   for _ in range(4))
+    kw = dict(dropout=rate)
+    if rate:
+        kw["seed"] = torch.randint(0, 2 ** 32, (1,), dtype=torch.int64,
+                                   device=DEV, generator=g)
+    if mask == "causal":
+        kw["causal"] = True
+    elif mask == "window":
+        kw["window"] = 32
+    elif mask == "kv_length":
+        kvl = torch.randint(1, L + 1, (B,), device=DEV, generator=g)
+        kvl[0] = 0
+        kw["kv_length"] = kvl
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    pout, plse = fa.flash_attention_plain(q, k, v, **kw)
+    if not torch.equal(torch.isinf(lse), torch.isinf(plse)):
+        raise AssertionError("flash_attention_fwd: rows without a key differ")
+    fin = torch.isfinite(plse)
+    errs = {"out": rel_err(out, pout),
+            "lse": float((lse[fin] - plse[fin]).abs().max()) if bool(
+                fin.any()) else 0.0}
+    delta = (do.float() * out.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    pdq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    pdk, pdv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                **kw)
+    errs.update(dq=rel_err(dq, pdq), dk=rel_err(dk, pdk), dv=rel_err(dv, pdv))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref, _ = fa.flash_attention_plain(*leaves, **kw)
+    grads = torch.autograd.grad(ref, leaves, do)
+    errs["autograd"] = max(rel_err(a, b) for a, b in zip((dq, dk, dv), grads))
+    tol = TOL_FLASH_F32 if dt == torch.float32 else TOL_FLASH_BF16
+    tol_ag = TOL_FLASH_F32 if dt == torch.float32 else TOL_FLASH_GRAD_BF16
+    bad = [n for n, e in errs.items()
+           if not e <= (tol_ag if n == "autograd" else tol)]
+    if bad:
+        raise AssertionError(
+            "flash attention B %d H %d L %d D %d %s mask %s rate %g: %s "
+            "beyond tolerance: %s" % (B, H, L, D, str(dt)[6:], mask, rate,
+                                      bad, errs))
+    return errs
+
+
+def check_flash_mask(torch, fa):
+    """The dropout mask read off the kernel's output: with q = k = 0 every
+    valid probability is 1/64, and with V = I at L = D = 64 the output is
+    out[bh, i, j] = keep[bh, i, j] / 64 exactly, so every element of the
+    kernel's mask is compared with the plain hash's, at two rates and the
+    extreme seeds."""
+    from mxnet_tpu_torch.ops.kernels import dropout_hash as dh
+    B, H, L = 2, 4, 64
+    zeros = torch.zeros(B, H, L, L, device=DEV)
+    eye = torch.eye(L, device=DEV).expand(B, H, L, L)
+    bh = torch.arange(B * H, device=DEV).reshape(B, H, 1, 1)
+    gi = torch.arange(L, device=DEV)[:, None]
+    for rate in (0.1, 0.5):
+        for seed in (0, 2 ** 32 - 1):
+            st = torch.tensor([seed], dtype=torch.int64, device=DEV)
+            out, _ = fa.flash_attention_fwd(zeros, zeros, eye, dropout=rate,
+                                            seed=st)
+            keep = dh.hash_keep_bits(seed, bh, gi, gi.T) >= dh.keep_threshold(
+                rate)
+            want = keep.float() * dh.keep_scale(rate) / L
+            mism = int((out != want).sum())
+            dropped = float((out == 0).float().mean())
+            log("flash_attention mask rate %g seed %d: %d of %d elements "
+                "differ from the plain hash; dropped share %.5f"
+                % (rate, seed, mism, out.numel(), dropped))
+            if mism or abs(dropped - rate) > 0.01:
+                raise AssertionError("flash attention dropout mask differs "
+                                     "from the plain hash")
+
+
+def flash_timing(torch, fa, timer, dt, report):
+    """#5-#7 at the training shape (B 32, H 12, L 128, D 64, the training
+    batch's valid lengths, dropout 0.1), beside the plain versions and SDPA
+    (dense, dropout 0: it takes no hash mask)."""
+    import torch.nn.functional as F
+    B, H, L, D = TRAIN_B, BERT["num_heads"], TRAIN_L, 64
+    g = torch.Generator(device=DEV).manual_seed(12)
+    q, k, v, do = (torch.randn(B, H, L, D, device=DEV, generator=g).to(dt)
+                   for _ in range(4))
+    kvl = pretrain_batch(torch, 0, B, L, DEV)["valid"]
+    seed = torch.randint(0, 2 ** 32, (1,), dtype=torch.int64, device=DEV,
+                         generator=g)
+    kw = dict(dropout=0.1, seed=seed, kv_length=kvl)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves)
+    lib_fwd = timer(lambda: F.scaled_dot_product_attention(q, k, v))
+    # autograd's Python takes longer to enqueue SDPA's backward than the
+    # timer's usual 0.1 ms spin: spin ~2 ms so the card's time is timed
+    lib_bwd = timer(lambda: torch.autograd.grad(sdpa_out, leaves, do,
+                                                retain_graph=True),
+                    spin=4_000_000)
+    elt = q.element_size()
+    keys = float(kvl.sum()) * H * L       # (row, key) pairs the mask keeps
+    peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
+    errs = flash_case(torch, fa, g, B, H, L, D, dt, "kv_length", 0.1)
+    rows = {}
+    for name, fn, plain, flops, nbytes, err in (
+            ("flash_attention_fwd",
+             lambda: fa.flash_attention_fwd(q, k, v, **kw),
+             lambda: fa.flash_attention_plain(q, k, v, **kw),
+             4 * keys * D, 4 * B * H * L * D * elt + B * H * L * 4,
+             max(errs["out"], errs["lse"])),
+            ("flash_attention_bwd_dq",
+             lambda: fa.flash_attention_bwd_dq(*bwd, **kw),
+             lambda: fa.flash_attention_bwd_dq_plain(*bwd, **kw),
+             6 * keys * D, 5 * B * H * L * D * elt + 2 * B * H * L * 4,
+             errs["dq"]),
+            ("flash_attention_bwd_dkv",
+             lambda: fa.flash_attention_bwd_dkv(*bwd, **kw),
+             lambda: fa.flash_attention_bwd_dkv_plain(*bwd, **kw),
+             8 * keys * D, 6 * B * H * L * D * elt + 2 * B * H * L * 4,
+             max(errs["dk"], errs["dv"]))):
+        ms = timer(fn)
+        plain_ms = timer(plain)
+        bms, by = bound(nbytes, flops, peak)
+        lib = lib_fwd if name.endswith("fwd") else lib_bwd
+        log("%s (B %d, H %d, L %d, D %d, kv_length, rate 0.1) %s: "
+            "max err / largest %.3g; kernel %.4f ms plain %.4f ms bound "
+            "%.4f ms (%s) SDPA %s %.4f ms (dense, dropout 0: SDPA takes no "
+            "hash mask)" % (name, B, H, L, D, str(dt)[6:], err, ms, plain_ms,
+                            bms, by, "forward" if name.endswith("fwd") else
+                            "backward (dq, dk and dv in one call)", lib))
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                          bound_by=by, library_ms=lib, max_abs_err=err)
+    # the layout copy in front of the kernels: q, k, v made contiguous
+    # after BERT's head permute of the (B, L, 3, H, D) projection
+    qkv = torch.randn(B, L, 3, H, D, device=DEV, generator=g).to(dt).permute(
+        2, 0, 3, 1, 4)
+    copy_ms = timer(lambda: [t.contiguous() for t in qkv])
+    log("q, k, v .contiguous() after the head permute (B %d, H %d, L %d, D "
+        "%d) %s: %.4f ms" % (B, H, L, D, str(dt)[6:], copy_ms))
+    if dt == torch.float32:
+        for name, row in rows.items():
+            line = 158 if name.endswith("fwd") else (
+                262 if name.endswith("dq") else 314)
+            report[name] = dict(
+                name=name, route="cuda",
+                source="mxnet_tpu_torch/csrc/flash_attention.cu",
+                replaces="mxnet_tpu/ops/pallas/flash_attention.py:%d" % line,
+                **row)
+    return dict(rows, qkv_contiguous_ms=copy_ms)
+
+
+def check_flash_attention(torch, timer, report):
+    """Kernels #5-#7 against the plain version and autograd through it, in
+    float32 and bfloat16, at D 64 and 128, at (B, H, L) of the training
+    shape (BH 384), the long-context shape (BH 48) and a ragged L 200,
+    with no mask, causal, a window of 32 and kv_length with a row of
+    length 0, at dropout 0 and 0.1; then the mask exactly, and the times
+    at the training shape."""
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    g = torch.Generator(device=DEV).manual_seed(11)
+    worst = {}
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for B, H, L in FLASH_SHAPES:
+            for D in (64, 128):
+                for mask in ("none", "causal", "window", "kv_length"):
+                    for rate in (0.0, 0.1):
+                        errs = flash_case(torch, fa, g, B, H, L, D, dt, mask,
+                                          rate)
+                        n += 1
+                        key = str(dt)[6:]
+                        for name, e in errs.items():
+                            w = worst.setdefault(key, {})
+                            w[name] = max(w.get(name, 0.0), e)
+        torch.cuda.empty_cache()
+    log("flash attention: %d cases pass; worst error / largest element %s "
+        "(tol fp32 %g, bf16 %g, bf16 vs autograd %g)"
+        % (n, json.dumps(worst), TOL_FLASH_F32, TOL_FLASH_BF16,
+           TOL_FLASH_GRAD_BF16))
+    check_flash_mask(torch, fa)
+    flash_timing(torch, fa, timer, torch.float32, report)
+    report["flash_bf16"] = flash_timing(torch, fa, timer, torch.bfloat16,
+                                        report)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -569,12 +803,14 @@ def traffic(seed, n):
 KERNELS = ("bias_gelu", "paged_attention", "decode_layer_group",
            "quant_matmul_w8", "quant_matmul_w4", "paged_attention_int8",
            "bias_gelu_backward", "bias_dropout_residual_fwd",
-           "bias_dropout_residual_bwd")
+           "bias_dropout_residual_bwd", "flash_attention_fwd",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
 def launch_counts(reset=False):
     """Every kernel wrapper's launch count (set to 0 first when ``reset``)."""
     from mxnet_tpu_torch.ops.kernels import epilogue as ep
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     from mxnet_tpu_torch.ops.kernels import fused_cell as fc
     from mxnet_tpu_torch.ops.kernels import paged_attention as pa
     from mxnet_tpu_torch.ops.kernels import quant_matmul as qm
@@ -589,7 +825,11 @@ def launch_counts(reset=False):
                 "bias_dropout_residual_fwd": (ep.bias_dropout_residual,
                                               "launches_fwd"),
                 "bias_dropout_residual_bwd": (ep.bias_dropout_residual,
-                                              "launches_bwd")}
+                                              "launches_bwd"),
+                "flash_attention_fwd": (fa.flash_attention, "launches_fwd"),
+                "flash_attention_bwd_dq": (fa.flash_attention, "launches_dq"),
+                "flash_attention_bwd_dkv": (fa.flash_attention,
+                                            "launches_dkv")}
     if reset:
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
@@ -787,10 +1027,25 @@ def profile(torch, lm, reqs, fused):
 BERT = dict(vocab_size=30522, num_layers=12, units=768, hidden_size=3072,
             num_heads=12, max_length=512, token_types=2)
 TRAIN_B, TRAIN_L, TRAIN_STEPS, TRAIN_LR = 32, 128, 10, 1e-4
+#: the long-context phase: bench_bert_long's shape (bench.py:1469)
+LONG_B, LONG_L, LONG_STEPS = 4, 2048, 3
 #: kernel launches of one training step at dropout > 0: FFN1 in 12 layers
-#: plus the MLM transform, and the two residual joins of 12 layers
+#: plus the MLM transform, the two residual joins of 12 layers, and the
+#: attention of 12 layers forward and back
 PER_STEP = {"bias_gelu": 13, "bias_gelu_backward": 13,
-            "bias_dropout_residual_fwd": 24, "bias_dropout_residual_bwd": 24}
+            "bias_dropout_residual_fwd": 24, "bias_dropout_residual_bwd": 24,
+            "flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+            "flash_attention_bwd_dkv": 12}
+#: launches of one dropout-free evaluation forward
+PER_EVAL = {"bias_gelu": 13, "bias_dropout_residual_fwd": 24,
+            "flash_attention_fwd": 12}
+# AMP bf16 vs fp32, the training loss of step 1 (the same weights, batch
+# and dropout masks): bf16 keeps 8 bits of mantissa, so each GEMM,
+# attention and epilogue output carries ~2**-9 relative rounding, which 12
+# post-LN layers carry to the logits; the mean cross entropy over 4096
+# tokens averages the per-token deviations.  1% of the loss (~0.12 nat)
+# allows that, and lies below the ~1.8 nat the fp32 run's 10 steps move it
+TOL_AMP_LOSS = 1e-2
 # one Adam step, card vs CPU copies at dropout 0: fp32 sums in another
 # order over 12 layers.  The loss and each gradient tensor (relative to
 # its largest element) agree to ~1e-6; these allow 100x that
@@ -803,12 +1058,13 @@ TOL_STEP_GRAD = 1e-3
 TOL_STEP_SHARE = 1e-4
 
 
-def bert_model(torch, seed, dropout, device):
-    """``BERTModel`` at BERT-base widths, Xavier weights from ``seed`` and
-    random biases and LN affines (N(0, 0.1), gammas 1 + N(0, 0.1)) drawn
-    on the CPU, so the same seed gives the same weights on any device."""
+def bert_model(torch, seed, dropout, device, **kw):
+    """``BERTModel`` at BERT-base widths (``use_flash=True``), Xavier
+    weights from ``seed`` and random biases and LN affines (N(0, 0.1),
+    gammas 1 + N(0, 0.1)) drawn on the CPU, so the same seed gives the
+    same weights on any device."""
     from mxnet_tpu_torch.models import bert
-    net = bert.BERTModel(**BERT, dropout=dropout, use_flash=False,
+    net = bert.BERTModel(**dict(BERT, **kw), dropout=dropout, use_flash=True,
                          device=device, seed=seed, init="xavier")
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -853,15 +1109,22 @@ def train_flops(B, L):
     return 3 * per_token * B * L
 
 
-def train(torch, seed, profile_steps=0):
-    """``TRAIN_STEPS`` Adam steps of BERT-base at dropout 0.1 on a fixed
-    batch through the user's entry points; checks the loss falls, the
-    launches per step, and that every tensor autograd saves (the (B, L)
-    ids and masks, the (B, H, L, L) attention probabilities) is on the
-    card."""
+def train(torch, seed, label, B, L, steps, amp=False, profile_steps=0,
+          **model_kw):
+    """``steps`` Adam steps of BERT-base at dropout 0.1 on a fixed batch
+    through the user's entry points (wrapped by
+    ``amp.convert_hybrid_block(net, "bfloat16")`` when ``amp``); checks
+    the loss falls, the launches per step, that every tensor autograd
+    saves is on the card and none is a (B, H, L, L) attention matrix, and
+    under AMP that the parameters stay fp32 and the kernels ran in
+    bfloat16."""
+    from mxnet_tpu_torch import amp as amp_mod
     from mxnet_tpu_torch.gluon import Trainer
-    net = bert_model(torch, seed, 0.1, DEV)
-    batch = pretrain_batch(torch, seed, TRAIN_B, TRAIN_L, DEV)
+    from mxnet_tpu_torch.ops.kernels import epilogue as ep
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    net = bert_model(torch, seed, 0.1, DEV, **model_kw)
+    model = amp_mod.convert_hybrid_block(net, "bfloat16") if amp else net
+    batch = pretrain_batch(torch, seed, B, L, DEV)
     trainer = Trainer(dict(net.named_parameters()), "adam",
                       {"learning_rate": TRAIN_LR})
     saved = []
@@ -873,7 +1136,7 @@ def train(torch, seed, profile_steps=0):
     def eval_loss():
         net.eval()
         with torch.no_grad():
-            out = float(pretrain_loss(torch, net, batch).mean())
+            out = float(pretrain_loss(torch, model, batch).mean())
         net.train()
         return out
 
@@ -881,71 +1144,82 @@ def train(torch, seed, profile_steps=0):
     torch.cuda.reset_peak_memory_stats()
     launch_counts(reset=True)
     losses, step_ms, evals = [], [], []
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         t = time.perf_counter()
         if step == 0:
             with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-                loss = pretrain_loss(torch, net, batch)
+                loss = pretrain_loss(torch, model, batch)
         else:
-            loss = pretrain_loss(torch, net, batch)
+            loss = pretrain_loss(torch, model, batch)
         loss.backward(torch.ones_like(loss))
-        trainer.step(TRAIN_B)
+        trainer.step(B)
         losses.append(float(loss.detach().mean()))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
-        if step in (0, TRAIN_STEPS - 1):
+        if step in (0, steps - 1):
             # the loss without dropout after the first and the last update
             evals.append(eval_loss())
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     p50 = statistics.median(step_ms[1:])
-    flops = train_flops(TRAIN_B, TRAIN_L)
-    log("train BERT-base B=%d L=%d dropout 0.1, Adam lr %g: loss %s; step "
-        "p50 %.3f ms (first %.1f ms), %.1f tokens/s, %.2f TFLOP/s of matmul "
-        "(%.2f TFLOP per step); peak memory %.2f GB; launches %s"
-        % (TRAIN_B, TRAIN_L, TRAIN_LR, " ".join("%.4f" % v for v in losses),
-           p50, step_ms[0], TRAIN_B * TRAIN_L / p50 * 1e3,
-           flops / p50 / 1e9, flops / 1e12, peak_gb, counts))
-    log("train: loss without dropout after step 1 %.6f, after step %d %.6f"
-        % (evals[0], TRAIN_STEPS, evals[1]))
+    flops = train_flops(B, L)
+    log("train %s: BERT-base B=%d L=%d dropout 0.1, Adam lr %g: loss %s; "
+        "step p50 %.3f ms (first %.1f ms), %.1f tokens/s, %.2f TFLOP/s of "
+        "matmul (%.2f TFLOP per step); peak memory %.2f GB; launches %s"
+        % (label, B, L, TRAIN_LR, " ".join("%.4f" % v for v in losses), p50,
+           step_ms[0], B * L / p50 * 1e3, flops / p50 / 1e9, flops / 1e12,
+           peak_gb, counts))
+    log("train %s: loss without dropout after step 1 %.6f, after step %d "
+        "%.6f" % (label, evals[0], steps, evals[1]))
     if not (all(np.isfinite(losses + evals)) and evals[1] < evals[0]):
         raise AssertionError("training loss did not fall: %s" % evals)
     want = dict.fromkeys(KERNELS, 0)
-    want.update({k: n * TRAIN_STEPS for k, n in PER_STEP.items()})
-    # the two dropout-free forwards: bias_gelu and the forward joins
-    # (rate 0) once more each
-    want["bias_gelu"] += 2 * PER_STEP["bias_gelu"]
-    want["bias_dropout_residual_fwd"] += 2 * PER_STEP[
-        "bias_dropout_residual_fwd"]
+    for k, n in PER_STEP.items():
+        want[k] = n * steps + PER_EVAL.get(k, 0) * len(evals)
     if counts != want:
         raise AssertionError("training launches do not match the path: %s, "
                              "want %s" % (counts, want))
     H = BERT["num_heads"]
     off = [s for s in saved if s[1] != torch.device(DEV).type]
-    need = {(TRAIN_B, TRAIN_L), (TRAIN_B, H, TRAIN_L, TRAIN_L)}
-    if off or not need <= {s[0] for s in saved}:
-        raise AssertionError("%d saved tensors off the card (first %s), or no "
-                             "(B, L) / (B, H, L, L) among them"
+    shapes = {s[0] for s in saved}
+    if off or (B, L) not in shapes or (B, H, L, L) in shapes:
+        raise AssertionError("%d saved tensors off the card (first %s), no "
+                             "(B, L) among them, or a (B, H, L, L) one"
                              % (len(off), off[:4]))
-    log("train: %d tensors saved for backward in step 1, all on %s"
-        % (len(saved), DEV))
+    log("train %s: %d tensors saved for backward in step 1, all on %s, none "
+        "of (B, H, L, L)" % (label, len(saved), DEV))
+    if amp:
+        wide = [n for n, p in net.named_parameters()
+                if p.dtype != torch.float32]
+        ran = {"flash_attention": fa.flash_attention.last_dtype,
+               "bias_gelu": ep.bias_gelu.last_dtype,
+               "bias_gelu_backward": ep.bias_gelu_backward.last_dtype,
+               "bias_dropout_residual": ep.bias_dropout_residual.last_dtype}
+        log("train %s: parameters not fp32: %d; dtype of each kernel's last "
+            "launch: %s" % (label, len(wide), {k: str(v)[6:]
+                                               for k, v in ran.items()}))
+        if wide or any(v != torch.bfloat16 for v in ran.values()):
+            raise AssertionError("AMP: parameters not fp32 %s, or a kernel "
+                                 "did not run in bfloat16 %s" % (wide, ran))
     if profile_steps:
         from torch.profiler import ProfilerActivity
         with torch.profiler.profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(profile_steps):
-                loss = pretrain_loss(torch, net, batch)
+                loss = pretrain_loss(torch, model, batch)
                 loss.backward(torch.ones_like(loss))
-                trainer.step(TRAIN_B)
+                trainer.step(B)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         busy, n, top = device_summary(torch, prof, wall)
-        log("profile train: %d steps in %.3f s, device busy %.1f%% (%d "
+        log("profile train %s: %d steps in %.3f s, device busy %.1f%% (%d "
             "kernel spans); top kernels by device ms: %s"
-            % (profile_steps, wall, busy, n, top))
-    return counts, dict(step_p50_ms=p50, tokens_per_s=TRAIN_B * TRAIN_L / p50
-                        * 1e3, eval_loss_after_first=evals[0],
+            % (label, profile_steps, wall, busy, n, top))
+    del model, net, trainer
+    torch.cuda.empty_cache()
+    return counts, dict(step_p50_ms=p50, tokens_per_s=B * L / p50 * 1e3,
+                        first_loss=losses[0], eval_loss_after_first=evals[0],
                         eval_loss_after_last=evals[1],
                         peak_memory_gb=peak_gb)
 
@@ -999,6 +1273,7 @@ def main():
                     help="also profile 16 requests through each decode step "
                     "and 3 training steps")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -1041,7 +1316,9 @@ def main():
     check_paged_attention_int8(torch, timer, report)
     check_bias_gelu_backward(torch, timer, report)
     check_bias_dropout_residual(torch, timer, report)
+    check_flash_attention(torch, timer, report)
     del timer
+    log("kernel checks done at %.1f s" % (time.perf_counter() - t_start))
     if args.kernels_only:
         log("kernel checks passed")
         return 0
@@ -1102,14 +1379,31 @@ def main():
     if args.profile:
         for fused in (True, False):
             profile(torch, lm, reqs[:16], fused)
-    train_counts, train_stats = train(torch, args.seed,
-                                      3 if args.profile else 0)
+    log("serving done at %.1f s" % (time.perf_counter() - t_start))
+    trains = {}
+    trains["fp32"] = train(torch, args.seed, "fp32", TRAIN_B, TRAIN_L,
+                           TRAIN_STEPS, profile_steps=3 if args.profile
+                           else 0)
+    trains["amp_bf16"] = train(torch, args.seed, "amp_bf16", TRAIN_B,
+                               TRAIN_L, TRAIN_STEPS, amp=True,
+                               profile_steps=3 if args.profile else 0)
+    l32 = trains["fp32"][1]["first_loss"]
+    l16 = trains["amp_bf16"][1]["first_loss"]
+    amp_err = abs(l16 - l32) / abs(l32)
+    log("train: step-1 loss AMP bf16 %.6f vs fp32 %.6f, rel err %.3g (tol "
+        "%g)" % (l16, l32, amp_err, TOL_AMP_LOSS))
+    if not amp_err <= TOL_AMP_LOSS:
+        raise AssertionError("AMP step-1 loss disagrees with fp32")
+    trains["long_amp_bf16"] = train(torch, args.seed, "long_amp_bf16",
+                                    LONG_B, LONG_L, LONG_STEPS, amp=True,
+                                    max_length=LONG_L)
     card_vs_cpu_step(torch, args.seed)
+    log("training done at %.1f s" % (time.perf_counter() - t_start))
     kernels = []
     for name in KERNELS:
         row = report[name]
         row["launches"] = (sum(run[2][name] for run in runs.values())
-                           + train_counts[name])
+                           + sum(c[name] for c, _ in trains.values()))
         if not row["launches"]:
             raise AssertionError("%s was not launched on the main path"
                                  % name)
@@ -1117,7 +1411,8 @@ def main():
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     log(json.dumps({"serve": {k: run[3] for k, run in runs.items()},
-                    "train": train_stats}))
+                    "train": {k: st for k, (_, st) in trains.items()},
+                    "flash_bf16": report["flash_bf16"]}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

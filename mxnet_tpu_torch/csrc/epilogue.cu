@@ -9,9 +9,10 @@
 // the flattened (R, C) view falls below the rate's uint32 threshold, and
 // 1/(1-rate) (rounded to float32) where it does not.  The hash is
 // hash_keep_bits of mxnet_tpu/ops/pallas/flash_attention.py:125 with
-// batch-head 0: uint32 arithmetic wraps by definition in C++, so the mask
-// equals the JAX package's and the port's plain version bit for bit.  The
-// backward regenerates it from the seed, so no mask is ever stored.
+// batch-head 0 (dropout_hash.cuh): uint32 arithmetic wraps by definition
+// in C++, so the mask equals the JAX package's and the port's plain
+// version bit for bit.  The backward regenerates it from the seed, so no
+// mask is ever stored.
 //
 // Bound on the card: bytes.  Each element is read and written once, with
 // ~15 integer operations of hash between; nothing is reused except the
@@ -24,18 +25,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dropout_hash.cuh"
+
 namespace {
 
+// the hash of dropout_hash.cuh with batch-head 0
 __device__ __forceinline__ uint32_t keep_hash(uint32_t seed, uint32_t gi,
                                               uint32_t gj) {
-  uint32_t h = (gi * 0x9E3779B1u) ^ (gj * 0x85EBCA77u);
-  h ^= seed;  // seed + b * 0xC2B2AE3D, with batch-head b = 0
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
+  return mxt_keep_hash(seed, 0u, gi, gj);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

@@ -10,6 +10,10 @@ backward writes each gradient afresh (``grad_req="write"``) where torch's
 adds to it, so ``step`` hands the gradients back as ``None`` once it has
 applied them: the next backward writes new ones.
 
+``amp.init_trainer`` attaches a dynamic loss scaler for fp16 AMP as
+``_amp_loss_scaler`` (None otherwise); ``amp.unscale`` walks the
+parameters in ``_params``.
+
 One card, one process: the kvstores ``"device"`` (the default, as in the
 JAX package), ``"local"`` and ``None`` all update in place.  Distributed
 stores, gradient compression and updates on the kvstore are not ported
@@ -54,6 +58,7 @@ class Trainer:
             self._optimizer = opt_mod.create(optimizer, param_dict=param_dict,
                                              **optimizer_params)
         self._states = {}
+        self._amp_loss_scaler = None
 
     @property
     def optimizer(self):

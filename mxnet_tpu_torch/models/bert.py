@@ -1,7 +1,11 @@
 """BERT with MLM + NSP heads (the port of ``mxnet_tpu/models/bert.py``).
 
-Post-LN transformer encoder layers; attention as batched matmuls and a
-masked softmax over the keys (``use_flash=False``).  With
+Post-LN transformer encoder layers.  Attention (``use_flash=True``, the
+default, as in the JAX package) goes through
+``ops.attention.flash_attention``: the flash kernels forward and back,
+with the attention-probability dropout in the kernels' hash mask and a
+(B,) valid-length mask as ``kv_length``; a dense mask, or
+``use_flash=False``, takes batched matmuls and a masked softmax.  With
 ``MXNET_FUSE_EPILOGUE`` on (the default), each projection before an
 epilogue runs bias-free and the epilogue kernels own the bias:
 
@@ -20,8 +24,9 @@ to the word embedding (``h @ word_embed.weight.T + mlm_bias``).
 carries a JAX model's weights across by name.
 
 Dropout (train mode only) draws its plain masks from ``model.generator``
-on the model's device, and the epilogue kernels' uint32 seeds from the
-same generator.
+on the model's device, and the flash and epilogue kernels' uint32 seeds
+from the same generator.  Under ``amp.convert_hybrid_block`` the
+projections, attention and epilogues run in bf16 (``ops/nn.py``).
 """
 from __future__ import annotations
 
@@ -34,17 +39,13 @@ from torch import nn
 from .. import context
 from .. import initializer as _init
 from ..gluon import nn as gnn
+from ..ops import attention as _attention
 from ..ops import nn as _ops
 from ..ops.kernels.epilogue import fuse_epilogue_enabled
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerLayer",
            "BERTEncoder", "BERTModel", "bert_base", "bert_large",
            "bert_tiny", "params_from_jax"]
-
-_FLASH = ("use_flash=True needs the flash-attention kernels, which are not "
-          "ported yet (ROADMAP Queue 1, BERT-base training part 2); pass "
-          "use_flash=False for batched-matmul attention")
-
 
 def _dense_nobias(dense, x):
     """A Dense layer's matmul without its bias, which the next fused
@@ -53,17 +54,17 @@ def _dense_nobias(dense, x):
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention: fused QKV projection, scaled dot products, masked
-    softmax over the keys, attention-probability dropout."""
+    """Self-attention: fused QKV projection, then flash attention
+    (``use_flash``) or scaled dot products, a masked softmax over the keys
+    and attention-probability dropout."""
 
     def __init__(self, units, num_heads, dropout=0.0, use_flash=True,
                  device=None, generator=None):
         super().__init__()
         if units % num_heads:
             raise ValueError("units must divide into num_heads")
-        if use_flash:
-            raise NotImplementedError(_FLASH)
         self._units, self._num_heads = units, num_heads
+        self._use_flash = use_flash
         self._head_dim = units // num_heads
         self._dropout = dropout
         self._generator = generator
@@ -80,17 +81,25 @@ class MultiHeadAttention(nn.Module):
         H, D = self._num_heads, self._head_dim
         qkv = self.qkv(x).reshape(B, L, 3, H, D).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]                      # (B, H, L, D)
-        att = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(D)
-        if mask is not None:
-            if mask.dim() == 1:      # (B,) lengths -> (B, 1, 1, L) keys
-                mask = (torch.arange(L, device=x.device).reshape(1, 1, 1, L)
-                        < mask.reshape(B, 1, 1, 1))
-            att = _ops.masked_softmax(att, mask, axis=-1)
+        valid_len = mask if (mask is not None and mask.dim() == 1) else None
+        if self._use_flash and (mask is None or valid_len is not None):
+            out = _attention.flash_attention(
+                q, k, v, dropout=self._dropout if self.training else 0.0,
+                generator=self._generator, kv_length=valid_len)
         else:
-            att = _ops.softmax(att, axis=-1)
-        att = _ops.dropout(att, self._dropout, self.training,
-                           self._generator)
-        out = torch.matmul(att, v).transpose(1, 2).reshape(B, L, C)
+            att = _ops.batch_dot(q, k, transpose_b=True) / math.sqrt(D)
+            if mask is not None:
+                if valid_len is not None:    # (B,) lengths -> (B, 1, 1, L)
+                    keys = torch.arange(L, device=x.device).reshape(1, 1, 1,
+                                                                    L)
+                    mask = keys < valid_len.reshape(B, 1, 1, 1)
+                att = _ops.masked_softmax(att, mask, axis=-1)
+            else:
+                att = _ops.softmax(att, axis=-1)
+            att = _ops.dropout(att, self._dropout, self.training,
+                               self._generator)
+            out = _ops.batch_dot(att, v)
+        out = out.transpose(1, 2).reshape(B, L, C)
         if fuse_epilogue_enabled():
             return _dense_nobias(self.proj, out)
         return self.proj(out)
@@ -180,16 +189,14 @@ class BERTModel(nn.Module):
     for) and filled by ``init`` (default ``Uniform(0.07)``, gluon's
     ``initialize()`` default) from a CPU generator seeded with ``seed``;
     ``model.generator`` (on the device, seeded with ``seed`` too) draws the
-    dropout masks and seeds in train mode.  ``use_flash=True``, the JAX
-    package's default, raises: the flash kernels are not ported yet."""
+    dropout masks and seeds in train mode.  ``use_flash`` (default True,
+    as in the JAX package) attends through the flash kernels."""
 
     def __init__(self, vocab_size=30522, num_layers=12, units=768,
                  hidden_size=3072, num_heads=12, dropout=0.1, max_length=512,
                  token_types=2, use_flash=True, tie_embeddings=True, *,
                  device=None, seed=0, init=None):
         super().__init__()
-        if use_flash:
-            raise NotImplementedError(_FLASH)
         dev = context.resolve(device)
         self._units, self._max_length = units, max_length
         self._dropout = dropout

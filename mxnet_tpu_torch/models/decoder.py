@@ -5,9 +5,10 @@ The model half of ``serving/generate.py``'s continuous-batching engine:
 a GPT-style post-LN decoder (erf GELU, biased projections, learned
 positions, tied LM head) with the pieces an LLM server needs:
 
-- :func:`full_forward`       — whole-sequence causal forward in plain
-  PyTorch: the oracle the incremental paths are held against (tests and
-  ``chip_smoke.py``).
+- :func:`full_forward`       — whole-sequence causal forward, attending
+  through ``ops.attention.flash_attention`` (the flash forward kernel on
+  the card, its plain version on the CPU): the oracle the incremental
+  paths are held against (tests and ``chip_smoke.py``).
 - :func:`make_prefill_chunk` — one sequence's fixed-size chunk of prompt
   tokens: scatter their KV into the cache pages, attend causally over the
   sequence's own pages.  Its FFN runs the ``bias_gelu`` kernel.
@@ -46,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import context
+from ..ops import attention as _attention
 from ..ops.kernels import epilogue as _epilogue
 from ..ops.kernels import fused_cell as _fused
 from ..ops.kernels import paged_attention as _paged
@@ -200,23 +202,20 @@ def _logits(x, params):
 def full_forward(params, cfg, tokens):
     """tokens: (B, L) int -> logits (B, L, vocab) float32.
 
-    Whole-sequence causal attention and the whole layer stack in plain
-    PyTorch (no kernel; quantized GEMMs take ``quant_matmul_plain``), the
-    oracle for the incremental paged paths."""
+    Whole-sequence causal attention through the flash kernel (its plain
+    version on the CPU) and the layer stack in plain PyTorch (quantized
+    GEMMs take ``quant_matmul_plain``), the oracle for the incremental
+    paged paths."""
     B, L = tokens.shape
     g = cfg.num_heads // cfg.num_kv_heads
-    scale = 1.0 / (cfg.head_dim ** 0.5)
     tokens = tokens.long()
     x = params["embed"][tokens] + params["pos"][:L]
-    causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
     for lp in params["layers"]:
         q, k, v = _qkv(x, lp, cfg, plain=True)          # (B, L, H/KVH, D)
-        q4 = q.transpose(1, 2).float() * scale           # (B, H, L, D)
+        q4 = q.transpose(1, 2).float()                   # (B, H, L, D)
         k4 = _repeat_kv(k.transpose(1, 2), g, 1).float()
         v4 = _repeat_kv(v.transpose(1, 2), g, 1).float()
-        logits = (q4 @ k4.transpose(-1, -2)).masked_fill(~causal,
-                                                         float("-inf"))
-        att = torch.softmax(logits, dim=-1) @ v4
+        att = _attention.flash_attention(q4, k4, v4, causal=True)
         merged = att.transpose(1, 2).reshape(B, L, cfg.units).to(x.dtype)
         x = _layer_tail(x, merged, lp, plain=True)
     return _logits(x, params)

@@ -8,11 +8,16 @@
 - ``fused_cell.decode_layer_group``   — CUDA (``csrc/fused_decode.cu``)
 - ``quant_matmul.quant_matmul``       — CUDA (``csrc/quant_matmul.cu``),
   int8 and int4 weights
+- ``flash_attention.flash_attention`` — CUDA (``csrc/flash_attention.cu``),
+  forward, backward dq and backward dk/dv, over the hash mask of
+  ``dropout_hash``
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
 it launches its kernel (built on first use by ``_build``) or raises.
 Each wrapper counts its launches in a ``launches`` attribute
-(``launches_fwd``/``launches_bwd`` for ``bias_dropout_residual``).  The
-epilogue ops are ``torch.autograd.Function``s whose backward is a kernel
-too: the training slice (``models.bert``) runs them forward and back.
+(``launches_fwd``/``launches_bwd`` for ``bias_dropout_residual``,
+``launches_fwd``/``launches_dq``/``launches_dkv`` for
+``flash_attention``).  The epilogue and flash-attention ops are
+``torch.autograd.Function``s whose backward is a kernel too: the
+training slice (``models.bert``) runs them forward and back.
 """

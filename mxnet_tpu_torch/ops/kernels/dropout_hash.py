@@ -5,7 +5,7 @@
 A uint32 per (seed, batch-head, row, column) from uint32 multiply, xor and
 shift: Murmur3's finalizer after a linear pre-mix.  The mask depends only
 on global positions, so a forward and its backward, any tiling, the CUDA
-kernels (``csrc/epilogue.cu``) and this plain version all draw the same
+kernels (``csrc/dropout_hash.cuh``) and this plain version all draw the same
 mask, bit for bit, as the JAX package does.
 
 PyTorch has no uint32 multiply, so the plain version holds every value in
@@ -33,13 +33,15 @@ def _mul32(h, c):
 def hash_keep_bits(seed, b, gi, gj):
     """The hash as an int64 tensor of values in [0, 2**32).  ``seed``: an
     int or an int64 tensor broadcastable to the result; ``b``: the
-    batch-head index (0 for the epilogue ops); ``gi``/``gj``: int64 row
-    and column indices, non-negative."""
+    batch-head index ``bh = b * H + h`` (0 for the epilogue ops), an int
+    or an int64 tensor that broadcasts with ``gi`` and ``gj``;
+    ``gi``/``gj``: int64 row and column indices, non-negative."""
     gi = torch.as_tensor(gi, dtype=torch.int64)
     gj = torch.as_tensor(gj, dtype=torch.int64)
     h = _mul32(gi & _M32, 0x9E3779B1) ^ _mul32(gj & _M32, 0x85EBCA77)
     s = torch.as_tensor(seed, dtype=torch.int64, device=h.device) & _M32
-    h = h ^ ((s + ((int(b) & _M32) * 0xC2B2AE3D & _M32)) & _M32)
+    b = torch.as_tensor(b, dtype=torch.int64, device=h.device) & _M32
+    h = h ^ ((s + _mul32(b, 0xC2B2AE3D)) & _M32)
     h = h ^ (h >> 16)
     h = _mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)

@@ -19,7 +19,8 @@ cast to the bias's dtype (``epilogue.py:190, 280``).
 Each wrapper runs its plain PyTorch version on a CPU tensor and launches
 its kernel on a CUDA tensor (or raises), counting launches:
 ``bias_gelu.launches``, ``bias_gelu_backward.launches``,
-``bias_dropout_residual.launches_fwd`` and ``.launches_bwd``.
+``bias_dropout_residual.launches_fwd`` and ``.launches_bwd``; each
+wrapper's ``last_dtype`` is the dtype of its last launch.
 
 Kernel note.  All three are bound by bytes on the card: one elementwise
 pass over (R, C) with a broadcast bias, each element read once and written
@@ -162,6 +163,7 @@ def _bias_gelu_forward(x, b):
     if n:
         kernel[(-(-n // _BLOCK),)](x, b, out, n, x.shape[-1], BLOCK=_BLOCK)
         bias_gelu.launches += 1
+        bias_gelu.last_dtype = x.dtype
     return out
 
 
@@ -182,10 +184,12 @@ def bias_gelu_backward(x, g, b):
     if n:
         kernel[(-(-n // _BLOCK),)](x, g, b, dx, n, x.shape[-1], BLOCK=_BLOCK)
         bias_gelu_backward.launches += 1
+        bias_gelu_backward.last_dtype = x.dtype
     return dx
 
 
 bias_gelu_backward.launches = 0
+bias_gelu_backward.last_dtype = None
 
 
 class _BiasGelu(torch.autograd.Function):
@@ -215,6 +219,7 @@ def bias_gelu(x, b):
 
 
 bias_gelu.launches = 0
+bias_gelu.last_dtype = None
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +291,7 @@ def _bdr_forward(x, b, r, rate, seed):
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(lib, rc, "bias_dropout_residual")
         bias_dropout_residual.launches_fwd += 1
+        bias_dropout_residual.last_dtype = x.dtype
     return out
 
 
@@ -307,6 +313,7 @@ def _bdr_backward(g, rate, seed):
             torch.cuda.current_stream(g.device).cuda_stream)
         _build.check(lib, rc, "bias_dropout_residual (backward)")
         bias_dropout_residual.launches_bwd += 1
+        bias_dropout_residual.last_dtype = g.dtype
     return dx
 
 
@@ -367,3 +374,4 @@ def bias_dropout_residual(x, b, r, rate=0.0, seed=None, generator=None):
 
 bias_dropout_residual.launches_fwd = 0
 bias_dropout_residual.launches_bwd = 0
+bias_dropout_residual.last_dtype = None

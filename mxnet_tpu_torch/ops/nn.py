@@ -9,17 +9,53 @@ Plain PyTorch on tensors, differentiable by autograd.  The fused epilogues
 where the JAX package draws from its global key; the two give different
 masks, so parity with JAX holds at rate 0, and at rate > 0 only for the
 hash-masked epilogue.
+
+AMP (``mxnet_tpu_torch.amp``) opens a thread-local scope (``_amp_set``);
+inside it the ops of the scope's op set (``amp/lists.py``
+``TARGET_DTYPE_OPS``: here ``fully_connected``, ``batch_dot``,
+``bias_gelu``, ``bias_dropout_residual``, and ``flash_attention`` in
+``ops/attention.py``) cast their operands to the scope's dtype, as
+``mxnet_tpu/ops/nn.py:26-58`` does, while the parameters stay fp32.
+Softmax, log-softmax and layer norm compute in fp32 whatever comes in.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from .kernels import epilogue as _epilogue
 
-__all__ = ["activation", "fully_connected", "embedding", "layer_norm",
-           "dropout", "softmax", "log_softmax", "masked_softmax", "pick",
-           "bias_gelu", "bias_dropout_residual"]
+__all__ = ["activation", "fully_connected", "batch_dot", "embedding",
+           "layer_norm", "dropout", "softmax", "log_softmax",
+           "masked_softmax", "pick", "bias_gelu", "bias_dropout_residual"]
+
+_AMP = threading.local()
+
+
+def _amp_state():
+    """(dtype, frozenset of op names) while an AMP scope is open, else
+    None."""
+    return getattr(_AMP, "state", None)
+
+
+def _amp_set(state):
+    _AMP.state = state
+
+
+def _amp_cast2(op, a, b):
+    st = _amp_state()
+    if st is not None and op in st[1] and a.is_floating_point():
+        return a.to(st[0]), b.to(st[0])
+    return a, b
+
+
+def _amp_cast1(op, a):
+    st = _amp_state()
+    if st is not None and op in st[1] and a.is_floating_point():
+        return a.to(st[0])
+    return a
 
 
 def activation(x, act_type):
@@ -34,10 +70,27 @@ def activation(x, act_type):
 
 def fully_connected(x, weight, bias=None, no_bias=False, flatten=True):
     """``x @ weight.T + bias`` with gluon's (out, in) weight layout;
-    ``flatten`` folds every axis after the first into the input."""
+    ``flatten`` folds every axis after the first into the input.  Under
+    AMP the product runs in the scope's dtype and an fp32 bias is added
+    after it, so the sum comes out in fp32, as in the JAX package."""
     if flatten:
         x = x.reshape(x.shape[0], -1)
-    return F.linear(x, weight, None if no_bias else bias)
+    x, weight = _amp_cast2("fully_connected", x, weight)
+    if bias is None or no_bias:
+        return F.linear(x, weight)
+    if bias.dtype != x.dtype:
+        return F.linear(x, weight) + bias
+    return F.linear(x, weight, bias)
+
+
+def batch_dot(a, b, transpose_a=False, transpose_b=False):
+    """``npx.batch_dot``: batched ``a @ b`` over the leading axes."""
+    if transpose_a:
+        a = a.transpose(-1, -2)
+    if transpose_b:
+        b = b.transpose(-1, -2)
+    a, b = _amp_cast2("batch_dot", a, b)
+    return torch.matmul(a, b)
 
 
 def embedding(data, weight):
@@ -104,6 +157,7 @@ def pick(data, index, axis=-1, keepdims=False):
 def bias_gelu(data, bias):
     """``npx.bias_gelu``: gelu(data + bias), the fused kernel with its
     gradient."""
+    data, bias = _amp_cast2("bias_gelu", data, bias)
     return _epilogue.bias_gelu(data, bias)
 
 
@@ -113,5 +167,7 @@ def bias_dropout_residual(data, bias, residual, p=0.0, training=False,
     rate ``p`` applies only when ``training``; the hash mask is rebuilt in
     the backward, so no mask is stored."""
     rate = float(p) if training else 0.0
+    data, bias = _amp_cast2("bias_dropout_residual", data, bias)
+    residual = _amp_cast1("bias_dropout_residual", residual)
     return _epilogue.bias_dropout_residual(data, bias, residual, rate=rate,
                                            generator=generator)

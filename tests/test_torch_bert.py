@@ -9,8 +9,11 @@ by name (``load_jax_params``) and random biases and LN affines.
   with ``MXNET_FUSE_EPILOGUE`` on and off, and with untied embeddings;
 - every parameter's gradient of the summed MLM + NSP loss matches the JAX
   ``autograd.record()``/``backward()`` gradient;
-- ``use_flash=True`` raises; without a GPU the model needs
-  ``device="cpu"``;
+- with ``use_flash=True`` (the default) the logits and gradients match
+  the JAX model running its flash kernel in Pallas interpret mode
+  (``MXNET_FLASH_ATTENTION=interpret``), the port's attention taking the
+  kernels' plain version;
+- without a GPU the model needs ``device="cpu"``;
 - train mode at dropout 0.1 is reproducible from the generator's seed and
   differs from eval mode;
 - CPU runs launch no kernel.
@@ -53,7 +56,8 @@ def batch():
 
 def port_model(params, **kw):
     kw.setdefault("dropout", 0.0)
-    net = tbert.bert_tiny(use_flash=False, device="cpu", **kw)
+    kw.setdefault("use_flash", False)
+    net = tbert.bert_tiny(device="cpu", **kw)
     return net.load_jax_params(params)
 
 
@@ -140,11 +144,64 @@ def test_gradients_match_jax(monkeypatch, models, batch, fuse):
                                    atol=1e-5 * scale, err_msg=name)
 
 
-def test_use_flash_raises():
-    with pytest.raises(NotImplementedError, match="flash"):
-        tbert.bert_tiny(device="cpu")
-    with pytest.raises(NotImplementedError, match="flash"):
-        tbert.MultiHeadAttention(64, 2, device="cpu")
+@pytest.fixture
+def flash_models(models):
+    """The module's JAX model with its attention switched to the flash
+    path (the flag is read at call time) for the test, and back after."""
+    jnet, params = models
+    attn = [layer.attention for layer in jnet.encoder.layers]
+    for a in attn:
+        a._use_flash = True
+    yield jnet, params
+    for a in attn:
+        a._use_flash = False
+
+
+@pytest.mark.parametrize("masked", ["none", "lengths", "dense"])
+def test_flash_logits_match_jax(monkeypatch, flash_models, batch, masked):
+    """use_flash=True against the JAX model's flash kernel (interpret
+    mode); a dense mask takes the batched-matmul path on both sides."""
+    from mxnet_tpu.ops import attention as jatt
+    from mxnet_tpu_torch.ops import attention as tatt
+    monkeypatch.setenv("MXNET_FLASH_ATTENTION", "interpret")
+    jnet, params = flash_models
+    net = port_model(params, use_flash=True).eval()
+    mask = mask_of(masked, batch)
+    jm, jn = jnet(mnp.array(batch["tokens"]), mnp.array(batch["types"]),
+                  None if mask is None else mnp.array(mask))
+    tatt.last_path = None
+    with torch.no_grad():
+        tm, tn = net(torch.tensor(batch["tokens"]),
+                     torch.tensor(batch["types"]),
+                     None if mask is None else torch.tensor(mask))
+    if masked == "dense":
+        assert tatt.last_path is None
+    else:
+        assert jatt.last_path == "pallas-interpret"
+        assert tatt.last_path == "plain"
+    np.testing.assert_allclose(tm.numpy(), jm.asnumpy(), **TOL)
+    np.testing.assert_allclose(tn.numpy(), jn.asnumpy(), **TOL)
+
+
+def test_flash_gradients_match_jax(monkeypatch, flash_models, batch):
+    monkeypatch.setenv("MXNET_FLASH_ATTENTION", "interpret")
+    jnet, params = flash_models
+    jloss, jg = jax_grads(jnet, batch)
+    net = port_model(params, use_flash=True)
+    loss = port_loss(net, batch)
+    loss.backward(torch.ones_like(loss))
+    np.testing.assert_allclose(float(loss.detach().sum()), jloss, rtol=1e-6)
+    for name, p in net.named_parameters():
+        # as in test_gradients_match_jax
+        scale = max(1.0, float(np.abs(jg[name]).max()))
+        np.testing.assert_allclose(p.grad.numpy(), jg[name], rtol=1e-4,
+                                   atol=1e-5 * scale, err_msg=name)
+
+
+def test_flash_is_the_default():
+    net = tbert.bert_tiny(device="cpu")
+    assert all(layer.attention._use_flash for layer in net.encoder.layers)
+    assert tbert.MultiHeadAttention(64, 2, device="cpu")._use_flash
 
 
 def test_model_without_device_needs_gpu(monkeypatch):

@@ -129,6 +129,27 @@ def test_hash_matches_jax_exactly(seed):
         np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("seed", [0, 2 ** 32 - 1])
+def test_epilogue_mask_unchanged_by_tensor_batch_head(seed):
+    """``hash_keep_bits`` takes the batch-head index as a tensor for the
+    flash kernels; the epilogue's batch-head 0, as an int or as a tensor,
+    keeps its mask bit for bit: the bias_dropout_residual forward's mask
+    (x = 1, b = 0, r = 0) over (256, 768) equals JAX's
+    ``_keep_scale_rows``."""
+    gi = torch.arange(300, dtype=torch.int64)[:, None]
+    gj = torch.arange(770, dtype=torch.int64)[None, :]
+    ref = thash.hash_keep_bits(seed, 0, gi, gj)
+    for b in (torch.tensor(0), torch.zeros(300, 1, dtype=torch.int64)):
+        assert torch.equal(thash.hash_keep_bits(seed, b, gi, gj), ref)
+    R, C = 256, 768
+    st = torch.tensor([seed], dtype=torch.int64)
+    for rate in (0.1, 0.5):
+        out = tep.bias_dropout_residual_plain(
+            torch.ones(R, C), torch.zeros(C), torch.zeros(R, C), rate, st)
+        want = jep._keep_scale_rows(jnp.uint32(seed), 0, (R, C), rate)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
 SEED = 0xDEADBEEF
 
 

@@ -42,7 +42,9 @@ def test_import_loads_no_jax_and_no_reference_package():
         for mod in ("models.bert", "gluon.trainer", "gluon.loss",
                     "gluon.nn.basic_layers", "optimizer", "initializer",
                     "ops.nn", "ops.optimizer_ops",
-                    "ops.kernels.dropout_hash", "ops.kernels.epilogue"):
+                    "ops.kernels.dropout_hash", "ops.kernels.epilogue",
+                    "ops.attention", "ops.kernels.flash_attention", "amp",
+                    "amp.lists", "amp.loss_scaler"):
             assert "mxnet_tpu_torch." + mod in names, (mod, names)
         print(len(names), bad)
         sys.exit(1 if bad else 0)

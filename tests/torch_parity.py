@@ -21,7 +21,7 @@ def tiny_lm_with_affine(**geom):
 
 
 def tiny_bert_with_affine(seed=0, **kw):
-    """A JAX ``bert_tiny(use_flash=False)`` (vocab 1000 unless given)
+    """A JAX ``bert_tiny`` (``use_flash=False`` and vocab 1000 unless given)
     initialised with ``Normal(0.02)`` from ``seed``, with random biases, LN
     betas and LN gammas about 1, and its parameters as ``{name: numpy
     array}`` for the port's ``BERTModel.load_jax_params``."""
@@ -29,7 +29,8 @@ def tiny_bert_with_affine(seed=0, **kw):
     from mxnet_tpu.models import bert as jbert
     mx.random.seed(seed)
     kw.setdefault("dropout", 0.0)
-    jnet = jbert.bert_tiny(use_flash=False, **kw)
+    kw.setdefault("use_flash", False)
+    jnet = jbert.bert_tiny(**kw)
     jnet.initialize(mx.init.Normal(0.02))
     rng = np.random.default_rng(7 + seed)
     params = {}
