@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's LLM serving and BERT training paths on
-one CUDA card.
+"""Drive the PyTorch/CUDA port's LLM serving, BERT training and LSTM
+training paths on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -28,8 +28,14 @@ plain version):
    dropout 0 and 0.1 (96 cases); the dropout mask read off the output
    (q = k = 0, V = I) in every element at rates 0.1 and 0.5 and seeds 0
    and 2**32 - 1; the three kernels timed at the training shape in fp32
-   and bf16 beside their plain versions and SDPA.  ``--kernels-only``
-   stops here.
+   and bf16 beside their plain versions and SDPA.  The LSTM time loop
+   (#10 forward, #11 backward) against its plain versions and #11 (through
+   the autograd Function) against autograd through the plain forward:
+   float32 and bfloat16, (T, B, H) of (35, 32, 650), (7, 5, 37) and (35,
+   1, 650), zero and random initial state, dcseq zero but at T-1 (12
+   cases); both timed at (35, 32, 650) beside their plain versions, their
+   bounds and cuDNN's LSTM on the same weights.  ``--kernels-only`` stops
+   here.
 3. Serving: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
    ``--seed``, with random biases and LN affines, which the kernel checks
@@ -58,7 +64,20 @@ plain version):
    L, L) attention matrix.  Then one Adam step at B 2, L 32, dropout 0,
    on the card and on CPU copies of the weights: loss, gradients and
    weights agree.
-5. The kernels line (launches summed over the serving runs and the
+5. LSTM training (``lstm_lm``): the word LM of the reference's
+   ``example/rnn/word_lm``, "medium" config (``Embedding(10000, 650)``,
+   ``gluon.rnn.LSTM(650, num_layers=2, layout="NTC")``,
+   ``Dense(10000)``; Xavier weights and random biases from ``--seed``),
+   10 SGD steps (lr 0.1, ``Trainer.step(B)``) at B 32, bptt 35 on the
+   Zipf-plus-bigram corpus of ``example/gluon/word_language_model.py``,
+   with truncated BPTT (each step starts from the last one's detached
+   state), in fp32 and again under AMP bf16, whose step-1 loss must agree
+   with fp32's.  The loss on segment 0 from a zero state must fall, each
+   step must launch #10 and #11 twice (counts set to 0 before the phase)
+   and every tensor autograd saves must be on the card.  Then one SGD
+   step of a small word LM (vocab 100, 2 x 64, B 4, T 8) on the card and
+   on CPU copies: loss, gradients and weights agree.
+6. The kernels line (launches summed over the serving runs and the
    training phases), the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -790,6 +809,218 @@ def check_flash_attention(torch, timer, report):
                                         report)
 
 
+# the LSTM kernels #10 and #11 against their plain versions on the card.
+# fp32: the kernel sums each gate's H products in 8 warp slices and the
+# plain version through cuBLAS, over up to 35 steps whose carries feed
+# back: ~1e-6 on h and c of order 1 (the first run read <= 5e-7); these
+# allow 100x that, absolute on h and c, relative to the largest element on
+# the gradients.  bf16: both compute in fp32 and round h, dgx, dh0 and dc0
+# to bf16 at the end, so fp32 results a few ulps apart can round to
+# neighbouring bf16 values: one bf16 step of the plain value, and 1e-4 of
+# the largest element beyond it.  Against autograd through the plain
+# forward in bf16: the backward recomputes the gates from the
+# bf16-rounded h_prev (as the JAX backward does, fused_cell.py:287) where
+# autograd differentiates the fp32 carries, a 2**-9 relative change in
+# every recurrent product: 2**-5 of the largest element.
+TOL_LSTM = 1e-4
+TOL_LSTM_GRAD_BF16 = 2.0 ** -5
+#: (T, B, H) of the LSTM checks: the word LM's layer, a ragged H with a
+#: batch below one warp, and one sequence
+LSTM_SHAPES = ((35, 32, 650), (7, 5, 37), (35, 1, 650))
+
+
+def lstm_inputs(torch, g, T, B, H, dt, zero_state):
+    """gx, h0, c0, W (a transposed view of w_h2h, as the layer passes it),
+    b of the LSTM checks, in ``dt``."""
+    gx = torch.randn(T, B, 4 * H, device=DEV, generator=g).to(dt)
+    h0, c0 = ((torch.zeros(B, H, device=DEV) if zero_state else
+               0.5 * torch.randn(B, H, device=DEV, generator=g)).to(dt)
+              for _ in range(2))
+    w = ((6.0 / (5 * H)) ** 0.5 * (torch.rand(4 * H, H, device=DEV,
+                                              generator=g) * 2 - 1)).to(dt).T
+    b = (0.1 * torch.randn(4 * H, device=DEV, generator=g)).to(dt)
+    return gx, h0, c0, w, b
+
+
+def lstm_case(torch, fc, g, T, B, H, dt, zero_state):
+    """#10 and #11 against the plain versions and #11 (through the
+    autograd Function) against autograd through the plain forward, with a
+    loss over out and cT (dcseq zero except at T-1).  Returns the worst
+    errors."""
+    gx, h0, c0, w, b = lstm_inputs(torch, g, T, B, H, dt, zero_state)
+    out, cseq = fc._lstm_fwd(gx, h0, c0, w, b)
+    pout, pcseq = fc.lstm_sequence_plain(gx, h0, c0, w, b)
+    f32 = dt == torch.float32
+    errs = {"out": (float((out - pout).abs().max()) if f32
+                    else within_bf16_step(out, pout)),
+            "cseq": float((cseq - pcseq).abs().max())}
+    hp = torch.cat([h0[None], out[:-1]])
+    cp = torch.cat([c0[None].float(), cseq[:-1]])
+    dout = torch.randn(T, B, H, device=DEV, generator=g).to(dt)
+    dcs = torch.zeros(T, B, H, device=DEV)
+    dcs[-1] = torch.randn(B, H, device=DEV, generator=g)
+    kern = fc._lstm_bwd(gx, hp, cp, cseq, dout, dcs, w, b)
+    plain = fc.lstm_sequence_backward_plain(gx, hp, cp, cseq, dout, dcs, w,
+                                            b)
+    for name, k, p in zip(("dgx", "dh0", "dc0"), kern, plain):
+        errs[name] = (rel_err(k, p) if f32 else within_bf16_step(k, p)
+                      / max(float(p.float().abs().max()), 1e-30))
+    # the Function's gradients (kernels) against autograd through the plain
+    # forward, for loss = <out, dout> + <cT, dcs[-1]>
+    grads = []
+    for fwd in ("kernel", "plain"):
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  (gx, h0, c0, w, b)]
+        if fwd == "kernel":
+            o, _, cT = fc.lstm_sequence(*leaves)
+            cT = cT.float()
+        else:
+            o, cs = fc.lstm_sequence_plain(*leaves)
+            cT = cs[-1]
+        loss = (o.float() * dout.float()).sum() + (cT * dcs[-1]).sum()
+        grads.append(torch.autograd.grad(loss, leaves))
+    errs["autograd"] = max(rel_err(a, p) for a, p in zip(*grads))
+    tol_ag = TOL_LSTM if f32 else TOL_LSTM_GRAD_BF16
+    bad = [n for n, e in errs.items()
+           if not e <= (tol_ag if n == "autograd" else TOL_LSTM)]
+    if bad:
+        raise AssertionError("lstm_sequence T %d B %d H %d %s %s state: %s "
+                             "beyond tolerance: %s"
+                             % (T, B, H, str(dt)[6:], "zero" if zero_state
+                                else "random", bad, errs))
+    return errs
+
+
+def lstm_bounds(T, B, H, e):
+    """(bound ms, by) of #10 and of #11 for elements of ``e`` bytes: each
+    input read and each output written once; the recurrent products (2 T
+    B H 4H forward, twice that backward) at the fp32 rate, since their
+    operands are the fp32 carries and W cast to fp32, as in the JAX
+    kernel."""
+    G = 4 * H
+    fwd_bytes = e * (T * B * G + T * B * H + 2 * B * H + H * G + G) \
+        + 4 * T * B * H
+    bwd_bytes = e * (2 * T * B * G + 2 * T * B * H + 2 * B * H + H * G
+                     + G) + 4 * 3 * T * B * H
+    return (bound(fwd_bytes, 2 * T * B * H * G),
+            bound(bwd_bytes, 4 * T * B * H * G))
+
+
+def lstm_timing(torch, fc, timer, dt):
+    """#10 and #11 at the word LM's layer shape (T 35, B 32, H 650) beside
+    their plain versions, their bounds, and cuDNN's LSTM (one layer of the
+    same weights, forward, and its backward through autograd), which also
+    runs its own i2h GEMM: beside it stand #10 plus the i2h product, and
+    #11 plus the products around it (the i2h backward and dW)."""
+    T, B, H = 35, 32, 650
+    g = torch.Generator(device=DEV).manual_seed(14)
+    gx, h0, c0, w, b = lstm_inputs(torch, g, T, B, H, dt, False)
+    x = torch.randn(T, B, H, device=DEV, generator=g).to(dt)
+    w_i2h = (0.05 * torch.randn(4 * H, H, device=DEV, generator=g)).to(dt)
+    out, cseq = fc._lstm_fwd(gx, h0, c0, w, b)
+    hp = torch.cat([h0[None], out[:-1]])
+    cp = torch.cat([c0[None].float(), cseq[:-1]])
+    dout = torch.randn(T, B, H, device=DEV, generator=g).to(dt)
+    dcs = torch.zeros(T, B, H, device=DEV)
+    dcs[-1] = torch.randn(B, H, device=DEV, generator=g)
+    bwd = (gx, hp, cp, cseq, dout, dcs, w, b)
+    ms = {"fwd": timer(lambda: fc._lstm_fwd(gx, h0, c0, w, b)),
+          "bwd": timer(lambda: fc._lstm_bwd(*bwd))}
+    plain = {"fwd": timer(lambda: fc.lstm_sequence_plain(gx, h0, c0, w, b),
+                          iters=5),
+             "bwd": timer(lambda: fc.lstm_sequence_backward_plain(*bwd),
+                          iters=5)}
+    with_i2h = timer(lambda: fc._lstm_fwd(torch.matmul(x, w_i2h.T) + b, h0,
+                                          c0, w, b))
+
+    def bwd_with_products():
+        dgx, _, _ = fc._lstm_bwd(*bwd)
+        dg = dgx.reshape(T * B, 4 * H)
+        torch.matmul(dg, w_i2h)                       # dx
+        torch.matmul(hp.reshape(T * B, H).T, dg)      # dW_h2h
+        torch.matmul(x.reshape(T * B, H).T, dg)       # dW_i2h
+
+    bwd_products = timer(bwd_with_products)
+    cudnn = torch.nn.LSTM(H, H).to(DEV, dt)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(w_i2h)
+        cudnn.weight_hh_l0.copy_(w.T)
+        cudnn.bias_ih_l0.copy_(b)      # b is both b_i2h and b_h2h here
+        cudnn.bias_hh_l0.copy_(b)
+    state = (h0[None].contiguous(), c0[None].contiguous())
+    with torch.no_grad():
+        lib_out, _ = cudnn(x, state)
+    ref, _ = fc._lstm_fwd(torch.matmul(x, w_i2h.T) + b, h0, c0, w, b)
+    same = float((lib_out.float() - ref.float()).abs().max())
+    lib_fwd = timer(lambda: cudnn(x, state))
+    xl = x.detach().clone().requires_grad_()
+    lo, _ = cudnn(xl, state)
+    leaves = [xl] + list(cudnn.parameters())
+    lib_bwd = timer(lambda: torch.autograd.grad(lo, leaves, dout,
+                                                retain_graph=True),
+                    spin=4_000_000)
+    (bf, byf), (bb, byb) = lstm_bounds(T, B, H, gx.element_size())
+    rows = {}
+    for key, k_ms, lib, bms, by, extra in (
+            ("lstm_sequence_fwd", ms["fwd"], lib_fwd, bf, byf,
+             "with the i2h product %.4f ms" % with_i2h),
+            ("lstm_sequence_bwd", ms["bwd"], lib_bwd, bb, byb,
+             "with the dx and dW products %.4f ms" % bwd_products)):
+        kind = key[-3:]
+        log("%s (T %d, B %d, H %d) %s: kernel %.4f ms (%.2f us per step; %s) "
+            "plain %.4f ms bound %.4f ms (%s); cuDNN LSTM %s %.4f ms (its own "
+            "i2h GEMM included)" % (key, T, B, H, str(dt)[6:], k_ms,
+                                    k_ms / T * 1e3, extra, plain[kind], bms,
+                                    by, "forward" if kind == "fwd" else
+                                    "backward (autograd: dx, dh0, dc0, dW)",
+                                    lib))
+        rows[key] = dict(ms=k_ms, plain_ms=plain[kind], bound_ms=bms,
+                         bound_by=by, library_ms=lib, us_per_step=k_ms / T
+                         * 1e3)
+    rows["lstm_sequence_fwd"]["with_i2h_ms"] = with_i2h
+    rows["lstm_sequence_bwd"]["with_products_ms"] = bwd_products
+    log("cuDNN LSTM output vs #10 + i2h on the same weights (%s): max abs "
+        "diff %.3g (the yardstick computes the same function)"
+        % (str(dt)[6:], same))
+    return rows
+
+
+def check_lstm(torch, timer, report):
+    """Kernels #10 and #11 at (T, B, H) of (35, 32, 650), (7, 5, 37) and
+    (35, 1, 650), float32 and bfloat16, with h0/c0 zero and random: the
+    forward and backward against the plain versions, and the gradients of
+    the autograd Function against autograd through the plain forward; then
+    the times at the word LM's shape in float32 and bfloat16."""
+    from mxnet_tpu_torch.ops.kernels import fused_cell as fc
+    g = torch.Generator(device=DEV).manual_seed(13)
+    worst, n = {}, 0
+    for dt in (torch.float32, torch.bfloat16):
+        for T, B, H in LSTM_SHAPES:
+            for zero_state in (True, False):
+                errs = lstm_case(torch, fc, g, T, B, H, dt, zero_state)
+                n += 1
+                w = worst.setdefault(str(dt)[6:], {})
+                for k, e in errs.items():
+                    w[k] = max(w.get(k, 0.0), e)
+    plan = fc.lstm_plan(650, 32), fc.lstm_plan(650, 32, backward=True)
+    log("lstm_sequence: %d cases pass; worst errors %s (tol %g; bf16: "
+        "beyond one bf16 step, and %g against autograd); (units per block, "
+        "blocks, shared bytes) at H 650, B 32: forward %s, backward %s"
+        % (n, json.dumps(worst), TOL_LSTM, TOL_LSTM_GRAD_BF16, plan[0],
+           plan[1]))
+    rows = lstm_timing(torch, fc, timer, torch.float32)
+    for key, line in (("lstm_sequence_fwd", 142), ("lstm_sequence_bwd", 195)):
+        err = (worst["float32"]["out"] if key.endswith("fwd")
+               else max(worst["float32"][k] for k in ("dgx", "dh0", "dc0")))
+        report[key] = dict(
+            name=key, route="cuda", source="mxnet_tpu_torch/csrc/lstm.cu",
+            replaces="mxnet_tpu/ops/pallas/fused_cell.py:%d" % line,
+            max_abs_err=err, **{k: rows[key][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    report["lstm_fp32"] = rows
+    report["lstm_bf16"] = lstm_timing(torch, fc, timer, torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -804,7 +1035,8 @@ KERNELS = ("bias_gelu", "paged_attention", "decode_layer_group",
            "quant_matmul_w8", "quant_matmul_w4", "paged_attention_int8",
            "bias_gelu_backward", "bias_dropout_residual_fwd",
            "bias_dropout_residual_bwd", "flash_attention_fwd",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "lstm_sequence_fwd", "lstm_sequence_bwd")
 
 
 def launch_counts(reset=False):
@@ -829,7 +1061,9 @@ def launch_counts(reset=False):
                 "flash_attention_fwd": (fa.flash_attention, "launches_fwd"),
                 "flash_attention_bwd_dq": (fa.flash_attention, "launches_dq"),
                 "flash_attention_bwd_dkv": (fa.flash_attention,
-                                            "launches_dkv")}
+                                            "launches_dkv"),
+                "lstm_sequence_fwd": (fc.lstm_sequence, "launches_fwd"),
+                "lstm_sequence_bwd": (fc.lstm_sequence, "launches_bwd")}
     if reset:
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
@@ -1263,6 +1497,245 @@ def card_vs_cpu_step(torch, seed):
                              "CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training the LSTM word LM
+# ---------------------------------------------------------------------------
+#: the word LM of the reference's example/rnn/word_lm, "medium" config, as
+#: bench.py config 5 runs it (bench.py:1891-1929): Embedding(10000, 650),
+#: LSTM(650, 2 layers, NTC), Dense(10000); bptt 35, batch 32, SGD lr 0.1
+LM = dict(vocab=10000, emsize=650, nhid=650, nlayers=2)
+LM_B, LM_T, LM_STEPS, LM_LR = 32, 35, 10, 0.1
+#: kernel launches of one training step (one per layer each way) and of
+#: one loss evaluation (forward only)
+LM_PER_STEP = {"lstm_sequence_fwd": 2, "lstm_sequence_bwd": 2}
+LM_PER_EVAL = {"lstm_sequence_fwd": 2}
+# AMP bf16 vs fp32, the loss of step 1 (the same weights and tokens): bf16
+# rounds the embedding, the i2h products, h and the decoder's inputs to 8
+# bits of mantissa (~2**-9 relative each); the mean cross entropy over
+# 1120 tokens averages the per-token deviations.  1% of the loss (~0.09
+# nat at ln 10000) allows that
+TOL_LM_AMP_LOSS = 1e-2
+# one SGD step of the small word LM, card vs CPU copies: fp32 sums in
+# another order through 8 steps of 2 layers, ~1e-6 relative; these allow
+# 100x that.  SGD moves a weight by lr g / B, so the weights stay within
+# lr / B times the gradients' difference
+TOL_LM_STEP_LOSS = 1e-4
+TOL_LM_STEP_GRAD = 1e-4
+TOL_LM_STEP_W = 1e-5
+
+
+def synthetic_corpus(n_tokens, vocab, seed):
+    """The Zipf-plus-bigram token stream of
+    ``example/gluon/word_language_model.py:41-51``: half the tokens follow
+    (prev * 31 + 7) % vocab, half are drawn from a 1/rank unigram, so the
+    model has something to learn."""
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    p /= p.sum()
+    toks = [int(rng.choice(vocab, p=p))]
+    for _ in range(n_tokens - 1):
+        prev = toks[-1]
+        toks.append((prev * 31 + 7) % vocab if rng.rand() < 0.5
+                    else int(rng.choice(vocab, p=p)))
+    return np.array(toks, "int64")
+
+
+def word_lm(torch, seed, device, vocab, emsize, nhid, nlayers):
+    """The word LM from the port's blocks: Xavier weights from ``seed``
+    and random biases (N(0, 0.1), which the initializer leaves at 0, where
+    a kernel that dropped b_h2h would still agree), drawn on the CPU so the
+    same seed gives the same model on any device.  ``net(x, states)``
+    returns (logits, states)."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon import nn as gnn, rnn as grnn
+
+    class WordLM(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embed = gnn.Embedding(vocab, emsize, device=device)
+            self.lstm = grnn.LSTM(nhid, num_layers=nlayers, layout="NTC",
+                                  input_size=emsize, device=device)
+            self.decoder = gnn.Dense(vocab, flatten=False, in_units=nhid,
+                                     device=device)
+
+        def forward(self, x, states):
+            out, states = self.lstm(self.embed(x), states)
+            return self.decoder(out), states
+
+    net = WordLM()
+    gen = torch.Generator().manual_seed(seed)
+    init = initializer.Xavier()
+    for name, p in net.named_parameters():
+        init(name, p, gen)
+    with torch.no_grad():
+        for p in net.parameters():
+            if p.dim() == 1:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    return net
+
+
+def lm_segments(torch, seed, B, T, steps, vocab, device):
+    """(inputs, targets) of ``steps`` consecutive bptt segments of a
+    corpus of B (steps T + 1) tokens, batchified as the example does."""
+    n = steps * T + 1
+    data = torch.tensor(synthetic_corpus(B * n, vocab, seed).reshape(B, n),
+                        device=device)
+    return [(data[:, s * T:(s + 1) * T], data[:, s * T + 1:(s + 1) * T + 1])
+            for s in range(steps)]
+
+
+def train_lm(torch, seed, label, amp=False, profile_steps=0):
+    """``LM_STEPS`` SGD steps of the 2 x 650 word LM through the user's
+    entry points (wrapped by ``amp.convert_hybrid_block(net, "bfloat16")``
+    when ``amp``), truncated BPTT: step s trains on segment s from the
+    (hT, cT) of step s - 1, detached.  Checks the loss on segment 0 with
+    zero state falls from before step 1 to after the last, two launches
+    of each LSTM kernel per step, every tensor autograd saves on the
+    card, and under AMP fp32 parameters and bf16 kernels."""
+    from mxnet_tpu_torch import amp as amp_mod
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops.kernels import fused_cell as fc
+    net = word_lm(torch, seed, DEV, **LM)
+    model = amp_mod.convert_hybrid_block(net, "bfloat16") if amp else net
+    segs = lm_segments(torch, seed, LM_B, LM_T, LM_STEPS, LM["vocab"], DEV)
+    trainer = Trainer(dict(net.named_parameters()), "sgd",
+                      {"learning_rate": LM_LR})
+    ce = SoftmaxCrossEntropyLoss()
+    saved = []
+
+    def pack(t):
+        saved.append((tuple(t.shape), t.device.type))
+        return t
+
+    def eval_loss():
+        with torch.no_grad():
+            x, y = segs[0]
+            logits, _ = model(x, net.lstm.begin_state(LM_B))
+            return float(ce(logits, y).mean())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    evals = [eval_loss()]
+    states = net.lstm.begin_state(LM_B)
+    losses, step_ms = [], []
+    for step, (x, y) in enumerate(segs):
+        t = time.perf_counter()
+        states = [s.detach() for s in states]
+        if step == 0:
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                logits, states = model(x, states)
+                loss = ce(logits, y)
+        else:
+            logits, states = model(x, states)
+            loss = ce(logits, y)
+        loss.backward(torch.ones_like(loss))
+        trainer.step(LM_B)
+        losses.append(float(loss.detach().mean()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    evals.append(eval_loss())
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    p50 = statistics.median(step_ms[1:])
+    log("train %s: LSTM word LM (vocab %d, %d x %d) B=%d T=%d, SGD lr %g, "
+        "truncated BPTT: loss %s; step p50 %.3f ms (first %.1f ms), %.1f "
+        "tokens/s; peak memory %.2f GB; launches %s"
+        % (label, LM["vocab"], LM["nlayers"], LM["nhid"], LM_B, LM_T, LM_LR,
+           " ".join("%.4f" % v for v in losses), p50, step_ms[0],
+           LM_B * LM_T / p50 * 1e3, peak_gb, counts))
+    log("train %s: loss on segment 0 from zero state before step 1 %.6f, "
+        "after step %d %.6f" % (label, evals[0], LM_STEPS, evals[1]))
+    if not (all(np.isfinite(losses + evals)) and evals[1] < evals[0]):
+        raise AssertionError("LSTM LM loss did not fall: %s" % evals)
+    want = dict.fromkeys(KERNELS, 0)
+    for k, n in LM_PER_STEP.items():
+        want[k] = n * LM_STEPS + LM_PER_EVAL.get(k, 0) * len(evals)
+    if counts != want:
+        raise AssertionError("LSTM LM launches do not match the path: %s, "
+                             "want %s" % (counts, want))
+    off = [s for s in saved if s[1] != torch.device(DEV).type]
+    if off or not saved:
+        raise AssertionError("%d of %d saved tensors off the card (first %s)"
+                             % (len(off), len(saved), off[:4]))
+    log("train %s: %d tensors saved for backward in step 1, all on %s"
+        % (label, len(saved), DEV))
+    if amp:
+        wide = [n for n, p in net.named_parameters()
+                if p.dtype != torch.float32]
+        ran = fc.lstm_sequence.last_dtype
+        log("train %s: parameters not fp32: %d; dtype of the LSTM kernels' "
+            "last launch: %s" % (label, len(wide), str(ran)[6:]))
+        if wide or ran != torch.bfloat16:
+            raise AssertionError("AMP: parameters not fp32 %s, or the LSTM "
+                                 "kernels did not run in bfloat16 (%s)"
+                                 % (wide, ran))
+    busy = None
+    if profile_steps:
+        from torch.profiler import ProfilerActivity
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for x, y in segs[:profile_steps]:
+                states = [s.detach() for s in states]
+                logits, states = model(x, states)
+                loss = ce(logits, y)
+                loss.backward(torch.ones_like(loss))
+                trainer.step(LM_B)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, n, top = device_summary(torch, prof, wall)
+        log("profile train %s: %d steps in %.3f s, device busy %.1f%% (%d "
+            "kernel spans); top kernels by device ms: %s"
+            % (label, profile_steps, wall, busy, n, top))
+    del model, net, trainer
+    torch.cuda.empty_cache()
+    return counts, dict(step_p50_ms=p50, tokens_per_s=LM_B * LM_T / p50 * 1e3,
+                        first_loss=losses[0], eval_loss_before=evals[0],
+                        eval_loss_after=evals[1], peak_memory_gb=peak_gb,
+                        device_busy_pct=busy)
+
+
+def lm_card_vs_cpu_step(torch, seed):
+    """One SGD step of a small word LM (vocab 100, 2 x 64, B 4, T 8), from
+    a nonzero carried state, on the card (the LSTM kernels) and on the CPU
+    (the plain versions) from the same weights and tokens: the loss, every
+    gradient and the updated weights agree."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    B, T, cfg = 4, 8, dict(vocab=100, emsize=64, nhid=64, nlayers=2)
+    res = {}
+    for dev in (DEV, "cpu"):
+        net = word_lm(torch, seed + 2, dev, **cfg)
+        trainer = Trainer(dict(net.named_parameters()), "sgd",
+                          {"learning_rate": LM_LR})
+        (x0, _), (x, y) = lm_segments(torch, seed + 2, B, T, 2, cfg["vocab"],
+                                      dev)
+        with torch.no_grad():
+            _, states = net(x0, net.lstm.begin_state(B))
+        logits, _ = net(x, states)
+        loss = SoftmaxCrossEntropyLoss()(logits, y)
+        loss.backward(torch.ones_like(loss))
+        grads = {n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+        trainer.step(B)
+        res[dev] = (loss.detach().cpu(), grads,
+                    {n: p.detach().cpu() for n, p in net.named_parameters()})
+    (lc, gc, wc), (lp, gp, wp) = res[DEV], res["cpu"]
+    loss_err = float(((lc - lp).abs() / lp.abs()).max())
+    grad_err = max(rel_err(gc[n], gp[n]) for n in gp)
+    w_err = max(float((wc[n] - wp[n]).abs().max()) for n in wp)
+    log("one SGD step of the word LM (vocab 100, 2 x 64, B %d, T %d, carried "
+        "state), card vs CPU copies: loss rel err %.3g (tol %g); gradients "
+        "max err / tensor max %.3g (tol %g); weights max abs diff %.3g (tol "
+        "%g)" % (B, T, loss_err, TOL_LM_STEP_LOSS, grad_err, TOL_LM_STEP_GRAD,
+                 w_err, TOL_LM_STEP_W))
+    if not (loss_err <= TOL_LM_STEP_LOSS and grad_err <= TOL_LM_STEP_GRAD
+            and w_err <= TOL_LM_STEP_W):
+        raise AssertionError("word LM step on the card disagrees with the "
+                             "CPU")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1317,6 +1790,7 @@ def main():
     check_bias_gelu_backward(torch, timer, report)
     check_bias_dropout_residual(torch, timer, report)
     check_flash_attention(torch, timer, report)
+    check_lstm(torch, timer, report)
     del timer
     log("kernel checks done at %.1f s" % (time.perf_counter() - t_start))
     if args.kernels_only:
@@ -1399,6 +1873,20 @@ def main():
                                     max_length=LONG_L)
     card_vs_cpu_step(torch, args.seed)
     log("training done at %.1f s" % (time.perf_counter() - t_start))
+    trains["lstm_lm_fp32"] = train_lm(torch, args.seed, "lstm_lm_fp32",
+                                      profile_steps=3 if args.profile else 0)
+    trains["lstm_lm_amp_bf16"] = train_lm(
+        torch, args.seed, "lstm_lm_amp_bf16", amp=True,
+        profile_steps=3 if args.profile else 0)
+    l32 = trains["lstm_lm_fp32"][1]["first_loss"]
+    l16 = trains["lstm_lm_amp_bf16"][1]["first_loss"]
+    amp_err = abs(l16 - l32) / abs(l32)
+    log("train lstm_lm: step-1 loss AMP bf16 %.6f vs fp32 %.6f, rel err %.3g "
+        "(tol %g)" % (l16, l32, amp_err, TOL_LM_AMP_LOSS))
+    if not amp_err <= TOL_LM_AMP_LOSS:
+        raise AssertionError("LSTM LM AMP step-1 loss disagrees with fp32")
+    lm_card_vs_cpu_step(torch, args.seed)
+    log("LSTM training done at %.1f s" % (time.perf_counter() - t_start))
     kernels = []
     for name in KERNELS:
         row = report[name]
@@ -1412,7 +1900,9 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     log(json.dumps({"serve": {k: run[3] for k, run in runs.items()},
                     "train": {k: st for k, (_, st) in trains.items()},
-                    "flash_bf16": report["flash_bf16"]}))
+                    "flash_bf16": report["flash_bf16"],
+                    "lstm_fp32": report["lstm_fp32"],
+                    "lstm_bf16": report["lstm_bf16"]}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

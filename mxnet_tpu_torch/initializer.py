@@ -6,7 +6,9 @@ An initializer is called on a parameter's name and tensor and fills the
 tensor in place.  Names ending in ``bias``, ``beta``, ``running_mean`` or
 ``moving_mean`` start at 0 and those ending in ``gamma``, ``running_var``
 or ``moving_var`` at 1, whatever the initializer, as in the JAX package;
-every other tensor takes the initializer's draw.  Draws come from an
+every other tensor takes the initializer's draw.  The layer suffix of the
+RNN layers' names (``i2h_bias_l0``, ``h2h_bias_l1_r``) is not part of
+the ending.  Draws come from an
 explicit CPU ``torch.Generator`` and are copied to the tensor's device, so
 one seed gives the same weights on the CPU and on the card.  The JAX
 package draws from its global key: the two packages' draws differ.
@@ -14,6 +16,7 @@ package draws from its global key: the two packages' draws differ.
 from __future__ import annotations
 
 import math
+import re
 
 import torch
 
@@ -21,6 +24,8 @@ __all__ = ["Initializer", "Zero", "One", "Uniform", "Normal", "Xavier",
            "register", "create"]
 
 _REGISTRY = {}
+#: the layer and direction suffix of ``gluon.rnn`` parameter names
+_RNN_SUFFIX = re.compile(r"_l\d+(_r)?$")
 
 
 def register(klass):
@@ -45,9 +50,10 @@ class Initializer:
         self.init_weight(name, arr, generator)
 
     def init_weight(self, name, arr, generator=None):
-        if name.endswith(("bias", "beta", "running_mean", "moving_mean")):
+        base = _RNN_SUFFIX.sub("", name)
+        if base.endswith(("bias", "beta", "running_mean", "moving_mean")):
             arr.zero_()
-        elif name.endswith(("gamma", "running_var", "moving_var")):
+        elif base.endswith(("gamma", "running_var", "moving_var")):
             arr.fill_(1.0)
         else:
             arr.copy_(self._draw(name, tuple(arr.shape), generator))

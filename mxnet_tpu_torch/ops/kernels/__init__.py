@@ -6,6 +6,8 @@
   forward and backward, over the hash mask of ``dropout_hash``
 - ``paged_attention.paged_attention`` — CUDA (``csrc/paged_attention.cu``)
 - ``fused_cell.decode_layer_group``   — CUDA (``csrc/fused_decode.cu``)
+- ``fused_cell.lstm_sequence``        — CUDA (``csrc/lstm.cu``), the LSTM
+  time loop forward and backward
 - ``quant_matmul.quant_matmul``       — CUDA (``csrc/quant_matmul.cu``),
   int8 and int4 weights
 - ``flash_attention.flash_attention`` — CUDA (``csrc/flash_attention.cu``),
@@ -17,7 +19,9 @@ it launches its kernel (built on first use by ``_build``) or raises.
 Each wrapper counts its launches in a ``launches`` attribute
 (``launches_fwd``/``launches_bwd`` for ``bias_dropout_residual``,
 ``launches_fwd``/``launches_dq``/``launches_dkv`` for
-``flash_attention``).  The epilogue and flash-attention ops are
+``flash_attention``, ``launches_fwd``/``launches_bwd`` for
+``lstm_sequence``).  The epilogue and flash-attention ops are
 ``torch.autograd.Function``s whose backward is a kernel too: the
-training slice (``models.bert``) runs them forward and back.
+training slice (``models.bert``) runs them forward and back; so is
+``lstm_sequence``, which the RNN layers (``ops.rnn``, ``gluon.rnn``) run.
 """

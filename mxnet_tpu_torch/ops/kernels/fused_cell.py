@@ -1,19 +1,31 @@
-"""Persistent fused decode kernel: one launch per decoder layer group.
+"""Persistent fused-cell kernels: the port of
+``mxnet_tpu/ops/pallas/fused_cell.py`` (its tensor-parallel decode phase
+kernels are not ported yet).
 
-The port of ``decode_layer_group`` from
-``mxnet_tpu/ops/pallas/fused_cell.py`` (the LSTM and tensor-parallel phase
-kernels of that module are not ported yet).  For every layer of the
-group, for the whole decode batch, one kernel launch runs: the qkv
-projections, the KV append into the paged cache, paged attention, the
-out-projection with residual and post-LN, and the FFN with erf GELU,
-residual and post-LN.
+- :func:`lstm_sequence` -- RNN training.  One kernel launch runs the
+  whole LSTM time loop of one layer (``csrc/lstm.cu``, replacing
+  ``_lstm_fwd_kernel``, ``fused_cell.py:142``), and one launch its
+  time-reversed backward (replacing ``_lstm_bwd_kernel``, ``:195``),
+  inside a ``torch.autograd.Function`` that saves what the JAX
+  ``custom_vjp`` saves: the inputs, the h sequence (``out``) and the c
+  sequence, and no per-gate activation.  The i2h GEMM stays outside (in
+  ``ops/rnn.py``), and so do dW and db, as fp32 contractions over the
+  per-step gate gradients.
+- :func:`decode_layer_group` -- LLM decode.  For every layer of the group,
+  for the whole decode batch, one kernel launch runs: the qkv
+  projections, the KV append into the paged cache, paged attention, the
+  out-projection with residual and post-LN, and the FFN with erf GELU,
+  residual and post-LN.  The page pools are updated in place, which
+  replaces the JAX kernel's ``input_output_aliases`` and the engine's
+  buffer donation.
 
-A CUDA tensor launches the cooperative kernel ``csrc/fused_decode.cu``,
-whose note says what bounds it on the card and how its design answers;
-a CPU tensor runs :func:`decode_layer_group_plain`, the same math in
-plain PyTorch.  The page pools are updated in place in both, which
-replaces the JAX kernel's ``input_output_aliases`` and the engine's
-buffer donation.
+A CUDA tensor launches the cooperative kernels of ``csrc/lstm.cu`` and
+``csrc/fused_decode.cu``, whose notes say what bounds them on the card and
+how their design answers; a CPU tensor runs the plain PyTorch versions
+(:func:`lstm_sequence_plain`, :func:`lstm_sequence_backward_plain`,
+:func:`decode_layer_group_plain`).  Launches are counted in
+``lstm_sequence.launches_fwd``/``.launches_bwd`` and
+``decode_layer_group.launches``.
 """
 from __future__ import annotations
 
@@ -27,7 +39,9 @@ from . import _build
 from .epilogue import bias_gelu_plain
 from .paged_attention import paged_attention_reference
 
-__all__ = ["decode_layer_group", "decode_layer_group_plain", "WeightTable",
+__all__ = ["lstm_sequence", "lstm_sequence_plain",
+           "lstm_sequence_backward_plain", "lstm_plan",
+           "decode_layer_group", "decode_layer_group_plain", "WeightTable",
            "WEIGHT_ORDER", "PHASES", "grid_blocks", "phase_times"]
 
 #: the kernel's phases per layer, separated by grid-wide barriers
@@ -209,3 +223,250 @@ def _launch(x, kp, vp, layers, meta, page_tables, lengths, cfg, stamps):
 
 
 decode_layer_group.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# persistent LSTM time loop (kernels #10 and #11)
+# ---------------------------------------------------------------------------
+_LSTM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lstm_gates(g):
+    """i, f, u, o of the (B, 4H) fp32 pre-activations, MXNet gate order."""
+    i, f, u, o = g.chunk(4, dim=-1)
+    return (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(u),
+            torch.sigmoid(o))
+
+
+def lstm_sequence_plain(gates_x, h0, c0, w_h2h_t, b_h2h):
+    """Plain version of the forward kernel: a Python loop over t in fp32.
+
+    gates_x (T, B, 4H); h0, c0 (B, H); w_h2h_t (H, 4H); b_h2h (4H,).
+    Returns (out (T, B, H) in gates_x's dtype, cseq (T, B, H) fp32), the
+    h carry kept in fp32 as the kernel keeps it.  Differentiable by
+    autograd."""
+    w, b = w_h2h_t.float(), b_h2h.float()
+    h, c = h0.float(), c0.float()
+    outs, cs = [], []
+    for t in range(gates_x.shape[0]):
+        i, f, u, o = _lstm_gates(gates_x[t].float() + h @ w + b)
+        c = f * c + i * u
+        h = o * torch.tanh(c)
+        outs.append(h.to(gates_x.dtype))
+        cs.append(c)
+    return torch.stack(outs), torch.stack(cs)
+
+
+def lstm_sequence_backward_plain(gates_x, h_prev, c_prev, cseq, dout, dcseq,
+                                 w_h2h_t, b_h2h):
+    """Plain version of the backward kernel: the time-reversed loop in fp32.
+
+    h_prev (T, B, H) in gates_x's dtype and c_prev (T, B, H) fp32 are the
+    carries entering each step; cseq, dcseq fp32; dout in gates_x's dtype.
+    Returns (dgx (T, B, 4H), dh0, dc0 (B, H)), all in gates_x's dtype."""
+    w, b = w_h2h_t.float(), b_h2h.float()
+    T, B, _ = gates_x.shape
+    H = w.shape[0]
+    dh = torch.zeros(B, H, dtype=torch.float32, device=gates_x.device)
+    dc = torch.zeros_like(dh)
+    dgx = torch.empty_like(gates_x)
+    for t in range(T - 1, -1, -1):
+        cp = c_prev[t].float()
+        i, f, u, o = _lstm_gates(gates_x[t].float() + h_prev[t].float() @ w
+                                 + b)
+        dh = dh + dout[t].float()
+        tc = torch.tanh(cseq[t].float())
+        d_o = dh * tc
+        dc = dc + dcseq[t].float() + dh * o * (1 - tc * tc)
+        dg = torch.cat([(dc * u) * i * (1 - i), (dc * cp) * f * (1 - f),
+                        (dc * i) * (1 - u * u), d_o * o * (1 - o)], dim=-1)
+        dgx[t] = dg.to(gates_x.dtype)
+        dh = dg @ w.T
+        dc = dc * f
+    return dgx, dh.to(gates_x.dtype), dc.to(gates_x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lstm_lib():
+    """The loaded ``lstm`` library with its entry points typed (once)."""
+    lib = _build.load("lstm")
+    L = ctypes.c_longlong
+    lib.mxt_lstm_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)] * 2 + [
+        ctypes.POINTER(L)]
+    lib.mxt_lstm_plan.restype = _I
+    lib.mxt_lstm_fwd.argtypes = ([_P] * 3 + [L, L, _I, _P, _I] + [_P] * 3
+                                 + [_I] * 4 + [_P])
+    lib.mxt_lstm_fwd.restype = _I
+    lib.mxt_lstm_bwd.argtypes = ([_P] * 7 + [L, L, _I, _P, _I] + [_P] * 4
+                                 + [_I] * 5 + [_P])
+    lib.mxt_lstm_bwd.restype = _I
+    return lib
+
+
+def lstm_plan(H, B, dtype=torch.float32, backward=False):
+    """The launch geometry on the current card: ``(units per block,
+    blocks, dynamic shared memory in bytes)``.  Raises when no grid of at
+    most 8 units per block can be resident at once (the cooperative
+    launch needs every block resident; there is no fallback)."""
+    lib = _lstm_lib()
+    units, grid, smem = _I(0), _I(0), ctypes.c_longlong(0)
+    _build.check(lib, lib.mxt_lstm_plan(int(backward), _LSTM_DTYPES[dtype], H,
+                                        B, ctypes.byref(units),
+                                        ctypes.byref(grid),
+                                        ctypes.byref(smem)), "lstm_plan")
+    if not units.value:
+        raise RuntimeError(
+            "lstm_sequence: H %d, B %d does not fit the card: no grid of "
+            "ceil(H / U) blocks with U <= 8 units each is resident at once "
+            "within the shared memory a block may use" % (H, B))
+    return units.value, grid.value, smem.value
+
+
+def _lstm_check(what, gates_x, vectors, w, b):
+    """Device, dtype, shape and layout checks of a CUDA launch."""
+    dev = gates_x.device
+    if gates_x.dtype not in _LSTM_DTYPES:
+        raise TypeError("%s: unsupported dtype %s (float32 or bfloat16)"
+                        % (what, gates_x.dtype))
+    T, B, G = gates_x.shape
+    H = G // 4
+    if G != 4 * H or T < 1 or tuple(w.shape) != (H, G) or tuple(
+            b.shape) != (G,):
+        raise ValueError("%s: shapes do not match: gates_x %s, w_h2h_t %s, "
+                         "b_h2h %s" % (what, tuple(gates_x.shape),
+                                       tuple(w.shape), tuple(b.shape)))
+    for name, t, dt, shape in vectors:
+        if (t.dtype != dt or t.device != dev or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError("%s: %s must be a contiguous %s tensor of shape "
+                             "%s on %s (got %s %s on %s)"
+                             % (what, name, dt, shape, dev, t.dtype,
+                                tuple(t.shape), t.device))
+    for name, t in (("w_h2h_t", w), ("b_h2h", b)):
+        if t.dtype not in _LSTM_DTYPES or t.device != dev:
+            raise ValueError("%s: %s must be float32 or bfloat16 on %s"
+                             % (what, name, dev))
+    if not gates_x.is_contiguous() or not b.is_contiguous():
+        raise ValueError("%s: gates_x and b_h2h must be contiguous" % what)
+    return T, B, H
+
+
+def _lstm_fwd(gates_x, h0, c0, w, b):
+    if gates_x.device.type == "cpu":
+        return lstm_sequence_plain(gates_x, h0, c0, w, b)
+    if gates_x.device.type != "cuda":
+        raise ValueError("lstm_sequence: unsupported device %s"
+                         % gates_x.device)
+    T, B, H = gates_x.shape[0], gates_x.shape[1], gates_x.shape[2] // 4
+    dt = gates_x.dtype
+    _lstm_check("lstm_sequence", gates_x,
+                (("h0", h0, dt, (B, H)), ("c0", c0, dt, (B, H))), w, b)
+    lstm_plan(H, B, dt)
+    dev = gates_x.device
+    out = torch.empty(T, B, H, dtype=dt, device=dev)
+    cseq = torch.empty(T, B, H, dtype=torch.float32, device=dev)
+    # the kernel keeps h transposed, (H, B) in fp32; h0 enters as hbuf[1]
+    hbuf = torch.empty(2, H, B, dtype=torch.float32, device=dev)
+    hbuf[1].copy_(h0.T)
+    lib = _lstm_lib()
+    rc = lib.mxt_lstm_fwd(
+        gates_x.data_ptr(), c0.data_ptr(), w.data_ptr(),
+        w.stride(0), w.stride(1), _LSTM_DTYPES[w.dtype], b.data_ptr(),
+        _LSTM_DTYPES[b.dtype], out.data_ptr(), cseq.data_ptr(),
+        hbuf.data_ptr(), T, B, H, _LSTM_DTYPES[dt],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "lstm_sequence")
+    lstm_sequence.launches_fwd += 1
+    lstm_sequence.last_dtype = dt
+    return out, cseq
+
+
+def _lstm_bwd(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):
+    if gates_x.device.type == "cpu":
+        return lstm_sequence_backward_plain(gates_x, h_prev, c_prev, cseq,
+                                            dout, dcseq, w, b)
+    if gates_x.device.type != "cuda":
+        raise ValueError("lstm_sequence: unsupported device %s"
+                         % gates_x.device)
+    T, B, H = gates_x.shape[0], gates_x.shape[1], gates_x.shape[2] // 4
+    dt, f32 = gates_x.dtype, torch.float32
+    seq = (T, B, H)
+    _lstm_check("lstm_sequence (backward)", gates_x,
+                (("h_prev", h_prev, dt, seq), ("c_prev", c_prev, f32, seq),
+                 ("cseq", cseq, f32, seq), ("dout", dout, dt, seq),
+                 ("dcseq", dcseq, f32, seq)), w, b)
+    lstm_plan(H, B, dt, backward=True)
+    dev = gates_x.device
+    bp = -(-B // 32) * 32
+    dgx = torch.empty_like(gates_x)
+    dh0 = torch.empty(B, H, dtype=dt, device=dev)
+    dc0 = torch.empty(B, H, dtype=dt, device=dev)
+    dgbuf = torch.empty(2, 4 * H, bp, dtype=f32, device=dev)
+    hp_t = h_prev.transpose(1, 2).contiguous()      # (T, H, B), as staged
+    lib = _lstm_lib()
+    rc = lib.mxt_lstm_bwd(
+        gates_x.data_ptr(), hp_t.data_ptr(), c_prev.data_ptr(),
+        cseq.data_ptr(), dout.data_ptr(), dcseq.data_ptr(), w.data_ptr(),
+        w.stride(0), w.stride(1), _LSTM_DTYPES[w.dtype], b.data_ptr(),
+        _LSTM_DTYPES[b.dtype], dgx.data_ptr(), dh0.data_ptr(),
+        dc0.data_ptr(), dgbuf.data_ptr(), T, B, H, bp, _LSTM_DTYPES[dt],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "lstm_sequence (backward)")
+    lstm_sequence.launches_bwd += 1
+    lstm_sequence.last_dtype = dt
+    return dgx, dh0, dc0
+
+
+class _LSTMSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gates_x, h0, c0, w, b):
+        out, cseq = _lstm_fwd(gates_x, h0, c0, w, b)
+        # the residuals of the JAX custom_vjp: the inputs and the two
+        # carry sequences (out IS the h sequence); no per-gate activation
+        ctx.save_for_backward(gates_x, h0, c0, w, b, out, cseq)
+        return out, cseq
+
+    @staticmethod
+    def backward(ctx, dout, dcseq):
+        gates_x, h0, c0, w, b, out, cseq = ctx.saved_tensors
+        cdt = gates_x.dtype
+        # the carries entering each step; in bf16 the backward recomputes
+        # the gates from the bf16-rounded h, as the JAX backward does
+        h_prev = torch.cat([h0[None].to(cdt), out[:-1]])
+        c_prev = torch.cat([c0[None].float(), cseq[:-1]])
+        dgx, dh0, dc0 = _lstm_bwd(gates_x, h_prev, c_prev, cseq,
+                                  dout.to(cdt).contiguous(),
+                                  dcseq.float().contiguous(), w, b)
+        # weight and bias gradients contract outside the kernel, in fp32
+        dgx32 = dgx.float()
+        dw = torch.einsum("tbh,tbg->hg", h_prev.float(), dgx32).to(w.dtype)
+        db = dgx32.sum(dim=(0, 1)).to(b.dtype)
+        return dgx, dh0.to(h0.dtype), dc0.to(c0.dtype), dw, db
+
+
+def lstm_sequence(gates_x, h0, c0, w_h2h_t, b_h2h):
+    """The whole LSTM time loop of one layer, differentiable.
+
+    gates_x: (T, B, 4H) input projections with the i2h bias added
+    h0, c0:  (B, H) initial carries, cast to gates_x's dtype
+    w_h2h_t: (H, 4H) the recurrent weight, transposed (any strides)
+    b_h2h:   (4H,)
+
+    Returns ``(out (T, B, H), hT, cT)`` in gates_x's dtype; cT is cast
+    from the fp32 c sequence.  A CPU tensor takes the plain versions; a
+    CUDA tensor launches kernel #10 (``lstm_sequence.launches_fwd``) and,
+    under autograd, #11 in the backward (``.launches_bwd``), or raises."""
+    cdt = gates_x.dtype
+    h0, c0 = h0.to(cdt), c0.to(cdt)
+    args = (gates_x.contiguous(), h0.contiguous(), c0.contiguous(), w_h2h_t,
+            b_h2h.contiguous())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        out, cseq = _LSTMSequence.apply(*args)
+    else:
+        out, cseq = _lstm_fwd(*args)
+    return out, out[-1], cseq[-1].to(cdt)
+
+
+lstm_sequence.launches_fwd = 0
+lstm_sequence.launches_bwd = 0
+lstm_sequence.last_dtype = None

@@ -1,5 +1,5 @@
 """The port stands alone: importing ``mxnet_tpu_torch`` and every module of
-its serving and training slices loads neither ``jax`` nor any
+its serving, training and RNN slices loads neither ``jax`` nor any
 ``mxnet_tpu`` module; its
 entry points run on CUDA unless the CPU is asked for; and every feature
 of the JAX engine that the port lacks is refused, not ignored.
@@ -44,7 +44,8 @@ def test_import_loads_no_jax_and_no_reference_package():
                     "ops.nn", "ops.optimizer_ops",
                     "ops.kernels.dropout_hash", "ops.kernels.epilogue",
                     "ops.attention", "ops.kernels.flash_attention", "amp",
-                    "amp.lists", "amp.loss_scaler"):
+                    "amp.lists", "amp.loss_scaler", "ops.rnn", "gluon.rnn",
+                    "gluon.rnn.rnn_layer", "gluon.rnn.rnn_cell"):
             assert "mxnet_tpu_torch." + mod in names, (mod, names)
         print(len(names), bad)
         sys.exit(1 if bad else 0)
