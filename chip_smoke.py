@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's LLM serving, BERT training and LSTM
-training paths on one CUDA card.
+"""Drive the PyTorch/CUDA port's LLM serving (tensor-parallel serving
+included), BERT training and LSTM training paths on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -34,20 +34,36 @@ plain version):
    float32 and bfloat16, (T, B, H) of (35, 32, 650), (7, 5, 37) and (35,
    1, 650), zero and random initial state, dcseq zero but at T-1 (12
    cases); both timed at (35, 32, 650) beside their plain versions, their
-   bounds and cuDNN's LSTM on the same weights.  ``--kernels-only`` stops
-   here.
+   bounds and cuDNN's LSTM on the same weights.  The tensor-parallel
+   decode phases (#13 attention, #14 FFN) on every shard of one layer at
+   tp 2 and 4 of the serving model and at tp 2 of a GQA one (12 heads
+   over 4 KV heads), at B 16 (lengths 1..512, one row of length 0) and
+   B 1, pages and partial products held; timed at B 16 on shard 0.  The
+   #16 route (``flash_attention_sharded`` on a dp 2 x tp 2 mesh at B 32,
+   H 12, L 128, D 64, causal, fp32 and bf16) against the plain causal
+   attention and the unsharded #5, forward and gradients, with dp * tp
+   launches of #5 per call.  ``--kernels-only`` stops here.
 3. Serving: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
    ``--seed``, with random biases and LN affines, which the kernel checks
    use too) served by ``DecodeEngine`` (16 slots, page size 16, prefill
-   chunk 64) with 48 requests, four times: with the fused decode kernel;
+   chunk 64) with 48 requests, seven times: with the fused decode kernel;
    with ``MXNET_DECODE_FUSED=0``; with int8 weights and int8 KV pages;
-   with int4 weights (group 128) and fp KV pages.  Kernel launch counts
-   are set to 0 before each run and read after it.  Then, for 3 requests,
-   teacher-forced prefill + decode through each engine's programs is held
-   against ``full_forward`` (which attends through the flash forward
-   kernel; over the quantized weights for int4), and for the int8-KV run
-   against the same programs on CPU copies of the params.
+   with int4 weights (group 128) and fp KV pages; and tensor-parallel
+   (``sharding=ShardingConfig.for_transformer(mesh_shape=(1, tp),
+   axis_names=("dp", "tp"))``, the shards in turn on the card) fused at
+   tp 2 and tp 4 and per-op at tp 2.  Kernel launch counts are set to 0
+   before each run and read after it (a fused TP step launches #13 and
+   #14 12 tp times each, a per-op one paged attention 12 tp times), and
+   a TP engine's collective census must read 24 all-reduces and nothing
+   else.  Then, for 3 requests, teacher-forced prefill + decode through
+   each engine's programs is held against ``full_forward`` (which attends
+   through the flash forward kernel; over the quantized weights for
+   int4), each TP engine's also against the tp 1 engine's, and for the
+   int8-KV run against the same programs on CPU copies of the params.
+   The sharded-attention path: forward and backward through
+   ``flash_attention_sharded`` (dp 2 x tp 2, causal) in fp32 and bf16,
+   launching #5, #6 and #7 once per shard.
 4. Training: ``BERTModel`` at BERT-base widths (the same widths, 2 token
    types, dropout 0.1, ``use_flash=True``, fused epilogues; Xavier
    weights from ``--seed`` with random biases and LN affines), three
@@ -77,9 +93,9 @@ plain version):
    and every tensor autograd saves must be on the card.  Then one SGD
    step of a small word LM (vocab 100, 2 x 64, B 4, T 8) on the card and
    on CPU copies: loss, gradients and weights agree.
-6. The kernels line (launches summed over the serving runs and the
-   training phases), the card line and, last, the result line
-   ``{"ok": true, "device": {...}}``.
+6. The kernels line (launches summed over the serving runs, the
+   sharded-attention path and the training phases), the card line and,
+   last, the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1022,6 +1038,266 @@ def check_lstm(torch, timer, report):
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel decode phases (#13, #14) and the sharded causal route (#16)
+# ---------------------------------------------------------------------------
+# the phase kernels against their plain versions: one layer of one shard in
+# fp32, the GEMVs adding their products in another order than cuBLAS (K
+# split over up to 8 slices, warp sums) and attention in the online form
+# against the plain two-pass softmax over <= 512 keys (TOL_ATTENTION):
+# ~1e-6 on outputs and pages of order 1; 100x that allowed, 10x tighter
+# than #12's 12 layers
+TOL_PHASE = 1e-4
+TP_DEGREES = (2, 4)
+#: the mesh of the sharded-attention checks and path: batch over dp,
+#: heads over tp
+SHARDED_MESH = (2, 2)
+
+
+def tp_sharding(tp, dp=1):
+    from mxnet_tpu_torch.parallel import ShardingConfig
+    return ShardingConfig.for_transformer(mesh_shape=(dp, tp),
+                                          axis_names=("dp", "tp"))
+
+
+def phase_bounds(cfg, lcfg, after, pps):
+    """Bounds of #13 and #14 for one shard at these lengths (after the
+    append): each weight, input and output once, the KV of the tokens the
+    rows had before this step read once and the appended rows written
+    once; 2 flops per weight and row, 4 per (head, key, dim)."""
+    B, C, D = len(after), cfg.units, cfg.head_dim
+    Cl, KVCl = lcfg.num_heads * D, lcfg.num_kv_heads * D
+    Fl = lcfg.hidden_size
+    live = int((after > 0).sum())
+    toks = int(after.sum())
+    w_attn = C * (2 * Cl + 2 * KVCl) + Cl + 2 * KVCl
+    attn = bound(4 * (w_attn + 2 * (toks - live) * KVCl + 2 * live * KVCl
+                      + 2 * B * C + 4 * B + B * pps),
+                 2 * B * (w_attn - Cl - 2 * KVCl) + 4 * Cl * toks)
+    ffn = bound(4 * (2 * C * Fl + Fl + 2 * B * C), 4 * B * C * Fl)
+    return attn, ffn
+
+
+def check_tp_phases(torch, timer, report, lm, lm_gqa):
+    """#13 and #14 against their plain versions on every shard of one layer
+    at tp 2 and 4 of the full-width model and at tp 2 of the GQA model (12
+    heads over 4 KV heads: 2 KV heads per shard), at B 16 (lengths 1..512,
+    one row of 512 and one of 0) and B 1 (length 512); pages and partial
+    products held.  Times at B 16 on shard 0 of the full-width model."""
+    from mxnet_tpu_torch.models import decoder as dec
+    from mxnet_tpu_torch.ops.kernels import fused_cell as fc
+    P, pps = SLOTS * 32 + 1, 32
+    rows = {}
+    for model, tp in ((lm, 2), (lm, 4), (lm_gqa, 2)):
+        cfg = model.config
+        plan = dec.tp_plan(cfg, tp_sharding(tp))
+        lcfg = plan.local_cfg
+        shards = plan.shard_params(model.params())
+        for B in (SLOTS, 1):
+            rng = np.random.default_rng(13 + B)
+            after = rng.integers(1, 513, B)   # lengths after this append
+            after[0] = 512
+            if B > 1:
+                after[7] = 0                  # inactive row
+            tb_np = tables_for(rng, after, pps)
+            pos = np.maximum(after - 1, 0)
+            wp = np.where(after > 0, tb_np[np.arange(B), pos // PAGE], 0)
+            ws = np.where(after > 0, pos % PAGE, 0)
+            g = torch.Generator(device=DEV).manual_seed(14)
+            shape = (1, cfg.num_kv_heads, P, PAGE, cfg.head_dim)
+            kp0 = torch.randn(shape, device=DEV, generator=g) * 0.5
+            vp0 = torch.randn(shape, device=DEV, generator=g) * 0.5
+            x = torch.randn(B, cfg.units, device=DEV, generator=g)
+            meta = torch.tensor(np.stack([wp, ws]), dtype=torch.int32,
+                                device=DEV)
+            tb = torch.tensor(tb_np, device=DEV)
+            ln = torch.tensor(after, dtype=torch.int32, device=DEV)
+            errs = {"o_part": 0.0, "pages": 0.0, "f_part": 0.0}
+            for r in range(tp):
+                lp = shards[r]["layers"][0]
+                k1, v1, k2, v2 = (t.clone() for t in (kp0, vp0, kp0, vp0))
+                _, _, ok = fc.decode_attn_phase(
+                    x, plan.kv_view(k1, 0, r), plan.kv_view(v1, 0, r), lp,
+                    meta, tb, ln, lcfg)
+                _, _, op = fc.decode_attn_phase_plain(
+                    x, plan.kv_view(k2, 0, r), plan.kv_view(v2, 0, r), lp,
+                    meta, tb, ln, lcfg)
+                fk = fc.decode_ffn_phase(x, lp["w1"], lp["b1"], lp["w2"])
+                fp = fc.decode_ffn_phase_plain(x, lp["w1"], lp["b1"],
+                                               lp["w2"])
+                if B > 1 and bool(ok[7].any()):
+                    raise AssertionError("decode_attn_phase: the length-0 "
+                                         "row's partial is not zero")
+                # page 0 is the scratch page every inactive row writes
+                errs["o_part"] = max(errs["o_part"],
+                                     float((ok - op).abs().max()))
+                errs["pages"] = max(errs["pages"], float(max(
+                    (k1[:, :, 1:] - k2[:, :, 1:]).abs().max(),
+                    (v1[:, :, 1:] - v2[:, :, 1:]).abs().max())))
+                errs["f_part"] = max(errs["f_part"],
+                                     float((fk - fp).abs().max()))
+            log("decode phases tp %d (H %d KVH %d per shard) B %d lengths "
+                "%d..%d, all %d shards: max_abs_err o_part %.3g pages %.3g "
+                "f_part %.3g (tol %g)"
+                % (tp, lcfg.num_heads, lcfg.num_kv_heads, B, after.min(),
+                   after.max(), tp, errs["o_part"], errs["pages"],
+                   errs["f_part"], TOL_PHASE))
+            if not max(errs.values()) <= TOL_PHASE:
+                raise AssertionError("a decode phase kernel disagrees with "
+                                     "its plain version")
+            if B != SLOTS or model is not lm:
+                continue
+            lp = shards[0]["layers"][0]
+            kv = (plan.kv_view(kp0, 0, 0), plan.kv_view(vp0, 0, 0))
+            (ba, bya), (bf, byf) = phase_bounds(cfg, lcfg, after, pps)
+            for name, fn, plain, bms, by, err in (
+                    ("decode_attn_phase",
+                     lambda: fc.decode_attn_phase(x, *kv, lp, meta, tb, ln,
+                                                  lcfg),
+                     lambda: fc.decode_attn_phase_plain(x, *kv, lp, meta, tb,
+                                                        ln, lcfg),
+                     ba, bya, max(errs["o_part"], errs["pages"])),
+                    ("decode_ffn_phase",
+                     lambda: fc.decode_ffn_phase(x, lp["w1"], lp["b1"],
+                                                 lp["w2"]),
+                     lambda: fc.decode_ffn_phase_plain(x, lp["w1"], lp["b1"],
+                                                       lp["w2"]),
+                     bf, byf, errs["f_part"])):
+                ms = timer(fn)
+                # the plain version's ~20 ops take longer to enqueue than
+                # the usual spin: spin ~2 ms so the card's time is timed
+                plain_ms = timer(plain, spin=4_000_000)
+                log("%s tp %d B %d full width, mixed lengths: kernel %.4f ms "
+                    "plain %.4f ms bound %.4f ms (%s); %d blocks"
+                    % (name, tp, B, ms, plain_ms, bms, by,
+                       fc.phase_grid_blocks(lcfg)[name.endswith("ffn_phase")]))
+                rows.setdefault(name, {})["tp%d" % tp] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    max_abs_err=err)
+    for name, line in (("decode_attn_phase", 509), ("decode_ffn_phase", 617)):
+        report[name] = dict(
+            name=name, route="cuda",
+            source="mxnet_tpu_torch/csrc/decode_phase.cu",
+            replaces="mxnet_tpu/ops/pallas/fused_cell.py:%d" % line,
+            library_ms=None, **rows[name]["tp2"])
+    report["tp_phases"] = rows
+
+
+def check_sharded_attention(torch, timer, report):
+    """The #16 route: ``flash_attention_sharded`` on a (dp 2, tp 2) mesh at
+    the training shape (B 32, H 12, L 128, D 64), causal, fp32 and bf16:
+    held against ``flash_attention_plain(causal=True)`` on the whole
+    tensors and against the unsharded kernel #5; dp * tp launches of #5
+    per call; its gradient against the unsharded kernels' at dropout 0.
+    Timed beside the plain version and SDPA (is_causal)."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    cfg = tp_sharding(SHARDED_MESH[1], SHARDED_MESH[0])
+    shards = SHARDED_MESH[0] * SHARDED_MESH[1]
+    B, H, L, D = TRAIN_B, BERT["num_heads"], TRAIN_L, 64
+    g = torch.Generator(device=DEV).manual_seed(15)
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(B, H, L, D, device=DEV, generator=g).to(dt)
+                       for _ in range(4))
+        n0 = fa.flash_attention.launches_fwd
+        c0 = att.flash_attention_sharded.causal_shards
+        out = att.flash_attention_sharded(q, k, v, cfg, causal=True)
+        n_fwd = fa.flash_attention.launches_fwd - n0
+        n_route = att.flash_attention_sharded.causal_shards - c0
+        if ((n_fwd, n_route) != (shards, shards)
+                or att.last_path != "flash-causal-shard"):
+            raise AssertionError("flash_attention_sharded: %d launches of #5 "
+                                 "and %d causal shards, want %d each (route "
+                                 "%s)" % (n_fwd, n_route, shards,
+                                          att.last_path))
+        plain = fa.flash_attention_plain(q, k, v, causal=True)[0]
+        whole = att.flash_attention(q, k, v, causal=True)
+        ls = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lw = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        gs = torch.autograd.grad(att.flash_attention_sharded(
+            *ls, cfg, causal=True), ls, do)
+        gw = torch.autograd.grad(att.flash_attention(*lw, causal=True), lw,
+                                 do)
+        errs = dict(plain=rel_err(out, plain), whole=rel_err(out, whole),
+                    grad=max(rel_err(a, b) for a, b in zip(gs, gw)))
+        f32 = dt == torch.float32
+        tol = TOL_FLASH_F32 if f32 else TOL_FLASH_BF16
+        tol_g = TOL_FLASH_F32 if f32 else TOL_FLASH_GRAD_BF16
+        # the route enqueues ~25 ops (slices, copies, the scale, four
+        # launches, the concat) and the plain version ~12: spin ~2 ms so
+        # the card's time is timed, not the host's enqueue
+        ms = timer(lambda: att.flash_attention_sharded(q, k, v, cfg,
+                                                       causal=True),
+                   spin=4_000_000)
+        plain_ms = timer(lambda: fa.flash_attention_plain(q, k, v,
+                                                          causal=True),
+                         spin=4_000_000)
+        lib = timer(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True))
+        pairs = B * H * L * (L + 1) // 2          # causal (row, key) pairs
+        bms, by = bound(4 * B * H * L * D * q.element_size(), 4 * pairs * D,
+                        FP32_FLOPS if f32 else BF16_FLOPS)
+        log("flash_attention_sharded dp %d tp %d (B %d, H %d, L %d, D %d, "
+            "causal) %s: %d launches of #5 per call; max err / largest vs "
+            "plain %.3g, vs unsharded #5 %.3g (tol %g), gradients vs "
+            "unsharded %.3g (tol %g); route %.4f ms plain %.4f ms bound "
+            "%.4f ms (%s) SDPA is_causal %.4f ms"
+            % (SHARDED_MESH + (B, H, L, D, str(dt)[6:], n_fwd, errs["plain"],
+                               errs["whole"], tol, errs["grad"], tol_g, ms,
+                               plain_ms, bms, by, lib)))
+        if not (errs["plain"] <= tol and errs["whole"] <= tol
+                and errs["grad"] <= tol_g):
+            raise AssertionError("flash_attention_sharded disagrees: %s"
+                                 % errs)
+        rows[str(dt)[6:]] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                 bound_by=by, library_ms=lib,
+                                 max_abs_err=max(errs.values()))
+    report["flash_attention_sharded_causal"] = dict(
+        name="flash_attention_sharded_causal", route="cuda",
+        source="mxnet_tpu_torch/csrc/flash_attention.cu",
+        replaces="mxnet_tpu/ops/attention.py:302", **rows["float32"])
+    report["sharded_attention"] = rows
+
+
+def sharded_attention_path(torch, seed):
+    """The #16 route's path: a user's forward and backward through
+    ``flash_attention_sharded`` on the (dp 2, tp 2) mesh at the training
+    shape, causal, in fp32 and bf16, with the launch counts set to 0
+    before and read after: each call launches #5, #6 and #7 once per
+    shard."""
+    from mxnet_tpu_torch.ops import attention as att
+    cfg = tp_sharding(SHARDED_MESH[1], SHARDED_MESH[0])
+    shards = SHARDED_MESH[0] * SHARDED_MESH[1]
+    B, H, L, D = TRAIN_B, BERT["num_heads"], TRAIN_L, 64
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    inputs = [[torch.randn(B, H, L, D, device=DEV, generator=g).to(dt)
+               for _ in range(4)] for dt in (torch.float32, torch.bfloat16)]
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    for q, k, v, do in inputs:
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        out = att.flash_attention_sharded(*leaves, cfg, causal=True)
+        out.backward(do)
+        if not all(bool(torch.isfinite(t.grad).all()) for t in leaves):
+            raise AssertionError("flash_attention_sharded: non-finite "
+                                 "gradients")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = dict.fromkeys(KERNELS, 0)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "flash_attention_sharded_causal"):
+        want[name] = shards * len(inputs)
+    log("sharded attention path: forward and backward at dp %d tp %d, fp32 "
+        "and bf16: launches %s" % (SHARDED_MESH + ({k: n for k, n in
+                                                     counts.items() if n},)))
+    if counts != want:
+        raise AssertionError("sharded attention launches %s, want %s"
+                             % (counts, want))
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 def traffic(seed, n):
@@ -1036,11 +1312,13 @@ KERNELS = ("bias_gelu", "paged_attention", "decode_layer_group",
            "bias_gelu_backward", "bias_dropout_residual_fwd",
            "bias_dropout_residual_bwd", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "lstm_sequence_fwd", "lstm_sequence_bwd")
+           "lstm_sequence_fwd", "lstm_sequence_bwd", "decode_attn_phase",
+           "decode_ffn_phase", "flash_attention_sharded_causal")
 
 
 def launch_counts(reset=False):
     """Every kernel wrapper's launch count (set to 0 first when ``reset``)."""
+    from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops.kernels import epilogue as ep
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     from mxnet_tpu_torch.ops.kernels import fused_cell as fc
@@ -1063,21 +1341,27 @@ def launch_counts(reset=False):
                 "flash_attention_bwd_dkv": (fa.flash_attention,
                                             "launches_dkv"),
                 "lstm_sequence_fwd": (fc.lstm_sequence, "launches_fwd"),
-                "lstm_sequence_bwd": (fc.lstm_sequence, "launches_bwd")}
+                "lstm_sequence_bwd": (fc.lstm_sequence, "launches_bwd"),
+                "decode_attn_phase": (fc.decode_attn_phase, "launches"),
+                "decode_ffn_phase": (fc.decode_ffn_phase, "launches"),
+                # the #16 route: causal shards sent to flash kernel #5
+                "flash_attention_sharded_causal": (att.flash_attention_sharded,
+                                                   "causal_shards")}
     if reset:
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
     return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
 
-def serve(torch, lm, reqs, label, fused, **quant):
-    """Serve ``reqs`` through a fresh engine; check every request's length
-    and that the run launched exactly the kernels of its path."""
+def serve(torch, lm, reqs, label, fused, sharding=None, **quant):
+    """Serve ``reqs`` through a fresh engine; check every request's length,
+    that the run launched exactly the kernels of its path and, under
+    ``sharding``, the engine's collective census."""
     from mxnet_tpu_torch.serving import DecodeEngine
     os.environ["MXNET_DECODE_FUSED"] = "1" if fused else "0"
     eng = DecodeEngine(lm, name="smoke", slots=SLOTS, page_size=PAGE,
                        max_ctx=MAX_CTX, prefill_chunk=CHUNK, device=DEV,
-                       **quant)
+                       sharding=sharding, **quant)
     eng.warmup()
     prefill_fn, chunk_ms = eng._prefill_fn, []
 
@@ -1105,27 +1389,30 @@ def serve(torch, lm, reqs, label, fused, **quant):
             raise AssertionError("request finished early or short: %r"
                                  % ({k: o[k] for k in ("finish_reason",
                                                        "completion_tokens")},))
-    L = lm.config.num_layers
+    L, tp = lm.config.num_layers, eng.tp
     chunks = len(chunk_ms)
     want = dict.fromkeys(KERNELS, 0)
-    if eng.decode_fused:
+    if eng.decode_fused and eng.sharding is not None:
+        want["decode_attn_phase"] = want["decode_ffn_phase"] = steps * L * tp
+        want["bias_gelu"] = chunks * L * tp
+    elif eng.decode_fused:
         want["decode_layer_group"] = steps * eng.launch_stats["layer_groups"]
         want["bias_gelu"] = chunks * L
     else:
         attn = ("paged_attention_int8" if eng.kv_dtype == "int8"
                 else "paged_attention")
-        want[attn] = steps * L
-        want["bias_gelu"] = (chunks + steps) * L
+        want[attn] = steps * L * tp
+        want["bias_gelu"] = (chunks + steps) * L * tp
     if eng.quant is not None:
         fmt = "w8" if eng.quant[0] == "int8" else "w4"
         want["quant_matmul_" + fmt] = 6 * L * (steps + chunks)
     gen = sum(len(o["tokens"]) for o in outs)
     step = snap["generate"]["decode_step"]
-    log("serve %s (decode %s, weights %s, kv %s): %d requests, %d tokens in "
-        "%.3f s = %.1f tokens/s; %d decode steps p50 %.3f ms p99 %.3f ms; %d "
-        "prefill chunks p50 %.3f ms total %.1f ms; launches %s"
+    log("serve %s (decode %s, weights %s, kv %s, tp %d): %d requests, %d "
+        "tokens in %.3f s = %.1f tokens/s; %d decode steps p50 %.3f ms p99 "
+        "%.3f ms; %d prefill chunks p50 %.3f ms total %.1f ms; launches %s"
         % (label, "fused" if eng.decode_fused else "per-op",
-           eng.quant and "/".join(map(str, eng.quant)), eng.kv_dtype,
+           eng.quant and "/".join(map(str, eng.quant)), eng.kv_dtype, tp,
            len(outs), gen, wall, gen / wall, steps, step["p50_ms"],
            step["p99_ms"], chunks, statistics.median(chunk_ms),
            sum(chunk_ms), counts))
@@ -1133,11 +1420,21 @@ def serve(torch, lm, reqs, label, fused, **quant):
         raise AssertionError("launch counts do not match the path: %s, want "
                              "%s (%d steps, %d chunks)"
                              % (counts, want, steps, chunks))
+    if sharding is not None:
+        shd = eng.stats()["sharding"]
+        log("serve %s: mesh %s, collectives per decode step (counted at "
+            "attach) %s" % (label, shd["mesh"], shd["collectives"]))
+        if (eng.tp != sharding.axis_size("tp")
+                or shd["collectives"]["all-reduce"] != 2 * L
+                or shd["collectives"]["total"] != 2 * L):
+            raise AssertionError("tp %d engine: census %s, want %d "
+                                 "all-reduces and nothing else"
+                                 % (eng.tp, shd["collectives"], 2 * L))
     eng._prefill_fn = prefill_fn
     return eng, outs, counts, dict(
         tokens_per_s=gen / wall, decode_step_p50_ms=step["p50_ms"],
         decode_step_p99_ms=step["p99_ms"],
-        prefill_chunk_p50_ms=statistics.median(chunk_ms))
+        prefill_chunk_p50_ms=statistics.median(chunk_ms), tp=tp)
 
 
 def fresh_pool(torch, kv_dtype, shape, dev):
@@ -1231,14 +1528,15 @@ def device_summary(torch, prof, wall):
             "; ".join("%s %.1f" % (k[:60], v / 1e3) for k, v in top))
 
 
-def profile(torch, lm, reqs, fused):
+def profile(torch, lm, reqs, fused, sharding=None):
     """torch.profiler over one engine serving ``reqs``: the device's busy
     share of the window and the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity
     from mxnet_tpu_torch.serving import DecodeEngine
     os.environ["MXNET_DECODE_FUSED"] = "1" if fused else "0"
     eng = DecodeEngine(lm, name="prof", slots=SLOTS, page_size=PAGE,
-                       max_ctx=MAX_CTX, prefill_chunk=CHUNK, device=DEV)
+                       max_ctx=MAX_CTX, prefill_chunk=CHUNK, device=DEV,
+                       sharding=sharding)
     eng.warmup()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
@@ -1250,9 +1548,9 @@ def profile(torch, lm, reqs, fused):
         wall = time.perf_counter() - t0
     eng.stop()
     busy, n, top = device_summary(torch, prof, wall)
-    log("profile fused=%s: %d requests in %.3f s, device busy %.1f%% "
+    log("profile fused=%s tp=%d: %d requests in %.3f s, device busy %.1f%% "
         "(%d kernel spans); top kernels by device ms: %s"
-        % (fused, len(reqs), wall, busy, n, top))
+        % (fused, eng.tp, len(reqs), wall, busy, n, top))
 
 
 # ---------------------------------------------------------------------------
@@ -1744,7 +2042,8 @@ def main():
                     help="stop after the kernel checks")
     ap.add_argument("--profile", action="store_true",
                     help="also profile 16 requests through each decode step "
-                    "and 3 training steps")
+                    "(fused and per-op at tp 1, fused at tp 2) and 3 "
+                    "training steps")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1791,6 +2090,8 @@ def main():
     check_bias_dropout_residual(torch, timer, report)
     check_flash_attention(torch, timer, report)
     check_lstm(torch, timer, report)
+    check_tp_phases(torch, timer, report, lm, lm_gqa)
+    check_sharded_attention(torch, timer, report)
     del timer
     log("kernel checks done at %.1f s" % (time.perf_counter() - t_start))
     if args.kernels_only:
@@ -1806,21 +2107,38 @@ def main():
             ("int8_kv8", True, dict(quantize="int8", kv_dtype="int8")),
             ("int4", True, dict(quantize="int4", quant_group=128))):
         runs[label] = serve(torch, lm, reqs, label, fused, **quant)
-    outs_f, outs_p = runs["fused"][1], runs["per_op"][1]
-    same = sum(a["tokens"] == b["tokens"] for a, b in zip(outs_f, outs_p))
-    log("fused and per-op streams identical for %d of %d requests"
-        % (same, len(reqs)))
+    # tensor-parallel serving: the shards run in turn on the card
+    for label, fused, tp in (("tp2_fused", True, 2), ("tp4_fused", True, 4),
+                             ("tp2_per_op", False, 2)):
+        runs[label] = serve(torch, lm, reqs, label, fused,
+                            sharding=tp_sharding(tp))
+    outs_f = runs["fused"][1]
+    for label in ("per_op", "tp2_fused", "tp4_fused", "tp2_per_op"):
+        same = sum(a["tokens"] == b["tokens"]
+                   for a, b in zip(outs_f, runs[label][1]))
+        log("%s streams identical to the tp 1 fused run's for %d of %d "
+            "requests" % (label, same, len(reqs)))
     seqs = [p + o["tokens"] for (p, _), o in zip(reqs[:3], outs_f[:3])]
     cfg, params = lm.config, lm.params()
     fp_ref = full_logits(torch, params, cfg, seqs)
-    for label in ("fused", "per_op"):
-        err = max_err(teacher_forced(torch, runs[label][0], params, seqs),
-                      fp_ref)
+    tf1 = {}
+    for label in ("fused", "per_op", "tp2_fused", "tp4_fused", "tp2_per_op"):
+        eng = runs[label][0]
+        tf1[label] = teacher_forced(torch, eng, eng.params, seqs)
+        err = max_err(tf1[label], fp_ref)
         log("teacher-forced %s prefill+decode vs full_forward over %d "
             "sequences: max_abs_err %.3g (tol %g)"
             % (label, len(seqs), err, TOL_LOGITS))
         if not err <= TOL_LOGITS:
             raise AssertionError("engine logits disagree with full_forward")
+        if label.startswith("tp"):
+            one = tf1["fused" if label.endswith("fused") else "per_op"]
+            err = max_err(tf1[label], one)
+            log("teacher-forced %s vs the tp 1 engine's programs: "
+                "max_abs_err %.3g (tol %g)" % (label, err, TOL_LOGITS))
+            if not err <= TOL_LOGITS:
+                raise AssertionError("tensor-parallel logits disagree with "
+                                     "tp 1")
     # int4 weights, fp KV: the engine's programs against full_forward over
     # the same integer weights (quant_matmul_plain)
     eng4 = runs["int4"][0]
@@ -1851,9 +2169,11 @@ def main():
         raise AssertionError("int8-KV engine logits on the card disagree "
                              "with the CPU")
     if args.profile:
-        for fused in (True, False):
-            profile(torch, lm, reqs[:16], fused)
+        for fused, tp in ((True, 1), (False, 1), (True, 2)):
+            profile(torch, lm, reqs[:16], fused,
+                    tp_sharding(tp) if tp > 1 else None)
     log("serving done at %.1f s" % (time.perf_counter() - t_start))
+    paths = {"sharded_attention": sharded_attention_path(torch, args.seed)}
     trains = {}
     trains["fp32"] = train(torch, args.seed, "fp32", TRAIN_B, TRAIN_L,
                            TRAIN_STEPS, profile_steps=3 if args.profile
@@ -1891,7 +2211,8 @@ def main():
     for name in KERNELS:
         row = report[name]
         row["launches"] = (sum(run[2][name] for run in runs.values())
-                           + sum(c[name] for c, _ in trains.values()))
+                           + sum(c[name] for c, _ in trains.values())
+                           + sum(c[name] for c in paths.values()))
         if not row["launches"]:
             raise AssertionError("%s was not launched on the main path"
                                  % name)
@@ -1902,7 +2223,9 @@ def main():
                     "train": {k: st for k, (_, st) in trains.items()},
                     "flash_bf16": report["flash_bf16"],
                     "lstm_fp32": report["lstm_fp32"],
-                    "lstm_bf16": report["lstm_bf16"]}))
+                    "lstm_bf16": report["lstm_bf16"],
+                    "tp_phases": report["tp_phases"],
+                    "sharded_attention": report["sharded_attention"]}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

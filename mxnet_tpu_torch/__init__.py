@@ -14,7 +14,15 @@ Ported so far:
 - the training slice — ``models.bert.BERTModel`` (MLM + NSP) trained by
   ``gluon.Trainer`` with MXNet's optimizers (``optimizer``), on
   ``gluon.nn`` layers, ``gluon.loss``, ``initializer`` and ``ops.nn``,
-  through the fused epilogue kernels with their gradients.
+  through the fused epilogue kernels with their gradients, and the flash
+  attention kernels, in fp32 or bf16 (``amp``);
+- the RNN slice — ``gluon.rnn`` layers and cells over ``ops.rnn``, the
+  LSTM time loop in one persistent kernel forward and backward;
+- the tensor-parallel serving slice — ``serving.DecodeEngine(sharding=)``
+  with a ``parallel.ShardingConfig``, every layer split over tp shards
+  that run in turn on the one card, through the attention and FFN phase
+  kernels; and ``ops.attention.flash_attention_sharded`` over a (dp, tp)
+  mesh.
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is passed
 (``context.resolve``).

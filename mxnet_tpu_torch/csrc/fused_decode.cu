@@ -39,23 +39,19 @@
 // ones) splits K across blocks, so every warp streams weights; the
 // following LayerNorm phase adds the partial sums in a fixed order, so
 // results do not depend on timing.  The attention phase reads only the
-// pages the table names up to each row's length.
-#include <cooperative_groups.h>
-
-#include <algorithm>
-
-#include "paged_attention.cuh"
+// pages the table names up to each row's length.  The GEMV and the
+// append + attention phases are shared with the tensor-parallel phase
+// kernels (decode_phase.cu) through decode_common.cuh.
+#include "decode_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int GEMV_ROWS = 16;        // batch rows per register pass
-constexpr int GEMV_LOADS = 4;        // weight float4 loads in flight per lane
-constexpr int STAGE_FLOATS = 8192;   // staged input elements (32 KB)
-constexpr int KSPLIT_MAX = 8;        // K slices of a split GEMV
+using mxt::KSPLIT_MAX;
+using mxt::NTHREADS;
+using mxt::NWARPS;
+using mxt::round4;
 constexpr int NW = 16;               // weight pointers per layer
 
 struct Args {
@@ -75,120 +71,10 @@ struct Args {
 
 // scratch layout: qkv (B, C + 2 KVC) | att (B, C) | h (B, F) |
 // parts (KSPLIT_MAX, B, C); every piece starts 16-byte aligned
-__host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~3; }
 __host__ __device__ inline size_t scratch_floats(int B, int C, int F,
                                                  int KVC) {
   return round4((size_t)B * (C + 2 * KVC)) + round4((size_t)B * C) +
          round4((size_t)B * F) + (size_t)KSPLIT_MAX * B * C;
-}
-
-// K slices for an N-column GEMV: enough to give every block a unit of
-// work, the same value in every block
-__device__ int ksplit_for(int N) {
-  const int groups = (N + NWARPS - 1) / NWARPS;
-  return max(1, min(KSPLIT_MAX, (int)gridDim.x / groups));
-}
-
-// stage rows [0, nb) x columns [k0, k0 + kc) of in (row stride K) into
-// stage (row stride kc), several float4 loads in flight per thread
-__device__ void stage_rows(float* stage, const float* in, int nb, int K,
-                           int k0, int kc) {
-  const int kc4 = kc >> 2, n4 = nb * kc4;
-  for (int e0 = threadIdx.x; e0 < n4; e0 += blockDim.x * 4) {
-    float4 v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int e = e0 + u * blockDim.x;
-      if (e < n4) {
-        const int r = e / kc4;
-        v[u] = __ldcg(reinterpret_cast<const float4*>(
-            in + (size_t)r * K + k0 + (e - r * kc4) * 4));
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int e = e0 + u * blockDim.x;
-      if (e < n4) reinterpret_cast<float4*>(stage)[e] = v[u];
-    }
-  }
-}
-
-// epi(b, n, s, sum over K slice s of in[b, k] * W_n[k]) for b < B, n < N,
-// s < ksplit.  A unit of work is NWARPS consecutive columns (one per warp)
-// over one K slice; the slice's input rows are staged through shared
-// memory in chunks so that every warp of the block reads them from there.
-// K, the slices, the chunks and the staged offsets are multiples of 4.
-template <class Row, class Epi>
-__device__ void gemv(const float* in, int B, int K, int N, int ksplit,
-                     Row row, Epi epi, float* stage) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int groups = (N + NWARPS - 1) / NWARPS;
-  const int slice = (int)round4((K + ksplit - 1) / ksplit);
-  for (int unit = blockIdx.x; unit < groups * ksplit; unit += gridDim.x) {
-    const int grp = unit / ksplit, s = unit - grp * ksplit;
-    const int n = grp * NWARPS + warp;
-    const bool has = n < N;
-    const int k_lo = s * slice, k_hi = min(K, k_lo + slice);
-    const float* w = has ? row(n) : nullptr;
-    for (int b0 = 0; b0 < B; b0 += GEMV_ROWS) {
-      const int nb = min(GEMV_ROWS, B - b0);
-      const int kc_max = (STAGE_FLOATS / nb) & ~3;
-      float acc[GEMV_ROWS];
-#pragma unroll
-      for (int r = 0; r < GEMV_ROWS; ++r) acc[r] = 0.f;
-      for (int k0 = k_lo; k0 < k_hi; k0 += kc_max) {
-        const int kc = min(kc_max, k_hi - k0);
-        __syncthreads();
-        stage_rows(stage, in + (size_t)b0 * K, nb, K, k0, kc);
-        __syncthreads();
-        if (!has) continue;
-        int kk = lane * 4;
-        for (; kk + 128 * (GEMV_LOADS - 1) < kc; kk += 128 * GEMV_LOADS) {
-          float4 wv[GEMV_LOADS];
-#pragma unroll
-          for (int u = 0; u < GEMV_LOADS; ++u)
-            wv[u] = __ldg(reinterpret_cast<const float4*>(w + k0 + kk + 128 * u));
-#pragma unroll
-          for (int u = 0; u < GEMV_LOADS; ++u) {
-#pragma unroll
-            for (int r = 0; r < GEMV_ROWS; ++r) {
-              if (r < nb) {
-                const float4 xv = *reinterpret_cast<const float4*>(
-                    stage + r * kc + kk + 128 * u);
-                acc[r] = fmaf(wv[u].x, xv.x, acc[r]);
-                acc[r] = fmaf(wv[u].y, xv.y, acc[r]);
-                acc[r] = fmaf(wv[u].z, xv.z, acc[r]);
-                acc[r] = fmaf(wv[u].w, xv.w, acc[r]);
-              }
-            }
-          }
-        }
-        for (; kk < kc; kk += 128) {
-          const float4 wv = __ldg(reinterpret_cast<const float4*>(w + k0 + kk));
-#pragma unroll
-          for (int r = 0; r < GEMV_ROWS; ++r) {
-            if (r < nb) {
-              const float4 xv =
-                  *reinterpret_cast<const float4*>(stage + r * kc + kk);
-              acc[r] = fmaf(wv.x, xv.x, acc[r]);
-              acc[r] = fmaf(wv.y, xv.y, acc[r]);
-              acc[r] = fmaf(wv.z, xv.z, acc[r]);
-              acc[r] = fmaf(wv.w, xv.w, acc[r]);
-            }
-          }
-        }
-      }
-      if (has) {
-#pragma unroll
-        for (int r = 0; r < GEMV_ROWS; ++r) {
-          if (r < nb) {
-            const float v = mxt::warp_sum(acc[r]);
-            if (lane == 0) epi(b0 + r, n, s, v);
-          }
-        }
-      }
-    }
-  }
 }
 
 __device__ float block_sum(float v, float* red) {
@@ -237,10 +123,6 @@ __device__ void residual_layer_norm(float* x, const float* parts, int ks,
   }
 }
 
-__device__ __forceinline__ float gelu_erf(float u) {
-  return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
-}
-
 __device__ __forceinline__ long long globaltimer() {
   long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -270,7 +152,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
   float* att = qkv + round4((size_t)B * N);
   float* hbuf = att + round4((size_t)B * C);
   float* parts = hbuf + round4((size_t)B * F);
-  const int ks = ksplit_for(C);
+  const int ks = mxt::ksplit_for(C);
   auto part = [=](int b, int n, int s, float v) {
     parts[((size_t)s * B + b) * C + n] = v;
   };
@@ -283,46 +165,29 @@ __global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
     float* vp = a.vp + (size_t)l * layer_pages;
 
     // 1. qkv + bias
-    gemv(x, B, C, N, 1,
-         [=](int n) {
-           return n < C ? wq + (size_t)n * C
-                : n < C + KVC ? wk + (size_t)(n - C) * C
-                              : wv + (size_t)(n - C - KVC) * C;
-         },
-         [=](int b, int n, int, float v) {
-           const float bias = n < C ? bq[n] : n < C + KVC ? bk[n - C]
-                                                         : bv[n - C - KVC];
-           qkv[(size_t)b * N + n] = v + bias;
-         },
-         smem);
+    mxt::gemv(x, B, C, N, 1,
+              [=](int n) {
+                return n < C ? wq + (size_t)n * C
+                     : n < C + KVC ? wk + (size_t)(n - C) * C
+                                   : wv + (size_t)(n - C - KVC) * C;
+              },
+              [=](int b, int n, int, float v) {
+                const float bias = n < C         ? bq[n]
+                                   : n < C + KVC ? bk[n - C]
+                                                 : bv[n - C - KVC];
+                qkv[(size_t)b * N + n] = v + bias;
+              },
+              smem);
     sync();
 
-    // 2. KV append, then attention, per (sequence, KV head).  Inactive
-    // rows all append to the scratch page 0, slot 0 (a benign race) and
-    // have length 0.
-    for (int item = blockIdx.x; item < B * a.KVH; item += gridDim.x) {
-      const int b = item / a.KVH, kvh = item - b * a.KVH;
-      const float* src = qkv + (size_t)b * N + C + (size_t)kvh * D;
-      const size_t dst =
-          (((size_t)kvh * a.P + a.meta[b]) * a.S + a.meta[B + b]) * D;
-      for (int d = threadIdx.x; d < D; d += blockDim.x) {
-        kp[dst + d] = __ldcg(src + d);
-        vp[dst + d] = __ldcg(src + KVC + d);
-      }
-      __syncthreads();
-      const size_t head0 = (size_t)kvh * g * D;
-      const size_t pool0 = (size_t)kvh * a.P * a.S * D;
-      mxt::attend_group(qkv + (size_t)b * N + head0,
-                        mxt::F32Pages{kp + pool0, vp + pool0},
-                        a.tables + (size_t)b * a.pps, a.pps, a.lengths[b],
-                        a.S, D, g, a.scale, att + (size_t)b * C + head0,
-                        smem);
-    }
+    // 2. KV append, then attention, per (sequence, KV head)
+    mxt::append_attend(qkv, C, kp, vp, a.meta, a.tables, a.lengths, B, a.KVH,
+                       g, a.P, a.S, D, a.pps, a.scale, att, smem);
     sync();
 
     // 3. out-projection, partial sums over K slices
-    gemv(att, B, C, C, ks, [=](int n) { return wo + (size_t)n * C; }, part,
-         smem);
+    mxt::gemv(att, B, C, C, ks, [=](int n) { return wo + (size_t)n * C; },
+              part, smem);
     sync();
 
     // 4. residual + bias, LayerNorm
@@ -330,16 +195,16 @@ __global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
     sync();
 
     // 5. FFN1 + bias + erf GELU
-    gemv(x, B, C, F, 1, [=](int n) { return w1 + (size_t)n * C; },
-         [=](int b, int n, int, float v) {
-           hbuf[(size_t)b * F + n] = gelu_erf(v + b1[n]);
-         },
-         smem);
+    mxt::gemv(x, B, C, F, 1, [=](int n) { return w1 + (size_t)n * C; },
+              [=](int b, int n, int, float v) {
+                hbuf[(size_t)b * F + n] = mxt::gelu_erf(v + b1[n]);
+              },
+              smem);
     sync();
 
     // 6. FFN2, partial sums over K slices
-    gemv(hbuf, B, F, C, ks, [=](int n) { return w2 + (size_t)n * F; }, part,
-         smem);
+    mxt::gemv(hbuf, B, F, C, ks, [=](int n) { return w2 + (size_t)n * F; },
+              part, smem);
     sync();
 
     // 7. residual + bias, LayerNorm: the next layer's input
@@ -357,26 +222,10 @@ extern "C" const char* mxt_error_string(int e) {
 // Launch geometry for the given head grouping: fills the grid size (all
 // blocks resident at once) and the dynamic shared memory in bytes.
 static cudaError_t geometry(int g, int D, int* grid, size_t* smem) {
-  *smem = (size_t)std::max({STAGE_FLOATS, mxt::attend_smem_floats(g, D), 33}) *
-          sizeof(float);
-  cudaError_t e;
-  if (*smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(fused_decode_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)*smem);
-    if (e != cudaSuccess) return e;
-  }
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_decode_kernel, NTHREADS, *smem)) != cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *grid = per_sm * sms;
-  return cudaSuccess;
+  return mxt::coop_geometry(
+      fused_decode_kernel,
+      std::max({mxt::STAGE_FLOATS, mxt::attend_smem_floats(g, D), 33}), grid,
+      smem);
 }
 
 // Blocks the fused kernel launches with (for the caller's records).

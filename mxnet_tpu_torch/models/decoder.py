@@ -19,6 +19,19 @@ positions, tied LM head) with the pieces an LLM server needs:
   ``fused_cell.decode_layer_group`` kernel launch per layer group (fp
   weights and fp pages only).
 
+Tensor parallelism (:class:`TPPlan`, from :func:`tp_plan` and a
+``parallel.ShardingConfig`` with a ``tp`` axis): the steps and the chunk
+built with ``plan=`` take the per-shard weights of
+:meth:`TPPlan.shard_params` (Megatron column shards of ``wq``/``wk``/
+``wv``/``w1``, row shards of ``wo``/``w2``) and run every layer shard by
+shard over the shard's heads, KV heads and FFN columns, with the
+row-parallel partial products summed by :func:`_all_reduce`.  The port
+runs on one card, so the shards run in turn there and the all-reduce is a
+fixed-order sum; the page pools keep the tp = 1 layout, a shard's slab
+being a contiguous view (:meth:`TPPlan.kv_view`).  The fused TP step runs
+one ``fused_cell.decode_attn_phase`` and one ``decode_ffn_phase`` launch
+per layer per shard.
+
 Quantized serving: the six GEMM leaves (:data:`_QUANT_KINDS`) may be
 ``quant_matmul.QuantW8``/``QuantW4`` (``serving.quantize``), which every
 GEMM routes through the ``quant_matmul`` kernel (:func:`_dot_t`); and the
@@ -40,6 +53,7 @@ JAX model's weights across unchanged.
 """
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -55,7 +69,7 @@ from ..ops.kernels import quant_matmul as _qmm
 
 __all__ = ["DecoderConfig", "CausalLM", "full_forward", "make_decode_step",
            "make_decode_step_fused", "make_prefill_chunk", "params_from_jax",
-           "decoder_tiny", "decoder_tiny_lm"]
+           "TPPlan", "tp_plan", "decoder_tiny", "decoder_tiny_lm"]
 
 LAYER_KEYS = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
               "w1", "b1", "w2", "b2", "ln1g", "ln1b", "ln2g", "ln2b")
@@ -155,7 +169,7 @@ def _kv_append(pages, li, wp, ws, val):
     start is in it (``src = t - ws``), from the scales pool otherwise."""
     wpl, wsl = wp.long(), ws.long()
     if not isinstance(pages, _paged.QPages):
-        pages[li][:, wpl, wsl, :] = val.movedim(-2, 0)
+        _kv_write(pages[li], wpl, wsl, val)
         return
     vf = val.to(torch.float32)
     amax = vf.abs().amax(dim=-1)                        # ws.shape + (KVH,)
@@ -169,6 +183,12 @@ def _kv_append(pages, li, wp, ws, val):
     codes = torch.round(vf / snew[..., None]).clamp(-127, 127).to(torch.int8)
     pages.q[li][:, wpl, wsl, :] = codes.movedim(-2, 0)
     pages.s[li][:, wpl] = snew.movedim(-1, 0)
+
+
+def _kv_write(pages_li, wp, ws, val):
+    """fp pages: scatter ``val`` (``ws.shape + (KVH, D)``) into one layer's
+    (KVH, P, S, D) pages at (``wp``, ``ws``), in place."""
+    pages_li[:, wp.long(), ws.long(), :] = val.movedim(-2, 0)
 
 
 def _kv_layer(pages, li):
@@ -194,6 +214,159 @@ def _repeat_kv(t, g, dim):
 
 def _logits(x, params):
     return x.float() @ params["embed"].float().T
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel plan (ShardingConfig -> per-shard decode geometry)
+# ---------------------------------------------------------------------------
+#: the Megatron layout :func:`tp_plan` requires of the sharding rules: the
+#: gluon path of a layer leaf (what ShardingConfig.for_transformer's rules
+#: are written against) and the spec they must resolve it to
+_TP_LAYOUT = {
+    "wq": ("attention.qkv.weight", ("tp",)),
+    "wk": ("attention.qkv.weight", ("tp",)),
+    "wv": ("attention.qkv.weight", ("tp",)),
+    "bq": ("attention.qkv.bias", ("tp",)),
+    "w1": ("ffn.ffn1.weight", ("tp",)), "b1": ("ffn.ffn1.bias", ("tp",)),
+    "wo": ("attention.proj.weight", (None, "tp")),
+    "w2": ("ffn.ffn2.weight", (None, "tp")),
+}
+#: leaves split along their output rows (contiguous row slices)
+_TP_COLUMN = ("wq", "bq", "wk", "bk", "wv", "bv", "w1", "b1")
+#: leaves split along their input columns (copied to contiguous tensors)
+_TP_ROW = ("wo", "w2")
+
+
+def _all_reduce(parts):
+    """The all-reduce of a tensor-parallel layer: the sum of the shards'
+    partial products, in shard order (shard 0, then 1, ...), so results do
+    not depend on timing.  The port runs every shard on one card; a
+    ``torch.distributed`` backend would go here and nowhere else."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+class TPPlan:
+    """The tensor-parallel serving layout of one (cfg, ShardingConfig),
+    the port of the JAX package's ``TPPlan`` (``decoder.py:296-420``).
+    Built by :func:`tp_plan`.
+
+    ``local_cfg`` is a shard's geometry: heads, KV heads and FFN width
+    divided by tp; ``units`` and ``head_dim`` stay full, since activations
+    are replicated.  A mesh's ``dp`` axis does not multiply the work: in
+    the JAX program every dp lane computes the same thing, so the port
+    computes it once.  ``all_reduces`` counts the :func:`_all_reduce` calls
+    of the steps built with this plan (the engine's collective census)."""
+
+    def __init__(self, sharding, cfg):
+        self.tp = int(sharding.axis_size("tp"))
+        self.local_cfg = cfg._replace(
+            num_heads=cfg.num_heads // self.tp,
+            num_kv_heads=cfg.num_kv_heads // self.tp,
+            hidden_size=cfg.hidden_size // self.tp)
+        self.all_reduces = 0
+
+    def all_reduce(self, parts):
+        """:func:`_all_reduce`, counted."""
+        self.all_reduces += 1
+        return _all_reduce(parts)
+
+    def shard_params(self, params):
+        """The tp per-shard weight dicts ``[{"embed", "pos", "layers"}]``
+        of a full fp32 weight dict, built once (at engine init).  Column
+        shards (:data:`_TP_COLUMN`) are contiguous row slices of the full
+        tensors (views); row shards of ``wo``/``w2`` are contiguous copies
+        of column slices, as the phase kernels read them; ``bo``, ``b2``,
+        the LN affines and the embeddings are the full tensors, shared."""
+        if _quantized(params):
+            raise NotImplementedError(
+                "quantized tensor-parallel serving is not ported yet")
+        tp = self.tp
+        shards = [{"embed": params["embed"], "pos": params["pos"],
+                   "layers": []} for _ in range(tp)]
+        for lp in params["layers"]:
+            for r in range(tp):
+                d = dict(lp)
+                for k in _TP_COLUMN:
+                    d[k] = lp[k].chunk(tp, dim=0)[r]
+                for k in _TP_ROW:
+                    d[k] = lp[k].chunk(tp, dim=1)[r].contiguous()
+                shards[r]["layers"].append(d)
+        return shards
+
+    def kv_view(self, pages, li, r):
+        """Shard ``r``'s page slab of layer ``li``: its KV heads of the
+        engine's ``(L, KVH, total, S, D)`` pool, a contiguous view."""
+        n = self.local_cfg.num_kv_heads
+        return pages[li, r * n:(r + 1) * n]
+
+
+def tp_plan(cfg, sharding):
+    """A :class:`TPPlan` for ``cfg`` on ``sharding``, or None when the
+    engine serves replicated: no config, or a tp axis of size 1 or none.
+    When tp does not divide the heads, KV heads or FFN width, or the rules
+    do not give the Megatron column/row layout, it warns and returns None,
+    as the JAX package's ``tp_plan`` does (``decoder.py:439-466``)."""
+    if sharding is None:
+        return None
+    tp = int(sharding.axis_size("tp"))
+    if tp <= 1:
+        return None
+    bad = ["%s=%d" % (name, n) for name, n in (
+        ("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads),
+        ("hidden_size", cfg.hidden_size)) if n % tp]
+    if bad:
+        warnings.warn(
+            "decoder: tp=%d does not divide %s; serving REPLICATED (pick tp "
+            "dividing the head/FFN geometry)" % (tp, ", ".join(bad)),
+            stacklevel=2)
+        return None
+    shapes = DecoderLayer.shapes(cfg.units, cfg.hidden_size, cfg.num_heads,
+                                 cfg.num_kv_heads)
+    off = [k for k, (path, want) in _TP_LAYOUT.items()
+           if sharding.param_spec("layers.0." + path, shapes[k]) != want]
+    if off:
+        warnings.warn(
+            "decoder: sharding rules do not resolve the Megatron column/row "
+            "layout for %s (use ShardingConfig.for_transformer); serving "
+            "REPLICATED" % ", ".join(sorted(off)), stacklevel=2)
+        return None
+    return TPPlan(sharding, cfg)
+
+
+def _tp_inputs(params, k_pages, plan):
+    """The per-shard weights a TP step takes, checked, with fp pages."""
+    if not isinstance(params, (list, tuple)) or len(params) != plan.tp:
+        raise TypeError("a tensor-parallel step takes the %d per-shard weight "
+                        "dicts of TPPlan.shard_params, not %s"
+                        % (plan.tp, type(params).__name__))
+    if isinstance(k_pages, _paged.QPages):
+        raise NotImplementedError(
+            "quantized tensor-parallel serving is not ported yet")
+    return params
+
+
+def _ffn_part(x, lp):
+    """A shard's FFN partial product, per op: FFN1 on its column shard, the
+    bias_gelu kernel, FFN2 on its row shard with no bias."""
+    return F.linear(_epilogue.bias_gelu(F.linear(x, lp["w1"]), lp["b1"]),
+                    lp["w2"])
+
+
+def _layer_tail_tp(x, o_parts, lps, plan, ffn_part=_ffn_part):
+    """The row-parallel tail of a Megatron layer over the shards:
+    ``o_parts`` are the shards' out-projection partial products, ``lps``
+    their layer weights and ``ffn_part(x, lp)`` a shard's FFN partial.  The
+    partials are all-reduced and the replicated ``bo``/``b2`` added after
+    the sum, as the JAX package's ``_layer_tail(axis=)`` does
+    (``decoder.py:189-208``)."""
+    lp0 = lps[0]
+    x = _ln(x + (plan.all_reduce(o_parts) + lp0["bo"]), lp0["ln1g"],
+            lp0["ln1b"])
+    f = plan.all_reduce([ffn_part(x, lp) for lp in lps])
+    return _ln(x + (f + lp0["b2"]), lp0["ln2g"], lp0["ln2b"])
 
 
 # ---------------------------------------------------------------------------
@@ -238,11 +411,17 @@ def _step_inputs(params, cfg, S, tokens, positions, page_tables, active):
     return x, wp, ws, lengths
 
 
-def make_decode_step(cfg, page_size):
-    """The per-op batched decode step for (cfg, page_size).
+def make_decode_step(cfg, page_size, plan=None):
+    """The per-op batched decode step for (cfg, page_size), or with a
+    :class:`TPPlan` the tensor-parallel one: per layer, shard by shard, the
+    qkv over the shard's heads, the KV append into its slab and the
+    paged-attention kernel; then the row-parallel tail
+    (:func:`_layer_tail_tp`), as the JAX package's ``_build_decode_step``
+    (``decoder.py:527-568``).
 
     fn(params, k_pages, v_pages, tokens, positions, page_tables, active)
-      params:     fp or quantized weights (GEMMs through quant_matmul)
+      params:     fp or quantized weights (GEMMs through quant_matmul); with
+                  a plan, the fp per-shard list of ``plan.shard_params``
       k_pages/v_pages: (layers, KVH, total_pages, page_size, head_dim),
                        or QPages of that layout, updated in place
       tokens:     (B,) int — this step's input token per slot
@@ -253,6 +432,8 @@ def make_decode_step(cfg, page_size):
     -> (k_pages, v_pages, next_tokens (B,) int32, logits (B, vocab) f32)
     """
     S = int(page_size)
+    if plan is not None:
+        return _tp_decode_step(cfg, S, plan, fused=False)
 
     def step(params, k_pages, v_pages, tokens, positions, page_tables,
              active):
@@ -274,6 +455,53 @@ def make_decode_step(cfg, page_size):
     return step
 
 
+def _fused_ffn_part(x, lp):
+    """A shard's FFN partial product through the FFN phase kernel (#14)."""
+    return _fused.decode_ffn_phase(x, lp["w1"], lp["b1"], lp["w2"])
+
+
+def _tp_decode_step(cfg, S, plan, fused):
+    """The tensor-parallel decode step, per-op or through the phase
+    kernels (#13, #14)."""
+    lcfg = plan.local_cfg
+    Cl = lcfg.num_heads * cfg.head_dim
+
+    def attn_part(x, lp, kp, vp, wp, ws, page_tables, lengths):
+        """A shard's attention half, per op: its out-projection partial."""
+        q, k, v = _qkv(x, lp, lcfg)                     # (B, Hl/KVHl, D)
+        _kv_write(kp, wp[:, None], ws[:, None], k[:, None])
+        _kv_write(vp, wp[:, None], ws[:, None], v[:, None])
+        att = _paged.paged_attention(q.contiguous(), kp, vp, lengths,
+                                     page_tables)
+        return F.linear(att.reshape(x.shape[0], Cl), lp["wo"])
+
+    def step(params, k_pages, v_pages, tokens, positions, page_tables,
+             active):
+        shards = _tp_inputs(params, k_pages, plan)
+        x, wp, ws, lengths = _step_inputs(shards[0], cfg, S, tokens,
+                                          positions, page_tables, active)
+        meta = torch.stack([wp, ws])
+        for li in range(cfg.num_layers):
+            lps = [sh["layers"][li] for sh in shards]
+            o_parts = []
+            for r, lp in enumerate(lps):
+                kp = plan.kv_view(k_pages, li, r)
+                vp = plan.kv_view(v_pages, li, r)
+                if fused:
+                    o = _fused.decode_attn_phase(x, kp, vp, lp, meta,
+                                                 page_tables, lengths, lcfg)[2]
+                else:
+                    o = attn_part(x, lp, kp, vp, wp, ws, page_tables, lengths)
+                o_parts.append(o)
+            x = _layer_tail_tp(x, o_parts, lps, plan, ffn_part=(
+                _fused_ffn_part if fused else _ffn_part))
+        logits = _logits(x, shards[0])
+        return (k_pages, v_pages,
+                logits.argmax(dim=-1).to(torch.int32), logits)
+
+    return step
+
+
 def _group_bounds(num_layers, layer_group):
     """[(lo, hi), …] contiguous layer groups of size ≤ layer_group
     (0 / >=L collapses to one group — the default: ONE launch/step)."""
@@ -283,7 +511,7 @@ def _group_bounds(num_layers, layer_group):
             for lo in range(0, num_layers, g)]
 
 
-def make_decode_step_fused(cfg, page_size, layer_group=0):
+def make_decode_step_fused(cfg, page_size, layer_group=0, plan=None):
     """The persistent-kernel decode step: one
     ``fused_cell.decode_layer_group`` launch per layer group (default:
     all layers in one group).  Same signature and in-place page contract
@@ -292,10 +520,18 @@ def make_decode_step_fused(cfg, page_size, layer_group=0):
     group when the step first sees a weight set, so no weights are
     stacked or copied per step.
 
-    The kernel takes fp32 weights and fp32 pages only: quantized weights
+    With a :class:`TPPlan` (``layer_group`` is then not read), per layer:
+    one ``fused_cell.decode_attn_phase`` launch per shard, the all-reduce of
+    their partials + ``bo`` and the residual LN, one
+    ``fused_cell.decode_ffn_phase`` launch per shard, the all-reduce +
+    ``b2`` and the LN, as the JAX package's ``decoder.py:656-671``.
+
+    The kernels take fp32 weights and fp32 pages only: quantized weights
     or ``QPages`` raise ``ValueError`` (the engine serves them with the
     per-op step, as the JAX engine does)."""
     S = int(page_size)
+    if plan is not None:
+        return _tp_decode_step(cfg, S, plan, fused=True)
     groups = _group_bounds(cfg.num_layers, layer_group)
     seen = {}       # the last weight set's layer list -> its group tables
 
@@ -331,8 +567,11 @@ def make_decode_step_fused(cfg, page_size, layer_group=0):
     return step
 
 
-def make_prefill_chunk(cfg, page_size, chunk):
-    """Single-sequence chunk prefill for (cfg, page_size, chunk).
+def make_prefill_chunk(cfg, page_size, chunk, plan=None):
+    """Single-sequence chunk prefill for (cfg, page_size, chunk); with a
+    :class:`TPPlan` shard by shard per layer (the shard's heads and slab,
+    its FFN columns), with the row-parallel tail (:func:`_layer_tail_tp`),
+    as the JAX package's ``_build_prefill_chunk`` (``decoder.py:825-870``).
 
     fn(params, k_pages, v_pages, tokens, pos0, n_valid, page_row)
       tokens:  (chunk,) int — prompt slice, padded past n_valid
@@ -347,16 +586,34 @@ def make_prefill_chunk(cfg, page_size, chunk):
     QPages) under a causal mask."""
     S = int(page_size)
     P = int(chunk)
+    lcfg = plan.local_cfg if plan is not None else cfg
     g = cfg.num_heads // cfg.num_kv_heads
     scale = 1.0 / (cfg.head_dim ** 0.5)
 
+    def attend(q, kp_li, vp_li, page_row, causal):
+        """One layer's (or shard's) chunk attention over the sequence's
+        gathered pages: q (P, H, D) -> (P, H D)."""
+        kc = _gather_kv(kp_li, page_row[None])[0]
+        vc = _gather_kv(vp_li, page_row[None])[0]
+        kr = _repeat_kv(kc, g, 0).float()                # (H, ctx, D)
+        vr = _repeat_kv(vc, g, 0).float()
+        qf = q.float().transpose(0, 1) * scale           # (H, P, D)
+        # every query row sees key 0, so no row is fully masked
+        logits = (qf @ kr.transpose(1, 2)).masked_fill(
+            ~causal[None], float("-inf"))
+        att = torch.softmax(logits, dim=-1) @ vr         # (H, P, D)
+        return att.transpose(0, 1).reshape(P, q.shape[1] * q.shape[2])
+
     def prefill(params, k_pages, v_pages, tokens, pos0, n_valid, page_row):
+        if plan is not None:
+            params = _tp_inputs(params, k_pages, plan)
+        base = params[0] if plan is not None else params
         dev = page_row.device
         pps = page_row.shape[0]
         idx = int(pos0) + torch.arange(P, device=dev)
         valid = torch.arange(P, device=dev) < int(n_valid)
-        x = (params["embed"][tokens.long()]
-             + params["pos"][idx.clamp(0, cfg.max_length - 1)])
+        x = (base["embed"][tokens.long()]
+             + base["pos"][idx.clamp(0, cfg.max_length - 1)])
         # padded tokens of a last partial chunk may index past the page
         # row: clamp before the gather, then send them to the scratch page
         row = page_row.long()
@@ -364,23 +621,29 @@ def make_prefill_chunk(cfg, page_size, chunk):
         ws = torch.where(valid, idx % S, 0)
         ctx = torch.arange(pps * S, device=dev)
         causal = ctx[None, :] <= idx[:, None]            # key <= query pos
-        for li, lp in enumerate(params["layers"]):
-            q, k, v = _qkv(x, lp, cfg)                  # (P, H/KVH, D)
-            _kv_append(k_pages, li, wp, ws, k)
-            _kv_append(v_pages, li, wp, ws, v)
-            kc = _gather_kv(_kv_layer(k_pages, li), page_row[None])[0]
-            vc = _gather_kv(_kv_layer(v_pages, li), page_row[None])[0]
-            kr = _repeat_kv(kc, g, 0).float()            # (H, ctx, D)
-            vr = _repeat_kv(vc, g, 0).float()
-            qf = q.float().transpose(0, 1) * scale       # (H, P, D)
-            # every query row sees key 0, so no row is fully masked
-            logits = (qf @ kr.transpose(1, 2)).masked_fill(
-                ~causal[None], float("-inf"))
-            att = torch.softmax(logits, dim=-1) @ vr     # (H, P, D)
-            merged = att.transpose(0, 1).reshape(P, cfg.units).to(x.dtype)
-            x = _layer_tail(x, merged, lp)
+        for li in range(cfg.num_layers):
+            if plan is None:
+                lp = params["layers"][li]
+                q, k, v = _qkv(x, lp, cfg)              # (P, H/KVH, D)
+                _kv_append(k_pages, li, wp, ws, k)
+                _kv_append(v_pages, li, wp, ws, v)
+                merged = attend(q, _kv_layer(k_pages, li),
+                                _kv_layer(v_pages, li), page_row, causal)
+                x = _layer_tail(x, merged.to(x.dtype), lp)
+                continue
+            lps = [sh["layers"][li] for sh in params]
+            o_parts = []
+            for r, lp in enumerate(lps):
+                q, k, v = _qkv(x, lp, lcfg)             # (P, Hl/KVHl, D)
+                kp, vp = (plan.kv_view(k_pages, li, r),
+                          plan.kv_view(v_pages, li, r))
+                _kv_write(kp, wp, ws, k)
+                _kv_write(vp, wp, ws, v)
+                o_parts.append(F.linear(attend(q, kp, vp, page_row, causal),
+                                        lp["wo"]))
+            x = _layer_tail_tp(x, o_parts, lps, plan)
         last = x[min(max(int(n_valid) - 1, 0), P - 1)]
-        last_logits = _logits(last, params)
+        last_logits = _logits(last, base)
         return (k_pages, v_pages,
                 last_logits.argmax().to(torch.int32), last_logits)
 
@@ -401,17 +664,22 @@ class DecoderLayer(nn.Module):
 
     def __init__(self, units, hidden_size, num_heads, num_kv_heads, device):
         super().__init__()
-        kvu = num_kv_heads * (units // num_heads)
-        shapes = {"wq": (units, units), "bq": (units,),
-                  "wk": (kvu, units), "bk": (kvu,),
-                  "wv": (kvu, units), "bv": (kvu,),
-                  "wo": (units, units), "bo": (units,),
-                  "w1": (hidden_size, units), "b1": (hidden_size,),
-                  "w2": (units, hidden_size), "b2": (units,),
-                  "ln1g": (units,), "ln1b": (units,),
-                  "ln2g": (units,), "ln2b": (units,)}
+        shapes = self.shapes(units, hidden_size, num_heads, num_kv_heads)
         for name in LAYER_KEYS:
             setattr(self, name, _frozen(shapes[name], device))
+
+    @staticmethod
+    def shapes(units, hidden_size, num_heads, num_kv_heads):
+        """``{leaf: shape}`` of one layer's weights."""
+        kvu = num_kv_heads * (units // num_heads)
+        return {"wq": (units, units), "bq": (units,),
+                "wk": (kvu, units), "bk": (kvu,),
+                "wv": (kvu, units), "bv": (kvu,),
+                "wo": (units, units), "bo": (units,),
+                "w1": (hidden_size, units), "b1": (hidden_size,),
+                "w2": (units, hidden_size), "b2": (units,),
+                "ln1g": (units,), "ln1b": (units,),
+                "ln2g": (units,), "ln2b": (units,)}
 
 
 class CausalLM(nn.Module):

@@ -11,12 +11,19 @@
   mask or Lq != Lk goes to :func:`attention_reference`, as in the JAX
   package.  That is a rule about features: a kernel that fails on the
   card raises;
+- :func:`flash_attention_sharded` — attention over a (dp, tp) mesh
+  (``attention.py:315-396``): batch over dp, heads over tp, each shard in
+  turn on the one card; a plain causal shard goes to the flash forward
+  kernel with ``causal=True`` where the JAX package takes the TPU's splash
+  kernel;
 - :func:`sldwin_atten` — sliding-window attention (``attention.py:431``).
 
 ``last_path`` names the route of the last :func:`flash_attention` call:
 ``"kernel"`` (CUDA), ``"plain"`` (the kernels' plain version, CPU) or
-``"reference"``.  The mesh-sharded and splash routes of the JAX module
-are not ported (ROADMAP Queue 1, splash attention on a mesh).
+``"reference"``, and ``"flash-causal-shard"`` after a
+:func:`flash_attention_sharded` call whose shards took the causal route
+(counted in ``flash_attention_sharded.causal_shards``).  The ring route
+over a sequence-parallel axis waits for ``parallel.ring_attention``.
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ import torch
 from .kernels import flash_attention as _flash
 from .nn import _amp_cast1
 
-__all__ = ["attention_reference", "flash_attention", "sldwin_atten"]
+__all__ = ["attention_reference", "flash_attention", "flash_attention_sharded",
+           "sldwin_atten"]
 
 #: the route of the last :func:`flash_attention` call
 last_path = None
@@ -103,6 +111,99 @@ def flash_attention(q, k, v, mask=None, causal=False, window=None,
     return attention_reference(q, k, v, mask=mask, causal=causal,
                                window=window, scale=scale, dropout=dropout,
                                generator=generator, kv_length=kv_length)
+
+
+def _fold_in(seed, idx):
+    """A uint32 seed mixed with a shard index: murmur3's 32-bit finaliser
+    of ``seed ^ (idx + 1) * 0x9E3779B9``, on a Python int or an int64
+    tensor alike.  It stands where the JAX package
+    calls ``jax.random.fold_in`` (threefry), whose bits it does not
+    reproduce: shards draw different masks, the same for the same seed.
+    Each product is taken in 16-bit halves, so an int64 tensor never
+    overflows."""
+    m = 0xFFFFFFFF
+
+    def mul32(a, c):        # a * c mod 2**32 with no product past 2**49
+        return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & m
+
+    h = (seed ^ mul32(idx + 1, 0x9E3779B9)) & m
+    h = mul32(h ^ (h >> 16), 0x85EBCA6B)
+    h = mul32(h ^ (h >> 13), 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def flash_attention_sharded(q, k, v, cfg, causal=False, window=None,
+                            scale=None, dropout=0.0, seed=None,
+                            generator=None, kv_length=None):
+    """Attention over the (dp, tp) mesh of ``cfg`` (a
+    ``parallel.ShardingConfig``): q, k, v (B, H, L, D) -> (B, H, L, D),
+    batch split over dp and heads over tp, as the JAX package's
+    ``flash_attention_sharded`` (``attention.py:315-396``) lays them out.
+    The port runs on one card, so the shards run there in turn and their
+    outputs are concatenated; autograd flows through each shard's flash
+    kernels.
+
+    - A plain causal shard (no window, dropout or ``kv_length``) goes to
+      the flash forward kernel with ``causal=True``, the scale folded into
+      q in q's dtype, where the JAX package takes the TPU's splash kernel
+      (``_splash_causal``, ``attention.py:302``).
+    - Any other shard takes :func:`flash_attention` with its slice of
+      ``kv_length``.
+    - Under dropout each shard's seed is ``seed`` (or one drawn from
+      ``generator``) mixed with the linear shard index ``d * tp + t`` by
+      :func:`_fold_in`, so shards draw different masks.
+
+    B must divide by dp and H by tp.  A sequence-parallel axis (sp > 1)
+    raises NotImplementedError: its ring route is not ported yet."""
+    global last_path
+    if cfg.axis_size("sp") > 1:
+        raise NotImplementedError(
+            "flash_attention_sharded: sp > 1 takes the ring route, and "
+            "parallel.ring_attention is not ported yet")
+    B, H = q.shape[:2]
+    dp, tp = cfg.axis_size("dp"), cfg.axis_size("tp")
+    if B % dp or H % tp:
+        raise ValueError("flash_attention_sharded: batch %d must divide by "
+                         "dp=%d and heads %d by tp=%d" % (B, dp, H, tp))
+    if dropout and seed is None:
+        seed = torch.randint(0, 2 ** 32, (1,), dtype=torch.int64,
+                             device=q.device, generator=generator)
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(1).to(device=q.device, dtype=torch.int64)
+    if kv_length is not None:
+        kv_length = torch.as_tensor(kv_length, device=q.device).reshape(B)
+    plain_causal = causal and not (window is not None or dropout
+                                   or kv_length is not None)
+    Bl, Hl = B // dp, H // tp
+    rows = []
+    for d in range(dp):
+        b = slice(d * Bl, (d + 1) * Bl)
+        heads = []
+        for t in range(tp):
+            h = slice(t * Hl, (t + 1) * Hl)
+            qs, ks, vs = q[b, h], k[b, h], v[b, h]
+            if plain_causal:
+                qs = _amp_cast1("flash_attention", qs)
+                ks = _amp_cast1("flash_attention", ks)
+                vs = _amp_cast1("flash_attention", vs)
+                s = scale if scale is not None else 1.0 / math.sqrt(
+                    q.shape[-1])
+                heads.append(_flash.flash_attention(
+                    (qs * s).to(qs.dtype), ks, vs, causal=True, scale=1.0))
+                flash_attention_sharded.causal_shards += 1
+                continue
+            heads.append(flash_attention(
+                qs, ks, vs, causal=causal, window=window, scale=scale,
+                dropout=dropout,
+                seed=_fold_in(seed, d * tp + t) if dropout else None,
+                kv_length=None if kv_length is None else kv_length[b]))
+        rows.append(torch.cat(heads, dim=1))
+    if plain_causal:
+        last_path = "flash-causal-shard"
+    return torch.cat(rows, dim=0)
+
+
+flash_attention_sharded.causal_shards = 0
 
 
 def sldwin_atten(q, k, v, window, symmetric=True):

@@ -6,6 +6,9 @@
   forward and backward, over the hash mask of ``dropout_hash``
 - ``paged_attention.paged_attention`` — CUDA (``csrc/paged_attention.cu``)
 - ``fused_cell.decode_layer_group``   — CUDA (``csrc/fused_decode.cu``)
+- ``fused_cell.decode_attn_phase`` and ``fused_cell.decode_ffn_phase`` —
+  CUDA (``csrc/decode_phase.cu``), one tensor-parallel shard of a decode
+  layer's attention and FFN halves
 - ``fused_cell.lstm_sequence``        — CUDA (``csrc/lstm.cu``), the LSTM
   time loop forward and backward
 - ``quant_matmul.quant_matmul``       — CUDA (``csrc/quant_matmul.cu``),

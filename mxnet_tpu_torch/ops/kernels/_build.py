@@ -28,8 +28,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 #: one shared library per kernel source
-SOURCES = ("paged_attention", "fused_decode", "quant_matmul", "epilogue",
-           "flash_attention", "lstm")
+SOURCES = ("paged_attention", "fused_decode", "decode_phase", "quant_matmul",
+           "epilogue", "flash_attention", "lstm")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,6 +1,5 @@
 """Persistent fused-cell kernels: the port of
-``mxnet_tpu/ops/pallas/fused_cell.py`` (its tensor-parallel decode phase
-kernels are not ported yet).
+``mxnet_tpu/ops/pallas/fused_cell.py``.
 
 - :func:`lstm_sequence` -- RNN training.  One kernel launch runs the
   whole LSTM time loop of one layer (``csrc/lstm.cu``, replacing
@@ -18,14 +17,25 @@ kernels are not ported yet).
   residual and post-LN.  The page pools are updated in place, which
   replaces the JAX kernel's ``input_output_aliases`` and the engine's
   buffer donation.
+- :func:`decode_attn_phase` and :func:`decode_ffn_phase` -- LLM decode
+  under tensor parallelism.  The layer-group fusion splits at the two
+  all-reduces of a Megatron layer: for one shard of one layer, one launch
+  runs the q/k/v projections over the shard's heads, the KV append into
+  the shard's page slab and paged attention, and the out-projection's
+  partial product (no bias); another runs FFN1 on the column shard with
+  its bias and erf GELU, and FFN2's partial product (no bias).  The
+  caller sums the shards' partials (``models.decoder._all_reduce``) and
+  adds the bias and the residual LayerNorm.
 
-A CUDA tensor launches the cooperative kernels of ``csrc/lstm.cu`` and
-``csrc/fused_decode.cu``, whose notes say what bounds them on the card and
-how their design answers; a CPU tensor runs the plain PyTorch versions
-(:func:`lstm_sequence_plain`, :func:`lstm_sequence_backward_plain`,
-:func:`decode_layer_group_plain`).  Launches are counted in
-``lstm_sequence.launches_fwd``/``.launches_bwd`` and
-``decode_layer_group.launches``.
+A CUDA tensor launches the cooperative kernels of ``csrc/lstm.cu``,
+``csrc/fused_decode.cu`` and ``csrc/decode_phase.cu``, whose notes say
+what bounds them on the card and how their design answers; a CPU tensor
+runs the plain PyTorch versions (:func:`lstm_sequence_plain`,
+:func:`lstm_sequence_backward_plain`, :func:`decode_layer_group_plain`,
+:func:`decode_attn_phase_plain`, :func:`decode_ffn_phase_plain`).
+Launches are counted in ``lstm_sequence.launches_fwd``/``.launches_bwd``,
+``decode_layer_group.launches``, ``decode_attn_phase.launches`` and
+``decode_ffn_phase.launches``.
 """
 from __future__ import annotations
 
@@ -42,7 +52,9 @@ from .paged_attention import paged_attention_reference
 __all__ = ["lstm_sequence", "lstm_sequence_plain",
            "lstm_sequence_backward_plain", "lstm_plan",
            "decode_layer_group", "decode_layer_group_plain", "WeightTable",
-           "WEIGHT_ORDER", "PHASES", "grid_blocks", "phase_times"]
+           "WEIGHT_ORDER", "PHASES", "grid_blocks", "phase_times",
+           "decode_attn_phase", "decode_attn_phase_plain", "decode_ffn_phase",
+           "decode_ffn_phase_plain", "phase_grid_blocks"]
 
 #: the kernel's phases per layer, separated by grid-wide barriers
 PHASES = ("qkv", "append+attention", "out_proj", "residual+ln1",
@@ -223,6 +235,176 @@ def _launch(x, kp, vp, layers, meta, page_tables, lengths, cfg, stamps):
 
 
 decode_layer_group.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel decode phases (kernels #13 and #14)
+# ---------------------------------------------------------------------------
+def decode_attn_phase_plain(x, kp, vp, lp, meta, page_tables, lengths, cfg):
+    """Plain version of :func:`decode_attn_phase`: the same arguments, the
+    same in-place page update, per-op PyTorch math in fp32."""
+    B = x.shape[0]
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    wp, ws = meta[0].long(), meta[1].long()
+    x = x.float()
+    q = F.linear(x, lp["wq"], lp["bq"]).reshape(B, H, D)
+    k = F.linear(x, lp["wk"], lp["bk"]).reshape(B, KVH, D)
+    v = F.linear(x, lp["wv"], lp["bv"]).reshape(B, KVH, D)
+    kp[:, wp, ws, :] = k.transpose(0, 1)                # (KVH, B, D)
+    vp[:, wp, ws, :] = v.transpose(0, 1)
+    att = paged_attention_reference(q, kp, vp, lengths.reshape(B),
+                                    page_tables)
+    return kp, vp, F.linear(att.reshape(B, H * D), lp["wo"])
+
+
+def decode_ffn_phase_plain(x, w1, b1, w2):
+    """Plain version of :func:`decode_ffn_phase`, in fp32."""
+    return F.linear(bias_gelu_plain(F.linear(x.float(), w1), b1), w2)
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_lib():
+    """The loaded ``decode_phase`` library with its entry points typed."""
+    lib = _build.load("decode_phase")
+    lib.mxt_decode_attn_phase.argtypes = ([_P] * 15 + [_I] * 8
+                                          + [ctypes.c_float, _P])
+    lib.mxt_decode_attn_phase.restype = _I
+    lib.mxt_decode_ffn_phase.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+    lib.mxt_decode_ffn_phase.restype = _I
+    lib.mxt_decode_phase_scratch.argtypes = [_I] * 5
+    lib.mxt_decode_phase_scratch.restype = ctypes.c_longlong
+    lib.mxt_decode_phase_grid.argtypes = [_I, _I, ctypes.POINTER(_I),
+                                          ctypes.POINTER(_I)]
+    lib.mxt_decode_phase_grid.restype = _I
+    return lib
+
+
+def phase_grid_blocks(cfg):
+    """Thread blocks of the attention and the FFN phase kernels on the
+    current card, for a shard's (local) config."""
+    lib = _phase_lib()
+    a, f = _I(0), _I(0)
+    _build.check(lib, lib.mxt_decode_phase_grid(
+        cfg.num_heads // cfg.num_kv_heads, cfg.head_dim, ctypes.byref(a),
+        ctypes.byref(f)), "decode phase grid")
+    return a.value, f.value
+
+
+def _phase_check(what, dev, tensors):
+    """Each of ``(name, tensor, dtype, shape)`` must be a contiguous,
+    16-byte aligned tensor of that dtype and shape on ``dev``."""
+    for name, t, dt, shape in tensors:
+        if (t.dtype != dt or t.device != dev or not t.is_contiguous()
+                or tuple(t.shape) != tuple(shape) or t.data_ptr() % 16):
+            raise ValueError("%s: %s must be a contiguous, 16-byte aligned %s "
+                             "tensor of shape %s on %s (got %s %s on %s)"
+                             % (what, name, dt, tuple(shape), dev, t.dtype,
+                                tuple(t.shape), t.device))
+
+
+def decode_attn_phase(x, kp, vp, lp, meta, page_tables, lengths, cfg):
+    """The attention half of one tensor-parallel shard of a decode layer,
+    as ONE kernel launch.
+
+    x:           (B, C) fp32 activations, C the FULL model width
+    kp/vp:       (KVH_local, P, S, D) this layer's page slab of the shard
+                 (a view of the engine's pools), updated in place
+    lp:          the shard's layer weights: ``wq`` (H_local D, C), ``bq``,
+                 ``wk``/``wv`` (KVH_local D, C), ``bk``/``bv`` and ``wo``'s
+                 row shard (C, H_local D), contiguous
+    meta:        (2, B) int32 -- rows: write page, write slot
+    page_tables: (B, pages_per_seq) int32
+    lengths:     (B,) or (B, 1) int32 valid context lengths (0 = inactive)
+    cfg:         the shard's (local) DecoderConfig
+
+    Returns (kp, vp, o_part): the pages passed in and the shard's
+    out-projection partial product (B, C) fp32, with no bias.  A CPU tensor
+    takes :func:`decode_attn_phase_plain`; a CUDA tensor launches kernel #13
+    (counted in ``decode_attn_phase.launches``) or raises."""
+    if x.device.type == "cpu":
+        return decode_attn_phase_plain(x, kp, vp, lp, meta, page_tables,
+                                       lengths, cfg)
+    if x.device.type != "cuda":
+        raise ValueError("decode_attn_phase: unsupported device %s"
+                         % x.device)
+    dev = x.device
+    B, C = x.shape
+    KVH, P, S, D = kp.shape
+    H = cfg.num_heads
+    pps = page_tables.shape[-1]
+    lengths = lengths.reshape(B)
+    if (KVH != cfg.num_kv_heads or D != cfg.head_dim or H % KVH
+            or C % 4 or D % 4):
+        raise ValueError("decode_attn_phase: pages %s do not match the "
+                         "shard's config (%d heads, %d KV heads, head dim "
+                         "%d), or C or D is not a multiple of 4"
+                         % (tuple(kp.shape), H, cfg.num_kv_heads,
+                            cfg.head_dim))
+    Cl, KVC = H * D, KVH * D
+    f32, i32 = torch.float32, torch.int32
+    _phase_check("decode_attn_phase", dev, [
+        ("x", x, f32, (B, C)), ("kp", kp, f32, kp.shape),
+        ("vp", vp, f32, kp.shape), ("wq", lp["wq"], f32, (Cl, C)),
+        ("bq", lp["bq"], f32, (Cl,)), ("wk", lp["wk"], f32, (KVC, C)),
+        ("bk", lp["bk"], f32, (KVC,)), ("wv", lp["wv"], f32, (KVC, C)),
+        ("bv", lp["bv"], f32, (KVC,)), ("wo", lp["wo"], f32, (C, Cl)),
+        ("meta", meta, i32, (2, B)), ("page_tables", page_tables, i32,
+                                      (B, pps)),
+        ("lengths", lengths, i32, (B,))])
+    lib = _phase_lib()
+    scratch = torch.empty(lib.mxt_decode_phase_scratch(0, B, C, Cl, KVC),
+                          dtype=f32, device=dev)
+    out = torch.empty(B, C, dtype=f32, device=dev)
+    rc = lib.mxt_decode_attn_phase(
+        x.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+        *(lp[k].data_ptr() for k in ("wq", "bq", "wk", "bk", "wv", "bv",
+                                     "wo")),
+        meta.data_ptr(), page_tables.data_ptr(), lengths.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), B, C, H, KVH, D, P, S, pps,
+        1.0 / (D ** 0.5), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "decode_attn_phase")
+    decode_attn_phase.launches += 1
+    return kp, vp, out
+
+
+decode_attn_phase.launches = 0
+
+
+def decode_ffn_phase(x, w1, b1, w2):
+    """The FFN half of one tensor-parallel shard of a decode layer, as ONE
+    kernel launch: ``gelu_erf(x @ w1.T + b1) @ w2.T``, the partial product
+    (B, C) fp32 with no bias.  x (B, C); w1 the column shard (F_local, C),
+    b1 (F_local,); w2 the row shard (C, F_local), contiguous.  A CPU tensor
+    takes :func:`decode_ffn_phase_plain`; a CUDA tensor launches kernel #14
+    (counted in ``decode_ffn_phase.launches``) or raises."""
+    if x.device.type == "cpu":
+        return decode_ffn_phase_plain(x, w1, b1, w2)
+    if x.device.type != "cuda":
+        raise ValueError("decode_ffn_phase: unsupported device %s" % x.device)
+    dev = x.device
+    B, C = x.shape
+    Fl = w1.shape[0]
+    if C % 4 or Fl % 4:
+        raise ValueError("decode_ffn_phase: C %d and the shard's FFN width %d "
+                         "must be multiples of 4" % (C, Fl))
+    f32 = torch.float32
+    _phase_check("decode_ffn_phase", dev, [
+        ("x", x, f32, (B, C)), ("w1", w1, f32, (Fl, C)),
+        ("b1", b1, f32, (Fl,)), ("w2", w2, f32, (C, Fl))])
+    lib = _phase_lib()
+    scratch = torch.empty(lib.mxt_decode_phase_scratch(1, B, C, Fl, 0),
+                          dtype=f32, device=dev)
+    out = torch.empty(B, C, dtype=f32, device=dev)
+    rc = lib.mxt_decode_ffn_phase(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), B, C, Fl,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "decode_ffn_phase")
+    decode_ffn_phase.launches += 1
+    return out
+
+
+decode_ffn_phase.launches = 0
 
 
 # ---------------------------------------------------------------------------

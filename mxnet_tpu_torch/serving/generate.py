@@ -25,6 +25,16 @@ The port of ``mxnet_tpu/serving/generate.py``'s synchronous core:
   codes with one scale per (layer, KV head, page), read by the int8-page
   paged-attention kernel.  Either one takes the per-op decode step: the
   fused kernel is fp-only, as in the JAX engine.
+- **Tensor-parallel serving** — ``sharding=`` a ``parallel.ShardingConfig``
+  with a ``tp`` axis (``ShardingConfig.for_transformer(mesh_shape=(1, 2),
+  axis_names=("dp", "tp"))``) splits every layer Megatron-style over tp
+  shards (``models.decoder.TPPlan``): the fused step runs the attention
+  and FFN phase kernels per layer per shard, the per-op step the
+  paged-attention kernel per shard, and the shards' partial products are
+  summed by ``models.decoder._all_reduce``.  The port runs on one card, so
+  the shards run there in turn.  A geometry tp does not divide serves
+  replicated, with a warning, as in the JAX engine.  Quantized weights or
+  int8 KV pages under ``sharding=`` are not ported yet and raise.
 
 The KV page pools are tensors on the engine's device, updated in place by
 every step (the JAX engine donates them to each jitted step instead).
@@ -35,8 +45,8 @@ Not ported yet, and refused with ``NotImplementedError`` when asked for:
 the async decode pipeline (``async_decode``/``MXNET_GEN_ASYNC``),
 decode sessions and migration (``session=``, ``migrate``, ``pagestore``),
 the prefix cache (``prefix_cache``/``MXNET_GEN_PREFIX_CACHE``),
-speculative decoding, tensor parallelism (``sharding``) and role
-specialization.
+speculative decoding, role specialization, and quantized serving under
+tensor parallelism.
 
 Admission control mirrors the JAX engine: a bounded queue sheds with
 ``QueueFullError``, draining rejects with ``ServerClosedError``,
@@ -60,6 +70,7 @@ from .. import config as _config
 from .. import context, faults
 from ..models import decoder as _decoder
 from ..ops.kernels import paged_attention as _paged
+from ..parallel.shardcfg import ShardingConfig
 from .autoscale import SLOPolicy
 from .errors import (BadRequestError, DeadlineExceededError, QueueFullError,
                      ServerClosedError, ServingError)
@@ -125,7 +136,7 @@ def _not_ported(what):
 
 def _refuse_unported(prefix_cache, async_decode, dispatch_ahead, role,
                      migrate, pagestore, speculate, spec_k, drafter,
-                     draft_model, sharding):
+                     draft_model):
     """Raise NotImplementedError for every feature of the JAX engine that
     the port lacks and the caller (or the environment) asks for."""
     asks = [
@@ -145,8 +156,6 @@ def _refuse_unported(prefix_cache, async_decode, dispatch_ahead, role,
         os.environ.get("MXNET_GEN_ROLE") or "mixed")
     if str(r) != "mixed":
         _not_ported("role=%r (prefill/decode specialization)" % (r,))
-    if sharding is not None:
-        _not_ported("tensor-parallel serving (sharding=)")
 
 
 def _decode_fused():
@@ -174,15 +183,21 @@ def _check_quant_matmul_lane():
                          "version); leave it unset" % flag)
 
 
-def _kernels_per_layer(quant, kv_dtype):
+def _kernels_per_layer(quant, kv_dtype, tp):
     """Kernel launches per layer of one per-op decode step and of one
-    prefill chunk."""
+    prefill chunk (each of the tp shards launches its own)."""
     decode = {"paged_attention_int8" if kv_dtype == "int8"
-              else "paged_attention": 1, "bias_gelu": 1}
-    prefill = {"bias_gelu": 1}
+              else "paged_attention": tp, "bias_gelu": tp}
+    prefill = {"bias_gelu": tp}
     if quant is not None:
         decode["quant_matmul"] = prefill["quant_matmul"] = 6
     return decode, prefill
+
+
+#: the collective classes of the JAX package's census
+#: (``parallel/shardcfg.py:851``)
+_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter",
+                "collective-permute", "all-to-all")
 
 
 class DecodeEngine:
@@ -212,6 +227,12 @@ class DecodeEngine:
     ``MXNET_DECODE_FUSED`` picks the decode step and
     ``MXNET_DECODE_LAYER_GROUP`` the layers per fused launch; the kernel
     launches one step makes land in ``stats()["launches"]``.
+
+    ``sharding`` (a ``parallel.ShardingConfig``) with a ``tp`` axis serves
+    tensor-parallel (``models.decoder.TPPlan``); ``stats()["sharding"]``
+    and the metrics then carry the mesh, tp and the collectives of one
+    decode step, counted on a step run at construction with every slot
+    inactive.
     """
 
     def __init__(self, model, *, name="llm", slots=None, page_size=None,
@@ -224,7 +245,11 @@ class DecodeEngine:
                  quantize=None, quant_group=None, kv_dtype=None):
         _refuse_unported(prefix_cache, async_decode, dispatch_ahead, role,
                          migrate, pagestore, speculate, spec_k, drafter,
-                         draft_model, sharding)
+                         draft_model)
+        if sharding is not None and not isinstance(sharding, ShardingConfig):
+            raise TypeError("sharding must be a mxnet_tpu_torch.parallel."
+                            "ShardingConfig, got %s"
+                            % type(sharding).__name__)
         _check_quant_matmul_lane()
         # weights and KV pages quantize independently; a QuantizedLM
         # passed in keeps its own format
@@ -252,7 +277,21 @@ class DecodeEngine:
         self.model = model
         self.name = name
         self.cfg = model.config
+        # tensor parallelism: the plan comes before any program; a geometry
+        # tp does not divide resolves to None (tp_plan warns) and serves
+        # replicated
+        self._tp_plan = _decoder.tp_plan(self.cfg, sharding)
+        if self._tp_plan is not None and (self.quant is not None
+                                          or self.kv_dtype == "int8"):
+            raise NotImplementedError(
+                "quantized tensor-parallel serving is not ported yet "
+                "(weights %r, kv_dtype %s under sharding=%s)"
+                % (self.quant, self.kv_dtype, sharding.describe()))
+        self.sharding = sharding if self._tp_plan is not None else None
+        self.tp = self._tp_plan.tp if self._tp_plan is not None else 1
         self.params = model.params()
+        if self._tp_plan is not None:
+            self.params = self._tp_plan.shard_params(self.params)
         self.slots = int(slots if slots is not None
                          else _config.get("MXNET_GEN_SLOTS"))
         self.page_size = int(page_size if page_size is not None
@@ -297,18 +336,26 @@ class DecodeEngine:
         self.layer_group = (int(_config.get("MXNET_DECODE_LAYER_GROUP"))
                             or cfg.num_layers)
         L = cfg.num_layers
-        decode_k, prefill_k = _kernels_per_layer(self.quant, self.kv_dtype)
+        plan = self._tp_plan
+        decode_k, prefill_k = _kernels_per_layer(self.quant, self.kv_dtype,
+                                                 self.tp)
         if self.decode_fused:
             self._decode_fn = _decoder.make_decode_step_fused(
-                cfg, self.page_size, self.layer_group)
-            groups = len(_decoder._group_bounds(L, self.layer_group))
-            per_step = {"decode_layer_group": groups}
+                cfg, self.page_size, self.layer_group, plan=plan)
+            if plan is None:
+                groups = len(_decoder._group_bounds(L, self.layer_group))
+                per_step = {"decode_layer_group": groups}
+            else:
+                groups = L
+                per_step = {"decode_attn_phase": L * self.tp,
+                            "decode_ffn_phase": L * self.tp}
         else:
-            self._decode_fn = _decoder.make_decode_step(cfg, self.page_size)
+            self._decode_fn = _decoder.make_decode_step(cfg, self.page_size,
+                                                        plan=plan)
             groups = L
             per_step = {k: n * L for k, n in decode_k.items()}
         self._prefill_fn = _decoder.make_prefill_chunk(
-            cfg, self.page_size, self.prefill_chunk)
+            cfg, self.page_size, self.prefill_chunk, plan=plan)
         # kernel launches of one decode step and of one prefill chunk (on
         # the CPU the same calls run the plain versions)
         self.launch_stats = {"fused": self.decode_fused,
@@ -318,6 +365,11 @@ class DecodeEngine:
                              "prefill_chunk_kernels": {
                                  k: n * L for k, n in prefill_k.items()}}
         self.metrics.observe_decode_launches(self.name, self.launch_stats)
+        self.collective_stats = None
+        if plan is not None:
+            self.collective_stats = self._count_collectives()
+            self.metrics.observe_decode_collectives(self.name,
+                                                    self.collective_stats)
 
         self._slots = [_Slot(i) for i in range(self.slots)]
         self._queue = collections.deque()
@@ -752,6 +804,25 @@ class DecodeEngine:
 
     # -- lifecycle / stats ------------------------------------------------
     @torch.no_grad()
+    def _count_collectives(self):
+        """The collective census of one tensor-parallel decode step: the
+        ``_all_reduce`` calls of a step run with every slot inactive (it
+        writes only the scratch page), counted by the plan."""
+        dev, plan = self.device, self._tp_plan
+        before = plan.all_reduces
+        zeros = torch.zeros(self.slots, dtype=torch.int64, device=dev)
+        self._decode_fn(
+            self.params, self._kp, self._vp, zeros, zeros,
+            torch.zeros((self.slots, self.pages_per_seq), dtype=torch.int32,
+                        device=dev),
+            torch.zeros(self.slots, dtype=torch.bool, device=dev))
+        counts = dict.fromkeys(_COLLECTIVES, 0)
+        counts["all-reduce"] = plan.all_reduces - before
+        counts["total"] = sum(counts.values())
+        return {"mesh": self.sharding.describe(), "tp": self.tp,
+                "fused": self.decode_fused, "collectives": counts}
+
+    @torch.no_grad()
     def warmup(self):
         """Run the prefill and decode programs once on dummy inputs that
         touch only the scratch page, so that the kernels are built before
@@ -816,21 +887,26 @@ class DecodeEngine:
         with self._cond:
             active = sum(1 for s in self._slots if s.active)
             queued = len(self._queue)
-        return {"slots": self.slots, "active": active, "queued": queued,
-                "steps": self.steps, "device": str(self.device),
-                "page_size": self.page_size,
-                "pages_per_seq": self.pages_per_seq,
-                "prefill_chunk": self.prefill_chunk,
-                "max_ctx": self.max_ctx,
-                "slo": {"service_rate": self.slo.service_rate(),
-                        "default_tier": self.slo.default_tier},
-                "kv": self.alloc.stats(),
-                "quant": {
-                    "weights": self.quant[0] if self.quant else None,
-                    "group": (self.quant[1] if self.quant
-                              and len(self.quant) > 1 else None),
-                    "kv_dtype": self.kv_dtype,
-                    "tokens_resident": self._tokens_resident(),
-                },
-                "decode_fused": self.decode_fused,
-                "launches": dict(self.launch_stats)}
+        out = {"slots": self.slots, "active": active, "queued": queued,
+               "steps": self.steps, "device": str(self.device),
+               "page_size": self.page_size,
+               "pages_per_seq": self.pages_per_seq,
+               "prefill_chunk": self.prefill_chunk,
+               "max_ctx": self.max_ctx,
+               "slo": {"service_rate": self.slo.service_rate(),
+                       "default_tier": self.slo.default_tier},
+               "kv": self.alloc.stats(),
+               "quant": {
+                   "weights": self.quant[0] if self.quant else None,
+                   "group": (self.quant[1] if self.quant
+                             and len(self.quant) > 1 else None),
+                   "kv_dtype": self.kv_dtype,
+                   "tokens_resident": self._tokens_resident(),
+               },
+               "decode_fused": self.decode_fused,
+               "launches": dict(self.launch_stats)}
+        if self.sharding is not None:
+            out["sharding"] = {
+                "mesh": self.sharding.describe(), "tp": self.tp,
+                "collectives": dict(self.collective_stats["collectives"])}
+        return out

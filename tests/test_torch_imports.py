@@ -1,6 +1,6 @@
 """The port stands alone: importing ``mxnet_tpu_torch`` and every module of
-its serving, training and RNN slices loads neither ``jax`` nor any
-``mxnet_tpu`` module; its
+its serving, training, RNN and tensor-parallel slices loads neither
+``jax`` nor any ``mxnet_tpu`` module; its
 entry points run on CUDA unless the CPU is asked for; and every feature
 of the JAX engine that the port lacks is refused, not ignored.
 """
@@ -17,6 +17,7 @@ import torch
 
 from mxnet_tpu_torch import context
 from mxnet_tpu_torch.models import decoder as tdec
+from mxnet_tpu_torch.parallel import ShardingConfig
 from mxnet_tpu_torch.serving import DecodeEngine
 
 torch.set_num_threads(2)
@@ -45,7 +46,8 @@ def test_import_loads_no_jax_and_no_reference_package():
                     "ops.kernels.dropout_hash", "ops.kernels.epilogue",
                     "ops.attention", "ops.kernels.flash_attention", "amp",
                     "amp.lists", "amp.loss_scaler", "ops.rnn", "gluon.rnn",
-                    "gluon.rnn.rnn_layer", "gluon.rnn.rnn_cell"):
+                    "gluon.rnn.rnn_layer", "gluon.rnn.rnn_cell",
+                    "parallel", "parallel.shardcfg"):
             assert "mxnet_tpu_torch." + mod in names, (mod, names)
         print(len(names), bad)
         sys.exit(1 if bad else 0)
@@ -88,13 +90,28 @@ def test_resolve_cpu():
     assert context.gpu(1) == torch.device("cuda", 1)
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"prefix_cache": True}, {"async_decode": True}, {"dispatch_ahead": 2},
-    {"migrate": True}, {"pagestore": "localhost:1"}, {"speculate": True},
-    {"draft_model": object()}, {"sharding": object()}, {"role": "prefill"},
-], ids=lambda kw: next(iter(kw)))
-def test_unported_engine_features_raise(tiny_lm, kwargs):
-    with pytest.raises(NotImplementedError):
+_TP2 = ShardingConfig.for_transformer(mesh_shape=(1, 2),
+                                      axis_names=("dp", "tp"))
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    ({"prefix_cache": True}, NotImplementedError),
+    ({"async_decode": True}, NotImplementedError),
+    ({"dispatch_ahead": 2}, NotImplementedError),
+    ({"migrate": True}, NotImplementedError),
+    ({"pagestore": "localhost:1"}, NotImplementedError),
+    ({"speculate": True}, NotImplementedError),
+    ({"draft_model": object()}, NotImplementedError),
+    # tensor parallelism is ported: what is not a ShardingConfig is refused
+    ({"sharding": object()}, TypeError),
+    ({"role": "prefill"}, NotImplementedError),
+    # quantized serving under tensor parallelism is not ported yet
+    ({"sharding": _TP2, "quantize": "int8"}, NotImplementedError),
+], ids=["prefix_cache", "async_decode", "dispatch_ahead", "migrate",
+        "pagestore", "speculate", "draft_model", "sharding", "role",
+        "sharding+quantize"])
+def test_unported_engine_features_raise(tiny_lm, kwargs, error):
+    with pytest.raises(error):
         DecodeEngine(tiny_lm, device="cpu", slots=2, page_size=4,
                      max_ctx=16, **kwargs)
 
