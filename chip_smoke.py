@@ -22,13 +22,16 @@ plain version):
    forward (rates 0, 0.1, 0.5) and backward (0.1, 0.5) at (4096, 768) and
    (4095, 766), the mask held exactly.  Flash attention (#5 forward, #6
    dq, #7 dk/dv) against ``flash_attention_plain``, its backward and
-   autograd through it: float32 and bfloat16, D 64 and 128, (B, H, L) of
-   (32, 12, 128), (4, 12, 2048) and a ragged (2, 6, 200), with no mask,
+   autograd through it: float32 at D 64 and 128, bfloat16 at D 32, 64
+   and 128 (the bf16 backward runs on wgmma and TMA), (B, H, L) of (32,
+   12, 128), (4, 12, 2048) and a ragged (2, 6, 200), with no mask,
    causal, a window of 32 and kv_length with a row of length 0, at
-   dropout 0 and 0.1 (96 cases); the dropout mask read off the output
+   dropout 0 and 0.1 (120 cases); the dropout mask read off the output
    (q = k = 0, V = I) in every element at rates 0.1 and 0.5 and seeds 0
    and 2**32 - 1; the three kernels timed at the training shape in fp32
-   and bf16 beside their plain versions and SDPA.  The LSTM time loop
+   and bf16 and at the long-context shape (B 4, L 2048) in bf16, beside
+   their plain versions and SDPA, and the bf16 backward's fixed part
+   (every kv_length 0).  The LSTM time loop
    (#10 forward, #11 backward) against its plain versions and #11 (through
    the autograd Function) against autograd through the plain forward:
    float32 and bfloat16, (T, B, H) of (35, 32, 650), (7, 5, 37) and (35,
@@ -626,6 +629,9 @@ BF16_FLOPS = 989e12
 #: (B, H, L) of the flash checks: the training shape, the long-context
 #: shape and a ragged L
 FLASH_SHAPES = ((32, 12, 128), (4, 12, 2048), (2, 6, 200))
+#: head dims of the flash checks per dtype (bf16 also at D 32, which the
+#: bf16 backward builds as its own instantiation)
+FLASH_DIMS = {"float32": (64, 128), "bfloat16": (32, 64, 128)}
 
 
 def rel_err(a, b):
@@ -715,12 +721,17 @@ def check_flash_mask(torch, fa):
                                      "from the plain hash")
 
 
-def flash_timing(torch, fa, timer, dt, report):
-    """#5-#7 at the training shape (B 32, H 12, L 128, D 64, the training
-    batch's valid lengths, dropout 0.1), beside the plain versions and SDPA
-    (dense, dropout 0: it takes no hash mask)."""
+def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
+    """#5-#7 at the training shape (B 32, H 12, L 128, D 64; or at ``B``,
+    ``L``, as the long-context phase's B 4, L 2048), with the training
+    batch's valid lengths at that shape and dropout 0.1, beside the plain
+    versions and SDPA (dense, dropout 0: it takes no hash mask).  The
+    training shape's fp32 rows go into ``report``."""
     import torch.nn.functional as F
-    B, H, L, D = TRAIN_B, BERT["num_heads"], TRAIN_L, 64
+    train_shape = B is None
+    B = TRAIN_B if train_shape else B
+    L = TRAIN_L if train_shape else L
+    H, D = BERT["num_heads"], 64
     g = torch.Generator(device=DEV).manual_seed(12)
     q, k, v, do = (torch.randn(B, H, L, D, device=DEV, generator=g).to(dt)
                    for _ in range(4))
@@ -772,6 +783,25 @@ def flash_timing(torch, fa, timer, dt, report):
                             "backward (dq, dk and dv in one call)", lib))
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                           bound_by=by, library_ms=lib, max_abs_err=err)
+    if dt == torch.bfloat16:
+        # the backward kernels' fixed part: every kv_length 0, so no tile
+        # is visited, but each launch still loads its own side and writes
+        # zeros
+        z = torch.zeros_like(kvl)
+        fixed = {"flash_attention_bwd_dq": timer(
+                     lambda: fa.flash_attention_bwd_dq(*bwd, dropout=0.1,
+                                                       seed=seed,
+                                                       kv_length=z)),
+                 "flash_attention_bwd_dkv": timer(
+                     lambda: fa.flash_attention_bwd_dkv(*bwd, dropout=0.1,
+                                                        seed=seed,
+                                                        kv_length=z))}
+        log("bf16 backward with every kv_length 0 (B %d, H %d, L %d, D %d), "
+            "the launches' fixed part: dq %.4f ms, dkv %.4f ms"
+            % (B, H, L, D, fixed["flash_attention_bwd_dq"],
+               fixed["flash_attention_bwd_dkv"]))
+        for name, ms in fixed.items():
+            rows[name]["fixed_ms"] = ms
     # the layout copy in front of the kernels: q, k, v made contiguous
     # after BERT's head permute of the (B, L, 3, H, D) projection
     qkv = torch.randn(B, L, 3, H, D, device=DEV, generator=g).to(dt).permute(
@@ -779,7 +809,7 @@ def flash_timing(torch, fa, timer, dt, report):
     copy_ms = timer(lambda: [t.contiguous() for t in qkv])
     log("q, k, v .contiguous() after the head permute (B %d, H %d, L %d, D "
         "%d) %s: %.4f ms" % (B, H, L, D, str(dt)[6:], copy_ms))
-    if dt == torch.float32:
+    if dt == torch.float32 and train_shape:
         for name, row in rows.items():
             line = 158 if name.endswith("fwd") else (
                 262 if name.endswith("dq") else 314)
@@ -791,20 +821,66 @@ def flash_timing(torch, fa, timer, dt, report):
     return dict(rows, qkv_contiguous_ms=copy_ms)
 
 
+#: SASS opcodes of global or shared-memory atomics and reductions
+ATOMIC_OPS = ("ATOM", "ATOMG", "ATOMS", "RED", "REDG")
+
+
+def sass_census(path, marker):
+    """Per kernel whose name holds ``marker``, the count of each SASS
+    opcode (its first dotted part) in the library at ``path``, read with
+    the toolkit's cuobjdump."""
+    from mxnet_tpu_torch.ops.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    census, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = name if marker in name else None
+            if fn:
+                census[fn] = {}
+        elif fn and line.strip().startswith("/*") and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                op = words[0].split(".")[0]
+                census[fn][op] = census[fn].get(op, 0) + 1
+    return census
+
+
+def check_flash_sass(libs):
+    """The bf16 backward kernels issue wgmma (HGMMA), load by TMA
+    (UTMALDG), store by TMA (UTMASTG) and hold no atomic."""
+    census = sass_census(libs["flash_attention"], "_sm90")
+    bad = []
+    for fn, ops in sorted(census.items()):
+        want = {op: ops.get(op, 0) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+        atomics = sum(ops.get(op, 0) for op in ATOMIC_OPS)
+        log("SASS %s: %s, atomics %d" % (fn[-60:], want, atomics))
+        if not all(want.values()) or atomics:
+            bad.append(fn)
+    if len(census) != 12 or bad:
+        raise AssertionError("flash bf16 backward SASS: %d kernels, without "
+                             "wgmma/TMA or with atomics: %s"
+                             % (len(census), bad))
+
+
 def check_flash_attention(torch, timer, report):
     """Kernels #5-#7 against the plain version and autograd through it, in
-    float32 and bfloat16, at D 64 and 128, at (B, H, L) of the training
-    shape (BH 384), the long-context shape (BH 48) and a ragged L 200,
-    with no mask, causal, a window of 32 and kv_length with a row of
-    length 0, at dropout 0 and 0.1; then the mask exactly, and the times
-    at the training shape."""
+    float32 (D 64 and 128) and bfloat16 (D 32, 64 and 128), at (B, H, L)
+    of the training shape (BH 384), the long-context shape (BH 48) and a
+    ragged L 200, with no mask, causal, a window of 32 and kv_length with
+    a row of length 0, at dropout 0 and 0.1; then the mask exactly, and
+    the times at the training shape (and the long one in bf16)."""
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     g = torch.Generator(device=DEV).manual_seed(11)
     worst = {}
     n = 0
     for dt in (torch.float32, torch.bfloat16):
         for B, H, L in FLASH_SHAPES:
-            for D in (64, 128):
+            for D in FLASH_DIMS[str(dt)[6:]]:
                 for mask in ("none", "causal", "window", "kv_length"):
                     for rate in (0.0, 0.1):
                         errs = flash_case(torch, fa, g, B, H, L, D, dt, mask,
@@ -823,6 +899,9 @@ def check_flash_attention(torch, timer, report):
     flash_timing(torch, fa, timer, torch.float32, report)
     report["flash_bf16"] = flash_timing(torch, fa, timer, torch.bfloat16,
                                         report)
+    report["flash_bf16_long"] = flash_timing(torch, fa, timer,
+                                             torch.bfloat16, report,
+                                             B=LONG_B, L=LONG_L)
 
 
 # the LSTM kernels #10 and #11 against their plain versions on the card.
@@ -1528,6 +1607,26 @@ def device_summary(torch, prof, wall):
             "; ".join("%s %.1f" % (k[:60], v / 1e3) for k, v in top))
 
 
+#: substrings of the flash kernels' names in a profiler trace
+FLASH_SPANS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def span_ms(torch, prof, keys):
+    """Device ms of the kernel spans whose name contains each of ``keys``,
+    and of all kernel spans."""
+    out = dict.fromkeys(keys, 0.0)
+    total = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dur = (e.time_range.end - e.time_range.start) / 1e3
+        total += dur
+        for k in keys:
+            if k in e.name:
+                out[k] += dur
+    return out, total
+
+
 def profile(torch, lm, reqs, fused, sharding=None):
     """torch.profiler over one engine serving ``reqs``: the device's busy
     share of the window and the kernels that took the most device time."""
@@ -1748,6 +1847,13 @@ def train(torch, seed, label, B, L, steps, amp=False, profile_steps=0,
         log("profile train %s: %d steps in %.3f s, device busy %.1f%% (%d "
             "kernel spans); top kernels by device ms: %s"
             % (label, profile_steps, wall, busy, n, top))
+        fl, total = span_ms(torch, prof, FLASH_SPANS)
+        log("profile train %s: flash kernels' device ms over %d steps: %s; "
+            "%.1f of %.1f device ms (%.1f%%), %.1f%% of the %.1f ms wall"
+            % (label, profile_steps, " ".join(
+                "%s %.2f" % kv for kv in fl.items()), sum(fl.values()),
+               total, 100.0 * sum(fl.values()) / max(total, 1e-9),
+               100.0 * sum(fl.values()) / (wall * 1e3), wall * 1e3))
     del model, net, trainer
     torch.cuda.empty_cache()
     return counts, dict(step_p50_ms=p50, tokens_per_s=B * L / p50 * 1e3,
@@ -1987,6 +2093,13 @@ def train_lm(torch, seed, label, amp=False, profile_steps=0):
         log("profile train %s: %d steps in %.3f s, device busy %.1f%% (%d "
             "kernel spans); top kernels by device ms: %s"
             % (label, profile_steps, wall, busy, n, top))
+        fl, total = span_ms(torch, prof, FLASH_SPANS)
+        log("profile train %s: flash kernels' device ms over %d steps: %s; "
+            "%.1f of %.1f device ms (%.1f%%), %.1f%% of the %.1f ms wall"
+            % (label, profile_steps, " ".join(
+                "%s %.2f" % kv for kv in fl.items()), sum(fl.values()),
+               total, 100.0 * sum(fl.values()) / max(total, 1e-9),
+               100.0 * sum(fl.values()) / (wall * 1e3), wall * 1e3))
     del model, net, trainer
     torch.cuda.empty_cache()
     return counts, dict(step_p50_ms=p50, tokens_per_s=LM_B * LM_T / p50 * 1e3,
@@ -2043,7 +2156,8 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also profile 16 requests through each decode step "
                     "(fused and per-op at tp 1, fused at tp 2) and 3 "
-                    "training steps")
+                    "steps of each training phase (the flash kernels' "
+                    "share of the BERT ones)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2074,6 +2188,7 @@ def main():
                 if "registers" in line or "spill" in line:
                     log("  %s: %s" % (name, line.strip()))
 
+    check_flash_sass(libs)
     timer = Timer(torch)
     report = {}
     lm = perturb_affine(torch, dec.CausalLM(**WIDTHS, device=DEV,
@@ -2190,7 +2305,8 @@ def main():
         raise AssertionError("AMP step-1 loss disagrees with fp32")
     trains["long_amp_bf16"] = train(torch, args.seed, "long_amp_bf16",
                                     LONG_B, LONG_L, LONG_STEPS, amp=True,
-                                    max_length=LONG_L)
+                                    profile_steps=LONG_STEPS if args.profile
+                                    else 0, max_length=LONG_L)
     card_vs_cpu_step(torch, args.seed)
     log("training done at %.1f s" % (time.perf_counter() - t_start))
     trains["lstm_lm_fp32"] = train_lm(torch, args.seed, "lstm_lm_fp32",
@@ -2222,6 +2338,7 @@ def main():
     log(json.dumps({"serve": {k: run[3] for k, run in runs.items()},
                     "train": {k: st for k, (_, st) in trains.items()},
                     "flash_bf16": report["flash_bf16"],
+                    "flash_bf16_long": report["flash_bf16_long"],
                     "lstm_fp32": report["lstm_fp32"],
                     "lstm_bf16": report["lstm_bf16"],
                     "tp_phases": report["tp_phases"],

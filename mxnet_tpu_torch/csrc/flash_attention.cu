@@ -22,34 +22,75 @@
 // -1e30 sentinel alone would give such a row exp(0) = 1 on every masked
 // key of a visited tile, so its output would depend on the tiling.
 //
-// Design for the SM (not the TPU's grid): a block of 256 threads owns one
-// 64-row tile of one (batch, head) and loops over the 64-wide tiles of
-// the other side, skipping tiles the mask rules out (_block_needed, :69)
-// and the per-element mask on interior tiles (_block_boundary, :86).  The
-// tiles sit in shared memory as float32 (a bf16 input is widened on load),
-// rows padded by 4 floats so the 16-byte loads below hit distinct banks.
+// Two designs.  The forward (#5) in both dtypes and the float32 backward
+// run on the CUDA cores: a block of 256 threads owns one 64-row tile of
+// one (batch, head) and loops over the 64-wide tiles of the other side,
+// skipping tiles the mask rules out (_block_needed, :69) and the
+// per-element mask on interior tiles (_block_boundary, :86).  The tiles
+// sit in shared memory as float32 (a bf16 input is widened on load), rows
+// padded by 4 floats so the 16-byte loads below hit distinct banks.
 // Thread (ty, tx) = (tid / 16, tid % 16) owns score rows 4 ty .. 4 ty + 3
 // and columns tx + 16 c (c < 4) of a 64 x 64 tile; the row reductions of
 // the online softmax are shuffles across the 16 lanes of a row group.  The
-// products are fp32 FMAs (a bf16 x bf16 product is exact in fp32, as on the
-// tensor cores); in bfloat16, P is rounded to bf16 before P V and dS before
-// dS K and dS^T Q, as the JAX kernel casts (:200, :300, :355, :361).
+// products are fp32 FMAs; in bfloat16 the forward rounds P to bf16 before
+// P V, as the JAX kernel casts (:200).  At BERT-base training shapes (L
+// 128, D 64) the kernels do 4, 6 and 8 BH L^2 D flops over 4, 5 and 6 BH L
+// D elements read or written: L / 4 = 32 flops per fp32 byte, above the 20
+// where the fp32 peak (67 TFLOP/s) and not memory (3.35 TB/s) bounds.
 //
-// Bound on the card.  At BERT-base training shapes (L 128, D 64) the
-// kernels do 4, 6 and 8 BH L^2 D flops over 4, 5 and 6 BH L D elements
-// read or written: L / 4 = 32 flops per fp32 byte, above the 20 where the
-// fp32 peak (67 TFLOP/s) and not memory (3.35 TB/s) bounds, and L / 2 = 64
-// per bf16 byte, below the 295 of the bf16 tensor cores.  This first
-// version runs its products as fp32 FMAs on the CUDA cores, 16 FMAs for
-// every 8 16-byte shared-memory loads; the tensor cores (wgmma) and TMA
-// are later work.  The dk/dv kernel owns its key rows, so it needs no
-// atomics and its result does not depend on the order blocks run in.
+// The bfloat16 backward (#6 dq, #7 dk and dv) is built for Hopper's tensor
+// cores (sm90.cuh has the building blocks):
+// - Products on wgmma: S (S^T in #7) and dP (dP^T) as m64n64k16 with both
+//   operands K-major in shared memory; dV, dK and dQ with A from registers
+//   (the fp32 accumulator of P keep or dS, rounded to bf16, is already the
+//   A fragment of four k16 steps) and B the q-side (#7) or K (#6) tile read
+//   MN-major, the transpose bit set.  P keep is rounded to bf16 before dV,
+//   and dS before dK and dQ, as the JAX kernel casts (:300, :355, :361).
+// - Tiles by TMA over (D, L, BH) tensor maps in 64-row boxes, 128-byte
+//   swizzled (64-byte at D 32; at D 128 two 64-column boxes, since a
+//   swizzled box row is at most 128 bytes); rows past L read as 0 within
+//   their (batch, head).  One lane of a producer warpgroup loads the
+//   block's own side once a work item (double-buffered across items) and
+//   rings the other side through 3 stages (2 at D 128) on mbarriers;
+//   #7's lse and delta come into each stage by the producer warp's lanes
+//   (a TMA box of float32 rows may not start where L * 4 is not a multiple
+//   of 16 bytes), #6's sit in registers.  The producer warpgroup hands its
+//   registers to two consumer warpgroups (setmaxnreg, 24 and 240).
+// - Two consumer warpgroups own 64 rows each (#7 at D 128: one, as its dK
+//   and dV take 128 fp32 a thread); each skips the tiles the mask rules
+//   out for its rows and applies the per-element mask on edge tiles only.
+//   Each block owns its rows, so there are no atomics and the result does
+//   not depend on the order blocks run in.
+// - Outputs leave through shared memory (the warpgroup's rows of the tile
+//   it has finished with, in the swizzled layout) and a TMA store.
+// - The grid is persistent (a block per SM walking items) where rows are
+//   short (L <= 256), so one item's prologue overlaps another's products;
+//   at longer L a block per item, which the hardware balances.
+//
+// Bound on the card, bf16.  At the training shape (B 32, H 12, L 128, D
+// 64, the batch's kv_length) #6 reads and writes 31.9 MB, 0.0095 ms at
+// 3.35 TB/s, over its 1.85 GFLOP (0.0019 ms at 989 TFLOP/s), and #7 38.1
+// MB: bytes bound.  There a launch's fixed part (prologue, first loads
+// from a cold L2, the TMA stores: chip_smoke.py times the kernels with
+// every kv_length 0) takes most of the time.  At the long shape (B 4, L
+// 2048) #6 and #7 need 60.6 and 80.8 GFLOP, 0.061 and 0.082 ms: operations
+// bound.  There the element pass sets the pace, not the tensor cores:
+// about 20 instructions an element with dropout (2 for the exponent, 12
+// for the hash and its keep multiplier, 9 of them integer at half the FP32
+// rate, 5 for P keep and dS, 1 for the bf16 packs; #6 about 18), ~0.23
+// SM-cycles an element at 128 lanes a cycle, against 0.12 SM-cycles of
+// wgmma (8 D flops an element at 989 TFLOP/s over 132 SMs; #6 0.09).  The
+// design hoists the hash's per-row and per-column products out of the
+// element loop, skips the hash at dropout 0, and runs the exponent on the
+// SFU; two consumer warpgroups per SM overlap one's element pass with the
+// other's wgmma.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -282,6 +323,21 @@ __device__ __forceinline__ void k_range(const Mask& m, int q0, int& lo,
   }
 }
 
+// the q tiles [lo, hi] that keys [k0, k0 + 64) can be seen from (none:
+// hi < lo)
+__device__ __forceinline__ void q_range(const Mask& m, int k0, int& lo,
+                                        int& hi) {
+  const int k1 = k0 + kTile - 1;
+  lo = 0;
+  hi = (m.L + kTile - 1) / kTile - 1;
+  if (m.causal) lo = k0 / kTile;
+  if (m.window >= 0) {
+    lo = max(lo, max(0, k0 - m.window) / kTile);
+    hi = min(hi, (k1 + m.window) / kTile);
+  }
+  if (k0 >= m.klim) hi = lo - 1;
+}
+
 // ---------------------------------------------------------------------------
 // #5 forward: grid (q tiles, BH)
 // ---------------------------------------------------------------------------
@@ -380,11 +436,12 @@ flash_fwd_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// #6 backward dq: grid (q tiles, BH), streams k tiles
+// #6 backward dq in float32: grid (q tiles, BH), streams k tiles
 // ---------------------------------------------------------------------------
-template <class T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(Args a) {
+  using T = float;
   constexpr int SD = D + 4, N = D / 16;
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);
@@ -452,12 +509,13 @@ flash_bwd_dq_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// #7 backward dk, dv: grid (k tiles, BH), streams q tiles; the block owns
-// its 64 key rows, so no atomics
+// #7 backward dk, dv in float32: grid (k tiles, BH), streams q tiles; the
+// block owns its 64 key rows, so no atomics
 // ---------------------------------------------------------------------------
-template <class T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(Args a) {
+  using T = float;
   constexpr int SD = D + 4, N = D / 16;
   extern __shared__ float4 smem4[];
   float* sk = reinterpret_cast<float*>(smem4);
@@ -481,15 +539,8 @@ flash_bwd_dkv_kernel(Args a) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int n = 0; n < N; ++n) dk[i][n] = dv[i][n] = 0.f;
-  // the q tiles that can see keys [k0, k0 + 64)
-  const int k1 = k0 + kTile - 1;
-  int lo = 0, hi = (a.L + kTile - 1) / kTile - 1;
-  if (m.causal) lo = k0 / kTile;
-  if (m.window >= 0) {
-    lo = max(lo, max(0, k0 - m.window) / kTile);
-    hi = min(hi, (k1 + m.window) / kTile);
-  }
-  if (k0 >= m.klim) hi = lo - 1;
+  int lo, hi;
+  q_range(m, k0, lo, hi);
   for (int qt = lo; qt <= hi; ++qt) {
     const int q0 = qt * kTile;
     if (!m.needed(q0, k0)) continue;
@@ -548,7 +599,753 @@ flash_bwd_dkv_kernel(Args a) {
   }
 }
 
-// shared memory of each kernel, in bytes
+// ---------------------------------------------------------------------------
+// #6 and #7 in bfloat16: wgmma products on TMA-fed tile rings (sm_90a)
+// ---------------------------------------------------------------------------
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A (rows, D) bf16 tile as TMA writes it: D / kCols boxes of kCols
+// columns side by side, each rows x kRowBytes with the matching swizzle.
+template <int D>
+struct Tile {
+  static constexpr int kCols = D < 64 ? D : 64;
+  static constexpr int kBoxes = D / kCols;
+  static constexpr int kRowBytes = kCols * 2;
+  static constexpr int kLayout = kRowBytes == 128 ? 1 : 2;
+  static constexpr uint32_t kSbo = 8 * kRowBytes;
+  // K-major operand over D: rows [row0, row0 + 64) of a tile of R rows at
+  // k16 step kk
+  template <int R>
+  __device__ static uint64_t kmajor(uint32_t tile, int row0, int kk) {
+    const int col = kk * 16;
+    return gmma_desc(tile + (col / kCols) * R * kRowBytes +
+                         row0 * kRowBytes + (col % kCols) * 2,
+                     kLayout, kSbo);
+  }
+  // MN-major operand: rows [16 kk, 16 kk + 16) of a tile of R rows as K,
+  // the columns of box b as N
+  template <int R>
+  __device__ static uint64_t mnmajor(uint32_t tile, int kk, int b) {
+    return gmma_desc(tile + b * R * kRowBytes + kk * 16 * kRowBytes, kLayout,
+                     kSbo);
+  }
+};
+
+// s (64 x 64) = A B^T over D: A the rows [a0, a0 + 64) of a tile of RA
+// rows, B the 64 rows of a tile of 64
+template <int D, int RA>
+__device__ __forceinline__ void ss_product(float (&s)[32], uint32_t ta,
+                                           int a0, uint32_t tb) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(s, Tile<D>::template kmajor<RA>(ta, a0, kk),
+                 Tile<D>::template kmajor<64>(tb, 0, kk), kk > 0);
+}
+
+// acc (64 x D) += A B: A (64 x 64) the bf16 fragments a (k16 step kk in
+// a[4 kk .. 4 kk + 3]), B a tile of 64 rows (K) by D
+template <int D>
+__device__ __forceinline__ void rs_product(float (&acc)[D / 2],
+                                           const uint32_t (&a)[16],
+                                           uint32_t tb) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int b = 0; b < Tile<D>::kBoxes; ++b) {
+      const uint64_t db = Tile<D>::template mnmajor<64>(tb, kk, b);
+      if constexpr (D == 32)
+        wgmma_rs_n32(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                     a[4 * kk + 3], db);
+      else
+        wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(acc + 32 * b),
+                     a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                     db);
+    }
+}
+
+// the kernels' tensor maps over (D, L, BH), in boxes of 64 rows: the
+// inputs, and the outputs (#6: dq in out; #7: dk in out, dv in out2)
+struct BwdMaps {
+  CUtensorMap q, k, v, dout, out, out2;
+};
+struct Sm90Args {
+  BwdMaps maps;
+  Args a;
+  int BH;
+};
+
+__device__ __forceinline__ void prefetch_maps(const BwdMaps& m) {
+  tma_prefetch(&m.q);
+  tma_prefetch(&m.k);
+  tma_prefetch(&m.v);
+  tma_prefetch(&m.dout);
+}
+
+// the thread's place in its warpgroup's fragments: rows fr + {0, 8},
+// columns fc + 8 j + {0, 1}
+struct Frag {
+  int fr, fc;
+  __device__ explicit Frag(int t) : fr(16 * (t >> 5) + ((t & 31) >> 2)),
+                                    fc(2 * (t & 3)) {}
+};
+
+// A warpgroup's (64, D) fp32 accumulator times `scale`, rounded to bf16,
+// into rows [row0, row0 + 64) of a tile of R rows in the swizzled layout
+// TMA reads (16-byte chunk c of row r at c ^ (r % 8) at 128-byte rows,
+// c ^ (r % 8) / 2 at 64).  Conflict-free: a store's 8 rows land in 8
+// distinct chunks.
+template <int D, int R>
+__device__ __forceinline__ void frag_to_tile(uint8_t* tile, int row0,
+                                             const float (&acc)[D / 2],
+                                             float scale, const Frag& f) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + f.fr + 8 * h;
+    const int x = T::kLayout == 1 ? (r & 7) : ((r & 7) >> 1);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int b = 8 * j / T::kCols, c = j % (T::kCols / 8);
+      *reinterpret_cast<uint32_t*>(tile + (b * R + r) * T::kRowBytes +
+                                   (c ^ x) * 16 + f.fc * 2) =
+          pack_bf16(acc[4 * j + 2 * h] * scale,
+                    acc[4 * j + 2 * h + 1] * scale);
+    }
+  }
+}
+
+// Rows [row0, row0 + 64) of a tile of R rows at shared `tile`, written by
+// one warpgroup (frag_to_tile), to rows [grow, grow + 64) of (batch,
+// head) bh through `map`; thread t of the warpgroup issues the store and
+// returns once TMA has read the tile.  Rows past L are not written.
+template <int D, int R>
+__device__ __forceinline__ void store_rows(const CUtensorMap* map,
+                                           uint32_t tile, int row0, int grow,
+                                           int bh, int t) {
+  if (t != 0) return;
+#pragma unroll
+  for (int b = 0; b < Tile<D>::kBoxes; ++b)
+    tma_store_3d(map, tile + (b * R + row0) * Tile<D>::kRowBytes,
+                 b * Tile<D>::kCols, grow, bh);
+  tma_store_commit_wait_read();
+}
+
+// 2^x on the special-function unit (subnormal results flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the dropout multiplier of the element whose pre-mixed hash is h
+__device__ __forceinline__ float keep_of_mix(uint32_t h, uint32_t thr,
+                                             float ks) {
+  return mxt_keep_mix(h) >= thr ? ks : 0.f;
+}
+
+// -lse log2(e), the exponent offset of a row's probabilities in base 2
+// (-inf for a row with no valid key, whose probabilities are then 0)
+__device__ __forceinline__ float neg_lse2(float lse) {
+  return lse == -INFINITY ? -INFINITY : -lse * kLog2e;
+}
+
+// Rows [row0, row0 + 64 NWG) of a tensor map into a tile of 64 NWG rows,
+// 64 rows a box, skipping the 64-row groups that start at or past L (no
+// warpgroup reads them); load_bytes is what that asks for.
+template <int D, int NWG>
+__device__ __forceinline__ uint32_t load_bytes(int row0, int L) {
+  uint32_t bytes = 0;
+#pragma unroll
+  for (int w = 0; w < NWG; ++w)
+    if (row0 + 64 * w < L) bytes += 64 * D * 2;
+  return bytes;
+}
+template <int D, int NWG>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const CUtensorMap* map,
+                                          uint32_t bar, int row0, int bh,
+                                          int L) {
+#pragma unroll
+  for (int w = 0; w < NWG; ++w) {
+    if (row0 + 64 * w >= L) break;
+#pragma unroll
+    for (int b = 0; b < Tile<D>::kBoxes; ++b)
+      tma_load_3d(dst + (b * NWG + w) * 64 * Tile<D>::kRowBytes, map, bar,
+                  b * Tile<D>::kCols, row0 + 64 * w, bh);
+  }
+}
+
+// A q tile's 64 rows of lse and delta ((BH, L) float32 at bh), two per
+// lane of the producer warp: fetched before the warp waits for the stage,
+// stored after (lse as neg_lse2; rows at or past L as 0)
+struct Stats {
+  float l[2], d[2];
+  __device__ void fetch(const Args& a, int bh, int row0) {
+    const float* lg = static_cast<const float*>(a.lse_in) + (size_t)bh * a.L;
+    const float* dg = static_cast<const float*>(a.delta) + (size_t)bh * a.L;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int r = row0 + (threadIdx.x & 31) + 32 * k;
+      l[k] = r < a.L ? neg_lse2(lg[r]) : 0.f;
+      d[k] = r < a.L ? dg[r] : 0.f;
+    }
+  }
+  __device__ void store(float* nl, float* dl) const {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      nl[(threadIdx.x & 31) + 32 * k] = l[k];
+      dl[(threadIdx.x & 31) + 32 * k] = d[k];
+    }
+  }
+};
+
+// registers a thread of a consumer warpgroup takes when two consumer
+// warpgroups and the producer warpgroup (down to 24) share the SM's 64 K
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+
+// ---------------------------------------------------------------------------
+// #7 dk, dv.  A work item is 64 NWG key rows of one (batch, head), items
+// numbered key block fastest, so that the blocks resident at once share
+// their heads' q tiles in L2.  Each block walks items gridDim.x apart
+// (see launch_sm90 for the grid).  NWG
+// consumer warpgroups own 64 key rows each; warp 0 of the producer
+// warpgroup loads each item's K and V once (TMA, double-buffered so the
+// next item's arrive while this one computes) and rings the q tiles
+// through S stages: Q and dO by TMA, lse and delta by its lanes.
+// ---------------------------------------------------------------------------
+template <int D, int NWG, int S>
+struct DkvSmem {
+  static constexpr int kKV = NWG * 64 * D * 2;  // a K (or V) tile
+  static constexpr int kT = 64 * D * 2;         // a Q (or dO) stage
+  // K and V of items n even, then odd: K0 V0 K1 V1
+  static constexpr int kKV0 = 0, kQ = 4 * kKV, kDo = kQ + S * kT;
+  static constexpr int kLse = kDo + S * kT, kDl = kLse + S * 256;
+  // kv_full[2], kv_empty[2], full[S], empty[S]
+  static constexpr int kBar = kDl + S * 256;
+  static constexpr int kBytes = kBar + (4 + 2 * S) * 8;
+};
+
+// whether any warpgroup of a block with keys [kb, kb + 64 NWG) needs the
+// q tile at q0
+template <int NWG>
+__device__ __forceinline__ bool any_keys_need(const Mask& m, int q0,
+                                              int kb) {
+  bool need = false;
+#pragma unroll
+  for (int w = 0; w < NWG; ++w) need |= m.needed(q0, kb + 64 * w);
+  return need;
+}
+
+template <int NWG>
+__device__ __forceinline__ void block_q_range(const Mask& m, int kb, int& lo,
+                                              int& hi) {
+  lo = 1 << 30;
+  hi = -1;
+#pragma unroll
+  for (int w = 0; w < NWG; ++w) {
+    int l, h;
+    q_range(m, kb + 64 * w, l, h);
+    if (l <= h) {
+      lo = min(lo, l);
+      hi = max(hi, h);
+    }
+  }
+  if (hi < 0) lo = 0;
+}
+
+// The element pass of #7 on S^T and dP^T (rows keys k0 + fr + 8 h,
+// columns queries q0 + fc + 8 j + e): P^T = exp(S^T scale - lse) (0 where
+// masked), keep from the hash, and as A fragments pa = bf16(P^T keep) and
+// da = bf16(P^T (dP^T keep - delta)).  nl and dl: the q tile's neg_lse2
+// and delta.  About 20 instructions an element with dropout: 2 for the
+// exponent, 12 for the hash and its keep multiplier (9 of them integer, at
+// half the FP32 issue rate), 5 for P keep and dS, 1 for the bf16 packs.
+template <bool EDGE, bool DROP>
+__device__ __forceinline__ void dkv_grads(float (&st)[32], float (&dpt)[32],
+                                          uint32_t (&pa)[16],
+                                          uint32_t (&da)[16], const Mask& m,
+                                          const Frag& f, int q0, int k0,
+                                          const float* nl, const float* dl,
+                                          float sl2,
+                                          const uint32_t (&kmix)[2],
+                                          uint32_t thr, float ks) {
+  const uint32_t qa0 = (uint32_t)(q0 + f.fc) * 0x9E3779B1u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 n2 = *reinterpret_cast<const float2*>(nl + 8 * j + f.fc);
+    const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + f.fc);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const uint32_t qa = qa0 + (uint32_t)(8 * j + e) * 0x9E3779B1u;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int idx = 4 * j + 2 * h + e;
+        float p = fast_exp2(fmaf(st[idx], sl2, e ? n2.y : n2.x));
+        if (EDGE && !m.valid(q0 + f.fc + 8 * j + e, k0 + f.fr + 8 * h))
+          p = 0.f;
+        float dp = dpt[idx];
+        if (DROP) {
+          const float km = keep_of_mix(qa ^ kmix[h], thr, ks);
+          st[idx] = p * km;
+          dp *= km;
+        } else {
+          st[idx] = p;
+        }
+        dpt[idx] = p * (dp - (e ? d2.y : d2.x));
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    pa[i] = pack_bf16(st[2 * i], st[2 * i + 1]);
+    da[i] = pack_bf16(dpt[2 * i], dpt[2 * i + 1]);
+  }
+}
+
+template <int D, int NWG, int S, bool DROP>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+flash_bwd_dkv_sm90(const __grid_constant__ Sm90Args p) {
+  using L_ = DkvSmem<D, NWG, S>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const Args& a = p.a;
+  const int n_kb = (a.L + 64 * NWG - 1) / (64 * NWG);
+  const int items = n_kb * p.BH;
+  const uint32_t bar_kv = base + L_::kBar, bar_kv_empty = bar_kv + 16,
+                 bar_full = bar_kv + 32, bar_empty = bar_full + 8 * S;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  if (tid == NWG * 128) prefetch_maps(p.maps);
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bar_kv + 8 * b, 1);
+      mbar_init(bar_kv_empty + 8 * b, NWG);  // thread 0 of each consumer
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bar_full + 8 * s, 32);        // the producer warp's lanes
+      mbar_init(bar_empty + 8 * s, 4 * NWG);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {  // the producer warpgroup: warp 0 loads, lane 0 TMAs
+    if constexpr (NWG == 2) reg_dealloc<kProducerRegs>();
+    if (tid >= NWG * 128 + 32) return;
+    const bool lead = tid == NWG * 128;
+    int it = 0, n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int bh = item / n_kb, kb = item % n_kb * 64 * NWG;
+      const Mask m = mask_of(a, bh);
+      int lo, hi;
+      block_q_range<NWG>(m, kb, lo, hi);
+      if (lead) {  // this item's K and V, once the item two back is done
+        const uint32_t kv = bar_kv + 8 * (n & 1);
+        mbar_wait(bar_kv_empty + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(kv, 2 * load_bytes<D, NWG>(kb, a.L));
+        load_rows<D, NWG>(base + L_::kKV0 + (n & 1) * 2 * L_::kKV,
+                          &p.maps.k, kv, kb, bh, a.L);
+        load_rows<D, NWG>(base + L_::kKV0 + ((n & 1) * 2 + 1) * L_::kKV,
+                          &p.maps.v, kv, kb, bh, a.L);
+      }
+      for (int qt = lo; qt <= hi; ++qt) {
+        if (!any_keys_need<NWG>(m, qt * 64, kb)) continue;
+        Stats st;
+        st.fetch(a, bh, qt * 64);
+        const int s = it % S;
+        mbar_wait(bar_empty + 8 * s, ((it / S) & 1) ^ 1);
+        const uint32_t full = bar_full + 8 * s;
+        if (lead) {
+          mbar_expect(full, 2 * L_::kT);
+          load_rows<D, 1>(base + L_::kQ + s * L_::kT, &p.maps.q, full,
+                          qt * 64, bh, a.L);
+          load_rows<D, 1>(base + L_::kDo + s * L_::kT, &p.maps.dout, full,
+                          qt * 64, bh, a.L);
+        }
+        st.store(reinterpret_cast<float*>(smem + L_::kLse) + s * 64,
+                 reinterpret_cast<float*>(smem + L_::kDl) + s * 64);
+        mbar_arrive(full);
+        ++it;
+      }
+    }
+    return;
+  }
+  if constexpr (NWG == 2) reg_alloc<kConsumerRegs>();
+
+  // a consumer warpgroup: keys [k0, k0 + 64) of each work item
+  const Frag f(tid & 127);
+  const float sl2 = a.scale * kLog2e;
+  int it = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int bh = item / n_kb, kb = item % n_kb * 64 * NWG;
+    const Mask m = mask_of(a, bh);
+    int lo, hi;
+    block_q_range<NWG>(m, kb, lo, hi);
+    const int k0 = kb + 64 * wg;
+    uint32_t kmix[2] = {0u, 0u};
+    if (DROP) {
+      const uint32_t sb = (uint32_t)a.seed[0] + (uint32_t)bh * 0xC2B2AE3Du;
+      for (int h = 0; h < 2; ++h)
+        kmix[h] = (uint32_t)(k0 + f.fr + 8 * h) * 0x85EBCA77u ^ sb;
+    }
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    const uint32_t sk = base + L_::kKV0 + (n & 1) * 2 * L_::kKV,
+                   sv = sk + L_::kKV;
+    mbar_wait(bar_kv + 8 * (n & 1), (n >> 1) & 1);
+    for (int qt = lo; qt <= hi; ++qt) {
+      const int q0 = qt * 64;
+      if (!any_keys_need<NWG>(m, q0, kb)) continue;
+      const int s = it % S;
+      mbar_wait(bar_full + 8 * s, (it / S) & 1);
+      ++it;
+      if (m.needed(q0, k0)) {
+        const uint32_t sq = base + L_::kQ + s * L_::kT;
+        const uint32_t sdo = base + L_::kDo + s * L_::kT;
+        const float* nl = reinterpret_cast<const float*>(smem + L_::kLse) +
+                          s * 64;
+        const float* dl = reinterpret_cast<const float*>(smem + L_::kDl) +
+                          s * 64;
+        float st[32], dpt[32];
+        uint32_t pa[16], da[16];
+        wgmma_fence();
+        ss_product<D, NWG * 64>(st, sk, 64 * wg, sq);
+        ss_product<D, NWG * 64>(dpt, sv, 64 * wg, sdo);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+        if (m.interior(q0, k0))
+          dkv_grads<false, DROP>(st, dpt, pa, da, m, f, q0, k0, nl, dl, sl2,
+                                 kmix, a.thr, a.ks);
+        else
+          dkv_grads<true, DROP>(st, dpt, pa, da, m, f, q0, k0, nl, dl, sl2,
+                                kmix, a.thr, a.ks);
+        fence_regs(dv);
+        fence_regs(dk);
+        wgmma_fence();
+        rs_product<D>(dv, pa, sdo);  // dV += bf16(P^T keep) dO
+        rs_product<D>(dk, da, sq);   // dK += bf16(dS^T) Q
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+      }
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+    // dK scale and dV through this warpgroup's rows of the item's K and V
+    // tiles (its products are done with them), then TMA; the tiles are
+    // then free for the item after next
+    uint8_t* kt = smem + L_::kKV0 + (n & 1) * 2 * L_::kKV;
+    frag_to_tile<D, NWG * 64>(kt, 64 * wg, dk, a.scale, f);
+    frag_to_tile<D, NWG * 64>(kt + L_::kKV, 64 * wg, dv, 1.f, f);
+    fence_async_shared();
+    named_sync(1 + wg, 128);
+    if (k0 < a.L) {
+      store_rows<D, NWG * 64>(&p.maps.out, sk, 64 * wg, k0, bh, tid & 127);
+      store_rows<D, NWG * 64>(&p.maps.out2, sv, 64 * wg, k0, bh, tid & 127);
+    }
+    if ((tid & 127) == 0) mbar_arrive(bar_kv_empty + 8 * (n & 1));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// #6 dq.  A work item is 64 NWG query rows of one (batch, head), numbered
+// and walked as #7's.  NWG consumer warpgroups own 64 query rows each
+// (their lse and delta in registers); one lane of the producer warpgroup
+// loads each item's Q and dO once (double-buffered) and rings the k tiles
+// (K, V) through S stages, all by TMA.
+// ---------------------------------------------------------------------------
+template <int D, int NWG, int S>
+struct DqSmem {
+  static constexpr int kQT = NWG * 64 * D * 2;  // a Q (or dO) tile
+  static constexpr int kT = 64 * D * 2;         // a K (or V) stage
+  // Q and dO of items n even, then odd: Q0 dO0 Q1 dO1
+  static constexpr int kQ0 = 0, kK = 4 * kQT, kV = kK + S * kT;
+  // q_full[2], q_empty[2], full[S], empty[S]
+  static constexpr int kBar = kV + S * kT;
+  static constexpr int kBytes = kBar + (4 + 2 * S) * 8;
+};
+
+template <int NWG>
+__device__ __forceinline__ bool any_rows_need(const Mask& m, int qb,
+                                              int k0) {
+  bool need = false;
+#pragma unroll
+  for (int w = 0; w < NWG; ++w) need |= m.needed(qb + 64 * w, k0);
+  return need;
+}
+
+template <int NWG>
+__device__ __forceinline__ void block_k_range(const Mask& m, int qb, int& lo,
+                                              int& hi) {
+  lo = 1 << 30;
+  hi = -1;
+#pragma unroll
+  for (int w = 0; w < NWG; ++w) {
+    int l, h;
+    k_range(m, qb + 64 * w, l, h);
+    if (l <= h) {
+      lo = min(lo, l);
+      hi = max(hi, h);
+    }
+  }
+  if (hi < 0) lo = 0;
+}
+
+// The element pass of #6 on S and dP (rows queries q0 + fr + 8 h, columns
+// keys k0 + fc + 8 j + e): P = exp(S scale - lse) (0 where masked), keep
+// from the hash, and da = bf16(P (dP keep - delta)) as A fragments; the
+// rows' neg_lse2, delta and pre-mixed hash in nl, dlt and qmix.  About 18
+// instructions an element with dropout (as #7's, less P keep).
+template <bool EDGE, bool DROP>
+__device__ __forceinline__ void dq_grads(const float (&s)[32], float (&dp)[32],
+                                         uint32_t (&da)[16], const Mask& m,
+                                         const Frag& f, int q0, int k0,
+                                         const float (&nl)[2],
+                                         const float (&dlt)[2], float sl2,
+                                         const uint32_t (&qmix)[2],
+                                         uint32_t thr, float ks) {
+  const uint32_t kb0 = (uint32_t)(k0 + f.fc) * 0x85EBCA77u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const uint32_t kbe = kb0 + (uint32_t)(8 * j + e) * 0x85EBCA77u;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int idx = 4 * j + 2 * h + e;
+        float p = fast_exp2(fmaf(s[idx], sl2, nl[h]));
+        if (EDGE && !m.valid(q0 + f.fr + 8 * h, k0 + f.fc + 8 * j + e))
+          p = 0.f;
+        float d = dp[idx];
+        if (DROP) d *= keep_of_mix(qmix[h] ^ kbe, thr, ks);
+        dp[idx] = p * (d - dlt[h]);
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) da[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
+}
+
+template <int D, int NWG, int S, bool DROP>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+flash_bwd_dq_sm90(const __grid_constant__ Sm90Args p) {
+  using L_ = DqSmem<D, NWG, S>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const Args& a = p.a;
+  const int n_qb = (a.L + 64 * NWG - 1) / (64 * NWG);
+  const int items = n_qb * p.BH;
+  const uint32_t bar_q = base + L_::kBar, bar_q_empty = bar_q + 16,
+                 bar_full = bar_q + 32, bar_empty = bar_full + 8 * S;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  if (tid == NWG * 128) prefetch_maps(p.maps);
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bar_q + 8 * b, 1);
+      mbar_init(bar_q_empty + 8 * b, NWG);  // thread 0 of each consumer
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4 * NWG);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {  // the producer warpgroup: one lane issues every load
+    if constexpr (NWG == 2) reg_dealloc<kProducerRegs>();
+    if (tid != NWG * 128) return;
+    int it = 0, n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int bh = item / n_qb, qb = item % n_qb * 64 * NWG;
+      const Mask m = mask_of(a, bh);
+      int lo, hi;
+      block_k_range<NWG>(m, qb, lo, hi);
+      // this item's Q and dO, once the item two back is done with them
+      const uint32_t q = bar_q + 8 * (n & 1);
+      mbar_wait(bar_q_empty + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
+      mbar_expect_tx(q, 2 * load_bytes<D, NWG>(qb, a.L));
+      load_rows<D, NWG>(base + L_::kQ0 + (n & 1) * 2 * L_::kQT, &p.maps.q,
+                        q, qb, bh, a.L);
+      load_rows<D, NWG>(base + L_::kQ0 + ((n & 1) * 2 + 1) * L_::kQT,
+                        &p.maps.dout, q, qb, bh, a.L);
+      for (int kt = lo; kt <= hi; ++kt) {
+        if (!any_rows_need<NWG>(m, qb, kt * 64)) continue;
+        const int s = it % S;
+        mbar_wait(bar_empty + 8 * s, ((it / S) & 1) ^ 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * L_::kT);
+        load_rows<D, 1>(base + L_::kK + s * L_::kT, &p.maps.k, full,
+                        kt * 64, bh, a.L);
+        load_rows<D, 1>(base + L_::kV + s * L_::kT, &p.maps.v, full,
+                        kt * 64, bh, a.L);
+        ++it;
+      }
+    }
+    return;
+  }
+  if constexpr (NWG == 2) reg_alloc<kConsumerRegs>();
+
+  // a consumer warpgroup: query rows [q0, q0 + 64) of each work item,
+  // their lse and delta in registers
+  const Frag f(tid & 127);
+  const float sl2 = a.scale * kLog2e;
+  int it = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int bh = item / n_qb, qb = item % n_qb * 64 * NWG;
+    const Mask m = mask_of(a, bh);
+    int lo, hi;
+    block_k_range<NWG>(m, qb, lo, hi);
+    const int q0 = qb + 64 * wg;
+    float nl[2], dlt[2];
+    uint32_t qmix[2] = {0u, 0u};
+    const uint32_t sb =
+        DROP ? (uint32_t)a.seed[0] + (uint32_t)bh * 0xC2B2AE3Du : 0u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gi = q0 + f.fr + 8 * h;
+      const size_t r = (size_t)bh * a.L + gi;
+      nl[h] = gi < a.L ? neg_lse2(static_cast<const float*>(a.lse_in)[r])
+                       : -INFINITY;
+      dlt[h] = gi < a.L ? static_cast<const float*>(a.delta)[r] : 0.f;
+      if (DROP) qmix[h] = (uint32_t)gi * 0x9E3779B1u ^ sb;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    const uint32_t sq = base + L_::kQ0 + (n & 1) * 2 * L_::kQT,
+                   sdo = sq + L_::kQT;
+    mbar_wait(bar_q + 8 * (n & 1), (n >> 1) & 1);
+    for (int kt = lo; kt <= hi; ++kt) {
+      const int k0 = kt * 64;
+      if (!any_rows_need<NWG>(m, qb, k0)) continue;
+      const int s = it % S;
+      mbar_wait(bar_full + 8 * s, (it / S) & 1);
+      ++it;
+      if (m.needed(q0, k0)) {
+        const uint32_t sk = base + L_::kK + s * L_::kT;
+        const uint32_t sv = base + L_::kV + s * L_::kT;
+        float sc[32], dp[32];
+        uint32_t da[16];
+        wgmma_fence();
+        ss_product<D, NWG * 64>(sc, sq, 64 * wg, sk);
+        ss_product<D, NWG * 64>(dp, sdo, 64 * wg, sv);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+        if (m.interior(q0, k0))
+          dq_grads<false, DROP>(sc, dp, da, m, f, q0, k0, nl, dlt, sl2, qmix,
+                                a.thr, a.ks);
+        else
+          dq_grads<true, DROP>(sc, dp, da, m, f, q0, k0, nl, dlt, sl2, qmix,
+                               a.thr, a.ks);
+        fence_regs(dq);
+        wgmma_fence();
+        rs_product<D>(dq, da, sk);  // dQ += bf16(dS) K
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+      }
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+    // dQ scale through this warpgroup's rows of the item's Q tile, then
+    // TMA; Q and dO are then free for the item after next
+    frag_to_tile<D, NWG * 64>(smem + L_::kQ0 + (n & 1) * 2 * L_::kQT,
+                              64 * wg, dq, a.scale, f);
+    fence_async_shared();
+    named_sync(1 + wg, 128);
+    if (q0 < a.L)
+      store_rows<D, NWG * 64>(&p.maps.out, sq, 64 * wg, q0, bh, tid & 127);
+    if ((tid & 127) == 0) mbar_arrive(bar_q_empty + 8 * (n & 1));
+  }
+}
+
+// the bf16 tensor maps of one backward launch: (D, L, BH) in boxes of
+// (min(D, 64), 64, 1), swizzled as their rows are wide
+int make_maps(BwdMaps& mp, const Args& a, int BH, int D, bool dq) {
+  const int cols = D < 64 ? D : 64;
+  const CUtensorMapSwizzle sw = cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                           : CU_TENSOR_MAP_SWIZZLE_64B;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)a.L,
+                              (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)a.L * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, 64, 1};
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int rc = mxt_tensor_map(&mp.q, bf, 3, a.q, dims, strides, box, sw);
+  if (!rc) rc = mxt_tensor_map(&mp.dout, bf, 3, a.dout, dims, strides, box, sw);
+  if (!rc) rc = mxt_tensor_map(&mp.k, bf, 3, a.k, dims, strides, box, sw);
+  if (!rc) rc = mxt_tensor_map(&mp.v, bf, 3, a.v, dims, strides, box, sw);
+  if (!rc)
+    rc = mxt_tensor_map(&mp.out, bf, 3, dq ? a.dq : a.dk, dims, strides, box,
+                        sw);
+  if (!rc && !dq)
+    rc = mxt_tensor_map(&mp.out2, bf, 3, a.dv, dims, strides, box, sw);
+  return rc;
+}
+
+// warpgroups and ring stages per kernel and head dim: two warpgroups
+// where their accumulators fit the registers (#7 at D 128 holds dK and dV
+// at 128 fp32 a thread: one), three stages where shared memory allows
+// the longest L at which the backward kernels run persistent
+constexpr int kPersistentL = 256;
+
+template <int D>
+struct Cfg {
+  static constexpr int kDkvWG = D == 128 ? 1 : 2;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+};
+
+template <int D, bool DROP>
+int launch_sm90(const Sm90Args& p, int BH, bool dq, cudaStream_t st) {
+  constexpr int S = Cfg<D>::kStages, WG7 = Cfg<D>::kDkvWG;
+  auto kernel = dq ? flash_bwd_dq_sm90<D, 2, S, DROP>
+                   : flash_bwd_dkv_sm90<D, WG7, S, DROP>;
+  const int nwg = dq ? 2 : WG7;
+  const int smem = (dq ? DqSmem<D, 2, S>::kBytes
+                       : DkvSmem<D, WG7, S>::kBytes) + 1024;
+  static bool attr_set[2] = {false, false};  // once per kernel
+  if (!attr_set[dq]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set[dq] = true;
+  }
+  int dev, sms;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  // Short rows: a block per SM walks several items, so one item's
+  // prologue (barriers, the first loads) overlaps another's products.
+  // Long rows: a block per item, which the hardware deals to SMs as they
+  // free up, evening out items the mask leaves uneven.
+  const int items = (p.a.L + 64 * nwg - 1) / (64 * nwg) * BH;
+  const int grid = p.a.L > kPersistentL || items < sms ? items : sms;
+  kernel<<<grid, (nwg + 1) * 128, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd_sm90(const Args& a, int BH, bool dq, cudaStream_t st) {
+  Sm90Args p;
+  p.a = a;
+  p.BH = BH;
+  const int rc = make_maps(p.maps, a, BH, D, dq);
+  if (rc) return rc;
+  return a.seed ? launch_sm90<D, true>(p, BH, dq, st)
+                : launch_sm90<D, false>(p, BH, dq, st);
+}
+
+// shared memory of each float32 kernel, in bytes
 template <int D>
 constexpr int smem_fwd() {
   return (3 * kTile * (D + 4) + kTile * kSP) * 4;
@@ -564,14 +1361,22 @@ constexpr int smem_dkv() {
 
 enum Which { kFwd, kDq, kDkv };
 
+// the CUDA-core kernels: the forward in both dtypes, the backward in
+// float32
 template <class T, int D, Which W>
 int launch(const Args& a, int BH, cudaStream_t st) {
-  auto kernel = W == kFwd  ? flash_fwd_kernel<T, D>
-                : W == kDq ? flash_bwd_dq_kernel<T, D>
-                           : flash_bwd_dkv_kernel<T, D>;
-  constexpr int smem = W == kFwd  ? smem_fwd<D>()
-                       : W == kDq ? smem_dq<D>()
-                                  : smem_dkv<D>();
+  void (*kernel)(Args);
+  int smem;
+  if constexpr (W == kFwd) {
+    kernel = flash_fwd_kernel<T, D>;
+    smem = smem_fwd<D>();
+  } else if constexpr (W == kDq) {
+    kernel = flash_bwd_dq_kernel<D>;
+    smem = smem_dq<D>();
+  } else {
+    kernel = flash_bwd_dkv_kernel<D>;
+    smem = smem_dkv<D>();
+  }
   static bool attr_set = false;  // once per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -590,10 +1395,14 @@ int dispatch(const Args& a, int BH, int D, int dtype, cudaStream_t st) {
     if (D == 32) return launch<float, 32, W>(a, BH, st);
     if (D == 64) return launch<float, 64, W>(a, BH, st);
     if (D == 128) return launch<float, 128, W>(a, BH, st);
+  } else if (W == kFwd) {
+    if (D == 32) return launch<__nv_bfloat16, 32, kFwd>(a, BH, st);
+    if (D == 64) return launch<__nv_bfloat16, 64, kFwd>(a, BH, st);
+    if (D == 128) return launch<__nv_bfloat16, 128, kFwd>(a, BH, st);
   } else {
-    if (D == 32) return launch<__nv_bfloat16, 32, W>(a, BH, st);
-    if (D == 64) return launch<__nv_bfloat16, 64, W>(a, BH, st);
-    if (D == 128) return launch<__nv_bfloat16, 128, W>(a, BH, st);
+    if (D == 32) return bwd_sm90<32>(a, BH, W == kDq, st);
+    if (D == 64) return bwd_sm90<64>(a, BH, W == kDq, st);
+    if (D == 128) return bwd_sm90<128>(a, BH, W == kDq, st);
   }
   return (int)cudaErrorInvalidValue;
 }

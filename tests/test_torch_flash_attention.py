@@ -13,7 +13,9 @@ versions).
   ``kv_length`` with a row of length 0, in fp32 (L 64, 32 x 32 tiles on
   the JAX side) and bf16 (L 48, 16 x 16 tiles);
 - gradients against ``jax.grad`` through the interpret kernel (causal
-  with ``kv_length``; a window in the dropout test);
+  with ``kv_length`` and a row of length 0, fp32 and bf16, dropout 0 and
+  0.1; a window in the dropout test), in bf16 pinning the backward's
+  roundings of P keep and dS to bf16;
 - the dropout keep bits equal to JAX's ``hash_keep_bits(seed, bh, i, j)``
   in every element, and the dropout output and gradients against the
   interpret kernel at the same seed;
@@ -110,20 +112,22 @@ def test_forward_and_lse_match_jax(shape, block, dtype, mask):
         assert np.all(out.float().numpy()[1] == 0)
 
 
-def jax_grads(q, k, v, g, block, **kw):
+def jax_grads(q, k, v, g, block, jdt=jnp.float32, **kw):
     def loss(a, b, c):
         out = jfa.flash_attention_tpu(a, b, c, block_q=block, block_k=block,
                                       interpret=True, **kw)
-        return jnp.sum(out * g)
-    jq = [jnp.asarray(a) for a in (q, k, v)]
-    return [np.asarray(t) for t in jax.grad(loss, argnums=(0, 1, 2))(*jq)]
+        return jnp.sum(out.astype(jnp.float32) * g)
+    jq = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    return [np.asarray(t.astype(jnp.float32))
+            for t in jax.grad(loss, argnums=(0, 1, 2))(*jq)]
 
 
-def port_grads(q, k, v, g, **kw):
-    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+def port_grads(q, k, v, g, tdt=torch.float32, **kw):
+    leaves = [torch.tensor(a).to(tdt).requires_grad_() for a in (q, k, v)]
     out = tfa.flash_attention(*leaves, **kw)
-    out.backward(torch.tensor(g))
-    return out.detach().numpy(), [t.grad.numpy() for t in leaves]
+    out.backward(torch.tensor(g).to(tdt))
+    return (out.detach().float().numpy(),
+            [t.grad.float().numpy() for t in leaves])
 
 
 def close_grads(got, want):
@@ -134,12 +138,31 @@ def close_grads(got, want):
                                    atol=1e-4 * np.abs(b).max())
 
 
-def test_gradients_match_jax():
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gradients_match_jax(dtype, rate):
+    """Causal with kv_length (37, 0): a batch row with no valid key; at
+    dropout 0.1 the same seed on both sides.  In bfloat16 both backward
+    passes round P keep to bf16 before the dV product and dS before the dK
+    and dQ products (flash_attention.py:300, 355, 361): the gradients must
+    agree within one bf16 step (2**-8) of the largest element.  They agree
+    exactly here; leaving out the roundings moves some gradient by more
+    than that, so the tolerance pins them."""
+    jdt, tdt = _DT[dtype]
     q, k, v, g = inputs((2, 2, 64, 16), seed=1, n=4)
-    want = jax_grads(q, k, v, g, 64, causal=True, kv_length=[37, 0])
-    _, got = port_grads(q, k, v, g, causal=True,
-                        kv_length=torch.tensor([37, 0]))
-    close_grads(got, want)
+    kw = dict(causal=True, dropout=rate)
+    seed = 0xDEADBEEF
+    jkw = dict(kw, seed=jnp.uint32(seed)) if rate else kw
+    want = jax_grads(q, k, v, g, 64, jdt, kv_length=[37, 0], **jkw)
+    _, got = port_grads(q, k, v, g, tdt, seed=seed if rate else None,
+                        kv_length=torch.tensor([37, 0]), **kw)
+    if dtype == "float32":
+        close_grads(got, want)
+    else:
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=2.0 ** -8 * np.abs(b).max())
+    assert not np.any(got[0][1])      # the row without keys: no gradient
 
 
 @pytest.mark.parametrize("seed", [0, 2 ** 31, 2 ** 32 - 1])
