@@ -861,7 +861,7 @@ def check_flash_sass(libs):
         log("SASS %s: %s, atomics %d" % (fn[-60:], want, atomics))
         if not all(want.values()) or atomics:
             bad.append(fn)
-    if len(census) != 12 or bad:
+    if len(census) != 12 or bad:  # 2 kernels x 3 head dims x dropout
         raise AssertionError("flash bf16 backward SASS: %d kernels, without "
                              "wgmma/TMA or with atomics: %s"
                              % (len(census), bad))
