@@ -104,6 +104,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -632,6 +633,8 @@ FLASH_SHAPES = ((32, 12, 128), (4, 12, 2048), (2, 6, 200))
 #: head dims of the flash checks per dtype (bf16 also at D 32, which the
 #: bf16 backward builds as its own instantiation)
 FLASH_DIMS = {"float32": (64, 128), "bfloat16": (32, 64, 128)}
+#: the spin kernel's cycles before each timed flash launch (~0.5 ms)
+FLASH_SPIN = 1_000_000
 
 
 def rel_err(a, b):
@@ -735,7 +738,8 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
     g = torch.Generator(device=DEV).manual_seed(12)
     q, k, v, do = (torch.randn(B, H, L, D, device=DEV, generator=g).to(dt)
                    for _ in range(4))
-    kvl = pretrain_batch(torch, 0, B, L, DEV)["valid"]
+    # int32, as flash_attention hands it to the kernels (no cast per call)
+    kvl = pretrain_batch(torch, 0, B, L, DEV)["valid"].to(torch.int32)
     seed = torch.randint(0, 2 ** 32, (1,), dtype=torch.int64, device=DEV,
                          generator=g)
     kw = dict(dropout=0.1, seed=seed, kv_length=kvl)
@@ -771,7 +775,10 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
              lambda: fa.flash_attention_bwd_dkv_plain(*bwd, **kw),
              8 * keys * D, 6 * B * H * L * D * elt + 2 * B * H * L * 4,
              max(errs["dk"], errs["dv"]))):
-        ms = timer(fn)
+        # each wrapper's Python (checks, strides, allocations) takes tens
+        # of us to enqueue on a loaded host: spin ~0.5 ms so the card's
+        # time is timed
+        ms = timer(fn, spin=FLASH_SPIN)
         plain_ms = timer(plain)
         bms, by = bound(nbytes, flops, peak)
         lib = lib_fwd if name.endswith("fwd") else lib_bwd
@@ -791,17 +798,26 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
         fixed = {"flash_attention_bwd_dq": timer(
                      lambda: fa.flash_attention_bwd_dq(*bwd, dropout=0.1,
                                                        seed=seed,
-                                                       kv_length=z)),
+                                                       kv_length=z),
+                     spin=FLASH_SPIN),
                  "flash_attention_bwd_dkv": timer(
                      lambda: fa.flash_attention_bwd_dkv(*bwd, dropout=0.1,
                                                         seed=seed,
-                                                        kv_length=z))}
+                                                        kv_length=z),
+                     spin=FLASH_SPIN)}
         log("bf16 backward with every kv_length 0 (B %d, H %d, L %d, D %d), "
             "the launches' fixed part: dq %.4f ms, dkv %.4f ms"
             % (B, H, L, D, fixed["flash_attention_bwd_dq"],
                fixed["flash_attention_bwd_dkv"]))
         for name, ms in fixed.items():
             rows[name]["fixed_ms"] = ms
+        # the forward's hash share: the same call at dropout 0
+        rate0 = timer(lambda: fa.flash_attention_fwd(q, k, v, kv_length=kvl),
+                      spin=FLASH_SPIN)
+        log("bf16 forward at dropout 0 (B %d, H %d, L %d, D %d): %.4f ms, "
+            "at 0.1 %.4f ms" % (B, H, L, D, rate0,
+                                rows["flash_attention_fwd"]["ms"]))
+        rows["flash_attention_fwd"]["rate0_ms"] = rate0
     # the layout copy in front of the kernels: q, k, v made contiguous
     # after BERT's head permute of the (B, L, 3, H, D) projection
     qkv = torch.randn(B, L, 3, H, D, device=DEV, generator=g).to(dt).permute(
@@ -851,8 +867,9 @@ def sass_census(path, marker):
 
 
 def check_flash_sass(libs):
-    """The bf16 backward kernels issue wgmma (HGMMA), load by TMA
-    (UTMALDG), store by TMA (UTMASTG) and hold no atomic."""
+    """The bf16 flash kernels (#5 forward, #6 and #7 backward) issue wgmma
+    (HGMMA), load by TMA (UTMALDG), store by TMA (UTMASTG) and hold no
+    atomic."""
     census = sass_census(libs["flash_attention"], "_sm90")
     bad = []
     for fn, ops in sorted(census.items()):
@@ -861,10 +878,75 @@ def check_flash_sass(libs):
         log("SASS %s: %s, atomics %d" % (fn[-60:], want, atomics))
         if not all(want.values()) or atomics:
             bad.append(fn)
-    if len(census) != 12 or bad:  # 2 kernels x 3 head dims x dropout
-        raise AssertionError("flash bf16 backward SASS: %d kernels, without "
-                             "wgmma/TMA or with atomics: %s"
-                             % (len(census), bad))
+    forward = sum("flash_fwd_sm90" in fn for fn in census)
+    # 3 kernels (#5, #6, #7) x 3 head dims x dropout on or off
+    if len(census) != 18 or forward != 6 or bad:
+        raise AssertionError("flash bf16 SASS: %d kernels (%d forward), "
+                             "without wgmma/TMA or with atomics: %s"
+                             % (len(census), forward, bad))
+
+
+def check_flash_strided(torch, fa):
+    """#5 on strided views equals #5 on their contiguous copies exactly
+    (``torch.equal``), in float32 and bfloat16: q, k and v as BERT's head
+    permute of a (B, L, 3, H, D) projection and as head slices, the
+    kernel reading them where they lie; a view the kernel cannot read in
+    place (an expanded, a misaligned one) is copied.  ``out=`` and
+    ``lse=`` into slices of larger buffers write those slices and nothing
+    else."""
+    g = torch.Generator(device=DEV).manual_seed(16)
+    B, H, L, D = 4, 12, 200, 64
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(B, L, 3, H, D, device=DEV, generator=g).to(dt)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        whole = torch.randn(3, B, H + 4, L, D, device=DEV, generator=g).to(dt)
+        heads = whole[:, :, 2:H + 2]
+        odd = torch.randn(B * H * L * D + 1, device=DEV, generator=g).to(dt)
+        odd = odd[1:].view(B, H, L, D)          # 2 or 4 bytes off alignment
+        kvl = torch.randint(1, L + 1, (B,), device=DEV, generator=g)
+        seed = torch.randint(0, 2 ** 32, (1,), dtype=torch.int64, device=DEV,
+                             generator=g)
+        cases = (("permuted qkv", (q, k, v), True),
+                 ("head slices", tuple(heads), True),
+                 ("expanded k", (q, k[:, :1].expand(B, H, L, D), v), False),
+                 ("misaligned q", (odd, k, v), False))
+        for label, views, in_place in cases:
+            if all(fa._strided_ok(t) for t in views) != in_place:
+                raise AssertionError("_strided_ok(%s) is not %s"
+                                     % (label, in_place))
+            for kw in (dict(causal=True), dict(kv_length=kvl, dropout=0.1,
+                                               seed=seed)):
+                got = fa.flash_attention_fwd(*views, **kw)
+                want = fa.flash_attention_fwd(
+                    *(t.contiguous() for t in views), **kw)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError("flash_attention_fwd on %s %s %s "
+                                         "differs from its contiguous copy"
+                                         % (label, str(dt)[6:], kw))
+                n += 1
+        # out= and lse= into slices of larger buffers
+        out_buf = torch.full((B + 1, H + 2, L, D), float("nan"), device=DEV,
+                             dtype=dt)
+        lse_buf = torch.full((B + 1, H + 2, L), float("nan"), device=DEV)
+        out_v, lse_v = out_buf[1:, 1:H + 1], lse_buf[1:, 1:H + 1]
+        got = fa.flash_attention_fwd(q, k, v, causal=True, out=out_v,
+                                     lse=lse_v)
+        want = fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=True)
+        inside = torch.zeros_like(lse_buf, dtype=torch.bool)
+        inside[1:, 1:H + 1] = True
+        if not (got[0].data_ptr() == out_v.data_ptr()
+                and torch.equal(out_v, want[0])
+                and torch.equal(lse_v, want[1])
+                and bool(out_buf[~inside].isnan().all())
+                and bool(lse_buf[~inside].isnan().all())):
+            raise AssertionError("flash_attention_fwd out=/lse= %s wrote "
+                                 "other than its slices" % str(dt)[6:])
+        n += 1
+    log("flash_attention_fwd on strided views (B %d, H %d, L %d, D %d): %d "
+        "cases equal their contiguous copies exactly; out=/lse= write only "
+        "their slices" % (B, H, L, D, n))
 
 
 def check_flash_attention(torch, timer, report):
@@ -895,7 +977,22 @@ def check_flash_attention(torch, timer, report):
         "(tol fp32 %g, bf16 %g, bf16 vs autograd %g)"
         % (n, json.dumps(worst), TOL_FLASH_F32, TOL_FLASH_BF16,
            TOL_FLASH_GRAD_BF16))
+    # a negative scale: the bf16 kernel takes its running max over -S
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(2, 6, 200, 64, device=DEV, generator=g).to(dt)
+                   for _ in range(3))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True, scale=-0.125)
+        pout, plse = fa.flash_attention_plain(q, k, v, causal=True,
+                                              scale=-0.125)
+        tol = TOL_FLASH_F32 if dt == torch.float32 else TOL_FLASH_BF16
+        err = max(rel_err(out, pout), float((lse - plse).abs().max()))
+        log("flash_attention_fwd scale -0.125 %s: max err %.3g (tol %g)"
+            % (str(dt)[6:], err, tol))
+        if not err <= tol:
+            raise AssertionError("flash_attention_fwd with a negative scale "
+                                 "disagrees: %g" % err)
     check_flash_mask(torch, fa)
+    check_flash_strided(torch, fa)
     flash_timing(torch, fa, timer, torch.float32, report)
     report["flash_bf16"] = flash_timing(torch, fa, timer, torch.bfloat16,
                                         report)
@@ -1261,13 +1358,34 @@ def check_tp_phases(torch, timer, report, lm, lm_gqa):
     report["tp_phases"] = rows
 
 
+def per_shard_causal(torch, q, k, v, dp, tp):
+    """The #16 route composed per shard, as it ran before it wrote its
+    shards in place: contiguous slices, the scale folded into q in q's
+    dtype, ``flash_attention``, then two concats."""
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    B, H, _, D = q.shape
+    Bl, Hl, s = B // dp, H // tp, 1.0 / math.sqrt(D)
+    rows = []
+    for d in range(dp):
+        heads = []
+        for t in range(tp):
+            qs, ks, vs = (x[d * Bl:(d + 1) * Bl, t * Hl:(t + 1) * Hl]
+                          for x in (q, k, v))
+            heads.append(fa.flash_attention((qs * s).to(qs.dtype), ks, vs,
+                                            causal=True, scale=1.0))
+        rows.append(torch.cat(heads, dim=1))
+    return torch.cat(rows, dim=0)
+
+
 def check_sharded_attention(torch, timer, report):
     """The #16 route: ``flash_attention_sharded`` on a (dp 2, tp 2) mesh at
     the training shape (B 32, H 12, L 128, D 64), causal, fp32 and bf16:
-    held against ``flash_attention_plain(causal=True)`` on the whole
-    tensors and against the unsharded kernel #5; dp * tp launches of #5
-    per call; its gradient against the unsharded kernels' at dropout 0.
-    Timed beside the plain version and SDPA (is_causal)."""
+    its output and gradients equal, bit for bit, the per-shard composition
+    it replaced (``per_shard_causal``), and are held against
+    ``flash_attention_plain(causal=True)`` on the whole tensors and
+    against the unsharded kernel #5; dp * tp launches of #5 per call; its
+    gradient against the unsharded kernels' at dropout 0.  Timed beside
+    the plain version and SDPA (is_causal)."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
@@ -1298,14 +1416,22 @@ def check_sharded_attention(torch, timer, report):
             *ls, cfg, causal=True), ls, do)
         gw = torch.autograd.grad(att.flash_attention(*lw, causal=True), lw,
                                  do)
+        lc = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        comp = per_shard_causal(torch, *lc, *SHARDED_MESH)
+        gc = torch.autograd.grad(comp, lc, do)
+        if not (torch.equal(out, comp.detach())
+                and all(torch.equal(a, b) for a, b in zip(gs, gc))):
+            raise AssertionError("flash_attention_sharded %s: output or "
+                                 "gradients differ from the per-shard "
+                                 "composition" % str(dt)[6:])
         errs = dict(plain=rel_err(out, plain), whole=rel_err(out, whole),
                     grad=max(rel_err(a, b) for a, b in zip(gs, gw)))
         f32 = dt == torch.float32
         tol = TOL_FLASH_F32 if f32 else TOL_FLASH_BF16
         tol_g = TOL_FLASH_F32 if f32 else TOL_FLASH_GRAD_BF16
-        # the route enqueues ~25 ops (slices, copies, the scale, four
-        # launches, the concat) and the plain version ~12: spin ~2 ms so
-        # the card's time is timed, not the host's enqueue
+        # the route enqueues the scale, two allocations and four launches
+        # (each through its wrapper's Python), the plain version ~12 ops:
+        # spin ~2 ms so the card's time is timed, not the host's enqueue
         ms = timer(lambda: att.flash_attention_sharded(q, k, v, cfg,
                                                        causal=True),
                    spin=4_000_000)
@@ -1325,6 +1451,9 @@ def check_sharded_attention(torch, timer, report):
             % (SHARDED_MESH + (B, H, L, D, str(dt)[6:], n_fwd, errs["plain"],
                                errs["whole"], tol, errs["grad"], tol_g, ms,
                                plain_ms, bms, by, lib)))
+        log("flash_attention_sharded %s: output and gradients equal the "
+            "per-shard composition (slices, scale, flash_attention, concat) "
+            "bit for bit" % str(dt)[6:])
         if not (errs["plain"] <= tol and errs["whole"] <= tol
                 and errs["grad"] <= tol_g):
             raise AssertionError("flash_attention_sharded disagrees: %s"

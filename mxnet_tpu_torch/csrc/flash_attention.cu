@@ -8,8 +8,9 @@
 //             dQ = dS K * scale
 //   dk, dv    dV = (P * keep)^T dO;  dK = dS^T Q * scale
 //
-// q, k, v, out, dO, dq, dk, dv: (BH, L, D), contiguous, float32 or
-// bfloat16, D in {32, 64, 128}; lse and delta = sum_d dO * O: (BH, L)
+// q, k, v, out, dO, dq, dk, dv: (BH, L, D), float32 or bfloat16, D in
+// {32, 64, 128}, contiguous but for the forward's, which are (B, H, L, D)
+// views at any strides TMA admits; lse and delta = sum_d dO * O: (BH, L)
 // float32.  The mask is the JAX kernel's (_block_mask, :49): key j of row i
 // is valid when j < min(kv_length[bh / H], L), and j <= i when causal, and
 // |i - j| <= window when banded.  keep is the dropout multiplier of the
@@ -22,36 +23,40 @@
 // -1e30 sentinel alone would give such a row exp(0) = 1 on every masked
 // key of a visited tile, so its output would depend on the tiling.
 //
-// Two designs.  The forward (#5) in both dtypes and the float32 backward
-// run on the CUDA cores: a block of 256 threads owns one 64-row tile of
-// one (batch, head) and loops over the 64-wide tiles of the other side,
-// skipping tiles the mask rules out (_block_needed, :69) and the
-// per-element mask on interior tiles (_block_boundary, :86).  The tiles
-// sit in shared memory as float32 (a bf16 input is widened on load), rows
-// padded by 4 floats so the 16-byte loads below hit distinct banks.
-// Thread (ty, tx) = (tid / 16, tid % 16) owns score rows 4 ty .. 4 ty + 3
-// and columns tx + 16 c (c < 4) of a 64 x 64 tile; the row reductions of
-// the online softmax are shuffles across the 16 lanes of a row group.  The
-// products are fp32 FMAs; in bfloat16 the forward rounds P to bf16 before
-// P V, as the JAX kernel casts (:200).  At BERT-base training shapes (L
-// 128, D 64) the kernels do 4, 6 and 8 BH L^2 D flops over 4, 5 and 6 BH L
-// D elements read or written: L / 4 = 32 flops per fp32 byte, above the 20
-// where the fp32 peak (67 TFLOP/s) and not memory (3.35 TB/s) bounds.
+// Two designs.  The float32 kernels run on the CUDA cores: a block of 256
+// threads owns one 64-row tile of one (batch, head) and loops over the
+// 64-wide tiles of the other side, skipping tiles the mask rules out
+// (_block_needed, :69) and the per-element mask on interior tiles
+// (_block_boundary, :86).  The tiles sit in shared memory, rows padded by
+// 4 floats so the 16-byte loads below hit distinct banks.  Thread (ty,
+// tx) = (tid / 16, tid % 16) owns score rows 4 ty .. 4 ty + 3 and columns
+// tx + 16 c (c < 4) of a 64 x 64 tile; the row reductions of the online
+// softmax are shuffles across the 16 lanes of a row group.  At BERT-base
+// training shapes (L 128, D 64) the kernels do 4, 6 and 8 BH L^2 D flops
+// over 4, 5 and 6 BH L D elements read or written: L / 4 = 32 flops per
+// fp32 byte, above the 20 where the fp32 peak (67 TFLOP/s) and not
+// memory (3.35 TB/s) bounds.
 //
-// The bfloat16 backward (#6 dq, #7 dk and dv) is built for Hopper's tensor
-// cores (sm90.cuh has the building blocks):
-// - Products on wgmma: S (S^T in #7) and dP (dP^T) as m64n64k16 with both
-//   operands K-major in shared memory; dV, dK and dQ with A from registers
-//   (the fp32 accumulator of P keep or dS, rounded to bf16, is already the
-//   A fragment of four k16 steps) and B the q-side (#7) or K (#6) tile read
-//   MN-major, the transpose bit set.  P keep is rounded to bf16 before dV,
-//   and dS before dK and dQ, as the JAX kernel casts (:300, :355, :361).
-// - Tiles by TMA over (D, L, BH) tensor maps in 64-row boxes, 128-byte
-//   swizzled (64-byte at D 32; at D 128 two 64-column boxes, since a
-//   swizzled box row is at most 128 bytes); rows past L read as 0 within
-//   their (batch, head).  One lane of a producer warpgroup loads the
-//   block's own side once a work item (double-buffered across items) and
-//   rings the other side through 3 stages (2 at D 128) on mbarriers;
+// The bfloat16 kernels (#5 forward, #6 dq, #7 dk and dv) are built for
+// Hopper's tensor cores (sm90.cuh has the building blocks):
+// - Products on wgmma, m64n64k16: S (S^T in #7) and dP (dP^T) with K (the
+//   q side in #7) read K-major from shared memory, and the other operand
+//   K-major from shared memory too (#6, #7) or, in #5, the warpgroup's Q
+//   rows held in registers as A fragments for the whole item; O (#5), dV,
+//   dK and dQ with A from registers (the fp32 accumulator of P keep or dS,
+//   rounded to bf16, is already the A fragment of four k16 steps) and B
+//   the V (#5), q-side (#7) or K (#6) tile read MN-major, the transpose
+//   bit set.  P keep is rounded to bf16 before O and dV, and dS before dK
+//   and dQ, as the JAX kernel casts (:200, :300, :355, :361).
+// - Tiles by TMA in 64-row boxes, 128-byte swizzled (64-byte at D 32; at
+//   D 128 two 64-column boxes, since a swizzled box row is at most 128
+//   bytes); rows past L read as 0 within their (batch, head).  The
+//   backward's maps are (D, L, BH) over contiguous tensors; the forward's
+//   are (D, L, H, B) at the caller's strides, so a head slice or BERT's
+//   permuted (B, L, 3, H, D) projection is read, and the output written,
+//   where it lies.  One lane of a producer warpgroup loads the block's own
+//   side once a work item (double-buffered across items) and rings the
+//   other side through 3 stages (2 in #6 and #7 at D 128) on mbarriers;
 //   #7's lse and delta come into each stage by the producer warp's lanes
 //   (a TMA box of float32 rows may not start where L * 4 is not a multiple
 //   of 16 bytes), #6's sit in registers.  The producer warpgroup hands its
@@ -61,27 +66,38 @@
 //   out for its rows and applies the per-element mask on edge tiles only.
 //   Each block owns its rows, so there are no atomics and the result does
 //   not depend on the order blocks run in.
+// - #5's online softmax runs on the S accumulator in registers: each
+//   thread holds 16 scores of each of two rows, reduced over the four
+//   lanes that share a row by two shuffles; the running max is kept in
+//   base 2 (S |scale| log2 e, S negated for a negative scale), the
+//   exponent is one FMA and the SFU's ex2, and O is rescaled only where
+//   some row of the warp moved its max.  The masked-row sentinel -1e30
+//   keeps a row with no valid key yet from making its rescale NaN, and
+//   the normalizer sums the undropped P (:193).
 // - Outputs leave through shared memory (the warpgroup's rows of the tile
-//   it has finished with, in the swizzled layout) and a TMA store.
+//   it has finished with, in the swizzled layout) and a TMA store; #5's
+//   lse (natural log) by plain stores.
 // - The grid is persistent (a block per SM walking items) where rows are
 //   short (L <= 256), so one item's prologue overlaps another's products;
 //   at longer L a block per item, which the hardware balances.
 //
 // Bound on the card, bf16.  At the training shape (B 32, H 12, L 128, D
-// 64, the batch's kv_length) #6 reads and writes 31.9 MB, 0.0095 ms at
-// 3.35 TB/s, over its 1.85 GFLOP (0.0019 ms at 989 TFLOP/s), and #7 38.1
-// MB: bytes bound.  There a launch's fixed part (prologue, first loads
-// from a cold L2, the TMA stores: chip_smoke.py times the kernels with
-// every kv_length 0) takes most of the time.  At the long shape (B 4, L
-// 2048) #6 and #7 need 60.6 and 80.8 GFLOP, 0.061 and 0.082 ms: operations
-// bound.  There the element pass sets the pace, not the tensor cores:
-// about 20 instructions an element with dropout (2 for the exponent, 12
-// for the hash and its keep multiplier, 9 of them integer at half the FP32
-// rate, 5 for P keep and dS, 1 for the bf16 packs; #6 about 18), ~0.23
-// SM-cycles an element at 128 lanes a cycle, against 0.12 SM-cycles of
-// wgmma (8 D flops an element at 989 TFLOP/s over 132 SMs; #6 0.09).  The
-// design hoists the hash's per-row and per-column products out of the
-// element loop, skips the hash at dropout 0, and runs the exponent on the
+// 64, the batch's kv_length) #5 reads and writes 25.4 MB, 0.0076 ms at
+// 3.35 TB/s, #6 31.9 MB and #7 38.1 MB, over 1.2 to 2.5 GFLOP (at most
+// 0.0025 ms at 989 TFLOP/s): bytes bound.  There a launch's fixed part
+// (prologue, first loads from a cold L2, the TMA stores: chip_smoke.py
+// times the backward with every kv_length 0) takes most of the time.  At
+// the long shape (B 4, L 2048) #5, #6 and #7 need 40.4, 60.6 and 80.8
+// GFLOP, 0.041, 0.061 and 0.082 ms: operations bound.  There the element
+// pass sets the pace, not the tensor cores.  #5 spends about 17
+// instructions an element at dropout 0.1: the max, 2 for the exponent, the
+// sum, half a bf16 pack, 12 for the hash and its keep multiplier (9 of
+// them integer, at half the FP32 rate), ~0.2 SM-cycles an element at 128
+// lanes a cycle, against 0.06 SM-cycles of wgmma (4 D flops an element at
+// 989 TFLOP/s over 132 SMs); #7 about 20 and #6 18 against 0.12 and 0.09.
+// At dropout 0 the ex2, 16 a cycle on an SM, is about the wgmma's time.
+// The designs hoist the hash's per-row and per-column products out of the
+// element loop, skip the hash at dropout 0, and run the exponent on the
 // SFU; two consumer warpgroups per SM overlap one's element pass with the
 // other's wgmma.
 #include <cuda_bf16.h>
@@ -102,60 +118,21 @@ constexpr float kMasked = -1e30f;
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  return make_float4(__low2float(a), __high2float(a), __low2float(b),
-                     __high2float(b));
-}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
-}
 
-template <class T>
-__device__ __forceinline__ T cvt(float v);
-template <>
-__device__ __forceinline__ float cvt<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// the value a cast to the input dtype and back gives (bf16: round to
-// nearest even; float32: unchanged)
-template <class T>
-__device__ __forceinline__ float round_as(float v);
-template <>
-__device__ __forceinline__ float round_as<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float round_as<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// rows [row0, row0 + 64) of a (L, D) matrix into shared memory as float32,
-// row stride D + 4; rows at or past L read as 0
-template <class T, int D>
-__device__ __forceinline__ void load_tile(float* sm, const T* g, int row0,
-                                          int L) {
+// rows [row0, row0 + 64) of an (L, D) matrix whose rows lie `rs` floats
+// apart into shared memory, row stride D + 4; rows at or past L read as 0
+template <int D>
+__device__ __forceinline__ void load_tile(float* sm, const float* g, int row0,
+                                          int L, long long rs) {
   constexpr int C4 = D / 4, SD = D + 4;
   for (int idx = threadIdx.x; idx < kTile * C4; idx += kThreads) {
     const int r = idx / C4, c = (idx - r * C4) * 4;
     const int gr = row0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gr < L) v = load4(g + (size_t)gr * D + c);
+    if (gr < L) v = load4(g + gr * rs + c);
     store4(sm + r * SD + c, v);
   }
 }
@@ -281,6 +258,15 @@ struct Mask {
   }
 };
 
+// where the rows of (batch b, head h) of a (B, H, L, D) tensor lie, in
+// elements: row i of (b, h) starts at b * sb + h * sh + i * sl
+struct Strides {
+  long long sb, sh, sl;
+  __device__ long long at(int bh, int H) const {
+    return (long long)(bh / H) * sb + (long long)(bh % H) * sh;
+  }
+};
+
 struct Args {
   const void *q, *k, *v, *dout, *lse_in, *delta;
   const long long* seed;  // one int64 holding the uint32 seed, or null
@@ -291,6 +277,9 @@ struct Args {
   int causal, window;
   uint32_t thr;
   float ks;
+  // the forward's q, k, v, out and lse (sl unused: 1) in the caller's
+  // layout; the backward reads and writes contiguous (BH, L, D) tensors
+  Strides sq, sk, sv, so, slse;
 };
 
 __device__ __forceinline__ Mask mask_of(const Args& a, int bh) {
@@ -339,9 +328,10 @@ __device__ __forceinline__ void q_range(const Mask& m, int k0, int& lo,
 }
 
 // ---------------------------------------------------------------------------
-// #5 forward: grid (q tiles, BH)
+// #5 forward in float32: grid (q tiles, BH), q, k, v and out at their
+// strides
 // ---------------------------------------------------------------------------
-template <class T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(Args a) {
   constexpr int SD = D + 4, N = D / 16;
@@ -352,10 +342,12 @@ flash_fwd_kernel(Args a) {
   float* sp = sv + kTile * SD;
   const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t base = (size_t)bh * a.L * D;
+  const float* kg = static_cast<const float*>(a.k) + a.sk.at(bh, a.H);
+  const float* vg = static_cast<const float*>(a.v) + a.sv.at(bh, a.H);
   const Mask m = mask_of(a, bh);
   const uint32_t seed = a.seed ? (uint32_t)a.seed[0] : 0u;
-  load_tile<T, D>(sq, static_cast<const T*>(a.q) + base, q0, a.L);
+  load_tile<D>(sq, static_cast<const float*>(a.q) + a.sq.at(bh, a.H), q0,
+               a.L, a.sq.sl);
 
   float mx[4], l[4], acc[4][N];
 #pragma unroll
@@ -371,8 +363,8 @@ flash_fwd_kernel(Args a) {
     const int k0 = kt * kTile;
     if (!m.needed(q0, k0)) continue;
     __syncthreads();  // the last tile's reads of sk, sv, sp are done
-    load_tile<T, D>(sk, static_cast<const T*>(a.k) + base, k0, a.L);
-    load_tile<T, D>(sv, static_cast<const T*>(a.v) + base, k0, a.L);
+    load_tile<D>(sk, kg, k0, a.L, a.sk.sl);
+    load_tile<D>(sv, vg, k0, a.L, a.sv.sl);
     __syncthreads();
     float s[4][4];
     dot_tile<D>(s, sq, sk, ty, tx);
@@ -402,7 +394,7 @@ flash_fwd_kernel(Args a) {
       for (int c = 0; c < 4; ++c) {
         float pd = p[c];
         if (a.seed) pd *= keep_of(a, seed, bh, gi, k0 + tx + 16 * c);
-        sp[(ty * 4 + i) * kSP + tx + 16 * c] = round_as<T>(pd);
+        sp[(ty * 4 + i) * kSP + tx + 16 * c] = pd;
       }
 #pragma unroll
       for (int n = 0; n < N; ++n) acc[i][n] *= alpha;
@@ -410,8 +402,8 @@ flash_fwd_kernel(Args a) {
     __syncthreads();
     acc_pv<D>(acc, sp, sv, ty, tx);
   }
-  T* out = static_cast<T*>(a.out) + base;
-  float* lse = static_cast<float*>(a.lse_out) + (size_t)bh * a.L;
+  float* out = static_cast<float*>(a.out) + a.so.at(bh, a.H);
+  float* lse = static_cast<float*>(a.lse_out) + a.slse.at(bh, a.H);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gi = q0 + ty * 4 + i;
@@ -421,15 +413,15 @@ flash_fwd_kernel(Args a) {
     float o[N];
 #pragma unroll
     for (int n = 0; n < N; ++n) o[n] = acc[i][n] / den;
+    float* row = out + gi * a.so.sl;
     if constexpr (D == 32) {
-      out[(size_t)gi * D + tx * 2] = cvt<T>(o[0]);
-      out[(size_t)gi * D + tx * 2 + 1] = cvt<T>(o[1]);
+      row[tx * 2] = o[0];
+      row[tx * 2 + 1] = o[1];
     } else {
 #pragma unroll
       for (int g = 0; g < N / 4; ++g)
-        store4(out + (size_t)gi * D + g * 64 + tx * 4,
-               make_float4(o[g * 4], o[g * 4 + 1], o[g * 4 + 2],
-                           o[g * 4 + 3]));
+        store4(row + g * 64 + tx * 4, make_float4(o[g * 4], o[g * 4 + 1],
+                                                  o[g * 4 + 2], o[g * 4 + 3]));
     }
     if (tx == 0) lse[gi] = empty ? -INFINITY : mx[i] + logf(den);
   }
@@ -441,7 +433,6 @@ flash_fwd_kernel(Args a) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(Args a) {
-  using T = float;
   constexpr int SD = D + 4, N = D / 16;
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);
@@ -454,8 +445,8 @@ flash_bwd_dq_kernel(Args a) {
   const size_t base = (size_t)bh * a.L * D;
   const Mask m = mask_of(a, bh);
   const uint32_t seed = a.seed ? (uint32_t)a.seed[0] : 0u;
-  load_tile<T, D>(sq, static_cast<const T*>(a.q) + base, q0, a.L);
-  load_tile<T, D>(sdo, static_cast<const T*>(a.dout) + base, q0, a.L);
+  load_tile<D>(sq, static_cast<const float*>(a.q) + base, q0, a.L, D);
+  load_tile<D>(sdo, static_cast<const float*>(a.dout) + base, q0, a.L, D);
   const float* lse_g = static_cast<const float*>(a.lse_in) + (size_t)bh * a.L;
   const float* dl_g = static_cast<const float*>(a.delta) + (size_t)bh * a.L;
   float lse[4], delta[4], acc[4][N];
@@ -473,8 +464,8 @@ flash_bwd_dq_kernel(Args a) {
     const int k0 = kt * kTile;
     if (!m.needed(q0, k0)) continue;
     __syncthreads();
-    load_tile<T, D>(sk, static_cast<const T*>(a.k) + base, k0, a.L);
-    load_tile<T, D>(sv, static_cast<const T*>(a.v) + base, k0, a.L);
+    load_tile<D>(sk, static_cast<const float*>(a.k) + base, k0, a.L, D);
+    load_tile<D>(sv, static_cast<const float*>(a.v) + base, k0, a.L, D);
     __syncthreads();
     float s[4][4], dp[4][4];
     dot_tile<D>(s, sq, sk, ty, tx);
@@ -490,21 +481,20 @@ flash_bwd_dq_kernel(Args a) {
         const float p = ok ? expf(s[i][c] * a.scale - lse[i]) : 0.f;
         float d = dp[i][c];
         if (a.seed) d *= keep_of(a, seed, bh, gi, gj);
-        sp[(ty * 4 + i) * kSP + tx + 16 * c] =
-            round_as<T>(p * (d - delta[i]));
+        sp[(ty * 4 + i) * kSP + tx + 16 * c] = p * (d - delta[i]);
       }
     }
     __syncthreads();
     acc_pv<D>(acc, sp, sk, ty, tx);
   }
-  T* dq = static_cast<T*>(a.dq) + base;
+  float* dq = static_cast<float*>(a.dq) + base;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gi = q0 + ty * 4 + i;
     if (gi >= a.L) continue;
 #pragma unroll
     for (int n = 0; n < N; ++n)
-      dq[(size_t)gi * D + Cols<D>::col(tx, n)] = cvt<T>(acc[i][n] * a.scale);
+      dq[(size_t)gi * D + Cols<D>::col(tx, n)] = acc[i][n] * a.scale;
   }
 }
 
@@ -515,7 +505,6 @@ flash_bwd_dq_kernel(Args a) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(Args a) {
-  using T = float;
   constexpr int SD = D + 4, N = D / 16;
   extern __shared__ float4 smem4[];
   float* sk = reinterpret_cast<float*>(smem4);
@@ -530,8 +519,8 @@ flash_bwd_dkv_kernel(Args a) {
   const size_t base = (size_t)bh * a.L * D;
   const Mask m = mask_of(a, bh);
   const uint32_t seed = a.seed ? (uint32_t)a.seed[0] : 0u;
-  load_tile<T, D>(sk, static_cast<const T*>(a.k) + base, k0, a.L);
-  load_tile<T, D>(sv, static_cast<const T*>(a.v) + base, k0, a.L);
+  load_tile<D>(sk, static_cast<const float*>(a.k) + base, k0, a.L, D);
+  load_tile<D>(sv, static_cast<const float*>(a.v) + base, k0, a.L, D);
   const float* lse_g = static_cast<const float*>(a.lse_in) + (size_t)bh * a.L;
   const float* dl_g = static_cast<const float*>(a.delta) + (size_t)bh * a.L;
   float dk[4][N], dv[4][N];
@@ -545,8 +534,8 @@ flash_bwd_dkv_kernel(Args a) {
     const int q0 = qt * kTile;
     if (!m.needed(q0, k0)) continue;
     __syncthreads();
-    load_tile<T, D>(sq, static_cast<const T*>(a.q) + base, q0, a.L);
-    load_tile<T, D>(sdo, static_cast<const T*>(a.dout) + base, q0, a.L);
+    load_tile<D>(sq, static_cast<const float*>(a.q) + base, q0, a.L, D);
+    load_tile<D>(sdo, static_cast<const float*>(a.dout) + base, q0, a.L, D);
     if (threadIdx.x < kTile) {
       const int gi = q0 + threadIdx.x;
       slse[threadIdx.x] = gi < a.L ? lse_g[gi] : -INFINITY;
@@ -569,8 +558,8 @@ flash_bwd_dkv_kernel(Args a) {
         const bool ok = (!edge || m.valid(gi, gj)) && lse != -INFINITY;
         const float p = ok ? expf(st[i][c] * a.scale - lse) : 0.f;
         const float keep = a.seed ? keep_of(a, seed, bh, gi, gj) : 1.f;
-        sp[(ty * 4 + i) * kSP + qc] = round_as<T>(p * keep);
-        ds[i][c] = round_as<T>(p * (dpt[i][c] * keep - sdl[qc]));
+        sp[(ty * 4 + i) * kSP + qc] = p * keep;
+        ds[i][c] = p * (dpt[i][c] * keep - sdl[qc]);
       }
     }
     __syncthreads();
@@ -584,8 +573,8 @@ flash_bwd_dkv_kernel(Args a) {
     __syncthreads();
     acc_pv<D>(dk, sp, sq, ty, tx);
   }
-  T* dkp = static_cast<T*>(a.dk) + base;
-  T* dvp = static_cast<T*>(a.dv) + base;
+  float* dkp = static_cast<float*>(a.dk) + base;
+  float* dvp = static_cast<float*>(a.dv) + base;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gj = k0 + ty * 4 + i;
@@ -593,8 +582,8 @@ flash_bwd_dkv_kernel(Args a) {
 #pragma unroll
     for (int n = 0; n < N; ++n) {
       const size_t o = (size_t)gj * D + Cols<D>::col(tx, n);
-      dkp[o] = cvt<T>(dk[i][n] * a.scale);
-      dvp[o] = cvt<T>(dv[i][n]);
+      dkp[o] = dk[i][n] * a.scale;
+      dvp[o] = dv[i][n];
     }
   }
 }
@@ -663,22 +652,52 @@ __device__ __forceinline__ void rs_product(float (&acc)[D / 2],
     }
 }
 
-// the kernels' tensor maps over (D, L, BH), in boxes of 64 rows: the
-// inputs, and the outputs (#6: dq in out; #7: dk in out, dv in out2)
-struct BwdMaps {
+// the kernels' tensor maps, in boxes of 64 rows: the inputs, and the
+// outputs (#5: out; #6: dq in out; #7: dk in out, dv in out2).  The
+// backward's are 3-D over (D, L, BH); the forward's 4-D over (D, L, H, B)
+// at the caller's strides.
+struct Maps {
   CUtensorMap q, k, v, dout, out, out2;
 };
 struct Sm90Args {
-  BwdMaps maps;
+  Maps maps;
   Args a;
   int BH;
 };
 
-__device__ __forceinline__ void prefetch_maps(const BwdMaps& m) {
+__device__ __forceinline__ void prefetch_maps(const Maps& m, bool dout) {
   tma_prefetch(&m.q);
   tma_prefetch(&m.k);
   tma_prefetch(&m.v);
-  tma_prefetch(&m.dout);
+  if (dout) tma_prefetch(&m.dout);
+}
+
+// A (batch, head)'s place in a map: its index bh in a 3-D map, or (h, b)
+// in a 4-D one
+struct HB {
+  int h, b;
+};
+__device__ __forceinline__ void tma_load_rows(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int c0, int c1,
+                                              int bh) {
+  tma_load_3d(dst, map, bar, c0, c1, bh);
+}
+__device__ __forceinline__ void tma_load_rows(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int c0, int c1,
+                                              HB w) {
+  tma_load_4d(dst, map, bar, c0, c1, w.h, w.b);
+}
+__device__ __forceinline__ void tma_store_rows(const CUtensorMap* map,
+                                               uint32_t src, int c0, int c1,
+                                               int bh) {
+  tma_store_3d(map, src, c0, c1, bh);
+}
+__device__ __forceinline__ void tma_store_rows(const CUtensorMap* map,
+                                               uint32_t src, int c0, int c1,
+                                               HB w) {
+  tma_store_4d(map, src, c0, c1, w.h, w.b);
 }
 
 // the thread's place in its warpgroup's fragments: rows fr + {0, 8},
@@ -716,17 +735,17 @@ __device__ __forceinline__ void frag_to_tile(uint8_t* tile, int row0,
 
 // Rows [row0, row0 + 64) of a tile of R rows at shared `tile`, written by
 // one warpgroup (frag_to_tile), to rows [grow, grow + 64) of (batch,
-// head) bh through `map`; thread t of the warpgroup issues the store and
-// returns once TMA has read the tile.  Rows past L are not written.
-template <int D, int R>
+// head) `where` through `map`; thread t of the warpgroup issues the store
+// and returns once TMA has read the tile.  Rows past L are not written.
+template <int D, int R, class W>
 __device__ __forceinline__ void store_rows(const CUtensorMap* map,
                                            uint32_t tile, int row0, int grow,
-                                           int bh, int t) {
+                                           W where, int t) {
   if (t != 0) return;
 #pragma unroll
   for (int b = 0; b < Tile<D>::kBoxes; ++b)
-    tma_store_3d(map, tile + (b * R + row0) * Tile<D>::kRowBytes,
-                 b * Tile<D>::kCols, grow, bh);
+    tma_store_rows(map, tile + (b * R + row0) * Tile<D>::kRowBytes,
+                   b * Tile<D>::kCols, grow, where);
   tma_store_commit_wait_read();
 }
 
@@ -760,18 +779,18 @@ __device__ __forceinline__ uint32_t load_bytes(int row0, int L) {
     if (row0 + 64 * w < L) bytes += 64 * D * 2;
   return bytes;
 }
-template <int D, int NWG>
+template <int D, int NWG, class W>
 __device__ __forceinline__ void load_rows(uint32_t dst,
                                           const CUtensorMap* map,
-                                          uint32_t bar, int row0, int bh,
+                                          uint32_t bar, int row0, W where,
                                           int L) {
 #pragma unroll
   for (int w = 0; w < NWG; ++w) {
     if (row0 + 64 * w >= L) break;
 #pragma unroll
     for (int b = 0; b < Tile<D>::kBoxes; ++b)
-      tma_load_3d(dst + (b * NWG + w) * 64 * Tile<D>::kRowBytes, map, bar,
-                  b * Tile<D>::kCols, row0 + 64 * w, bh);
+      tma_load_rows(dst + (b * NWG + w) * 64 * Tile<D>::kRowBytes, map, bar,
+                    b * Tile<D>::kCols, row0 + 64 * w, where);
   }
 }
 
@@ -916,7 +935,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ Sm90Args p) {
                  bar_full = bar_kv + 32, bar_empty = bar_full + 8 * S;
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
-  if (tid == NWG * 128) prefetch_maps(p.maps);
+  if (tid == NWG * 128) prefetch_maps(p.maps, true);
   if (tid == 0) {
     for (int b = 0; b < 2; ++b) {
       mbar_init(bar_kv + 8 * b, 1);
@@ -1144,7 +1163,7 @@ flash_bwd_dq_sm90(const __grid_constant__ Sm90Args p) {
                  bar_full = bar_q + 32, bar_empty = bar_full + 8 * S;
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
-  if (tid == NWG * 128) prefetch_maps(p.maps);
+  if (tid == NWG * 128) prefetch_maps(p.maps, true);
   if (tid == 0) {
     for (int b = 0; b < 2; ++b) {
       mbar_init(bar_q + 8 * b, 1);
@@ -1268,9 +1287,307 @@ flash_bwd_dq_sm90(const __grid_constant__ Sm90Args p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// #5 forward in bfloat16.  Work items as #6's: 64 NWG query rows of one
+// (batch, head); NWG consumer warpgroups own 64 rows each, their Q rows
+// (as A fragments), running max, sum and output in registers; one lane
+// of the producer warpgroup loads each item's Q once (double-buffered)
+// and rings the k tiles (K, V) through S stages, all by TMA over 4-D maps
+// at the caller's strides.  Each consumer's tile is S = Q K^T, wait, the
+// element pass, O += P V, wait: the other consumer's products overlap
+// its element pass.
+// ---------------------------------------------------------------------------
+template <int D, int NWG, int S>
+struct FwdSmem {
+  static constexpr int kQT = NWG * 64 * D * 2;  // a Q tile
+  static constexpr int kT = 64 * D * 2;         // a K (or V) stage
+  // Q of items n even, then odd
+  static constexpr int kQ0 = 0, kK = 2 * kQT, kV = kK + S * kT;
+  // q_full[2], q_empty[2], full[S], empty[S]
+  static constexpr int kBar = kV + S * kT;
+  static constexpr int kBytes = kBar + (4 + 2 * S) * 8;
+};
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The element pass of #5 on S (rows queries q0 + fr + 8 h, columns keys
+// k0 + fc + 8 j + e), sl2 = |scale| log2(e) (S negated where the scale
+// is negative).  Each row's running max mx (of S sl2) and this thread's
+// part of its sum l move on by the tile, o is rescaled where a row's max
+// moved (in base 2, alpha = exp2(mx_old - mx)), and P = exp2(S sl2 - mx),
+// 0 where masked, goes out as A fragments pa = bf16(P keep); l sums the
+// undropped P.  About 5 instructions an element at dropout 0 (the max,
+// the exponent's FMA and SFU op, the sum, half a pack), 12 more for the
+// hash and its keep multiplier.
+template <int D, bool EDGE, bool DROP>
+__device__ __forceinline__ void fwd_probs(float (&s)[32], float (&o)[D / 2],
+                                          uint32_t (&pa)[16], float (&mx)[2],
+                                          float (&l)[2], const Mask& m,
+                                          const Frag& f, int q0, int k0,
+                                          float sl2,
+                                          const uint32_t (&qmix)[2],
+                                          uint32_t thr, float ks) {
+  uint32_t ok = 0xffffffffu;  // bit idx: element idx is valid
+  if (EDGE) {
+    ok = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = 4 * j + 2 * h + e;
+          if (m.valid(q0 + f.fr + 8 * h, k0 + f.fc + 8 * j + e))
+            ok |= 1u << idx;
+          else
+            s[idx] = kMasked;
+        }
+  }
+  float mnew[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float c = kMasked;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      c = fmaxf(c, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+    c = fmaxf(c, __shfl_xor_sync(0xffffffffu, c, 1));
+    c = fmaxf(c, __shfl_xor_sync(0xffffffffu, c, 2));
+    mnew[h] = fmaxf(mx[h], c * sl2);
+  }
+  if (__any_sync(0xffffffffu, mnew[0] != mx[0] || mnew[1] != mx[1])) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float alpha = fast_exp2(mx[h] - mnew[h]);
+      l[h] *= alpha;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * h] *= alpha;
+        o[4 * j + 2 * h + 1] *= alpha;
+      }
+    }
+  }
+  const uint32_t kb0 = (uint32_t)(k0 + f.fc) * 0x85EBCA77u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const uint32_t kbe = kb0 + (uint32_t)(8 * j + e) * 0x85EBCA77u;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int idx = 4 * j + 2 * h + e;
+        float p = fast_exp2(fmaf(s[idx], sl2, -mnew[h]));
+        if (EDGE && !((ok >> idx) & 1u)) p = 0.f;
+        l[h] += p;
+        if (DROP) p *= keep_of_mix(qmix[h] ^ kbe, thr, ks);
+        s[idx] = p;
+      }
+    }
+  mx[0] = mnew[0];
+  mx[1] = mnew[1];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+// Rows [row0, row0 + 64) of a bf16 tile of R rows in TMA's swizzled
+// layout (see frag_to_tile) as a warpgroup's wgmma A fragments over D:
+// k16 step kk in a[4 kk .. 4 kk + 3]
+template <int D, int R>
+__device__ __forceinline__ void tile_to_frag(uint32_t (&a)[D / 4],
+                                             const uint8_t* tile, int row0,
+                                             const Frag& f) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + f.fr + 8 * (i & 1);
+      const int c = 16 * kk + 8 * (i >> 1) + f.fc;
+      const int x = T::kLayout == 1 ? (r & 7) : ((r & 7) >> 1);
+      const int ch = (c % T::kCols) / 8;
+      a[4 * kk + i] = *reinterpret_cast<const uint32_t*>(
+          tile + ((c / T::kCols) * R + r) * T::kRowBytes + (ch ^ x) * 16 +
+          (c % 8) * 2);
+    }
+}
+
+// s (64 x 64) = Q K^T over D: Q the A fragments qa, K a tile of 64 rows
+// read K-major
+template <int D>
+__device__ __forceinline__ void rs_scores(float (&s)[32],
+                                          const uint32_t (&qa)[D / 4],
+                                          uint32_t tk) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_rs_n64<0>(s, qa[4 * kk], qa[4 * kk + 1], qa[4 * kk + 2],
+                    qa[4 * kk + 3], Tile<D>::template kmajor<64>(tk, 0, kk),
+                    kk > 0);
+}
+
+template <int D, int NWG, int S, bool DROP>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+flash_fwd_sm90(const __grid_constant__ Sm90Args p) {
+  using L_ = FwdSmem<D, NWG, S>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const Args& a = p.a;
+  const int n_qb = (a.L + 64 * NWG - 1) / (64 * NWG);
+  const int items = n_qb * p.BH;
+  const uint32_t bar_q = base + L_::kBar, bar_q_empty = bar_q + 16,
+                 bar_full = bar_q + 32, bar_empty = bar_full + 8 * S;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  if (tid == NWG * 128) prefetch_maps(p.maps, false);
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bar_q + 8 * b, 1);
+      mbar_init(bar_q_empty + 8 * b, NWG);  // thread 0 of each consumer
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4 * NWG);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {  // the producer warpgroup: one lane issues every load
+    if constexpr (NWG == 2) reg_dealloc<kProducerRegs>();
+    if (tid != NWG * 128) return;
+    int it = 0, n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int bh = item / n_qb, qb = item % n_qb * 64 * NWG;
+      const HB hb{bh % a.H, bh / a.H};
+      const Mask m = mask_of(a, bh);
+      int lo, hi;
+      block_k_range<NWG>(m, qb, lo, hi);
+      // this item's Q, once the item two back is done with its buffer
+      const uint32_t q = bar_q + 8 * (n & 1);
+      mbar_wait(bar_q_empty + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
+      mbar_expect_tx(q, load_bytes<D, NWG>(qb, a.L));
+      load_rows<D, NWG>(base + L_::kQ0 + (n & 1) * L_::kQT, &p.maps.q, q,
+                        qb, hb, a.L);
+      for (int kt = lo; kt <= hi; ++kt) {
+        if (!any_rows_need<NWG>(m, qb, kt * 64)) continue;
+        const int s = it % S;
+        mbar_wait(bar_empty + 8 * s, ((it / S) & 1) ^ 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * L_::kT);
+        load_rows<D, 1>(base + L_::kK + s * L_::kT, &p.maps.k, full,
+                        kt * 64, hb, a.L);
+        load_rows<D, 1>(base + L_::kV + s * L_::kT, &p.maps.v, full,
+                        kt * 64, hb, a.L);
+        ++it;
+      }
+    }
+    return;
+  }
+  if constexpr (NWG == 2) reg_alloc<kConsumerRegs>();
+
+  // a consumer warpgroup: query rows [q0, q0 + 64) of each work item
+  const Frag f(tid & 127);
+  const bool neg = a.scale < 0.f;
+  const float sl2 = fabsf(a.scale) * kLog2e;
+  int it = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int bh = item / n_qb, qb = item % n_qb * 64 * NWG;
+    const HB hb{bh % a.H, bh / a.H};
+    const Mask m = mask_of(a, bh);
+    int lo, hi;
+    block_k_range<NWG>(m, qb, lo, hi);
+    const int q0 = qb + 64 * wg;
+    uint32_t qmix[2] = {0u, 0u};
+    if (DROP) {
+      const uint32_t sb = (uint32_t)a.seed[0] + (uint32_t)bh * 0xC2B2AE3Du;
+      for (int h = 0; h < 2; ++h)
+        qmix[h] = (uint32_t)(q0 + f.fr + 8 * h) * 0x9E3779B1u ^ sb;
+    }
+    float o[D / 2], mx[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    const uint32_t sq = base + L_::kQ0 + (n & 1) * L_::kQT;
+    mbar_wait(bar_q + 8 * (n & 1), (n >> 1) & 1);
+    // this warpgroup's Q rows into registers: S reads only K from shared
+    // memory
+    uint32_t qa[D / 4];
+    tile_to_frag<D, NWG * 64>(qa, smem + L_::kQ0 + (n & 1) * L_::kQT, 64 * wg,
+                              f);
+    for (int kt = lo; kt <= hi; ++kt) {
+      const int k0 = kt * 64;
+      if (!any_rows_need<NWG>(m, qb, k0)) continue;
+      const int s = it % S;
+      mbar_wait(bar_full + 8 * s, (it / S) & 1);
+      ++it;
+      if (m.needed(q0, k0)) {
+        const uint32_t sk = base + L_::kK + s * L_::kT;
+        const uint32_t sv = base + L_::kV + s * L_::kT;
+        float sc[32];
+        uint32_t pa[16];
+        wgmma_fence();
+        rs_scores<D>(sc, qa, sk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (neg) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) sc[i] = -sc[i];
+        }
+        if (m.interior(q0, k0))
+          fwd_probs<D, false, DROP>(sc, o, pa, mx, l, m, f, q0, k0, sl2, qmix,
+                                    a.thr, a.ks);
+        else
+          fwd_probs<D, true, DROP>(sc, o, pa, mx, l, m, f, q0, k0, sl2, qmix,
+                                   a.thr, a.ks);
+        fence_regs(o);
+        wgmma_fence();
+        rs_product<D>(o, pa, sv);  // O += bf16(P keep) V
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      }
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+    // O / l through this warpgroup's rows of the item's Q tile, then TMA;
+    // lse by plain stores, one lane of the four that share a row.  A row
+    // with no valid key has l = 0 and o = 0: out 0, lse -inf.
+    float lsum[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float t = l[h];
+      t += __shfl_xor_sync(0xffffffffu, t, 1);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      lsum[h] = t;
+      const float inv = t == 0.f ? 0.f : 1.f / t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * h] *= inv;
+        o[4 * j + 2 * h + 1] *= inv;
+      }
+    }
+    frag_to_tile<D, NWG * 64>(smem + L_::kQ0 + (n & 1) * L_::kQT, 64 * wg, o,
+                              1.f, f);
+    fence_async_shared();
+    named_sync(1 + wg, 128);
+    if (q0 < a.L)
+      store_rows<D, NWG * 64>(&p.maps.out, sq, 64 * wg, q0, hb, tid & 127);
+    if ((tid & 3) == 0) {
+      float* lse = static_cast<float*>(a.lse_out) + a.slse.at(bh, a.H);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gi = q0 + f.fr + 8 * h;
+        if (gi < a.L)
+          lse[gi] = lsum[h] == 0.f ? -INFINITY
+                                   : (mx[h] + log2f(lsum[h])) * kLn2;
+      }
+    }
+    if ((tid & 127) == 0) mbar_arrive(bar_q_empty + 8 * (n & 1));
+  }
+}
+
 // the bf16 tensor maps of one backward launch: (D, L, BH) in boxes of
 // (min(D, 64), 64, 1), swizzled as their rows are wide
-int make_maps(BwdMaps& mp, const Args& a, int BH, int D, bool dq) {
+int make_maps(Maps& mp, const Args& a, int BH, int D, bool dq) {
   const int cols = D < 64 ? D : 64;
   const CUtensorMapSwizzle sw = cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                                            : CU_TENSOR_MAP_SWIZZLE_64B;
@@ -1292,32 +1609,68 @@ int make_maps(BwdMaps& mp, const Args& a, int BH, int D, bool dq) {
   return rc;
 }
 
+// the forward's: q, k, v and out as (D, L, H, B) at their own strides, in
+// boxes of (min(D, 64), 64, 1, 1).  TMA refuses a base that is not 16-byte
+// aligned and strides that are not multiples of 16 bytes (the wrapper
+// copies such views first).
+int make_fwd_maps(Maps& mp, const Args& a, int BH, int D) {
+  const int cols = D < 64 ? D : 64;
+  const CUtensorMapSwizzle sw = cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                           : CU_TENSOR_MAP_SWIZZLE_64B;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)a.L,
+                              (cuuint64_t)a.H, (cuuint64_t)(BH / a.H)};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 64, 1, 1};
+  CUtensorMap* maps[4] = {&mp.q, &mp.k, &mp.v, &mp.out};
+  const void* ptrs[4] = {a.q, a.k, a.v, a.out};
+  const Strides* st[4] = {&a.sq, &a.sk, &a.sv, &a.so};
+  int rc = 0;
+  for (int i = 0; i < 4 && !rc; ++i) {
+    const cuuint64_t strides[3] = {(cuuint64_t)st[i]->sl * 2,
+                                   (cuuint64_t)st[i]->sh * 2,
+                                   (cuuint64_t)st[i]->sb * 2};
+    rc = mxt_tensor_map(maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptrs[i],
+                        dims, strides, box, sw);
+  }
+  return rc;
+}
+
+// the longest L at which the bf16 kernels run persistent
+constexpr int kPersistentL = 256;
+
 // warpgroups and ring stages per kernel and head dim: two warpgroups
 // where their accumulators fit the registers (#7 at D 128 holds dK and dV
 // at 128 fp32 a thread: one), three stages where shared memory allows
-// the longest L at which the backward kernels run persistent
-constexpr int kPersistentL = 256;
-
+// (the forward, with no dO to hold, at every D)
 template <int D>
 struct Cfg {
   static constexpr int kDkvWG = D == 128 ? 1 : 2;
   static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kFwdStages = 3;
 };
 
+enum Which { kFwd, kDq, kDkv };
+
 template <int D, bool DROP>
-int launch_sm90(const Sm90Args& p, int BH, bool dq, cudaStream_t st) {
-  constexpr int S = Cfg<D>::kStages, WG7 = Cfg<D>::kDkvWG;
-  auto kernel = dq ? flash_bwd_dq_sm90<D, 2, S, DROP>
-                   : flash_bwd_dkv_sm90<D, WG7, S, DROP>;
-  const int nwg = dq ? 2 : WG7;
-  const int smem = (dq ? DqSmem<D, 2, S>::kBytes
-                       : DkvSmem<D, WG7, S>::kBytes) + 1024;
-  static bool attr_set[2] = {false, false};  // once per kernel
-  if (!attr_set[dq]) {
+int launch_sm90(const Sm90Args& p, int BH, Which w, cudaStream_t st) {
+  constexpr int S = Cfg<D>::kStages, SF = Cfg<D>::kFwdStages,
+                WG7 = Cfg<D>::kDkvWG;
+  auto kernel = flash_fwd_sm90<D, 2, SF, DROP>;
+  int nwg = 2, smem = FwdSmem<D, 2, SF>::kBytes;
+  if (w == kDq) {
+    kernel = flash_bwd_dq_sm90<D, 2, S, DROP>;
+    smem = DqSmem<D, 2, S>::kBytes;
+  } else if (w == kDkv) {
+    kernel = flash_bwd_dkv_sm90<D, WG7, S, DROP>;
+    nwg = WG7;
+    smem = DkvSmem<D, WG7, S>::kBytes;
+  }
+  smem += 1024;  // the tiles' 1024-byte alignment
+  static bool attr_set[3] = {false, false, false};  // once per kernel
+  if (!attr_set[w]) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    attr_set[dq] = true;
+    attr_set[w] = true;
   }
   int dev, sms;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1335,14 +1688,15 @@ int launch_sm90(const Sm90Args& p, int BH, bool dq, cudaStream_t st) {
 }
 
 template <int D>
-int bwd_sm90(const Args& a, int BH, bool dq, cudaStream_t st) {
-  Sm90Args p;
+int run_sm90(const Args& a, int BH, Which w, cudaStream_t st) {
+  Sm90Args p = {};
   p.a = a;
   p.BH = BH;
-  const int rc = make_maps(p.maps, a, BH, D, dq);
+  const int rc = w == kFwd ? make_fwd_maps(p.maps, a, BH, D)
+                           : make_maps(p.maps, a, BH, D, w == kDq);
   if (rc) return rc;
-  return a.seed ? launch_sm90<D, true>(p, BH, dq, st)
-                : launch_sm90<D, false>(p, BH, dq, st);
+  return a.seed ? launch_sm90<D, true>(p, BH, w, st)
+                : launch_sm90<D, false>(p, BH, w, st);
 }
 
 // shared memory of each float32 kernel, in bytes
@@ -1359,16 +1713,13 @@ constexpr int smem_dkv() {
   return (4 * kTile * (D + 4) + kTile * kSP + 2 * kTile) * 4;
 }
 
-enum Which { kFwd, kDq, kDkv };
-
-// the CUDA-core kernels: the forward in both dtypes, the backward in
-// float32
-template <class T, int D, Which W>
+// the float32 kernels, on the CUDA cores
+template <int D, Which W>
 int launch(const Args& a, int BH, cudaStream_t st) {
   void (*kernel)(Args);
   int smem;
   if constexpr (W == kFwd) {
-    kernel = flash_fwd_kernel<T, D>;
+    kernel = flash_fwd_kernel<D>;
     smem = smem_fwd<D>();
   } else if constexpr (W == kDq) {
     kernel = flash_bwd_dq_kernel<D>;
@@ -1392,24 +1743,25 @@ int launch(const Args& a, int BH, cudaStream_t st) {
 template <Which W>
 int dispatch(const Args& a, int BH, int D, int dtype, cudaStream_t st) {
   if (dtype == 0) {
-    if (D == 32) return launch<float, 32, W>(a, BH, st);
-    if (D == 64) return launch<float, 64, W>(a, BH, st);
-    if (D == 128) return launch<float, 128, W>(a, BH, st);
-  } else if (W == kFwd) {
-    if (D == 32) return launch<__nv_bfloat16, 32, kFwd>(a, BH, st);
-    if (D == 64) return launch<__nv_bfloat16, 64, kFwd>(a, BH, st);
-    if (D == 128) return launch<__nv_bfloat16, 128, kFwd>(a, BH, st);
+    if (D == 32) return launch<32, W>(a, BH, st);
+    if (D == 64) return launch<64, W>(a, BH, st);
+    if (D == 128) return launch<128, W>(a, BH, st);
   } else {
-    if (D == 32) return bwd_sm90<32>(a, BH, W == kDq, st);
-    if (D == 64) return bwd_sm90<64>(a, BH, W == kDq, st);
-    if (D == 128) return bwd_sm90<128>(a, BH, W == kDq, st);
+    if (D == 32) return run_sm90<32>(a, BH, W, st);
+    if (D == 64) return run_sm90<64>(a, BH, W, st);
+    if (D == 128) return run_sm90<128>(a, BH, W, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// (BH, L, D) and (BH, L) contiguous
+Strides contiguous(int L, int D, int H) {
+  return Strides{(long long)H * L * D, (long long)L * D, (long long)D};
+}
+
 Args make_args(const void* q, const void* k, const void* v, const void* seed,
-               const void* kvlen, int H, int L, float scale, int causal,
-               int window, unsigned thr, float ks) {
+               const void* kvlen, int H, int L, int D, float scale,
+               int causal, int window, unsigned thr, float ks) {
   Args a = {};
   a.q = q;
   a.k = k;
@@ -1423,6 +1775,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* seed,
   a.window = window;
   a.thr = thr;
   a.ks = ks;
+  a.sq = a.sk = a.sv = a.so = contiguous(L, D, H);
+  a.slse = contiguous(L, 1, H);
   return a;
 }
 
@@ -1440,16 +1794,30 @@ extern "C" const char* mxt_error_string(int e) {
 // threshold and keep scale.  Each returns cudaGetLastError() after its
 // launch.
 
-// out (BH, L, D) in the input dtype; lse (BH, L) float32
+// out (BH, L, D) in the input dtype; lse (BH, L) float32.  strides, on the
+// host, or null for contiguous tensors: q, k, v and out as (B, H, L, D)
+// views, unit stride along D, and lse as (B, H, L), unit stride along L,
+// given by the B, H and L strides of each in elements (14 int64: q's
+// three, k's, v's, out's, then lse's B and H strides).  Each base 16-byte
+// aligned and each stride a multiple of 16 bytes (TMA's rule in bf16,
+// 16-byte vector loads and stores in float32); lse needs neither.
 extern "C" int mxt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* seed, const void* kvlen, void* out,
                              void* lse, int BH, int H, int L, int D,
                              int dtype, float scale, int causal, int window,
-                             unsigned thr, float ks, void* stream) {
-  Args a = make_args(q, k, v, seed, kvlen, H, L, scale, causal, window, thr,
-                     ks);
+                             unsigned thr, float ks, void* stream,
+                             const long long* strides) {
+  Args a = make_args(q, k, v, seed, kvlen, H, L, D, scale, causal, window,
+                     thr, ks);
   a.out = out;
   a.lse_out = lse;
+  if (strides) {
+    Strides* st[4] = {&a.sq, &a.sk, &a.sv, &a.so};
+    for (int i = 0; i < 4; ++i)
+      *st[i] = Strides{strides[3 * i], strides[3 * i + 1],
+                       strides[3 * i + 2]};
+    a.slse = Strides{strides[12], strides[13], 1};
+  }
   return dispatch<kFwd>(a, BH, D, dtype, (cudaStream_t)stream);
 }
 
@@ -1461,8 +1829,8 @@ extern "C" int mxt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int L, int D, int dtype, float scale,
                                 int causal, int window, unsigned thr,
                                 float ks, void* stream) {
-  Args a = make_args(q, k, v, seed, kvlen, H, L, scale, causal, window, thr,
-                     ks);
+  Args a = make_args(q, k, v, seed, kvlen, H, L, D, scale, causal, window,
+                     thr, ks);
   a.dout = dout;
   a.lse_in = lse;
   a.delta = delta;
@@ -1478,8 +1846,8 @@ extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int BH, int H, int L, int D, int dtype,
                                  float scale, int causal, int window,
                                  unsigned thr, float ks, void* stream) {
-  Args a = make_args(q, k, v, seed, kvlen, H, L, scale, causal, window, thr,
-                     ks);
+  Args a = make_args(q, k, v, seed, kvlen, H, L, D, scale, causal, window,
+                     thr, ks);
   a.dout = dout;
   a.lse_in = lse;
   a.delta = delta;

@@ -157,6 +157,27 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// the same over a 4-D map, at (c0, c1, c2, c3)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_commit_wait_read() {
   asm volatile(
       "cp.async.bulk.commit_group;\n"
@@ -242,17 +263,20 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d (64 x 64 fp32) += A B: A (64 x 16 bf16) from registers, four b32 of
-// two bf16 each in the accumulator fragment's layout (see frag_row); B
-// (16 x 64) from shared memory through an MN-major descriptor (transposed)
+// d (64 x 64 fp32) = A B, plus d when scale_d: A (64 x 16 bf16) from
+// registers, four b32 of two bf16 each in the accumulator fragment's
+// layout (see frag_row); B (16 x 64) from shared memory through an
+// MN-major descriptor (transposed, TB 1) or a K-major one (TB 0)
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
                                              uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint64_t db) {
+                                             uint32_t a3, uint64_t db,
+                                             int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -261,7 +285,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d), "n"(TB));
 }
 
 // d (64 x 32 fp32) += A B: A (64 x 16 bf16) from registers, four b32 of

@@ -139,16 +139,17 @@ def flash_attention_sharded(q, k, v, cfg, causal=False, window=None,
     ``parallel.ShardingConfig``): q, k, v (B, H, L, D) -> (B, H, L, D),
     batch split over dp and heads over tp, as the JAX package's
     ``flash_attention_sharded`` (``attention.py:315-396``) lays them out.
-    The port runs on one card, so the shards run there in turn and their
-    outputs are concatenated; autograd flows through each shard's flash
-    kernels.
+    The port runs on one card, so the shards run there in turn.
 
-    - A plain causal shard (no window, dropout or ``kv_length``) goes to
+    - Plain causal attention (no window, dropout or ``kv_length``) goes to
       the flash forward kernel with ``causal=True``, the scale folded into
       q in q's dtype, where the JAX package takes the TPU's splash kernel
-      (``_splash_causal``, ``attention.py:302``).
-    - Any other shard takes :func:`flash_attention` with its slice of
-      ``kv_length``.
+      (``_splash_causal``, ``attention.py:302``): one autograd function
+      whose forward has each shard's launch read its views of q, k and v
+      and write its views of one output, and whose backward runs the
+      backward kernels per shard.
+    - Otherwise each shard takes :func:`flash_attention` with its slice of
+      ``kv_length``, and the outputs are concatenated.
     - Under dropout each shard's seed is ``seed`` (or one drawn from
       ``generator``) mixed with the linear shard index ``d * tp + t`` by
       :func:`_fold_in`, so shards draw different masks.
@@ -172,38 +173,79 @@ def flash_attention_sharded(q, k, v, cfg, causal=False, window=None,
         seed = seed.reshape(1).to(device=q.device, dtype=torch.int64)
     if kv_length is not None:
         kv_length = torch.as_tensor(kv_length, device=q.device).reshape(B)
-    plain_causal = causal and not (window is not None or dropout
-                                   or kv_length is not None)
-    Bl, Hl = B // dp, H // tp
-    rows = []
-    for d in range(dp):
-        b = slice(d * Bl, (d + 1) * Bl)
-        heads = []
-        for t in range(tp):
-            h = slice(t * Hl, (t + 1) * Hl)
-            qs, ks, vs = q[b, h], k[b, h], v[b, h]
-            if plain_causal:
-                qs = _amp_cast1("flash_attention", qs)
-                ks = _amp_cast1("flash_attention", ks)
-                vs = _amp_cast1("flash_attention", vs)
-                s = scale if scale is not None else 1.0 / math.sqrt(
-                    q.shape[-1])
-                heads.append(_flash.flash_attention(
-                    (qs * s).to(qs.dtype), ks, vs, causal=True, scale=1.0))
-                flash_attention_sharded.causal_shards += 1
-                continue
-            heads.append(flash_attention(
-                qs, ks, vs, causal=causal, window=window, scale=scale,
-                dropout=dropout,
-                seed=_fold_in(seed, d * tp + t) if dropout else None,
-                kv_length=None if kv_length is None else kv_length[b]))
-        rows.append(torch.cat(heads, dim=1))
-    if plain_causal:
+    if causal and not (window is not None or dropout
+                       or kv_length is not None):
+        q = _amp_cast1("flash_attention", q)
+        k = _amp_cast1("flash_attention", k)
+        v = _amp_cast1("flash_attention", v)
+        s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+        out = _ShardedCausal.apply(q, k, v, s, dp, tp)
         last_path = "flash-causal-shard"
-    return torch.cat(rows, dim=0)
+        return out
+    outs = [flash_attention(
+        q[b, h], k[b, h], v[b, h], causal=causal, window=window,
+        scale=scale, dropout=dropout,
+        seed=_fold_in(seed, d * tp + t) if dropout else None,
+        kv_length=None if kv_length is None else kv_length[b])
+        for d, t, b, h in _shards(B, H, dp, tp)]
+    return torch.cat([torch.cat(outs[d * tp:(d + 1) * tp], dim=1)
+                      for d in range(dp)], dim=0)
 
 
 flash_attention_sharded.causal_shards = 0
+
+
+def _shards(B, H, dp, tp):
+    """(d, t, batch slice, head slice) of each shard of the (dp, tp) mesh,
+    d-major."""
+    Bl, Hl = B // dp, H // tp
+    for d in range(dp):
+        for t in range(tp):
+            yield (d, t, slice(d * Bl, (d + 1) * Bl),
+                   slice(t * Hl, (t + 1) * Hl))
+
+
+class _ShardedCausal(torch.autograd.Function):
+    """The #16 route over the whole tensors: q scaled once, then per shard
+    the flash forward kernel reads its views of q, k and v where they lie
+    and writes its views of one ``out`` and one ``lse`` (no slice copy, no
+    concat); the backward runs #6 and #7 per shard on its slices and
+    writes one gradient tensor each.  Both give the same bits as per-shard
+    slices through ``flash_attention`` with the scale folded into q, which
+    this replaces."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, s, dp, tp):
+        qs = (q * s).to(q.dtype)
+        B, H, L, _ = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+        for _, _, b, h in _shards(B, H, dp, tp):
+            _flash.flash_attention_fwd(qs[b, h], k[b, h], v[b, h],
+                                       causal=True, scale=1.0,
+                                       out=out[b, h], lse=lse[b, h])
+            flash_attention_sharded.causal_shards += 1
+        ctx.cfg = (s, dp, tp)
+        ctx.save_for_backward(qs, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qs, k, v, out, lse = ctx.saved_tensors
+        s, dp, tp = ctx.cfg
+        B, H = qs.shape[:2]
+        dq, dk, dv = (torch.empty_like(t) for t in (qs, k, v))
+        for _, _, b, h in _shards(B, H, dp, tp):
+            # each shard's slices copied, as the backward kernels read them
+            qb, kb, vb, gb, ob, lb = (t[b, h].contiguous()
+                                      for t in (qs, k, v, g, out, lse))
+            delta = (gb.float() * ob.float()).sum(-1)
+            args = (qb, kb, vb, gb, lb, delta)
+            dq[b, h] = _flash.flash_attention_bwd_dq(*args, causal=True,
+                                                     scale=1.0) * s
+            dk[b, h], dv[b, h] = _flash.flash_attention_bwd_dkv(
+                *args, causal=True, scale=1.0)
+        return dq, dk, dv, None, None, None
 
 
 def sldwin_atten(q, k, v, window, symmetric=True):

@@ -15,7 +15,10 @@
   reduction between the forward and the backward kernels (``:466``), over
   the dropped output ``O``.
 
-q, k, v: (B, H, L, D).  The mask is the JAX kernel's: ``causal``, a
+q, k, v: (B, H, L, D).  The forward reads strided views where they lie
+(a head slice, BERT's permuted projection; see :func:`_strided_ok`) and
+can write into given ``out=`` and ``lse=`` views; the backward kernels
+read contiguous copies.  The mask is the JAX kernel's: ``causal``, a
 symmetric band ``window``, and ``kv_length`` (B,) valid keys per batch
 row.  Dropout drops normalised probabilities with the hash of
 :mod:`.dropout_hash` over (seed, b * H + h, row, key); the normaliser sums
@@ -31,6 +34,8 @@ kernels take float32 and bfloat16 and head dims 32, 64 and 128; in
 bfloat16 the probabilities are rounded to bf16 before ``P @ V`` and
 ``dS`` before its two products, as the JAX kernel casts.  What bounds
 them and how they are tiled: the note at the top of the CUDA source.
+:func:`flash_attention` casts ``kv_length`` to int32 once for the three
+kernels.
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes = [_P] * n_ptr + _TAIL
         fn.restype = _I
+    lib.mxt_flash_fwd.argtypes += [_P]     # the forward's strides
     return lib
 
 
@@ -193,6 +199,38 @@ def _card(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _strides(t):
+    """``t``'s strides in elements, a dim of size 1 given the stride a
+    contiguous tensor would have there (it is never stepped along, and
+    ``contiguous()`` leaves whatever stride it had)."""
+    out, run = [], 1
+    for n, s in zip(reversed(t.shape), reversed(t.stride())):
+        out.append(s if n > 1 else run)
+        run *= n
+    return out[::-1]
+
+
+def _strided_ok(t):
+    """Whether the forward kernel can read or write the (B, H, L, D) view
+    ``t`` where it lies: unit stride along D, and TMA's rules for a tensor
+    map (a 16-byte aligned base, every other stride a positive multiple of
+    16 bytes below 2**40), which the float32 kernel's 16-byte vector loads
+    and stores need as well.  Any other view is copied first."""
+    elt = t.element_size()
+    if t.data_ptr() % 16:
+        return False
+    if t.is_contiguous():       # every stride a multiple of D's row
+        return t.shape[-1] * elt % 16 == 0
+    st = _strides(t)
+    return st[-1] == 1 and all(0 < s * elt < 2 ** 40 and s * elt % 16 == 0
+                               for s in st[:-1])
+
+
+def _as_read(t):
+    """``t`` as the forward kernel reads it: the view itself, or a copy."""
+    return t if _strided_ok(t) else _card(t)
+
+
 def _check(what, q, k, v, window, kv_length):
     B, H, L, D = q.shape
     if q.dtype not in _DTYPES:
@@ -230,29 +268,77 @@ def _common(q, causal, window, scale, dropout, seed, kv_length):
     return tail, ptrs, (seed_t, kvl)
 
 
+def _check_outputs(q, out, lse):
+    B, H, L, _ = q.shape
+    if out is not None and (out.shape != q.shape or out.dtype != q.dtype
+                            or out.device != q.device):
+        raise ValueError("flash_attention: out must match q")
+    if lse is not None and (lse.shape != (B, H, L)
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device):
+        raise ValueError("flash_attention: lse must be float32 %s"
+                         % ((B, H, L),))
+
+
+def _fwd_outputs(q, out, lse):
+    """The (out, lse) the kernel writes: the given views where it can
+    write them in place, else new tensors (copied into the given views
+    after the launch)."""
+    B, H, L, _ = q.shape
+    ko = out if out is not None and _strided_ok(out) else torch.empty(
+        q.shape, dtype=q.dtype, device=q.device)
+    kl = lse if lse is not None and _strides(lse)[-1] == 1 else torch.empty(
+        B, H, L, dtype=torch.float32, device=q.device)
+    return ko, kl
+
+
 def flash_attention_fwd(q, k, v, causal=False, window=None, scale=None,
-                        dropout=0.0, seed=None, kv_length=None):
+                        dropout=0.0, seed=None, kv_length=None, out=None,
+                        lse=None):
     """``(out, lse)``: a CPU tensor takes :func:`flash_attention_plain`; a
     CUDA tensor launches kernel #5 (counted in
     ``flash_attention.launches_fwd``).  ``seed``: an int64 tensor of one
-    element on q's device, read when ``dropout > 0``."""
+    element on q's device, read when ``dropout > 0``.
+
+    q, k and v may be strided (B, H, L, D) views (a head slice, BERT's
+    permuted projection): the kernel reads them where they lie when
+    :func:`_strided_ok` admits them, else reads a contiguous copy.  ``out``
+    (like q) and ``lse`` (float32 (B, H, L)), when given, are views the
+    results are written into, and nothing else of their storage is
+    touched; they are returned."""
+    _check_outputs(q, out, lse)
     if _on_cpu("flash_attention", q):
-        return flash_attention_plain(q, k, v, causal, window, scale, dropout,
-                                     seed, kv_length)
+        # the plain version on contiguous copies, so a view gives the same
+        # bits as its copy
+        o, l = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal, window, scale,
+                                     dropout, seed, kv_length)
+        if out is not None:
+            o = out.copy_(o)
+        if lse is not None:
+            l = lse.copy_(l)
+        return o, l
     _check("flash_attention", q, k, v, window, kv_length)
-    q, k, v = _card(q), _card(k), _card(v)
-    B, H, L, D = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    q, k, v = _as_read(q), _as_read(k), _as_read(v)
+    ko, kl = _fwd_outputs(q, out, lse)
+    strides = None              # all contiguous: the entry point's default
+    if not all(t.is_contiguous() for t in (q, k, v, ko, kl)):
+        strides = (ctypes.c_longlong * 14)(
+            *_strides(q)[:3], *_strides(k)[:3], *_strides(v)[:3],
+            *_strides(ko)[:3], *_strides(kl)[:2])
     tail, ptrs, _alive = _common(q, causal, window, scale, dropout, seed,
                                  kv_length)
     lib = _lib()
     rc = lib.mxt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs,
-                           out.data_ptr(), lse.data_ptr(), *tail)
+                           ko.data_ptr(), kl.data_ptr(), *tail, strides)
     _build.check(lib, rc, "flash_attention")
     flash_attention.launches_fwd += 1
     flash_attention.last_dtype = q.dtype
-    return out, lse
+    if out is not None and ko is not out:
+        ko = out.copy_(ko)
+    if lse is not None and kl is not lse:
+        kl = lse.copy_(kl)
+    return ko, kl
 
 
 def _bwd_inputs(what, q, k, v, do, lse, delta, window, kv_length):
@@ -360,7 +446,10 @@ def flash_attention(q, k, v, causal=False, window=None, scale=None,
         seed_t = torch.randint(0, 2 ** 32, (1,), dtype=torch.int64,
                                device=q.device, generator=generator)
     if kv_length is not None:
-        kv_length = torch.as_tensor(kv_length, device=q.device)
+        # int32, as the kernels read it: cast once here, not by each of
+        # #5, #6 and #7
+        kv_length = torch.as_tensor(kv_length, device=q.device).to(
+            torch.int32)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -22,7 +22,11 @@ versions).
 - a row with no valid key: the port gives the reference attention's 0,
   where the JAX kernel's output depends on its tiling;
 - ``ops.attention.flash_attention``'s dispatch and validation;
-- the autograd Function saves no (L, L) tensor.
+- the autograd Function saves no (L, L) tensor;
+- the forward on strided views (a permuted qkv, head slices) equals the
+  call on their contiguous copies, ``out=`` and ``lse=`` write only
+  their slices, and ``_strided_ok`` (which views the kernel reads in
+  place) admits exactly what TMA's rules for a tensor map admit.
 """
 from __future__ import annotations
 
@@ -283,3 +287,114 @@ def test_saves_no_square_tensor(rate):
               tfa.flash_attention.launches_dq,
               tfa.flash_attention.launches_dkv)
     assert counts == (0, 0, 0)          # CPU tensors launch no kernel
+
+
+def test_strided_views_equal_contiguous_call():
+    """``flash_attention_fwd`` on BERT's permuted (B, L, 3, H, D)
+    projection and on head slices gives exactly what it gives on their
+    contiguous copies; ``out=`` and ``lse=`` write their slices of larger
+    buffers and nothing else, and are what it returns."""
+    B, H, L, D = 2, 4, 40, 8
+    rng = np.random.default_rng(6)
+    qkv = torch.tensor(rng.standard_normal((B, L, 3, H, D)),
+                       dtype=torch.float32)
+    wide = torch.tensor(rng.standard_normal((3, B, H + 2, L, D)),
+                        dtype=torch.float32)
+    kvl = torch.tensor([L, 13])
+    for views in (tuple(qkv.permute(2, 0, 3, 1, 4)), tuple(wide[:, :, 1:-1])):
+        assert not views[0].is_contiguous()
+        for kw in (dict(causal=True),
+                   dict(kv_length=kvl, dropout=0.1, seed=torch.tensor([5]))):
+            got = tfa.flash_attention_fwd(*views, **kw)
+            want = tfa.flash_attention_fwd(*(t.contiguous() for t in views),
+                                           **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    out_buf = torch.full((B + 1, H + 2, L, D), float("nan"))
+    lse_buf = torch.full((B + 1, H + 2, L), float("nan"))
+    out_v, lse_v = out_buf[1:, 1:-1], lse_buf[1:, 1:-1]
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=True, out=out_v,
+                                       lse=lse_v)
+    assert out is out_v and lse is lse_v
+    want = tfa.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True)
+    assert torch.equal(out_v, want[0]) and torch.equal(lse_v, want[1])
+    inside = torch.zeros(B + 1, H + 2, L, dtype=torch.bool)
+    inside[1:, 1:-1] = True
+    assert out_buf[~inside].isnan().all() and lse_buf[~inside].isnan().all()
+    with pytest.raises(ValueError, match="out"):
+        tfa.flash_attention_fwd(q, k, v, out=out_buf)
+
+
+def _tma_admits(t):
+    """TMA's rules for a tensor map over the (B, H, L, D) view ``t``, as
+    CUDA's ``cuTensorMapEncodeTiled`` states them: a 16-byte aligned
+    base, unit stride along D, and every other stride a positive multiple
+    of 16 bytes below 2**40 (a dim of size 1 is never stepped along: its
+    stride is free)."""
+    elt = t.element_size()
+    if t.data_ptr() % 16 or t.stride(-1) != 1:
+        return False
+    return all(n == 1 or (0 < s * elt < 2 ** 40 and s * elt % 16 == 0)
+               for n, s in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+class _FakeView:
+    """The metadata of a view too large to allocate."""
+
+    def __init__(self, shape, stride, elt=2):
+        self.shape, self._stride, self._elt = shape, stride, elt
+
+    def stride(self):
+        return self._stride
+
+    def data_ptr(self):
+        return 0
+
+    def is_contiguous(self):
+        return False
+
+    def element_size(self):
+        return self._elt
+
+
+def test_strided_ok_admits_exactly_the_tma_rules():
+    views = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        x = torch.zeros(2, 6, 10, 64, dtype=dt)
+        views[name + " contiguous"] = x
+        views[name + " head slice"] = x[:, 1:4]
+        views[name + " batch and row slices"] = x[1:, :, 3:7]
+        views[name + " permuted qkv"] = torch.zeros(
+            2, 10, 3, 6, 64, dtype=dt).permute(2, 0, 3, 1, 4)[1]
+        flat = torch.zeros(2 * 6 * 10 * 64 + 8, dtype=dt)
+        views[name + " misaligned base"] = flat[1:1 + 2 * 6 * 10 * 64].view(
+            2, 6, 10, 64)
+        views[name + " base 16 bytes on"] = flat[16 // x.element_size():][
+            :2 * 6 * 10 * 64].view(2, 6, 10, 64)
+        views[name + " D stride 2"] = torch.zeros(2, 6, 10, 128,
+                                                  dtype=dt)[..., ::2]
+        views[name + " L and D swapped"] = torch.zeros(
+            2, 6, 64, 10, dtype=dt).transpose(2, 3)
+        views[name + " expanded heads"] = x[:, :1].expand(2, 6, 10, 64)
+        views[name + " size-1 head, odd stride"] = x[:, :1].as_strided(
+            (2, 1, 10, 64), (6 * 640, 7, 64, 1))
+    # a row stride of 8 bytes at D 4 (bf16), from a larger tensor
+    views["bf16 D 4 rows 8 bytes"] = torch.zeros(2, 6, 10, 4,
+                                                 dtype=torch.bfloat16)[:, 1:3]
+    views["fp32 D 4 rows 16 bytes"] = torch.zeros(2, 6, 10, 4)[:, 1:3]
+    views["fp32 D 3 rows 12 bytes"] = torch.zeros(2, 6, 10, 3)
+    want_in_place = {k: _tma_admits(v) for k, v in views.items()}
+    assert want_in_place["float32 head slice"]
+    assert want_in_place["bfloat16 permuted qkv"]
+    assert not want_in_place["bfloat16 misaligned base"]
+    assert not want_in_place["bf16 D 4 rows 8 bytes"]
+    assert not want_in_place["float32 D stride 2"]
+    got = {k: tfa._strided_ok(v) for k, v in views.items()}
+    for k in views:
+        assert got[k] == want_in_place[k], k
+    # bf16 batch strides of 2**39 and 2**40 bytes
+    for stride, ok in ((2 ** 38, True), (2 ** 39, False)):
+        fake = _FakeView((2, 2, 2, 64), (stride, 128, 64, 1))
+        assert tfa._strided_ok(fake) == ok, stride

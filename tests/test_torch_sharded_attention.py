@@ -9,9 +9,15 @@ per-shard body on the CPU is its reference attention.  A plain causal
 shard takes the port's causal route (the flash forward kernel with the
 scale folded into q, where the JAX package takes the TPU's splash
 kernel); dropout draws a different mask per shard from the seed mixed
-with the shard index.
+with the shard index.  The causal route is one autograd function over
+the whole tensors, each shard's launch reading and writing its views in
+place: its output and gradients must equal, bit for bit, the per-shard
+composition it replaced (contiguous slices, the scale folded into q,
+the flash op, concatenation).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import pytest
@@ -158,3 +164,48 @@ def test_causal_route_launches_nothing_on_the_cpu():
     before = tfa.flash_attention.launches_fwd
     tatt.flash_attention_sharded(q, q, q, cfg, causal=True)
     assert tfa.flash_attention.launches_fwd == before
+
+
+def _per_shard_causal(q, k, v, dp, tp):
+    """The causal route composed per shard: contiguous slices, the scale
+    folded into q in q's dtype, the flash op with ``causal=True``, then a
+    concat over heads and one over the batch."""
+    Bl, Hl = q.shape[0] // dp, q.shape[1] // tp
+    s = 1.0 / math.sqrt(q.shape[-1])
+    rows = []
+    for d in range(dp):
+        heads = []
+        for t in range(tp):
+            qs, ks, vs = (x[d * Bl:(d + 1) * Bl, t * Hl:(t + 1) * Hl]
+                          for x in (q, k, v))
+            heads.append(tfa.flash_attention((qs * s).to(qs.dtype), ks, vs,
+                                             causal=True, scale=1.0))
+        rows.append(torch.cat(heads, dim=1))
+    return torch.cat(rows, dim=0)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 4)],
+                         ids=lambda m: "dp%d-tp%d" % m)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_route_equals_per_shard_composition(mesh, dtype):
+    """The in-place causal route's output and q, k, v gradients equal the
+    per-shard composition's exactly (``torch.equal``), and each call
+    counts dp * tp causal shards."""
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(a).to(tdt) for a in _inputs(3))
+    g = torch.tensor(_inputs(4)[0]).to(tdt)
+    cfg = ShardingConfig.for_transformer(mesh_shape=mesh,
+                                         axis_names=("dp", "tp"))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = tatt.flash_attention_sharded.causal_shards
+    out = tatt.flash_attention_sharded(*leaves, cfg, causal=True)
+    assert (tatt.flash_attention_sharded.causal_shards - before
+            == mesh[0] * mesh[1])
+    assert tatt.last_path == "flash-causal-shard" and out.dtype == tdt
+    grads = torch.autograd.grad(out, leaves, g)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = _per_shard_causal(*ref_leaves, *mesh)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, g)
+    assert torch.equal(out, ref)
+    for got, want in zip(grads, ref_grads):
+        assert got.dtype == tdt and torch.equal(got, want)
