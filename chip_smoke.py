@@ -22,16 +22,17 @@ plain version):
    forward (rates 0, 0.1, 0.5) and backward (0.1, 0.5) at (4096, 768) and
    (4095, 766), the mask held exactly.  Flash attention (#5 forward, #6
    dq, #7 dk/dv) against ``flash_attention_plain``, its backward and
-   autograd through it: float32 at D 64 and 128, bfloat16 at D 32, 64
-   and 128 (the bf16 backward runs on wgmma and TMA), (B, H, L) of (32,
-   12, 128), (4, 12, 2048) and a ragged (2, 6, 200), with no mask,
+   autograd through it: float32 and bfloat16 at D 32, 64 and 128 (the
+   bf16 kernels and the fp32 backward run on wgmma and TMA, the fp32
+   backward in 3xTF32 within the tighter TOL_FLASH_BWD_F32), (B, H, L) of
+   (32, 12, 128), (4, 12, 2048) and a ragged (2, 6, 200), with no mask,
    causal, a window of 32 and kv_length with a row of length 0, at
-   dropout 0 and 0.1 (120 cases); the dropout mask read off the output
+   dropout 0 and 0.1 (144 cases); the dropout mask read off the output
    (q = k = 0, V = I) in every element at rates 0.1 and 0.5 and seeds 0
    and 2**32 - 1; the three kernels timed at the training shape in fp32
    and bf16 and at the long-context shape (B 4, L 2048) in bf16, beside
-   their plain versions and SDPA, and the bf16 backward's fixed part
-   (every kv_length 0).  The LSTM time loop
+   their plain versions and SDPA, and the backward's fixed part (every
+   kv_length 0) in both types.  The LSTM time loop
    (#10 forward, #11 backward) against its plain versions and #11 (through
    the autograd Function) against autograd through the plain forward:
    float32 and bfloat16, (T, B, H) of (35, 32, 650), (7, 5, 37) and (35,
@@ -45,7 +46,8 @@ plain version):
    #16 route (``flash_attention_sharded`` on a dp 2 x tp 2 mesh at B 32,
    H 12, L 128, D 64, causal, fp32 and bf16) against the plain causal
    attention and the unsharded #5, forward and gradients, with dp * tp
-   launches of #5 per call.  ``--kernels-only`` stops here.
+   launches of #5 per call; its backward timed beside SDPA's is_causal
+   backward.  ``--kernels-only`` stops here.
 3. Serving: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
    ``--seed``, with random biases and LN affines, which the kernel checks
@@ -116,6 +118,10 @@ import numpy as np
 # H100 SXM published peaks (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# fp32-accurate products on the tensor cores: 3xTF32 (hi hi + hi lo + lo
+# hi) at the TF32 peak of 495 TFLOP/s.  The bound of the fp32 flash rows:
+# the card can do their fp32 work this fast, faster than on its FMAs.
+TF32X3_FLOPS = 495e12 / 3
 
 # tolerances of the kernel checks, kernel vs plain version on the card
 TOL_BIAS_GELU = 1e-5     # one fp32 erf per element
@@ -624,15 +630,21 @@ def check_bias_dropout_residual(torch, timer, report):
 # dS = P (dP - delta) cancels where dP is close to delta, so that rounding
 # (2**-9 of O) reaches a few percent of dS's largest element; 2**-5.
 TOL_FLASH_F32 = 1e-4
+# The fp32 backward (#6, #7) against its plain version: 3xTF32 products
+# keep about 2^-20 of each product (a single TF32 product 2^-11), summed
+# over up to 2048 keys: a few 1e-6 of the largest element at most, where
+# a kernel with single TF32 products reads ~1e-3 and fails.
+# tests/test_torch_flash_attention.py (test_tf32x3_tolerance) holds the
+# emulated products of both against this bound.
+TOL_FLASH_BWD_F32 = 1e-5
 TOL_FLASH_BF16 = 2.0 ** -7
 TOL_FLASH_GRAD_BF16 = 2.0 ** -5
 BF16_FLOPS = 989e12
 #: (B, H, L) of the flash checks: the training shape, the long-context
 #: shape and a ragged L
 FLASH_SHAPES = ((32, 12, 128), (4, 12, 2048), (2, 6, 200))
-#: head dims of the flash checks per dtype (bf16 also at D 32, which the
-#: bf16 backward builds as its own instantiation)
-FLASH_DIMS = {"float32": (64, 128), "bfloat16": (32, 64, 128)}
+#: head dims of the flash checks per dtype: every instantiation
+FLASH_DIMS = {"float32": (32, 64, 128), "bfloat16": (32, 64, 128)}
 #: the spin kernel's cycles before each timed flash launch (~0.5 ms)
 FLASH_SPIN = 1_000_000
 
@@ -682,10 +694,13 @@ def flash_case(torch, fa, g, B, H, L, D, dt, mask, rate):
     ref, _ = fa.flash_attention_plain(*leaves, **kw)
     grads = torch.autograd.grad(ref, leaves, do)
     errs["autograd"] = max(rel_err(a, b) for a, b in zip((dq, dk, dv), grads))
-    tol = TOL_FLASH_F32 if dt == torch.float32 else TOL_FLASH_BF16
-    tol_ag = TOL_FLASH_F32 if dt == torch.float32 else TOL_FLASH_GRAD_BF16
-    bad = [n for n, e in errs.items()
-           if not e <= (tol_ag if n == "autograd" else tol)]
+    f32 = dt == torch.float32
+    tol = TOL_FLASH_F32 if f32 else TOL_FLASH_BF16
+    tol_ag = TOL_FLASH_F32 if f32 else TOL_FLASH_GRAD_BF16
+    tols = dict(out=tol, lse=tol, autograd=tol_ag,
+                **{n: TOL_FLASH_BWD_F32 if f32 else tol
+                   for n in ("dq", "dk", "dv")})
+    bad = [n for n, e in errs.items() if not e <= tols[n]]
     if bad:
         raise AssertionError(
             "flash attention B %d H %d L %d D %d %s mask %s rate %g: %s "
@@ -756,7 +771,7 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
                     spin=4_000_000)
     elt = q.element_size()
     keys = float(kvl.sum()) * H * L       # (row, key) pairs the mask keeps
-    peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
+    peak = TF32X3_FLOPS if dt == torch.float32 else BF16_FLOPS
     errs = flash_case(torch, fa, g, B, H, L, D, dt, "kv_length", 0.1)
     rows = {}
     for name, fn, plain, flops, nbytes, err in (
@@ -790,27 +805,24 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
                             "backward (dq, dk and dv in one call)", lib))
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                           bound_by=by, library_ms=lib, max_abs_err=err)
+    # the backward kernels' fixed part: every kv_length 0, so no tile is
+    # visited, but each launch still loads its own side and writes zeros
+    z = torch.zeros_like(kvl)
+    fixed = {"flash_attention_bwd_dq": timer(
+                 lambda: fa.flash_attention_bwd_dq(*bwd, dropout=0.1,
+                                                   seed=seed, kv_length=z),
+                 spin=FLASH_SPIN),
+             "flash_attention_bwd_dkv": timer(
+                 lambda: fa.flash_attention_bwd_dkv(*bwd, dropout=0.1,
+                                                    seed=seed, kv_length=z),
+                 spin=FLASH_SPIN)}
+    log("%s backward with every kv_length 0 (B %d, H %d, L %d, D %d), the "
+        "launches' fixed part: dq %.4f ms, dkv %.4f ms"
+        % (str(dt)[6:], B, H, L, D, fixed["flash_attention_bwd_dq"],
+           fixed["flash_attention_bwd_dkv"]))
+    for name, ms in fixed.items():
+        rows[name]["fixed_ms"] = ms
     if dt == torch.bfloat16:
-        # the backward kernels' fixed part: every kv_length 0, so no tile
-        # is visited, but each launch still loads its own side and writes
-        # zeros
-        z = torch.zeros_like(kvl)
-        fixed = {"flash_attention_bwd_dq": timer(
-                     lambda: fa.flash_attention_bwd_dq(*bwd, dropout=0.1,
-                                                       seed=seed,
-                                                       kv_length=z),
-                     spin=FLASH_SPIN),
-                 "flash_attention_bwd_dkv": timer(
-                     lambda: fa.flash_attention_bwd_dkv(*bwd, dropout=0.1,
-                                                        seed=seed,
-                                                        kv_length=z),
-                     spin=FLASH_SPIN)}
-        log("bf16 backward with every kv_length 0 (B %d, H %d, L %d, D %d), "
-            "the launches' fixed part: dq %.4f ms, dkv %.4f ms"
-            % (B, H, L, D, fixed["flash_attention_bwd_dq"],
-               fixed["flash_attention_bwd_dkv"]))
-        for name, ms in fixed.items():
-            rows[name]["fixed_ms"] = ms
         # the forward's hash share: the same call at dropout 0
         rate0 = timer(lambda: fa.flash_attention_fwd(q, k, v, kv_length=kvl),
                       spin=FLASH_SPIN)
@@ -841,10 +853,11 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
 ATOMIC_OPS = ("ATOM", "ATOMG", "ATOMS", "RED", "REDG")
 
 
-def sass_census(path, marker):
+def sass_census(path, marker, full=False):
     """Per kernel whose name holds ``marker``, the count of each SASS
-    opcode (its first dotted part) in the library at ``path``, read with
-    the toolkit's cuobjdump."""
+    opcode (its first dotted part, or with ``full`` the whole opcode, as
+    ``HGMMA.64x64x8.F32.TF32``) in the library at ``path``, read with the
+    toolkit's cuobjdump."""
     from mxnet_tpu_torch.ops.kernels import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
@@ -861,7 +874,7 @@ def sass_census(path, marker):
             if words and words[0].startswith("@"):
                 words = words[1:]
             if words:
-                op = words[0].split(".")[0]
+                op = words[0] if full else words[0].split(".")[0]
                 census[fn][op] = census[fn].get(op, 0) + 1
     return census
 
@@ -869,7 +882,8 @@ def sass_census(path, marker):
 def check_flash_sass(libs):
     """The bf16 flash kernels (#5 forward, #6 and #7 backward) issue wgmma
     (HGMMA), load by TMA (UTMALDG), store by TMA (UTMASTG) and hold no
-    atomic."""
+    atomic; the fp32 backward kernels (#6, #7) issue tf32 products on
+    wgmma and mma.sync, load by TMA and hold no atomic."""
     census = sass_census(libs["flash_attention"], "_sm90")
     bad = []
     for fn, ops in sorted(census.items()):
@@ -884,6 +898,29 @@ def check_flash_sass(libs):
         raise AssertionError("flash bf16 SASS: %d kernels (%d forward), "
                              "without wgmma/TMA or with atomics: %s"
                              % (len(census), forward, bad))
+    # the fp32 backward (#6, #7): tf32 products on the tensor cores, wgmma
+    # (HGMMA ... TF32) and mma.sync (HMMA ... TF32), read from the whole
+    # opcode; TMA loads; no atomic
+    census = sass_census(libs["flash_attention"], "_tf32", full=True)
+    bad = []
+    for fn, ops in sorted(census.items()):
+        parts = {op: op.split(".") for op in ops}
+        tc = {kind: sum(n for op, n in ops.items()
+                        if parts[op][0] == kind and "TF32" in parts[op])
+              for kind in ("HGMMA", "HMMA")}
+        loads = sum(n for op, n in ops.items() if parts[op][0] == "UTMALDG")
+        atomics = sum(n for op, n in ops.items()
+                      if parts[op][0] in ATOMIC_OPS)
+        log("SASS %s: tf32 %s, UTMALDG %d, atomics %d"
+            % (fn[-60:], tc, loads, atomics))
+        if not (tc["HGMMA"] and tc["HMMA"] and loads) or atomics:
+            bad.append(fn)
+    dkv = sum("flash_bwd_dkv_tf32" in fn for fn in census)
+    # 2 kernels (#6, #7) x 3 head dims x dropout on or off
+    if len(census) != 12 or dkv != 6 or bad:
+        raise AssertionError("flash fp32 SASS: %d kernels (%d dk/dv), "
+                             "without tf32 tensor-core products or TMA, or "
+                             "with atomics: %s" % (len(census), dkv, bad))
 
 
 def check_flash_strided(torch, fa):
@@ -951,7 +988,7 @@ def check_flash_strided(torch, fa):
 
 def check_flash_attention(torch, timer, report):
     """Kernels #5-#7 against the plain version and autograd through it, in
-    float32 (D 64 and 128) and bfloat16 (D 32, 64 and 128), at (B, H, L)
+    float32 and bfloat16 at D 32, 64 and 128, at (B, H, L)
     of the training shape (BH 384), the long-context shape (BH 48) and a
     ragged L 200, with no mask, causal, a window of 32 and kv_length with
     a row of length 0, at dropout 0 and 0.1; then the mask exactly, and
@@ -974,9 +1011,9 @@ def check_flash_attention(torch, timer, report):
                             w[name] = max(w.get(name, 0.0), e)
         torch.cuda.empty_cache()
     log("flash attention: %d cases pass; worst error / largest element %s "
-        "(tol fp32 %g, bf16 %g, bf16 vs autograd %g)"
-        % (n, json.dumps(worst), TOL_FLASH_F32, TOL_FLASH_BF16,
-           TOL_FLASH_GRAD_BF16))
+        "(tol fp32 %g, fp32 dq/dk/dv %g, bf16 %g, bf16 vs autograd %g)"
+        % (n, json.dumps(worst), TOL_FLASH_F32, TOL_FLASH_BWD_F32,
+           TOL_FLASH_BF16, TOL_FLASH_GRAD_BF16))
     # a negative scale: the bf16 kernel takes its running max over -S
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(2, 6, 200, 64, device=DEV, generator=g).to(dt)
@@ -1440,9 +1477,23 @@ def check_sharded_attention(torch, timer, report):
                          spin=4_000_000)
         lib = timer(lambda: F.scaled_dot_product_attention(q, k, v,
                                                            is_causal=True))
+        # the route's backward (#6 and #7 once per shard) beside SDPA's
+        # is_causal backward on the whole tensors, both through autograd
+        lb = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o_route = att.flash_attention_sharded(*lb, cfg, causal=True)
+        bwd_ms = timer(lambda: torch.autograd.grad(o_route, lb, do,
+                                                   retain_graph=True),
+                       spin=4_000_000)
+        o_sdpa = F.scaled_dot_product_attention(*lb, is_causal=True)
+        lib_bwd = timer(lambda: torch.autograd.grad(o_sdpa, lb, do,
+                                                    retain_graph=True),
+                        spin=4_000_000)
+        log("flash_attention_sharded %s backward (%d launches each of #6 and "
+            "#7 on the shards): %.4f ms; SDPA is_causal backward on the "
+            "whole tensors %.4f ms" % (str(dt)[6:], shards, bwd_ms, lib_bwd))
         pairs = B * H * L * (L + 1) // 2          # causal (row, key) pairs
         bms, by = bound(4 * B * H * L * D * q.element_size(), 4 * pairs * D,
-                        FP32_FLOPS if f32 else BF16_FLOPS)
+                        TF32X3_FLOPS if f32 else BF16_FLOPS)
         log("flash_attention_sharded dp %d tp %d (B %d, H %d, L %d, D %d, "
             "causal) %s: %d launches of #5 per call; max err / largest vs "
             "plain %.3g, vs unsharded #5 %.3g (tol %g), gradients vs "
@@ -1460,7 +1511,8 @@ def check_sharded_attention(torch, timer, report):
                                  % errs)
         rows[str(dt)[6:]] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                  bound_by=by, library_ms=lib,
-                                 max_abs_err=max(errs.values()))
+                                 max_abs_err=max(errs.values()),
+                                 bwd_ms=bwd_ms, library_bwd_ms=lib_bwd)
     report["flash_attention_sharded_causal"] = dict(
         name="flash_attention_sharded_causal", route="cuda",
         source="mxnet_tpu_torch/csrc/flash_attention.cu",

@@ -23,20 +23,66 @@
 // -1e30 sentinel alone would give such a row exp(0) = 1 on every masked
 // key of a visited tile, so its output would depend on the tiling.
 //
-// Two designs.  The float32 kernels run on the CUDA cores: a block of 256
-// threads owns one 64-row tile of one (batch, head) and loops over the
-// 64-wide tiles of the other side, skipping tiles the mask rules out
+// Three designs.  The float32 forward (#5) runs on the CUDA cores: a
+// block of 256 threads owns one 64-row tile of one (batch, head) and loops
+// over the 64-wide k tiles, skipping tiles the mask rules out
 // (_block_needed, :69) and the per-element mask on interior tiles
 // (_block_boundary, :86).  The tiles sit in shared memory, rows padded by
 // 4 floats so the 16-byte loads below hit distinct banks.  Thread (ty,
 // tx) = (tid / 16, tid % 16) owns score rows 4 ty .. 4 ty + 3 and columns
 // tx + 16 c (c < 4) of a 64 x 64 tile; the row reductions of the online
-// softmax are shuffles across the 16 lanes of a row group.  At BERT-base
-// training shapes (L 128, D 64) the kernels do 4, 6 and 8 BH L^2 D flops
-// over 4, 5 and 6 BH L D elements read or written: L / 4 = 32 flops per
-// fp32 byte, above the 20 where the fp32 peak (67 TFLOP/s) and not
-// memory (3.35 TB/s) bounds.
+// softmax are shuffles across the 16 lanes of a row group.
 //
+// The float32 backward (#6 dq, #7 dk and dv) runs on the tensor cores in
+// 3xTF32, on the bf16 kernels' skeleton below (TMA rings, one producer
+// warpgroup, the element pass on the accumulators, a persistent grid at
+// L <= 256).  Each fp32 operand x is split into hi = tf32(x) and lo =
+// tf32(x - hi); hi hi + hi lo + lo hi is summed in fp32 and lo lo left
+// out, about 2^-20 of each product against a single TF32 product's 2^-11,
+// so the kernels stay fp32-accurate (the port runs fp32 with TF32 off).
+// That is 3 tf32 products for each fp32 one: 495 / 3 = 165 TFLOP/s, above
+// the 67 of fp32 FMAs.  Where the design met trouble:
+// 1. wgmma reads tf32 from shared memory K-major only (no transpose bit).
+//    The first products (S = Q K^T and dP = dO V^T; in #7 S^T = K Q^T and
+//    dP^T = V dO^T) read both tiles K-major as TMA lands them.  The second
+//    (dQ = dS K, dV = (P keep)^T dO, dK = dS^T Q) would read their B tile
+//    MN-major; they run on mma.sync m16n8k8 instead, each lane loading its
+//    B fragment from the row-major tile (mma_product), with no transposed
+//    copy in shared memory.
+// 2. The fp32 accumulator is not tf32's A fragment (sm90.cuh): lane t
+//    holds columns 2t, 2t + 1 of each 8-group where the fragment takes t,
+//    t + 4.  mma_product permutes K within each 8-group to match (k t is
+//    column 2t, k t + 4 column 2t + 1) and reads B's rows in that order;
+//    the sum over K does not change.
+// 3. The tensor core reads an fp32 word's top 19 bits.  So the first
+//    products read A and B as TMA lands them, as their hi halves; warps
+//    1-3 of the producer warpgroup write each streamed stage's residual
+//    tiles x - trunc(x) beside it (the B lo of hi lo), and the consumers
+//    load the own side's residuals into registers as A fragments (the A
+//    lo of lo hi; residual_frags).  mma_product splits in registers.
+// 4. Shared memory and registers: fp32 tiles are twice bf16's and the
+//    residual tiles double the streamed side, so the streamed tiles hold
+//    32 rows; the own side is double-buffered at D 32 and 64 (113 and 193
+//    KB), single at D 128 with one consumer warpgroup (192 KB).  The
+//    consumers fit the 168 registers a thread ptxas allots at 384 threads
+//    (#7 with dropout spills 8 bytes at D 64).  At D 128 (255 registers;
+//    #7's dK and dV take 128) the lo products go 4 k8 steps a group, so
+//    the residual fragments take 32 registers, not 128; still #6 spills
+//    ~0.2 KB and #7 ~0.7 KB.
+// 5. A 128-byte swizzled TMA box row holds 32 fp32: D / 32 boxes side by
+//    side (TileF), and a tf32 descriptor steps 32 bytes a k8.
+// 6. The tensor core's adds into its accumulator do not round to nearest
+//    (they drift as truncation would): a chain of 3xTF32's products
+//    drifted to 3e-5 of the largest gradient at L 2048.  The lo products
+//    go first and the hi ones last, and mma_product sums each tile apart
+//    and adds it with a rounded add: 5.3e-6 at most on the card.
+// Outputs leave through the own tile and a TMA store (16-byte stores from
+// registers were slower for #7 and no faster for #6).  At
+// the training shape (B 32, H 12, L 128, D 64, the batch's kv_length) #6
+// reads and writes 63.3 MB and #7 75.9 MB, 0.0189 and 0.0227 ms at 3.35
+// TB/s, over 1.85 and 2.47 GFLOP, 0.0112 and 0.0149 ms in 3xTF32 at 495
+// TFLOP/s: bytes bound.
+
 // The bfloat16 kernels (#5 forward, #6 dq, #7 dk and dv) are built for
 // Hopper's tensor cores (sm90.cuh has the building blocks):
 // - Products on wgmma, m64n64k16: S (S^T in #7) and dP (dP^T) with K (the
@@ -244,15 +290,18 @@ struct Mask {
     return i < L && j < klim && (!causal || j <= i) &&
            (window < 0 || abs(i - j) <= window);
   }
-  // some element of the tile rows [q0, q0+64) x keys [k0, k0+64) is valid
+  // some element of the tile rows [q0, q0 + NQ) x keys [k0, k0 + NK) is
+  // valid
+  template <int NQ = kTile, int NK = kTile>
   __device__ bool needed(int q0, int k0) const {
-    const int q1 = q0 + kTile - 1, k1 = k0 + kTile - 1;
+    const int q1 = q0 + NQ - 1, k1 = k0 + NK - 1;
     return q0 < L && k0 < klim && (!causal || k0 <= q1) &&
            (window < 0 || (k0 <= q1 + window && k1 >= q0 - window));
   }
   // every element of the tile is valid: no per-element mask
+  template <int NQ = kTile, int NK = kTile>
   __device__ bool interior(int q0, int k0) const {
-    const int q1 = q0 + kTile - 1, k1 = k0 + kTile - 1;
+    const int q1 = q0 + NQ - 1, k1 = k0 + NK - 1;
     return q1 < L && k1 < klim && (!causal || k1 <= q0) &&
            (window < 0 || (q1 - k0 <= window && k1 - q0 <= window));
   }
@@ -299,30 +348,32 @@ __device__ __forceinline__ float keep_of(const Args& a, uint32_t s, int bh,
              : 0.f;
 }
 
-// the k tiles [lo, hi] that rows [q0, q0 + 64) can see
+// the k tiles of RK keys [lo, hi] that rows [q0, q0 + 64) can see
+template <int RK = kTile>
 __device__ __forceinline__ void k_range(const Mask& m, int q0, int& lo,
                                         int& hi) {
   const int q1 = q0 + kTile - 1;
   lo = 0;
-  hi = (m.klim + kTile - 1) / kTile - 1;
-  if (m.causal) hi = min(hi, q1 / kTile);
+  hi = (m.klim + RK - 1) / RK - 1;
+  if (m.causal) hi = min(hi, q1 / RK);
   if (m.window >= 0) {
-    hi = min(hi, (q1 + m.window) / kTile);
-    lo = max(0, q0 - m.window) / kTile;
+    hi = min(hi, (q1 + m.window) / RK);
+    lo = max(0, q0 - m.window) / RK;
   }
 }
 
-// the q tiles [lo, hi] that keys [k0, k0 + 64) can be seen from (none:
-// hi < lo)
+// the q tiles of RQ rows [lo, hi] that keys [k0, k0 + 64) can be seen
+// from (none: hi < lo)
+template <int RQ = kTile>
 __device__ __forceinline__ void q_range(const Mask& m, int k0, int& lo,
                                         int& hi) {
   const int k1 = k0 + kTile - 1;
   lo = 0;
-  hi = (m.L + kTile - 1) / kTile - 1;
-  if (m.causal) lo = k0 / kTile;
+  hi = (m.L + RQ - 1) / RQ - 1;
+  if (m.causal) lo = k0 / RQ;
   if (m.window >= 0) {
-    lo = max(lo, max(0, k0 - m.window) / kTile);
-    hi = min(hi, (k1 + m.window) / kTile);
+    lo = max(lo, max(0, k0 - m.window) / RQ);
+    hi = min(hi, (k1 + m.window) / RQ);
   }
   if (k0 >= m.klim) hi = lo - 1;
 }
@@ -424,167 +475,6 @@ flash_fwd_kernel(Args a) {
                                                   o[g * 4 + 2], o[g * 4 + 3]));
     }
     if (tx == 0) lse[gi] = empty ? -INFINITY : mx[i] + logf(den);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// #6 backward dq in float32: grid (q tiles, BH), streams k tiles
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(Args a) {
-  constexpr int SD = D + 4, N = D / 16;
-  extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);
-  float* sdo = sq + kTile * SD;
-  float* sk = sdo + kTile * SD;
-  float* sv = sk + kTile * SD;
-  float* sp = sv + kTile * SD;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t base = (size_t)bh * a.L * D;
-  const Mask m = mask_of(a, bh);
-  const uint32_t seed = a.seed ? (uint32_t)a.seed[0] : 0u;
-  load_tile<D>(sq, static_cast<const float*>(a.q) + base, q0, a.L, D);
-  load_tile<D>(sdo, static_cast<const float*>(a.dout) + base, q0, a.L, D);
-  const float* lse_g = static_cast<const float*>(a.lse_in) + (size_t)bh * a.L;
-  const float* dl_g = static_cast<const float*>(a.delta) + (size_t)bh * a.L;
-  float lse[4], delta[4], acc[4][N];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gi = q0 + ty * 4 + i;
-    lse[i] = gi < a.L ? lse_g[gi] : -INFINITY;
-    delta[i] = gi < a.L ? dl_g[gi] : 0.f;
-#pragma unroll
-    for (int n = 0; n < N; ++n) acc[i][n] = 0.f;
-  }
-  int lo, hi;
-  k_range(m, q0, lo, hi);
-  for (int kt = lo; kt <= hi; ++kt) {
-    const int k0 = kt * kTile;
-    if (!m.needed(q0, k0)) continue;
-    __syncthreads();
-    load_tile<D>(sk, static_cast<const float*>(a.k) + base, k0, a.L, D);
-    load_tile<D>(sv, static_cast<const float*>(a.v) + base, k0, a.L, D);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile<D>(s, sq, sk, ty, tx);
-    dot_tile<D>(dp, sdo, sv, ty, tx);
-    const bool edge = !m.interior(q0, k0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gi = q0 + ty * 4 + i;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int gj = k0 + tx + 16 * c;
-        const bool ok = (!edge || m.valid(gi, gj)) && lse[i] != -INFINITY;
-        const float p = ok ? expf(s[i][c] * a.scale - lse[i]) : 0.f;
-        float d = dp[i][c];
-        if (a.seed) d *= keep_of(a, seed, bh, gi, gj);
-        sp[(ty * 4 + i) * kSP + tx + 16 * c] = p * (d - delta[i]);
-      }
-    }
-    __syncthreads();
-    acc_pv<D>(acc, sp, sk, ty, tx);
-  }
-  float* dq = static_cast<float*>(a.dq) + base;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gi = q0 + ty * 4 + i;
-    if (gi >= a.L) continue;
-#pragma unroll
-    for (int n = 0; n < N; ++n)
-      dq[(size_t)gi * D + Cols<D>::col(tx, n)] = acc[i][n] * a.scale;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// #7 backward dk, dv in float32: grid (k tiles, BH), streams q tiles; the
-// block owns its 64 key rows, so no atomics
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(Args a) {
-  constexpr int SD = D + 4, N = D / 16;
-  extern __shared__ float4 smem4[];
-  float* sk = reinterpret_cast<float*>(smem4);
-  float* sv = sk + kTile * SD;
-  float* sq = sv + kTile * SD;
-  float* sdo = sq + kTile * SD;
-  float* sp = sdo + kTile * SD;
-  float* slse = sp + kTile * kSP;
-  float* sdl = slse + kTile;
-  const int bh = blockIdx.y, k0 = blockIdx.x * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t base = (size_t)bh * a.L * D;
-  const Mask m = mask_of(a, bh);
-  const uint32_t seed = a.seed ? (uint32_t)a.seed[0] : 0u;
-  load_tile<D>(sk, static_cast<const float*>(a.k) + base, k0, a.L, D);
-  load_tile<D>(sv, static_cast<const float*>(a.v) + base, k0, a.L, D);
-  const float* lse_g = static_cast<const float*>(a.lse_in) + (size_t)bh * a.L;
-  const float* dl_g = static_cast<const float*>(a.delta) + (size_t)bh * a.L;
-  float dk[4][N], dv[4][N];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < N; ++n) dk[i][n] = dv[i][n] = 0.f;
-  int lo, hi;
-  q_range(m, k0, lo, hi);
-  for (int qt = lo; qt <= hi; ++qt) {
-    const int q0 = qt * kTile;
-    if (!m.needed(q0, k0)) continue;
-    __syncthreads();
-    load_tile<D>(sq, static_cast<const float*>(a.q) + base, q0, a.L, D);
-    load_tile<D>(sdo, static_cast<const float*>(a.dout) + base, q0, a.L, D);
-    if (threadIdx.x < kTile) {
-      const int gi = q0 + threadIdx.x;
-      slse[threadIdx.x] = gi < a.L ? lse_g[gi] : -INFINITY;
-      sdl[threadIdx.x] = gi < a.L ? dl_g[gi] : 0.f;
-    }
-    __syncthreads();
-    // transposed tiles: row = key 4 ty + i, column = query tx + 16 c
-    float st[4][4], dpt[4][4];
-    dot_tile<D>(st, sk, sq, ty, tx);
-    dot_tile<D>(dpt, sv, sdo, ty, tx);
-    const bool edge = !m.interior(q0, k0);
-    float ds[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gj = k0 + ty * 4 + i;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qc = tx + 16 * c, gi = q0 + qc;
-        const float lse = slse[qc];
-        const bool ok = (!edge || m.valid(gi, gj)) && lse != -INFINITY;
-        const float p = ok ? expf(st[i][c] * a.scale - lse) : 0.f;
-        const float keep = a.seed ? keep_of(a, seed, bh, gi, gj) : 1.f;
-        sp[(ty * 4 + i) * kSP + qc] = p * keep;
-        ds[i][c] = p * (dpt[i][c] * keep - sdl[qc]);
-      }
-    }
-    __syncthreads();
-    acc_pv<D>(dv, sp, sdo, ty, tx);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        sp[(ty * 4 + i) * kSP + tx + 16 * c] = ds[i][c];
-    __syncthreads();
-    acc_pv<D>(dk, sp, sq, ty, tx);
-  }
-  float* dkp = static_cast<float*>(a.dk) + base;
-  float* dvp = static_cast<float*>(a.dv) + base;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gj = k0 + ty * 4 + i;
-    if (gj >= a.L) continue;
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const size_t o = (size_t)gj * D + Cols<D>::col(tx, n);
-      dkp[o] = dk[i][n] * a.scale;
-      dvp[o] = dv[i][n];
-    }
   }
 }
 
@@ -794,16 +684,18 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
   }
 }
 
-// A q tile's 64 rows of lse and delta ((BH, L) float32 at bh), two per
+// A q tile's R rows of lse and delta ((BH, L) float32 at bh), R / 32 per
 // lane of the producer warp: fetched before the warp waits for the stage,
 // stored after (lse as neg_lse2; rows at or past L as 0)
+template <int R = 64>
 struct Stats {
-  float l[2], d[2];
+  static constexpr int N = R / 32;
+  float l[N], d[N];
   __device__ void fetch(const Args& a, int bh, int row0) {
     const float* lg = static_cast<const float*>(a.lse_in) + (size_t)bh * a.L;
     const float* dg = static_cast<const float*>(a.delta) + (size_t)bh * a.L;
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
+    for (int k = 0; k < N; ++k) {
       const int r = row0 + (threadIdx.x & 31) + 32 * k;
       l[k] = r < a.L ? neg_lse2(lg[r]) : 0.f;
       d[k] = r < a.L ? dg[r] : 0.f;
@@ -811,7 +703,7 @@ struct Stats {
   }
   __device__ void store(float* nl, float* dl) const {
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
+    for (int k = 0; k < N; ++k) {
       nl[(threadIdx.x & 31) + 32 * k] = l[k];
       dl[(threadIdx.x & 31) + 32 * k] = d[k];
     }
@@ -845,17 +737,17 @@ struct DkvSmem {
 };
 
 // whether any warpgroup of a block with keys [kb, kb + 64 NWG) needs the
-// q tile at q0
-template <int NWG>
+// q tile of RQ rows at q0
+template <int NWG, int RQ = 64>
 __device__ __forceinline__ bool any_keys_need(const Mask& m, int q0,
                                               int kb) {
   bool need = false;
 #pragma unroll
-  for (int w = 0; w < NWG; ++w) need |= m.needed(q0, kb + 64 * w);
+  for (int w = 0; w < NWG; ++w) need |= m.needed<RQ, 64>(q0, kb + 64 * w);
   return need;
 }
 
-template <int NWG>
+template <int NWG, int RQ = 64>
 __device__ __forceinline__ void block_q_range(const Mask& m, int kb, int& lo,
                                               int& hi) {
   lo = 1 << 30;
@@ -863,7 +755,7 @@ __device__ __forceinline__ void block_q_range(const Mask& m, int kb, int& lo,
 #pragma unroll
   for (int w = 0; w < NWG; ++w) {
     int l, h;
-    q_range(m, kb + 64 * w, l, h);
+    q_range<RQ>(m, kb + 64 * w, l, h);
     if (l <= h) {
       lo = min(lo, l);
       hi = max(hi, h);
@@ -872,17 +764,16 @@ __device__ __forceinline__ void block_q_range(const Mask& m, int kb, int& lo,
   if (hi < 0) lo = 0;
 }
 
-// The element pass of #7 on S^T and dP^T (rows keys k0 + fr + 8 h,
-// columns queries q0 + fc + 8 j + e): P^T = exp(S^T scale - lse) (0 where
-// masked), keep from the hash, and as A fragments pa = bf16(P^T keep) and
-// da = bf16(P^T (dP^T keep - delta)).  nl and dl: the q tile's neg_lse2
-// and delta.  About 20 instructions an element with dropout: 2 for the
+// The element pass of #7 on S^T and dP^T over 8 NJ queries (rows keys
+// k0 + fr + 8 h, columns queries q0 + fc + 8 j + e): P^T = exp(S^T scale -
+// lse) (0 where masked), keep from the hash; st becomes P^T keep and dpt
+// dS^T = P^T (dP^T keep - delta).  nl and dl: the q tile's neg_lse2 and
+// delta.  About 19 instructions an element with dropout: 2 for the
 // exponent, 12 for the hash and its keep multiplier (9 of them integer, at
-// half the FP32 issue rate), 5 for P keep and dS, 1 for the bf16 packs.
-template <bool EDGE, bool DROP>
-__device__ __forceinline__ void dkv_grads(float (&st)[32], float (&dpt)[32],
-                                          uint32_t (&pa)[16],
-                                          uint32_t (&da)[16], const Mask& m,
+// half the FP32 issue rate), 5 for P keep and dS.
+template <int NJ, bool EDGE, bool DROP>
+__device__ __forceinline__ void dkv_elems(float (&st)[4 * NJ],
+                                          float (&dpt)[4 * NJ], const Mask& m,
                                           const Frag& f, int q0, int k0,
                                           const float* nl, const float* dl,
                                           float sl2,
@@ -890,7 +781,7 @@ __device__ __forceinline__ void dkv_grads(float (&st)[32], float (&dpt)[32],
                                           uint32_t thr, float ks) {
   const uint32_t qa0 = (uint32_t)(q0 + f.fc) * 0x9E3779B1u;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     const float2 n2 = *reinterpret_cast<const float2*>(nl + 8 * j + f.fc);
     const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + f.fc);
 #pragma unroll
@@ -914,6 +805,20 @@ __device__ __forceinline__ void dkv_grads(float (&st)[32], float (&dpt)[32],
       }
     }
   }
+}
+
+// #7's element pass on a 64-query tile, then as bf16 A fragments pa =
+// bf16(P^T keep) and da = bf16(dS^T) (1 instruction an element more)
+template <bool EDGE, bool DROP>
+__device__ __forceinline__ void dkv_grads(float (&st)[32], float (&dpt)[32],
+                                          uint32_t (&pa)[16],
+                                          uint32_t (&da)[16], const Mask& m,
+                                          const Frag& f, int q0, int k0,
+                                          const float* nl, const float* dl,
+                                          float sl2,
+                                          const uint32_t (&kmix)[2],
+                                          uint32_t thr, float ks) {
+  dkv_elems<8, EDGE, DROP>(st, dpt, m, f, q0, k0, nl, dl, sl2, kmix, thr, ks);
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     pa[i] = pack_bf16(st[2 * i], st[2 * i + 1]);
@@ -970,7 +875,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ Sm90Args p) {
       }
       for (int qt = lo; qt <= hi; ++qt) {
         if (!any_keys_need<NWG>(m, qt * 64, kb)) continue;
-        Stats st;
+        Stats<> st;
         st.fetch(a, bh, qt * 64);
         const int s = it % S;
         mbar_wait(bar_empty + 8 * s, ((it / S) & 1) ^ 1);
@@ -1089,16 +994,18 @@ struct DqSmem {
   static constexpr int kBytes = kBar + (4 + 2 * S) * 8;
 };
 
-template <int NWG>
+// whether any warpgroup of a block with rows [qb, qb + 64 NWG) needs the
+// k tile of RK keys at k0
+template <int NWG, int RK = 64>
 __device__ __forceinline__ bool any_rows_need(const Mask& m, int qb,
                                               int k0) {
   bool need = false;
 #pragma unroll
-  for (int w = 0; w < NWG; ++w) need |= m.needed(qb + 64 * w, k0);
+  for (int w = 0; w < NWG; ++w) need |= m.needed<64, RK>(qb + 64 * w, k0);
   return need;
 }
 
-template <int NWG>
+template <int NWG, int RK = 64>
 __device__ __forceinline__ void block_k_range(const Mask& m, int qb, int& lo,
                                               int& hi) {
   lo = 1 << 30;
@@ -1106,7 +1013,7 @@ __device__ __forceinline__ void block_k_range(const Mask& m, int qb, int& lo,
 #pragma unroll
   for (int w = 0; w < NWG; ++w) {
     int l, h;
-    k_range(m, qb + 64 * w, l, h);
+    k_range<RK>(m, qb + 64 * w, l, h);
     if (l <= h) {
       lo = min(lo, l);
       hi = max(hi, h);
@@ -1115,14 +1022,14 @@ __device__ __forceinline__ void block_k_range(const Mask& m, int qb, int& lo,
   if (hi < 0) lo = 0;
 }
 
-// The element pass of #6 on S and dP (rows queries q0 + fr + 8 h, columns
-// keys k0 + fc + 8 j + e): P = exp(S scale - lse) (0 where masked), keep
-// from the hash, and da = bf16(P (dP keep - delta)) as A fragments; the
-// rows' neg_lse2, delta and pre-mixed hash in nl, dlt and qmix.  About 18
+// The element pass of #6 on S and dP over 8 NJ keys (rows queries q0 + fr
+// + 8 h, columns keys k0 + fc + 8 j + e): P = exp(S scale - lse) (0 where
+// masked), keep from the hash; dp becomes dS = P (dP keep - delta).  The
+// rows' neg_lse2, delta and pre-mixed hash in nl, dlt and qmix.  About 17
 // instructions an element with dropout (as #7's, less P keep).
-template <bool EDGE, bool DROP>
-__device__ __forceinline__ void dq_grads(const float (&s)[32], float (&dp)[32],
-                                         uint32_t (&da)[16], const Mask& m,
+template <int NJ, bool EDGE, bool DROP>
+__device__ __forceinline__ void dq_elems(const float (&s)[4 * NJ],
+                                         float (&dp)[4 * NJ], const Mask& m,
                                          const Frag& f, int q0, int k0,
                                          const float (&nl)[2],
                                          const float (&dlt)[2], float sl2,
@@ -1130,7 +1037,7 @@ __device__ __forceinline__ void dq_grads(const float (&s)[32], float (&dp)[32],
                                          uint32_t thr, float ks) {
   const uint32_t kb0 = (uint32_t)(k0 + f.fc) * 0x85EBCA77u;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const uint32_t kbe = kb0 + (uint32_t)(8 * j + e) * 0x85EBCA77u;
@@ -1145,6 +1052,18 @@ __device__ __forceinline__ void dq_grads(const float (&s)[32], float (&dp)[32],
         dp[idx] = p * (d - dlt[h]);
       }
     }
+}
+
+// #6's element pass on a 64-key tile, then da = bf16(dS) as A fragments
+template <bool EDGE, bool DROP>
+__device__ __forceinline__ void dq_grads(const float (&s)[32], float (&dp)[32],
+                                         uint32_t (&da)[16], const Mask& m,
+                                         const Frag& f, int q0, int k0,
+                                         const float (&nl)[2],
+                                         const float (&dlt)[2], float sl2,
+                                         const uint32_t (&qmix)[2],
+                                         uint32_t thr, float ks) {
+  dq_elems<8, EDGE, DROP>(s, dp, m, f, q0, k0, nl, dlt, sl2, qmix, thr, ks);
 #pragma unroll
   for (int i = 0; i < 16; ++i) da[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
 }
@@ -1585,6 +1504,598 @@ flash_fwd_sm90(const __grid_constant__ Sm90Args p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// #6 and #7 in float32: 3xTF32 products on the tensor cores (sm_90a)
+// ---------------------------------------------------------------------------
+// An (R, D) fp32 tile as TMA writes it: D / 32 boxes of 32 columns side by
+// side, each R rows of 128 bytes, 128-byte swizzled (16-byte chunk c of
+// row r at c ^ (r % 8)).
+template <int D, int R>
+struct TileF {
+  static constexpr int kBytes = R * D * 4;
+  // byte offset of element (r, c)
+  __device__ static int at(int r, int c) {
+    return ((c >> 5) * R + r) * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) +
+           (c & 3) * 4;
+  }
+  // K-major wgmma operand over D: rows from row0 (a multiple of 8) at k8
+  // step kk, 32 bytes a step within a box
+  __device__ static uint64_t kmajor(uint32_t tile, int row0, int kk) {
+    return gmma_desc(tile + ((kk >> 2) * R + row0) * 128 + (kk & 3) * 32, 1,
+                     1024);
+  }
+};
+
+// Rows [row0, row0 + NR ROWS) of a float32 map into a tile of NR ROWS rows,
+// boxes of ROWS rows by 32 columns, skipping the ROWS-row groups that start
+// at or past L; f32_load_bytes is what that asks for.
+template <int D, int NR, int ROWS>
+__device__ __forceinline__ uint32_t f32_load_bytes(int row0, int L) {
+  uint32_t bytes = 0;
+#pragma unroll
+  for (int w = 0; w < NR; ++w)
+    if (row0 + ROWS * w < L) bytes += ROWS * D * 4;
+  return bytes;
+}
+template <int D, int NR, int ROWS>
+__device__ __forceinline__ void f32_load_rows(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int row0, int bh,
+                                              int L) {
+#pragma unroll
+  for (int w = 0; w < NR; ++w) {
+    if (row0 + ROWS * w >= L) break;
+#pragma unroll
+    for (int b = 0; b < D / 32; ++b)
+      tma_load_3d(dst + (b * NR + w) * ROWS * 128, map, bar, b * 32,
+                  row0 + ROWS * w, bh);
+  }
+}
+
+// What the tensor core drops of rows [row0, row0 + 64) of an fp32 tile
+// (TileF<D, R>), k8 steps [kk0, kk0 + CH), rounded to tf32, as a
+// warpgroup's tf32 A fragments: step kk0 + c in a[4 c .. 4 c + 3], rows
+// fr, fr + 8 and columns 8 kk + t, 8 kk + t + 4 (t = fc / 2).
+// Conflict-free: a load's 8 rows land in 8 distinct chunks.
+template <int D, int R, int CH>
+__device__ __forceinline__ void residual_frags(uint32_t (&a)[4 * CH],
+                                               const uint8_t* tile, int row0,
+                                               int kk0, const Frag& f) {
+  const int t = f.fc >> 1;
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + f.fr + 8 * (i & 1);
+      const int col = 8 * (kk0 + c) + t + 4 * (i >> 1);
+      a[4 * c + i] = tf32_round(tf32_residual(
+          *reinterpret_cast<const float*>(tile + TileF<D, R>::at(r, col))));
+    }
+}
+
+// The tensor core's adds into its fp32 accumulator do not round to
+// nearest, up to 2^-23 of the running sum each time: a chain into one
+// large accumulator drifts (3xTF32's three products a k8 step, over a
+// whole tile, read up to 3e-5 of the largest gradient on the card).  So
+// the small products come first and the hi hi products, one a k8 step,
+// last.
+//
+// c (64 x N) (+)= A B_lo + A_lo B over k8 steps [kk0, kk0 + CH) of D: A
+// the rows [a0, a0 + 64) of an fp32 tile of RA rows at ta, its residuals
+// in alo (residual_frags); B the N-row fp32 tile tb, its residual tile at
+// tb + 2 TileF<D, N>::kBytes (a stage's layout).  The tensor core reads A
+// and B as their tf32 truncations, so with hi_products these leave out
+// only A_lo B_lo and the truncation of the residuals, about 2^-20 of each
+// product.  c starts from 0 when `first`.
+template <int D, int RA, int N, int CH>
+__device__ __forceinline__ void lo_products(float (&c)[N / 2], uint32_t ta,
+                                            int a0,
+                                            const uint32_t (&alo)[4 * CH],
+                                            uint32_t tb, int kk0,
+                                            bool first) {
+  using TB = TileF<D, N>;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int kk = kk0 + i;
+    wgmma_tf32_ss<N>(c, TileF<D, RA>::kmajor(ta, a0, kk),
+                     TB::kmajor(tb + 2 * TB::kBytes, 0, kk),
+                     !(first && i == 0));
+    wgmma_tf32_rs<N>(c, alo + 4 * i, TB::kmajor(tb, 0, kk));
+  }
+}
+// s (64 x N) (+)= A B over all of D as tf32 (see lo_products); s starts
+// from 0 when `first`
+template <int D, int RA, int N>
+__device__ __forceinline__ void hi_products(float (&s)[N / 2], uint32_t ta,
+                                            int a0, uint32_t tb,
+                                            bool first) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    wgmma_tf32_ss<N>(s, TileF<D, RA>::kmajor(ta, a0, kk),
+                     TileF<D, N>::kmajor(tb, 0, kk), !(first && kk == 0));
+}
+
+// A tile's first two products for one warpgroup, s = A1 B1^T and d = A2
+// B2^T in 3xTF32 (A1, A2 the rows [a0, a0 + 64) of tiles of RA rows; B1,
+// B2 stage tiles of N rows), CH k8 steps of the lo products a group (so
+// the residual fragments take 8 CH registers), the hi products with the
+// last group; returns with both done.
+template <int D, int RA, int N, int CH>
+__device__ __forceinline__ void first_products(float (&s)[N / 2],
+                                               float (&d)[N / 2],
+                                               const uint8_t* smem,
+                                               uint32_t base, uint32_t a1,
+                                               uint32_t a2, int a0,
+                                               uint32_t b1, uint32_t b2,
+                                               const Frag& f) {
+#pragma unroll
+  for (int kk0 = 0; kk0 < D / 8; kk0 += CH) {
+    uint32_t r1[4 * CH], r2[4 * CH];
+    residual_frags<D, RA, CH>(r1, smem + (a1 - base), a0, kk0, f);
+    residual_frags<D, RA, CH>(r2, smem + (a2 - base), a0, kk0, f);
+    wgmma_fence();
+    lo_products<D, RA, N, CH>(s, a1, a0, r1, b1, kk0, kk0 == 0);
+    lo_products<D, RA, N, CH>(d, a2, a0, r2, b2, kk0, kk0 == 0);
+    if (kk0 + CH == D / 8) {
+      hi_products<D, RA, N>(s, a1, a0, b1, false);
+      hi_products<D, RA, N>(d, a2, a0, b2, false);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  fence_regs(s);
+  fence_regs(d);
+}
+
+// acc (the warp's 16 rows by D, in the accumulator's layout) += A B in
+// 3xTF32 on mma.sync m16n8k8: A the warp's rows of an m64nR fp32
+// accumulator a (its R columns the K dimension), B an fp32 tile (TileF<D,
+// R>) of R rows by D, read row-major as TMA wrote it.  The accumulator
+// gives lane (g, t) columns 2t and 2t + 1 of each 8-group where mma's A
+// fragment takes t and t + 4, so K runs permuted within each 8-group (mma's
+// k t is column 2t, k t + 4 column 2t + 1) and each lane reads B's rows 2t
+// and 2t + 1 to match: the sum over K is the same.  A and B split into
+// tf32 hi + lo in registers; lo lo is left out.  Each 8-column block of
+// the tile's sum starts from 0, takes the lo products, then the hi ones
+// (the drift, above), and is added to acc by a rounded fp32 add.
+// Conflict-free: a load's lanes read 8 columns of 4 rows of one parity, 8
+// distinct chunks.
+template <int D, int R>
+__device__ __forceinline__ void mma_product(float (&acc)[D / 2],
+                                            const float (&a)[R / 2],
+                                            const uint8_t* tb) {
+  constexpr int NJ = R / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t ah[R / 2], al[R / 2];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    tf32_split(a[4 * j], ah[4 * j], al[4 * j]);              // row g, col 2t
+    tf32_split(a[4 * j + 2], ah[4 * j + 1], al[4 * j + 1]);  // g + 8, 2t
+    tf32_split(a[4 * j + 1], ah[4 * j + 2], al[4 * j + 2]);  // g, 2t + 1
+    tf32_split(a[4 * j + 3], ah[4 * j + 3], al[4 * j + 3]);  // g + 8, 2t + 1
+  }
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) {
+    const int c = 8 * nb + g;
+    float cc[4] = {0.f, 0.f, 0.f, 0.f};
+    uint32_t bh[2 * NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int k = 8 * j + 2 * t;
+      uint32_t bl0, bl1;
+      tf32_split(*reinterpret_cast<const float*>(tb + TileF<D, R>::at(k, c)),
+                 bh[2 * j], bl0);
+      tf32_split(
+          *reinterpret_cast<const float*>(tb + TileF<D, R>::at(k + 1, c)),
+          bh[2 * j + 1], bl1);
+      mma_tf32(cc, al + 4 * j, bh[2 * j], bh[2 * j + 1]);
+      mma_tf32(cc, ah + 4 * j, bl0, bl1);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      mma_tf32(cc, ah + 4 * j, bh[2 * j], bh[2 * j + 1]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[4 * nb + i] += cc[i];
+  }
+}
+
+// A warpgroup's (64, D) fp32 accumulator times scale into rows [row0, row0
+// + 64) of an fp32 tile (TileF<D, R>) in the layout TMA reads.  A store's
+// 32 lanes write 8 rows x 2 chunks, two wavefronts.
+template <int D, int R>
+__device__ __forceinline__ void frag_to_tile_f32(uint8_t* tile, int row0,
+                                                 const float (&acc)[D / 2],
+                                                 float scale, const Frag& f) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + f.fr + 8 * h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(tile + TileF<D, R>::at(r, 8 * j + f.fc)) =
+          make_float2(acc[4 * j + 2 * h] * scale,
+                      acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+// Rows [row0, row0 + 64) of an fp32 tile of R rows at shared `tile`,
+// written by one warpgroup, to rows [grow, grow + 64) of (batch, head) bh
+// through `map`; thread t of the warpgroup issues the store and returns
+// once TMA has read the tile.  Rows past L are not written.
+template <int D, int R>
+__device__ __forceinline__ void store_rows_f32(const CUtensorMap* map,
+                                               uint32_t tile, int row0,
+                                               int grow, int bh, int t) {
+  if (t != 0) return;
+#pragma unroll
+  for (int b = 0; b < D / 32; ++b)
+    tma_store_3d(map, tile + (b * R + row0) * 128, b * 32, grow, bh);
+  tma_store_commit_wait_read();
+}
+
+// The transform warps' share of a stage (warps 1-3 of the producer
+// warpgroup, thread i0 of 96): the residual tiles x - tf32(x) of its two
+// streamed tiles, elementwise in the same swizzled layout, then a fence so
+// that wgmma (the async proxy) sees them.
+template <int D, int R>
+__device__ __forceinline__ void write_residuals(uint8_t* stage, int i0) {
+  constexpr int n = 2 * R * D / 4;  // float4s of the two tiles
+  const float4* src = reinterpret_cast<const float4*>(stage);
+  float4* dst = reinterpret_cast<float4*>(stage + 2 * R * D * 4);
+#pragma unroll 4
+  for (int i = i0; i < n; i += 96) {
+    const float4 v = src[i];
+    dst[i] = make_float4(tf32_residual(v.x), tf32_residual(v.y),
+                         tf32_residual(v.z), tf32_residual(v.w));
+  }
+  fence_async_shared();
+}
+
+// The float32 kernels' shared memory: the block's own side (#6: Q and dO,
+// #7: K and V; NWG groups of 64 rows) in OB buffers, S stages of the
+// streamed side (#6: K, V and their residual tiles, #7: Q, dO and theirs)
+// of R rows each, #7's lse (as neg_lse2) and delta per stage, barriers.
+template <int D, int NWG, int R, int S, int OB>
+struct SmemF {
+  static constexpr int kOwn = NWG * 64 * D * 4;  // an own tile
+  static constexpr int kT = R * D * 4;           // a streamed tile
+  static constexpr int kStage = 2 * OB * kOwn;   // stage s at kStage + 4 s kT
+  static constexpr int kStats = kStage + 4 * S * kT;  // stage s: + 8 s R
+  // own_full[OB], own_empty[OB], full[S], ready[S], empty[S]
+  static constexpr int kBar = kStats + 8 * S * R;
+  static constexpr int kBytes = kBar + (2 * OB + 3 * S) * 8;
+};
+
+// The float32 kernels' shape per head dim: consumer warpgroups of 64 own
+// rows (one at D 128, where #7's dK and dV take 128 fp32 a thread),
+// streamed rows per stage, stages, own-side buffers, and the k8 steps of
+// the first products' lo products per group (all of D in one group but at
+// D 128).  32 streamed rows keep the consumers near the 168 registers a
+// thread that ptxas allots at 384 threads (see the note at the top), and
+// leave room for the own side's second buffer at D 64 (the next item's
+// loads overlap this one's tiles).  Shared memory: 113 KB at
+// D 32, 193 KB at D 64 and 192 KB at D 128.
+template <int D>
+struct CfgF {
+  static constexpr int kWG = D == 128 ? 1 : 2;
+  static constexpr int kR = 32;
+  static constexpr int kStages = D == 32 ? 3 : 2;
+  static constexpr int kOwnBufs = D == 128 ? 1 : 2;
+  static constexpr int kChunk = D == 128 ? 4 : D / 8;
+  using Smem = SmemF<D, kWG, kR, kStages, kOwnBufs>;
+  static_assert(Smem::kBytes + 1024 <= 232448, "float32 flash: smem");
+};
+
+// registers of the float32 kernels' warpgroups at NWG 2: the producer's
+// transform warps need more than the bf16 kernels' 24
+constexpr int kConsumerRegsF = 232, kProducerRegsF = 40;
+
+// The float32 kernels' barriers, in shared memory from `bar` on.
+struct BarsF {
+  uint32_t own, own_empty, full, ready, empty;
+  template <int OB, int S>
+  __device__ static BarsF at(uint32_t bar) {
+    BarsF b;
+    b.own = bar;
+    b.own_empty = bar + 8 * OB;
+    b.full = bar + 16 * OB;
+    b.ready = b.full + 8 * S;
+    b.empty = b.ready + 8 * S;
+    return b;
+  }
+  // full's arrivals: 1 (#6's loading lane) or 32 (#7's loader warp)
+  template <int OB, int S, int NWG>
+  __device__ void init(int full_count) const {
+    for (int b = 0; b < OB; ++b) {
+      mbar_init(own + 8 * b, 1);
+      mbar_init(own_empty + 8 * b, NWG);  // thread 0 of each consumer
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, full_count);
+      mbar_init(ready + 8 * s, 96);       // the transform warps' threads
+      mbar_init(empty + 8 * s, 4 * NWG);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+};
+
+// ---------------------------------------------------------------------------
+// #6 dq in float32.  Work items and rings as the bf16 kernel's: 64 NWG
+// query rows of one (batch, head); one lane of the producer warpgroup
+// loads each item's Q and dO (OB buffers) and rings the k tiles (K, V) of
+// R keys through S stages, all by TMA; warps 1-3 of the producer
+// warpgroup write each stage's residual tiles; NWG consumer warpgroups own
+// 64 query rows each.  Per tile: S = Q K^T and dP = dO V^T on wgmma in
+// 3xTF32, the element pass on the accumulators, dQ += dS K on mma.sync in
+// 3xTF32 reading K as TMA wrote it.
+// ---------------------------------------------------------------------------
+template <int D, int NWG, int R, int S, int OB, bool DROP>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+flash_bwd_dq_tf32(const __grid_constant__ Sm90Args p) {
+  using L_ = SmemF<D, NWG, R, S, OB>;
+  constexpr int CH = CfgF<D>::kChunk;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const Args& a = p.a;
+  const int n_qb = (a.L + 64 * NWG - 1) / (64 * NWG);
+  const int items = n_qb * p.BH;
+  const BarsF bars = BarsF::at<OB, S>(base + L_::kBar);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  if (tid == NWG * 128) prefetch_maps(p.maps, true);
+  if (tid == 0) bars.init<OB, S, NWG>(1);
+  __syncthreads();
+
+  if (wg == NWG) {  // the producer warpgroup
+    if constexpr (NWG == 2) reg_dealloc<kProducerRegsF>();
+    const bool loader = tid < NWG * 128 + 32;
+    if (loader && tid != NWG * 128) return;
+    int it = 0, n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int bh = item / n_qb, qb = item % n_qb * 64 * NWG;
+      const Mask m = mask_of(a, bh);
+      int lo, hi;
+      block_k_range<NWG, R>(m, qb, lo, hi);
+      const int b = n % OB;
+      if (loader) {  // this item's Q and dO, once their buffer is free
+        const uint32_t own = bars.own + 8 * b;
+        mbar_wait(bars.own_empty + 8 * b, ((n / OB) & 1) ^ 1);
+        mbar_expect_tx(own, 2 * f32_load_bytes<D, NWG, 64>(qb, a.L));
+        f32_load_rows<D, NWG, 64>(base + 2 * b * L_::kOwn, &p.maps.q, own, qb,
+                                  bh, a.L);
+        f32_load_rows<D, NWG, 64>(base + (2 * b + 1) * L_::kOwn,
+                                  &p.maps.dout, own, qb, bh, a.L);
+      }
+      for (int kt = lo; kt <= hi; ++kt) {
+        if (!any_rows_need<NWG, R>(m, qb, kt * R)) continue;
+        const int s = it % S, ph = (it / S) & 1;
+        const uint32_t stage = base + L_::kStage + 4 * s * L_::kT;
+        ++it;
+        if (loader) {
+          mbar_wait(bars.empty + 8 * s, ph ^ 1);
+          const uint32_t full = bars.full + 8 * s;
+          mbar_expect_tx(full, 2 * L_::kT);
+          f32_load_rows<D, 1, R>(stage, &p.maps.k, full, kt * R, bh, a.L);
+          f32_load_rows<D, 1, R>(stage + L_::kT, &p.maps.v, full, kt * R, bh,
+                                 a.L);
+        } else {
+          mbar_wait(bars.full + 8 * s, ph);
+          write_residuals<D, R>(smem + (stage - base), tid - NWG * 128 - 32);
+          mbar_arrive(bars.ready + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+  if constexpr (NWG == 2) reg_alloc<kConsumerRegsF>();
+
+  // a consumer warpgroup: query rows [q0, q0 + 64) of each work item,
+  // their lse and delta in registers
+  const Frag f(tid & 127);
+  const float sl2 = a.scale * kLog2e;
+  int it = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int bh = item / n_qb, qb = item % n_qb * 64 * NWG;
+    const Mask m = mask_of(a, bh);
+    int lo, hi;
+    block_k_range<NWG, R>(m, qb, lo, hi);
+    const int q0 = qb + 64 * wg, b = n % OB;
+    float nl[2], dlt[2];
+    uint32_t qmix[2] = {0u, 0u};
+    const uint32_t sb =
+        DROP ? (uint32_t)a.seed[0] + (uint32_t)bh * 0xC2B2AE3Du : 0u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gi = q0 + f.fr + 8 * h;
+      const size_t r = (size_t)bh * a.L + gi;
+      nl[h] = gi < a.L ? neg_lse2(static_cast<const float*>(a.lse_in)[r])
+                       : -INFINITY;
+      dlt[h] = gi < a.L ? static_cast<const float*>(a.delta)[r] : 0.f;
+      if (DROP) qmix[h] = (uint32_t)gi * 0x9E3779B1u ^ sb;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    const uint32_t sq = base + 2 * b * L_::kOwn, sdo = sq + L_::kOwn;
+    mbar_wait(bars.own + 8 * b, (n / OB) & 1);
+    for (int kt = lo; kt <= hi; ++kt) {
+      const int k0 = kt * R;
+      if (!any_rows_need<NWG, R>(m, qb, k0)) continue;
+      const int s = it % S, ph = (it / S) & 1;
+      mbar_wait(bars.full + 8 * s, ph);
+      mbar_wait(bars.ready + 8 * s, ph);
+      ++it;
+      if (m.needed<64, R>(q0, k0)) {
+        const uint32_t sk = base + L_::kStage + 4 * s * L_::kT;
+        float sc[R / 2], dp[R / 2];
+        first_products<D, NWG * 64, R, CH>(sc, dp, smem, base, sq, sdo,
+                                           64 * wg, sk, sk + L_::kT, f);
+        if (m.interior<64, R>(q0, k0))
+          dq_elems<R / 8, false, DROP>(sc, dp, m, f, q0, k0, nl, dlt, sl2,
+                                       qmix, a.thr, a.ks);
+        else
+          dq_elems<R / 8, true, DROP>(sc, dp, m, f, q0, k0, nl, dlt, sl2,
+                                      qmix, a.thr, a.ks);
+        mma_product<D, R>(dq, dp, smem + (sk - base));  // dQ += dS K
+      }
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(bars.empty + 8 * s);
+    }
+    // dQ scale through this warpgroup's rows of the item's Q tile, then
+    // TMA; Q and dO are then free for the item OB on
+    frag_to_tile_f32<D, NWG * 64>(smem + (sq - base), 64 * wg, dq, a.scale,
+                                  f);
+    fence_async_shared();
+    named_sync(1 + wg, 128);
+    if (q0 < a.L)
+      store_rows_f32<D, NWG * 64>(&p.maps.out, sq, 64 * wg, q0, bh,
+                                  tid & 127);
+    if ((tid & 127) == 0) mbar_arrive(bars.own_empty + 8 * b);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// #7 dk, dv in float32.  Work items as the bf16 kernel's: 64 NWG key rows
+// of one (batch, head); warp 0 of the producer warpgroup loads each item's
+// K and V (OB buffers) and rings the q tiles of R rows through S stages (Q
+// and dO by TMA, lse and delta by its lanes); warps 1-3 write each stage's
+// residual tiles.  Per tile: S^T = K Q^T and dP^T = V dO^T on wgmma in
+// 3xTF32, the element pass, dV += (P^T keep) dO and dK += dS^T Q on
+// mma.sync in 3xTF32 reading dO and Q as TMA wrote them.
+// ---------------------------------------------------------------------------
+template <int D, int NWG, int R, int S, int OB, bool DROP>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+flash_bwd_dkv_tf32(const __grid_constant__ Sm90Args p) {
+  using L_ = SmemF<D, NWG, R, S, OB>;
+  constexpr int CH = CfgF<D>::kChunk;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const Args& a = p.a;
+  const int n_kb = (a.L + 64 * NWG - 1) / (64 * NWG);
+  const int items = n_kb * p.BH;
+  const BarsF bars = BarsF::at<OB, S>(base + L_::kBar);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  if (tid == NWG * 128) prefetch_maps(p.maps, true);
+  if (tid == 0) bars.init<OB, S, NWG>(32);
+  __syncthreads();
+
+  if (wg == NWG) {  // the producer warpgroup
+    if constexpr (NWG == 2) reg_dealloc<kProducerRegsF>();
+    const bool loader = tid < NWG * 128 + 32;
+    const bool lead = tid == NWG * 128;
+    int it = 0, n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int bh = item / n_kb, kb = item % n_kb * 64 * NWG;
+      const Mask m = mask_of(a, bh);
+      int lo, hi;
+      block_q_range<NWG, R>(m, kb, lo, hi);
+      const int b = n % OB;
+      if (lead) {  // this item's K and V, once their buffer is free
+        const uint32_t own = bars.own + 8 * b;
+        mbar_wait(bars.own_empty + 8 * b, ((n / OB) & 1) ^ 1);
+        mbar_expect_tx(own, 2 * f32_load_bytes<D, NWG, 64>(kb, a.L));
+        f32_load_rows<D, NWG, 64>(base + 2 * b * L_::kOwn, &p.maps.k, own, kb,
+                                  bh, a.L);
+        f32_load_rows<D, NWG, 64>(base + (2 * b + 1) * L_::kOwn, &p.maps.v,
+                                  own, kb, bh, a.L);
+      }
+      for (int qt = lo; qt <= hi; ++qt) {
+        if (!any_keys_need<NWG, R>(m, qt * R, kb)) continue;
+        const int s = it % S, ph = (it / S) & 1;
+        const uint32_t stage = base + L_::kStage + 4 * s * L_::kT;
+        ++it;
+        if (loader) {
+          Stats<R> st;
+          st.fetch(a, bh, qt * R);
+          mbar_wait(bars.empty + 8 * s, ph ^ 1);
+          const uint32_t full = bars.full + 8 * s;
+          if (lead) {
+            mbar_expect(full, 2 * L_::kT);
+            f32_load_rows<D, 1, R>(stage, &p.maps.q, full, qt * R, bh, a.L);
+            f32_load_rows<D, 1, R>(stage + L_::kT, &p.maps.dout, full, qt * R,
+                                   bh, a.L);
+          }
+          float* nl = reinterpret_cast<float*>(smem + L_::kStats) + 2 * s * R;
+          st.store(nl, nl + R);
+          mbar_arrive(full);
+        } else {
+          mbar_wait(bars.full + 8 * s, ph);
+          write_residuals<D, R>(smem + (stage - base), tid - NWG * 128 - 32);
+          mbar_arrive(bars.ready + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+  if constexpr (NWG == 2) reg_alloc<kConsumerRegsF>();
+
+  // a consumer warpgroup: keys [k0, k0 + 64) of each work item
+  const Frag f(tid & 127);
+  const float sl2 = a.scale * kLog2e;
+  int it = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int bh = item / n_kb, kb = item % n_kb * 64 * NWG;
+    const Mask m = mask_of(a, bh);
+    int lo, hi;
+    block_q_range<NWG, R>(m, kb, lo, hi);
+    const int k0 = kb + 64 * wg, b = n % OB;
+    uint32_t kmix[2] = {0u, 0u};
+    if (DROP) {
+      const uint32_t sb = (uint32_t)a.seed[0] + (uint32_t)bh * 0xC2B2AE3Du;
+      for (int h = 0; h < 2; ++h)
+        kmix[h] = (uint32_t)(k0 + f.fr + 8 * h) * 0x85EBCA77u ^ sb;
+    }
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    const uint32_t sk = base + 2 * b * L_::kOwn, sv = sk + L_::kOwn;
+    mbar_wait(bars.own + 8 * b, (n / OB) & 1);
+    for (int qt = lo; qt <= hi; ++qt) {
+      const int q0 = qt * R;
+      if (!any_keys_need<NWG, R>(m, q0, kb)) continue;
+      const int s = it % S, ph = (it / S) & 1;
+      mbar_wait(bars.full + 8 * s, ph);
+      mbar_wait(bars.ready + 8 * s, ph);
+      ++it;
+      if (m.needed<R, 64>(q0, k0)) {
+        const uint32_t sq = base + L_::kStage + 4 * s * L_::kT;
+        const uint32_t sdo = sq + L_::kT;
+        const float* nl =
+            reinterpret_cast<const float*>(smem + L_::kStats) + 2 * s * R;
+        float st[R / 2], dpt[R / 2];
+        first_products<D, NWG * 64, R, CH>(st, dpt, smem, base, sk, sv,
+                                           64 * wg, sq, sdo, f);
+        if (m.interior<R, 64>(q0, k0))
+          dkv_elems<R / 8, false, DROP>(st, dpt, m, f, q0, k0, nl, nl + R,
+                                        sl2, kmix, a.thr, a.ks);
+        else
+          dkv_elems<R / 8, true, DROP>(st, dpt, m, f, q0, k0, nl, nl + R,
+                                       sl2, kmix, a.thr, a.ks);
+        mma_product<D, R>(dv, st, smem + (sdo - base));  // dV += P^T keep dO
+        mma_product<D, R>(dk, dpt, smem + (sq - base));  // dK += dS^T Q
+      }
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(bars.empty + 8 * s);
+    }
+    // dK scale and dV through this warpgroup's rows of the item's K and V
+    // tiles, then TMA; K and V are then free for the item OB on
+    uint8_t* kt = smem + (sk - base);
+    frag_to_tile_f32<D, NWG * 64>(kt, 64 * wg, dk, a.scale, f);
+    frag_to_tile_f32<D, NWG * 64>(kt + L_::kOwn, 64 * wg, dv, 1.f, f);
+    fence_async_shared();
+    named_sync(1 + wg, 128);
+    if (k0 < a.L) {
+      store_rows_f32<D, NWG * 64>(&p.maps.out, sk, 64 * wg, k0, bh,
+                                  tid & 127);
+      store_rows_f32<D, NWG * 64>(&p.maps.out2, sv, 64 * wg, k0, bh,
+                                  tid & 127);
+    }
+    if ((tid & 127) == 0) mbar_arrive(bars.own_empty + 8 * b);
+  }
+}
+
 // the bf16 tensor maps of one backward launch: (D, L, BH) in boxes of
 // (min(D, 64), 64, 1), swizzled as their rows are wide
 int make_maps(Maps& mp, const Args& a, int BH, int D, bool dq) {
@@ -1699,53 +2210,96 @@ int run_sm90(const Args& a, int BH, Which w, cudaStream_t st) {
                 : launch_sm90<D, false>(p, BH, w, st);
 }
 
-// shared memory of each float32 kernel, in bytes
-template <int D>
-constexpr int smem_fwd() {
-  return (3 * kTile * (D + 4) + kTile * kSP) * 4;
-}
-template <int D>
-constexpr int smem_dq() {
-  return (4 * kTile * (D + 4) + kTile * kSP) * 4;
-}
-template <int D>
-constexpr int smem_dkv() {
-  return (4 * kTile * (D + 4) + kTile * kSP + 2 * kTile) * 4;
+// the float32 tensor maps of one backward launch: (D, L, BH) in boxes of
+// 32 columns (128-byte rows, 128-byte swizzle) by 64 rows for the block's
+// own side and the outputs, by R rows for the streamed side
+int make_maps_f32(Maps& mp, const Args& a, int BH, int D, bool dq, int R) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)a.L,
+                              (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 4,
+                                 (cuuint64_t)a.L * D * 4};
+  const cuuint32_t own[3] = {32, 64, 1}, str[3] = {32, (cuuint32_t)R, 1};
+  const CUtensorMapDataType f = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const cuuint32_t* qbox = dq ? own : str;
+  const cuuint32_t* kbox = dq ? str : own;
+  int rc = mxt_tensor_map(&mp.q, f, 3, a.q, dims, strides, qbox, sw);
+  if (!rc)
+    rc = mxt_tensor_map(&mp.dout, f, 3, a.dout, dims, strides, qbox, sw);
+  if (!rc) rc = mxt_tensor_map(&mp.k, f, 3, a.k, dims, strides, kbox, sw);
+  if (!rc) rc = mxt_tensor_map(&mp.v, f, 3, a.v, dims, strides, kbox, sw);
+  if (!rc)
+    rc = mxt_tensor_map(&mp.out, f, 3, dq ? a.dq : a.dk, dims, strides, own,
+                        sw);
+  if (!rc && !dq)
+    rc = mxt_tensor_map(&mp.out2, f, 3, a.dv, dims, strides, own, sw);
+  return rc;
 }
 
-// the float32 kernels, on the CUDA cores
-template <int D, Which W>
-int launch(const Args& a, int BH, cudaStream_t st) {
-  void (*kernel)(Args);
-  int smem;
-  if constexpr (W == kFwd) {
-    kernel = flash_fwd_kernel<D>;
-    smem = smem_fwd<D>();
-  } else if constexpr (W == kDq) {
-    kernel = flash_bwd_dq_kernel<D>;
-    smem = smem_dq<D>();
-  } else {
-    kernel = flash_bwd_dkv_kernel<D>;
-    smem = smem_dkv<D>();
+template <int D, bool DROP>
+int launch_tf32(const Sm90Args& p, int BH, Which w, cudaStream_t st) {
+  using C = CfgF<D>;
+  constexpr int NWG = C::kWG, R = C::kR, S = C::kStages, OB = C::kOwnBufs;
+  auto kernel = w == kDq ? flash_bwd_dq_tf32<D, NWG, R, S, OB, DROP>
+                         : flash_bwd_dkv_tf32<D, NWG, R, S, OB, DROP>;
+  const int smem = C::Smem::kBytes + 1024;  // + the tiles' alignment
+  static bool attr_set[3] = {false, false, false};  // once per kernel
+  if (!attr_set[w]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set[w] = true;
   }
+  int dev, sms;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  // the grid as the bf16 kernels' (launch_sm90)
+  const int items = (p.a.L + 64 * NWG - 1) / (64 * NWG) * BH;
+  const int grid = p.a.L > kPersistentL || items < sms ? items : sms;
+  kernel<<<grid, (NWG + 1) * 128, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int run_tf32(const Args& a, int BH, Which w, cudaStream_t st) {
+  Sm90Args p = {};
+  p.a = a;
+  p.BH = BH;
+  const int rc = make_maps_f32(p.maps, a, BH, D, w == kDq, CfgF<D>::kR);
+  if (rc) return rc;
+  return a.seed ? launch_tf32<D, true>(p, BH, w, st)
+                : launch_tf32<D, false>(p, BH, w, st);
+}
+
+// the float32 forward, on the CUDA cores
+template <int D>
+int launch_fwd_f32(const Args& a, int BH, cudaStream_t st) {
+  const int smem = (3 * kTile * (D + 4) + kTile * kSP) * 4;
   static bool attr_set = false;  // once per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid((a.L + kTile - 1) / kTile, BH);
-  kernel<<<grid, kThreads, smem, st>>>(a);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <Which W>
 int dispatch(const Args& a, int BH, int D, int dtype, cudaStream_t st) {
-  if (dtype == 0) {
-    if (D == 32) return launch<32, W>(a, BH, st);
-    if (D == 64) return launch<64, W>(a, BH, st);
-    if (D == 128) return launch<128, W>(a, BH, st);
+  if (dtype == 0 && W == kFwd) {
+    if (D == 32) return launch_fwd_f32<32>(a, BH, st);
+    if (D == 64) return launch_fwd_f32<64>(a, BH, st);
+    if (D == 128) return launch_fwd_f32<128>(a, BH, st);
+  } else if (dtype == 0) {
+    if (D == 32) return run_tf32<32>(a, BH, W, st);
+    if (D == 64) return run_tf32<64>(a, BH, W, st);
+    if (D == 128) return run_tf32<128>(a, BH, W, st);
   } else {
     if (D == 32) return run_sm90<32>(a, BH, W, st);
     if (D == 64) return run_sm90<64>(a, BH, W, st);

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's kernels: TMA tensor maps,
 // loads and stores, mbarrier rings, register hand-over between
-// warpgroups, and warpgroup matrix multiplies (wgmma) on bf16 tiles in
-// shared memory.
+// warpgroups, warpgroup matrix multiplies (wgmma) on bf16 and tf32 tiles
+// in shared memory, and warp-level tf32 products (mma.sync).
 //
 // Tensor maps are encoded on the host through the driver's
 // cuTensorMapEncodeTiled, fetched from the runtime with
@@ -25,6 +25,14 @@
 // {0, 1}, j < N / 8, at d[4 j + 2 h + e] for row half h and column e.
 // Its k16 slice kk, rounded to bf16 and packed in pairs (d[8 kk + 2 i],
 // d[8 kk + 2 i + 1]), i < 4, is exactly wgmma's A fragment from registers.
+//
+// tf32: wgmma reads both shared-memory operands K-major only (the
+// transpose bit exists for 16-bit types alone), a k8 step is 32 bytes of
+// a row, and the tensor core reads an fp32 word's top 19 bits (the low 13
+// are dropped).  A tf32 A fragment (k8; the same in mma.sync's m16n8k8)
+// gives thread t rows 16 (t / 32) + (t % 32) / 4 + {0, 8} and columns
+// t % 4 + {0, 4}: not the accumulator's 2 (t % 4) + {0, 1}, so an
+// accumulator reused as A takes its K permuted within each 8-group.
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -304,4 +312,99 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], uint32_t a0,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// device: tf32 products (3xTF32 splits, wgmma k8, mma.sync m16n8k8)
+// ---------------------------------------------------------------------------
+// x rounded to tf32 (to nearest, ties away from zero), low 13 bits zero
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+// what the tensor core drops of x when it reads the fp32 word as tf32
+__device__ __forceinline__ float tf32_residual(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+// x = hi + lo to about 2^-21 of x: hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - __uint_as_float(hi));
+}
+
+#define MXT_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define MXT_D32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define MXT_OUT16(d)                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define MXT_OUT32(d)                                                        \
+  MXT_OUT16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),        \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+      "+f"(d[30]), "+f"(d[31])
+
+// d (64 x N fp32) = A B, plus d when scale_d: A (64 x 8) and B (8 x N)
+// tf32 read K-major from shared memory, N 32 or 64
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  static_assert(N == 32 || N == 64, "wgmma_tf32_ss: N 32 or 64");
+  if constexpr (N == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " MXT_D32
+        ", %32, %33, p, 1, 1;\n}\n"
+        : MXT_OUT32(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " MXT_D16
+        ", %16, %17, p, 1, 1;\n}\n"
+        : MXT_OUT16(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N fp32) += A B: A (64 x 8 tf32) from registers in the tf32 A
+// fragment's layout, B (8 x N) read K-major from shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t* a,
+                                              uint64_t db) {
+  static_assert(N == 32 || N == 64, "wgmma_tf32_rs: N 32 or 64");
+  if constexpr (N == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " MXT_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : MXT_OUT32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " MXT_D16
+        ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : MXT_OUT16(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef MXT_D16
+#undef MXT_D32
+#undef MXT_OUT16
+#undef MXT_OUT32
+
+// c (16 x 8 fp32) += A B on one warp: A (16 x 8) and B (8 x 8) tf32 in
+// mma.sync's fragments (a: rows g, g + 8 and columns t, t + 4 as above;
+// b: rows t, t + 4 of column g; c: as the accumulator, g = lane / 4,
+// t = lane % 4)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }

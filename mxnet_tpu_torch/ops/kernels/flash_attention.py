@@ -32,7 +32,9 @@ its kernel on a CUDA tensor (or raises), counting launches in
 ``flash_attention.last_dtype`` is the dtype of the last launch.  The
 kernels take float32 and bfloat16 and head dims 32, 64 and 128; in
 bfloat16 the probabilities are rounded to bf16 before ``P @ V`` and
-``dS`` before its two products, as the JAX kernel casts.  What bounds
+``dS`` before its two products, as the JAX kernel casts.  The float32
+backward kernels run their products on the tensor cores in 3xTF32, which
+keeps them fp32-accurate.  What bounds
 them and how they are tiled: the note at the top of the CUDA source.
 :func:`flash_attention` casts ``kv_length`` to int32 once for the three
 kernels.

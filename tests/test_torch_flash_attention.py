@@ -398,3 +398,54 @@ def test_strided_ok_admits_exactly_the_tma_rules():
     for stride, ok in ((2 ** 38, True), (2 ** 39, False)):
         fake = _FakeView((2, 2, 2, 64), (stride, 128, 64, 1))
         assert tfa._strided_ok(fake) == ok, stride
+
+
+def _tf32_trunc(x):
+    """x with the low 13 bits of each fp32 word cleared: the tf32 value a
+    tensor core reads from an fp32 word."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tf32_round(x):
+    """x rounded to the nearest tf32 (ties away from zero), as
+    ``cvt.rna.tf32.f32``."""
+    return _tf32_trunc((x.view(torch.int32) + 4096).view(torch.float32))
+
+
+def _product_3xtf32(a, b):
+    """a @ b as the fp32 backward kernels form it: each operand split into
+    hi = trunc(x) and lo = trunc(x - hi), hi hi + hi lo + lo hi summed in
+    fp32, lo lo left out."""
+    ah, bh = _tf32_trunc(a), _tf32_trunc(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_tf32x3_tolerance(D):
+    """The fp32 backward's tolerance on the card (``chip_smoke``'s
+    TOL_FLASH_BWD_F32) against emulated tensor-core products: the
+    backward's second products dS K, dS^T Q and (P keep)^T dO over 512
+    keys, from seeded inputs at dropout 0.1, stay within it of the fp64
+    product in 3xTF32, and a single TF32 product (operands rounded to
+    tf32) exceeds it."""
+    import chip_smoke
+    tol = chip_smoke.TOL_FLASH_BWD_F32
+    L, rate = 512, 0.1
+    rng = np.random.default_rng(D)
+    q, k, v, do = (torch.tensor(rng.standard_normal((L, D)),
+                                dtype=torch.float64) for _ in range(4))
+    keep = torch.tensor(rng.random((L, L)) >= rate) / (1 - rate)
+    p = torch.softmax(q @ k.T / np.sqrt(D), dim=-1)
+    pk = p * keep
+    delta = (do * (pk @ v)).sum(-1, keepdim=True)
+    ds = p * ((do @ v.T) * keep - delta)
+    for a, b in ((ds, k), (ds.T, q), (pk.T, do)):
+        want = a @ b
+        a32, b32 = a.float(), b.float()
+        err3 = float((_product_3xtf32(a32, b32).double() - want).abs().max())
+        err1 = float(((_tf32_round(a32) @ _tf32_round(b32)).double()
+                      - want).abs().max())
+        big = float(want.abs().max())
+        assert err3 / big <= tol, (err3 / big, tol)
+        assert err1 / big > tol, (err1 / big, tol)
