@@ -29,10 +29,13 @@ plain version):
    causal, a window of 32 and kv_length with a row of length 0, at
    dropout 0 and 0.1 (144 cases); the dropout mask read off the output
    (q = k = 0, V = I) in every element at rates 0.1 and 0.5 and seeds 0
-   and 2**32 - 1; the three kernels timed at the training shape in fp32
-   and bf16 and at the long-context shape (B 4, L 2048) in bf16, beside
-   their plain versions and SDPA, and the backward's fixed part (every
-   kv_length 0) in both types.  The LSTM time loop
+   and 2**32 - 1; the three kernels on strided views (BERT's permuted
+   projection and transposed dO, head slices; the backward at D 32, 64
+   and 128) and into output views, bit for bit their results on
+   contiguous copies; the three kernels timed at the training shape in
+   fp32 and bf16 and at the long-context shape (B 4, L 2048) in bf16,
+   beside their plain versions and SDPA, on BERT's layout, and the
+   backward's fixed part (every kv_length 0) in both types.  The LSTM time loop
    (#10 forward, #11 backward) against its plain versions and #11 (through
    the autograd Function) against autograd through the plain forward:
    float32 and bfloat16, (T, B, H) of (35, 32, 650), (7, 5, 37) and (35,
@@ -46,8 +49,9 @@ plain version):
    #16 route (``flash_attention_sharded`` on a dp 2 x tp 2 mesh at B 32,
    H 12, L 128, D 64, causal, fp32 and bf16) against the plain causal
    attention and the unsharded #5, forward and gradients, with dp * tp
-   launches of #5 per call; its backward timed beside SDPA's is_causal
-   backward.  ``--kernels-only`` stops here.
+   launches of #5 per call and of #6 and #7 per backward; its backward
+   timed beside SDPA's is_causal backward and its bound.
+   ``--kernels-only`` stops here.
 3. Serving: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
    ``--seed``, with random biases and LN affines, which the kernel checks
@@ -152,6 +156,8 @@ WIDTHS = dict(vocab_size=30522, num_layers=12, units=768, hidden_size=3072,
               num_heads=12, num_kv_heads=12, max_length=512)
 SLOTS, PAGE, CHUNK, MAX_CTX = 16, 16, 64, 512
 DEV = "cuda"
+#: --profile: also profile the #16 route's backward (op_split)
+PROFILE = False
 
 
 def log(*a):
@@ -647,6 +653,9 @@ FLASH_SHAPES = ((32, 12, 128), (4, 12, 2048), (2, 6, 200))
 FLASH_DIMS = {"float32": (32, 64, 128), "bfloat16": (32, 64, 128)}
 #: the spin kernel's cycles before each timed flash launch (~0.5 ms)
 FLASH_SPIN = 1_000_000
+#: the flash kernels' wrappers, #5, #6, #7
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
 
 
 def rel_err(a, b):
@@ -743,8 +752,9 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
     """#5-#7 at the training shape (B 32, H 12, L 128, D 64; or at ``B``,
     ``L``, as the long-context phase's B 4, L 2048), with the training
     batch's valid lengths at that shape and dropout 0.1, beside the plain
-    versions and SDPA (dense, dropout 0: it takes no hash mask).  The
-    training shape's fp32 rows go into ``report``."""
+    versions and SDPA (dense, dropout 0: it takes no hash mask), and on
+    BERT's layout of q, k, v and dO.  The training shape's fp32 rows go
+    into ``report``."""
     import torch.nn.functional as F
     train_shape = B is None
     B = TRAIN_B if train_shape else B
@@ -830,13 +840,24 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
             "at 0.1 %.4f ms" % (B, H, L, D, rate0,
                                 rows["flash_attention_fwd"]["ms"]))
         rows["flash_attention_fwd"]["rate0_ms"] = rate0
-    # the layout copy in front of the kernels: q, k, v made contiguous
-    # after BERT's head permute of the (B, L, 3, H, D) projection
-    qkv = torch.randn(B, L, 3, H, D, device=DEV, generator=g).to(dt).permute(
-        2, 0, 3, 1, 4)
-    copy_ms = timer(lambda: [t.contiguous() for t in qkv])
-    log("q, k, v .contiguous() after the head permute (B %d, H %d, L %d, D "
-        "%d) %s: %.4f ms" % (B, H, L, D, str(dt)[6:], copy_ms))
+    # #5-#7 on BERT's layout, read where it lies: q, k, v permuted out of
+    # the (B, L, 3, H, D) projection, dO the transposed gradient of the
+    # (B, L, H, D) output
+    pq, pk, pv = torch.randn(B, L, 3, H, D, device=DEV, generator=g).to(
+        dt).permute(2, 0, 3, 1, 4)
+    pdo = torch.randn(B, L, H, D, device=DEV, generator=g).to(dt).transpose(
+        1, 2)
+    pbwd = (pq, pk, pv, pdo, lse, delta)
+    for name, fn in zip(FLASH_KERNELS, (
+            lambda: fa.flash_attention_fwd(pq, pk, pv, **kw),
+            lambda: fa.flash_attention_bwd_dq(*pbwd, **kw),
+            lambda: fa.flash_attention_bwd_dkv(*pbwd, **kw))):
+        rows[name]["permuted_ms"] = timer(fn, spin=FLASH_SPIN)
+    log("%s #5, #6, #7 on BERT's permuted projection and transposed dO (B "
+        "%d, H %d, L %d, D %d, kv_length, rate 0.1): %s ms (contiguous: %s)"
+        % (str(dt)[6:], B, H, L, D, ", ".join(
+            "%.4f" % rows[n]["permuted_ms"] for n in FLASH_KERNELS),
+           ", ".join("%.4f" % rows[n]["ms"] for n in FLASH_KERNELS)))
     if dt == torch.float32 and train_shape:
         for name, row in rows.items():
             line = 158 if name.endswith("fwd") else (
@@ -846,7 +867,7 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
                 source="mxnet_tpu_torch/csrc/flash_attention.cu",
                 replaces="mxnet_tpu/ops/pallas/flash_attention.py:%d" % line,
                 **row)
-    return dict(rows, qkv_contiguous_ms=copy_ms)
+    return rows
 
 
 #: SASS opcodes of global or shared-memory atomics and reductions
@@ -984,6 +1005,86 @@ def check_flash_strided(torch, fa):
     log("flash_attention_fwd on strided views (B %d, H %d, L %d, D %d): %d "
         "cases equal their contiguous copies exactly; out=/lse= write only "
         "their slices" % (B, H, L, D, n))
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for D in FLASH_DIMS[str(dt)[6:]]:
+            n += check_flash_strided_bwd(torch, fa, g, dt, B, H, L, D)
+    log("flash_attention_bwd_dq/_dkv on strided views (B %d, H %d, L %d, D "
+        "32, 64, 128, fp32 and bf16): %d cases equal their contiguous copies "
+        "exactly; dq=/dk=/dv= write only their slices" % (B, H, L, n))
+
+
+def check_flash_strided_bwd(torch, fa, g, dt, B, H, L, D):
+    """#6 and #7 on strided views equal #6 and #7 on their contiguous
+    copies exactly: q, k, v as BERT's permuted projection with dO as a
+    transposed gradient, and as head slices, with lse and delta as slices
+    of larger buffers, read where they lie; an expanded dO and a
+    misaligned q are copied.  dq=, dk= and dv= into slices of larger
+    buffers write those slices and nothing else; a misaligned output view
+    is written through a copy.  Causal, and kv_length with dropout 0.1.
+    Returns the number of cases."""
+    def randn(*shape):
+        return torch.randn(*shape, device=DEV, generator=g).to(dt)
+    q, k, v = randn(B, L, 3, H, D).permute(2, 0, 3, 1, 4)
+    do = randn(B, L, H, D).transpose(1, 2)
+    heads = randn(4, B, H + 4, L, D)[:, :, 2:H + 2]
+    odd = randn(B * H * L * D + 1)[1:].view(B, H, L, D)
+    kvl = torch.randint(1, L + 1, (B,), device=DEV, generator=g)
+    seed = torch.randint(0, 2 ** 32, (1,), dtype=torch.int64, device=DEV,
+                         generator=g)
+    cases = (("permuted qkv, transposed dO", (q, k, v, do), True),
+             ("head slices", tuple(heads), True),
+             ("expanded dO", (q, k, v, do[:, :1].expand(B, H, L, D)), False),
+             ("misaligned q", (odd, k, v, do), False))
+    n = 0
+    for kw in (dict(causal=True), dict(kv_length=kvl, dropout=0.1,
+                                       seed=seed)):
+        for label, views, in_place in cases:
+            if all(fa._strided_ok(t) for t in views) != in_place:
+                raise AssertionError("_strided_ok(%s) is not %s"
+                                     % (label, in_place))
+            out, lse = fa.flash_attention_fwd(*views[:3], **kw)
+            delta = (views[3].float() * out.float()).sum(-1)
+            stats = [torch.full((B + 1, H + 2, L), float("nan"), device=DEV)
+                     [1:, 1:H + 1].copy_(t) for t in (lse, delta)]
+            flat = [t.contiguous() for t in views] + [lse, delta]
+            got = (fa.flash_attention_bwd_dq(*views, *stats, **kw),
+                   *fa.flash_attention_bwd_dkv(*views, *stats, **kw))
+            want = (fa.flash_attention_bwd_dq(*flat, **kw),
+                    *fa.flash_attention_bwd_dkv(*flat, **kw))
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(
+                    "flash_attention_bwd on %s %s D %d %s differs from its "
+                    "contiguous copy" % (label, str(dt)[6:], D, kw))
+            n += 1
+        # dq=, dk=, dv= into slices of larger buffers (dv's misaligned)
+        bufs = [torch.full((B + 1, H + 2, L, D), float("nan"), device=DEV,
+                           dtype=dt) for _ in range(2)]
+        flat_buf = torch.full(((B + 1) * (H + 2) * L * D + 1,), float("nan"),
+                              device=DEV, dtype=dt)
+        bufs.append(flat_buf[1:].view(B + 1, H + 2, L, D))
+        outs = [b[1:, 1:H + 1] for b in bufs]
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        delta = (do.float() * out.float()).sum(-1)
+        got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, dq=outs[0],
+                                         **kw),
+               *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                           dk=outs[1], dv=outs[2], **kw))
+        inside = torch.zeros(B + 1, H + 2, L, D, dtype=torch.bool,
+                             device=DEV)
+        inside[1:, 1:H + 1] = True
+        flat = [t.contiguous() for t in (q, k, v, do)] + [lse, delta]
+        want = (fa.flash_attention_bwd_dq(*flat, **kw),
+                *fa.flash_attention_bwd_dkv(*flat, **kw))
+        if not (all(a.data_ptr() == o.data_ptr() for a, o in zip(got, outs))
+                and not fa._strided_ok(outs[2])
+                and all(torch.equal(o, w) for o, w in zip(outs, want))
+                and all(bool(b[~inside].isnan().all()) for b in bufs)):
+            raise AssertionError("flash_attention_bwd dq=/dk=/dv= %s D %d %s "
+                                 "wrote other than its slices"
+                                 % (str(dt)[6:], D, kw))
+        n += 1
+    return n
 
 
 def check_flash_attention(torch, timer, report):
@@ -1414,15 +1515,74 @@ def per_shard_causal(torch, q, k, v, dp, tp):
     return torch.cat(rows, dim=0)
 
 
+def span_kind(name):
+    """The kind of a kernel span in the route's backward, by its name."""
+    for key, kind in (("flash_bwd_dq", "#6"), ("flash_bwd_dkv", "#7"),
+                      ("reduce_kernel", "sums"), ("MulFunctor", "products"),
+                      ("copy", "copies")):
+        if key in name:
+            return kind
+    return "other"
+
+
+def op_split(torch, fn, iters=5):
+    """``fn`` (after one warm call) ``iters`` times under torch.profiler,
+    back to back: per call, the top-level aten ops on the host, the kernel
+    spans and their device ms by :func:`span_kind`, the window from the
+    first span's start to the last one's end, and the device's idle ms in
+    it.  Also the host's enqueue time of one call, timed while the card
+    runs a ~20 ms spin so that no launch waits for a free queue slot."""
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    t = time.perf_counter()
+    fn()
+    enqueue_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == cuda)
+    kinds = {}
+    busy, end = 0.0, None
+    for a, b, name in spans:
+        n, ms = kinds.get(span_kind(name), (0, 0.0))
+        kinds[span_kind(name)] = (n + 1, ms + (b - a) / 1e3)
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    ops = sum(1 for e in prof.events()
+              if e.device_type != cuda and e.name.startswith("aten::")
+              and not (e.cpu_parent is not None
+                       and e.cpu_parent.name.startswith("aten::")))
+    window = (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
+    return dict(aten_ops=ops / iters, spans=len(spans) / iters,
+                kinds={k: (n / iters, ms / iters)
+                       for k, (n, ms) in sorted(kinds.items())},
+                window_ms=window / iters,
+                idle_ms=(window - busy / 1e3) / iters,
+                enqueue_ms=enqueue_ms)
+
+
 def check_sharded_attention(torch, timer, report):
     """The #16 route: ``flash_attention_sharded`` on a (dp 2, tp 2) mesh at
     the training shape (B 32, H 12, L 128, D 64), causal, fp32 and bf16:
     its output and gradients equal, bit for bit, the per-shard composition
     it replaced (``per_shard_causal``), and are held against
     ``flash_attention_plain(causal=True)`` on the whole tensors and
-    against the unsharded kernel #5; dp * tp launches of #5 per call; its
-    gradient against the unsharded kernels' at dropout 0.  Timed beside
-    the plain version and SDPA (is_causal)."""
+    against the unsharded kernel #5; dp * tp launches of #5 per call, and
+    of #6 and #7 per backward; its gradient against the unsharded
+    kernels' at dropout 0.  Forward and backward timed beside the plain
+    version, SDPA (is_causal) and the bound; under ``PROFILE`` the
+    backward's ops and kernel spans (:func:`op_split`)."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
@@ -1481,17 +1641,43 @@ def check_sharded_attention(torch, timer, report):
         # is_causal backward on the whole tensors, both through autograd
         lb = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         o_route = att.flash_attention_sharded(*lb, cfg, causal=True)
-        bwd_ms = timer(lambda: torch.autograd.grad(o_route, lb, do,
-                                                   retain_graph=True),
-                       spin=4_000_000)
+
+        def route_bwd():
+            return torch.autograd.grad(o_route, lb, do, retain_graph=True)
+        n0 = (fa.flash_attention.launches_dq, fa.flash_attention.launches_dkv)
+        route_bwd()
+        n_bwd = (fa.flash_attention.launches_dq - n0[0],
+                 fa.flash_attention.launches_dkv - n0[1])
+        if n_bwd != (shards, shards):
+            raise AssertionError("flash_attention_sharded backward: %d "
+                                 "launches of #6 and %d of #7, want %d each"
+                                 % (n_bwd + (shards,)))
+        bwd_ms = timer(route_bwd, spin=4_000_000)
         o_sdpa = F.scaled_dot_product_attention(*lb, is_causal=True)
         lib_bwd = timer(lambda: torch.autograd.grad(o_sdpa, lb, do,
                                                     retain_graph=True),
                         spin=4_000_000)
-        log("flash_attention_sharded %s backward (%d launches each of #6 and "
-            "#7 on the shards): %.4f ms; SDPA is_causal backward on the "
-            "whole tensors %.4f ms" % (str(dt)[6:], shards, bwd_ms, lib_bwd))
         pairs = B * H * L * (L + 1) // 2          # causal (row, key) pairs
+        # #6 reads q, k, v, dO, lse, delta and writes dq; #7 reads the same
+        # and writes dk, dv; S, dP, dQ in #6 and S, dP, dV, dK in #7
+        bwd_bms, bwd_by = bound(11 * B * H * L * D * q.element_size()
+                                + 4 * B * H * L * 4, 14 * pairs * D,
+                                TF32X3_FLOPS if dt == torch.float32
+                                else BF16_FLOPS)
+        log("flash_attention_sharded %s backward (%d launches of #6 and %d "
+            "of #7 on the shards): %.4f ms, bound %.4f ms (%s); SDPA "
+            "is_causal backward on the whole tensors %.4f ms"
+            % ((str(dt)[6:],) + n_bwd + (bwd_ms, bwd_bms, bwd_by, lib_bwd)))
+        if PROFILE:
+            split = op_split(torch, route_bwd)
+            log("profile flash_attention_sharded %s backward, per call: %.0f "
+                "aten ops, %.0f kernel spans (%s), device busy %.4f of a "
+                "%.4f ms window (idle %.4f ms); host enqueue %.4f ms"
+                % (str(dt)[6:], split["aten_ops"], split["spans"],
+                   ", ".join("%s %g in %.4f ms" % (k, n, ms) for k, (n, ms)
+                             in split["kinds"].items()),
+                   split["window_ms"] - split["idle_ms"], split["window_ms"],
+                   split["idle_ms"], split["enqueue_ms"]))
         bms, by = bound(4 * B * H * L * D * q.element_size(), 4 * pairs * D,
                         TF32X3_FLOPS if f32 else BF16_FLOPS)
         log("flash_attention_sharded dp %d tp %d (B %d, H %d, L %d, D %d, "
@@ -1512,7 +1698,8 @@ def check_sharded_attention(torch, timer, report):
         rows[str(dt)[6:]] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                  bound_by=by, library_ms=lib,
                                  max_abs_err=max(errs.values()),
-                                 bwd_ms=bwd_ms, library_bwd_ms=lib_bwd)
+                                 bwd_ms=bwd_ms, bwd_bound_ms=bwd_bms,
+                                 library_bwd_ms=lib_bwd)
     report["flash_attention_sharded_causal"] = dict(
         name="flash_attention_sharded_causal", route="cuda",
         source="mxnet_tpu_torch/csrc/flash_attention.cu",
@@ -2338,9 +2525,12 @@ def main():
                     help="also profile 16 requests through each decode step "
                     "(fused and per-op at tp 1, fused at tp 2) and 3 "
                     "steps of each training phase (the flash kernels' "
-                    "share of the BERT ones)")
+                    "share of the BERT ones), and the #16 route's backward "
+                    "(its ops and kernel spans by kind)")
     args = ap.parse_args()
     t_start = time.perf_counter()
+    global PROFILE
+    PROFILE = args.profile
 
     import torch
     if not torch.cuda.is_available():

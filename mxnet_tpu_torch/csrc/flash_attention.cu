@@ -8,10 +8,11 @@
 //             dQ = dS K * scale
 //   dk, dv    dV = (P * keep)^T dO;  dK = dS^T Q * scale
 //
-// q, k, v, out, dO, dq, dk, dv: (BH, L, D), float32 or bfloat16, D in
-// {32, 64, 128}, contiguous but for the forward's, which are (B, H, L, D)
-// views at any strides TMA admits; lse and delta = sum_d dO * O: (BH, L)
-// float32.  The mask is the JAX kernel's (_block_mask, :49): key j of row i
+// q, k, v, out, dO, dq, dk, dv: (B, H, L, D) views at any strides TMA
+// admits (unit stride along D), float32 or bfloat16, D in {32, 64, 128};
+// lse and delta = sum_d dO * O: (B, H, L) float32 at any B and H strides.
+// A (batch, head) is numbered bh = b * H + h.  The mask is the JAX
+// kernel's (_block_mask, :49): key j of row i
 // is valid when j < min(kv_length[bh / H], L), and j <= i when causal, and
 // |i - j| <= window when banded.  keep is the dropout multiplier of the
 // hash in dropout_hash.cuh over (seed, bh, global i, global j): 0, or
@@ -96,11 +97,13 @@
 //   and dQ, as the JAX kernel casts (:200, :300, :355, :361).
 // - Tiles by TMA in 64-row boxes, 128-byte swizzled (64-byte at D 32; at
 //   D 128 two 64-column boxes, since a swizzled box row is at most 128
-//   bytes); rows past L read as 0 within their (batch, head).  The
-//   backward's maps are (D, L, BH) over contiguous tensors; the forward's
-//   are (D, L, H, B) at the caller's strides, so a head slice or BERT's
-//   permuted (B, L, 3, H, D) projection is read, and the output written,
-//   where it lies.  One lane of a producer warpgroup loads the block's own
+//   bytes); rows past L read as 0 within their (batch, head).  Every map
+//   is (D, L, H, B) at its tensor's own strides, so a head slice, BERT's
+//   permuted (B, L, 3, H, D) projection or the transposed gradient of its
+//   output is read, and each output (out, dq, dk, dv) written, where it
+//   lies; lse and delta are read at their own strides too.  The float32
+//   backward's maps are the same, in boxes of 32 columns.  One lane of a
+//   producer warpgroup loads the block's own
 //   side once a work item (double-buffered across items) and rings the
 //   other side through 3 stages (2 in #6 and #7 at D 128) on mbarriers;
 //   #7's lse and delta come into each stage by the producer warp's lanes
@@ -307,13 +310,21 @@ struct Mask {
   }
 };
 
+// A (batch, head): work item bh is batch bh / H, head bh % H (masks and
+// the dropout hash keep bh itself), its place in a (D, L, H, B) map
+struct HB {
+  int h, b;
+  __device__ HB(int bh, int H) : h(bh % H), b(bh / H) {}
+};
+
 // where the rows of (batch b, head h) of a (B, H, L, D) tensor lie, in
 // elements: row i of (b, h) starts at b * sb + h * sh + i * sl
 struct Strides {
   long long sb, sh, sl;
-  __device__ long long at(int bh, int H) const {
-    return (long long)(bh / H) * sb + (long long)(bh % H) * sh;
+  __device__ long long at(HB w) const {
+    return (long long)w.b * sb + (long long)w.h * sh;
   }
+  __device__ long long at(int bh, int H) const { return at(HB(bh, H)); }
 };
 
 struct Args {
@@ -326,9 +337,10 @@ struct Args {
   int causal, window;
   uint32_t thr;
   float ks;
-  // the forward's q, k, v, out and lse (sl unused: 1) in the caller's
-  // layout; the backward reads and writes contiguous (BH, L, D) tensors
-  Strides sq, sk, sv, so, slse;
+  // where each tensor's rows lie, as a (B, H, L, D) view (lse and delta
+  // as (B, H, L), sl unused: 1): the forward's q, k, v, out and lse, the
+  // backward's q, k, v, dout, lse, delta and dq, dk, dv
+  Strides sq, sk, sv, so, slse, sdo, sdl, sdq, sdk, sdv;
 };
 
 __device__ __forceinline__ Mask mask_of(const Args& a, int bh) {
@@ -562,27 +574,11 @@ __device__ __forceinline__ void prefetch_maps(const Maps& m, bool dout) {
   if (dout) tma_prefetch(&m.dout);
 }
 
-// A (batch, head)'s place in a map: its index bh in a 3-D map, or (h, b)
-// in a 4-D one
-struct HB {
-  int h, b;
-};
-__device__ __forceinline__ void tma_load_rows(uint32_t dst,
-                                              const CUtensorMap* map,
-                                              uint32_t bar, int c0, int c1,
-                                              int bh) {
-  tma_load_3d(dst, map, bar, c0, c1, bh);
-}
 __device__ __forceinline__ void tma_load_rows(uint32_t dst,
                                               const CUtensorMap* map,
                                               uint32_t bar, int c0, int c1,
                                               HB w) {
   tma_load_4d(dst, map, bar, c0, c1, w.h, w.b);
-}
-__device__ __forceinline__ void tma_store_rows(const CUtensorMap* map,
-                                               uint32_t src, int c0, int c1,
-                                               int bh) {
-  tma_store_3d(map, src, c0, c1, bh);
 }
 __device__ __forceinline__ void tma_store_rows(const CUtensorMap* map,
                                                uint32_t src, int c0, int c1,
@@ -627,10 +623,10 @@ __device__ __forceinline__ void frag_to_tile(uint8_t* tile, int row0,
 // one warpgroup (frag_to_tile), to rows [grow, grow + 64) of (batch,
 // head) `where` through `map`; thread t of the warpgroup issues the store
 // and returns once TMA has read the tile.  Rows past L are not written.
-template <int D, int R, class W>
+template <int D, int R>
 __device__ __forceinline__ void store_rows(const CUtensorMap* map,
                                            uint32_t tile, int row0, int grow,
-                                           W where, int t) {
+                                           HB where, int t) {
   if (t != 0) return;
 #pragma unroll
   for (int b = 0; b < Tile<D>::kBoxes; ++b)
@@ -669,10 +665,10 @@ __device__ __forceinline__ uint32_t load_bytes(int row0, int L) {
     if (row0 + 64 * w < L) bytes += 64 * D * 2;
   return bytes;
 }
-template <int D, int NWG, class W>
+template <int D, int NWG>
 __device__ __forceinline__ void load_rows(uint32_t dst,
                                           const CUtensorMap* map,
-                                          uint32_t bar, int row0, W where,
+                                          uint32_t bar, int row0, HB where,
                                           int L) {
 #pragma unroll
   for (int w = 0; w < NWG; ++w) {
@@ -684,16 +680,25 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
   }
 }
 
-// A q tile's R rows of lse and delta ((BH, L) float32 at bh), R / 32 per
-// lane of the producer warp: fetched before the warp waits for the stage,
-// stored after (lse as neg_lse2; rows at or past L as 0)
+// Row 0 of (batch, head) w of a (B, H, L) float32 tensor (lse, delta)
+// at strides s
+__device__ __forceinline__ const float* stat_rows(const void* p,
+                                                  const Strides& s, HB w) {
+  return static_cast<const float*>(p) + s.at(w);
+}
+
+// A q tile's R rows of lse and delta of (batch, head) w, R / 32 per lane of
+// the producer warp: fetched before the warp waits for the stage, stored
+// after (lse as neg_lse2; rows at or past L as 0).  The rows' addresses
+// are formed here from w, which the warp holds for its TMA loads anyway:
+// the producer's 24 registers hold no more across the ring.
 template <int R = 64>
 struct Stats {
   static constexpr int N = R / 32;
   float l[N], d[N];
-  __device__ void fetch(const Args& a, int bh, int row0) {
-    const float* lg = static_cast<const float*>(a.lse_in) + (size_t)bh * a.L;
-    const float* dg = static_cast<const float*>(a.delta) + (size_t)bh * a.L;
+  __device__ void fetch(const Args& a, HB w, int row0) {
+    const float* lg = stat_rows(a.lse_in, a.slse, w);
+    const float* dg = stat_rows(a.delta, a.sdl, w);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       const int r = row0 + (threadIdx.x & 31) + 32 * k;
@@ -861,6 +866,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ Sm90Args p) {
     int it = 0, n = 0;
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
       const int bh = item / n_kb, kb = item % n_kb * 64 * NWG;
+      const HB hb(bh, a.H);
       const Mask m = mask_of(a, bh);
       int lo, hi;
       block_q_range<NWG>(m, kb, lo, hi);
@@ -869,23 +875,23 @@ flash_bwd_dkv_sm90(const __grid_constant__ Sm90Args p) {
         mbar_wait(bar_kv_empty + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
         mbar_expect_tx(kv, 2 * load_bytes<D, NWG>(kb, a.L));
         load_rows<D, NWG>(base + L_::kKV0 + (n & 1) * 2 * L_::kKV,
-                          &p.maps.k, kv, kb, bh, a.L);
+                          &p.maps.k, kv, kb, hb, a.L);
         load_rows<D, NWG>(base + L_::kKV0 + ((n & 1) * 2 + 1) * L_::kKV,
-                          &p.maps.v, kv, kb, bh, a.L);
+                          &p.maps.v, kv, kb, hb, a.L);
       }
       for (int qt = lo; qt <= hi; ++qt) {
         if (!any_keys_need<NWG>(m, qt * 64, kb)) continue;
         Stats<> st;
-        st.fetch(a, bh, qt * 64);
+        st.fetch(a, hb, qt * 64);
         const int s = it % S;
         mbar_wait(bar_empty + 8 * s, ((it / S) & 1) ^ 1);
         const uint32_t full = bar_full + 8 * s;
         if (lead) {
           mbar_expect(full, 2 * L_::kT);
           load_rows<D, 1>(base + L_::kQ + s * L_::kT, &p.maps.q, full,
-                          qt * 64, bh, a.L);
+                          qt * 64, hb, a.L);
           load_rows<D, 1>(base + L_::kDo + s * L_::kT, &p.maps.dout, full,
-                          qt * 64, bh, a.L);
+                          qt * 64, hb, a.L);
         }
         st.store(reinterpret_cast<float*>(smem + L_::kLse) + s * 64,
                  reinterpret_cast<float*>(smem + L_::kDl) + s * 64);
@@ -969,8 +975,9 @@ flash_bwd_dkv_sm90(const __grid_constant__ Sm90Args p) {
     fence_async_shared();
     named_sync(1 + wg, 128);
     if (k0 < a.L) {
-      store_rows<D, NWG * 64>(&p.maps.out, sk, 64 * wg, k0, bh, tid & 127);
-      store_rows<D, NWG * 64>(&p.maps.out2, sv, 64 * wg, k0, bh, tid & 127);
+      const HB w(bh, a.H);
+      store_rows<D, NWG * 64>(&p.maps.out, sk, 64 * wg, k0, w, tid & 127);
+      store_rows<D, NWG * 64>(&p.maps.out2, sv, 64 * wg, k0, w, tid & 127);
     }
     if ((tid & 127) == 0) mbar_arrive(bar_kv_empty + 8 * (n & 1));
   }
@@ -1102,6 +1109,7 @@ flash_bwd_dq_sm90(const __grid_constant__ Sm90Args p) {
     int it = 0, n = 0;
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
       const int bh = item / n_qb, qb = item % n_qb * 64 * NWG;
+      const HB hb(bh, a.H);
       const Mask m = mask_of(a, bh);
       int lo, hi;
       block_k_range<NWG>(m, qb, lo, hi);
@@ -1110,9 +1118,9 @@ flash_bwd_dq_sm90(const __grid_constant__ Sm90Args p) {
       mbar_wait(bar_q_empty + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
       mbar_expect_tx(q, 2 * load_bytes<D, NWG>(qb, a.L));
       load_rows<D, NWG>(base + L_::kQ0 + (n & 1) * 2 * L_::kQT, &p.maps.q,
-                        q, qb, bh, a.L);
+                        q, qb, hb, a.L);
       load_rows<D, NWG>(base + L_::kQ0 + ((n & 1) * 2 + 1) * L_::kQT,
-                        &p.maps.dout, q, qb, bh, a.L);
+                        &p.maps.dout, q, qb, hb, a.L);
       for (int kt = lo; kt <= hi; ++kt) {
         if (!any_rows_need<NWG>(m, qb, kt * 64)) continue;
         const int s = it % S;
@@ -1120,9 +1128,9 @@ flash_bwd_dq_sm90(const __grid_constant__ Sm90Args p) {
         const uint32_t full = bar_full + 8 * s;
         mbar_expect_tx(full, 2 * L_::kT);
         load_rows<D, 1>(base + L_::kK + s * L_::kT, &p.maps.k, full,
-                        kt * 64, bh, a.L);
+                        kt * 64, hb, a.L);
         load_rows<D, 1>(base + L_::kV + s * L_::kT, &p.maps.v, full,
-                        kt * 64, bh, a.L);
+                        kt * 64, hb, a.L);
         ++it;
       }
     }
@@ -1145,13 +1153,13 @@ flash_bwd_dq_sm90(const __grid_constant__ Sm90Args p) {
     uint32_t qmix[2] = {0u, 0u};
     const uint32_t sb =
         DROP ? (uint32_t)a.seed[0] + (uint32_t)bh * 0xC2B2AE3Du : 0u;
+    const float* lg = stat_rows(a.lse_in, a.slse, HB(bh, a.H));
+    const float* dg = stat_rows(a.delta, a.sdl, HB(bh, a.H));
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int gi = q0 + f.fr + 8 * h;
-      const size_t r = (size_t)bh * a.L + gi;
-      nl[h] = gi < a.L ? neg_lse2(static_cast<const float*>(a.lse_in)[r])
-                       : -INFINITY;
-      dlt[h] = gi < a.L ? static_cast<const float*>(a.delta)[r] : 0.f;
+      nl[h] = gi < a.L ? neg_lse2(lg[gi]) : -INFINITY;
+      dlt[h] = gi < a.L ? dg[gi] : 0.f;
       if (DROP) qmix[h] = (uint32_t)gi * 0x9E3779B1u ^ sb;
     }
     float dq[D / 2];
@@ -1201,7 +1209,8 @@ flash_bwd_dq_sm90(const __grid_constant__ Sm90Args p) {
     fence_async_shared();
     named_sync(1 + wg, 128);
     if (q0 < a.L)
-      store_rows<D, NWG * 64>(&p.maps.out, sq, 64 * wg, q0, bh, tid & 127);
+      store_rows<D, NWG * 64>(&p.maps.out, sq, 64 * wg, q0, HB(bh, a.H),
+                              tid & 127);
     if ((tid & 127) == 0) mbar_arrive(bar_q_empty + 8 * (n & 1));
   }
 }
@@ -1376,7 +1385,7 @@ flash_fwd_sm90(const __grid_constant__ Sm90Args p) {
     int it = 0, n = 0;
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
       const int bh = item / n_qb, qb = item % n_qb * 64 * NWG;
-      const HB hb{bh % a.H, bh / a.H};
+      const HB hb(bh, a.H);
       const Mask m = mask_of(a, bh);
       int lo, hi;
       block_k_range<NWG>(m, qb, lo, hi);
@@ -1410,7 +1419,7 @@ flash_fwd_sm90(const __grid_constant__ Sm90Args p) {
   int it = 0, n = 0;
   for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
     const int bh = item / n_qb, qb = item % n_qb * 64 * NWG;
-    const HB hb{bh % a.H, bh / a.H};
+    const HB hb(bh, a.H);
     const Mask m = mask_of(a, bh);
     int lo, hi;
     block_k_range<NWG>(m, qb, lo, hi);
@@ -1540,15 +1549,15 @@ __device__ __forceinline__ uint32_t f32_load_bytes(int row0, int L) {
 template <int D, int NR, int ROWS>
 __device__ __forceinline__ void f32_load_rows(uint32_t dst,
                                               const CUtensorMap* map,
-                                              uint32_t bar, int row0, int bh,
-                                              int L) {
+                                              uint32_t bar, int row0,
+                                              HB where, int L) {
 #pragma unroll
   for (int w = 0; w < NR; ++w) {
     if (row0 + ROWS * w >= L) break;
 #pragma unroll
     for (int b = 0; b < D / 32; ++b)
-      tma_load_3d(dst + (b * NR + w) * ROWS * 128, map, bar, b * 32,
-                  row0 + ROWS * w, bh);
+      tma_load_rows(dst + (b * NR + w) * ROWS * 128, map, bar, b * 32,
+                    row0 + ROWS * w, where);
   }
 }
 
@@ -1718,17 +1727,17 @@ __device__ __forceinline__ void frag_to_tile_f32(uint8_t* tile, int row0,
 }
 
 // Rows [row0, row0 + 64) of an fp32 tile of R rows at shared `tile`,
-// written by one warpgroup, to rows [grow, grow + 64) of (batch, head) bh
-// through `map`; thread t of the warpgroup issues the store and returns
-// once TMA has read the tile.  Rows past L are not written.
+// written by one warpgroup, to rows [grow, grow + 64) of (batch, head)
+// `where` through `map`; thread t of the warpgroup issues the store and
+// returns once TMA has read the tile.  Rows past L are not written.
 template <int D, int R>
 __device__ __forceinline__ void store_rows_f32(const CUtensorMap* map,
                                                uint32_t tile, int row0,
-                                               int grow, int bh, int t) {
+                                               int grow, HB where, int t) {
   if (t != 0) return;
 #pragma unroll
   for (int b = 0; b < D / 32; ++b)
-    tma_store_3d(map, tile + (b * R + row0) * 128, b * 32, grow, bh);
+    tma_store_rows(map, tile + (b * R + row0) * 128, b * 32, grow, where);
   tma_store_commit_wait_read();
 }
 
@@ -1853,6 +1862,7 @@ flash_bwd_dq_tf32(const __grid_constant__ Sm90Args p) {
     int it = 0, n = 0;
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
       const int bh = item / n_qb, qb = item % n_qb * 64 * NWG;
+      const HB hb(bh, a.H);
       const Mask m = mask_of(a, bh);
       int lo, hi;
       block_k_range<NWG, R>(m, qb, lo, hi);
@@ -1862,9 +1872,9 @@ flash_bwd_dq_tf32(const __grid_constant__ Sm90Args p) {
         mbar_wait(bars.own_empty + 8 * b, ((n / OB) & 1) ^ 1);
         mbar_expect_tx(own, 2 * f32_load_bytes<D, NWG, 64>(qb, a.L));
         f32_load_rows<D, NWG, 64>(base + 2 * b * L_::kOwn, &p.maps.q, own, qb,
-                                  bh, a.L);
+                                  hb, a.L);
         f32_load_rows<D, NWG, 64>(base + (2 * b + 1) * L_::kOwn,
-                                  &p.maps.dout, own, qb, bh, a.L);
+                                  &p.maps.dout, own, qb, hb, a.L);
       }
       for (int kt = lo; kt <= hi; ++kt) {
         if (!any_rows_need<NWG, R>(m, qb, kt * R)) continue;
@@ -1875,8 +1885,8 @@ flash_bwd_dq_tf32(const __grid_constant__ Sm90Args p) {
           mbar_wait(bars.empty + 8 * s, ph ^ 1);
           const uint32_t full = bars.full + 8 * s;
           mbar_expect_tx(full, 2 * L_::kT);
-          f32_load_rows<D, 1, R>(stage, &p.maps.k, full, kt * R, bh, a.L);
-          f32_load_rows<D, 1, R>(stage + L_::kT, &p.maps.v, full, kt * R, bh,
+          f32_load_rows<D, 1, R>(stage, &p.maps.k, full, kt * R, hb, a.L);
+          f32_load_rows<D, 1, R>(stage + L_::kT, &p.maps.v, full, kt * R, hb,
                                  a.L);
         } else {
           mbar_wait(bars.full + 8 * s, ph);
@@ -1904,13 +1914,13 @@ flash_bwd_dq_tf32(const __grid_constant__ Sm90Args p) {
     uint32_t qmix[2] = {0u, 0u};
     const uint32_t sb =
         DROP ? (uint32_t)a.seed[0] + (uint32_t)bh * 0xC2B2AE3Du : 0u;
+    const float* lg = stat_rows(a.lse_in, a.slse, HB(bh, a.H));
+    const float* dg = stat_rows(a.delta, a.sdl, HB(bh, a.H));
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int gi = q0 + f.fr + 8 * h;
-      const size_t r = (size_t)bh * a.L + gi;
-      nl[h] = gi < a.L ? neg_lse2(static_cast<const float*>(a.lse_in)[r])
-                       : -INFINITY;
-      dlt[h] = gi < a.L ? static_cast<const float*>(a.delta)[r] : 0.f;
+      nl[h] = gi < a.L ? neg_lse2(lg[gi]) : -INFINITY;
+      dlt[h] = gi < a.L ? dg[gi] : 0.f;
       if (DROP) qmix[h] = (uint32_t)gi * 0x9E3779B1u ^ sb;
     }
     float dq[D / 2];
@@ -1948,7 +1958,7 @@ flash_bwd_dq_tf32(const __grid_constant__ Sm90Args p) {
     fence_async_shared();
     named_sync(1 + wg, 128);
     if (q0 < a.L)
-      store_rows_f32<D, NWG * 64>(&p.maps.out, sq, 64 * wg, q0, bh,
+      store_rows_f32<D, NWG * 64>(&p.maps.out, sq, 64 * wg, q0, HB(bh, a.H),
                                   tid & 127);
     if ((tid & 127) == 0) mbar_arrive(bars.own_empty + 8 * b);
   }
@@ -1988,6 +1998,7 @@ flash_bwd_dkv_tf32(const __grid_constant__ Sm90Args p) {
     int it = 0, n = 0;
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
       const int bh = item / n_kb, kb = item % n_kb * 64 * NWG;
+      const HB hb(bh, a.H);
       const Mask m = mask_of(a, bh);
       int lo, hi;
       block_q_range<NWG, R>(m, kb, lo, hi);
@@ -1997,9 +2008,9 @@ flash_bwd_dkv_tf32(const __grid_constant__ Sm90Args p) {
         mbar_wait(bars.own_empty + 8 * b, ((n / OB) & 1) ^ 1);
         mbar_expect_tx(own, 2 * f32_load_bytes<D, NWG, 64>(kb, a.L));
         f32_load_rows<D, NWG, 64>(base + 2 * b * L_::kOwn, &p.maps.k, own, kb,
-                                  bh, a.L);
+                                  hb, a.L);
         f32_load_rows<D, NWG, 64>(base + (2 * b + 1) * L_::kOwn, &p.maps.v,
-                                  own, kb, bh, a.L);
+                                  own, kb, hb, a.L);
       }
       for (int qt = lo; qt <= hi; ++qt) {
         if (!any_keys_need<NWG, R>(m, qt * R, kb)) continue;
@@ -2008,14 +2019,14 @@ flash_bwd_dkv_tf32(const __grid_constant__ Sm90Args p) {
         ++it;
         if (loader) {
           Stats<R> st;
-          st.fetch(a, bh, qt * R);
+          st.fetch(a, hb, qt * R);
           mbar_wait(bars.empty + 8 * s, ph ^ 1);
           const uint32_t full = bars.full + 8 * s;
           if (lead) {
             mbar_expect(full, 2 * L_::kT);
-            f32_load_rows<D, 1, R>(stage, &p.maps.q, full, qt * R, bh, a.L);
+            f32_load_rows<D, 1, R>(stage, &p.maps.q, full, qt * R, hb, a.L);
             f32_load_rows<D, 1, R>(stage + L_::kT, &p.maps.dout, full, qt * R,
-                                   bh, a.L);
+                                   hb, a.L);
           }
           float* nl = reinterpret_cast<float*>(smem + L_::kStats) + 2 * s * R;
           st.store(nl, nl + R);
@@ -2087,61 +2098,61 @@ flash_bwd_dkv_tf32(const __grid_constant__ Sm90Args p) {
     fence_async_shared();
     named_sync(1 + wg, 128);
     if (k0 < a.L) {
-      store_rows_f32<D, NWG * 64>(&p.maps.out, sk, 64 * wg, k0, bh,
-                                  tid & 127);
-      store_rows_f32<D, NWG * 64>(&p.maps.out2, sv, 64 * wg, k0, bh,
+      const HB w(bh, a.H);
+      store_rows_f32<D, NWG * 64>(&p.maps.out, sk, 64 * wg, k0, w, tid & 127);
+      store_rows_f32<D, NWG * 64>(&p.maps.out2, sv, 64 * wg, k0, w,
                                   tid & 127);
     }
     if ((tid & 127) == 0) mbar_arrive(bars.own_empty + 8 * b);
   }
 }
 
-// the bf16 tensor maps of one backward launch: (D, L, BH) in boxes of
-// (min(D, 64), 64, 1), swizzled as their rows are wide
-int make_maps(Maps& mp, const Args& a, int BH, int D, bool dq) {
-  const int cols = D < 64 ? D : 64;
-  const CUtensorMapSwizzle sw = cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                           : CU_TENSOR_MAP_SWIZZLE_64B;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)a.L,
-                              (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)a.L * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)cols, 64, 1};
-  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  int rc = mxt_tensor_map(&mp.q, bf, 3, a.q, dims, strides, box, sw);
-  if (!rc) rc = mxt_tensor_map(&mp.dout, bf, 3, a.dout, dims, strides, box, sw);
-  if (!rc) rc = mxt_tensor_map(&mp.k, bf, 3, a.k, dims, strides, box, sw);
-  if (!rc) rc = mxt_tensor_map(&mp.v, bf, 3, a.v, dims, strides, box, sw);
-  if (!rc)
-    rc = mxt_tensor_map(&mp.out, bf, 3, dq ? a.dq : a.dk, dims, strides, box,
-                        sw);
-  if (!rc && !dq)
-    rc = mxt_tensor_map(&mp.out2, bf, 3, a.dv, dims, strides, box, sw);
-  return rc;
-}
+enum Which { kFwd, kDq, kDkv };
 
-// the forward's: q, k, v and out as (D, L, H, B) at their own strides, in
-// boxes of (min(D, 64), 64, 1, 1).  TMA refuses a base that is not 16-byte
-// aligned and strides that are not multiples of 16 bytes (the wrapper
-// copies such views first).
-int make_fwd_maps(Maps& mp, const Args& a, int BH, int D) {
-  const int cols = D < 64 ? D : 64;
-  const CUtensorMapSwizzle sw = cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                           : CU_TENSOR_MAP_SWIZZLE_64B;
+// A launch's tensors in the order of Maps: q, k, v, the first output (#5:
+// out, #6: dq, #7: dk), then the backward's dout and #7's dv; n of them.
+struct Views {
+  int n;
+  CUtensorMap* map[6];
+  const void* ptr[6];
+  const Strides* st[6];
+  Views(Maps& mp, const Args& a, Which w)
+      : n(w == kFwd ? 4 : w == kDq ? 5 : 6),
+        map{&mp.q, &mp.k, &mp.v, &mp.out, &mp.dout, &mp.out2},
+        ptr{a.q, a.k, a.v, w == kFwd ? a.out : w == kDq ? a.dq : a.dk,
+            a.dout, a.dv},
+        st{&a.sq, &a.sk, &a.sv,
+           w == kFwd ? &a.so : w == kDq ? &a.sdq : &a.sdk, &a.sdo,
+           &a.sdv} {}
+};
+
+// A (B, H, L, D) view at strides st (in elements) as a (D, L, H, B)
+// tensor map in boxes of (cols, rows, 1, 1).  TMA refuses a base that is
+// not 16-byte aligned and strides that are not multiples of 16 bytes (the
+// wrappers copy such views first).
+int map_view(CUtensorMap* m, CUtensorMapDataType t, int elt, const void* p,
+             const Strides& st, const Args& a, int BH, int D, int cols,
+             int rows, CUtensorMapSwizzle sw) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)a.L,
                               (cuuint64_t)a.H, (cuuint64_t)(BH / a.H)};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, 64, 1, 1};
-  CUtensorMap* maps[4] = {&mp.q, &mp.k, &mp.v, &mp.out};
-  const void* ptrs[4] = {a.q, a.k, a.v, a.out};
-  const Strides* st[4] = {&a.sq, &a.sk, &a.sv, &a.so};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.sl * elt,
+                                 (cuuint64_t)st.sh * elt,
+                                 (cuuint64_t)st.sb * elt};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  return mxt_tensor_map(m, t, 4, p, dims, strides, box, sw);
+}
+
+// the bf16 kernels' maps, in boxes of (min(D, 64), 64, 1, 1), swizzled as
+// their rows are wide
+int make_maps(Maps& mp, const Args& a, int BH, int D, Which w) {
+  const int cols = D < 64 ? D : 64;
+  const CUtensorMapSwizzle sw = cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                           : CU_TENSOR_MAP_SWIZZLE_64B;
+  const Views vs(mp, a, w);
   int rc = 0;
-  for (int i = 0; i < 4 && !rc; ++i) {
-    const cuuint64_t strides[3] = {(cuuint64_t)st[i]->sl * 2,
-                                   (cuuint64_t)st[i]->sh * 2,
-                                   (cuuint64_t)st[i]->sb * 2};
-    rc = mxt_tensor_map(maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptrs[i],
-                        dims, strides, box, sw);
-  }
+  for (int i = 0; i < vs.n && !rc; ++i)
+    rc = map_view(vs.map[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, vs.ptr[i],
+                  *vs.st[i], a, BH, D, cols, 64, sw);
   return rc;
 }
 
@@ -2158,8 +2169,6 @@ struct Cfg {
   static constexpr int kStages = D == 128 ? 2 : 3;
   static constexpr int kFwdStages = 3;
 };
-
-enum Which { kFwd, kDq, kDkv };
 
 template <int D, bool DROP>
 int launch_sm90(const Sm90Args& p, int BH, Which w, cudaStream_t st) {
@@ -2203,36 +2212,24 @@ int run_sm90(const Args& a, int BH, Which w, cudaStream_t st) {
   Sm90Args p = {};
   p.a = a;
   p.BH = BH;
-  const int rc = w == kFwd ? make_fwd_maps(p.maps, a, BH, D)
-                           : make_maps(p.maps, a, BH, D, w == kDq);
+  const int rc = make_maps(p.maps, a, BH, D, w);
   if (rc) return rc;
   return a.seed ? launch_sm90<D, true>(p, BH, w, st)
                 : launch_sm90<D, false>(p, BH, w, st);
 }
 
-// the float32 tensor maps of one backward launch: (D, L, BH) in boxes of
-// 32 columns (128-byte rows, 128-byte swizzle) by 64 rows for the block's
-// own side and the outputs, by R rows for the streamed side
-int make_maps_f32(Maps& mp, const Args& a, int BH, int D, bool dq, int R) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)a.L,
-                              (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 4,
-                                 (cuuint64_t)a.L * D * 4};
-  const cuuint32_t own[3] = {32, 64, 1}, str[3] = {32, (cuuint32_t)R, 1};
-  const CUtensorMapDataType f = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  const cuuint32_t* qbox = dq ? own : str;
-  const cuuint32_t* kbox = dq ? str : own;
-  int rc = mxt_tensor_map(&mp.q, f, 3, a.q, dims, strides, qbox, sw);
-  if (!rc)
-    rc = mxt_tensor_map(&mp.dout, f, 3, a.dout, dims, strides, qbox, sw);
-  if (!rc) rc = mxt_tensor_map(&mp.k, f, 3, a.k, dims, strides, kbox, sw);
-  if (!rc) rc = mxt_tensor_map(&mp.v, f, 3, a.v, dims, strides, kbox, sw);
-  if (!rc)
-    rc = mxt_tensor_map(&mp.out, f, 3, dq ? a.dq : a.dk, dims, strides, own,
-                        sw);
-  if (!rc && !dq)
-    rc = mxt_tensor_map(&mp.out2, f, 3, a.dv, dims, strides, own, sw);
+// the float32 backward's maps, in boxes of 32 columns (128-byte rows,
+// 128-byte swizzle) by 64 rows for the block's own side and the outputs,
+// by R rows for the streamed side (#6: k and v, #7: q and dout)
+int make_maps_f32(Maps& mp, const Args& a, int BH, int D, Which w, int R) {
+  const Views vs(mp, a, w);
+  int rc = 0;
+  for (int i = 0; i < vs.n && !rc; ++i) {
+    const bool streamed = w == kDq ? i == 1 || i == 2 : i == 0 || i == 4;
+    rc = map_view(vs.map[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, vs.ptr[i],
+                  *vs.st[i], a, BH, D, 32, streamed ? R : 64,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+  }
   return rc;
 }
 
@@ -2267,7 +2264,7 @@ int run_tf32(const Args& a, int BH, Which w, cudaStream_t st) {
   Sm90Args p = {};
   p.a = a;
   p.BH = BH;
-  const int rc = make_maps_f32(p.maps, a, BH, D, w == kDq, CfgF<D>::kR);
+  const int rc = make_maps_f32(p.maps, a, BH, D, w, CfgF<D>::kR);
   if (rc) return rc;
   return a.seed ? launch_tf32<D, true>(p, BH, w, st)
                 : launch_tf32<D, false>(p, BH, w, st);
@@ -2329,9 +2326,20 @@ Args make_args(const void* q, const void* k, const void* v, const void* seed,
   a.window = window;
   a.thr = thr;
   a.ks = ks;
-  a.sq = a.sk = a.sv = a.so = contiguous(L, D, H);
-  a.slse = contiguous(L, 1, H);
+  a.sq = a.sk = a.sv = a.so = a.sdo = a.sdq = a.sdk = a.sdv =
+      contiguous(L, D, H);
+  a.slse = a.sdl = contiguous(L, 1, H);
   return a;
+}
+
+// An entry point's `strides`: the B, H and L strides of n (B, H, L, D)
+// views, then the B and H strides of m (B, H, L) float32 tensors.
+void read_strides(const long long* s, Strides* const* views, int n,
+                  Strides* const* stats, int m) {
+  for (int i = 0; i < n; ++i)
+    *views[i] = Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+  for (int i = 0; i < m; ++i)
+    *stats[i] = Strides{s[3 * n + 2 * i], s[3 * n + 2 * i + 1], 1};
 }
 
 }  // namespace
@@ -2340,21 +2348,21 @@ extern "C" const char* mxt_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// Common arguments: q, k, v (BH, L, D) contiguous, 16-byte aligned, of
-// dtype 0 float32 or 1 bfloat16; D in {32, 64, 128}; BH <= 65535.  seed:
-// one int64 on the card (its low 32 bits the seed), or null for no
-// dropout; kvlen: (BH / H,) int32 on the card, or null for no padding
-// mask; window < 0 for no band; thr and ks: the rate's uint32 keep
-// threshold and keep scale.  Each returns cudaGetLastError() after its
-// launch.
+// Common arguments: q, k, v (B, H, L, D) with BH = B * H <= 65535, of dtype
+// 0 float32 or 1 bfloat16; D in {32, 64, 128}.  seed: one int64 on the
+// card (its low 32 bits the seed), or null for no dropout; kvlen: (B,)
+// int32 on the card, or null for no padding mask; window < 0 for no band;
+// thr and ks: the rate's uint32 keep threshold and keep scale.  strides,
+// on the host, or null for contiguous tensors: each (B, H, L, D) view's B,
+// H and L strides in elements (unit stride along D), then each (B, H, L)
+// float32 tensor's B and H strides (unit stride along L).  Each view's
+// base 16-byte aligned and each of its strides a multiple of 16 bytes
+// (TMA's rule, and in the float32 forward its 16-byte vector loads and
+// stores); the float32 tensors need neither.  Each returns
+// cudaGetLastError() after its launch.
 
-// out (BH, L, D) in the input dtype; lse (BH, L) float32.  strides, on the
-// host, or null for contiguous tensors: q, k, v and out as (B, H, L, D)
-// views, unit stride along D, and lse as (B, H, L), unit stride along L,
-// given by the B, H and L strides of each in elements (14 int64: q's
-// three, k's, v's, out's, then lse's B and H strides).  Each base 16-byte
-// aligned and each stride a multiple of 16 bytes (TMA's rule in bf16,
-// 16-byte vector loads and stores in float32); lse needs neither.
+// out like q; lse (B, H, L) float32.  strides: 14 int64, q's, k's, v's
+// and out's three, then lse's two.
 extern "C" int mxt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* seed, const void* kvlen, void* out,
                              void* lse, int BH, int H, int L, int D,
@@ -2366,40 +2374,47 @@ extern "C" int mxt_flash_fwd(const void* q, const void* k, const void* v,
   a.out = out;
   a.lse_out = lse;
   if (strides) {
-    Strides* st[4] = {&a.sq, &a.sk, &a.sv, &a.so};
-    for (int i = 0; i < 4; ++i)
-      *st[i] = Strides{strides[3 * i], strides[3 * i + 1],
-                       strides[3 * i + 2]};
-    a.slse = Strides{strides[12], strides[13], 1};
+    Strides* const views[4] = {&a.sq, &a.sk, &a.sv, &a.so};
+    Strides* const stats[1] = {&a.slse};
+    read_strides(strides, views, 4, stats, 1);
   }
   return dispatch<kFwd>(a, BH, D, dtype, (cudaStream_t)stream);
 }
 
-// dout, dq (BH, L, D) in the input dtype; lse, delta (BH, L) float32
+// dout, dq like q; lse, delta (B, H, L) float32.  strides: 19 int64, q's,
+// k's, v's, dout's and dq's three, then lse's and delta's two.
 extern "C" int mxt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, const void* seed,
                                 const void* kvlen, void* dq, int BH, int H,
                                 int L, int D, int dtype, float scale,
                                 int causal, int window, unsigned thr,
-                                float ks, void* stream) {
+                                float ks, void* stream,
+                                const long long* strides) {
   Args a = make_args(q, k, v, seed, kvlen, H, L, D, scale, causal, window,
                      thr, ks);
   a.dout = dout;
   a.lse_in = lse;
   a.delta = delta;
   a.dq = dq;
+  if (strides) {
+    Strides* const views[5] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdq};
+    Strides* const stats[2] = {&a.slse, &a.sdl};
+    read_strides(strides, views, 5, stats, 2);
+  }
   return dispatch<kDq>(a, BH, D, dtype, (cudaStream_t)stream);
 }
 
-// dk, dv (BH, L, D) in the input dtype
+// dk, dv like q.  strides: 22 int64, q's, k's, v's, dout's, dk's and dv's
+// three, then lse's and delta's two.
 extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, const void* seed,
                                  const void* kvlen, void* dk, void* dv,
                                  int BH, int H, int L, int D, int dtype,
                                  float scale, int causal, int window,
-                                 unsigned thr, float ks, void* stream) {
+                                 unsigned thr, float ks, void* stream,
+                                 const long long* strides) {
   Args a = make_args(q, k, v, seed, kvlen, H, L, D, scale, causal, window,
                      thr, ks);
   a.dout = dout;
@@ -2407,5 +2422,10 @@ extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.delta = delta;
   a.dk = dk;
   a.dv = dv;
+  if (strides) {
+    Strides* const views[6] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdk, &a.sdv};
+    Strides* const stats[2] = {&a.slse, &a.sdl};
+    read_strides(strides, views, 6, stats, 2);
+  }
   return dispatch<kDkv>(a, BH, D, dtype, (cudaStream_t)stream);
 }

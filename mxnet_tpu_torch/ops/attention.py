@@ -145,9 +145,9 @@ def flash_attention_sharded(q, k, v, cfg, causal=False, window=None,
       the flash forward kernel with ``causal=True``, the scale folded into
       q in q's dtype, where the JAX package takes the TPU's splash kernel
       (``_splash_causal``, ``attention.py:302``): one autograd function
-      whose forward has each shard's launch read its views of q, k and v
-      and write its views of one output, and whose backward runs the
-      backward kernels per shard.
+      in which each shard's launches read their views of the whole
+      tensors and write their views of one output each (forward: out and
+      lse; backward: dq, dk and dv).
     - Otherwise each shard takes :func:`flash_attention` with its slice of
       ``kv_length``, and the outputs are concatenated.
     - Under dropout each shard's seed is ``seed`` (or one drawn from
@@ -206,13 +206,15 @@ def _shards(B, H, dp, tp):
 
 
 class _ShardedCausal(torch.autograd.Function):
-    """The #16 route over the whole tensors: q scaled once, then per shard
-    the flash forward kernel reads its views of q, k and v where they lie
-    and writes its views of one ``out`` and one ``lse`` (no slice copy, no
-    concat); the backward runs #6 and #7 per shard on its slices and
-    writes one gradient tensor each.  Both give the same bits as per-shard
-    slices through ``flash_attention`` with the scale folded into q, which
-    this replaces."""
+    """The #16 route over the whole tensors, with no slice copy, slice
+    assignment or concat.  Forward: q scaled once, then per shard the
+    flash forward kernel reads its views of q, k and v where they lie and
+    writes its views of one ``out`` and one ``lse``.  Backward: ``delta``
+    once over the whole gradient and output, then per shard #6 and #7
+    read their views of q, k, v, the gradient, lse and delta and write
+    their views of one dq, dk and dv; dq takes the scale once at the end.
+    Both give the same bits as per-shard slices through ``flash_attention``
+    with the scale folded into q, which this replaces."""
 
     @staticmethod
     def forward(ctx, q, k, v, s, dp, tp):
@@ -234,18 +236,18 @@ class _ShardedCausal(torch.autograd.Function):
         qs, k, v, out, lse = ctx.saved_tensors
         s, dp, tp = ctx.cfg
         B, H = qs.shape[:2]
-        dq, dk, dv = (torch.empty_like(t) for t in (qs, k, v))
+        delta = (g.float() * out.float()).sum(-1)
+        dq, dk, dv = (torch.empty_like(qs) for _ in range(3))
         for _, _, b, h in _shards(B, H, dp, tp):
-            # each shard's slices copied, as the backward kernels read them
-            qb, kb, vb, gb, ob, lb = (t[b, h].contiguous()
-                                      for t in (qs, k, v, g, out, lse))
-            delta = (gb.float() * ob.float()).sum(-1)
-            args = (qb, kb, vb, gb, lb, delta)
-            dq[b, h] = _flash.flash_attention_bwd_dq(*args, causal=True,
-                                                     scale=1.0) * s
-            dk[b, h], dv[b, h] = _flash.flash_attention_bwd_dkv(
-                *args, causal=True, scale=1.0)
-        return dq, dk, dv, None, None, None
+            args = (qs[b, h], k[b, h], v[b, h], g[b, h], lse[b, h],
+                    delta[b, h])
+            _flash.flash_attention_bwd_dq(*args, causal=True, scale=1.0,
+                                          dq=dq[b, h])
+            _flash.flash_attention_bwd_dkv(*args, causal=True, scale=1.0,
+                                           dk=dk[b, h], dv=dv[b, h])
+        # the scale after dq's rounding to q's dtype: the per-shard
+        # composition's bits
+        return dq.mul_(s), dk, dv, None, None, None
 
 
 def sldwin_atten(q, k, v, window, symmetric=True):

@@ -15,10 +15,12 @@
   reduction between the forward and the backward kernels (``:466``), over
   the dropped output ``O``.
 
-q, k, v: (B, H, L, D).  The forward reads strided views where they lie
-(a head slice, BERT's permuted projection; see :func:`_strided_ok`) and
-can write into given ``out=`` and ``lse=`` views; the backward kernels
-read contiguous copies.  The mask is the JAX kernel's: ``causal``, a
+q, k, v: (B, H, L, D).  All three kernels read strided views where they
+lie (a head slice, BERT's permuted projection, the transposed gradient
+of the output; see :func:`_strided_ok`), and write into given output
+views (``out=`` and ``lse=``; ``dq=``; ``dk=`` and ``dv=``), so a caller
+that works on slices of larger tensors copies nothing.  The mask is the
+JAX kernel's: ``causal``, a
 symmetric band ``window``, and ``kv_length`` (B,) valid keys per batch
 row.  Dropout drops normalised probabilities with the hash of
 :mod:`.dropout_hash` over (seed, b * H + h, row, key); the normaliser sums
@@ -71,9 +73,8 @@ def _lib():
     for name, n_ptr in (("mxt_flash_fwd", 7), ("mxt_flash_bwd_dq", 9),
                         ("mxt_flash_bwd_dkv", 10)):
         fn = getattr(lib, name)
-        fn.argtypes = [_P] * n_ptr + _TAIL
+        fn.argtypes = [_P] * n_ptr + _TAIL + [_P]    # ... strides
         fn.restype = _I
-    lib.mxt_flash_fwd.argtypes += [_P]     # the forward's strides
     return lib
 
 
@@ -213,7 +214,7 @@ def _strides(t):
 
 
 def _strided_ok(t):
-    """Whether the forward kernel can read or write the (B, H, L, D) view
+    """Whether the kernels can read or write the (B, H, L, D) view
     ``t`` where it lies: unit stride along D, and TMA's rules for a tensor
     map (a 16-byte aligned base, every other stride a positive multiple of
     16 bytes below 2**40), which the float32 kernel's 16-byte vector loads
@@ -229,8 +230,41 @@ def _strided_ok(t):
 
 
 def _as_read(t):
-    """``t`` as the forward kernel reads it: the view itself, or a copy."""
+    """``t`` as the kernels read it: the view itself, or a copy."""
     return t if _strided_ok(t) else _card(t)
+
+
+def _as_stats(t):
+    """The (B, H, L) float32 ``t`` (lse, delta) as the backward kernels
+    read it: the view itself where its rows have unit stride, else a
+    copy."""
+    return t if _strides(t)[-1] == 1 else t.contiguous()
+
+
+def _stride_args(views, stats):
+    """The entry points' ``strides``: None when every tensor is
+    contiguous, else the B, H and L strides of each (B, H, L, D) view of
+    ``views`` and the B and H strides of each (B, H, L) tensor of
+    ``stats``."""
+    if all(t.is_contiguous() for t in views + stats):
+        return None
+    st = ([s for t in views for s in _strides(t)[:3]]
+          + [s for t in stats for s in _strides(t)[:2]])
+    return (ctypes.c_longlong * len(st))(*st)
+
+
+def _target(q, t):
+    """What a kernel writes for the output view ``t`` shaped like q: ``t``
+    itself where it can write it in place, else a new tensor (also when
+    ``t`` is None), which :func:`_deliver` copies into ``t``."""
+    return t if t is not None and _strided_ok(t) else torch.empty(
+        q.shape, dtype=q.dtype, device=q.device)
+
+
+def _deliver(written, t):
+    """The result of an output view ``t`` (None: none given) that the
+    kernel wrote into ``written``."""
+    return written if t is None or written is t else t.copy_(written)
 
 
 def _check(what, q, k, v, window, kv_length):
@@ -270,28 +304,23 @@ def _common(q, causal, window, scale, dropout, seed, kv_length):
     return tail, ptrs, (seed_t, kvl)
 
 
+def _check_like(what, q, **outs):
+    """Raise unless each given output view is shaped, typed and placed
+    like q."""
+    for name, t in outs.items():
+        if t is not None and (t.shape != q.shape or t.dtype != q.dtype
+                              or t.device != q.device):
+            raise ValueError("%s: %s must match q" % (what, name))
+
+
 def _check_outputs(q, out, lse):
     B, H, L, _ = q.shape
-    if out is not None and (out.shape != q.shape or out.dtype != q.dtype
-                            or out.device != q.device):
-        raise ValueError("flash_attention: out must match q")
+    _check_like("flash_attention", q, out=out)
     if lse is not None and (lse.shape != (B, H, L)
                             or lse.dtype != torch.float32
                             or lse.device != q.device):
         raise ValueError("flash_attention: lse must be float32 %s"
                          % ((B, H, L),))
-
-
-def _fwd_outputs(q, out, lse):
-    """The (out, lse) the kernel writes: the given views where it can
-    write them in place, else new tensors (copied into the given views
-    after the launch)."""
-    B, H, L, _ = q.shape
-    ko = out if out is not None and _strided_ok(out) else torch.empty(
-        q.shape, dtype=q.dtype, device=q.device)
-    kl = lse if lse is not None and _strides(lse)[-1] == 1 else torch.empty(
-        B, H, L, dtype=torch.float32, device=q.device)
-    return ko, kl
 
 
 def flash_attention_fwd(q, k, v, causal=False, window=None, scale=None,
@@ -322,84 +351,99 @@ def flash_attention_fwd(q, k, v, causal=False, window=None, scale=None,
         return o, l
     _check("flash_attention", q, k, v, window, kv_length)
     q, k, v = _as_read(q), _as_read(k), _as_read(v)
-    ko, kl = _fwd_outputs(q, out, lse)
-    strides = None              # all contiguous: the entry point's default
-    if not all(t.is_contiguous() for t in (q, k, v, ko, kl)):
-        strides = (ctypes.c_longlong * 14)(
-            *_strides(q)[:3], *_strides(k)[:3], *_strides(v)[:3],
-            *_strides(ko)[:3], *_strides(kl)[:2])
+    B, H, L, _ = q.shape
+    ko = _target(q, out)
+    kl = lse if lse is not None and _strides(lse)[-1] == 1 else torch.empty(
+        B, H, L, dtype=torch.float32, device=q.device)
     tail, ptrs, _alive = _common(q, causal, window, scale, dropout, seed,
                                  kv_length)
     lib = _lib()
     rc = lib.mxt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs,
-                           ko.data_ptr(), kl.data_ptr(), *tail, strides)
+                           ko.data_ptr(), kl.data_ptr(), *tail,
+                           _stride_args([q, k, v, ko], [kl]))
     _build.check(lib, rc, "flash_attention")
     flash_attention.launches_fwd += 1
     flash_attention.last_dtype = q.dtype
-    if out is not None and ko is not out:
-        ko = out.copy_(ko)
-    if lse is not None and kl is not lse:
-        kl = lse.copy_(kl)
-    return ko, kl
+    return _deliver(ko, out), _deliver(kl, lse)
 
 
 def _bwd_inputs(what, q, k, v, do, lse, delta, window, kv_length):
+    """(q, k, v, dO, lse, delta) as the backward kernels read them: each
+    view where it lies, when the kernels can read it there."""
     _check(what, q, k, v, window, kv_length)
-    if do.shape != q.shape or do.dtype != q.dtype:
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError("%s: dout must match q" % what)
     for t in (lse, delta):
-        if t.shape != q.shape[:3] or t.dtype != torch.float32:
+        if (t.shape != q.shape[:3] or t.dtype != torch.float32
+                or t.device != q.device):
             raise ValueError("%s: lse and delta must be float32 %s"
                              % (what, tuple(q.shape[:3])))
-    return [_card(t) for t in (q, k, v, do, lse, delta)]
+    return ([_as_read(t) for t in (q, k, v, do)]
+            + [_as_stats(t) for t in (lse, delta)])
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
                            window=None, scale=None, dropout=0.0, seed=None,
-                           kv_length=None):
+                           kv_length=None, dq=None):
     """dq from (q, k, v, dO, lse, delta = sum_d dO * O): a CPU tensor takes
     :func:`flash_attention_bwd_dq_plain`; a CUDA tensor launches kernel
-    #6 (counted in ``flash_attention.launches_dq``)."""
-    if _on_cpu("flash_attention_bwd_dq", q):
-        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
-                                            window, scale, dropout, seed,
-                                            kv_length)
-    ins = _bwd_inputs("flash_attention_bwd_dq", q, k, v, do, lse, delta,
-                      window, kv_length)
-    dq = torch.empty_like(ins[0])
+    #6 (counted in ``flash_attention.launches_dq``).
+
+    Every input may be a strided view (as for :func:`flash_attention_fwd`;
+    lse and delta need unit stride along L, else they are copied).  ``dq``
+    (like q), when given, is a view the result is written into, and
+    nothing else of its storage is touched; it is returned."""
+    what = "flash_attention_bwd_dq"
+    _check_like(what, q, dq=dq)
+    if _on_cpu(what, q):
+        # the plain version on contiguous copies, so a view gives the same
+        # bits as its copy
+        r = flash_attention_bwd_dq_plain(
+            *(t.contiguous() for t in (q, k, v, do, lse, delta)), causal,
+            window, scale, dropout, seed, kv_length)
+        return _deliver(r, dq)
+    ins = _bwd_inputs(what, q, k, v, do, lse, delta, window, kv_length)
+    out_q = _target(q, dq)
     tail, ptrs, _alive = _common(ins[0], causal, window, scale, dropout,
                                  seed, kv_length)
     lib = _lib()
     rc = lib.mxt_flash_bwd_dq(*(t.data_ptr() for t in ins), *ptrs,
-                              dq.data_ptr(), *tail)
-    _build.check(lib, rc, "flash_attention_bwd_dq")
+                              out_q.data_ptr(), *tail,
+                              _stride_args(ins[:4] + [out_q], ins[4:]))
+    _build.check(lib, rc, what)
     flash_attention.launches_dq += 1
     flash_attention.last_dtype = q.dtype
-    return dq
+    return _deliver(out_q, dq)
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
                             window=None, scale=None, dropout=0.0, seed=None,
-                            kv_length=None):
+                            kv_length=None, dk=None, dv=None):
     """(dk, dv) from (q, k, v, dO, lse, delta): a CPU tensor takes
     :func:`flash_attention_bwd_dkv_plain`; a CUDA tensor launches kernel
-    #7 (counted in ``flash_attention.launches_dkv``)."""
-    if _on_cpu("flash_attention_bwd_dkv", q):
-        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
-                                             window, scale, dropout, seed,
-                                             kv_length)
-    ins = _bwd_inputs("flash_attention_bwd_dkv", q, k, v, do, lse, delta,
-                      window, kv_length)
-    dk, dv = torch.empty_like(ins[0]), torch.empty_like(ins[0])
+    #7 (counted in ``flash_attention.launches_dkv``).  Inputs as
+    :func:`flash_attention_bwd_dq`'s; ``dk`` and ``dv`` (like q), when
+    given, are views the results are written into, and returned."""
+    what = "flash_attention_bwd_dkv"
+    _check_like(what, q, dk=dk, dv=dv)
+    if _on_cpu(what, q):
+        rk, rv = flash_attention_bwd_dkv_plain(
+            *(t.contiguous() for t in (q, k, v, do, lse, delta)), causal,
+            window, scale, dropout, seed, kv_length)
+        return _deliver(rk, dk), _deliver(rv, dv)
+    ins = _bwd_inputs(what, q, k, v, do, lse, delta, window, kv_length)
+    out_k, out_v = _target(q, dk), _target(q, dv)
     tail, ptrs, _alive = _common(ins[0], causal, window, scale, dropout,
                                  seed, kv_length)
     lib = _lib()
     rc = lib.mxt_flash_bwd_dkv(*(t.data_ptr() for t in ins), *ptrs,
-                               dk.data_ptr(), dv.data_ptr(), *tail)
-    _build.check(lib, rc, "flash_attention_bwd_dkv")
+                               out_k.data_ptr(), out_v.data_ptr(), *tail,
+                               _stride_args(ins[:4] + [out_k, out_v],
+                                            ins[4:]))
+    _build.check(lib, rc, what)
     flash_attention.launches_dkv += 1
     flash_attention.last_dtype = q.dtype
-    return dk, dv
+    return _deliver(out_k, dk), _deliver(out_v, dv)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -415,7 +459,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse, seed, kv_length = ctx.saved_tensors
-        g = g.contiguous()
+        # g (the transposed gradient of BERT's output, say) is read where
+        # it lies, as q, k and v are
         delta = (g.float() * out.float()).sum(-1)
         args = ctx.cfg + (seed, kv_length)
         dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, *args)
@@ -452,7 +497,6 @@ def flash_attention(q, k, v, causal=False, window=None, scale=None,
         # #5, #6 and #7
         kv_length = torch.as_tensor(kv_length, device=q.device).to(
             torch.int32)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, seed_t, kv_length, causal,

@@ -16,7 +16,9 @@ by name (``load_jax_params``) and random biases and LN affines.
 - without a GPU the model needs ``device="cpu"``;
 - train mode at dropout 0.1 is reproducible from the generator's seed and
   differs from eval mode;
-- CPU runs launch no kernel.
+- CPU runs launch no kernel;
+- flash attention hands the kernels' wrappers q, k, v as views of the
+  layer's projection and dO as the transposed gradient, uncopied.
 """
 from __future__ import annotations
 
@@ -262,3 +264,40 @@ def test_initialize_from_seed():
     again = tbert.bert_tiny(use_flash=False, device="cpu", seed=3)
     for name, p in again.named_parameters():
         assert torch.equal(p, pa[name]), name
+
+
+def test_flash_attention_reads_the_projection_uncopied(monkeypatch):
+    """A BERT attention layer with flash attention hands the kernels'
+    wrappers q, k and v as views of its (B, L, 3, H, D) projection and dO
+    as the transposed gradient of its output: nothing is made contiguous
+    in front of #5, #6 or #7."""
+    from mxnet_tpu_torch.ops.kernels import flash_attention as tfa
+    seen = {}
+    fns = {n: getattr(tfa, n) for n in ("flash_attention_fwd",
+                                        "flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv")}
+
+    def spy(name):
+        def fn(*args, **kw):
+            seen[name] = args
+            return fns[name](*args, **kw)
+        return fn
+    for name in fns:
+        monkeypatch.setattr(tfa, name, spy(name))
+    layer = tbert.MultiHeadAttention(64, 2, device="cpu")
+    projections = []
+    layer.qkv.register_forward_hook(lambda m, i, o: projections.append(o))
+    x = torch.randn(2, 12, 64, requires_grad=True)
+    layer(x, torch.tensor([12, 7])).sum().backward()
+    qkv = projections[0]
+    lo = qkv.untyped_storage().data_ptr()
+    hi = lo + qkv.untyped_storage().nbytes()
+    assert set(seen) == set(fns)
+    for name, args in seen.items():
+        for t in args[:3]:                          # q, k, v
+            assert t.shape == (2, 2, 12, 32) and not t.is_contiguous()
+            assert lo <= t.data_ptr() < hi, name
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        do = seen[name][3]
+        assert do.shape == (2, 2, 12, 32) and not do.is_contiguous()
+        assert do.stride(2) == 64                   # (B, L, H, D) rows

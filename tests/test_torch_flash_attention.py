@@ -26,7 +26,12 @@ versions).
 - the forward on strided views (a permuted qkv, head slices) equals the
   call on their contiguous copies, ``out=`` and ``lse=`` write only
   their slices, and ``_strided_ok`` (which views the kernel reads in
-  place) admits exactly what TMA's rules for a tensor map admit.
+  place) admits exactly what TMA's rules for a tensor map admit;
+- the backward likewise: on a permuted qkv with a transposed dO and on
+  head slices, lse and delta as slices, with and without dropout and
+  kv_length, exactly the call on contiguous copies; ``dq=``, ``dk=`` and
+  ``dv=`` write only their slices; and the gradients of the op on a
+  permuted qkv against the JAX kernel's.
 """
 from __future__ import annotations
 
@@ -449,3 +454,110 @@ def test_tf32x3_tolerance(D):
         big = float(want.abs().max())
         assert err3 / big <= tol, (err3 / big, tol)
         assert err1 / big > tol, (err1 / big, tol)
+
+
+def _bwd_inputs(views, kw):
+    """(q, k, v, dO, lse, delta) over the views (q, k, v, dO), lse and
+    delta as slices of larger buffers."""
+    out, lse = tfa.flash_attention_fwd(*views[:3], **kw)
+    delta = (views[3].float() * out.float()).sum(-1)
+    B, H, L = lse.shape
+    stats = [torch.full((B + 1, H + 2, L), float("nan"))[1:, 1:-1].copy_(t)
+             for t in (lse, delta)]
+    return list(views) + stats
+
+
+@pytest.mark.parametrize("layout", ["permuted", "head slices"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_backward_strided_views_equal_contiguous_call(layout, dtype, rate):
+    """``flash_attention_bwd_dq`` and ``_dkv`` on BERT's permuted (B, L, 3,
+    H, D) projection with dO as the transposed gradient of the output, or
+    on head slices, with lse and delta as slices, give exactly what they
+    give on contiguous copies, with and without dropout and kv_length."""
+    tdt = _DT[dtype][1]
+    B, H, L, D = 2, 4, 40, 8
+    rng = np.random.default_rng(7)
+    if layout == "permuted":
+        q, k, v = torch.tensor(rng.standard_normal((B, L, 3, H, D))).to(
+            tdt).permute(2, 0, 3, 1, 4)
+        do = torch.tensor(rng.standard_normal((B, L, H, D))).to(
+            tdt).transpose(1, 2)
+        views = (q, k, v, do)
+    else:
+        wide = torch.tensor(rng.standard_normal((4, B, H + 2, L, D))).to(tdt)
+        views = tuple(wide[:, :, 1:-1])
+    kw = dict(causal=True)
+    if rate:
+        kw = dict(dropout=rate, seed=torch.tensor([9]),
+                  kv_length=torch.tensor([L, 13]))
+    ins = _bwd_inputs(views, kw)
+    assert not any(t.is_contiguous() for t in ins)
+    flat = [t.contiguous() for t in ins]
+    got = (tfa.flash_attention_bwd_dq(*ins, **kw),
+           *tfa.flash_attention_bwd_dkv(*ins, **kw))
+    want = (tfa.flash_attention_bwd_dq(*flat, **kw),
+            *tfa.flash_attention_bwd_dkv(*flat, **kw))
+    for a, b in zip(got, want):
+        assert a.dtype == tdt and torch.equal(a, b)
+
+
+def test_backward_output_views():
+    """``dq=``, ``dk=`` and ``dv=`` views of larger NaN-filled buffers are
+    written, returned, and nothing else of the buffers changes; an output
+    of the wrong shape or dtype raises."""
+    B, H, L, D = 2, 3, 24, 8
+    rng = np.random.default_rng(8)
+    views = [torch.tensor(a) for a in rng.standard_normal((4, B, H, L, D),
+                                                          dtype=np.float32)]
+    kw = dict(dropout=0.1, seed=torch.tensor([4]),
+              kv_length=torch.tensor([L, 5]))
+    ins = _bwd_inputs(views, kw)
+    bufs = [torch.full((B + 1, H + 2, L, D), float("nan")) for _ in range(3)]
+    outs = [b[1:, 1:-1] for b in bufs]
+    dq = tfa.flash_attention_bwd_dq(*ins, dq=outs[0], **kw)
+    dk, dv = tfa.flash_attention_bwd_dkv(*ins, dk=outs[1], dv=outs[2], **kw)
+    assert dq is outs[0] and dk is outs[1] and dv is outs[2]
+    want = (tfa.flash_attention_bwd_dq(*ins, **kw),
+            *tfa.flash_attention_bwd_dkv(*ins, **kw))
+    inside = torch.zeros(B + 1, H + 2, L, D, dtype=torch.bool)
+    inside[1:, 1:-1] = True
+    for o, w, b in zip(outs, want, bufs):
+        assert torch.equal(o, w) and not o.isnan().any()
+        assert b[~inside].isnan().all()
+    with pytest.raises(ValueError, match="dq"):
+        tfa.flash_attention_bwd_dq(*ins, dq=bufs[0], **kw)
+    with pytest.raises(ValueError, match="dv"):
+        tfa.flash_attention_bwd_dkv(*ins, dv=outs[2].to(torch.bfloat16),
+                                    **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gradients_on_permuted_views_match_jax(dtype):
+    """``ops.attention.flash_attention`` on q, k, v permuted out of one
+    (B, L, 3, H, D) projection, its output transposed back as BERT's
+    attention does: the projection's gradient against ``jax.grad``
+    through the JAX package's kernel in interpret mode on the same numpy
+    q, k, v (causal, kv_length with a row of length 0), within the
+    tolerances of ``test_gradients_match_jax``."""
+    jdt, tdt = _DT[dtype]
+    B, H, L, D = 2, 2, 64, 16
+    rng = np.random.default_rng(10)
+    qkv = rng.standard_normal((B, L, 3, H, D)).astype(np.float32)
+    g = rng.standard_normal((B, L, H, D)).astype(np.float32)
+    q, k, v = np.transpose(qkv, (2, 0, 3, 1, 4))
+    want = jax_grads(q, k, v, np.transpose(g, (0, 2, 1, 3)), 64, jdt,
+                     causal=True, kv_length=[37, 0])
+    leaf = torch.tensor(qkv).to(tdt).requires_grad_()
+    tq, tk, tv = leaf.permute(2, 0, 3, 1, 4)
+    out = tatt.flash_attention(tq, tk, tv, causal=True,
+                               kv_length=torch.tensor([37, 0]))
+    out.transpose(1, 2).backward(torch.tensor(g).to(tdt))
+    got = [t.float().numpy() for t in leaf.grad.permute(2, 0, 3, 1, 4)]
+    if dtype == "float32":
+        close_grads(got, want)
+    else:
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=2.0 ** -8 * np.abs(b).max())
+    assert not np.any(got[0][1])      # the row without keys: no gradient

@@ -209,3 +209,54 @@ def test_causal_route_equals_per_shard_composition(mesh, dtype):
     assert torch.equal(out, ref)
     for got, want in zip(grads, ref_grads):
         assert got.dtype == tdt and torch.equal(got, want)
+
+
+def _within(t, parent):
+    """Whether the view ``t`` lies inside ``parent``'s storage."""
+    lo = parent.untyped_storage().data_ptr()
+    hi = lo + parent.untyped_storage().nbytes()
+    return lo <= t.data_ptr() < hi
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_route_backward_reads_and_writes_views(monkeypatch, dtype):
+    """The route's backward hands the backward kernels' wrappers each
+    shard's views of the whole q, k, v, gradient, lse and delta, not
+    copies, and output views inside one dq, dk and dv, which it returns:
+    dp * tp calls of each wrapper, no copy or slice assignment."""
+    tdt = getattr(torch, dtype)
+    calls = {"dq": [], "dkv": []}
+    dq_fn, dkv_fn = tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv
+
+    def dq(*args, **kw):
+        calls["dq"].append((args, kw))
+        return dq_fn(*args, **kw)
+
+    def dkv(*args, **kw):
+        calls["dkv"].append((args, kw))
+        return dkv_fn(*args, **kw)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dq", dq)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dkv", dkv)
+    leaves = [torch.tensor(a).to(tdt).requires_grad_() for a in _inputs(5)]
+    g = torch.tensor(_inputs(6)[0]).to(tdt)
+    cfg = ShardingConfig.for_transformer(mesh_shape=(2, 2),
+                                         axis_names=("dp", "tp"))
+    out = tatt.flash_attention_sharded(*leaves, cfg, causal=True)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert len(calls["dq"]) == len(calls["dkv"]) == 4
+    for name, outs in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+        for args, kw in calls[name]:
+            q, k, v, do, lse, delta = args
+            assert q.shape == (B // 2, H // 2, L, D)
+            # the shards' views, read where they lie
+            assert not any(t.is_contiguous() for t in args)
+            for t, whole in zip(args[1:4], (leaves[1], leaves[2], g)):
+                assert _within(t, whole)
+            assert lse.dtype == delta.dtype == torch.float32
+            # written in place into views of the returned gradients
+            for o in outs:
+                assert not kw[o].is_contiguous()
+            got = [kw[o] for o in outs]
+            want = grads[:1] if name == "dq" else grads[1:]
+            for o, whole in zip(got, want):
+                assert _within(o, whole)
