@@ -50,7 +50,8 @@ plain version):
    H 12, L 128, D 64, causal, fp32 and bf16) against the plain causal
    attention and the unsharded #5, forward and gradients, with dp * tp
    launches of #5 per call and of #6 and #7 per backward; its backward
-   timed beside SDPA's is_causal backward and its bound.
+   timed beside SDPA's is_causal backward and its bound (the function's
+   least bytes and products), and the two-kernel design's own floor.
    ``--kernels-only`` stops here.
 3. Serving: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
@@ -156,8 +157,6 @@ WIDTHS = dict(vocab_size=30522, num_layers=12, units=768, hidden_size=3072,
               num_heads=12, num_kv_heads=12, max_length=512)
 SLOTS, PAGE, CHUNK, MAX_CTX = 16, 16, 64, 512
 DEV = "cuda"
-#: --profile: also profile the #16 route's backward (op_split)
-PROFILE = False
 
 
 def log(*a):
@@ -842,19 +841,36 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
         rows["flash_attention_fwd"]["rate0_ms"] = rate0
     # #5-#7 on BERT's layout, read where it lies: q, k, v permuted out of
     # the (B, L, 3, H, D) projection, dO the transposed gradient of the
-    # (B, L, H, D) output
-    pq, pk, pv = torch.randn(B, L, 3, H, D, device=DEV, generator=g).to(
-        dt).permute(2, 0, 3, 1, 4)
-    pdo = torch.randn(B, L, H, D, device=DEV, generator=g).to(dt).transpose(
-        1, 2)
+    # (B, L, H, D) output, holding q, k, v and dO's values, so each result
+    # must equal the contiguous call's bit for bit
+    pq, pk, pv = torch.empty(B, L, 3, H, D, device=DEV, dtype=dt).permute(
+        2, 0, 3, 1, 4)
+    pdo = torch.empty(B, L, H, D, device=DEV, dtype=dt).transpose(1, 2)
+    for view, t in zip((pq, pk, pv, pdo), (q, k, v, do)):
+        view.copy_(t)
     pbwd = (pq, pk, pv, pdo, lse, delta)
-    for name, fn in zip(FLASH_KERNELS, (
-            lambda: fa.flash_attention_fwd(pq, pk, pv, **kw),
-            lambda: fa.flash_attention_bwd_dq(*pbwd, **kw),
-            lambda: fa.flash_attention_bwd_dkv(*pbwd, **kw))):
-        rows[name]["permuted_ms"] = timer(fn, spin=FLASH_SPIN)
+    calls = {"flash_attention_fwd": (
+                 lambda: fa.flash_attention_fwd(pq, pk, pv, **kw),
+                 lambda: fa.flash_attention_fwd(q, k, v, **kw)),
+             "flash_attention_bwd_dq": (
+                 lambda: fa.flash_attention_bwd_dq(*pbwd, **kw),
+                 lambda: fa.flash_attention_bwd_dq(*bwd, **kw)),
+             "flash_attention_bwd_dkv": (
+                 lambda: fa.flash_attention_bwd_dkv(*pbwd, **kw),
+                 lambda: fa.flash_attention_bwd_dkv(*bwd, **kw))}
+    for name in FLASH_KERNELS:
+        permuted, contiguous = calls[name]
+        got, want = permuted(), contiguous()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("%s on BERT's layout (B %d, L %d) %s differs "
+                                 "from the contiguous call"
+                                 % (name, B, L, str(dt)[6:]))
+        rows[name]["permuted_ms"] = timer(permuted, spin=FLASH_SPIN)
     log("%s #5, #6, #7 on BERT's permuted projection and transposed dO (B "
-        "%d, H %d, L %d, D %d, kv_length, rate 0.1): %s ms (contiguous: %s)"
+        "%d, H %d, L %d, D %d, kv_length, rate 0.1), equal to the contiguous "
+        "calls bit for bit: %s ms (contiguous: %s)"
         % (str(dt)[6:], B, H, L, D, ", ".join(
             "%.4f" % rows[n]["permuted_ms"] for n in FLASH_KERNELS),
            ", ".join("%.4f" % rows[n]["ms"] for n in FLASH_KERNELS)))
@@ -1516,8 +1532,9 @@ def per_shard_causal(torch, q, k, v, dp, tp):
 
 
 def span_kind(name):
-    """The kind of a kernel span in the route's backward, by its name."""
-    for key, kind in (("flash_bwd_dq", "#6"), ("flash_bwd_dkv", "#7"),
+    """The kind of a kernel span of a flash-attention call, by its name."""
+    for key, kind in (("flash_fwd", "#5"), ("flash_bwd_dq", "#6"),
+                      ("flash_bwd_dkv", "#7"),
                       ("reduce_kernel", "sums"), ("MulFunctor", "products"),
                       ("copy", "copies")):
         if key in name:
@@ -1525,20 +1542,23 @@ def span_kind(name):
     return "other"
 
 
-def op_split(torch, fn, iters=5):
+def op_split(torch, fn, iters=5, samples=20):
     """``fn`` (after one warm call) ``iters`` times under torch.profiler,
     back to back: per call, the top-level aten ops on the host, the kernel
     spans and their device ms by :func:`span_kind`, the window from the
     first span's start to the last one's end, and the device's idle ms in
-    it.  Also the host's enqueue time of one call, timed while the card
-    runs a ~20 ms spin so that no launch waits for a free queue slot."""
+    it.  Also the host's enqueue time of one call, the median of
+    ``samples`` calls timed while the card runs a ~60 ms spin, so that no
+    launch waits for the card."""
     from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(40_000_000)
-    t = time.perf_counter()
-    fn()
-    enqueue_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda._sleep(120_000_000)
+    enqueue = []
+    for _ in range(samples):
+        t = time.perf_counter()
+        fn()
+        enqueue.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -1569,10 +1589,41 @@ def op_split(torch, fn, iters=5):
                        for k, (n, ms) in sorted(kinds.items())},
                 window_ms=window / iters,
                 idle_ms=(window - busy / 1e3) / iters,
-                enqueue_ms=enqueue_ms)
+                enqueue_ms=statistics.median(enqueue))
 
 
-def check_sharded_attention(torch, timer, report):
+def bert_attention_split(torch, dt, B, L):
+    """:func:`op_split` of one BERT layer's flash attention, forward and
+    backward through autograd as the training step runs it: q, k and v
+    permuted out of the (B, L, 3, H, D) projection, dropout 0.1, the
+    training batch's valid lengths, the output's gradient taken through
+    its transpose back to (B, L, H, D).  Logs the host's enqueue time,
+    the aten ops and the kernel spans of one call."""
+    from mxnet_tpu_torch.ops import attention as att
+    H, D = BERT["num_heads"], 64
+    g = torch.Generator(device=DEV).manual_seed(17)
+    proj = torch.randn(B, L, 3 * H * D, device=DEV, generator=g).to(
+        dt).requires_grad_()
+    dout = torch.randn(B, L, H, D, device=DEV, generator=g).to(dt)
+    valid = pretrain_batch(torch, 0, B, L, DEV)["valid"]
+
+    def step():
+        q, k, v = proj.reshape(B, L, 3, H, D).permute(2, 0, 3, 1, 4)
+        out = att.flash_attention(q, k, v, dropout=0.1, kv_length=valid,
+                                  generator=g)
+        return torch.autograd.grad(out.transpose(1, 2), proj, dout)
+    split = op_split(torch, step)
+    log("profile BERT attention %s (B %d, H %d, L %d, D %d), forward and "
+        "backward per call: host enqueue %.4f ms, %.0f aten ops, %.0f kernel "
+        "spans (%s), device busy %.4f ms"
+        % (str(dt)[6:], B, H, L, D, split["enqueue_ms"], split["aten_ops"],
+           split["spans"], ", ".join("%s %g in %.4f ms" % (k, n, ms)
+                                     for k, (n, ms) in split["kinds"].items()),
+           split["window_ms"] - split["idle_ms"]))
+    return split
+
+
+def check_sharded_attention(torch, timer, report, profile=False):
     """The #16 route: ``flash_attention_sharded`` on a (dp 2, tp 2) mesh at
     the training shape (B 32, H 12, L 128, D 64), causal, fp32 and bf16:
     its output and gradients equal, bit for bit, the per-shard composition
@@ -1581,7 +1632,7 @@ def check_sharded_attention(torch, timer, report):
     against the unsharded kernel #5; dp * tp launches of #5 per call, and
     of #6 and #7 per backward; its gradient against the unsharded
     kernels' at dropout 0.  Forward and backward timed beside the plain
-    version, SDPA (is_causal) and the bound; under ``PROFILE`` the
+    version, SDPA (is_causal) and the bound; with ``profile`` the
     backward's ops and kernel spans (:func:`op_split`)."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import attention as att
@@ -1658,17 +1709,24 @@ def check_sharded_attention(torch, timer, report):
                                                     retain_graph=True),
                         spin=4_000_000)
         pairs = B * H * L * (L + 1) // 2          # causal (row, key) pairs
-        # #6 reads q, k, v, dO, lse, delta and writes dq; #7 reads the same
-        # and writes dk, dv; S, dP, dQ in #6 and S, dP, dV, dK in #7
-        bwd_bms, bwd_by = bound(11 * B * H * L * D * q.element_size()
-                                + 4 * B * H * L * 4, 14 * pairs * D,
-                                TF32X3_FLOPS if dt == torch.float32
-                                else BF16_FLOPS)
+        peak = TF32X3_FLOPS if dt == torch.float32 else BF16_FLOPS
+        elt = q.element_size()
+        # the function's least work: read q, k, v, dO, out and lse once,
+        # write dq, dk and dv once; the products S, dP, dV, dK, dQ
+        bwd_bms, bwd_by = bound(8 * B * H * L * D * elt + B * H * L * 4,
+                                10 * pairs * D, peak)
+        # this design's own: #6 reads q, k, v, dO, lse, delta and writes dq;
+        # #7 reads the same and writes dk, dv, computing S and dP again
+        design_bms, _ = bound(11 * B * H * L * D * elt + 4 * B * H * L * 4,
+                              14 * pairs * D, peak)
         log("flash_attention_sharded %s backward (%d launches of #6 and %d "
             "of #7 on the shards): %.4f ms, bound %.4f ms (%s); SDPA "
             "is_causal backward on the whole tensors %.4f ms"
             % ((str(dt)[6:],) + n_bwd + (bwd_ms, bwd_bms, bwd_by, lib_bwd)))
-        if PROFILE:
+        log("flash_attention_sharded %s backward, the two-kernel design's "
+            "own floor (#6 and #7 each read q, k, v, dO, lse and delta; #7 "
+            "computes S and dP again): %.4f ms" % (str(dt)[6:], design_bms))
+        if profile:
             split = op_split(torch, route_bwd)
             log("profile flash_attention_sharded %s backward, per call: %.0f "
                 "aten ops, %.0f kernel spans (%s), device busy %.4f of a "
@@ -1699,6 +1757,7 @@ def check_sharded_attention(torch, timer, report):
                                  bound_by=by, library_ms=lib,
                                  max_abs_err=max(errs.values()),
                                  bwd_ms=bwd_ms, bwd_bound_ms=bwd_bms,
+                                 bwd_design_floor_ms=design_bms,
                                  library_bwd_ms=lib_bwd)
     report["flash_attention_sharded_causal"] = dict(
         name="flash_attention_sharded_causal", route="cuda",
@@ -2525,12 +2584,11 @@ def main():
                     help="also profile 16 requests through each decode step "
                     "(fused and per-op at tp 1, fused at tp 2) and 3 "
                     "steps of each training phase (the flash kernels' "
-                    "share of the BERT ones), and the #16 route's backward "
-                    "(its ops and kernel spans by kind)")
+                    "share of the BERT ones), the #16 route's backward "
+                    "(its ops and kernel spans by kind) and a BERT layer's "
+                    "attention (the host's enqueue, ops and spans)")
     args = ap.parse_args()
     t_start = time.perf_counter()
-    global PROFILE
-    PROFILE = args.profile
 
     import torch
     if not torch.cuda.is_available():
@@ -2577,7 +2635,12 @@ def main():
     check_flash_attention(torch, timer, report)
     check_lstm(torch, timer, report)
     check_tp_phases(torch, timer, report, lm, lm_gqa)
-    check_sharded_attention(torch, timer, report)
+    check_sharded_attention(torch, timer, report, profile=args.profile)
+    if args.profile:
+        for dt, B, L in ((torch.float32, TRAIN_B, TRAIN_L),
+                         (torch.bfloat16, TRAIN_B, TRAIN_L),
+                         (torch.bfloat16, LONG_B, LONG_L)):
+            bert_attention_split(torch, dt, B, L)
     del timer
     log("kernel checks done at %.1f s" % (time.perf_counter() - t_start))
     if args.kernels_only:

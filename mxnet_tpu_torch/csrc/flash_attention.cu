@@ -555,9 +555,8 @@ __device__ __forceinline__ void rs_product(float (&acc)[D / 2],
 }
 
 // the kernels' tensor maps, in boxes of 64 rows: the inputs, and the
-// outputs (#5: out; #6: dq in out; #7: dk in out, dv in out2).  The
-// backward's are 3-D over (D, L, BH); the forward's 4-D over (D, L, H, B)
-// at the caller's strides.
+// outputs (#5: out; #6: dq in out; #7: dk in out, dv in out2), each 4-D
+// over (D, L, H, B) at its tensor's own strides.
 struct Maps {
   CUtensorMap q, k, v, dout, out, out2;
 };

@@ -140,32 +140,8 @@ __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
                    reinterpret_cast<uint64_t>(map))
                : "memory");
 }
-// a box of `map` at coordinates (c0, c1, c2) into shared `dst`; completes
-// on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-// shared `src` into the box of `map` at (c0, c1, c2) (rows past the end
-// are not written); then commit, and wait until the reads of shared
-// memory are done so it may be written again
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
-                                             uint32_t src, int c0, int c1,
-                                             int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-// the same over a 4-D map, at (c0, c1, c2, c3)
+// a box of the 4-D `map` at coordinates (c0, c1, c2, c3) into shared
+// `dst`; completes on `bar`
 __device__ __forceinline__ void tma_load_4d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
@@ -177,6 +153,9 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "r"(c2), "r"(c3)
       : "memory");
 }
+// shared `src` into the box of the 4-D `map` at (c0, c1, c2, c3) (rows
+// past the end are not written); tma_store_commit_wait_read then commits
+// and waits until the reads of shared memory are done
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              uint32_t src, int c0, int c1,
                                              int c2, int c3) {

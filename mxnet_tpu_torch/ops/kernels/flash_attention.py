@@ -202,15 +202,35 @@ def _card(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _strides(t):
-    """``t``'s strides in elements, a dim of size 1 given the stride a
-    contiguous tensor would have there (it is never stepped along, and
-    ``contiguous()`` leaves whatever stride it had)."""
-    out, run = [], 1
-    for n, s in zip(reversed(t.shape), reversed(t.stride())):
+@functools.lru_cache(maxsize=256)
+def _layout(shape, stride):
+    """(strides, contiguous) of a view of ``shape`` and ``stride``: its
+    strides in elements, a dim of size 1 given the stride a contiguous
+    tensor would have there (it is never stepped along, and
+    ``contiguous()`` leaves whatever stride it had), and whether they are
+    a contiguous tensor's.  Cached: a caller hands the same few layouts
+    every step."""
+    out, run, contiguous = [], 1, True
+    for n, s in zip(reversed(shape), reversed(stride)):
+        contiguous = contiguous and (n == 1 or s == run)
         out.append(s if n > 1 else run)
         run *= n
-    return out[::-1]
+    return tuple(out[::-1]), contiguous
+
+
+def _strides(t):
+    """``t``'s strides in elements, as :func:`_layout` gives them."""
+    return _layout(t.shape, t.stride())[0]
+
+
+@functools.lru_cache(maxsize=256)
+def _layout_ok(shape, stride, elt):
+    """:func:`_strided_ok` but for the base's alignment."""
+    st, contiguous = _layout(shape, stride)
+    if contiguous:              # every stride a multiple of D's row
+        return shape[-1] * elt % 16 == 0
+    return st[-1] == 1 and all(0 < s * elt < 2 ** 40 and s * elt % 16 == 0
+                               for s in st[:-1])
 
 
 def _strided_ok(t):
@@ -219,14 +239,8 @@ def _strided_ok(t):
     map (a 16-byte aligned base, every other stride a positive multiple of
     16 bytes below 2**40), which the float32 kernel's 16-byte vector loads
     and stores need as well.  Any other view is copied first."""
-    elt = t.element_size()
-    if t.data_ptr() % 16:
-        return False
-    if t.is_contiguous():       # every stride a multiple of D's row
-        return t.shape[-1] * elt % 16 == 0
-    st = _strides(t)
-    return st[-1] == 1 and all(0 < s * elt < 2 ** 40 and s * elt % 16 == 0
-                               for s in st[:-1])
+    return t.data_ptr() % 16 == 0 and _layout_ok(t.shape, t.stride(),
+                                                 t.element_size())
 
 
 def _as_read(t):
@@ -246,11 +260,21 @@ def _stride_args(views, stats):
     contiguous, else the B, H and L strides of each (B, H, L, D) view of
     ``views`` and the B and H strides of each (B, H, L) tensor of
     ``stats``."""
-    if all(t.is_contiguous() for t in views + stats):
+    return _stride_array(tuple((t.shape, t.stride()) for t in views),
+                         tuple((t.shape, t.stride()) for t in stats))
+
+
+@functools.lru_cache(maxsize=256)
+def _stride_array(views, stats):
+    """:func:`_stride_args` of the views' and stats' (shape, stride), one
+    ctypes array per layout (the entry points only read it)."""
+    views = [_layout(*v) for v in views]
+    stats = [_layout(*t) for t in stats]
+    if all(contiguous for _, contiguous in views + stats):
         return None
-    st = ([s for t in views for s in _strides(t)[:3]]
-          + [s for t in stats for s in _strides(t)[:2]])
-    return (ctypes.c_longlong * len(st))(*st)
+    flat = ([s for own, _ in views for s in own[:3]]
+            + [s for own, _ in stats for s in own[:2]])
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def _target(q, t):

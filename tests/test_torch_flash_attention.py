@@ -29,9 +29,10 @@ versions).
   place) admits exactly what TMA's rules for a tensor map admit;
 - the backward likewise: on a permuted qkv with a transposed dO and on
   head slices, lse and delta as slices, with and without dropout and
-  kv_length, exactly the call on contiguous copies; ``dq=``, ``dk=`` and
-  ``dv=`` write only their slices; and the gradients of the op on a
-  permuted qkv against the JAX kernel's.
+  kv_length, the JAX kernel's gradients and the bits of the call on
+  contiguous copies; ``dq=``, ``dk=`` and ``dv=`` write only their
+  slices; and the gradients of the op on a permuted qkv against the JAX
+  kernel's.
 """
 from __future__ import annotations
 
@@ -467,39 +468,72 @@ def _bwd_inputs(views, kw):
     return list(views) + stats
 
 
+_JAX_BWD = {}
+
+
+def _jax_bwd_want(dtype, rate, q, k, v, g, L):
+    """The JAX kernel's gradients (interpret mode) for the cases of
+    ``test_backward_strided_views_equal_contiguous_call``, once per dtype
+    and rate."""
+    if (dtype, rate) not in _JAX_BWD:
+        jkw = dict(causal=True)
+        if rate:
+            jkw = dict(dropout=rate, seed=jnp.uint32(9), kv_length=[L, 13])
+        _JAX_BWD[dtype, rate] = jax_grads(q, k, v, g, 64, _DT[dtype][0],
+                                          **jkw)
+    return _JAX_BWD[dtype, rate]
+
+
 @pytest.mark.parametrize("layout", ["permuted", "head slices"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_backward_strided_views_equal_contiguous_call(layout, dtype, rate):
     """``flash_attention_bwd_dq`` and ``_dkv`` on BERT's permuted (B, L, 3,
     H, D) projection with dO as the transposed gradient of the output, or
-    on head slices, with lse and delta as slices, give exactly what they
-    give on contiguous copies, with and without dropout and kv_length."""
+    on head slices of NaN-padded buffers, with lse and delta as slices:
+    causal, and kv_length (a row of 13) with dropout.  The gradients they
+    give are the JAX kernel's (``jax.grad`` in interpret mode on the same
+    numpy q, k, v and dO), within ``test_gradients_match_jax``'s
+    tolerances, and the same bits as the call on contiguous copies.  (On
+    the CPU the wrappers read contiguous copies; that the kernels read the
+    views in place to the same bits is ``chip_smoke.check_flash_strided``'s
+    check on the card.)"""
     tdt = _DT[dtype][1]
-    B, H, L, D = 2, 4, 40, 8
-    rng = np.random.default_rng(7)
+    B, H, L, D = 2, 2, 64, 16
+    q, k, v, g = inputs((B, H, L, D), seed=7, n=4)
     if layout == "permuted":
-        q, k, v = torch.tensor(rng.standard_normal((B, L, 3, H, D))).to(
-            tdt).permute(2, 0, 3, 1, 4)
-        do = torch.tensor(rng.standard_normal((B, L, H, D))).to(
-            tdt).transpose(1, 2)
-        views = (q, k, v, do)
+        # (B, L, 3, H, D) and (B, L, H, D) in row-major order, as BERT's
+        # projection and output gradient lie
+        qkv = np.ascontiguousarray(
+            np.stack([np.transpose(a, (0, 2, 1, 3)) for a in (q, k, v)], 2))
+        views = list(torch.tensor(qkv).to(tdt).permute(2, 0, 3, 1, 4))
+        views.append(torch.tensor(np.ascontiguousarray(
+            np.transpose(g, (0, 2, 1, 3)))).to(tdt).transpose(1, 2))
     else:
-        wide = torch.tensor(rng.standard_normal((4, B, H + 2, L, D))).to(tdt)
-        views = tuple(wide[:, :, 1:-1])
+        wide = np.full((4, B, H + 2, L, D), np.nan, np.float32)
+        wide[:, :, 1:-1] = (q, k, v, g)
+        views = list(torch.tensor(wide).to(tdt)[:, :, 1:-1])
     kw = dict(causal=True)
     if rate:
         kw = dict(dropout=rate, seed=torch.tensor([9]),
                   kv_length=torch.tensor([L, 13]))
     ins = _bwd_inputs(views, kw)
     assert not any(t.is_contiguous() for t in ins)
-    flat = [t.contiguous() for t in ins]
     got = (tfa.flash_attention_bwd_dq(*ins, **kw),
            *tfa.flash_attention_bwd_dkv(*ins, **kw))
-    want = (tfa.flash_attention_bwd_dq(*flat, **kw),
+    assert all(a.dtype == tdt for a in got)
+    want = _jax_bwd_want(dtype, rate, q, k, v, g, L)
+    got_np = [a.float().numpy() for a in got]
+    if dtype == "float32":
+        close_grads(got_np, want)
+    else:
+        for a, b in zip(got_np, want):
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=2.0 ** -8 * np.abs(b).max())
+    flat = [t.contiguous() for t in ins]
+    same = (tfa.flash_attention_bwd_dq(*flat, **kw),
             *tfa.flash_attention_bwd_dkv(*flat, **kw))
-    for a, b in zip(got, want):
-        assert a.dtype == tdt and torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(got, same))
 
 
 def test_backward_output_views():
