@@ -15,7 +15,8 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   bound, and the ops and kernel spans of one call;
 - ``kernels``: ``chip_smoke.flash_timing`` for fp32 and bf16 at the
   training shape and bf16 at B 4, L 2048: #5-#7 on contiguous inputs,
-  their fixed part, and #5-#7 on BERT's permuted projection;
+  their fixed part, at dropout 0 beside SDPA given the same key mask,
+  and on BERT's permuted projection;
 - ``host``: ``chip_smoke.bert_attention_split``, one BERT layer's
   attention forward and backward through autograd (fp32 and bf16 at
   B 32, L 128, bf16 at B 4, L 2048): the host's enqueue time, the aten

@@ -22,9 +22,9 @@ plain version):
    forward (rates 0, 0.1, 0.5) and backward (0.1, 0.5) at (4096, 768) and
    (4095, 766), the mask held exactly.  Flash attention (#5 forward, #6
    dq, #7 dk/dv) against ``flash_attention_plain``, its backward and
-   autograd through it: float32 and bfloat16 at D 32, 64 and 128 (the
-   bf16 kernels and the fp32 backward run on wgmma and TMA, the fp32
-   backward in 3xTF32 within the tighter TOL_FLASH_BWD_F32), (B, H, L) of
+   autograd through it: float32 and bfloat16 at D 32, 64 and 128 (all
+   six run on wgmma and TMA, the fp32 ones in 3xTF32 with out, dq, dk and
+   dv within the tighter TOL_FLASH_3XTF32), (B, H, L) of
    (32, 12, 128), (4, 12, 2048) and a ragged (2, 6, 200), with no mask,
    causal, a window of 32 and kv_length with a row of length 0, at
    dropout 0 and 0.1 (144 cases); the dropout mask read off the output
@@ -34,8 +34,10 @@ plain version):
    and 128) and into output views, bit for bit their results on
    contiguous copies; the three kernels timed at the training shape in
    fp32 and bf16 and at the long-context shape (B 4, L 2048) in bf16,
-   beside their plain versions and SDPA, on BERT's layout, and the
-   backward's fixed part (every kv_length 0) in both types.  The LSTM time loop
+   beside their plain versions and SDPA, on BERT's layout, the
+   kernels' fixed part (every kv_length 0) in both types, and at
+   dropout 0 beside SDPA given the same key mask (the same function).
+   The LSTM time loop
    (#10 forward, #11 backward) against its plain versions and #11 (through
    the autograd Function) against autograd through the plain forward:
    float32 and bfloat16, (T, B, H) of (35, 32, 650), (7, 5, 37) and (35,
@@ -622,10 +624,11 @@ def check_bias_dropout_residual(torch, timer, report):
                     bound_by=by, library_ms=None)
 
 
-# flash attention #5-#7 against flash_attention_plain on the card.  fp32:
-# the kernel's online softmax and its fp32 sums run in another order than
-# the plain version's two-pass softmax and cuBLAS products, over up to
-# 2048 keys: ~1e-6 of the largest element; these allow 100x that.  bf16:
+# flash attention #5-#7 against flash_attention_plain on the card.  fp32
+# lse and gradients against autograd through the plain forward: the
+# kernel's online softmax and its fp32 sums run in another order than the
+# plain version's two-pass softmax and cuBLAS products, over up to 2048
+# keys: ~1e-6 of the largest element; these allow 100x that.  bf16:
 # the kernels round P (forward) and dS (backward) to bf16 where the plain
 # version does, but an exp a few ulps apart can round to the neighbouring
 # bf16 value, and the outputs are rounded to bf16 at the end: two bf16
@@ -635,13 +638,14 @@ def check_bias_dropout_residual(torch, timer, report):
 # dS = P (dP - delta) cancels where dP is close to delta, so that rounding
 # (2**-9 of O) reaches a few percent of dS's largest element; 2**-5.
 TOL_FLASH_F32 = 1e-4
-# The fp32 backward (#6, #7) against its plain version: 3xTF32 products
-# keep about 2^-20 of each product (a single TF32 product 2^-11), summed
-# over up to 2048 keys: a few 1e-6 of the largest element at most, where
-# a kernel with single TF32 products reads ~1e-3 and fails.
-# tests/test_torch_flash_attention.py (test_tf32x3_tolerance) holds the
+# The fp32 kernels' results (#5's out, #6's dq, #7's dk and dv) against
+# their plain versions: 3xTF32 products keep about 2^-20 of each product
+# (a single TF32 product 2^-11), summed over up to 2048 keys: a few 1e-6
+# of the largest element at most, where a kernel with single TF32
+# products reads ~1e-3 and fails.  tests/test_torch_flash_attention_views.py
+# (test_tf32x3_tolerance, test_tf32x3_forward_tolerance) holds the
 # emulated products of both against this bound.
-TOL_FLASH_BWD_F32 = 1e-5
+TOL_FLASH_3XTF32 = 1e-5
 TOL_FLASH_BF16 = 2.0 ** -7
 TOL_FLASH_GRAD_BF16 = 2.0 ** -5
 BF16_FLOPS = 989e12
@@ -705,9 +709,9 @@ def flash_case(torch, fa, g, B, H, L, D, dt, mask, rate):
     f32 = dt == torch.float32
     tol = TOL_FLASH_F32 if f32 else TOL_FLASH_BF16
     tol_ag = TOL_FLASH_F32 if f32 else TOL_FLASH_GRAD_BF16
-    tols = dict(out=tol, lse=tol, autograd=tol_ag,
-                **{n: TOL_FLASH_BWD_F32 if f32 else tol
-                   for n in ("dq", "dk", "dv")})
+    tols = dict(lse=tol, autograd=tol_ag,
+                **{n: TOL_FLASH_3XTF32 if f32 else tol
+                   for n in ("out", "dq", "dk", "dv")})
     bad = [n for n, e in errs.items() if not e <= tols[n]]
     if bad:
         raise AssertionError(
@@ -751,9 +755,11 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
     """#5-#7 at the training shape (B 32, H 12, L 128, D 64; or at ``B``,
     ``L``, as the long-context phase's B 4, L 2048), with the training
     batch's valid lengths at that shape and dropout 0.1, beside the plain
-    versions and SDPA (dense, dropout 0: it takes no hash mask), and on
-    BERT's layout of q, k, v and dO.  The training shape's fp32 rows go
-    into ``report``."""
+    versions and SDPA (dense, dropout 0: it takes no hash mask); at
+    dropout 0 beside SDPA given the same key mask, which computes the same
+    function; and on BERT's layout of q, k, v and dO.  The training
+    shape's fp32 rows go into ``report``, their ``library_ms`` SDPA's
+    time on the same function."""
     import torch.nn.functional as F
     train_shape = B is None
     B = TRAIN_B if train_shape else B
@@ -814,10 +820,14 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
                             "backward (dq, dk and dv in one call)", lib))
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                           bound_by=by, library_ms=lib, max_abs_err=err)
-    # the backward kernels' fixed part: every kv_length 0, so no tile is
-    # visited, but each launch still loads its own side and writes zeros
+    # the kernels' fixed part: every kv_length 0, so no tile is visited,
+    # but each launch still loads its own side and writes zeros
     z = torch.zeros_like(kvl)
-    fixed = {"flash_attention_bwd_dq": timer(
+    fixed = {"flash_attention_fwd": timer(
+                 lambda: fa.flash_attention_fwd(q, k, v, dropout=0.1,
+                                                seed=seed, kv_length=z),
+                 spin=FLASH_SPIN),
+             "flash_attention_bwd_dq": timer(
                  lambda: fa.flash_attention_bwd_dq(*bwd, dropout=0.1,
                                                    seed=seed, kv_length=z),
                  spin=FLASH_SPIN),
@@ -825,20 +835,13 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
                  lambda: fa.flash_attention_bwd_dkv(*bwd, dropout=0.1,
                                                     seed=seed, kv_length=z),
                  spin=FLASH_SPIN)}
-    log("%s backward with every kv_length 0 (B %d, H %d, L %d, D %d), the "
-        "launches' fixed part: dq %.4f ms, dkv %.4f ms"
-        % (str(dt)[6:], B, H, L, D, fixed["flash_attention_bwd_dq"],
-           fixed["flash_attention_bwd_dkv"]))
+    log("%s #5, #6, #7 with every kv_length 0 (B %d, H %d, L %d, D %d), "
+        "the launches' fixed part: fwd %.4f ms, dq %.4f ms, dkv %.4f ms"
+        % (str(dt)[6:], B, H, L, D, fixed["flash_attention_fwd"],
+           fixed["flash_attention_bwd_dq"], fixed["flash_attention_bwd_dkv"]))
     for name, ms in fixed.items():
         rows[name]["fixed_ms"] = ms
-    if dt == torch.bfloat16:
-        # the forward's hash share: the same call at dropout 0
-        rate0 = timer(lambda: fa.flash_attention_fwd(q, k, v, kv_length=kvl),
-                      spin=FLASH_SPIN)
-        log("bf16 forward at dropout 0 (B %d, H %d, L %d, D %d): %.4f ms, "
-            "at 0.1 %.4f ms" % (B, H, L, D, rate0,
-                                rows["flash_attention_fwd"]["ms"]))
-        rows["flash_attention_fwd"]["rate0_ms"] = rate0
+    same_function(torch, fa, timer, rows, q, k, v, do, kvl, leaves)
     # #5-#7 on BERT's layout, read where it lies: q, k, v permuted out of
     # the (B, L, 3, H, D) projection, dO the transposed gradient of the
     # (B, L, H, D) output, holding q, k, v and dO's values, so each result
@@ -886,6 +889,56 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
     return rows
 
 
+def same_function(torch, fa, timer, rows, q, k, v, do, kvl, leaves):
+    """#5, #6 and #7 at dropout 0 with the batch's kv_length, beside SDPA
+    given that key mask as a boolean (B, 1, 1, L) ``attn_mask``, forward
+    and backward (autograd: dq, dk and dv in one call): one PyTorch call
+    computing the same function.  Prints the kernels that are slower than
+    it and by what factor; each row of ``rows`` gains ``rate0_ms``, and
+    ``library_ms`` becomes SDPA's time on the same function (the dense
+    time it held stays as ``dense_library_ms``)."""
+    import torch.nn.functional as F
+    B, H, L, D = q.shape
+    kw = dict(kv_length=kvl)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    bwd = (q, k, v, do, lse, (do.float() * out.float()).sum(-1))
+    mask = (torch.arange(L, device=DEV) < kvl[:, None])[:, None, None]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    err = rel_err(lib_out.detach(), out)
+    kernels = {"flash_attention_fwd": lambda: fa.flash_attention_fwd(
+                   q, k, v, **kw),
+               "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+                   *bwd, **kw),
+               "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+                   *bwd, **kw)}
+    ms = {n: timer(fn, spin=FLASH_SPIN) for n, fn in kernels.items()}
+    lib_fwd = timer(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           attn_mask=mask))
+    lib_bwd = timer(lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                retain_graph=True),
+                    spin=4_000_000)
+    for name in FLASH_KERNELS:
+        row = rows[name]
+        row["dense_library_ms"] = row["library_ms"]
+        row["rate0_ms"] = ms[name]
+        row["library_ms"] = lib_fwd if name.endswith("fwd") else lib_bwd
+    bwd_ms = ms["flash_attention_bwd_dq"] + ms["flash_attention_bwd_dkv"]
+    pairs = (("#5", ms["flash_attention_fwd"], lib_fwd),
+             ("#6 + #7", bwd_ms, lib_bwd))
+    slower = ["%s %.2fx" % (n, t / lib) for n, t, lib in pairs if t > lib]
+    log("%s same function (B %d, H %d, L %d, D %d, kv_length, dropout 0; "
+        "SDPA given the key mask as a (B, 1, 1, L) boolean attn_mask, its "
+        "out within %.3g of #5's): #5 %.4f ms (at rate 0.1 %.4f), SDPA "
+        "forward %.4f ms; #6 %.4f + #7 %.4f = %.4f ms (at rate 0.1 %.4f), "
+        "SDPA backward %.4f ms; slower than SDPA: %s"
+        % (str(q.dtype)[6:], B, H, L, D, err, ms["flash_attention_fwd"],
+           rows["flash_attention_fwd"]["ms"], lib_fwd,
+           ms["flash_attention_bwd_dq"], ms["flash_attention_bwd_dkv"],
+           bwd_ms, rows["flash_attention_bwd_dq"]["ms"]
+           + rows["flash_attention_bwd_dkv"]["ms"], lib_bwd,
+           ", ".join(slower) or "none"))
+
+
 #: SASS opcodes of global or shared-memory atomics and reductions
 ATOMIC_OPS = ("ATOM", "ATOMG", "ATOMS", "RED", "REDG")
 
@@ -919,8 +972,9 @@ def sass_census(path, marker, full=False):
 def check_flash_sass(libs):
     """The bf16 flash kernels (#5 forward, #6 and #7 backward) issue wgmma
     (HGMMA), load by TMA (UTMALDG), store by TMA (UTMASTG) and hold no
-    atomic; the fp32 backward kernels (#6, #7) issue tf32 products on
-    wgmma and mma.sync, load by TMA and hold no atomic."""
+    atomic; the fp32 kernels (#5, #6, #7) issue tf32 products on wgmma
+    and mma.sync, load and store by TMA and hold no atomic; no kernel of
+    the CUDA-core fp32 forward is left."""
     census = sass_census(libs["flash_attention"], "_sm90")
     bad = []
     for fn, ops in sorted(census.items()):
@@ -935,9 +989,9 @@ def check_flash_sass(libs):
         raise AssertionError("flash bf16 SASS: %d kernels (%d forward), "
                              "without wgmma/TMA or with atomics: %s"
                              % (len(census), forward, bad))
-    # the fp32 backward (#6, #7): tf32 products on the tensor cores, wgmma
-    # (HGMMA ... TF32) and mma.sync (HMMA ... TF32), read from the whole
-    # opcode; TMA loads; no atomic
+    # the fp32 kernels (#5, #6, #7): tf32 products on the tensor cores,
+    # wgmma (HGMMA ... TF32) and mma.sync (HMMA ... TF32), read from the
+    # whole opcode; TMA loads and stores; no atomic
     census = sass_census(libs["flash_attention"], "_tf32", full=True)
     bad = []
     for fn, ops in sorted(census.items()):
@@ -945,19 +999,27 @@ def check_flash_sass(libs):
         tc = {kind: sum(n for op, n in ops.items()
                         if parts[op][0] == kind and "TF32" in parts[op])
               for kind in ("HGMMA", "HMMA")}
-        loads = sum(n for op, n in ops.items() if parts[op][0] == "UTMALDG")
+        tma = {kind: sum(n for op, n in ops.items() if parts[op][0] == kind)
+               for kind in ("UTMALDG", "UTMASTG")}
         atomics = sum(n for op, n in ops.items()
                       if parts[op][0] in ATOMIC_OPS)
-        log("SASS %s: tf32 %s, UTMALDG %d, atomics %d"
-            % (fn[-60:], tc, loads, atomics))
-        if not (tc["HGMMA"] and tc["HMMA"] and loads) or atomics:
+        log("SASS %s: tf32 %s, %s, atomics %d"
+            % (fn[-60:], tc, tma, atomics))
+        if not (all(tc.values()) and all(tma.values())) or atomics:
             bad.append(fn)
+    forward = sum("flash_fwd_tf32" in fn for fn in census)
     dkv = sum("flash_bwd_dkv_tf32" in fn for fn in census)
-    # 2 kernels (#6, #7) x 3 head dims x dropout on or off
-    if len(census) != 12 or dkv != 6 or bad:
-        raise AssertionError("flash fp32 SASS: %d kernels (%d dk/dv), "
-                             "without tf32 tensor-core products or TMA, or "
-                             "with atomics: %s" % (len(census), dkv, bad))
+    # 3 kernels (#5, #6, #7) x 3 head dims x dropout on or off
+    if len(census) != 18 or forward != 6 or dkv != 6 or bad:
+        raise AssertionError("flash fp32 SASS: %d kernels (%d forward, %d "
+                             "dk/dv), without tf32 tensor-core products or "
+                             "TMA, or with atomics: %s"
+                             % (len(census), forward, dkv, bad))
+    # the CUDA-core fp32 forward is gone
+    left = sass_census(libs["flash_attention"], "flash_fwd_kernel")
+    if left:
+        raise AssertionError("flash fp32 SASS: CUDA-core forward kernels "
+                             "left: %s" % sorted(left))
 
 
 def check_flash_strided(torch, fa):
@@ -1113,7 +1175,7 @@ def check_flash_attention(torch, timer, report):
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     g = torch.Generator(device=DEV).manual_seed(11)
     worst = {}
-    n = 0
+    n = n32 = 0
     for dt in (torch.float32, torch.bfloat16):
         for B, H, L in FLASH_SHAPES:
             for D in FLASH_DIMS[str(dt)[6:]]:
@@ -1122,16 +1184,20 @@ def check_flash_attention(torch, timer, report):
                         errs = flash_case(torch, fa, g, B, H, L, D, dt, mask,
                                           rate)
                         n += 1
+                        n32 += dt == torch.float32
                         key = str(dt)[6:]
                         for name, e in errs.items():
                             w = worst.setdefault(key, {})
                             w[name] = max(w.get(name, 0.0), e)
         torch.cuda.empty_cache()
     log("flash attention: %d cases pass; worst error / largest element %s "
-        "(tol fp32 %g, fp32 dq/dk/dv %g, bf16 %g, bf16 vs autograd %g)"
-        % (n, json.dumps(worst), TOL_FLASH_F32, TOL_FLASH_BWD_F32,
+        "(tol fp32 %g, fp32 out/dq/dk/dv %g, bf16 %g, bf16 vs autograd %g)"
+        % (n, json.dumps(worst), TOL_FLASH_F32, TOL_FLASH_3XTF32,
            TOL_FLASH_BF16, TOL_FLASH_GRAD_BF16))
-    # a negative scale: the bf16 kernel takes its running max over -S
+    log("flash_attention_fwd float32 (3xTF32): worst out error / largest "
+        "element %.3g over %d cases (tol %g)"
+        % (worst["float32"]["out"], n32, TOL_FLASH_3XTF32))
+    # a negative scale: the kernels take their running max over -S
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(2, 6, 200, 64, device=DEV, generator=g).to(dt)
                    for _ in range(3))

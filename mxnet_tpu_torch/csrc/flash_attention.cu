@@ -24,32 +24,23 @@
 // -1e30 sentinel alone would give such a row exp(0) = 1 on every masked
 // key of a visited tile, so its output would depend on the tiling.
 //
-// Three designs.  The float32 forward (#5) runs on the CUDA cores: a
-// block of 256 threads owns one 64-row tile of one (batch, head) and loops
-// over the 64-wide k tiles, skipping tiles the mask rules out
-// (_block_needed, :69) and the per-element mask on interior tiles
-// (_block_boundary, :86).  The tiles sit in shared memory, rows padded by
-// 4 floats so the 16-byte loads below hit distinct banks.  Thread (ty,
-// tx) = (tid / 16, tid % 16) owns score rows 4 ty .. 4 ty + 3 and columns
-// tx + 16 c (c < 4) of a 64 x 64 tile; the row reductions of the online
-// softmax are shuffles across the 16 lanes of a row group.
-//
-// The float32 backward (#6 dq, #7 dk and dv) runs on the tensor cores in
-// 3xTF32, on the bf16 kernels' skeleton below (TMA rings, one producer
+// Two designs, one per dtype, on one skeleton (TMA rings, one producer
 // warpgroup, the element pass on the accumulators, a persistent grid at
-// L <= 256).  Each fp32 operand x is split into hi = tf32(x) and lo =
-// tf32(x - hi); hi hi + hi lo + lo hi is summed in fp32 and lo lo left
-// out, about 2^-20 of each product against a single TF32 product's 2^-11,
-// so the kernels stay fp32-accurate (the port runs fp32 with TF32 off).
-// That is 3 tf32 products for each fp32 one: 495 / 3 = 165 TFLOP/s, above
-// the 67 of fp32 FMAs.  Where the design met trouble:
+// L <= 256): bf16 products on wgmma (below), and the float32 kernels (#5
+// forward, #6 dq, #7 dk and dv) on the tensor cores in 3xTF32.  Each fp32
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi); hi hi + hi
+// lo + lo hi is summed in fp32 and lo lo left out, about 2^-20 of each
+// product against a single TF32 product's 2^-11, so the kernels stay
+// fp32-accurate (the port runs fp32 with TF32 off).  That is 3 tf32
+// products for each fp32 one: 495 / 3 = 165 TFLOP/s, above the 67 of fp32
+// FMAs.  Where the float32 design met trouble:
 // 1. wgmma reads tf32 from shared memory K-major only (no transpose bit).
-//    The first products (S = Q K^T and dP = dO V^T; in #7 S^T = K Q^T and
-//    dP^T = V dO^T) read both tiles K-major as TMA lands them.  The second
-//    (dQ = dS K, dV = (P keep)^T dO, dK = dS^T Q) would read their B tile
-//    MN-major; they run on mma.sync m16n8k8 instead, each lane loading its
-//    B fragment from the row-major tile (mma_product), with no transposed
-//    copy in shared memory.
+//    The first products (S = Q K^T, and #6's dP = dO V^T; in #7 S^T =
+//    K Q^T and dP^T = V dO^T) read both tiles K-major as TMA lands them.
+//    The second (O = (P keep) V, dQ = dS K, dV = (P keep)^T dO, dK = dS^T
+//    Q) would read their B tile MN-major; they run on mma.sync m16n8k8
+//    instead, each lane loading its B fragment from the row-major tile
+//    (mma_product), with no transposed copy in shared memory.
 // 2. The fp32 accumulator is not tf32's A fragment (sm90.cuh): lane t
 //    holds columns 2t, 2t + 1 of each 8-group where the fragment takes t,
 //    t + 4.  mma_product permutes K within each 8-group to match (k t is
@@ -57,19 +48,27 @@
 //    the sum over K does not change.
 // 3. The tensor core reads an fp32 word's top 19 bits.  So the first
 //    products read A and B as TMA lands them, as their hi halves; warps
-//    1-3 of the producer warpgroup write each streamed stage's residual
-//    tiles x - trunc(x) beside it (the B lo of hi lo), and the consumers
-//    load the own side's residuals into registers as A fragments (the A
-//    lo of lo hi; residual_frags).  mma_product splits in registers.
+//    1-3 of the producer warpgroup write the residual tiles x - trunc(x)
+//    of each stage's first-product operands beside them (the B lo of hi
+//    lo: K in #5, K and V in #6, Q and dO in #7), and the consumers load
+//    the own side's residuals into registers as A fragments (the A lo of
+//    lo hi; residual_frags).  mma_product splits both operands in
+//    registers, so #5's V needs no residual tile: a quarter less shared
+//    memory a stage, half the transform warps' work.  Every masked P is 0
+//    before mma_product, so no -1e30 sentinel reaches a product.
 // 4. Shared memory and registers: fp32 tiles are twice bf16's and the
-//    residual tiles double the streamed side, so the streamed tiles hold
-//    32 rows; the own side is double-buffered at D 32 and 64 (113 and 193
-//    KB), single at D 128 with one consumer warpgroup (192 KB).  The
-//    consumers fit the 168 registers a thread ptxas allots at 384 threads
-//    (#7 with dropout spills 8 bytes at D 64).  At D 128 (255 registers;
-//    #7's dK and dV take 128) the lo products go 4 k8 steps a group, so
-//    the residual fragments take 32 registers, not 128; still #6 spills
-//    ~0.2 KB and #7 ~0.7 KB.
+//    residual tiles double the streamed side, so the backward's streamed
+//    tiles hold 32 rows; its own side is double-buffered at D 32 and 64
+//    (113 and 193 KB), single at D 128 with one consumer warpgroup (192
+//    KB).  The consumers fit the 168 registers a thread ptxas allots at
+//    384 threads (#7 with dropout spills 8 bytes at D 64).  At D 128 (255
+//    registers; #7's dK and dV take 128) the lo products go 4 k8 steps a
+//    group, so the residual fragments take 32 registers, not 128; still
+//    #6 spills ~0.2 KB and #7 ~0.7 KB.  The forward holds no dO, dP or
+//    delta: 64 streamed rows a stage at D 32 and 64 (104 and 208 KB), 32
+//    at D 128, where its o (64 fp32) lets two consumer warpgroups fit (224
+//    KB; CfgFwdF).  Its threads fit the 168 registers at every D, with no
+//    spill but 4 bytes at D 64 without dropout.
 // 5. A 128-byte swizzled TMA box row holds 32 fp32: D / 32 boxes side by
 //    side (TileF), and a tf32 descriptor steps 32 bytes a k8.
 // 6. The tensor core's adds into its accumulator do not round to nearest
@@ -78,11 +77,12 @@
 //    go first and the hi ones last, and mma_product sums each tile apart
 //    and adds it with a rounded add: 5.3e-6 at most on the card.
 // Outputs leave through the own tile and a TMA store (16-byte stores from
-// registers were slower for #7 and no faster for #6).  At
-// the training shape (B 32, H 12, L 128, D 64, the batch's kv_length) #6
-// reads and writes 63.3 MB and #7 75.9 MB, 0.0189 and 0.0227 ms at 3.35
-// TB/s, over 1.85 and 2.47 GFLOP, 0.0112 and 0.0149 ms in 3xTF32 at 495
-// TFLOP/s: bytes bound.
+// registers were slower for #7 and no faster for #6); #5's lse by plain
+// stores.  At the training shape (B 32, H 12, L 128, D 64, the batch's
+// kv_length) #5 reads and writes 50.5 MB, #6 63.3 MB and #7 75.9 MB,
+// 0.0151, 0.0189 and 0.0227 ms at 3.35 TB/s, over 1.2, 1.85 and 2.47
+// GFLOP, 0.007, 0.0112 and 0.0149 ms in 3xTF32 at 495 TFLOP/s: bytes
+// bound.
 
 // The bfloat16 kernels (#5 forward, #6 dq, #7 dk and dv) are built for
 // Hopper's tensor cores (sm90.cuh has the building blocks):
@@ -102,7 +102,7 @@
 //   permuted (B, L, 3, H, D) projection or the transposed gradient of its
 //   output is read, and each output (out, dq, dk, dv) written, where it
 //   lies; lse and delta are read at their own strides too.  The float32
-//   backward's maps are the same, in boxes of 32 columns.  One lane of a
+//   kernels' maps are the same, in boxes of 32 columns.  One lane of a
 //   producer warpgroup loads the block's own
 //   side once a work item (double-buffered across items) and rings the
 //   other side through 3 stages (2 in #6 and #7 at D 128) on mbarriers;
@@ -159,131 +159,8 @@
 
 namespace {
 
-constexpr int kTile = 64;      // rows of a q tile and of a k tile
-constexpr int kThreads = 256;  // 16 row groups x 16 lanes
-constexpr int kSP = kTile + 4; // padded row of a score tile in shared memory
+constexpr int kTile = 64;  // rows of a q tile and of a k tile
 constexpr float kMasked = -1e30f;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-// rows [row0, row0 + 64) of an (L, D) matrix whose rows lie `rs` floats
-// apart into shared memory, row stride D + 4; rows at or past L read as 0
-template <int D>
-__device__ __forceinline__ void load_tile(float* sm, const float* g, int row0,
-                                          int L, long long rs) {
-  constexpr int C4 = D / 4, SD = D + 4;
-  for (int idx = threadIdx.x; idx < kTile * C4; idx += kThreads) {
-    const int r = idx / C4, c = (idx - r * C4) * 4;
-    const int gr = row0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gr < L) v = load4(g + gr * rs + c);
-    store4(sm + r * SD + c, v);
-  }
-}
-
-// The output columns a thread owns in a (64, D) accumulator: D / 16 of
-// them, as float4 groups 64 apart (or a float2 at D 32), so a row's 16
-// lanes read 16 consecutive 16-byte words.
-template <int D>
-struct Cols {
-  static constexpr int N = D / 16;
-  __device__ static __forceinline__ int col(int tx, int e) {
-    if (D == 32) return tx * 2 + e;
-    return (e / 4) * 64 + tx * 4 + (e % 4);
-  }
-  __device__ static __forceinline__ void load(const float* row, int tx,
-                                              float (&o)[N]) {
-    if constexpr (D == 32) {
-      const float2 t = *reinterpret_cast<const float2*>(row + tx * 2);
-      o[0] = t.x;
-      o[1] = t.y;
-    } else {
-#pragma unroll
-      for (int g = 0; g < N / 4; ++g) {
-        const float4 t = load4(row + g * 64 + tx * 4);
-        o[g * 4] = t.x;
-        o[g * 4 + 1] = t.y;
-        o[g * 4 + 2] = t.z;
-        o[g * 4 + 3] = t.w;
-      }
-    }
-  }
-};
-
-// acc[i][:] += sum_j P[4 ty + i][j] * X[j][cols]: P (64, 64) at stride kSP,
-// X (64, D) at stride D + 4
-template <int D>
-__device__ __forceinline__ void acc_pv(float (&acc)[4][D / 16],
-                                       const float* sp, const float* sx,
-                                       int ty, int tx) {
-  constexpr int SD = D + 4, N = D / 16;
-#pragma unroll 2
-  for (int j = 0; j < kTile; j += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = load4(sp + (ty * 4 + i) * kSP + j);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x[N];
-      Cols<D>::load(sx + (j + e) * SD, tx, x);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pe = e == 0 ? p[i].x : e == 1 ? p[i].y
-                       : e == 2 ? p[i].z : p[i].w;
-#pragma unroll
-        for (int n = 0; n < N; ++n) acc[i][n] = fmaf(pe, x[n], acc[i][n]);
-      }
-    }
-  }
-}
-
-// s[i][c] = A[4 ty + i] . B[tx + 16 c] over D: A, B (64, D) at stride D + 4
-template <int D>
-__device__ __forceinline__ void dot_tile(float (&s)[4][4], const float* sa,
-                                         const float* sb, int ty, int tx) {
-  constexpr int SD = D + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = load4(sa + (ty * 4 + i) * SD + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = load4(sb + (tx + 16 * c) * SD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float t = s[i][c];
-        t = fmaf(a[i].x, b[c].x, t);
-        t = fmaf(a[i].y, b[c].y, t);
-        t = fmaf(a[i].z, b[c].z, t);
-        t = fmaf(a[i].w, b[c].w, t);
-        s[i][c] = t;
-      }
-  }
-}
-
-// max / sum across the 16 lanes of a row group
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // The mask of one (batch, head): rows and keys at or past L, keys at or
 // past kvlen, the causal and the band conditions.
@@ -353,13 +230,6 @@ __device__ __forceinline__ Mask mask_of(const Args& a, int bh) {
   return m;
 }
 
-__device__ __forceinline__ float keep_of(const Args& a, uint32_t s, int bh,
-                                         int i, int j) {
-  return mxt_keep_hash(s, (uint32_t)bh, (uint32_t)i, (uint32_t)j) >= a.thr
-             ? a.ks
-             : 0.f;
-}
-
 // the k tiles of RK keys [lo, hi] that rows [q0, q0 + 64) can see
 template <int RK = kTile>
 __device__ __forceinline__ void k_range(const Mask& m, int q0, int& lo,
@@ -388,106 +258,6 @@ __device__ __forceinline__ void q_range(const Mask& m, int k0, int& lo,
     hi = min(hi, (k1 + m.window) / RQ);
   }
   if (k0 >= m.klim) hi = lo - 1;
-}
-
-// ---------------------------------------------------------------------------
-// #5 forward in float32: grid (q tiles, BH), q, k, v and out at their
-// strides
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(Args a) {
-  constexpr int SD = D + 4, N = D / 16;
-  extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);
-  float* sk = sq + kTile * SD;
-  float* sv = sk + kTile * SD;
-  float* sp = sv + kTile * SD;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* kg = static_cast<const float*>(a.k) + a.sk.at(bh, a.H);
-  const float* vg = static_cast<const float*>(a.v) + a.sv.at(bh, a.H);
-  const Mask m = mask_of(a, bh);
-  const uint32_t seed = a.seed ? (uint32_t)a.seed[0] : 0u;
-  load_tile<D>(sq, static_cast<const float*>(a.q) + a.sq.at(bh, a.H), q0,
-               a.L, a.sq.sl);
-
-  float mx[4], l[4], acc[4][N];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mx[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < N; ++n) acc[i][n] = 0.f;
-  }
-  int lo, hi;
-  k_range(m, q0, lo, hi);
-  for (int kt = lo; kt <= hi; ++kt) {
-    const int k0 = kt * kTile;
-    if (!m.needed(q0, k0)) continue;
-    __syncthreads();  // the last tile's reads of sk, sv, sp are done
-    load_tile<D>(sk, kg, k0, a.L, a.sk.sl);
-    load_tile<D>(sv, vg, k0, a.L, a.sv.sl);
-    __syncthreads();
-    float s[4][4];
-    dot_tile<D>(s, sq, sk, ty, tx);
-    const bool edge = !m.interior(q0, k0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gi = q0 + ty * 4 + i;
-      bool ok[4];
-      float cur = kMasked;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        ok[c] = !edge || m.valid(gi, k0 + tx + 16 * c);
-        s[i][c] = ok[c] ? s[i][c] * a.scale : kMasked;
-        cur = fmaxf(cur, s[i][c]);
-      }
-      const float mnew = fmaxf(mx[i], row_max(cur));
-      const float alpha = expf(mx[i] - mnew);
-      float p[4], sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        p[c] = ok[c] ? expf(s[i][c] - mnew) : 0.f;
-        sum += p[c];
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      mx[i] = mnew;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float pd = p[c];
-        if (a.seed) pd *= keep_of(a, seed, bh, gi, k0 + tx + 16 * c);
-        sp[(ty * 4 + i) * kSP + tx + 16 * c] = pd;
-      }
-#pragma unroll
-      for (int n = 0; n < N; ++n) acc[i][n] *= alpha;
-    }
-    __syncthreads();
-    acc_pv<D>(acc, sp, sv, ty, tx);
-  }
-  float* out = static_cast<float*>(a.out) + a.so.at(bh, a.H);
-  float* lse = static_cast<float*>(a.lse_out) + a.slse.at(bh, a.H);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gi = q0 + ty * 4 + i;
-    if (gi >= a.L) continue;
-    const bool empty = l[i] == 0.f;
-    const float den = empty ? 1.f : l[i];
-    float o[N];
-#pragma unroll
-    for (int n = 0; n < N; ++n) o[n] = acc[i][n] / den;
-    float* row = out + gi * a.so.sl;
-    if constexpr (D == 32) {
-      row[tx * 2] = o[0];
-      row[tx * 2 + 1] = o[1];
-    } else {
-#pragma unroll
-      for (int g = 0; g < N / 4; ++g)
-        store4(row + g * 64 + tx * 4, make_float4(o[g * 4], o[g * 4 + 1],
-                                                  o[g * 4 + 2], o[g * 4 + 3]));
-    }
-    if (tx == 0) lse[gi] = empty ? -INFINITY : mx[i] + logf(den);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1237,18 +1007,17 @@ struct FwdSmem {
 
 constexpr float kLn2 = 0.6931471805599453f;
 
-// The element pass of #5 on S (rows queries q0 + fr + 8 h, columns keys
-// k0 + fc + 8 j + e), sl2 = |scale| log2(e) (S negated where the scale
-// is negative).  Each row's running max mx (of S sl2) and this thread's
-// part of its sum l move on by the tile, o is rescaled where a row's max
-// moved (in base 2, alpha = exp2(mx_old - mx)), and P = exp2(S sl2 - mx),
-// 0 where masked, goes out as A fragments pa = bf16(P keep); l sums the
-// undropped P.  About 5 instructions an element at dropout 0 (the max,
-// the exponent's FMA and SFU op, the sum, half a pack), 12 more for the
-// hash and its keep multiplier.
-template <int D, bool EDGE, bool DROP>
-__device__ __forceinline__ void fwd_probs(float (&s)[32], float (&o)[D / 2],
-                                          uint32_t (&pa)[16], float (&mx)[2],
+// The element pass of #5 on S over 8 NJ keys (rows queries q0 + fr + 8 h,
+// columns keys k0 + fc + 8 j + e), sl2 = |scale| log2(e) (S negated where
+// the scale is negative).  Each row's running max mx (of S sl2) and this
+// thread's part of its sum l move on by the tile, o is rescaled where a
+// row's max moved (in base 2, alpha = exp2(mx_old - mx)), and s becomes
+// P keep, P = exp2(S sl2 - mx), 0 where masked; l sums the undropped P.
+// About 4 instructions an element at dropout 0 (the max, the exponent's
+// FMA and SFU op, the sum), 12 more for the hash and its keep multiplier.
+template <int D, int NJ, bool EDGE, bool DROP>
+__device__ __forceinline__ void fwd_elems(float (&s)[4 * NJ],
+                                          float (&o)[D / 2], float (&mx)[2],
                                           float (&l)[2], const Mask& m,
                                           const Frag& f, int q0, int k0,
                                           float sl2,
@@ -1258,7 +1027,7 @@ __device__ __forceinline__ void fwd_probs(float (&s)[32], float (&o)[D / 2],
   if (EDGE) {
     ok = 0u;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -1275,7 +1044,7 @@ __device__ __forceinline__ void fwd_probs(float (&s)[32], float (&o)[D / 2],
   for (int h = 0; h < 2; ++h) {
     float c = kMasked;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
       c = fmaxf(c, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
     c = fmaxf(c, __shfl_xor_sync(0xffffffffu, c, 1));
     c = fmaxf(c, __shfl_xor_sync(0xffffffffu, c, 2));
@@ -1295,7 +1064,7 @@ __device__ __forceinline__ void fwd_probs(float (&s)[32], float (&o)[D / 2],
   }
   const uint32_t kb0 = (uint32_t)(k0 + f.fc) * 0x85EBCA77u;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const uint32_t kbe = kb0 + (uint32_t)(8 * j + e) * 0x85EBCA77u;
@@ -1311,6 +1080,19 @@ __device__ __forceinline__ void fwd_probs(float (&s)[32], float (&o)[D / 2],
     }
   mx[0] = mnew[0];
   mx[1] = mnew[1];
+}
+
+// #5's element pass on a 64-key tile in bf16, then as A fragments pa =
+// bf16(P keep) (half an instruction an element more)
+template <int D, bool EDGE, bool DROP>
+__device__ __forceinline__ void fwd_probs(float (&s)[32], float (&o)[D / 2],
+                                          uint32_t (&pa)[16], float (&mx)[2],
+                                          float (&l)[2], const Mask& m,
+                                          const Frag& f, int q0, int k0,
+                                          float sl2,
+                                          const uint32_t (&qmix)[2],
+                                          uint32_t thr, float ks) {
+  fwd_elems<D, 8, EDGE, DROP>(s, o, mx, l, m, f, q0, k0, sl2, qmix, thr, ks);
 #pragma unroll
   for (int i = 0; i < 16; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 }
@@ -1623,12 +1405,12 @@ __device__ __forceinline__ void hi_products(float (&s)[N / 2], uint32_t ta,
                      TileF<D, N>::kmajor(tb, 0, kk), !(first && kk == 0));
 }
 
-// A tile's first two products for one warpgroup, s = A1 B1^T and d = A2
-// B2^T in 3xTF32 (A1, A2 the rows [a0, a0 + 64) of tiles of RA rows; B1,
-// B2 stage tiles of N rows), CH k8 steps of the lo products a group (so
-// the residual fragments take 8 CH registers), the hi products with the
-// last group; returns with both done.
-template <int D, int RA, int N, int CH>
+// A tile's first products for one warpgroup, s = A1 B1^T and, when NP is
+// 2, d = A2 B2^T, in 3xTF32 (A1, A2 the rows [a0, a0 + 64) of tiles of RA
+// rows; B1, B2 stage tiles of N rows), CH k8 steps of the lo products a
+// group (so the residual fragments take 4 NP CH registers), the hi
+// products with the last group; returns with them done.
+template <int D, int RA, int N, int CH, int NP = 2>
 __device__ __forceinline__ void first_products(float (&s)[N / 2],
                                                float (&d)[N / 2],
                                                const uint8_t* smem,
@@ -1640,19 +1422,21 @@ __device__ __forceinline__ void first_products(float (&s)[N / 2],
   for (int kk0 = 0; kk0 < D / 8; kk0 += CH) {
     uint32_t r1[4 * CH], r2[4 * CH];
     residual_frags<D, RA, CH>(r1, smem + (a1 - base), a0, kk0, f);
-    residual_frags<D, RA, CH>(r2, smem + (a2 - base), a0, kk0, f);
+    if constexpr (NP == 2)
+      residual_frags<D, RA, CH>(r2, smem + (a2 - base), a0, kk0, f);
     wgmma_fence();
     lo_products<D, RA, N, CH>(s, a1, a0, r1, b1, kk0, kk0 == 0);
-    lo_products<D, RA, N, CH>(d, a2, a0, r2, b2, kk0, kk0 == 0);
+    if constexpr (NP == 2)
+      lo_products<D, RA, N, CH>(d, a2, a0, r2, b2, kk0, kk0 == 0);
     if (kk0 + CH == D / 8) {
       hi_products<D, RA, N>(s, a1, a0, b1, false);
-      hi_products<D, RA, N>(d, a2, a0, b2, false);
+      if constexpr (NP == 2) hi_products<D, RA, N>(d, a2, a0, b2, false);
     }
     wgmma_commit();
     wgmma_wait<0>();
   }
   fence_regs(s);
-  fence_regs(d);
+  if constexpr (NP == 2) fence_regs(d);
 }
 
 // acc (the warp's 16 rows by D, in the accumulator's layout) += A B in
@@ -1741,12 +1525,13 @@ __device__ __forceinline__ void store_rows_f32(const CUtensorMap* map,
 }
 
 // The transform warps' share of a stage (warps 1-3 of the producer
-// warpgroup, thread i0 of 96): the residual tiles x - tf32(x) of its two
-// streamed tiles, elementwise in the same swizzled layout, then a fence so
-// that wgmma (the async proxy) sees them.
-template <int D, int R>
+// warpgroup, thread i0 of 96): the residual tiles x - tf32(x) of its first
+// NR streamed tiles (the backward's two, the forward's K), elementwise in
+// the same swizzled layout, from the stage's third tile on, then a fence
+// so that wgmma (the async proxy) sees them.
+template <int D, int R, int NR = 2>
 __device__ __forceinline__ void write_residuals(uint8_t* stage, int i0) {
-  constexpr int n = 2 * R * D / 4;  // float4s of the two tiles
+  constexpr int n = NR * R * D / 4;  // float4s of the tiles
   const float4* src = reinterpret_cast<const float4*>(stage);
   float4* dst = reinterpret_cast<float4*>(stage + 2 * R * D * 4);
 #pragma unroll 4
@@ -1758,22 +1543,25 @@ __device__ __forceinline__ void write_residuals(uint8_t* stage, int i0) {
   fence_async_shared();
 }
 
-// The float32 kernels' shared memory: the block's own side (#6: Q and dO,
-// #7: K and V; NWG groups of 64 rows) in OB buffers, S stages of the
-// streamed side (#6: K, V and their residual tiles, #7: Q, dO and theirs)
-// of R rows each, #7's lse (as neg_lse2) and delta per stage, barriers.
-template <int D, int NWG, int R, int S, int OB>
+// The float32 kernels' shared memory: the block's own side, NO tiles of
+// NWG groups of 64 rows (#5: Q; #6: Q and dO; #7: K and V) in OB buffers,
+// S stages of the streamed side of R rows each, NT tiles a stage (#5: K, V
+// and K's residual tile; #6: K, V and their residual tiles; #7: Q, dO and
+// theirs), ST bytes of #7's lse (as neg_lse2) and delta for the stages,
+// barriers.
+template <int D, int NWG, int R, int S, int OB, int NO = 2, int NT = 4,
+          int ST = 8 * S * R>
 struct SmemF {
   static constexpr int kOwn = NWG * 64 * D * 4;  // an own tile
   static constexpr int kT = R * D * 4;           // a streamed tile
-  static constexpr int kStage = 2 * OB * kOwn;   // stage s at kStage + 4 s kT
-  static constexpr int kStats = kStage + 4 * S * kT;  // stage s: + 8 s R
+  static constexpr int kStage = NO * OB * kOwn;  // stage s at kStage + NT s kT
+  static constexpr int kStats = kStage + NT * S * kT;  // stage s: + 8 s R
   // own_full[OB], own_empty[OB], full[S], ready[S], empty[S]
-  static constexpr int kBar = kStats + 8 * S * R;
+  static constexpr int kBar = kStats + ST;
   static constexpr int kBytes = kBar + (2 * OB + 3 * S) * 8;
 };
 
-// The float32 kernels' shape per head dim: consumer warpgroups of 64 own
+// The float32 backward's shape per head dim: consumer warpgroups of 64 own
 // rows (one at D 128, where #7's dK and dV take 128 fp32 a thread),
 // streamed rows per stage, stages, own-side buffers, and the k8 steps of
 // the first products' lo products per group (all of D in one group but at
@@ -1793,6 +1581,24 @@ struct CfgF {
   static_assert(Smem::kBytes + 1024 <= 232448, "float32 flash: smem");
 };
 
+// The float32 forward's shape per head dim.  It holds no dO, dP or delta:
+// one own tile (Q) a buffer, three tiles a stage (K, V, K's residual: V is
+// mma_product's B and splits in registers), and o takes D / 2 fp32 a
+// thread, so two consumer warpgroups fit at every D.  64 streamed rows a
+// stage (half #6's barrier round trips a key) in 3 stages at D 32 and 64;
+// at D 128 two Q buffers of 128 rows leave room for 2 stages of 32 rows.
+// Shared memory: 104 KB at D 32, 208 KB at D 64, 224 KB at D 128.
+template <int D>
+struct CfgFwdF {
+  static constexpr int kWG = 2;
+  static constexpr int kR = D == 128 ? 32 : 64;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kOwnBufs = 2;
+  static constexpr int kChunk = CfgF<D>::kChunk;
+  using Smem = SmemF<D, kWG, kR, kStages, kOwnBufs, 1, 3, 0>;
+  static_assert(Smem::kBytes + 1024 <= 232448, "float32 flash fwd: smem");
+};
+
 // registers of the float32 kernels' warpgroups at NWG 2: the producer's
 // transform warps need more than the bf16 kernels' 24
 constexpr int kConsumerRegsF = 232, kProducerRegsF = 40;
@@ -1810,7 +1616,8 @@ struct BarsF {
     b.empty = b.ready + 8 * S;
     return b;
   }
-  // full's arrivals: 1 (#6's loading lane) or 32 (#7's loader warp)
+  // full's arrivals: 1 (#5's and #6's loading lane) or 32 (#7's loader
+  // warp)
   template <int OB, int S, int NWG>
   __device__ void init(int full_count) const {
     for (int b = 0; b < OB; ++b) {
@@ -1825,6 +1632,168 @@ struct BarsF {
     mbar_fence_init();
   }
 };
+
+// ---------------------------------------------------------------------------
+// #5 forward in float32.  Work items and rings as #6's: 64 NWG query rows
+// of one (batch, head); one lane of the producer warpgroup loads each
+// item's Q (OB buffers) and rings the k tiles (K, V) of R keys through S
+// stages, all by TMA; warps 1-3 of the producer warpgroup write each
+// stage's K residual tile; NWG consumer warpgroups own 64 query rows each,
+// their running max, sum and output in registers.  Per tile: S = Q K^T on
+// wgmma in 3xTF32, the online softmax on the accumulator (fwd_elems), O +=
+// (P keep) V on mma.sync in 3xTF32 reading V as TMA wrote it.
+// ---------------------------------------------------------------------------
+template <int D, int NWG, int R, int S, int OB, bool DROP>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+flash_fwd_tf32(const __grid_constant__ Sm90Args p) {
+  using L_ = SmemF<D, NWG, R, S, OB, 1, 3, 0>;
+  constexpr int CH = CfgFwdF<D>::kChunk;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const Args& a = p.a;
+  const int n_qb = (a.L + 64 * NWG - 1) / (64 * NWG);
+  const int items = n_qb * p.BH;
+  const BarsF bars = BarsF::at<OB, S>(base + L_::kBar);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  if (tid == NWG * 128) prefetch_maps(p.maps, false);
+  if (tid == 0) bars.init<OB, S, NWG>(1);
+  __syncthreads();
+
+  if (wg == NWG) {  // the producer warpgroup
+    if constexpr (NWG == 2) reg_dealloc<kProducerRegsF>();
+    const bool loader = tid < NWG * 128 + 32;
+    if (loader && tid != NWG * 128) return;
+    int it = 0, n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int bh = item / n_qb, qb = item % n_qb * 64 * NWG;
+      const HB hb(bh, a.H);
+      const Mask m = mask_of(a, bh);
+      int lo, hi;
+      block_k_range<NWG, R>(m, qb, lo, hi);
+      const int b = n % OB;
+      if (loader) {  // this item's Q, once its buffer is free
+        const uint32_t own = bars.own + 8 * b;
+        mbar_wait(bars.own_empty + 8 * b, ((n / OB) & 1) ^ 1);
+        mbar_expect_tx(own, f32_load_bytes<D, NWG, 64>(qb, a.L));
+        f32_load_rows<D, NWG, 64>(base + b * L_::kOwn, &p.maps.q, own, qb,
+                                  hb, a.L);
+      }
+      for (int kt = lo; kt <= hi; ++kt) {
+        if (!any_rows_need<NWG, R>(m, qb, kt * R)) continue;
+        const int s = it % S, ph = (it / S) & 1;
+        const uint32_t stage = base + L_::kStage + 3 * s * L_::kT;
+        ++it;
+        if (loader) {
+          mbar_wait(bars.empty + 8 * s, ph ^ 1);
+          const uint32_t full = bars.full + 8 * s;
+          mbar_expect_tx(full, 2 * L_::kT);
+          f32_load_rows<D, 1, R>(stage, &p.maps.k, full, kt * R, hb, a.L);
+          f32_load_rows<D, 1, R>(stage + L_::kT, &p.maps.v, full, kt * R, hb,
+                                 a.L);
+        } else {
+          mbar_wait(bars.full + 8 * s, ph);
+          write_residuals<D, R, 1>(smem + (stage - base),
+                                   tid - NWG * 128 - 32);
+          mbar_arrive(bars.ready + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+  if constexpr (NWG == 2) reg_alloc<kConsumerRegsF>();
+
+  // a consumer warpgroup: query rows [q0, q0 + 64) of each work item
+  const Frag f(tid & 127);
+  const bool neg = a.scale < 0.f;
+  const float sl2 = fabsf(a.scale) * kLog2e;
+  int it = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int bh = item / n_qb, qb = item % n_qb * 64 * NWG;
+    const HB hb(bh, a.H);
+    const Mask m = mask_of(a, bh);
+    int lo, hi;
+    block_k_range<NWG, R>(m, qb, lo, hi);
+    const int q0 = qb + 64 * wg, b = n % OB;
+    uint32_t qmix[2] = {0u, 0u};
+    if (DROP) {
+      const uint32_t sb = (uint32_t)a.seed[0] + (uint32_t)bh * 0xC2B2AE3Du;
+      for (int h = 0; h < 2; ++h)
+        qmix[h] = (uint32_t)(q0 + f.fr + 8 * h) * 0x9E3779B1u ^ sb;
+    }
+    float o[D / 2], mx[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    const uint32_t sq = base + b * L_::kOwn;
+    mbar_wait(bars.own + 8 * b, (n / OB) & 1);
+    for (int kt = lo; kt <= hi; ++kt) {
+      const int k0 = kt * R;
+      if (!any_rows_need<NWG, R>(m, qb, k0)) continue;
+      const int s = it % S, ph = (it / S) & 1;
+      mbar_wait(bars.full + 8 * s, ph);
+      mbar_wait(bars.ready + 8 * s, ph);
+      ++it;
+      if (m.needed<64, R>(q0, k0)) {
+        const uint32_t sk = base + L_::kStage + 3 * s * L_::kT;
+        float sc[R / 2];
+        // S = Q K^T, the one first product (d, A2 and B2 unread at NP 1)
+        first_products<D, NWG * 64, R, CH, 1>(sc, sc, smem, base, sq, sq,
+                                              64 * wg, sk, sk, f);
+        if (neg) {
+#pragma unroll
+          for (int i = 0; i < R / 2; ++i) sc[i] = -sc[i];
+        }
+        // every masked P is 0 here, so no masked score reaches the product
+        if (m.interior<64, R>(q0, k0))
+          fwd_elems<D, R / 8, false, DROP>(sc, o, mx, l, m, f, q0, k0, sl2,
+                                           qmix, a.thr, a.ks);
+        else
+          fwd_elems<D, R / 8, true, DROP>(sc, o, mx, l, m, f, q0, k0, sl2,
+                                          qmix, a.thr, a.ks);
+        // O += (P keep) V
+        mma_product<D, R>(o, sc, smem + (sk + L_::kT - base));
+      }
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(bars.empty + 8 * s);
+    }
+    // O / l through this warpgroup's rows of the item's Q tile, then TMA;
+    // lse by plain stores, one lane of the four that share a row.  A row
+    // with no valid key has l = 0 and o = 0: out 0, lse -inf.  Q is then
+    // free for the item OB on.
+    float lsum[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float t = l[h];
+      t += __shfl_xor_sync(0xffffffffu, t, 1);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      lsum[h] = t;
+      const float inv = t == 0.f ? 0.f : 1.f / t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * h] *= inv;
+        o[4 * j + 2 * h + 1] *= inv;
+      }
+    }
+    frag_to_tile_f32<D, NWG * 64>(smem + (sq - base), 64 * wg, o, 1.f, f);
+    fence_async_shared();
+    named_sync(1 + wg, 128);
+    if (q0 < a.L)
+      store_rows_f32<D, NWG * 64>(&p.maps.out, sq, 64 * wg, q0, hb,
+                                  tid & 127);
+    if ((tid & 3) == 0) {
+      float* lse = static_cast<float*>(a.lse_out) + a.slse.at(hb);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gi = q0 + f.fr + 8 * h;
+        if (gi < a.L)
+          lse[gi] = lsum[h] == 0.f ? -INFINITY
+                                   : (mx[h] + log2f(lsum[h])) * kLn2;
+      }
+    }
+    if ((tid & 127) == 0) mbar_arrive(bars.own_empty + 8 * b);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // #6 dq in float32.  Work items and rings as the bf16 kernel's: 64 NWG
@@ -2217,14 +2186,14 @@ int run_sm90(const Args& a, int BH, Which w, cudaStream_t st) {
                 : launch_sm90<D, false>(p, BH, w, st);
 }
 
-// the float32 backward's maps, in boxes of 32 columns (128-byte rows,
+// the float32 kernels' maps, in boxes of 32 columns (128-byte rows,
 // 128-byte swizzle) by 64 rows for the block's own side and the outputs,
-// by R rows for the streamed side (#6: k and v, #7: q and dout)
+// by R rows for the streamed side (#5 and #6: k and v, #7: q and dout)
 int make_maps_f32(Maps& mp, const Args& a, int BH, int D, Which w, int R) {
   const Views vs(mp, a, w);
   int rc = 0;
   for (int i = 0; i < vs.n && !rc; ++i) {
-    const bool streamed = w == kDq ? i == 1 || i == 2 : i == 0 || i == 4;
+    const bool streamed = w == kDkv ? i == 0 || i == 4 : i == 1 || i == 2;
     rc = map_view(vs.map[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, vs.ptr[i],
                   *vs.st[i], a, BH, D, 32, streamed ? R : 64,
                   CU_TENSOR_MAP_SWIZZLE_128B);
@@ -2235,10 +2204,18 @@ int make_maps_f32(Maps& mp, const Args& a, int BH, int D, Which w, int R) {
 template <int D, bool DROP>
 int launch_tf32(const Sm90Args& p, int BH, Which w, cudaStream_t st) {
   using C = CfgF<D>;
+  using CF = CfgFwdF<D>;
   constexpr int NWG = C::kWG, R = C::kR, S = C::kStages, OB = C::kOwnBufs;
   auto kernel = w == kDq ? flash_bwd_dq_tf32<D, NWG, R, S, OB, DROP>
                          : flash_bwd_dkv_tf32<D, NWG, R, S, OB, DROP>;
-  const int smem = C::Smem::kBytes + 1024;  // + the tiles' alignment
+  int nwg = NWG, smem = C::Smem::kBytes;
+  if (w == kFwd) {
+    kernel = flash_fwd_tf32<D, CF::kWG, CF::kR, CF::kStages, CF::kOwnBufs,
+                            DROP>;
+    nwg = CF::kWG;
+    smem = CF::Smem::kBytes;
+  }
+  smem += 1024;  // the tiles' 1024-byte alignment
   static bool attr_set[3] = {false, false, false};  // once per kernel
   if (!attr_set[w]) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -2252,9 +2229,9 @@ int launch_tf32(const Sm90Args& p, int BH, Which w, cudaStream_t st) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   // the grid as the bf16 kernels' (launch_sm90)
-  const int items = (p.a.L + 64 * NWG - 1) / (64 * NWG) * BH;
+  const int items = (p.a.L + 64 * nwg - 1) / (64 * nwg) * BH;
   const int grid = p.a.L > kPersistentL || items < sms ? items : sms;
-  kernel<<<grid, (NWG + 1) * 128, smem, st>>>(p);
+  kernel<<<grid, (nwg + 1) * 128, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -2263,36 +2240,16 @@ int run_tf32(const Args& a, int BH, Which w, cudaStream_t st) {
   Sm90Args p = {};
   p.a = a;
   p.BH = BH;
-  const int rc = make_maps_f32(p.maps, a, BH, D, w, CfgF<D>::kR);
+  const int rc = make_maps_f32(p.maps, a, BH, D, w,
+                               w == kFwd ? CfgFwdF<D>::kR : CfgF<D>::kR);
   if (rc) return rc;
   return a.seed ? launch_tf32<D, true>(p, BH, w, st)
                 : launch_tf32<D, false>(p, BH, w, st);
 }
 
-// the float32 forward, on the CUDA cores
-template <int D>
-int launch_fwd_f32(const Args& a, int BH, cudaStream_t st) {
-  const int smem = (3 * kTile * (D + 4) + kTile * kSP) * 4;
-  static bool attr_set = false;  // once per instantiation
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  const dim3 grid((a.L + kTile - 1) / kTile, BH);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
 template <Which W>
 int dispatch(const Args& a, int BH, int D, int dtype, cudaStream_t st) {
-  if (dtype == 0 && W == kFwd) {
-    if (D == 32) return launch_fwd_f32<32>(a, BH, st);
-    if (D == 64) return launch_fwd_f32<64>(a, BH, st);
-    if (D == 128) return launch_fwd_f32<128>(a, BH, st);
-  } else if (dtype == 0) {
+  if (dtype == 0) {
     if (D == 32) return run_tf32<32>(a, BH, W, st);
     if (D == 64) return run_tf32<64>(a, BH, W, st);
     if (D == 128) return run_tf32<128>(a, BH, W, st);
@@ -2356,8 +2313,7 @@ extern "C" const char* mxt_error_string(int e) {
 // H and L strides in elements (unit stride along D), then each (B, H, L)
 // float32 tensor's B and H strides (unit stride along L).  Each view's
 // base 16-byte aligned and each of its strides a multiple of 16 bytes
-// (TMA's rule, and in the float32 forward its 16-byte vector loads and
-// stores); the float32 tensors need neither.  Each returns
+// (TMA's rule); the float32 tensors need neither.  Each returns
 // cudaGetLastError() after its launch.
 
 // out like q; lse (B, H, L) float32.  strides: 14 int64, q's, k's, v's

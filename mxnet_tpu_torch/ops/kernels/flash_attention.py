@@ -35,8 +35,8 @@ its kernel on a CUDA tensor (or raises), counting launches in
 kernels take float32 and bfloat16 and head dims 32, 64 and 128; in
 bfloat16 the probabilities are rounded to bf16 before ``P @ V`` and
 ``dS`` before its two products, as the JAX kernel casts.  The float32
-backward kernels run their products on the tensor cores in 3xTF32, which
-keeps them fp32-accurate.  What bounds
+kernels run their products on the tensor cores in 3xTF32, which keeps
+them fp32-accurate.  What bounds
 them and how they are tiled: the note at the top of the CUDA source.
 :func:`flash_attention` casts ``kv_length`` to int32 once for the three
 kernels.
@@ -237,8 +237,7 @@ def _strided_ok(t):
     """Whether the kernels can read or write the (B, H, L, D) view
     ``t`` where it lies: unit stride along D, and TMA's rules for a tensor
     map (a 16-byte aligned base, every other stride a positive multiple of
-    16 bytes below 2**40), which the float32 kernel's 16-byte vector loads
-    and stores need as well.  Any other view is copied first."""
+    16 bytes below 2**40).  Any other view is copied first."""
     return t.data_ptr() % 16 == 0 and _layout_ok(t.shape, t.stride(),
                                                  t.element_size())
 
