@@ -755,11 +755,12 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
     """#5-#7 at the training shape (B 32, H 12, L 128, D 64; or at ``B``,
     ``L``, as the long-context phase's B 4, L 2048), with the training
     batch's valid lengths at that shape and dropout 0.1, beside the plain
-    versions and SDPA (dense, dropout 0: it takes no hash mask); at
-    dropout 0 beside SDPA given the same key mask, which computes the same
-    function; and on BERT's layout of q, k, v and dO.  The training
-    shape's fp32 rows go into ``report``, their ``library_ms`` SDPA's
-    time on the same function."""
+    versions and SDPA; at dropout 0 beside SDPA given the same key mask,
+    which computes the same function (``same_function``); and on BERT's
+    layout of q, k, v and dO.  Each row's ``library_ms`` is SDPA on the
+    same function, its ``dense_library_ms`` SDPA dense at dropout 0 (it
+    takes no hash mask).  The training shape's fp32 rows go into
+    ``report``."""
     import torch.nn.functional as F
     train_shape = B is None
     B = TRAIN_B if train_shape else B
@@ -778,32 +779,40 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
     bwd = (q, k, v, do, lse, delta)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves)
-    lib_fwd = timer(lambda: F.scaled_dot_product_attention(q, k, v))
-    # autograd's Python takes longer to enqueue SDPA's backward than the
-    # timer's usual 0.1 ms spin: spin ~2 ms so the card's time is timed
-    lib_bwd = timer(lambda: torch.autograd.grad(sdpa_out, leaves, do,
-                                                retain_graph=True),
-                    spin=4_000_000)
+    # SDPA's enqueue, as a wrapper's, can outlast the timer's usual 0.1 ms
+    # spin on a loaded host; autograd's backward takes longer still: spin
+    # ~2 ms there
+    dense = {"fwd": timer(lambda: F.scaled_dot_product_attention(q, k, v),
+                          spin=FLASH_SPIN),
+             "bwd": timer(lambda: torch.autograd.grad(
+                 sdpa_out, leaves, do, retain_graph=True), spin=4_000_000)}
+    same = same_function(torch, fa, timer, q, k, v, do, kvl, leaves)
     elt = q.element_size()
     keys = float(kvl.sum()) * H * L       # (row, key) pairs the mask keeps
+    # the least bytes: each (B, H, L, D) tensor the function reads or
+    # writes in full once, k and v only up to each row's kv_length (no
+    # key past it is needed), lse and delta once
+    full = B * H * L * D * elt
+    kv = 2 * float(kvl.sum()) * H * D * elt
+    stat = B * H * L * 4
     peak = TF32X3_FLOPS if dt == torch.float32 else BF16_FLOPS
     errs = flash_case(torch, fa, g, B, H, L, D, dt, "kv_length", 0.1)
     rows = {}
     for name, fn, plain, flops, nbytes, err in (
-            ("flash_attention_fwd",
+            ("flash_attention_fwd",      # reads q, k, v; writes out, lse
              lambda: fa.flash_attention_fwd(q, k, v, **kw),
              lambda: fa.flash_attention_plain(q, k, v, **kw),
-             4 * keys * D, 4 * B * H * L * D * elt + B * H * L * 4,
+             4 * keys * D, 2 * full + kv + stat,
              max(errs["out"], errs["lse"])),
-            ("flash_attention_bwd_dq",
+            ("flash_attention_bwd_dq",   # q, k, v, dO, lse, delta; dq
              lambda: fa.flash_attention_bwd_dq(*bwd, **kw),
              lambda: fa.flash_attention_bwd_dq_plain(*bwd, **kw),
-             6 * keys * D, 5 * B * H * L * D * elt + 2 * B * H * L * 4,
+             6 * keys * D, 3 * full + kv + 2 * stat,
              errs["dq"]),
-            ("flash_attention_bwd_dkv",
+            ("flash_attention_bwd_dkv",  # q, k, v, dO, lse, delta; dk, dv
              lambda: fa.flash_attention_bwd_dkv(*bwd, **kw),
              lambda: fa.flash_attention_bwd_dkv_plain(*bwd, **kw),
-             8 * keys * D, 6 * B * H * L * D * elt + 2 * B * H * L * 4,
+             8 * keys * D, 4 * full + kv + 2 * stat,
              max(errs["dk"], errs["dv"]))):
         # each wrapper's Python (checks, strides, allocations) takes tens
         # of us to enqueue on a loaded host: spin ~0.5 ms so the card's
@@ -811,15 +820,19 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
         ms = timer(fn, spin=FLASH_SPIN)
         plain_ms = timer(plain)
         bms, by = bound(nbytes, flops, peak)
-        lib = lib_fwd if name.endswith("fwd") else lib_bwd
+        way = "fwd" if name.endswith("fwd") else "bwd"
         log("%s (B %d, H %d, L %d, D %d, kv_length, rate 0.1) %s: "
             "max err / largest %.3g; kernel %.4f ms plain %.4f ms bound "
-            "%.4f ms (%s) SDPA %s %.4f ms (dense, dropout 0: SDPA takes no "
-            "hash mask)" % (name, B, H, L, D, str(dt)[6:], err, ms, plain_ms,
-                            bms, by, "forward" if name.endswith("fwd") else
-                            "backward (dq, dk and dv in one call)", lib))
+            "%.4f ms (%s) SDPA %s %.4f ms on the same function at dropout "
+            "0, %.4f ms dense" % (
+                name, B, H, L, D, str(dt)[6:], err, ms, plain_ms, bms, by,
+                "forward" if way == "fwd" else
+                "backward (dq, dk and dv in one call)", same[way],
+                dense[way]))
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                          bound_by=by, library_ms=lib, max_abs_err=err)
+                          bound_by=by, library_ms=same[way],
+                          dense_library_ms=dense[way], rate0_ms=same[name],
+                          max_abs_err=err)
     # the kernels' fixed part: every kv_length 0, so no tile is visited,
     # but each launch still loads its own side and writes zeros
     z = torch.zeros_like(kvl)
@@ -841,7 +854,6 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
            fixed["flash_attention_bwd_dq"], fixed["flash_attention_bwd_dkv"]))
     for name, ms in fixed.items():
         rows[name]["fixed_ms"] = ms
-    same_function(torch, fa, timer, rows, q, k, v, do, kvl, leaves)
     # #5-#7 on BERT's layout, read where it lies: q, k, v permuted out of
     # the (B, L, 3, H, D) projection, dO the transposed gradient of the
     # (B, L, H, D) output, holding q, k, v and dO's values, so each result
@@ -889,14 +901,13 @@ def flash_timing(torch, fa, timer, dt, report, B=None, L=None):
     return rows
 
 
-def same_function(torch, fa, timer, rows, q, k, v, do, kvl, leaves):
+def same_function(torch, fa, timer, q, k, v, do, kvl, leaves):
     """#5, #6 and #7 at dropout 0 with the batch's kv_length, beside SDPA
     given that key mask as a boolean (B, 1, 1, L) ``attn_mask``, forward
     and backward (autograd: dq, dk and dv in one call): one PyTorch call
     computing the same function.  Prints the kernels that are slower than
-    it and by what factor; each row of ``rows`` gains ``rate0_ms``, and
-    ``library_ms`` becomes SDPA's time on the same function (the dense
-    time it held stays as ``dense_library_ms``)."""
+    it and by what factor; returns each kernel's time by its wrapper's
+    name and SDPA's as ``fwd`` and ``bwd``."""
     import torch.nn.functional as F
     B, H, L, D = q.shape
     kw = dict(kv_length=kvl)
@@ -912,31 +923,28 @@ def same_function(torch, fa, timer, rows, q, k, v, do, kvl, leaves):
                "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
                    *bwd, **kw)}
     ms = {n: timer(fn, spin=FLASH_SPIN) for n, fn in kernels.items()}
+    # the spins of flash_timing's dense SDPA calls: the mask's conversion
+    # adds host ops to the forward's enqueue
     lib_fwd = timer(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                           attn_mask=mask))
+                                                           attn_mask=mask),
+                    spin=FLASH_SPIN)
     lib_bwd = timer(lambda: torch.autograd.grad(lib_out, leaves, do,
                                                 retain_graph=True),
                     spin=4_000_000)
-    for name in FLASH_KERNELS:
-        row = rows[name]
-        row["dense_library_ms"] = row["library_ms"]
-        row["rate0_ms"] = ms[name]
-        row["library_ms"] = lib_fwd if name.endswith("fwd") else lib_bwd
     bwd_ms = ms["flash_attention_bwd_dq"] + ms["flash_attention_bwd_dkv"]
     pairs = (("#5", ms["flash_attention_fwd"], lib_fwd),
              ("#6 + #7", bwd_ms, lib_bwd))
     slower = ["%s %.2fx" % (n, t / lib) for n, t, lib in pairs if t > lib]
     log("%s same function (B %d, H %d, L %d, D %d, kv_length, dropout 0; "
         "SDPA given the key mask as a (B, 1, 1, L) boolean attn_mask, its "
-        "out within %.3g of #5's): #5 %.4f ms (at rate 0.1 %.4f), SDPA "
-        "forward %.4f ms; #6 %.4f + #7 %.4f = %.4f ms (at rate 0.1 %.4f), "
-        "SDPA backward %.4f ms; slower than SDPA: %s"
+        "out within %.3g of #5's): #5 %.4f ms, SDPA forward %.4f ms; #6 "
+        "%.4f + #7 %.4f = %.4f ms, SDPA backward %.4f ms; slower than "
+        "SDPA: %s"
         % (str(q.dtype)[6:], B, H, L, D, err, ms["flash_attention_fwd"],
-           rows["flash_attention_fwd"]["ms"], lib_fwd,
-           ms["flash_attention_bwd_dq"], ms["flash_attention_bwd_dkv"],
-           bwd_ms, rows["flash_attention_bwd_dq"]["ms"]
-           + rows["flash_attention_bwd_dkv"]["ms"], lib_bwd,
+           lib_fwd, ms["flash_attention_bwd_dq"],
+           ms["flash_attention_bwd_dkv"], bwd_ms, lib_bwd,
            ", ".join(slower) or "none"))
+    return dict(ms, fwd=lib_fwd, bwd=lib_bwd)
 
 
 #: SASS opcodes of global or shared-memory atomics and reductions

@@ -67,8 +67,8 @@
 //    #6 spills ~0.2 KB and #7 ~0.7 KB.  The forward holds no dO, dP or
 //    delta: 64 streamed rows a stage at D 32 and 64 (104 and 208 KB), 32
 //    at D 128, where its o (64 fp32) lets two consumer warpgroups fit (224
-//    KB; CfgFwdF).  Its threads fit the 168 registers at every D, with no
-//    spill but 4 bytes at D 64 without dropout.
+//    KB; CfgF<kFwd, D>).  Its threads fit the 168 registers at every D,
+//    with no spill but 4 bytes at D 64 without dropout.
 // 5. A 128-byte swizzled TMA box row holds 32 fp32: D / 32 boxes side by
 //    side (TileF), and a tf32 descriptor steps 32 bytes a k8.
 // 6. The tensor core's adds into its accumulator do not round to nearest
@@ -1439,6 +1439,16 @@ __device__ __forceinline__ void first_products(float (&s)[N / 2],
   if constexpr (NP == 2) fence_regs(d);
 }
 
+// The forward's one first product, s = A B^T in 3xTF32, as above.
+template <int D, int RA, int N, int CH>
+__device__ __forceinline__ void first_products(float (&s)[N / 2],
+                                               const uint8_t* smem,
+                                               uint32_t base, uint32_t a,
+                                               int a0, uint32_t b,
+                                               const Frag& f) {
+  first_products<D, RA, N, CH, 1>(s, s, smem, base, a, a, a0, b, b, f);
+}
+
 // acc (the warp's 16 rows by D, in the accumulator's layout) += A B in
 // 3xTF32 on mma.sync m16n8k8: A the warp's rows of an m64nR fp32
 // accumulator a (its R columns the K dimension), B an fp32 tile (TileF<D,
@@ -1561,16 +1571,20 @@ struct SmemF {
   static constexpr int kBytes = kBar + (2 * OB + 3 * S) * 8;
 };
 
-// The float32 backward's shape per head dim: consumer warpgroups of 64 own
-// rows (one at D 128, where #7's dK and dV take 128 fp32 a thread),
-// streamed rows per stage, stages, own-side buffers, and the k8 steps of
-// the first products' lo products per group (all of D in one group but at
-// D 128).  32 streamed rows keep the consumers near the 168 registers a
-// thread that ptxas allots at 384 threads (see the note at the top), and
-// leave room for the own side's second buffer at D 64 (the next item's
-// loads overlap this one's tiles).  Shared memory: 113 KB at
-// D 32, 193 KB at D 64 and 192 KB at D 128.
-template <int D>
+// The flash kernels: #5 forward, #6 dq, #7 dk and dv.
+enum Which { kFwd, kDq, kDkv };
+
+// The float32 kernels' shape per kernel and head dim; here the backward's
+// (#6 and #7): consumer warpgroups of 64 own rows (one at D 128, where
+// #7's dK and dV take 128 fp32 a thread), streamed rows per stage,
+// stages, own-side buffers, and the k8 steps of the first products' lo
+// products per group (all of D in one group but at D 128).  32 streamed
+// rows keep the consumers near the 168 registers a thread that ptxas
+// allots at 384 threads (see the note at the top), and leave room for the
+// own side's second buffer at D 64 (the next item's loads overlap this
+// one's tiles).  Shared memory: 113 KB at D 32, 193 KB at D 64 and 192 KB
+// at D 128.
+template <Which W, int D>
 struct CfgF {
   static constexpr int kWG = D == 128 ? 1 : 2;
   static constexpr int kR = 32;
@@ -1589,12 +1603,12 @@ struct CfgF {
 // at D 128 two Q buffers of 128 rows leave room for 2 stages of 32 rows.
 // Shared memory: 104 KB at D 32, 208 KB at D 64, 224 KB at D 128.
 template <int D>
-struct CfgFwdF {
+struct CfgF<kFwd, D> {
   static constexpr int kWG = 2;
   static constexpr int kR = D == 128 ? 32 : 64;
   static constexpr int kStages = D == 128 ? 2 : 3;
   static constexpr int kOwnBufs = 2;
-  static constexpr int kChunk = CfgF<D>::kChunk;
+  static constexpr int kChunk = CfgF<kDq, D>::kChunk;
   using Smem = SmemF<D, kWG, kR, kStages, kOwnBufs, 1, 3, 0>;
   static_assert(Smem::kBytes + 1024 <= 232448, "float32 flash fwd: smem");
 };
@@ -1647,7 +1661,7 @@ template <int D, int NWG, int R, int S, int OB, bool DROP>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_fwd_tf32(const __grid_constant__ Sm90Args p) {
   using L_ = SmemF<D, NWG, R, S, OB, 1, 3, 0>;
-  constexpr int CH = CfgFwdF<D>::kChunk;
+  constexpr int CH = CfgF<kFwd, D>::kChunk;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
@@ -1737,9 +1751,9 @@ flash_fwd_tf32(const __grid_constant__ Sm90Args p) {
       if (m.needed<64, R>(q0, k0)) {
         const uint32_t sk = base + L_::kStage + 3 * s * L_::kT;
         float sc[R / 2];
-        // S = Q K^T, the one first product (d, A2 and B2 unread at NP 1)
-        first_products<D, NWG * 64, R, CH, 1>(sc, sc, smem, base, sq, sq,
-                                              64 * wg, sk, sk, f);
+        // S = Q K^T
+        first_products<D, NWG * 64, R, CH>(sc, smem, base, sq, 64 * wg, sk,
+                                           f);
         if (neg) {
 #pragma unroll
           for (int i = 0; i < R / 2; ++i) sc[i] = -sc[i];
@@ -1809,7 +1823,7 @@ template <int D, int NWG, int R, int S, int OB, bool DROP>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_bwd_dq_tf32(const __grid_constant__ Sm90Args p) {
   using L_ = SmemF<D, NWG, R, S, OB>;
-  constexpr int CH = CfgF<D>::kChunk;
+  constexpr int CH = CfgF<kDq, D>::kChunk;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
@@ -1945,7 +1959,7 @@ template <int D, int NWG, int R, int S, int OB, bool DROP>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_bwd_dkv_tf32(const __grid_constant__ Sm90Args p) {
   using L_ = SmemF<D, NWG, R, S, OB>;
-  constexpr int CH = CfgF<D>::kChunk;
+  constexpr int CH = CfgF<kDkv, D>::kChunk;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
@@ -2075,8 +2089,6 @@ flash_bwd_dkv_tf32(const __grid_constant__ Sm90Args p) {
   }
 }
 
-enum Which { kFwd, kDq, kDkv };
-
 // A launch's tensors in the order of Maps: q, k, v, the first output (#5:
 // out, #6: dq, #7: dk), then the backward's dout and #7's dv; n of them.
 struct Views {
@@ -2201,27 +2213,24 @@ int make_maps_f32(Maps& mp, const Args& a, int BH, int D, Which w, int R) {
   return rc;
 }
 
-template <int D, bool DROP>
-int launch_tf32(const Sm90Args& p, int BH, Which w, cudaStream_t st) {
-  using C = CfgF<D>;
-  using CF = CfgFwdF<D>;
+template <Which W, int D, bool DROP>
+int launch_tf32(const Sm90Args& p, int BH, cudaStream_t st) {
+  using C = CfgF<W, D>;
   constexpr int NWG = C::kWG, R = C::kR, S = C::kStages, OB = C::kOwnBufs;
-  auto kernel = w == kDq ? flash_bwd_dq_tf32<D, NWG, R, S, OB, DROP>
-                         : flash_bwd_dkv_tf32<D, NWG, R, S, OB, DROP>;
-  int nwg = NWG, smem = C::Smem::kBytes;
-  if (w == kFwd) {
-    kernel = flash_fwd_tf32<D, CF::kWG, CF::kR, CF::kStages, CF::kOwnBufs,
-                            DROP>;
-    nwg = CF::kWG;
-    smem = CF::Smem::kBytes;
-  }
-  smem += 1024;  // the tiles' 1024-byte alignment
-  static bool attr_set[3] = {false, false, false};  // once per kernel
-  if (!attr_set[w]) {
+  void (*kernel)(Sm90Args);
+  if constexpr (W == kFwd)
+    kernel = flash_fwd_tf32<D, NWG, R, S, OB, DROP>;
+  else if constexpr (W == kDq)
+    kernel = flash_bwd_dq_tf32<D, NWG, R, S, OB, DROP>;
+  else
+    kernel = flash_bwd_dkv_tf32<D, NWG, R, S, OB, DROP>;
+  const int smem = C::Smem::kBytes + 1024;  // the 1024-byte alignment
+  static bool attr_set = false;  // once per kernel
+  if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    attr_set[w] = true;
+    attr_set = true;
   }
   int dev, sms;
   cudaError_t e = cudaGetDevice(&dev);
@@ -2229,30 +2238,29 @@ int launch_tf32(const Sm90Args& p, int BH, Which w, cudaStream_t st) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   // the grid as the bf16 kernels' (launch_sm90)
-  const int items = (p.a.L + 64 * nwg - 1) / (64 * nwg) * BH;
+  const int items = (p.a.L + 64 * NWG - 1) / (64 * NWG) * BH;
   const int grid = p.a.L > kPersistentL || items < sms ? items : sms;
-  kernel<<<grid, (nwg + 1) * 128, smem, st>>>(p);
+  kernel<<<grid, (NWG + 1) * 128, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int run_tf32(const Args& a, int BH, Which w, cudaStream_t st) {
+template <Which W, int D>
+int run_tf32(const Args& a, int BH, cudaStream_t st) {
   Sm90Args p = {};
   p.a = a;
   p.BH = BH;
-  const int rc = make_maps_f32(p.maps, a, BH, D, w,
-                               w == kFwd ? CfgFwdF<D>::kR : CfgF<D>::kR);
+  const int rc = make_maps_f32(p.maps, a, BH, D, W, CfgF<W, D>::kR);
   if (rc) return rc;
-  return a.seed ? launch_tf32<D, true>(p, BH, w, st)
-                : launch_tf32<D, false>(p, BH, w, st);
+  return a.seed ? launch_tf32<W, D, true>(p, BH, st)
+                : launch_tf32<W, D, false>(p, BH, st);
 }
 
 template <Which W>
 int dispatch(const Args& a, int BH, int D, int dtype, cudaStream_t st) {
   if (dtype == 0) {
-    if (D == 32) return run_tf32<32>(a, BH, W, st);
-    if (D == 64) return run_tf32<64>(a, BH, W, st);
-    if (D == 128) return run_tf32<128>(a, BH, W, st);
+    if (D == 32) return run_tf32<W, 32>(a, BH, st);
+    if (D == 64) return run_tf32<W, 64>(a, BH, st);
+    if (D == 128) return run_tf32<W, 128>(a, BH, st);
   } else {
     if (D == 32) return run_sm90<32>(a, BH, W, st);
     if (D == 64) return run_sm90<64>(a, BH, W, st);

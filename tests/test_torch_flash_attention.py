@@ -41,17 +41,11 @@ from mxnet_tpu.ops.pallas import flash_attention as jfa
 from mxnet_tpu_torch.ops import attention as tatt
 from mxnet_tpu_torch.ops.kernels import dropout_hash as thash
 from mxnet_tpu_torch.ops.kernels import flash_attention as tfa
+from flash_parity import DTYPES, close_grads, inputs, jax_grads
 
 torch.set_num_threads(2)
 
-_DT = {"float32": (jnp.float32, torch.float32),
-       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 MASKS = ["none", "causal", "window", "kv_length"]
-
-
-def inputs(shape, seed=0, n=3):
-    rng = np.random.default_rng(seed)
-    return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
 
 
 def mask_kw(mask, B):
@@ -88,7 +82,7 @@ def port(arrays, tdt):
 @pytest.mark.parametrize("shape,block,dtype", [
     ((2, 2, 64, 16), 32, "float32"), ((2, 2, 48, 16), 16, "bfloat16")])
 def test_forward_and_lse_match_jax(shape, block, dtype, mask):
-    jdt, tdt = _DT[dtype]
+    jdt, tdt = DTYPES[dtype]
     q, k, v = inputs(shape)
     kw = mask_kw(mask, shape[0])
     ref, ref_lse = jax_fwd(q, k, v, jdt, block, **kw)
@@ -115,30 +109,12 @@ def test_forward_and_lse_match_jax(shape, block, dtype, mask):
         assert np.all(out.float().numpy()[1] == 0)
 
 
-def jax_grads(q, k, v, g, block, jdt=jnp.float32, **kw):
-    def loss(a, b, c):
-        out = jfa.flash_attention_tpu(a, b, c, block_q=block, block_k=block,
-                                      interpret=True, **kw)
-        return jnp.sum(out.astype(jnp.float32) * g)
-    jq = [jnp.asarray(a, jdt) for a in (q, k, v)]
-    return [np.asarray(t.astype(jnp.float32))
-            for t in jax.grad(loss, argnums=(0, 1, 2))(*jq)]
-
-
 def port_grads(q, k, v, g, tdt=torch.float32, **kw):
     leaves = [torch.tensor(a).to(tdt).requires_grad_() for a in (q, k, v)]
     out = tfa.flash_attention(*leaves, **kw)
     out.backward(torch.tensor(g).to(tdt))
     return (out.detach().float().numpy(),
             [t.grad.float().numpy() for t in leaves])
-
-
-def close_grads(got, want):
-    """Each gradient within 1e-4 of its largest element: fp32 products
-    and sums over the keys in another order."""
-    for a, b in zip(got, want):
-        np.testing.assert_allclose(a, b, rtol=1e-4,
-                                   atol=1e-4 * np.abs(b).max())
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -151,7 +127,7 @@ def test_gradients_match_jax(dtype, rate):
     agree within one bf16 step (2**-8) of the largest element.  They agree
     exactly here; leaving out the roundings moves some gradient by more
     than that, so the tolerance pins them."""
-    jdt, tdt = _DT[dtype]
+    jdt, tdt = DTYPES[dtype]
     q, k, v, g = inputs((2, 2, 64, 16), seed=1, n=4)
     kw = dict(causal=True, dropout=rate)
     seed = 0xDEADBEEF

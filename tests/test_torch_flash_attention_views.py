@@ -2,8 +2,9 @@
 output views, and the float32 kernels' 3xTF32 tolerance:
 ``mxnet_tpu_torch.ops.kernels.flash_attention`` against ``mxnet_tpu``'s
 flash kernel (``ops/pallas/flash_attention.py``, run in Pallas interpret
-mode on the CPU).  The helpers and the plain-version parity are in
-``test_torch_flash_attention.py``.
+mode on the CPU).  The plain-version parity is in
+``test_torch_flash_attention.py``, the helpers both share in
+``flash_parity.py``.
 
 - the forward on strided views (a permuted qkv, head slices) equals the
   call on their contiguous copies, ``out=`` and ``lse=`` write only
@@ -29,7 +30,7 @@ import jax.numpy as jnp
 
 from mxnet_tpu_torch.ops import attention as tatt
 from mxnet_tpu_torch.ops.kernels import flash_attention as tfa
-from test_torch_flash_attention import _DT, close_grads, inputs, jax_grads
+from flash_parity import DTYPES, close_grads, inputs, jax_grads
 
 torch.set_num_threads(2)
 
@@ -273,7 +274,7 @@ def _jax_bwd_want(dtype, rate, q, k, v, g, L):
         jkw = dict(causal=True)
         if rate:
             jkw = dict(dropout=rate, seed=jnp.uint32(9), kv_length=[L, 13])
-        _JAX_BWD[dtype, rate] = jax_grads(q, k, v, g, 64, _DT[dtype][0],
+        _JAX_BWD[dtype, rate] = jax_grads(q, k, v, g, 64, DTYPES[dtype][0],
                                           **jkw)
     return _JAX_BWD[dtype, rate]
 
@@ -292,7 +293,7 @@ def test_backward_strided_views_equal_contiguous_call(layout, dtype, rate):
     the CPU the wrappers read contiguous copies; that the kernels read the
     views in place to the same bits is ``chip_smoke.check_flash_strided``'s
     check on the card.)"""
-    tdt = _DT[dtype][1]
+    tdt = DTYPES[dtype][1]
     B, H, L, D = 2, 2, 64, 16
     q, k, v, g = inputs((B, H, L, D), seed=7, n=4)
     if layout == "permuted":
@@ -368,7 +369,7 @@ def test_gradients_on_permuted_views_match_jax(dtype):
     through the JAX package's kernel in interpret mode on the same numpy
     q, k, v (causal, kv_length with a row of length 0), within the
     tolerances of ``test_gradients_match_jax``."""
-    jdt, tdt = _DT[dtype]
+    jdt, tdt = DTYPES[dtype]
     B, H, L, D = 2, 2, 64, 16
     rng = np.random.default_rng(10)
     qkv = rng.standard_normal((B, L, 3, H, D)).astype(np.float32)
