@@ -27,7 +27,13 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   and the dropout-free loss after step 1 are printed exactly, so two
   trees' can be compared bit for bit;
 - ``amp``: the AMP bf16 phase at B 32, L 128 alone, ``--steps`` steps
-  (default 30) and no profiler: its step p50 over more steps.
+  (default 30) and no profiler: its step p50 over more steps;
+- ``lstm``: the LSTM kernels' build report (ptxas registers and spills),
+  ``chip_smoke.lstm_timing`` in fp32 and bf16 (T 35, B 32, H 650: #10
+  and #11 beside their plain versions, bounds and cuDNN, the backward's
+  phases by ``%globaltimer``), then ``chip_smoke.train_lm`` for the word
+  LM, fp32 and AMP bf16, 10 steps each, with the step-1 loss printed
+  exactly.
 
 A TREE named more than once runs that many more turns.  Every line a run
 prints starts with its TREE's directory name.  Needs one card; the
@@ -43,7 +49,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("route", "kernels", "host", "bert", "amp")
+PHASES = ("route", "kernels", "host", "bert", "amp", "lstm")
 
 
 def build(trees, names):
@@ -94,6 +100,21 @@ def run(tree, phases, steps):
             _, st = cs.train(torch, 0, name, B, L, steps, amp=amp,
                              profile_steps=3, **kw)
             cs.log("bert %s: %s" % (name, json.dumps(st)))
+    if "lstm" in phases:
+        from mxnet_tpu_torch.ops.kernels import _build
+        from mxnet_tpu_torch.ops.kernels import fused_cell as fc
+        log = _build.build(["lstm"])["lstm"].with_suffix(".log")
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                cs.log("ptxas lstm: %s" % line.strip())
+        cs.lstm_timing(torch, fc, timer, torch.float32)
+        cs.lstm_timing(torch, fc, timer, torch.bfloat16)
+        torch.cuda.empty_cache()
+        for label, amp in (("lstm_lm_fp32", False),
+                           ("lstm_lm_amp_bf16", True)):
+            _, st = cs.train_lm(torch, 0, label, amp=amp)
+            cs.log("lstm %s: step-1 loss %r; %s"
+                   % (label, st["first_loss"], json.dumps(st)))
     if "amp" in phases:
         torch.cuda.empty_cache()
         _, st = cs.train(torch, 0, "amp_bf16", cs.TRAIN_B, cs.TRAIN_L, steps,
@@ -121,8 +142,8 @@ def main():
         print("chip_flash_ab: no CUDA device", file=sys.stderr)
         return 2
     trees = [os.path.abspath(t) for t in args.trees]
-    rcs = build(sorted(set(trees)), None if {"bert", "amp"} & set(phases)
-                else ["flash_attention"])
+    rcs = build(sorted(set(trees)), None if {"bert", "amp", "lstm"}
+                & set(phases) else ["flash_attention"])
     if any(rcs):
         print("chip_flash_ab: a build failed: %s" % rcs, file=sys.stderr)
         return 1

@@ -1326,6 +1326,26 @@ def lstm_bounds(T, B, H, e):
             bound(bwd_bytes, 4 * T * B * H * G))
 
 
+def lstm_stamps(torch, fc, timer, bwd, T, runs=5):
+    """The backward time loop's phases by ``%globaltimer`` (block 0's
+    stamps, ``fused_cell.lstm_bwd_phase_times``), each launch after the
+    L2 flush: per phase the median over ``runs`` launches of its sum over
+    the T steps, in µs, and that over T.  Printed and returned."""
+    totals = []
+    for _ in range(runs + 1):
+        timer.flush.zero_()
+        totals.append(fc.lstm_bwd_phase_times(*bwd)[0])
+    med = {p: statistics.median(t[p] for t in totals[1:])
+           for p in fc.LSTM_BWD_PHASES}
+    log("lstm_sequence_bwd %s phases by %%globaltimer (block 0, median of "
+        "%d launches, T %d): %s; per step %s; sum %.2f us per step"
+        % (str(bwd[0].dtype)[6:], runs, T, " ".join(
+            "%s %.2f us" % kv for kv in med.items()), " ".join(
+            "%s %.3f" % (p, v / T) for p, v in med.items()),
+           sum(med.values()) / T))
+    return med
+
+
 def lstm_timing(torch, fc, timer, dt):
     """#10 and #11 at the word LM's layer shape (T 35, B 32, H 650) beside
     their plain versions, their bounds, and cuDNN's LSTM (one layer of the
@@ -1361,6 +1381,7 @@ def lstm_timing(torch, fc, timer, dt):
         torch.matmul(x.reshape(T * B, H).T, dg)       # dW_i2h
 
     bwd_products = timer(bwd_with_products)
+    stamps = lstm_stamps(torch, fc, timer, bwd, T)
     cudnn = torch.nn.LSTM(H, H).to(DEV, dt)
     with torch.no_grad():
         cudnn.weight_ih_l0.copy_(w_i2h)
@@ -1399,6 +1420,7 @@ def lstm_timing(torch, fc, timer, dt):
                          * 1e3)
     rows["lstm_sequence_fwd"]["with_i2h_ms"] = with_i2h
     rows["lstm_sequence_bwd"]["with_products_ms"] = bwd_products
+    rows["lstm_sequence_bwd"]["phase_us"] = stamps
     log("cuDNN LSTM output vs #10 + i2h on the same weights (%s): max abs "
         "diff %.3g (the yardstick computes the same function)"
         % (str(dt)[6:], same))

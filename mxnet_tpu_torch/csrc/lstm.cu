@@ -325,8 +325,15 @@ struct BwdArgs {
   void* dh0;           // (B, H)
   void* dc0;           // (B, H)
   float* dgbuf;        // (2, 4H, BP) float32 scratch, BP = B rounded up to 32
+  long long* timing;   // NULL, or 1 + 5 T stamps (see lstm_bwd_kernel)
   int T, B, H, BP;
 };
+
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 // dh_own[b][u] = sum_g dg[g][b] * W[j0 + u][g] for rows b0..b0+31: warps
 // split g, lane = row, 16 loads from the L2 in flight per lane (the dg of
@@ -400,14 +407,25 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_kernel(BwdArgs a) {
   const T* hp = static_cast<const T*>(a.hp);
   const T* dout = static_cast<const T*>(a.dout);
   T* dgx = static_cast<T*>(a.dgx);
+  // with a timing buffer, block 0's thread 0 stamps the start, then the
+  // end of each step's stage, gate products, elementwise, barrier and dh
+  // products (with B over 32, the first three at the last 32-row pass)
+  const bool timed = a.timing != nullptr;
+  const bool stamp = timed && blockIdx.x == 0 && threadIdx.x == 0;
+  long long* ts = a.timing;
+  __syncthreads();
+  if (stamp) *ts++ = globaltimer();
   for (int s = 0; s < a.T; ++s) {
     const int t = a.T - 1 - s;
     float* dg = a.dgbuf + (size_t)(s & 1) * G * BP;
     for (int b0 = 0; b0 < B; b0 += ROWS) {
+      const bool last = b0 + ROWS >= B;
       __syncthreads();
       stage(hs, hp + (size_t)t * H * B, H, B, b0);
       __syncthreads();
+      if (stamp && last) ts[0] = globaltimer();
       gate_products<U>(hs, wc, pre, H);
+      if (stamp && last) ts[1] = globaltimer();
       const int rows = min(ROWS, B - b0);
       for (int e = threadIdx.x; e < rows * U; e += blockDim.x) {
         const int r = e / U, u = e - r * U, j = j0 + u, b = b0 + r;
@@ -442,10 +460,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_kernel(BwdArgs a) {
         dg[(size_t)(3 * H + j) * BP + b] = dgo;
         dc_own[b * U + u] = dc * f;
       }
+      if (timed && last) {
+        __syncthreads();
+        if (stamp) ts[2] = globaltimer();
+      }
     }
     grid.sync();              // dg of step t is complete in the L2
+    if (stamp) ts[3] = globaltimer();
     for (int b0 = 0; b0 < B; b0 += ROWS)
       dh_products<U>(dg, wr, hs, dh_own, B, BP, G, b0);
+    if (stamp) ts[4] = globaltimer();
+    ts += 5;
   }
   T* dh0 = static_cast<T*>(a.dh0);
   T* dc0 = static_cast<T*>(a.dc0);
@@ -582,14 +607,14 @@ extern "C" int mxt_lstm_fwd(const void* gx, const void* c0,
 }
 
 // One launch of the backward time loop; dgbuf holds 2 * 4H * BP floats,
-// BP = B rounded up to a multiple of 32.
+// BP = B rounded up to a multiple of 32; timing is NULL or 1 + 5 T int64.
 extern "C" int mxt_lstm_bwd(const void* gx, const void* hp, const void* cp,
                             const void* cseq, const void* dout,
                             const void* dcseq, const void* w, long long sk,
                             long long sg, int w_bf16, const void* b,
                             int b_bf16, void* dgx, void* dh0, void* dc0,
-                            void* dgbuf, int T, int B, int H, int BP,
-                            int bf16, void* stream) {
+                            void* dgbuf, long long* timing, int T, int B,
+                            int H, int BP, int bf16, void* stream) {
   int U = 0, grid = 0;
   size_t smem = 0;
   cudaError_t e = plan(true, bf16, H, B, &U, &grid, &smem);
@@ -607,6 +632,7 @@ extern "C" int mxt_lstm_bwd(const void* gx, const void* hp, const void* cp,
   a.dh0 = dh0;
   a.dc0 = dc0;
   a.dgbuf = (float*)dgbuf;
+  a.timing = timing;
   a.T = T;
   a.B = B;
   a.H = H;

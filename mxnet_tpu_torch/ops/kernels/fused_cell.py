@@ -53,6 +53,7 @@ __all__ = ["lstm_sequence", "lstm_sequence_plain",
            "lstm_sequence_backward_plain", "lstm_plan",
            "decode_layer_group", "decode_layer_group_plain", "WeightTable",
            "WEIGHT_ORDER", "PHASES", "grid_blocks", "phase_times",
+           "LSTM_BWD_PHASES", "lstm_bwd_phase_times",
            "decode_attn_phase", "decode_attn_phase_plain", "decode_ffn_phase",
            "decode_ffn_phase_plain", "phase_grid_blocks"]
 
@@ -479,7 +480,7 @@ def _lstm_lib():
     lib.mxt_lstm_fwd.argtypes = ([_P] * 3 + [L, L, _I, _P, _I] + [_P] * 3
                                  + [_I] * 4 + [_P])
     lib.mxt_lstm_fwd.restype = _I
-    lib.mxt_lstm_bwd.argtypes = ([_P] * 7 + [L, L, _I, _P, _I] + [_P] * 4
+    lib.mxt_lstm_bwd.argtypes = ([_P] * 7 + [L, L, _I, _P, _I] + [_P] * 5
                                  + [_I] * 5 + [_P])
     lib.mxt_lstm_bwd.restype = _I
     return lib
@@ -567,6 +568,33 @@ def _lstm_bwd(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):
     if gates_x.device.type == "cpu":
         return lstm_sequence_backward_plain(gates_x, h_prev, c_prev, cseq,
                                             dout, dcseq, w, b)
+    return _lstm_bwd_launch(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b,
+                            None)
+
+
+#: the phases of one step of the backward time loop, in the order the
+#: kernel stamps their ends (:func:`lstm_bwd_phase_times`)
+LSTM_BWD_PHASES = ("stage", "gate_products", "elementwise", "barrier",
+                   "dh_products")
+
+
+def lstm_bwd_phase_times(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):
+    """One launch of the backward time loop on CUDA tensors (the arguments
+    of ``_lstm_bwd``) that also stamps the card's global timer at the end
+    of every phase of every step.  Returns ``(total, per_step)``: µs per
+    phase of :data:`LSTM_BWD_PHASES` summed over the steps, and the list
+    of µs per step of each, in the order the steps run (t = T-1 first)."""
+    T = gates_x.shape[0]
+    n = len(LSTM_BWD_PHASES)
+    stamps = torch.zeros(1 + n * T, dtype=torch.int64, device=gates_x.device)
+    _lstm_bwd_launch(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b, stamps)
+    d = torch.diff(stamps.cpu()).double().reshape(T, n) / 1e3
+    per_step = {p: d[:, i].tolist() for i, p in enumerate(LSTM_BWD_PHASES)}
+    return {p: sum(v) for p, v in per_step.items()}, per_step
+
+
+def _lstm_bwd_launch(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b,
+                     stamps):
     if gates_x.device.type != "cuda":
         raise ValueError("lstm_sequence: unsupported device %s"
                          % gates_x.device)
@@ -591,7 +619,9 @@ def _lstm_bwd(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):
         cseq.data_ptr(), dout.data_ptr(), dcseq.data_ptr(), w.data_ptr(),
         w.stride(0), w.stride(1), _LSTM_DTYPES[w.dtype], b.data_ptr(),
         _LSTM_DTYPES[b.dtype], dgx.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), dgbuf.data_ptr(), T, B, H, bp, _LSTM_DTYPES[dt],
+        dc0.data_ptr(), dgbuf.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), T, B, H, bp,
+        _LSTM_DTYPES[dt],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "lstm_sequence (backward)")
     lstm_sequence.launches_bwd += 1
