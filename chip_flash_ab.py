@@ -1,7 +1,7 @@
-"""Time the port's flash attention over checkouts of the repo, in turns,
-on one card.
+"""Time the port's flash attention and LSTM kernels over checkouts of the
+repo, in turns, on one card.
 
-    python3 chip_flash_ab.py [--phases route,kernels,host,bert] TREE ...
+    python3 chip_flash_ab.py [--phases route,kernels,host,bert,lstm] TREE ...
 
 Builds the kernels of every TREE at once (one ``nvcc`` per source), then
 runs the phases in each TREE in order and then in reverse (with two trees:
@@ -30,10 +30,12 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   (default 30) and no profiler: its step p50 over more steps;
 - ``lstm``: the LSTM kernels' build report (ptxas registers and spills),
   ``chip_smoke.lstm_timing`` in fp32 and bf16 (T 35, B 32, H 650: #10
-  and #11 beside their plain versions, bounds and cuDNN, the backward's
-  phases by ``%globaltimer``), then ``chip_smoke.train_lm`` for the word
-  LM, fp32 and AMP bf16, 10 steps each, with the step-1 loss printed
-  exactly.
+  and #11 beside their plain versions, bounds and cuDNN; #11's recompute
+  and time loop apart where the tree has them; the backward's phases by
+  ``%globaltimer`` where the tree stamps them; digests of #10's and
+  #11's outputs, to compare trees bit for bit), then
+  ``chip_smoke.train_lm`` for the word LM, fp32 and AMP bf16, 10 steps
+  each, with the step-1 loss printed exactly.
 
 A TREE named more than once runs that many more turns.  Every line a run
 prints starts with its TREE's directory name.  Needs one card; the
@@ -75,6 +77,7 @@ def run(tree, phases, steps):
         os.path.join(os.path.abspath(tree), "")), fa.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cs.log("card: %s" % cs.card_line())
     timer = cs.Timer(torch)
     if "route" in phases:
         cs.check_sharded_attention(torch, timer, {}, profile=True)
@@ -103,6 +106,10 @@ def run(tree, phases, steps):
     if "lstm" in phases:
         from mxnet_tpu_torch.ops.kernels import _build
         from mxnet_tpu_torch.ops.kernels import fused_cell as fc
+        if not hasattr(fc.lstm_sequence, "launches_bwd_gates"):
+            # a tree whose backward is one kernel: no recompute launches
+            fc.lstm_sequence.launches_bwd_gates = 0
+            cs.LM_PER_STEP.pop("lstm_sequence_bwd_gates")
         log = _build.build(["lstm"])["lstm"].with_suffix(".log")
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:

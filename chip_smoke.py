@@ -38,12 +38,18 @@ plain version):
    kernels' fixed part (every kv_length 0) in both types, and at
    dropout 0 beside SDPA given the same key mask (the same function).
    The LSTM time loop
-   (#10 forward, #11 backward) against its plain versions and #11 (through
-   the autograd Function) against autograd through the plain forward:
-   float32 and bfloat16, (T, B, H) of (35, 32, 650), (7, 5, 37) and (35,
-   1, 650), zero and random initial state, dcseq zero but at T-1 (12
-   cases); both timed at (35, 32, 650) beside their plain versions, their
-   bounds and cuDNN's LSTM on the same weights.  The tensor-parallel
+   (#10 forward, #11 backward: its gate recompute and its time loop)
+   against its plain versions, #11's recompute against its own, two
+   launches of #11 bit for bit, and #11 (through the autograd Function)
+   against autograd through the plain forward: float32 and bfloat16,
+   (T, B, H) of (35, 32, 650), (7, 5, 37), (35, 1, 650), (35, 64, 650),
+   (1, 32, 650) and (400, 32, 650), and a bfloat16 layer with a float32 W
+   at the first two, zero and random initial state, dcseq zero but at T-1
+   (28 cases); both timed at (35, 32, 650) beside their plain versions,
+   their bounds and cuDNN's LSTM on the same weights, #11's two kernels
+   also apart, its time loop's phases by ``%globaltimer`` and its serial
+   chain's floor; the SASS of #11's kernels: tensor-core products, no
+   atomic.  The tensor-parallel
    decode phases (#13 attention, #14 FFN) on every shard of one layer at
    tp 2 and 4 of the serving model and at tp 2 of a GQA one (12 heads
    over 4 KV heads), at B 16 (lengths 1..512, one row of length 0) and
@@ -101,7 +107,8 @@ plain version):
    with truncated BPTT (each step starts from the last one's detached
    state), in fp32 and again under AMP bf16, whose step-1 loss must agree
    with fp32's.  The loss on segment 0 from a zero state must fall, each
-   step must launch #10 and #11 twice (counts set to 0 before the phase)
+   step must launch #10 and #11's two kernels twice (counts set to 0
+   before the phase)
    and every tensor autograd saves must be on the card.  Then one SGD
    step of a small word LM (vocab 100, 2 x 64, B 4, T 8) on the card and
    on CPU copies: loss, gradients and weights agree.
@@ -112,6 +119,7 @@ plain version):
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -202,8 +210,14 @@ class Timer:
 
 
 def bound(nbytes, flops, peak=FP32_FLOPS):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+    return bound_time(nbytes, flops / peak)
+
+
+def bound_time(nbytes, t_ops):
+    """(ms, by): the larger of the bytes' time at the card's memory rate
+    and ``t_ops`` seconds of operations."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    return max(t_b, t_ops) * 1e3, ("bytes" if t_b >= t_ops else "operations")
 
 
 def tables_for(rng, lengths, pps, first_page=1):
@@ -1230,44 +1244,56 @@ def check_flash_attention(torch, timer, report):
 
 
 # the LSTM kernels #10 and #11 against their plain versions on the card.
-# fp32: the kernel sums each gate's H products in 8 warp slices and the
-# plain version through cuBLAS, over up to 35 steps whose carries feed
-# back: ~1e-6 on h and c of order 1 (the first run read <= 5e-7); these
-# allow 100x that, absolute on h and c, relative to the largest element on
-# the gradients.  bf16: both compute in fp32 and round h, dgx, dh0 and dc0
-# to bf16 at the end, so fp32 results a few ulps apart can round to
-# neighbouring bf16 values: one bf16 step of the plain value, and 1e-4 of
-# the largest element beyond it.  Against autograd through the plain
-# forward in bf16: the backward recomputes the gates from the
-# bf16-rounded h_prev (as the JAX backward does, fused_cell.py:287) where
-# autograd differentiates the fp32 carries, a 2**-9 relative change in
-# every recurrent product: 2**-5 of the largest element.
+# fp32: the kernels sum each gate's H products in another order than the
+# plain version's cuBLAS (#10: 8 warp slices; #11: the recompute's 3xTF32
+# tensor-core products, ~2^-21 relative each, and the dh partial sums per
+# block of units), over up to 400 steps whose carries feed back: ~1e-6 on
+# h and c of order 1 (the first runs read <= 5e-7); these allow 100x that,
+# absolute on h, c and the recomputed activations, relative to the largest
+# element on the gradients.  A single-TF32 recompute (~2e-4 on dgx) fails
+# them (``tests/test_torch_lstm_blocked.py``).  bf16: both compute in fp32
+# and round h, dgx, dh0 and dc0 to bf16 at the end, so fp32 results a few
+# ulps apart can round to neighbouring bf16 values: one bf16 step of the
+# plain value, and 1e-4 of the largest element beyond it.  Against autograd
+# through the plain forward in bf16: the backward recomputes the gates from
+# the bf16-rounded h_prev (as the JAX backward does, fused_cell.py:287)
+# where autograd differentiates the fp32 carries, a 2**-9 relative change
+# in every recurrent product: 2**-5 of the largest element.
 TOL_LSTM = 1e-4
 TOL_LSTM_GRAD_BF16 = 2.0 ** -5
+#: the spin (cycles, ~0.5 ms) before each timed launch of #11 and its
+#: yardsticks, so that the host has enqueued the wrapper's work before
+#: the card reaches it
+LSTM_BWD_SPIN = 1_000_000
 #: (T, B, H) of the LSTM checks: the word LM's layer, a ragged H with a
-#: batch below one warp, and one sequence
-LSTM_SHAPES = ((35, 32, 650), (7, 5, 37), (35, 1, 650))
+#: batch below one warp, one sequence, a batch over two 32-row passes, one
+#: step, and 400 steps (133 MB of fp32 activations, over the 50 MB L2)
+LSTM_SHAPES = ((35, 32, 650), (7, 5, 37), (35, 1, 650), (35, 64, 650),
+               (1, 32, 650), (400, 32, 650))
 
 
-def lstm_inputs(torch, g, T, B, H, dt, zero_state):
+def lstm_inputs(torch, g, T, B, H, dt, zero_state, w_dt=None):
     """gx, h0, c0, W (a transposed view of w_h2h, as the layer passes it),
-    b of the LSTM checks, in ``dt``."""
+    b of the LSTM checks, in ``dt`` (W and b in ``w_dt`` when given)."""
+    w_dt = w_dt or dt
     gx = torch.randn(T, B, 4 * H, device=DEV, generator=g).to(dt)
     h0, c0 = ((torch.zeros(B, H, device=DEV) if zero_state else
                0.5 * torch.randn(B, H, device=DEV, generator=g)).to(dt)
               for _ in range(2))
     w = ((6.0 / (5 * H)) ** 0.5 * (torch.rand(4 * H, H, device=DEV,
-                                              generator=g) * 2 - 1)).to(dt).T
-    b = (0.1 * torch.randn(4 * H, device=DEV, generator=g)).to(dt)
+                                              generator=g) * 2 - 1)).to(
+        w_dt).T
+    b = (0.1 * torch.randn(4 * H, device=DEV, generator=g)).to(w_dt)
     return gx, h0, c0, w, b
 
 
-def lstm_case(torch, fc, g, T, B, H, dt, zero_state):
-    """#10 and #11 against the plain versions and #11 (through the
-    autograd Function) against autograd through the plain forward, with a
-    loss over out and cT (dcseq zero except at T-1).  Returns the worst
-    errors."""
-    gx, h0, c0, w, b = lstm_inputs(torch, g, T, B, H, dt, zero_state)
+def lstm_case(torch, fc, g, T, B, H, dt, zero_state, w_dt=None):
+    """#10 and #11 against the plain versions, #11's recompute kernel
+    against its own, two launches of #11 bit for bit, and #11 (through
+    the autograd Function) against autograd through the plain forward,
+    with a loss over out and cT (dcseq zero except at T-1).  Returns the
+    worst errors."""
+    gx, h0, c0, w, b = lstm_inputs(torch, g, T, B, H, dt, zero_state, w_dt)
     out, cseq = fc._lstm_fwd(gx, h0, c0, w, b)
     pout, pcseq = fc.lstm_sequence_plain(gx, h0, c0, w, b)
     f32 = dt == torch.float32
@@ -1280,6 +1306,16 @@ def lstm_case(torch, fc, g, T, B, H, dt, zero_state):
     dcs = torch.zeros(T, B, H, device=DEV)
     dcs[-1] = torch.randn(B, H, device=DEV, generator=g)
     kern = fc._lstm_bwd(gx, hp, cp, cseq, dout, dcs, w, b)
+    again = fc._lstm_bwd(gx, hp, cp, cseq, dout, dcs, w, b)
+    if not all(torch.equal(x, y) for x, y in zip(kern, again)):
+        raise AssertionError("lstm_sequence T %d B %d H %d %s: two launches "
+                             "of #11 differ" % (T, B, H, str(dt)[6:]))
+    gates, _, _, (rec, units) = fc._lstm_bwd_parts(gx, hp, cp, cseq, dout,
+                                                   dcs, w, b)
+    gates()
+    errs["gates"] = float((fc.lstm_record_gates(rec, T, B, H, units)
+                           - fc.lstm_bwd_gates_plain(gx, hp, w, b))
+                          .abs().max())
     plain = fc.lstm_sequence_backward_plain(gx, hp, cp, cseq, dout, dcs, w,
                                             b)
     for name, k, p in zip(("dgx", "dh0", "dc0"), kern, plain):
@@ -1304,46 +1340,75 @@ def lstm_case(torch, fc, g, T, B, H, dt, zero_state):
     bad = [n for n, e in errs.items()
            if not e <= (tol_ag if n == "autograd" else TOL_LSTM)]
     if bad:
-        raise AssertionError("lstm_sequence T %d B %d H %d %s %s state: %s "
-                             "beyond tolerance: %s"
-                             % (T, B, H, str(dt)[6:], "zero" if zero_state
-                                else "random", bad, errs))
+        raise AssertionError("lstm_sequence T %d B %d H %d %s (W %s) %s "
+                             "state: %s beyond tolerance: %s"
+                             % (T, B, H, str(dt)[6:], str(w.dtype)[6:],
+                                "zero" if zero_state else "random", bad,
+                                errs))
     return errs
 
 
-def lstm_bounds(T, B, H, e):
-    """(bound ms, by) of #10 and of #11 for elements of ``e`` bytes: each
-    input read and each output written once; the recurrent products (2 T
-    B H 4H forward, twice that backward) at the fp32 rate, since their
-    operands are the fp32 carries and W cast to fp32, as in the JAX
-    kernel."""
+def lstm_bounds(T, B, H, e, w_e=None):
+    """(bound ms, by) of #10, of #11 (both launches) and of #11's
+    recompute, for the layer's elements of ``e`` bytes and W's of ``w_e``
+    (``e`` when None): each input read and each output written once (the
+    recompute writes the activations, T B 4H fp32); the recurrent products
+    (2 T B H 4H each: #10's, #11's recompute and #11's dh products) as
+    PERF.md's convention rates them, bf16 x bf16 at 989 TFLOP/s and
+    fp32-accurate ones as 3xTF32 (3 x flops at 495).  #10's operand is the
+    fp32 carry and #11's dh products' the fp32 dg, so only a bf16 layer's
+    recompute with a bf16 W runs at the bf16 rate."""
+    w_e = w_e or e
     G = 4 * H
-    fwd_bytes = e * (T * B * G + T * B * H + 2 * B * H + H * G + G) \
-        + 4 * T * B * H
-    bwd_bytes = e * (2 * T * B * G + 2 * T * B * H + 2 * B * H + H * G
-                     + G) + 4 * 3 * T * B * H
-    return (bound(fwd_bytes, 2 * T * B * H * G),
-            bound(bwd_bytes, 4 * T * B * H * G))
+    flops = 2 * T * B * H * G
+    acc = flops / TF32X3_FLOPS
+    rec = flops / BF16_FLOPS if e == w_e == 2 else acc
+    wb = w_e * (H * G + G)
+    fwd_bytes = e * (T * B * G + T * B * H + 2 * B * H) + wb + 4 * T * B * H
+    bwd_bytes = e * (2 * T * B * G + 2 * T * B * H + 2 * B * H) + wb \
+        + 4 * 3 * T * B * H
+    gates_bytes = e * (T * B * G + T * B * H) + wb + 4 * T * B * G
+    return (bound_time(fwd_bytes, acc), bound_time(bwd_bytes, rec + acc),
+            bound_time(gates_bytes, rec))
 
 
 def lstm_stamps(torch, fc, timer, bwd, T, runs=5):
-    """The backward time loop's phases by ``%globaltimer`` (block 0's
-    stamps, ``fused_cell.lstm_bwd_phase_times``), each launch after the
-    L2 flush: per phase the median over ``runs`` launches of its sum over
-    the T steps, in µs, and that over T.  Printed and returned."""
+    """The backward's phases by ``%globaltimer`` (``fused_cell.
+    lstm_bwd_phase_times``: the time loop's block 0 and, where the tree
+    has it, the recompute's first block), each launch after the L2 flush:
+    per phase the median over ``runs`` launches of its sum over the T
+    steps, in µs.  Printed and returned; then the serial chain's floor, T
+    times the stamped barrier and exchange (the dh sum) a step."""
     totals = []
     for _ in range(runs + 1):
         timer.flush.zero_()
         totals.append(fc.lstm_bwd_phase_times(*bwd)[0])
     med = {p: statistics.median(t[p] for t in totals[1:])
-           for p in fc.LSTM_BWD_PHASES}
+           for p in totals[0]}
+    loop = {p: med[p] for p in fc.LSTM_BWD_PHASES}
+    dt = str(bwd[0].dtype)[6:]
     log("lstm_sequence_bwd %s phases by %%globaltimer (block 0, median of "
         "%d launches, T %d): %s; per step %s; sum %.2f us per step"
-        % (str(bwd[0].dtype)[6:], runs, T, " ".join(
-            "%s %.2f us" % kv for kv in med.items()), " ".join(
-            "%s %.3f" % (p, v / T) for p, v in med.items()),
-           sum(med.values()) / T))
+        % (dt, runs, T, " ".join("%s %.2f us" % kv for kv in loop.items()),
+           " ".join("%s %.3f" % (p, v / T) for p, v in loop.items()),
+           sum(loop.values()) / T))
+    gates = {p: v for p, v in med.items() if p not in loop}
+    if gates:
+        log("lstm_sequence_bwd %s recompute's first block by %%globaltimer: "
+            "%s" % (dt, " ".join("%s %.2f us" % kv for kv in gates.items())))
+    if "dh_sum" in med:
+        log("lstm_sequence_bwd %s serial chain floor: T x (barrier + dh "
+            "sum) = %.4f ms" % (dt, (med["barrier"] + med["dh_sum"]) / 1e3))
     return med
+
+
+def digest(torch, *tensors):
+    """The first 16 hex digits of sha256 over the tensors' bytes (as
+    fp32): equal digests in two runs mean equal results bit for bit."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def lstm_timing(torch, fc, timer, dt):
@@ -1351,7 +1416,10 @@ def lstm_timing(torch, fc, timer, dt):
     their plain versions, their bounds, and cuDNN's LSTM (one layer of the
     same weights, forward, and its backward through autograd), which also
     runs its own i2h GEMM: beside it stand #10 plus the i2h product, and
-    #11 plus the products around it (the i2h backward and dW)."""
+    #11 plus the products around it (the i2h backward and dW).  #11's two
+    kernels, the recompute and the time loop, also apart, and the time
+    loop's phases by its stamps; the digests of #10's outputs and of
+    #11's, to hold two trees' results bit for bit."""
     T, B, H = 35, 32, 650
     g = torch.Generator(device=DEV).manual_seed(14)
     gx, h0, c0, w, b = lstm_inputs(torch, g, T, B, H, dt, False)
@@ -1364,12 +1432,25 @@ def lstm_timing(torch, fc, timer, dt):
     dcs = torch.zeros(T, B, H, device=DEV)
     dcs[-1] = torch.randn(B, H, device=DEV, generator=g)
     bwd = (gx, hp, cp, cseq, dout, dcs, w, b)
+    log("lstm_sequence (T %d, B %d, H %d) %s digests: #10 out, cseq %s; #11 "
+        "dgx, dh0, dc0 %s" % (T, B, H, str(dt)[6:], digest(torch, out, cseq),
+                              digest(torch, *fc._lstm_bwd(*bwd))))
+    # the backward's wrappers enqueue more than the default spin covers
+    spin = LSTM_BWD_SPIN
     ms = {"fwd": timer(lambda: fc._lstm_fwd(gx, h0, c0, w, b)),
-          "bwd": timer(lambda: fc._lstm_bwd(*bwd))}
+          "bwd": timer(lambda: fc._lstm_bwd(*bwd), spin=spin)}
     plain = {"fwd": timer(lambda: fc.lstm_sequence_plain(gx, h0, c0, w, b),
                           iters=5),
              "bwd": timer(lambda: fc.lstm_sequence_backward_plain(*bwd),
                           iters=5)}
+    parts = None
+    if hasattr(fc, "_lstm_bwd_parts"):
+        gates, loop, _, _ = fc._lstm_bwd_parts(*bwd)
+        gates()
+        parts = {"gates": timer(gates, spin=spin),
+                 "loop": timer(loop, spin=spin),
+                 "plain_gates": timer(lambda: fc.lstm_bwd_gates_plain(
+                     gx, hp, w, b), spin=spin)}
     with_i2h = timer(lambda: fc._lstm_fwd(torch.matmul(x, w_i2h.T) + b, h0,
                                           c0, w, b))
 
@@ -1380,8 +1461,9 @@ def lstm_timing(torch, fc, timer, dt):
         torch.matmul(hp.reshape(T * B, H).T, dg)      # dW_h2h
         torch.matmul(x.reshape(T * B, H).T, dg)       # dW_i2h
 
-    bwd_products = timer(bwd_with_products)
-    stamps = lstm_stamps(torch, fc, timer, bwd, T)
+    bwd_products = timer(bwd_with_products, spin=spin)
+    stamps = (lstm_stamps(torch, fc, timer, bwd, T)
+              if hasattr(fc, "lstm_bwd_phase_times") else None)
     cudnn = torch.nn.LSTM(H, H).to(DEV, dt)
     with torch.no_grad():
         cudnn.weight_ih_l0.copy_(w_i2h)
@@ -1400,7 +1482,7 @@ def lstm_timing(torch, fc, timer, dt):
     lib_bwd = timer(lambda: torch.autograd.grad(lo, leaves, dout,
                                                 retain_graph=True),
                     spin=4_000_000)
-    (bf, byf), (bb, byb) = lstm_bounds(T, B, H, gx.element_size())
+    (bf, byf), (bb, byb), (bg, byg) = lstm_bounds(T, B, H, gx.element_size())
     rows = {}
     for key, k_ms, lib, bms, by, extra in (
             ("lstm_sequence_fwd", ms["fwd"], lib_fwd, bf, byf,
@@ -1421,6 +1503,17 @@ def lstm_timing(torch, fc, timer, dt):
     rows["lstm_sequence_fwd"]["with_i2h_ms"] = with_i2h
     rows["lstm_sequence_bwd"]["with_products_ms"] = bwd_products
     rows["lstm_sequence_bwd"]["phase_us"] = stamps
+    if parts:
+        log("lstm_sequence_bwd (T %d, B %d, H %d) %s apart: recompute %.4f ms "
+            "(bound %.4f ms, %s; plain %.4f ms), time loop %.4f ms (%.2f us "
+            "per step); both in one call %.4f ms"
+            % (T, B, H, str(dt)[6:], parts["gates"], bg, byg,
+               parts["plain_gates"], parts["loop"], parts["loop"] / T * 1e3,
+               ms["bwd"]))
+        rows["lstm_sequence_bwd"]["loop_ms"] = parts["loop"]
+        rows["lstm_sequence_bwd_gates"] = dict(
+            ms=parts["gates"], plain_ms=parts["plain_gates"], bound_ms=bg,
+            bound_by=byg, library_ms=None)
     log("cuDNN LSTM output vs #10 + i2h on the same weights (%s): max abs "
         "diff %.3g (the yardstick computes the same function)"
         % (str(dt)[6:], same))
@@ -1428,32 +1521,43 @@ def lstm_timing(torch, fc, timer, dt):
 
 
 def check_lstm(torch, timer, report):
-    """Kernels #10 and #11 at (T, B, H) of (35, 32, 650), (7, 5, 37) and
-    (35, 1, 650), float32 and bfloat16, with h0/c0 zero and random: the
-    forward and backward against the plain versions, and the gradients of
-    the autograd Function against autograd through the plain forward; then
-    the times at the word LM's shape in float32 and bfloat16."""
+    """Kernels #10 and #11 at every (T, B, H) of ``LSTM_SHAPES``, float32
+    and bfloat16, with h0/c0 zero and random, and a bfloat16 layer with a
+    float32 W (the recompute's two-product path) at the first two: the
+    forward and backward against the plain versions, #11's recompute
+    kernel against its own, two launches of #11 bit for bit, and the
+    gradients of the autograd Function against autograd through the plain
+    forward; then the times at the word LM's shape in float32 and
+    bfloat16."""
     from mxnet_tpu_torch.ops.kernels import fused_cell as fc
     g = torch.Generator(device=DEV).manual_seed(13)
+    cases = [(dt, None, shape) for dt in (torch.float32, torch.bfloat16)
+             for shape in LSTM_SHAPES]
+    cases += [(torch.bfloat16, torch.float32, shape)
+              for shape in LSTM_SHAPES[:2]]
     worst, n = {}, 0
-    for dt in (torch.float32, torch.bfloat16):
-        for T, B, H in LSTM_SHAPES:
-            for zero_state in (True, False):
-                errs = lstm_case(torch, fc, g, T, B, H, dt, zero_state)
-                n += 1
-                w = worst.setdefault(str(dt)[6:], {})
-                for k, e in errs.items():
-                    w[k] = max(w.get(k, 0.0), e)
+    for dt, w_dt, (T, B, H) in cases:
+        for zero_state in (True, False):
+            errs = lstm_case(torch, fc, g, T, B, H, dt, zero_state, w_dt)
+            n += 1
+            w = worst.setdefault(str(dt)[6:] + ("" if w_dt is None else
+                                                " (W float32)"), {})
+            for k, e in errs.items():
+                w[k] = max(w.get(k, 0.0), e)
     plan = fc.lstm_plan(650, 32), fc.lstm_plan(650, 32, backward=True)
-    log("lstm_sequence: %d cases pass; worst errors %s (tol %g; bf16: "
-        "beyond one bf16 step, and %g against autograd); (units per block, "
-        "blocks, shared bytes) at H 650, B 32: forward %s, backward %s"
+    log("lstm_sequence: %d cases pass, #11 bit for bit across two launches "
+        "in each; worst errors %s (tol %g; bf16: beyond one bf16 step, and "
+        "%g against autograd); (units per block, blocks, shared bytes) at "
+        "H 650, B 32: forward %s, backward %s"
         % (n, json.dumps(worst), TOL_LSTM, TOL_LSTM_GRAD_BF16, plan[0],
            plan[1]))
     rows = lstm_timing(torch, fc, timer, torch.float32)
-    for key, line in (("lstm_sequence_fwd", 142), ("lstm_sequence_bwd", 195)):
-        err = (worst["float32"]["out"] if key.endswith("fwd")
-               else max(worst["float32"][k] for k in ("dgx", "dh0", "dc0")))
+    f32 = worst["float32"]
+    for key, line, err in (
+            ("lstm_sequence_fwd", 142, f32["out"]),
+            ("lstm_sequence_bwd", 195, max(f32[k] for k in ("dgx", "dh0",
+                                                            "dc0"))),
+            ("lstm_sequence_bwd_gates", 195, f32["gates"])):
         report[key] = dict(
             name=key, route="cuda", source="mxnet_tpu_torch/csrc/lstm.cu",
             replaces="mxnet_tpu/ops/pallas/fused_cell.py:%d" % line,
@@ -1461,6 +1565,41 @@ def check_lstm(torch, timer, report):
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     report["lstm_fp32"] = rows
     report["lstm_bf16"] = lstm_timing(torch, fc, timer, torch.bfloat16)
+
+
+def check_lstm_sass(libs):
+    """#11's recompute kernel issues tensor-core products, wgmma in bf16
+    (HGMMA ... BF16) and in tf32 (HGMMA ... TF32) in its float
+    instantiations; the time loop's partial products run on wgmma in
+    tf32 too; neither kernel holds an atomic."""
+    census = sass_census(libs["lstm"], "lstm_bwd", full=True)
+    bad, gates, loops = [], 0, 0
+    for fn, ops in sorted(census.items()):
+        parts = {op: op.split(".") for op in ops}
+        tc = {kind: sum(n for op, n in ops.items() if parts[op][0] == kind
+                        and ("TF32" in parts[op] or "BF16" in parts[op]))
+              for kind in ("HGMMA", "HMMA")}
+        atomics = sum(n for op, n in ops.items()
+                      if parts[op][0] in ATOMIC_OPS)
+        if "lstm_bwd_gates_kernel" in fn:
+            gates += 1
+            want = "TF32" if "gates_kernelIf" in fn else "BF16"
+            ok = any(parts[op][0] == "HGMMA" and want in parts[op]
+                     for op in ops)
+        else:
+            loops += 1
+            ok = any(parts[op][0] == "HGMMA" and "TF32" in parts[op]
+                     for op in ops)
+        log("SASS %s: tensor-core %s, atomics %d" % (fn[-60:], tc, atomics))
+        if not ok or atomics:
+            bad.append(fn)
+    # the recompute in bf16 and four tf32 ones (which operands take their
+    # residual product, the layer's type); the time loop for 2 types x U
+    # 1..8
+    if gates != 5 or loops != 16 or bad:
+        raise AssertionError("lstm SASS: %d recompute and %d time-loop "
+                             "kernels, without their tensor-core products "
+                             "or with atomics: %s" % (gates, loops, bad))
 
 
 # ---------------------------------------------------------------------------
@@ -1914,7 +2053,8 @@ KERNELS = ("bias_gelu", "paged_attention", "decode_layer_group",
            "bias_gelu_backward", "bias_dropout_residual_fwd",
            "bias_dropout_residual_bwd", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "lstm_sequence_fwd", "lstm_sequence_bwd", "decode_attn_phase",
+           "lstm_sequence_fwd", "lstm_sequence_bwd",
+           "lstm_sequence_bwd_gates", "decode_attn_phase",
            "decode_ffn_phase", "flash_attention_sharded_causal")
 
 
@@ -1944,6 +2084,8 @@ def launch_counts(reset=False):
                                             "launches_dkv"),
                 "lstm_sequence_fwd": (fc.lstm_sequence, "launches_fwd"),
                 "lstm_sequence_bwd": (fc.lstm_sequence, "launches_bwd"),
+                "lstm_sequence_bwd_gates": (fc.lstm_sequence,
+                                            "launches_bwd_gates"),
                 "decode_attn_phase": (fc.decode_attn_phase, "launches"),
                 "decode_ffn_phase": (fc.decode_ffn_phase, "launches"),
                 # the #16 route: causal shards sent to flash kernel #5
@@ -2434,7 +2576,8 @@ LM = dict(vocab=10000, emsize=650, nhid=650, nlayers=2)
 LM_B, LM_T, LM_STEPS, LM_LR = 32, 35, 10, 0.1
 #: kernel launches of one training step (one per layer each way) and of
 #: one loss evaluation (forward only)
-LM_PER_STEP = {"lstm_sequence_fwd": 2, "lstm_sequence_bwd": 2}
+LM_PER_STEP = {"lstm_sequence_fwd": 2, "lstm_sequence_bwd": 2,
+               "lstm_sequence_bwd_gates": 2}
 LM_PER_EVAL = {"lstm_sequence_fwd": 2}
 # AMP bf16 vs fp32, the loss of step 1 (the same weights and tokens): bf16
 # rounds the embedding, the i2h products, h and the decoder's inputs to 8
@@ -2714,6 +2857,7 @@ def main():
                     log("  %s: %s" % (name, line.strip()))
 
     check_flash_sass(libs)
+    check_lstm_sass(libs)
     timer = Timer(torch)
     report = {}
     lm = perturb_affine(torch, dec.CausalLM(**WIDTHS, device=DEV,

@@ -1,6 +1,6 @@
-// Persistent LSTM time loop, forward and backward: ONE cooperative kernel
-// launch per layer and direction covers all T steps.
-// Wrapped by mxnet_tpu_torch/ops/kernels/fused_cell.py:lstm_sequence.
+// Persistent LSTM time loop, forward and backward, and the backward's gate
+// recompute.  Wrapped by mxnet_tpu_torch/ops/kernels/fused_cell.py:
+// lstm_sequence.
 //
 // Replaces the TPU kernels _lstm_fwd_kernel and _lstm_bwd_kernel
 // (mxnet_tpu/ops/pallas/fused_cell.py:142, 195, launched at :177, :251).
@@ -16,16 +16,18 @@
 // (T, B, 4H), h0/c0/dh0/dc0 (B, H) are of the layer's type (float32 or
 // bfloat16); cseq, c_prev and dcseq are float32; W (H, 4H) and b (4H,)
 // are float32 or bfloat16, W with any strides.  Every product and both
-// carries are float32, as the JAX kernel casts W and h to float32.
+// carries are float32 or as accurate, as the JAX kernel casts W and h to
+// float32.
 //
-// The TPU runs the time loop as a sequential grid on one core, with W
-// latched in VMEM and the carries in VMEM scratch.  Here the grid is one
-// persistent set of blocks, all resident at once (cooperative launch,
-// sized from the occupancy calculator), and the steps are separated by
-// grid-wide barriers (cooperative_groups::this_grid().sync()).  Each block
-// owns U consecutive hidden units j and loads, once, their four gate
-// columns W[:, gH + j] (and, in the backward, their rows W[j, :]) into
-// shared memory: the SM's counterpart of the latched W.  Each step a block
+// The TPU runs each time loop as a sequential grid on one core, with W
+// latched in VMEM and the carries in VMEM scratch.  Here a time loop is
+// one persistent set of blocks, all resident at once (cooperative launch,
+// sized from the occupancy calculator), the steps separated by grid-wide
+// barriers.  Each block owns U consecutive hidden units j and loads their
+// four gate columns W[:, gH + j] into shared memory once: the SM's
+// counterpart of the latched W.
+//
+// Forward (lstm_fwd_kernel, #10).  Each step a block
 //   1. stages the previous h (float32, kept transposed as (H, B) so that
 //      32 batch rows of one unit are one run) from the L2 into shared
 //      memory with 16-byte loads, 32 batch rows at a time;
@@ -35,30 +37,89 @@
 //   3. applies the nonlinearities and updates c, which never leaves the
 //      block;
 //   4. writes out[t], cseq[t] and its slice of the next h;
-//   5. waits at one grid barrier (the h buffer is double-buffered, so one
-//      barrier per step suffices).
-// The backward block stages h_prev[t] (transposed by the caller) the same
-// way, writes its slice of dg (float32, to a double-buffered (4H, B)
-// scratch) and of dgx[t], passes one grid barrier, then reads the whole dg
-// of step t back from the L2 to form dh_prev[:, j] = sum_g dg[:, g] W[j,
-// g] for its own units; dc stays in the block.  No atomics.
+//   5. waits at one grid barrier (cooperative_groups; the h buffer is
+//      double-buffered, so one barrier per step suffices).
+// ~9.5 us a step at (T 35, B 32, H 650) on an H100 SXM.
 //
-// Bound on the card: operations.  Per layer at the word LM's shape (T 35,
-// B 32, H 650) the forward does 2 T B H 4H = 3.79 GFLOP of recurrent
-// products (0.057 ms at 67 TFLOP/s in float32) and moves ~24 MB (0.007 ms
-// at 3.35 TB/s); the backward twice the products.  The 35 serial grid
-// barriers set a latency floor of their own.  chip_smoke.py measured ~9.3
-// us per forward step and ~22 us per backward step at that shape (H100
-// SXM, 700 W).  Every backward block reads all of dg (B 4H floats, 333
-// KB) each step, so that phase is bound by the L2's rate into each SM.
-// This first version reads h and dg from the L2 every step and runs its
-// products on the CUDA cores; wgmma, TMA, an exchange of dh partial sums
-// in place of dg, and a split of the serial chain are later work.
+// Backward (#11): two kernels, launched in turn on one stream.
+//
+// 1. lstm_bwd_gates_kernel recomputes the forward's activations off the
+//    serial chain: act = sigmoid/tanh(gx + h_prev W + b) for all T B rows
+//    and 4H columns at once, the (T B x H) by (H x 4H) product on the
+//    tensor cores (wgmma, 128 x 128 tiles, two warpgroups of 64 rows; an
+//    ordinary tiled grid, so h_prev is read 4H / 128 times).  Both
+//    operands are K-major in the 128-byte swizzle: h_prev's rows as they
+//    lie, W's columns from w_h2h's rows (W = w_h2h^T).  TMA cannot read
+//    them (a row of H 650 is 2600 or 1300 bytes, not a multiple of 16),
+//    so each thread copies 4 bytes at a time (an fp32 element or two
+//    bf16) with cp.async into a ring of 3 (tf32) or 4 (bf16) stages of
+//    128-byte K steps, zero-filling the ragged M, N and K edges.
+//      bf16 h with bf16 W (the AMP layer): wgmma bf16, fp32 accumulator;
+//        each bf16 x bf16 product is exact in fp32, as JAX's cast-then-dot.
+//      otherwise 3xTF32 on wgmma tf32, both operands fp32 (a bf16 one cast
+//        by the wrapper): the tensor core reads an fp32 word truncated to
+//        tf32 (hi); each thread writes the residual x - hi (lo) of the
+//        elements it copied into a tile of its own, and hi hi + hi lo + lo
+//        hi are summed in fp32 (lo lo left out; ~2^-21 relative).  An
+//        operand that holds bf16 values is exact in tf32, so its residual
+//        product is skipped (a template flag): a bf16 layer with an fp32
+//        W takes two products.
+//    The epilogue adds gx and b, applies the nonlinearities and writes
+//    each element into the record the time loop reads, rec (T, 8, nb U,
+//    B) fp32: for step t the fields i, f, u, o, tanh(cseq), c_prev, dout,
+//    dcseq, each by unit and batch row, so that a warp's stores fill whole
+//    32-byte sectors and a block's inputs of a step are 8 runs of U B
+//    floats.  Fields 4..7 are copied from (T, B, H) through shared memory
+//    in tiles of 32 units, read and written in coalesced runs.
+//
+// 2. lstm_bwd_kernel, the time loop (one cooperative launch, one barrier a
+//    step).  A block owns units j0..j0+U-1; dc stays in the block.  Each
+//    step (t = T-1 .. 0) it
+//    a. sums the partial dh of the last step: every block k wrote, for
+//       each block r, the slice of k's partial product over r's units,
+//       part[k][r] (B U floats, padded to BUP); block r reads its slice
+//       from all nb writers with 16-byte __ldcg loads, up to 24 in flight
+//       a thread, and sums them in a fixed order: NG groups of consecutive
+//       writers, each summed in block order, then the groups in order;
+//    b. runs the elementwise update on the record of step t, which was
+//       prefetched by cp.async into shared memory during the step before
+//       (double-buffered), writes dgx[t] and keeps dg in shared memory;
+//    c. forms its partial product part[b][k] = sum over its 4U gate
+//       columns g of dg[b][g] W[k][g], for all H units k: a (B x 4U) by
+//       (4U x H) product on the tensor cores, taken transposed on wgmma
+//       m64n32k8 in 3xTF32: W's 64-unit tiles as A from registers (split
+//       into rounded tf32 hi + lo), dg as B from two swizzled tiles that
+//       the elementwise update writes (its values, which the tensor core
+//       reads truncated to tf32, and their residuals); hi hi + hi lo + lo
+//       hi (a bf16 W's lo is exactly 0).  32 batch rows a
+//       pass, staged in shared memory and written to part as whole
+//       16-byte runs per reader.  The parent's stamps put the same FLOPs
+//       on the CUDA cores at 4.3 us a step, and mma.sync m16n8k8 took 3.6
+//       here: hence wgmma;
+//    d. passes one grid barrier (part is double-buffered).  The barrier
+//       is a flag per block (release store, 128 bytes apart) that every
+//       block polls with acquire loads: no atomics anywhere, and every sum
+//       has a fixed order, so two launches agree bit for bit.
+//    After the last step it sums the partials once more for dh0.
+//
+// Bound on the card.  Per layer at the word LM's shape (T 35, B 32, H 650)
+// the backward does 4 T B H 4H = 7.57 GFLOP of products: the recompute's
+// half on the tensor cores (bf16 at 989 TFLOP/s; fp32-accurate as 3xTF32
+// at 495 / 3) is parallel; the other half, the dh products, sits on the
+// serial chain of T steps, each a barrier and an exchange of the partial
+// sums (B H floats per block, 10.8 MB a step over the grid, read and
+// written through the L2) on top of its arithmetic.  That chain, not the
+// card's rates, bounds the time loop.  The parent kernel's stamps at that
+// shape: 20.7 us a step (stage 1.8, gate products 4.3, elementwise 2.2,
+// barrier 1.7, the all-gather of dg and its products 10.6).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -129,36 +190,37 @@ __device__ __forceinline__ float ldw(const void* p, long long i, int bf16) {
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 struct Layout {
-  int wc, bias, wr, hs, pre, own1, own2, total;
-  __host__ __device__ Layout(int H, int B, int U, bool backward) {
+  int wc, bias, hs, pre, own, total;
+  __host__ __device__ Layout(int H, int B, int U) {
     const int NG = 4 * U;
     int o = 0;
     wc = o;   o += round4(H * NG);            // gate columns [k][4U]
     bias = o; o += round4(NG);
-    wr = o;   o += backward ? round4(4 * H * U) : 0;   // rows [g][U]
     hs = o;   // staged h [k][32]; the warps' partial sums alias it
     const int red_n = NWARPS * NG * ROWS;
     o += round4(H * ROWS > red_n ? H * ROWS : red_n);
     pre = o;  o += NG * ROWS;                 // summed pre-activations
-    own1 = o; o += round4(B * U);             // c (fwd) / dc (bwd)
-    own2 = o; o += backward ? round4(B * U) : 0;       // dh (bwd)
+    own = o;  o += round4(B * U);             // c
     total = o;
   }
 };
 
-// W's gate columns of units j0..j0+U-1 as wc[k][gate * U + u], their bias
-// as bias[gate * U + u]; units past H read 0
+// W's gate columns of units j0..j0+U-1 as wc[k * ws + gate * U + u] (row
+// stride ws, at least 4U; columns past 4U are not written), their bias as
+// bias[gate * U + u] unless bias is null; units past H read 0
 template <int U>
 __device__ void load_columns(float* wc, float* bias, const Weights& wt,
-                             int H, int j0) {
+                             int H, int j0, int ws = 4 * U) {
   constexpr int NG = 4 * U;
   for (int e = threadIdx.x; e < H * NG; e += blockDim.x) {
     const int k = e / NG, c = e - k * NG;
     const int gate = c / U, j = j0 + c - gate * U;
-    wc[e] = j < H ? ldw(wt.w, k * wt.sk + (long long)(gate * H + j) * wt.sg,
-                        wt.w_bf16)
-                  : 0.f;
+    wc[k * ws + c] =
+        j < H ? ldw(wt.w, k * wt.sk + (long long)(gate * H + j) * wt.sg,
+                    wt.w_bf16)
+              : 0.f;
   }
+  if (!bias) return;
   for (int c = threadIdx.x; c < NG; c += blockDim.x) {
     const int gate = c / U, j = j0 + c - gate * U;
     bias[c] = j < H ? ldw(wt.b, gate * H + j, wt.b_bf16) : 0.f;
@@ -267,9 +329,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
   cg::grid_group grid = cg::this_grid();
   const int H = a.H, B = a.B, G = 4 * H;
   const int j0 = blockIdx.x * U;
-  const Layout L(H, B, U, false);
+  const Layout L(H, B, U);
   float *wc = smem + L.wc, *bias = smem + L.bias, *hs = smem + L.hs;
-  float *pre = smem + L.pre, *c_own = smem + L.own1;
+  float *pre = smem + L.pre, *c_own = smem + L.own;
   load_columns<U>(wc, bias, a.wt, H, j0);
   const T* c0 = static_cast<const T*>(a.c0);
   for (int e = threadIdx.x; e < B * U; e += blockDim.x) {
@@ -313,171 +375,575 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
   }
 }
 
-struct BwdArgs {
-  const void* gx;      // (T, B, 4H)
-  const void* hp;      // (T, H, B) h_prev transposed, the layer's type
-  const float* cp;     // (T, B, H) c_prev
-  const float* cseq;   // (T, B, H)
-  const void* dout;    // (T, B, H)
-  const float* dcseq;  // (T, B, H)
-  Weights wt;
-  void* dgx;           // (T, B, 4H)
-  void* dh0;           // (B, H)
-  void* dc0;           // (B, H)
-  float* dgbuf;        // (2, 4H, BP) float32 scratch, BP = B rounded up to 32
-  long long* timing;   // NULL, or 1 + 5 T stamps (see lstm_bwd_kernel)
-  int T, B, H, BP;
-};
-
 __device__ __forceinline__ long long globaltimer() {
   long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
 
-// dh_own[b][u] = sum_g dg[g][b] * W[j0 + u][g] for rows b0..b0+31: warps
-// split g, lane = row, 16 loads from the L2 in flight per lane (the dg of
-// a step is read by every block: this phase is bound by the L2's rate into
-// the SM); the warps' partial sums (in red, which aliases hs) are added
-// in warp order
+// ---------------------------------------------------------------------------
+// backward, kernel 1: the gate recompute, a tiled GEMM on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int NFIELD = 8;          // i, f, u, o, tanh(cseq), c_prev, dout, dcseq
+constexpr int GB = 128;            // a tile's rows (M) and columns (N)
+constexpr int GTILE = GB * 128;    // bytes of a tile of 128 rows of 128 bytes
+
+struct GateArgs {
+  const void* hp;      // (M, H) h_prev rows, M = T B: the tiles' type
+  const void* w;       // W[k][n] at w + n ldw + k: the tiles' type
+  const void* gx;      // (M, 4H), the layer's type
+  const void* b;       // (4H,), float32 or (b_bf16) bfloat16
+  const float* cseq;   // (M, H)
+  const float* cp;     // (M, H) c_prev
+  const void* dout;    // (M, H), the layer's type
+  const float* dcseq;  // (M, H)
+  float* rec;          // (T, NFIELD, nb U, B)
+  long long* timing;   // NULL, or 5 stamps of block (0, 0) (see below)
+  long long ldw;
+  int M, H, B, U, nb, b_bf16;
+};
+
+// byte `byte` of row r of a tile of 128-byte rows in the 128-byte swizzle:
+// 16-byte chunk c of row r lies at chunk c ^ (r % 8)
+__device__ __forceinline__ int swz(int r, int byte) {
+  return r * 128 + ((((byte >> 4) ^ r) & 7) << 4) + (byte & 15);
+}
+
+// 4 bytes from global `src` to shared `dst`, or 4 zero bytes when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// E, the tiles' element: __nv_bfloat16 (bf16 h and W: wgmma bf16) or
+// float (3xTF32 on wgmma tf32; ALO / BLO: h / W not exact in tf32, so
+// its residual product is taken).  LT: the layer's type (gx, dout).
+// Block (n, m) computes rows m0..m0+127 and columns n0..n0+127 of
+// h_prev W; warpgroup wg rows wg 64.. of them as two m64n64 accumulators.
+// A stage holds the A and B tiles of one 128-byte K step (and, in tf32,
+// their residual tiles); S stages form a ring that cp.async fills S - 1
+// steps ahead, 4 bytes a copy (an element, or two bf16), each thread its
+// own 16 rows of both tiles, zero past the edges.
+template <class E, bool ALO, bool BLO, class LT>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    lstm_bwd_gates_kernel(GateArgs a) {
+  extern __shared__ __align__(16) uint8_t gsm[];
+  constexpr bool TF = std::is_same<E, float>::value;
+  constexpr int EPW = 4 / (int)sizeof(E);    // elements of one 4-byte copy
+  constexpr int KT = 128 / (int)sizeof(E);   // K of one 128-byte row
+  constexpr int NT = ALO || BLO ? 4 : 2;     // tiles a stage: A, B (, lo)
+  constexpr int S = TF ? 3 : 4;              // stages
+  uint8_t* sm = gsm + ((1024 - (smem_u32(gsm) & 1023)) & 1023);
+  const int M = a.M, K = a.H, N = 4 * a.H;
+  const int m0 = blockIdx.y * GB, n0 = blockIdx.x * GB;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int lane = tid & 31, r0 = tid >> 5;  // rows r0 + 8 i, i < 16
+  const E* hp = static_cast<const E*>(a.hp);
+  const E* w = static_cast<const E*>(a.w);
+  // with a timing buffer, block (0, 0)'s thread 0 stamps the start and
+  // the ends of the products, of the loads of gx and b, of the
+  // activations' stores and of the copy of the step's other inputs
+  const bool stamp = a.timing != nullptr && blockIdx.x + blockIdx.y == 0 &&
+                     tid == 0;
+  if (stamp) a.timing[0] = globaltimer();
+  auto issue = [&](int kt, int st) {
+    const uint32_t s = smem_u32(sm + st * NT * GTILE);
+    const int k = kt * KT + lane * EPW;
+    const bool kin = k < K;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = r0 + 8 * i, m = m0 + r, n = n0 + r;
+      const int off = swz(r, lane * 4);
+      cp_async4(s + off, m < M && kin ? hp + (size_t)m * K + k : hp,
+                m < M && kin);
+      cp_async4(s + GTILE + off, n < N && kin ? w + n * a.ldw + k : w,
+                n < N && kin);
+    }
+  };
+  // the residual tiles of the thread's own elements (they have landed)
+  auto residuals = [&](int st) {
+    uint8_t* s = sm + st * NT * GTILE;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int off = swz(r0 + 8 * i, lane * 4);
+      if constexpr (ALO)
+        *reinterpret_cast<float*>(s + 2 * GTILE + off) =
+            tf32_residual(*reinterpret_cast<const float*>(s + off));
+      if constexpr (BLO)
+        *reinterpret_cast<float*>(s + 3 * GTILE + off) =
+            tf32_residual(*reinterpret_cast<const float*>(s + GTILE + off));
+    }
+  };
+  float acc[2][32];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  // stage st's products into acc: per 32-byte K step, per 64-column half,
+  // the residual products first (tf32), then hi hi
+  auto products = [&](int st) {
+    const uint32_t s = smem_u32(sm + st * NT * GTILE);
+    const uint32_t ta = s + wg * 64 * 128, tb = s + GTILE;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = gmma_desc(ta + kk * 32, 1, 1024);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t bh = tb + h * 64 * 128 + kk * 32;
+        const uint64_t db = gmma_desc(bh, 1, 1024);
+        if constexpr (TF) {
+          if constexpr (BLO)
+            wgmma_tf32_ss<64>(acc[h], da,
+                              gmma_desc(bh + 2 * GTILE, 1, 1024), 1);
+          if constexpr (ALO)
+            wgmma_tf32_ss<64>(acc[h],
+                              gmma_desc(ta + 2 * GTILE + kk * 32, 1, 1024),
+                              db, 1);
+          wgmma_tf32_ss<64>(acc[h], da, db, 1);
+        } else {
+          wgmma_ss_n64(acc[h], da, db, 1);
+        }
+      }
+    }
+  };
+  const int nk = (K + KT - 1) / KT;
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < nk) issue(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % S;
+    cp_async_wait<S - 2>();   // this thread's copies of step kt landed
+    if constexpr (ALO || BLO) residuals(st);
+    fence_async_shared();     // the tensor cores read the tiles (async proxy)
+    __syncthreads();
+    wgmma_fence();
+    products(st);
+    wgmma_commit();
+    // refill the stage step kt - 1 read: every warpgroup waited for its
+    // products before the barrier above
+    if (kt + S - 1 < nk) issue(kt + S - 1, (kt + S - 1) % S);
+    cp_async_commit();
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+  }
+  if (stamp) a.timing[1] = globaltimer();
+  // epilogue: g = gx + h W + b, the nonlinearity, into the record.  The
+  // tile's gx (cp.async, 4 bytes a copy) and b's columns go through
+  // shared memory first (the stages are free now)
+  __syncthreads();
+  constexpr int GXS = 128 * (int)sizeof(LT) + 16;  // a gx row's bytes
+  const LT* gxg = static_cast<const LT*>(a.gx);
+  float* bs = reinterpret_cast<float*>(sm + GB * GXS);
+  {
+    constexpr int EPL = 4 / (int)sizeof(LT), CPR = 128 / EPL;
+    const uint32_t g = smem_u32(sm);
+    for (int q = tid; q < GB * CPR; q += NTHREADS) {
+      const int r = q / CPR, c = (q - r * CPR) * EPL;
+      const bool ok = m0 + r < M && n0 + c < N;
+      cp_async4(g + r * GXS + c * (int)sizeof(LT),
+                ok ? gxg + (size_t)(m0 + r) * N + n0 + c : gxg, ok);
+    }
+    cp_async_commit();
+    if (tid < GB)
+      bs[tid] = n0 + tid >= N ? 0.f
+                : a.b_bf16
+                    ? __bfloat162float(
+                          static_cast<const __nv_bfloat16*>(a.b)[n0 + tid])
+                    : static_cast<const float*>(a.b)[n0 + tid];
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  if (stamp) a.timing[2] = globaltimer();
+  // the record's offset of (row m, column n) is rowp(m) + colp(n); a
+  // thread holds 2 rows and 32 columns of the tile
+  const int H = a.H, B = a.B, Hp = a.nb * a.U;
+  const int rl = wg * 64 + 16 * (t >> 5) + ((t & 31) >> 2);
+  const int cl = 2 * (t & 3);
+  size_t rowp[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int m = min(m0 + rl + 8 * hr, M - 1), tt = m / B;
+    rowp[hr] = (size_t)tt * NFIELD * Hp * B + (m - tt * B);
+  }
+  // every activation first (in acc), then every store
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int nl = cl + h * 64 + 8 * j + (i & 1), ml = rl + 8 * (i >> 1);
+        const float x =
+            to_f32(*reinterpret_cast<const LT*>(sm + ml * GXS +
+                                                nl * (int)sizeof(LT))) +
+            acc[h][4 * j + i] + bs[nl];
+        acc[h][4 * j + i] = (n0 + nl) / H == 2 ? tanhf(x) : sigmoid(x);
+      }
+  float* __restrict__ rec = a.rec;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + cl + h * 64 + 8 * j + e, gate = n / H;
+        const size_t colp = ((size_t)gate * Hp + n - gate * H) * B;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          if (m0 + rl + 8 * hr < M && n < N)
+            rec[rowp[hr] + colp] = acc[h][4 * j + 2 * hr + e];
+      }
+  if (stamp) a.timing[3] = globaltimer();
+  // the step's other inputs, fields 4..7 (tanh(cseq), c_prev, dout,
+  // dcseq) of every (t, unit), from (T, B, H) to the record's (unit, b)
+  // order: tiles of 32 units by the B rows of one step, over the whole
+  // grid, read and written in coalesced runs through shared memory (the
+  // stages are free now)
+  const float* __restrict__ cseq = a.cseq;
+  const float* __restrict__ cp = a.cp;
+  const LT* __restrict__ dout = static_cast<const LT*>(a.dout);
+  const float* __restrict__ dcseq = a.dcseq;
+  float* tr = reinterpret_cast<float*>(sm);        // [4][32][B + 1]
+  const int nj = (H + 31) / 32, T = M / B, BS = B + 1;
+  __syncthreads();                                 // gx's tile is read
+  for (int tile = blockIdx.y * gridDim.x + blockIdx.x; tile < T * nj;
+       tile += gridDim.x * gridDim.y) {
+    const int tt = tile / nj, j0 = (tile - tt * nj) * 32;
+#pragma unroll 4
+    for (int x = tid; x < B * 32; x += NTHREADS) {
+      const int b = x >> 5, jl = x & 31;
+      const size_t e = ((size_t)tt * B + b) * H + min(j0 + jl, H - 1);
+      tr[jl * BS + b] = tanhf(cseq[e]);
+      tr[(32 + jl) * BS + b] = cp[e];
+      tr[(64 + jl) * BS + b] = to_f32(dout[e]);
+      tr[(96 + jl) * BS + b] = dcseq[e];
+    }
+    __syncthreads();
+    for (int x = tid; x < 32 * B; x += NTHREADS) {
+      const int jl = x / B, b = x - jl * B, j = j0 + jl;
+      if (j < H)
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          rec[((size_t)(tt * NFIELD + 4 + f) * Hp + j) * B + b] =
+              tr[(32 * f + jl) * BS + b];
+    }
+    __syncthreads();
+  }
+  if (stamp) a.timing[4] = globaltimer();
+}
+
+// ---------------------------------------------------------------------------
+// backward, kernel 2: the time loop
+// ---------------------------------------------------------------------------
+__host__ __device__ inline int round8(int n) { return (n + 7) & ~7; }
+
+// shared-memory layout of the time loop, in floats; every piece starts
+// 16-byte aligned
+struct BwdLayout {
+  int kp, sw, bup, ng, dgt, wc, rec, red, dc, stg, total;
+  __host__ __device__ BwdLayout(int H, int B, int U) {
+    kp = round8(4 * U);        // the partial product's K, 4U in k8 steps
+    sw = kp + 4;               // row stride of wc (conflict-free)
+    bup = round4(B * U);       // one reader's slice of a partial
+    const int nb = (H + U - 1) / U, nq = bup / 4;
+    ng = NTHREADS / nq < nb ? NTHREADS / nq : nb;   // writer groups
+    if (ng < 1) ng = 1;
+    int o = 0;
+    dgt = o;  o += ((B + 31) / 32) * 2 * 1024;  // dg: hi, lo tiles of 32 rows
+    wc = o;   o += ((H + 255) & ~255) * sw; // W[k][own gate column], 0 pad
+    rec = o;  o += 2 * NFIELD * B * U;      // two steps' records
+    red = o;  o += ng * bup;                // the writer groups' sums
+    dc = o;   o += bup;                     // the carry dc
+    stg = o;  o += nb * 32 * U;             // 32 rows of the partial
+    total = o + 256;                        // + the 1024-byte alignment
+  }
+};
+
+struct BwdArgs {
+  const float* rec;    // (T, NFIELD, nb U, B) from lstm_bwd_gates_kernel
+  Weights wt;
+  void* dgx;           // (T, B, 4H)
+  void* dh0;           // (B, H)
+  void* dc0;           // (B, H)
+  float* part;         // (2, nb, nb, BUP) float32: the partial dh sums,
+                       // part[s & 1][writer][reader][b U + u]
+  int* flags;          // nb flags 128 bytes apart, 0 at the launch
+  long long* timing;   // NULL, or 1 + 5 T stamps (see lstm_bwd_kernel)
+  int T, B, H, nb;
+};
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// A barrier of the whole resident grid without atomics: every block's
+// writes before it are visible to every block after it.  Each block
+// releases its own flag with the barrier's epoch (1, 2, ... within a
+// launch; the flags start at 0), then polls every flag until each has
+// reached it.
+__device__ void grid_barrier(int* flags, int nb, int epoch) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    st_release(flags + blockIdx.x * 32, epoch);
+  }
+  for (int i = threadIdx.x; i < nb; i += blockDim.x)
+    while (ld_acquire(flags + i * 32) < epoch) {
+    }
+  __syncthreads();
+}
+
+// red[gi][e] = the sum over writers w of group gi of part[w][blk][e], in
+// block order; group gi holds the writers gi nb / ng .. (gi + 1) nb / ng
+// - 1.  Four elements a thread, up to 24 loads in flight.
+__device__ void sum_partials(const float* part, float* red, int nb, int blk,
+                             int bup, int ng) {
+  const int nq = bup / 4, n = nq * ng;
+  const size_t stride = (size_t)nb * nq;     // float4s between writers
+  const float4* base = reinterpret_cast<const float4*>(part) +
+                       (size_t)blk * nq;
+  for (int x = threadIdx.x; x < n; x += blockDim.x) {
+    const int gi = x / nq;
+    const int w0 = gi * nb / ng, w1 = (gi + 1) * nb / ng;
+    const float4* p = base + (x - gi * nq);
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w = w0; w < w1; w += 24) {
+      float4 v[24];
+#pragma unroll
+      for (int i = 0; i < 24; ++i)
+        if (w + i < w1) v[i] = __ldcg(p + (size_t)(w + i) * stride);
+#pragma unroll
+      for (int i = 0; i < 24; ++i)
+        if (w + i < w1) {
+          s.x += v[i].x;
+          s.y += v[i].y;
+          s.z += v[i].z;
+          s.w += v[i].w;
+        }
+    }
+    reinterpret_cast<float4*>(red)[x] = s;
+  }
+}
+
+// the summed partial dh of element e (group sums added in group order)
+__device__ __forceinline__ float dh_sum(const float* red, int e, int ng,
+                                        int bup) {
+  float s = red[e];
+  for (int gi = 1; gi < ng; ++gi) s += red[gi * bup + e];
+  return s;
+}
+
+// The block's partial product over its 4U gate columns, out[r][b U + u] =
+// sum_c dg[b][c] W[k][c] with k = r U + u, for all H units k and B rows
+// (out: the block's writer slab, nb slices of bup floats), formed
+// transposed, (W's own columns: H x 4U) (dg^T: 4U x 32), on wgmma m64n32k8
+// in 3xTF32, 32 batch rows a pass: W's 64-row tiles are A from registers
+// (split into rounded tf32 hi + lo; a bf16 W's lo is 0, and its product
+// adds exact zeros), dg is B from two 128-byte swizzled tiles a 32-row
+// chunk, its fp32 values (the tensor core reads their tf32 truncation)
+// and their residuals.  Warpgroup wg takes the tiles wg, wg +
+// 2, ... two at a time, the two warpgroups' pairs a round.  Staged in stg
+// as [r][32 U]; after each round the readers whose units are complete are
+// written as 16-byte runs while the next round's products run.  Ends
+// with the block synchronised.
 template <int U>
-__device__ void dh_products(const float* dg, const float* wr, float* hs,
-                            float* dh_own, int B, int BP, int G, int b0) {
-  constexpr int D = 16;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int span = (G + NWARPS - 1) / NWARPS;
-  const int lo = warp * span, hi = min(G, lo + span);
-  float acc[U];
+__device__ void partial_product(uint32_t dgt, const float* wc, float* stg,
+                                float* out, int B, int H, int nb, int bup,
+                                int sw, long long* stamp) {
+  constexpr int KS = (4 * U + 7) / 8;      // k8 steps over the 4U columns
+  const int t = threadIdx.x & 127, wg = threadIdx.x >> 7;
+  const int fr = 16 * (t >> 5) + ((t & 31) >> 2), fc = t & 3;
+  const int nmt = (H + 63) / 64;
+  for (int b0 = 0; b0 < B; b0 += 32) {
+    const uint32_t th = dgt + (b0 / 32) * 8192, tl = th + 4096;
+    const int lo = b0 * U, n4 = (min((b0 + 32) * U, bup) - lo) / 4;
+    // round it: tiles 4 it .. 4 it + 3 (the two warpgroups' pairs), then
+    // the readers whose units they complete are written out while the
+    // next round's products run
+    for (int it = 0, r_done = 0; 4 * it < nmt; ++it) {
+      const int mt = wg + 4 * it;
+      float d[2][16];
+      uint32_t ah[2][KS][4], al[2][KS][4];
 #pragma unroll
-  for (int u = 0; u < U; ++u) acc[u] = 0.f;
-  const float* col = dg + b0 + lane;
-  int g = lo;
-  for (; g + D <= hi; g += D) {
-    float v[D];
+      for (int p = 0; p < 2; ++p) {
 #pragma unroll
-    for (int q = 0; q < D; ++q) v[q] = __ldcg(col + (size_t)(g + q) * BP);
+        for (int i = 0; i < 16; ++i) d[p][i] = 0.f;
 #pragma unroll
-    for (int q = 0; q < D; ++q)
+        for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-      for (int u = 0; u < U; ++u)
-        acc[u] = fmaf(v[q], wr[(g + q) * U + u], acc[u]);
+          for (int i = 0; i < 4; ++i) {        // rows fr (+8), cols fc (+4)
+            const int r = 64 * (mt + 2 * p) + fr + 8 * (i & 1);
+            tf32_split(wc[r * sw + 8 * kk + fc + 4 * (i >> 1)], ah[p][kk][i],
+                       al[p][kk][i]);
+          }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {        // the two chains interleaved
+        const uint64_t dh = gmma_desc(th + kk * 32, 1, 1024);
+        const uint64_t dl = gmma_desc(tl + kk * 32, 1, 1024);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) wgmma_tf32_rs<32>(d[p], al[p][kk], dh);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) wgmma_tf32_rs<32>(d[p], ah[p][kk], dl);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) wgmma_tf32_rs<32>(d[p], ah[p][kk], dh);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d[0]);
+      fence_regs(d[1]);
+      // d[p]: rows (units) 64 (mt + 2p) + fr + {0, 8}, columns (batch
+      // rows) 8 j + 2 fc + {0, 1} at d[p][4 j + 2 h + e]
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int k = 64 * (mt + 2 * p) + fr + 8 * ((i >> 1) & 1);
+          const int b = 8 * (i >> 2) + 2 * fc + (i & 1);
+          if (k < H) {
+            const int r = k / U;
+            stg[r * 32 * U + b * U + (k - r * U)] = d[p][i];
+          }
+        }
+      __syncthreads();
+      if (stamp && 4 * (it + 1) >= nmt) *stamp = globaltimer();
+      // each complete reader's floats lo .. lo + 4 n4: 16-byte runs
+      const int r_end = 4 * (it + 1) >= nmt ? nb : 256 * (it + 1) / U;
+      for (int x = threadIdx.x; x < (r_end - r_done) * n4; x += blockDim.x) {
+        const int r = r_done + x / n4, q = x % n4;
+        reinterpret_cast<float4*>(out + (size_t)r * bup + lo)[q] =
+            reinterpret_cast<const float4*>(stg + r * 32 * U)[q];
+      }
+      r_done = r_end;
+    }
+    __syncthreads();
   }
-  for (; g < hi; ++g) {
-    const float v = __ldcg(col + (size_t)g * BP);
-#pragma unroll
-    for (int u = 0; u < U; ++u) acc[u] = fmaf(v, wr[g * U + u], acc[u]);
-  }
-  __syncthreads();            // every warp is done with hs
-  float* red = hs;
-#pragma unroll
-  for (int u = 0; u < U; ++u) red[(warp * U + u) * ROWS + lane] = acc[u];
-  __syncthreads();
-  for (int e = threadIdx.x; e < U * ROWS; e += blockDim.x) {
-    const int u = e / ROWS, r = e - u * ROWS, b = b0 + r;
-    float s = 0.f;
-    for (int w = 0; w < NWARPS; ++w) s += red[w * U * ROWS + e];
-    if (b < B) dh_own[b * U + u] = s;
-  }
-  __syncthreads();
 }
 
 template <class T, int U>
 __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  cg::grid_group grid = cg::this_grid();
-  const int H = a.H, B = a.B, G = 4 * H, BP = a.BP;
-  const int j0 = blockIdx.x * U;
-  const Layout L(H, B, U, true);
-  float *wc = smem + L.wc, *bias = smem + L.bias, *wr = smem + L.wr;
-  float *hs = smem + L.hs, *pre = smem + L.pre;
-  float *dc_own = smem + L.own1, *dh_own = smem + L.own2;
-  load_columns<U>(wc, bias, a.wt, H, j0);
-  // the block's rows of W as wr[g][u]
-  for (int e = threadIdx.x; e < G * U; e += blockDim.x) {
-    const int u = e / G, g = e - u * G, j = j0 + u;
-    wr[g * U + u] = j < H ? ldw(a.wt.w, j * a.wt.sk + (long long)g * a.wt.sg,
-                                a.wt.w_bf16)
-                          : 0.f;
-  }
-  for (int e = threadIdx.x; e < B * U; e += blockDim.x) {
-    dc_own[e] = 0.f;
-    dh_own[e] = 0.f;
-  }
-  const T* gx = static_cast<const T*>(a.gx);
-  const T* hp = static_cast<const T*>(a.hp);
-  const T* dout = static_cast<const T*>(a.dout);
+  extern __shared__ __align__(16) float smem_raw[];
+  // the dg tiles need a 1024-byte boundary
+  float* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023) / 4;
+  const int H = a.H, B = a.B, G = 4 * H, nb = a.nb, blk = blockIdx.x;
+  const int j0 = blk * U, BU = B * U, nrec = NFIELD * BU;
+  const BwdLayout L(H, B, U);
+  float *wc = smem + L.wc, *recs = smem + L.rec;
+  float *red = smem + L.red, *dc_own = smem + L.dc, *stg = smem + L.stg;
+  uint8_t* dgt = reinterpret_cast<uint8_t*>(smem + L.dgt);
+  for (int e = threadIdx.x; e < L.total - 256; e += NTHREADS) smem[e] = 0.f;
+  __syncthreads();
+  load_columns<U>(wc, nullptr, a.wt, H, j0, L.sw);
   T* dgx = static_cast<T*>(a.dgx);
+  // the block's record of step t, 8 runs of U B floats ([u][b]), into
+  // buffer buf as [field][b U + u], by cp.async (one group)
+  auto prefetch = [&](int t, int buf) {
+    const uint32_t dst = smem_u32(recs + buf * nrec);
+    for (int q = threadIdx.x; q < nrec; q += NTHREADS) {
+      const int f = q / BU, ub = q - f * BU, u = ub / B, b = ub - u * B;
+      cp_async4(dst + 4 * (f * BU + b * U + u),
+                a.rec + ((size_t)(t * NFIELD + f) * nb * U + j0) * B + ub,
+                true);
+    }
+    cp_async_commit();
+  };
   // with a timing buffer, block 0's thread 0 stamps the start, then the
-  // end of each step's stage, gate products, elementwise, barrier and dh
-  // products (with B over 32, the first three at the last 32-row pass)
-  const bool timed = a.timing != nullptr;
-  const bool stamp = timed && blockIdx.x == 0 && threadIdx.x == 0;
+  // end of each step's dh sum (with the wait for the step's record),
+  // elementwise update, partial products (in shared memory; with B over
+  // 32, at the last 32-row pass), their writing to part, and barrier
+  const bool stamp = a.timing != nullptr && blk == 0 && threadIdx.x == 0;
   long long* ts = a.timing;
+  prefetch(a.T - 1, 0);
   __syncthreads();
   if (stamp) *ts++ = globaltimer();
   for (int s = 0; s < a.T; ++s) {
-    const int t = a.T - 1 - s;
-    float* dg = a.dgbuf + (size_t)(s & 1) * G * BP;
-    for (int b0 = 0; b0 < B; b0 += ROWS) {
-      const bool last = b0 + ROWS >= B;
-      __syncthreads();
-      stage(hs, hp + (size_t)t * H * B, H, B, b0);
-      __syncthreads();
-      if (stamp && last) ts[0] = globaltimer();
-      gate_products<U>(hs, wc, pre, H);
-      if (stamp && last) ts[1] = globaltimer();
-      const int rows = min(ROWS, B - b0);
-      for (int e = threadIdx.x; e < rows * U; e += blockDim.x) {
-        const int r = e / U, u = e - r * U, j = j0 + u, b = b0 + r;
-        if (j >= H) continue;
-        const size_t row = (size_t)t * B + b;
-        const T* g = gx + row * G;
-        const float i = sigmoid(to_f32(g[j]) + pre[u * ROWS + r] + bias[u]);
-        const float f = sigmoid(to_f32(g[H + j]) +
-                                pre[(U + u) * ROWS + r] + bias[U + u]);
-        const float uu = tanhf(to_f32(g[2 * H + j]) +
-                               pre[(2 * U + u) * ROWS + r] + bias[2 * U + u]);
-        const float o = sigmoid(to_f32(g[3 * H + j]) +
-                                pre[(3 * U + u) * ROWS + r] + bias[3 * U + u]);
-        const size_t x = row * H + j;
-        const float tc = tanhf(a.cseq[x]);
-        const float dh = dh_own[b * U + u] + to_f32(dout[x]);
-        const float d_o = dh * tc;
-        const float dc = dc_own[b * U + u] + a.dcseq[x] +
-                         dh * o * (1.f - tc * tc);
-        const float dgi = (dc * uu) * i * (1.f - i);
-        const float dgf = (dc * a.cp[x]) * f * (1.f - f);
-        const float dgu = (dc * i) * (1.f - uu * uu);
-        const float dgo = d_o * o * (1.f - o);
-        T* dgr = dgx + row * G;
-        dgr[j] = from_f32<T>(dgi);
-        dgr[H + j] = from_f32<T>(dgf);
-        dgr[2 * H + j] = from_f32<T>(dgu);
-        dgr[3 * H + j] = from_f32<T>(dgo);
-        dg[(size_t)j * BP + b] = dgi;
-        dg[(size_t)(H + j) * BP + b] = dgf;
-        dg[(size_t)(2 * H + j) * BP + b] = dgu;
-        dg[(size_t)(3 * H + j) * BP + b] = dgo;
-        dc_own[b * U + u] = dc * f;
+    const int t = a.T - 1 - s, cur = s & 1;
+    if (s + 1 < a.T)
+      prefetch(t - 1, cur ^ 1);
+    else
+      cp_async_commit();
+    if (s)
+      sum_partials(a.part + (size_t)(cur ^ 1) * nb * nb * L.bup, red, nb,
+                   blk, L.bup, L.ng);
+    cp_async_wait<1>();       // the record of step t has landed
+    __syncthreads();
+    if (stamp) ts[0] = globaltimer();
+    // element e = b U + u (lanes run along the units, so that dgx's
+    // stores are runs)
+    const float* r = recs + cur * nrec;
+    for (int e = threadIdx.x; e < BU; e += NTHREADS) {
+      const int b = e / U, u = e - b * U, j = j0 + u;
+      if (j >= H) continue;
+      const float i = r[e], f = r[BU + e], uu = r[2 * BU + e];
+      const float o = r[3 * BU + e], tc = r[4 * BU + e];
+      const float dh = (s ? dh_sum(red, e, L.ng, L.bup) : 0.f) +
+                       r[6 * BU + e];
+      const float d_o = dh * tc;
+      const float dc = dc_own[e] + r[7 * BU + e] + dh * o * (1.f - tc * tc);
+      const float dgi = (dc * uu) * i * (1.f - i);
+      const float dgf = (dc * r[5 * BU + e]) * f * (1.f - f);
+      const float dgu = (dc * i) * (1.f - uu * uu);
+      const float dgo = d_o * o * (1.f - o);
+      T* dgr = dgx + ((size_t)t * B + b) * G + j;
+      dgr[0] = from_f32<T>(dgi);
+      dgr[H] = from_f32<T>(dgf);
+      dgr[2 * H] = from_f32<T>(dgu);
+      dgr[3 * H] = from_f32<T>(dgo);
+      // dg into the 32-row chunk's hi tile (as is) and lo tile (residual)
+      uint8_t* th = dgt + (b >> 5) * 8192;
+      const float dgv[4] = {dgi, dgf, dgu, dgo};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int off = swz(b & 31, 4 * (q * U + u));
+        *reinterpret_cast<float*>(th + off) = dgv[q];
+        *reinterpret_cast<float*>(th + 4096 + off) = tf32_residual(dgv[q]);
       }
-      if (timed && last) {
-        __syncthreads();
-        if (stamp) ts[2] = globaltimer();
-      }
+      dc_own[e] = dc * f;
     }
-    grid.sync();              // dg of step t is complete in the L2
+    fence_async_shared();     // wgmma reads the dg tiles (async proxy)
+    __syncthreads();
+    if (stamp) ts[1] = globaltimer();
+    partial_product<U>(smem_u32(dgt), wc, stg,
+                       a.part + ((size_t)cur * nb + blk) * nb * L.bup, B, H,
+                       nb, L.bup, L.sw, stamp ? ts + 2 : nullptr);
     if (stamp) ts[3] = globaltimer();
-    for (int b0 = 0; b0 < B; b0 += ROWS)
-      dh_products<U>(dg, wr, hs, dh_own, B, BP, G, b0);
+    grid_barrier(a.flags, nb, s + 1);
     if (stamp) ts[4] = globaltimer();
     ts += 5;
   }
+  // dh0: the last step's partials, summed
+  sum_partials(a.part + (size_t)((a.T - 1) & 1) * nb * nb * L.bup, red, nb,
+               blk, L.bup, L.ng);
+  __syncthreads();
   T* dh0 = static_cast<T*>(a.dh0);
   T* dc0 = static_cast<T*>(a.dc0);
-  for (int e = threadIdx.x; e < B * U; e += blockDim.x) {
+  for (int e = threadIdx.x; e < BU; e += NTHREADS) {
     const int b = e / U, j = j0 + e - b * U;
     if (j < H) {
-      dh0[(size_t)b * H + j] = from_f32<T>(dh_own[e]);
+      dh0[(size_t)b * H + j] = from_f32<T>(dh_sum(red, e, L.ng, L.bup));
       dc0[(size_t)b * H + j] = from_f32<T>(dc_own[e]);
     }
   }
@@ -508,6 +974,12 @@ const void* kernel_for(bool backward, int bf16, int U) {
               : kernel_for<float>(backward, U);
 }
 
+size_t smem_bytes(bool backward, int H, int B, int U) {
+  return (size_t)(backward ? BwdLayout(H, B, U).total
+                           : Layout(H, B, U).total) *
+         4;
+}
+
 // The fewest units per block whose grid, ceil(H / U) blocks, is all
 // resident at once.  units = 0 when none up to UMAX fits.
 cudaError_t plan(bool backward, int bf16, int H, int B, int* units,
@@ -525,7 +997,7 @@ cudaError_t plan(bool backward, int bf16, int H, int B, int* units,
                                   dev)) != cudaSuccess)
     return e;
   for (int U = std::max(1, (H + sms - 1) / sms); U <= UMAX; ++U) {
-    const size_t bytes = (size_t)Layout(H, B, U, backward).total * 4;
+    const size_t bytes = smem_bytes(backward, H, B, U);
     if (bytes > (size_t)smem_max) break;     // grows with U
     const void* fn = kernel_for(backward, bf16, U);
     if ((e = cudaFuncSetAttribute(fn,
@@ -559,14 +1031,32 @@ Weights weights(const void* w, long long sk, long long sg, int w_bf16,
   return wt;
 }
 
+template <class E, bool ALO, bool BLO, class LT>
+cudaError_t launch_gates(const GateArgs& a, cudaStream_t stream) {
+  constexpr int NT = ALO || BLO ? 4 : 2;
+  constexpr int S = std::is_same<E, float>::value ? 3 : 4;
+  const size_t smem = S * NT * GTILE + 1024;    // + the 1024-byte alignment
+  auto fn = lstm_bwd_gates_kernel<E, ALO, BLO, LT>;
+  static bool sized = false;     // the attribute, once per instantiation
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  const dim3 grid((4 * a.H + GB - 1) / GB, (a.M + GB - 1) / GB);
+  fn<<<grid, NTHREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* mxt_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// The launch geometry of the forward (backward = 0) or backward kernel for
-// the layer's type (bf16 = 1 for bfloat16), H and B: units per block,
+// The launch geometry of the forward (backward = 0) or backward time loop
+// for the layer's type (bf16 = 1 for bfloat16), H and B: units per block,
 // blocks and dynamic shared memory in bytes; units = 0 when the grid
 // cannot be resident at once.
 extern "C" int mxt_lstm_plan(int backward, int bf16, int H, int B,
@@ -606,37 +1096,87 @@ extern "C" int mxt_lstm_fwd(const void* gx, const void* c0,
   return (int)cudaGetLastError();
 }
 
-// One launch of the backward time loop; dgbuf holds 2 * 4H * BP floats,
-// BP = B rounded up to a multiple of 32; timing is NULL or 1 + 5 T int64.
-extern "C" int mxt_lstm_bwd(const void* gx, const void* hp, const void* cp,
-                            const void* cseq, const void* dout,
-                            const void* dcseq, const void* w, long long sk,
-                            long long sg, int w_bf16, const void* b,
-                            int b_bf16, void* dgx, void* dh0, void* dc0,
-                            void* dgbuf, long long* timing, int T, int B,
-                            int H, int BP, int bf16, void* stream) {
+// One launch of the backward's gate recompute into rec, (T, 8, nb U, B)
+// floats for U units per block (the time loop's plan) and nb = ceil(H /
+// U) blocks.  h_prev (T B rows of H, contiguous) and W (W[k][n] at w + n
+// ldw + k) are both bf16 (tiles = 1; H and ldw even) or both float32
+// (tiles = 0), a_exact / w_exact when they hold bf16 values; gx and dout
+// are of the layer's type (bf16 = 1 for bfloat16), b float32 or bfloat16
+// (b_bf16), cseq, c_prev and dcseq float32, all contiguous; timing is NULL
+// or 5 int64.
+extern "C" int mxt_lstm_bwd_gates(const void* hp, const void* w,
+                                  long long ldw, int tiles, int a_exact,
+                                  int w_exact, const void* gx,
+                                  const void* b, int b_bf16, const void* cseq,
+                                  const void* cp, const void* dout,
+                                  const void* dcseq, void* rec,
+                                  long long* timing, int T, int B, int H,
+                                  int U, int bf16, void* stream) {
+  GateArgs a;
+  a.hp = hp;
+  a.w = w;
+  a.gx = gx;
+  a.b = b;
+  a.b_bf16 = b_bf16;
+  a.cseq = (const float*)cseq;
+  a.cp = (const float*)cp;
+  a.dout = dout;
+  a.dcseq = (const float*)dcseq;
+  a.rec = (float*)rec;
+  a.timing = timing;
+  a.ldw = ldw;
+  a.M = T * B;
+  a.H = H;
+  a.B = B;
+  a.U = U;
+  a.nb = (H + U - 1) / U;
+  const cudaStream_t st = (cudaStream_t)stream;
+  typedef __nv_bfloat16 bf;
+  cudaError_t e;
+  if (tiles)
+    e = bf16 && a_exact && w_exact
+            ? launch_gates<bf, false, false, bf>(a, st)
+            : cudaErrorInvalidValue;
+  else if (!bf16)
+    e = a_exact ? cudaErrorInvalidValue
+        : w_exact ? launch_gates<float, true, false, float>(a, st)
+                  : launch_gates<float, true, true, float>(a, st);
+  else
+    e = !a_exact ? cudaErrorInvalidValue
+        : w_exact ? launch_gates<float, false, false, bf>(a, st)
+                  : launch_gates<float, false, true, bf>(a, st);
+  return (int)e;
+}
+
+// One launch of the backward time loop over rec; part holds 2 nb nb BUP
+// floats (BUP = B U rounded up to a multiple of 4), flags nb * 32 int32
+// (zeroed here, on the stream); timing is NULL or 1 + 5 T int64.
+extern "C" int mxt_lstm_bwd(const void* rec, const void* w, long long sk,
+                            long long sg, int w_bf16, void* dgx, void* dh0,
+                            void* dc0, void* part, void* flags,
+                            long long* timing, int T, int B, int H, int bf16,
+                            void* stream) {
   int U = 0, grid = 0;
   size_t smem = 0;
   cudaError_t e = plan(true, bf16, H, B, &U, &grid, &smem);
   if (e != cudaSuccess) return (int)e;
   if (U == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if ((e = cudaMemsetAsync(flags, 0, (size_t)grid * 32 * sizeof(int),
+                           (cudaStream_t)stream)) != cudaSuccess)
+    return (int)e;
   BwdArgs a;
-  a.gx = gx;
-  a.hp = hp;
-  a.cp = (const float*)cp;
-  a.cseq = (const float*)cseq;
-  a.dout = dout;
-  a.dcseq = (const float*)dcseq;
-  a.wt = weights(w, sk, sg, w_bf16, b, b_bf16);
+  a.rec = (const float*)rec;
+  a.wt = weights(w, sk, sg, w_bf16, nullptr, 0);
   a.dgx = dgx;
   a.dh0 = dh0;
   a.dc0 = dc0;
-  a.dgbuf = (float*)dgbuf;
+  a.part = (float*)part;
+  a.flags = (int*)flags;
   a.timing = timing;
   a.T = T;
   a.B = B;
   a.H = H;
-  a.BP = BP;
+  a.nb = grid;
   void* params[] = {&a};
   e = cudaLaunchCooperativeKernel(kernel_for(true, bf16, U), grid, NTHREADS,
                                   params, smem, (cudaStream_t)stream);

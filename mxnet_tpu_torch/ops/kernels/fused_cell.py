@@ -3,9 +3,10 @@
 
 - :func:`lstm_sequence` -- RNN training.  One kernel launch runs the
   whole LSTM time loop of one layer (``csrc/lstm.cu``, replacing
-  ``_lstm_fwd_kernel``, ``fused_cell.py:142``), and one launch its
-  time-reversed backward (replacing ``_lstm_bwd_kernel``, ``:195``),
-  inside a ``torch.autograd.Function`` that saves what the JAX
+  ``_lstm_fwd_kernel``, ``fused_cell.py:142``), and two launches its
+  time-reversed backward (replacing ``_lstm_bwd_kernel``, ``:195``): the
+  gate recompute over all steps at once on the tensor cores, then the
+  time loop; inside a ``torch.autograd.Function`` that saves what the JAX
   ``custom_vjp`` saves: the inputs, the h sequence (``out``) and the c
   sequence, and no per-gate activation.  The i2h GEMM stays outside (in
   ``ops/rnn.py``), and so do dW and db, as fp32 contractions over the
@@ -32,8 +33,9 @@ A CUDA tensor launches the cooperative kernels of ``csrc/lstm.cu``,
 what bounds them on the card and how their design answers; a CPU tensor
 runs the plain PyTorch versions (:func:`lstm_sequence_plain`,
 :func:`lstm_sequence_backward_plain`, :func:`decode_layer_group_plain`,
-:func:`decode_attn_phase_plain`, :func:`decode_ffn_phase_plain`).
-Launches are counted in ``lstm_sequence.launches_fwd``/``.launches_bwd``,
+:func:`decode_attn_phase_plain`, :func:`decode_ffn_phase_plain`;
+:func:`lstm_bwd_gates_plain` is the recompute's).  Launches are counted
+in ``lstm_sequence.launches_fwd``/``.launches_bwd_gates``/``.launches_bwd``,
 ``decode_layer_group.launches``, ``decode_attn_phase.launches`` and
 ``decode_ffn_phase.launches``.
 """
@@ -50,10 +52,11 @@ from .epilogue import bias_gelu_plain
 from .paged_attention import paged_attention_reference
 
 __all__ = ["lstm_sequence", "lstm_sequence_plain",
-           "lstm_sequence_backward_plain", "lstm_plan",
+           "lstm_sequence_backward_plain", "lstm_bwd_gates_plain",
+           "lstm_record_gates", "lstm_plan",
            "decode_layer_group", "decode_layer_group_plain", "WeightTable",
            "WEIGHT_ORDER", "PHASES", "grid_blocks", "phase_times",
-           "LSTM_BWD_PHASES", "lstm_bwd_phase_times",
+           "LSTM_BWD_PHASES", "LSTM_GATES_PHASES", "lstm_bwd_phase_times",
            "decode_attn_phase", "decode_attn_phase_plain", "decode_ffn_phase",
            "decode_ffn_phase_plain", "phase_grid_blocks"]
 
@@ -480,8 +483,11 @@ def _lstm_lib():
     lib.mxt_lstm_fwd.argtypes = ([_P] * 3 + [L, L, _I, _P, _I] + [_P] * 3
                                  + [_I] * 4 + [_P])
     lib.mxt_lstm_fwd.restype = _I
-    lib.mxt_lstm_bwd.argtypes = ([_P] * 7 + [L, L, _I, _P, _I] + [_P] * 5
-                                 + [_I] * 5 + [_P])
+    lib.mxt_lstm_bwd_gates.argtypes = ([_P, _P, L] + [_I] * 3 + [_P] * 2
+                                       + [_I] + [_P] * 6 + [_I] * 5 + [_P])
+    lib.mxt_lstm_bwd_gates.restype = _I
+    lib.mxt_lstm_bwd.argtypes = ([_P] * 2 + [L, L, _I] + [_P] * 6
+                                 + [_I] * 4 + [_P])
     lib.mxt_lstm_bwd.restype = _I
     return lib
 
@@ -568,33 +574,78 @@ def _lstm_bwd(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):
     if gates_x.device.type == "cpu":
         return lstm_sequence_backward_plain(gates_x, h_prev, c_prev, cseq,
                                             dout, dcseq, w, b)
-    return _lstm_bwd_launch(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b,
-                            None)
+    gates, loop, outs, _ = _lstm_bwd_parts(gates_x, h_prev, c_prev, cseq,
+                                           dout, dcseq, w, b)
+    gates()
+    loop()
+    return outs
 
 
 #: the phases of one step of the backward time loop, in the order the
-#: kernel stamps their ends (:func:`lstm_bwd_phase_times`)
-LSTM_BWD_PHASES = ("stage", "gate_products", "elementwise", "barrier",
-                   "dh_products")
+#: kernel stamps their ends (:func:`lstm_bwd_phase_times`): the sum of the
+#: partial dh of the last step, the elementwise update, the partial
+#: products (into shared memory), their writing out and the grid barrier
+LSTM_BWD_PHASES = ("dh_sum", "elementwise", "dh_products", "dh_write",
+                   "barrier")
+#: the recompute kernel's phases, stamped by its first block
+#: (:func:`lstm_bwd_phase_times`)
+LSTM_GATES_PHASES = ("products", "inputs", "activations", "step_inputs")
 
 
 def lstm_bwd_phase_times(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):
-    """One launch of the backward time loop on CUDA tensors (the arguments
-    of ``_lstm_bwd``) that also stamps the card's global timer at the end
-    of every phase of every step.  Returns ``(total, per_step)``: µs per
-    phase of :data:`LSTM_BWD_PHASES` summed over the steps, and the list
-    of µs per step of each, in the order the steps run (t = T-1 first)."""
+    """The backward on CUDA tensors (the arguments of ``_lstm_bwd``), both
+    kernels stamping the card's global timer: the recompute's first block
+    at the end of each of its phases, the time loop's at the end of every
+    phase of every step.  Returns ``(total, per_step)``: µs per phase of
+    :data:`LSTM_GATES_PHASES` and of :data:`LSTM_BWD_PHASES`, the latter
+    summed over the steps, and for the latter the list of µs per step of
+    each, in the order the steps run (t = T-1 first)."""
     T = gates_x.shape[0]
     n = len(LSTM_BWD_PHASES)
-    stamps = torch.zeros(1 + n * T, dtype=torch.int64, device=gates_x.device)
-    _lstm_bwd_launch(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b, stamps)
+    dev = gates_x.device
+    gstamps = torch.zeros(1 + len(LSTM_GATES_PHASES), dtype=torch.int64,
+                          device=dev)
+    stamps = torch.zeros(1 + n * T, dtype=torch.int64, device=dev)
+    gates, loop, _, _ = _lstm_bwd_parts(gates_x, h_prev, c_prev, cseq, dout,
+                                        dcseq, w, b)
+    gates(gstamps)
+    loop(stamps)
     d = torch.diff(stamps.cpu()).double().reshape(T, n) / 1e3
     per_step = {p: d[:, i].tolist() for i, p in enumerate(LSTM_BWD_PHASES)}
-    return {p: sum(v) for p, v in per_step.items()}, per_step
+    total = dict(zip(LSTM_GATES_PHASES,
+                     (torch.diff(gstamps.cpu()).double() / 1e3).tolist()))
+    total.update({p: sum(v) for p, v in per_step.items()})
+    return total, per_step
 
 
-def _lstm_bwd_launch(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b,
-                     stamps):
+def lstm_bwd_gates_plain(gates_x, h_prev, w_h2h_t, b_h2h):
+    """Plain version of the backward's gate recompute: the activations
+    (T, B, 4H) fp32, i, f, u, o = sigmoid, sigmoid, tanh, sigmoid of
+    gates_x + h_prev W + b, in fp32."""
+    T, B, G = gates_x.shape
+    g = (gates_x.float() + (h_prev.float().reshape(T * B, -1)
+                            @ w_h2h_t.float()).reshape(T, B, G)
+         + b_h2h.float())
+    return torch.cat(_lstm_gates(g), dim=-1)
+
+
+def lstm_record_gates(rec, T, B, H, units):
+    """The activations (T, B, 4H) held in the step records the recompute
+    kernel writes, ``(T, 8, nb units, B)`` fp32 (nb = ceil(H / units)
+    blocks) with fields i, f, u, o, tanh(cseq), c_prev, dout, dcseq (units
+    past H dropped)."""
+    nb = -(-H // units)
+    r = rec.reshape(T, 8, nb * units, B)[:, :4, :H]       # (T, 4, H, B)
+    return r.permute(0, 3, 1, 2).reshape(T, B, 4 * H)
+
+
+def _lstm_bwd_parts(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):
+    """The backward's two kernels on CUDA tensors, as ``(gates, loop,
+    (dgx, dh0, dc0), (rec, units))``: ``gates(stamps=None)`` launches the
+    recompute of the gate activations into the step records ``rec``
+    (:func:`lstm_record_gates` reads them), ``loop(stamps=None)`` the
+    time loop over them into dgx, dh0 and dc0, each counting its launch;
+    ``units`` per block is the time loop's plan."""
     if gates_x.device.type != "cuda":
         raise ValueError("lstm_sequence: unsupported device %s"
                          % gates_x.device)
@@ -605,28 +656,56 @@ def _lstm_bwd_launch(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b,
                 (("h_prev", h_prev, dt, seq), ("c_prev", c_prev, f32, seq),
                  ("cseq", cseq, f32, seq), ("dout", dout, dt, seq),
                  ("dcseq", dcseq, f32, seq)), w, b)
-    lstm_plan(H, B, dt, backward=True)
+    units, nb, _ = lstm_plan(H, B, dt, backward=True)
     dev = gates_x.device
-    bp = -(-B // 32) * 32
+    bup = -(-B * units // 4) * 4
     dgx = torch.empty_like(gates_x)
     dh0 = torch.empty(B, H, dtype=dt, device=dev)
     dc0 = torch.empty(B, H, dtype=dt, device=dev)
-    dgbuf = torch.empty(2, 4 * H, bp, dtype=f32, device=dev)
-    hp_t = h_prev.transpose(1, 2).contiguous()      # (T, H, B), as staged
+    # each step's inputs by unit and batch row, as the time loop reads them
+    rec = torch.empty(T * 8 * nb * units * B, dtype=f32, device=dev)
+    # the partial dh sums, double-buffered, and the barrier's flags
+    part = torch.empty(2 * nb * nb * bup, dtype=f32, device=dev)
+    flags = torch.empty(nb * 32, dtype=torch.int32, device=dev)
     lib = _lstm_lib()
-    rc = lib.mxt_lstm_bwd(
-        gates_x.data_ptr(), hp_t.data_ptr(), c_prev.data_ptr(),
-        cseq.data_ptr(), dout.data_ptr(), dcseq.data_ptr(), w.data_ptr(),
-        w.stride(0), w.stride(1), _LSTM_DTYPES[w.dtype], b.data_ptr(),
-        _LSTM_DTYPES[b.dtype], dgx.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), dgbuf.data_ptr(),
-        None if stamps is None else stamps.data_ptr(), T, B, H, bp,
-        _LSTM_DTYPES[dt],
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "lstm_sequence (backward)")
-    lstm_sequence.launches_bwd += 1
-    lstm_sequence.last_dtype = dt
-    return dgx, dh0, dc0
+    code = _LSTM_DTYPES[dt]
+    # the recompute's operands as its 4-byte copies take them: W with K
+    # along memory (w_h2h's rows), both bf16 (in pairs: H and the row
+    # stride even) or both fp32 (a bf16 one cast; it stays exact in tf32)
+    a_exact, w_exact = dt == torch.bfloat16, w.dtype == torch.bfloat16
+    wg = w if w.stride(0) == 1 else w.t().contiguous().t()
+    tiles = int(a_exact and w_exact and H % 2 == 0 and wg.stride(1) % 2 == 0
+                and wg.data_ptr() % 4 == 0)
+    hg = h_prev
+    if not tiles:
+        hg = h_prev.float()
+        wg = wg.float()
+        if wg.stride(0) != 1:
+            wg = wg.t().contiguous().t()
+
+    def gates(stamps=None):
+        rc = lib.mxt_lstm_bwd_gates(
+            hg.data_ptr(), wg.data_ptr(), wg.stride(1), tiles, int(a_exact),
+            int(w_exact), gates_x.data_ptr(), b.data_ptr(),
+            _LSTM_DTYPES[b.dtype], cseq.data_ptr(), c_prev.data_ptr(),
+            dout.data_ptr(), dcseq.data_ptr(), rec.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), T, B, H, units,
+            code, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, rc, "lstm_sequence (backward gates)")
+        lstm_sequence.launches_bwd_gates += 1
+
+    def loop(stamps=None):
+        rc = lib.mxt_lstm_bwd(
+            rec.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
+            _LSTM_DTYPES[w.dtype], dgx.data_ptr(), dh0.data_ptr(),
+            dc0.data_ptr(), part.data_ptr(), flags.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), T, B, H, code,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, rc, "lstm_sequence (backward)")
+        lstm_sequence.launches_bwd += 1
+        lstm_sequence.last_dtype = dt
+
+    return gates, loop, (dgx, dh0, dc0), (rec, units)
 
 
 class _LSTMSequence(torch.autograd.Function):
@@ -667,7 +746,9 @@ def lstm_sequence(gates_x, h0, c0, w_h2h_t, b_h2h):
     Returns ``(out (T, B, H), hT, cT)`` in gates_x's dtype; cT is cast
     from the fp32 c sequence.  A CPU tensor takes the plain versions; a
     CUDA tensor launches kernel #10 (``lstm_sequence.launches_fwd``) and,
-    under autograd, #11 in the backward (``.launches_bwd``), or raises."""
+    under autograd, #11 in the backward: the gate recompute
+    (``.launches_bwd_gates``) and the time loop (``.launches_bwd``); or
+    raises."""
     cdt = gates_x.dtype
     h0, c0 = h0.to(cdt), c0.to(cdt)
     args = (gates_x.contiguous(), h0.contiguous(), c0.contiguous(), w_h2h_t,
@@ -681,4 +762,5 @@ def lstm_sequence(gates_x, h0, c0, w_h2h_t, b_h2h):
 
 lstm_sequence.launches_fwd = 0
 lstm_sequence.launches_bwd = 0
+lstm_sequence.launches_bwd_gates = 0
 lstm_sequence.last_dtype = None
