@@ -63,6 +63,24 @@ def build(trees, names):
     return [p.wait() for p in procs]
 
 
+def legacy_lstm(cs, fc):
+    """Shims that let ``chip_smoke``'s LSTM phases run a tree older than
+    its backward's two kernels: where #11 is one kernel, ``_lstm_bwd_parts``
+    gives a recompute that does nothing (and so does its plain version)
+    and a time loop that is the whole backward, and the word LM expects no
+    recompute launches; where the backward stamps no phases,
+    ``lstm_stamps`` returns None."""
+    if not hasattr(fc, "_lstm_bwd_parts"):
+        fc.lstm_sequence.launches_bwd_gates = 0
+        cs.LM_PER_STEP.pop("lstm_sequence_bwd_gates")
+        fc._lstm_bwd_parts = lambda *a: (
+            lambda stamps=None: None, lambda stamps=None: fc._lstm_bwd(*a),
+            None, None)
+        fc.lstm_bwd_gates_plain = lambda *a: None
+    if not hasattr(fc, "lstm_bwd_phase_times"):
+        cs.lstm_stamps = lambda *a, **k: None
+
+
 def run(tree, phases, steps):
     """The phases in ``tree``, in this process."""
     sys.path.insert(0, tree)
@@ -106,22 +124,25 @@ def run(tree, phases, steps):
     if "lstm" in phases:
         from mxnet_tpu_torch.ops.kernels import _build
         from mxnet_tpu_torch.ops.kernels import fused_cell as fc
-        if not hasattr(fc.lstm_sequence, "launches_bwd_gates"):
-            # a tree whose backward is one kernel: no recompute launches
-            fc.lstm_sequence.launches_bwd_gates = 0
-            cs.LM_PER_STEP.pop("lstm_sequence_bwd_gates")
-        log = _build.build(["lstm"])["lstm"].with_suffix(".log")
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                cs.log("ptxas lstm: %s" % line.strip())
-        cs.lstm_timing(torch, fc, timer, torch.float32)
-        cs.lstm_timing(torch, fc, timer, torch.bfloat16)
-        torch.cuda.empty_cache()
-        for label, amp in (("lstm_lm_fp32", False),
-                           ("lstm_lm_amp_bf16", True)):
-            _, st = cs.train_lm(torch, 0, label, amp=amp)
-            cs.log("lstm %s: step-1 loss %r; %s"
-                   % (label, st["first_loss"], json.dumps(st)))
+        per_step = dict(cs.LM_PER_STEP)
+        legacy_lstm(cs, fc)
+        try:
+            log = _build.build(["lstm"])["lstm"].with_suffix(".log")
+            for line in log.read_text().splitlines():
+                if ("registers" in line or "spill" in line
+                        or "Compiling" in line):
+                    cs.log("ptxas lstm: %s" % line.strip())
+            cs.lstm_timing(torch, fc, timer, torch.float32)
+            cs.lstm_timing(torch, fc, timer, torch.bfloat16)
+            torch.cuda.empty_cache()
+            for label, amp in (("lstm_lm_fp32", False),
+                               ("lstm_lm_amp_bf16", True)):
+                _, st = cs.train_lm(torch, 0, label, amp=amp)
+                cs.log("lstm %s: step-1 loss %r; %s"
+                       % (label, st["first_loss"], json.dumps(st)))
+        finally:
+            cs.LM_PER_STEP.clear()
+            cs.LM_PER_STEP.update(per_step)
     if "amp" in phases:
         torch.cuda.empty_cache()
         _, st = cs.train(torch, 0, "amp_bf16", cs.TRAIN_B, cs.TRAIN_L, steps,

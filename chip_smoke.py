@@ -48,8 +48,8 @@ plain version):
    (28 cases); both timed at (35, 32, 650) beside their plain versions,
    their bounds and cuDNN's LSTM on the same weights, #11's two kernels
    also apart, its time loop's phases by ``%globaltimer`` and its serial
-   chain's floor; the SASS of #11's kernels: tensor-core products, no
-   atomic.  The tensor-parallel
+   chain's floor; the SASS of #11's kernels: the recompute's tensor-core
+   products, no atomic in either.  The tensor-parallel
    decode phases (#13 attention, #14 FFN) on every shard of one layer at
    tp 2 and 4 of the serving model and at tp 2 of a GQA one (12 heads
    over 4 KV heads), at B 16 (lengths 1..512, one row of length 0) and
@@ -133,10 +133,11 @@ import numpy as np
 # H100 SXM published peaks (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 # fp32-accurate products on the tensor cores: 3xTF32 (hi hi + hi lo + lo
-# hi) at the TF32 peak of 495 TFLOP/s.  The bound of the fp32 flash rows:
-# the card can do their fp32 work this fast, faster than on its FMAs.
-TF32X3_FLOPS = 495e12 / 3
+# hi) at the TF32 peak.  The bound of the fp32 flash rows: the card can do
+# their fp32 work this fast, faster than on its FMAs.
+TF32X3_FLOPS = TF32_FLOPS / 3
 
 # tolerances of the kernel checks, kernel vs plain version on the card
 TOL_BIAS_GELU = 1e-5     # one fp32 erf per element
@@ -1348,34 +1349,43 @@ def lstm_case(torch, fc, g, T, B, H, dt, zero_state, w_dt=None):
     return errs
 
 
+def product_time(flops, a_e, b_e):
+    """Seconds the card needs at least for ``flops`` of fp32-accurate
+    products of operands of ``a_e`` and ``b_e`` bytes: bf16 x bf16 at the
+    bf16 rate (exact in fp32); otherwise 3xTF32 at the TF32 rate, less the
+    residual product of a bf16 operand, which is exact in tf32 (an fp32 x
+    bf16 product takes two tf32 products)."""
+    if a_e == b_e == 2:
+        return flops / BF16_FLOPS
+    return (1 + (a_e == 4) + (b_e == 4)) * flops / TF32_FLOPS
+
+
 def lstm_bounds(T, B, H, e, w_e=None):
     """(bound ms, by) of #10, of #11 (both launches) and of #11's
     recompute, for the layer's elements of ``e`` bytes and W's of ``w_e``
     (``e`` when None): each input read and each output written once (the
     recompute writes the activations, T B 4H fp32); the recurrent products
-    (2 T B H 4H each: #10's, #11's recompute and #11's dh products) as
-    PERF.md's convention rates them, bf16 x bf16 at 989 TFLOP/s and
-    fp32-accurate ones as 3xTF32 (3 x flops at 495).  #10's operand is the
-    fp32 carry and #11's dh products' the fp32 dg, so only a bf16 layer's
-    recompute with a bf16 W runs at the bf16 rate."""
+    (2 T B H 4H each) at ``product_time``'s rates: #10's take the fp32
+    carry h and W, #11's recompute h_prev (the layer's type) and W, #11's
+    dh products the fp32 dg and W."""
     w_e = w_e or e
     G = 4 * H
     flops = 2 * T * B * H * G
-    acc = flops / TF32X3_FLOPS
-    rec = flops / BF16_FLOPS if e == w_e == 2 else acc
+    carry = product_time(flops, 4, w_e)
+    rec = product_time(flops, e, w_e)
     wb = w_e * (H * G + G)
     fwd_bytes = e * (T * B * G + T * B * H + 2 * B * H) + wb + 4 * T * B * H
     bwd_bytes = e * (2 * T * B * G + 2 * T * B * H + 2 * B * H) + wb \
         + 4 * 3 * T * B * H
     gates_bytes = e * (T * B * G + T * B * H) + wb + 4 * T * B * G
-    return (bound_time(fwd_bytes, acc), bound_time(bwd_bytes, rec + acc),
+    return (bound_time(fwd_bytes, carry), bound_time(bwd_bytes, rec + carry),
             bound_time(gates_bytes, rec))
 
 
 def lstm_stamps(torch, fc, timer, bwd, T, runs=5):
     """The backward's phases by ``%globaltimer`` (``fused_cell.
-    lstm_bwd_phase_times``: the time loop's block 0 and, where the tree
-    has it, the recompute's first block), each launch after the L2 flush:
+    lstm_bwd_phase_times``: the time loop's block 0 and the recompute's
+    first block), each launch after the L2 flush:
     per phase the median over ``runs`` launches of its sum over the T
     steps, in µs.  Printed and returned; then the serial chain's floor, T
     times the stamped barrier and exchange (the dh sum) a step."""
@@ -1443,14 +1453,12 @@ def lstm_timing(torch, fc, timer, dt):
                           iters=5),
              "bwd": timer(lambda: fc.lstm_sequence_backward_plain(*bwd),
                           iters=5)}
-    parts = None
-    if hasattr(fc, "_lstm_bwd_parts"):
-        gates, loop, _, _ = fc._lstm_bwd_parts(*bwd)
-        gates()
-        parts = {"gates": timer(gates, spin=spin),
-                 "loop": timer(loop, spin=spin),
-                 "plain_gates": timer(lambda: fc.lstm_bwd_gates_plain(
-                     gx, hp, w, b), spin=spin)}
+    gates, loop, _, _ = fc._lstm_bwd_parts(*bwd)
+    gates()
+    parts = {"gates": timer(gates, spin=spin),
+             "loop": timer(loop, spin=spin),
+             "plain_gates": timer(lambda: fc.lstm_bwd_gates_plain(
+                 gx, hp, w, b), spin=spin)}
     with_i2h = timer(lambda: fc._lstm_fwd(torch.matmul(x, w_i2h.T) + b, h0,
                                           c0, w, b))
 
@@ -1462,8 +1470,7 @@ def lstm_timing(torch, fc, timer, dt):
         torch.matmul(x.reshape(T * B, H).T, dg)       # dW_i2h
 
     bwd_products = timer(bwd_with_products, spin=spin)
-    stamps = (lstm_stamps(torch, fc, timer, bwd, T)
-              if hasattr(fc, "lstm_bwd_phase_times") else None)
+    stamps = lstm_stamps(torch, fc, timer, bwd, T)
     cudnn = torch.nn.LSTM(H, H).to(DEV, dt)
     with torch.no_grad():
         cudnn.weight_ih_l0.copy_(w_i2h)
@@ -1503,17 +1510,16 @@ def lstm_timing(torch, fc, timer, dt):
     rows["lstm_sequence_fwd"]["with_i2h_ms"] = with_i2h
     rows["lstm_sequence_bwd"]["with_products_ms"] = bwd_products
     rows["lstm_sequence_bwd"]["phase_us"] = stamps
-    if parts:
-        log("lstm_sequence_bwd (T %d, B %d, H %d) %s apart: recompute %.4f ms "
-            "(bound %.4f ms, %s; plain %.4f ms), time loop %.4f ms (%.2f us "
-            "per step); both in one call %.4f ms"
-            % (T, B, H, str(dt)[6:], parts["gates"], bg, byg,
-               parts["plain_gates"], parts["loop"], parts["loop"] / T * 1e3,
-               ms["bwd"]))
-        rows["lstm_sequence_bwd"]["loop_ms"] = parts["loop"]
-        rows["lstm_sequence_bwd_gates"] = dict(
-            ms=parts["gates"], plain_ms=parts["plain_gates"], bound_ms=bg,
-            bound_by=byg, library_ms=None)
+    log("lstm_sequence_bwd (T %d, B %d, H %d) %s apart: recompute %.4f ms "
+        "(bound %.4f ms, %s; plain %.4f ms), time loop %.4f ms (%.2f us per "
+        "step); both in one call %.4f ms"
+        % (T, B, H, str(dt)[6:], parts["gates"], bg, byg,
+           parts["plain_gates"], parts["loop"], parts["loop"] / T * 1e3,
+           ms["bwd"]))
+    rows["lstm_sequence_bwd"]["loop_ms"] = parts["loop"]
+    rows["lstm_sequence_bwd_gates"] = dict(
+        ms=parts["gates"], plain_ms=parts["plain_gates"], bound_ms=bg,
+        bound_by=byg, library_ms=None)
     log("cuDNN LSTM output vs #10 + i2h on the same weights (%s): max abs "
         "diff %.3g (the yardstick computes the same function)"
         % (str(dt)[6:], same))
@@ -1570,8 +1576,7 @@ def check_lstm(torch, timer, report):
 def check_lstm_sass(libs):
     """#11's recompute kernel issues tensor-core products, wgmma in bf16
     (HGMMA ... BF16) and in tf32 (HGMMA ... TF32) in its float
-    instantiations; the time loop's partial products run on wgmma in
-    tf32 too; neither kernel holds an atomic."""
+    instantiations; neither it nor the time loop holds an atomic."""
     census = sass_census(libs["lstm"], "lstm_bwd", full=True)
     bad, gates, loops = [], 0, 0
     for fn, ops in sorted(census.items()):
@@ -1581,6 +1586,7 @@ def check_lstm_sass(libs):
               for kind in ("HGMMA", "HMMA")}
         atomics = sum(n for op, n in ops.items()
                       if parts[op][0] in ATOMIC_OPS)
+        ok = True
         if "lstm_bwd_gates_kernel" in fn:
             gates += 1
             want = "TF32" if "gates_kernelIf" in fn else "BF16"
@@ -1588,8 +1594,6 @@ def check_lstm_sass(libs):
                      for op in ops)
         else:
             loops += 1
-            ok = any(parts[op][0] == "HGMMA" and "TF32" in parts[op]
-                     for op in ops)
         log("SASS %s: tensor-core %s, atomics %d" % (fn[-60:], tc, atomics))
         if not ok or atomics:
             bad.append(fn)
@@ -1598,8 +1602,9 @@ def check_lstm_sass(libs):
     # 1..8
     if gates != 5 or loops != 16 or bad:
         raise AssertionError("lstm SASS: %d recompute and %d time-loop "
-                             "kernels, without their tensor-core products "
-                             "or with atomics: %s" % (gates, loops, bad))
+                             "kernels, recompute without its tensor-core "
+                             "products or with atomics: %s"
+                             % (gates, loops, bad))
 
 
 # ---------------------------------------------------------------------------

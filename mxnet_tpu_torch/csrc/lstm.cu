@@ -86,16 +86,17 @@
 //       (double-buffered), writes dgx[t] and keeps dg in shared memory;
 //    c. forms its partial product part[b][k] = sum over its 4U gate
 //       columns g of dg[b][g] W[k][g], for all H units k: a (B x 4U) by
-//       (4U x H) product on the tensor cores, taken transposed on wgmma
-//       m64n32k8 in 3xTF32: W's 64-unit tiles as A from registers (split
-//       into rounded tf32 hi + lo), dg as B from two swizzled tiles that
-//       the elementwise update writes (its values, which the tensor core
-//       reads truncated to tf32, and their residuals); hi hi + hi lo + lo
-//       hi (a bf16 W's lo is exactly 0).  32 batch rows a
-//       pass, staged in shared memory and written to part as whole
-//       16-byte runs per reader.  The parent's stamps put the same FLOPs
-//       on the CUDA cores at 4.3 us a step, and mma.sync m16n8k8 took 3.6
-//       here: hence wgmma;
+//       (4U x H) product, 416k FMAs a block at the word LM's shape, in
+//       fp32 on the CUDA cores (each sum over g in order): lane = batch
+//       row, its row of dg in registers; a warp takes one reader's U units
+//       at a time, reads their W rows as one (broadcast) and writes the
+//       reader's slice to part as 16-byte runs as soon as it is formed.
+//       On an H100 80GB HBM3 at 700 W, (35, 32, 650), this time loop
+//       took 0.432 ms in fp32 and 0.429 in bf16, where the same loop with
+//       the product on wgmma m64n32k8 in 3xTF32 (W's tiles as A from
+//       registers, dg's value and residual tiles as B) took 0.497 and
+//       0.495 in the same chip_flash_ab.py --phases lstm run: so few
+//       products a step leave the tensor cores' rounds a latency chain;
 //    d. passes one grid barrier (part is double-buffered).  The barrier
 //       is a flag per block (release store, 128 bytes apart) that every
 //       block polls with acquire loads: no atomics anywhere, and every sum
@@ -104,8 +105,9 @@
 //
 // Bound on the card.  Per layer at the word LM's shape (T 35, B 32, H 650)
 // the backward does 4 T B H 4H = 7.57 GFLOP of products: the recompute's
-// half on the tensor cores (bf16 at 989 TFLOP/s; fp32-accurate as 3xTF32
-// at 495 / 3) is parallel; the other half, the dh products, sits on the
+// half on the tensor cores (bf16 x bf16 at 989 TFLOP/s; fp32-accurate as
+// three tf32 products at 495, two where one operand holds bf16 values,
+// exact in tf32) is parallel; the other half, the dh products, sits on the
 // serial chain of T steps, each a barrier and an exchange of the partial
 // sums (B H floats per block, 10.8 MB a step over the grid, read and
 // written through the L2) on top of its arithmetic.  That chain, not the
@@ -648,27 +650,25 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 // ---------------------------------------------------------------------------
 // backward, kernel 2: the time loop
 // ---------------------------------------------------------------------------
-__host__ __device__ inline int round8(int n) { return (n + 7) & ~7; }
-
 // shared-memory layout of the time loop, in floats; every piece starts
 // 16-byte aligned
 struct BwdLayout {
-  int kp, sw, bup, ng, dgt, wc, rec, red, dc, stg, total;
+  int sd, bup, ng, dg, wc, rec, red, dc, stg, total;
   __host__ __device__ BwdLayout(int H, int B, int U) {
-    kp = round8(4 * U);        // the partial product's K, 4U in k8 steps
-    sw = kp + 4;               // row stride of wc (conflict-free)
-    bup = round4(B * U);       // one reader's slice of a partial
+    sd = 4 * U + (U % 2 ? 0 : 4);  // row stride of dg (16-byte loads by
+                                   // row, conflict-free)
+    bup = round4(B * U);           // one reader's slice of a partial
     const int nb = (H + U - 1) / U, nq = bup / 4;
     ng = NTHREADS / nq < nb ? NTHREADS / nq : nb;   // writer groups
     if (ng < 1) ng = 1;
     int o = 0;
-    dgt = o;  o += ((B + 31) / 32) * 2 * 1024;  // dg: hi, lo tiles of 32 rows
-    wc = o;   o += ((H + 255) & ~255) * sw; // W[k][own gate column], 0 pad
+    dg = o;   o += ((B + 31) & ~31) * sd;   // dg[b][own gate column], 0 pad
+    wc = o;   o += nb * U * 4 * U;          // W[k][own gate column], 0 pad
     rec = o;  o += 2 * NFIELD * B * U;      // two steps' records
     red = o;  o += ng * bup;                // the writer groups' sums
     dc = o;   o += bup;                     // the carry dc
-    stg = o;  o += nb * 32 * U;             // 32 rows of the partial
-    total = o + 256;                        // + the 1024-byte alignment
+    stg = o;  o += NWARPS * 2 * 32 * U;     // each warp's slices of readers
+    total = o;
   }
 };
 
@@ -681,7 +681,7 @@ struct BwdArgs {
   float* part;         // (2, nb, nb, BUP) float32: the partial dh sums,
                        // part[s & 1][writer][reader][b U + u]
   int* flags;          // nb flags 128 bytes apart, 0 at the launch
-  long long* timing;   // NULL, or 1 + 5 T stamps (see lstm_bwd_kernel)
+  long long* timing;   // NULL, or 1 + 4 T stamps (see lstm_bwd_kernel)
   int T, B, H, nb;
 };
 
@@ -757,106 +757,72 @@ __device__ __forceinline__ float dh_sum(const float* red, int e, int ng,
 
 // The block's partial product over its 4U gate columns, out[r][b U + u] =
 // sum_c dg[b][c] W[k][c] with k = r U + u, for all H units k and B rows
-// (out: the block's writer slab, nb slices of bup floats), formed
-// transposed, (W's own columns: H x 4U) (dg^T: 4U x 32), on wgmma m64n32k8
-// in 3xTF32, 32 batch rows a pass: W's 64-row tiles are A from registers
-// (split into rounded tf32 hi + lo; a bf16 W's lo is 0, and its product
-// adds exact zeros), dg is B from two 128-byte swizzled tiles a 32-row
-// chunk, its fp32 values (the tensor core reads their tf32 truncation)
-// and their residuals.  Warpgroup wg takes the tiles wg, wg +
-// 2, ... two at a time, the two warpgroups' pairs a round.  Staged in stg
-// as [r][32 U]; after each round the readers whose units are complete are
-// written as 16-byte runs while the next round's products run.  Ends
-// with the block synchronised.
+// (out: the block's writer slab, nb slices of bup floats), with fp32 FMAs
+// on the CUDA cores, 32 batch rows a pass.  Warp w takes the readers r =
+// w, w + NWARPS, ...; lane = batch row, which holds its row of dg in
+// registers and reads W's rows (the same for the whole warp: broadcast) as
+// 16-byte words; each sum runs over c in order, the U sums of a reader
+// side by side.  The warp stages its reader's 32 U floats in stg (two
+// slices, in turn) and writes them to out as 16-byte runs.
 template <int U>
-__device__ void partial_product(uint32_t dgt, const float* wc, float* stg,
-                                float* out, int B, int H, int nb, int bup,
-                                int sw, long long* stamp) {
-  constexpr int KS = (4 * U + 7) / 8;      // k8 steps over the 4U columns
-  const int t = threadIdx.x & 127, wg = threadIdx.x >> 7;
-  const int fr = 16 * (t >> 5) + ((t & 31) >> 2), fc = t & 3;
-  const int nmt = (H + 63) / 64;
+__device__ void partial_product(const float* dg, const float* wc, float* stg,
+                                float* out, int B, int nb, int bup, int sd) {
+  constexpr int NG = 4 * U;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* st = stg + warp * 2 * 32 * U;
+  int half = 0;
   for (int b0 = 0; b0 < B; b0 += 32) {
-    const uint32_t th = dgt + (b0 / 32) * 8192, tl = th + 4096;
-    const int lo = b0 * U, n4 = (min((b0 + 32) * U, bup) - lo) / 4;
-    // round it: tiles 4 it .. 4 it + 3 (the two warpgroups' pairs), then
-    // the readers whose units they complete are written out while the
-    // next round's products run
-    for (int it = 0, r_done = 0; 4 * it < nmt; ++it) {
-      const int mt = wg + 4 * it;
-      float d[2][16];
-      uint32_t ah[2][KS][4], al[2][KS][4];
+    float d[NG];
+    const float4* d4 = reinterpret_cast<const float4*>(dg + (b0 + lane) * sd);
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) d[p][i] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {        // rows fr (+8), cols fc (+4)
-            const int r = 64 * (mt + 2 * p) + fr + 8 * (i & 1);
-            tf32_split(wc[r * sw + 8 * kk + fc + 4 * (i >> 1)], ah[p][kk][i],
-                       al[p][kk][i]);
-          }
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {        // the two chains interleaved
-        const uint64_t dh = gmma_desc(th + kk * 32, 1, 1024);
-        const uint64_t dl = gmma_desc(tl + kk * 32, 1, 1024);
-#pragma unroll
-        for (int p = 0; p < 2; ++p) wgmma_tf32_rs<32>(d[p], al[p][kk], dh);
-#pragma unroll
-        for (int p = 0; p < 2; ++p) wgmma_tf32_rs<32>(d[p], ah[p][kk], dl);
-#pragma unroll
-        for (int p = 0; p < 2; ++p) wgmma_tf32_rs<32>(d[p], ah[p][kk], dh);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(d[0]);
-      fence_regs(d[1]);
-      // d[p]: rows (units) 64 (mt + 2p) + fr + {0, 8}, columns (batch
-      // rows) 8 j + 2 fc + {0, 1} at d[p][4 j + 2 h + e]
-#pragma unroll
-      for (int p = 0; p < 2; ++p)
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int k = 64 * (mt + 2 * p) + fr + 8 * ((i >> 1) & 1);
-          const int b = 8 * (i >> 2) + 2 * fc + (i & 1);
-          if (k < H) {
-            const int r = k / U;
-            stg[r * 32 * U + b * U + (k - r * U)] = d[p][i];
-          }
-        }
-      __syncthreads();
-      if (stamp && 4 * (it + 1) >= nmt) *stamp = globaltimer();
-      // each complete reader's floats lo .. lo + 4 n4: 16-byte runs
-      const int r_end = 4 * (it + 1) >= nmt ? nb : 256 * (it + 1) / U;
-      for (int x = threadIdx.x; x < (r_end - r_done) * n4; x += blockDim.x) {
-        const int r = r_done + x / n4, q = x % n4;
-        reinterpret_cast<float4*>(out + (size_t)r * bup + lo)[q] =
-            reinterpret_cast<const float4*>(stg + r * 32 * U)[q];
-      }
-      r_done = r_end;
+    for (int q = 0; q < U; ++q) {
+      const float4 v = d4[q];
+      d[4 * q] = v.x;
+      d[4 * q + 1] = v.y;
+      d[4 * q + 2] = v.z;
+      d[4 * q + 3] = v.w;
     }
-    __syncthreads();
+    const int lo = b0 * U, n4 = (min((b0 + 32) * U, bup) - lo) / 4;
+    for (int r = warp; r < nb; r += NWARPS, half ^= 1) {
+      const float4* w4 = reinterpret_cast<const float4*>(wc + r * U * NG);
+      float s[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) s[u] = 0.f;
+#pragma unroll
+      for (int q = 0; q < U; ++q)
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float4 w = w4[u * U + q];
+          s[u] = fmaf(d[4 * q], w.x, s[u]);
+          s[u] = fmaf(d[4 * q + 1], w.y, s[u]);
+          s[u] = fmaf(d[4 * q + 2], w.z, s[u]);
+          s[u] = fmaf(d[4 * q + 3], w.w, s[u]);
+        }
+      // the slice written two readers ago has been read: a __syncwarp lies
+      // between
+      float* sh = st + half * 32 * U;
+#pragma unroll
+      for (int u = 0; u < U; ++u) sh[lane * U + u] = s[u];
+      __syncwarp();
+      for (int q = lane; q < n4; q += 32)
+        reinterpret_cast<float4*>(out + (size_t)r * bup + lo)[q] =
+            reinterpret_cast<const float4*>(sh)[q];
+    }
   }
 }
 
 template <class T, int U>
 __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) float smem_raw[];
-  // the dg tiles need a 1024-byte boundary
-  float* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023) / 4;
+  extern __shared__ __align__(16) float smem[];
   const int H = a.H, B = a.B, G = 4 * H, nb = a.nb, blk = blockIdx.x;
   const int j0 = blk * U, BU = B * U, nrec = NFIELD * BU;
   const BwdLayout L(H, B, U);
   float *wc = smem + L.wc, *recs = smem + L.rec;
   float *red = smem + L.red, *dc_own = smem + L.dc, *stg = smem + L.stg;
-  uint8_t* dgt = reinterpret_cast<uint8_t*>(smem + L.dgt);
-  for (int e = threadIdx.x; e < L.total - 256; e += NTHREADS) smem[e] = 0.f;
+  float* dgs = smem + L.dg;
+  for (int e = threadIdx.x; e < L.total; e += NTHREADS) smem[e] = 0.f;
   __syncthreads();
-  load_columns<U>(wc, nullptr, a.wt, H, j0, L.sw);
+  load_columns<U>(wc, nullptr, a.wt, H, j0);
   T* dgx = static_cast<T*>(a.dgx);
   // the block's record of step t, 8 runs of U B floats ([u][b]), into
   // buffer buf as [field][b U + u], by cp.async (one group)
@@ -872,8 +838,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_kernel(BwdArgs a) {
   };
   // with a timing buffer, block 0's thread 0 stamps the start, then the
   // end of each step's dh sum (with the wait for the step's record),
-  // elementwise update, partial products (in shared memory; with B over
-  // 32, at the last 32-row pass), their writing to part, and barrier
+  // elementwise update, partial products (written to part), and barrier
   const bool stamp = a.timing != nullptr && blk == 0 && threadIdx.x == 0;
   long long* ts = a.timing;
   prefetch(a.T - 1, 0);
@@ -912,27 +877,25 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_kernel(BwdArgs a) {
       dgr[H] = from_f32<T>(dgf);
       dgr[2 * H] = from_f32<T>(dgu);
       dgr[3 * H] = from_f32<T>(dgo);
-      // dg into the 32-row chunk's hi tile (as is) and lo tile (residual)
-      uint8_t* th = dgt + (b >> 5) * 8192;
-      const float dgv[4] = {dgi, dgf, dgu, dgo};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int off = swz(b & 31, 4 * (q * U + u));
-        *reinterpret_cast<float*>(th + off) = dgv[q];
-        *reinterpret_cast<float*>(th + 4096 + off) = tf32_residual(dgv[q]);
-      }
+      float* dgr_s = dgs + b * L.sd + u;
+      dgr_s[0] = dgi;
+      dgr_s[U] = dgf;
+      dgr_s[2 * U] = dgu;
+      dgr_s[3 * U] = dgo;
       dc_own[e] = dc * f;
     }
-    fence_async_shared();     // wgmma reads the dg tiles (async proxy)
     __syncthreads();
     if (stamp) ts[1] = globaltimer();
-    partial_product<U>(smem_u32(dgt), wc, stg,
-                       a.part + ((size_t)cur * nb + blk) * nb * L.bup, B, H,
-                       nb, L.bup, L.sw, stamp ? ts + 2 : nullptr);
-    if (stamp) ts[3] = globaltimer();
+    partial_product<U>(dgs, wc, stg,
+                       a.part + ((size_t)cur * nb + blk) * nb * L.bup, B, nb,
+                       L.bup, L.sd);
+    if (a.timing) {           // the stamp waits for every warp's writes
+      __syncthreads();
+      if (stamp) ts[2] = globaltimer();
+    }
     grid_barrier(a.flags, nb, s + 1);
-    if (stamp) ts[4] = globaltimer();
-    ts += 5;
+    if (stamp) ts[3] = globaltimer();
+    ts += 4;
   }
   // dh0: the last step's partials, summed
   sum_partials(a.part + (size_t)((a.T - 1) & 1) * nb * nb * L.bup, red, nb,
@@ -1150,7 +1113,7 @@ extern "C" int mxt_lstm_bwd_gates(const void* hp, const void* w,
 
 // One launch of the backward time loop over rec; part holds 2 nb nb BUP
 // floats (BUP = B U rounded up to a multiple of 4), flags nb * 32 int32
-// (zeroed here, on the stream); timing is NULL or 1 + 5 T int64.
+// (zeroed here, on the stream); timing is NULL or 1 + 4 T int64.
 extern "C" int mxt_lstm_bwd(const void* rec, const void* w, long long sk,
                             long long sg, int w_bf16, void* dgx, void* dh0,
                             void* dc0, void* part, void* flags,

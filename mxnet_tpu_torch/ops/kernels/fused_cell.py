@@ -584,9 +584,8 @@ def _lstm_bwd(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):
 #: the phases of one step of the backward time loop, in the order the
 #: kernel stamps their ends (:func:`lstm_bwd_phase_times`): the sum of the
 #: partial dh of the last step, the elementwise update, the partial
-#: products (into shared memory), their writing out and the grid barrier
-LSTM_BWD_PHASES = ("dh_sum", "elementwise", "dh_products", "dh_write",
-                   "barrier")
+#: products (written out) and the grid barrier
+LSTM_BWD_PHASES = ("dh_sum", "elementwise", "dh_products", "barrier")
 #: the recompute kernel's phases, stamped by its first block
 #: (:func:`lstm_bwd_phase_times`)
 LSTM_GATES_PHASES = ("products", "inputs", "activations", "step_inputs")

@@ -11,10 +11,9 @@ sums.  Its arithmetic, emulated in fp32 torch:
   bf16 operand (exact in tf32) left out; bf16 h with bf16 W as exact
   products summed in fp32;
 - dh as the per-block partial products over U-unit slices of dg's gate
-  columns (wgmma in 3xTF32: W split into rounded tf32 hi + lo, dg read
-  truncated with its residual), summed in the kernel's fixed order:
-  groups of consecutive writer blocks in block order, then the groups in
-  order.
+  columns (fp32 FMAs on the CUDA cores: fp32 products summed in fp32),
+  summed in the kernel's fixed order: groups of consecutive writer blocks
+  in block order, then the groups in order.
 
 It is held within ``chip_smoke``'s tolerances of the kernel on the card
 (``TOL_LSTM``, and one bf16 step for a bf16 layer), and a single-TF32
@@ -45,12 +44,6 @@ def _trunc(x):
     return (x.view(torch.int32) & -8192).view(torch.float32)
 
 
-def _round(x):
-    """x rounded to the nearest tf32 (ties away from zero), as
-    ``cvt.rna.tf32.f32``."""
-    return _trunc((x.view(torch.int32) + 4096).view(torch.float32))
-
-
 def _recompute(hp, w, a_exact, b_exact, single=False):
     """h_prev W as the recompute kernel forms it (``single``: one product
     of operands read as tf32)."""
@@ -76,10 +69,9 @@ def _plan(H, B):
     return U, nb, max(1, min(nb, NTHREADS // nq))
 
 
-def _partials(dg, w, U, nb, w_exact):
-    """(nb, B, H): block k's partial product over its units' gate columns
-    on wgmma: W split into rounded tf32 hi + lo, dg read as tf32 (hi) and
-    its residual read as tf32 (lo)."""
+def _partials(dg, w, U, nb):
+    """(nb, B, H): block k's partial product over its units' gate columns,
+    in fp32."""
     B, G = dg.shape
     H = G // 4
     pad = nb * U - H
@@ -87,13 +79,7 @@ def _partials(dg, w, U, nb, w_exact):
     dgb = dgb.reshape(B, 4, nb, U).permute(2, 0, 1, 3).reshape(nb, B, 4 * U)
     wb = torch.nn.functional.pad(w.reshape(H, 4, H), (0, pad))
     wb = wb.reshape(H, 4, nb, U).permute(2, 0, 1, 3).reshape(nb, H, 4 * U)
-    ah, bh = _trunc(dgb), _round(wb)
-    al, bl = _trunc(dgb - ah), _round(wb - bh)
-    t = bh.transpose(1, 2)
-    out = al @ t
-    if not w_exact:
-        out = out + ah @ bl.transpose(1, 2)
-    return out + ah @ t
+    return dgb @ wb.transpose(1, 2)
 
 
 def _group_sum(parts, ng):
@@ -133,7 +119,7 @@ def emulate_bwd(gx, hp, cp, cseq, dout, dcseq, w, b, single=False):
                         (dc * i[t]) * (1 - u[t] * u[t]),
                         d_o * o[t] * (1 - o[t])], -1)
         dgx[t] = dg.to(gx.dtype)
-        dh = _group_sum(_partials(dg, W, U, nb, w_exact), ng)
+        dh = _group_sum(_partials(dg, W, U, nb), ng)
         dc = dc * f[t]
     return dgx, dh.to(gx.dtype), dc.to(gx.dtype)
 
@@ -250,3 +236,25 @@ def test_plain_recompute_is_the_backward_plain_gates():
     o = act[-1, :, 3 * H:]
     torch.testing.assert_close(dgx[-1, :, 3 * H:],
                                torch.tanh(cseq[-1]) * o * (1 - o))
+
+
+@pytest.mark.parametrize("e,w_e,carry_products,recompute_products",
+                         [(4, 4, 3, 3), (2, 2, 2, None), (2, 4, 3, 2)],
+                         ids=["fp32", "bf16", "bf16-w32"])
+def test_bounds_charge_the_products_the_function_needs(
+        e, w_e, carry_products, recompute_products):
+    """``chip_smoke.lstm_bounds`` at the word LM's layer: #10's products
+    (fp32 h by W) and #11's dh products (fp32 dg by W) take three tf32
+    products with an fp32 W and two with a bf16 one (exact in tf32); the
+    recompute (h_prev by W) likewise, and bf16 x bf16 runs at the bf16
+    rate (``None``)."""
+    T, B, H = 35, 32, 650
+    flops = 2 * T * B * H * 4 * H
+    (f, f_by), (b, b_by), (g, _) = chip_smoke.lstm_bounds(T, B, H, e, w_e)
+    carry = carry_products * flops / chip_smoke.TF32_FLOPS
+    recompute = (flops / chip_smoke.BF16_FLOPS if recompute_products is None
+                 else recompute_products * flops / chip_smoke.TF32_FLOPS)
+    assert f_by == b_by == "operations"
+    assert f == pytest.approx(carry * 1e3)
+    assert b == pytest.approx((carry + recompute) * 1e3)
+    assert g >= recompute * 1e3 * (1 - 1e-9)
