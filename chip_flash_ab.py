@@ -1,7 +1,7 @@
 """Time the port's flash attention and LSTM kernels over checkouts of the
 repo, in turns, on one card.
 
-    python3 chip_flash_ab.py [--phases route,kernels,host,bert,lstm] TREE ...
+    python3 chip_flash_ab.py [--phases route,kernels,host,bert,lstm,tp] TREE ...
 
 Builds the kernels of every TREE at once (one ``nvcc`` per source), then
 runs the phases in each TREE in order and then in reverse (with two trees:
@@ -9,10 +9,13 @@ parent, change, change, parent), each run a process of its own that
 imports that TREE's ``mxnet_tpu_torch`` and this checkout's
 ``chip_smoke.py``:
 
-- ``route``: ``chip_smoke.check_sharded_attention`` with its profile of
+- ``route``: ``chip_smoke.check_flash_delta`` where the tree has the delta
+  kernel, then ``chip_smoke.check_sharded_attention`` with its profile of
   the #16 route's backward (dp 2 x tp 2, B 32, H 12, L 128, D 64,
   causal): launches, time beside SDPA's ``is_causal`` backward and the
-  bound, and the ops and kernel spans of one call;
+  bound, and the ops and kernel spans of one call; in a tree whose route
+  still launches the kernels per shard (four of each, no delta kernel)
+  its launch counts are expected as such (``legacy_route``);
 - ``kernels``: ``chip_smoke.flash_timing`` for fp32 and bf16 at the
   training shape and bf16 at B 4, L 2048: #5-#7 on contiguous inputs,
   their fixed part, at dropout 0 beside SDPA given the same key mask,
@@ -35,7 +38,15 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   ``%globaltimer`` where the tree stamps them; digests of #10's and
   #11's outputs, to compare trees bit for bit), then
   ``chip_smoke.train_lm`` for the word LM, fp32 and AMP bf16, 10 steps
-  each, with the step-1 loss printed exactly.
+  each, with the step-1 loss printed exactly;
+- ``tp``: ``chip_smoke.check_tp_phases`` (#13 and #14 held on every
+  shard at tp 2, 4 and a GQA geometry; #13 timed at B 16 with mixed
+  lengths and with every row at 512, with its phases by
+  ``%globaltimer`` where the tree stamps them), then the serving model
+  (BERT-base widths, seed 0) served 48 requests fused at tp 1, 2 and 4
+  and per-op at tp 1 and 2 (``chip_smoke.serve``: tokens/s, decode p50
+  and p99, launches, census), with the streams of each TP run compared
+  to its tp 1 run's.
 
 A TREE named more than once runs that many more turns.  Every line a run
 prints starts with its TREE's directory name.  Needs one card; the
@@ -51,7 +62,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("route", "kernels", "host", "bert", "amp", "lstm")
+PHASES = ("route", "kernels", "host", "bert", "amp", "lstm", "tp")
 
 
 def build(trees, names):
@@ -81,6 +92,27 @@ def legacy_lstm(cs, fc):
         cs.lstm_stamps = lambda *a, **k: None
 
 
+def legacy_route(cs, fa):
+    """Where the tree's #16 route still launches #5, #6 and #7 once per
+    (dp, tp) shard and has no delta kernel, ``chip_smoke`` expects those
+    launches, counts no delta launch, and BERT's step no delta kernel."""
+    if not hasattr(fa, "flash_attention_bwd_delta"):
+        shards = cs.SHARDED_MESH[0] * cs.SHARDED_MESH[1]
+        fa.flash_attention.launches_delta = 0
+        cs.ROUTE_LAUNCHES.update(dict.fromkeys(
+            ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv"), shards),
+            flash_attention_bwd_delta=0)
+        cs.PER_STEP.pop("flash_attention_bwd_delta")
+
+
+def legacy_tp(cs, fc):
+    """Where the tree's #13 stamps no phases, ``attn_stamps`` returns
+    none."""
+    if not hasattr(fc, "decode_attn_phase_times"):
+        cs.attn_stamps = lambda *a, **k: {}
+
+
 def run(tree, phases, steps):
     """The phases in ``tree``, in this process."""
     sys.path.insert(0, tree)
@@ -95,9 +127,12 @@ def run(tree, phases, steps):
         os.path.join(os.path.abspath(tree), "")), fa.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    legacy_route(cs, fa)
     cs.log("card: %s" % cs.card_line())
     timer = cs.Timer(torch)
     if "route" in phases:
+        if hasattr(fa, "flash_attention_bwd_delta"):
+            cs.check_flash_delta(torch, fa, timer, {})
         cs.check_sharded_attention(torch, timer, {}, profile=True)
     if "kernels" in phases:
         cs.flash_timing(torch, fa, timer, torch.float32, {})
@@ -143,11 +178,46 @@ def run(tree, phases, steps):
         finally:
             cs.LM_PER_STEP.clear()
             cs.LM_PER_STEP.update(per_step)
+    if "tp" in phases:
+        tp_phase(cs, torch, timer)
     if "amp" in phases:
         torch.cuda.empty_cache()
         _, st = cs.train(torch, 0, "amp_bf16", cs.TRAIN_B, cs.TRAIN_L, steps,
                          amp=True)
         cs.log("amp %d steps: %s" % (steps, json.dumps(st)))
+
+
+def tp_phase(cs, torch, timer):
+    """The ``tp`` phase: the decode phase kernels' checks, times and
+    stamps, then serving at tp 1, 2 and 4."""
+    from mxnet_tpu_torch.models import decoder as dec
+    from mxnet_tpu_torch.ops.kernels import fused_cell as fc
+    legacy_tp(cs, fc)
+    lm = cs.perturb_affine(torch, dec.CausalLM(**cs.WIDTHS, device=cs.DEV,
+                                               seed=0), 0)
+    lm_gqa = cs.perturb_affine(torch, dec.CausalLM(
+        **dict(cs.WIDTHS, num_layers=2, num_kv_heads=4), device=cs.DEV,
+        seed=1), 1)
+    report = {}
+    cs.check_tp_phases(torch, timer, report, lm, lm_gqa)
+    cs.log("tp phases: %s" % json.dumps(report["tp_phases"]))
+    reqs = cs.traffic(0, 48)
+    runs = {}
+    for label, fused, tp in (("fused", True, 1), ("per_op", False, 1),
+                             ("tp2_fused", True, 2), ("tp4_fused", True, 4),
+                             ("tp2_per_op", False, 2)):
+        runs[label] = cs.serve(torch, lm, reqs, label, fused,
+                               sharding=cs.tp_sharding(tp) if tp > 1
+                               else None)
+    for label in ("tp2_fused", "tp4_fused", "tp2_per_op"):
+        one = runs["fused" if label.endswith("fused") else "per_op"][1]
+        same = sum(a["tokens"] == b["tokens"]
+                   for a, b in zip(one, runs[label][1]))
+        cs.log("tp %s streams identical to tp 1's for %d of %d requests"
+               % (label, same, len(reqs)))
+        if same != len(reqs):
+            raise AssertionError("%s streams differ from tp 1's" % label)
+    cs.log("tp serve: %s" % json.dumps({k: r[3] for k, r in runs.items()}))
 
 
 def main():
@@ -170,7 +240,7 @@ def main():
         print("chip_flash_ab: no CUDA device", file=sys.stderr)
         return 2
     trees = [os.path.abspath(t) for t in args.trees]
-    rcs = build(sorted(set(trees)), None if {"bert", "amp", "lstm"}
+    rcs = build(sorted(set(trees)), None if {"bert", "amp", "lstm", "tp"}
                 & set(phases) else ["flash_attention"])
     if any(rcs):
         print("chip_flash_ab: a build failed: %s" % rcs, file=sys.stderr)

@@ -55,11 +55,16 @@ plain version):
    over 4 KV heads), at B 16 (lengths 1..512, one row of length 0) and
    B 1, pages and partial products held; timed at B 16 on shard 0.  The
    #16 route (``flash_attention_sharded`` on a dp 2 x tp 2 mesh at B 32,
-   H 12, L 128, D 64, causal, fp32 and bf16) against the plain causal
-   attention and the unsharded #5, forward and gradients, with dp * tp
-   launches of #5 per call and of #6 and #7 per backward; its backward
-   timed beside SDPA's is_causal backward and its bound (the function's
-   least bytes and products), and the two-kernel design's own floor.
+   H 12, L 128, D 64, causal, fp32 and bf16: one flash call over the
+   whole tensors) against the plain causal attention, the unsharded #5
+   and, bit for bit, the per-shard composition, forward and gradients,
+   with one launch of #5 per call and of the delta kernel, #6 and #7 per
+   backward; its backward timed beside SDPA's is_causal backward and its
+   bound (the function's least bytes and products), and the design's own
+   floor.  The delta kernel (``delta = sum_d dO * O``, which #6 and #7
+   read) against its plain version in both dtypes at D 32, 64 and 128,
+   on a transposed dO and per shard bit for bit, timed beside its plain
+   version and ``torch.linalg.vecdot``.
    ``--kernels-only`` stops here.
 3. Serving: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
@@ -81,7 +86,7 @@ plain version):
    int8-KV run against the same programs on CPU copies of the params.
    The sharded-attention path: forward and backward through
    ``flash_attention_sharded`` (dp 2 x tp 2, causal) in fp32 and bf16,
-   launching #5, #6 and #7 once per shard.
+   launching #5, the delta kernel, #6 and #7 once a call.
 4. Training: ``BERTModel`` at BERT-base widths (the same widths, 2 token
    types, dropout 0.1, ``use_flash=True``, fused epilogues; Xavier
    weights from ``--seed`` with random biases and LN affines), three
@@ -1188,6 +1193,98 @@ def check_flash_strided_bwd(torch, fa, g, dt, B, H, L, D):
     return n
 
 
+# delta = sum_d dO * O against its plain version: the kernel adds each
+# lane's rounded products in element order and the lanes' partials in a
+# butterfly, torch in its own order.  Two fp32 sums of the same <= 128
+# rounded products differ by at most ~D * 2**-24 of the row's sum of
+# |products| (7.6e-6 at D 128); 1e-5 of that sum is allowed
+TOL_DELTA = 1e-5
+
+
+def check_flash_delta(torch, fa, timer, report):
+    """The delta kernel against its plain version in float32 and bfloat16
+    at D 32, 64 and 128 and the (B, H, L) of FLASH_SHAPES, each row's
+    error over its sum of |dO O|; its results on BERT's transposed dO and
+    per (dp 2, tp 2) shard of the route's shape equal the whole contiguous
+    call's bit for bit (its sum order depends on D and the dtype alone).
+    Timed at the training shape beside its plain version, its bound and,
+    in fp32, ``torch.linalg.vecdot`` (the same function in one call)."""
+    g = torch.Generator(device=DEV).manual_seed(18)
+    worst, n = 0.0, 0
+    for dt in (torch.float32, torch.bfloat16):
+        for B, H, L in FLASH_SHAPES:
+            for D in FLASH_DIMS[str(dt)[6:]]:
+                do, out = (torch.randn(B, H, L, D, device=DEV,
+                                       generator=g).to(dt) for _ in range(2))
+                n0 = fa.flash_attention.launches_delta
+                got = fa.flash_attention_bwd_delta(do, out)
+                if fa.flash_attention.launches_delta != n0 + 1:
+                    raise AssertionError("flash_attention_bwd_delta did not "
+                                         "launch its kernel")
+                want = fa.flash_attention_bwd_delta_plain(do, out)
+                row = (do.float() * out.float()).abs().sum(-1)
+                err = float(((got - want).abs()
+                             / row.clamp_min(1e-30)).max())
+                worst = max(worst, err)
+                n += 1
+                # BERT's transposed dO, read where it lies
+                dot = torch.empty(B, L, H, D, device=DEV,
+                                  dtype=dt).transpose(1, 2)
+                dot.copy_(do)
+                same = [fa.flash_attention_bwd_delta(dot, out)]
+                if B % 2 == 0 and H % 2 == 0:
+                    b2, h2 = B // 2, H // 2
+                    parts = [[fa.flash_attention_bwd_delta(
+                        do[d * b2:(d + 1) * b2, t * h2:(t + 1) * h2],
+                        out[d * b2:(d + 1) * b2, t * h2:(t + 1) * h2])
+                        for t in range(2)] for d in range(2)]
+                    same.append(torch.cat([torch.cat(r, dim=1)
+                                           for r in parts], dim=0))
+                if not all(torch.equal(t, got) for t in same):
+                    raise AssertionError(
+                        "flash_attention_bwd_delta (B %d, H %d, L %d, D %d) "
+                        "%s: a view or the shards differ from the whole "
+                        "contiguous call" % (B, H, L, D, str(dt)[6:]))
+    log("flash_attention_bwd_delta: %d cases pass, worst error / the row's "
+        "sum of |dO O| %.3g (tol %g); transposed dO and dp 2 x tp 2 shards "
+        "bit for bit the whole call" % (n, worst, TOL_DELTA))
+    if not worst <= TOL_DELTA:
+        raise AssertionError("flash_attention_bwd_delta disagrees with its "
+                             "plain version: %g" % worst)
+    B, H, L, D = TRAIN_B, BERT["num_heads"], TRAIN_L, 64
+    for dt in (torch.float32, torch.bfloat16):
+        do, out = (torch.randn(B, H, L, D, device=DEV, generator=g).to(dt)
+                   for _ in range(2))
+        err = float((fa.flash_attention_bwd_delta(do, out)
+                     - fa.flash_attention_bwd_delta_plain(do, out))
+                    .abs().max())
+        ms = timer(lambda: fa.flash_attention_bwd_delta(do, out),
+                   spin=FLASH_SPIN)
+        plain_ms = timer(lambda: fa.flash_attention_bwd_delta_plain(do, out),
+                         spin=FLASH_SPIN)
+        f32 = dt == torch.float32
+        lib = (timer(lambda: torch.linalg.vecdot(do, out), spin=FLASH_SPIN)
+               if f32 else None)
+        # reads dO and O once, writes delta once; D products and sums a row
+        bms, by = bound(2 * do.numel() * do.element_size() + B * H * L * 4,
+                        2 * do.numel())
+        log("flash_attention_bwd_delta (B %d, H %d, L %d, D %d) %s: max abs "
+            "err %.3g; kernel %.4f ms plain %.4f ms bound %.4f ms (%s) %s"
+            % (B, H, L, D, str(dt)[6:], err, ms, plain_ms, bms, by,
+               "torch.linalg.vecdot %.4f ms" % lib if f32 else
+               "(no single PyTorch call sums bf16 products in fp32)"))
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=lib, max_abs_err=err)
+        if f32:
+            report["flash_attention_bwd_delta"] = dict(
+                name="flash_attention_bwd_delta", route="cuda",
+                source="mxnet_tpu_torch/csrc/flash_attention.cu",
+                replaces="mxnet_tpu/ops/pallas/flash_attention.py:466 (a jnp "
+                "reduction, not a TPU kernel)", **row)
+        else:
+            report["flash_delta_bf16"] = row
+
+
 def check_flash_attention(torch, timer, report):
     """Kernels #5-#7 against the plain version and autograd through it, in
     float32 and bfloat16 at D 32, 64 and 128, at (B, H, L)
@@ -1236,6 +1333,7 @@ def check_flash_attention(torch, timer, report):
                                  "disagrees: %g" % err)
     check_flash_mask(torch, fa)
     check_flash_strided(torch, fa)
+    check_flash_delta(torch, fa, timer, report)
     flash_timing(torch, fa, timer, torch.float32, report)
     report["flash_bf16"] = flash_timing(torch, fa, timer, torch.bfloat16,
                                         report)
@@ -1621,6 +1719,11 @@ TP_DEGREES = (2, 4)
 #: the mesh of the sharded-attention checks and path: batch over dp,
 #: heads over tp
 SHARDED_MESH = (2, 2)
+#: launches of #5, #6, #7 and the delta kernel per call of the #16 route
+#: (one flash call over the whole tensors)
+ROUTE_LAUNCHES = {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                  "flash_attention_bwd_dkv": 1,
+                  "flash_attention_bwd_delta": 1}
 
 
 def tp_sharding(tp, dp=1):
@@ -1647,12 +1750,40 @@ def phase_bounds(cfg, lcfg, after, pps):
     return attn, ffn
 
 
+#: the held cases of the decode phase check: (name, B, lengths after the
+#: append or None for random 1..512 with row 0 at 512 and row 7 at 0).
+#: "boundary" puts rows on each side of the split attention's 64-key
+#: chunks; "all512" is the worst case, every row at the longest length
+TP_CASES = (("mixed", SLOTS, None),
+            ("boundary", SLOTS, (1, 63, 64, 65, 127, 128, 129, 0, 191, 192,
+                                 193, 255, 256, 257, 511, 512)),
+            ("all512", SLOTS, (512,) * SLOTS), ("one", 1, None))
+#: the cases timed, with their stamps
+TP_TIMED = ("mixed", "all512")
+
+
+def attn_stamps(torch, fc, timer, args, runs=5):
+    """#13's phases by ``%globaltimer`` (``fused_cell.
+    decode_attn_phase_times``: block 0, the end of each phase), each
+    launch after the L2 flush: per phase the median over ``runs``
+    launches, in us."""
+    stamps = []
+    for _ in range(runs + 1):
+        timer.flush.zero_()
+        stamps.append(fc.decode_attn_phase_times(*args))
+    return {p: statistics.median(t[p] for t in stamps[1:]) / 1e3
+            for p in stamps[0]}
+
+
 def check_tp_phases(torch, timer, report, lm, lm_gqa):
     """#13 and #14 against their plain versions on every shard of one layer
     at tp 2 and 4 of the full-width model and at tp 2 of the GQA model (12
-    heads over 4 KV heads: 2 KV heads per shard), at B 16 (lengths 1..512,
-    one row of 512 and one of 0) and B 1 (length 512); pages and partial
-    products held.  Times at B 16 on shard 0 of the full-width model."""
+    heads over 4 KV heads: 2 KV heads per shard), in the cases of
+    TP_CASES: B 16 with mixed lengths 1..512 (one row of 512, one of 0),
+    with lengths on each side of the 64-key chunks, with every row at 512,
+    and B 1 (length 512); pages and partial products held.  Times at B 16
+    on shard 0 of the full-width model, mixed lengths and all at 512 (the
+    worst case), with #13's phases by ``%globaltimer``."""
     from mxnet_tpu_torch.models import decoder as dec
     from mxnet_tpu_torch.ops.kernels import fused_cell as fc
     P, pps = SLOTS * 32 + 1, 32
@@ -1662,12 +1793,14 @@ def check_tp_phases(torch, timer, report, lm, lm_gqa):
         plan = dec.tp_plan(cfg, tp_sharding(tp))
         lcfg = plan.local_cfg
         shards = plan.shard_params(model.params())
-        for B in (SLOTS, 1):
+        for case, B, fixed in TP_CASES:
             rng = np.random.default_rng(13 + B)
             after = rng.integers(1, 513, B)   # lengths after this append
             after[0] = 512
             if B > 1:
                 after[7] = 0                  # inactive row
+            if fixed is not None:
+                after = np.array(fixed)
             tb_np = tables_for(rng, after, pps)
             pos = np.maximum(after - 1, 0)
             wp = np.where(after > 0, tb_np[np.arange(B), pos // PAGE], 0)
@@ -1694,9 +1827,11 @@ def check_tp_phases(torch, timer, report, lm, lm_gqa):
                 fk = fc.decode_ffn_phase(x, lp["w1"], lp["b1"], lp["w2"])
                 fp = fc.decode_ffn_phase_plain(x, lp["w1"], lp["b1"],
                                                lp["w2"])
-                if B > 1 and bool(ok[7].any()):
-                    raise AssertionError("decode_attn_phase: the length-0 "
-                                         "row's partial is not zero")
+                for b in np.flatnonzero(after == 0):
+                    if bool(ok[b].any()):
+                        raise AssertionError("decode_attn_phase: the "
+                                             "length-0 row's partial is not "
+                                             "zero")
                 # page 0 is the scratch page every inactive row writes
                 errs["o_part"] = max(errs["o_part"],
                                      float((ok - op).abs().max()))
@@ -1705,57 +1840,71 @@ def check_tp_phases(torch, timer, report, lm, lm_gqa):
                     (v1[:, :, 1:] - v2[:, :, 1:]).abs().max())))
                 errs["f_part"] = max(errs["f_part"],
                                      float((fk - fp).abs().max()))
-            log("decode phases tp %d (H %d KVH %d per shard) B %d lengths "
+            log("decode phases tp %d (H %d KVH %d per shard) B %d %s lengths "
                 "%d..%d, all %d shards: max_abs_err o_part %.3g pages %.3g "
                 "f_part %.3g (tol %g)"
-                % (tp, lcfg.num_heads, lcfg.num_kv_heads, B, after.min(),
-                   after.max(), tp, errs["o_part"], errs["pages"],
-                   errs["f_part"], TOL_PHASE))
+                % (tp, lcfg.num_heads, lcfg.num_kv_heads, B, case,
+                   after.min(), after.max(), tp, errs["o_part"],
+                   errs["pages"], errs["f_part"], TOL_PHASE))
             if not max(errs.values()) <= TOL_PHASE:
                 raise AssertionError("a decode phase kernel disagrees with "
                                      "its plain version")
-            if B != SLOTS or model is not lm:
+            if case not in TP_TIMED or model is not lm:
                 continue
             lp = shards[0]["layers"][0]
             kv = (plan.kv_view(kp0, 0, 0), plan.kv_view(vp0, 0, 0))
+            args = (x, *kv, lp, meta, tb, ln, lcfg)
             (ba, bya), (bf, byf) = phase_bounds(cfg, lcfg, after, pps)
-            for name, fn, plain, bms, by, err in (
-                    ("decode_attn_phase",
-                     lambda: fc.decode_attn_phase(x, *kv, lp, meta, tb, ln,
-                                                  lcfg),
-                     lambda: fc.decode_attn_phase_plain(x, *kv, lp, meta, tb,
-                                                        ln, lcfg),
-                     ba, bya, max(errs["o_part"], errs["pages"])),
-                    ("decode_ffn_phase",
-                     lambda: fc.decode_ffn_phase(x, lp["w1"], lp["b1"],
-                                                 lp["w2"]),
-                     lambda: fc.decode_ffn_phase_plain(x, lp["w1"], lp["b1"],
-                                                       lp["w2"]),
-                     bf, byf, errs["f_part"])):
+            timed = [("decode_attn_phase",
+                      lambda: fc.decode_attn_phase(*args),
+                      lambda: fc.decode_attn_phase_plain(*args),
+                      ba, bya, max(errs["o_part"], errs["pages"]))]
+            if case == "mixed":
+                timed.append((
+                    "decode_ffn_phase",
+                    lambda: fc.decode_ffn_phase(x, lp["w1"], lp["b1"],
+                                                lp["w2"]),
+                    lambda: fc.decode_ffn_phase_plain(x, lp["w1"], lp["b1"],
+                                                      lp["w2"]),
+                    bf, byf, errs["f_part"]))
+            for name, fn, plain, bms, by, err in timed:
                 ms = timer(fn)
                 # the plain version's ~20 ops take longer to enqueue than
                 # the usual spin: spin ~2 ms so the card's time is timed
                 plain_ms = timer(plain, spin=4_000_000)
-                log("%s tp %d B %d full width, mixed lengths: kernel %.4f ms "
+                log("%s tp %d B %d full width, %s lengths: kernel %.4f ms "
                     "plain %.4f ms bound %.4f ms (%s); %d blocks"
-                    % (name, tp, B, ms, plain_ms, bms, by,
+                    % (name, tp, B, case, ms, plain_ms, bms, by,
                        fc.phase_grid_blocks(lcfg)[name.endswith("ffn_phase")]))
-                rows.setdefault(name, {})["tp%d" % tp] = dict(
-                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    max_abs_err=err)
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by, max_abs_err=err)
+                if name == "decode_attn_phase":
+                    row["stamps_us"] = attn_stamps(torch, fc, timer, args)
+                    log("decode_attn_phase tp %d B %d %s lengths, phases by "
+                        "%%globaltimer (block 0, median of 5 launches): %s; "
+                        "sum %.2f us" % (tp, B, case, " ".join(
+                            "%s %.2f us" % kv
+                            for kv in row["stamps_us"].items()),
+                            sum(row["stamps_us"].values())))
+                key = "tp%d" % tp if case == "mixed" else "tp%d_%s" % (tp,
+                                                                       case)
+                rows.setdefault(name, {})[key] = row
     for name, line in (("decode_attn_phase", 509), ("decode_ffn_phase", 617)):
         report[name] = dict(
             name=name, route="cuda",
             source="mxnet_tpu_torch/csrc/decode_phase.cu",
             replaces="mxnet_tpu/ops/pallas/fused_cell.py:%d" % line,
-            library_ms=None, **rows[name]["tp2"])
+            library_ms=None, **{k: v for k, v in rows[name]["tp2"].items()
+                                if k != "stamps_us"})
     report["tp_phases"] = rows
 
 
 def per_shard_causal(torch, q, k, v, dp, tp):
-    """The #16 route composed per shard, as it ran before it wrote its
-    shards in place: contiguous slices, the scale folded into q in q's
-    dtype, ``flash_attention``, then two concats."""
+    """The #16 route composed per shard, as it ran before it became one
+    call: contiguous slices, the scale folded into q in q's dtype,
+    ``flash_attention``, then two concats.  At D 64 the scale 1/8 is a
+    power of two, so folding it into q gives the bits of applying it in
+    the kernels."""
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     B, H, _, D = q.shape
     Bl, Hl, s = B // dp, H // tp, 1.0 / math.sqrt(D)
@@ -1774,7 +1923,7 @@ def per_shard_causal(torch, q, k, v, dp, tp):
 def span_kind(name):
     """The kind of a kernel span of a flash-attention call, by its name."""
     for key, kind in (("flash_fwd", "#5"), ("flash_bwd_dq", "#6"),
-                      ("flash_bwd_dkv", "#7"),
+                      ("flash_bwd_dkv", "#7"), ("flash_bwd_delta", "delta"),
                       ("reduce_kernel", "sums"), ("MulFunctor", "products"),
                       ("copy", "copies")):
         if key in name:
@@ -1867,11 +2016,12 @@ def check_sharded_attention(torch, timer, report, profile=False):
     """The #16 route: ``flash_attention_sharded`` on a (dp 2, tp 2) mesh at
     the training shape (B 32, H 12, L 128, D 64), causal, fp32 and bf16:
     its output and gradients equal, bit for bit, the per-shard composition
-    it replaced (``per_shard_causal``), and are held against
+    (``per_shard_causal``), and are held against
     ``flash_attention_plain(causal=True)`` on the whole tensors and
-    against the unsharded kernel #5; dp * tp launches of #5 per call, and
-    of #6 and #7 per backward; its gradient against the unsharded
-    kernels' at dropout 0.  Forward and backward timed beside the plain
+    against the unsharded kernel #5; ROUTE_LAUNCHES launches of #5 per
+    call, and of the delta kernel, #6 and #7 per backward, and dp * tp
+    causal shards counted; its gradient against the unsharded kernels' at
+    dropout 0.  Forward and backward timed beside the plain
     version, SDPA (is_causal) and the bound; with ``profile`` the
     backward's ops and kernel spans (:func:`op_split`)."""
     import torch.nn.functional as F
@@ -1890,12 +2040,13 @@ def check_sharded_attention(torch, timer, report, profile=False):
         out = att.flash_attention_sharded(q, k, v, cfg, causal=True)
         n_fwd = fa.flash_attention.launches_fwd - n0
         n_route = att.flash_attention_sharded.causal_shards - c0
-        if ((n_fwd, n_route) != (shards, shards)
+        want_fwd = ROUTE_LAUNCHES["flash_attention_fwd"]
+        if ((n_fwd, n_route) != (want_fwd, shards)
                 or att.last_path != "flash-causal-shard"):
             raise AssertionError("flash_attention_sharded: %d launches of #5 "
-                                 "and %d causal shards, want %d each (route "
-                                 "%s)" % (n_fwd, n_route, shards,
-                                          att.last_path))
+                                 "and %d causal shards, want %d and %d "
+                                 "(route %s)" % (n_fwd, n_route, want_fwd,
+                                                 shards, att.last_path))
         plain = fa.flash_attention_plain(q, k, v, causal=True)[0]
         whole = att.flash_attention(q, k, v, causal=True)
         ls = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -1917,9 +2068,9 @@ def check_sharded_attention(torch, timer, report, profile=False):
         f32 = dt == torch.float32
         tol = TOL_FLASH_F32 if f32 else TOL_FLASH_BF16
         tol_g = TOL_FLASH_F32 if f32 else TOL_FLASH_GRAD_BF16
-        # the route enqueues the scale, two allocations and four launches
-        # (each through its wrapper's Python), the plain version ~12 ops:
-        # spin ~2 ms so the card's time is timed, not the host's enqueue
+        # the route enqueues its casts and launches through the wrappers'
+        # Python, the plain version ~12 ops: spin ~2 ms so the card's time
+        # is timed, not the host's enqueue
         ms = timer(lambda: att.flash_attention_sharded(q, k, v, cfg,
                                                        causal=True),
                    spin=4_000_000)
@@ -1928,21 +2079,24 @@ def check_sharded_attention(torch, timer, report, profile=False):
                          spin=4_000_000)
         lib = timer(lambda: F.scaled_dot_product_attention(q, k, v,
                                                            is_causal=True))
-        # the route's backward (#6 and #7 once per shard) beside SDPA's
+        # the route's backward (the delta kernel, #6 and #7) beside SDPA's
         # is_causal backward on the whole tensors, both through autograd
         lb = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         o_route = att.flash_attention_sharded(*lb, cfg, causal=True)
 
         def route_bwd():
             return torch.autograd.grad(o_route, lb, do, retain_graph=True)
-        n0 = (fa.flash_attention.launches_dq, fa.flash_attention.launches_dkv)
+        bwd_names = ("flash_attention_bwd_delta", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv")
+        n0 = launch_counts()
         route_bwd()
-        n_bwd = (fa.flash_attention.launches_dq - n0[0],
-                 fa.flash_attention.launches_dkv - n0[1])
-        if n_bwd != (shards, shards):
-            raise AssertionError("flash_attention_sharded backward: %d "
-                                 "launches of #6 and %d of #7, want %d each"
-                                 % (n_bwd + (shards,)))
+        n1 = launch_counts()
+        n_bwd = tuple(n1[k] - n0[k] for k in bwd_names)
+        want_bwd = tuple(ROUTE_LAUNCHES[k] for k in bwd_names)
+        if n_bwd != want_bwd:
+            raise AssertionError("flash_attention_sharded backward: %s "
+                                 "launches of the delta kernel, #6 and #7, "
+                                 "want %s" % (n_bwd, want_bwd))
         bwd_ms = timer(route_bwd, spin=4_000_000)
         o_sdpa = F.scaled_dot_product_attention(*lb, is_causal=True)
         lib_bwd = timer(lambda: torch.autograd.grad(o_sdpa, lb, do,
@@ -1955,17 +2109,19 @@ def check_sharded_attention(torch, timer, report, profile=False):
         # write dq, dk and dv once; the products S, dP, dV, dK, dQ
         bwd_bms, bwd_by = bound(8 * B * H * L * D * elt + B * H * L * 4,
                                 10 * pairs * D, peak)
-        # this design's own: #6 reads q, k, v, dO, lse, delta and writes dq;
-        # #7 reads the same and writes dk, dv, computing S and dP again
-        design_bms, _ = bound(11 * B * H * L * D * elt + 4 * B * H * L * 4,
+        # this design's own: the delta pass reads dO and O and writes
+        # delta; #6 reads q, k, v, dO, lse, delta and writes dq; #7 reads
+        # the same and writes dk, dv, computing S and dP again
+        design_bms, _ = bound(13 * B * H * L * D * elt + 5 * B * H * L * 4,
                               14 * pairs * D, peak)
-        log("flash_attention_sharded %s backward (%d launches of #6 and %d "
-            "of #7 on the shards): %.4f ms, bound %.4f ms (%s); SDPA "
-            "is_causal backward on the whole tensors %.4f ms"
+        log("flash_attention_sharded %s backward (%d launches of the delta "
+            "kernel, %d of #6 and %d of #7): %.4f ms, bound %.4f ms (%s); "
+            "SDPA is_causal backward on the whole tensors %.4f ms"
             % ((str(dt)[6:],) + n_bwd + (bwd_ms, bwd_bms, bwd_by, lib_bwd)))
-        log("flash_attention_sharded %s backward, the two-kernel design's "
-            "own floor (#6 and #7 each read q, k, v, dO, lse and delta; #7 "
-            "computes S and dP again): %.4f ms" % (str(dt)[6:], design_bms))
+        log("flash_attention_sharded %s backward, the design's own floor "
+            "(delta reads dO and O; #6 and #7 each read q, k, v, dO, lse and "
+            "delta; #7 computes S and dP again): %.4f ms"
+            % (str(dt)[6:], design_bms))
         if profile:
             split = op_split(torch, route_bwd)
             log("profile flash_attention_sharded %s backward, per call: %.0f "
@@ -1987,8 +2143,8 @@ def check_sharded_attention(torch, timer, report, profile=False):
                                errs["whole"], tol, errs["grad"], tol_g, ms,
                                plain_ms, bms, by, lib)))
         log("flash_attention_sharded %s: output and gradients equal the "
-            "per-shard composition (slices, scale, flash_attention, concat) "
-            "bit for bit" % str(dt)[6:])
+            "per-shard composition (slices, the scale folded into q, "
+            "flash_attention, concat) bit for bit" % str(dt)[6:])
         if not (errs["plain"] <= tol and errs["whole"] <= tol
                 and errs["grad"] <= tol_g):
             raise AssertionError("flash_attention_sharded disagrees: %s"
@@ -2010,8 +2166,8 @@ def sharded_attention_path(torch, seed):
     """The #16 route's path: a user's forward and backward through
     ``flash_attention_sharded`` on the (dp 2, tp 2) mesh at the training
     shape, causal, in fp32 and bf16, with the launch counts set to 0
-    before and read after: each call launches #5, #6 and #7 once per
-    shard."""
+    before and read after: each call launches ROUTE_LAUNCHES of #5, the
+    delta kernel, #6 and #7 and counts dp * tp causal shards."""
     from mxnet_tpu_torch.ops import attention as att
     cfg = tp_sharding(SHARDED_MESH[1], SHARDED_MESH[0])
     shards = SHARDED_MESH[0] * SHARDED_MESH[1]
@@ -2031,9 +2187,9 @@ def sharded_attention_path(torch, seed):
     torch.cuda.synchronize()
     counts = launch_counts()
     want = dict.fromkeys(KERNELS, 0)
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv", "flash_attention_sharded_causal"):
-        want[name] = shards * len(inputs)
+    for name, n in ROUTE_LAUNCHES.items():
+        want[name] = n * len(inputs)
+    want["flash_attention_sharded_causal"] = shards * len(inputs)
     log("sharded attention path: forward and backward at dp %d tp %d, fp32 "
         "and bf16: launches %s" % (SHARDED_MESH + ({k: n for k, n in
                                                      counts.items() if n},)))
@@ -2058,7 +2214,7 @@ KERNELS = ("bias_gelu", "paged_attention", "decode_layer_group",
            "bias_gelu_backward", "bias_dropout_residual_fwd",
            "bias_dropout_residual_bwd", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "lstm_sequence_fwd", "lstm_sequence_bwd",
+           "flash_attention_bwd_delta", "lstm_sequence_fwd", "lstm_sequence_bwd",
            "lstm_sequence_bwd_gates", "decode_attn_phase",
            "decode_ffn_phase", "flash_attention_sharded_causal")
 
@@ -2087,13 +2243,16 @@ def launch_counts(reset=False):
                 "flash_attention_bwd_dq": (fa.flash_attention, "launches_dq"),
                 "flash_attention_bwd_dkv": (fa.flash_attention,
                                             "launches_dkv"),
+                "flash_attention_bwd_delta": (fa.flash_attention,
+                                              "launches_delta"),
                 "lstm_sequence_fwd": (fc.lstm_sequence, "launches_fwd"),
                 "lstm_sequence_bwd": (fc.lstm_sequence, "launches_bwd"),
                 "lstm_sequence_bwd_gates": (fc.lstm_sequence,
                                             "launches_bwd_gates"),
                 "decode_attn_phase": (fc.decode_attn_phase, "launches"),
                 "decode_ffn_phase": (fc.decode_ffn_phase, "launches"),
-                # the #16 route: causal shards sent to flash kernel #5
+                # the #16 route: the dp * tp causal shards its one flash
+                # call stands for
                 "flash_attention_sharded_causal": (att.flash_attention_sharded,
                                                    "causal_shards")}
     if reset:
@@ -2278,7 +2437,8 @@ def device_summary(torch, prof, wall):
 
 
 #: substrings of the flash kernels' names in a profiler trace
-FLASH_SPANS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_SPANS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+               "flash_bwd_delta")
 
 
 def span_ms(torch, prof, keys):
@@ -2332,11 +2492,12 @@ TRAIN_B, TRAIN_L, TRAIN_STEPS, TRAIN_LR = 32, 128, 10, 1e-4
 LONG_B, LONG_L, LONG_STEPS = 4, 2048, 3
 #: kernel launches of one training step at dropout > 0: FFN1 in 12 layers
 #: plus the MLM transform, the two residual joins of 12 layers, and the
-#: attention of 12 layers forward and back
+#: attention of 12 layers forward and back (the delta kernel in each
+#: backward)
 PER_STEP = {"bias_gelu": 13, "bias_gelu_backward": 13,
             "bias_dropout_residual_fwd": 24, "bias_dropout_residual_bwd": 24,
             "flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
-            "flash_attention_bwd_dkv": 12}
+            "flash_attention_bwd_dkv": 12, "flash_attention_bwd_delta": 12}
 #: launches of one dropout-free evaluation forward
 PER_EVAL = {"bias_gelu": 13, "bias_dropout_residual_fwd": 24,
             "flash_attention_fwd": 12}

@@ -65,6 +65,7 @@ struct AttnArgs {
   const int* lengths;    // (B,) valid keys after this step's append
   float* scratch;        // attn_scratch_floats(B, C, Cl, KVC) floats
   float* out;            // (B, C) o_part
+  long long* timing;     // null, or ATTN_PHASES + 1 phase-end timestamps
   int B, C, H, KVH, D, P, S, pps;
   float scale;
 };
@@ -91,6 +92,15 @@ __host__ __device__ inline size_t ffn_scratch_floats(int B, int C, int Fl) {
   return round4((size_t)B * Fl) + (size_t)KSPLIT_MAX * B * C;
 }
 
+// the attention phase's phases, each closed by a grid barrier
+constexpr int ATTN_PHASES = 4;
+
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // out[b, c] = sum over s < ks of parts[s, b, c], in slice order
 __device__ void sum_slices(float* out, const float* parts, int ks, int n) {
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n;
@@ -104,6 +114,17 @@ __device__ void sum_slices(float* out, const float* parts, int ks, int n) {
 __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
+  // with a timing buffer, block 0 stamps the start and the end of every
+  // phase (right after the grid barrier that closes it; the last phase
+  // gets a barrier of its own only then)
+  const bool stamp = a.timing != nullptr && blockIdx.x == 0 &&
+                     threadIdx.x == 0;
+  int n_stamp = 0;
+  if (stamp) a.timing[n_stamp++] = globaltimer();
+  auto sync = [&]() {
+    grid.sync();
+    if (stamp) a.timing[n_stamp++] = globaltimer();
+  };
   const int B = a.B, C = a.C, D = a.D;
   const int Cl = a.H * D, KVC = a.KVH * D, N = Cl + 2 * KVC;
   float* qkv = a.scratch;
@@ -126,13 +147,13 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
               qkv[(size_t)b * N + n] = v + bias;
             },
             smem);
-  grid.sync();
+  sync();
 
   // 2. KV append, then attention, per (sequence, KV head)
   mxt::append_attend(qkv, Cl, a.kp, a.vp, a.meta, a.tables, a.lengths, B,
                      a.KVH, a.H / a.KVH, a.P, a.S, D, a.pps, a.scale, att,
                      smem);
-  grid.sync();
+  sync();
 
   // 3. out-projection partial over the shard's Cl inputs, K split
   const int ks = mxt::ksplit_for(C);
@@ -141,10 +162,11 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
               parts[((size_t)s * B + b) * C + n] = v;
             },
             smem);
-  grid.sync();
+  sync();
 
   // 4. o_part = the slices' sum, in order
   sum_slices(a.out, parts, ks, B * C);
+  if (a.timing) sync();
 }
 
 __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
@@ -201,6 +223,9 @@ extern "C" const char* mxt_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
+// Phases of the attention phase kernel that timing stamps.
+extern "C" int mxt_decode_attn_phases() { return ATTN_PHASES; }
+
 // Blocks each phase kernel launches with (for the caller's records).
 extern "C" int mxt_decode_phase_grid(int g, int D, int* attn_grid,
                                      int* ffn_grid) {
@@ -221,17 +246,20 @@ extern "C" long long mxt_decode_phase_scratch(int ffn, int B, int C, int Cl,
 
 // x (B, C); kp/vp (KVH, P, S, D); wq (H D, C), wk/wv (KVH D, C), biases;
 // wo (C, H D); meta (2, B), tables (B, pps), lengths (B,) int32; scratch of
-// mxt_decode_phase_scratch floats; out (B, C).  C and D must be multiples
-// of 4.
+// mxt_decode_phase_scratch floats; out (B, C); timing null, or
+// mxt_decode_attn_phases() + 1 int64 that block 0 fills with %globaltimer
+// stamps (the start, then the end of each phase).  C and D must be
+// multiples of 4.
 extern "C" int mxt_decode_attn_phase(const void* x, void* kp, void* vp,
                                      const void* wq, const void* bq,
                                      const void* wk, const void* bk,
                                      const void* wv, const void* bv,
                                      const void* wo, const void* meta,
                                      const void* tables, const void* lengths,
-                                     void* scratch, void* out, int B, int C,
-                                     int H, int KVH, int D, int P, int S,
-                                     int pps, float scale, void* stream) {
+                                     void* scratch, void* out, void* timing,
+                                     int B, int C, int H, int KVH, int D,
+                                     int P, int S, int pps, float scale,
+                                     void* stream) {
   int grid = 0;
   size_t smem = 0;
   cudaError_t e = attn_geometry(H / KVH, D, &grid, &smem);
@@ -252,6 +280,7 @@ extern "C" int mxt_decode_attn_phase(const void* x, void* kp, void* vp,
   a.lengths = (const int*)lengths;
   a.scratch = (float*)scratch;
   a.out = (float*)out;
+  a.timing = (long long*)timing;
   a.B = B; a.C = C; a.H = H; a.KVH = KVH; a.D = D;
   a.P = P; a.S = S; a.pps = pps;
   a.scale = scale;

@@ -2269,6 +2269,77 @@ int dispatch(const Args& a, int BH, int D, int dtype, cudaStream_t st) {
   return (int)cudaErrorInvalidValue;
 }
 
+// delta = sum_d dO * O, the row statistic #6 and #7 read (the JAX package
+// computes it in jnp between its kernels, flash_attention.py:466, so it
+// replaces no TPU kernel).  A row of (batch, head) bh is read by G lanes
+// of one warp, G = D * sizeof(T) / 16 (4 to 32), each lane one 16-byte
+// vector of dO and one of O at the views' strides; each lane adds its
+// rounded products in element order, then the G partials meet in a
+// butterfly of shuffles.  That order depends on D and T alone, not on B,
+// H, L, the strides or the grid, so a row's sum has the same bits however
+// the tensors are cut (the #16 route against its per-shard composition).
+// Bound: bytes, dO and O read once, delta written once (12.6 MB in bf16
+// at B 32, H 12, L 128, D 64: 3.8 us at 3.35 TB/s).
+struct DeltaArgs {
+  const void *dout, *out;
+  float* delta;  // (BH, L), contiguous
+  Strides sdo, so;
+  long long rows;
+  int H, L, G;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(DeltaArgs p) {
+  constexpr int V = 16 / sizeof(T);  // elements of a 16-byte vector
+  const int lane = threadIdx.x & 31, G = p.G;
+  const int c = lane % G, sub = lane / G, per_warp = 32 / G;
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
+                         >> 5;
+  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  // r0 is the same in every lane of the warp, so the shuffles converge
+  for (long long r0 = warp * per_warp; r0 < p.rows; r0 += warps * per_warp) {
+    const long long r = r0 + sub;
+    float s = 0.f;
+    if (r < p.rows) {
+      const int bh = (int)(r / p.L), i = (int)(r - (long long)bh * p.L);
+      const T* a = static_cast<const T*>(p.dout) + p.sdo.at(bh, p.H) +
+                   (long long)i * p.sdo.sl + c * V;
+      const T* b = static_cast<const T*>(p.out) + p.so.at(bh, p.H) +
+                   (long long)i * p.so.sl + c * V;
+      const uint4 va = __ldg(reinterpret_cast<const uint4*>(a));
+      const uint4 vb = __ldg(reinterpret_cast<const uint4*>(b));
+      const T* ea = reinterpret_cast<const T*>(&va);
+      const T* eb = reinterpret_cast<const T*>(&vb);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float x, y;
+        if constexpr (sizeof(T) == 4) {
+          x = ea[e];
+          y = eb[e];
+        } else {
+          x = __bfloat162float(ea[e]);
+          y = __bfloat162float(eb[e]);
+        }
+        s = __fadd_rn(s, __fmul_rn(x, y));
+      }
+    }
+    for (int o = G >> 1; o > 0; o >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (c == 0 && r < p.rows) p.delta[r] = s;
+  }
+}
+
+int run_delta(const DeltaArgs& p, int dtype, cudaStream_t st) {
+  const long long per_block = 8LL * (32 / p.G);  // rows a block's pass
+  const long long want = (p.rows + per_block - 1) / per_block;
+  const int grid = (int)(want < 4096 ? want : 4096);
+  if (dtype == 0)
+    flash_bwd_delta_kernel<float><<<grid, 256, 0, st>>>(p);
+  else
+    flash_bwd_delta_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
 // (BH, L, D) and (BH, L) contiguous
 Strides contiguous(int L, int D, int H) {
   return Strides{(long long)H * L * D, (long long)L * D, (long long)D};
@@ -2391,4 +2462,28 @@ extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
     read_strides(strides, views, 6, stats, 2);
   }
   return dispatch<kDkv>(a, BH, D, dtype, (cudaStream_t)stream);
+}
+
+// delta (B, H, L) float32, contiguous, from dout and out like q (dtype 0
+// float32 or 1 bfloat16, D in {32, 64, 128}).  strides: 6 int64, dout's
+// and out's B, H and L strides, or null for contiguous tensors.
+extern "C" int mxt_flash_bwd_delta(const void* dout, const void* out,
+                                   void* delta, int BH, int H, int L, int D,
+                                   int dtype, void* stream,
+                                   const long long* strides) {
+  DeltaArgs p = {};
+  p.dout = dout;
+  p.out = out;
+  p.delta = static_cast<float*>(delta);
+  p.sdo = p.so = contiguous(L, D, H);
+  if (strides) {
+    Strides* const views[2] = {&p.sdo, &p.so};
+    read_strides(strides, views, 2, nullptr, 0);
+  }
+  p.rows = (long long)BH * L;
+  p.H = H;
+  p.L = L;
+  p.G = D * (dtype == 0 ? 4 : 2) / 16;
+  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  return run_delta(p, dtype, (cudaStream_t)stream);
 }

@@ -12,10 +12,13 @@
   package.  That is a rule about features: a kernel that fails on the
   card raises;
 - :func:`flash_attention_sharded` — attention over a (dp, tp) mesh
-  (``attention.py:315-396``): batch over dp, heads over tp, each shard in
-  turn on the one card; a plain causal shard goes to the flash forward
-  kernel with ``causal=True`` where the JAX package takes the TPU's splash
-  kernel;
+  (``attention.py:315-396``): batch over dp, heads over tp.  Plain causal
+  attention is one flash call over the whole tensors, where the JAX
+  package runs the TPU's splash kernel on each shard: causal attention
+  with no dropout, window or padding mask is independent per (batch,
+  head), and the shards tile (batch, heads) exactly, so on one card one
+  call over all of them computes what the mesh's per-shard calls compute,
+  in one launch of each kernel.  The other masks run each shard in turn;
 - :func:`sldwin_atten` — sliding-window attention (``attention.py:431``).
 
 ``last_path`` names the route of the last :func:`flash_attention` call:
@@ -141,13 +144,16 @@ def flash_attention_sharded(q, k, v, cfg, causal=False, window=None,
     ``flash_attention_sharded`` (``attention.py:315-396``) lays them out.
     The port runs on one card, so the shards run there in turn.
 
-    - Plain causal attention (no window, dropout or ``kv_length``) goes to
-      the flash forward kernel with ``causal=True``, the scale folded into
-      q in q's dtype, where the JAX package takes the TPU's splash kernel
-      (``_splash_causal``, ``attention.py:302``): one autograd function
-      in which each shard's launches read their views of the whole
-      tensors and write their views of one output each (forward: out and
-      lse; backward: dq, dk and dv).
+    - Plain causal attention (no window, dropout or ``kv_length``), where
+      the JAX package runs the TPU's splash kernel on each shard
+      (``_splash_causal``, ``attention.py:302``), is ONE call of the flash
+      op with ``causal=True`` on the whole tensors: one launch of the
+      forward kernel, and in the backward one each of the delta, dq and
+      dkv kernels.  Each (batch, head) of causal attention is independent
+      of the others, and the (dp, tp) shards tile (batch, heads) exactly,
+      so the one call computes every shard's splash call, each (batch,
+      head) with the same arithmetic as a call on its shard alone.
+      ``causal_shards`` still counts the dp * tp shards it stands for.
     - Otherwise each shard takes :func:`flash_attention` with its slice of
       ``kv_length``, and the outputs are concatenated.
     - Under dropout each shard's seed is ``seed`` (or one drawn from
@@ -178,8 +184,8 @@ def flash_attention_sharded(q, k, v, cfg, causal=False, window=None,
         q = _amp_cast1("flash_attention", q)
         k = _amp_cast1("flash_attention", k)
         v = _amp_cast1("flash_attention", v)
-        s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-        out = _ShardedCausal.apply(q, k, v, s, dp, tp)
+        out = _flash.flash_attention(q, k, v, causal=True, scale=scale)
+        flash_attention_sharded.causal_shards += dp * tp
         last_path = "flash-causal-shard"
         return out
     outs = [flash_attention(
@@ -203,51 +209,6 @@ def _shards(B, H, dp, tp):
         for t in range(tp):
             yield (d, t, slice(d * Bl, (d + 1) * Bl),
                    slice(t * Hl, (t + 1) * Hl))
-
-
-class _ShardedCausal(torch.autograd.Function):
-    """The #16 route over the whole tensors, with no slice copy, slice
-    assignment or concat.  Forward: q scaled once, then per shard the
-    flash forward kernel reads its views of q, k and v where they lie and
-    writes its views of one ``out`` and one ``lse``.  Backward: ``delta``
-    once over the whole gradient and output, then per shard #6 and #7
-    read their views of q, k, v, the gradient, lse and delta and write
-    their views of one dq, dk and dv; dq takes the scale once at the end.
-    Both give the same bits as per-shard slices through ``flash_attention``
-    with the scale folded into q, which this replaces."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, s, dp, tp):
-        qs = (q * s).to(q.dtype)
-        B, H, L, _ = q.shape
-        out = torch.empty_like(q)
-        lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
-        for _, _, b, h in _shards(B, H, dp, tp):
-            _flash.flash_attention_fwd(qs[b, h], k[b, h], v[b, h],
-                                       causal=True, scale=1.0,
-                                       out=out[b, h], lse=lse[b, h])
-            flash_attention_sharded.causal_shards += 1
-        ctx.cfg = (s, dp, tp)
-        ctx.save_for_backward(qs, k, v, out, lse)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        qs, k, v, out, lse = ctx.saved_tensors
-        s, dp, tp = ctx.cfg
-        B, H = qs.shape[:2]
-        delta = (g.float() * out.float()).sum(-1)
-        dq, dk, dv = (torch.empty_like(qs) for _ in range(3))
-        for _, _, b, h in _shards(B, H, dp, tp):
-            args = (qs[b, h], k[b, h], v[b, h], g[b, h], lse[b, h],
-                    delta[b, h])
-            _flash.flash_attention_bwd_dq(*args, causal=True, scale=1.0,
-                                          dq=dq[b, h])
-            _flash.flash_attention_bwd_dkv(*args, causal=True, scale=1.0,
-                                           dk=dk[b, h], dv=dv[b, h])
-        # the scale after dq's rounding to q's dtype: the per-shard
-        # composition's bits
-        return dq.mul_(s), dk, dv, None, None, None
 
 
 def sldwin_atten(q, k, v, window, symmetric=True):

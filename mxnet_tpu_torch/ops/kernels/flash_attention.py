@@ -8,12 +8,14 @@
   ``_bwd_dq_kernel`` (``:262``).
 - :func:`flash_attention_bwd_dkv` — ``(dk, dv)``; kernel #7, replacing
   ``_bwd_dkv_kernel`` (``:314``).
-- :func:`flash_attention` — the three as a ``torch.autograd.Function``
+- :func:`flash_attention_bwd_delta` — ``delta = sum_d dO * O`` in fp32,
+  the row statistic #6 and #7 read, over the dropped output ``O``; a
+  CUDA kernel of its own, where the JAX package reduces in jnp between
+  its kernels (``:466``): it replaces no TPU kernel.
+- :func:`flash_attention` — the kernels as a ``torch.autograd.Function``
   that saves ``q, k, v, out, lse``, the one-element seed and
   ``kv_length``, and no (L, L) tensor: the backward recomputes the
-  probabilities from ``lse``.  ``delta = sum_d dO * O`` is a torch fp32
-  reduction between the forward and the backward kernels (``:466``), over
-  the dropped output ``O``.
+  probabilities from ``lse``.
 
 q, k, v: (B, H, L, D).  All three kernels read strided views where they
 lie (a head slice, BERT's permuted projection, the transposed gradient
@@ -30,7 +32,8 @@ on its tiling).
 
 Each wrapper runs its plain PyTorch version on a CPU tensor and launches
 its kernel on a CUDA tensor (or raises), counting launches in
-``flash_attention.launches_fwd``, ``.launches_dq`` and ``.launches_dkv``;
+``flash_attention.launches_fwd``, ``.launches_dq``, ``.launches_dkv`` and
+``.launches_delta``;
 ``flash_attention.last_dtype`` is the dtype of the last launch.  The
 kernels take float32 and bfloat16 and head dims 32, 64 and 128; in
 bfloat16 the probabilities are rounded to bf16 before ``P @ V`` and
@@ -55,6 +58,7 @@ from . import dropout_hash as _hash
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
+           "flash_attention_bwd_delta", "flash_attention_bwd_delta_plain",
            "HEAD_DIMS"]
 
 _P = ctypes.c_void_p
@@ -75,6 +79,8 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes = [_P] * n_ptr + _TAIL + [_P]    # ... strides
         fn.restype = _I
+    lib.mxt_flash_bwd_delta.argtypes = [_P] * 3 + [_I] * 5 + [_P, _P]
+    lib.mxt_flash_bwd_delta.restype = _I
     return lib
 
 
@@ -185,6 +191,11 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False,
         scale, q.shape[-1])
     dv = torch.matmul(pd.transpose(-1, -2), do.float())
     return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_attention_bwd_delta_plain(do, out):
+    """``delta = sum_d dO * O`` (B, H, L) in fp32, in plain PyTorch."""
+    return (do.float() * out.float()).sum(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -469,6 +480,39 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     return _deliver(out_k, dk), _deliver(out_v, dv)
 
 
+def flash_attention_bwd_delta(do, out):
+    """``delta = sum_d dO * O``, (B, H, L) float32, from dO and O (B, H, L,
+    D) of one dtype: a CPU tensor takes
+    :func:`flash_attention_bwd_delta_plain`; a CUDA tensor launches the
+    delta kernel (counted in ``flash_attention.launches_delta``).  dO and
+    O may be strided views, read where they lie when :func:`_strided_ok`
+    admits them, else from contiguous copies."""
+    what = "flash_attention_bwd_delta"
+    if _on_cpu(what, do):
+        return flash_attention_bwd_delta_plain(do, out)
+    B, H, L, D = do.shape
+    if (out.shape != do.shape or out.dtype != do.dtype
+            or out.device != do.device):
+        raise ValueError("%s: dout and out must match: %s %s %s"
+                         % (what, tuple(do.shape), do.dtype, do.device))
+    if do.dtype not in _DTYPES:
+        raise TypeError("%s: unsupported dtype %s (float32, bfloat16)"
+                        % (what, do.dtype))
+    if D not in HEAD_DIMS or not B * H * L:
+        raise ValueError("%s: shape %s; the kernel takes head dims %s and "
+                         "no empty dim" % (what, tuple(do.shape), HEAD_DIMS))
+    do, out = _as_read(do), _as_read(out)
+    delta = torch.empty(B, H, L, dtype=torch.float32, device=do.device)
+    lib = _lib()
+    rc = lib.mxt_flash_bwd_delta(
+        do.data_ptr(), out.data_ptr(), delta.data_ptr(), B * H, H, L, D,
+        _DTYPES[do.dtype], torch.cuda.current_stream(do.device).cuda_stream,
+        _stride_args([do, out], []))
+    _build.check(lib, rc, what)
+    flash_attention.launches_delta += 1
+    return delta
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seed, kv_length, causal, window, scale,
@@ -484,7 +528,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse, seed, kv_length = ctx.saved_tensors
         # g (the transposed gradient of BERT's output, say) is read where
         # it lies, as q, k and v are
-        delta = (g.float() * out.float()).sum(-1)
+        delta = flash_attention_bwd_delta(g, out)
         args = ctx.cfg + (seed, kv_length)
         dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, *args)
         dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, *args)
@@ -531,4 +575,5 @@ def flash_attention(q, k, v, causal=False, window=None, scale=None,
 flash_attention.launches_fwd = 0
 flash_attention.launches_dq = 0
 flash_attention.launches_dkv = 0
+flash_attention.launches_delta = 0
 flash_attention.last_dtype = None

@@ -57,12 +57,15 @@ __all__ = ["lstm_sequence", "lstm_sequence_plain",
            "decode_layer_group", "decode_layer_group_plain", "WeightTable",
            "WEIGHT_ORDER", "PHASES", "grid_blocks", "phase_times",
            "LSTM_BWD_PHASES", "LSTM_GATES_PHASES", "lstm_bwd_phase_times",
-           "decode_attn_phase", "decode_attn_phase_plain", "decode_ffn_phase",
+           "decode_attn_phase", "decode_attn_phase_plain",
+           "decode_attn_phase_times", "ATTN_PHASES", "decode_ffn_phase",
            "decode_ffn_phase_plain", "phase_grid_blocks"]
 
 #: the kernel's phases per layer, separated by grid-wide barriers
 PHASES = ("qkv", "append+attention", "out_proj", "residual+ln1",
           "ffn1+gelu", "ffn2", "residual+ln2")
+#: the phases of the tensor-parallel attention phase kernel #13
+ATTN_PHASES = ("qkv", "append+attention", "out_proj", "slice_sum")
 
 #: per-layer weights in the order the kernel's pointer table holds them
 WEIGHT_ORDER = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
@@ -270,7 +273,7 @@ def decode_ffn_phase_plain(x, w1, b1, w2):
 def _phase_lib():
     """The loaded ``decode_phase`` library with its entry points typed."""
     lib = _build.load("decode_phase")
-    lib.mxt_decode_attn_phase.argtypes = ([_P] * 15 + [_I] * 8
+    lib.mxt_decode_attn_phase.argtypes = ([_P] * 16 + [_I] * 8
                                           + [ctypes.c_float, _P])
     lib.mxt_decode_attn_phase.restype = _I
     lib.mxt_decode_ffn_phase.argtypes = [_P] * 6 + [_I] * 3 + [_P]
@@ -280,6 +283,8 @@ def _phase_lib():
     lib.mxt_decode_phase_grid.argtypes = [_I, _I, ctypes.POINTER(_I),
                                           ctypes.POINTER(_I)]
     lib.mxt_decode_phase_grid.restype = _I
+    lib.mxt_decode_attn_phases.argtypes = []
+    lib.mxt_decode_attn_phases.restype = _I
     return lib
 
 
@@ -328,6 +333,21 @@ def decode_attn_phase(x, kp, vp, lp, meta, page_tables, lengths, cfg):
     if x.device.type == "cpu":
         return decode_attn_phase_plain(x, kp, vp, lp, meta, page_tables,
                                        lengths, cfg)
+    return _attn_launch(x, kp, vp, lp, meta, page_tables, lengths, cfg, None)
+
+
+def decode_attn_phase_times(x, kp, vp, lp, meta, page_tables, lengths, cfg):
+    """One launch of kernel #13 on CUDA tensors (same arguments and
+    in-place effects as :func:`decode_attn_phase`) that also stamps the
+    card's global timer at the end of every phase.  Returns ``{phase: ns}``
+    in the kernel's order (:data:`ATTN_PHASES`)."""
+    stamps = torch.zeros(len(ATTN_PHASES) + 1, dtype=torch.int64,
+                         device=x.device)
+    _attn_launch(x, kp, vp, lp, meta, page_tables, lengths, cfg, stamps)
+    return dict(zip(ATTN_PHASES, torch.diff(stamps.cpu()).tolist()))
+
+
+def _attn_launch(x, kp, vp, lp, meta, page_tables, lengths, cfg, stamps):
     if x.device.type != "cuda":
         raise ValueError("decode_attn_phase: unsupported device %s"
                          % x.device)
@@ -356,6 +376,11 @@ def decode_attn_phase(x, kp, vp, lp, meta, page_tables, lengths, cfg):
                                       (B, pps)),
         ("lengths", lengths, i32, (B,))])
     lib = _phase_lib()
+    if stamps is not None and lib.mxt_decode_attn_phases() != len(
+            ATTN_PHASES):
+        raise RuntimeError("decode_attn_phase: the kernel stamps %d phases, "
+                           "ATTN_PHASES names %d"
+                           % (lib.mxt_decode_attn_phases(), len(ATTN_PHASES)))
     scratch = torch.empty(lib.mxt_decode_phase_scratch(0, B, C, Cl, KVC),
                           dtype=f32, device=dev)
     out = torch.empty(B, C, dtype=f32, device=dev)
@@ -364,8 +389,9 @@ def decode_attn_phase(x, kp, vp, lp, meta, page_tables, lengths, cfg):
         *(lp[k].data_ptr() for k in ("wq", "bq", "wk", "bk", "wv", "bv",
                                      "wo")),
         meta.data_ptr(), page_tables.data_ptr(), lengths.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), B, C, H, KVH, D, P, S, pps,
-        1.0 / (D ** 0.5), torch.cuda.current_stream(dev).cuda_stream)
+        scratch.data_ptr(), out.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), B, C, H, KVH, D, P,
+        S, pps, 1.0 / (D ** 0.5), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "decode_attn_phase")
     decode_attn_phase.launches += 1
     return kp, vp, out

@@ -18,7 +18,11 @@ mode on the CPU).  The plain-version parity is in
   kernel's;
 - emulated 3xTF32 products of the fp32 backward and of the fp32 forward
   within ``chip_smoke``'s TOL_FLASH_3XTF32 of fp64, and single TF32
-  products outside it.
+  products outside it;
+- ``flash_attention_bwd_delta``: its plain version is the expression
+  it replaced (and the JAX backward's delta, ``flash_attention.py:466``),
+  on contiguous tensors and on BERT's transposed dO, and the op's
+  backward takes delta from it.
 """
 from __future__ import annotations
 
@@ -390,3 +394,56 @@ def test_gradients_on_permuted_views_match_jax(dtype):
             np.testing.assert_allclose(a, b, rtol=0,
                                        atol=2.0 ** -8 * np.abs(b).max())
     assert not np.any(got[0][1])      # the row without keys: no gradient
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_delta_plain_is_the_expression_it_replaced(dtype):
+    """``flash_attention_bwd_delta`` on CPU tensors is ``(dO.float() *
+    O.float()).sum(-1)`` bit for bit, on contiguous tensors and on a
+    transposed (B, L, H, D) gradient, and agrees with the JAX backward's
+    jnp delta (fp32 sums of 8 products in other orders: a few ulps)."""
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(21)
+    B, H, L, D = 2, 3, 20, 8
+    do_t = torch.tensor(rng.standard_normal((B, L, H, D)),
+                        dtype=torch.float32).to(tdt)
+    out = torch.tensor(rng.standard_normal((B, H, L, D)),
+                       dtype=torch.float32).to(tdt)
+    for do in (do_t.transpose(1, 2), do_t.transpose(1, 2).contiguous()):
+        got = tfa.flash_attention_bwd_delta(do, out)
+        assert got.dtype == torch.float32 and got.shape == (B, H, L)
+        assert torch.equal(got, (do.float() * out.float()).sum(-1))
+        assert torch.equal(got, tfa.flash_attention_bwd_delta_plain(do, out))
+        want = jnp.sum(jnp.asarray(do.float().numpy())
+                       * jnp.asarray(out.float().numpy()), axis=-1)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+    assert tfa.flash_attention.launches_delta == 0    # no kernel on the CPU
+
+
+def test_backward_takes_delta_from_the_wrapper(monkeypatch):
+    """The op's backward computes delta through
+    ``flash_attention_bwd_delta`` (once, on the output gradient and the
+    saved output) and hands that tensor to the dq and dkv wrappers."""
+    seen = {}
+    delta_fn = tfa.flash_attention_bwd_delta
+    dq_fn = tfa.flash_attention_bwd_dq
+
+    def delta(do, out):
+        seen.setdefault("delta", []).append(delta_fn(do, out))
+        return seen["delta"][-1]
+
+    def dq(*args, **kw):
+        seen["dq_delta"] = args[5]
+        return dq_fn(*args, **kw)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_delta", delta)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dq", dq)
+    rng = np.random.default_rng(22)
+    q, k, v = (torch.tensor(rng.standard_normal((2, 2, 16, 8)),
+                            dtype=torch.float32, requires_grad=True)
+               for _ in range(3))
+    g = torch.tensor(rng.standard_normal((2, 2, 16, 8)), dtype=torch.float32)
+    out = tfa.flash_attention(q, k, v, causal=True)
+    torch.autograd.grad(out, (q, k, v), g)
+    assert len(seen["delta"]) == 1 and seen["dq_delta"] is seen["delta"][0]
+    assert torch.equal(seen["delta"][0], (g * out.detach()).sum(-1))

@@ -5,15 +5,16 @@ mesh of ``tests/conftest.py``, at (dp, tp) meshes of (2, 2) and (4, 2).
 The port runs each (dp, tp) shard in turn (batch over dp, heads over tp)
 and concatenates; on CPU tensors each shard takes the flash kernels'
 plain version.  The JAX side runs ``shard_map`` over the mesh, whose
-per-shard body on the CPU is its reference attention.  A plain causal
-shard takes the port's causal route (the flash forward kernel with the
-scale folded into q, where the JAX package takes the TPU's splash
-kernel); dropout draws a different mask per shard from the seed mixed
-with the shard index.  The causal route is one autograd function over
-the whole tensors, each shard's launch reading and writing its views in
-place: its output and gradients must equal, bit for bit, the per-shard
-composition it replaced (contiguous slices, the scale folded into q,
-the flash op, concatenation).
+per-shard body on the CPU is its reference attention.  Plain causal
+attention takes the port's causal route, where the JAX package takes the
+TPU's splash kernel per shard: one call of the flash op over the whole
+tensors, since causal attention is independent per (batch, head) and the
+shards tile (batch, heads).  Its output and gradients must equal, bit
+for bit, the per-shard composition (contiguous slices, the flash op with
+the scale, concatenation), and, where the scale is a power of two (D 16,
+s = 1/4), the composition the route ran before, which folded the scale
+into q in q's dtype.  Dropout draws a different mask per shard from the
+seed mixed with the shard index.
 """
 from __future__ import annotations
 
@@ -37,8 +38,7 @@ torch.set_num_threads(2)
 B, H, L, D = 4, 4, 32, 8
 MESHES = [(2, 2), (4, 2)]
 # fp32 attention over 32 keys: the JAX reference's and the port's plain
-# flash version sum in other orders (and the causal route folds the scale
-# into q first), a few ulps on outputs of order 1
+# flash version sum in other orders, a few ulps on outputs of order 1
 TOL = 1e-5
 
 
@@ -50,9 +50,9 @@ def _mask_kw(mask):
     return dict(kv_length=np.array([L, 0, 17, 9], np.int32))
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, d=D):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((B, H, L, D)).astype(np.float32)
+    return [rng.standard_normal((B, H, L, d)).astype(np.float32)
             for _ in range(3)]
 
 
@@ -166,10 +166,12 @@ def test_causal_route_launches_nothing_on_the_cpu():
     assert tfa.flash_attention.launches_fwd == before
 
 
-def _per_shard_causal(q, k, v, dp, tp):
-    """The causal route composed per shard: contiguous slices, the scale
-    folded into q in q's dtype, the flash op with ``causal=True``, then a
-    concat over heads and one over the batch."""
+def _per_shard_causal(q, k, v, dp, tp, fold_scale=False):
+    """Causal attention composed per shard: contiguous slices, the flash op
+    with ``causal=True`` and the scale, then a concat over heads and one
+    over the batch.  ``fold_scale``: the composition the route ran until
+    it became one call, the scale folded into q in q's dtype and the op
+    run at scale 1."""
     Bl, Hl = q.shape[0] // dp, q.shape[1] // tp
     s = 1.0 / math.sqrt(q.shape[-1])
     rows = []
@@ -178,22 +180,21 @@ def _per_shard_causal(q, k, v, dp, tp):
         for t in range(tp):
             qs, ks, vs = (x[d * Bl:(d + 1) * Bl, t * Hl:(t + 1) * Hl]
                           for x in (q, k, v))
-            heads.append(tfa.flash_attention((qs * s).to(qs.dtype), ks, vs,
-                                             causal=True, scale=1.0))
+            if fold_scale:
+                heads.append(tfa.flash_attention(
+                    (qs * s).to(qs.dtype), ks, vs, causal=True, scale=1.0))
+            else:
+                heads.append(tfa.flash_attention(qs, ks, vs, causal=True,
+                                                 scale=s))
         rows.append(torch.cat(heads, dim=1))
     return torch.cat(rows, dim=0)
 
 
-@pytest.mark.parametrize("mesh", [(2, 2), (1, 4)],
-                         ids=lambda m: "dp%d-tp%d" % m)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_causal_route_equals_per_shard_composition(mesh, dtype):
-    """The in-place causal route's output and q, k, v gradients equal the
-    per-shard composition's exactly (``torch.equal``), and each call
-    counts dp * tp causal shards."""
+def _route_and_composition(mesh, dtype, d, fold_scale):
+    """The route's output and q, k, v gradients, and the composition's."""
     tdt = getattr(torch, dtype)
-    q, k, v = (torch.tensor(a).to(tdt) for a in _inputs(3))
-    g = torch.tensor(_inputs(4)[0]).to(tdt)
+    q, k, v = (torch.tensor(a).to(tdt) for a in _inputs(3, d))
+    g = torch.tensor(_inputs(4, d)[0]).to(tdt)
     cfg = ShardingConfig.for_transformer(mesh_shape=mesh,
                                          axis_names=("dp", "tp"))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -204,59 +205,81 @@ def test_causal_route_equals_per_shard_composition(mesh, dtype):
     assert tatt.last_path == "flash-causal-shard" and out.dtype == tdt
     grads = torch.autograd.grad(out, leaves, g)
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    ref = _per_shard_causal(*ref_leaves, *mesh)
+    ref = _per_shard_causal(*ref_leaves, *mesh, fold_scale=fold_scale)
     ref_grads = torch.autograd.grad(ref, ref_leaves, g)
+    return (out, grads), (ref, ref_grads)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 4)],
+                         ids=lambda m: "dp%d-tp%d" % m)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_route_equals_per_shard_composition(mesh, dtype):
+    """The causal route's output and q, k, v gradients equal the
+    per-shard composition's exactly (``torch.equal``) at D 8, where the
+    scale 1/sqrt(8) is no power of two, and each call counts dp * tp
+    causal shards."""
+    (out, grads), (ref, ref_grads) = _route_and_composition(mesh, dtype, D,
+                                                            False)
     assert torch.equal(out, ref)
     for got, want in zip(grads, ref_grads):
-        assert got.dtype == tdt and torch.equal(got, want)
-
-
-def _within(t, parent):
-    """Whether the view ``t`` lies inside ``parent``'s storage."""
-    lo = parent.untyped_storage().data_ptr()
-    hi = lo + parent.untyped_storage().nbytes()
-    return lo <= t.data_ptr() < hi
+        assert got.dtype == out.dtype and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_causal_route_backward_reads_and_writes_views(monkeypatch, dtype):
-    """The route's backward hands the backward kernels' wrappers each
-    shard's views of the whole q, k, v, gradient, lse and delta, not
-    copies, and output views inside one dq, dk and dv, which it returns:
-    dp * tp calls of each wrapper, no copy or slice assignment."""
+def test_causal_route_equals_folded_scale_composition(dtype):
+    """At D 16 the scale 1/4 is a power of two, so the scale applied in
+    fp32 inside the op and the scale folded into q in q's dtype give the
+    same bits: the route equals, bit for bit, the per-shard composition it
+    ran before it became one call (as at the card's D 64, s = 1/8)."""
+    (out, grads), (ref, ref_grads) = _route_and_composition((2, 2), dtype,
+                                                            16, True)
+    assert torch.equal(out, ref)
+    for got, want in zip(grads, ref_grads):
+        assert torch.equal(got, want)
+
+
+def _same_storage(t, whole):
+    """Whether ``t`` is ``whole``'s data itself: the same storage, offset
+    and shape, so no copy."""
+    return (t.data_ptr() == whole.data_ptr() and t.shape == whole.shape
+            and t.stride() == whole.stride())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_route_backward_is_one_call_on_the_whole_tensors(monkeypatch,
+                                                                dtype):
+    """The route's backward calls the delta, dq and dkv wrappers once
+    each, on the whole q, k, v and output gradient as they are (no slice,
+    no copy), and returns what they return: dq, dk and dv of one call."""
     tdt = getattr(torch, dtype)
-    calls = {"dq": [], "dkv": []}
-    dq_fn, dkv_fn = tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv
+    calls = {"delta": [], "dq": [], "dkv": []}
+    wrapped = {"delta": tfa.flash_attention_bwd_delta,
+               "dq": tfa.flash_attention_bwd_dq,
+               "dkv": tfa.flash_attention_bwd_dkv}
 
-    def dq(*args, **kw):
-        calls["dq"].append((args, kw))
-        return dq_fn(*args, **kw)
-
-    def dkv(*args, **kw):
-        calls["dkv"].append((args, kw))
-        return dkv_fn(*args, **kw)
-    monkeypatch.setattr(tfa, "flash_attention_bwd_dq", dq)
-    monkeypatch.setattr(tfa, "flash_attention_bwd_dkv", dkv)
+    def spy(name):
+        def fn(*args, **kw):
+            r = wrapped[name](*args, **kw)
+            calls[name].append((args, kw, r))
+            return r
+        return fn
+    for name in wrapped:
+        monkeypatch.setattr(tfa, "flash_attention_bwd_" + name, spy(name))
     leaves = [torch.tensor(a).to(tdt).requires_grad_() for a in _inputs(5)]
     g = torch.tensor(_inputs(6)[0]).to(tdt)
     cfg = ShardingConfig.for_transformer(mesh_shape=(2, 2),
                                          axis_names=("dp", "tp"))
     out = tatt.flash_attention_sharded(*leaves, cfg, causal=True)
     grads = torch.autograd.grad(out, leaves, g)
-    assert len(calls["dq"]) == len(calls["dkv"]) == 4
-    for name, outs in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
-        for args, kw in calls[name]:
-            q, k, v, do, lse, delta = args
-            assert q.shape == (B // 2, H // 2, L, D)
-            # the shards' views, read where they lie
-            assert not any(t.is_contiguous() for t in args)
-            for t, whole in zip(args[1:4], (leaves[1], leaves[2], g)):
-                assert _within(t, whole)
-            assert lse.dtype == delta.dtype == torch.float32
-            # written in place into views of the returned gradients
-            for o in outs:
-                assert not kw[o].is_contiguous()
-            got = [kw[o] for o in outs]
-            want = grads[:1] if name == "dq" else grads[1:]
-            for o, whole in zip(got, want):
-                assert _within(o, whole)
+    assert [len(c) for c in calls.values()] == [1, 1, 1]
+    (do, o), _, delta = calls["delta"][0]
+    assert _same_storage(do, g) and _same_storage(o, out)
+    assert delta.shape == (B, H, L) and delta.dtype == torch.float32
+    for name in ("dq", "dkv"):
+        args, _, _ = calls[name][0]
+        for t, whole in zip(args[:4], (*leaves, g)):
+            assert _same_storage(t, whole)
+        assert args[5] is delta
+    assert grads[0].data_ptr() == calls["dq"][0][2].data_ptr()
+    for got, r in zip(grads[1:], calls["dkv"][0][2]):
+        assert got.data_ptr() == r.data_ptr()
