@@ -17,6 +17,10 @@
 //   attention (attend_group of paged_attention.cuh) per (sequence, KV
 //   head), which reads only the pages the table names up to each row's
 //   length.
+// - split_attend and split_merge: paged attention with a row's keys split
+//   over blocks (flash-decoding), for the tensor-parallel attention phase
+//   (decode_phase.cu): partials per chunk of SPLIT_KEYS keys, then a
+//   merge in chunk order after a grid barrier.
 // - coop_geometry: the grid of a cooperative launch, every block resident.
 #pragma once
 
@@ -179,6 +183,218 @@ __device__ inline void append_attend(const float* qkv, int Cq, float* kp,
     attend_group(qkv + (size_t)b * N + head0, F32Pages{kp + pool0, vp + pool0},
                  tables + (size_t)b * pps, pps, lengths[b], S, D, g, scale,
                  att + (size_t)b * Cq + head0, smem);
+  }
+}
+
+// Split-key paged attention.  The unit of work is (row b, KV head, chunk
+// of SPLIT_KEYS keys); a row of length n has ceil(n / SPLIT_KEYS) chunks
+// per KV head and a row of length 0 none.  Every block enumerates the
+// units alike, row-major, then KV head, then chunk, from `lengths`, and
+// takes unit blockIdx.x, then every gridDim.x-th one, so a long row's keys
+// spread over as many blocks as it has chunks and the batch's work over
+// the grid.  Inside a unit each warp owns 8 consecutive keys, and each
+// lane E = D / 32 consecutive columns of every key: a lane loads its
+// columns of the 8 key rows and the 8 value rows at once (one round trip
+// to memory), sums its part of each dot product with the query heads of
+// the group, and 8 warp sums give every lane all 8 logits; the max, the
+// exponentials, their sum and the lane's E columns of P V over the 8 keys
+// then need no further exchange.  The block combines its 8 warps'
+// (max, sum, output) in warp order at the largest max and writes the
+// unit's, which split_merge combines in chunk order.  No atomics: results
+// do not depend on timing.  A unit has two block barriers, and one more in
+// the unit that owns a row's last chunk, which first runs append(b, kvh)
+// (the step's key and value of that KV head into their page slot) so its
+// own reads of that slot follow the write.
+
+constexpr int SPLIT_KEYS = 64;       // keys per unit
+constexpr int SPLIT_WARP_KEYS = 8;   // keys per warp of a unit
+
+// chunks of a row of `length` keys (0 for an inactive row)
+__device__ __forceinline__ int split_chunks(int length, int max_keys) {
+  return (min(max(length, 0), max_keys) + SPLIT_KEYS - 1) / SPLIT_KEYS;
+}
+
+// units of the whole batch: KVH chunks per chunk of each row's keys
+__device__ inline int split_units(const int* lengths, int B, int KVH,
+                                  int max_keys) {
+  int n = 0;
+  for (int b = 0; b < B; ++b) n += split_chunks(__ldg(lengths + b), max_keys);
+  return n * KVH;
+}
+
+// most units a launch can have, for sizing the partials' scratch
+__host__ __device__ inline size_t split_units_max(int B, int KVH,
+                                                  int max_keys) {
+  return (size_t)B * KVH * ((max_keys + SPLIT_KEYS - 1) / SPLIT_KEYS);
+}
+
+// floats of shared memory split_attend uses: per warp its output rows
+// (g D), maxima and sums (2 g)
+__host__ __device__ inline int split_smem_floats(int g, int D) {
+  return NWARPS * (g * D + 2 * g);
+}
+
+// E consecutive floats at p (8- or 16-byte aligned for E 2 and 4)
+template <int E>
+struct Cols {
+  float v[E];
+  __device__ __forceinline__ void load(const float* p) {
+    if constexpr (E == 4) {
+      const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else if constexpr (E == 2) {
+      const float2 t = __ldcg(reinterpret_cast<const float2*>(p));
+      v[0] = t.x; v[1] = t.y;
+    } else {
+      v[0] = __ldcg(p);
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] = 0.f;
+  }
+};
+
+// q_at(b, c):    row b's query at column c = h D + d (h = kvh g + i),
+//                before the scale
+// append(b, kvh): run by the whole block in the unit of (b, kvh)'s last
+//                chunk before it reads a key: writes the step's key and
+//                value into their page slot
+// kp/vp:         (KVH, P, S, D) page slabs
+// po/pm/pl:      per unit, (g D) unnormalised outputs, (g) maxima, (g) sums
+// D = 32 E.  Pages are read with L2-only loads: blocks write them in the
+// same launch.
+template <int E, class QAt, class Append>
+__device__ void split_attend(QAt q_at, Append append, const float* kp,
+                             const float* vp, const int* tables,
+                             const int* lengths, int B, int KVH, int g,
+                             int P, int S, int pps, float scale, float* po,
+                             float* pm, float* pl, float* smem) {
+  constexpr int D = 32 * E;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gD = g * D, max_keys = pps * S, wstride = gD + 2 * g;
+  float* o_w = smem + warp * wstride;  // this warp's rows, then m, then l
+  const int units = split_units(lengths, B, KVH, max_keys);
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int r = u, b = 0, nch = 0;
+    for (; b < B; ++b) {
+      nch = split_chunks(__ldg(lengths + b), max_keys);
+      if (r < nch * KVH) break;
+      r -= nch * KVH;
+    }
+    const int kvh = r / nch, c = r - kvh * nch;
+    const int length = min(__ldg(lengths + b), max_keys);
+    const int k0 = c * SPLIT_KEYS + warp * SPLIT_WARP_KEYS;
+    const int nk = min(SPLIT_WARP_KEYS, max(length - k0, 0));
+    __syncthreads();  // the last unit's combine has read the warps' rows
+    if (c == nch - 1) {
+      append(b, kvh);
+      __syncthreads();
+    }
+    // lane k < 8 finds key k's row; every lane loads its columns of all 8
+    long long row = 0;
+    if (lane < nk) {
+      const int t = k0 + lane;
+      const int page = __ldg(tables + (size_t)b * pps + t / S);
+      row = (((long long)kvh * P + page) * S + t % S) * D;
+    }
+    Cols<E> kc[SPLIT_WARP_KEYS], vc[SPLIT_WARP_KEYS];
+#pragma unroll
+    for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {
+      const long long rk = __shfl_sync(0xffffffffu, row, k) + lane * E;
+      if (k < nk) {
+        kc[k].load(kp + rk);
+        vc[k].load(vp + rk);
+      } else {
+        kc[k].zero();
+        vc[k].zero();
+      }
+    }
+    for (int i = 0; i < g; ++i) {
+      const int col = (kvh * g + i) * D + lane * E;
+      float qv[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) qv[e] = q_at(b, col + e) * scale;
+      float s[SPLIT_WARP_KEYS];
+#pragma unroll
+      for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {
+        float t = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) t = fmaf(qv[e], kc[k].v[e], t);
+        s[k] = warp_sum(t);
+      }
+      float m = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < SPLIT_WARP_KEYS; ++k)
+        if (k < nk) m = fmaxf(m, s[k]);
+      float l = 0.f, o[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) o[e] = 0.f;
+#pragma unroll
+      for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {
+        const float p = k < nk ? expf(s[k] - m) : 0.f;
+        l += p;
+#pragma unroll
+        for (int e = 0; e < E; ++e) o[e] = fmaf(p, vc[k].v[e], o[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) o_w[i * D + lane * E + e] = o[e];
+      if (lane == 0) {
+        o_w[gD + i] = m;  // -inf where the warp has no key
+        o_w[gD + g + i] = l;
+      }
+    }
+    __syncthreads();
+    // the unit's partial: the warps' in warp order, at the largest max
+    for (int e = tid; e < gD; e += blockDim.x) {
+      const int i = e / D;
+      float m = -INFINITY;
+      for (int w = 0; w < NWARPS; ++w)
+        m = fmaxf(m, smem[w * wstride + gD + i]);
+      float o = 0.f, l = 0.f;
+      for (int w = 0; w < NWARPS; ++w) {
+        const float* ww = smem + w * wstride;
+        const float a = expf(ww[gD + i] - m);
+        o = fmaf(ww[e], a, o);
+        l = fmaf(ww[gD + g + i], a, l);
+      }
+      po[(size_t)u * gD + e] = o;
+      if (e == i * D) {
+        pm[(size_t)u * g + i] = m;
+        pl[(size_t)u * g + i] = l;
+      }
+    }
+  }
+}
+
+// att[b, h D + d] = the merge of (row b, head h)'s chunk partials, in
+// chunk order: sum_c o_c exp(m_c - m) / sum_c l_c exp(m_c - m), m the
+// largest m_c; 0 for a row of length 0.  One element a thread.
+__device__ inline void split_merge(const float* po, const float* pm,
+                                   const float* pl, const int* lengths, int B,
+                                   int KVH, int g, int D, int max_keys,
+                                   float* att) {
+  const int gD = g * D, Cq = KVH * gD;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < B * Cq;
+       e += gridDim.x * blockDim.x) {
+    const int b = e / Cq, hd = e - b * Cq;
+    const int kvh = hd / gD, id = hd - kvh * gD, i = id / D;
+    int u0 = 0;
+    for (int bb = 0; bb < b; ++bb)
+      u0 += split_chunks(__ldg(lengths + bb), max_keys) * KVH;
+    const int nch = split_chunks(__ldg(lengths + b), max_keys);
+    u0 += kvh * nch;
+    float m = -INFINITY;
+    for (int c = 0; c < nch; ++c)
+      m = fmaxf(m, __ldcg(pm + (size_t)(u0 + c) * g + i));
+    float o = 0.f, l = 0.f;
+    for (int c = 0; c < nch; ++c) {
+      const size_t u = (size_t)(u0 + c);
+      const float a = expf(__ldcg(pm + u * g + i) - m);
+      o = fmaf(__ldcg(po + u * gD + id), a, o);
+      l = fmaf(__ldcg(pl + u * g + i), a, l);
+    }
+    att[e] = nch ? o / l : 0.f;
   }
 }
 

@@ -16,12 +16,30 @@
 //
 // #13, attention phase (grid-wide barriers between the phases):
 //   1. q/k/v GEMVs over the shard's heads (B rows x (Cl + 2 KVCl) outputs
-//      from the full-width x, Cl = H_local D) + bias
-//   2. KV append at meta's (page, slot) into the shard's page slab, then
-//      paged attention per (sequence, KV head) over the shard's heads
-//   3. out-projection over the shard's Cl inputs (wo's row shard, (C, Cl)),
+//      from the full-width x, Cl = H_local D), as partial sums over slices
+//      of K: 144 column groups at tp 2 would leave most of the ~400 blocks
+//      idle
+//   2. split-key paged attention (decode_common.cuh:split_attend): one
+//      unit per (sequence, KV head, chunk of 64 keys), each writing its
+//      chunk's running max, sum and unnormalised output; a unit sums its
+//      query rows' slices (in slice order) + bias as it reads them, and
+//      the unit of a row's last chunk first sums the step's k and v the
+//      same way and writes them into the page slot meta names (the KV
+//      append), then reads them back through the table like every key
+//   3. the chunks of each (sequence, head) merged in chunk order
+//      (split_merge) into the attention output (B, Cl)
+//   4. out-projection over the shard's Cl inputs (wo's row shard, (C, Cl)),
 //      as partial sums over slices of K
-//   4. the slices summed in slice order into o_part (B, C)
+//   5. the slices summed in slice order into o_part (B, C)
+// Why split the keys: a unit of a whole (sequence, KV head) left one block
+// walking the longest row's 512 keys while most of the ~400 resident
+// blocks waited at the barrier (96 units at tp 2, 48 at tp 4); with
+// 64-key chunks the serving batch's lengths give about as many units as
+// blocks, and a unit's work is bounded by 64 keys.  Inactive rows have
+// no unit and append nothing (the plain version writes their k and v to
+// the scratch page 0, which no row reads).  A merge of its own,
+// rather than inside the out-projection's staging, because every column
+// group of that GEMV stages the same rows and would merge them again.
 // #14, FFN phase:
 //   1. FFN1 on w1's column shard (Fl, C) + b1, erf GELU
 //   2. FFN2 over the shard's Fl inputs (w2's row shard, (C, Fl)), as
@@ -63,7 +81,7 @@ struct AttnArgs {
   const int* meta;       // (2, B): write page, write slot
   const int* tables;     // (B, pps) page tables
   const int* lengths;    // (B,) valid keys after this step's append
-  float* scratch;        // attn_scratch_floats(B, C, Cl, KVC) floats
+  float* scratch;        // attn_scratch_floats(...) floats
   float* out;            // (B, C) o_part
   long long* timing;     // null, or ATTN_PHASES + 1 phase-end timestamps
   int B, C, H, KVH, D, P, S, pps;
@@ -80,11 +98,16 @@ struct FfnArgs {
   int B, C, Fl;
 };
 
-// scratch: qkv (B, Cl + 2 KVC) | att (B, Cl) | parts (KSPLIT_MAX, B, C)
+// scratch: qkv parts (KSPLIT_MAX, B, Cl + 2 KVC) | att (B, Cl) | parts
+// (KSPLIT_MAX, B, C) | the split attention's per-unit partials: outputs
+// (U, g D), maxima (U, g), sums (U, g), U = split_units_max
 __host__ __device__ inline size_t attn_scratch_floats(int B, int C, int Cl,
-                                                      int KVC) {
-  return round4((size_t)B * (Cl + 2 * KVC)) + round4((size_t)B * Cl) +
-         (size_t)KSPLIT_MAX * B * C;
+                                                      int KVC, int D,
+                                                      int max_keys) {
+  const int KVH = KVC / D, g = Cl / KVC;
+  const size_t U = mxt::split_units_max(B, KVH, max_keys);
+  return (size_t)KSPLIT_MAX * B * (Cl + 2 * KVC) + round4((size_t)B * Cl) +
+         (size_t)KSPLIT_MAX * B * C + round4(U * g * D) + 2 * round4(U * g);
 }
 
 // scratch: h (B, Fl) | parts (KSPLIT_MAX, B, C)
@@ -93,7 +116,7 @@ __host__ __device__ inline size_t ffn_scratch_floats(int B, int C, int Fl) {
 }
 
 // the attention phase's phases, each closed by a grid barrier
-constexpr int ATTN_PHASES = 4;
+constexpr int ATTN_PHASES = 5;
 
 __device__ __forceinline__ long long globaltimer() {
   long long t;
@@ -125,37 +148,70 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
     grid.sync();
     if (stamp) a.timing[n_stamp++] = globaltimer();
   };
-  const int B = a.B, C = a.C, D = a.D;
+  const int B = a.B, C = a.C, D = a.D, S = a.S, P = a.P;
   const int Cl = a.H * D, KVC = a.KVH * D, N = Cl + 2 * KVC;
+  const int g = a.H / a.KVH, max_keys = a.pps * S;
+  const size_t U = mxt::split_units_max(B, a.KVH, max_keys);
   float* qkv = a.scratch;
-  float* att = qkv + round4((size_t)B * N);
+  float* att = qkv + (size_t)KSPLIT_MAX * B * N;
   float* parts = att + round4((size_t)B * Cl);
+  float* po = parts + (size_t)KSPLIT_MAX * B * C;
+  float* pm = po + round4(U * g * D);
+  float* pl = pm + round4(U * g);
   const float *wq = a.wq, *wk = a.wk, *wv = a.wv, *wo = a.wo;
   const float *bq = a.bq, *bk = a.bk, *bv = a.bv;
+  float *kp = a.kp, *vp = a.vp;
+  const int* meta = a.meta;
 
-  // 1. q/k/v over the shard's heads + bias
-  mxt::gemv(a.x, B, C, N, 1,
+  // 1. q/k/v over the shard's heads, partial sums over K slices
+  const int kq = mxt::ksplit_for(N);
+  mxt::gemv(a.x, B, C, N, kq,
             [=](int n) {
               return n < Cl ? wq + (size_t)n * C
                    : n < Cl + KVC ? wk + (size_t)(n - Cl) * C
                                   : wv + (size_t)(n - Cl - KVC) * C;
             },
-            [=](int b, int n, int, float v) {
-              const float bias = n < Cl ? bq[n] : n < Cl + KVC
-                                                      ? bk[n - Cl]
-                                                      : bv[n - Cl - KVC];
-              qkv[(size_t)b * N + n] = v + bias;
+            [=](int b, int n, int s, float v) {
+              qkv[((size_t)s * B + b) * N + n] = v;
             },
             smem);
   sync();
 
-  // 2. KV append, then attention, per (sequence, KV head)
-  mxt::append_attend(qkv, Cl, a.kp, a.vp, a.meta, a.tables, a.lengths, B,
-                     a.KVH, a.H / a.KVH, a.P, a.S, D, a.pps, a.scale, att,
-                     smem);
+  // 2. split-key attention: each unit's chunk partials.  q, k and v are
+  // the slices' sums in slice order + bias; the unit of a row's last chunk
+  // appends the row's k and v at meta's (page, slot)
+  auto qkv_at = [=](int b, int n) {
+    float v = 0.f;
+    for (int s = 0; s < kq; ++s) v += __ldcg(qkv + ((size_t)s * B + b) * N + n);
+    return v;
+  };
+  auto q_at = [=](int b, int n) { return qkv_at(b, n) + bq[n]; };
+  auto append = [=](int b, int kvh) {
+    const size_t dst = (((size_t)kvh * P + meta[b]) * S + meta[B + b]) * D;
+    for (int e = threadIdx.x; e < 2 * D; e += blockDim.x) {
+      const int d = e < D ? e : e - D, c = kvh * D + d;
+      if (e < D)
+        kp[dst + d] = qkv_at(b, Cl + c) + bk[c];
+      else
+        vp[dst + d] = qkv_at(b, Cl + KVC + c) + bv[c];
+    }
+  };
+  if (D == 32)
+    mxt::split_attend<1>(q_at, append, kp, vp, a.tables, a.lengths, B, a.KVH,
+                         g, P, S, a.pps, a.scale, po, pm, pl, smem);
+  else if (D == 64)
+    mxt::split_attend<2>(q_at, append, kp, vp, a.tables, a.lengths, B, a.KVH,
+                         g, P, S, a.pps, a.scale, po, pm, pl, smem);
+  else
+    mxt::split_attend<4>(q_at, append, kp, vp, a.tables, a.lengths, B, a.KVH,
+                         g, P, S, a.pps, a.scale, po, pm, pl, smem);
   sync();
 
-  // 3. out-projection partial over the shard's Cl inputs, K split
+  // 3. the chunks merged in chunk order
+  mxt::split_merge(po, pm, pl, a.lengths, B, a.KVH, g, D, max_keys, att);
+  sync();
+
+  // 4. out-projection partial over the shard's Cl inputs, K split
   const int ks = mxt::ksplit_for(C);
   mxt::gemv(att, B, Cl, C, ks, [=](int n) { return wo + (size_t)n * Cl; },
             [=](int b, int n, int s, float v) {
@@ -164,7 +220,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
             smem);
   sync();
 
-  // 4. o_part = the slices' sum, in order
+  // 5. o_part = the slices' sum, in order
   sum_slices(a.out, parts, ks, B * C);
   if (a.timing) sync();
 }
@@ -201,7 +257,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
 cudaError_t attn_geometry(int g, int D, int* grid, size_t* smem) {
   return mxt::coop_geometry(
       attn_phase_kernel,
-      std::max(mxt::STAGE_FLOATS, mxt::attend_smem_floats(g, D)), grid, smem);
+      std::max(mxt::STAGE_FLOATS, mxt::split_smem_floats(g, D)), grid, smem);
 }
 
 cudaError_t ffn_geometry(int* grid, size_t* smem) {
@@ -236,20 +292,20 @@ extern "C" int mxt_decode_phase_grid(int g, int D, int* attn_grid,
 }
 
 // Floats of device scratch one launch needs: the attention phase with
-// Cl = H D query columns and KVC = KVH D key columns (ffn: Cl = Fl, KVC
-// ignored).
+// Cl = H D query columns, KVC = KVH D key columns and rows of at most
+// max_keys = pps S keys (ffn: Cl = Fl, the rest ignored).
 extern "C" long long mxt_decode_phase_scratch(int ffn, int B, int C, int Cl,
-                                              int KVC) {
+                                              int KVC, int D, int max_keys) {
   return (long long)(ffn ? ffn_scratch_floats(B, C, Cl)
-                         : attn_scratch_floats(B, C, Cl, KVC));
+                         : attn_scratch_floats(B, C, Cl, KVC, D, max_keys));
 }
 
 // x (B, C); kp/vp (KVH, P, S, D); wq (H D, C), wk/wv (KVH D, C), biases;
 // wo (C, H D); meta (2, B), tables (B, pps), lengths (B,) int32; scratch of
 // mxt_decode_phase_scratch floats; out (B, C); timing null, or
 // mxt_decode_attn_phases() + 1 int64 that block 0 fills with %globaltimer
-// stamps (the start, then the end of each phase).  C and D must be
-// multiples of 4.
+// stamps (the start, then the end of each phase).  C must be a multiple of
+// 4 and D 32, 64 or 128.
 extern "C" int mxt_decode_attn_phase(const void* x, void* kp, void* vp,
                                      const void* wq, const void* bq,
                                      const void* wk, const void* bk,
@@ -281,6 +337,7 @@ extern "C" int mxt_decode_attn_phase(const void* x, void* kp, void* vp,
   a.scratch = (float*)scratch;
   a.out = (float*)out;
   a.timing = (long long*)timing;
+  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   a.B = B; a.C = C; a.H = H; a.KVH = KVH; a.D = D;
   a.P = P; a.S = S; a.pps = pps;
   a.scale = scale;

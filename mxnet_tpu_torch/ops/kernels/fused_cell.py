@@ -22,8 +22,10 @@
   under tensor parallelism.  The layer-group fusion splits at the two
   all-reduces of a Megatron layer: for one shard of one layer, one launch
   runs the q/k/v projections over the shard's heads, the KV append into
-  the shard's page slab and paged attention, and the out-projection's
-  partial product (no bias); another runs FFN1 on the column shard with
+  the shard's page slab and paged attention with each row's keys split
+  over blocks in 64-key chunks (merged in chunk order), and the
+  out-projection's partial product (no bias); another runs FFN1 on the
+  column shard with
   its bias and erf GELU, and FFN2's partial product (no bias).  The
   caller sums the shards' partials (``models.decoder._all_reduce``) and
   adds the bias and the residual LayerNorm.
@@ -65,7 +67,8 @@ __all__ = ["lstm_sequence", "lstm_sequence_plain",
 PHASES = ("qkv", "append+attention", "out_proj", "residual+ln1",
           "ffn1+gelu", "ffn2", "residual+ln2")
 #: the phases of the tensor-parallel attention phase kernel #13
-ATTN_PHASES = ("qkv", "append+attention", "out_proj", "slice_sum")
+ATTN_PHASES = ("qkv", "append+attention", "merge", "out_proj",
+               "slice_sum")
 
 #: per-layer weights in the order the kernel's pointer table holds them
 WEIGHT_ORDER = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
@@ -278,7 +281,7 @@ def _phase_lib():
     lib.mxt_decode_attn_phase.restype = _I
     lib.mxt_decode_ffn_phase.argtypes = [_P] * 6 + [_I] * 3 + [_P]
     lib.mxt_decode_ffn_phase.restype = _I
-    lib.mxt_decode_phase_scratch.argtypes = [_I] * 5
+    lib.mxt_decode_phase_scratch.argtypes = [_I] * 7
     lib.mxt_decode_phase_scratch.restype = ctypes.c_longlong
     lib.mxt_decode_phase_grid.argtypes = [_I, _I, ctypes.POINTER(_I),
                                           ctypes.POINTER(_I)]
@@ -358,10 +361,11 @@ def _attn_launch(x, kp, vp, lp, meta, page_tables, lengths, cfg, stamps):
     pps = page_tables.shape[-1]
     lengths = lengths.reshape(B)
     if (KVH != cfg.num_kv_heads or D != cfg.head_dim or H % KVH
-            or C % 4 or D % 4):
+            or C % 4 or D not in (32, 64, 128)):
         raise ValueError("decode_attn_phase: pages %s do not match the "
                          "shard's config (%d heads, %d KV heads, head dim "
-                         "%d), or C or D is not a multiple of 4"
+                         "%d), or C is not a multiple of 4, or the head dim "
+                         "not 32, 64 or 128 (a lane takes D / 32 columns)"
                          % (tuple(kp.shape), H, cfg.num_kv_heads,
                             cfg.head_dim))
     Cl, KVC = H * D, KVH * D
@@ -381,7 +385,8 @@ def _attn_launch(x, kp, vp, lp, meta, page_tables, lengths, cfg, stamps):
         raise RuntimeError("decode_attn_phase: the kernel stamps %d phases, "
                            "ATTN_PHASES names %d"
                            % (lib.mxt_decode_attn_phases(), len(ATTN_PHASES)))
-    scratch = torch.empty(lib.mxt_decode_phase_scratch(0, B, C, Cl, KVC),
+    scratch = torch.empty(lib.mxt_decode_phase_scratch(0, B, C, Cl, KVC, D,
+                                                       pps * S),
                           dtype=f32, device=dev)
     out = torch.empty(B, C, dtype=f32, device=dev)
     rc = lib.mxt_decode_attn_phase(
@@ -422,7 +427,8 @@ def decode_ffn_phase(x, w1, b1, w2):
         ("x", x, f32, (B, C)), ("w1", w1, f32, (Fl, C)),
         ("b1", b1, f32, (Fl,)), ("w2", w2, f32, (C, Fl))])
     lib = _phase_lib()
-    scratch = torch.empty(lib.mxt_decode_phase_scratch(1, B, C, Fl, 0),
+    scratch = torch.empty(lib.mxt_decode_phase_scratch(1, B, C, Fl, 0, 0,
+                                                       0),
                           dtype=f32, device=dev)
     out = torch.empty(B, C, dtype=f32, device=dev)
     rc = lib.mxt_decode_ffn_phase(
