@@ -52,8 +52,11 @@ plain version):
    products, no atomic in either.  The tensor-parallel
    decode phases (#13 attention, #14 FFN) on every shard of one layer at
    tp 2 and 4 of the serving model and at tp 2 of a GQA one (12 heads
-   over 4 KV heads), at B 16 (lengths 1..512, one row of length 0) and
-   B 1, pages and partial products held; timed at B 16 on shard 0.  The
+   over 4 KV heads), at B 16 (lengths 1..512 with one row of length 0;
+   lengths on each side of #13's 64-key chunks; every row at 512) and
+   B 1, pages and partial products held; #13 timed at B 16 on shard 0
+   with mixed lengths and with every row at 512, its phases stamped by
+   ``%globaltimer``; #14 timed with mixed lengths.  The
    #16 route (``flash_attention_sharded`` on a dp 2 x tp 2 mesh at B 32,
    H 12, L 128, D 64, causal, fp32 and bf16: one flash call over the
    whole tensors) against the plain causal attention, the unsharded #5
@@ -3018,8 +3021,13 @@ def main():
     for name, path in libs.items():
         log_path = path.with_suffix(".log")
         if log_path.exists():
+            fn = ""
             for line in log_path.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "Function properties for" in line:
+                    fn = line.split("Function properties for")[-1].strip()
+                elif "spill" in line:       # the kernel it belongs to
+                    log("  %s: %s: %s" % (name, fn, line.strip()))
+                elif "registers" in line:
                     log("  %s: %s" % (name, line.strip()))
 
     check_flash_sass(libs)

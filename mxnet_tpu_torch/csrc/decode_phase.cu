@@ -134,6 +134,9 @@ __device__ void sum_slices(float* out, const float* parts, int ks, int n) {
   }
 }
 
+// one kernel per head dim, D = 32 E, so each carries one attention path
+// under the register budget of three blocks an SM
+template <int E>
 __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
@@ -196,15 +199,8 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
         vp[dst + d] = qkv_at(b, Cl + KVC + c) + bv[c];
     }
   };
-  if (D == 32)
-    mxt::split_attend<1>(q_at, append, kp, vp, a.tables, a.lengths, B, a.KVH,
-                         g, P, S, a.pps, a.scale, po, pm, pl, smem);
-  else if (D == 64)
-    mxt::split_attend<2>(q_at, append, kp, vp, a.tables, a.lengths, B, a.KVH,
-                         g, P, S, a.pps, a.scale, po, pm, pl, smem);
-  else
-    mxt::split_attend<4>(q_at, append, kp, vp, a.tables, a.lengths, B, a.KVH,
-                         g, P, S, a.pps, a.scale, po, pm, pl, smem);
+  mxt::split_attend<E>(q_at, append, kp, vp, a.tables, a.lengths, B, a.KVH,
+                       g, P, S, a.pps, a.scale, po, pm, pl, smem);
   sync();
 
   // 3. the chunks merged in chunk order
@@ -254,9 +250,17 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
   sum_slices(a.out, parts, ks, B * C);
 }
 
+using AttnKernel = void (*)(AttnArgs);
+
+// the attention phase kernel of head dim D (32, 64 or 128)
+AttnKernel attn_kernel(int D) {
+  return D == 32 ? attn_phase_kernel<1>
+       : D == 64 ? attn_phase_kernel<2> : attn_phase_kernel<4>;
+}
+
 cudaError_t attn_geometry(int g, int D, int* grid, size_t* smem) {
   return mxt::coop_geometry(
-      attn_phase_kernel,
+      attn_kernel(D),
       std::max(mxt::STAGE_FLOATS, mxt::split_smem_floats(g, D)), grid, smem);
 }
 
@@ -316,6 +320,7 @@ extern "C" int mxt_decode_attn_phase(const void* x, void* kp, void* vp,
                                      int B, int C, int H, int KVH, int D,
                                      int P, int S, int pps, float scale,
                                      void* stream) {
+  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   int grid = 0;
   size_t smem = 0;
   cudaError_t e = attn_geometry(H / KVH, D, &grid, &smem);
@@ -337,11 +342,10 @@ extern "C" int mxt_decode_attn_phase(const void* x, void* kp, void* vp,
   a.scratch = (float*)scratch;
   a.out = (float*)out;
   a.timing = (long long*)timing;
-  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   a.B = B; a.C = C; a.H = H; a.KVH = KVH; a.D = D;
   a.P = P; a.S = S; a.pps = pps;
   a.scale = scale;
-  return (int)launch((const void*)attn_phase_kernel, grid, smem, &a, stream);
+  return (int)launch((const void*)attn_kernel(D), grid, smem, &a, stream);
 }
 
 // x (B, C); w1 (Fl, C), b1 (Fl,); w2 (C, Fl); scratch of
