@@ -1,7 +1,7 @@
-"""Time the port's flash attention and LSTM kernels over checkouts of the
-repo, in turns, on one card.
+"""Time the port's flash attention, LSTM and decode phase kernels over
+checkouts of the repo, in turns, on one card.
 
-    python3 chip_flash_ab.py [--phases route,kernels,host,bert,lstm,tp] TREE ...
+    python3 chip_flash_ab.py [--phases route,kernels,bert,lstm,tp] TREE ...
 
 Builds the kernels of every TREE at once (one ``nvcc`` per source), then
 runs the phases in each TREE in order and then in reverse (with two trees:
@@ -49,9 +49,9 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   to its tp 1 run's.
 
 A TREE named more than once runs that many more turns; a TREE whose
-build fails is left out of the turns (the exit code is then 1).  Every line a run
-prints starts with its TREE's directory name.  Needs one card; the
-kernels' builds go into each TREE's ``mxnet_tpu_torch/_build``.
+build fails is left out of the turns (the exit code is then 1).  Every
+line a run prints starts with its TREE's directory name.  Needs one
+card; the kernels' builds go into each TREE's ``mxnet_tpu_torch/_build``.
 """
 from __future__ import annotations
 

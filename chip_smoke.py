@@ -2217,9 +2217,10 @@ KERNELS = ("bias_gelu", "paged_attention", "decode_layer_group",
            "bias_gelu_backward", "bias_dropout_residual_fwd",
            "bias_dropout_residual_bwd", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "flash_attention_bwd_delta", "lstm_sequence_fwd", "lstm_sequence_bwd",
-           "lstm_sequence_bwd_gates", "decode_attn_phase",
-           "decode_ffn_phase", "flash_attention_sharded_causal")
+           "flash_attention_bwd_delta", "lstm_sequence_fwd",
+           "lstm_sequence_bwd", "lstm_sequence_bwd_gates",
+           "decode_attn_phase", "decode_ffn_phase",
+           "flash_attention_sharded_causal")
 
 
 def launch_counts(reset=False):

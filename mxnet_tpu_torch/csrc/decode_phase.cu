@@ -185,7 +185,8 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
   // appends the row's k and v at meta's (page, slot)
   auto qkv_at = [=](int b, int n) {
     float v = 0.f;
-    for (int s = 0; s < kq; ++s) v += __ldcg(qkv + ((size_t)s * B + b) * N + n);
+    for (int s = 0; s < kq; ++s)
+      v += __ldcg(qkv + ((size_t)s * B + b) * N + n);
     return v;
   };
   auto q_at = [=](int b, int n) { return qkv_at(b, n) + bq[n]; };

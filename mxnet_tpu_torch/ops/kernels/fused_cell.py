@@ -25,8 +25,8 @@
   the shard's page slab and paged attention with each row's keys split
   over blocks in 64-key chunks (merged in chunk order), and the
   out-projection's partial product (no bias); another runs FFN1 on the
-  column shard with
-  its bias and erf GELU, and FFN2's partial product (no bias).  The
+  column shard with its bias and erf GELU, and FFN2's partial product
+  (no bias).  The
   caller sums the shards' partials (``models.decoder._all_reduce``) and
   adds the bias and the residual LayerNorm.
 

@@ -246,8 +246,7 @@ def _same_storage(t, whole):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_causal_route_backward_is_one_call_on_the_whole_tensors(monkeypatch,
-                                                                dtype):
+def test_causal_route_backward_reads_and_writes_views(monkeypatch, dtype):
     """The route's backward calls the delta, dq and dkv wrappers once
     each, on the whole q, k, v and output gradient as they are (no slice,
     no copy), and returns what they return: dq, dk and dv of one call."""
