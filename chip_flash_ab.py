@@ -9,13 +9,11 @@ parent, change, change, parent), each run a process of its own that
 imports that TREE's ``mxnet_tpu_torch`` and this checkout's
 ``chip_smoke.py``:
 
-- ``route``: ``chip_smoke.check_flash_delta`` where the tree has the delta
-  kernel, then ``chip_smoke.check_sharded_attention`` with its profile of
-  the #16 route's backward (dp 2 x tp 2, B 32, H 12, L 128, D 64,
-  causal): launches, time beside SDPA's ``is_causal`` backward and the
-  bound, and the ops and kernel spans of one call; in a tree whose route
-  still launches the kernels per shard (four of each, no delta kernel)
-  its launch counts are expected as such (``legacy_route``);
+- ``route``: ``chip_smoke.check_flash_delta``, then
+  ``chip_smoke.check_sharded_attention`` with its profile of the #16
+  route's backward (dp 2 x tp 2, B 32, H 12, L 128, D 64, causal):
+  launches, time beside SDPA's ``is_causal`` backward and the bound, and
+  the ops and kernel spans of one call;
 - ``kernels``: ``chip_smoke.flash_timing`` for fp32 and bf16 at the
   training shape and bf16 at B 4, L 2048: #5-#7 on contiguous inputs,
   their fixed part, at dropout 0 beside SDPA given the same key mask,
@@ -34,15 +32,15 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
 - ``lstm``: the LSTM kernels' build report (ptxas registers and spills),
   ``chip_smoke.lstm_timing`` in fp32 and bf16 (T 35, B 32, H 650: #10
   and #11 beside their plain versions, bounds and cuDNN; #11's recompute
-  and time loop apart where the tree has them; the backward's phases by
-  ``%globaltimer`` where the tree stamps them; digests of #10's and
+  and time loop apart; the backward's phases by ``%globaltimer``;
+  digests of #10's and
   #11's outputs, to compare trees bit for bit), then
   ``chip_smoke.train_lm`` for the word LM, fp32 and AMP bf16, 10 steps
   each, with the step-1 loss printed exactly;
 - ``tp``: ``chip_smoke.check_tp_phases`` (#13 and #14 held on every
   shard at tp 2, 4 and a GQA geometry; #13 timed at B 16 with mixed
   lengths and with every row at 512, with its phases by
-  ``%globaltimer`` where the tree stamps them), then the serving model
+  ``%globaltimer``), then the serving model
   (BERT-base widths, seed 0) served 48 requests fused at tp 1, 2 and 4
   and per-op at tp 1 and 2 (``chip_smoke.serve``: tokens/s, decode p50
   and p99, launches, census), with the streams of each TP run compared
@@ -76,45 +74,6 @@ def build(trees, names):
     return [p.wait() for p in procs]
 
 
-def legacy_lstm(cs, fc):
-    """Shims that let ``chip_smoke``'s LSTM phases run a tree older than
-    its backward's two kernels: where #11 is one kernel, ``_lstm_bwd_parts``
-    gives a recompute that does nothing (and so does its plain version)
-    and a time loop that is the whole backward, and the word LM expects no
-    recompute launches; where the backward stamps no phases,
-    ``lstm_stamps`` returns None."""
-    if not hasattr(fc, "_lstm_bwd_parts"):
-        fc.lstm_sequence.launches_bwd_gates = 0
-        cs.LM_PER_STEP.pop("lstm_sequence_bwd_gates")
-        fc._lstm_bwd_parts = lambda *a: (
-            lambda stamps=None: None, lambda stamps=None: fc._lstm_bwd(*a),
-            None, None)
-        fc.lstm_bwd_gates_plain = lambda *a: None
-    if not hasattr(fc, "lstm_bwd_phase_times"):
-        cs.lstm_stamps = lambda *a, **k: None
-
-
-def legacy_route(cs, fa):
-    """Where the tree's #16 route still launches #5, #6 and #7 once per
-    (dp, tp) shard and has no delta kernel, ``chip_smoke`` expects those
-    launches, counts no delta launch, and BERT's step no delta kernel."""
-    if not hasattr(fa, "flash_attention_bwd_delta"):
-        shards = cs.SHARDED_MESH[0] * cs.SHARDED_MESH[1]
-        fa.flash_attention.launches_delta = 0
-        cs.ROUTE_LAUNCHES.update(dict.fromkeys(
-            ("flash_attention_fwd", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv"), shards),
-            flash_attention_bwd_delta=0)
-        cs.PER_STEP.pop("flash_attention_bwd_delta")
-
-
-def legacy_tp(cs, fc):
-    """Where the tree's #13 stamps no phases, ``attn_stamps`` returns
-    none."""
-    if not hasattr(fc, "decode_attn_phase_times"):
-        cs.attn_stamps = lambda *a, **k: {}
-
-
 def run(tree, phases, steps):
     """The phases in ``tree``, in this process."""
     sys.path.insert(0, tree)
@@ -129,12 +88,10 @@ def run(tree, phases, steps):
         os.path.join(os.path.abspath(tree), "")), fa.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    legacy_route(cs, fa)
     cs.log("card: %s" % cs.card_line())
     timer = cs.Timer(torch)
     if "route" in phases:
-        if hasattr(fa, "flash_attention_bwd_delta"):
-            cs.check_flash_delta(torch, fa, timer, {})
+        cs.check_flash_delta(torch, fa, timer, {})
         cs.check_sharded_attention(torch, timer, {}, profile=True)
     if "kernels" in phases:
         cs.flash_timing(torch, fa, timer, torch.float32, {})
@@ -160,25 +117,18 @@ def run(tree, phases, steps):
     if "lstm" in phases:
         from mxnet_tpu_torch.ops.kernels import _build
         from mxnet_tpu_torch.ops.kernels import fused_cell as fc
-        per_step = dict(cs.LM_PER_STEP)
-        legacy_lstm(cs, fc)
-        try:
-            log = _build.build(["lstm"])["lstm"].with_suffix(".log")
-            for line in log.read_text().splitlines():
-                if ("registers" in line or "spill" in line
-                        or "Compiling" in line):
-                    cs.log("ptxas lstm: %s" % line.strip())
-            cs.lstm_timing(torch, fc, timer, torch.float32)
-            cs.lstm_timing(torch, fc, timer, torch.bfloat16)
-            torch.cuda.empty_cache()
-            for label, amp in (("lstm_lm_fp32", False),
-                               ("lstm_lm_amp_bf16", True)):
-                _, st = cs.train_lm(torch, 0, label, amp=amp)
-                cs.log("lstm %s: step-1 loss %r; %s"
-                       % (label, st["first_loss"], json.dumps(st)))
-        finally:
-            cs.LM_PER_STEP.clear()
-            cs.LM_PER_STEP.update(per_step)
+        log = _build.build(["lstm"])["lstm"].with_suffix(".log")
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                cs.log("ptxas lstm: %s" % line.strip())
+        cs.lstm_timing(torch, fc, timer, torch.float32)
+        cs.lstm_timing(torch, fc, timer, torch.bfloat16)
+        torch.cuda.empty_cache()
+        for label, amp in (("lstm_lm_fp32", False),
+                           ("lstm_lm_amp_bf16", True)):
+            _, st = cs.train_lm(torch, 0, label, amp=amp)
+            cs.log("lstm %s: step-1 loss %r; %s"
+                   % (label, st["first_loss"], json.dumps(st)))
     if "tp" in phases:
         tp_phase(cs, torch, timer)
     if "amp" in phases:
@@ -193,7 +143,6 @@ def tp_phase(cs, torch, timer):
     stamps, then serving at tp 1, 2 and 4."""
     from mxnet_tpu_torch.models import decoder as dec
     from mxnet_tpu_torch.ops.kernels import fused_cell as fc
-    legacy_tp(cs, fc)
     lm = cs.perturb_affine(torch, dec.CausalLM(**cs.WIDTHS, device=cs.DEV,
                                                seed=0), 0)
     lm_gqa = cs.perturb_affine(torch, dec.CausalLM(

@@ -1723,10 +1723,12 @@ TP_DEGREES = (2, 4)
 #: heads over tp
 SHARDED_MESH = (2, 2)
 #: launches of #5, #6, #7 and the delta kernel per call of the #16 route
-#: (one flash call over the whole tensors)
+#: (one flash call over the whole tensors), and the route's own count of
+#: the #5 launches it made
 ROUTE_LAUNCHES = {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
                   "flash_attention_bwd_dkv": 1,
-                  "flash_attention_bwd_delta": 1}
+                  "flash_attention_bwd_delta": 1,
+                  "flash_attention_sharded_causal": 1}
 
 
 def tp_sharding(tp, dp=1):
@@ -2022,8 +2024,9 @@ def check_sharded_attention(torch, timer, report, profile=False):
     (``per_shard_causal``), and are held against
     ``flash_attention_plain(causal=True)`` on the whole tensors and
     against the unsharded kernel #5; ROUTE_LAUNCHES launches of #5 per
-    call, and of the delta kernel, #6 and #7 per backward, and dp * tp
-    causal shards counted; its gradient against the unsharded kernels' at
+    call (counted by #5 and by the route), and of the delta kernel, #6
+    and #7 per backward, and dp * tp causal shards counted apart; its
+    gradient against the unsharded kernels' at
     dropout 0.  Forward and backward timed beside the plain
     version, SDPA (is_causal) and the bound; with ``profile`` the
     backward's ops and kernel spans (:func:`op_split`)."""
@@ -2038,18 +2041,22 @@ def check_sharded_attention(torch, timer, report, profile=False):
     for dt in (torch.float32, torch.bfloat16):
         q, k, v, do = (torch.randn(B, H, L, D, device=DEV, generator=g).to(dt)
                        for _ in range(4))
-        n0 = fa.flash_attention.launches_fwd
+        n0 = launch_counts()
         c0 = att.flash_attention_sharded.causal_shards
         out = att.flash_attention_sharded(q, k, v, cfg, causal=True)
-        n_fwd = fa.flash_attention.launches_fwd - n0
-        n_route = att.flash_attention_sharded.causal_shards - c0
-        want_fwd = ROUTE_LAUNCHES["flash_attention_fwd"]
-        if ((n_fwd, n_route) != (want_fwd, shards)
+        n1 = launch_counts()
+        n_fwd, n_route = (n1[k] - n0[k] for k in (
+            "flash_attention_fwd", "flash_attention_sharded_causal"))
+        n_shards = att.flash_attention_sharded.causal_shards - c0
+        want = (ROUTE_LAUNCHES["flash_attention_fwd"],
+                ROUTE_LAUNCHES["flash_attention_sharded_causal"], shards)
+        if ((n_fwd, n_route, n_shards) != want
                 or att.last_path != "flash-causal-shard"):
             raise AssertionError("flash_attention_sharded: %d launches of #5 "
-                                 "and %d causal shards, want %d and %d "
-                                 "(route %s)" % (n_fwd, n_route, want_fwd,
-                                                 shards, att.last_path))
+                                 "(%d counted by the route) and %d causal "
+                                 "shards, want %s (route %s)"
+                                 % (n_fwd, n_route, n_shards, want,
+                                    att.last_path))
         plain = fa.flash_attention_plain(q, k, v, causal=True)[0]
         whole = att.flash_attention(q, k, v, causal=True)
         ls = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -2170,7 +2177,8 @@ def sharded_attention_path(torch, seed):
     ``flash_attention_sharded`` on the (dp 2, tp 2) mesh at the training
     shape, causal, in fp32 and bf16, with the launch counts set to 0
     before and read after: each call launches ROUTE_LAUNCHES of #5, the
-    delta kernel, #6 and #7 and counts dp * tp causal shards."""
+    delta kernel, #6 and #7, the route counts its one launch of #5, and
+    it counts dp * tp causal shards apart from the launches."""
     from mxnet_tpu_torch.ops import attention as att
     cfg = tp_sharding(SHARDED_MESH[1], SHARDED_MESH[0])
     shards = SHARDED_MESH[0] * SHARDED_MESH[1]
@@ -2179,6 +2187,7 @@ def sharded_attention_path(torch, seed):
     inputs = [[torch.randn(B, H, L, D, device=DEV, generator=g).to(dt)
                for _ in range(4)] for dt in (torch.float32, torch.bfloat16)]
     torch.cuda.synchronize()
+    c0 = att.flash_attention_sharded.causal_shards
     launch_counts(reset=True)
     for q, k, v, do in inputs:
         leaves = [t.requires_grad_() for t in (q, k, v)]
@@ -2189,16 +2198,18 @@ def sharded_attention_path(torch, seed):
                                  "gradients")
     torch.cuda.synchronize()
     counts = launch_counts()
+    n_shards = att.flash_attention_sharded.causal_shards - c0
     want = dict.fromkeys(KERNELS, 0)
     for name, n in ROUTE_LAUNCHES.items():
         want[name] = n * len(inputs)
-    want["flash_attention_sharded_causal"] = shards * len(inputs)
     log("sharded attention path: forward and backward at dp %d tp %d, fp32 "
-        "and bf16: launches %s" % (SHARDED_MESH + ({k: n for k, n in
-                                                     counts.items() if n},)))
-    if counts != want:
-        raise AssertionError("sharded attention launches %s, want %s"
-                             % (counts, want))
+        "and bf16: launches %s; %d causal shards"
+        % (SHARDED_MESH + ({k: n for k, n in counts.items() if n},
+                           n_shards)))
+    if counts != want or n_shards != shards * len(inputs):
+        raise AssertionError("sharded attention launches %s and %d causal "
+                             "shards, want %s and %d"
+                             % (counts, n_shards, want, shards * len(inputs)))
     return counts
 
 
@@ -2255,10 +2266,9 @@ def launch_counts(reset=False):
                                             "launches_bwd_gates"),
                 "decode_attn_phase": (fc.decode_attn_phase, "launches"),
                 "decode_ffn_phase": (fc.decode_ffn_phase, "launches"),
-                # the #16 route: the dp * tp causal shards its one flash
-                # call stands for
+                # the #16 route: the launches of #5 its calls made
                 "flash_attention_sharded_causal": (att.flash_attention_sharded,
-                                                   "causal_shards")}
+                                                   "launches")}
     if reset:
         for fn, attr in counters.values():
             setattr(fn, attr, 0)

@@ -24,9 +24,12 @@
 ``last_path`` names the route of the last :func:`flash_attention` call:
 ``"kernel"`` (CUDA), ``"plain"`` (the kernels' plain version, CPU) or
 ``"reference"``, and ``"flash-causal-shard"`` after a
-:func:`flash_attention_sharded` call whose shards took the causal route
-(counted in ``flash_attention_sharded.causal_shards``).  The ring route
-over a sequence-parallel axis waits for ``parallel.ring_attention``.
+:func:`flash_attention_sharded` call whose shards took the causal route.
+``flash_attention_sharded.launches`` counts the forward kernel launches
+that route made on the card (one a call), and
+``flash_attention_sharded.causal_shards`` the (dp, tp) shards its calls
+stood for (dp * tp a call, on any device).  The ring route over a
+sequence-parallel axis waits for ``parallel.ring_attention``.
 """
 from __future__ import annotations
 
@@ -142,7 +145,6 @@ def flash_attention_sharded(q, k, v, cfg, causal=False, window=None,
     ``parallel.ShardingConfig``): q, k, v (B, H, L, D) -> (B, H, L, D),
     batch split over dp and heads over tp, as the JAX package's
     ``flash_attention_sharded`` (``attention.py:315-396``) lays them out.
-    The port runs on one card, so the shards run there in turn.
 
     - Plain causal attention (no window, dropout or ``kv_length``), where
       the JAX package runs the TPU's splash kernel on each shard
@@ -153,9 +155,11 @@ def flash_attention_sharded(q, k, v, cfg, causal=False, window=None,
       of the others, and the (dp, tp) shards tile (batch, heads) exactly,
       so the one call computes every shard's splash call, each (batch,
       head) with the same arithmetic as a call on its shard alone.
-      ``causal_shards`` still counts the dp * tp shards it stands for.
-    - Otherwise each shard takes :func:`flash_attention` with its slice of
-      ``kv_length``, and the outputs are concatenated.
+      ``launches`` counts the forward kernel's launch (none on the CPU)
+      and ``causal_shards`` the dp * tp shards the call stands for.
+    - Otherwise (window, dropout or ``kv_length``) the port, on one card,
+      runs the shards there in turn: each takes :func:`flash_attention`
+      with its slice of ``kv_length``, and the outputs are concatenated.
     - Under dropout each shard's seed is ``seed`` (or one drawn from
       ``generator``) mixed with the linear shard index ``d * tp + t`` by
       :func:`_fold_in`, so shards draw different masks.
@@ -184,7 +188,10 @@ def flash_attention_sharded(q, k, v, cfg, causal=False, window=None,
         q = _amp_cast1("flash_attention", q)
         k = _amp_cast1("flash_attention", k)
         v = _amp_cast1("flash_attention", v)
+        n0 = _flash.flash_attention.launches_fwd
         out = _flash.flash_attention(q, k, v, causal=True, scale=scale)
+        flash_attention_sharded.launches += (
+            _flash.flash_attention.launches_fwd - n0)
         flash_attention_sharded.causal_shards += dp * tp
         last_path = "flash-causal-shard"
         return out
@@ -198,6 +205,7 @@ def flash_attention_sharded(q, k, v, cfg, causal=False, window=None,
                       for d in range(dp)], dim=0)
 
 
+flash_attention_sharded.launches = 0
 flash_attention_sharded.causal_shards = 0
 
 

@@ -2,9 +2,9 @@
 against the JAX package's ``flash_attention_sharded`` on the 8-device CPU
 mesh of ``tests/conftest.py``, at (dp, tp) meshes of (2, 2) and (4, 2).
 
-The port runs each (dp, tp) shard in turn (batch over dp, heads over tp)
-and concatenates; on CPU tensors each shard takes the flash kernels'
-plain version.  The JAX side runs ``shard_map`` over the mesh, whose
+Under a window, dropout or ``kv_length`` the port runs each (dp, tp)
+shard in turn (batch over dp, heads over tp) and concatenates; on CPU
+tensors each shard takes the flash kernels' plain version.  The JAX side runs ``shard_map`` over the mesh, whose
 per-shard body on the CPU is its reference attention.  Plain causal
 attention takes the port's causal route, where the JAX package takes the
 TPU's splash kernel per shard: one call of the flash op over the whole
@@ -236,6 +236,35 @@ def test_causal_route_equals_folded_scale_composition(dtype):
     assert torch.equal(out, ref)
     for got, want in zip(grads, ref_grads):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "dp%d-tp%d" % m)
+def test_causal_route_counts_its_launches(monkeypatch, mesh):
+    """The route's ``launches`` counts the forward kernel's launches its
+    call made, and nothing else: none on the CPU, where the op runs its
+    plain version, and exactly one where the op launches (a stand-in op
+    that counts one launch, as the wrapper does on the card).  The dp * tp
+    shards the call stands for are counted apart, in ``causal_shards``."""
+    q, k, v = (torch.tensor(a) for a in _inputs(7))
+    cfg = ShardingConfig.for_transformer(mesh_shape=mesh,
+                                         axis_names=("dp", "tp"))
+    route = tatt.flash_attention_sharded
+    n0, c0 = route.launches, route.causal_shards
+    route(q, k, v, cfg, causal=True)
+    assert (route.launches - n0, route.causal_shards - c0) == (
+        0, mesh[0] * mesh[1])
+    real = tfa.flash_attention
+
+    def one_launch(*args, **kw):
+        one_launch.launches_fwd += 1
+        return real(*args, **kw)
+    one_launch.launches_fwd = real.launches_fwd
+    monkeypatch.setattr(tfa, "flash_attention", one_launch)
+    n0, c0 = route.launches, route.causal_shards
+    route(q, k, v, cfg, causal=True)
+    route(q, k, v, cfg, window=5)         # the per-shard route adds nothing
+    assert (route.launches - n0, route.causal_shards - c0) == (
+        1, mesh[0] * mesh[1])
 
 
 def _same_storage(t, whole):
