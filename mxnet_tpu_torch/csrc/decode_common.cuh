@@ -17,11 +17,10 @@
 //   attention (attend_group of paged_attention.cuh) per (sequence, KV
 //   head), which reads only the pages the table names up to each row's
 //   length.
-// - split_attend and split_merge_stage: paged attention with a row's keys
-//   split over blocks (flash-decoding), for the tensor-parallel attention
-//   phase (decode_phase.cu): partials per chunk of SPLIT_KEYS keys, then,
-//   after a grid barrier, a merge in chunk order as the out-projection
-//   stages its input.
+// - split_attend and split_merge: paged attention with a row's keys split
+//   over blocks (flash-decoding), for the tensor-parallel attention phase
+//   (decode_phase.cu): partials per chunk of SPLIT_KEYS keys, then a
+//   merge in chunk order after a grid barrier.
 // - coop_geometry: the grid of a cooperative launch, every block resident.
 #pragma once
 
@@ -76,13 +75,11 @@ __device__ inline void stage_rows(float* stage, const float* in, int nb,
 // epi(b, n, s, sum over K slice s of in[b, k] * W_n[k]) for b < B, n < N,
 // s < ksplit.  A unit of work is NWARPS consecutive columns (one per warp)
 // over one K slice; the slice's input rows are staged through shared
-// memory in chunks so that every warp of the block reads them from there:
-// stage_in(stage, b0, nb, k0, kc) writes rows [b0, b0 + nb) x columns
-// [k0, k0 + kc) of the input there (row stride kc).  K, the slices, the
-// chunks and the staged offsets are multiples of 4.
-template <class StageIn, class Row, class Epi>
-__device__ void gemv_staged(StageIn stage_in, int B, int K, int N,
-                            int ksplit, Row row, Epi epi, float* stage) {
+// memory in chunks so that every warp of the block reads them from there.
+// K, the slices, the chunks and the staged offsets are multiples of 4.
+template <class Row, class Epi>
+__device__ void gemv(const float* in, int B, int K, int N, int ksplit,
+                     Row row, Epi epi, float* stage) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int groups = (N + NWARPS - 1) / NWARPS;
   const int slice = (int)round4((K + ksplit - 1) / ksplit);
@@ -101,7 +98,7 @@ __device__ void gemv_staged(StageIn stage_in, int B, int K, int N,
       for (int k0 = k_lo; k0 < k_hi; k0 += kc_max) {
         const int kc = min(kc_max, k_hi - k0);
         __syncthreads();
-        stage_in(stage, b0, nb, k0, kc);
+        stage_rows(stage, in + (size_t)b0 * K, nb, K, k0, kc);
         __syncthreads();
         if (!has) continue;
         int kk = lane * 4;
@@ -151,17 +148,6 @@ __device__ void gemv_staged(StageIn stage_in, int B, int K, int N,
       }
     }
   }
-}
-
-// gemv_staged over the rows of in (B, K)
-template <class Row, class Epi>
-__device__ void gemv(const float* in, int B, int K, int N, int ksplit,
-                     Row row, Epi epi, float* stage) {
-  gemv_staged(
-      [=](float* st, int b0, int nb, int k0, int kc) {
-        stage_rows(st, in + (size_t)b0 * K, nb, K, k0, kc);
-      },
-      B, K, N, ksplit, row, epi, stage);
 }
 
 __device__ __forceinline__ float gelu_erf(float u) {
@@ -214,7 +200,7 @@ __device__ inline void append_attend(const float* qkv, int Cq, float* kp,
 // exponentials, their sum and the lane's E columns of P V over the 8 keys
 // then need no further exchange.  The block combines its 8 warps'
 // (max, sum, output) in warp order at the largest max and writes the
-// unit's, which split_merge_stage combines in chunk order.  No atomics: results
+// unit's, which split_merge combines in chunk order.  No atomics: results
 // do not depend on timing.  A unit has two block barriers, and one more in
 // the unit that owns a row's last chunk, which first runs append(b, kvh)
 // (the step's key and value of that KV head into their page slot) so its
@@ -381,23 +367,18 @@ __device__ void split_attend(QAt q_at, Append append, const float* kp,
   }
 }
 
-// Rows [b0, b0 + nb) x columns [k0, k0 + kc) of the attention output
-// att (B, KVH g D) into stage (row stride kc), each element the merge of
-// (row b, head h)'s chunk partials in chunk order: sum_c o_c exp(m_c - m)
-// / sum_c l_c exp(m_c - m), m the largest m_c; 0 for a row of length 0.
-// The out-projection's GEMV stages its input through this, so the merge
-// needs no pass and no grid barrier of its own; each block merges only
-// the slice it multiplies.  Four columns a thread, in one head (k0, kc
-// and D are multiples of 4), so their maxima and sums are read once.
-__device__ inline void split_merge_stage(float* stage, const float* po,
-                                         const float* pm, const float* pl,
-                                         const int* lengths, int KVH, int g,
-                                         int D, int max_keys, int b0, int nb,
-                                         int k0, int kc) {
-  const int gD = g * D, kc4 = kc >> 2;
-  for (int e = threadIdx.x; e < nb * kc4; e += blockDim.x) {
-    const int r = e / kc4, col = k0 + (e - r * kc4) * 4, b = b0 + r;
-    const int kvh = col / gD, id = col - kvh * gD, i = id / D;
+// att[b, h D + d] = the merge of (row b, head h)'s chunk partials, in
+// chunk order: sum_c o_c exp(m_c - m) / sum_c l_c exp(m_c - m), m the
+// largest m_c; 0 for a row of length 0.  One element a thread.
+__device__ inline void split_merge(const float* po, const float* pm,
+                                   const float* pl, const int* lengths, int B,
+                                   int KVH, int g, int D, int max_keys,
+                                   float* att) {
+  const int gD = g * D, Cq = KVH * gD;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < B * Cq;
+       e += gridDim.x * blockDim.x) {
+    const int b = e / Cq, hd = e - b * Cq;
+    const int kvh = hd / gD, id = hd - kvh * gD, i = id / D;
     int u0 = 0;
     for (int bb = 0; bb < b; ++bb)
       u0 += split_chunks(__ldg(lengths + bb), max_keys) * KVH;
@@ -406,22 +387,14 @@ __device__ inline void split_merge_stage(float* stage, const float* po,
     float m = -INFINITY;
     for (int c = 0; c < nch; ++c)
       m = fmaxf(m, __ldcg(pm + (size_t)(u0 + c) * g + i));
-    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-    float l = 0.f;
+    float o = 0.f, l = 0.f;
     for (int c = 0; c < nch; ++c) {
       const size_t u = (size_t)(u0 + c);
       const float a = expf(__ldcg(pm + u * g + i) - m);
-      const float4 t =
-          __ldcg(reinterpret_cast<const float4*>(po + u * gD + id));
-      o.x = fmaf(t.x, a, o.x);
-      o.y = fmaf(t.y, a, o.y);
-      o.z = fmaf(t.z, a, o.z);
-      o.w = fmaf(t.w, a, o.w);
+      o = fmaf(__ldcg(po + u * gD + id), a, o);
       l = fmaf(__ldcg(pl + u * g + i), a, l);
     }
-    if (nch)
-      o = make_float4(o.x / l, o.y / l, o.z / l, o.w / l);
-    reinterpret_cast<float4*>(stage)[e] = o;
+    att[e] = nch ? o / l : 0.f;
   }
 }
 

@@ -26,22 +26,20 @@
 //      the unit of a row's last chunk first sums the step's k and v the
 //      same way and writes them into the page slot meta names (the KV
 //      append), then reads them back through the table like every key
-//   3. out-projection over the shard's Cl inputs (wo's row shard, (C, Cl)),
-//      as partial sums over slices of K; as it stages its slice of the
-//      input rows, each block merges those rows' chunks in chunk order
-//      (split_merge_stage) into the attention output it multiplies
-//   4. the slices summed in slice order into o_part (B, C)
+//   3. the chunks of each (sequence, head) merged in chunk order
+//      (split_merge) into the attention output (B, Cl)
+//   4. out-projection over the shard's Cl inputs (wo's row shard, (C, Cl)),
+//      as partial sums over slices of K
+//   5. the slices summed in slice order into o_part (B, C)
 // Why split the keys: a unit of a whole (sequence, KV head) left one block
 // walking the longest row's 512 keys while most of the ~400 resident
 // blocks waited at the barrier (96 units at tp 2, 48 at tp 4); with
 // 64-key chunks the serving batch's lengths give about as many units as
 // blocks, and a unit's work is bounded by 64 keys.  Inactive rows have
 // no unit and append nothing (the plain version writes their k and v to
-// the scratch page 0, which no row reads).  The merge rides in the
-// out-projection's staging rather than in a pass of its own: the column
-// groups that stage the same K slice each merge it again, but that
-// re-reads partials from L2, where a pass of its own costs a grid
-// barrier and a round trip of the attention output.
+// the scratch page 0, which no row reads).  A merge of its own,
+// rather than inside the out-projection's staging, because every column
+// group of that GEMV stages the same rows and would merge them again.
 // #14, FFN phase:
 //   1. FFN1 on w1's column shard (Fl, C) + b1, erf GELU
 //   2. FFN2 over the shard's Fl inputs (w2's row shard, (C, Fl)), as
@@ -100,15 +98,15 @@ struct FfnArgs {
   int B, C, Fl;
 };
 
-// scratch: qkv parts (KSPLIT_MAX, B, Cl + 2 KVC) | parts (KSPLIT_MAX, B,
-// C) | the split attention's per-unit partials: outputs (U, g D), maxima
-// (U, g), sums (U, g), U = split_units_max
+// scratch: qkv parts (KSPLIT_MAX, B, Cl + 2 KVC) | att (B, Cl) | parts
+// (KSPLIT_MAX, B, C) | the split attention's per-unit partials: outputs
+// (U, g D), maxima (U, g), sums (U, g), U = split_units_max
 __host__ __device__ inline size_t attn_scratch_floats(int B, int C, int Cl,
                                                       int KVC, int D,
                                                       int max_keys) {
   const int KVH = KVC / D, g = Cl / KVC;
   const size_t U = mxt::split_units_max(B, KVH, max_keys);
-  return (size_t)KSPLIT_MAX * B * (Cl + 2 * KVC) +
+  return (size_t)KSPLIT_MAX * B * (Cl + 2 * KVC) + round4((size_t)B * Cl) +
          (size_t)KSPLIT_MAX * B * C + round4(U * g * D) + 2 * round4(U * g);
 }
 
@@ -118,7 +116,7 @@ __host__ __device__ inline size_t ffn_scratch_floats(int B, int C, int Fl) {
 }
 
 // the attention phase's phases, each closed by a grid barrier
-constexpr int ATTN_PHASES = 4;
+constexpr int ATTN_PHASES = 5;
 
 __device__ __forceinline__ long long globaltimer() {
   long long t;
@@ -158,7 +156,8 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
   const int g = a.H / a.KVH, max_keys = a.pps * S;
   const size_t U = mxt::split_units_max(B, a.KVH, max_keys);
   float* qkv = a.scratch;
-  float* parts = qkv + (size_t)KSPLIT_MAX * B * N;
+  float* att = qkv + (size_t)KSPLIT_MAX * B * N;
+  float* parts = att + round4((size_t)B * Cl);
   float* po = parts + (size_t)KSPLIT_MAX * B * C;
   float* pm = po + round4(U * g * D);
   float* pl = pm + round4(U * g);
@@ -205,24 +204,20 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
                        g, P, S, a.pps, a.scale, po, pm, pl, smem);
   sync();
 
-  // 3. out-projection partial over the shard's Cl inputs, K split, its
-  // input rows the chunks merged in chunk order as they are staged
-  const int ks = mxt::ksplit_for(C);
-  const int KVH = a.KVH;
-  const int* lengths = a.lengths;
-  mxt::gemv_staged(
-      [=](float* st, int b0, int nb, int k0, int kc) {
-        mxt::split_merge_stage(st, po, pm, pl, lengths, KVH, g, D, max_keys,
-                               b0, nb, k0, kc);
-      },
-      B, Cl, C, ks, [=](int n) { return wo + (size_t)n * Cl; },
-      [=](int b, int n, int s, float v) {
-        parts[((size_t)s * B + b) * C + n] = v;
-      },
-      smem);
+  // 3. the chunks merged in chunk order
+  mxt::split_merge(po, pm, pl, a.lengths, B, a.KVH, g, D, max_keys, att);
   sync();
 
-  // 4. o_part = the slices' sum, in order
+  // 4. out-projection partial over the shard's Cl inputs, K split
+  const int ks = mxt::ksplit_for(C);
+  mxt::gemv(att, B, Cl, C, ks, [=](int n) { return wo + (size_t)n * Cl; },
+            [=](int b, int n, int s, float v) {
+              parts[((size_t)s * B + b) * C + n] = v;
+            },
+            smem);
+  sync();
+
+  // 5. o_part = the slices' sum, in order
   sum_slices(a.out, parts, ks, B * C);
   if (a.timing) sync();
 }

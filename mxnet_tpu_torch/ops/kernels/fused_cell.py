@@ -23,8 +23,8 @@
   all-reduces of a Megatron layer: for one shard of one layer, one launch
   runs the q/k/v projections over the shard's heads, the KV append into
   the shard's page slab and paged attention with each row's keys split
-  over blocks in 64-key chunks, and the out-projection's partial product
-  (no bias), which merges the chunks in chunk order as it reads them; another runs FFN1 on the
+  over blocks in 64-key chunks (merged in chunk order), and the
+  out-projection's partial product (no bias); another runs FFN1 on the
   column shard with its bias and erf GELU, and FFN2's partial product
   (no bias).  The
   caller sums the shards' partials (``models.decoder._all_reduce``) and
@@ -67,7 +67,8 @@ __all__ = ["lstm_sequence", "lstm_sequence_plain",
 PHASES = ("qkv", "append+attention", "out_proj", "residual+ln1",
           "ffn1+gelu", "ffn2", "residual+ln2")
 #: the phases of the tensor-parallel attention phase kernel #13
-ATTN_PHASES = ("qkv", "append+attention", "merge+out_proj", "slice_sum")
+ATTN_PHASES = ("qkv", "append+attention", "merge", "out_proj",
+               "slice_sum")
 
 #: per-layer weights in the order the kernel's pointer table holds them
 WEIGHT_ORDER = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",

@@ -1,6 +1,6 @@
 """The split-key attention of the tensor-parallel attention phase kernel
 #13 (``csrc/decode_phase.cu``, ``csrc/decode_common.cuh:split_attend`` and
-``split_merge_stage``), its arithmetic emulated on the CPU, against the JAX
+``split_merge``), its arithmetic emulated on the CPU, against the JAX
 kernel ``_decode_attn_phase_kernel`` run by the Pallas interpreter.
 
 On the card a row's keys are cut into chunks of 64; each (row, KV head,
@@ -8,9 +8,8 @@ chunk) unit gives each of its 8 warps 8 consecutive keys, each warp takes
 the max, the exponentials, their sum and P V over its keys for every
 query head of the group, and the block combines its warps in warp order
 at the largest max into the chunk's (m, l, unnormalised o).  After a grid
-barrier, as the out-projection stages its input, each (row, head) merges
-its chunks in chunk order: o = sum_c o_c exp(m_c - m) / sum_c l_c
-exp(m_c - m).  A row of length 0 has no chunk
+barrier each (row, head) merges its chunks in chunk order: o = sum_c o_c
+exp(m_c - m) / sum_c l_c exp(m_c - m).  A row of length 0 has no chunk
 and gives 0.  The emulation below follows that order in fp32 torch; the
 projections, the append and the out-projection are the plain version's.
 
