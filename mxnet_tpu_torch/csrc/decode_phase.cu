@@ -39,7 +39,12 @@
 // no unit and append nothing (the plain version writes their k and v to
 // the scratch page 0, which no row reads).  A merge of its own,
 // rather than inside the out-projection's staging, because every column
-// group of that GEMV stages the same rows and would merge them again.
+// group of that GEMV stages the same rows and would merge them again:
+// folded there (each block merging the K slice it stages), the serial
+// L2 reads sat on the GEMV's path, and the phase read 0.0505 ms against
+// this design's 0.0431 (H100 80GB HBM3, 700 W; tp 2, B 16, mixed
+// lengths; chip_flash_ab.py --phases tp), more than the merge pass and
+// its grid barrier (~4 us) cost.
 // #14, FFN phase:
 //   1. FFN1 on w1's column shard (Fl, C) + b1, erf GELU
 //   2. FFN2 over the shard's Fl inputs (w2's row shard, (C, Fl)), as
