@@ -1,7 +1,7 @@
 """Time the port's flash attention, LSTM and decode phase kernels over
 checkouts of the repo, in turns, on one card.
 
-    python3 chip_flash_ab.py [--phases route,kernels,bert,lstm,tp] TREE ...
+    python3 chip_flash_ab.py [--phases PHASE,...] TREE ...
 
 Builds the kernels of every TREE at once (one ``nvcc`` per source), then
 runs the phases in each TREE in order and then in reverse (with two trees:
@@ -37,14 +37,20 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   #11's outputs, to compare trees bit for bit), then
   ``chip_smoke.train_lm`` for the word LM, fp32 and AMP bf16, 10 steps
   each, with the step-1 loss printed exactly;
-- ``tp``: ``chip_smoke.check_tp_phases`` (#13 and #14 held on every
-  shard at tp 2, 4 and a GQA geometry; #13 timed at B 16 with mixed
-  lengths and with every row at 512, with its phases by
+- ``tp``: ``chip_smoke.check_fused`` (#12 held, timed and stamped, with
+  a digest of its outputs), ``chip_smoke.check_tp_phases`` (#13 and #14
+  held on every shard at tp 2, 4 and a GQA geometry, with digests of
+  their outputs at tp 2; #13 timed at B 16 with mixed lengths and with
+  every row at 512, #14 with mixed lengths, each with its phases by
   ``%globaltimer``), then the serving model
   (BERT-base widths, seed 0) served 48 requests fused at tp 1, 2 and 4
   and per-op at tp 1 and 2 (``chip_smoke.serve``: tokens/s, decode p50
   and p99, launches, census), with the streams of each TP run compared
-  to its tp 1 run's.
+  to its tp 1 run's;
+- ``paged``: ``chip_smoke.check_paged_attention`` and
+  ``check_paged_attention_int8`` (#15 over fp and int8 pages at H 12 over
+  12 and 4 KV heads, D 64, held in every case of ``TP_CASES``, timed at
+  B 16 with mixed lengths and with every row at 512).
 
 A TREE named more than once runs that many more turns; a TREE whose
 build fails is left out of the turns (the exit code is then 1).  Every
@@ -61,7 +67,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("route", "kernels", "host", "bert", "amp", "lstm", "tp")
+PHASES = ("route", "kernels", "host", "bert", "amp", "lstm", "tp", "paged")
 
 
 def build(trees, names):
@@ -129,6 +135,9 @@ def run(tree, phases, steps):
             _, st = cs.train_lm(torch, 0, label, amp=amp)
             cs.log("lstm %s: step-1 loss %r; %s"
                    % (label, st["first_loss"], json.dumps(st)))
+    if "paged" in phases:
+        cs.check_paged_attention(torch, timer, {})
+        cs.check_paged_attention_int8(torch, timer, {})
     if "tp" in phases:
         tp_phase(cs, torch, timer)
     if "amp" in phases:
@@ -149,6 +158,7 @@ def tp_phase(cs, torch, timer):
         **dict(cs.WIDTHS, num_layers=2, num_kv_heads=4), device=cs.DEV,
         seed=1), 1)
     report = {}
+    cs.check_fused(torch, timer, report, lm, lm_gqa)
     cs.check_tp_phases(torch, timer, report, lm, lm_gqa)
     cs.log("tp phases: %s" % json.dumps(report["tp_phases"]))
     reqs = cs.traffic(0, 48)
@@ -190,8 +200,9 @@ def main():
         print("chip_flash_ab: no CUDA device", file=sys.stderr)
         return 2
     trees = [os.path.abspath(t) for t in args.trees]
-    rcs = build(sorted(set(trees)), None if {"bert", "amp", "lstm", "tp"}
-                & set(phases) else ["flash_attention"])
+    rcs = build(sorted(set(trees)), None if {"bert", "amp", "lstm", "tp",
+                                             "paged"} & set(phases)
+                else ["flash_attention"])
     built = {t for t, rc in zip(sorted(set(trees)), rcs) if not rc}
     failed = len(set(trees) - built)
     if failed:

@@ -287,55 +287,112 @@ def check_bias_gelu(torch, timer, report):
         shape="(64, 3072) prefill chunk", **rows[64])
 
 
-def check_paged_attention(torch, timer, report):
+#: the paged attention cases timed (the first is the kernels line's)
+PAGED_TIMED = ("mixed", "all512")
+
+
+def paged_cases(rng):
+    """(case, lengths) of each case of TP_CASES for the paged attention
+    checks: "mixed" random 1..512 with row 3 at 0 and row 5 at 512, B 1 at
+    512, the others the case's own lengths."""
+    for case, B, fixed in TP_CASES:
+        if fixed is not None:
+            lengths = np.array(fixed)
+        elif B == 1:
+            lengths = np.array([512])
+        else:
+            lengths = rng.integers(1, 513, B)
+            lengths[3] = 0
+            lengths[5] = 512
+        yield case, lengths
+
+
+def check_paged(torch, timer, report, int8):
+    """#15 over fp pages, or over int8 QPages (``int8``), against
+    ``paged_attention_reference`` (for int8 pages: gather_pages_deq +
+    attend_ctx) at H 12 over 12 and over 4 KV heads, D 64, in every case of
+    TP_CASES; every length-0 row must be zero.  Times in PAGED_TIMED beside
+    the plain version and SDPA on the gathered (dequantized) cache."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.kernels import paged_attention as pa
-    rng = np.random.default_rng(2)
-    B, D, P, pps = SLOTS, 64, SLOTS * 32 + 1, 32
-    lengths = rng.integers(1, 513, B)
-    lengths[3] = 0
-    lengths[5] = 512
+    name = "paged_attention_int8" if int8 else "paged_attention"
+    D, P, pps = 64, SLOTS * 32 + 1, 32
     for H, KVH in ((12, 12), (12, 4)):
-        g = torch.Generator(device=DEV).manual_seed(3)
-        q = torch.randn(B, H, D, device=DEV, generator=g)
-        kp = torch.randn(KVH, P, PAGE, D, device=DEV, generator=g)
-        vp = torch.randn(KVH, P, PAGE, D, device=DEV, generator=g)
-        ln = torch.tensor(lengths, dtype=torch.int32, device=DEV)
-        tb = torch.tensor(tables_for(rng, lengths, pps), device=DEV)
-        out = pa.paged_attention(q, kp, vp, ln, tb)
-        ref = pa.paged_attention_reference(q, kp, vp, ln, tb)
-        err = float((out - ref).abs().max())
-        if not torch.all(out[3] == 0):
-            raise AssertionError("paged_attention: length-0 row not zero")
-        ms = timer(lambda: pa.paged_attention(q, kp, vp, ln, tb))
-        plain = timer(lambda: pa.paged_attention_reference(q, kp, vp, ln, tb))
-        # yardstick: one SDPA call over the pre-gathered contiguous cache
-        kc = pa.gather_pages(kp, tb)
-        vc = pa.gather_pages(vp, tb)
-        mask = (torch.arange(pps * PAGE, device=DEV)[None, None, None, :]
-                < ln.reshape(B, 1, 1, 1))
-        qs = q[:, :, None, :]
-        lib = timer(lambda: F.scaled_dot_product_attention(
-            qs, kc, vc, attn_mask=mask, enable_gqa=(H != KVH)))
-        toks = int(lengths.sum())
-        nbytes = 4 * (2 * B * H * D + 2 * toks * KVH * D + B + B * pps)
-        bms, by = bound(nbytes, 4 * H * D * toks)
-        log("paged_attention B=%d H=%d KVH=%d D=%d lengths %d..%d: "
-            "max_abs_err %.3g (tol %g) kernel %.4f ms plain %.4f ms "
-            "sdpa(gathered) %.4f ms bound %.4f ms"
-            % (B, H, KVH, D, lengths.min(), lengths.max(), err,
-               TOL_ATTENTION, ms, plain, lib, bms))
-        if not err <= TOL_ATTENTION:
-            raise AssertionError("paged_attention disagrees with its plain "
-                                 "version")
-        if H == KVH:
-            report["paged_attention"] = dict(
-                name="paged_attention", route="cuda",
-                source="mxnet_tpu_torch/csrc/paged_attention.cu",
-                replaces="mxnet_tpu/ops/pallas/paged_attention.py:251",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib,
-                shape="B=16 H=12 KVH=12 D=64 mixed lengths")
+        rng = np.random.default_rng(7 if int8 else 2)
+        g = torch.Generator(device=DEV).manual_seed(8 if int8 else 3)
+        for case, lengths in paged_cases(rng):
+            B = len(lengths)
+            q = torch.randn(B, H, D, device=DEV, generator=g)
+            if int8:
+                def pages():
+                    codes = torch.randint(-127, 128, (KVH, P, PAGE, D),
+                                          device=DEV, generator=g)
+                    scales = torch.rand(KVH, P, device=DEV, generator=g)
+                    return pa.QPages(q=codes.to(torch.int8),
+                                     s=scales * 0.05)
+                kp, vp = pages(), pages()
+            else:
+                kp = torch.randn(KVH, P, PAGE, D, device=DEV, generator=g)
+                vp = torch.randn(KVH, P, PAGE, D, device=DEV, generator=g)
+            ln = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+            tb = torch.tensor(tables_for(rng, lengths, pps), device=DEV)
+            out = pa.paged_attention(q, kp, vp, ln, tb)
+            ref = pa.paged_attention_reference(q, kp, vp, ln, tb)
+            err = float((out - ref).abs().max())
+            zero = lengths == 0
+            if not torch.all(out[torch.tensor(zero, device=DEV)] == 0):
+                raise AssertionError("%s: a length-0 row is not zero" % name)
+            log("%s B=%d H=%d KVH=%d D=%d %s lengths %d..%d (%d of length "
+                "0): max_abs_err %.3g (tol %g)"
+                % (name, B, H, KVH, D, case, lengths.min(), lengths.max(),
+                   zero.sum(), err, TOL_ATTENTION))
+            if not err <= TOL_ATTENTION:
+                raise AssertionError("%s disagrees with its plain version"
+                                     % name)
+            if case not in PAGED_TIMED:
+                continue
+            ms = timer(lambda: pa.paged_attention(q, kp, vp, ln, tb))
+            plain = timer(lambda: pa.paged_attention_reference(q, kp, vp, ln,
+                                                               tb))
+            # yardstick: one SDPA call over the pre-gathered contiguous
+            # (for int8 pages dequantized) cache
+            if int8:
+                kc = pa.gather_pages_deq(kp.q, kp.s, tb)
+                vc = pa.gather_pages_deq(vp.q, vp.s, tb)
+            else:
+                kc, vc = pa.gather_pages(kp, tb), pa.gather_pages(vp, tb)
+            mask = (torch.arange(pps * PAGE, device=DEV)[None, None, None, :]
+                    < ln.reshape(B, 1, 1, 1))
+            lib = timer(lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kc, vc, attn_mask=mask,
+                enable_gqa=(H != KVH)))
+            toks = int(lengths.sum())
+            if int8:
+                pages_read = int(sum(-(-int(n) // PAGE) for n in lengths))
+                nbytes = (2 * toks * KVH * D + 2 * 4 * pages_read * KVH
+                          + 4 * (2 * B * H * D + B + B * pps))
+            else:
+                nbytes = 4 * (2 * B * H * D + 2 * toks * KVH * D + B
+                              + B * pps)
+            bms, by = bound(nbytes, 4 * H * D * toks)
+            log("%s B=%d H=%d KVH=%d D=%d %s lengths: kernel %.4f ms plain "
+                "%.4f ms sdpa(%sgathered) %.4f ms bound %.4f ms"
+                % (name, B, H, KVH, D, case, ms, plain,
+                   "dequantized, " if int8 else "", lib, bms))
+            if H == KVH and case == PAGED_TIMED[0]:
+                report[name] = dict(
+                    name=name, route="cuda",
+                    source="mxnet_tpu_torch/csrc/paged_attention.cu",
+                    replaces="mxnet_tpu/ops/pallas/paged_attention.py:%s"
+                    % ("237" if int8 else "251"),
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib,
+                    shape="B=16 H=12 KVH=12 D=64%s, mixed lengths"
+                    % (" int8 pages" if int8 else ""))
+
+
+def check_paged_attention(torch, timer, report):
+    check_paged(torch, timer, report, int8=False)
 
 
 def check_fused(torch, timer, report, lm, lm_gqa):
@@ -391,6 +448,14 @@ def check_fused(torch, timer, report, lm, lm_gqa):
         if not err <= TOL_FUSED:
             raise AssertionError("decode_layer_group disagrees with its plain "
                                  "version")
+        if model is lm:
+            # a fresh launch on the held inputs: equal digests in two trees
+            # mean #12 computes the same bits
+            k3, v3 = kp0.clone(), vp0.clone()
+            _, _, x3 = fc.decode_layer_group(x, k3, v3, table, meta, tb, ln,
+                                             cfg)
+            log("decode_layer_group L=%d B=%d digest of x, kp, vp: %s"
+                % (L, B, digest(torch, x3, k3, v3)))
         timer.flush.zero_()
         phases = fc.phase_times(x, kp1, vp1, table, meta, tb, ln, cfg)
         log("  phases, us summed over %d layers: %s" % (L, ", ".join(
@@ -452,65 +517,7 @@ def check_quant_matmul(torch, timer, report):
 
 
 def check_paged_attention_int8(torch, timer, report):
-    """paged_attention over int8 QPages against gather_pages_deq +
-    attend_ctx, at the decode batch's shapes and at GQA."""
-    import torch.nn.functional as F
-    from mxnet_tpu_torch.ops.kernels import paged_attention as pa
-    rng = np.random.default_rng(7)
-    B, D, P, pps = SLOTS, 64, SLOTS * 32 + 1, 32
-    lengths = rng.integers(1, 513, B)
-    lengths[3] = 0
-    lengths[5] = 512
-    for H, KVH in ((12, 12), (12, 4)):
-        g = torch.Generator(device=DEV).manual_seed(8)
-        q = torch.randn(B, H, D, device=DEV, generator=g)
-
-        def pages():
-            codes = torch.randint(-127, 128, (KVH, P, PAGE, D), device=DEV,
-                                  generator=g).to(torch.int8)
-            scales = torch.rand(KVH, P, device=DEV, generator=g) * 0.05
-            return pa.QPages(q=codes, s=scales)
-
-        kp, vp = pages(), pages()
-        ln = torch.tensor(lengths, dtype=torch.int32, device=DEV)
-        tb = torch.tensor(tables_for(rng, lengths, pps), device=DEV)
-        out = pa.paged_attention(q, kp, vp, ln, tb)
-        ref = pa.paged_attention_reference(q, kp, vp, ln, tb)
-        err = float((out - ref).abs().max())
-        if not torch.all(out[3] == 0):
-            raise AssertionError("paged_attention int8: length-0 row not "
-                                 "zero")
-        ms = timer(lambda: pa.paged_attention(q, kp, vp, ln, tb))
-        plain = timer(lambda: pa.paged_attention_reference(q, kp, vp, ln,
-                                                           tb))
-        kc = pa.gather_pages_deq(kp.q, kp.s, tb)
-        vc = pa.gather_pages_deq(vp.q, vp.s, tb)
-        mask = (torch.arange(pps * PAGE, device=DEV)[None, None, None, :]
-                < ln.reshape(B, 1, 1, 1))
-        lib = timer(lambda: F.scaled_dot_product_attention(
-            q[:, :, None, :], kc, vc, attn_mask=mask,
-            enable_gqa=(H != KVH)))
-        toks = int(lengths.sum())
-        pages_read = int(sum(-(-int(n) // PAGE) for n in lengths))
-        nbytes = (2 * toks * KVH * D + 2 * 4 * pages_read * KVH
-                  + 4 * (2 * B * H * D + B + B * pps))
-        bms, by = bound(nbytes, 4 * H * D * toks)
-        log("paged_attention_int8 B=%d H=%d KVH=%d D=%d lengths %d..%d: "
-            "max_abs_err %.3g (tol %g) kernel %.4f ms plain %.4f ms "
-            "sdpa(dequantized, gathered) %.4f ms bound %.4f ms"
-            % (B, H, KVH, D, lengths.min(), lengths.max(), err,
-               TOL_ATTENTION, ms, plain, lib, bms))
-        if not err <= TOL_ATTENTION:
-            raise AssertionError("paged_attention int8 disagrees with its "
-                                 "plain version")
-        if H == KVH:
-            report["paged_attention_int8"] = dict(
-                name="paged_attention_int8", route="cuda",
-                source="mxnet_tpu_torch/csrc/paged_attention.cu",
-                replaces="mxnet_tpu/ops/pallas/paged_attention.py:251",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib,
-                shape="B=16 H=12 KVH=12 D=64 int8 pages, mixed lengths")
+    check_paged(torch, timer, report, int8=True)
 
 
 def within_bf16_step(out, ref):
@@ -1767,15 +1774,15 @@ TP_CASES = (("mixed", SLOTS, None),
 TP_TIMED = ("mixed", "all512")
 
 
-def attn_stamps(torch, fc, timer, args, runs=5):
-    """#13's phases by ``%globaltimer`` (``fused_cell.
-    decode_attn_phase_times``: block 0, the end of each phase), each
-    launch after the L2 flush: per phase the median over ``runs``
-    launches, in us."""
+def phase_stamps(torch, timer, times, args, runs=5):
+    """A phase kernel's phases by ``%globaltimer`` (``times`` is
+    ``fused_cell.decode_attn_phase_times`` or ``decode_ffn_phase_times``:
+    block 0, the end of each phase), each launch after the L2 flush: per
+    phase the median over ``runs`` launches, in us."""
     stamps = []
     for _ in range(runs + 1):
         timer.flush.zero_()
-        stamps.append(fc.decode_attn_phase_times(*args))
+        stamps.append(times(*args))
     return {p: statistics.median(t[p] for t in stamps[1:]) / 1e3
             for p in stamps[0]}
 
@@ -1845,6 +1852,10 @@ def check_tp_phases(torch, timer, report, lm, lm_gqa):
                     (v1[:, :, 1:] - v2[:, :, 1:]).abs().max())))
                 errs["f_part"] = max(errs["f_part"],
                                      float((fk - fp).abs().max()))
+                if (model, tp, case, r) == (lm, 2, "mixed", 0):
+                    log("decode phases tp 2 B %d mixed, shard 0: digest of "
+                        "o_part and pages %s, of f_part %s"
+                        % (B, digest(torch, ok, k1, v1), digest(torch, fk)))
             log("decode phases tp %d (H %d KVH %d per shard) B %d %s lengths "
                 "%d..%d, all %d shards: max_abs_err o_part %.3g pages %.3g "
                 "f_part %.3g (tol %g)"
@@ -1860,19 +1871,20 @@ def check_tp_phases(torch, timer, report, lm, lm_gqa):
             kv = (plan.kv_view(kp0, 0, 0), plan.kv_view(vp0, 0, 0))
             args = (x, *kv, lp, meta, tb, ln, lcfg)
             (ba, bya), (bf, byf) = phase_bounds(cfg, lcfg, after, pps)
+            fargs = (x, lp["w1"], lp["b1"], lp["w2"])
             timed = [("decode_attn_phase",
                       lambda: fc.decode_attn_phase(*args),
                       lambda: fc.decode_attn_phase_plain(*args),
-                      ba, bya, max(errs["o_part"], errs["pages"]))]
+                      ba, bya, max(errs["o_part"], errs["pages"]),
+                      fc.decode_attn_phase_times, args)]
             if case == "mixed":
                 timed.append((
                     "decode_ffn_phase",
-                    lambda: fc.decode_ffn_phase(x, lp["w1"], lp["b1"],
-                                                lp["w2"]),
-                    lambda: fc.decode_ffn_phase_plain(x, lp["w1"], lp["b1"],
-                                                      lp["w2"]),
-                    bf, byf, errs["f_part"]))
-            for name, fn, plain, bms, by, err in timed:
+                    lambda: fc.decode_ffn_phase(*fargs),
+                    lambda: fc.decode_ffn_phase_plain(*fargs),
+                    bf, byf, errs["f_part"], fc.decode_ffn_phase_times,
+                    fargs))
+            for name, fn, plain, bms, by, err, times, targs in timed:
                 ms = timer(fn)
                 # the plain version's ~20 ops take longer to enqueue than
                 # the usual spin: spin ~2 ms so the card's time is timed
@@ -1883,14 +1895,12 @@ def check_tp_phases(torch, timer, report, lm, lm_gqa):
                        fc.phase_grid_blocks(lcfg)[name.endswith("ffn_phase")]))
                 row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                            bound_by=by, max_abs_err=err)
-                if name == "decode_attn_phase":
-                    row["stamps_us"] = attn_stamps(torch, fc, timer, args)
-                    log("decode_attn_phase tp %d B %d %s lengths, phases by "
-                        "%%globaltimer (block 0, median of 5 launches): %s; "
-                        "sum %.2f us" % (tp, B, case, " ".join(
-                            "%s %.2f us" % kv
-                            for kv in row["stamps_us"].items()),
-                            sum(row["stamps_us"].values())))
+                row["stamps_us"] = phase_stamps(torch, timer, times, targs)
+                log("%s tp %d B %d %s lengths, phases by %%globaltimer "
+                    "(block 0, median of 5 launches): %s; sum %.2f us"
+                    % (name, tp, B, case, " ".join(
+                        "%s %.2f us" % kv for kv in row["stamps_us"].items()),
+                       sum(row["stamps_us"].values())))
                 key = "tp%d" % tp if case == "mixed" else "tp%d_%s" % (tp,
                                                                        case)
                 rows.setdefault(name, {})[key] = row

@@ -100,6 +100,7 @@ struct FfnArgs {
   const float* w2;       // (C, Fl): w2's row shard, contiguous
   float* scratch;        // ffn_scratch_floats(B, C, Fl) floats
   float* out;            // (B, C) f_part
+  long long* timing;     // null, or FFN_PHASES + 1 phase-end timestamps
   int B, C, Fl;
 };
 
@@ -120,8 +121,9 @@ __host__ __device__ inline size_t ffn_scratch_floats(int B, int C, int Fl) {
   return round4((size_t)B * Fl) + (size_t)KSPLIT_MAX * B * C;
 }
 
-// the attention phase's phases, each closed by a grid barrier
+// the attention and the FFN phase's phases, each closed by a grid barrier
 constexpr int ATTN_PHASES = 5;
+constexpr int FFN_PHASES = 3;
 
 __device__ __forceinline__ long long globaltimer() {
   long long t;
@@ -230,6 +232,15 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
 __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
+  // stamps as in attn_phase_kernel
+  const bool stamp = a.timing != nullptr && blockIdx.x == 0 &&
+                     threadIdx.x == 0;
+  int n_stamp = 0;
+  if (stamp) a.timing[n_stamp++] = globaltimer();
+  auto sync = [&]() {
+    grid.sync();
+    if (stamp) a.timing[n_stamp++] = globaltimer();
+  };
   const int B = a.B, C = a.C, Fl = a.Fl;
   float* hbuf = a.scratch;
   float* parts = hbuf + round4((size_t)B * Fl);
@@ -241,7 +252,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
               hbuf[(size_t)b * Fl + n] = mxt::gelu_erf(v + b1[n]);
             },
             smem);
-  grid.sync();
+  sync();
 
   // 2. FFN2 partial over the shard's Fl inputs, K split
   const int ks = mxt::ksplit_for(C);
@@ -250,10 +261,11 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
               parts[((size_t)s * B + b) * C + n] = v;
             },
             smem);
-  grid.sync();
+  sync();
 
   // 3. f_part = the slices' sum, in order
   sum_slices(a.out, parts, ks, B * C);
+  if (a.timing) sync();
 }
 
 using AttnKernel = void (*)(AttnArgs);
@@ -289,8 +301,9 @@ extern "C" const char* mxt_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// Phases of the attention phase kernel that timing stamps.
+// Phases of the attention and the FFN phase kernel that timing stamps.
 extern "C" int mxt_decode_attn_phases() { return ATTN_PHASES; }
+extern "C" int mxt_decode_ffn_phases() { return FFN_PHASES; }
 
 // Blocks each phase kernel launches with (for the caller's records).
 extern "C" int mxt_decode_phase_grid(int g, int D, int* attn_grid,
@@ -355,12 +368,13 @@ extern "C" int mxt_decode_attn_phase(const void* x, void* kp, void* vp,
 }
 
 // x (B, C); w1 (Fl, C), b1 (Fl,); w2 (C, Fl); scratch of
-// mxt_decode_phase_scratch floats; out (B, C).  C and Fl must be multiples
-// of 4.
+// mxt_decode_phase_scratch floats; out (B, C); timing null, or
+// mxt_decode_ffn_phases() + 1 int64 stamps as mxt_decode_attn_phase's.  C
+// and Fl must be multiples of 4.
 extern "C" int mxt_decode_ffn_phase(const void* x, const void* w1,
                                     const void* b1, const void* w2,
-                                    void* scratch, void* out, int B, int C,
-                                    int Fl, void* stream) {
+                                    void* scratch, void* out, void* timing,
+                                    int B, int C, int Fl, void* stream) {
   int grid = 0;
   size_t smem = 0;
   cudaError_t e = ffn_geometry(&grid, &smem);
@@ -372,6 +386,7 @@ extern "C" int mxt_decode_ffn_phase(const void* x, const void* w1,
   a.w2 = (const float*)w2;
   a.scratch = (float*)scratch;
   a.out = (float*)out;
+  a.timing = (long long*)timing;
   a.B = B; a.C = C; a.Fl = Fl;
   return (int)launch((const void*)ffn_phase_kernel, grid, smem, &a, stream);
 }
