@@ -379,6 +379,14 @@ def check_paged(torch, timer, report, int8):
                 "%.4f ms sdpa(%sgathered) %.4f ms bound %.4f ms"
                 % (name, B, H, KVH, D, case, ms, plain,
                    "dequantized, " if int8 else "", lib, bms))
+            if hasattr(pa, "paged_attention_times"):
+                st = phase_stamps(torch, timer, pa.paged_attention_times,
+                                  (q, kp, vp, ln, tb))
+                log("%s H=%d KVH=%d %s lengths, phases by %%globaltimer "
+                    "(block 0, median of 5 launches): %s; sum %.2f us"
+                    % (name, H, KVH, case, " ".join(
+                        "%s %.2f us" % kv for kv in st.items()),
+                       sum(st.values())))
             if H == KVH and case == PAGED_TIMED[0]:
                 report[name] = dict(
                     name=name, route="cuda",

@@ -1,7 +1,8 @@
 // Device code shared by the decode kernels: the fused decode layer group
-// (fused_decode.cu, kernel #12) and the tensor-parallel decode phases
-// (decode_phase.cu, kernels #13 and #14).  Each is a cooperative
-// persistent launch whose phases are separated by grid-wide barriers.
+// (fused_decode.cu, kernel #12), the tensor-parallel decode phases
+// (decode_phase.cu, kernels #13 and #14) and paged attention
+// (paged_attention.cu, #15).  Each is a cooperative persistent launch whose
+// phases are separated by grid-wide barriers.
 //
 // - gemv: in (B, K) times N weight rows of K, for the whole decode batch.
 //   At B 16 a weight is used 2 B = 32 flops per 4 bytes it costs, far
@@ -19,8 +20,9 @@
 //   length.
 // - split_attend and split_merge: paged attention with a row's keys split
 //   over blocks (flash-decoding), for the tensor-parallel attention phase
-//   (decode_phase.cu): partials per chunk of SPLIT_KEYS keys, then a
-//   merge in chunk order after a grid barrier.
+//   (decode_phase.cu) over fp32 pages and for paged attention
+//   (paged_attention.cu) over fp32 or int8 pages: partials per chunk of
+//   SPLIT_KEYS keys, then a merge in chunk order after a grid barrier.
 // - coop_geometry: the grid of a cooperative launch, every block resident.
 #pragma once
 
@@ -40,6 +42,13 @@ constexpr int STAGE_FLOATS = 8192;   // staged input elements (32 KB)
 constexpr int KSPLIT_MAX = 8;        // K slices of a split GEMV
 
 __host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~3; }
+
+// the card's global nanosecond timer, for a kernel's phase stamps
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 // K slices for an N-column GEMV: enough to give every block a unit of
 // work, the same value in every block
@@ -255,21 +264,69 @@ struct Cols {
   }
 };
 
+// The page types of split_attend.  fp32 pages load(off, kc, vc): a
+// lane's E columns of the key row and of the value row at element offset
+// off of the (KVH, P, S, D) slabs.  int8 pages (SCALED) load the lane's
+// codes raw, and cvt turns them into values with the row's page scale
+// once every load of the unit is in flight.
+
+// fp32 pages
+struct SplitF32 {
+  static constexpr bool SCALED = false;
+  const float* k;
+  const float* v;
+  template <int E>
+  __device__ __forceinline__ void load(long long off, Cols<E>& kc,
+                                       Cols<E>& vc) const {
+    kc.load(k + off);
+    vc.load(v + off);
+  }
+};
+
+// int8 pages: codes in the fp layout, one fp32 scale per (KV head, page)
+// in (KVH, P); a value is its code times its page's scale, one multiply,
+// as gather_pages_deq computes it.  E codes a lane: one 1-, 2- or 4-byte
+// load per row, kept in the low bytes of a word until cvt.
+struct SplitI8 {
+  static constexpr bool SCALED = true;
+  const signed char* k;
+  const signed char* v;
+  const float* ks;
+  const float* vs;
+  template <int E>
+  __device__ __forceinline__ static unsigned raw(const signed char* p) {
+    if constexpr (E == 4)
+      return (unsigned)__ldcg(reinterpret_cast<const int*>(p));
+    else if constexpr (E == 2)
+      return (unsigned short)__ldcg(reinterpret_cast<const short*>(p));
+    else
+      return (unsigned char)__ldcg(p);
+  }
+  // code e of w (its signed byte e) times s
+  template <int E>
+  __device__ __forceinline__ static void cvt(unsigned w, float s,
+                                             Cols<E>& c) {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      c.v[e] = (float)((int)(w << (24 - 8 * e)) >> 24) * s;
+  }
+};
+
 // q_at(b, c):    row b's query at column c = h D + d (h = kvh g + i),
 //                before the scale
 // append(b, kvh): run by the whole block in the unit of (b, kvh)'s last
 //                chunk before it reads a key: writes the step's key and
 //                value into their page slot
-// kp/vp:         (KVH, P, S, D) page slabs
+// pages:         SplitF32 or SplitI8 over the (KVH, P, S, D) slabs
 // po/pm/pl:      per unit, (g D) unnormalised outputs, (g) maxima, (g) sums
 // D = 32 E.  Pages are read with L2-only loads: blocks write them in the
 // same launch.
-template <int E, class QAt, class Append>
-__device__ void split_attend(QAt q_at, Append append, const float* kp,
-                             const float* vp, const int* tables,
-                             const int* lengths, int B, int KVH, int g,
-                             int P, int S, int pps, float scale, float* po,
-                             float* pm, float* pl, float* smem) {
+template <int E, class QAt, class Append, class Pages>
+__device__ void split_attend(QAt q_at, Append append, const Pages& pages,
+                             const int* tables, const int* lengths, int B,
+                             int KVH, int g, int P, int S, int pps,
+                             float scale, float* po, float* pm, float* pl,
+                             float* smem) {
   constexpr int D = 32 * E;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gD = g * D, max_keys = pps * S, wstride = gD + 2 * g;
@@ -291,23 +348,47 @@ __device__ void split_attend(QAt q_at, Append append, const float* kp,
       append(b, kvh);
       __syncthreads();
     }
-    // lane k < 8 finds key k's row; every lane loads its columns of all 8
+    // lane k < 8 finds key k's row (and its page's scales); every lane
+    // loads its columns of all 8
     long long row = 0;
+    float sk = 0.f, sv = 0.f;
     if (lane < nk) {
       const int t = k0 + lane;
       const int page = __ldg(tables + (size_t)b * pps + t / S);
       row = (((long long)kvh * P + page) * S + t % S) * D;
+      if constexpr (Pages::SCALED) {
+        sk = __ldcg(pages.ks + (size_t)kvh * P + page);
+        sv = __ldcg(pages.vs + (size_t)kvh * P + page);
+      }
     }
     Cols<E> kc[SPLIT_WARP_KEYS], vc[SPLIT_WARP_KEYS];
+    if constexpr (Pages::SCALED) {
+      // every code load first, then the scales (loaded beside the table
+      // entries) shuffled and applied
+      unsigned kr[SPLIT_WARP_KEYS], vr[SPLIT_WARP_KEYS];
 #pragma unroll
-    for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {
-      const long long rk = __shfl_sync(0xffffffffu, row, k) + lane * E;
-      if (k < nk) {
-        kc[k].load(kp + rk);
-        vc[k].load(vp + rk);
-      } else {
-        kc[k].zero();
-        vc[k].zero();
+      for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {
+        const long long rk = __shfl_sync(0xffffffffu, row, k) + lane * E;
+        kr[k] = k < nk ? Pages::template raw<E>(pages.k + rk) : 0u;
+        vr[k] = k < nk ? Pages::template raw<E>(pages.v + rk) : 0u;
+      }
+#pragma unroll
+      for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {
+        Pages::template cvt<E>(kr[k], __shfl_sync(0xffffffffu, sk, k),
+                               kc[k]);
+        Pages::template cvt<E>(vr[k], __shfl_sync(0xffffffffu, sv, k),
+                               vc[k]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {
+        const long long rk = __shfl_sync(0xffffffffu, row, k) + lane * E;
+        if (k < nk) {
+          pages.template load<E>(rk, kc[k], vc[k]);
+        } else {
+          kc[k].zero();
+          vc[k].zero();
+        }
       }
     }
     for (int i = 0; i < g; ++i) {

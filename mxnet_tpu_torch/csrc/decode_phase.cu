@@ -63,6 +63,7 @@
 // The partial sums of a split GEMV are added in slice order, with no
 // atomics, so results do not depend on timing.
 #include "decode_common.cuh"
+#include "sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -116,20 +117,31 @@ __host__ __device__ inline size_t attn_scratch_floats(int B, int C, int Cl,
          (size_t)KSPLIT_MAX * B * C + round4(U * g * D) + 2 * round4(U * g);
 }
 
-// scratch: h (B, Fl) | parts (KSPLIT_MAX, B, C)
+// scratch: FFN1 parts (KSPLIT_MAX, B, Fl) | h (B, Fl) | FFN2 parts
+// (KSPLIT_MAX, B, C)
 __host__ __device__ inline size_t ffn_scratch_floats(int B, int C, int Fl) {
-  return round4((size_t)B * Fl) + (size_t)KSPLIT_MAX * B * C;
+  return (size_t)KSPLIT_MAX * B * (Fl + C) + (size_t)B * Fl;
 }
+
+// #14: FFN2 split over K (partials, a grid barrier and their sum in slice
+// order), or not (one column group a unit writes f_part itself)
+constexpr bool FFN2_SPLIT = true;
+// #14's shared memory: two mbarriers, a block's resident w1 rows and w2
+// rows (at tp 2, full width: 8 rows of 384 columns each), then the stage
+// (16 rows of 384 columns).  48 KB a block: three blocks an SM leave L1
+// ~90 KB for the register spills
+constexpr int FFN_BAR_FLOATS = 4;
+constexpr int FFN_W1_FLOATS = 3072;
+constexpr int FFN_W2_FLOATS = 3072;
+constexpr int FFN_STAGE_FLOATS = 6144;
+constexpr int FFN_SMEM_FLOATS =
+    FFN_BAR_FLOATS + FFN_W1_FLOATS + FFN_W2_FLOATS + FFN_STAGE_FLOATS;
 
 // the attention and the FFN phase's phases, each closed by a grid barrier
 constexpr int ATTN_PHASES = 5;
-constexpr int FFN_PHASES = 3;
+constexpr int FFN_PHASES = 4;
 
-__device__ __forceinline__ long long globaltimer() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
+using mxt::globaltimer;
 
 // out[b, c] = sum over s < ks of parts[s, b, c], in slice order
 __device__ void sum_slices(float* out, const float* parts, int ks, int n) {
@@ -207,8 +219,9 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
         vp[dst + d] = qkv_at(b, Cl + KVC + c) + bv[c];
     }
   };
-  mxt::split_attend<E>(q_at, append, kp, vp, a.tables, a.lengths, B, a.KVH,
-                       g, P, S, a.pps, a.scale, po, pm, pl, smem);
+  mxt::split_attend<E>(q_at, append, mxt::SplitF32{kp, vp}, a.tables,
+                       a.lengths, B, a.KVH, g, P, S, a.pps, a.scale, po, pm,
+                       pl, smem);
   sync();
 
   // 3. the chunks merged in chunk order
@@ -229,6 +242,174 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
   if (a.timing) sync();
 }
 
+// #14's GEMVs.  A unit is NWARPS consecutive output columns (one a warp)
+// over one K slice, as in mxt::gemv.  The block's first unit (unit
+// blockIdx.x) is "resident" when its weight rows fit its buffer: thread 0
+// bulk-copies them into shared memory at launch (ffn_issue), and the math
+// waits on the unit's mbarrier only when it reaches them.  A block's later
+// units, and a unit too large for the buffer, stream their rows from
+// global memory as mxt::gemv does.
+struct FfnUnits {
+  int groups, ks, slice;  // column groups, K slices, columns per slice
+  __device__ FfnUnits(int N, int K, int ks_)
+      : groups((N + mxt::NWARPS - 1) / mxt::NWARPS), ks(ks_),
+        slice((int)round4((K + ks_ - 1) / ks_)) {}
+  __device__ int count() const { return groups * ks; }
+  // the block's first unit, if its rows fit `cap` floats
+  __device__ bool resident(int cap) const {
+    return (int)blockIdx.x < count() && mxt::NWARPS * slice <= cap;
+  }
+};
+
+// thread 0: the bulk copies of the block's resident unit of w (N rows of
+// K) into buf (row r of the unit at buf + r * slice), and, when x is given
+// (B rows of K) and its slice fits `x_cap` floats, of x's rows for that
+// slice into xbuf (row stride: the slice's width), all completing on bar.
+// Returns whether x was copied (the same value in every thread).
+__device__ bool ffn_issue(const FfnUnits& u, const float* w, int N, int K,
+                          float* buf, const float* x, int B, float* xbuf,
+                          int x_cap, uint64_t* bar) {
+  const int unit = blockIdx.x, grp = unit / u.ks, s = unit - grp * u.ks;
+  const int n0 = grp * mxt::NWARPS, rows = min(mxt::NWARPS, N - n0);
+  const int k_lo = s * u.slice, kc = max(0, min(K, k_lo + u.slice) - k_lo);
+  const bool with_x = x != nullptr && B <= mxt::GEMV_ROWS && B * kc <= x_cap;
+  if (threadIdx.x == 0) {
+    const uint32_t b = smem_u32(bar), bytes = (uint32_t)kc * 4;
+    mbar_expect_tx(b, bytes * (rows + (with_x ? B : 0)));
+    if (bytes) {
+      for (int r = 0; r < rows; ++r)
+        bulk_load(smem_u32(buf + (size_t)r * u.slice),
+                  w + (size_t)(n0 + r) * K + k_lo, bytes, b);
+      if (with_x)
+        for (int r = 0; r < B; ++r)
+          bulk_load(smem_u32(xbuf + (size_t)r * kc),
+                    x + (size_t)r * K + k_lo, bytes, b);
+    }
+  }
+  return with_x;
+}
+
+// wait for the first phase of `bar` (the launch's bulk copies).  A copy
+// that never lands (a wrong byte count) would hang the grid at its next
+// barrier: after 2^22 polls (seconds) the launch traps instead.
+__device__ __forceinline__ void wait_copies(uint32_t bar) {
+  for (int i = 0; i < (1 << 22); ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+    if (done) return;
+  }
+  __trap();
+}
+
+// acc[r] += sum over kk < kc of w(kk) * stage[r * kc + kk], r < nb: this
+// lane's columns lane * 4 + 128 j, L weight float4s in flight (1 for
+// weights in shared memory)
+template <int L, class LoadW>
+__device__ __forceinline__ void ffn_dot(LoadW wl, const float* stage, int kc,
+                                        int nb, int lane,
+                                        float (&acc)[mxt::GEMV_ROWS]) {
+  int kk = lane * 4;
+  for (; kk + 128 * (L - 1) < kc; kk += 128 * L) {
+    float4 wv[L];
+#pragma unroll
+    for (int u = 0; u < L; ++u) wv[u] = wl(kk + 128 * u);
+#pragma unroll
+    for (int u = 0; u < L; ++u) {
+#pragma unroll
+      for (int r = 0; r < mxt::GEMV_ROWS; ++r) {
+        if (r < nb) {
+          const float4 xv = *reinterpret_cast<const float4*>(
+              stage + r * kc + kk + 128 * u);
+          acc[r] = fmaf(wv[u].x, xv.x, acc[r]);
+          acc[r] = fmaf(wv[u].y, xv.y, acc[r]);
+          acc[r] = fmaf(wv[u].z, xv.z, acc[r]);
+          acc[r] = fmaf(wv[u].w, xv.w, acc[r]);
+        }
+      }
+    }
+  }
+  for (; kk < kc; kk += 128) {
+    const float4 wv = wl(kk);
+#pragma unroll
+    for (int r = 0; r < mxt::GEMV_ROWS; ++r) {
+      if (r < nb) {
+        const float4 xv = *reinterpret_cast<const float4*>(stage + r * kc + kk);
+        acc[r] = fmaf(wv.x, xv.x, acc[r]);
+        acc[r] = fmaf(wv.y, xv.y, acc[r]);
+        acc[r] = fmaf(wv.z, xv.z, acc[r]);
+        acc[r] = fmaf(wv.w, xv.w, acc[r]);
+      }
+    }
+  }
+}
+
+// epi(b, n, s, sum over K slice s of in[b, k] * W_n[k]) for b < B, n < N,
+// s < u.ks.  stage_in(stage, b0, nb, k0, kc) writes rows b0.. b0 + nb - 1,
+// columns k0.. k0 + kc - 1 of the input into stage (row stride kc).  The
+// block's first unit reads its rows from w_res (null: not resident) once
+// bar completes, and, when x_res, its input from the stage buffer, which
+// the same copies filled.  Each output's FMA order is fixed: the lane's
+// columns in order, then the warp sum.
+template <class Row, class StageIn, class Epi>
+__device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
+                         StageIn stage_in, Epi epi, float* stage,
+                         const float* w_res, bool x_res, uint64_t* bar) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int unit = blockIdx.x; unit < u.count(); unit += gridDim.x) {
+    const int grp = unit / u.ks, s = unit - grp * u.ks;
+    const int n = grp * mxt::NWARPS + warp;
+    const bool has = n < N;
+    const int k_lo = s * u.slice, k_hi = min(K, k_lo + u.slice);
+    const bool res = w_res != nullptr && unit == (int)blockIdx.x;
+    const float* ws = res ? w_res + (size_t)warp * u.slice : nullptr;
+    const float* wg = has ? row(n) : nullptr;
+    for (int b0 = 0; b0 < B; b0 += mxt::GEMV_ROWS) {
+      const int nb = min(mxt::GEMV_ROWS, B - b0);
+      const int kc_max = (FFN_STAGE_FLOATS / nb) & ~3;
+      float acc[mxt::GEMV_ROWS];
+#pragma unroll
+      for (int r = 0; r < mxt::GEMV_ROWS; ++r) acc[r] = 0.f;
+      for (int k0 = k_lo; k0 < k_hi; k0 += kc_max) {
+        const int kc = min(kc_max, k_hi - k0);
+        if (!(res && x_res)) {
+          __syncthreads();
+          stage_in(stage, b0, nb, k0, kc);
+          __syncthreads();
+        }
+        if (res) wait_copies(smem_u32(bar));
+        if (!has) continue;
+        if (res)
+          ffn_dot<1>([=](int kk) {
+                    return *reinterpret_cast<const float4*>(ws + (k0 - k_lo) +
+                                                            kk);
+                  },
+                  stage, kc, nb, lane, acc);
+        else
+          ffn_dot<mxt::GEMV_LOADS>([=](int kk) {
+                    return __ldg(reinterpret_cast<const float4*>(wg + k0 + kk));
+                  },
+                  stage, kc, nb, lane, acc);
+      }
+      if (has) {
+#pragma unroll
+        for (int r = 0; r < mxt::GEMV_ROWS; ++r) {
+          if (r < nb) {
+            const float v = mxt::warp_sum(acc[r]);
+            if (lane == 0) epi(b0 + r, n, s, v);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // the stage buffer is free for the next GEMV
+}
+
 __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
@@ -242,29 +423,94 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
     if (stamp) a.timing[n_stamp++] = globaltimer();
   };
   const int B = a.B, C = a.C, Fl = a.Fl;
-  float* hbuf = a.scratch;
-  float* parts = hbuf + round4((size_t)B * Fl);
-  const float *w1 = a.w1, *b1 = a.b1, *w2 = a.w2;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* w1s = smem + FFN_BAR_FLOATS;
+  float* w2s = w1s + FFN_W1_FLOATS;
+  float* stage = w2s + FFN_W2_FLOATS;
+  float* hparts = a.scratch;
+  float* hbuf = hparts + (size_t)KSPLIT_MAX * B * Fl;
+  float* parts = hbuf + (size_t)B * Fl;
+  const float *x = a.x, *w1 = a.w1, *b1 = a.b1, *w2 = a.w2;
+  const FfnUnits u1(Fl, C, mxt::ksplit_for(Fl));
+  const FfnUnits u2(C, Fl, FFN2_SPLIT ? mxt::ksplit_for(C) : 1);
+  const bool r1 = u1.resident(FFN_W1_FLOATS);
+  const bool r2 = u2.resident(FFN_W2_FLOATS);
 
-  // 1. FFN1 on the column shard + b1, erf GELU
-  mxt::gemv(a.x, B, C, Fl, 1, [=](int n) { return w1 + (size_t)n * C; },
-            [=](int b, int n, int, float v) {
-              hbuf[(size_t)b * Fl + n] = mxt::gelu_erf(v + b1[n]);
-            },
-            smem);
+  // 0. the block's resident weight rows (and FFN1's input rows) on their
+  // way into shared memory before any math
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(bars), 1);
+    mbar_init(smem_u32(bars + 1), 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  bool x_res = false;
+  if (r1)
+    x_res = ffn_issue(u1, w1, Fl, C, w1s, x, B, stage, FFN_STAGE_FLOATS,
+                      bars);
+  if (r2) ffn_issue(u2, w2, C, Fl, w2s, nullptr, 0, nullptr, 0, bars + 1);
+
+  // 1. FFN1 partials over K slices: hparts[s, b, n]
+  ffn_gemv(u1, B, C, Fl, [=](int n) { return w1 + (size_t)n * C; },
+           [=](float* st, int b0, int nb, int k0, int kc) {
+             mxt::stage_rows(st, x + (size_t)b0 * C, nb, C, k0, kc);
+           },
+           [=](int b, int n, int s, float v) {
+             hparts[((size_t)s * B + b) * Fl + n] = v;
+           },
+           stage, r1 ? w1s : nullptr, x_res, bars);
   sync();
 
-  // 2. FFN2 partial over the shard's Fl inputs, K split
-  const int ks = mxt::ksplit_for(C);
-  mxt::gemv(hbuf, B, Fl, C, ks, [=](int n) { return w2 + (size_t)n * Fl; },
-            [=](int b, int n, int s, float v) {
-              parts[((size_t)s * B + b) * C + n] = v;
-            },
-            smem);
+  // 2. h = gelu_erf(the FFN1 slices' sum in slice order + b1), once per
+  // element
+  const int ks1 = u1.ks;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < B * Fl / 4;
+       e += gridDim.x * blockDim.x) {
+    const int k = (e * 4) % Fl;
+    const float* p = hparts + (size_t)e * 4;
+    const float4 bv = __ldg(reinterpret_cast<const float4*>(b1 + k));
+    // the slices in groups of 4 loads in flight, added in slice order
+    float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < ks1; s0 += 4) {
+      float4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (s0 + j < ks1)
+          v[j] = __ldcg(reinterpret_cast<const float4*>(
+              p + (size_t)(s0 + j) * B * Fl));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (s0 + j < ks1) {
+          h.x += v[j].x;
+          h.y += v[j].y;
+          h.z += v[j].z;
+          h.w += v[j].w;
+        }
+      }
+    }
+    reinterpret_cast<float4*>(hbuf)[e] =
+        make_float4(mxt::gelu_erf(h.x + bv.x), mxt::gelu_erf(h.y + bv.y),
+                    mxt::gelu_erf(h.z + bv.z), mxt::gelu_erf(h.w + bv.w));
+  }
   sync();
 
-  // 3. f_part = the slices' sum, in order
-  sum_slices(a.out, parts, ks, B * C);
+  // 3. FFN2 over the shard's Fl inputs
+  float* out = a.out;
+  ffn_gemv(u2, B, Fl, C, [=](int n) { return w2 + (size_t)n * Fl; },
+           [=](float* st, int b0, int nb, int k0, int kc) {
+             mxt::stage_rows(st, hbuf + (size_t)b0 * Fl, nb, Fl, k0, kc);
+           },
+           [=](int b, int n, int s, float v) {
+             if (FFN2_SPLIT)
+               parts[((size_t)s * B + b) * C + n] = v;
+             else
+               out[(size_t)b * C + n] = v;
+           },
+           stage, r2 ? w2s : nullptr, false, bars + 1);
+  if (FFN2_SPLIT || a.timing) sync();
+
+  // 4. f_part = the slices' sum, in order
+  if (FFN2_SPLIT) sum_slices(a.out, parts, u2.ks, B * C);
   if (a.timing) sync();
 }
 
@@ -283,7 +529,7 @@ cudaError_t attn_geometry(int g, int D, int* grid, size_t* smem) {
 }
 
 cudaError_t ffn_geometry(int* grid, size_t* smem) {
-  return mxt::coop_geometry(ffn_phase_kernel, mxt::STAGE_FLOATS, grid, smem);
+  return mxt::coop_geometry(ffn_phase_kernel, FFN_SMEM_FLOATS, grid, smem);
 }
 
 cudaError_t launch(const void* kernel, int grid, size_t smem, void* args,

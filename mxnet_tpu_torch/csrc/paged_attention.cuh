@@ -1,11 +1,11 @@
 // Paged decode attention for one (sequence, KV head) work item, run by a
-// whole thread block.  Shared by the standalone paged-attention kernel
-// (paged_attention.cu) and the fused decode-layer-group kernel
-// (fused_decode.cu), so both compute attention with the same code.
+// whole thread block: the attention of the fused decode-layer-group
+// kernel (fused_decode.cu, #12, through decode_common.cuh:append_attend).
+// The standalone paged attention (paged_attention.cu, #15) and the TP
+// attention phase (decode_phase.cu, #13) split each row's keys over blocks
+// instead (decode_common.cuh:split_attend).
 //
-// Replaces the TPU's upstream jax.experimental.pallas.ops.tpu
-// .paged_attention (called at mxnet_tpu/ops/pallas/paged_attention.py:251)
-// and the masked whole-pool read inside _decode_group_kernel
+// Replaces the masked whole-pool read inside _decode_group_kernel
 // (mxnet_tpu/ops/pallas/fused_cell.py:386-414).
 //
 // Bound on the card: bytes.  Each key and value row is read once from
@@ -19,15 +19,6 @@
 // tile of keys and values, the logits and the running output in shared
 // memory.  The softmax is the online (running max / running sum) form in
 // fp32.
-//
-// The page type is a template parameter (F32Pages or I8Pages below).  int8
-// pages (the JAX package's QPages, attended there in XLA through
-// gather_pages_deq + attend_ctx, mxnet_tpu/ops/pallas/paged_attention.py:
-// 237-247) are dequantized as they are staged: each code times its page's
-// latched per-head scale, one fp32 multiply, as the plain version does.
-// They move a quarter of the bytes of fp pages, 16 codes per 16-byte load
-// (fp pages: 4 values per 16-byte load), so a tile takes a quarter of the
-// load instructions.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,56 +26,14 @@
 
 namespace mxt {
 
-// A page type gives VEC, the values of a key or value row that one
-// 16-byte load brings.
-
 // fp32 pages of one KV head: (P, S, D) for keys and for values
 struct F32Pages {
-  static constexpr int VEC = 4;
   const float* k;
   const float* v;
-  __device__ __forceinline__ void load4(size_t off, int /*page*/, float4& kr,
+  __device__ __forceinline__ void load4(size_t off, float4& kr,
                                         float4& vr) const {
     kr = __ldcg(reinterpret_cast<const float4*>(k + off));
     vr = __ldcg(reinterpret_cast<const float4*>(v + off));
-  }
-};
-
-// int8 pages of one KV head: codes (P, S, D) and per-page scales (P,).
-// load() brings 16 codes of a key row and of a value row and their page's
-// scales into registers; stage() writes them, dequantized, into a padded
-// key row of shared memory (scalar stores) and a value row (float4).
-struct I8Pages {
-  static constexpr int VEC = 16;
-  struct Raw {
-    uint4 k, v;     // 16 codes each
-    float sk, sv;   // their page's scales
-  };
-  const signed char* k;
-  const signed char* v;
-  const float* ks;
-  const float* vs;
-  __device__ __forceinline__ Raw load(size_t off, int page) const {
-    return {__ldcg(reinterpret_cast<const uint4*>(k + off)),
-            __ldcg(reinterpret_cast<const uint4*>(v + off)),
-            __ldcg(ks + page), __ldcg(vs + page)};
-  }
-  // signed byte b of a 4-byte word
-  __device__ __forceinline__ static float code(unsigned w, int b) {
-    return (float)((int)(w << (24 - 8 * b)) >> 24);
-  }
-  __device__ __forceinline__ static void stage(const Raw& r, float* kd,
-                                               float* vd) {
-    const unsigned kw[4] = {r.k.x, r.k.y, r.k.z, r.k.w};
-    const unsigned vw[4] = {r.v.x, r.v.y, r.v.z, r.v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) kd[4 * i + b] = code(kw[i], b) * r.sk;
-      *reinterpret_cast<float4*>(vd + 4 * i) =
-          make_float4(code(vw[i], 0) * r.sv, code(vw[i], 1) * r.sv,
-                      code(vw[i], 2) * r.sv, code(vw[i], 3) * r.sv);
-    }
   }
 };
 
@@ -115,15 +64,14 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // q:      the group's g query rows, row i at q + i * D (heads kvh*g .. +g-1)
-// kv:     the KV head's pages (F32Pages or I8Pages), offset to that head
+// kv:     the KV head's pages, offset to that head
 // table:  the sequence's page-table row (pps entries)
 // out:    the group's g output rows, row i at out + i * D
-// D is a multiple of Pages::VEC and the pools are 16-byte aligned.
+// D is a multiple of 4 and the pools are 16-byte aligned.
 // A length of 0 (an inactive batch row) writes zeros.
 // Page pools, q and out are read with L2-only loads: inside the fused
 // kernel other blocks write them earlier in the same launch.
-template <class Pages>
-__device__ void attend_group(const float* q, const Pages& kv,
+__device__ inline void attend_group(const float* q, const F32Pages& kv,
                              const int* table, int pps, int length, int S,
                              int D, int g, float scale, float* out,
                              float* smem) {
@@ -154,65 +102,37 @@ __device__ void attend_group(const float* q, const Pages& kv,
   }
   const size_t page_stride = (size_t)S * D;
 
-  constexpr int V = Pages::VEC;
-  const int D4 = D >> 2, DV = D / V;  // float4s, loads per row
+  const int D4 = D >> 2;  // float4s a row
   for (int t0 = 0; t0 < length; t0 += ATTN_TILE) {
     const int nt = min(ATTN_TILE, length - t0);
     __syncthreads();
     // stage the tile's key and value rows: STAGE_LOADS independent
-    // 16-byte loads in flight per thread before any is stored (one loop
-    // per page type: fp32 keeps its loads in float4 registers)
-    if constexpr (V == 4) {
-      const int n4 = nt * D4;
-      for (int e0 = tid; e0 < n4; e0 += nth * STAGE_LOADS) {
-        float4 kr[STAGE_LOADS], vr[STAGE_LOADS];
+    // 16-byte loads in flight per thread before any is stored
+    const int n4 = nt * D4;
+    for (int e0 = tid; e0 < n4; e0 += nth * STAGE_LOADS) {
+      float4 kr[STAGE_LOADS], vr[STAGE_LOADS];
 #pragma unroll
-        for (int u = 0; u < STAGE_LOADS; ++u) {
-          const int e = e0 + u * nth;
-          if (e < n4) {
-            const int j = e / D4, t = t0 + j;
-            const int page = table[min(t / S, pps - 1)];
-            const size_t off = (size_t)page * page_stride +
-                               (size_t)(t % S) * D + (size_t)(e - j * D4) * 4;
-            kv.load4(off, page, kr[u], vr[u]);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < STAGE_LOADS; ++u) {
-          const int e = e0 + u * nth;
-          if (e < n4) {
-            const int j = e / D4, d = (e - j * D4) * 4;
-            float* kd = k_s + j * (D + 1) + d;  // padded row: scalar stores
-            kd[0] = kr[u].x;
-            kd[1] = kr[u].y;
-            kd[2] = kr[u].z;
-            kd[3] = kr[u].w;
-            *reinterpret_cast<float4*>(v_s + j * D + d) = vr[u];
-          }
+      for (int u = 0; u < STAGE_LOADS; ++u) {
+        const int e = e0 + u * nth;
+        if (e < n4) {
+          const int j = e / D4, t = t0 + j;
+          const int page = table[min(t / S, pps - 1)];
+          const size_t off = (size_t)page * page_stride +
+                             (size_t)(t % S) * D + (size_t)(e - j * D4) * 4;
+          kv.load4(off, kr[u], vr[u]);
         }
       }
-    } else {
-      const int nv = nt * DV;
-      for (int e0 = tid; e0 < nv; e0 += nth * STAGE_LOADS) {
-        typename Pages::Raw r[STAGE_LOADS];
 #pragma unroll
-        for (int u = 0; u < STAGE_LOADS; ++u) {
-          const int e = e0 + u * nth;
-          if (e < nv) {
-            const int j = e / DV, t = t0 + j;
-            const int page = table[min(t / S, pps - 1)];
-            const size_t off = (size_t)page * page_stride +
-                               (size_t)(t % S) * D + (size_t)(e - j * DV) * V;
-            r[u] = kv.load(off, page);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < STAGE_LOADS; ++u) {
-          const int e = e0 + u * nth;
-          if (e < nv) {
-            const int j = e / DV, d = (e - j * DV) * V;
-            Pages::stage(r[u], k_s + j * (D + 1) + d, v_s + j * D + d);
-          }
+      for (int u = 0; u < STAGE_LOADS; ++u) {
+        const int e = e0 + u * nth;
+        if (e < n4) {
+          const int j = e / D4, d = (e - j * D4) * 4;
+          float* kd = k_s + j * (D + 1) + d;  // padded row: scalar stores
+          kd[0] = kr[u].x;
+          kd[1] = kr[u].y;
+          kd[2] = kr[u].z;
+          kd[3] = kr[u].w;
+          *reinterpret_cast<float4*>(v_s + j * D + d) = vr[u];
         }
       }
     }

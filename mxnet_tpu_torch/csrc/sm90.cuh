@@ -134,6 +134,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// a 1-D bulk copy of `bytes` (a multiple of 16) from global `src` into
+// shared `dst`, both 16-byte aligned; completes on `bar`, whose phase must
+// expect the bytes (mbar_expect_tx)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // fetch a tensor map into the TMA unit's cache ahead of its first load
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];" ::"l"(

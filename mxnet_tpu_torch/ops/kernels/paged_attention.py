@@ -6,10 +6,10 @@ cache is a pool of fixed-size pages (``k_pages``/``v_pages``:
 a page-table row, and attention reads through the table.
 
 - :func:`paged_attention` — one query token per sequence.  A CUDA tensor
-  launches the hand-written kernel ``csrc/paged_attention.cu`` (its design
-  note is in ``csrc/paged_attention.cuh``); a CPU tensor runs
-  :func:`paged_attention_reference`.  There is no fallback: a CUDA call
-  launches the kernel or raises.
+  launches the hand-written kernel ``csrc/paged_attention.cu`` (split-key
+  units over each row's keys, merged in chunk order; its design note is
+  there); a CPU tensor runs :func:`paged_attention_reference`.  There is
+  no fallback: a CUDA call launches the kernel or raises.
 - :func:`paged_attention_reference` — the plain version: gather the
   sequence's pages into a contiguous cache (:func:`gather_pages`), then
   masked fp32 softmax (:func:`attend_ctx`).  Length-0 rows give zeros.
@@ -36,10 +36,14 @@ import torch
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_reference", "gather_pages",
-           "gather_pages_deq", "attend_ctx", "copy_page", "QPages"]
+           "gather_pages_deq", "attend_ctx", "copy_page", "QPages",
+           "paged_attention_times", "PAGED_PHASES"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+#: the kernel's phases: the split units, then the merge in chunk order
+PAGED_PHASES = ("units", "merge")
 
 
 class QPages(NamedTuple):
@@ -139,18 +143,24 @@ def _lib():
     """The loaded library with its entry points typed (once)."""
     lib = _build.load("paged_attention")
     fn = lib.mxt_paged_attention
-    fn.argtypes = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]
-    fn.restype = _I
-    fn = lib.mxt_paged_attention_i8
     fn.argtypes = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]
     fn.restype = _I
+    fn = lib.mxt_paged_attention_i8
+    fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
+    fn.restype = _I
+    lib.mxt_paged_attention_phases.argtypes = []
+    lib.mxt_paged_attention_phases.restype = _I
+    fn = lib.mxt_paged_attention_scratch
+    fn.argtypes = [_I] * 5
+    fn.restype = ctypes.c_longlong
     return lib
 
 
 def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None):
     """Decode-phase paged attention (one query token per sequence).
 
-    q:            (B, num_heads, head_dim) fp32
+    q:            (B, num_heads, head_dim) fp32; head_dim 32, 64 or 128
+                  for a CUDA tensor
     k_pages/v_pages: (num_kv_heads, total_pages, page_size, head_dim) fp32,
                   or :class:`QPages` of that layout (int8 codes, fp32
                   scales (num_kv_heads, total_pages))
@@ -166,6 +176,21 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None):
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, lengths,
                                           page_indices, scale=scale)
+    return _launch(q, k_pages, v_pages, lengths, page_indices, scale, None)
+
+
+def paged_attention_times(q, k_pages, v_pages, lengths, page_indices,
+                          scale=None):
+    """One launch of the kernel on CUDA tensors (as :func:`paged_attention`)
+    that also stamps the card's global timer at the end of each phase.
+    Returns ``{phase: ns}`` in the kernel's order (:data:`PAGED_PHASES`)."""
+    stamps = torch.zeros(len(PAGED_PHASES) + 1, dtype=torch.int64,
+                         device=q.device)
+    _launch(q, k_pages, v_pages, lengths, page_indices, scale, stamps)
+    return dict(zip(PAGED_PHASES, torch.diff(stamps.cpu()).tolist()))
+
+
+def _launch(q, k_pages, v_pages, lengths, page_indices, scale, stamps):
     if q.device.type != "cuda":
         raise ValueError("paged_attention: unsupported device %s" % q.device)
     int8 = isinstance(k_pages, QPages)
@@ -201,30 +226,41 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None):
                              "tensor of shape %s on %s (got %s %s on %s)"
                              % (name, dt, tuple(shape), q.device, t.dtype,
                                 tuple(t.shape), t.device))
-    vec = 16 if int8 else 4       # values per 16-byte load
-    if D % vec:
-        raise ValueError("paged_attention: head_dim must be a multiple of %d"
-                         % vec)
+    if D not in (32, 64, 128):
+        raise ValueError("paged_attention: head_dim must be 32, 64 or 128 "
+                         "(a lane takes head_dim / 32 columns), got %d" % D)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     lib = _lib()
+    if stamps is not None and lib.mxt_paged_attention_phases() != len(
+            PAGED_PHASES):
+        raise RuntimeError("paged_attention: the kernel stamps %d phases, "
+                           "PAGED_PHASES names %d"
+                           % (lib.mxt_paged_attention_phases(),
+                              len(PAGED_PHASES)))
     out = torch.empty_like(q)
     if not B:
         return out
+    # the split units' partials: outputs, maxima and sums per unit
+    scratch = torch.empty(lib.mxt_paged_attention_scratch(B, H, KVH, D,
+                                                          pps * S),
+                          dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if int8:
         rc = lib.mxt_paged_attention_i8(
             q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
             k_pages.s.data_ptr(), v_pages.s.data_ptr(), lengths.data_ptr(),
-            page_indices.data_ptr(), out.data_ptr(), B, H, KVH, P, S, D, pps,
-            float(scale), stream)
+            page_indices.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), B, H, KVH, P, S,
+            D, pps, float(scale), stream)
         _build.check(lib, rc, "paged_attention (int8 pages)")
         paged_attention.launches_int8 += 1
     else:
         rc = lib.mxt_paged_attention(
             q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lengths.data_ptr(),
-            page_indices.data_ptr(), out.data_ptr(), B, H, KVH, P, S, D,
-            pps, float(scale), stream)
+            page_indices.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), B, H, KVH, P, S,
+            D, pps, float(scale), stream)
         _build.check(lib, rc, "paged_attention")
         paged_attention.launches += 1
     return out
