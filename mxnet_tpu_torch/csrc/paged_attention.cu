@@ -24,9 +24,11 @@
 // lane loads its E = D / 32 codes of a row (2 bytes at D 64) and
 // multiplies them by the page's scale, which the lane that found the
 // key's page loads beside it; the loads are as many as for fp pages, each
-// a quarter of the bytes, and the unit stays one round trip.  Sums run in
-// a fixed order and no atomic decides a result: the output does not
-// depend on timing.
+// a quarter of the bytes, and the unit stays one round trip.  Four blocks
+// an SM (64 registers at D 64, no spill): a row's units take fewer rounds
+// of the grid.  Two plain launches (units, then merge) in place of the
+// grid barrier read slower (PERF.md, PR 14).  Sums run in a fixed order
+// and no atomic decides a result: the output does not depend on timing.
 #include "decode_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -51,7 +53,7 @@ constexpr int PAGED_PHASES = 2;
 // stamps the start and the end of each phase (the merge then gets a
 // barrier of its own)
 template <int E, class Pages>
-__global__ void __launch_bounds__(mxt::NTHREADS, 3)
+__global__ void __launch_bounds__(mxt::NTHREADS, 4)
 paged_split_kernel(PagedArgs a, Pages pages) {
   extern __shared__ __align__(16) float smem[];
   constexpr int D = 32 * E;
