@@ -160,7 +160,7 @@ constexpr int FFN_SMEM_FLOATS =
 
 // the attention and the FFN phase's phases, each closed by a grid barrier
 constexpr int ATTN_PHASES = 5;
-constexpr int FFN_PHASES = 3;
+constexpr int FFN_PHASES = 4;
 
 using mxt::globaltimer;
 
@@ -564,36 +564,44 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
            stage, r1 ? w1s : nullptr, x_res, bars);
   sync();
 
-  // 2. (folded into FFN2's staging)
+  // 2. h = gelu_erf(the FFN1 slices' sum in slice order + b1), once per
+  // element
+  const int ks1 = u1.ks;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < B * Fl / 4;
+       e += gridDim.x * blockDim.x) {
+    const int k = (e * 4) % Fl;
+    const float* p = hparts + (size_t)e * 4;
+    const float4 bv = __ldg(reinterpret_cast<const float4*>(b1 + k));
+    // the slices in groups of 4 loads in flight, added in slice order
+    float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < ks1; s0 += 4) {
+      float4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (s0 + j < ks1)
+          v[j] = __ldcg(reinterpret_cast<const float4*>(
+              p + (size_t)(s0 + j) * B * Fl));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (s0 + j < ks1) {
+          h.x += v[j].x;
+          h.y += v[j].y;
+          h.z += v[j].z;
+          h.w += v[j].w;
+        }
+      }
+    }
+    reinterpret_cast<float4*>(hbuf)[e] =
+        make_float4(mxt::gelu_erf(h.x + bv.x), mxt::gelu_erf(h.y + bv.y),
+                    mxt::gelu_erf(h.z + bv.z), mxt::gelu_erf(h.w + bv.w));
+  }
+  sync();
+
   // 3. FFN2 over the shard's Fl inputs
   float* out = a.out;
   ffn_gemv(u2, B, Fl, C, [=](int n) { return w2 + (size_t)n * Fl; },
            [=](float* st, int p, int b0, int nb, int k0, int kc) {
-             // h = gelu_erf(the FFN1 slices' sum in slice order + b1)
-             const int kc4 = kc >> 2, n4 = nb * kc4, ks1 = u1.ks;
-             for (int e = threadIdx.x; e < n4; e += blockDim.x) {
-               const int r = e / kc4, k = k0 + (e - r * kc4) * 4;
-               const float* hp = hparts + (size_t)(b0 + r) * Fl + k;
-               const float4 bv = __ldg(reinterpret_cast<const float4*>(b1 + k));
-               float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
-               for (int s0 = 0; s0 < ks1; s0 += 4) {
-                 float4 v[4];
-#pragma unroll
-                 for (int j = 0; j < 4; ++j)
-                   if (s0 + j < ks1)
-                     v[j] = __ldcg(reinterpret_cast<const float4*>(
-                         hp + (size_t)(s0 + j) * B * Fl));
-#pragma unroll
-                 for (int j = 0; j < 4; ++j) {
-                   if (s0 + j < ks1) {
-                     h.x += v[j].x; h.y += v[j].y; h.z += v[j].z; h.w += v[j].w;
-                   }
-                 }
-               }
-               *reinterpret_cast<float4*>(st + r * p + (e - r * kc4) * 4) =
-                   make_float4(mxt::gelu_erf(h.x + bv.x), mxt::gelu_erf(h.y + bv.y),
-                               mxt::gelu_erf(h.z + bv.z), mxt::gelu_erf(h.w + bv.w));
-             }
+             ffn_stage(st, p, hbuf + (size_t)b0 * Fl, nb, Fl, k0, kc);
            },
            [=](int b, int n, int s, float v) {
              if (FFN2_SPLIT)

@@ -49,11 +49,12 @@ struct PagedArgs {
 // the kernel's phases (units, merge), each closed by a grid barrier
 constexpr int PAGED_PHASES = 2;
 
-// two plain launches: the units, then the merge (block 0 stamps the
-// units' start, the merge's start and its end)
+// the units, a grid barrier, the merge; with a timing buffer block 0
+// stamps the start and the end of each phase (the merge then gets a
+// barrier of its own)
 template <int E, class Pages>
 __global__ void __launch_bounds__(mxt::NTHREADS, 4)
-paged_units_kernel(PagedArgs a, Pages pages) {
+paged_split_kernel(PagedArgs a, Pages pages) {
   extern __shared__ __align__(16) float smem[];
   constexpr int D = 32 * E;
   const int g = a.H / a.KVH, max_keys = a.pps * a.S, Cq = a.H * D;
@@ -62,42 +63,38 @@ paged_units_kernel(PagedArgs a, Pages pages) {
   float* pm = po + mxt::round4(U * g * D);
   float* pl = pm + mxt::round4(U * g);
   const float* q = a.q;
-  if (a.timing && blockIdx.x == 0 && threadIdx.x == 0)
-    a.timing[0] = mxt::globaltimer();
+  cg::grid_group grid = cg::this_grid();
+  long long* stamp =
+      blockIdx.x == 0 && threadIdx.x == 0 ? a.timing : nullptr;
+  if (stamp) stamp[0] = mxt::globaltimer();
   mxt::split_attend<E>(
       [=](int b, int c) { return __ldg(q + (size_t)b * Cq + c); },
       [](int, int) {}, pages, a.tables, a.lengths, a.B, a.KVH, g, a.P, a.S,
       a.pps, a.scale, po, pm, pl, smem);
-}
-
-template <int E>
-__global__ void __launch_bounds__(mxt::NTHREADS)
-paged_merge_kernel(PagedArgs a) {
-  constexpr int D = 32 * E;
-  const int g = a.H / a.KVH, max_keys = a.pps * a.S;
-  const size_t U = mxt::split_units_max(a.B, a.KVH, max_keys);
-  float* po = a.scratch;
-  float* pm = po + mxt::round4(U * g * D);
-  float* pl = pm + mxt::round4(U * g);
-  const bool stamp = a.timing && blockIdx.x == 0 && threadIdx.x == 0;
-  if (stamp) a.timing[1] = mxt::globaltimer();
+  grid.sync();
+  if (stamp) stamp[1] = mxt::globaltimer();
   mxt::split_merge(po, pm, pl, a.lengths, a.B, a.KVH, g, D, max_keys, a.out);
-  if (stamp) a.timing[2] = mxt::globaltimer();
+  if (a.timing) {
+    grid.sync();
+    if (stamp) stamp[2] = mxt::globaltimer();
+  }
 }
 
 template <int E, class Pages>
 cudaError_t launch_split(const PagedArgs& a, const Pages& pages,
                          cudaStream_t stream) {
-  const size_t smem =
-      (size_t)mxt::split_smem_floats(a.H / a.KVH, 32 * E) * sizeof(float);
-  const int units = (int)mxt::split_units_max(a.B, a.KVH, a.pps * a.S);
-  paged_units_kernel<E, Pages>
-      <<<units, mxt::NTHREADS, smem, stream>>>(a, pages);
-  cudaError_t e = cudaGetLastError();
+  auto kernel = paged_split_kernel<E, Pages>;
+  int grid = 0;
+  size_t smem = 0;
+  cudaError_t e = mxt::coop_geometry(
+      kernel, mxt::split_smem_floats(a.H / a.KVH, 32 * E), &grid, &smem);
   if (e != cudaSuccess) return e;
-  const int n = a.B * a.H * 32 * E;
-  paged_merge_kernel<E><<<(n + mxt::NTHREADS - 1) / mxt::NTHREADS,
-                          mxt::NTHREADS, 0, stream>>>(a);
+  PagedArgs args = a;
+  Pages p = pages;
+  void* params[] = {&args, &p};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, grid, mxt::NTHREADS,
+                                  params, smem, stream);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
