@@ -146,14 +146,14 @@ __host__ __device__ inline size_t ffn_scratch_floats(int B, int C, int Fl) {
 
 // #14: FFN2 split over K (partials, a grid barrier and their sum in slice
 // order), or not (one column group a unit writes f_part itself)
-constexpr bool FFN2_SPLIT = false;
+constexpr bool FFN2_SPLIT = true;
 // #14's shared memory: two mbarriers, a block's resident w1 rows and w2
 // rows (at tp 2, full width: 8 rows of 384 columns each), then the stage
 // (16 rows of 384 columns).  48 KB a block: three blocks an SM leave L1
 // ~90 KB for the register spills
 constexpr int FFN_BAR_FLOATS = 4;
-constexpr int FFN_W1_FLOATS = 8 * 772;
-constexpr int FFN_W2_FLOATS = 8 * 1540;
+constexpr int FFN_W1_FLOATS = 8 * 388;
+constexpr int FFN_W2_FLOATS = 8 * 388;
 constexpr int FFN_STAGE_FLOATS = 16 * 388;
 constexpr int FFN_SMEM_FLOATS =
     FFN_BAR_FLOATS + FFN_W1_FLOATS + FFN_W2_FLOATS + FFN_STAGE_FLOATS;
@@ -288,7 +288,8 @@ struct FfnUnits {
   // rows (at most GEMV_ROWS) the stage
   __device__ bool resident(int cap) const {
     const int p = ffn_pitch(slice);
-    return (int)blockIdx.x < count() && mxt::NWARPS * p <= cap;
+    return (int)blockIdx.x < count() && mxt::NWARPS * p <= cap &&
+           mxt::GEMV_ROWS * p <= FFN_STAGE_FLOATS;
   }
 };
 
@@ -311,8 +312,7 @@ struct FfnCopies {
     rows = min(mxt::NWARPS, N - n0);
     k_lo = s * u.slice;
     kc = max(0, min(K, k_lo + u.slice) - k_lo);
-    xrows = x != nullptr && B <= mxt::GEMV_ROWS &&
-                    B * ffn_pitch(kc) <= FFN_STAGE_FLOATS ? B : 0;
+    xrows = x != nullptr && B <= mxt::GEMV_ROWS ? B : 0;
   }
   __device__ uint32_t bytes() const {
     return (uint32_t)(rows + xrows) * kc * 4;
@@ -380,36 +380,32 @@ __device__ void ffn_stage(float* st, int p, const float* in, int nb, int K,
 // l % 4 + 4 over the float4 columns w, w + 8, w + 16, ...: per step 4
 // float4 loads (two of them broadcast) for 16 FMAs.  Then the 8 warps'
 // partials, in warp order, through red (which may overlay xs).
-__device__ __forceinline__ void ffn_tile_acc(const float* ws, int wp,
-                                             const float* xs, int xp, int kc,
-                                             float (&a)[4]) {
+template <class Epi>
+__device__ void ffn_tiles(const float* ws, const float* xs, int p, int kc,
+                          int nb, int cols, float* red, Epi epi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* x0 = xs + (lane >> 2) * xp;
-  const float* x1 = x0 + 8 * xp;
-  const float* w0 = ws + (lane & 3) * wp;
-  const float* w1 = w0 + 4 * wp;
+  const float* x0 = xs + (lane >> 2) * p;
+  const float* x1 = x0 + 8 * p;
+  const float* w0 = ws + (lane & 3) * p;
+  const float* w1 = w0 + 4 * p;
+  float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f;
   for (int f = warp * 4; f < kc; f += mxt::NWARPS * 4) {
     const float4 xa = *reinterpret_cast<const float4*>(x0 + f);
     const float4 xb = *reinterpret_cast<const float4*>(x1 + f);
     const float4 wa = *reinterpret_cast<const float4*>(w0 + f);
     const float4 wb = *reinterpret_cast<const float4*>(w1 + f);
-    a[0] = fmaf(xa.x, wa.x, a[0]); a[0] = fmaf(xa.y, wa.y, a[0]);
-    a[0] = fmaf(xa.z, wa.z, a[0]); a[0] = fmaf(xa.w, wa.w, a[0]);
-    a[1] = fmaf(xa.x, wb.x, a[1]); a[1] = fmaf(xa.y, wb.y, a[1]);
-    a[1] = fmaf(xa.z, wb.z, a[1]); a[1] = fmaf(xa.w, wb.w, a[1]);
-    a[2] = fmaf(xb.x, wa.x, a[2]); a[2] = fmaf(xb.y, wa.y, a[2]);
-    a[2] = fmaf(xb.z, wa.z, a[2]); a[2] = fmaf(xb.w, wa.w, a[2]);
-    a[3] = fmaf(xb.x, wb.x, a[3]); a[3] = fmaf(xb.y, wb.y, a[3]);
-    a[3] = fmaf(xb.z, wb.z, a[3]); a[3] = fmaf(xb.w, wb.w, a[3]);
+    a00 = fmaf(xa.x, wa.x, a00); a00 = fmaf(xa.y, wa.y, a00);
+    a00 = fmaf(xa.z, wa.z, a00); a00 = fmaf(xa.w, wa.w, a00);
+    a01 = fmaf(xa.x, wb.x, a01); a01 = fmaf(xa.y, wb.y, a01);
+    a01 = fmaf(xa.z, wb.z, a01); a01 = fmaf(xa.w, wb.w, a01);
+    a10 = fmaf(xb.x, wa.x, a10); a10 = fmaf(xb.y, wa.y, a10);
+    a10 = fmaf(xb.z, wa.z, a10); a10 = fmaf(xb.w, wa.w, a10);
+    a11 = fmaf(xb.x, wb.x, a11); a11 = fmaf(xb.y, wb.y, a11);
+    a11 = fmaf(xb.z, wb.z, a11); a11 = fmaf(xb.w, wb.w, a11);
   }
-}
-
-template <class Epi>
-__device__ void ffn_tile_reduce(const float (&a)[4], int nb, int cols,
-                                float* red, Epi epi) {
-  __syncthreads();  // every warp is done with the stage
+  __syncthreads();  // every warp is done with xs
   reinterpret_cast<float4*>(red)[threadIdx.x] =
-      make_float4(a[0], a[1], a[2], a[3]);
+      make_float4(a00, a01, a10, a11);
   __syncthreads();
   const int t = threadIdx.x;
   if (t < mxt::GEMV_ROWS * mxt::NWARPS) {
@@ -468,24 +464,17 @@ __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
     const int n0 = grp * mxt::NWARPS;
     const int k_lo = s * u.slice, k_hi = min(K, k_lo + u.slice);
     if (w_res != nullptr && unit == (int)blockIdx.x) {
-      const int kc_all = max(0, k_hi - k_lo), wp = ffn_pitch(kc_all);
-      const int kcs = x_res ? kc_all
-                            : ((FFN_STAGE_FLOATS / mxt::GEMV_ROWS - 4) & ~31);
+      const int kc = max(0, k_hi - k_lo), p = ffn_pitch(kc);
       for (int b0 = 0; b0 < B; b0 += mxt::GEMV_ROWS) {
         const int nb = min(mxt::GEMV_ROWS, B - b0);
-        float acc4[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int k0 = k_lo; k0 < k_hi; k0 += kcs) {
-          const int kc = min(kcs, k_hi - k0), xp = ffn_pitch(kc);
-          if (!x_res) {
-            __syncthreads();
-            stage_in(stage, xp, b0, nb, k0, kc);
-            __syncthreads();
-          }
-          wait_copies(smem_u32(bar));
-          ffn_tile_acc(w_res + (k0 - k_lo), wp, stage, xp, kc, acc4);
+        if (!x_res) {
+          __syncthreads();
+          stage_in(stage, p, b0, nb, k_lo, kc);
+          __syncthreads();
         }
-        ffn_tile_reduce(acc4, nb, N - n0, stage,
-                        [&](int b, int c, float v) { epi(b0 + b, n0 + c, s, v); });
+        wait_copies(smem_u32(bar));
+        ffn_tiles(w_res, stage, p, kc, nb, N - n0, stage,
+                  [&](int b, int c, float v) { epi(b0 + b, n0 + c, s, v); });
       }
       continue;
     }

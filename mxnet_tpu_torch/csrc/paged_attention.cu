@@ -53,7 +53,7 @@ constexpr int PAGED_PHASES = 2;
 // stamps the start and the end of each phase (the merge then gets a
 // barrier of its own)
 template <int E, class Pages>
-__global__ void __launch_bounds__(mxt::NTHREADS, 3)
+__global__ void __launch_bounds__(mxt::NTHREADS, 4)
 paged_split_kernel(PagedArgs a, Pages pages) {
   extern __shared__ __align__(16) float smem[];
   constexpr int D = 32 * E;
