@@ -14,9 +14,14 @@ plain version):
    card, at the main paths' full-width shapes and at a GQA geometry, with
    the tolerance stated; each kernel's time, its plain version's time,
    its bound and (where one exists) one PyTorch call's time.  The
-   quantized-serving kernels (``quant_matmul`` int8 and int4, paged
-   attention over int8 pages) are checked at the three GEMM shapes of a
-   layer and M in {1, 16, 64}, and at B 16, H 12 (KVH 12 and 4).  The
+   quantized-serving kernels (``quant_matmul`` int8 and int4) are checked
+   at the three GEMM shapes of a layer and M in {1, 16, 64}.  Paged
+   attention (#15), over fp32 and over int8 pages, at H 12 over 12 and 4
+   KV heads, D 64, in the cases of ``TP_CASES`` (B 16 with mixed lengths,
+   lengths on each side of its 64-key chunks, every row at 512; B 1), every
+   length-0 row zero; timed at mixed lengths and every row at 512 with its
+   phases by ``%globaltimer``.  The fused decode layer group (#12) prints a
+   digest of its outputs.  The
    training kernels: ``bias_gelu_backward`` at (4096, 3072), (4096, 768)
    and (4095, 3072) in float32 and bfloat16; ``bias_dropout_residual``
    forward (rates 0, 0.1, 0.5) and backward (0.1, 0.5) at (4096, 768) and
@@ -54,9 +59,10 @@ plain version):
    tp 2 and 4 of the serving model and at tp 2 of a GQA one (12 heads
    over 4 KV heads), at B 16 (lengths 1..512 with one row of length 0;
    lengths on each side of #13's 64-key chunks; every row at 512) and
-   B 1, pages and partial products held; #13 timed at B 16 on shard 0
-   with mixed lengths and with every row at 512, its phases stamped by
-   ``%globaltimer``; #14 timed with mixed lengths.  The
+   B 1, pages and partial products held, with digests of #13's and #14's
+   outputs on shard 0 at tp 2; #13 timed at B 16 on shard 0 with mixed
+   lengths and with every row at 512, #14 with mixed lengths, each with
+   its phases stamped by ``%globaltimer``.  The
    #16 route (``flash_attention_sharded`` on a dp 2 x tp 2 mesh at B 32,
    H 12, L 128, D 64, causal, fp32 and bf16: one flash call over the
    whole tensors) against the plain causal attention, the unsharded #5
@@ -310,14 +316,16 @@ def paged_cases(rng):
 def check_paged(torch, timer, report, int8):
     """#15 over fp pages, or over int8 QPages (``int8``), against
     ``paged_attention_reference`` (for int8 pages: gather_pages_deq +
-    attend_ctx) at H 12 over 12 and over 4 KV heads, D 64, in every case of
-    TP_CASES; every length-0 row must be zero.  Times in PAGED_TIMED beside
-    the plain version and SDPA on the gathered (dequantized) cache."""
+    attend_ctx) at H 12 over 12 and over 4 KV heads, D 64 (and over 4 KV
+    heads at D 32 and 128, the kernel's other instantiations), in every
+    case of TP_CASES; every length-0 row must be zero.  Times at D 64 in
+    PAGED_TIMED beside the plain version and SDPA on the gathered
+    (dequantized) cache."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.kernels import paged_attention as pa
     name = "paged_attention_int8" if int8 else "paged_attention"
-    D, P, pps = 64, SLOTS * 32 + 1, 32
-    for H, KVH in ((12, 12), (12, 4)):
+    P, pps = SLOTS * 32 + 1, 32
+    for H, KVH, D in ((12, 12, 64), (12, 4, 64), (12, 4, 32), (12, 4, 128)):
         rng = np.random.default_rng(7 if int8 else 2)
         g = torch.Generator(device=DEV).manual_seed(8 if int8 else 3)
         for case, lengths in paged_cases(rng):
@@ -349,7 +357,7 @@ def check_paged(torch, timer, report, int8):
             if not err <= TOL_ATTENTION:
                 raise AssertionError("%s disagrees with its plain version"
                                      % name)
-            if case not in PAGED_TIMED:
+            if case not in PAGED_TIMED or D != 64:
                 continue
             ms = timer(lambda: pa.paged_attention(q, kp, vp, ln, tb))
             plain = timer(lambda: pa.paged_attention_reference(q, kp, vp, ln,
@@ -1801,9 +1809,11 @@ def check_tp_phases(torch, timer, report, lm, lm_gqa):
     heads over 4 KV heads: 2 KV heads per shard), in the cases of
     TP_CASES: B 16 with mixed lengths 1..512 (one row of 512, one of 0),
     with lengths on each side of the 64-key chunks, with every row at 512,
-    and B 1 (length 512); pages and partial products held.  Times at B 16
-    on shard 0 of the full-width model, mixed lengths and all at 512 (the
-    worst case), with #13's phases by ``%globaltimer``."""
+    and B 1 (length 512); pages and partial products held, and digests of
+    the outputs on shard 0 of tp 2 with mixed lengths (equal digests in two
+    trees: the same bits).  Times at B 16 on shard 0 of the full-width
+    model, #13 at mixed lengths and all at 512 (the worst case), #14 at
+    mixed lengths, each with its phases by ``%globaltimer``."""
     from mxnet_tpu_torch.models import decoder as dec
     from mxnet_tpu_torch.ops.kernels import fused_cell as fc
     P, pps = SLOTS * 32 + 1, 32
@@ -1912,6 +1922,24 @@ def check_tp_phases(torch, timer, report, lm, lm_gqa):
                 key = "tp%d" % tp if case == "mixed" else "tp%d_%s" % (tp,
                                                                        case)
                 rows.setdefault(name, {})[key] = row
+    # #14 at B 16 and 20 (two passes of 16 rows) on shard 0 of tp 2, and on
+    # a whole layer's FFN (tp 1's widths), whose units are too large for
+    # the shared-memory budget and stream their weight rows
+    plan = dec.tp_plan(lm.config, tp_sharding(2))
+    g = torch.Generator(device=DEV).manual_seed(15)
+    for label, lp in (("tp 2 shard 0",
+                       plan.shard_params(lm.params())[0]["layers"][0]),
+                      ("whole layer", lm.params()["layers"][0])):
+        for B in (16, 20):
+            x = torch.randn(B, lm.config.units, device=DEV, generator=g)
+            fargs = (x, lp["w1"], lp["b1"], lp["w2"])
+            err = float((fc.decode_ffn_phase(*fargs)
+                         - fc.decode_ffn_phase_plain(*fargs)).abs().max())
+            log("decode_ffn_phase %s (FFN width %d) B %d: max_abs_err %.3g "
+                "(tol %g)" % (label, lp["w1"].shape[0], B, err, TOL_PHASE))
+            if not err <= TOL_PHASE:
+                raise AssertionError("decode_ffn_phase disagrees with its "
+                                     "plain version")
     for name, line in (("decode_attn_phase", 509), ("decode_ffn_phase", 617)):
         report[name] = dict(
             name=name, route="cuda",

@@ -144,9 +144,6 @@ __host__ __device__ inline size_t ffn_scratch_floats(int B, int C, int Fl) {
   return (size_t)KSPLIT_MAX * B * (Fl + C) + (size_t)B * Fl;
 }
 
-// #14: FFN2 split over K (partials, a grid barrier and their sum in slice
-// order), or not (one column group a unit writes f_part itself)
-constexpr bool FFN2_SPLIT = true;
 // #14's shared memory: two mbarriers, a block's resident w1 rows and w2
 // rows (at tp 2, full width: 8 rows of 384 columns each), then the stage
 // (16 rows of 384 columns).  48 KB a block: three blocks an SM leave L1
@@ -160,7 +157,7 @@ constexpr int FFN_SMEM_FLOATS =
 
 // the attention and the FFN phase's phases, each closed by a grid barrier
 constexpr int ATTN_PHASES = 5;
-constexpr int FFN_PHASES = 4;
+constexpr int FFN_PHASES = 5;
 
 using mxt::globaltimer;
 
@@ -454,11 +451,13 @@ __device__ __forceinline__ void ffn_dot(const float* wg, const float* stage,
 // 1, columns k0.. k0 + kc - 1 of the input into stage at pitch p.  The
 // block's first unit reads its weight rows from w_res (null: not
 // resident) once bar completes, and, when x_res, its input from the
-// stage, which the same copies filled.  Each output's FMA order is fixed.
+// stage, which the same copies filled.  With `landed`, each block raises
+// it to the time its copies landed.  Each output's FMA order is fixed.
 template <class Row, class StageIn, class Epi>
 __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
                          StageIn stage_in, Epi epi, float* stage,
-                         const float* w_res, bool x_res, uint64_t* bar) {
+                         const float* w_res, bool x_res, uint64_t* bar,
+                         unsigned long long* landed) {
   for (int unit = blockIdx.x; unit < u.count(); unit += gridDim.x) {
     const int grp = unit / u.ks, s = unit - grp * u.ks;
     const int n0 = grp * mxt::NWARPS;
@@ -473,6 +472,8 @@ __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
           __syncthreads();
         }
         wait_copies(smem_u32(bar));
+        if (landed != nullptr && threadIdx.x == 0)
+          atomicMax(landed, (unsigned long long)globaltimer());
         ffn_tiles(w_res, stage, p, kc, nb, N - n0, stage,
                   [&](int b, int c, float v) { epi(b0 + b, n0 + c, s, v); });
       }
@@ -512,11 +513,17 @@ __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
 __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
-  // stamps as in attn_phase_kernel
+  // stamps as in attn_phase_kernel, but for the first phase: "copies"
+  // ends when the last block's FFN1 rows have landed (each block raises
+  // timing[1] to its landing time), and FFN1 follows it
   const bool stamp = a.timing != nullptr && blockIdx.x == 0 &&
                      threadIdx.x == 0;
-  int n_stamp = 0;
-  if (stamp) a.timing[n_stamp++] = globaltimer();
+  int n_stamp = 2;
+  if (stamp) {
+    a.timing[0] = globaltimer();
+    atomicMax(reinterpret_cast<unsigned long long*>(a.timing + 1),
+              (unsigned long long)a.timing[0]);
+  }
   auto sync = [&]() {
     grid.sync();
     if (stamp) a.timing[n_stamp++] = globaltimer();
@@ -531,7 +538,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
   float* parts = hbuf + (size_t)B * Fl;
   const float *x = a.x, *w1 = a.w1, *b1 = a.b1, *w2 = a.w2;
   const FfnUnits u1(Fl, C, mxt::ksplit_for(Fl));
-  const FfnUnits u2(C, Fl, FFN2_SPLIT ? mxt::ksplit_for(C) : 1);
+  const FfnUnits u2(C, Fl, mxt::ksplit_for(C));
   const bool r1 = u1.resident(FFN_W1_FLOATS);
   const bool r2 = u2.resident(FFN_W2_FLOATS);
 
@@ -561,7 +568,9 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
            [=](int b, int n, int s, float v) {
              hparts[((size_t)s * B + b) * Fl + n] = v;
            },
-           stage, r1 ? w1s : nullptr, x_res, bars);
+           stage, r1 ? w1s : nullptr, x_res, bars,
+           a.timing ? reinterpret_cast<unsigned long long*>(a.timing + 1)
+                    : nullptr);
   sync();
 
   // 2. h = gelu_erf(the FFN1 slices' sum in slice order + b1), once per
@@ -598,22 +607,18 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
   sync();
 
   // 3. FFN2 over the shard's Fl inputs
-  float* out = a.out;
   ffn_gemv(u2, B, Fl, C, [=](int n) { return w2 + (size_t)n * Fl; },
            [=](float* st, int p, int b0, int nb, int k0, int kc) {
              ffn_stage(st, p, hbuf + (size_t)b0 * Fl, nb, Fl, k0, kc);
            },
            [=](int b, int n, int s, float v) {
-             if (FFN2_SPLIT)
-               parts[((size_t)s * B + b) * C + n] = v;
-             else
-               out[(size_t)b * C + n] = v;
+             parts[((size_t)s * B + b) * C + n] = v;
            },
-           stage, r2 ? w2s : nullptr, false, bars + 1);
-  if (FFN2_SPLIT || a.timing) sync();
+           stage, r2 ? w2s : nullptr, false, bars + 1, nullptr);
+  sync();
 
   // 4. f_part = the slices' sum, in order
-  if (FFN2_SPLIT) sum_slices(a.out, parts, u2.ks, B * C);
+  sum_slices(a.out, parts, u2.ks, B * C);
   if (a.timing) sync();
 }
 
