@@ -49,8 +49,9 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   to its tp 1 run's;
 - ``paged``: ``chip_smoke.check_paged_attention`` and
   ``check_paged_attention_int8`` (#15 over fp and int8 pages at H 12 over
-  12 and 4 KV heads, D 64, held in every case of ``TP_CASES``, timed at
-  B 16 with mixed lengths and with every row at 512).
+  12 and 4 KV heads, D 64, and over 4 KV heads at D 32 and 128, held in
+  every case of ``TP_CASES``; timed at D 64, B 16, with mixed lengths and
+  with every row at 512, with its phases by ``%globaltimer``).
 
 A TREE named more than once runs that many more turns; a TREE whose
 build fails is left out of the turns (the exit code is then 1).  Every

@@ -146,8 +146,8 @@ __host__ __device__ inline size_t ffn_scratch_floats(int B, int C, int Fl) {
 
 // #14's shared memory: two mbarriers, a block's resident w1 rows and w2
 // rows (at tp 2, full width: 8 rows of 384 columns each), then the stage
-// (16 rows of 384 columns).  48 KB a block: three blocks an SM leave L1
-// ~90 KB for the register spills
+// (16 rows of 384 columns), rows padded (ffn_pitch): 48.5 KB a block,
+// three blocks an SM
 constexpr int FFN_BAR_FLOATS = 4;
 constexpr int FFN_W1_FLOATS = 8 * 388;
 constexpr int FFN_W2_FLOATS = 8 * 388;
