@@ -61,7 +61,8 @@ __all__ = ["lstm_sequence", "lstm_sequence_plain",
            "LSTM_BWD_PHASES", "LSTM_GATES_PHASES", "lstm_bwd_phase_times",
            "decode_attn_phase", "decode_attn_phase_plain",
            "decode_attn_phase_times", "ATTN_PHASES", "decode_ffn_phase",
-           "decode_ffn_phase_plain", "phase_grid_blocks"]
+           "decode_ffn_phase_plain", "decode_ffn_phase_times", "FFN_PHASES",
+           "phase_grid_blocks"]
 
 #: the kernel's phases per layer, separated by grid-wide barriers
 PHASES = ("qkv", "append+attention", "out_proj", "residual+ln1",
@@ -69,6 +70,9 @@ PHASES = ("qkv", "append+attention", "out_proj", "residual+ln1",
 #: the phases of the tensor-parallel attention phase kernel #13
 ATTN_PHASES = ("qkv", "append+attention", "merge", "out_proj",
                "slice_sum")
+#: the phases of the tensor-parallel FFN phase kernel #14 ("copies": until
+#: the last block's FFN1 rows landed in shared memory)
+FFN_PHASES = ("copies", "ffn1", "gelu", "ffn2", "slice_sum")
 
 #: per-layer weights in the order the kernel's pointer table holds them
 WEIGHT_ORDER = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
@@ -279,15 +283,16 @@ def _phase_lib():
     lib.mxt_decode_attn_phase.argtypes = ([_P] * 16 + [_I] * 8
                                           + [ctypes.c_float, _P])
     lib.mxt_decode_attn_phase.restype = _I
-    lib.mxt_decode_ffn_phase.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+    lib.mxt_decode_ffn_phase.argtypes = [_P] * 7 + [_I] * 3 + [_P]
     lib.mxt_decode_ffn_phase.restype = _I
     lib.mxt_decode_phase_scratch.argtypes = [_I] * 7
     lib.mxt_decode_phase_scratch.restype = ctypes.c_longlong
     lib.mxt_decode_phase_grid.argtypes = [_I, _I, ctypes.POINTER(_I),
                                           ctypes.POINTER(_I)]
     lib.mxt_decode_phase_grid.restype = _I
-    lib.mxt_decode_attn_phases.argtypes = []
-    lib.mxt_decode_attn_phases.restype = _I
+    for fn in (lib.mxt_decode_attn_phases, lib.mxt_decode_ffn_phases):
+        fn.argtypes = []
+        fn.restype = _I
     return lib
 
 
@@ -414,6 +419,20 @@ def decode_ffn_phase(x, w1, b1, w2):
     (counted in ``decode_ffn_phase.launches``) or raises."""
     if x.device.type == "cpu":
         return decode_ffn_phase_plain(x, w1, b1, w2)
+    return _ffn_launch(x, w1, b1, w2, None)
+
+
+def decode_ffn_phase_times(x, w1, b1, w2):
+    """One launch of kernel #14 on CUDA tensors that also stamps the card's
+    global timer at the end of every phase.  Returns ``{phase: ns}`` in the
+    kernel's order (:data:`FFN_PHASES`)."""
+    stamps = torch.zeros(len(FFN_PHASES) + 1, dtype=torch.int64,
+                         device=x.device)
+    _ffn_launch(x, w1, b1, w2, stamps)
+    return dict(zip(FFN_PHASES, torch.diff(stamps.cpu()).tolist()))
+
+
+def _ffn_launch(x, w1, b1, w2, stamps):
     if x.device.type != "cuda":
         raise ValueError("decode_ffn_phase: unsupported device %s" % x.device)
     dev = x.device
@@ -427,13 +446,20 @@ def decode_ffn_phase(x, w1, b1, w2):
         ("x", x, f32, (B, C)), ("w1", w1, f32, (Fl, C)),
         ("b1", b1, f32, (Fl,)), ("w2", w2, f32, (C, Fl))])
     lib = _phase_lib()
+    if stamps is not None and lib.mxt_decode_ffn_phases() != len(FFN_PHASES):
+        raise RuntimeError("decode_ffn_phase: the kernel stamps %d phases, "
+                           "FFN_PHASES names %d"
+                           % (lib.mxt_decode_ffn_phases(), len(FFN_PHASES)))
     scratch = torch.empty(lib.mxt_decode_phase_scratch(1, B, C, Fl, 0, 0,
                                                        0),
                           dtype=f32, device=dev)
     out = torch.empty(B, C, dtype=f32, device=dev)
+    if not B:     # no rows: no launch (a block must wait for its copies)
+        return out
     rc = lib.mxt_decode_ffn_phase(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), B, C, Fl,
+        scratch.data_ptr(), out.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), B, C, Fl,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "decode_ffn_phase")
     decode_ffn_phase.launches += 1
