@@ -70,7 +70,7 @@
 // staging had each of FFN2's 96 column groups re-add the slices and
 // re-take the GELU of the same elements, and FFN2 unsplit (96 busy
 // blocks, two an SM) left most of the grid idle: both read slower than
-// this design in the same call (PERF.md, PR 14).
+// this design in the same call (PERF.md, section 6).
 //
 // Bound on the card: bytes.  A shard's layer reads C (2 Cl + 2 KVCl) fp32
 // weights in the attention phase and 2 C Fl in the FFN phase (4.7 MB and

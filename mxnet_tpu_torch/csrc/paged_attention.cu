@@ -27,7 +27,7 @@
 // a quarter of the bytes, and the unit stays one round trip.  Four blocks
 // an SM (64 registers at D 64, no spill): a row's units take fewer rounds
 // of the grid.  Two plain launches (units, then merge) in place of the
-// grid barrier read slower (PERF.md, PR 14).  Sums run in a fixed order
+// grid barrier read slower (PERF.md, section 6).  Sums run in a fixed order
 // and no atomic decides a result: the output does not depend on timing.
 #include "decode_common.cuh"
 
