@@ -37,8 +37,9 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   #11's outputs, to compare trees bit for bit), then
   ``chip_smoke.train_lm`` for the word LM, fp32 and AMP bf16, 10 steps
   each, with the step-1 loss printed exactly;
-- ``tp``: ``chip_smoke.check_fused`` (#12 held, timed and stamped, with
-  a digest of its outputs), ``chip_smoke.check_tp_phases`` (#13 and #14
+- ``tp``: ``chip_smoke.check_fused`` (#12 held in every case of
+  ``FUSED_CASES``, stamped, timed with mixed lengths and with every row
+  at 512, with a digest of its outputs), ``chip_smoke.check_tp_phases`` (#13 and #14
   held on every shard at tp 2, 4 and a GQA geometry, with digests of
   their outputs at tp 2; #13 timed at B 16 with mixed lengths and with
   every row at 512, #14 with mixed lengths, each with its phases by
@@ -47,6 +48,9 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   and per-op at tp 1 and 2 (``chip_smoke.serve``: tokens/s, decode p50
   and p99, launches, census), with the streams of each TP run compared
   to its tp 1 run's;
+- ``fused``: ``chip_smoke.check_fused`` alone (the ``tp`` phase's first
+  step: #12 in every case of ``FUSED_CASES``, its stamps, its times with
+  mixed lengths and with every row at 512, the digest);
 - ``paged``: ``chip_smoke.check_paged_attention`` and
   ``check_paged_attention_int8`` (#15 over fp and int8 pages at H 12 over
   12 and 4 KV heads, D 64, and over 4 KV heads at D 32 and 128, held in
@@ -68,7 +72,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("route", "kernels", "host", "bert", "amp", "lstm", "tp", "paged")
+PHASES = ("route", "kernels", "host", "bert", "amp", "lstm", "tp", "paged",
+          "fused")
 
 
 def build(trees, names):
@@ -141,6 +146,11 @@ def run(tree, phases, steps):
         cs.check_paged_attention_int8(torch, timer, {})
     if "tp" in phases:
         tp_phase(cs, torch, timer)
+    if "fused" in phases:
+        lm, lm_gqa = decode_models(cs, torch)
+        report = {}
+        cs.check_fused(torch, timer, report, lm, lm_gqa)
+        cs.log("fused: %s" % json.dumps(report["fused"]))
     if "amp" in phases:
         torch.cuda.empty_cache()
         _, st = cs.train(torch, 0, "amp_bf16", cs.TRAIN_B, cs.TRAIN_L, steps,
@@ -148,19 +158,27 @@ def run(tree, phases, steps):
         cs.log("amp %d steps: %s" % (steps, json.dumps(st)))
 
 
-def tp_phase(cs, torch, timer):
-    """The ``tp`` phase: the decode phase kernels' checks, times and
-    stamps, then serving at tp 1, 2 and 4."""
+def decode_models(cs, torch):
+    """The serving model (BERT-base widths, seed 0) and its 2-layer GQA
+    variant (12 heads over 4 KV heads, seed 1), as ``chip_smoke.main``
+    makes them."""
     from mxnet_tpu_torch.models import decoder as dec
-    from mxnet_tpu_torch.ops.kernels import fused_cell as fc
     lm = cs.perturb_affine(torch, dec.CausalLM(**cs.WIDTHS, device=cs.DEV,
                                                seed=0), 0)
     lm_gqa = cs.perturb_affine(torch, dec.CausalLM(
         **dict(cs.WIDTHS, num_layers=2, num_kv_heads=4), device=cs.DEV,
         seed=1), 1)
+    return lm, lm_gqa
+
+
+def tp_phase(cs, torch, timer):
+    """The ``tp`` phase: the decode phase kernels' checks, times and
+    stamps, then serving at tp 1, 2 and 4."""
+    lm, lm_gqa = decode_models(cs, torch)
     report = {}
     cs.check_fused(torch, timer, report, lm, lm_gqa)
     cs.check_tp_phases(torch, timer, report, lm, lm_gqa)
+    cs.log("fused: %s" % json.dumps(report["fused"]))
     cs.log("tp phases: %s" % json.dumps(report["tp_phases"]))
     reqs = cs.traffic(0, 48)
     runs = {}
@@ -201,9 +219,11 @@ def main():
         print("chip_flash_ab: no CUDA device", file=sys.stderr)
         return 2
     trees = [os.path.abspath(t) for t in args.trees]
+    names = [n for n, ps in (("flash_attention", {"route", "kernels", "host"}),
+                             ("fused_decode", {"fused"})) if ps & set(phases)]
     rcs = build(sorted(set(trees)), None if {"bert", "amp", "lstm", "tp",
                                              "paged"} & set(phases)
-                else ["flash_attention"])
+                else names)
     built = {t for t, rc in zip(sorted(set(trees)), rcs) if not rc}
     failed = len(set(trees) - built)
     if failed:

@@ -411,14 +411,92 @@ def check_paged_attention(torch, timer, report):
     check_paged(torch, timer, report, int8=False)
 
 
+#: the held cases of the fused decode check: (case, model, B, lengths
+#: after the append, or None for random 1..512 with row 7 at 0).  "lm" is
+#: the 12-layer serving model, "gqa" its 2-layer GQA variant (12 heads
+#: over 4 KV heads); the others are 2-layer models of FUSED_MODELS.
+#: "mixed" is the timed case of the kernels line and the digest, "all512"
+#: the worst case, also timed; "one" is B 1; "b20" two passes of 16 rows
+FUSED_CASES = (("mixed", "lm", SLOTS, None),
+               ("all512", "lm", SLOTS, (512,) * SLOTS),
+               ("one", "lm", 1, (512,)),
+               ("gqa", "gqa", SLOTS, None),
+               ("b20", "gqa", 20, None),
+               ("d32", "d32", SLOTS, None),
+               ("d128", "d128", SLOTS, None),
+               ("wide", "wide", SLOTS, None))
+FUSED_TIMED = ("mixed", "all512")
+#: 2-layer models of the fused check: head dims 32 (g 1) and 128 (g 3),
+#: the kernel's other instantiations; and "wide" (C 1024, F 4096), whose
+#: qkv, FFN1 and FFN2 K slices are too long for the weight buffers and
+#: whose FFN1 has more units than the grid has blocks, so its units stream
+#: their weight rows from device memory (the path shapes that do not fit
+#: take)
+FUSED_MODELS = dict(
+    d32=dict(units=768, hidden_size=3072, num_heads=24, num_kv_heads=24),
+    d128=dict(units=768, hidden_size=3072, num_heads=6, num_kv_heads=2),
+    wide=dict(units=1024, hidden_size=4096, num_heads=16, num_kv_heads=16))
+
+
+def fused_bound(cfg, after, pps):
+    """Bound of #12 over cfg's layers at these lengths (after the append):
+    each weight once, the KV of every token read once and the appended
+    rows written once, x read and written once, the metadata; 2 flops per
+    weight and row, 4 per (head, key, dim)."""
+    B, C, Fh, L = len(after), cfg.units, cfg.hidden_size, cfg.num_layers
+    kvc = cfg.num_kv_heads * cfg.head_dim
+    n_w = L * (2 * C * C + 2 * C * kvc + 2 * C * Fh + 6 * C + 2 * kvc + Fh)
+    toks = int(after.sum())
+    nbytes = 4 * (n_w + L * 2 * toks * kvc + 2 * L * 2 * B * kvc
+                  + 2 * B * C + 4 * B + B * pps)
+    flops = 2 * B * n_w + L * 4 * cfg.num_heads * cfg.head_dim * toks
+    return bound(nbytes, flops)
+
+
+def fused_stamps(torch, timer, fc, args, runs=5):
+    """#12's ``fused_cell.phase_times`` over ``runs`` launches, each after
+    the L2 flush: per key and layer the median (None where every launch
+    gave None)."""
+    out = []
+    for _ in range(runs + 1):
+        timer.flush.zero_()
+        out.append(fc.phase_times(*args))
+    med = {}
+    for k in out[0]:
+        med[k] = []
+        for li in range(len(out[0][k])):
+            vals = [r[k][li] for r in out[1:] if r[k][li] is not None]
+            med[k].append(statistics.median(vals) if vals else None)
+    return med
+
+
 def check_fused(torch, timer, report, lm, lm_gqa):
+    """#12 against its plain version in every case of FUSED_CASES: x and
+    every page after page 0 (the scratch page inactive rows write) within
+    TOL_FUSED.  Its phases by ``%globaltimer`` in every case, with when
+    each GEMV's weight rows had landed and how many units streamed them
+    (where the kernel reports these): at full width every unit of every
+    GEMV must have its rows copied in and none stream, in "wide" some must
+    stream.  Timed in FUSED_TIMED; a digest of "mixed"'s outputs (equal
+    digests in two trees: the same bits)."""
+    from mxnet_tpu_torch.models import decoder as dec
     from mxnet_tpu_torch.ops.kernels import fused_cell as fc
-    for model in (lm, lm_gqa):
+    models = {"lm": lm, "gqa": lm_gqa}
+    for key, kw in FUSED_MODELS.items():
+        models[key] = perturb_affine(torch, dec.CausalLM(
+            vocab_size=64, num_layers=2, max_length=MAX_CTX, device=DEV,
+            seed=21, **kw), 21)
+    pps, rows, worst = MAX_CTX // PAGE, {}, 0.0
+    for case, key, B, fixed in FUSED_CASES:
+        model = models[key]
         cfg = model.config
         rng = np.random.default_rng(4)
-        B, P, pps = SLOTS, SLOTS * 32 + 1, 32
         after = rng.integers(1, 513, B)      # lengths after this append
-        after[7] = 0                         # inactive row
+        if B > 7:
+            after[7] = 0                     # inactive row
+        if fixed is not None:
+            after = np.array(fixed)
+        P = B * pps + 1
         tb_np = tables_for(rng, after, pps)
         pos = np.maximum(after - 1, 0)
         wp = np.where(after > 0, tb_np[np.arange(B), pos // PAGE], 0)
@@ -444,27 +522,59 @@ def check_fused(torch, timer, report, lm, lm_gqa):
         err_p = float(max((kp1[:, :, 1:] - kp2[:, :, 1:]).abs().max(),
                           (vp1[:, :, 1:] - vp2[:, :, 1:]).abs().max()))
         err = max(err_x, err_p)
-        ms = timer(lambda: fc.decode_layer_group(x, kp1, vp1, table, meta,
-                                                 tb, ln, cfg), iters=10)
-        plain = timer(lambda: fc.decode_layer_group_plain(
-            x, kp2, vp2, layers, meta, tb, ln, cfg), iters=10)
-        C, Fh, L = cfg.units, cfg.hidden_size, cfg.num_layers
-        kvc = cfg.num_kv_heads * cfg.head_dim
-        n_w = L * (2 * C * C + 2 * C * kvc + 2 * C * Fh + 6 * C + 2 * kvc + Fh)
-        toks = int(after.sum())
-        nbytes = 4 * (n_w + L * 2 * toks * kvc + 2 * L * 2 * B * kvc
-                      + 2 * B * C + 4 * B + B * pps)
-        flops = 2 * B * n_w + L * 4 * cfg.num_heads * cfg.head_dim * toks
-        bms, by = bound(nbytes, flops)
-        log("decode_layer_group L=%d H=%d KVH=%d B=%d: max_abs_err x %.3g "
-            "pages %.3g (tol %g) kernel %.4f ms plain %.4f ms bound %.4f ms "
-            "(%d blocks)" % (L, cfg.num_heads, cfg.num_kv_heads, B, err_x,
-                             err_p, TOL_FUSED, ms, plain, bms,
-                             fc.grid_blocks(cfg)))
+        L = cfg.num_layers
+        log("decode_layer_group %s: L=%d C=%d H=%d KVH=%d D=%d B=%d lengths "
+            "%d..%d: max_abs_err x %.3g pages %.3g (tol %g); %d blocks"
+            % (case, L, cfg.units, cfg.num_heads, cfg.num_kv_heads,
+               cfg.head_dim, B, after.min(), after.max(), err_x, err_p,
+               TOL_FUSED, fc.grid_blocks(cfg)))
         if not err <= TOL_FUSED:
             raise AssertionError("decode_layer_group disagrees with its plain "
-                                 "version")
-        if model is lm:
+                                 "version (%s)" % case)
+        worst = max(worst, err)
+        args = (x, kp1, vp1, table, meta, tb, ln, cfg)
+        st = fused_stamps(torch, timer, fc, args)
+        tags = ("arrived", "landed", "streamed")
+        phases = [k for k in st if not k.endswith(tags)]
+        log("  %s phases by %%globaltimer, us summed over %d layers (block "
+            "0, median of 5 launches): %s; sum %.1f" % (
+                case, L, ", ".join("%s %.1f" % (k, sum(st[k]) / 1e3)
+                                   for k in phases),
+                sum(sum(st[k]) for k in phases) / 1e3))
+        arrived = [k for k in st if k.endswith("arrived")]
+        landed = [k for k in st if k.endswith("landed")]
+        streamed = {k[:-9]: sum(st[k]) for k in st if k.endswith("streamed")}
+        if arrived:
+            log("  %s last block at each phase's closing barrier, us after "
+                "the phase's start, summed over layers: %s" % (case, ", ".join(
+                    "%s %.1f" % (k[:-8], sum(st[k]) / 1e3) for k in arrived)))
+        if landed:
+            # layer 0's rows were issued at launch, the others' one GEMV
+            # ahead
+            log("  %s weight rows landed, us after the phase's start, layer "
+                "0 / mean of the others: %s; units streamed, all layers: %s"
+                % (case, ", ".join("%s %s / %s" % (k[:-7], *(
+                    "none" if v is None else "%.2f" % (v / 1e3) for v in (
+                        st[k][0], None if None in st[k][1:] or L < 2 else
+                        sum(st[k][1:]) / (L - 1))))
+                    for k in landed),
+                   ", ".join("%s %d" % kv for kv in streamed.items())))
+            copied = all(None not in st[k] for k in landed)
+            if key != "wide" and (not copied or any(streamed.values())):
+                raise AssertionError("decode_layer_group streamed weight "
+                                     "rows at %s" % case)
+            if key == "wide" and not any(streamed.values()):
+                raise AssertionError("decode_layer_group's streamed path "
+                                     "was not taken at %s" % case)
+        row = dict(max_abs_err=err, stamps_us={
+            k: sum(st[k]) / 1e3 for k in phases})
+        if arrived:
+            row["arrived_us"] = {k[:-8]: sum(st[k]) / 1e3 for k in arrived}
+        if landed:
+            row["landed_us"] = {k[:-7]: [None if v is None else v / 1e3
+                                         for v in st[k]] for k in landed}
+            row["streamed"] = streamed
+        if case == "mixed":
             # a fresh launch on the held inputs: equal digests in two trees
             # mean #12 computes the same bits
             k3, v3 = kp0.clone(), vp0.clone()
@@ -472,18 +582,25 @@ def check_fused(torch, timer, report, lm, lm_gqa):
                                              cfg)
             log("decode_layer_group L=%d B=%d digest of x, kp, vp: %s"
                 % (L, B, digest(torch, x3, k3, v3)))
-        timer.flush.zero_()
-        phases = fc.phase_times(x, kp1, vp1, table, meta, tb, ln, cfg)
-        log("  phases, us summed over %d layers: %s" % (L, ", ".join(
-            "%s %.1f" % (k, sum(v) / 1e3) for k, v in phases.items())))
-        if model is lm:
-            report["decode_layer_group"] = dict(
-                name="decode_layer_group", route="cuda",
-                source="mxnet_tpu_torch/csrc/fused_decode.cu",
-                replaces="mxnet_tpu/ops/pallas/fused_cell.py:341",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=None,
-                shape="12 layers, B=16, full width, mixed lengths")
+        if case in FUSED_TIMED:
+            ms = timer(lambda: fc.decode_layer_group(*args), iters=10)
+            plain = timer(lambda: fc.decode_layer_group_plain(
+                x, kp2, vp2, layers, meta, tb, ln, cfg), iters=10)
+            bms, by = fused_bound(cfg, after, pps)
+            log("decode_layer_group %s L=%d B=%d: kernel %.4f ms plain %.4f "
+                "ms bound %.4f ms (%s)" % (case, L, B, ms, plain, bms, by))
+            row.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+        rows[case] = row
+    report["fused"] = rows
+    main = {k: v for k, v in rows["mixed"].items()
+            if k not in ("stamps_us", "arrived_us", "landed_us", "streamed")}
+    main["max_abs_err"] = worst          # over every held case
+    report["decode_layer_group"] = dict(
+        name="decode_layer_group", route="cuda",
+        source="mxnet_tpu_torch/csrc/fused_decode.cu",
+        replaces="mxnet_tpu/ops/pallas/fused_cell.py:341",
+        library_ms=None, shape="12 layers, B=16, full width, mixed lengths",
+        **main)
 
 
 QMM_SHAPES = ((768, 768), (3072, 768), (768, 3072))   # (O, I) of a layer
@@ -3246,6 +3363,7 @@ def main():
                     "flash_bf16_long": report["flash_bf16_long"],
                     "lstm_fp32": report["lstm_fp32"],
                     "lstm_bf16": report["lstm_bf16"],
+                    "fused": report["fused"],
                     "tp_phases": report["tp_phases"],
                     "sharded_attention": report["sharded_attention"]}))
     log(json.dumps({"kernels": kernels}))

@@ -4,33 +4,37 @@
 // (paged_attention.cu, #15).  Each is a cooperative persistent launch whose
 // phases are separated by grid-wide barriers.
 //
-// - gemv: in (B, K) times N weight rows of K, for the whole decode batch.
-//   At B 16 a weight is used 2 B = 32 flops per 4 bytes it costs, far
-//   below the card's ~20 flops per byte in fp32, so the bound is the
-//   weight bytes: one warp per output column reads its row once with
-//   16-byte loads, neighbouring lanes on neighbouring addresses and several
-//   loads in flight per lane, and applies it to all B rows at once from a
-//   shared-memory copy of the input rows.  A GEMV with fewer output columns
-//   than the grid has warps splits K across blocks (ksplit_for), so every
-//   warp streams weights; the caller adds the partial sums in slice order,
-//   so results do not depend on timing.
-// - append_attend: the KV append at meta's (page, slot) and paged
-//   attention (attend_group of paged_attention.cuh) per (sequence, KV
-//   head), which reads only the pages the table names up to each row's
-//   length.
+// - gemv: in (B, K) times N weight rows of K, for the whole decode batch,
+//   each weight row streamed from device memory.  At B 16 a weight is used
+//   2 B = 32 flops per 4 bytes it costs, far below the card's ~20 flops
+//   per byte in fp32, so the bound is the weight bytes: one warp per output
+//   column reads its row once with 16-byte loads, neighbouring lanes on
+//   neighbouring addresses and several loads in flight per lane, and
+//   applies it to all B rows at once from a shared-memory copy of the input
+//   rows.  A GEMV with fewer output columns than the grid has warps splits
+//   K across blocks (ksplit_for), so every warp streams weights; the caller
+//   adds the partial sums in slice order, so results do not depend on
+//   timing.  #13's q/k/v and out-projection.
+// - ffn_gemv: the same products with the block's first unit "resident":
+//   its weight rows bulk-copied (TMA, FfnCopies) into shared memory ahead
+//   of the math, which waits on the copies' mbarrier only when it reaches
+//   them and multiplies from shared memory on register tiles (ffn_tiles).
+//   #14's FFN1 and FFN2 (copies issued at launch) and all four GEMVs of #12
+//   (copies issued one GEMV ahead, each buffer's mbarrier reused).
 // - split_attend and split_merge: paged attention with a row's keys split
-//   over blocks (flash-decoding), for the tensor-parallel attention phase
-//   (decode_phase.cu) over fp32 pages and for paged attention
-//   (paged_attention.cu) over fp32 or int8 pages: partials per chunk of
-//   SPLIT_KEYS keys, then a merge in chunk order after a grid barrier.
+//   over blocks (flash-decoding), for #12 and #13 over fp32 pages and for
+//   #15 over fp32 or int8 pages: partials per chunk of SPLIT_KEYS keys,
+//   then a merge in chunk order after a grid barrier.
 // - coop_geometry: the grid of a cooperative launch, every block resident.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
 
 #include <algorithm>
 
-#include "paged_attention.cuh"
+#include "sm90.cuh"
 
 namespace mxt {
 
@@ -42,6 +46,12 @@ constexpr int STAGE_FLOATS = 8192;   // staged input elements (32 KB)
 constexpr int KSPLIT_MAX = 8;        // K slices of a split GEMV
 
 __host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~3; }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
 // the card's global nanosecond timer, for a kernel's phase stamps
 __device__ __forceinline__ long long globaltimer() {
@@ -163,36 +173,283 @@ __device__ __forceinline__ float gelu_erf(float u) {
   return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
 }
 
-// KV append, then attention, per (sequence, KV head) work item.
-// qkv: (B, Cq + 2 KVH D) rows [q | k | v] of this launch; att: (B, Cq)
-// with Cq = H D, head h reading KV head h / g; kp/vp: (KVH, P, S, D).
-// Inactive rows all append to the scratch page 0, slot 0 (a benign race)
-// and have length 0.  A row attends only over its own table's pages, so
-// it reads its own freshly appended slot, written by this block, and no
-// other block's append.
-__device__ inline void append_attend(const float* qkv, int Cq, float* kp,
-                                     float* vp, const int* meta,
-                                     const int* tables, const int* lengths,
-                                     int B, int KVH, int g, int P, int S,
-                                     int D, int pps, float scale, float* att,
-                                     float* smem) {
-  const int KVC = KVH * D, N = Cq + 2 * KVC;
-  for (int item = blockIdx.x; item < B * KVH; item += gridDim.x) {
-    const int b = item / KVH, kvh = item - b * KVH;
-    const float* src = qkv + (size_t)b * N + Cq + (size_t)kvh * D;
-    const size_t dst =
-        (((size_t)kvh * P + meta[b]) * S + meta[B + b]) * D;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      kp[dst + d] = __ldcg(src + d);
-      vp[dst + d] = __ldcg(src + KVC + d);
-    }
-    __syncthreads();
-    const size_t head0 = (size_t)kvh * g * D;
-    const size_t pool0 = (size_t)kvh * P * S * D;
-    attend_group(qkv + (size_t)b * N + head0, F32Pages{kp + pool0, vp + pool0},
-                 tables + (size_t)b * pps, pps, lengths[b], S, D, g, scale,
-                 att + (size_t)b * Cq + head0, smem);
+// Resident GEMVs (ffn_gemv).  A unit is NWARPS consecutive output columns
+// over one K slice, as in gemv.  The block's first unit (unit blockIdx.x)
+// is "resident" when its weight rows fit their buffer: its rows are
+// bulk-copied into shared memory ahead of the math (FfnCopies), the math
+// waits on the buffer's mbarrier only when it reaches them, and reads both
+// operands from shared memory on register tiles (ffn_tiles).  A block's
+// later units, and units too large, stream their weight rows from global
+// memory one warp a column, as gemv does.
+//
+// Rows in shared memory have a pitch of round32(width) + 4 floats: the 8
+// rows (or 4) that a tile step loads land 16 bytes apart in the banks.
+__host__ __device__ __forceinline__ int ffn_pitch(int width) {
+  return ((width + 31) & ~31) + 4;
+}
+
+struct FfnUnits {
+  int groups, ks, slice;  // column groups, K slices, columns per slice
+  __device__ FfnUnits(int N, int K, int ks_)
+      : groups((N + NWARPS - 1) / NWARPS), ks(ks_),
+        slice((int)round4((K + ks_ - 1) / ks_)) {}
+  __device__ int count() const { return groups * ks; }
+  // the block's first unit, if its rows fit `cap` floats
+  __device__ bool resident(int cap) const {
+    return (int)blockIdx.x < count() && NWARPS * ffn_pitch(slice) <= cap;
   }
+};
+
+// The bulk copies of the block's resident unit of an N-row weight (row(n):
+// its K floats) into buf, and, when x is given (B <= GEMV_ROWS rows of
+// K), of x's rows for that slice into xbuf, all completing on one
+// mbarrier.  Every thread computes the same plan; copy c is issued by
+// thread first + c, so the copies go out in parallel.
+struct FfnCopies {
+  const float* x;
+  float* buf;
+  float* xbuf;
+  int K, n0, rows, k_lo, kc, xrows;
+  __device__ FfnCopies(const FfnUnits& u, int N, int K_, float* buf_,
+                       const float* x_, int B, float* xbuf_)
+      : x(x_), buf(buf_), xbuf(xbuf_), K(K_) {
+    const int grp = blockIdx.x / u.ks, s = blockIdx.x - grp * u.ks;
+    n0 = grp * NWARPS;
+    rows = min(NWARPS, N - n0);
+    k_lo = s * u.slice;
+    kc = max(0, min(K, k_lo + u.slice) - k_lo);
+    xrows = x != nullptr && B <= GEMV_ROWS ? B : 0;
+  }
+  __device__ uint32_t bytes() const {
+    return (uint32_t)(rows + xrows) * kc * 4;
+  }
+  template <class Row>
+  __device__ void issue(int first, uint64_t* bar, Row row) const {
+    const int c = (int)threadIdx.x - first, p = ffn_pitch(kc);
+    if (kc == 0 || c < 0 || c >= rows + xrows) return;
+    if (c < rows)
+      bulk_load(smem_u32(buf + (size_t)c * p), row(n0 + c) + k_lo, kc * 4,
+                smem_u32(bar));
+    else
+      bulk_load(smem_u32(xbuf + (size_t)(c - rows) * p),
+                x + (size_t)(c - rows) * K + k_lo, kc * 4, smem_u32(bar));
+  }
+};
+
+// Wait for the phase of `bar` whose parity is `parity` (each use of a
+// buffer is one phase of its mbarrier: the caller flips its parity bit
+// after every wait, and re-arms the barrier with mbar_expect_tx before the
+// next copies).  A copy that never lands (a wrong byte count) would hang
+// the grid at its next barrier: after 2^22 polls (seconds) the launch
+// traps instead.
+__device__ __forceinline__ void wait_copies(uint32_t bar, uint32_t parity) {
+  for (int i = 0; i < (1 << 22); ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+  __trap();
+}
+
+// rows [0, nb) x columns [k0, k0 + kc) of in (row stride K) into st (row
+// pitch p), several float4 loads in flight per thread.  Ordinary loads
+// through L2: activations written by other blocks before the grid barrier
+// (a bulk copy reads through the async proxy, which grid.sync() does not
+// order after other blocks' generic stores).
+__device__ inline void ffn_stage(float* st, int p, const float* in, int nb,
+                                 int K, int k0, int kc) {
+  const int kc4 = kc >> 2, n4 = nb * kc4;
+  for (int e0 = threadIdx.x; e0 < n4; e0 += blockDim.x * 4) {
+    float4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e < n4) {
+        const int r = e / kc4;
+        v[u] = __ldcg(reinterpret_cast<const float4*>(
+            in + (size_t)r * K + k0 + (e - r * kc4) * 4));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e < n4) {
+        const int r = e / kc4;
+        *reinterpret_cast<float4*>(st + r * p + (e - r * kc4) * 4) = v[u];
+      }
+    }
+  }
+}
+
+// The resident unit's products, in two steps.  ffn_tiles adds this lane's
+// share over columns [0, kc) of ws (weight rows, pitch pw) and xs (input
+// rows, pitch px) to acc: lane l of warp w holds rows l / 4 and l / 4 + 8
+// by weight rows l % 4 and l % 4 + 4 (acc x, y, z, w: row 0 by weight 0,
+// row 0 by weight 1, row 1 by weight 0, row 1 by weight 1) over the float4
+// columns w, w + 8, w + 16, ...: per step 4 float4 loads (two of them
+// broadcast) for 16 FMAs.  Called once per staged chunk of a slice (each a
+// multiple of 32 columns but the last), it sums the columns in the same
+// order as one call over the whole slice.  ffn_tiles_out then adds the 8
+// warps' partials in warp order through red (which may overlay xs) and
+// calls epi(b, n, v) for b < nb, n < cols.
+__device__ __forceinline__ void ffn_tiles(const float* ws, int pw,
+                                          const float* xs, int px, int kc,
+                                          float4& acc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* x0 = xs + (lane >> 2) * px;
+  const float* x1 = x0 + 8 * px;
+  const float* w0 = ws + (lane & 3) * pw;
+  const float* w1 = w0 + 4 * pw;
+  float a00 = acc.x, a01 = acc.y, a10 = acc.z, a11 = acc.w;
+  for (int f = warp * 4; f < kc; f += NWARPS * 4) {
+    const float4 xa = *reinterpret_cast<const float4*>(x0 + f);
+    const float4 xb = *reinterpret_cast<const float4*>(x1 + f);
+    const float4 wa = *reinterpret_cast<const float4*>(w0 + f);
+    const float4 wb = *reinterpret_cast<const float4*>(w1 + f);
+    a00 = fmaf(xa.x, wa.x, a00); a00 = fmaf(xa.y, wa.y, a00);
+    a00 = fmaf(xa.z, wa.z, a00); a00 = fmaf(xa.w, wa.w, a00);
+    a01 = fmaf(xa.x, wb.x, a01); a01 = fmaf(xa.y, wb.y, a01);
+    a01 = fmaf(xa.z, wb.z, a01); a01 = fmaf(xa.w, wb.w, a01);
+    a10 = fmaf(xb.x, wa.x, a10); a10 = fmaf(xb.y, wa.y, a10);
+    a10 = fmaf(xb.z, wa.z, a10); a10 = fmaf(xb.w, wa.w, a10);
+    a11 = fmaf(xb.x, wb.x, a11); a11 = fmaf(xb.y, wb.y, a11);
+    a11 = fmaf(xb.z, wb.z, a11); a11 = fmaf(xb.w, wb.w, a11);
+  }
+  acc = make_float4(a00, a01, a10, a11);
+}
+
+template <class Epi>
+__device__ void ffn_tiles_out(float4 acc, int nb, int cols, float* red,
+                              Epi epi) {
+  __syncthreads();  // every warp is done with xs
+  reinterpret_cast<float4*>(red)[threadIdx.x] = acc;
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < GEMV_ROWS * NWARPS) {
+    const int b = t / NWARPS, n = t - b * NWARPS;
+    const int tl = (b & 7) * 4 + (n & 3), e = (b >> 3) * 2 + (n >> 2);
+    float v = 0.f;
+    for (int w = 0; w < NWARPS; ++w) v += red[(w * 32 + tl) * 4 + e];
+    if (b < nb && n < cols) epi(b, n, v);
+  }
+}
+
+// acc[r] += sum over kk < kc of w(kk) * stage[r * p + kk], r < nb: this
+// lane's columns lane * 4 + 128 j, GEMV_LOADS weight float4s in flight
+__device__ __forceinline__ void ffn_dot(const float* wg, const float* stage,
+                                        int p, int kc, int nb, int lane,
+                                        float (&acc)[GEMV_ROWS]) {
+  constexpr int L = GEMV_LOADS;
+  int kk = lane * 4;
+  for (; kk < kc; kk += 128 * L) {
+    float4 wv[L];
+#pragma unroll
+    for (int u = 0; u < L; ++u)
+      if (kk + 128 * u < kc)
+        wv[u] = __ldg(reinterpret_cast<const float4*>(wg + kk + 128 * u));
+#pragma unroll
+    for (int u = 0; u < L; ++u) {
+      if (kk + 128 * u < kc) {
+#pragma unroll
+        for (int r = 0; r < GEMV_ROWS; ++r) {
+          if (r < nb) {
+            const float4 xv = *reinterpret_cast<const float4*>(
+                stage + r * p + kk + 128 * u);
+            acc[r] = fmaf(wv[u].x, xv.x, acc[r]);
+            acc[r] = fmaf(wv[u].y, xv.y, acc[r]);
+            acc[r] = fmaf(wv[u].z, xv.z, acc[r]);
+            acc[r] = fmaf(wv[u].w, xv.w, acc[r]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// epi(b, n, s, sum over K slice s of in[b, k] * W_n[k]) for b < B, n < N,
+// s < u.ks.  stage_in(stage, p, b0, nb, k0, kc) writes rows b0.. b0 + nb -
+// 1, columns k0.. k0 + kc - 1 of the input into stage (stage_floats
+// floats) at pitch p.  The block's first unit reads its weight rows from
+// w_res (null: not resident; pitch ffn_pitch(slice)) once the phase
+// `parity` of bar completes, and, when x_res, its input from the stage,
+// which the same copies filled; otherwise its input is staged in chunks
+// of as many multiples of 32 columns as 16 rows of the stage hold.  With
+// `landed`, each block raises it to the time its copies had landed.  Each
+// output's FMA order is fixed.
+template <class Row, class StageIn, class Epi>
+__device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
+                         StageIn stage_in, Epi epi, float* stage,
+                         int stage_floats, const float* w_res, bool x_res,
+                         uint32_t bar, uint32_t parity,
+                         unsigned long long* landed) {
+  for (int unit = blockIdx.x; unit < u.count(); unit += gridDim.x) {
+    const int grp = unit / u.ks, s = unit - grp * u.ks;
+    const int n0 = grp * NWARPS;
+    const int k_lo = s * u.slice, k_hi = min(K, k_lo + u.slice);
+    if (w_res != nullptr && unit == (int)blockIdx.x) {
+      const int kc = max(0, k_hi - k_lo), pw = ffn_pitch(kc);
+      const int chunk = (stage_floats / GEMV_ROWS - 4) & ~31;
+      for (int b0 = 0; b0 < B; b0 += GEMV_ROWS) {
+        const int nb = min(GEMV_ROWS, B - b0);
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        int k0 = 0;
+        do {
+          const int kk = x_res ? kc : min(chunk, kc - k0);
+          const int px = x_res ? pw : ffn_pitch(kk);
+          if (!x_res) {
+            __syncthreads();
+            stage_in(stage, px, b0, nb, k_lo + k0, kk);
+            __syncthreads();
+          }
+          if (k0 == 0) {
+            wait_copies(bar, parity);
+            if (landed != nullptr && threadIdx.x == 0)
+              atomicMax(landed, (unsigned long long)globaltimer());
+          }
+          ffn_tiles(w_res + k0, pw, stage, px, kk, acc);
+          k0 += kk;
+        } while (k0 < kc);
+        ffn_tiles_out(acc, nb, N - n0, stage, [&](int b, int c, float v) {
+          epi(b0 + b, n0 + c, s, v);
+        });
+      }
+      continue;
+    }
+    // not resident: one warp a column, its weight row streamed
+    const int lane = threadIdx.x & 31, n = n0 + (int)(threadIdx.x >> 5);
+    const bool has = n < N;
+    const float* wg = has ? row(n) : nullptr;
+    for (int b0 = 0; b0 < B; b0 += GEMV_ROWS) {
+      const int nb = min(GEMV_ROWS, B - b0);
+      const int kc_max = (stage_floats / nb - 36) & ~31;
+      float acc[GEMV_ROWS];
+#pragma unroll
+      for (int r = 0; r < GEMV_ROWS; ++r) acc[r] = 0.f;
+      for (int k0 = k_lo; k0 < k_hi; k0 += kc_max) {
+        const int kc = min(kc_max, k_hi - k0), p = ffn_pitch(kc);
+        __syncthreads();
+        stage_in(stage, p, b0, nb, k0, kc);
+        __syncthreads();
+        if (has) ffn_dot(wg + k0, stage, p, kc, nb, lane, acc);
+      }
+      if (has) {
+#pragma unroll
+        for (int r = 0; r < GEMV_ROWS; ++r) {
+          if (r < nb) {
+            const float v = warp_sum(acc[r]);
+            if (lane == 0) epi(b0 + r, n, s, v);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // the stage buffer is free for the next GEMV
 }
 
 // Split-key paged attention.  The unit of work is (row b, KV head, chunk

@@ -84,12 +84,13 @@
 // The partial sums of a split GEMV are added in slice order, with no
 // atomics, so results do not depend on timing.
 #include "decode_common.cuh"
-#include "sm90.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using mxt::FfnCopies;
+using mxt::FfnUnits;
 using mxt::KSPLIT_MAX;
 using mxt::NTHREADS;
 using mxt::round4;
@@ -260,256 +261,6 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
   if (a.timing) sync();
 }
 
-// #14's GEMVs.  A unit is NWARPS consecutive output columns over one K
-// slice, as in mxt::gemv.  The block's first unit (unit blockIdx.x) is
-// "resident" when its weight rows fit their buffer and its input rows the
-// stage: its rows are bulk-copied into shared memory at launch
-// (FfnCopies), the math waits on the unit's mbarrier only when it reaches
-// them, and reads both operands from shared memory on register tiles
-// (ffn_tiles).  A block's later units, and units too large, stream their
-// weight rows from global memory one warp a column, as mxt::gemv does.
-//
-// Rows in shared memory have a pitch of round32(width) + 4 floats: the 8
-// rows (or 4) that a tile step loads land 16 bytes apart in the banks.
-__device__ __forceinline__ int ffn_pitch(int width) {
-  return ((width + 31) & ~31) + 4;
-}
-
-struct FfnUnits {
-  int groups, ks, slice;  // column groups, K slices, columns per slice
-  __device__ FfnUnits(int N, int K, int ks_)
-      : groups((N + mxt::NWARPS - 1) / mxt::NWARPS), ks(ks_),
-        slice((int)round4((K + ks_ - 1) / ks_)) {}
-  __device__ int count() const { return groups * ks; }
-  // the block's first unit, if its rows fit `cap` floats and its input
-  // rows (at most GEMV_ROWS) the stage
-  __device__ bool resident(int cap) const {
-    const int p = ffn_pitch(slice);
-    return (int)blockIdx.x < count() && mxt::NWARPS * p <= cap &&
-           mxt::GEMV_ROWS * p <= FFN_STAGE_FLOATS;
-  }
-};
-
-// The bulk copies of the block's resident unit of w (N rows of K) into
-// buf, and, when x is given (B <= GEMV_ROWS rows of K), of x's rows for
-// that slice into xbuf, all completing on one mbarrier.  Every thread
-// computes the same plan; copy c is issued by thread first + c, so the
-// copies go out in parallel.
-struct FfnCopies {
-  const float* w;
-  const float* x;
-  float* buf;
-  float* xbuf;
-  int K, n0, rows, k_lo, kc, xrows;
-  __device__ FfnCopies(const FfnUnits& u, const float* w_, int N, int K_,
-                       float* buf_, const float* x_, int B, float* xbuf_)
-      : w(w_), x(x_), buf(buf_), xbuf(xbuf_), K(K_) {
-    const int grp = blockIdx.x / u.ks, s = blockIdx.x - grp * u.ks;
-    n0 = grp * mxt::NWARPS;
-    rows = min(mxt::NWARPS, N - n0);
-    k_lo = s * u.slice;
-    kc = max(0, min(K, k_lo + u.slice) - k_lo);
-    xrows = x != nullptr && B <= mxt::GEMV_ROWS ? B : 0;
-  }
-  __device__ uint32_t bytes() const {
-    return (uint32_t)(rows + xrows) * kc * 4;
-  }
-  __device__ void issue(int first, uint64_t* bar) const {
-    const int c = (int)threadIdx.x - first, p = ffn_pitch(kc);
-    if (kc == 0 || c < 0 || c >= rows + xrows) return;
-    if (c < rows)
-      bulk_load(smem_u32(buf + (size_t)c * p),
-                w + (size_t)(n0 + c) * K + k_lo, kc * 4, smem_u32(bar));
-    else
-      bulk_load(smem_u32(xbuf + (size_t)(c - rows) * p),
-                x + (size_t)(c - rows) * K + k_lo, kc * 4, smem_u32(bar));
-  }
-};
-
-// wait for the first phase of `bar` (the launch's bulk copies).  A copy
-// that never lands (a wrong byte count) would hang the grid at its next
-// barrier: after 2^22 polls (seconds) the launch traps instead.
-__device__ __forceinline__ void wait_copies(uint32_t bar) {
-  for (int i = 0; i < (1 << 22); ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar)
-        : "memory");
-    if (done) return;
-  }
-  __trap();
-}
-
-// rows [0, nb) x columns [k0, k0 + kc) of in (row stride K) into st (row
-// pitch p), several float4 loads in flight per thread
-__device__ void ffn_stage(float* st, int p, const float* in, int nb, int K,
-                          int k0, int kc) {
-  const int kc4 = kc >> 2, n4 = nb * kc4;
-  for (int e0 = threadIdx.x; e0 < n4; e0 += blockDim.x * 4) {
-    float4 v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int e = e0 + u * blockDim.x;
-      if (e < n4) {
-        const int r = e / kc4;
-        v[u] = __ldcg(reinterpret_cast<const float4*>(
-            in + (size_t)r * K + k0 + (e - r * kc4) * 4));
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int e = e0 + u * blockDim.x;
-      if (e < n4) {
-        const int r = e / kc4;
-        *reinterpret_cast<float4*>(st + r * p + (e - r * kc4) * 4) = v[u];
-      }
-    }
-  }
-}
-
-// The resident unit's products: epi(b, n, sum over k < kc of xs[b, k] *
-// ws[n, k]) for b < nb, n < cols, xs and ws in shared memory at pitch p.
-// Lane l of warp w holds rows l / 4 and l / 4 + 8 by weight rows l % 4 and
-// l % 4 + 4 over the float4 columns w, w + 8, w + 16, ...: per step 4
-// float4 loads (two of them broadcast) for 16 FMAs.  Then the 8 warps'
-// partials, in warp order, through red (which may overlay xs).
-template <class Epi>
-__device__ void ffn_tiles(const float* ws, const float* xs, int p, int kc,
-                          int nb, int cols, float* red, Epi epi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* x0 = xs + (lane >> 2) * p;
-  const float* x1 = x0 + 8 * p;
-  const float* w0 = ws + (lane & 3) * p;
-  const float* w1 = w0 + 4 * p;
-  float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f;
-  for (int f = warp * 4; f < kc; f += mxt::NWARPS * 4) {
-    const float4 xa = *reinterpret_cast<const float4*>(x0 + f);
-    const float4 xb = *reinterpret_cast<const float4*>(x1 + f);
-    const float4 wa = *reinterpret_cast<const float4*>(w0 + f);
-    const float4 wb = *reinterpret_cast<const float4*>(w1 + f);
-    a00 = fmaf(xa.x, wa.x, a00); a00 = fmaf(xa.y, wa.y, a00);
-    a00 = fmaf(xa.z, wa.z, a00); a00 = fmaf(xa.w, wa.w, a00);
-    a01 = fmaf(xa.x, wb.x, a01); a01 = fmaf(xa.y, wb.y, a01);
-    a01 = fmaf(xa.z, wb.z, a01); a01 = fmaf(xa.w, wb.w, a01);
-    a10 = fmaf(xb.x, wa.x, a10); a10 = fmaf(xb.y, wa.y, a10);
-    a10 = fmaf(xb.z, wa.z, a10); a10 = fmaf(xb.w, wa.w, a10);
-    a11 = fmaf(xb.x, wb.x, a11); a11 = fmaf(xb.y, wb.y, a11);
-    a11 = fmaf(xb.z, wb.z, a11); a11 = fmaf(xb.w, wb.w, a11);
-  }
-  __syncthreads();  // every warp is done with xs
-  reinterpret_cast<float4*>(red)[threadIdx.x] =
-      make_float4(a00, a01, a10, a11);
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t < mxt::GEMV_ROWS * mxt::NWARPS) {
-    const int b = t / mxt::NWARPS, n = t - b * mxt::NWARPS;
-    const int tl = (b & 7) * 4 + (n & 3), e = (b >> 3) * 2 + (n >> 2);
-    float v = 0.f;
-    for (int w = 0; w < mxt::NWARPS; ++w) v += red[(w * 32 + tl) * 4 + e];
-    if (b < nb && n < cols) epi(b, n, v);
-  }
-}
-
-// acc[r] += sum over kk < kc of w(kk) * stage[r * p + kk], r < nb: this
-// lane's columns lane * 4 + 128 j, GEMV_LOADS weight float4s in flight
-__device__ __forceinline__ void ffn_dot(const float* wg, const float* stage,
-                                        int p, int kc, int nb, int lane,
-                                        float (&acc)[mxt::GEMV_ROWS]) {
-  constexpr int L = mxt::GEMV_LOADS;
-  int kk = lane * 4;
-  for (; kk < kc; kk += 128 * L) {
-    float4 wv[L];
-#pragma unroll
-    for (int u = 0; u < L; ++u)
-      if (kk + 128 * u < kc)
-        wv[u] = __ldg(reinterpret_cast<const float4*>(wg + kk + 128 * u));
-#pragma unroll
-    for (int u = 0; u < L; ++u) {
-      if (kk + 128 * u < kc) {
-#pragma unroll
-        for (int r = 0; r < mxt::GEMV_ROWS; ++r) {
-          if (r < nb) {
-            const float4 xv = *reinterpret_cast<const float4*>(
-                stage + r * p + kk + 128 * u);
-            acc[r] = fmaf(wv[u].x, xv.x, acc[r]);
-            acc[r] = fmaf(wv[u].y, xv.y, acc[r]);
-            acc[r] = fmaf(wv[u].z, xv.z, acc[r]);
-            acc[r] = fmaf(wv[u].w, xv.w, acc[r]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// epi(b, n, s, sum over K slice s of in[b, k] * W_n[k]) for b < B, n < N,
-// s < u.ks.  stage_in(stage, p, b0, nb, k0, kc) writes rows b0.. b0 + nb -
-// 1, columns k0.. k0 + kc - 1 of the input into stage at pitch p.  The
-// block's first unit reads its weight rows from w_res (null: not
-// resident) once bar completes, and, when x_res, its input from the
-// stage, which the same copies filled.  With `landed`, each block raises
-// it to the time its copies landed.  Each output's FMA order is fixed.
-template <class Row, class StageIn, class Epi>
-__device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
-                         StageIn stage_in, Epi epi, float* stage,
-                         const float* w_res, bool x_res, uint64_t* bar,
-                         unsigned long long* landed) {
-  for (int unit = blockIdx.x; unit < u.count(); unit += gridDim.x) {
-    const int grp = unit / u.ks, s = unit - grp * u.ks;
-    const int n0 = grp * mxt::NWARPS;
-    const int k_lo = s * u.slice, k_hi = min(K, k_lo + u.slice);
-    if (w_res != nullptr && unit == (int)blockIdx.x) {
-      const int kc = max(0, k_hi - k_lo), p = ffn_pitch(kc);
-      for (int b0 = 0; b0 < B; b0 += mxt::GEMV_ROWS) {
-        const int nb = min(mxt::GEMV_ROWS, B - b0);
-        if (!x_res) {
-          __syncthreads();
-          stage_in(stage, p, b0, nb, k_lo, kc);
-          __syncthreads();
-        }
-        wait_copies(smem_u32(bar));
-        if (landed != nullptr && threadIdx.x == 0)
-          atomicMax(landed, (unsigned long long)globaltimer());
-        ffn_tiles(w_res, stage, p, kc, nb, N - n0, stage,
-                  [&](int b, int c, float v) { epi(b0 + b, n0 + c, s, v); });
-      }
-      continue;
-    }
-    // not resident: one warp a column, its weight row streamed
-    const int lane = threadIdx.x & 31, n = n0 + (int)(threadIdx.x >> 5);
-    const bool has = n < N;
-    const float* wg = has ? row(n) : nullptr;
-    for (int b0 = 0; b0 < B; b0 += mxt::GEMV_ROWS) {
-      const int nb = min(mxt::GEMV_ROWS, B - b0);
-      const int kc_max = (FFN_STAGE_FLOATS / nb - 36) & ~31;
-      float acc[mxt::GEMV_ROWS];
-#pragma unroll
-      for (int r = 0; r < mxt::GEMV_ROWS; ++r) acc[r] = 0.f;
-      for (int k0 = k_lo; k0 < k_hi; k0 += kc_max) {
-        const int kc = min(kc_max, k_hi - k0), p = ffn_pitch(kc);
-        __syncthreads();
-        stage_in(stage, p, b0, nb, k0, kc);
-        __syncthreads();
-        if (has) ffn_dot(wg + k0, stage, p, kc, nb, lane, acc);
-      }
-      if (has) {
-#pragma unroll
-        for (int r = 0; r < mxt::GEMV_ROWS; ++r) {
-          if (r < nb) {
-            const float v = mxt::warp_sum(acc[r]);
-            if (lane == 0) epi(b0 + r, n, s, v);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();  // the stage buffer is free for the next GEMV
-}
-
 __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
@@ -537,6 +288,9 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
   float* hbuf = hparts + (size_t)KSPLIT_MAX * B * Fl;
   float* parts = hbuf + (size_t)B * Fl;
   const float *x = a.x, *w1 = a.w1, *b1 = a.b1, *w2 = a.w2;
+  // a unit is resident when its rows fit its buffer: then its 16 input
+  // rows also fit the stage, at the same pitch (8 rows of 388 floats for
+  // the weights, 16 for the stage)
   const FfnUnits u1(Fl, C, mxt::ksplit_for(Fl));
   const FfnUnits u2(C, Fl, mxt::ksplit_for(C));
   const bool r1 = u1.resident(FFN_W1_FLOATS);
@@ -546,8 +300,10 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
   // way into shared memory before any math: thread 0 sets up the barriers
   // and the bytes each expects, then the copies go out from as many
   // threads
-  const FfnCopies c1(u1, w1, Fl, C, w1s, x, B, stage);
-  const FfnCopies c2(u2, w2, C, Fl, w2s, nullptr, 0, nullptr);
+  const FfnCopies c1(u1, Fl, C, w1s, x, B, stage);
+  const FfnCopies c2(u2, C, Fl, w2s, nullptr, 0, nullptr);
+  auto w1_row = [=](int n) { return w1 + (size_t)n * C; };
+  auto w2_row = [=](int n) { return w2 + (size_t)n * Fl; };
   if (threadIdx.x == 0) {
     mbar_init(smem_u32(bars), 1);
     mbar_init(smem_u32(bars + 1), 1);
@@ -556,21 +312,22 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
     if (r2) mbar_expect_tx(smem_u32(bars + 1), c2.bytes());
   }
   __syncthreads();
-  if (r1) c1.issue(0, bars);
-  if (r2) c2.issue(NTHREADS / 2, bars + 1);
+  if (r1) c1.issue(0, bars, w1_row);
+  if (r2) c2.issue(NTHREADS / 2, bars + 1, w2_row);
   const bool x_res = r1 && c1.xrows > 0;
 
   // 1. FFN1 partials over K slices: hparts[s, b, n]
-  ffn_gemv(u1, B, C, Fl, [=](int n) { return w1 + (size_t)n * C; },
-           [=](float* st, int p, int b0, int nb, int k0, int kc) {
-             ffn_stage(st, p, x + (size_t)b0 * C, nb, C, k0, kc);
-           },
-           [=](int b, int n, int s, float v) {
-             hparts[((size_t)s * B + b) * Fl + n] = v;
-           },
-           stage, r1 ? w1s : nullptr, x_res, bars,
-           a.timing ? reinterpret_cast<unsigned long long*>(a.timing + 1)
-                    : nullptr);
+  mxt::ffn_gemv(u1, B, C, Fl, w1_row,
+                [=](float* st, int p, int b0, int nb, int k0, int kc) {
+                  mxt::ffn_stage(st, p, x + (size_t)b0 * C, nb, C, k0, kc);
+                },
+                [=](int b, int n, int s, float v) {
+                  hparts[((size_t)s * B + b) * Fl + n] = v;
+                },
+                stage, FFN_STAGE_FLOATS, r1 ? w1s : nullptr, x_res,
+                smem_u32(bars), 0,
+                a.timing ? reinterpret_cast<unsigned long long*>(a.timing + 1)
+                         : nullptr);
   sync();
 
   // 2. h = gelu_erf(the FFN1 slices' sum in slice order + b1), once per
@@ -607,14 +364,16 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
   sync();
 
   // 3. FFN2 over the shard's Fl inputs
-  ffn_gemv(u2, B, Fl, C, [=](int n) { return w2 + (size_t)n * Fl; },
-           [=](float* st, int p, int b0, int nb, int k0, int kc) {
-             ffn_stage(st, p, hbuf + (size_t)b0 * Fl, nb, Fl, k0, kc);
-           },
-           [=](int b, int n, int s, float v) {
-             parts[((size_t)s * B + b) * C + n] = v;
-           },
-           stage, r2 ? w2s : nullptr, false, bars + 1, nullptr);
+  mxt::ffn_gemv(u2, B, Fl, C, w2_row,
+                [=](float* st, int p, int b0, int nb, int k0, int kc) {
+                  mxt::ffn_stage(st, p, hbuf + (size_t)b0 * Fl, nb, Fl, k0,
+                                 kc);
+                },
+                [=](int b, int n, int s, float v) {
+                  parts[((size_t)s * B + b) * C + n] = v;
+                },
+                stage, FFN_STAGE_FLOATS, r2 ? w2s : nullptr, false,
+                smem_u32(bars + 1), 0, nullptr);
   sync();
 
   // 4. f_part = the slices' sum, in order

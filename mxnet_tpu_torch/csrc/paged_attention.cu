@@ -19,9 +19,9 @@
 // owns 8 keys and each lane D / 32 columns of them, so a lane's loads of
 // all 8 key and value rows go out at once: one round trip to memory per
 // unit, where one block a (row, KV head) walked the row's whole length in
-// tiles of 64 keys, four block barriers a tile (attend_group, which the
-// fused decode kernel #12 still uses).  int8 pages take the same units: a
-// lane loads its E = D / 32 codes of a row (2 bytes at D 64) and
+// tiles of 64 keys, four block barriers a tile (the parent design).  int8
+// pages take the same units: a lane loads its E = D / 32 codes of a row
+// (2 bytes at D 64) and
 // multiplies them by the page's scale, which the lane that found the
 // key's page loads beside it; the loads are as many as for fp pages, each
 // a quarter of the bytes, and the unit stays one round trip.  Four blocks

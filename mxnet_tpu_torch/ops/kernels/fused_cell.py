@@ -57,7 +57,8 @@ __all__ = ["lstm_sequence", "lstm_sequence_plain",
            "lstm_sequence_backward_plain", "lstm_bwd_gates_plain",
            "lstm_record_gates", "lstm_plan",
            "decode_layer_group", "decode_layer_group_plain", "WeightTable",
-           "WEIGHT_ORDER", "PHASES", "grid_blocks", "phase_times",
+           "WEIGHT_ORDER", "PHASES", "GEMV_PHASES", "grid_blocks",
+           "phase_times",
            "LSTM_BWD_PHASES", "LSTM_GATES_PHASES", "lstm_bwd_phase_times",
            "decode_attn_phase", "decode_attn_phase_plain",
            "decode_attn_phase_times", "ATTN_PHASES", "decode_ffn_phase",
@@ -65,8 +66,12 @@ __all__ = ["lstm_sequence", "lstm_sequence_plain",
            "phase_grid_blocks"]
 
 #: the kernel's phases per layer, separated by grid-wide barriers
-PHASES = ("qkv", "append+attention", "out_proj", "residual+ln1",
+PHASES = ("qkv", "append+attention", "merge", "out_proj", "residual+ln1",
           "ffn1+gelu", "ffn2", "residual+ln2")
+#: the phases whose weight rows are copied into shared memory ahead of
+#: them, in the kernel's order; :func:`phase_times` also reports when the
+#: last block's rows had landed
+GEMV_PHASES = ("qkv", "out_proj", "ffn1+gelu", "ffn2")
 #: the phases of the tensor-parallel attention phase kernel #13
 ATTN_PHASES = ("qkv", "append+attention", "merge", "out_proj",
                "slice_sum")
@@ -85,10 +90,12 @@ _I = ctypes.c_int
 class WeightTable:
     """A layer group's weights and the ``(Lg, 16)`` int64 table of their
     addresses, in :data:`WEIGHT_ORDER`, through which the kernel reads
-    them.  It holds the layer dicts, so the addresses stay valid while it
-    lives.  Build it once per weight set: the fused decode step builds
-    one per group when it first sees a weight set.  It iterates as the
-    list of layer dicts, which is what the plain version reads."""
+    them (the weight matrices by 16-byte bulk copies, so every weight must
+    start 16-byte aligned).  It holds the layer dicts, so the addresses
+    stay valid while it lives.  Build it once per weight set: the fused
+    decode step builds one per group when it first sees a weight set.  It
+    iterates as the list of layer dicts, which is what the plain version
+    reads."""
 
     def __init__(self, layers, device):
         ptrs = []
@@ -96,10 +103,10 @@ class WeightTable:
             for k in WEIGHT_ORDER:
                 t = lp[k]
                 if (t.dtype != torch.float32 or t.device != device
-                        or not t.is_contiguous()):
+                        or not t.is_contiguous() or t.data_ptr() % 16):
                     raise ValueError("decode_layer_group: weight %r must be "
-                                     "a contiguous float32 tensor on %s"
-                                     % (k, device))
+                                     "a contiguous, 16-byte aligned float32 "
+                                     "tensor on %s" % (k, device))
                 ptrs.append(t.data_ptr())
         self.layers = list(layers)
         self.ptrs = torch.tensor(ptrs, dtype=torch.int64, device=device)
@@ -143,11 +150,14 @@ def _lib():
     fn = lib.mxt_decode_layer_group
     fn.argtypes = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P]
     fn.restype = _I
-    lib.mxt_decode_layer_group_scratch.argtypes = [_I] * 5
+    lib.mxt_decode_layer_group_scratch.argtypes = [_I] * 7
     lib.mxt_decode_layer_group_scratch.restype = ctypes.c_longlong
-    lib.mxt_decode_layer_group_grid.argtypes = [_I, _I, _I,
-                                                ctypes.POINTER(_I)]
+    lib.mxt_decode_layer_group_grid.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
     lib.mxt_decode_layer_group_grid.restype = _I
+    for fn in (lib.mxt_decode_layer_group_phases,
+               lib.mxt_decode_layer_group_gemvs):
+        fn.argtypes = []
+        fn.restype = _I
     return lib
 
 
@@ -157,8 +167,8 @@ def grid_blocks(cfg):
     lib = _lib()
     n = _I(0)
     _build.check(lib, lib.mxt_decode_layer_group_grid(
-        cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, ctypes.byref(n)),
-        "decode_layer_group grid")
+        cfg.units, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+        ctypes.byref(n)), "decode_layer_group grid")
     return n.value
 
 
@@ -178,7 +188,9 @@ def decode_layer_group(x, kp, vp, layers, meta, page_tables, lengths, cfg):
 
     Returns (kp, vp, x_out); kp/vp are the tensors passed in.  A CPU
     tensor takes :func:`decode_layer_group_plain`; a CUDA tensor launches
-    the kernel (counted in ``decode_layer_group.launches``)."""
+    the kernel (counted in ``decode_layer_group.launches``) or raises (a
+    head dim other than 32, 64 or 128 raises ``ValueError``).  An empty
+    batch launches nothing."""
     if x.device.type == "cpu":
         return decode_layer_group_plain(x, kp, vp, layers, meta,
                                         page_tables, lengths, cfg)
@@ -188,14 +200,39 @@ def decode_layer_group(x, kp, vp, layers, meta, page_tables, lengths, cfg):
 def phase_times(x, kp, vp, layers, meta, page_tables, lengths, cfg):
     """One kernel launch on CUDA tensors (same arguments and in-place
     effects as :func:`decode_layer_group`) that also stamps the card's
-    global timer at the end of every phase.  Returns ``{phase: [ns per
-    layer]}`` over :data:`PHASES`."""
-    Lg = kp.shape[0]
-    stamps = torch.zeros(Lg * len(PHASES) + 1, dtype=torch.int64,
+    global timer.  Returns, per layer (lists of Lg values):
+
+    - ``{phase: ns}`` over :data:`PHASES`: from block 0's exit of the
+      barrier before the phase to its exit of the barrier after it;
+    - ``{"<phase> arrived": ns}``: from that start until the last block
+      reached the closing barrier (the rest of the phase is the barrier);
+    - over :data:`GEMV_PHASES`, ``{"<phase> landed": ns}``: from the
+      phase's start until the last block's weight rows were there (None
+      where no block had its rows copied; a landing late in its phase
+      means that the weight stream, not the math, set the phase), and
+      ``{"<phase> streamed": units}`` whose rows were read from device
+      memory instead."""
+    Lg, n_p, n_g = kp.shape[0], len(PHASES), len(GEMV_PHASES)
+    stamps = torch.zeros(1 + 2 * Lg * (n_p + n_g), dtype=torch.int64,
                          device=x.device)
     _launch(x, kp, vp, layers, meta, page_tables, lengths, cfg, stamps)
-    d = torch.diff(stamps.cpu()).reshape(Lg, len(PHASES))
-    return {p: d[:, i].tolist() for i, p in enumerate(PHASES)}
+    st = stamps.cpu()
+    ends = st[:1 + Lg * n_p]
+    starts = ends[:-1].reshape(Lg, n_p)
+    dur = torch.diff(ends).reshape(Lg, n_p)
+    arrived = st[1 + Lg * n_p:1 + 2 * Lg * n_p].reshape(Lg, n_p) - starts
+    landed = st[1 + 2 * Lg * n_p:1 + Lg * (2 * n_p + n_g)].reshape(Lg, n_g)
+    streamed = st[1 + Lg * (2 * n_p + n_g):].reshape(Lg, n_g)
+    out = {p: dur[:, i].tolist() for i, p in enumerate(PHASES)}
+    out.update({p + " arrived": arrived[:, i].tolist()
+                for i, p in enumerate(PHASES)})
+    for j, p in enumerate(GEMV_PHASES):
+        out[p + " landed"] = [
+            int(t - s0) if t else None for t, s0 in zip(
+                landed[:, j].tolist(), starts[:, PHASES.index(p)].tolist())]
+    for j, p in enumerate(GEMV_PHASES):
+        out[p + " streamed"] = streamed[:, j].tolist()
+    return out
 
 
 def _launch(x, kp, vp, layers, meta, page_tables, lengths, cfg, stamps):
@@ -216,10 +253,10 @@ def _launch(x, kp, vp, layers, meta, page_tables, lengths, cfg, stamps):
         raise ValueError("decode_layer_group: shapes do not match the "
                          "config (x %s, pages %s, %d layers)"
                          % (tuple(x.shape), tuple(kp.shape), len(layers)))
-    if C % 4 or F % 4 or D % 4 or C > 8128:
-        raise ValueError("decode_layer_group: units, hidden_size and "
-                         "head_dim must be multiples of 4, and units at "
-                         "most 8128")
+    if C % 4 or F % 4 or D not in (32, 64, 128):
+        raise ValueError("decode_layer_group: units and hidden_size must be "
+                         "multiples of 4 and the head dim 32, 64 or 128 (a "
+                         "lane takes D / 32 columns), not %d" % D)
     for name, t, dt in (("x", x, torch.float32), ("kp", kp, torch.float32),
                         ("vp", vp, torch.float32), ("meta", meta, torch.int32),
                         ("page_tables", page_tables, torch.int32),
@@ -234,9 +271,19 @@ def _launch(x, kp, vp, layers, meta, page_tables, lengths, cfg, stamps):
         raise ValueError("decode_layer_group: the weight table lives on %s, "
                          "the activations on %s" % (table.ptrs.device, dev))
     lib = _lib()
+    if stamps is not None and (
+            lib.mxt_decode_layer_group_phases() != len(PHASES)
+            or lib.mxt_decode_layer_group_gemvs() != len(GEMV_PHASES)):
+        raise RuntimeError("decode_layer_group: the kernel stamps %d phases "
+                           "and %d GEMVs, PHASES and GEMV_PHASES name %d, %d"
+                           % (lib.mxt_decode_layer_group_phases(),
+                              lib.mxt_decode_layer_group_gemvs(),
+                              len(PHASES), len(GEMV_PHASES)))
     x_out = x.clone()
-    scratch = torch.empty(lib.mxt_decode_layer_group_scratch(B, C, F, KVH, D),
-                          dtype=torch.float32, device=dev)
+    if not B:     # no rows: no launch (a block must wait for its copies)
+        return kp, vp, x_out
+    scratch = torch.empty(lib.mxt_decode_layer_group_scratch(
+        B, C, F, H, KVH, D, pps * S), dtype=torch.float32, device=dev)
     rc = lib.mxt_decode_layer_group(
         x_out.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.ptrs.data_ptr(),
         meta.data_ptr(), page_tables.data_ptr(), lengths.data_ptr(),

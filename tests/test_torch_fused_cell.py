@@ -1,12 +1,19 @@
 """Port parity: ``mxnet_tpu_torch.ops.kernels.fused_cell.decode_layer_group``
-(its plain version, which CPU tensors take) against the JAX
+(its plain version, which CPU tensors take, and which ``chip_smoke.py``
+holds the card's kernel to) against the JAX
 ``decode_layer_group(..., mode="interpret")`` — the Pallas kernel run by
 the interpreter — on the geometry of ``test_fused_cell.py``'s decode
-parity test: vocab 64, 2 layers, units 32, 4 heads over 2 KV heads, page
-size 8, 4 slots with one inactive.  The biases and LN affines are random,
-so a kernel that dropped or swapped one of them would disagree.
+parity test: vocab 64, 2 layers, units 32, 4 heads over 2 KV heads (and
+over 4), page size 8, 8 pages a row, 4 slots.  The biases and LN affines
+are random, so a kernel that dropped or swapped one of them would
+disagree.  The cases put rows at the lengths the card's split-key
+attention units meet: the whole table (8 pages, 64 keys), one key, a row
+ending on a page boundary and rows of length 0 (inactive: no unit, no
+append).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import pytest
@@ -28,38 +35,68 @@ GEOM = dict(vocab_size=64, num_layers=2, units=32, hidden_size=64,
 S, B, PPS, TOTAL = 8, 4, 8, 16
 
 
-@pytest.fixture(scope="module")
-def models():
-    jlm = tiny_lm_with_affine(**GEOM)
+#: lengths after this step's append (0: inactive), one case a tuple.
+#: "edges": a row over the whole table (64 keys), a row of one key, a row
+#: ending on a page boundary and an inactive row; "idle": the first row
+#: inactive too
+CASES = {"mixed": (10, 4, 12, 0),
+         "edges": (S * PPS, 1, 2 * S, 0),
+         "idle": (0, 4, 12, 0)}
+
+
+@functools.lru_cache(maxsize=None)
+def _models(kvh):
+    geom = dict(GEOM, num_kv_heads=kvh)
+    jlm = tiny_lm_with_affine(**geom)
     params_np = jax.tree.map(np.asarray, jlm.jax_params())
-    tlm = tdec.CausalLM(**GEOM, device="cpu").load_jax_params(params_np)
+    tlm = tdec.CausalLM(**geom, device="cpu").load_jax_params(params_np)
     return jlm, tlm
 
 
-def _inputs():
-    cfg_l, kvh, d = GEOM["num_layers"], GEOM["num_kv_heads"], 32 // 4
+@pytest.fixture(scope="module")
+def models():
+    return _models(GEOM["num_kv_heads"])
+
+
+def _inputs(lengths=CASES["mixed"], kvh=GEOM["num_kv_heads"]):
+    """x, the pages, meta, the tables and the lengths of one step whose
+    rows reach ``lengths`` after the append; each row's pages distinct,
+    from page 1 on (page 0 is the scratch page inactive rows write)."""
+    cfg_l, d = GEOM["num_layers"], 32 // 4
     rng = np.random.default_rng(1)
     kp = (rng.standard_normal((cfg_l, kvh, TOTAL, S, d)) * 0.2).astype(
         np.float32)
     vp = (rng.standard_normal(kp.shape) * 0.2).astype(np.float32)
     x = rng.standard_normal((B, GEOM["units"])).astype(np.float32)
+    lengths = np.array(lengths, np.int32)
     tables = np.zeros((B, PPS), np.int32)
-    tables[0, :2] = [1, 2]
-    tables[1, 0] = 3
-    tables[2, :2] = [4, 5]
-    pos = np.array([9, 3, 11, 0], np.int32)
-    act = np.array([True, True, True, False])
+    nxt = 1
+    for b, n in enumerate(lengths):
+        need = -(-int(n) // S)
+        tables[b, :need] = np.arange(nxt, nxt + need)
+        nxt += need
+    assert nxt <= TOTAL
+    pos = np.maximum(lengths - 1, 0)
+    act = lengths > 0
     wp = np.where(act, tables[np.arange(B), pos // S], 0).astype(np.int32)
     ws = np.where(act, pos % S, 0).astype(np.int32)
-    lengths = np.where(act, pos + 1, 0).astype(np.int32)[:, None]
-    return x, kp, vp, np.stack([wp, ws]), tables, lengths
+    return x, kp, vp, np.stack([wp, ws]), tables, lengths[:, None]
 
 
-@pytest.mark.parametrize("layer_group", [0, 1])
-def test_decode_layer_group_matches_jax_interpret(models, layer_group):
-    jlm, tlm = models
+# (layer_group, case, KV heads): at g 2 (4 heads over 2 KV heads) with
+# mixed lengths, one launch for both layers and one a layer; then one
+# launch at the edges' lengths at g 2 and g 1, and with the first row
+# inactive at g 1
+@pytest.mark.parametrize("layer_group,case,kvh", [
+    pytest.param(0, "mixed", 2, id="0"),
+    pytest.param(1, "mixed", 2, id="1"),
+    pytest.param(0, "edges", 2, id="edges-g2"),
+    pytest.param(0, "edges", 4, id="edges-g1"),
+    pytest.param(0, "idle", 4, id="idle-g1")])
+def test_decode_layer_group_matches_jax_interpret(layer_group, case, kvh):
+    jlm, tlm = _models(kvh)
     cfg = jlm.config
-    x, kp, vp, meta, tables, lengths = _inputs()
+    x, kp, vp, meta, tables, lengths = _inputs(CASES[case], kvh)
     groups = jdec._group_bounds(cfg.num_layers, layer_group)
     params = jlm.jax_params()
 
@@ -81,16 +118,26 @@ def test_decode_layer_group_matches_jax_interpret(models, layer_group):
         assert kg.data_ptr() == tkp[lo:hi].data_ptr()   # updated in place
 
     # fp32 on both sides, sums in other orders (the JAX kernel and its own
-    # per-op step already differ by ~5e-7 on these pages); page 0 is the
-    # scratch page and is left out
+    # per-op step already differ by ~5e-7 on these pages; a row over the
+    # whole table sums 64 keys); page 0 is the scratch page and is left out
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx),
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tkp.numpy()[:, :, 1:],
                                np.asarray(jkp)[:, :, 1:], rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tvp.numpy()[:, :, 1:],
                                np.asarray(jvp)[:, :, 1:], rtol=1e-5, atol=1e-5)
-    # every active row's new KV landed at its (page, slot)
-    assert not np.array_equal(tkp.numpy(), kp)
+    # every active row's new KV landed at its (page, slot), and nothing
+    # else changed past page 0
+    for li in range(cfg.num_layers):
+        for b in np.flatnonzero(lengths[:, 0] > 0):
+            page, slot = meta[0, b], meta[1, b]
+            assert not np.array_equal(tkp.numpy()[li, :, page, slot],
+                                      kp[li, :, page, slot])
+    written = np.zeros(kp.shape[2:4], bool)
+    written[meta[0][lengths[:, 0] > 0], meta[1][lengths[:, 0] > 0]] = True
+    written[0] = True
+    np.testing.assert_array_equal(tkp.numpy()[:, :, ~written],
+                                  kp[:, :, ~written])
 
 
 def test_cpu_tensors_launch_nothing(models):
