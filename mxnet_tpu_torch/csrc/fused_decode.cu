@@ -338,6 +338,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
                                        : bv[n - C - KVC];
       qkv[(size_t)b * N + n] = v + bias;
     });
+    issue(l, 2);
     sync();
 
     // 2. split-key attention units; the unit of a row's last chunk
@@ -363,45 +364,33 @@ __global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
     sync();
 
     // 3. the chunks merged in chunk order
-    {
-      const bool merges = (int)blockIdx.x * (int)blockDim.x < B * C;
-      if (!merges) issue(l, 2);
-      mxt::split_merge(po, pm, pl, a.lengths, B, KVH, g, D, max_keys, att);
-      if (merges) issue(l, 2);
-    }
+    mxt::split_merge(po, pm, pl, a.lengths, B, KVH, g, D, max_keys, att);
     sync();
 
     // 4. out-projection, partial sums over K slices; then FFN2's rows
     gemv(l, 1, att, part);
+    issue(l, 3);
     sync();
 
     // 5. residual + bias, LayerNorm
-    if ((int)blockIdx.x >= B) issue(l, 3);
     residual_layer_norm(x, parts, ks, w[7], w[12], w[13], B, C, stage);
-    if ((int)blockIdx.x < B) issue(l, 3);
     sync();
 
     // 6. FFN1 + bias + erf GELU; then the next layer's qkv rows
     gemv(l, 2, x, [=](int b, int n, int, float v) {
       hbuf[(size_t)b * F + n] = mxt::gelu_erf(v + b1[n]);
     });
+    issue(l + 1, 0);
     sync();
 
     // 7. FFN2, partial sums over K slices; then the next layer's
     // out-projection rows
     gemv(l, 3, hbuf, part);
+    issue(l + 1, 1);
     sync();
 
     // 8. residual + bias, LayerNorm: the next layer's input
-    if ((int)blockIdx.x >= B) {
-      issue(l + 1, 0);
-      issue(l + 1, 1);
-    }
     residual_layer_norm(x, parts, ks, w[11], w[14], w[15], B, C, stage);
-    if ((int)blockIdx.x < B) {
-      issue(l + 1, 0);
-      issue(l + 1, 1);
-    }
     if (l + 1 < Lg || timing != nullptr) sync();
   }
 }
