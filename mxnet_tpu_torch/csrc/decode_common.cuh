@@ -198,9 +198,6 @@ struct FfnUnits {
   __device__ bool resident(int cap) const {
     return (int)blockIdx.x < count() && NWARPS * ffn_pitch(slice) <= cap;
   }
-  // a unit over the whole of K: its rows unpadded, one copy
-  __device__ bool packed() const { return ks == 1; }
-  __device__ int wpitch(int kc) const { return packed() ? kc : ffn_pitch(kc); }
 };
 
 // The bulk copies of the block's resident unit of an N-row weight (row(n):
@@ -213,10 +210,9 @@ struct FfnCopies {
   float* buf;
   float* xbuf;
   int K, n0, rows, k_lo, kc, xrows;
-  bool packed;
   __device__ FfnCopies(const FfnUnits& u, int N, int K_, float* buf_,
                        const float* x_, int B, float* xbuf_)
-      : x(x_), buf(buf_), xbuf(xbuf_), K(K_), packed(u.packed()) {
+      : x(x_), buf(buf_), xbuf(xbuf_), K(K_) {
     const int grp = blockIdx.x / u.ks, s = blockIdx.x - grp * u.ks;
     n0 = grp * NWARPS;
     rows = min(NWARPS, N - n0);
@@ -230,25 +226,13 @@ struct FfnCopies {
   template <class Row>
   __device__ void issue(int first, uint64_t* bar, Row row) const {
     const int c = (int)threadIdx.x - first, p = ffn_pitch(kc);
-    const int wrows = packed ? 1 : rows;
-    if (kc == 0 || c < 0 || c >= wrows + xrows) return;
-    if (c >= wrows) {
-      const int r = c - wrows;
-      bulk_load(smem_u32(xbuf + (size_t)r * p), x + (size_t)r * K + k_lo,
-                kc * 4, smem_u32(bar));
-    } else if (!packed) {
+    if (kc == 0 || c < 0 || c >= rows + xrows) return;
+    if (c < rows)
       bulk_load(smem_u32(buf + (size_t)c * p), row(n0 + c) + k_lo, kc * 4,
                 smem_u32(bar));
-    } else {
-      for (int r0 = 0; r0 < rows;) {
-        const float* src = row(n0 + r0);
-        int r1 = r0 + 1;
-        while (r1 < rows && row(n0 + r1) == src + (size_t)(r1 - r0) * K) ++r1;
-        bulk_load(smem_u32(buf + (size_t)r0 * kc), src,
-                  (uint32_t)(r1 - r0) * kc * 4, smem_u32(bar));
-        r0 = r1;
-      }
-    }
+    else
+      bulk_load(smem_u32(xbuf + (size_t)(c - rows) * p),
+                x + (size_t)(c - rows) * K + k_lo, kc * 4, smem_u32(bar));
   }
 };
 
@@ -318,9 +302,9 @@ __device__ __forceinline__ void ffn_tiles(const float* ws, int pw,
                                           const float* xs, int px, int kc,
                                           float4& acc) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* x0 = xs + (lane & 7) * px;
+  const float* x0 = xs + (lane >> 2) * px;
   const float* x1 = x0 + 8 * px;
-  const float* w0 = ws + (lane >> 3) * pw;
+  const float* w0 = ws + (lane & 3) * pw;
   const float* w1 = w0 + 4 * pw;
   float a00 = acc.x, a01 = acc.y, a10 = acc.z, a11 = acc.w;
   for (int f = warp * 4; f < kc; f += NWARPS * 4) {
@@ -349,7 +333,7 @@ __device__ void ffn_tiles_out(float4 acc, int nb, int cols, float* red,
   const int t = threadIdx.x;
   if (t < GEMV_ROWS * NWARPS) {
     const int b = t / NWARPS, n = t - b * NWARPS;
-    const int tl = (b & 7) + (n & 3) * 8, e = (b >> 3) * 2 + (n >> 2);
+    const int tl = (b & 7) * 4 + (n & 3), e = (b >> 3) * 2 + (n >> 2);
     float v = 0.f;
     for (int w = 0; w < NWARPS; ++w) v += red[(w * 32 + tl) * 4 + e];
     if (b < nb && n < cols) epi(b, n, v);
@@ -409,7 +393,7 @@ __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
     const int n0 = grp * NWARPS;
     const int k_lo = s * u.slice, k_hi = min(K, k_lo + u.slice);
     if (w_res != nullptr && unit == (int)blockIdx.x) {
-      const int kc = max(0, k_hi - k_lo), pw = u.wpitch(kc);
+      const int kc = max(0, k_hi - k_lo), pw = ffn_pitch(kc);
       const int chunk = (stage_floats / GEMV_ROWS - 4) & ~31;
       for (int b0 = 0; b0 < B; b0 += GEMV_ROWS) {
         const int nb = min(GEMV_ROWS, B - b0);
@@ -417,7 +401,7 @@ __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
         int k0 = 0;
         do {
           const int kk = x_res ? kc : min(chunk, kc - k0);
-          const int px = ffn_pitch(kk);
+          const int px = x_res ? pw : ffn_pitch(kk);
           if (!x_res) {
             __syncthreads();
             stage_in(stage, px, b0, nb, k_lo + k0, kk);
