@@ -538,14 +538,6 @@ struct SplitF32 {
     kc.load(k + off);
     vc.load(v + off);
   }
-  template <int E>
-  __device__ __forceinline__ void prefetch(long long off) const {
-#pragma unroll
-    for (int o = 0; o < 32 * E; o += 32) {
-      asm volatile("prefetch.global.L2 [%0];" ::"l"(k + off + o));
-      asm volatile("prefetch.global.L2 [%0];" ::"l"(v + off + o));
-    }
-  }
 };
 
 // int8 pages: codes in the fp layout, one fp32 scale per (KV head, page)
@@ -586,7 +578,7 @@ struct SplitI8 {
 // po/pm/pl:      per unit, (g D) unnormalised outputs, (g) maxima, (g) sums
 // D = 32 E.  Pages are read with L2-only loads: blocks write them in the
 // same launch.
-template <int E, bool PF = false, class QAt, class Append, class Pages>
+template <int E, class QAt, class Append, class Pages>
 __device__ void split_attend(QAt q_at, Append append, const Pages& pages,
                              const int* tables, const int* lengths, int B,
                              int KVH, int g, int P, int S, int pps,
@@ -653,25 +645,6 @@ __device__ void split_attend(QAt q_at, Append append, const Pages& pages,
         } else {
           kc[k].zero();
           vc[k].zero();
-        }
-      }
-    }
-    if constexpr (PF) {
-      // the block's next unit's key and value lines into L2
-      const int u2 = u + gridDim.x;
-      if (u2 < units && lane < SPLIT_WARP_KEYS) {
-        int r2 = u2, b2 = 0, n2 = 0;
-        for (; b2 < B; ++b2) {
-          n2 = split_chunks(__ldg(lengths + b2), max_keys);
-          if (r2 < n2 * KVH) break;
-          r2 -= n2 * KVH;
-        }
-        const int kvh2 = r2 / n2, c2 = r2 - kvh2 * n2;
-        const int t2 = c2 * SPLIT_KEYS + warp * SPLIT_WARP_KEYS + lane;
-        if (t2 < min(__ldg(lengths + b2), max_keys)) {
-          const int page = __ldg(tables + (size_t)b2 * pps + t2 / S);
-          pages.template prefetch<E>(
-              (((long long)kvh2 * P + page) * S + t2 % S) * D);
         }
       }
     }

@@ -358,7 +358,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
           vp[dst + e - D] = __ldcg(src + KVC + e - D);
       }
     };
-    mxt::split_attend<E, true>(q_at, append, mxt::SplitF32{kp, vp}, a.tables,
+    mxt::split_attend<E>(q_at, append, mxt::SplitF32{kp, vp}, a.tables,
                          a.lengths, B, KVH, g, P, S, a.pps, a.scale, po, pm,
                          pl, stage);
     sync();
