@@ -53,13 +53,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// A barrier of the block's first NTHREADS threads, which run the helpers
-// below (named barrier 1): the whole block in a kernel of NTHREADS
-// threads, and all but the producer warp of the fused decode kernel's.
-__device__ __forceinline__ void block_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(NTHREADS) : "memory");
-}
-
 // the card's global nanosecond timer, for a kernel's phase stamps
 __device__ __forceinline__ long long globaltimer() {
   long long t;
@@ -230,14 +223,6 @@ struct FfnCopies {
   __device__ uint32_t bytes() const {
     return (uint32_t)(rows + xrows) * kc * 4;
   }
-  // every weight row's copy, from the calling thread
-  template <class Row>
-  __device__ void issue_rows(uint64_t* bar, Row row) const {
-    const int p = ffn_pitch(kc);
-    for (int c = 0; kc != 0 && c < rows; ++c)
-      bulk_load(smem_u32(buf + (size_t)c * p), row(n0 + c) + k_lo, kc * 4,
-                smem_u32(bar));
-  }
   template <class Row>
   __device__ void issue(int first, uint64_t* bar, Row row) const {
     const int c = (int)threadIdx.x - first, p = ffn_pitch(kc);
@@ -280,11 +265,11 @@ __device__ __forceinline__ void wait_copies(uint32_t bar, uint32_t parity) {
 __device__ inline void ffn_stage(float* st, int p, const float* in, int nb,
                                  int K, int k0, int kc) {
   const int kc4 = kc >> 2, n4 = nb * kc4;
-  for (int e0 = threadIdx.x; e0 < n4; e0 += NTHREADS * 4) {
+  for (int e0 = threadIdx.x; e0 < n4; e0 += blockDim.x * 4) {
     float4 v[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int e = e0 + u * NTHREADS;
+      const int e = e0 + u * blockDim.x;
       if (e < n4) {
         const int r = e / kc4;
         v[u] = __ldcg(reinterpret_cast<const float4*>(
@@ -293,7 +278,7 @@ __device__ inline void ffn_stage(float* st, int p, const float* in, int nb,
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int e = e0 + u * NTHREADS;
+      const int e = e0 + u * blockDim.x;
       if (e < n4) {
         const int r = e / kc4;
         *reinterpret_cast<float4*>(st + r * p + (e - r * kc4) * 4) = v[u];
@@ -342,9 +327,9 @@ __device__ __forceinline__ void ffn_tiles(const float* ws, int pw,
 template <class Epi>
 __device__ void ffn_tiles_out(float4 acc, int nb, int cols, float* red,
                               Epi epi) {
-  block_sync();  // every warp is done with xs
+  __syncthreads();  // every warp is done with xs
   reinterpret_cast<float4*>(red)[threadIdx.x] = acc;
-  block_sync();
+  __syncthreads();
   const int t = threadIdx.x;
   if (t < GEMV_ROWS * NWARPS) {
     const int b = t / NWARPS, n = t - b * NWARPS;
@@ -418,9 +403,9 @@ __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
           const int kk = x_res ? kc : min(chunk, kc - k0);
           const int px = x_res ? pw : ffn_pitch(kk);
           if (!x_res) {
-            block_sync();
+            __syncthreads();
             stage_in(stage, px, b0, nb, k_lo + k0, kk);
-            block_sync();
+            __syncthreads();
           }
           if (k0 == 0) {
             wait_copies(bar, parity);
@@ -448,9 +433,9 @@ __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
       for (int r = 0; r < GEMV_ROWS; ++r) acc[r] = 0.f;
       for (int k0 = k_lo; k0 < k_hi; k0 += kc_max) {
         const int kc = min(kc_max, k_hi - k0), p = ffn_pitch(kc);
-        block_sync();
+        __syncthreads();
         stage_in(stage, p, b0, nb, k0, kc);
-        block_sync();
+        __syncthreads();
         if (has) ffn_dot(wg + k0, stage, p, kc, nb, lane, acc);
       }
       if (has) {
@@ -464,7 +449,7 @@ __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
       }
     }
   }
-  block_sync();  // the stage buffer is free for the next GEMV
+  __syncthreads();  // the stage buffer is free for the next GEMV
 }
 
 // Split-key paged attention.  The unit of work is (row b, KV head, chunk
@@ -615,10 +600,10 @@ __device__ void split_attend(QAt q_at, Append append, const Pages& pages,
     const int length = min(__ldg(lengths + b), max_keys);
     const int k0 = c * SPLIT_KEYS + warp * SPLIT_WARP_KEYS;
     const int nk = min(SPLIT_WARP_KEYS, max(length - k0, 0));
-    block_sync();  // the last unit's combine has read the warps' rows
+    __syncthreads();  // the last unit's combine has read the warps' rows
     if (c == nch - 1) {
       append(b, kvh);
-      block_sync();
+      __syncthreads();
     }
     // lane k < 8 finds key k's row (and its page's scales); every lane
     // loads its columns of all 8
@@ -697,9 +682,9 @@ __device__ void split_attend(QAt q_at, Append append, const Pages& pages,
         o_w[gD + g + i] = l;
       }
     }
-    block_sync();
+    __syncthreads();
     // the unit's partial: the warps' in warp order, at the largest max
-    for (int e = tid; e < gD; e += NTHREADS) {
+    for (int e = tid; e < gD; e += blockDim.x) {
       const int i = e / D;
       float m = -INFINITY;
       for (int w = 0; w < NWARPS; ++w)
@@ -728,8 +713,8 @@ __device__ inline void split_merge(const float* po, const float* pm,
                                    int KVH, int g, int D, int max_keys,
                                    float* att) {
   const int gD = g * D, Cq = KVH * gD;
-  for (int e = blockIdx.x * NTHREADS + threadIdx.x; e < B * Cq;
-       e += gridDim.x * NTHREADS) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < B * Cq;
+       e += gridDim.x * blockDim.x) {
     const int b = e / Cq, hd = e - b * Cq;
     const int kvh = hd / gD, id = hd - kvh * gD, i = id / D;
     int u0 = 0;
@@ -753,10 +738,10 @@ __device__ inline void split_merge(const float* po, const float* pm,
 
 // Grid (all blocks resident at once, from the occupancy calculator) and
 // dynamic shared memory of a cooperative launch of `kernel` with
-// `threads` threads and `smem_floats` floats of shared memory.
+// NTHREADS threads and `smem_floats` floats of shared memory.
 template <class Kernel>
 cudaError_t coop_geometry(Kernel kernel, int smem_floats, int* grid,
-                          size_t* smem, int threads = NTHREADS) {
+                          size_t* smem) {
   *smem = (size_t)smem_floats * sizeof(float);
   cudaError_t e;
   if (*smem > 48 * 1024) {
@@ -771,7 +756,7 @@ cudaError_t coop_geometry(Kernel kernel, int smem_floats, int* grid,
                                   dev)) != cudaSuccess)
     return e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, *smem)) != cudaSuccess)
+           &per_sm, kernel, NTHREADS, *smem)) != cudaSuccess)
     return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   *grid = per_sm * sms;

@@ -87,10 +87,23 @@
 // Why: the parent design streamed each GEMV's weights one warp a column
 // only after the barrier that opened the phase, and gave each (row, KV
 // head) to one block, which walked the whole row: the longest row set the
-// attention phase's pace (PERF.md, section 6).  All sums run in a fixed
-// order and no atomic decides a result: the output does not depend on
-// timing.
+// attention phase's pace.  What the stamps of this design show (PERF.md,
+// section 6): a bulk copy's issue returns only once its bytes have been
+// requested, so the phase that issues a GEMV's 9.4 MB carries ~3 us of
+// it, and the weights share the L2-to-SM path with the staging of the
+// inputs, which every block of a GEMV reads whole (8 columns a unit: 16
+// input rows per 8 weight rows).  Measured slower or no faster, so not
+// kept: the copies issued by a producer warp outside a grid barrier of
+// the compute threads (the phases the copies overlap slow down as much as
+// the issuing phases speed up, and 72 registers spill more); issued in
+// the merge and LayerNorm phases, where most blocks idle (those phases
+// grow by the same ~3 us); one packed copy a unit over unpadded rows; the
+// next attention unit's key and value lines prefetched into L2; and one
+// weight buffer at four blocks an SM.  All sums run in a fixed order and
+// no atomic decides a result: the output does not depend on timing.
 #include "decode_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -104,12 +117,9 @@ constexpr int NW = 16;               // weight pointers per layer
 // the phases of a layer, each closed by a grid barrier, and its GEMVs
 constexpr int PHASES = 8;
 constexpr int GEMVS = 4;
-// a block: NTHREADS compute threads, then the producer warp
-constexpr int THREADS = NTHREADS + 32;
-// shared memory: four mbarriers (each buffer's "full" and "empty"), two
-// weight buffers of 8 rows of up to 768 columns, then the stage (at least
-// 16 rows of 384 columns)
-constexpr int BAR_FLOATS = 8;
+// shared memory: two mbarriers, two weight buffers of 8 rows of up to 768
+// columns, then the stage (at least 16 rows of 384 columns)
+constexpr int BAR_FLOATS = 4;
 constexpr int W_FLOATS = NWARPS * (768 + 4);
 constexpr int STAGE_MIN = mxt::GEMV_ROWS * (384 + 4);
 
@@ -128,19 +138,16 @@ struct Args {
   float scale;
 };
 
-// scratch layout: the grid barrier's counter (zeroed before each launch;
-// 4 floats) | qkv (B, C + 2 KVC) | att (B, C) | h (B, F) | parts
+// scratch layout: qkv (B, C + 2 KVC) | att (B, C) | h (B, F) | parts
 // (KSPLIT_MAX, B, C) | the split attention's per-unit partials: outputs
 // (U, g D), maxima (U, g), sums (U, g), U = split_units_max; every piece
 // starts 16-byte aligned
-constexpr int COUNTER_FLOATS = 4;
 __host__ __device__ inline size_t scratch_floats(int B, int C, int F, int H,
                                                  int KVH, int D,
                                                  int max_keys) {
   const int KVC = KVH * D, g = H / KVH;
   const size_t U = mxt::split_units_max(B, KVH, max_keys);
-  return COUNTER_FLOATS + round4((size_t)B * (C + 2 * KVC)) +
-         round4((size_t)B * C) +
+  return round4((size_t)B * (C + 2 * KVC)) + round4((size_t)B * C) +
          round4((size_t)B * F) + (size_t)KSPLIT_MAX * B * C +
          round4(U * g * D) + 2 * round4(U * g);
 }
@@ -148,15 +155,15 @@ __host__ __device__ inline size_t scratch_floats(int B, int C, int F, int H,
 __device__ float block_sum(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   v = mxt::warp_sum(v);
-  mxt::block_sync();
+  __syncthreads();
   if (lane == 0) red[warp] = v;
-  mxt::block_sync();
+  __syncthreads();
   if (warp == 0) {
     float t = lane < NWARPS ? red[lane] : 0.f;
     t = mxt::warp_sum(t);
     if (lane == 0) red[32] = t;
   }
-  mxt::block_sync();
+  __syncthreads();
   return red[32];
 }
 
@@ -172,7 +179,7 @@ __device__ void residual_layer_norm(float* x, const float* parts, int ks,
   for (int b = blockIdx.x; b < B; b += gridDim.x) {
     float* xr = x + (size_t)b * C;
     float sum = 0.f;
-    for (int c = threadIdx.x; c < C; c += NTHREADS) {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
       float p = 0.f;
       for (int s = 0; s < ks; ++s)
         p += __ldcg(parts + ((size_t)s * B + b) * C + c);
@@ -181,65 +188,61 @@ __device__ void residual_layer_norm(float* x, const float* parts, int ks,
     }
     const float mu = block_sum(sum, red) / C;
     float var = 0.f;
-    for (int c = threadIdx.x; c < C; c += NTHREADS) {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
       const float d = yrow[c] - mu;
       var += d * d;
     }
     const float inv = rsqrtf(block_sum(var, red) / C + 1e-5f);
-    for (int c = threadIdx.x; c < C; c += NTHREADS)
+    for (int c = threadIdx.x; c < C; c += blockDim.x)
       xr[c] = (yrow[c] - mu) * inv * gamma[c] + beta[c];
   }
 }
 
 using mxt::globaltimer;
 
-// Barrier of the compute threads of every block: the count of arrivals
-// reaches `target` (the barrier's ordinal times the grid).  Thread 0
-// publishes the block's writes (fence) before it arrives and, once every
-// block has, the block goes on; as cooperative_groups' grid barrier does,
-// but without the producer warp.  A count that never arrives (a block
-// lost) traps the launch after 2^24 polls instead of hanging the card.
-__device__ __forceinline__ void grid_barrier(unsigned* count,
-                                             unsigned target) {
-  mxt::block_sync();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(count, 1u);
-    for (int i = 0;; ++i) {
-      unsigned v;
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(v)
-                   : "l"(count)
-                   : "memory");
-      if (v >= target) break;
-      if (i == (1 << 24)) __trap();
-    }
-  }
-  mxt::block_sync();
-}
-
 template <int E>
-__global__ void __launch_bounds__(THREADS, 3) fused_decode_kernel(Args a) {
+__global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
+  cg::grid_group grid = cg::this_grid();
   constexpr int D = 32 * E;
   const int B = a.B, C = a.C, F = a.F, S = a.S, P = a.P, Lg = a.Lg;
+  // with a timing buffer: block 0 stamps the start and the end of every
+  // phase (right after the grid barrier that closes it); every block
+  // raises a slot per phase to the time it reached that barrier (the
+  // last block's arrival: the barrier's own cost is the end less it);
+  // per layer and GEMV each block with a resident unit raises a slot to
+  // the time its copies had landed, and each block adds the units it
+  // streamed to another
+  long long* const timing = a.timing;
+  const bool stamp = timing != nullptr && blockIdx.x == 0 &&
+                     threadIdx.x == 0;
+  int phase = 0;
+  if (stamp) timing[0] = globaltimer();
+  auto sync = [&]() {
+    if (timing != nullptr) {
+      __syncthreads();
+      if (threadIdx.x == 0)
+        atomicMax(reinterpret_cast<unsigned long long*>(
+                      timing + 1 + Lg * PHASES + phase),
+                  (unsigned long long)globaltimer());
+    }
+    grid.sync();
+    ++phase;
+    if (stamp) timing[phase] = globaltimer();
+  };
   const int KVH = a.KVH, KVC = KVH * D, N = C + 2 * KVC, g = a.H / KVH;
   const int max_keys = a.pps * S;
   const size_t layer_pages = (size_t)KVH * P * S * D;
   const size_t U = mxt::split_units_max(B, KVH, max_keys);
   float* x = a.x;
-  unsigned* count = reinterpret_cast<unsigned*>(a.scratch);
-  float* qkv = a.scratch + COUNTER_FLOATS;
+  float* qkv = a.scratch;
   float* att = qkv + round4((size_t)B * N);
   float* hbuf = att + round4((size_t)B * C);
   float* parts = hbuf + round4((size_t)B * F);
   float* po = parts + (size_t)KSPLIT_MAX * B * C;
   float* pm = po + round4(U * g * D);
   float* pl = pm + round4(U * g);
-  // buffer b's mbarriers: full[b] completes when its rows have landed,
-  // empty[b] when the compute threads are done reading them
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* empty = full + 2;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   float* wbuf = smem + BAR_FLOATS;       // buffer b at wbuf + b * W_FLOATS
   float* stage = wbuf + 2 * W_FLOATS;
   const int ks = mxt::ksplit_for(C);
@@ -264,70 +267,24 @@ __global__ void __launch_bounds__(THREADS, 3) fused_decode_kernel(Args a) {
       default: return w[10] + (size_t)n * F;
     }
   };
-
-  if (threadIdx.x == 0) {
-    for (int b = 0; b < 4; ++b) mbar_init(smem_u32(full + b), 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  // The producer warp: one lane walks the block's resident units in the
-  // order the GEMVs run and sends each one's weight rows into its buffer
-  // as soon as the GEMV before it in that buffer has released it.  A bulk
-  // copy's issue returns only once the copy's bytes have been requested,
-  // which paces it at the SM's share of the memory rate; this lane takes
-  // that wait, the compute threads never do.
-  if (threadIdx.x >= NTHREADS) {
-    if (threadIdx.x == NTHREADS) {
-      uint32_t used = 0, released = 0;   // per buffer: filled, its parity
-      for (int l = 0; l < Lg; ++l) {
-        for (int j = 0; j < GEMVS; ++j) {
-          const FfnUnits u = units(j);
-          if (!u.resident(W_FLOATS)) continue;
-          const int b = j & 1;
-          if (used >> b & 1u) {
-            mxt::wait_copies(smem_u32(empty + b), released >> b & 1u);
-            released ^= 1u << b;
-          }
-          used |= 1u << b;
-          const FfnCopies c(u, gemv_n(j), gemv_k(j), wbuf + b * W_FLOATS,
-                            nullptr, 0, nullptr);
-          mbar_expect_tx(smem_u32(full + b), c.bytes());
-          c.issue_rows(full + b, [=](int n) { return wrow(l, j, n); });
-        }
-      }
-    }
-    return;
-  }
-
-  // with a timing buffer: block 0 stamps the start and the end of every
-  // phase (right after the grid barrier that closes it); every block
-  // raises a slot per phase to the time it reached that barrier (the
-  // last block's arrival: the barrier's own cost is the end less it);
-  // per layer and GEMV each block with a resident unit raises a slot to
-  // the time its copies had landed, and each block adds the units it
-  // streamed to another
-  long long* const timing = a.timing;
-  const bool stamp = timing != nullptr && blockIdx.x == 0 &&
-                     threadIdx.x == 0;
-  int phase = 0;
-  if (stamp) timing[0] = globaltimer();
-  auto sync = [&]() {
-    if (timing != nullptr) {
-      mxt::block_sync();
-      if (threadIdx.x == 0)
-        atomicMax(reinterpret_cast<unsigned long long*>(
-                      timing + 1 + Lg * PHASES + phase),
-                  (unsigned long long)globaltimer());
-    }
-    ++phase;
-    grid_barrier(count, (unsigned)phase * gridDim.x);
-    if (stamp) timing[phase] = globaltimer();
-  };
-  // bit b: the parity of the phase of buffer b's full barrier to wait for
+  // bit b: the parity of the phase of buffer b's mbarrier to wait for
   uint32_t parity = 0;
-  // GEMV j of layer l on in (B, K): epi(b, n, s, the sum over slice s);
-  // then buffer j % 2 released to the producer
+
+  // the block's resident rows of GEMV j of layer l on their way into
+  // buffer j % 2, which every thread has finished reading
+  auto issue = [&](int l, int j) {
+    const FfnUnits u = units(j);
+    if (l >= Lg || !u.resident(W_FLOATS)) return;
+    uint64_t* bar = bars + (j & 1);
+    const FfnCopies c(u, gemv_n(j), gemv_k(j), wbuf + (j & 1) * W_FLOATS,
+                      nullptr, 0, nullptr);
+    fence_async_shared();  // this thread's reads before the copies' writes
+    __syncthreads();
+    if (threadIdx.x == 0) mbar_expect_tx(smem_u32(bar), c.bytes());
+    __syncthreads();
+    c.issue(0, bar, [=](int n) { return wrow(l, j, n); });
+  };
+  // GEMV j of layer l on in (B, K): epi(b, n, s, the sum over slice s)
   auto gemv = [&](int l, int j, const float* in, auto epi) {
     const FfnUnits u = units(j);
     const int K = gemv_k(j), b = j & 1;
@@ -348,18 +305,25 @@ __global__ void __launch_bounds__(THREADS, 3) fused_decode_kernel(Args a) {
           mxt::ffn_stage(st, p, in + (size_t)b0 * K, nb, K, k0, kc);
         },
         epi, stage, a.stage_floats, res ? wbuf + b * W_FLOATS : nullptr,
-        false, smem_u32(full + b), (parity >> b) & 1u,
+        false, smem_u32(bars + b), (parity >> b) & 1u,
         timing ? reinterpret_cast<unsigned long long*>(
                      timing + 1 + 2 * Lg * PHASES + l * GEMVS + j)
                : nullptr);
-    if (res) {
-      parity ^= 1u << b;
-      if (threadIdx.x == 0) mbar_arrive(smem_u32(empty + b));
-    }
+    if (res) parity ^= 1u << b;
   };
   auto part = [=](int b, int n, int s, float v) {
     parts[((size_t)s * B + b) * C + n] = v;
   };
+
+  // layer 0's qkv and out-projection rows on their way at launch
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(bars), 1);
+    mbar_init(smem_u32(bars + 1), 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  issue(0, 0);
+  issue(0, 1);
 
   for (int l = 0; l < Lg; ++l) {
     const float* const* w = wt + (size_t)l * NW;
@@ -367,13 +331,14 @@ __global__ void __launch_bounds__(THREADS, 3) fused_decode_kernel(Args a) {
     float* kp = a.kp + (size_t)l * layer_pages;
     float* vp = a.vp + (size_t)l * layer_pages;
 
-    // 1. qkv + bias
+    // 1. qkv + bias; then FFN1's rows into the freed buffer
     gemv(l, 0, x, [=](int b, int n, int, float v) {
       const float bias = n < C         ? bq[n]
                          : n < C + KVC ? bk[n - C]
                                        : bv[n - C - KVC];
       qkv[(size_t)b * N + n] = v + bias;
     });
+    issue(l, 2);
     sync();
 
     // 2. split-key attention units; the unit of a row's last chunk
@@ -386,7 +351,7 @@ __global__ void __launch_bounds__(THREADS, 3) fused_decode_kernel(Args a) {
       const size_t dst =
           (((size_t)kvh * P + __ldg(meta + b)) * S + __ldg(meta + B + b)) * D;
       const float* src = qkv + (size_t)b * N + C + (size_t)kvh * D;
-      for (int e = threadIdx.x; e < 2 * D; e += NTHREADS) {
+      for (int e = threadIdx.x; e < 2 * D; e += blockDim.x) {
         if (e < D)
           kp[dst + e] = __ldcg(src + e);
         else
@@ -402,22 +367,26 @@ __global__ void __launch_bounds__(THREADS, 3) fused_decode_kernel(Args a) {
     mxt::split_merge(po, pm, pl, a.lengths, B, KVH, g, D, max_keys, att);
     sync();
 
-    // 4. out-projection, partial sums over K slices
+    // 4. out-projection, partial sums over K slices; then FFN2's rows
     gemv(l, 1, att, part);
+    issue(l, 3);
     sync();
 
     // 5. residual + bias, LayerNorm
     residual_layer_norm(x, parts, ks, w[7], w[12], w[13], B, C, stage);
     sync();
 
-    // 6. FFN1 + bias + erf GELU
+    // 6. FFN1 + bias + erf GELU; then the next layer's qkv rows
     gemv(l, 2, x, [=](int b, int n, int, float v) {
       hbuf[(size_t)b * F + n] = mxt::gelu_erf(v + b1[n]);
     });
+    issue(l + 1, 0);
     sync();
 
-    // 7. FFN2, partial sums over K slices
+    // 7. FFN2, partial sums over K slices; then the next layer's
+    // out-projection rows
     gemv(l, 3, hbuf, part);
+    issue(l + 1, 1);
     sync();
 
     // 8. residual + bias, LayerNorm: the next layer's input
@@ -451,8 +420,7 @@ cudaError_t geometry(int C, int g, int D, int* grid, size_t* smem) {
       cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
   return mxt::coop_geometry(
-      k, BAR_FLOATS + 2 * W_FLOATS + stage_floats(C, g, D), grid, smem,
-      THREADS);
+      k, BAR_FLOATS + 2 * W_FLOATS + stage_floats(C, g, D), grid, smem);
 }
 
 }  // namespace
@@ -519,11 +487,8 @@ extern "C" int mxt_decode_layer_group(void* x, void* kp, void* vp,
   a.P = P; a.S = S; a.pps = pps; a.Lg = Lg;
   a.stage_floats = stage_floats(C, H / KVH, D);
   a.scale = scale;
-  e = cudaMemsetAsync(scratch, 0, COUNTER_FLOATS * sizeof(float),
-                      (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
   void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)kernel_for(D), grid, THREADS,
+  e = cudaLaunchCooperativeKernel((const void*)kernel_for(D), grid, NTHREADS,
                                   params, smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
