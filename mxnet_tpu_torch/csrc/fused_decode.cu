@@ -87,9 +87,20 @@
 // Why: the parent design streamed each GEMV's weights one warp a column
 // only after the barrier that opened the phase, and gave each (row, KV
 // head) to one block, which walked the whole row: the longest row set the
-// attention phase's pace (PERF.md, section 6).  All sums run in a fixed
-// order and no atomic decides a result: the output does not depend on
-// timing.
+// attention phase's pace.  What the stamps of this design show (PERF.md,
+// section 6): a bulk copy's issue returns only once its bytes have been
+// requested, so the phase that issues a GEMV's 9.4 MB carries ~3 us of
+// it, and the weights share the L2-to-SM path with the staging of the
+// inputs, which every block of a GEMV reads whole (8 columns a unit: 16
+// input rows per 8 weight rows).  Measured slower or no faster, so not
+// kept: the copies issued by a producer warp outside a grid barrier of
+// the compute threads (the phases the copies overlap slow down as much as
+// the issuing phases speed up, and 72 registers spill more); issued in
+// the merge and LayerNorm phases, where most blocks idle (those phases
+// grow by the same ~3 us); one packed copy a unit over unpadded rows; the
+// next attention unit's key and value lines prefetched into L2; and one
+// weight buffer at four blocks an SM.  All sums run in a fixed order and
+// no atomic decides a result: the output does not depend on timing.
 #include "decode_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -190,7 +201,7 @@ __device__ void residual_layer_norm(float* x, const float* parts, int ks,
 using mxt::globaltimer;
 
 template <int E>
-__global__ void __launch_bounds__(NTHREADS, 4) fused_decode_kernel(Args a) {
+__global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   constexpr int D = 32 * E;
@@ -232,8 +243,8 @@ __global__ void __launch_bounds__(NTHREADS, 4) fused_decode_kernel(Args a) {
   float* pm = po + round4(U * g * D);
   float* pl = pm + round4(U * g);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  float* wbuf = smem + BAR_FLOATS;
-  float* stage = wbuf + W_FLOATS;
+  float* wbuf = smem + BAR_FLOATS;       // buffer b at wbuf + b * W_FLOATS
+  float* stage = wbuf + 2 * W_FLOATS;
   const int ks = mxt::ksplit_for(C);
 
   // GEMV j of a layer: 0 qkv, 1 out-projection, 2 FFN1, 3 FFN2, copied
@@ -264,8 +275,9 @@ __global__ void __launch_bounds__(NTHREADS, 4) fused_decode_kernel(Args a) {
   auto issue = [&](int l, int j) {
     const FfnUnits u = units(j);
     if (l >= Lg || !u.resident(W_FLOATS)) return;
-    uint64_t* bar = bars;
-    const FfnCopies c(u, gemv_n(j), gemv_k(j), wbuf, nullptr, 0, nullptr);
+    uint64_t* bar = bars + (j & 1);
+    const FfnCopies c(u, gemv_n(j), gemv_k(j), wbuf + (j & 1) * W_FLOATS,
+                      nullptr, 0, nullptr);
     fence_async_shared();  // this thread's reads before the copies' writes
     __syncthreads();
     if (threadIdx.x == 0) mbar_expect_tx(smem_u32(bar), c.bytes());
@@ -275,7 +287,7 @@ __global__ void __launch_bounds__(NTHREADS, 4) fused_decode_kernel(Args a) {
   // GEMV j of layer l on in (B, K): epi(b, n, s, the sum over slice s)
   auto gemv = [&](int l, int j, const float* in, auto epi) {
     const FfnUnits u = units(j);
-    const int K = gemv_k(j), b = 0;
+    const int K = gemv_k(j), b = j & 1;
     const bool res = u.resident(W_FLOATS);
     if (timing != nullptr && threadIdx.x == 0) {
       const int taken = u.count() > (int)blockIdx.x
@@ -292,7 +304,7 @@ __global__ void __launch_bounds__(NTHREADS, 4) fused_decode_kernel(Args a) {
         [=](float* st, int p, int b0, int nb, int k0, int kc) {
           mxt::ffn_stage(st, p, in + (size_t)b0 * K, nb, K, k0, kc);
         },
-        epi, stage, a.stage_floats, res ? wbuf : nullptr,
+        epi, stage, a.stage_floats, res ? wbuf + b * W_FLOATS : nullptr,
         false, smem_u32(bars + b), (parity >> b) & 1u,
         timing ? reinterpret_cast<unsigned long long*>(
                      timing + 1 + 2 * Lg * PHASES + l * GEMVS + j)
@@ -311,6 +323,7 @@ __global__ void __launch_bounds__(NTHREADS, 4) fused_decode_kernel(Args a) {
   }
   __syncthreads();
   issue(0, 0);
+  issue(0, 1);
 
   for (int l = 0; l < Lg; ++l) {
     const float* const* w = wt + (size_t)l * NW;
@@ -325,7 +338,7 @@ __global__ void __launch_bounds__(NTHREADS, 4) fused_decode_kernel(Args a) {
                                        : bv[n - C - KVC];
       qkv[(size_t)b * N + n] = v + bias;
     });
-    issue(l, 1);
+    issue(l, 2);
     sync();
 
     // 2. split-key attention units; the unit of a row's last chunk
@@ -356,7 +369,7 @@ __global__ void __launch_bounds__(NTHREADS, 4) fused_decode_kernel(Args a) {
 
     // 4. out-projection, partial sums over K slices; then FFN2's rows
     gemv(l, 1, att, part);
-    issue(l, 2);
+    issue(l, 3);
     sync();
 
     // 5. residual + bias, LayerNorm
@@ -367,13 +380,13 @@ __global__ void __launch_bounds__(NTHREADS, 4) fused_decode_kernel(Args a) {
     gemv(l, 2, x, [=](int b, int n, int, float v) {
       hbuf[(size_t)b * F + n] = mxt::gelu_erf(v + b1[n]);
     });
-    issue(l, 3);
+    issue(l + 1, 0);
     sync();
 
     // 7. FFN2, partial sums over K slices; then the next layer's
     // out-projection rows
     gemv(l, 3, hbuf, part);
-    issue(l + 1, 0);
+    issue(l + 1, 1);
     sync();
 
     // 8. residual + bias, LayerNorm: the next layer's input
@@ -407,7 +420,7 @@ cudaError_t geometry(int C, int g, int D, int* grid, size_t* smem) {
       cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
   return mxt::coop_geometry(
-      k, BAR_FLOATS + W_FLOATS + stage_floats(C, g, D), grid, smem);
+      k, BAR_FLOATS + 2 * W_FLOATS + stage_floats(C, g, D), grid, smem);
 }
 
 }  // namespace
