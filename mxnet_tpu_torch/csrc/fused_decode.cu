@@ -134,7 +134,7 @@ struct Args {
   const int* lengths;    // (B,) valid keys after this step's append
   float* scratch;        // scratch_floats(...) floats
   long long* timing;     // null, or 1 + 2 Lg (PHASES + GEMVS) slots
-  int B, C, F, H, KVH, D, P, S, pps, Lg, stage_floats;
+  int B, C, F, H, KVH, P, S, pps, Lg, stage_floats;  // head dim 32 E
   float scale;
 };
 
@@ -483,7 +483,7 @@ extern "C" int mxt_decode_layer_group(void* x, void* kp, void* vp,
   a.lengths = (const int*)lengths;
   a.scratch = (float*)scratch;
   a.timing = (long long*)timing;
-  a.B = B; a.C = C; a.F = F; a.H = H; a.KVH = KVH; a.D = D;
+  a.B = B; a.C = C; a.F = F; a.H = H; a.KVH = KVH;
   a.P = P; a.S = S; a.pps = pps; a.Lg = Lg;
   a.stage_floats = stage_floats(C, H / KVH, D);
   a.scale = scale;

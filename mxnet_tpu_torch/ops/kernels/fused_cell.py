@@ -230,7 +230,6 @@ def phase_times(x, kp, vp, layers, meta, page_tables, lengths, cfg):
         out[p + " landed"] = [
             int(t - s0) if t else None for t, s0 in zip(
                 landed[:, j].tolist(), starts[:, PHASES.index(p)].tolist())]
-    for j, p in enumerate(GEMV_PHASES):
         out[p + " streamed"] = streamed[:, j].tolist()
     return out
 
