@@ -51,6 +51,15 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
 - ``fused``: ``chip_smoke.check_fused`` alone (the ``tp`` phase's first
   step: #12 in every case of ``FUSED_CASES``, its stamps, its times with
   mixed lengths and with every row at 512, the digest);
+- ``qmm``: ``chip_smoke.check_quant_matmul`` (#8 and #9 held and timed
+  beside their plain versions, ``F.linear`` on the dequantized weight and
+  the bound at M 1, 16 and 64 on a layer's three GEMM shapes; a tree with
+  ``qmm_plan`` also on the tensor-parallel shards and the ragged input
+  dims, with its plan, its phases by ``%globaltimer`` and the other plans
+  of ``chip_smoke.QMM_PLANS``), then the serving model served 48 requests
+  with int8 weights + int8 KV pages and with int4 weights (group 128):
+  tokens/s, decode p50 and p99, prefill chunk p50, launches and a digest
+  of the streams;
 - ``paged``: ``chip_smoke.check_paged_attention`` and
   ``check_paged_attention_int8`` (#15 over fp and int8 pages at H 12 over
   12 and 4 KV heads, D 64, and over 4 KV heads at D 32 and 128, held in
@@ -73,7 +82,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("route", "kernels", "host", "bert", "amp", "lstm", "tp", "paged",
-          "fused")
+          "fused", "qmm")
 
 
 def build(trees, names):
@@ -151,6 +160,8 @@ def run(tree, phases, steps):
         report = {}
         cs.check_fused(torch, timer, report, lm, lm_gqa)
         cs.log("fused: %s" % json.dumps(report["fused"]))
+    if "qmm" in phases:
+        qmm_phase(cs, torch, timer)
     if "amp" in phases:
         torch.cuda.empty_cache()
         _, st = cs.train(torch, 0, "amp_bf16", cs.TRAIN_B, cs.TRAIN_L, steps,
@@ -199,6 +210,27 @@ def tp_phase(cs, torch, timer):
     cs.log("tp serve: %s" % json.dumps({k: r[3] for k, r in runs.items()}))
 
 
+def qmm_phase(cs, torch, timer):
+    """The ``qmm`` phase: #8 and #9 held and timed, then quantized
+    serving."""
+    import hashlib
+    from mxnet_tpu_torch.ops.kernels import quant_matmul as qm
+    grid = [c for c in cs.qmm_cases() if c[1:3] in cs.QMM_SHAPES]
+    planned = hasattr(qm, "qmm_plan")
+    cs.check_quant_matmul(torch, timer, {},
+                          plans=cs.QMM_PLANS if planned else (),
+                          cases=None if planned else grid)
+    lm, _ = decode_models(cs, torch)
+    reqs = cs.traffic(0, 48)
+    for label, quant in (("int8_kv8", dict(quantize="int8", kv_dtype="int8")),
+                         ("int4", dict(quantize="int4", quant_group=128))):
+        _, outs, counts, st = cs.serve(torch, lm, reqs, label, True, **quant)
+        streams = hashlib.sha256(json.dumps(
+            [o["tokens"] for o in outs]).encode()).hexdigest()[:16]
+        cs.log("qmm serve %s: %s; streams digest %s"
+               % (label, json.dumps(st), streams))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("trees", nargs="+")
@@ -222,7 +254,7 @@ def main():
     names = [n for n, ps in (("flash_attention", {"route", "kernels", "host"}),
                              ("fused_decode", {"fused"})) if ps & set(phases)]
     rcs = build(sorted(set(trees)), None if {"bert", "amp", "lstm", "tp",
-                                             "paged"} & set(phases)
+                                             "paged", "qmm"} & set(phases)
                 else names)
     built = {t for t, rc in zip(sorted(set(trees)), rcs) if not rc}
     failed = len(set(trees) - built)

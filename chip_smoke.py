@@ -159,10 +159,12 @@ TOL_ATTENTION = 1e-4     # fp32 online vs two-pass softmax over <= 512 keys
 TOL_FUSED = 1e-3         # fp32, 12 layers, GEMV sums in another order
 TOL_LOGITS = 1e-3        # teacher-forced logits vs full_forward, fp32
 # quant_matmul vs its plain version (dequantize, then x @ w.T): the kernel
-# adds its fp32 products in another order (8 warps split K), and for int8
-# applies the per-channel scale after the sum rather than to each weight,
-# so the two round differently: ~1e-5 at most on outputs of order 1
-# (x ~ N(0, 1), Xavier weights, up to 3072 inputs)
+# adds its products in another order (K slices, warps, tensor-core sums),
+# splits x into two tf32 pieces (x - hi - lo within 2^-22 of x), and for
+# int8 and grouped int4 applies the scale after a sum rather than to each
+# weight, so the two round differently: ~1e-5 at most on outputs of order
+# 1 (x ~ N(0, 1), Xavier weights, up to 3072 inputs); one tf32 piece
+# (~5e-4 off) fails it
 TOL_QMM = 1e-4
 # teacher-forced logits with int8 KV pages, card vs CPU copies of the
 # params and pages: K/V that differ in the last fp32 bit between the two
@@ -604,49 +606,170 @@ def check_fused(torch, timer, report, lm, lm_gqa):
 
 
 QMM_SHAPES = ((768, 768), (3072, 768), (768, 3072))   # (O, I) of a layer
+# row shards at tp 2 and 4: out_proj (I 384, 192) and FFN2 at tp 2 (1536)
+QMM_TP_SHAPES = ((768, 384), (768, 192), (768, 1536))
+# input dims no K stage divides, (fmt, O, I, group asked of quantize_w4):
+# int8 with unaligned code rows (I 100) and x rows (99); int4 groups that
+# w4_group shrinks to 8 (I 200), 40 (not a multiple of the MMA's k step)
+# and 2 (I 98, unaligned x rows): each folds the scale into the weight
+QMM_RAGGED = (("w8", 768, 100, None), ("w8", 768, 99, None),
+              ("w4", 768, 200, 128), ("w4", 768, 120, 40),
+              ("w4", 768, 98, 128))
+QMM_M = (1, 16, 64)
+# other plans timed beside qmm_plan's at the layer's shapes (replan
+# fields; ``m`` keeps one to that M): 16 or 32 channels a block, the K
+# split and cp.async against bulk copies at M 1 and 16; at M 64 the K
+# split on wgmma, and mma.sync
+QMM_PLANS = tuple(
+    [dict(m=m, wch=w, ks=k) for m in (1, 16) for w in (1, 2)
+     for k in (2, 3, 4, 6, 8)]
+    + [dict(m=m, wch=w, ks=k, bulk=b) for m in (1, 16) for w in (1, 2)
+       for k in (3, 6, 8) for b in (False, True)]
+    + [dict(m=64, wg=True, wch=4, nt=4, ks=k) for k in (2, 3, 4, 6, 8)]
+    + [dict(m=64, wg=False, wch=2, nt=n, ks=k) for n in (4, 8)
+       for k in (2, 4, 8)])
 
 
-def check_quant_matmul(torch, timer, report):
-    """quant_matmul int8 and int4 (group 128) against quant_matmul_plain at
-    the three GEMM shapes of a layer, for one token, a decode batch and a
-    prefill chunk.  The row in the kernels line is (3072, 768) at M 16, a
-    decode step's FFN1."""
+def qmm_cases():
+    """(fmt, O, I, group) of every shape ``check_quant_matmul`` holds."""
+    return ([(f, o, i, 128) for f in ("w8", "w4")
+             for o, i in QMM_SHAPES + QMM_TP_SHAPES] + list(QMM_RAGGED))
+
+
+def qmm_bound(M, O, I, qw):
+    """(ms, by): the codes, scales, x and y moved once, against two tf32
+    products per fp32 product (the codes are exact in tf32, x is split
+    in two)."""
+    nbytes = qw.q.numel() + 4 * qw.s.numel() + 4 * (M * I + M * O)
+    return bound_time(nbytes, product_time(2 * M * O * I, 4, 2))
+
+
+def replan(plan, I, **fields):
+    """``plan`` with ``fields`` replaced; a new ``ks`` recuts K into that
+    many slices of whole stages, or fewer where the stages run out."""
+    from mxnet_tpu_torch.ops.kernels import quant_matmul as qm
+    ks = fields.pop("ks", None)
+    plan = plan._replace(**fields)
+    if ks is not None:
+        stages = -(-I // qm.KSTAGE)
+        per = -(-stages // min(ks, stages))
+        plan = plan._replace(ks=-(-stages // per), slice=per * qm.KSTAGE)
+    return plan
+
+
+def check_quant_matmul(torch, timer, report, plans=(), cases=None):
+    """quant_matmul int8 and int4 against quant_matmul_plain, for one
+    token, a decode batch and a prefill chunk (M 1, 16, 64), at the three
+    GEMM shapes of a layer (group 128), the tensor-parallel row shards and
+    the ragged input dims of ``QMM_RAGGED``: each within ``TOL_QMM``, two
+    launches on the same inputs equal bit for bit, and the kernel, plain,
+    ``F.linear`` (fp32, the dequantized weight) and bound times printed.
+    At the layer's shapes it also prints the kernel's phases by
+    ``%globaltimer`` (``qmm_phase_times``) and times ``plans``, other
+    ``qmm_plan`` fields (each a dict of fields for ``replan``), launched
+    through ``_launch`` (a dict's ``m`` keeps it to that M).  ``cases``:
+    the (fmt, O, I, group) to hold, all of ``qmm_cases()`` by default; a
+    tree without ``qmm_plan`` (the design before it) gets no plan, stamps
+    or ``plans`` lines.  The
+    row in the kernels line is (3072, 768) at M 16, a decode step's
+    FFN1."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.kernels import quant_matmul as qm
     g = torch.Generator(device=DEV).manual_seed(6)
-    for fmt in ("w8", "w4"):
-        for O, I in QMM_SHAPES:
-            bound_w = (6.0 / (O + I)) ** 0.5
-            w = (torch.rand(O, I, device=DEV, generator=g) * 2 - 1) * bound_w
-            qw = qm.quantize_w8(w) if fmt == "w8" else qm.quantize_w4(w, 128)
-            wd = qm.dequantize_weight(qw)
-            for M in (1, 16, 64):
-                x = torch.randn(M, I, device=DEV, generator=g)
-                out = qm.quant_matmul(x, qw)
-                ref = qm.quant_matmul_plain(x, qw)
-                err = float((out - ref).abs().max())
-                ms = timer(lambda: qm.quant_matmul(x, qw))
-                plain = timer(lambda: qm.quant_matmul_plain(x, qw))
-                lib = timer(lambda: F.linear(x, wd))
-                nbytes = (qw.q.numel() + 4 * qw.s.numel()
-                          + 4 * (M * I + M * O))
-                bms, by = bound(nbytes, 2 * M * O * I)
-                log("quant_matmul_%s (M=%d, O=%d, I=%d): max_abs_err %.3g "
-                    "(tol %g) kernel %.4f ms plain %.4f ms F.linear(fp32 "
-                    "dequantized) %.4f ms bound %.4f ms (%s)"
-                    % (fmt, M, O, I, err, TOL_QMM, ms, plain, lib, bms, by))
-                if not err <= TOL_QMM:
-                    raise AssertionError("quant_matmul_%s disagrees with its "
-                                         "plain version" % fmt)
-                if (O, I, M) == (3072, 768, 16):
-                    report["quant_matmul_" + fmt] = dict(
-                        name="quant_matmul_" + fmt, route="cuda",
-                        source="mxnet_tpu_torch/csrc/quant_matmul.cu",
-                        replaces="mxnet_tpu/ops/pallas/quant_matmul.py:%d"
-                        % (179 if fmt == "w8" else 185),
-                        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                        bound_by=by, library_ms=lib,
-                        shape="M=16 O=3072 I=768 (decode FFN1)")
+    worst = {}
+    cases = qmm_cases() if cases is None else cases
+    planned = hasattr(qm, "qmm_plan")
+    for fmt, O, I, group in cases:
+        bound_w = (6.0 / (O + I)) ** 0.5
+        w = (torch.rand(O, I, device=DEV, generator=g) * 2 - 1) * bound_w
+        qw = qm.quantize_w8(w) if fmt == "w8" else qm.quantize_w4(w, group)
+        wd = qm.dequantize_weight(qw)
+        gq = I if fmt == "w8" else I // qw.s.shape[1]
+        for M in QMM_M:
+            x = torch.randn(M, I, device=DEV, generator=g)
+            out = qm.quant_matmul(x, qw)
+            again = qm.quant_matmul(x, qw)
+            ref = qm.quant_matmul_plain(x, qw)
+            err = float((out - ref).abs().max())
+            same = bool(torch.equal(out, again))
+            ms = timer(lambda: qm.quant_matmul(x, qw))
+            plain = timer(lambda: qm.quant_matmul_plain(x, qw))
+            lib = timer(lambda: F.linear(x, wd))
+            bms, by = qmm_bound(M, O, I, qw)
+            plan = (qm.qmm_plan(M, O, I, 8 if fmt == "w8" else 4, gq)
+                    if planned else None)
+            log("quant_matmul_%s (M=%d, O=%d, I=%d, group %d): max_abs_err "
+                "%.3g (tol %g), repeat bit-equal %s; kernel %.4f ms plain "
+                "%.4f ms F.linear(fp32 dequantized) %.4f ms (kernel/F.linear "
+                "%.2f) bound %.4f ms (%s)%s"
+                % (fmt, M, O, I, gq, err, TOL_QMM, same, ms, plain, lib,
+                   ms / lib, bms, by,
+                   "; plan ks %d slice %d wch %d nt %d fold %s wg %s, %d "
+                   "blocks" % (plan.ks, plan.slice, plan.wch, plan.nt,
+                               plan.fold, plan.wg, plan.blocks(M, O))
+                   if plan else ""))
+            if not (err <= TOL_QMM and same):
+                raise AssertionError("quant_matmul_%s (M=%d, O=%d, I=%d) "
+                                     "disagrees with its plain version or "
+                                     "with itself" % (fmt, M, O, I))
+            worst[fmt] = max(worst.get(fmt, 0.0), err)
+            if (O, I) in QMM_SHAPES and planned:
+                log("quant_matmul_%s (M=%d, O=%d, I=%d) stamps (ns; phase: "
+                    "median, largest over the blocks): %s"
+                    % (fmt, M, O, I, qm.qmm_phase_times(x, qw)))
+                for alt in plans:
+                    alt = dict(alt)
+                    if alt.pop("m", M) != M:
+                        continue
+                    p = replan(plan, I, **alt)
+                    y = torch.empty(M, O, device=DEV)
+                    qm._launch(x, qw, y, p)
+                    ok = float((y - ref).abs().max()) <= TOL_QMM
+                    t = timer(lambda: qm._launch(x, qw, y, p))
+                    log("quant_matmul_%s (M=%d, O=%d, I=%d) plan %s: %.4f "
+                        "ms, %d blocks, within tol %s; stamps %s"
+                        % (fmt, M, O, I, dict(p._asdict()), t,
+                           p.blocks(M, O), ok,
+                           qm.qmm_phase_times(x, qw, p)))
+                    if not ok:
+                        raise AssertionError("quant_matmul plan %s "
+                                             "disagrees" % (p,))
+            if (O, I, M) == (3072, 768, 16):
+                report["quant_matmul_" + fmt] = dict(
+                    name="quant_matmul_" + fmt, route="cuda",
+                    source="mxnet_tpu_torch/csrc/quant_matmul.cu",
+                    replaces="mxnet_tpu/ops/pallas/quant_matmul.py:%d"
+                    % (179 if fmt == "w8" else 185),
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib,
+                    shape="M=16 O=3072 I=768 (decode FFN1)")
+    log("quant_matmul: %d cases, largest max_abs_err %s (tol %g)"
+        % (len(cases) * len(QMM_M), worst, TOL_QMM))
+
+
+def check_qmm_sass(libs):
+    """Every instantiation of the quantized matmul issues tf32 products on
+    the tensor cores and holds no atomic: mma.sync (HMMA ... TF32) up to
+    16 rows, wgmma (HGMMA ... TF32) in the 64-channel kernels (the last
+    template flag, ``...ELb1EEE``); opcodes read whole."""
+    census = sass_census(libs["quant_matmul"], "qmm_kernel", full=True)
+    bad = []
+    for fn, ops in sorted(census.items()):
+        kind = "HGMMA" if "Lb1EEE" in fn else "HMMA"
+        tf32 = sum(n for op, n in ops.items()
+                   if op.split(".")[0] == kind and "TF32" in op.split("."))
+        atomics = sum(n for op, n in ops.items()
+                      if op.split(".")[0] in ATOMIC_OPS)
+        log("SASS %s: %s tf32 %d, atomics %d"
+            % (fn[-60:], kind, tf32, atomics))
+        if not tf32 or atomics:
+            bad.append(fn)
+    # int8, int4 and int4 folded: 2 channel tiles x 4 row tiles on
+    # mma.sync, one tile on wgmma
+    if len(census) != 27 or bad:
+        raise AssertionError("quant_matmul SASS: %d kernels, without tf32 "
+                             "tensor-core products or with atomics: %s"
+                             % (len(census), bad))
 
 
 def check_paged_attention_int8(torch, timer, report):
@@ -3206,6 +3329,7 @@ def main():
 
     check_flash_sass(libs)
     check_lstm_sass(libs)
+    check_qmm_sass(libs)
     timer = Timer(torch)
     report = {}
     lm = perturb_affine(torch, dec.CausalLM(**WIDTHS, device=DEV,

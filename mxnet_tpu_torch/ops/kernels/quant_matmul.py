@@ -35,7 +35,8 @@ from . import _build
 
 __all__ = ["QuantW8", "QuantW4", "is_quantized", "group_for", "w4_group",
            "quantize_w8", "quantize_w4", "pack_int4", "unpack_int4",
-           "dequantize_weight", "quant_matmul", "quant_matmul_plain"]
+           "dequantize_weight", "quant_matmul", "quant_matmul_plain",
+           "qmm_plan", "QmmPlan", "qmm_phase_times"]
 
 _INT8_MAX = 127.0
 _INT4_MAX = 7.0
@@ -147,15 +148,72 @@ def quant_matmul_plain(x, qw):
     return y.reshape(lead + (o,))
 
 
+#: the kernel's fixed sizes (``csrc/quant_matmul.cu``): inputs per
+#: pipeline stage and per warp chunk, the most blocks a cluster takes; the
+#: blocks the plan aims at on mma.sync (three an SM of the H100's 132) and
+#: the most it takes on wgmma (two an SM)
+KSTAGE, KCHUNK, CLUSTER_MAX = 128, 32, 8
+TARGET_BLOCKS, WG_BLOCKS = 3 * 132, 2 * 132
+
+
+class QmmPlan(NamedTuple):
+    """How the kernel splits ``x (m, i) @ w (o, i).T``: ``ks`` K slices of
+    ``slice`` inputs (whole stages; the last slice ends at ``i``), one
+    block each, summed by the cluster of ``ks`` blocks in slice order;
+    blocks of ``16 * wch`` channels and ``8 * nt`` rows; ``fold``: int4
+    with the scale folded into the weight (a group not a multiple of
+    ``KCHUNK``); ``wg``: products on wgmma (64 channels, 32 rows), else
+    on mma.sync; ``bulk``: on mma.sync, each row of codes and of x a
+    stage by one bulk copy (an mbarrier a ring slot), else by 16-byte
+    cp.async (16-byte aligned rows and ``i`` a multiple of ``KSTAGE``)."""
+    ks: int
+    slice: int
+    wch: int
+    nt: int
+    fold: bool
+    wg: bool = False
+    bulk: bool = False
+
+    def slices(self, i):
+        """(lo, hi) of each K slice, in slice (cluster rank) order."""
+        return [(r * self.slice, min(i, (r + 1) * self.slice))
+                for r in range(self.ks)]
+
+    def blocks(self, m, o):
+        return (self.ks * -(-o // (16 * self.wch))
+                * -(-m // (8 * self.nt)))
+
+
+def qmm_plan(m, o, i, fmt, group):
+    """The kernel's plan for ``m`` rows, ``o`` outputs, ``i`` inputs, int
+    ``fmt`` (8 or 4) and the int4 ``group``.  Up to 16 rows (a decode
+    step), mma.sync on one 8-row tile of 16 channels a block, or one
+    16-row tile of 32; K cut into as many slices (at most 8) as bring the
+    blocks near three an SM.  Above 16 rows (a prefill chunk), wgmma on
+    32-row tiles of 64 channels, whose shared memory and registers allow
+    two blocks an SM: K cut into as many slices as keep the blocks within
+    that, one wave.  K is split in two at least wherever it has two
+    stages; slices are whole 128-input stages, none empty."""
+    if m <= 16:
+        nt = 1 if m <= 8 else 2
+        wch, wg = nt, False
+        want = -(-TARGET_BLOCKS // -(-o // (16 * wch)))
+    else:
+        nt, wch, wg = 4, 4, True
+        want = WG_BLOCKS // (-(-o // 64) * -(-m // 32))
+    stages = max(1, -(-i // KSTAGE))
+    ks = min(CLUSTER_MAX, stages, max(2, want))     # K split where it can
+    per = -(-stages // ks)
+    return QmmPlan(ks=-(-stages // per), slice=per * KSTAGE, wch=wch, nt=nt,
+                   fold=fmt == 4 and group % KCHUNK != 0, wg=wg)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The loaded library with its entry points typed (once)."""
+    """The loaded library with its entry point typed (once)."""
     lib = _build.load("quant_matmul")
-    lib.mxt_quant_matmul.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+    lib.mxt_quant_matmul.argtypes = [_P] * 4 + [_I] * 14 + [_P, _P]
     lib.mxt_quant_matmul.restype = _I
-    lib.mxt_quant_matmul_k_tile.argtypes = [_I]
-    lib.mxt_quant_matmul_k_tile.restype = _I
-    lib.k_tile = {f: lib.mxt_quant_matmul_k_tile(f) for f in (8, 4)}
     return lib
 
 
@@ -164,10 +222,10 @@ def quant_matmul(x, qw):
     the kernel.  ``x``: (..., I) fp32; returns (..., O) fp32.
 
     A CPU tensor takes :func:`quant_matmul_plain`.  A CUDA tensor
-    launches the kernel, counted in ``quant_matmul.launches_w8`` or
-    ``quant_matmul.launches_w4``; the kernel takes contiguous fp32 ``x``
-    with 16-byte aligned rows, an input dim that is a multiple of its K
-    tile (128 inputs for int8, 256 for int4) and an even int4 group."""
+    launches the kernel once, as :func:`qmm_plan` splits it, counted in
+    ``quant_matmul.launches_w8`` or ``quant_matmul.launches_w4``; the
+    kernel takes contiguous fp32 ``x`` and any input dim (even for int4,
+    whose group is ``I / s.shape[1]``)."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, qw)
     if x.device.type != "cuda":
@@ -179,6 +237,11 @@ def quant_matmul(x, qw):
     if x.shape[-1] != i:
         raise ValueError("quant_matmul: x has %d inputs, the weight %d"
                          % (x.shape[-1], i))
+    if not w8 and (qw.s.dim() != 2 or not qw.s.shape[1]
+                   or i % qw.s.shape[1]):
+        raise ValueError("quant_matmul: int4 scales of shape %s do not cut "
+                         "%d inputs into equal groups"
+                         % (tuple(qw.s.shape), i))
     lead = x.shape[:-1]
     xf = x.reshape(-1, i)
     m = xf.shape[0]
@@ -194,29 +257,71 @@ def quant_matmul(x, qw):
                              "of shape %s on %s (got %s %s on %s)"
                              % (name, dt, shape, x.device, t.dtype,
                                 tuple(t.shape), t.device))
-    lib = _lib()
-    fmt = 8 if w8 else 4
-    k_tile = lib.k_tile[fmt]
-    group = i if w8 else 2 * qw.q.shape[1] // qw.s.shape[1]
-    bad_group = not w8 and (group % 2 or group * qw.s.shape[-1] != i)
-    if (i % k_tile or bad_group or xf.data_ptr() % 16
-            or qw.q.data_ptr() % 16):
-        raise ValueError(
-            "quant_matmul: the kernel takes an input dim that is a multiple "
-            "of %d, an even int4 group dividing it and 16-byte aligned x and "
-            "q (got I=%d, group=%d)" % (k_tile, i, group))
     y = torch.empty((m, o), dtype=torch.float32, device=x.device)
-    if m:
-        rc = lib.mxt_quant_matmul(
-            xf.data_ptr(), qw.q.data_ptr(), qw.s.data_ptr(), y.data_ptr(),
-            m, o, i, fmt, group,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(lib, rc, "quant_matmul")
+    if m and o and i:
+        _launch(xf, qw, y, qmm_plan(m, o, i, 8 if w8 else 4,
+                                    i if w8 else i // qw.s.shape[1]))
         if w8:
             quant_matmul.launches_w8 += 1
         else:
             quant_matmul.launches_w4 += 1
+    elif m and o:
+        y.zero_()                       # no inputs: the empty sum
     return y.reshape(lead + (o,))
+
+
+def _launch(xf, qw, y, plan, stamps=None):
+    """One launch of the kernel on checked CUDA tensors, split as
+    ``plan`` says; ``stamps``: an int64 tensor of ``STAMPS`` per block for
+    :func:`qmm_phase_times`, or None."""
+    w8 = isinstance(qw, QuantW8)
+    (m, i), o = xf.shape, qw.q.shape[0]
+    group = i if w8 else i // qw.s.shape[1]
+    row_unit = 16 if w8 else 32       # inputs per 16 bytes of a code row
+    lib = _lib()
+    rc = lib.mxt_quant_matmul(
+        xf.data_ptr(), qw.q.data_ptr(), qw.s.data_ptr(), y.data_ptr(),
+        m, o, i, 8 if w8 else 4, group, plan.ks, plan.slice, plan.wch,
+        plan.nt, int(plan.fold), int(plan.wg), int(plan.bulk),
+        int(i % 4 == 0 and xf.data_ptr() % 16 == 0),
+        int(i % row_unit == 0 and qw.q.data_ptr() % 16 == 0),
+        None if stamps is None else stamps.data_ptr(),
+        torch.cuda.current_stream(xf.device).cuda_stream)
+    _build.check(lib, rc, "quant_matmul")
+
+
+#: the kernel's %globaltimer stamps a block, in order
+STAMPS = ("start", "issued", "products", "sent", "barrier", "written")
+
+
+def qmm_phase_times(x, qw, plan=None):
+    """One launch on CUDA tensors ``x (M, I)`` (not counted in the launch
+    counters) that stamps the card's global timer in every block.
+    Returns ns: ``span`` from the first block's start to the last block's
+    end, ``starts`` the spread of the blocks' starts, and for each phase
+    that ends at a stamp (``issued``: the ring's first stages issued;
+    ``products``: the K slice's products, its loads waited for;
+    ``sent``: the partials sent to the ranks that sum them; ``barrier``:
+    the cluster's barrier; ``written``: this block's share of y summed
+    and written) its median and its largest over the blocks."""
+    m, i = x.shape
+    o = qw.q.shape[0]
+    w8 = isinstance(qw, QuantW8)
+    if plan is None:
+        plan = qmm_plan(m, o, i, 8 if w8 else 4,
+                        i if w8 else i // qw.s.shape[1])
+    n = plan.blocks(m, o)
+    stamps = torch.zeros(n * len(STAMPS), dtype=torch.int64,
+                         device=x.device)
+    y = torch.empty((m, o), dtype=torch.float32, device=x.device)
+    _launch(x, qw, y, plan, stamps)
+    st = stamps.view(n, len(STAMPS)).cpu()
+    out = {"span": int(st[:, -1].max() - st[:, 0].min()),
+           "starts": int(st[:, 0].max() - st[:, 0].min())}
+    for k, name in enumerate(STAMPS[1:], 1):
+        d = (st[:, k] - st[:, k - 1]).to(torch.float64)
+        out[name] = (float(d.median()), int(d.max()))
+    return out
 
 
 quant_matmul.launches_w8 = 0

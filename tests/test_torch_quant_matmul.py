@@ -94,21 +94,38 @@ def test_dequantize_weight_matches_jax(fmt):
 
 
 @pytest.mark.parametrize("m", [1, 5, 16])
-@pytest.mark.parametrize("fmt", ["w8", "w4"])
+@pytest.mark.parametrize("fmt", ["w8", "w4", "w8-i100", "w4-i200",
+                                 "w4-i98"])
 def test_quant_matmul_plain_matches_jax_reference(m, fmt):
-    w = _weights(5)
-    x = np.random.default_rng(m).standard_normal((m, 96)).astype(np.float32)
+    """96 inputs (int4 group 32), and input dims no K stage of the kernel
+    divides, which it takes since it masks its last stage: int8 I 100,
+    int4 I 200 and 98 with the groups w4_group gives for 128 (8 and 98).
+    The ragged cases hand JAX the port's codes and scales (equal to JAX's,
+    test_quantize_w4_matches_jax), which spares a compile of JAX's
+    quantizer at each new shape."""
+    fmt, _, i = fmt.partition("-i")
+    i = int(i or 96)
+    group = 32 if i == 96 else 128
+    w = _weights(5, i=i)
+    x = np.random.default_rng(m).standard_normal((m, i)).astype(np.float32)
     quant = {"w8": (jqmm.quantize_w8, tqmm.quantize_w8),
-             "w4": (lambda a: jqmm.quantize_w4(a, group=32),
-                    lambda a: tqmm.quantize_w4(a, group=32))}[fmt]
-    jq, tq = quant[0](jnp.asarray(w)), quant[1](torch.tensor(w))
+             "w4": (lambda a: jqmm.quantize_w4(a, group=group),
+                    lambda a: tqmm.quantize_w4(a, group=group))}[fmt]
+    tq = quant[1](torch.tensor(w))
+    if i == 96:
+        jq = quant[0](jnp.asarray(w))
+    else:
+        jq = (jqmm.QuantW8 if fmt == "w8" else jqmm.QuantW4)(
+            q=jnp.asarray(tq.q.numpy()), s=jnp.asarray(tq.s.numpy()))
+    if fmt == "w4":
+        assert i // tq.s.shape[1] == tqmm.w4_group(i, group)
     ref = np.asarray(jqmm.quant_matmul_reference(jnp.asarray(x), jq))
     got = tqmm.quant_matmul_plain(torch.tensor(x), tq).numpy()
     # the same fp32 product; the two matmul backends sum in other orders
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
     # a CPU tensor takes the plain version and launches nothing
     before = (tqmm.quant_matmul.launches_w8, tqmm.quant_matmul.launches_w4)
-    lead = tqmm.quant_matmul(torch.tensor(x).reshape(1, m, 96), tq)
+    lead = tqmm.quant_matmul(torch.tensor(x).reshape(1, m, i), tq)
     assert lead.shape == (1, m, 48)
     np.testing.assert_array_equal(lead[0].numpy(), got)
     assert (tqmm.quant_matmul.launches_w8,
