@@ -617,14 +617,12 @@ QMM_RAGGED = (("w8", 768, 100, None), ("w8", 768, 99, None),
               ("w4", 768, 98, 128))
 QMM_M = (1, 16, 64)
 # other plans timed beside qmm_plan's at the layer's shapes (replan
-# fields; ``m`` keeps one to that M): 16 or 32 channels a block, the K
-# split and cp.async against bulk copies at M 1 and 16; at M 64 the K
-# split on wgmma, and mma.sync
+# fields; ``m`` keeps one to that M): 16 or 32 channels a block and the
+# K split at M 1 and 16; at M 64 the K split on wgmma, and mma.sync
 QMM_PLANS = tuple(
     [dict(m=m, wch=w, ks=k) for m in (1, 16) for w in (1, 2)
      for k in (2, 3, 4, 6, 8)]
-    + [dict(m=m, wch=w, ks=k, bulk=b) for m in (1, 16) for w in (1, 2)
-       for k in (3, 6, 8) for b in (False, True)]
+
     + [dict(m=64, wg=True, wch=4, nt=4, ks=k) for k in (2, 3, 4, 6, 8)]
     + [dict(m=64, wg=False, wch=2, nt=n, ks=k) for n in (4, 8)
        for k in (2, 4, 8)])
@@ -745,6 +743,51 @@ def check_quant_matmul(torch, timer, report, plans=(), cases=None):
                     shape="M=16 O=3072 I=768 (decode FFN1)")
     log("quant_matmul: %d cases, largest max_abs_err %s (tol %g)"
         % (len(cases) * len(QMM_M), worst, TOL_QMM))
+    # what the kernel does not take raises, and launches nothing
+    x = torch.randn(16, 1536, device=DEV, generator=g)[:, ::2]
+    qw = qm.quantize_w8(torch.rand(64, 768, device=DEV, generator=g))
+    before = qm.quant_matmul.launches_w8
+    for bad in (x, x.contiguous().double()):
+        try:
+            qm.quant_matmul(bad, qw)
+        except ValueError as e:
+            log("quant_matmul refuses %s %s: %s"
+                % (bad.dtype, tuple(bad.stride()), e))
+        else:
+            raise AssertionError("quant_matmul took a tensor it should "
+                                 "refuse")
+    assert qm.quant_matmul.launches_w8 == before
+    qmm_host(torch, qm)
+
+
+def qmm_host(torch, qm, n=500):
+    """The host's enqueue time of one call (us, median of 5 runs of n
+    calls issued back to back, then one synchronize): quant_matmul,
+    quant_matmul_plain and F.linear at M 16, (768, 768), a decode step's
+    q, k, v or out-projection.  The serving path is host-bound, so this
+    is what a call costs it."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=DEV).manual_seed(7)
+    w = torch.rand(768, 768, device=DEV, generator=g) - 0.5
+    x = torch.randn(16, 768, device=DEV, generator=g)
+    out = {}
+    for fmt, qw in (("w8", qm.quantize_w8(w)), ("w4", qm.quantize_w4(w))):
+        wd = qm.dequantize_weight(qw)
+        for name, fn in (("kernel", lambda: qm.quant_matmul(x, qw)),
+                         ("plain", lambda: qm.quant_matmul_plain(x, qw)),
+                         ("F.linear", lambda: F.linear(x, wd))):
+            runs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                runs.append((time.perf_counter() - t) / n * 1e6)
+                torch.cuda.synchronize()
+            out["%s %s" % (fmt, name)] = round(statistics.median(runs), 2)
+    log("quant_matmul host enqueue, us a call (M 16, (768, 768)): %s"
+        % json.dumps(out))
+    return out
 
 
 def check_qmm_sass(libs):

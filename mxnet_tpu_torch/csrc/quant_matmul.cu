@@ -29,7 +29,9 @@
 //   cp.async (16 bytes, or 4 and 1 where a row is not 16-byte aligned:
 //   x I % 4, codes int8 I % 16, int4 I % 32), zero-filled past I, in a
 //   ring deep enough for the whole slice where it fits: all of a slice's
-//   bytes are in flight at once.
+//   bytes are in flight at once.  (Bulk copies of whole rows onto an
+//   mbarrier were slower at every decode shape: chip_flash_ab.py's qmm
+//   phase.)
 // - Up to 16 rows, products on mma.sync m16n8k8 tf32, channels on the 16
 //   rows (y^T = W x^T) and rows of x on the 8 columns.  A warp owns 16
 //   channels and 32-input chunks of each stage (the block's warps split a
@@ -129,14 +131,10 @@ struct Cfg {
   __host__ __device__ static int share(int e4, int ks) {
     return (e4 + ks - 1) / ks;
   }
-  // the ring, (wgmma) a residual box, the int8 scales, the partials the
-  // cluster sends this block (KW * ks slots of its share), then (bulk
-  // copies) an mbarrier a ring slot
-  __host__ __device__ static int recv(int ks) {
-    return KW * ks * share(E4, ks) * 16;
-  }
+  // the ring, (wgmma) a residual box, the int8 scales, then the partials
+  // the cluster sends this block: KW * ks slots of its share
   __host__ __device__ static int smem(int slice, int ks) {
-    return ALIGN + ring(slice) + LO + S8 + recv(ks) + NBUF * 8;
+    return ALIGN + ring(slice) + LO + S8 + KW * ks * share(E4, ks) * 16;
   }
 };
 
@@ -451,7 +449,7 @@ template <int FMT, int WCH, int NT, bool FOLD, bool WG>
 __global__ void __launch_bounds__(THREADS)
 qmm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
            const float* __restrict__ s, float* __restrict__ y, int M, int O,
-           int I, int G, int group, int slice, int xvec, int qvec, int bulk,
+           int I, int G, int group, int slice, int xvec, int qvec,
            unsigned long long* __restrict__ stamps) {
   using C = Cfg<FMT, WCH, NT, FOLD, WG>;
   constexpr int BO = C::BO, KW = C::KW, MT = C::MT, CP = C::CP;
@@ -485,17 +483,6 @@ qmm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
   float* lo_box = reinterpret_cast<float*>(smem + ring);  // wgmma: x - hi
   float* s8 = reinterpret_cast<float*>(smem + ring + C::LO);  // int8: s[o]
   float* recv = reinterpret_cast<float*>(smem + ring + C::LO + C::S8);
-  // bulk copies: a ring slot's codes rows and x rows each land on its
-  // mbarrier, one arrival from each thread that copies a row
-  const uint32_t bars =
-      smem_u32(smem + ring + C::LO + C::S8 + C::recv(ks));
-  if (bulk) {
-    if (tid == 0) {
-      for (int b = 0; b < depth; ++b) mbar_init(bars + 8 * b, BO + mv);
-      mbar_fence_init();
-    }
-    __syncthreads();
-  }
 
   auto load_stage = [&](int st, int buf) {
     unsigned char* cs = smem + buf * C::STAGE;
@@ -505,27 +492,7 @@ qmm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
     // codes: BO rows of 16-byte chunks (16 int8 or 32 int4 inputs each)
     constexpr int CK = FMT == 8 ? 16 : 32;
     constexpr int CPR = KSTAGE / CK;
-    if (bulk) {  // whole stages: a row of codes or of x a copy
-      const uint32_t bar = bars + 8 * buf;
-      constexpr int RB = FMT == 8 ? KSTAGE : KSTAGE / 2;
-      if (tid < BO) {
-        if (o0 + tid < O) {
-          mbar_expect_tx(bar, RB);
-          bulk_load(smem_u32(cs + tid * CP),
-                    q + (size_t)(o0 + tid) * row_bytes +
-                        (FMT == 8 ? kst : kst / 2),
-                    RB, bar);
-        } else {
-          mbar_arrive(bar);
-        }
-      } else if (tid < BO + mv) {
-        const int r = tid - BO;
-        mbar_expect_tx(bar, KSTAGE * 4);
-        bulk_load(smem_u32(xs + r * XP), x + (size_t)(m0 + r) * I + kst,
-                  KSTAGE * 4, bar);
-      }
-    }
-    for (int e = tid; e < (bulk ? 0 : BO * CPR); e += THREADS) {
+    for (int e = tid; e < BO * CPR; e += THREADS) {
       const int r = e / CPR, c = e - r * CPR, o = o0 + r;
       const int k = kst + c * CK;
       int nb = min(max(kend - k, 0), CK) / (FMT == 8 ? 1 : 2);
@@ -553,8 +520,7 @@ qmm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
     }
     // x: rows of 32 chunks of 4 floats; inputs past the slice are zeros;
     // rows past M are not read (wgmma: zeros)
-    for (int e = tid; e < (bulk ? 0 : (WG ? MT : mv) * (KSTAGE / 4));
-         e += THREADS) {
+    for (int e = tid; e < (WG ? MT : mv) * (KSTAGE / 4); e += THREADS) {
       const int r = e / (KSTAGE / 4), c = e - r * (KSTAGE / 4);
       const int k = kst + c * 4;
       const int nf = r < mv ? min(max(kend - k, 0), 4) : 0;
@@ -590,7 +556,6 @@ qmm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
   if (stamp) stamp[1] = globaltimer();
   for (int st = 0; st < nst; ++st) {
     cp_async_wait_n(depth - 2);  // stage st has landed
-    if (bulk) mbar_wait(bars + 8 * (st % depth), (st / depth) & 1);
     __syncthreads();             // ... for every thread; st - 1 is done
     if (st + depth - 1 < nst)
       load_stage(st + depth - 1, (st + depth - 1) % depth);
@@ -665,8 +630,7 @@ qmm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
 template <int FMT, int WCH, int NT, bool FOLD, bool WG>
 int launch(const float* x, const uint8_t* q, const float* s, float* y, int M,
            int O, int I, int G, int group, int ks, int slice, int xvec,
-           int qvec, int bulk, unsigned long long* stamps,
-           cudaStream_t stream) {
+           int qvec, unsigned long long* stamps, cudaStream_t stream) {
   using C = Cfg<FMT, WCH, NT, FOLD, WG>;
   auto kernel = qmm_kernel<FMT, WCH, NT, FOLD, WG>;
   static int sized = 0;  // the dynamic shared memory the kernel may take
@@ -690,7 +654,7 @@ int launch(const float* x, const uint8_t* q, const float* s, float* y, int M,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, q, s, y, M, O, I,
-                                           G, group, slice, xvec, qvec, bulk,
+                                           G, group, slice, xvec, qvec,
                                            stamps);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -703,7 +667,7 @@ struct Args {
   const uint8_t* q;
   const float* s;
   float* y;
-  int M, O, I, G, group, ks, slice, xvec, qvec, bulk;
+  int M, O, I, G, group, ks, slice, xvec, qvec;
   unsigned long long* stamps;
   cudaStream_t st;
 };
@@ -712,7 +676,7 @@ template <int FMT, int WCH, int NT, bool FOLD, bool WG>
 int go(const Args& a) {
   return launch<FMT, WCH, NT, FOLD, WG>(a.x, a.q, a.s, a.y, a.M, a.O, a.I,
                                         a.G, a.group, a.ks, a.slice, a.xvec,
-                                        a.qvec, a.bulk, a.stamps, a.st);
+                                        a.qvec, a.stamps, a.st);
 }
 
 template <int FMT, int WCH, bool FOLD>
@@ -746,23 +710,20 @@ extern "C" const char* mxt_error_string(int e) {
 // x (M, I) and y (M, O) fp32, contiguous.  The plan (qmm_plan): ks K
 // slices of `slice` inputs (a multiple of 128; ks <= 8, the last slice
 // ending at I), wch 16-channel tiles and nt 8-row tiles a block, fold
-// (int4: the scale folded into the weight), wg (wgmma: wch 4, nt 4),
-// bulk (mma.sync: codes and x rows by bulk copies; 16-byte aligned rows
-// and I a multiple of 128); xvec / qvec: x's / q's rows are 16-byte
-// aligned; stamps: null, or
+// (int4: the scale folded into the weight), wg (wgmma: wch 4, nt 4);
+// xvec / qvec: x's / q's rows are 16-byte aligned; stamps: null, or
 // STAMPS %globaltimer values a block (qmm_phase_times).
 extern "C" int mxt_quant_matmul(const void* x, const void* q, const void* s,
                                 void* y, int M, int O, int I, int fmt,
                                 int group, int ks, int slice, int wch, int nt,
-                                int fold, int wg, int bulk, int xvec,
-                                int qvec, void* stamps, void* stream) {
+                                int fold, int wg, int xvec, int qvec,
+                                void* stamps, void* stream) {
   if (ks < 1 || ks > 8 || slice % KSTAGE || (long long)ks * slice < I ||
-      (long long)(ks - 1) * slice >= I ||
-      (bulk && (wg || !xvec || !qvec || I % KSTAGE)))
+      (long long)(ks - 1) * slice >= I)
     return (int)cudaErrorInvalidValue;
   const Args a = {(const float*)x, (const uint8_t*)q, (const float*)s,
                   (float*)y, M, O, I, fmt == 8 ? 1 : I / group, group, ks,
-                  slice, xvec, qvec, bulk, (unsigned long long*)stamps,
+                  slice, xvec, qvec, (unsigned long long*)stamps,
                   (cudaStream_t)stream};
   if (fmt == 8) return by_tile<8, false>(wch, nt, wg, a);
   if (fold) return by_tile<4, true>(wch, nt, wg, a);

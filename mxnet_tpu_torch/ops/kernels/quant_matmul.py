@@ -163,16 +163,13 @@ class QmmPlan(NamedTuple):
     blocks of ``16 * wch`` channels and ``8 * nt`` rows; ``fold``: int4
     with the scale folded into the weight (a group not a multiple of
     ``KCHUNK``); ``wg``: products on wgmma (64 channels, 32 rows), else
-    on mma.sync; ``bulk``: on mma.sync, each row of codes and of x a
-    stage by one bulk copy (an mbarrier a ring slot), else by 16-byte
-    cp.async (16-byte aligned rows and ``i`` a multiple of ``KSTAGE``)."""
+    on mma.sync."""
     ks: int
     slice: int
     wch: int
     nt: int
     fold: bool
     wg: bool = False
-    bulk: bool = False
 
     def slices(self, i):
         """(lo, hi) of each K slice, in slice (cluster rank) order."""
@@ -184,6 +181,7 @@ class QmmPlan(NamedTuple):
                 * -(-m // (8 * self.nt)))
 
 
+@functools.lru_cache(maxsize=1024)
 def qmm_plan(m, o, i, fmt, group):
     """The kernel's plan for ``m`` rows, ``o`` outputs, ``i`` inputs, int
     ``fmt`` (8 or 4) and the int4 ``group``.  Up to 16 rows (a decode
@@ -212,7 +210,7 @@ def qmm_plan(m, o, i, fmt, group):
 def _lib():
     """The loaded library with its entry point typed (once)."""
     lib = _build.load("quant_matmul")
-    lib.mxt_quant_matmul.argtypes = [_P] * 4 + [_I] * 14 + [_P, _P]
+    lib.mxt_quant_matmul.argtypes = [_P] * 4 + [_I] * 13 + [_P, _P]
     lib.mxt_quant_matmul.restype = _I
     return lib
 
@@ -230,37 +228,31 @@ def quant_matmul(x, qw):
         return quant_matmul_plain(x, qw)
     if x.device.type != "cuda":
         raise ValueError("quant_matmul: unsupported device %s" % x.device)
-    if not is_quantized(qw):
-        raise ValueError("quant_matmul: weight must be QuantW8 or QuantW4")
     w8 = isinstance(qw, QuantW8)
-    i, o = _in_dim(qw), qw.q.shape[0]
+    if not w8 and not isinstance(qw, QuantW4):
+        raise ValueError("quant_matmul: weight must be QuantW8 or QuantW4")
+    q, s = qw.q, qw.s
+    i, o = _in_dim(qw), q.shape[0]
     if x.shape[-1] != i:
         raise ValueError("quant_matmul: x has %d inputs, the weight %d"
                          % (x.shape[-1], i))
-    if not w8 and (qw.s.dim() != 2 or not qw.s.shape[1]
-                   or i % qw.s.shape[1]):
+    if not w8 and (s.dim() != 2 or not s.shape[1] or i % s.shape[1]):
         raise ValueError("quant_matmul: int4 scales of shape %s do not cut "
-                         "%d inputs into equal groups"
-                         % (tuple(qw.s.shape), i))
+                         "%d inputs into equal groups" % (tuple(s.shape), i))
     lead = x.shape[:-1]
     xf = x.reshape(-1, i)
     m = xf.shape[0]
-    s_shape = (o,) if w8 else (o, qw.s.shape[-1])
-    for name, t, dt, shape in (
-            ("x", xf, torch.float32, (m, i)),
-            ("q", qw.q, torch.int8 if w8 else torch.uint8,
-             (o, i if w8 else i // 2)),
-            ("s", qw.s, torch.float32, s_shape)):
-        if (t.dtype != dt or t.device != x.device or not t.is_contiguous()
-                or tuple(t.shape) != shape):
-            raise ValueError("quant_matmul: %s must be a contiguous %s tensor "
-                             "of shape %s on %s (got %s %s on %s)"
-                             % (name, dt, shape, x.device, t.dtype,
-                                tuple(t.shape), t.device))
+    if not (xf.dtype == torch.float32 and s.dtype == torch.float32
+            and q.dtype == (torch.int8 if w8 else torch.uint8)
+            and q.device == x.device and s.device == x.device
+            and q.dim() == 2 and s.dim() == 2 - w8 and s.shape[0] == o
+            and xf.is_contiguous() and q.is_contiguous()
+            and s.is_contiguous()):
+        _refuse(xf, qw, w8, m, i, o)
     y = torch.empty((m, o), dtype=torch.float32, device=x.device)
     if m and o and i:
         _launch(xf, qw, y, qmm_plan(m, o, i, 8 if w8 else 4,
-                                    i if w8 else i // qw.s.shape[1]))
+                                    i if w8 else i // s.shape[1]))
         if w8:
             quant_matmul.launches_w8 += 1
         else:
@@ -268,6 +260,22 @@ def quant_matmul(x, qw):
     elif m and o:
         y.zero_()                       # no inputs: the empty sum
     return y.reshape(lead + (o,))
+
+
+def _refuse(xf, qw, w8, m, i, o):
+    """Raise naming the tensor the kernel does not take."""
+    s_shape = (o,) if w8 else (o, qw.s.shape[-1])
+    for name, t, dt, shape in (
+            ("x", xf, torch.float32, (m, i)),
+            ("q", qw.q, torch.int8 if w8 else torch.uint8,
+             (o, i if w8 else i // 2)),
+            ("s", qw.s, torch.float32, s_shape)):
+        if (t.dtype != dt or t.device != xf.device or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError("quant_matmul: %s must be a contiguous %s tensor "
+                             "of shape %s on %s (got %s %s on %s)"
+                             % (name, dt, shape, xf.device, t.dtype,
+                                tuple(t.shape), t.device))
 
 
 def _launch(xf, qw, y, plan, stamps=None):
@@ -282,7 +290,7 @@ def _launch(xf, qw, y, plan, stamps=None):
     rc = lib.mxt_quant_matmul(
         xf.data_ptr(), qw.q.data_ptr(), qw.s.data_ptr(), y.data_ptr(),
         m, o, i, 8 if w8 else 4, group, plan.ks, plan.slice, plan.wch,
-        plan.nt, int(plan.fold), int(plan.wg), int(plan.bulk),
+        plan.nt, int(plan.fold), int(plan.wg),
         int(i % 4 == 0 and xf.data_ptr() % 16 == 0),
         int(i % row_unit == 0 and qw.q.data_ptr() % 16 == 0),
         None if stamps is None else stamps.data_ptr(),
