@@ -59,7 +59,8 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   of ``chip_smoke.QMM_PLANS``), then the serving model served 48 requests
   with int8 weights + int8 KV pages and with int4 weights (group 128):
   tokens/s, decode p50 and p99, prefill chunk p50, launches and a digest
-  of the streams;
+  of the streams; then 16 requests of each under torch.profiler (the
+  device's busy share, the kernels with the most device time);
 - ``paged``: ``chip_smoke.check_paged_attention`` and
   ``check_paged_attention_int8`` (#15 over fp and int8 pages at H 12 over
   12 and 4 KV heads, D 64, and over 4 KV heads at D 32 and 128, held in
@@ -229,6 +230,9 @@ def qmm_phase(cs, torch, timer):
             [o["tokens"] for o in outs]).encode()).hexdigest()[:16]
         cs.log("qmm serve %s: %s; streams digest %s"
                % (label, json.dumps(st), streams))
+    for quant in (dict(quantize="int8", kv_dtype="int8"),
+                  dict(quantize="int4", quant_group=128)):
+        cs.profile(torch, lm, reqs[:16], True, **quant)
 
 
 def main():

@@ -618,14 +618,11 @@ QMM_RAGGED = (("w8", 768, 100, None), ("w8", 768, 99, None),
 QMM_M = (1, 16, 64)
 # other plans timed beside qmm_plan's at the layer's shapes (replan
 # fields; ``m`` keeps one to that M): 16 or 32 channels a block and the
-# K split at M 1 and 16; at M 64 the K split on wgmma, and mma.sync
+# K split at M 1 and 16, the K split at M 64
 QMM_PLANS = tuple(
     [dict(m=m, wch=w, ks=k) for m in (1, 16) for w in (1, 2)
      for k in (2, 3, 4, 6, 8)]
-
-    + [dict(m=64, wg=True, wch=4, nt=4, ks=k) for k in (2, 3, 4, 6, 8)]
-    + [dict(m=64, wg=False, wch=2, nt=n, ks=k) for n in (4, 8)
-       for k in (2, 4, 8)])
+    + [dict(m=64, ks=k) for k in (2, 3, 4, 6, 8)])
 
 
 def qmm_cases():
@@ -807,9 +804,9 @@ def check_qmm_sass(libs):
             % (fn[-60:], kind, tf32, atomics))
         if not tf32 or atomics:
             bad.append(fn)
-    # int8, int4 and int4 folded: 2 channel tiles x 4 row tiles on
+    # int8, int4 and int4 folded: 2 channel tiles x 2 row tiles on
     # mma.sync, one tile on wgmma
-    if len(census) != 27 or bad:
+    if len(census) != 15 or bad:
         raise AssertionError("quant_matmul SASS: %d kernels, without tf32 "
                              "tensor-core products or with atomics: %s"
                              % (len(census), bad))
@@ -2800,15 +2797,16 @@ def span_ms(torch, prof, keys):
     return out, total
 
 
-def profile(torch, lm, reqs, fused, sharding=None):
-    """torch.profiler over one engine serving ``reqs``: the device's busy
-    share of the window and the kernels that took the most device time."""
+def profile(torch, lm, reqs, fused, sharding=None, **quant):
+    """torch.profiler over one engine serving ``reqs`` (``quant``: the
+    engine's quantization options): the device's busy share of the window
+    and the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity
     from mxnet_tpu_torch.serving import DecodeEngine
     os.environ["MXNET_DECODE_FUSED"] = "1" if fused else "0"
     eng = DecodeEngine(lm, name="prof", slots=SLOTS, page_size=PAGE,
                        max_ctx=MAX_CTX, prefill_chunk=CHUNK, device=DEV,
-                       sharding=sharding)
+                       sharding=sharding, **quant)
     eng.warmup()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
@@ -2820,9 +2818,10 @@ def profile(torch, lm, reqs, fused, sharding=None):
         wall = time.perf_counter() - t0
     eng.stop()
     busy, n, top = device_summary(torch, prof, wall)
-    log("profile fused=%s tp=%d: %d requests in %.3f s, device busy %.1f%% "
-        "(%d kernel spans); top kernels by device ms: %s"
-        % (fused, eng.tp, len(reqs), wall, busy, n, top))
+    log("profile fused=%s tp=%d%s: %d requests in %.3f s, device busy "
+        "%.1f%% (%d kernel spans); top kernels by device ms: %s"
+        % (fused, eng.tp, " %s" % (quant,) if quant else "", len(reqs),
+           wall, busy, n, top))
 
 
 # ---------------------------------------------------------------------------

@@ -660,8 +660,8 @@ int launch(const float* x, const uint8_t* q, const float* s, float* y, int M,
   return (int)cudaGetLastError();
 }
 
-// the plan's variant: wch 16-channel tiles and nt 8-row tiles a block, on
-// mma.sync, or (wg) 64 channels and 32 rows on wgmma
+// the plan's variant: wch 16-channel tiles and nt 8-row tiles a block (1
+// or 2 each) on mma.sync, or (wg) 64 channels and 32 rows on wgmma
 struct Args {
   const float* x;
   const uint8_t* q;
@@ -681,12 +681,8 @@ int go(const Args& a) {
 
 template <int FMT, int WCH, bool FOLD>
 int by_rows(int nt, const Args& a) {
-  switch (nt) {
-    case 1: return go<FMT, WCH, 1, FOLD, false>(a);
-    case 2: return go<FMT, WCH, 2, FOLD, false>(a);
-    case 4: return go<FMT, WCH, 4, FOLD, false>(a);
-    case 8: return go<FMT, WCH, 8, FOLD, false>(a);
-  }
+  if (nt == 1) return go<FMT, WCH, 1, FOLD, false>(a);
+  if (nt == 2) return go<FMT, WCH, 2, FOLD, false>(a);
   return (int)cudaErrorInvalidValue;
 }
 
