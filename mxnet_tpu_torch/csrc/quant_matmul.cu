@@ -331,7 +331,7 @@ __device__ __forceinline__ void mma_stage(
 // reads tf32(x), truncated) and its residual box.  Lane (g, t) of warp w
 // holds channels 16w + g (+8) and inputs 8j + t (+4) of k-step j, as the
 // tf32 A fragment lays them out.  int4 with groups keeps each chunk's
-// products apart and scales them once the group is done.
+// products apart and scales them once the stage's products are done.
 template <int FMT, bool FOLD>
 __device__ __forceinline__ void wg_stage(
     const unsigned char* cs, const float* ss, const unsigned char* xs,
