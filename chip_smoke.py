@@ -52,7 +52,8 @@ plain version):
    at the first two, zero and random initial state, dcseq zero but at T-1
    (28 cases); both timed at (35, 32, 650) beside their plain versions,
    their bounds and cuDNN's LSTM on the same weights, #11's two kernels
-   also apart, its time loop's phases by ``%globaltimer`` and its serial
+   also apart, #10's and #11's time loops' phases by ``%globaltimer``
+   and #11's serial
    chain's floor; the SASS of #11's kernels: the recompute's tensor-core
    products, no atomic in either.  The tensor-parallel
    decode phases (#13 attention, #14 FFN) on every shard of one layer at
@@ -1816,6 +1817,26 @@ def lstm_stamps(torch, fc, timer, bwd, T, runs=5):
     return med
 
 
+def lstm_fwd_stamps(torch, fc, timer, fwd, T, runs=5):
+    """The forward's phases by ``%globaltimer`` (``fused_cell.
+    lstm_fwd_phase_times``, block 0), each launch after the L2 flush: per
+    phase the median over ``runs`` launches of its sum over the T steps,
+    in µs.  Printed and returned."""
+    totals = []
+    for _ in range(runs + 1):
+        timer.flush.zero_()
+        totals.append(fc.lstm_fwd_phase_times(*fwd)[0])
+    med = {p: statistics.median(t[p] for t in totals[1:])
+           for p in fc.LSTM_FWD_PHASES}
+    log("lstm_sequence_fwd %s phases by %%globaltimer (block 0, median of "
+        "%d launches, T %d): %s; per step %s; sum %.2f us per step"
+        % (str(fwd[0].dtype)[6:], runs, T,
+           " ".join("%s %.2f us" % kv for kv in med.items()),
+           " ".join("%s %.3f" % (p, v / T) for p, v in med.items()),
+           sum(med.values()) / T))
+    return med
+
+
 def digest(torch, *tensors):
     """The first 16 hex digits of sha256 over the tensors' bytes (as
     fp32): equal digests in two runs mean equal results bit for bit."""
@@ -1831,8 +1852,8 @@ def lstm_timing(torch, fc, timer, dt):
     same weights, forward, and its backward through autograd), which also
     runs its own i2h GEMM: beside it stand #10 plus the i2h product, and
     #11 plus the products around it (the i2h backward and dW).  #11's two
-    kernels, the recompute and the time loop, also apart, and the time
-    loop's phases by its stamps; the digests of #10's outputs and of
+    kernels, the recompute and the time loop, also apart, #10's phases
+    and #11's time loop's by their stamps; the digests of #10's outputs and of
     #11's, to hold two trees' results bit for bit."""
     T, B, H = 35, 32, 650
     g = torch.Generator(device=DEV).manual_seed(14)
@@ -1874,6 +1895,7 @@ def lstm_timing(torch, fc, timer, dt):
         torch.matmul(x.reshape(T * B, H).T, dg)       # dW_i2h
 
     bwd_products = timer(bwd_with_products, spin=spin)
+    fwd_stamps = lstm_fwd_stamps(torch, fc, timer, (gx, h0, c0, w, b), T)
     stamps = lstm_stamps(torch, fc, timer, bwd, T)
     cudnn = torch.nn.LSTM(H, H).to(DEV, dt)
     with torch.no_grad():
@@ -1912,6 +1934,7 @@ def lstm_timing(torch, fc, timer, dt):
                          bound_by=by, library_ms=lib, us_per_step=k_ms / T
                          * 1e3)
     rows["lstm_sequence_fwd"]["with_i2h_ms"] = with_i2h
+    rows["lstm_sequence_fwd"]["phase_us"] = fwd_stamps
     rows["lstm_sequence_bwd"]["with_products_ms"] = bwd_products
     rows["lstm_sequence_bwd"]["phase_us"] = stamps
     log("lstm_sequence_bwd (T %d, B %d, H %d) %s apart: recompute %.4f ms "

@@ -314,6 +314,12 @@ __device__ void gate_products(float* hs, const float* wc, float* pre,
   __syncthreads();
 }
 
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 struct FwdArgs {
   const void* gx;   // (T, B, 4H)
   const void* c0;   // (B, H)
@@ -322,6 +328,7 @@ struct FwdArgs {
   float* cseq;      // (T, B, H)
   float* hbuf;      // (2, H, B) float32 scratch: h of the last two steps,
                     // transposed; the caller puts h0 in hbuf[1]
+  long long* timing;  // NULL, or 1 + 4 T stamps (see lstm_fwd_kernel)
   int T, B, H;
 };
 
@@ -342,6 +349,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
   }
   const T* gx = static_cast<const T*>(a.gx);
   T* out = static_cast<T*>(a.out);
+  // with a timing buffer, block 0's thread 0 stamps the start, then the
+  // end of each step's stage, gate products, elementwise update and grid
+  // barrier (for B > 32, the last pass's stage and products)
+  const bool stamp = a.timing != nullptr && blockIdx.x == 0 &&
+                     threadIdx.x == 0;
+  long long* ts = a.timing;
+  __syncthreads();
+  if (stamp) *ts++ = globaltimer();
   for (int t = 0; t < a.T; ++t) {
     float* h_next = a.hbuf + (size_t)(t & 1) * H * B;
     const float* h_prev = a.hbuf + (size_t)((t + 1) & 1) * H * B;
@@ -349,7 +364,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
       __syncthreads();        // hs and pre are free again
       stage(hs, h_prev, H, B, b0);
       __syncthreads();
+      if (stamp) ts[0] = globaltimer();
       gate_products<U>(hs, wc, pre, H);
+      if (stamp) ts[1] = globaltimer();
       const int rows = min(ROWS, B - b0);
       for (int e = threadIdx.x; e < rows * U; e += blockDim.x) {
         const int r = e / U, u = e - r * U, j = j0 + u, b = b0 + r;
@@ -373,14 +390,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
         h_next[(size_t)j * B + b] = h;
       }
     }
+    if (a.timing) {           // the stamp waits for every thread's stores
+      __syncthreads();
+      if (stamp) ts[2] = globaltimer();
+    }
     if (t + 1 < a.T) grid.sync();
+    if (stamp) ts[3] = globaltimer();
+    ts += 4;
   }
-}
-
-__device__ __forceinline__ long long globaltimer() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
 }
 
 // ---------------------------------------------------------------------------
@@ -1031,12 +1048,13 @@ extern "C" int mxt_lstm_plan(int backward, int bf16, int H, int B,
 }
 
 // One launch of the forward time loop; hbuf holds 2 H B floats, h0
-// transposed to (H, B) in float32 in its second half.
+// transposed to (H, B) in float32 in its second half; timing is NULL or
+// 1 + 4 T int64.
 extern "C" int mxt_lstm_fwd(const void* gx, const void* c0,
                             const void* w, long long sk, long long sg,
                             int w_bf16, const void* b, int b_bf16, void* out,
-                            void* cseq, void* hbuf, int T, int B, int H,
-                            int bf16, void* stream) {
+                            void* cseq, void* hbuf, long long* timing, int T,
+                            int B, int H, int bf16, void* stream) {
   int U = 0, grid = 0;
   size_t smem = 0;
   cudaError_t e = plan(false, bf16, H, B, &U, &grid, &smem);
@@ -1049,6 +1067,7 @@ extern "C" int mxt_lstm_fwd(const void* gx, const void* c0,
   a.out = out;
   a.cseq = (float*)cseq;
   a.hbuf = (float*)hbuf;
+  a.timing = timing;
   a.T = T;
   a.B = B;
   a.H = H;

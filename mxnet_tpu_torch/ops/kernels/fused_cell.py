@@ -60,6 +60,7 @@ __all__ = ["lstm_sequence", "lstm_sequence_plain",
            "WEIGHT_ORDER", "PHASES", "GEMV_PHASES", "grid_blocks",
            "phase_times",
            "LSTM_BWD_PHASES", "LSTM_GATES_PHASES", "lstm_bwd_phase_times",
+           "LSTM_FWD_PHASES", "lstm_fwd_phase_times",
            "decode_attn_phase", "decode_attn_phase_plain",
            "decode_attn_phase_times", "ATTN_PHASES", "decode_ffn_phase",
            "decode_ffn_phase_plain", "decode_ffn_phase_times", "FFN_PHASES",
@@ -584,7 +585,7 @@ def _lstm_lib():
     lib.mxt_lstm_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)] * 2 + [
         ctypes.POINTER(L)]
     lib.mxt_lstm_plan.restype = _I
-    lib.mxt_lstm_fwd.argtypes = ([_P] * 3 + [L, L, _I, _P, _I] + [_P] * 3
+    lib.mxt_lstm_fwd.argtypes = ([_P] * 3 + [L, L, _I, _P, _I] + [_P] * 4
                                  + [_I] * 4 + [_P])
     lib.mxt_lstm_fwd.restype = _I
     lib.mxt_lstm_bwd_gates.argtypes = ([_P, _P, L] + [_I] * 3 + [_P] * 2
@@ -644,7 +645,7 @@ def _lstm_check(what, gates_x, vectors, w, b):
     return T, B, H
 
 
-def _lstm_fwd(gates_x, h0, c0, w, b):
+def _lstm_fwd(gates_x, h0, c0, w, b, stamps=None):
     if gates_x.device.type == "cpu":
         return lstm_sequence_plain(gates_x, h0, c0, w, b)
     if gates_x.device.type != "cuda":
@@ -666,12 +667,35 @@ def _lstm_fwd(gates_x, h0, c0, w, b):
         gates_x.data_ptr(), c0.data_ptr(), w.data_ptr(),
         w.stride(0), w.stride(1), _LSTM_DTYPES[w.dtype], b.data_ptr(),
         _LSTM_DTYPES[b.dtype], out.data_ptr(), cseq.data_ptr(),
-        hbuf.data_ptr(), T, B, H, _LSTM_DTYPES[dt],
-        torch.cuda.current_stream(dev).cuda_stream)
+        hbuf.data_ptr(), None if stamps is None else stamps.data_ptr(), T,
+        B, H, _LSTM_DTYPES[dt], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "lstm_sequence")
     lstm_sequence.launches_fwd += 1
     lstm_sequence.last_dtype = dt
     return out, cseq
+
+
+#: the phases of one step of the forward time loop, in the order the
+#: kernel stamps their ends (:func:`lstm_fwd_phase_times`): h staged into
+#: shared memory, the gate products, the elementwise update (out, cseq
+#: and the block's slice of the next h written) and the grid barrier
+LSTM_FWD_PHASES = ("stage", "products", "elementwise", "barrier")
+
+
+def lstm_fwd_phase_times(gates_x, h0, c0, w, b):
+    """The forward on CUDA tensors (the arguments of ``_lstm_fwd``), its
+    block 0 stamping the card's global timer at the end of every phase of
+    every step.  Returns ``(total, per_step)``: µs per phase of
+    :data:`LSTM_FWD_PHASES` summed over the steps, and the list of µs per
+    step of each."""
+    T = gates_x.shape[0]
+    n = len(LSTM_FWD_PHASES)
+    stamps = torch.zeros(1 + n * T, dtype=torch.int64,
+                         device=gates_x.device)
+    _lstm_fwd(gates_x, h0, c0, w, b, stamps)
+    d = torch.diff(stamps.cpu()).double().reshape(T, n) / 1e3
+    per_step = {p: d[:, i].tolist() for i, p in enumerate(LSTM_FWD_PHASES)}
+    return {p: sum(v) for p, v in per_step.items()}, per_step
 
 
 def _lstm_bwd(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):
