@@ -1,5 +1,30 @@
-// Fused bias + dropout + residual epilogue, forward and backward: the
-// port of _bdr_fwd_kernel and _bdr_bwd_kernel
+// Fused transformer epilogues: bias + exact-erf GELU (forward), and bias +
+// dropout + residual, forward and backward.
+//
+// bias_gelu_fwd_kernel, the port of _bg_fwd_kernel
+// (mxnet_tpu/ops/pallas/epilogue.py:135):
+//
+//   out = gelu(x + b) = 0.5 u (1 + erf(u / sqrt 2)),  u = x + b
+//
+// x, out (R, C) and b (C,) of one type (float32, bfloat16 or float16),
+// computed in fp32 (erff) and stored in the tensors' type.  Bound on the
+// card: bytes (each element read and written once, ~20 flops of erf
+// between).  At the serving path's shapes, (16 | 64, 3072), 0.4-1.6 MB
+// move (fp32): the time is a launch and one cold HBM round trip, so the
+// design is about latency.  Each thread owns one fixed column vector
+// (16 bytes, 4 floats or 8 bf16/fp16, when C and the pointers allow it;
+// one element otherwise, for a ragged C such as 770) and walks rows, so
+// its slice of the bias is loaded once into registers and no element
+// needs a modulo.  It issues the loads of all its rows of a pass (K of
+// them) before it computes, so all of a block's loads are in flight at
+// once.  The launch plan (mxnet_tpu_torch/ops/kernels/epilogue.py:
+// bias_gelu_plan) halves the block, down to 32 threads, until there is
+// at least one block an SM at small R, and at large R gives each thread
+// one pass of 4 rows (fp32: 2); the kernel grid-strides only past the
+// grid's 65535 row groups, where the next pass's loads are issued before
+// the current one computes.
+//
+// bias_dropout_residual, the port of _bdr_fwd_kernel and _bdr_bwd_kernel
 // (mxnet_tpu/ops/pallas/epilogue.py:213, 221).
 //
 //   forward   out = r + keep(row, col) * (x + b)     x, r, out: (R, C); b: (C,)
@@ -22,6 +47,7 @@
 // so no FMA contraction departs from the plain version:
 //   u = x + b;  u = u * keep;  out = r + u.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,6 +65,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 template <class T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
@@ -49,12 +76,67 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
 
 // V consecutive elements of one row, moved by one load or store
 template <class T, int V>
 struct alignas(sizeof(T) * V) Vec {
   T v[V];
 };
+
+// element i of b, of type code bt (0 float32, 1 bfloat16, 2 float16)
+__device__ __forceinline__ float ld_bias(const void* b, int i, int bt) {
+  return bt == 0 ? static_cast<const float*>(b)[i]
+       : bt == 1 ? __bfloat162float(static_cast<const __nv_bfloat16*>(b)[i])
+                 : __half2float(static_cast<const __half*>(b)[i]);
+}
+
+// nv vectors of V elements a row; thread (blockIdx.x, threadIdx.x) owns
+// vector column col of every row blockIdx.y K + gridDim.y K i + k, k < K
+template <class T, int V, int K>
+__global__ void __launch_bounds__(256)
+bias_gelu_fwd_kernel(const T* __restrict__ x, const void* __restrict__ b,
+                     int bt, T* __restrict__ out, int R, int nv) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= nv) return;
+  float bias[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) bias[e] = ld_bias(b, col * V + e, bt);
+  const Vec<T, V>* xv = reinterpret_cast<const Vec<T, V>*>(x) + col;
+  Vec<T, V>* ov = reinterpret_cast<Vec<T, V>*>(out) + col;
+  const int step = gridDim.y * K;
+  int r0 = blockIdx.y * K;
+  Vec<T, V> v[K];
+  auto load = [&](Vec<T, V>(&dst)[K], int r) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (r + k < R) dst[k] = xv[(size_t)(r + k) * nv];
+  };
+  load(v, r0);
+  while (r0 < R) {
+    // the next pass's loads are issued before this pass computes, so the
+    // grid-strided loop keeps loads in flight while it computes
+    Vec<T, V> nxt[K];
+    if (r0 + step < R) load(nxt, r0 + step);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (r0 + k >= R) continue;
+      Vec<T, V> o;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float u = __fadd_rn(to_f32(v[k].v[e]), bias[e]);
+        o.v[e] = from_f32<T>(0.5f * u * (1.f + erff(u * 0.70710678118654752f)));
+      }
+      ov[(size_t)(r0 + k) * nv] = o;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = nxt[k];
+    r0 += step;
+  }
+}
 
 template <class T, int V, bool MASK>
 __global__ void __launch_bounds__(256)
@@ -138,10 +220,59 @@ int bwd(const void* g, const void* seed, void* dx, int n, int C,
   return (int)cudaGetLastError();
 }
 
+template <class T, int V>
+int bias_gelu(const void* x, const void* b, int bt, void* out, int R, int C,
+              int threads, int rows, int gx, int gy, cudaStream_t st) {
+  const dim3 grid(gx, gy);
+  const int nv = C / V;
+  if (rows == 4)
+    bias_gelu_fwd_kernel<T, V, 4><<<grid, threads, 0, st>>>(
+        (const T*)x, b, bt, (T*)out, R, nv);
+  else if (rows == 2)
+    bias_gelu_fwd_kernel<T, V, 2><<<grid, threads, 0, st>>>(
+        (const T*)x, b, bt, (T*)out, R, nv);
+  else
+    bias_gelu_fwd_kernel<T, V, 1><<<grid, threads, 0, st>>>(
+        (const T*)x, b, bt, (T*)out, R, nv);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int bias_gelu(const void* x, const void* b, int bt, void* out, int R, int C,
+              int vec, int threads, int rows, int gx, int gy,
+              cudaStream_t st) {
+  constexpr int V16 = 16 / sizeof(T);
+  return vec > 1 ? bias_gelu<T, V16>(x, b, bt, out, R, C, threads, rows, gx,
+                                     gy, st)
+                 : bias_gelu<T, 1>(x, b, bt, out, R, C, threads, rows, gx, gy,
+                                   st);
+}
+
 }  // namespace
 
 extern "C" const char* mxt_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
+}
+
+// out = gelu(x + b): x, out (R, C) contiguous, of one dtype, and b (C,),
+// contiguous, of type bt: 0 float32, 1 bfloat16, 2 float16.  vec: 1 for
+// one element per thread, or 16 bytes per thread, which needs C
+// divisible by that count and x and out 16-byte aligned.  The launch:
+// blocks of `threads` (<= 256), grid (gx, gy), gx threads covering a
+// row's C / vec vectors, `rows` (1, 2 or 4) rows a pass; R * C < 2**31.
+extern "C" int mxt_bias_gelu_fwd(const void* x, const void* b, void* out,
+                                 int R, int C, int dtype, int bt, int vec,
+                                 int threads, int rows, int gx, int gy,
+                                 void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return bias_gelu<float>(x, b, bt, out, R, C, vec, threads, rows, gx, gy,
+                            st);
+  if (dtype == 1)
+    return bias_gelu<__nv_bfloat16>(x, b, bt, out, R, C, vec, threads, rows,
+                                    gx, gy, st);
+  return bias_gelu<__half>(x, b, bt, out, R, C, vec, threads, rows, gx, gy,
+                           st);
 }
 
 // x, r, out (R, C) and b (C,), contiguous, of one dtype: 0 float32,

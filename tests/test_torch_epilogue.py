@@ -68,6 +68,77 @@ def test_bias_gelu_cpu_takes_plain_version():
     assert torch.equal(out, tep.bias_gelu_plain(x, b))
 
 
+# (R, C, itemsize) -> (vec, threads, rows, (gx, gy)) on an H100's 132 SMs
+_GELU_PLANS = {
+    (16, 3072, 4): (4, 64, 1, (12, 16)),      # per-op decode step
+    (64, 3072, 4): (4, 128, 2, (6, 32)),      # prefill chunk
+    (4096, 3072, 4): (4, 128, 2, (6, 2048)),  # BERT training
+    (16, 3072, 2): (8, 32, 1, (12, 16)),
+    (64, 3072, 2): (8, 128, 1, (3, 64)),
+    (4096, 3072, 2): (8, 128, 4, (3, 1024)),
+    (16, 770, 4): (1, 64, 1, (13, 16)),       # ragged C: one element
+    (64, 770, 4): (1, 128, 2, (7, 32)),
+    (16, 770, 2): (1, 64, 1, (13, 16)),
+    (16, 1536, 4): (4, 32, 1, (12, 16)),      # FFN1's bias shard at tp 2
+    (64, 1536, 4): (4, 128, 1, (3, 64)),
+    (16, 1536, 2): (8, 32, 1, (6, 16)),
+    (64, 1536, 2): (8, 64, 1, (3, 64)),
+}
+
+
+@pytest.mark.parametrize("R,C,itemsize", sorted(_GELU_PLANS),
+                         ids=["%dx%d-%s" % (r, c, "fp32" if e == 4 else "bf16")
+                              for r, c, e in sorted(_GELU_PLANS)])
+def test_bias_gelu_plan(R, C, itemsize):
+    """The forward kernel's launch: 16-byte vectors where C allows them,
+    one element for a ragged C; gx blocks just cover a row's vectors; at
+    least one block an SM where R allows it (the serving shapes), one
+    pass a thread; misaligned pointers take one element."""
+    plan = tep.bias_gelu_plan(R, C, itemsize, True)
+    assert plan == _GELU_PLANS[(R, C, itemsize)]
+    vec, threads, rows, (gx, gy) = plan
+    nv = C // vec
+    assert (gx - 1) * threads < nv <= gx * threads
+    assert gx * gy >= tep.SMS or (threads == 32 and rows == 1)
+    assert gy * rows >= R > (gy - 1) * rows
+    assert tep.bias_gelu_plan(R, C, itemsize, False)[0] == 1
+
+
+@pytest.mark.parametrize("R,C,sms", [(37, 770, 4), (300, 96, 2), (5, 8, 64),
+                                     (140001, 4, 1)])
+def test_bias_gelu_plan_covers_every_element_once(R, C, sms):
+    """The kernel's loops over the plan (thread col = bx threads + tx of
+    the gx threads covering a row; rows by K + gy K i + k) visit every
+    (row, vector) of x exactly once, grid-strided (past 65535 row
+    groups) or not."""
+    for aligned in (True, False):
+        vec, threads, rows, (gx, gy) = tep.bias_gelu_plan(R, C, 4, aligned,
+                                                          sms)
+        nv = C // vec
+        passes = -(-R // (gy * rows))
+        r = (np.arange(gy)[:, None, None] * rows
+             + np.arange(passes)[None, :, None] * gy * rows
+             + np.arange(rows)[None, None, :]).ravel()
+        r = r[r < R]
+        cols = np.arange(gx * threads)
+        cols = cols[cols < nv]
+        seen = np.zeros((R, nv), np.int64)
+        np.add.at(seen, (r[:, None], cols[None, :]), 1)
+        assert (seen == 1).all()
+        assert gy <= 65535 and (R <= 65535 * rows or passes > 1)
+
+
+def test_bias_gelu_bias_of_another_dtype():
+    """The wrapper takes a bias of another type than x (as the Triton
+    kernel did): the plain version adds it in fp32."""
+    x = torch.randn(4, 16).to(torch.bfloat16)
+    b = torch.randn(16)
+    out = tep.bias_gelu(x, b)
+    assert out.dtype == torch.bfloat16
+    ref = tep.bias_gelu_plain(x.float(), b).to(torch.bfloat16)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
 def _mode_env(monkeypatch, mode):
     monkeypatch.setenv("MXNET_EPILOGUE_KERNEL",
                        "0" if mode == "xla" else "interpret")
