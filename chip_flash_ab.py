@@ -1,5 +1,5 @@
-"""Time the port's flash attention, LSTM and decode phase kernels over
-checkouts of the repo, in turns, on one card.
+"""Time the port's flash attention, epilogue, LSTM and decode phase kernels
+over checkouts of the repo, in turns, on one card.
 
     python3 chip_flash_ab.py [--phases PHASE,...] TREE ...
 
@@ -29,11 +29,17 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   trees' can be compared bit for bit;
 - ``amp``: the AMP bf16 phase at B 32, L 128 alone, ``--steps`` steps
   (default 30) and no profiler: its step p50 over more steps;
+- ``epilogue``: ``chip_smoke.check_bias_gelu`` (#1 held and timed at
+  (16, 64, 4096) x 3072, a ragged C 770 and the tp 2 bias shard C 1536,
+  fp32 and bf16, beside the timer's floor, with the host's enqueue µs a
+  call beside ``F.gelu(x + b)``'s), then the serving model served 48
+  requests per-op at tp 1 (12 launches of #1 a decode step and a prefill
+  chunk): tokens/s, decode p50, prefill chunk p50;
 - ``lstm``: the LSTM kernels' build report (ptxas registers and spills),
-  ``chip_smoke.lstm_timing`` in fp32 and bf16 (T 35, B 32, H 650: #10
-  and #11 beside their plain versions, bounds and cuDNN; #11's recompute
-  and time loop apart; the backward's phases by ``%globaltimer``;
-  digests of #10's and
+  the forward's plan, ``chip_smoke.lstm_timing`` in fp32 and bf16 (T 35,
+  B 32, H 650: #10 and #11 beside their plain versions, bounds and cuDNN;
+  #11's recompute and time loop apart; the forward's and the backward's
+  phases by ``%globaltimer``; digests of #10's and
   #11's outputs, to compare trees bit for bit), then
   ``chip_smoke.train_lm`` for the word LM, fp32 and AMP bf16, 10 steps
   each, with the step-1 loss printed exactly;
@@ -82,8 +88,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("route", "kernels", "host", "bert", "amp", "lstm", "tp", "paged",
-          "fused", "qmm")
+PHASES = ("route", "kernels", "host", "bert", "amp", "epilogue", "lstm",
+          "tp", "paged", "fused", "qmm")
 
 
 def build(trees, names):
@@ -136,6 +142,13 @@ def run(tree, phases, steps):
             _, st = cs.train(torch, 0, name, B, L, steps, amp=amp,
                              profile_steps=3, **kw)
             cs.log("bert %s: %s" % (name, json.dumps(st)))
+    if "epilogue" in phases:
+        cs.check_bias_gelu(torch, timer, {})
+        lm, _ = decode_models(cs, torch)
+        _, _, _, st = cs.serve(torch, lm, cs.traffic(0, 48), "per_op", False)
+        cs.log("epilogue serve per_op: %s" % json.dumps(st))
+        del lm
+        torch.cuda.empty_cache()
     if "lstm" in phases:
         from mxnet_tpu_torch.ops.kernels import _build
         from mxnet_tpu_torch.ops.kernels import fused_cell as fc
@@ -143,6 +156,9 @@ def run(tree, phases, steps):
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 cs.log("ptxas lstm: %s" % line.strip())
+        for dt in (torch.float32, torch.bfloat16):
+            cs.log("lstm forward plan (H 650, B 32, %s): %s"
+                   % (str(dt)[6:], fc.lstm_plan(650, 32, dt)))
         cs.lstm_timing(torch, fc, timer, torch.float32)
         cs.lstm_timing(torch, fc, timer, torch.bfloat16)
         torch.cuda.empty_cache()
@@ -256,10 +272,11 @@ def main():
         return 2
     trees = [os.path.abspath(t) for t in args.trees]
     names = [n for n, ps in (("flash_attention", {"route", "kernels", "host"}),
-                             ("fused_decode", {"fused"})) if ps & set(phases)]
+                             ("fused_decode", {"fused"}),
+                             ("epilogue", {"epilogue"})) if ps & set(phases)]
     rcs = build(sorted(set(trees)), None if {"bert", "amp", "lstm", "tp",
-                                             "paged", "qmm"} & set(phases)
-                else names)
+                                             "paged", "qmm", "epilogue"}
+                & set(phases) else names)
     built = {t for t, rc in zip(sorted(set(trees)), rcs) if not rc}
     failed = len(set(trees) - built)
     if failed:

@@ -8,12 +8,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU or to a
 plain version):
 
 1. Set-up: build every kernel of the paths from ``mxnet_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel; Triton compiles at first
-   launch), print the card's name and power limit, turn TF32 off.
+   (one ``nvcc`` per source, in parallel; Triton compiles the GELU
+   backward at its first launch), print the card's name and power limit,
+   turn TF32 off.
 2. Kernel checks: each kernel against its plain PyTorch version on the
    card, at the main paths' full-width shapes and at a GQA geometry, with
    the tolerance stated; each kernel's time, its plain version's time,
-   its bound and (where one exists) one PyTorch call's time.  The
+   its bound and (where one exists) one PyTorch call's time.  The timer's
+   floor (an empty kernel) first.  The GELU forward (#1) at (16, 64,
+   4096) x 3072, a ragged C 770 and the tp 2 bias shard C 1536, fp32 and
+   bf16, with its launch plan and the host's enqueue time a call.  The
    quantized-serving kernels (``quant_matmul`` int8 and int4) are checked
    at the three GEMM shapes of a layer and M in {1, 16, 64}.  Paged
    attention (#15), over fp32 and over int8 pages, at H 12 over 12 and 4
@@ -226,6 +230,16 @@ class Timer:
             ms.append(s.elapsed_time(e))
         return statistics.median(ms)
 
+    def floor(self):
+        """The timer's own floor: the time of an empty kernel (a spin of 0
+        cycles) between the events, measured once.  A small kernel's time
+        reads as this floor plus its work."""
+        if not hasattr(self, "_floor"):
+            self._floor = self(lambda: self.torch.cuda._sleep(0))
+            log("timer floor (an empty kernel, median of 20): %.4f ms"
+                % self._floor)
+        return self._floor
+
 
 def bound(nbytes, flops, peak=FP32_FLOPS):
     return bound_time(nbytes, flops / peak)
@@ -269,31 +283,87 @@ def perturb_affine(torch, lm, seed):
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+#: (R, C) of the bias_gelu checks: the per-op decode step, the prefill
+#: chunk and BERT training at FFN1's width; a ragged C (one element a
+#: thread) and FFN1's bias shard at tp 2
+BIAS_GELU_SHAPES = ((16, 3072), (64, 3072), (4096, 3072), (16, 770),
+                    (64, 770), (16, 1536), (64, 1536))
+
+
 def check_bias_gelu(torch, timer, report):
+    """bias_gelu (the CUDA forward) against its plain version at every
+    (R, C) of ``BIAS_GELU_SHAPES`` in float32 and bfloat16, each within
+    ``TOL_BIAS_GELU`` (bf16: beyond one bf16 step of the plain value),
+    timed beside its plain version, its bound and the timer's floor, with
+    its launch plan; then the host's enqueue time (``bias_gelu_host``).
+    The row in the kernels line is (64, 3072) fp32, the prefill chunk."""
     from mxnet_tpu_torch.ops.kernels import epilogue as ep
     g = torch.Generator(device=DEV).manual_seed(1)
+    floor = timer.floor()
     rows = {}
-    for R in (64, 16, 4096):     # prefill chunk, per-op decode, training
-        C = 3072
-        x = torch.randn(R, C, device=DEV, generator=g)
-        b = torch.randn(C, device=DEV, generator=g)
-        err = (ep.bias_gelu(x, b) - ep.bias_gelu_plain(x, b)).abs().max()
-        err = float(err)
-        ms = timer(lambda: ep.bias_gelu(x, b))
-        plain = timer(lambda: ep.bias_gelu_plain(x, b))
-        bms, by = bound(4 * (2 * R * C + C), 12 * R * C)
-        log("bias_gelu (%d, %d): max_abs_err %.3g (tol %g) kernel %.4f ms "
-            "plain %.4f ms bound %.4f ms" % (R, C, err, TOL_BIAS_GELU, ms,
-                                             plain, bms))
-        if not err <= TOL_BIAS_GELU:
-            raise AssertionError("bias_gelu disagrees with its plain version")
-        rows[R] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                       bound_by=by)
+    for dt in (torch.float32, torch.bfloat16):
+        for R, C in BIAS_GELU_SHAPES:
+            x = torch.randn(R, C, device=DEV, generator=g).to(dt)
+            b = torch.randn(C, device=DEV, generator=g).to(dt)
+            out, ref = ep.bias_gelu(x, b), ep.bias_gelu_plain(x, b)
+            err = (float((out - ref).abs().max()) if dt == torch.float32
+                   else within_bf16_step(out, ref))
+            ms = timer(lambda: ep.bias_gelu(x, b))
+            plain = timer(lambda: ep.bias_gelu_plain(x, b))
+            e = x.element_size()
+            bms, by = bound(e * (2 * R * C + C), 12 * R * C)
+            plan = (ep.bias_gelu_plan(R, C, e, ep._vec(x, out) > 1,
+                                      ep._sms(x.device.index))
+                    if hasattr(ep, "bias_gelu_plan") else None)
+            log("bias_gelu (%d, %d) %s: max_abs_err %.3g (tol %g%s) kernel "
+                "%.4f ms (timer floor %.4f) plain %.4f ms bound %.4f ms "
+                "(%s)%s" % (R, C, str(dt)[6:], err, TOL_BIAS_GELU,
+                            "" if dt == torch.float32 else
+                            " beyond one bf16 step", ms, floor, plain, bms,
+                            by, "; plan vec %d, %d threads, %d rows a pass, "
+                            "grid %s" % plan
+                            if plan else ""))
+            if not err <= TOL_BIAS_GELU:
+                raise AssertionError("bias_gelu (%d, %d) %s disagrees with "
+                                     "its plain version" % (R, C, dt))
+            rows[R, C, dt] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                  bound_ms=bms, bound_by=by)
     report["bias_gelu"] = dict(
-        name="bias_gelu", route="triton",
-        source="mxnet_tpu_torch/ops/kernels/epilogue.py",
+        name="bias_gelu", route="cuda",
+        source="mxnet_tpu_torch/csrc/epilogue.cu",
         replaces="mxnet_tpu/ops/pallas/epilogue.py:135", library_ms=None,
-        shape="(64, 3072) prefill chunk", **rows[64])
+        shape="(64, 3072) prefill chunk",
+        **rows[64, 3072, torch.float32])
+    bias_gelu_host(torch, ep)
+
+
+def bias_gelu_host(torch, ep, n=500):
+    """The host's enqueue time of one call (us, median of 5 runs of n
+    calls issued back to back, then one synchronize): bias_gelu, its
+    plain version and ``F.gelu(x + b)`` (two PyTorch calls) at (16, 3072)
+    fp32, a per-op decode step's FFN1 epilogue, and at (64, 3072).  The
+    serving path is host-bound, so this is what a call costs it."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=DEV).manual_seed(7)
+    out = {}
+    for R in (16, 64):
+        x = torch.randn(R, 3072, device=DEV, generator=g)
+        b = torch.randn(3072, device=DEV, generator=g)
+        for name, fn in (("kernel", lambda: ep.bias_gelu(x, b)),
+                         ("plain", lambda: ep.bias_gelu_plain(x, b)),
+                         ("F.gelu(x + b)", lambda: F.gelu(x + b))):
+            runs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                runs.append((time.perf_counter() - t) / n * 1e6)
+                torch.cuda.synchronize()
+            out["(%d, 3072) %s" % (R, name)] = round(statistics.median(runs),
+                                                     2)
+    log("bias_gelu host enqueue, us a call: %s" % json.dumps(out))
+    return out
 
 
 #: the paged attention cases timed (the first is the kernels line's)
@@ -695,11 +765,12 @@ def check_quant_matmul(torch, timer, report, plans=(), cases=None):
             plan = (qm.qmm_plan(M, O, I, 8 if fmt == "w8" else 4, gq)
                     if planned else None)
             log("quant_matmul_%s (M=%d, O=%d, I=%d, group %d): max_abs_err "
-                "%.3g (tol %g), repeat bit-equal %s; kernel %.4f ms plain "
+                "%.3g (tol %g), repeat bit-equal %s; kernel %.4f ms%s plain "
                 "%.4f ms F.linear(fp32 dequantized) %.4f ms (kernel/F.linear "
                 "%.2f) bound %.4f ms (%s)%s"
-                % (fmt, M, O, I, gq, err, TOL_QMM, same, ms, plain, lib,
-                   ms / lib, bms, by,
+                % (fmt, M, O, I, gq, err, TOL_QMM, same, ms,
+                   " (timer floor %.4f)" % timer.floor() if M == 1 else "",
+                   plain, lib, ms / lib, bms, by,
                    "; plan ks %d slice %d wch %d nt %d fold %s wg %s, %d "
                    "blocks" % (plan.ks, plan.slice, plan.wch, plan.nt,
                                plan.fold, plan.wg, plan.blocks(M, O))
@@ -1695,12 +1766,17 @@ def lstm_inputs(torch, g, T, B, H, dt, zero_state, w_dt=None):
 
 def lstm_case(torch, fc, g, T, B, H, dt, zero_state, w_dt=None):
     """#10 and #11 against the plain versions, #11's recompute kernel
-    against its own, two launches of #11 bit for bit, and #11 (through
+    against its own, two launches of #10 and of #11 bit for bit, and #11
+    (through
     the autograd Function) against autograd through the plain forward,
     with a loss over out and cT (dcseq zero except at T-1).  Returns the
     worst errors."""
     gx, h0, c0, w, b = lstm_inputs(torch, g, T, B, H, dt, zero_state, w_dt)
     out, cseq = fc._lstm_fwd(gx, h0, c0, w, b)
+    if not all(torch.equal(x, y) for x, y in zip(
+            (out, cseq), fc._lstm_fwd(gx, h0, c0, w, b))):
+        raise AssertionError("lstm_sequence T %d B %d H %d %s: two launches "
+                             "of #10 differ" % (T, B, H, str(dt)[6:]))
     pout, pcseq = fc.lstm_sequence_plain(gx, h0, c0, w, b)
     f32 = dt == torch.float32
     errs = {"out": (float((out - pout).abs().max()) if f32
@@ -1817,6 +1893,56 @@ def lstm_stamps(torch, fc, timer, bwd, T, runs=5):
     return med
 
 
+#: the forward's plans timed beside the one the sweep takes, (units per
+#: block, blocks a cluster, tensor-core products); those that do not fit
+#: the card are reported as such
+LSTM_FWD_PLANS = ((5, 1, True), (5, 2, True), (6, 1, True), (6, 2, True),
+                  (8, 1, True), (5, 1, False))
+
+
+def lstm_fwd_plans(torch, fc, timer, fwd, plans=LSTM_FWD_PLANS):
+    """#10 on ``fwd`` (the arguments of ``_lstm_fwd``) under each of
+    ``plans`` that fits the card: its time, phases by ``%globaltimer``,
+    error against the plain version (bf16: beyond one bf16 step), two
+    launches bit-equal, digest.  A tree whose plan has no such options
+    prints nothing."""
+    if not hasattr(fc, "LSTM_FWD_ORDER"):
+        return
+    gx, h0, c0, w, b = fwd
+    T, B, H = gx.shape[0], gx.shape[1], gx.shape[2] // 4
+    pout, pcseq = fc.lstm_sequence_plain(*fwd)
+    for units, cluster, tc, by_warp, backoff in [
+            p + (w, ns) for p in plans for w in (False, True)
+            for ns in (0, 32, 128)]:
+        try:
+            p = fc.lstm_plan(H, B, gx.dtype, units=units, cluster=cluster,
+                             tc=tc)
+        except RuntimeError:
+            log("lstm_sequence_fwd plan U %d, cluster %d, tc %s: does not "
+                "fit" % (units, cluster, tc))
+            continue
+        kw = dict(plan=p, by_warp=by_warp, backoff=backoff)
+        out, cseq = fc._lstm_fwd(*fwd, **kw)
+        again = fc._lstm_fwd(*fwd, **kw)
+        same = torch.equal(out, again[0]) and torch.equal(cseq, again[1])
+        err = max(float((out.float() - pout.float()).abs().max())
+                  if gx.dtype == torch.float32 else within_bf16_step(out, pout),
+                  float((cseq - pcseq).abs().max()))
+        ms = timer(lambda: fc._lstm_fwd(*fwd, **kw))
+        ph = [fc.lstm_fwd_phase_times(*fwd, **kw)[0] for _ in range(4)]
+        med = {k: statistics.median(x[k] for x in ph[1:]) / T for k in ph[0]}
+        log("lstm_sequence_fwd %s plan %s%s: %.4f ms (%.2f us per step), "
+            "max err %.3g (tol %g), two launches equal %s, digest %s; per "
+            "step %s" % (str(gx.dtype)[6:], tuple(p),
+                         "%s, backoff %d ns" % (" polled by warp" if by_warp
+                                                else "", backoff), ms,
+                         ms / T * 1e3, err,
+                    TOL_LSTM, same, digest(torch, out, cseq),
+                    " ".join("%s %.3f" % kv for kv in med.items())))
+        if not (err <= TOL_LSTM and same):
+            raise AssertionError("lstm_sequence_fwd plan %s disagrees" % (p,))
+
+
 def lstm_fwd_stamps(torch, fc, timer, fwd, T, runs=5):
     """The forward's phases by ``%globaltimer`` (``fused_cell.
     lstm_fwd_phase_times``, block 0), each launch after the L2 flush: per
@@ -1896,6 +2022,10 @@ def lstm_timing(torch, fc, timer, dt):
 
     bwd_products = timer(bwd_with_products, spin=spin)
     fwd_stamps = lstm_fwd_stamps(torch, fc, timer, (gx, h0, c0, w, b), T)
+    if hasattr(fc, "LSTM_FWD_ORDER"):
+        log("lstm_sequence_fwd (T %d, B %d, H %d) %s plan: %s"
+            % (T, B, H, str(dt)[6:], fc.lstm_plan(H, B, dt)))
+    lstm_fwd_plans(torch, fc, timer, (gx, h0, c0, w, b))
     stamps = lstm_stamps(torch, fc, timer, bwd, T)
     cudnn = torch.nn.LSTM(H, H).to(DEV, dt)
     with torch.no_grad():
@@ -1978,7 +2108,8 @@ def check_lstm(torch, timer, report):
             for k, e in errs.items():
                 w[k] = max(w.get(k, 0.0), e)
     plan = fc.lstm_plan(650, 32), fc.lstm_plan(650, 32, backward=True)
-    log("lstm_sequence: %d cases pass, #11 bit for bit across two launches "
+    log("lstm_sequence: %d cases pass, #10 and #11 bit for bit across two "
+        "launches "
         "in each; worst errors %s (tol %g; bf16: beyond one bf16 step, and "
         "%g against autograd); (units per block, blocks, shared bytes) at "
         "H 650, B 32: forward %s, backward %s"
@@ -2003,9 +2134,11 @@ def check_lstm(torch, timer, report):
 def check_lstm_sass(libs):
     """#11's recompute kernel issues tensor-core products, wgmma in bf16
     (HGMMA ... BF16) and in tf32 (HGMMA ... TF32) in its float
-    instantiations; neither it nor the time loop holds an atomic."""
-    census = sass_census(libs["lstm"], "lstm_bwd", full=True)
-    bad, gates, loops = [], 0, 0
+    instantiations; #10's time loops with tensor-core products (the last
+    template flag, ``...Lb1E``) issue mma.sync tf32 (HMMA ... TF32); no
+    kernel holds an atomic."""
+    census = sass_census(libs["lstm"], "lstm_", full=True)
+    bad, gates, loops, fwd = [], 0, 0, {False: 0, True: 0}
     for fn, ops in sorted(census.items()):
         parts = {op: op.split(".") for op in ops}
         tc = {kind: sum(n for op, n in ops.items() if parts[op][0] == kind
@@ -2019,19 +2152,25 @@ def check_lstm_sass(libs):
             want = "TF32" if "gates_kernelIf" in fn else "BF16"
             ok = any(parts[op][0] == "HGMMA" and want in parts[op]
                      for op in ops)
+        elif "lstm_fwd_kernel" in fn:
+            mma = "Lb1E" in fn
+            fwd[mma] += 1
+            ok = not mma or any(parts[op][0] == "HMMA" and "TF32" in parts[op]
+                                for op in ops)
         else:
             loops += 1
         log("SASS %s: tensor-core %s, atomics %d" % (fn[-60:], tc, atomics))
         if not ok or atomics:
             bad.append(fn)
     # the recompute in bf16 and four tf32 ones (which operands take their
-    # residual product, the layer's type); the time loop for 2 types x U
-    # 1..8
-    if gates != 5 or loops != 16 or bad:
-        raise AssertionError("lstm SASS: %d recompute and %d time-loop "
-                             "kernels, recompute without its tensor-core "
-                             "products or with atomics: %s"
-                             % (gates, loops, bad))
+    # residual product, the layer's type); the backward's and the
+    # forward's time loops for 2 types x U 1..8
+    if (gates != 5 or loops != 16 or fwd[True] != 16
+            or fwd[False] not in (0, 16) or bad):
+        raise AssertionError("lstm SASS: %d recompute, %d backward and %s "
+                             "forward time-loop kernels; without their "
+                             "tensor-core products or with atomics: %s"
+                             % (gates, loops, fwd, bad))
 
 
 # ---------------------------------------------------------------------------

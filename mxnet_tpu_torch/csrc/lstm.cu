@@ -22,24 +22,30 @@
 // The TPU runs each time loop as a sequential grid on one core, with W
 // latched in VMEM and the carries in VMEM scratch.  Here a time loop is
 // one persistent set of blocks, all resident at once (cooperative launch,
-// sized from the occupancy calculator), the steps separated by grid-wide
-// barriers.  Each block owns U consecutive hidden units j and loads their
+// sized from the occupancy calculator), the steps separated by flags that
+// each block releases and the others poll (no atomics).  Each block owns U consecutive hidden units j and loads their
 // four gate columns W[:, gH + j] into shared memory once: the SM's
 // counterpart of the latched W.
 //
-// Forward (lstm_fwd_kernel, #10).  Each step a block
-//   1. stages the previous h (float32, kept transposed as (H, B) so that
-//      32 batch rows of one unit are one run) from the L2 into shared
-//      memory with 16-byte loads, 32 batch rows at a time;
-//   2. computes its (B x 4U) gate pre-activations with float32 FMAs: the
-//      8 warps split H, lane = batch row, and the partial sums are added
-//      in warp order (a fixed order: two runs agree bit for bit);
-//   3. applies the nonlinearities and updates c, which never leaves the
-//      block;
-//   4. writes out[t], cseq[t] and its slice of the next h;
-//   5. waits at one grid barrier (cooperative_groups; the h buffer is
-//      double-buffered, so one barrier per step suffices).
-// ~9.5 us a step at (T 35, B 32, H 650) on an H100 SXM.
+// Forward (lstm_fwd_kernel, #10): one cooperative launch whose blocks
+// form clusters of cs (a launch attribute beside the cooperative one).
+// Each step a block
+//   1. loads its gx of the step into registers, off the serial chain;
+//   2. stages the previous h (float32, kept transposed as (H, Bp) so that
+//      32 batch rows of one unit are one 128-byte run) into the cluster:
+//      it polls the flags of the blocks whose rows it copies, then
+//      copies H / cs of the rows into the shared memory of every block of
+//      the cluster (16-byte loads from the L2, stores to distributed
+//      shared memory), so the L2 serves h once a cluster;
+//   3. computes its (32 x 4U) gate pre-activations in 3xTF32 on mma.sync
+//      m16n8k8 (two m16 tiles of batch rows, ceil(4U / 8) n8 tiles of
+//      gate columns; the 8 warps split K and their partial sums are
+//      added in warp order: two runs agree bit for bit);
+//   4. applies the nonlinearities and updates c, which never leaves the
+//      block, writes out[t], cseq[t] and its slice of the next h, and
+//      releases its flag (double-buffered h: one flag a step suffices).
+// Its design note, the alternatives it was measured against and their
+// times are at lstm_fwd_kernel.
 //
 // Backward (#11): two kernels, launched in turn on one stream.
 //
@@ -114,7 +120,6 @@
 // card's rates, bounds the time loop.  The parent kernel's stamps at that
 // shape: 20.7 us a step (stage 1.8, gate products 4.3, elementwise 2.2,
 // barrier 1.7, the all-gather of dg and its products 10.6).
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -123,14 +128,10 @@
 
 #include "sm90.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int ROWS = 32;             // batch rows per pass: one per lane
-constexpr int LOADS = 8;             // 16-byte loads in flight per thread
 constexpr int UMAX = 8;              // hidden units per block, at most
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -191,22 +192,6 @@ __device__ __forceinline__ float ldw(const void* p, long long i, int bf16) {
 // shared-memory layout, in floats; every piece starts 16-byte aligned
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-struct Layout {
-  int wc, bias, hs, pre, own, total;
-  __host__ __device__ Layout(int H, int B, int U) {
-    const int NG = 4 * U;
-    int o = 0;
-    wc = o;   o += round4(H * NG);            // gate columns [k][4U]
-    bias = o; o += round4(NG);
-    hs = o;   // staged h [k][32]; the warps' partial sums alias it
-    const int red_n = NWARPS * NG * ROWS;
-    o += round4(H * ROWS > red_n ? H * ROWS : red_n);
-    pre = o;  o += NG * ROWS;                 // summed pre-activations
-    own = o;  o += round4(B * U);             // c
-    total = o;
-  }
-};
-
 // W's gate columns of units j0..j0+U-1 as wc[k * ws + gate * U + u] (row
 // stride ws, at least 4U; columns past 4U are not written), their bias as
 // bias[gate * U + u] unless bias is null; units past H read 0
@@ -229,175 +214,10 @@ __device__ void load_columns(float* wc, float* bias, const Weights& wt,
   }
 }
 
-// rows b0..b0+31 of a transposed (K, B) matrix, element (k, b) at
-// src[k * B + b], into hs[k][r] (row stride 32).  When B is a multiple of
-// 32, each k's 32 rows are one run of 16-byte loads, LOADS in flight per
-// thread; otherwise single elements, 0 past row B.
-template <class S>
-__device__ void stage(float* hs, const S* src, int K, int B, int b0) {
-  const int nt = blockDim.x;
-  if (B % ROWS == 0) {
-    constexpr int V = 16 / sizeof(S), PER_K = ROWS / V;
-    const int n = K * PER_K;
-    for (int e0 = threadIdx.x; e0 < n; e0 += nt * LOADS) {
-      float v[LOADS][V];
-#pragma unroll
-      for (int q = 0; q < LOADS; ++q) {
-        const int e = e0 + q * nt, k = e / PER_K;
-        if (e < n) ld16(src + (size_t)k * B + b0 + (e - k * PER_K) * V, v[q]);
-      }
-#pragma unroll
-      for (int q = 0; q < LOADS; ++q) {
-        const int e = e0 + q * nt;
-        if (e < n) {
-          float4* d = reinterpret_cast<float4*>(hs + e * V);
-#pragma unroll
-          for (int i = 0; i < V / 4; ++i)
-            d[i] = make_float4(v[q][4 * i], v[q][4 * i + 1], v[q][4 * i + 2],
-                               v[q][4 * i + 3]);
-        }
-      }
-    }
-    return;
-  }
-  const int n = K * ROWS;
-  for (int e0 = threadIdx.x; e0 < n; e0 += nt * LOADS) {
-    float v[LOADS];
-#pragma unroll
-    for (int q = 0; q < LOADS; ++q) {
-      const int e = e0 + q * nt, b = b0 + (e & (ROWS - 1));
-      v[q] = e < n && b < B ? ld_step(src + (size_t)(e / ROWS) * B + b) : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < LOADS; ++q) {
-      const int e = e0 + q * nt;
-      if (e < n) hs[e] = v[q];
-    }
-  }
-}
-
-// pre[c][r] = sum_k hs[k][r] * wc[k][c] for the 32 staged rows and the
-// block's 4U gate columns.  Warps split k; lane = row; the warps' partial
-// sums are added in warp order.  Ends with the block synchronised.
-template <int U>
-__device__ void gate_products(float* hs, const float* wc, float* pre,
-                              int H) {
-  constexpr int NG = 4 * U;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int span = (H + NWARPS - 1) / NWARPS;
-  const int lo = warp * span, hi = min(H, lo + span);
-  float acc[NG];
-#pragma unroll
-  for (int c = 0; c < NG; ++c) acc[c] = 0.f;
-  for (int k = lo; k < hi; ++k) {
-    const float hv = hs[k * ROWS + lane];
-    const float4* w4 = reinterpret_cast<const float4*>(wc + k * NG);
-#pragma unroll
-    for (int q = 0; q < U; ++q) {
-      const float4 w = w4[q];
-      acc[4 * q] = fmaf(hv, w.x, acc[4 * q]);
-      acc[4 * q + 1] = fmaf(hv, w.y, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(hv, w.z, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(hv, w.w, acc[4 * q + 3]);
-    }
-  }
-  __syncthreads();            // every warp is done with hs
-  float* red = hs;
-#pragma unroll
-  for (int c = 0; c < NG; ++c) red[(warp * NG + c) * ROWS + lane] = acc[c];
-  __syncthreads();
-  for (int e = threadIdx.x; e < NG * ROWS; e += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < NWARPS; ++w) s += red[w * NG * ROWS + e];
-    pre[e] = s;
-  }
-  __syncthreads();
-}
-
 __device__ __forceinline__ long long globaltimer() {
   long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
-}
-
-struct FwdArgs {
-  const void* gx;   // (T, B, 4H)
-  const void* c0;   // (B, H)
-  Weights wt;
-  void* out;        // (T, B, H)
-  float* cseq;      // (T, B, H)
-  float* hbuf;      // (2, H, B) float32 scratch: h of the last two steps,
-                    // transposed; the caller puts h0 in hbuf[1]
-  long long* timing;  // NULL, or 1 + 4 T stamps (see lstm_fwd_kernel)
-  int T, B, H;
-};
-
-template <class T, int U>
-__global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  cg::grid_group grid = cg::this_grid();
-  const int H = a.H, B = a.B, G = 4 * H;
-  const int j0 = blockIdx.x * U;
-  const Layout L(H, B, U);
-  float *wc = smem + L.wc, *bias = smem + L.bias, *hs = smem + L.hs;
-  float *pre = smem + L.pre, *c_own = smem + L.own;
-  load_columns<U>(wc, bias, a.wt, H, j0);
-  const T* c0 = static_cast<const T*>(a.c0);
-  for (int e = threadIdx.x; e < B * U; e += blockDim.x) {
-    const int b = e / U, j = j0 + e - b * U;
-    c_own[e] = j < H ? to_f32(c0[(size_t)b * H + j]) : 0.f;
-  }
-  const T* gx = static_cast<const T*>(a.gx);
-  T* out = static_cast<T*>(a.out);
-  // with a timing buffer, block 0's thread 0 stamps the start, then the
-  // end of each step's stage, gate products, elementwise update and grid
-  // barrier (for B > 32, the last pass's stage and products)
-  const bool stamp = a.timing != nullptr && blockIdx.x == 0 &&
-                     threadIdx.x == 0;
-  long long* ts = a.timing;
-  __syncthreads();
-  if (stamp) *ts++ = globaltimer();
-  for (int t = 0; t < a.T; ++t) {
-    float* h_next = a.hbuf + (size_t)(t & 1) * H * B;
-    const float* h_prev = a.hbuf + (size_t)((t + 1) & 1) * H * B;
-    for (int b0 = 0; b0 < B; b0 += ROWS) {
-      __syncthreads();        // hs and pre are free again
-      stage(hs, h_prev, H, B, b0);
-      __syncthreads();
-      if (stamp) ts[0] = globaltimer();
-      gate_products<U>(hs, wc, pre, H);
-      if (stamp) ts[1] = globaltimer();
-      const int rows = min(ROWS, B - b0);
-      for (int e = threadIdx.x; e < rows * U; e += blockDim.x) {
-        const int r = e / U, u = e - r * U, j = j0 + u, b = b0 + r;
-        if (j >= H) continue;
-        const size_t row = (size_t)t * B + b;
-        const T* g = gx + row * G;
-        const float gi = to_f32(g[j]) + pre[u * ROWS + r] + bias[u];
-        const float gf = to_f32(g[H + j]) + pre[(U + u) * ROWS + r] +
-                         bias[U + u];
-        const float gu = to_f32(g[2 * H + j]) +
-                         pre[(2 * U + u) * ROWS + r] + bias[2 * U + u];
-        const float go = to_f32(g[3 * H + j]) +
-                         pre[(3 * U + u) * ROWS + r] + bias[3 * U + u];
-        const float i = sigmoid(gi), f = sigmoid(gf), uu = tanhf(gu),
-                    o = sigmoid(go);
-        const float c = f * c_own[b * U + u] + i * uu;
-        const float h = o * tanhf(c);
-        c_own[b * U + u] = c;
-        out[row * H + j] = from_f32<T>(h);
-        a.cseq[row * H + j] = c;
-        h_next[(size_t)j * B + b] = h;
-      }
-    }
-    if (a.timing) {           // the stamp waits for every thread's stores
-      __syncthreads();
-      if (stamp) ts[2] = globaltimer();
-    }
-    if (t + 1 < a.T) grid.sync();
-    if (stamp) ts[3] = globaltimer();
-    ts += 4;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -929,57 +749,468 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_kernel(BwdArgs a) {
   }
 }
 
-template <class T>
-const void* kernel_for(bool backward, int U) {
-#define MXT_LSTM_CASE(N)                                      \
-  case N:                                                     \
-    return backward ? (const void*)lstm_bwd_kernel<T, N>      \
-                    : (const void*)lstm_fwd_kernel<T, N>;
-  switch (U) {
-    MXT_LSTM_CASE(1)
-    MXT_LSTM_CASE(2)
-    MXT_LSTM_CASE(3)
-    MXT_LSTM_CASE(4)
-    MXT_LSTM_CASE(5)
-    MXT_LSTM_CASE(6)
-    MXT_LSTM_CASE(7)
-    MXT_LSTM_CASE(8)
+// ---------------------------------------------------------------------------
+// forward: the time loop (#10)
+// ---------------------------------------------------------------------------
+constexpr int FROWS = 32;      // batch rows a pass: the padded (H, Bp) h
+constexpr int RS = 36;         // row stride of the warps' partial sums
+constexpr int FLOADS = 16;     // 16-byte loads in flight a lane, staging
+
+// W's row stride in shared memory: 4U gate columns rounded up to the n8
+// tiles, then to 8 or 24 mod 32 floats, so that the B fragments' 32 loads
+// (rows t, t + 4 of column g) fall in 32 banks
+__host__ __device__ inline int fwd_wstride(int U) {
+  const int n = (4 * U + 7) & ~7;
+  return n % 32 == 8 || n % 32 == 24 ? n : n + 8;
+}
+
+// shared-memory layout of the forward, in floats; every piece starts
+// 16-byte aligned.  hs holds the staged h, [k][32] with row k's 16-byte
+// chunks swizzled by (k % 4) * 8 floats (conflict-free A fragments); the
+// warps' partial sums alias it once the products are done.
+struct FwdLayout {
+  int kp, ws, w, bias, hs, own, total;
+  __host__ __device__ FwdLayout(int H, int B, int U) {
+    kp = (H + 7) & ~7;                 // K in whole k8 steps
+    ws = fwd_wstride(U);
+    int o = 0;
+    w = o;     o += kp * ws;           // W[k][gate U + u], 0 past H, 4U
+    bias = o;  o += round4(4 * U);
+    hs = o;
+    const int red = NWARPS * ws * RS;
+    o += kp * FROWS > red ? kp * FROWS : red;
+    own = o;   o += round4(B * U);     // c of the block's units
+    total = o;
   }
+};
+
+struct FwdArgs {
+  const void* gx;   // (T, B, 4H)
+  const void* c0;   // (B, H)
+  Weights wt;
+  void* out;        // (T, B, H)
+  float* cseq;      // (T, B, H)
+  float* hbuf;      // (2, H, Bp) float32: h of the last two steps,
+                    // transposed, Bp = B rounded up to 32 (columns past B
+                    // stay 0); the caller puts h0 in hbuf[1]
+  int* flags;       // nb flags 128 bytes apart, 0 at the launch
+  long long* timing;  // NULL, or 1 + 4 T stamps (see lstm_fwd_kernel)
+  int T, B, H, wlo;  // wlo: W not exact in tf32 (its lo product taken)
+  int by_warp;      // each warp polls its own producers (else the block)
+  int backoff;      // ns slept between two polls of a flag (0: none)
+};
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// shared address `a` of this block as seen in block `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_peer(uint32_t a, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(a),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+// what the tensor core drops of x's fp32 word, as the word of a tf32 lo
+__device__ __forceinline__ uint32_t lo_word(float x) {
+  return __float_as_uint(tf32_residual(x));
+}
+
+// The producers whose rows block `rank` of a cluster of cs stages: p =
+// rank, rank + cs, ... (block p owns units p U .. p U + U - 1), shared
+// out to the block's threads (thread id of count takes the producers
+// first + stride i, i < n): by warp (warp w the rank's producers w,
+// w + 8, ..., its 32 lanes their rows), or by the whole block.
+struct Producers {
+  int first, stride, n, id, count;
+  __device__ Producers(int H, int U, uint32_t rank, uint32_t cs,
+                       bool by_warp) {
+    const int np = (H + U - 1) / U;      // producers with rows
+    if (by_warp) {
+      first = (int)rank + (int)cs * (threadIdx.x >> 5);
+      stride = (int)cs * NWARPS;
+      id = threadIdx.x & 31;
+      count = 32;
+    } else {
+      first = (int)rank;
+      stride = (int)cs;
+      id = threadIdx.x;
+      count = NTHREADS;
+    }
+    n = first < np ? (np - 1 - first) / stride + 1 : 0;
+  }
+};
+
+// Wait until each of the producers has released `epoch` (it has written
+// that step's h): the threads that share them poll their flags, then
+// meet (the warp, or the block).
+__device__ void fwd_poll(const Producers& pr, const int* flags, int epoch,
+                         bool by_warp, int backoff) {
+  for (int i = pr.id; i < pr.n; i += pr.count) {
+    const int* f = flags + (pr.first + i * pr.stride) * 32;
+    while (ld_acquire(f) < epoch)
+      if (backoff) __nanosleep(backoff);
+  }
+  if (by_warp)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// Copy the producers' rows of h_prev[:, b0 .. b0 + 31] into hs of every
+// block of the cluster: 16 bytes a load, up to FLOADS loads in
+// flight a lane, each stored to this block's hs and to the other cs - 1
+// blocks' (distributed shared memory), so the L2 serves each row once a
+// cluster.
+__device__ void fwd_copy(const Producers& pr, float* hs, const float* hp,
+                         int H, int Bp, int b0, int U, uint32_t rank,
+                         uint32_t cs) {
+  const uint32_t base = smem_u32(hs);
+  const int items = pr.n * U * 8;        // 8 float4 a row of 32 columns
+  for (int q0 = pr.id; q0 < items; q0 += pr.count * FLOADS) {
+    float4 v[FLOADS];
+    int idx[FLOADS];
+#pragma unroll
+    for (int l = 0; l < FLOADS; ++l) {
+      const int q = q0 + pr.count * l;
+      idx[l] = -1;
+      if (q < items) {
+        const int i = q / (U * 8), rq = q - i * U * 8;
+        const int k = (pr.first + i * pr.stride) * U + (rq >> 3);
+        const int c4 = rq & 7;
+        if (k < H) {
+          v[l] = __ldcg(reinterpret_cast<const float4*>(
+              hp + (size_t)k * Bp + b0 + 4 * c4));
+          idx[l] = k * FROWS + ((4 * c4) ^ ((k & 3) << 3));
+        }
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < FLOADS; ++l)
+      if (idx[l] >= 0) {
+        reinterpret_cast<float4*>(hs)[idx[l] / 4] = v[l];
+        for (uint32_t r = 1; r < cs; ++r)
+          st_peer(peer_addr(base + 4 * idx[l], (rank + r) % cs), v[l]);
+      }
+  }
+}
+
+// W's gate columns of units j0..j0+U-1 into w[k ws + gate U + u] and
+// their bias into bias[gate U + u] (units past H: 0), as load_columns
+// lays them out, but with 8 loads in flight a thread and, where W's rows
+// are contiguous along k (the layer's transposed view, sk 1), k running
+// fastest across the threads, so that a warp reads whole sectors: the
+// launch's set-up, not the steps, is what this costs.
+template <int U>
+__device__ void fwd_load_columns(float* w, float* bias, const Weights& wt,
+                                 int H, int j0, int ws) {
+  constexpr int NG = 4 * U, N = 8;
+  const bool kfast = wt.sk == 1;
+  const int n = H * NG;
+  for (int e0 = threadIdx.x; e0 < n; e0 += NTHREADS * N) {
+    float v[N];
+    int at[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = e0 + NTHREADS * i;
+      at[i] = -1;
+      if (e < n) {
+        const int k = kfast ? e % H : e / NG, c = kfast ? e / H : e % NG;
+        const int gate = c / U, j = j0 + c - gate * U;
+        v[i] = j < H ? ldw(wt.w, k * wt.sk + (long long)(gate * H + j) *
+                                                 wt.sg, wt.w_bf16)
+                     : 0.f;
+        at[i] = k * ws + c;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (at[i] >= 0) w[at[i]] = v[i];
+  }
+  for (int c = threadIdx.x; c < NG; c += NTHREADS) {
+    const int gate = c / U, j = j0 + c - gate * U;
+    bias[c] = j < H ? ldw(wt.b, gate * H + j, wt.b_bf16) : 0.f;
+  }
+}
+
+// The warp's partial (32 x 4U) gate pre-activations over its K slice,
+// k8 steps [warp nk / 8, (warp + 1) nk / 8), written to red[warp][c][r]
+// (row stride RS) once every warp is done reading hs (red aliases it).
+// TC: mma.sync m16n8k8 tf32 in 3xTF32: h (A, two m16 tiles) and W (B,
+// ceil(4U / 8) n8 tiles) each read as their fp32 words (the tensor core
+// takes the top 19 bits: hi) and split on the fly into the residual (lo);
+// lo hi (and hi lo unless W is exact in tf32) before hi hi.  Otherwise
+// fp32 FMAs, lane = batch row, each sum over k in order.
+template <int U, bool TC>
+__device__ void fwd_products(const float* hs, const float* w, float* red,
+                             int kp, int ws, int wlo) {
+  constexpr int NG = 4 * U, NT = (NG + 7) / 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nk = kp / 8;
+  const int s0 = warp * nk / NWARPS, s1 = (warp + 1) * nk / NWARPS;
+  if constexpr (TC) {
+    const int g = lane >> 2, t = lane & 3;
+    float acc[2][NT][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+#pragma unroll 2
+    for (int s = s0; s < s1; ++s) {
+      const int k = 8 * s + t, sw = t << 3;   // k % 4 == t for k, k + 4
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int r = 16 * m + g;
+        const float a[4] = {hs[k * FROWS + (r ^ sw)],
+                            hs[k * FROWS + ((r + 8) ^ sw)],
+                            hs[(k + 4) * FROWS + (r ^ sw)],
+                            hs[(k + 4) * FROWS + ((r + 8) ^ sw)]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ah[m][i] = __float_as_uint(a[i]);
+          al[m][i] = lo_word(a[i]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float b0 = w[k * ws + 8 * n + g], b1 = w[(k + 4) * ws + 8 * n + g];
+        const uint32_t bh0 = __float_as_uint(b0), bh1 = __float_as_uint(b1);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma_tf32(acc[m][n], al[m], bh0, bh1);
+          if (wlo) mma_tf32(acc[m][n], ah[m], lo_word(b0), lo_word(b1));
+          mma_tf32(acc[m][n], ah[m], bh0, bh1);
+        }
+      }
+    }
+    __syncthreads();              // every warp is done with hs
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 16 * m + g + 8 * (i >> 1), c = 8 * n + 2 * t + (i & 1);
+          red[(warp * ws + c) * RS + r] = acc[m][n][i];
+        }
+  } else {
+    float acc[NG];
+#pragma unroll
+    for (int c = 0; c < NG; ++c) acc[c] = 0.f;
+    for (int k = 8 * s0; k < 8 * s1; ++k) {
+      const float hv = hs[k * FROWS + (lane ^ ((k & 3) << 3))];
+      const float4* w4 = reinterpret_cast<const float4*>(w + k * ws);
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        const float4 x = w4[q];
+        acc[4 * q] = fmaf(hv, x.x, acc[4 * q]);
+        acc[4 * q + 1] = fmaf(hv, x.y, acc[4 * q + 1]);
+        acc[4 * q + 2] = fmaf(hv, x.z, acc[4 * q + 2]);
+        acc[4 * q + 3] = fmaf(hv, x.w, acc[4 * q + 3]);
+      }
+    }
+    __syncthreads();              // every warp is done with hs
+#pragma unroll
+    for (int c = 0; c < NG; ++c) red[(warp * ws + c) * RS + lane] = acc[c];
+  }
+  __syncthreads();
+}
+
+// Forward (lstm_fwd_kernel, #10): nb blocks (a multiple of the cluster
+// size cs), all resident (a cooperative launch), block blk owning units
+// j0 = blk U .. j0 + U - 1, W's gate columns of them in shared memory for
+// the whole launch.  Each step, for each pass of 32 batch rows:
+//   1. loads its gx of the step into registers (used in 4; HBM latency
+//      off the serial chain);
+//   2. stages h_prev into the cluster: each warp polls the flags of the
+//      producers whose rows it copies (fwd_poll), then copies them into
+//      every block of the cluster (fwd_copy), so the L2 serves h once a
+//      cluster and a late producer holds up only the warps that wait for
+//      it; a cluster barrier makes every block's copies visible;
+//   3. forms the (32 x 4U) pre-activations (fwd_products), the warps'
+//      partial sums added in warp order;
+//   4. applies the nonlinearities, updates c (in the block), writes out,
+//      cseq and its slice of h_next, and then (last pass) releases its
+//      flag with the step's epoch: the step's only grid-wide sync.
+// A cluster barrier after 4 lets the next stage overwrite hs.  No
+// atomics, every sum in a fixed order: two launches agree bit for bit.
+template <class T, int U, bool TC>
+__global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = a.H, B = a.B, G = 4 * H, Bp = (B + FROWS - 1) & ~(FROWS - 1);
+  const int blk = blockIdx.x, j0 = blk * U;
+  const uint32_t rank = cluster_rank(), cs = cluster_size();
+  const FwdLayout L(H, B, U);
+  const Producers pr(H, U, rank, cs, a.by_warp);
+  float *w = smem + L.w, *bias = smem + L.bias, *hs = smem + L.hs;
+  float* c_own = smem + L.own;
+  for (int e = threadIdx.x; e < L.total / 4; e += NTHREADS)
+    reinterpret_cast<float4*>(smem)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  fwd_load_columns<U>(w, bias, a.wt, H, j0, L.ws);
+  const T* c0 = static_cast<const T*>(a.c0);
+  for (int e = threadIdx.x; e < B * U; e += NTHREADS) {
+    const int b = e / U, j = j0 + e - b * U;
+    c_own[e] = j < H ? to_f32(c0[(size_t)b * H + j]) : 0.f;
+  }
+  const T* gx = static_cast<const T*>(a.gx);
+  T* out = static_cast<T*>(a.out);
+  // with a timing buffer, block 0's thread 0 stamps the start, then the
+  // end of each step's wait (the cluster barrier and warp 0's producers'
+  // flags: the barrier), stage, products and elementwise update (for
+  // B > 32, the last pass's)
+  const bool stamp = a.timing != nullptr && blk == 0 && threadIdx.x == 0;
+  long long* ts = a.timing;
+  __syncthreads();
+  if (cs > 1) cluster_arrive(); // the cluster's blocks have all started
+  if (stamp) *ts++ = globaltimer();
+  // the elementwise update's elements: e = threadIdx.x + NTHREADS i, row
+  // r = e / U, unit u = e % U
+  constexpr int NE = (FROWS * U + NTHREADS - 1) / NTHREADS;
+  for (int t = 0; t < a.T; ++t) {
+    float* h_next = a.hbuf + (size_t)(t & 1) * H * Bp;
+    const float* h_prev = a.hbuf + (size_t)((t + 1) & 1) * H * Bp;
+    for (int b0 = 0; b0 < B; b0 += FROWS) {
+      float gxv[NE][4];
+#pragma unroll
+      for (int i = 0; i < NE; ++i) {
+        const int e = threadIdx.x + NTHREADS * i, r = e / U, u = e - r * U;
+        const int b = b0 + r;
+        if (e < FROWS * U && j0 + u < H && b < B) {
+          const T* g = gx + ((size_t)t * B + b) * G + j0 + u;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gxv[i][q] = to_f32(g[q * H]);
+        }
+      }
+      if (cs > 1) cluster_wait();  // the cluster's blocks are done with hs
+      if (t > 0) fwd_poll(pr, a.flags, t, a.by_warp, a.backoff);
+      if (stamp) ts[0] = globaltimer();
+      fwd_copy(pr, hs, h_prev, H, Bp, b0, U, rank, cs);
+      // rows past H stay zero (the partial sums may have written them)
+      for (int e = H * FROWS + threadIdx.x; e < L.kp * FROWS; e += NTHREADS)
+        hs[e] = 0.f;
+      if (cs > 1) {             // the cluster's copies have all landed
+        cluster_arrive();
+        cluster_wait();
+      } else {
+        __syncthreads();
+      }
+      if (stamp) ts[1] = globaltimer();
+      fwd_products<U, TC>(hs, w, hs, L.kp, L.ws, a.wlo);
+      if (stamp) ts[2] = globaltimer();
+      const float* red = hs;
+#pragma unroll
+      for (int i = 0; i < NE; ++i) {
+        const int e = threadIdx.x + NTHREADS * i, r = e / U, u = e - r * U;
+        const int j = j0 + u, b = b0 + r;
+        if (e >= FROWS * U || j >= H || b >= B) continue;
+        float gs[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float s = 0.f;
+          for (int wp = 0; wp < NWARPS; ++wp)
+            s += red[(wp * L.ws + q * U + u) * RS + r];
+          gs[q] = gxv[i][q] + s + bias[q * U + u];
+        }
+        const float ig = sigmoid(gs[0]), f = sigmoid(gs[1]),
+                    uu = tanhf(gs[2]), o = sigmoid(gs[3]);
+        const float c = f * c_own[b * U + u] + ig * uu;
+        const float h = o * tanhf(c);
+        c_own[b * U + u] = c;
+        const size_t row = (size_t)t * B + b;
+        out[row * H + j] = from_f32<T>(h);
+        a.cseq[row * H + j] = c;
+        h_next[(size_t)j * Bp + b] = h;
+      }
+      __syncthreads();          // the release covers every thread's stores
+      if (b0 + FROWS >= B && threadIdx.x == 0)
+        st_release(a.flags + blk * 32, t + 1);
+      if (stamp) ts[3] = globaltimer();
+      if (cs > 1) cluster_arrive();  // done with hs (the partial sums) too
+    }
+    ts += 4;
+  }
+  if (cs > 1) cluster_wait();
+}
+
+#define MXT_LSTM_UNITS(CASE) \
+  CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+
+template <class T>
+const void* bwd_kernel_for(int U) {
+#define MXT_LSTM_CASE(N) \
+  case N:                \
+    return (const void*)lstm_bwd_kernel<T, N>;
+  switch (U) { MXT_LSTM_UNITS(MXT_LSTM_CASE) }
 #undef MXT_LSTM_CASE
   return nullptr;
 }
 
-const void* kernel_for(bool backward, int bf16, int U) {
-  return bf16 ? kernel_for<__nv_bfloat16>(backward, U)
-              : kernel_for<float>(backward, U);
+template <class T, bool TC>
+const void* fwd_kernel_for(int U) {
+#define MXT_LSTM_CASE(N) \
+  case N:                \
+    return (const void*)lstm_fwd_kernel<T, N, TC>;
+  switch (U) { MXT_LSTM_UNITS(MXT_LSTM_CASE) }
+#undef MXT_LSTM_CASE
+  return nullptr;
 }
 
-size_t smem_bytes(bool backward, int H, int B, int U) {
-  return (size_t)(backward ? BwdLayout(H, B, U).total
-                           : Layout(H, B, U).total) *
-         4;
+const void* kernel_for(bool backward, int bf16, int U, int tc = 1) {
+  typedef __nv_bfloat16 bf;
+  if (backward)
+    return bf16 ? bwd_kernel_for<bf>(U) : bwd_kernel_for<float>(U);
+  if (bf16)
+    return tc ? fwd_kernel_for<bf, true>(U) : fwd_kernel_for<bf, false>(U);
+  return tc ? fwd_kernel_for<float, true>(U) : fwd_kernel_for<float, false>(U);
 }
 
-// The fewest units per block whose grid, ceil(H / U) blocks, is all
-// resident at once.  units = 0 when none up to UMAX fits.
-cudaError_t plan(bool backward, int bf16, int H, int B, int* units,
-                 int* grid, size_t* smem) {
-  *units = *grid = 0;
-  *smem = 0;
-  int dev = 0, sms = 0, smem_max = 0;
+cudaError_t device_limits(int* sms, int* smem_max) {
+  int dev = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+  if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess)
     return e;
-  if ((e = cudaDeviceGetAttribute(&smem_max,
-                                  cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                  dev)) != cudaSuccess)
-    return e;
+  return cudaDeviceGetAttribute(smem_max,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+// The backward's plan: the fewest units per block whose grid, ceil(H /
+// U) blocks, is all resident at once.  units = 0 when none up to UMAX
+// fits.
+cudaError_t bwd_plan(int bf16, int H, int B, int* units, int* grid,
+                     size_t* smem) {
+  *units = *grid = 0;
+  *smem = 0;
+  int sms = 0, smem_max = 0;
+  cudaError_t e;
+  if ((e = device_limits(&sms, &smem_max)) != cudaSuccess) return e;
   for (int U = std::max(1, (H + sms - 1) / sms); U <= UMAX; ++U) {
-    const size_t bytes = smem_bytes(backward, H, B, U);
+    const size_t bytes = (size_t)BwdLayout(H, B, U).total * 4;
     if (bytes > (size_t)smem_max) break;     // grows with U
-    const void* fn = kernel_for(backward, bf16, U);
+    const void* fn = kernel_for(true, bf16, U);
     if ((e = cudaFuncSetAttribute(fn,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)bytes)) != cudaSuccess)
@@ -995,6 +1226,73 @@ cudaError_t plan(bool backward, int bf16, int H, int B, int* units,
       *smem = bytes;
       return cudaSuccess;
     }
+  }
+  return cudaSuccess;
+}
+
+// The forward's launch for U units a block and clusters of cs blocks:
+// ceil(H / U) blocks rounded up to a multiple of cs, one cooperative
+// launch that also names the cluster dimension (cs > 1)
+struct FwdLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[2];
+  FwdLaunch(int H, int B, int U, int cs, cudaStream_t st) {
+    cfg = {};
+    const int nb = ((H + U - 1) / U + cs - 1) / cs * cs;
+    cfg.gridDim = dim3(nb);
+    cfg.blockDim = dim3(NTHREADS);
+    cfg.dynamicSmemBytes = (size_t)FwdLayout(H, B, U).total * 4;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    attr[1].id = cudaLaunchAttributeClusterDimension;
+    attr[1].val.clusterDim.x = cs;
+    attr[1].val.clusterDim.y = 1;
+    attr[1].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = cs > 1 ? 2 : 1;
+  }
+};
+
+// Whether the forward with U units a block (1..UMAX), clusters of cs
+// blocks and tensor-core products (tc) fits the card: its shared memory
+// within a block's, and every block (every cluster) resident at once.
+// grid = its blocks when it fits, else 0.
+cudaError_t fwd_fits(int bf16, int H, int B, int U, int cs, int tc,
+                     int* grid, size_t* smem) {
+  *grid = 0;
+  *smem = 0;
+  if (U < 1 || U > UMAX || cs < 1 || cs > 8) return cudaSuccess;
+  int sms = 0, smem_max = 0;
+  cudaError_t e;
+  if ((e = device_limits(&sms, &smem_max)) != cudaSuccess) return e;
+  FwdLaunch l(H, B, U, cs, 0);
+  const size_t bytes = l.cfg.dynamicSmemBytes;
+  if (bytes > (size_t)smem_max) return cudaSuccess;
+  const void* fn = kernel_for(false, bf16, U, tc);
+  if ((e = cudaFuncSetAttribute(fn,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)bytes)) != cudaSuccess)
+    return e;
+  const int nb = (int)l.cfg.gridDim.x;
+  int resident = 0;
+  if (cs > 1) {
+    cudaLaunchConfig_t occ = l.cfg;     // the cluster dimension alone
+    occ.attrs = &l.attr[1];
+    occ.numAttrs = 1;
+    if ((e = cudaOccupancyMaxActiveClusters(&resident, fn, &occ)) !=
+        cudaSuccess)
+      return e;
+    resident *= cs;
+  } else {
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &resident, fn, NTHREADS, bytes)) != cudaSuccess)
+      return e;
+    resident *= sms;
+  }
+  if (nb <= resident) {
+    *grid = nb;
+    *smem = bytes;
   }
   return cudaSuccess;
 }
@@ -1035,31 +1333,55 @@ extern "C" const char* mxt_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// The launch geometry of the forward (backward = 0) or backward time loop
-// for the layer's type (bf16 = 1 for bfloat16), H and B: units per block,
-// blocks and dynamic shared memory in bytes; units = 0 when the grid
-// cannot be resident at once.
-extern "C" int mxt_lstm_plan(int backward, int bf16, int H, int B,
-                             int* units, int* grid, long long* smem) {
+// The launch geometry of the backward time loop for the layer's type
+// (bf16 = 1 for bfloat16), H and B: units per block, blocks and dynamic
+// shared memory in bytes; units = 0 when the grid cannot be resident at
+// once.
+extern "C" int mxt_lstm_plan(int bf16, int H, int B, int* units, int* grid,
+                             long long* smem) {
   size_t bytes = 0;
-  const cudaError_t e = plan(backward != 0, bf16, H, B, units, grid, &bytes);
+  const cudaError_t e = bwd_plan(bf16, H, B, units, grid, &bytes);
   *smem = (long long)bytes;
   return (int)e;
 }
 
-// One launch of the forward time loop; hbuf holds 2 H B floats, h0
-// transposed to (H, B) in float32 in its second half; timing is NULL or
-// 1 + 4 T int64.
+// Whether the forward with U units a block, clusters of cs blocks and
+// (tc) tensor-core products fits the card for the layer's type, H and B:
+// grid = its blocks and smem its dynamic shared memory in bytes when it
+// does, grid = 0 when it does not.
+extern "C" int mxt_lstm_fwd_fits(int bf16, int H, int B, int U, int cs,
+                                 int tc, int* grid, long long* smem) {
+  size_t bytes = 0;
+  const cudaError_t e = fwd_fits(bf16, H, B, U, cs, tc, grid, &bytes);
+  *smem = (long long)bytes;
+  return (int)e;
+}
+
+// One launch of the forward time loop with U units a block, clusters of
+// cs blocks and (tc) tensor-core products, a plan that mxt_lstm_fwd_fits
+// accepted; hbuf holds 2 H Bp floats (Bp = B rounded up to 32), h0
+// transposed to (H, Bp) in float32 in its second half and every column
+// past B zero; flags grid * 32 int32 (zeroed here, on the stream);
+// timing is NULL or 1 + 4 T int64.
 extern "C" int mxt_lstm_fwd(const void* gx, const void* c0,
                             const void* w, long long sk, long long sg,
                             int w_bf16, const void* b, int b_bf16, void* out,
-                            void* cseq, void* hbuf, long long* timing, int T,
-                            int B, int H, int bf16, void* stream) {
-  int U = 0, grid = 0;
-  size_t smem = 0;
-  cudaError_t e = plan(false, bf16, H, B, &U, &grid, &smem);
-  if (e != cudaSuccess) return (int)e;
-  if (U == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+                            void* cseq, void* hbuf, void* flags,
+                            long long* timing, int T, int B, int H, int bf16,
+                            int U, int cs, int tc, int by_warp, int backoff,
+                            void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  FwdLaunch l(H, B, U, cs, st);
+  const void* fn = kernel_for(false, bf16, U, tc);
+  if (!fn || cs < 1 || cs > 8) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(fn,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)l.cfg.dynamicSmemBytes)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaMemsetAsync(flags, 0, (size_t)l.cfg.gridDim.x * 32 *
+                                         sizeof(int), st)) != cudaSuccess)
+    return (int)e;
   FwdArgs a;
   a.gx = gx;
   a.c0 = c0;
@@ -1067,14 +1389,17 @@ extern "C" int mxt_lstm_fwd(const void* gx, const void* c0,
   a.out = out;
   a.cseq = (float*)cseq;
   a.hbuf = (float*)hbuf;
+  a.flags = (int*)flags;
   a.timing = timing;
   a.T = T;
   a.B = B;
   a.H = H;
+  a.wlo = !w_bf16;
+  a.by_warp = by_warp;
+  a.backoff = backoff;
   void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel(kernel_for(false, bf16, U), grid, NTHREADS,
-                                  params, smem, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
+  if ((e = cudaLaunchKernelExC(&l.cfg, fn, params)) != cudaSuccess)
+    return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -1140,7 +1465,7 @@ extern "C" int mxt_lstm_bwd(const void* rec, const void* w, long long sk,
                             void* stream) {
   int U = 0, grid = 0;
   size_t smem = 0;
-  cudaError_t e = plan(true, bf16, H, B, &U, &grid, &smem);
+  cudaError_t e = bwd_plan(bf16, H, B, &U, &grid, &smem);
   if (e != cudaSuccess) return (int)e;
   if (U == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   if ((e = cudaMemsetAsync(flags, 0, (size_t)grid * 32 * sizeof(int),

@@ -43,6 +43,7 @@ in ``lstm_sequence.launches_fwd``/``.launches_bwd_gates``/``.launches_bwd``,
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -582,11 +583,14 @@ def _lstm_lib():
     """The loaded ``lstm`` library with its entry points typed (once)."""
     lib = _build.load("lstm")
     L = ctypes.c_longlong
-    lib.mxt_lstm_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)] * 2 + [
+    lib.mxt_lstm_plan.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 2 + [
         ctypes.POINTER(L)]
     lib.mxt_lstm_plan.restype = _I
-    lib.mxt_lstm_fwd.argtypes = ([_P] * 3 + [L, L, _I, _P, _I] + [_P] * 4
-                                 + [_I] * 4 + [_P])
+    lib.mxt_lstm_fwd_fits.argtypes = [_I] * 6 + [ctypes.POINTER(_I),
+                                                 ctypes.POINTER(L)]
+    lib.mxt_lstm_fwd_fits.restype = _I
+    lib.mxt_lstm_fwd.argtypes = ([_P] * 3 + [L, L, _I, _P, _I] + [_P] * 5
+                                 + [_I] * 9 + [_P])
     lib.mxt_lstm_fwd.restype = _I
     lib.mxt_lstm_bwd_gates.argtypes = ([_P, _P, L] + [_I] * 3 + [_P] * 2
                                        + [_I] + [_P] * 6 + [_I] * 5 + [_P])
@@ -597,23 +601,68 @@ def _lstm_lib():
     return lib
 
 
-def lstm_plan(H, B, dtype=torch.float32, backward=False):
-    """The launch geometry on the current card: ``(units per block,
-    blocks, dynamic shared memory in bytes)``.  Raises when no grid of at
-    most 8 units per block can be resident at once (the cooperative
-    launch needs every block resident; there is no fallback)."""
+#: a time loop's launch: units per block, blocks, dynamic shared memory
+#: in bytes, and (the forward) blocks a cluster and whether the gate
+#: products run on the tensor cores
+LstmPlan = collections.namedtuple("LstmPlan", "units blocks smem cluster tc")
+
+#: the forward's plans in the order the sweep tries them, (units past the
+#: fewest that give every unit a block on the card's SMs, blocks a
+#: cluster, tensor-core products): the first that fits is taken
+LSTM_FWD_ORDER = ((0, 2, True), (1, 2, True), (0, 1, True), (1, 1, True),
+                  (2, 2, True), (2, 1, True), (3, 1, True))
+
+
+@functools.lru_cache(maxsize=None)
+def _lstm_fwd_fits(device, code, H, B, units, cluster, tc):
     lib = _lstm_lib()
-    units, grid, smem = _I(0), _I(0), ctypes.c_longlong(0)
-    _build.check(lib, lib.mxt_lstm_plan(int(backward), _LSTM_DTYPES[dtype], H,
-                                        B, ctypes.byref(units),
-                                        ctypes.byref(grid),
-                                        ctypes.byref(smem)), "lstm_plan")
-    if not units.value:
+    grid, smem = _I(0), ctypes.c_longlong(0)
+    _build.check(lib, lib.mxt_lstm_fwd_fits(
+        code, H, B, units, cluster, int(tc), ctypes.byref(grid),
+        ctypes.byref(smem)), "lstm_plan")
+    return (LstmPlan(units, grid.value, smem.value, cluster, tc)
+            if grid.value else None)
+
+
+def lstm_plan(H, B, dtype=torch.float32, backward=False, units=None,
+              cluster=None, tc=None):
+    """The launch on the current card, an :class:`LstmPlan`.  The
+    backward takes the fewest units per block (at most 8) whose grid is
+    resident at once.  The forward takes the first plan of
+    :data:`LSTM_FWD_ORDER` that fits (every block, every cluster, resident
+    at once), or the one named by ``units``, ``cluster`` and ``tc``.
+    Raises when nothing fits (a cooperative launch needs every block
+    resident; there is no fallback)."""
+    lib = _lstm_lib()
+    code = _LSTM_DTYPES[dtype]
+    if backward:
+        u, grid, smem = _I(0), _I(0), ctypes.c_longlong(0)
+        _build.check(lib, lib.mxt_lstm_plan(code, H, B, ctypes.byref(u),
+                                            ctypes.byref(grid),
+                                            ctypes.byref(smem)), "lstm_plan")
+        plan = (LstmPlan(u.value, grid.value, smem.value, 1, False)
+                if u.value else None)
+    else:
+        dev = torch.cuda.current_device()
+        if units is not None:
+            plan = _lstm_fwd_fits(dev, code, H, B, units, cluster or 1,
+                                  True if tc is None else bool(tc))
+        else:
+            u0 = max(1, -(-H // _sms(dev)))
+            plan = next((p for p in (
+                _lstm_fwd_fits(dev, code, H, B, u0 + du, cs, t)
+                for du, cs, t in LSTM_FWD_ORDER) if p), None)
+    if plan is None:
         raise RuntimeError(
             "lstm_sequence: H %d, B %d does not fit the card: no grid of "
             "ceil(H / U) blocks with U <= 8 units each is resident at once "
             "within the shared memory a block may use" % (H, B))
-    return units.value, grid.value, smem.value
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _lstm_check(what, gates_x, vectors, w, b):
@@ -645,7 +694,8 @@ def _lstm_check(what, gates_x, vectors, w, b):
     return T, B, H
 
 
-def _lstm_fwd(gates_x, h0, c0, w, b, stamps=None):
+def _lstm_fwd(gates_x, h0, c0, w, b, stamps=None, plan=None, by_warp=False,
+              backoff=0):
     if gates_x.device.type == "cpu":
         return lstm_sequence_plain(gates_x, h0, c0, w, b)
     if gates_x.device.type != "cuda":
@@ -655,20 +705,25 @@ def _lstm_fwd(gates_x, h0, c0, w, b, stamps=None):
     dt = gates_x.dtype
     _lstm_check("lstm_sequence", gates_x,
                 (("h0", h0, dt, (B, H)), ("c0", c0, dt, (B, H))), w, b)
-    lstm_plan(H, B, dt)
+    p = plan or lstm_plan(H, B, dt)
     dev = gates_x.device
     out = torch.empty(T, B, H, dtype=dt, device=dev)
     cseq = torch.empty(T, B, H, dtype=torch.float32, device=dev)
-    # the kernel keeps h transposed, (H, B) in fp32; h0 enters as hbuf[1]
-    hbuf = torch.empty(2, H, B, dtype=torch.float32, device=dev)
-    hbuf[1].copy_(h0.T)
+    # the kernel keeps h transposed, (H, Bp) in fp32 with B padded to 32
+    # columns of zeros; h0 enters as hbuf[1]
+    hbuf = torch.zeros(2, H, -(-B // 32) * 32, dtype=torch.float32,
+                       device=dev)
+    hbuf[1, :, :B].copy_(h0.T)
+    flags = torch.empty(p.blocks * 32, dtype=torch.int32, device=dev)
     lib = _lstm_lib()
     rc = lib.mxt_lstm_fwd(
         gates_x.data_ptr(), c0.data_ptr(), w.data_ptr(),
         w.stride(0), w.stride(1), _LSTM_DTYPES[w.dtype], b.data_ptr(),
         _LSTM_DTYPES[b.dtype], out.data_ptr(), cseq.data_ptr(),
-        hbuf.data_ptr(), None if stamps is None else stamps.data_ptr(), T,
-        B, H, _LSTM_DTYPES[dt], torch.cuda.current_stream(dev).cuda_stream)
+        hbuf.data_ptr(), flags.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), T, B, H,
+        _LSTM_DTYPES[dt], p.units, p.cluster, int(p.tc), int(by_warp),
+        backoff, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "lstm_sequence")
     lstm_sequence.launches_fwd += 1
     lstm_sequence.last_dtype = dt
@@ -676,13 +731,16 @@ def _lstm_fwd(gates_x, h0, c0, w, b, stamps=None):
 
 
 #: the phases of one step of the forward time loop, in the order the
-#: kernel stamps their ends (:func:`lstm_fwd_phase_times`): h staged into
-#: shared memory, the gate products, the elementwise update (out, cseq
-#: and the block's slice of the next h written) and the grid barrier
-LSTM_FWD_PHASES = ("stage", "products", "elementwise", "barrier")
+#: kernel stamps their ends (:func:`lstm_fwd_phase_times`): the wait (the
+#: cluster's barrier, then block 0's warp 0 polling its producers' flags:
+#: the step's grid-wide sync), h staged into the cluster's shared memory,
+#: the gate products and the elementwise update (out, cseq and the
+#: block's slice of the next h written, its flag released)
+LSTM_FWD_PHASES = ("barrier", "stage", "products", "elementwise")
 
 
-def lstm_fwd_phase_times(gates_x, h0, c0, w, b):
+def lstm_fwd_phase_times(gates_x, h0, c0, w, b, plan=None, by_warp=False,
+                         backoff=0):
     """The forward on CUDA tensors (the arguments of ``_lstm_fwd``), its
     block 0 stamping the card's global timer at the end of every phase of
     every step.  Returns ``(total, per_step)``: µs per phase of
@@ -692,7 +750,7 @@ def lstm_fwd_phase_times(gates_x, h0, c0, w, b):
     n = len(LSTM_FWD_PHASES)
     stamps = torch.zeros(1 + n * T, dtype=torch.int64,
                          device=gates_x.device)
-    _lstm_fwd(gates_x, h0, c0, w, b, stamps)
+    _lstm_fwd(gates_x, h0, c0, w, b, stamps, plan, by_warp, backoff)
     d = torch.diff(stamps.cpu()).double().reshape(T, n) / 1e3
     per_step = {p: d[:, i].tolist() for i, p in enumerate(LSTM_FWD_PHASES)}
     return {p: sum(v) for p, v in per_step.items()}, per_step
@@ -783,7 +841,7 @@ def _lstm_bwd_parts(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):
                 (("h_prev", h_prev, dt, seq), ("c_prev", c_prev, f32, seq),
                  ("cseq", cseq, f32, seq), ("dout", dout, dt, seq),
                  ("dcseq", dcseq, f32, seq)), w, b)
-    units, nb, _ = lstm_plan(H, B, dt, backward=True)
+    units, nb = lstm_plan(H, B, dt, backward=True)[:2]
     dev = gates_x.device
     bup = -(-B * units // 4) * 4
     dgx = torch.empty_like(gates_x)
