@@ -1893,52 +1893,41 @@ def lstm_stamps(torch, fc, timer, bwd, T, runs=5):
     return med
 
 
-#: the forward's plans timed beside the one the sweep takes, (units per
-#: block, blocks a cluster, tensor-core products); those that do not fit
-#: the card are reported as such
-LSTM_FWD_PLANS = ((5, 1, True), (5, 2, True), (6, 1, True), (6, 2, True),
-                  (8, 1, True), (5, 1, False))
+#: the units per block of #10's plans timed beside the one it takes
+LSTM_FWD_UNITS = (5, 6, 8)
 
 
-def lstm_fwd_plans(torch, fc, timer, fwd, plans=LSTM_FWD_PLANS):
-    """#10 on ``fwd`` (the arguments of ``_lstm_fwd``) under each of
-    ``plans`` that fits the card: its time, phases by ``%globaltimer``,
-    error against the plain version (bf16: beyond one bf16 step), two
-    launches bit-equal, digest.  A tree whose plan has no such options
-    prints nothing."""
-    if not hasattr(fc, "LSTM_FWD_ORDER"):
+def lstm_fwd_plans(torch, fc, timer, fwd, units=LSTM_FWD_UNITS):
+    """#10 on ``fwd`` (the arguments of ``_lstm_fwd``) with each of
+    ``units`` per block that fits the card: its time, phases by
+    ``%globaltimer``, error against the plain version (bf16: beyond one
+    bf16 step), two launches bit-equal, digest.  A tree whose plan takes
+    no units prints nothing."""
+    if not hasattr(fc, "LstmPlan"):
         return
-    gx, h0, c0, w, b = fwd
+    gx = fwd[0]
     T, B, H = gx.shape[0], gx.shape[1], gx.shape[2] // 4
     pout, pcseq = fc.lstm_sequence_plain(*fwd)
-    for units, cluster, tc, by_warp, backoff in [
-            p + (w, ns) for p in plans for w in (False, True)
-            for ns in (0, 32, 128)]:
+    for u in units:
         try:
-            p = fc.lstm_plan(H, B, gx.dtype, units=units, cluster=cluster,
-                             tc=tc)
+            p = fc.lstm_plan(H, B, gx.dtype, units=u)
         except RuntimeError:
-            log("lstm_sequence_fwd plan U %d, cluster %d, tc %s: does not "
-                "fit" % (units, cluster, tc))
+            log("lstm_sequence_fwd U %d: does not fit" % u)
             continue
-        kw = dict(plan=p, by_warp=by_warp, backoff=backoff)
-        out, cseq = fc._lstm_fwd(*fwd, **kw)
-        again = fc._lstm_fwd(*fwd, **kw)
+        out, cseq = fc._lstm_fwd(*fwd, plan=p)
+        again = fc._lstm_fwd(*fwd, plan=p)
         same = torch.equal(out, again[0]) and torch.equal(cseq, again[1])
         err = max(float((out.float() - pout.float()).abs().max())
                   if gx.dtype == torch.float32 else within_bf16_step(out, pout),
                   float((cseq - pcseq).abs().max()))
-        ms = timer(lambda: fc._lstm_fwd(*fwd, **kw))
-        ph = [fc.lstm_fwd_phase_times(*fwd, **kw)[0] for _ in range(4)]
+        ms = timer(lambda: fc._lstm_fwd(*fwd, plan=p))
+        ph = [fc.lstm_fwd_phase_times(*fwd, plan=p)[0] for _ in range(4)]
         med = {k: statistics.median(x[k] for x in ph[1:]) / T for k in ph[0]}
-        log("lstm_sequence_fwd %s plan %s%s: %.4f ms (%.2f us per step), "
+        log("lstm_sequence_fwd %s plan %s: %.4f ms (%.2f us per step), "
             "max err %.3g (tol %g), two launches equal %s, digest %s; per "
-            "step %s" % (str(gx.dtype)[6:], tuple(p),
-                         "%s, backoff %d ns" % (" polled by warp" if by_warp
-                                                else "", backoff), ms,
-                         ms / T * 1e3, err,
-                    TOL_LSTM, same, digest(torch, out, cseq),
-                    " ".join("%s %.3f" % kv for kv in med.items())))
+            "step %s" % (str(gx.dtype)[6:], tuple(p), ms, ms / T * 1e3, err,
+                         TOL_LSTM, same, digest(torch, out, cseq),
+                         " ".join("%s %.3f" % kv for kv in med.items())))
         if not (err <= TOL_LSTM and same):
             raise AssertionError("lstm_sequence_fwd plan %s disagrees" % (p,))
 
@@ -2022,9 +2011,8 @@ def lstm_timing(torch, fc, timer, dt):
 
     bwd_products = timer(bwd_with_products, spin=spin)
     fwd_stamps = lstm_fwd_stamps(torch, fc, timer, (gx, h0, c0, w, b), T)
-    if hasattr(fc, "LSTM_FWD_ORDER"):
-        log("lstm_sequence_fwd (T %d, B %d, H %d) %s plan: %s"
-            % (T, B, H, str(dt)[6:], fc.lstm_plan(H, B, dt)))
+    log("lstm_sequence_fwd (T %d, B %d, H %d) %s plan: %s"
+        % (T, B, H, str(dt)[6:], fc.lstm_plan(H, B, dt)))
     lstm_fwd_plans(torch, fc, timer, (gx, h0, c0, w, b))
     stamps = lstm_stamps(torch, fc, timer, bwd, T)
     cudnn = torch.nn.LSTM(H, H).to(DEV, dt)
@@ -2134,11 +2122,10 @@ def check_lstm(torch, timer, report):
 def check_lstm_sass(libs):
     """#11's recompute kernel issues tensor-core products, wgmma in bf16
     (HGMMA ... BF16) and in tf32 (HGMMA ... TF32) in its float
-    instantiations; #10's time loops with tensor-core products (the last
-    template flag, ``...Lb1E``) issue mma.sync tf32 (HMMA ... TF32); no
-    kernel holds an atomic."""
+    instantiations; #10's time loops issue mma.sync tf32 (HMMA ... TF32);
+    no kernel holds an atomic."""
     census = sass_census(libs["lstm"], "lstm_", full=True)
-    bad, gates, loops, fwd = [], 0, 0, {False: 0, True: 0}
+    bad, gates, loops, fwd = [], 0, 0, 0
     for fn, ops in sorted(census.items()):
         parts = {op: op.split(".") for op in ops}
         tc = {kind: sum(n for op, n in ops.items() if parts[op][0] == kind
@@ -2153,10 +2140,9 @@ def check_lstm_sass(libs):
             ok = any(parts[op][0] == "HGMMA" and want in parts[op]
                      for op in ops)
         elif "lstm_fwd_kernel" in fn:
-            mma = "Lb1E" in fn
-            fwd[mma] += 1
-            ok = not mma or any(parts[op][0] == "HMMA" and "TF32" in parts[op]
-                                for op in ops)
+            fwd += 1
+            ok = any(parts[op][0] == "HMMA" and "TF32" in parts[op]
+                     for op in ops)
         else:
             loops += 1
         log("SASS %s: tensor-core %s, atomics %d" % (fn[-60:], tc, atomics))
@@ -2165,9 +2151,8 @@ def check_lstm_sass(libs):
     # the recompute in bf16 and four tf32 ones (which operands take their
     # residual product, the layer's type); the backward's and the
     # forward's time loops for 2 types x U 1..8
-    if (gates != 5 or loops != 16 or fwd[True] != 16
-            or fwd[False] not in (0, 16) or bad):
-        raise AssertionError("lstm SASS: %d recompute, %d backward and %s "
+    if gates != 5 or loops != 16 or fwd != 16 or bad:
+        raise AssertionError("lstm SASS: %d recompute, %d backward and %d "
                              "forward time-loop kernels; without their "
                              "tensor-core products or with atomics: %s"
                              % (gates, loops, fwd, bad))

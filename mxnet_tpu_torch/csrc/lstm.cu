@@ -27,25 +27,20 @@
 // four gate columns W[:, gH + j] into shared memory once: the SM's
 // counterpart of the latched W.
 //
-// Forward (lstm_fwd_kernel, #10): one cooperative launch whose blocks
-// form clusters of cs (a launch attribute beside the cooperative one).
-// Each step a block
+// Forward (lstm_fwd_kernel, #10).  Each step a block
 //   1. loads its gx of the step into registers, off the serial chain;
 //   2. stages the previous h (float32, kept transposed as (H, Bp) so that
-//      32 batch rows of one unit are one 128-byte run) into the cluster:
-//      it polls the flags of the blocks whose rows it copies, then
-//      copies H / cs of the rows into the shared memory of every block of
-//      the cluster (16-byte loads from the L2, stores to distributed
-//      shared memory), so the L2 serves h once a cluster;
+//      32 batch rows of one unit are one 128-byte run): each warp polls
+//      the flags of the blocks that own its K slice of h, then copies
+//      those rows from the L2 into shared memory;
 //   3. computes its (32 x 4U) gate pre-activations in 3xTF32 on mma.sync
 //      m16n8k8 (two m16 tiles of batch rows, ceil(4U / 8) n8 tiles of
-//      gate columns; the 8 warps split K and their partial sums are
-//      added in warp order: two runs agree bit for bit);
+//      gate columns; each warp over the K slice it staged, the partial
+//      sums added in warp order: two runs agree bit for bit);
 //   4. applies the nonlinearities and updates c, which never leaves the
 //      block, writes out[t], cseq[t] and its slice of the next h, and
 //      releases its flag (double-buffered h: one flag a step suffices).
-// Its design note, the alternatives it was measured against and their
-// times are at lstm_fwd_kernel.
+// The design's measurements are at lstm_fwd_kernel.
 //
 // Backward (#11): two kernels, launched in turn on one stream.
 //
@@ -754,7 +749,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_kernel(BwdArgs a) {
 // ---------------------------------------------------------------------------
 constexpr int FROWS = 32;      // batch rows a pass: the padded (H, Bp) h
 constexpr int RS = 36;         // row stride of the warps' partial sums
-constexpr int FLOADS = 16;     // 16-byte loads in flight a lane, staging
+constexpr int FLOADS = 24;     // 16-byte loads in flight a lane, staging
 
 // W's row stride in shared memory: 4U gate columns rounded up to the n8
 // tiles, then to 8 or 24 mod 32 floats, so that the B fragments' 32 loads
@@ -791,126 +786,80 @@ struct FwdArgs {
   void* out;        // (T, B, H)
   float* cseq;      // (T, B, H)
   float* hbuf;      // (2, H, Bp) float32: h of the last two steps,
-                    // transposed, Bp = B rounded up to 32 (columns past B
-                    // stay 0); the caller puts h0 in hbuf[1]
+                    // transposed, Bp = B rounded up to 32; the caller puts
+                    // h0 in hbuf[1].  Columns past B are never written:
+                    // they feed only product rows past B, which no store
+                    // reads.
   int* flags;       // nb flags 128 bytes apart, 0 at the launch
   long long* timing;  // NULL, or 1 + 4 T stamps (see lstm_fwd_kernel)
   int T, B, H, wlo;  // wlo: W not exact in tf32 (its lo product taken)
-  int by_warp;      // each warp polls its own producers (else the block)
-  int backoff;      // ns slept between two polls of a flag (0: none)
 };
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-// shared address `a` of this block as seen in block `rank` of the cluster
-__device__ __forceinline__ uint32_t peer_addr(uint32_t a, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r)
-               : "r"(a), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void st_peer(uint32_t a, float4 v) {
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(a),
-               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
-}
 // what the tensor core drops of x's fp32 word, as the word of a tf32 lo
 __device__ __forceinline__ uint32_t lo_word(float x) {
   return __float_as_uint(tf32_residual(x));
 }
 
-// The producers whose rows block `rank` of a cluster of cs stages: p =
-// rank, rank + cs, ... (block p owns units p U .. p U + U - 1), shared
-// out to the block's threads (thread id of count takes the producers
-// first + stride i, i < n): by warp (warp w the rank's producers w,
-// w + 8, ..., its 32 lanes their rows), or by the whole block.
-struct Producers {
-  int first, stride, n, id, count;
-  __device__ Producers(int H, int U, uint32_t rank, uint32_t cs,
-                       bool by_warp) {
-    const int np = (H + U - 1) / U;      // producers with rows
-    if (by_warp) {
-      first = (int)rank + (int)cs * (threadIdx.x >> 5);
-      stride = (int)cs * NWARPS;
-      id = threadIdx.x & 31;
-      count = 32;
-    } else {
-      first = (int)rank;
-      stride = (int)cs;
-      id = threadIdx.x;
-      count = NTHREADS;
-    }
-    n = first < np ? (np - 1 - first) / stride + 1 : 0;
+// Warp w's K slice: the k8 steps [w nk / 8, (w + 1) nk / 8) of K padded
+// to whole k8 steps, nk = kp / 8.  The warp stages these rows of h and
+// forms the products over them.
+struct KSlice {
+  int s0, s1;
+  __device__ explicit KSlice(int kp) {
+    const int nk = kp / 8, w = threadIdx.x >> 5;
+    s0 = w * nk / NWARPS;
+    s1 = (w + 1) * nk / NWARPS;
   }
 };
 
-// Wait until each of the producers has released `epoch` (it has written
-// that step's h): the threads that share them poll their flags, then
-// meet (the warp, or the block).
-__device__ void fwd_poll(const Producers& pr, const int* flags, int epoch,
-                         bool by_warp, int backoff) {
-  for (int i = pr.id; i < pr.n; i += pr.count) {
-    const int* f = flags + (pr.first + i * pr.stride) * 32;
-    while (ld_acquire(f) < epoch)
-      if (backoff) __nanosleep(backoff);
+// Wait until the blocks that own the warp's rows of h (units k / U)
+// have released `epoch` (written that step's h): the warp's lanes poll
+// their flags.
+__device__ void fwd_poll(const KSlice& ks, const int* flags, int epoch,
+                         int H, int U) {
+  const int k0 = 8 * ks.s0, k1 = min(H, 8 * ks.s1);
+  if (epoch > 0 && k0 < k1) {
+    const int p0 = k0 / U, np = (k1 - 1) / U - p0 + 1;
+    for (int i = threadIdx.x & 31; i < np; i += 32)
+      while (ld_acquire(flags + (p0 + i) * 32) < epoch) {
+      }
   }
-  if (by_warp)
-    __syncwarp();
-  else
-    __syncthreads();
+  __syncwarp();
 }
 
-// Copy the producers' rows of h_prev[:, b0 .. b0 + 31] into hs of every
-// block of the cluster: 16 bytes a load, up to FLOADS loads in
-// flight a lane, each stored to this block's hs and to the other cs - 1
-// blocks' (distributed shared memory), so the L2 serves each row once a
-// cluster.
-__device__ void fwd_copy(const Producers& pr, float* hs, const float* hp,
-                         int H, int Bp, int b0, int U, uint32_t rank,
-                         uint32_t cs) {
-  const uint32_t base = smem_u32(hs);
-  const int items = pr.n * U * 8;        // 8 float4 a row of 32 columns
-  for (int q0 = pr.id; q0 < items; q0 += pr.count * FLOADS) {
+// Copy the warp's rows of h_prev[:, b0 .. b0 + 31] (its K slice) into
+// hs, 16 bytes a load from the L2, up to FLOADS loads in flight a lane,
+// row k's 16-byte chunks swizzled by k % 4 (rows past H: zero).  Only the
+// warp reads them, so the warp's own sync suffices: no block-wide barrier
+// stands between a warp's copy and its products.
+__device__ void fwd_copy(const KSlice& ks, float* hs, const float* hp,
+                         int H, int Bp, int b0) {
+  const int lane = threadIdx.x & 31;
+  const int k0 = 8 * ks.s0, k1 = min(H, 8 * ks.s1);
+  const int items = k1 > k0 ? (k1 - k0) * 8 : 0;   // 8 float4 a row
+  for (int q0 = lane; q0 < items; q0 += 32 * FLOADS) {
     float4 v[FLOADS];
-    int idx[FLOADS];
 #pragma unroll
     for (int l = 0; l < FLOADS; ++l) {
-      const int q = q0 + pr.count * l;
-      idx[l] = -1;
-      if (q < items) {
-        const int i = q / (U * 8), rq = q - i * U * 8;
-        const int k = (pr.first + i * pr.stride) * U + (rq >> 3);
-        const int c4 = rq & 7;
-        if (k < H) {
-          v[l] = __ldcg(reinterpret_cast<const float4*>(
-              hp + (size_t)k * Bp + b0 + 4 * c4));
-          idx[l] = k * FROWS + ((4 * c4) ^ ((k & 3) << 3));
-        }
-      }
+      const int q = q0 + 32 * l;
+      if (q < items)
+        v[l] = __ldcg(reinterpret_cast<const float4*>(
+            hp + (size_t)(k0 + (q >> 3)) * Bp + b0 + 4 * (q & 7)));
     }
 #pragma unroll
-    for (int l = 0; l < FLOADS; ++l)
-      if (idx[l] >= 0) {
-        reinterpret_cast<float4*>(hs)[idx[l] / 4] = v[l];
-        for (uint32_t r = 1; r < cs; ++r)
-          st_peer(peer_addr(base + 4 * idx[l], (rank + r) % cs), v[l]);
+    for (int l = 0; l < FLOADS; ++l) {
+      const int q = q0 + 32 * l;
+      if (q < items) {
+        const int k = k0 + (q >> 3);
+        reinterpret_cast<float4*>(hs)[k * 8 + ((q & 7) ^ ((k & 3) << 1))] =
+            v[l];
       }
+    }
   }
+  // rows past H (the partial sums of the last pass may have written them)
+  for (int e = max(k0, H) * FROWS + lane; e < 8 * ks.s1 * FROWS; e += 32)
+    hs[e] = 0.f;
+  __syncwarp();
 }
 
 // W's gate columns of units j0..j0+U-1 into w[k ws + gate U + u] and
@@ -952,117 +901,101 @@ __device__ void fwd_load_columns(float* w, float* bias, const Weights& wt,
 }
 
 // The warp's partial (32 x 4U) gate pre-activations over its K slice,
-// k8 steps [warp nk / 8, (warp + 1) nk / 8), written to red[warp][c][r]
-// (row stride RS) once every warp is done reading hs (red aliases it).
-// TC: mma.sync m16n8k8 tf32 in 3xTF32: h (A, two m16 tiles) and W (B,
-// ceil(4U / 8) n8 tiles) each read as their fp32 words (the tensor core
-// takes the top 19 bits: hi) and split on the fly into the residual (lo);
-// lo hi (and hi lo unless W is exact in tf32) before hi hi.  Otherwise
-// fp32 FMAs, lane = batch row, each sum over k in order.
-template <int U, bool TC>
-__device__ void fwd_products(const float* hs, const float* w, float* red,
-                             int kp, int ws, int wlo) {
-  constexpr int NG = 4 * U, NT = (NG + 7) / 8;
+// written to red[warp][c][r] (row stride RS) once every warp is done
+// reading hs (red aliases it): mma.sync m16n8k8 tf32 in 3xTF32, h (A, two
+// m16 tiles) and W (B, ceil(4U / 8) n8 tiles) each read as their fp32
+// words (the tensor core takes the top 19 bits: hi) and split on the fly
+// into the residual (lo); lo hi (and hi lo unless W is exact in tf32)
+// before hi hi.
+template <int U>
+__device__ void fwd_products(const KSlice& ks, const float* hs,
+                             const float* w, float* red, int ws, int wlo) {
+  constexpr int NT = (4 * U + 7) / 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nk = kp / 8;
-  const int s0 = warp * nk / NWARPS, s1 = (warp + 1) * nk / NWARPS;
-  if constexpr (TC) {
-    const int g = lane >> 2, t = lane & 3;
-    float acc[2][NT][4];
+  const int g = lane >> 2, t = lane & 3;
+  float acc[2][NT][4];
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
 #pragma unroll 2
-    for (int s = s0; s < s1; ++s) {
-      const int k = 8 * s + t, sw = t << 3;   // k % 4 == t for k, k + 4
-      uint32_t ah[2][4], al[2][4];
+  for (int s = ks.s0; s < ks.s1; ++s) {
+    const int k = 8 * s + t, sw = t << 3;     // k % 4 == t for k, k + 4
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int r = 16 * m + g;
+      const float a[4] = {hs[k * FROWS + (r ^ sw)],
+                          hs[k * FROWS + ((r + 8) ^ sw)],
+                          hs[(k + 4) * FROWS + (r ^ sw)],
+                          hs[(k + 4) * FROWS + ((r + 8) ^ sw)]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ah[m][i] = __float_as_uint(a[i]);
+        al[m][i] = lo_word(a[i]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float b0 = w[k * ws + 8 * n + g], b1 = w[(k + 4) * ws + 8 * n + g];
+      const uint32_t bh0 = __float_as_uint(b0), bh1 = __float_as_uint(b1);
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
-        const int r = 16 * m + g;
-        const float a[4] = {hs[k * FROWS + (r ^ sw)],
-                            hs[k * FROWS + ((r + 8) ^ sw)],
-                            hs[(k + 4) * FROWS + (r ^ sw)],
-                            hs[(k + 4) * FROWS + ((r + 8) ^ sw)]};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ah[m][i] = __float_as_uint(a[i]);
-          al[m][i] = lo_word(a[i]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const float b0 = w[k * ws + 8 * n + g], b1 = w[(k + 4) * ws + 8 * n + g];
-        const uint32_t bh0 = __float_as_uint(b0), bh1 = __float_as_uint(b1);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          mma_tf32(acc[m][n], al[m], bh0, bh1);
-          if (wlo) mma_tf32(acc[m][n], ah[m], lo_word(b0), lo_word(b1));
-          mma_tf32(acc[m][n], ah[m], bh0, bh1);
-        }
+        mma_tf32(acc[m][n], al[m], bh0, bh1);
+        if (wlo) mma_tf32(acc[m][n], ah[m], lo_word(b0), lo_word(b1));
+        mma_tf32(acc[m][n], ah[m], bh0, bh1);
       }
     }
-    __syncthreads();              // every warp is done with hs
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 16 * m + g + 8 * (i >> 1), c = 8 * n + 2 * t + (i & 1);
-          red[(warp * ws + c) * RS + r] = acc[m][n][i];
-        }
-  } else {
-    float acc[NG];
-#pragma unroll
-    for (int c = 0; c < NG; ++c) acc[c] = 0.f;
-    for (int k = 8 * s0; k < 8 * s1; ++k) {
-      const float hv = hs[k * FROWS + (lane ^ ((k & 3) << 3))];
-      const float4* w4 = reinterpret_cast<const float4*>(w + k * ws);
-#pragma unroll
-      for (int q = 0; q < U; ++q) {
-        const float4 x = w4[q];
-        acc[4 * q] = fmaf(hv, x.x, acc[4 * q]);
-        acc[4 * q + 1] = fmaf(hv, x.y, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(hv, x.z, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(hv, x.w, acc[4 * q + 3]);
-      }
-    }
-    __syncthreads();              // every warp is done with hs
-#pragma unroll
-    for (int c = 0; c < NG; ++c) red[(warp * ws + c) * RS + lane] = acc[c];
   }
+  __syncthreads();              // every warp is done with hs
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 16 * m + g + 8 * (i >> 1), c = 8 * n + 2 * t + (i & 1);
+        red[(warp * ws + c) * RS + r] = acc[m][n][i];
+      }
   __syncthreads();
 }
 
-// Forward (lstm_fwd_kernel, #10): nb blocks (a multiple of the cluster
-// size cs), all resident (a cooperative launch), block blk owning units
-// j0 = blk U .. j0 + U - 1, W's gate columns of them in shared memory for
-// the whole launch.  Each step, for each pass of 32 batch rows:
-//   1. loads its gx of the step into registers (used in 4; HBM latency
-//      off the serial chain);
-//   2. stages h_prev into the cluster: each warp polls the flags of the
-//      producers whose rows it copies (fwd_poll), then copies them into
-//      every block of the cluster (fwd_copy), so the L2 serves h once a
-//      cluster and a late producer holds up only the warps that wait for
-//      it; a cluster barrier makes every block's copies visible;
-//   3. forms the (32 x 4U) pre-activations (fwd_products), the warps'
-//      partial sums added in warp order;
+// Forward (lstm_fwd_kernel, #10): ceil(H / U) blocks, all resident (a
+// cooperative launch), block blk owning units j0 = blk U .. j0 + U - 1,
+// W's gate columns of them in shared memory for the whole launch.  Each
+// step, for each pass of 32 batch rows, a block
+//   1. loads its gx of the step into registers (used in 4: the HBM
+//      latency lies off the serial chain);
+//   2. stages h_prev: each warp polls the flags of the blocks whose rows
+//      of h it needs, its K slice (fwd_poll), and copies those rows from
+//      the L2 (fwd_copy); then, with no block-wide barrier between, it
+//   3. forms its partial (32 x 4U) pre-activations over that slice on
+//      the tensor cores (fwd_products), the warps' sums added in warp
+//      order;
 //   4. applies the nonlinearities, updates c (in the block), writes out,
-//      cseq and its slice of h_next, and then (last pass) releases its
-//      flag with the step's epoch: the step's only grid-wide sync.
-// A cluster barrier after 4 lets the next stage overwrite hs.  No
-// atomics, every sum in a fixed order: two launches agree bit for bit.
-template <class T, int U, bool TC>
+//      cseq and its slice of h_next, and (last pass) releases its flag
+//      with the step's epoch: the only grid-wide sync of the step.
+// No atomics, every sum in a fixed order: two launches agree bit for bit.
+//
+// What the design answers (H100 80GB HBM3, 700 W, T 35, B 32, H 650, by
+// the stamps of lstm_fwd_phase_times; the parent design first): a grid
+// sync (1.17 us a step) becomes flag polling; the staging of the whole
+// h by every block behind a block barrier (1.73 us) becomes each warp's
+// own K slice, which overlaps the other warps' products; the fp32 FMA
+// products (4.42 us) become 3xTF32 mma.sync (2.2-2.4 us in this kernel,
+// against 4.4-4.5 for FMAs).  Measured and dropped: h staged once a
+// cluster of 2 or 4 blocks through distributed shared memory (stage 3.5-
+// 3.8 us a step against 3.0-3.3 for a block alone) and polling by block
+// or with a backoff (no change).
+template <class T, int U>
 __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, B = a.B, G = 4 * H, Bp = (B + FROWS - 1) & ~(FROWS - 1);
   const int blk = blockIdx.x, j0 = blk * U;
-  const uint32_t rank = cluster_rank(), cs = cluster_size();
   const FwdLayout L(H, B, U);
-  const Producers pr(H, U, rank, cs, a.by_warp);
+  const KSlice ks(L.kp);
   float *w = smem + L.w, *bias = smem + L.bias, *hs = smem + L.hs;
   float* c_own = smem + L.own;
   for (int e = threadIdx.x; e < L.total / 4; e += NTHREADS)
@@ -1077,13 +1010,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
   const T* gx = static_cast<const T*>(a.gx);
   T* out = static_cast<T*>(a.out);
   // with a timing buffer, block 0's thread 0 stamps the start, then the
-  // end of each step's wait (the cluster barrier and warp 0's producers'
-  // flags: the barrier), stage, products and elementwise update (for
-  // B > 32, the last pass's)
+  // end of each step's wait (warp 0's poll of its producers' flags: the
+  // barrier), warp 0's copy (the stage), the products and the
+  // elementwise update (for B > 32, the last pass's)
   const bool stamp = a.timing != nullptr && blk == 0 && threadIdx.x == 0;
   long long* ts = a.timing;
   __syncthreads();
-  if (cs > 1) cluster_arrive(); // the cluster's blocks have all started
   if (stamp) *ts++ = globaltimer();
   // the elementwise update's elements: e = threadIdx.x + NTHREADS i, row
   // r = e / U, unit u = e % U
@@ -1103,21 +1035,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
           for (int q = 0; q < 4; ++q) gxv[i][q] = to_f32(g[q * H]);
         }
       }
-      if (cs > 1) cluster_wait();  // the cluster's blocks are done with hs
-      if (t > 0) fwd_poll(pr, a.flags, t, a.by_warp, a.backoff);
+      fwd_poll(ks, a.flags, t, H, U);
       if (stamp) ts[0] = globaltimer();
-      fwd_copy(pr, hs, h_prev, H, Bp, b0, U, rank, cs);
-      // rows past H stay zero (the partial sums may have written them)
-      for (int e = H * FROWS + threadIdx.x; e < L.kp * FROWS; e += NTHREADS)
-        hs[e] = 0.f;
-      if (cs > 1) {             // the cluster's copies have all landed
-        cluster_arrive();
-        cluster_wait();
-      } else {
-        __syncthreads();
-      }
+      fwd_copy(ks, hs, h_prev, H, Bp, b0);
       if (stamp) ts[1] = globaltimer();
-      fwd_products<U, TC>(hs, w, hs, L.kp, L.ws, a.wlo);
+      fwd_products<U>(ks, hs, w, hs, L.ws, a.wlo);
       if (stamp) ts[2] = globaltimer();
       const float* red = hs;
 #pragma unroll
@@ -1147,11 +1069,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
       if (b0 + FROWS >= B && threadIdx.x == 0)
         st_release(a.flags + blk * 32, t + 1);
       if (stamp) ts[3] = globaltimer();
-      if (cs > 1) cluster_arrive();  // done with hs (the partial sums) too
     }
     ts += 4;
   }
-  if (cs > 1) cluster_wait();
 }
 
 #define MXT_LSTM_UNITS(CASE) \
@@ -1167,23 +1087,21 @@ const void* bwd_kernel_for(int U) {
   return nullptr;
 }
 
-template <class T, bool TC>
+template <class T>
 const void* fwd_kernel_for(int U) {
 #define MXT_LSTM_CASE(N) \
   case N:                \
-    return (const void*)lstm_fwd_kernel<T, N, TC>;
+    return (const void*)lstm_fwd_kernel<T, N>;
   switch (U) { MXT_LSTM_UNITS(MXT_LSTM_CASE) }
 #undef MXT_LSTM_CASE
   return nullptr;
 }
 
-const void* kernel_for(bool backward, int bf16, int U, int tc = 1) {
+const void* kernel_for(bool backward, int bf16, int U) {
   typedef __nv_bfloat16 bf;
   if (backward)
     return bf16 ? bwd_kernel_for<bf>(U) : bwd_kernel_for<float>(U);
-  if (bf16)
-    return tc ? fwd_kernel_for<bf, true>(U) : fwd_kernel_for<bf, false>(U);
-  return tc ? fwd_kernel_for<float, true>(U) : fwd_kernel_for<float, false>(U);
+  return bf16 ? fwd_kernel_for<bf>(U) : fwd_kernel_for<float>(U);
 }
 
 cudaError_t device_limits(int* sms, int* smem_max) {
@@ -1230,67 +1148,30 @@ cudaError_t bwd_plan(int bf16, int H, int B, int* units, int* grid,
   return cudaSuccess;
 }
 
-// The forward's launch for U units a block and clusters of cs blocks:
-// ceil(H / U) blocks rounded up to a multiple of cs, one cooperative
-// launch that also names the cluster dimension (cs > 1)
-struct FwdLaunch {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[2];
-  FwdLaunch(int H, int B, int U, int cs, cudaStream_t st) {
-    cfg = {};
-    const int nb = ((H + U - 1) / U + cs - 1) / cs * cs;
-    cfg.gridDim = dim3(nb);
-    cfg.blockDim = dim3(NTHREADS);
-    cfg.dynamicSmemBytes = (size_t)FwdLayout(H, B, U).total * 4;
-    cfg.stream = st;
-    attr[0].id = cudaLaunchAttributeCooperative;
-    attr[0].val.cooperative = 1;
-    attr[1].id = cudaLaunchAttributeClusterDimension;
-    attr[1].val.clusterDim.x = cs;
-    attr[1].val.clusterDim.y = 1;
-    attr[1].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = cs > 1 ? 2 : 1;
-  }
-};
-
-// Whether the forward with U units a block (1..UMAX), clusters of cs
-// blocks and tensor-core products (tc) fits the card: its shared memory
-// within a block's, and every block (every cluster) resident at once.
-// grid = its blocks when it fits, else 0.
-cudaError_t fwd_fits(int bf16, int H, int B, int U, int cs, int tc,
-                     int* grid, size_t* smem) {
+// The forward's plan: U units a block (1..UMAX), ceil(H / U) blocks, one
+// cooperative launch.  grid = its blocks when its shared memory fits a
+// block's and every block is resident at once, else 0.
+cudaError_t fwd_fits(int bf16, int H, int B, int U, int* grid,
+                     size_t* smem) {
   *grid = 0;
   *smem = 0;
-  if (U < 1 || U > UMAX || cs < 1 || cs > 8) return cudaSuccess;
+  if (U < 1 || U > UMAX) return cudaSuccess;
   int sms = 0, smem_max = 0;
   cudaError_t e;
   if ((e = device_limits(&sms, &smem_max)) != cudaSuccess) return e;
-  FwdLaunch l(H, B, U, cs, 0);
-  const size_t bytes = l.cfg.dynamicSmemBytes;
+  const size_t bytes = (size_t)FwdLayout(H, B, U).total * 4;
   if (bytes > (size_t)smem_max) return cudaSuccess;
-  const void* fn = kernel_for(false, bf16, U, tc);
+  const void* fn = kernel_for(false, bf16, U);
   if ((e = cudaFuncSetAttribute(fn,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)bytes)) != cudaSuccess)
     return e;
-  const int nb = (int)l.cfg.gridDim.x;
-  int resident = 0;
-  if (cs > 1) {
-    cudaLaunchConfig_t occ = l.cfg;     // the cluster dimension alone
-    occ.attrs = &l.attr[1];
-    occ.numAttrs = 1;
-    if ((e = cudaOccupancyMaxActiveClusters(&resident, fn, &occ)) !=
-        cudaSuccess)
-      return e;
-    resident *= cs;
-  } else {
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &resident, fn, NTHREADS, bytes)) != cudaSuccess)
-      return e;
-    resident *= sms;
-  }
-  if (nb <= resident) {
+  int per_sm = 0;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fn, NTHREADS, bytes)) != cudaSuccess)
+    return e;
+  const int nb = (H + U - 1) / U;
+  if (nb <= per_sm * sms) {
     *grid = nb;
     *smem = bytes;
   }
@@ -1345,42 +1226,40 @@ extern "C" int mxt_lstm_plan(int bf16, int H, int B, int* units, int* grid,
   return (int)e;
 }
 
-// Whether the forward with U units a block, clusters of cs blocks and
-// (tc) tensor-core products fits the card for the layer's type, H and B:
-// grid = its blocks and smem its dynamic shared memory in bytes when it
-// does, grid = 0 when it does not.
-extern "C" int mxt_lstm_fwd_fits(int bf16, int H, int B, int U, int cs,
-                                 int tc, int* grid, long long* smem) {
+// Whether the forward with U units a block fits the card for the layer's
+// type (bf16 = 1 for bfloat16), H and B: grid = its blocks and smem its
+// dynamic shared memory in bytes when it does, grid = 0 when it does not.
+extern "C" int mxt_lstm_fwd_fits(int bf16, int H, int B, int U, int* grid,
+                                 long long* smem) {
   size_t bytes = 0;
-  const cudaError_t e = fwd_fits(bf16, H, B, U, cs, tc, grid, &bytes);
+  const cudaError_t e = fwd_fits(bf16, H, B, U, grid, &bytes);
   *smem = (long long)bytes;
   return (int)e;
 }
 
-// One launch of the forward time loop with U units a block, clusters of
-// cs blocks and (tc) tensor-core products, a plan that mxt_lstm_fwd_fits
-// accepted; hbuf holds 2 H Bp floats (Bp = B rounded up to 32), h0
-// transposed to (H, Bp) in float32 in its second half and every column
-// past B zero; flags grid * 32 int32 (zeroed here, on the stream);
-// timing is NULL or 1 + 4 T int64.
+// One launch of the forward time loop with U units a block, a plan that
+// mxt_lstm_fwd_fits accepted; hbuf holds 2 H Bp floats (Bp = B rounded
+// up to 32), h0 transposed to (H, Bp) in float32 in its second half
+// (columns past B: anything); flags ceil(H / U) * 32 int32 (zeroed here,
+// on the stream); timing is NULL or 1 + 4 T int64.
 extern "C" int mxt_lstm_fwd(const void* gx, const void* c0,
                             const void* w, long long sk, long long sg,
                             int w_bf16, const void* b, int b_bf16, void* out,
                             void* cseq, void* hbuf, void* flags,
                             long long* timing, int T, int B, int H, int bf16,
-                            int U, int cs, int tc, int by_warp, int backoff,
-                            void* stream) {
+                            int U, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  FwdLaunch l(H, B, U, cs, st);
-  const void* fn = kernel_for(false, bf16, U, tc);
-  if (!fn || cs < 1 || cs > 8) return (int)cudaErrorInvalidValue;
+  const void* fn = kernel_for(false, bf16, U);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  const int grid = (H + U - 1) / U;
+  const size_t smem = (size_t)FwdLayout(H, B, U).total * 4;
   cudaError_t e;
   if ((e = cudaFuncSetAttribute(fn,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)l.cfg.dynamicSmemBytes)) != cudaSuccess)
+                                (int)smem)) != cudaSuccess)
     return (int)e;
-  if ((e = cudaMemsetAsync(flags, 0, (size_t)l.cfg.gridDim.x * 32 *
-                                         sizeof(int), st)) != cudaSuccess)
+  if ((e = cudaMemsetAsync(flags, 0, (size_t)grid * 32 * sizeof(int), st)) !=
+      cudaSuccess)
     return (int)e;
   FwdArgs a;
   a.gx = gx;
@@ -1395,10 +1274,9 @@ extern "C" int mxt_lstm_fwd(const void* gx, const void* c0,
   a.B = B;
   a.H = H;
   a.wlo = !w_bf16;
-  a.by_warp = by_warp;
-  a.backoff = backoff;
   void* params[] = {&a};
-  if ((e = cudaLaunchKernelExC(&l.cfg, fn, params)) != cudaSuccess)
+  if ((e = cudaLaunchCooperativeKernel(fn, grid, NTHREADS, params, smem,
+                                       st)) != cudaSuccess)
     return (int)e;
   return (int)cudaGetLastError();
 }

@@ -586,11 +586,11 @@ def _lstm_lib():
     lib.mxt_lstm_plan.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 2 + [
         ctypes.POINTER(L)]
     lib.mxt_lstm_plan.restype = _I
-    lib.mxt_lstm_fwd_fits.argtypes = [_I] * 6 + [ctypes.POINTER(_I),
+    lib.mxt_lstm_fwd_fits.argtypes = [_I] * 4 + [ctypes.POINTER(_I),
                                                  ctypes.POINTER(L)]
     lib.mxt_lstm_fwd_fits.restype = _I
     lib.mxt_lstm_fwd.argtypes = ([_P] * 3 + [L, L, _I, _P, _I] + [_P] * 5
-                                 + [_I] * 9 + [_P])
+                                 + [_I] * 5 + [_P])
     lib.mxt_lstm_fwd.restype = _I
     lib.mxt_lstm_bwd_gates.argtypes = ([_P, _P, L] + [_I] * 3 + [_P] * 2
                                        + [_I] + [_P] * 6 + [_I] * 5 + [_P])
@@ -601,38 +601,27 @@ def _lstm_lib():
     return lib
 
 
-#: a time loop's launch: units per block, blocks, dynamic shared memory
-#: in bytes, and (the forward) blocks a cluster and whether the gate
-#: products run on the tensor cores
-LstmPlan = collections.namedtuple("LstmPlan", "units blocks smem cluster tc")
-
-#: the forward's plans in the order the sweep tries them, (units past the
-#: fewest that give every unit a block on the card's SMs, blocks a
-#: cluster, tensor-core products): the first that fits is taken
-LSTM_FWD_ORDER = ((0, 2, True), (1, 2, True), (0, 1, True), (1, 1, True),
-                  (2, 2, True), (2, 1, True), (3, 1, True))
+#: a time loop's launch: units per block, blocks and dynamic shared
+#: memory in bytes
+LstmPlan = collections.namedtuple("LstmPlan", "units blocks smem")
 
 
 @functools.lru_cache(maxsize=None)
-def _lstm_fwd_fits(device, code, H, B, units, cluster, tc):
+def _lstm_fwd_fits(device, code, H, B, units):
     lib = _lstm_lib()
     grid, smem = _I(0), ctypes.c_longlong(0)
-    _build.check(lib, lib.mxt_lstm_fwd_fits(
-        code, H, B, units, cluster, int(tc), ctypes.byref(grid),
-        ctypes.byref(smem)), "lstm_plan")
-    return (LstmPlan(units, grid.value, smem.value, cluster, tc)
-            if grid.value else None)
+    _build.check(lib, lib.mxt_lstm_fwd_fits(code, H, B, units,
+                                            ctypes.byref(grid),
+                                            ctypes.byref(smem)), "lstm_plan")
+    return LstmPlan(units, grid.value, smem.value) if grid.value else None
 
 
-def lstm_plan(H, B, dtype=torch.float32, backward=False, units=None,
-              cluster=None, tc=None):
-    """The launch on the current card, an :class:`LstmPlan`.  The
-    backward takes the fewest units per block (at most 8) whose grid is
-    resident at once.  The forward takes the first plan of
-    :data:`LSTM_FWD_ORDER` that fits (every block, every cluster, resident
-    at once), or the one named by ``units``, ``cluster`` and ``tc``.
-    Raises when nothing fits (a cooperative launch needs every block
-    resident; there is no fallback)."""
+def lstm_plan(H, B, dtype=torch.float32, backward=False, units=None):
+    """The launch on the current card, an :class:`LstmPlan`: the fewest
+    units per block (at most 8) whose grid of ceil(H / U) blocks is
+    resident at once (a cooperative launch needs every block resident;
+    there is no fallback), or for the forward the ``units`` given, if
+    they fit.  Raises when nothing fits."""
     lib = _lstm_lib()
     code = _LSTM_DTYPES[dtype]
     if backward:
@@ -640,18 +629,12 @@ def lstm_plan(H, B, dtype=torch.float32, backward=False, units=None,
         _build.check(lib, lib.mxt_lstm_plan(code, H, B, ctypes.byref(u),
                                             ctypes.byref(grid),
                                             ctypes.byref(smem)), "lstm_plan")
-        plan = (LstmPlan(u.value, grid.value, smem.value, 1, False)
-                if u.value else None)
+        plan = LstmPlan(u.value, grid.value, smem.value) if u.value else None
     else:
         dev = torch.cuda.current_device()
-        if units is not None:
-            plan = _lstm_fwd_fits(dev, code, H, B, units, cluster or 1,
-                                  True if tc is None else bool(tc))
-        else:
-            u0 = max(1, -(-H // _sms(dev)))
-            plan = next((p for p in (
-                _lstm_fwd_fits(dev, code, H, B, u0 + du, cs, t)
-                for du, cs, t in LSTM_FWD_ORDER) if p), None)
+        tried = (units,) if units else range(max(1, -(-H // _sms(dev))), 9)
+        plan = next((p for p in (_lstm_fwd_fits(dev, code, H, B, u)
+                                 for u in tried) if p), None)
     if plan is None:
         raise RuntimeError(
             "lstm_sequence: H %d, B %d does not fit the card: no grid of "
@@ -694,8 +677,7 @@ def _lstm_check(what, gates_x, vectors, w, b):
     return T, B, H
 
 
-def _lstm_fwd(gates_x, h0, c0, w, b, stamps=None, plan=None, by_warp=False,
-              backoff=0):
+def _lstm_fwd(gates_x, h0, c0, w, b, stamps=None, plan=None):
     if gates_x.device.type == "cpu":
         return lstm_sequence_plain(gates_x, h0, c0, w, b)
     if gates_x.device.type != "cuda":
@@ -710,8 +692,9 @@ def _lstm_fwd(gates_x, h0, c0, w, b, stamps=None, plan=None, by_warp=False,
     out = torch.empty(T, B, H, dtype=dt, device=dev)
     cseq = torch.empty(T, B, H, dtype=torch.float32, device=dev)
     # the kernel keeps h transposed, (H, Bp) in fp32 with B padded to 32
-    # columns of zeros; h0 enters as hbuf[1]
-    hbuf = torch.zeros(2, H, -(-B // 32) * 32, dtype=torch.float32,
+    # columns (those past B only ever reach product rows that no store
+    # reads); h0 enters as hbuf[1]
+    hbuf = torch.empty(2, H, -(-B // 32) * 32, dtype=torch.float32,
                        device=dev)
     hbuf[1, :, :B].copy_(h0.T)
     flags = torch.empty(p.blocks * 32, dtype=torch.int32, device=dev)
@@ -722,8 +705,7 @@ def _lstm_fwd(gates_x, h0, c0, w, b, stamps=None, plan=None, by_warp=False,
         _LSTM_DTYPES[b.dtype], out.data_ptr(), cseq.data_ptr(),
         hbuf.data_ptr(), flags.data_ptr(),
         None if stamps is None else stamps.data_ptr(), T, B, H,
-        _LSTM_DTYPES[dt], p.units, p.cluster, int(p.tc), int(by_warp),
-        backoff, torch.cuda.current_stream(dev).cuda_stream)
+        _LSTM_DTYPES[dt], p.units, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "lstm_sequence")
     lstm_sequence.launches_fwd += 1
     lstm_sequence.last_dtype = dt
@@ -731,16 +713,15 @@ def _lstm_fwd(gates_x, h0, c0, w, b, stamps=None, plan=None, by_warp=False,
 
 
 #: the phases of one step of the forward time loop, in the order the
-#: kernel stamps their ends (:func:`lstm_fwd_phase_times`): the wait (the
-#: cluster's barrier, then block 0's warp 0 polling its producers' flags:
-#: the step's grid-wide sync), h staged into the cluster's shared memory,
-#: the gate products and the elementwise update (out, cseq and the
-#: block's slice of the next h written, its flag released)
+#: kernel stamps their ends (:func:`lstm_fwd_phase_times`): the wait
+#: (block 0's warp 0 polling the flags of the blocks that own its slice
+#: of h: the step's grid-wide sync), warp 0's copy of that slice, the
+#: gate products and the elementwise update (out, cseq and the block's
+#: slice of the next h written, its flag released)
 LSTM_FWD_PHASES = ("barrier", "stage", "products", "elementwise")
 
 
-def lstm_fwd_phase_times(gates_x, h0, c0, w, b, plan=None, by_warp=False,
-                         backoff=0):
+def lstm_fwd_phase_times(gates_x, h0, c0, w, b, plan=None):
     """The forward on CUDA tensors (the arguments of ``_lstm_fwd``), its
     block 0 stamping the card's global timer at the end of every phase of
     every step.  Returns ``(total, per_step)``: µs per phase of
@@ -750,7 +731,7 @@ def lstm_fwd_phase_times(gates_x, h0, c0, w, b, plan=None, by_warp=False,
     n = len(LSTM_FWD_PHASES)
     stamps = torch.zeros(1 + n * T, dtype=torch.int64,
                          device=gates_x.device)
-    _lstm_fwd(gates_x, h0, c0, w, b, stamps, plan, by_warp, backoff)
+    _lstm_fwd(gates_x, h0, c0, w, b, stamps, plan)
     d = torch.diff(stamps.cpu()).double().reshape(T, n) / 1e3
     per_step = {p: d[:, i].tolist() for i, p in enumerate(LSTM_FWD_PHASES)}
     return {p: sum(v) for p, v in per_step.items()}, per_step
@@ -841,7 +822,7 @@ def _lstm_bwd_parts(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):
                 (("h_prev", h_prev, dt, seq), ("c_prev", c_prev, f32, seq),
                  ("cseq", cseq, f32, seq), ("dout", dout, dt, seq),
                  ("dcseq", dcseq, f32, seq)), w, b)
-    units, nb = lstm_plan(H, B, dt, backward=True)[:2]
+    units, nb, _ = lstm_plan(H, B, dt, backward=True)
     dev = gates_x.device
     bup = -(-B * units // 4) * 4
     dgx = torch.empty_like(gates_x)
