@@ -312,7 +312,7 @@ def check_bias_gelu(torch, timer, report):
             plain = timer(lambda: ep.bias_gelu_plain(x, b))
             e = x.element_size()
             bms, by = bound(e * (2 * R * C + C), 12 * R * C)
-            plan = (ep.bias_gelu_plan(R, C, e, ep._vec(x, out) > 1,
+            plan = (ep.bias_gelu_plan(R, C, e, ep._vec(x, b, out) > 1,
                                       ep._sms(x.device.index))
                     if hasattr(ep, "bias_gelu_plan") else None)
             log("bias_gelu (%d, %d) %s: max_abs_err %.3g (tol %g%s) kernel "
@@ -1893,13 +1893,14 @@ def lstm_stamps(torch, fc, timer, bwd, T, runs=5):
     return med
 
 
-#: the units per block of #10's plans timed beside the one it takes
-LSTM_FWD_UNITS = (5, 6, 8)
+#: #10's plans timed beside the one it takes: (units per block, batch
+#: lanes)
+LSTM_FWD_PLANS = ((10, 2), (5, 1))
 
 
-def lstm_fwd_plans(torch, fc, timer, fwd, units=LSTM_FWD_UNITS):
-    """#10 on ``fwd`` (the arguments of ``_lstm_fwd``) with each of
-    ``units`` per block that fits the card: its time, phases by
+def lstm_fwd_plans(torch, fc, timer, fwd, plans=LSTM_FWD_PLANS):
+    """#10 on ``fwd`` (the arguments of ``_lstm_fwd``) under each of
+    ``plans`` that fits the card: its time, phases by
     ``%globaltimer``, error against the plain version (bf16: beyond one
     bf16 step), two launches bit-equal, digest.  A tree whose plan takes
     no units prints nothing."""
@@ -1908,11 +1909,11 @@ def lstm_fwd_plans(torch, fc, timer, fwd, units=LSTM_FWD_UNITS):
     gx = fwd[0]
     T, B, H = gx.shape[0], gx.shape[1], gx.shape[2] // 4
     pout, pcseq = fc.lstm_sequence_plain(*fwd)
-    for u in units:
+    for u, lanes in plans:
         try:
-            p = fc.lstm_plan(H, B, gx.dtype, units=u)
+            p = fc.lstm_plan(H, B, gx.dtype, units=u, lanes=lanes)
         except RuntimeError:
-            log("lstm_sequence_fwd U %d: does not fit" % u)
+            log("lstm_sequence_fwd U %d, %d lanes: does not fit" % (u, lanes))
             continue
         out, cseq = fc._lstm_fwd(*fwd, plan=p)
         again = fc._lstm_fwd(*fwd, plan=p)
@@ -2149,9 +2150,9 @@ def check_lstm_sass(libs):
         if not ok or atomics:
             bad.append(fn)
     # the recompute in bf16 and four tf32 ones (which operands take their
-    # residual product, the layer's type); the backward's and the
-    # forward's time loops for 2 types x U 1..8
-    if gates != 5 or loops != 16 or fwd != 16 or bad:
+    # residual product, the layer's type); the backward's time loops for 2
+    # types x U 1..8, the forward's for 2 types x U 1..10
+    if gates != 5 or loops != 16 or fwd != 20 or bad:
         raise AssertionError("lstm SASS: %d recompute, %d backward and %d "
                              "forward time-loop kernels; without their "
                              "tensor-core products or with atomics: %s"

@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dropout_hash.cuh"
 
 namespace {
@@ -87,24 +89,17 @@ struct alignas(sizeof(T) * V) Vec {
   T v[V];
 };
 
-// element i of b, of type code bt (0 float32, 1 bfloat16, 2 float16)
-__device__ __forceinline__ float ld_bias(const void* b, int i, int bt) {
-  return bt == 0 ? static_cast<const float*>(b)[i]
-       : bt == 1 ? __bfloat162float(static_cast<const __nv_bfloat16*>(b)[i])
-                 : __half2float(static_cast<const __half*>(b)[i]);
-}
-
 // nv vectors of V elements a row; thread (blockIdx.x, threadIdx.x) owns
-// vector column col of every row blockIdx.y K + gridDim.y K i + k, k < K
-template <class T, int V, int K>
+// vector column col of every row blockIdx.y K + gridDim.y K i + k, k < K.
+// The bias is of x's type (TB = T: one vector load) or float32 (V scalar
+// loads).  The thread issues its loads of x before those of the bias, so
+// that both round trips overlap.
+template <class T, class TB, int V, int K>
 __global__ void __launch_bounds__(256)
-bias_gelu_fwd_kernel(const T* __restrict__ x, const void* __restrict__ b,
-                     int bt, T* __restrict__ out, int R, int nv) {
+bias_gelu_fwd_kernel(const T* __restrict__ x, const TB* __restrict__ b,
+                     T* __restrict__ out, int R, int nv) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= nv) return;
-  float bias[V];
-#pragma unroll
-  for (int e = 0; e < V; ++e) bias[e] = ld_bias(b, col * V + e, bt);
   const Vec<T, V>* xv = reinterpret_cast<const Vec<T, V>*>(x) + col;
   Vec<T, V>* ov = reinterpret_cast<Vec<T, V>*>(out) + col;
   const int step = gridDim.y * K;
@@ -116,6 +111,15 @@ bias_gelu_fwd_kernel(const T* __restrict__ x, const void* __restrict__ b,
       if (r + k < R) dst[k] = xv[(size_t)(r + k) * nv];
   };
   load(v, r0);
+  float bias[V];
+  if constexpr (std::is_same<T, TB>::value) {
+    const Vec<T, V> bv = reinterpret_cast<const Vec<T, V>*>(b)[col];
+#pragma unroll
+    for (int e = 0; e < V; ++e) bias[e] = to_f32(bv.v[e]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) bias[e] = b[col * V + e];
+  }
   while (r0 < R) {
     // the next pass's loads are issued before this pass computes, so the
     // grid-strided loop keeps loads in flight while it computes
@@ -220,32 +224,42 @@ int bwd(const void* g, const void* seed, void* dx, int n, int C,
   return (int)cudaGetLastError();
 }
 
-template <class T, int V>
-int bias_gelu(const void* x, const void* b, int bt, void* out, int R, int C,
+template <class T, class TB, int V>
+int bias_gelu(const void* x, const void* b, void* out, int R, int C,
               int threads, int rows, int gx, int gy, cudaStream_t st) {
   const dim3 grid(gx, gy);
   const int nv = C / V;
   if (rows == 4)
-    bias_gelu_fwd_kernel<T, V, 4><<<grid, threads, 0, st>>>(
-        (const T*)x, b, bt, (T*)out, R, nv);
+    bias_gelu_fwd_kernel<T, TB, V, 4><<<grid, threads, 0, st>>>(
+        (const T*)x, (const TB*)b, (T*)out, R, nv);
   else if (rows == 2)
-    bias_gelu_fwd_kernel<T, V, 2><<<grid, threads, 0, st>>>(
-        (const T*)x, b, bt, (T*)out, R, nv);
+    bias_gelu_fwd_kernel<T, TB, V, 2><<<grid, threads, 0, st>>>(
+        (const T*)x, (const TB*)b, (T*)out, R, nv);
   else
-    bias_gelu_fwd_kernel<T, V, 1><<<grid, threads, 0, st>>>(
-        (const T*)x, b, bt, (T*)out, R, nv);
+    bias_gelu_fwd_kernel<T, TB, V, 1><<<grid, threads, 0, st>>>(
+        (const T*)x, (const TB*)b, (T*)out, R, nv);
   return (int)cudaGetLastError();
 }
 
-template <class T>
-int bias_gelu(const void* x, const void* b, int bt, void* out, int R, int C,
+template <class T, class TB>
+int bias_gelu(const void* x, const void* b, void* out, int R, int C,
               int vec, int threads, int rows, int gx, int gy,
               cudaStream_t st) {
   constexpr int V16 = 16 / sizeof(T);
-  return vec > 1 ? bias_gelu<T, V16>(x, b, bt, out, R, C, threads, rows, gx,
+  return vec > 1 ? bias_gelu<T, TB, V16>(x, b, out, R, C, threads, rows, gx,
+                                         gy, st)
+                 : bias_gelu<T, TB, 1>(x, b, out, R, C, threads, rows, gx,
+                                       gy, st);
+}
+
+template <class T>
+int bias_gelu(const void* x, const void* b, int b_f32, void* out, int R,
+              int C, int vec, int threads, int rows, int gx, int gy,
+              cudaStream_t st) {
+  return b_f32 ? bias_gelu<T, float>(x, b, out, R, C, vec, threads, rows, gx,
                                      gy, st)
-                 : bias_gelu<T, 1>(x, b, bt, out, R, C, threads, rows, gx, gy,
-                                   st);
+               : bias_gelu<T, T>(x, b, out, R, C, vec, threads, rows, gx, gy,
+                                 st);
 }
 
 }  // namespace
@@ -254,25 +268,26 @@ extern "C" const char* mxt_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// out = gelu(x + b): x, out (R, C) contiguous, of one dtype, and b (C,),
-// contiguous, of type bt: 0 float32, 1 bfloat16, 2 float16.  vec: 1 for
-// one element per thread, or 16 bytes per thread, which needs C
-// divisible by that count and x and out 16-byte aligned.  The launch:
-// blocks of `threads` (<= 256), grid (gx, gy), gx threads covering a
-// row's C / vec vectors, `rows` (1, 2 or 4) rows a pass; R * C < 2**31.
+// out = gelu(x + b): x, out (R, C) contiguous, of one dtype (0 float32,
+// 1 bfloat16, 2 float16), and b (C,) contiguous, of x's dtype or (b_f32)
+// float32.  vec: 1 for one element per thread, or 16 bytes per thread,
+// which needs C divisible by that count and x, out (and a b of x's
+// dtype) 16-byte aligned.  The launch: blocks of `threads` (<= 256), grid
+// (gx, gy), gx threads covering a row's C / vec vectors, `rows` (1, 2 or
+// 4) rows a pass; R * C < 2**31.
 extern "C" int mxt_bias_gelu_fwd(const void* x, const void* b, void* out,
-                                 int R, int C, int dtype, int bt, int vec,
+                                 int R, int C, int dtype, int b_f32, int vec,
                                  int threads, int rows, int gx, int gy,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return bias_gelu<float>(x, b, bt, out, R, C, vec, threads, rows, gx, gy,
-                            st);
+    return bias_gelu<float, float>(x, b, out, R, C, vec, threads, rows, gx,
+                                   gy, st);
   if (dtype == 1)
-    return bias_gelu<__nv_bfloat16>(x, b, bt, out, R, C, vec, threads, rows,
-                                    gx, gy, st);
-  return bias_gelu<__half>(x, b, bt, out, R, C, vec, threads, rows, gx, gy,
-                           st);
+    return bias_gelu<__nv_bfloat16>(x, b, b_f32, out, R, C, vec, threads,
+                                    rows, gx, gy, st);
+  return bias_gelu<__half>(x, b, b_f32, out, R, C, vec, threads, rows, gx,
+                           gy, st);
 }
 
 // x, r, out (R, C) and b (C,), contiguous, of one dtype: 0 float32,

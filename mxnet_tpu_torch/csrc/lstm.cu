@@ -128,6 +128,7 @@ namespace {
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int UMAX = 8;              // hidden units per block, at most
+constexpr int FUMAX = 10;            // the same, forward
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -747,9 +748,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_kernel(BwdArgs a) {
 // ---------------------------------------------------------------------------
 // forward: the time loop (#10)
 // ---------------------------------------------------------------------------
-constexpr int FROWS = 32;      // batch rows a pass: the padded (H, Bp) h
-constexpr int RS = 36;         // row stride of the warps' partial sums
-constexpr int FLOADS = 24;     // 16-byte loads in flight a lane, staging
+constexpr int FROWS = 16;      // batch rows a pass: one m16 tile
+constexpr int RS = 20;         // row stride of the warps' partial sums
+constexpr int FLOADS = 12;     // 16-byte loads in flight a lane, staging
 
 // W's row stride in shared memory: 4U gate columns rounded up to the n8
 // tiles, then to 8 or 24 mod 32 floats, so that the B fragments' 32 loads
@@ -760,9 +761,9 @@ __host__ __device__ inline int fwd_wstride(int U) {
 }
 
 // shared-memory layout of the forward, in floats; every piece starts
-// 16-byte aligned.  hs holds the staged h, [k][32] with row k's 16-byte
-// chunks swizzled by (k % 4) * 8 floats (conflict-free A fragments); the
-// warps' partial sums alias it once the products are done.
+// 16-byte aligned.  hs holds the staged h, [k][16] with element (k, r) at
+// k 16 + (r ^ 8 ((k / 2) % 2)) (conflict-free A fragments); the warps'
+// partial sums alias it once the products are done.
 struct FwdLayout {
   int kp, ws, w, bias, hs, own, total;
   __host__ __device__ FwdLayout(int H, int B, int U) {
@@ -786,13 +787,15 @@ struct FwdArgs {
   void* out;        // (T, B, H)
   float* cseq;      // (T, B, H)
   float* hbuf;      // (2, H, Bp) float32: h of the last two steps,
-                    // transposed, Bp = B rounded up to 32; the caller puts
+                    // transposed, Bp = B rounded up to 16; the caller puts
                     // h0 in hbuf[1].  Columns past B are never written:
                     // they feed only product rows past B, which no store
                     // reads.
   int* flags;       // nb flags 128 bytes apart, 0 at the launch
   long long* timing;  // NULL, or 1 + 4 T stamps (see lstm_fwd_kernel)
   int T, B, H, wlo;  // wlo: W not exact in tf32 (its lo product taken)
+  int lanes;        // batch lanes: block (ug, bl) takes the groups of 16
+                    // batch rows g = bl, bl + lanes, ...
 };
 
 // what the tensor core drops of x's fp32 word, as the word of a tf32 lo
@@ -812,31 +815,32 @@ struct KSlice {
   }
 };
 
-// Wait until the blocks that own the warp's rows of h (units k / U)
-// have released `epoch` (written that step's h): the warp's lanes poll
-// their flags.
+// Wait until the blocks that own the warp's rows of h in batch lane bl
+// (units k / U: block (k / U) lanes + bl) have released `epoch` (written
+// that step's h): the warp's lanes poll their flags.
 __device__ void fwd_poll(const KSlice& ks, const int* flags, int epoch,
-                         int H, int U) {
+                         int H, int U, int lanes, int bl) {
   const int k0 = 8 * ks.s0, k1 = min(H, 8 * ks.s1);
   if (epoch > 0 && k0 < k1) {
     const int p0 = k0 / U, np = (k1 - 1) / U - p0 + 1;
     for (int i = threadIdx.x & 31; i < np; i += 32)
-      while (ld_acquire(flags + (p0 + i) * 32) < epoch) {
+      while (ld_acquire(flags + ((p0 + i) * lanes + bl) * 32) < epoch) {
       }
   }
   __syncwarp();
 }
 
-// Copy the warp's rows of h_prev[:, b0 .. b0 + 31] (its K slice) into
-// hs, 16 bytes a load from the L2, up to FLOADS loads in flight a lane,
-// row k's 16-byte chunks swizzled by k % 4 (rows past H: zero).  Only the
-// warp reads them, so the warp's own sync suffices: no block-wide barrier
-// stands between a warp's copy and its products.
+// Copy the warp's rows of h_prev[:, b0 .. b0 + 15] (its K slice) into
+// hs, 16 bytes a load from the L2, up to FLOADS loads in flight a lane
+// (one round for a slice of up to 96 rows), row k's two 32-byte halves
+// swapped when (k / 2) is odd (rows past H: zero).  Only the warp reads
+// them, so the warp's own sync suffices: no block-wide barrier stands
+// between a warp's copy and its products.
 __device__ void fwd_copy(const KSlice& ks, float* hs, const float* hp,
                          int H, int Bp, int b0) {
   const int lane = threadIdx.x & 31;
   const int k0 = 8 * ks.s0, k1 = min(H, 8 * ks.s1);
-  const int items = k1 > k0 ? (k1 - k0) * 8 : 0;   // 8 float4 a row
+  const int items = k1 > k0 ? (k1 - k0) * 4 : 0;   // 4 float4 a row
   for (int q0 = lane; q0 < items; q0 += 32 * FLOADS) {
     float4 v[FLOADS];
 #pragma unroll
@@ -844,15 +848,14 @@ __device__ void fwd_copy(const KSlice& ks, float* hs, const float* hp,
       const int q = q0 + 32 * l;
       if (q < items)
         v[l] = __ldcg(reinterpret_cast<const float4*>(
-            hp + (size_t)(k0 + (q >> 3)) * Bp + b0 + 4 * (q & 7)));
+            hp + (size_t)(k0 + (q >> 2)) * Bp + b0 + 4 * (q & 3)));
     }
 #pragma unroll
     for (int l = 0; l < FLOADS; ++l) {
       const int q = q0 + 32 * l;
       if (q < items) {
-        const int k = k0 + (q >> 3);
-        reinterpret_cast<float4*>(hs)[k * 8 + ((q & 7) ^ ((k & 3) << 1))] =
-            v[l];
+        const int k = k0 + (q >> 2);
+        reinterpret_cast<float4*>(hs)[k * 4 + ((q & 3) ^ (k & 2))] = v[l];
       }
     }
   }
@@ -864,46 +867,65 @@ __device__ void fwd_copy(const KSlice& ks, float* hs, const float* hp,
 
 // W's gate columns of units j0..j0+U-1 into w[k ws + gate U + u] and
 // their bias into bias[gate U + u] (units past H: 0), as load_columns
-// lays them out, but with 8 loads in flight a thread and, where W's rows
+// lays them out, but with 32 loads in flight a thread and, where W's rows
 // are contiguous along k (the layer's transposed view, sk 1), k running
 // fastest across the threads, so that a warp reads whole sectors: the
 // launch's set-up, not the steps, is what this costs.
-template <int U>
-__device__ void fwd_load_columns(float* w, float* bias, const Weights& wt,
-                                 int H, int j0, int ws) {
-  constexpr int NG = 4 * U, N = 8;
-  const bool kfast = wt.sk == 1;
+template <int U, class WT>
+__device__ void fwd_load_columns(float* w, const WT* src, long long sk,
+                                 long long sg, int H, int j0, int ws) {
+  constexpr int NG = 4 * U, N = 32;
+  const bool kfast = sk == 1;
   const int n = H * NG;
+  // element e of the block's columns: row k, column c = gate U + u
+  auto kc = [&](int e, int& k, int& c) {
+    k = kfast ? e % H : e / NG;
+    c = kfast ? e / H : e % NG;
+  };
   for (int e0 = threadIdx.x; e0 < n; e0 += NTHREADS * N) {
     float v[N];
-    int at[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int e = e0 + NTHREADS * i;
-      at[i] = -1;
       if (e < n) {
-        const int k = kfast ? e % H : e / NG, c = kfast ? e / H : e % NG;
+        int k, c;
+        kc(e, k, c);
         const int gate = c / U, j = j0 + c - gate * U;
-        v[i] = j < H ? ldw(wt.w, k * wt.sk + (long long)(gate * H + j) *
-                                                 wt.sg, wt.w_bf16)
+        v[i] = j < H ? to_f32(src[k * sk + (long long)(gate * H + j) * sg])
                      : 0.f;
-        at[i] = k * ws + c;
       }
     }
 #pragma unroll
-    for (int i = 0; i < N; ++i)
-      if (at[i] >= 0) w[at[i]] = v[i];
+    for (int i = 0; i < N; ++i) {
+      const int e = e0 + NTHREADS * i;
+      if (e < n) {
+        int k, c;
+        kc(e, k, c);
+        w[k * ws + c] = v[i];
+      }
+    }
   }
-  for (int c = threadIdx.x; c < NG; c += NTHREADS) {
+}
+
+template <int U>
+__device__ void fwd_load_columns(float* w, float* bias, const Weights& wt,
+                                 int H, int j0, int ws) {
+  if (wt.w_bf16)
+    fwd_load_columns<U>(w, static_cast<const __nv_bfloat16*>(wt.w), wt.sk,
+                        wt.sg, H, j0, ws);
+  else
+    fwd_load_columns<U>(w, static_cast<const float*>(wt.w), wt.sk, wt.sg, H,
+                        j0, ws);
+  for (int c = threadIdx.x; c < 4 * U; c += NTHREADS) {
     const int gate = c / U, j = j0 + c - gate * U;
     bias[c] = j < H ? ldw(wt.b, gate * H + j, wt.b_bf16) : 0.f;
   }
 }
 
-// The warp's partial (32 x 4U) gate pre-activations over its K slice,
+// The warp's partial (16 x 4U) gate pre-activations over its K slice,
 // written to red[warp][c][r] (row stride RS) once every warp is done
-// reading hs (red aliases it): mma.sync m16n8k8 tf32 in 3xTF32, h (A, two
-// m16 tiles) and W (B, ceil(4U / 8) n8 tiles) each read as their fp32
+// reading hs (red aliases it): mma.sync m16n8k8 tf32 in 3xTF32, h (A, one
+// m16 tile) and W (B, ceil(4U / 8) n8 tiles) each read as their fp32
 // words (the tensor core takes the top 19 bits: hi) and split on the fly
 // into the residual (lo); lo hi (and hi lo unless W is exact in tf32)
 // before hi hi.
@@ -913,70 +935,65 @@ __device__ void fwd_products(const KSlice& ks, const float* hs,
   constexpr int NT = (4 * U + 7) / 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  float acc[2][NT][4];
+  const int sw = (t & 2) << 2;          // 8 ((k / 2) % 2) for k, k + 4
+  float acc[NT][4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 #pragma unroll 2
   for (int s = ks.s0; s < ks.s1; ++s) {
-    const int k = 8 * s + t, sw = t << 3;     // k % 4 == t for k, k + 4
-    uint32_t ah[2][4], al[2][4];
+    const int k = 8 * s + t;
+    const float a[4] = {hs[k * FROWS + (g ^ sw)],
+                        hs[k * FROWS + ((g + 8) ^ sw)],
+                        hs[(k + 4) * FROWS + (g ^ sw)],
+                        hs[(k + 4) * FROWS + ((g + 8) ^ sw)]};
+    uint32_t ah[4], al[4];
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const int r = 16 * m + g;
-      const float a[4] = {hs[k * FROWS + (r ^ sw)],
-                          hs[k * FROWS + ((r + 8) ^ sw)],
-                          hs[(k + 4) * FROWS + (r ^ sw)],
-                          hs[(k + 4) * FROWS + ((r + 8) ^ sw)]};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ah[m][i] = __float_as_uint(a[i]);
-        al[m][i] = lo_word(a[i]);
-      }
+    for (int i = 0; i < 4; ++i) {
+      ah[i] = __float_as_uint(a[i]);
+      al[i] = lo_word(a[i]);
     }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const float b0 = w[k * ws + 8 * n + g], b1 = w[(k + 4) * ws + 8 * n + g];
       const uint32_t bh0 = __float_as_uint(b0), bh1 = __float_as_uint(b1);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        mma_tf32(acc[m][n], al[m], bh0, bh1);
-        if (wlo) mma_tf32(acc[m][n], ah[m], lo_word(b0), lo_word(b1));
-        mma_tf32(acc[m][n], ah[m], bh0, bh1);
-      }
+      mma_tf32(acc[n], al, bh0, bh1);
+      if (wlo) mma_tf32(acc[n], ah, lo_word(b0), lo_word(b1));
+      mma_tf32(acc[n], ah, bh0, bh1);
     }
   }
   __syncthreads();              // every warp is done with hs
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 16 * m + g + 8 * (i >> 1), c = 8 * n + 2 * t + (i & 1);
-        red[(warp * ws + c) * RS + r] = acc[m][n][i];
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + 8 * (i >> 1), c = 8 * n + 2 * t + (i & 1);
+      red[(warp * ws + c) * RS + r] = acc[n][i];
+    }
   __syncthreads();
 }
 
-// Forward (lstm_fwd_kernel, #10): ceil(H / U) blocks, all resident (a
-// cooperative launch), block blk owning units j0 = blk U .. j0 + U - 1,
-// W's gate columns of them in shared memory for the whole launch.  Each
-// step, for each pass of 32 batch rows, a block
+// Forward (lstm_fwd_kernel, #10): ceil(H / U) unit groups times `lanes`
+// batch lanes of blocks, all resident (a cooperative launch).  Block blk =
+// ug lanes + bl owns units j0 = ug U .. j0 + U - 1, W's gate columns of
+// them in shared memory for the whole launch, and the groups of 16 batch
+// rows g = bl, bl + lanes, ...: the lanes are independent recurrences,
+// and each block stages only its rows of h (16 of B columns), so that
+// two lanes of twice the units halve the L2's bytes a step.  Each step,
+// for each of its groups of 16 batch rows, a block
 //   1. loads its gx of the step into registers (used in 4: the HBM
 //      latency lies off the serial chain);
 //   2. stages h_prev: each warp polls the flags of the blocks whose rows
 //      of h it needs, its K slice (fwd_poll), and copies those rows from
 //      the L2 (fwd_copy); then, with no block-wide barrier between, it
-//   3. forms its partial (32 x 4U) pre-activations over that slice on
+//   3. forms its partial (16 x 4U) pre-activations over that slice on
 //      the tensor cores (fwd_products), the warps' sums added in warp
 //      order;
-//   4. applies the nonlinearities, updates c (in the block), writes out,
-//      cseq and its slice of h_next, and (last pass) releases its flag
-//      with the step's epoch: the only grid-wide sync of the step.
+//   4. applies the nonlinearities, updates c (in the block), writes its
+//      slice of h_next, (last pass) releases its flag with the step's
+//      epoch, the only grid-wide sync of the step, and then writes out
+//      and cseq, which no block waits for.
 // No atomics, every sum in a fixed order: two launches agree bit for bit.
 //
 // What the design answers (H100 80GB HBM3, 700 W, T 35, B 32, H 650, by
@@ -993,7 +1010,8 @@ template <class T, int U>
 __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, B = a.B, G = 4 * H, Bp = (B + FROWS - 1) & ~(FROWS - 1);
-  const int blk = blockIdx.x, j0 = blk * U;
+  const int blk = blockIdx.x, lanes = a.lanes, bl = blk % lanes;
+  const int j0 = blk / lanes * U;
   const FwdLayout L(H, B, U);
   const KSlice ks(L.kp);
   float *w = smem + L.w, *bias = smem + L.bias, *hs = smem + L.hs;
@@ -1005,14 +1023,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
   const T* c0 = static_cast<const T*>(a.c0);
   for (int e = threadIdx.x; e < B * U; e += NTHREADS) {
     const int b = e / U, j = j0 + e - b * U;
-    c_own[e] = j < H ? to_f32(c0[(size_t)b * H + j]) : 0.f;
+    c_own[e] = j < H && b / FROWS % lanes == bl ? to_f32(c0[(size_t)b * H + j])
+                                                : 0.f;
   }
   const T* gx = static_cast<const T*>(a.gx);
   T* out = static_cast<T*>(a.out);
   // with a timing buffer, block 0's thread 0 stamps the start, then the
   // end of each step's wait (warp 0's poll of its producers' flags: the
   // barrier), warp 0's copy (the stage), the products and the
-  // elementwise update (for B > 32, the last pass's)
+  // elementwise update (with more than one group, the last group's)
   const bool stamp = a.timing != nullptr && blk == 0 && threadIdx.x == 0;
   long long* ts = a.timing;
   __syncthreads();
@@ -1023,7 +1042,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
   for (int t = 0; t < a.T; ++t) {
     float* h_next = a.hbuf + (size_t)(t & 1) * H * Bp;
     const float* h_prev = a.hbuf + (size_t)((t + 1) & 1) * H * Bp;
-    for (int b0 = 0; b0 < B; b0 += FROWS) {
+    for (int b0 = bl * FROWS; b0 < B; b0 += lanes * FROWS) {
       float gxv[NE][4];
 #pragma unroll
       for (int i = 0; i < NE; ++i) {
@@ -1035,13 +1054,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
           for (int q = 0; q < 4; ++q) gxv[i][q] = to_f32(g[q * H]);
         }
       }
-      fwd_poll(ks, a.flags, t, H, U);
+      fwd_poll(ks, a.flags, t, H, U, lanes, bl);
       if (stamp) ts[0] = globaltimer();
       fwd_copy(ks, hs, h_prev, H, Bp, b0);
       if (stamp) ts[1] = globaltimer();
       fwd_products<U>(ks, hs, w, hs, L.ws, a.wlo);
       if (stamp) ts[2] = globaltimer();
       const float* red = hs;
+      float hv[NE], cv[NE];
 #pragma unroll
       for (int i = 0; i < NE; ++i) {
         const int e = threadIdx.x + NTHREADS * i, r = e / U, u = e - r * U;
@@ -1057,17 +1077,24 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
         }
         const float ig = sigmoid(gs[0]), f = sigmoid(gs[1]),
                     uu = tanhf(gs[2]), o = sigmoid(gs[3]);
-        const float c = f * c_own[b * U + u] + ig * uu;
-        const float h = o * tanhf(c);
-        c_own[b * U + u] = c;
-        const size_t row = (size_t)t * B + b;
-        out[row * H + j] = from_f32<T>(h);
-        a.cseq[row * H + j] = c;
-        h_next[(size_t)j * Bp + b] = h;
+        cv[i] = f * c_own[b * U + u] + ig * uu;
+        hv[i] = o * tanhf(cv[i]);
+        c_own[b * U + u] = cv[i];
+        h_next[(size_t)j * Bp + b] = hv[i];
       }
-      __syncthreads();          // the release covers every thread's stores
-      if (b0 + FROWS >= B && threadIdx.x == 0)
+      __syncthreads();          // the release covers every thread's h
+      if (b0 + lanes * FROWS >= B && threadIdx.x == 0)
         st_release(a.flags + blk * 32, t + 1);
+      // out and cseq after the release: no other block waits for them
+#pragma unroll
+      for (int i = 0; i < NE; ++i) {
+        const int e = threadIdx.x + NTHREADS * i, r = e / U, u = e - r * U;
+        const int j = j0 + u, b = b0 + r;
+        if (e >= FROWS * U || j >= H || b >= B) continue;
+        const size_t row = (size_t)t * B + b;
+        out[row * H + j] = from_f32<T>(hv[i]);
+        a.cseq[row * H + j] = cv[i];
+      }
       if (stamp) ts[3] = globaltimer();
     }
     ts += 4;
@@ -1092,7 +1119,7 @@ const void* fwd_kernel_for(int U) {
 #define MXT_LSTM_CASE(N) \
   case N:                \
     return (const void*)lstm_fwd_kernel<T, N>;
-  switch (U) { MXT_LSTM_UNITS(MXT_LSTM_CASE) }
+  switch (U) { MXT_LSTM_UNITS(MXT_LSTM_CASE) MXT_LSTM_CASE(9) MXT_LSTM_CASE(10) }
 #undef MXT_LSTM_CASE
   return nullptr;
 }
@@ -1148,14 +1175,15 @@ cudaError_t bwd_plan(int bf16, int H, int B, int* units, int* grid,
   return cudaSuccess;
 }
 
-// The forward's plan: U units a block (1..UMAX), ceil(H / U) blocks, one
-// cooperative launch.  grid = its blocks when its shared memory fits a
-// block's and every block is resident at once, else 0.
-cudaError_t fwd_fits(int bf16, int H, int B, int U, int* grid,
+// The forward's plan: U units a block (1..FUMAX), ceil(H / U) unit
+// groups times `lanes` batch lanes of blocks, one cooperative launch.
+// grid = its blocks when its shared memory fits a block's and every block
+// is resident at once, else 0.
+cudaError_t fwd_fits(int bf16, int H, int B, int U, int lanes, int* grid,
                      size_t* smem) {
   *grid = 0;
   *smem = 0;
-  if (U < 1 || U > UMAX) return cudaSuccess;
+  if (U < 1 || U > FUMAX || lanes < 1) return cudaSuccess;
   int sms = 0, smem_max = 0;
   cudaError_t e;
   if ((e = device_limits(&sms, &smem_max)) != cudaSuccess) return e;
@@ -1170,7 +1198,7 @@ cudaError_t fwd_fits(int bf16, int H, int B, int U, int* grid,
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, fn, NTHREADS, bytes)) != cudaSuccess)
     return e;
-  const int nb = (H + U - 1) / U;
+  const int nb = (H + U - 1) / U * lanes;
   if (nb <= per_sm * sms) {
     *grid = nb;
     *smem = bytes;
@@ -1226,32 +1254,34 @@ extern "C" int mxt_lstm_plan(int bf16, int H, int B, int* units, int* grid,
   return (int)e;
 }
 
-// Whether the forward with U units a block fits the card for the layer's
-// type (bf16 = 1 for bfloat16), H and B: grid = its blocks and smem its
-// dynamic shared memory in bytes when it does, grid = 0 when it does not.
-extern "C" int mxt_lstm_fwd_fits(int bf16, int H, int B, int U, int* grid,
-                                 long long* smem) {
+// Whether the forward with U units a block and `lanes` batch lanes fits
+// the card for the layer's type (bf16 = 1 for bfloat16), H and B: grid =
+// its blocks and smem its dynamic shared memory in bytes when it does,
+// grid = 0 when it does not.
+extern "C" int mxt_lstm_fwd_fits(int bf16, int H, int B, int U, int lanes,
+                                 int* grid, long long* smem) {
   size_t bytes = 0;
-  const cudaError_t e = fwd_fits(bf16, H, B, U, grid, &bytes);
+  const cudaError_t e = fwd_fits(bf16, H, B, U, lanes, grid, &bytes);
   *smem = (long long)bytes;
   return (int)e;
 }
 
-// One launch of the forward time loop with U units a block, a plan that
-// mxt_lstm_fwd_fits accepted; hbuf holds 2 H Bp floats (Bp = B rounded
-// up to 32), h0 transposed to (H, Bp) in float32 in its second half
-// (columns past B: anything); flags ceil(H / U) * 32 int32 (zeroed here,
-// on the stream); timing is NULL or 1 + 4 T int64.
+// One launch of the forward time loop with U units a block and `lanes`
+// batch lanes, a plan that mxt_lstm_fwd_fits accepted; hbuf holds 2 H Bp
+// floats (Bp = B rounded up to 16), h0 transposed to (H, Bp) in float32
+// in its second half (columns past B: anything); flags ceil(H / U) lanes
+// * 32 int32 (zeroed here, on the stream); timing is NULL or 1 + 4 T
+// int64.
 extern "C" int mxt_lstm_fwd(const void* gx, const void* c0,
                             const void* w, long long sk, long long sg,
                             int w_bf16, const void* b, int b_bf16, void* out,
                             void* cseq, void* hbuf, void* flags,
                             long long* timing, int T, int B, int H, int bf16,
-                            int U, void* stream) {
+                            int U, int lanes, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const void* fn = kernel_for(false, bf16, U);
-  if (!fn) return (int)cudaErrorInvalidValue;
-  const int grid = (H + U - 1) / U;
+  if (!fn || lanes < 1) return (int)cudaErrorInvalidValue;
+  const int grid = (H + U - 1) / U * lanes;
   const size_t smem = (size_t)FwdLayout(H, B, U).total * 4;
   cudaError_t e;
   if ((e = cudaFuncSetAttribute(fn,
@@ -1274,6 +1304,7 @@ extern "C" int mxt_lstm_fwd(const void* gx, const void* c0,
   a.B = B;
   a.H = H;
   a.wlo = !w_bf16;
+  a.lanes = lanes;
   void* params[] = {&a};
   if ((e = cudaLaunchCooperativeKernel(fn, grid, NTHREADS, params, smem,
                                        st)) != cudaSuccess)

@@ -153,7 +153,8 @@ SMS = 132
 @functools.lru_cache(maxsize=None)
 def bias_gelu_plan(R, C, itemsize, aligned, sms=SMS):
     """The forward kernel's launch for x of shape (R, C) and elements of
-    ``itemsize`` bytes, ``aligned`` when x and out start on 16 bytes:
+    ``itemsize`` bytes, ``aligned`` when x, out and a bias of x's dtype
+    start on 16 bytes:
     ``(vec, threads, rows, (gx, gy))``.
 
     - vec: elements a thread moves at once, 16 bytes (4 fp32, 8 bf16 or
@@ -189,6 +190,8 @@ def _bias_gelu_forward(x, b):
     _check_rowwise("bias_gelu", x, b, tuple(_GELU_DTYPES))
     if b.dtype not in _GELU_DTYPES:
         raise TypeError("bias_gelu: unsupported bias dtype %s" % b.dtype)
+    if b.dtype != x.dtype:
+        b = b.float()           # exact: every bias dtype fits in fp32
     out = torch.empty_like(x)
     n = x.numel()
     if n >= 2 ** 31:
@@ -196,14 +199,15 @@ def _bias_gelu_forward(x, b):
     if n:
         C = x.shape[-1]
         R = n // C
+        same = b.dtype == x.dtype
         vec, threads, rows, (gx, gy) = bias_gelu_plan(
-            R, C, x.element_size(), _vec(x, out) > 1,
+            R, C, x.element_size(),
+            (_vec(x, b, out) if same else _vec(x, out)) > 1,
             _sms(x.device.index))
         lib = _lib()
         rc = lib.mxt_bias_gelu_fwd(
             x.data_ptr(), b.data_ptr(), out.data_ptr(), R, C,
-            _GELU_DTYPES[x.dtype], _GELU_DTYPES[b.dtype], vec, threads,
-            rows, gx, gy,
+            _GELU_DTYPES[x.dtype], int(not same), vec, threads, rows, gx, gy,
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(lib, rc, "bias_gelu")
         bias_gelu.launches += 1

@@ -586,11 +586,11 @@ def _lstm_lib():
     lib.mxt_lstm_plan.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 2 + [
         ctypes.POINTER(L)]
     lib.mxt_lstm_plan.restype = _I
-    lib.mxt_lstm_fwd_fits.argtypes = [_I] * 4 + [ctypes.POINTER(_I),
+    lib.mxt_lstm_fwd_fits.argtypes = [_I] * 5 + [ctypes.POINTER(_I),
                                                  ctypes.POINTER(L)]
     lib.mxt_lstm_fwd_fits.restype = _I
     lib.mxt_lstm_fwd.argtypes = ([_P] * 3 + [L, L, _I, _P, _I] + [_P] * 5
-                                 + [_I] * 5 + [_P])
+                                 + [_I] * 6 + [_P])
     lib.mxt_lstm_fwd.restype = _I
     lib.mxt_lstm_bwd_gates.argtypes = ([_P, _P, L] + [_I] * 3 + [_P] * 2
                                        + [_I] + [_P] * 6 + [_I] * 5 + [_P])
@@ -601,27 +601,34 @@ def _lstm_lib():
     return lib
 
 
-#: a time loop's launch: units per block, blocks and dynamic shared
-#: memory in bytes
-LstmPlan = collections.namedtuple("LstmPlan", "units blocks smem")
+#: a time loop's launch: units per block, blocks, dynamic shared memory
+#: in bytes and (the forward) batch lanes, independent groups of blocks
+#: that each take every lanes-th group of 16 batch rows
+LstmPlan = collections.namedtuple("LstmPlan", "units blocks smem lanes")
 
 
 @functools.lru_cache(maxsize=None)
-def _lstm_fwd_fits(device, code, H, B, units):
+def _lstm_fwd_fits(device, code, H, B, units, lanes):
     lib = _lstm_lib()
     grid, smem = _I(0), ctypes.c_longlong(0)
-    _build.check(lib, lib.mxt_lstm_fwd_fits(code, H, B, units,
+    _build.check(lib, lib.mxt_lstm_fwd_fits(code, H, B, units, lanes,
                                             ctypes.byref(grid),
                                             ctypes.byref(smem)), "lstm_plan")
-    return LstmPlan(units, grid.value, smem.value) if grid.value else None
+    return (LstmPlan(units, grid.value, smem.value, lanes) if grid.value
+            else None)
 
 
-def lstm_plan(H, B, dtype=torch.float32, backward=False, units=None):
-    """The launch on the current card, an :class:`LstmPlan`: the fewest
-    units per block (at most 8) whose grid of ceil(H / U) blocks is
-    resident at once (a cooperative launch needs every block resident;
-    there is no fallback), or for the forward the ``units`` given, if
-    they fit.  Raises when nothing fits."""
+def lstm_plan(H, B, dtype=torch.float32, backward=False, units=None,
+              lanes=None):
+    """The launch on the current card, an :class:`LstmPlan`.  The
+    backward takes the fewest units per block (at most 8) whose grid of
+    ceil(H / U) blocks is resident at once (a cooperative launch needs
+    every block resident; there is no fallback).  The forward takes two
+    batch lanes when B has two groups of 16 rows or more, else one, and
+    the fewest units per block (at most 10) whose ceil(H / U) lanes
+    blocks are resident at once, one lane if two do not fit; or the
+    ``units`` and ``lanes`` given, if they fit.  Raises when nothing
+    fits."""
     lib = _lstm_lib()
     code = _LSTM_DTYPES[dtype]
     if backward:
@@ -629,17 +636,24 @@ def lstm_plan(H, B, dtype=torch.float32, backward=False, units=None):
         _build.check(lib, lib.mxt_lstm_plan(code, H, B, ctypes.byref(u),
                                             ctypes.byref(grid),
                                             ctypes.byref(smem)), "lstm_plan")
-        plan = LstmPlan(u.value, grid.value, smem.value) if u.value else None
+        plan = (LstmPlan(u.value, grid.value, smem.value, 1) if u.value
+                else None)
     else:
         dev = torch.cuda.current_device()
-        tried = (units,) if units else range(max(1, -(-H // _sms(dev))), 9)
-        plan = next((p for p in (_lstm_fwd_fits(dev, code, H, B, u)
-                                 for u in tried) if p), None)
+        if units:
+            tried = [(units, lanes or 1)]
+        else:
+            tried = [(u, n) for n in sorted({min(2, -(-B // 16)), 1},
+                                            reverse=True)
+                     for u in range(max(1, -(-H * n // _sms(dev))), 11)]
+        plan = next((p for p in (_lstm_fwd_fits(dev, code, H, B, u, n)
+                                 for u, n in tried) if p), None)
     if plan is None:
         raise RuntimeError(
             "lstm_sequence: H %d, B %d does not fit the card: no grid of "
-            "ceil(H / U) blocks with U <= 8 units each is resident at once "
-            "within the shared memory a block may use" % (H, B))
+            "ceil(H / U) blocks with U <= 8 units each (10 forward) is "
+            "resident at once within the shared memory a block may use"
+            % (H, B))
     return plan
 
 
@@ -691,10 +705,10 @@ def _lstm_fwd(gates_x, h0, c0, w, b, stamps=None, plan=None):
     dev = gates_x.device
     out = torch.empty(T, B, H, dtype=dt, device=dev)
     cseq = torch.empty(T, B, H, dtype=torch.float32, device=dev)
-    # the kernel keeps h transposed, (H, Bp) in fp32 with B padded to 32
+    # the kernel keeps h transposed, (H, Bp) in fp32 with B padded to 16
     # columns (those past B only ever reach product rows that no store
     # reads); h0 enters as hbuf[1]
-    hbuf = torch.empty(2, H, -(-B // 32) * 32, dtype=torch.float32,
+    hbuf = torch.empty(2, H, -(-B // 16) * 16, dtype=torch.float32,
                        device=dev)
     hbuf[1, :, :B].copy_(h0.T)
     flags = torch.empty(p.blocks * 32, dtype=torch.int32, device=dev)
@@ -705,7 +719,8 @@ def _lstm_fwd(gates_x, h0, c0, w, b, stamps=None, plan=None):
         _LSTM_DTYPES[b.dtype], out.data_ptr(), cseq.data_ptr(),
         hbuf.data_ptr(), flags.data_ptr(),
         None if stamps is None else stamps.data_ptr(), T, B, H,
-        _LSTM_DTYPES[dt], p.units, torch.cuda.current_stream(dev).cuda_stream)
+        _LSTM_DTYPES[dt], p.units, p.lanes,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "lstm_sequence")
     lstm_sequence.launches_fwd += 1
     lstm_sequence.last_dtype = dt
@@ -822,7 +837,7 @@ def _lstm_bwd_parts(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):
                 (("h_prev", h_prev, dt, seq), ("c_prev", c_prev, f32, seq),
                  ("cseq", cseq, f32, seq), ("dout", dout, dt, seq),
                  ("dcseq", dcseq, f32, seq)), w, b)
-    units, nb, _ = lstm_plan(H, B, dt, backward=True)
+    units, nb = lstm_plan(H, B, dt, backward=True)[:2]
     dev = gates_x.device
     bup = -(-B * units // 4) * 4
     dgx = torch.empty_like(gates_x)
