@@ -1923,7 +1923,8 @@ def lstm_fwd_plans(torch, fc, timer, fwd, plans=LSTM_FWD_PLANS):
                   float((cseq - pcseq).abs().max()))
         ms = timer(lambda: fc._lstm_fwd(*fwd, plan=p))
         ph = [fc.lstm_fwd_phase_times(*fwd, plan=p)[0] for _ in range(4)]
-        med = {k: statistics.median(x[k] for x in ph[1:]) / T for k in ph[0]}
+        med = {k: statistics.median(x[k] for x in ph[1:]) / T
+               for k in fc.LSTM_FWD_PHASES}
         log("lstm_sequence_fwd %s plan %s: %.4f ms (%.2f us per step), "
             "max err %.3g (tol %g), two launches equal %s, digest %s; per "
             "step %s" % (str(gx.dtype)[6:], tuple(p), ms, ms / T * 1e3, err,
@@ -1943,13 +1944,17 @@ def lstm_fwd_stamps(torch, fc, timer, fwd, T, runs=5):
         timer.flush.zero_()
         totals.append(fc.lstm_fwd_phase_times(*fwd)[0])
     med = {p: statistics.median(t[p] for t in totals[1:])
-           for p in fc.LSTM_FWD_PHASES}
+           for p in totals[0]}
+    steps = {p: med[p] for p in fc.LSTM_FWD_PHASES}
     log("lstm_sequence_fwd %s phases by %%globaltimer (block 0, median of "
-        "%d launches, T %d): %s; per step %s; sum %.2f us per step"
+        "%d launches, T %d): %s; per step %s; sum %.2f us per step%s"
         % (str(fwd[0].dtype)[6:], runs, T,
-           " ".join("%s %.2f us" % kv for kv in med.items()),
-           " ".join("%s %.3f" % (p, v / T) for p, v in med.items()),
-           sum(med.values()) / T))
+           " ".join("%s %.2f us" % kv for kv in steps.items()),
+           " ".join("%s %.3f" % (p, v / T) for p, v in steps.items()),
+           sum(steps.values()) / T,
+           "; set-up %.2f us (W's columns %.2f)" % (med["setup"],
+                                                    med["w_columns"])
+           if "setup" in med else ""))
     return med
 
 

@@ -12,17 +12,18 @@
 // between).  At the serving path's shapes, (16 | 64, 3072), 0.4-1.6 MB
 // move (fp32): the time is a launch and one cold HBM round trip, so the
 // design is about latency.  Each thread owns one fixed column vector
-// (16 bytes, 4 floats or 8 bf16/fp16, when C and the pointers allow it;
-// one element otherwise, for a ragged C such as 770) and walks rows, so
+// (16 bytes, 4 floats or 8 bf16/fp16, at the serving shapes at most 4
+// elements; one element for a ragged C such as 770) and walks rows, so
 // its slice of the bias is loaded once into registers and no element
 // needs a modulo.  It issues the loads of all its rows of a pass (K of
-// them) before it computes, so all of a block's loads are in flight at
-// once.  The launch plan (mxnet_tpu_torch/ops/kernels/epilogue.py:
-// bias_gelu_plan) halves the block, down to 32 threads, until there is
-// at least one block an SM at small R, and at large R gives each thread
-// one pass of 4 rows (fp32: 2); the kernel grid-strides only past the
-// grid's 65535 row groups, where the next pass's loads are issued before
-// the current one computes.
+// them) before the bias's and before it computes, so all of a block's
+// loads are in flight at once.  The launch plan
+// (mxnet_tpu_torch/ops/kernels/epilogue.py: bias_gelu_plan) halves the
+// block, down to 32 threads, until there is at least one block an SM at
+// small R, and at large R gives each thread one pass of 4 rows (fp32:
+// 2); the kernel grid-strides only past the grid's 65535 row groups,
+// where the next pass's loads are issued before the current one
+// computes.
 //
 // bias_dropout_residual, the port of _bdr_fwd_kernel and _bdr_bwd_kernel
 // (mxnet_tpu/ops/pallas/epilogue.py:213, 221).
@@ -120,22 +121,29 @@ bias_gelu_fwd_kernel(const T* __restrict__ x, const TB* __restrict__ b,
 #pragma unroll
     for (int e = 0; e < V; ++e) bias[e] = b[col * V + e];
   }
+  auto gelu_store = [&](const Vec<T, V>(&src)[K], int r) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (r + k >= R) continue;
+      Vec<T, V> o;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float u = __fadd_rn(to_f32(src[k].v[e]), bias[e]);
+        o.v[e] = from_f32<T>(0.5f * u * (1.f + erff(u * 0.70710678118654752f)));
+      }
+      ov[(size_t)(r + k) * nv] = o;
+    }
+  };
+  if (step >= R) {              // one pass a thread: the plan's usual case
+    gelu_store(v, r0);
+    return;
+  }
   while (r0 < R) {
     // the next pass's loads are issued before this pass computes, so the
     // grid-strided loop keeps loads in flight while it computes
     Vec<T, V> nxt[K];
     if (r0 + step < R) load(nxt, r0 + step);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      if (r0 + k >= R) continue;
-      Vec<T, V> o;
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const float u = __fadd_rn(to_f32(v[k].v[e]), bias[e]);
-        o.v[e] = from_f32<T>(0.5f * u * (1.f + erff(u * 0.70710678118654752f)));
-      }
-      ov[(size_t)(r0 + k) * nv] = o;
-    }
+    gelu_store(v, r0);
 #pragma unroll
     for (int k = 0; k < K; ++k) v[k] = nxt[k];
     r0 += step;
@@ -246,10 +254,12 @@ int bias_gelu(const void* x, const void* b, void* out, int R, int C,
               int vec, int threads, int rows, int gx, int gy,
               cudaStream_t st) {
   constexpr int V16 = 16 / sizeof(T);
-  return vec > 1 ? bias_gelu<T, TB, V16>(x, b, out, R, C, threads, rows, gx,
-                                         gy, st)
-                 : bias_gelu<T, TB, 1>(x, b, out, R, C, threads, rows, gx,
-                                       gy, st);
+  if (vec == V16)
+    return bias_gelu<T, TB, V16>(x, b, out, R, C, threads, rows, gx, gy, st);
+  if (vec == V16 / 2)
+    return bias_gelu<T, TB, V16 / 2>(x, b, out, R, C, threads, rows, gx, gy,
+                                     st);
+  return bias_gelu<T, TB, 1>(x, b, out, R, C, threads, rows, gx, gy, st);
 }
 
 template <class T>
@@ -270,11 +280,11 @@ extern "C" const char* mxt_error_string(int e) {
 
 // out = gelu(x + b): x, out (R, C) contiguous, of one dtype (0 float32,
 // 1 bfloat16, 2 float16), and b (C,) contiguous, of x's dtype or (b_f32)
-// float32.  vec: 1 for one element per thread, or 16 bytes per thread,
-// which needs C divisible by that count and x, out (and a b of x's
-// dtype) 16-byte aligned.  The launch: blocks of `threads` (<= 256), grid
-// (gx, gy), gx threads covering a row's C / vec vectors, `rows` (1, 2 or
-// 4) rows a pass; R * C < 2**31.
+// float32.  vec: elements a thread moves at once, 1 or 8 or 16 bytes of
+// them, which needs C divisible by vec and x, out (and a b of x's dtype)
+// aligned to vec elements.  The launch: blocks of `threads` (<= 256),
+// grid (gx, gy), gx threads covering a row's C / vec vectors, `rows` (1,
+// 2 or 4) rows a pass; R * C < 2**31.
 extern "C" int mxt_bias_gelu_fwd(const void* x, const void* b, void* out,
                                  int R, int C, int dtype, int b_f32, int vec,
                                  int threads, int rows, int gx, int gy,

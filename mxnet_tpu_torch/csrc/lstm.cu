@@ -792,7 +792,7 @@ struct FwdArgs {
                     // they feed only product rows past B, which no store
                     // reads.
   int* flags;       // nb flags 128 bytes apart, 0 at the launch
-  long long* timing;  // NULL, or 1 + 4 T stamps (see lstm_fwd_kernel)
+  long long* timing;  // NULL, or 3 + 4 T stamps (see lstm_fwd_kernel)
   int T, B, H, wlo;  // wlo: W not exact in tf32 (its lo product taken)
   int lanes;        // batch lanes: block (ug, bl) takes the groups of 16
                     // batch rows g = bl, bl + lanes, ...
@@ -866,44 +866,41 @@ __device__ void fwd_copy(const KSlice& ks, float* hs, const float* hp,
 }
 
 // W's gate columns of units j0..j0+U-1 into w[k ws + gate U + u] and
-// their bias into bias[gate U + u] (units past H: 0), as load_columns
-// lays them out, but with 32 loads in flight a thread and, where W's rows
-// are contiguous along k (the layer's transposed view, sk 1), k running
-// fastest across the threads, so that a warp reads whole sectors: the
-// launch's set-up, not the steps, is what this costs.
+// their bias into bias[gate U + u] (units past H: 0; smem starts zeroed),
+// as load_columns lays them out.  Where W's rows are contiguous along k
+// (the layer's transposed view, sk 1) a warp takes a column and its
+// lanes run along k, so that a warp reads whole sectors with many loads
+// in flight and no division: the launch's set-up, not the steps, is what
+// this costs.
 template <int U, class WT>
 __device__ void fwd_load_columns(float* w, const WT* src, long long sk,
                                  long long sg, int H, int j0, int ws) {
-  constexpr int NG = 4 * U, N = 32;
-  const bool kfast = sk == 1;
-  const int n = H * NG;
-  // element e of the block's columns: row k, column c = gate U + u
-  auto kc = [&](int e, int& k, int& c) {
-    k = kfast ? e % H : e / NG;
-    c = kfast ? e / H : e % NG;
-  };
-  for (int e0 = threadIdx.x; e0 < n; e0 += NTHREADS * N) {
-    float v[N];
+  constexpr int NG = 4 * U, N = 24;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (sk == 1) {
+    // a warp a column, its lanes along k: each column one run of H
+    // elements, up to N loads in flight a lane
+    for (int c = warp; c < NG; c += NWARPS) {
+      const int gate = c / U, j = j0 + c - gate * U;
+      if (j >= H) continue;               // stays 0
+      const WT* col = src + (long long)(gate * H + j) * sg;
+      for (int k0 = lane; k0 < H; k0 += 32 * N) {
+        float v[N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int e = e0 + NTHREADS * i;
-      if (e < n) {
-        int k, c;
-        kc(e, k, c);
-        const int gate = c / U, j = j0 + c - gate * U;
-        v[i] = j < H ? to_f32(src[k * sk + (long long)(gate * H + j) * sg])
-                     : 0.f;
+        for (int i = 0; i < N; ++i)
+          if (k0 + 32 * i < H) v[i] = to_f32(col[k0 + 32 * i]);
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          if (k0 + 32 * i < H) w[(k0 + 32 * i) * ws + c] = v[i];
       }
     }
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int e = e0 + NTHREADS * i;
-      if (e < n) {
-        int k, c;
-        kc(e, k, c);
-        w[k * ws + c] = v[i];
-      }
-    }
+    return;
+  }
+  for (int e = threadIdx.x; e < H * NG; e += NTHREADS) {
+    const int k = e / NG, c = e - k * NG;
+    const int gate = c / U, j = j0 + c - gate * U;
+    if (j < H)
+      w[k * ws + c] = to_f32(src[k * sk + (long long)(gate * H + j) * sg]);
   }
 }
 
@@ -1014,12 +1011,21 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
   const int j0 = blk / lanes * U;
   const FwdLayout L(H, B, U);
   const KSlice ks(L.kp);
+  // with a timing buffer, block 0's thread 0 stamps its entry, the end of
+  // the set-up's W columns and of the whole set-up, then the end of each
+  // step's wait (warp 0's poll of its producers' flags: the barrier),
+  // warp 0's copy (the stage), the products and the elementwise update
+  // (with more than one group, the last group's)
+  const bool stamp = a.timing != nullptr && blk == 0 && threadIdx.x == 0;
+  long long* ts = a.timing;
+  if (stamp) *ts++ = globaltimer();
   float *w = smem + L.w, *bias = smem + L.bias, *hs = smem + L.hs;
   float* c_own = smem + L.own;
   for (int e = threadIdx.x; e < L.total / 4; e += NTHREADS)
     reinterpret_cast<float4*>(smem)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
   fwd_load_columns<U>(w, bias, a.wt, H, j0, L.ws);
+  if (stamp) *ts++ = globaltimer();
   const T* c0 = static_cast<const T*>(a.c0);
   for (int e = threadIdx.x; e < B * U; e += NTHREADS) {
     const int b = e / U, j = j0 + e - b * U;
@@ -1028,12 +1034,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
   }
   const T* gx = static_cast<const T*>(a.gx);
   T* out = static_cast<T*>(a.out);
-  // with a timing buffer, block 0's thread 0 stamps the start, then the
-  // end of each step's wait (warp 0's poll of its producers' flags: the
-  // barrier), warp 0's copy (the stage), the products and the
-  // elementwise update (with more than one group, the last group's)
-  const bool stamp = a.timing != nullptr && blk == 0 && threadIdx.x == 0;
-  long long* ts = a.timing;
   __syncthreads();
   if (stamp) *ts++ = globaltimer();
   // the elementwise update's elements: e = threadIdx.x + NTHREADS i, row
@@ -1175,6 +1175,23 @@ cudaError_t bwd_plan(int bf16, int H, int B, int* units, int* grid,
   return cudaSuccess;
 }
 
+// Let the forward's kernel for the type and U take all the dynamic shared
+// memory a block may have (once a kernel; a launch takes what it needs)
+cudaError_t fwd_allow_smem(int bf16, int U) {
+  static bool allowed[2][FUMAX + 1] = {};
+  bool& done = allowed[bf16 != 0][U];
+  if (done) return cudaSuccess;
+  int sms = 0, smem_max = 0;
+  cudaError_t e;
+  if ((e = device_limits(&sms, &smem_max)) != cudaSuccess) return e;
+  if ((e = cudaFuncSetAttribute(kernel_for(false, bf16, U),
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem_max)) != cudaSuccess)
+    return e;
+  done = true;
+  return cudaSuccess;
+}
+
 // The forward's plan: U units a block (1..FUMAX), ceil(H / U) unit
 // groups times `lanes` batch lanes of blocks, one cooperative launch.
 // grid = its blocks when its shared memory fits a block's and every block
@@ -1190,10 +1207,7 @@ cudaError_t fwd_fits(int bf16, int H, int B, int U, int lanes, int* grid,
   const size_t bytes = (size_t)FwdLayout(H, B, U).total * 4;
   if (bytes > (size_t)smem_max) return cudaSuccess;
   const void* fn = kernel_for(false, bf16, U);
-  if ((e = cudaFuncSetAttribute(fn,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)bytes)) != cudaSuccess)
-    return e;
+  if ((e = fwd_allow_smem(bf16, U)) != cudaSuccess) return e;
   int per_sm = 0;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, fn, NTHREADS, bytes)) != cudaSuccess)
@@ -1284,10 +1298,7 @@ extern "C" int mxt_lstm_fwd(const void* gx, const void* c0,
   const int grid = (H + U - 1) / U * lanes;
   const size_t smem = (size_t)FwdLayout(H, B, U).total * 4;
   cudaError_t e;
-  if ((e = cudaFuncSetAttribute(fn,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem)) != cudaSuccess)
-    return (int)e;
+  if ((e = fwd_allow_smem(bf16, U)) != cudaSuccess) return (int)e;
   if ((e = cudaMemsetAsync(flags, 0, (size_t)grid * 32 * sizeof(int), st)) !=
       cudaSuccess)
     return (int)e;

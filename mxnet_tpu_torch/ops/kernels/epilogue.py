@@ -150,37 +150,47 @@ _GELU_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SMS = 132
 
 
+#: x of at most this many elements (the serving path's shapes) is
+#: launched for latency: 4 elements a thread, one row a pass
+GELU_SMALL = 1 << 18
+
+
 @functools.lru_cache(maxsize=None)
 def bias_gelu_plan(R, C, itemsize, aligned, sms=SMS):
     """The forward kernel's launch for x of shape (R, C) and elements of
     ``itemsize`` bytes, ``aligned`` when x, out and a bias of x's dtype
-    start on 16 bytes:
-    ``(vec, threads, rows, (gx, gy))``.
+    start on 16 bytes: ``(vec, threads, rows, (gx, gy))``.
 
-    - vec: elements a thread moves at once, 16 bytes (4 fp32, 8 bf16 or
-      fp16) when C is a multiple of that and the pointers are aligned,
-      else 1 (a ragged C);
+    - vec: elements a thread moves at once: 16 bytes of them (4 fp32, 8
+      bf16 or fp16), at most 4 while R C <= ``GELU_SMALL``; 1 when C is
+      not a multiple of that or the pointers are not aligned (a ragged
+      C);
     - threads: a block's threads, 128 halved (down to 32) while the grid
       would give fewer blocks than ``sms`` with one row a pass;
-    - rows: rows a thread loads before it computes: the most of 4, 2
-      (fp32: 2) that still leaves ``sms`` blocks, else 1;
+    - rows: rows a thread loads before it computes: 1 while R C <=
+      ``GELU_SMALL``, else the most of 4, 2 (fp32: 2) that still leaves
+      ``sms`` blocks;
     - gx blocks cover a row's C / vec vectors, gy = ceil(R / rows) row
       groups, at most 65535 (the kernel grid-strides over rows beyond
       them).
 
-    At (4096, 3072) on an H100 a grid-strided launch of 8 blocks an SM
-    took 0.0405 ms (fp32) and 0.0284 (bf16) against 0.0398 and 0.0260 for
-    one pass a thread; 4 fp32 rows a pass 0.0399-0.0404 against
-    0.0397-0.0398 for 2."""
-    per16 = 16 // itemsize
-    vec = per16 if aligned and C % per16 == 0 else 1
+    On an H100 (the module's design note in ``csrc/epilogue.cu``): at
+    (4096, 3072) a grid-strided launch of 8 blocks an SM took 0.0405 ms
+    (fp32) and 0.0284 (bf16) against 0.0398 and 0.0260 for one pass a
+    thread, and 4 fp32 rows a pass 0.0399-0.0404 against 0.0397-0.0398
+    for 2; at the bf16 serving shapes 8-byte vectors and one row a pass
+    were the fastest, by 0.0001-0.0002 ms."""
+    small = R * C <= GELU_SMALL
+    per = min(16 // itemsize, 4) if small else 16 // itemsize
+    vec = per if aligned and C % per == 0 else 1
     nv = C // vec
     threads = 128
     while threads > 32 and -(-nv // threads) * R < sms:
         threads //= 2
     gx = -(-nv // threads)
-    rows = next((k for k in ((2,) if itemsize == 4 else (4, 2))
-                 if gx * -(-R // k) >= sms), 1)
+    rows = 1 if small else next(
+        (k for k in ((2,) if itemsize == 4 else (4, 2))
+         if gx * -(-R // k) >= sms), 1)
     return vec, threads, rows, (gx, min(-(-R // rows), 65535))
 
 

@@ -738,18 +738,23 @@ LSTM_FWD_PHASES = ("barrier", "stage", "products", "elementwise")
 
 def lstm_fwd_phase_times(gates_x, h0, c0, w, b, plan=None):
     """The forward on CUDA tensors (the arguments of ``_lstm_fwd``), its
-    block 0 stamping the card's global timer at the end of every phase of
-    every step.  Returns ``(total, per_step)``: µs per phase of
-    :data:`LSTM_FWD_PHASES` summed over the steps, and the list of µs per
-    step of each."""
+    block 0 stamping the card's global timer at its entry, at the end of
+    its set-up's W columns and of the whole set-up, and at the end of
+    every phase of every step.  Returns ``(total, per_step)``: µs per
+    phase of :data:`LSTM_FWD_PHASES` summed over the steps, with the
+    set-up's ``"w_columns"`` and ``"setup"`` (the whole), and the list of
+    µs per step of each phase."""
     T = gates_x.shape[0]
     n = len(LSTM_FWD_PHASES)
-    stamps = torch.zeros(1 + n * T, dtype=torch.int64,
+    stamps = torch.zeros(3 + n * T, dtype=torch.int64,
                          device=gates_x.device)
     _lstm_fwd(gates_x, h0, c0, w, b, stamps, plan)
-    d = torch.diff(stamps.cpu()).double().reshape(T, n) / 1e3
-    per_step = {p: d[:, i].tolist() for i, p in enumerate(LSTM_FWD_PHASES)}
-    return {p: sum(v) for p, v in per_step.items()}, per_step
+    d = torch.diff(stamps.cpu()).double() / 1e3
+    per_step = {p: d[2:].reshape(T, n)[:, i].tolist()
+                for i, p in enumerate(LSTM_FWD_PHASES)}
+    total = {p: sum(v) for p, v in per_step.items()}
+    total.update(w_columns=float(d[0]), setup=float(d[0] + d[1]))
+    return total, per_step
 
 
 def _lstm_bwd(gates_x, h_prev, c_prev, cseq, dout, dcseq, w, b):

@@ -71,18 +71,18 @@ def test_bias_gelu_cpu_takes_plain_version():
 # (R, C, itemsize) -> (vec, threads, rows, (gx, gy)) on an H100's 132 SMs
 _GELU_PLANS = {
     (16, 3072, 4): (4, 64, 1, (12, 16)),      # per-op decode step
-    (64, 3072, 4): (4, 128, 2, (6, 32)),      # prefill chunk
+    (64, 3072, 4): (4, 128, 1, (6, 64)),      # prefill chunk
     (4096, 3072, 4): (4, 128, 2, (6, 2048)),  # BERT training
-    (16, 3072, 2): (8, 32, 1, (12, 16)),
-    (64, 3072, 2): (8, 128, 1, (3, 64)),
+    (16, 3072, 2): (4, 64, 1, (12, 16)),      # 8-byte vectors while small
+    (64, 3072, 2): (4, 128, 1, (6, 64)),
     (4096, 3072, 2): (8, 128, 4, (3, 1024)),
     (16, 770, 4): (1, 64, 1, (13, 16)),       # ragged C: one element
-    (64, 770, 4): (1, 128, 2, (7, 32)),
+    (64, 770, 4): (1, 128, 1, (7, 64)),
     (16, 770, 2): (1, 64, 1, (13, 16)),
     (16, 1536, 4): (4, 32, 1, (12, 16)),      # FFN1's bias shard at tp 2
     (64, 1536, 4): (4, 128, 1, (3, 64)),
-    (16, 1536, 2): (8, 32, 1, (6, 16)),
-    (64, 1536, 2): (8, 64, 1, (3, 64)),
+    (16, 1536, 2): (4, 32, 1, (12, 16)),
+    (64, 1536, 2): (4, 128, 1, (3, 64)),
 }
 
 
@@ -90,10 +90,11 @@ _GELU_PLANS = {
                          ids=["%dx%d-%s" % (r, c, "fp32" if e == 4 else "bf16")
                               for r, c, e in sorted(_GELU_PLANS)])
 def test_bias_gelu_plan(R, C, itemsize):
-    """The forward kernel's launch: 16-byte vectors where C allows them,
-    one element for a ragged C; gx blocks just cover a row's vectors; at
-    least one block an SM where R allows it (the serving shapes), one
-    pass a thread; misaligned pointers take one element."""
+    """The forward kernel's launch: 16-byte vectors where C allows them
+    (at most 4 elements, one row a pass, at the serving shapes), one
+    element for a ragged C; gx blocks just cover a row's vectors; at
+    least one block an SM where R allows it, one pass a thread;
+    misaligned pointers take one element."""
     plan = tep.bias_gelu_plan(R, C, itemsize, True)
     assert plan == _GELU_PLANS[(R, C, itemsize)]
     vec, threads, rows, (gx, gy) = plan
