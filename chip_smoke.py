@@ -49,7 +49,8 @@ plain version):
    The LSTM time loop
    (#10 forward, #11 backward: its gate recompute and its time loop)
    against its plain versions, #11's recompute against its own, two
-   launches of #11 bit for bit, and #11 (through the autograd Function)
+   launches of #10 and of #11 bit for bit, and #11 (through the autograd
+   Function)
    against autograd through the plain forward: float32 and bfloat16,
    (T, B, H) of (35, 32, 650), (7, 5, 37), (35, 1, 650), (35, 64, 650),
    (1, 32, 650) and (400, 32, 650), and a bfloat16 layer with a float32 W
@@ -57,9 +58,9 @@ plain version):
    (28 cases); both timed at (35, 32, 650) beside their plain versions,
    their bounds and cuDNN's LSTM on the same weights, #11's two kernels
    also apart, #10's and #11's time loops' phases by ``%globaltimer``
-   and #11's serial
-   chain's floor; the SASS of #11's kernels: the recompute's tensor-core
-   products, no atomic in either.  The tensor-parallel
+   (#10's set-up too), #10's plan and its other plans, and #11's serial
+   chain's floor; the SASS of the LSTM kernels: #11's recompute's and
+   #10's tensor-core products, no atomic in any.  The tensor-parallel
    decode phases (#13 attention, #14 FFN) on every shard of one layer at
    tp 2 and 4 of the serving model and at tp 2 of a GQA one (12 heads
    over 4 KV heads), at B 16 (lengths 1..512 with one row of length 0;
@@ -1894,8 +1895,8 @@ def lstm_stamps(torch, fc, timer, bwd, T, runs=5):
 
 
 #: #10's plans timed beside the one it takes: (units per block, batch
-#: lanes)
-LSTM_FWD_PLANS = ((10, 2), (5, 1))
+#: lanes); one lane of the fewest units at the word LM's layer
+LSTM_FWD_PLANS = ((5, 1),)
 
 
 def lstm_fwd_plans(torch, fc, timer, fwd, plans=LSTM_FWD_PLANS):

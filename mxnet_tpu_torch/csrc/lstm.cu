@@ -993,16 +993,19 @@ __device__ void fwd_products(const KSlice& ks, const float* hs,
 //      and cseq, which no block waits for.
 // No atomics, every sum in a fixed order: two launches agree bit for bit.
 //
-// What the design answers (H100 80GB HBM3, 700 W, T 35, B 32, H 650, by
-// the stamps of lstm_fwd_phase_times; the parent design first): a grid
-// sync (1.17 us a step) becomes flag polling; the staging of the whole
-// h by every block behind a block barrier (1.73 us) becomes each warp's
-// own K slice, which overlaps the other warps' products; the fp32 FMA
-// products (4.42 us) become 3xTF32 mma.sync (2.2-2.4 us in this kernel,
-// against 4.4-4.5 for FMAs).  Measured and dropped: h staged once a
-// cluster of 2 or 4 blocks through distributed shared memory (stage 3.5-
-// 3.8 us a step against 3.0-3.3 for a block alone) and polling by block
-// or with a backoff (no change).
+// What the design answers (NVIDIA H100 80GB HBM3, 700 W; T 35, B 32,
+// H 650, fp32; us a step by the stamps of lstm_fwd_phase_times, the
+// parent design's first): a grid sync, 1.17, becomes flag polling, ~1.0;
+// every block staging the whole h behind a block barrier, 1.73, becomes
+// each warp copying its own K slice of its lane's 16 columns, ~1.0; fp32
+// FMA products, 4.42, become 3xTF32 on mma.sync, 1.75-1.9; the update,
+// 1.08, ~1.0 with h released before out and cseq are written; W's
+// columns, read a warp a column, take 12 us of set-up.  Measured and
+// dropped: h staged once a cluster of 2 or 4 blocks through distributed
+// shared memory (a stage of 3.5-3.8 us against 3.0-3.3 for a block
+// alone, before the warps' own slices), polling by block or with a
+// backoff (no change), FMA products (4.4-4.5), and at B 32 one lane of
+// 5 units (0.29 ms a launch against 0.19 for two lanes of 10).
 template <class T, int U>
 __global__ void __launch_bounds__(NTHREADS, 1) lstm_fwd_kernel(FwdArgs a) {
   extern __shared__ __align__(16) float smem[];

@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .epilogue import bias_gelu_plain
+from .epilogue import _sms, bias_gelu_plain
 from .paged_attention import paged_attention_reference
 
 __all__ = ["lstm_sequence", "lstm_sequence_plain",
@@ -643,8 +643,7 @@ def lstm_plan(H, B, dtype=torch.float32, backward=False, units=None,
         if units:
             tried = [(units, lanes or 1)]
         else:
-            tried = [(u, n) for n in sorted({min(2, -(-B // 16)), 1},
-                                            reverse=True)
+            tried = [(u, n) for n in ((2, 1) if B > 16 else (1,))
                      for u in range(max(1, -(-H * n // _sms(dev))), 11)]
         plan = next((p for p in (_lstm_fwd_fits(dev, code, H, B, u, n)
                                  for u, n in tried) if p), None)
@@ -655,11 +654,6 @@ def lstm_plan(H, B, dtype=torch.float32, backward=False, units=None,
             "resident at once within the shared memory a block may use"
             % (H, B))
     return plan
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _lstm_check(what, gates_x, vectors, w, b):
