@@ -313,8 +313,7 @@ def check_bias_gelu(torch, timer, report):
             plain = timer(lambda: ep.bias_gelu_plain(x, b))
             e = x.element_size()
             bms, by = bound(e * (2 * R * C + C), 12 * R * C)
-            plan = (ep.bias_gelu_plan(R, C, e, ep._vec(x, b, out) > 1,
-                                      ep._sms(x.device.index))
+            plan = (ep.bias_gelu_plan(R, C, e, True, ep._sms(x.device.index))
                     if hasattr(ep, "bias_gelu_plan") else None)
             log("bias_gelu (%d, %d) %s: max_abs_err %.3g (tol %g%s) kernel "
                 "%.4f ms (timer floor %.4f) plain %.4f ms bound %.4f ms "
@@ -342,8 +341,10 @@ def bias_gelu_host(torch, ep, n=500):
     """The host's enqueue time of one call (us, median of 5 runs of n
     calls issued back to back, then one synchronize): bias_gelu, its
     plain version and ``F.gelu(x + b)`` (two PyTorch calls) at (16, 3072)
-    fp32, a per-op decode step's FFN1 epilogue, and at (64, 3072).  The
-    serving path is host-bound, so this is what a call costs it."""
+    fp32, a per-op decode step's FFN1 epilogue, and at (64, 3072); and two
+    parts of every wrapper's call, ``torch.empty_like`` and the current
+    stream.  The serving path is host-bound, so this is what a call costs
+    it."""
     import torch.nn.functional as F
     g = torch.Generator(device=DEV).manual_seed(7)
     out = {}
@@ -352,7 +353,10 @@ def bias_gelu_host(torch, ep, n=500):
         b = torch.randn(3072, device=DEV, generator=g)
         for name, fn in (("kernel", lambda: ep.bias_gelu(x, b)),
                          ("plain", lambda: ep.bias_gelu_plain(x, b)),
-                         ("F.gelu(x + b)", lambda: F.gelu(x + b))):
+                         ("F.gelu(x + b)", lambda: F.gelu(x + b)),
+                         ("empty_like", lambda: torch.empty_like(x)),
+                         ("current_stream", lambda: torch.cuda.current_stream(
+                             x.device).cuda_stream)):
             runs = []
             for _ in range(5):
                 torch.cuda.synchronize()

@@ -210,14 +210,16 @@ def _bias_gelu_forward(x, b):
         C = x.shape[-1]
         R = n // C
         same = b.dtype == x.dtype
+        xp, bp, op = x.data_ptr(), b.data_ptr(), out.data_ptr()
+        # the plan checks C; the vectors need x, out (and a bias of x's
+        # dtype, loaded as one) on 16 bytes
+        aligned = (xp | op | (bp if same else 0)) % 16 == 0
         vec, threads, rows, (gx, gy) = bias_gelu_plan(
-            R, C, x.element_size(),
-            (_vec(x, b, out) if same else _vec(x, out)) > 1,
-            _sms(x.device.index))
+            R, C, x.element_size(), aligned, _sms(x.device.index))
         lib = _lib()
         rc = lib.mxt_bias_gelu_fwd(
-            x.data_ptr(), b.data_ptr(), out.data_ptr(), R, C,
-            _GELU_DTYPES[x.dtype], int(not same), vec, threads, rows, gx, gy,
+            xp, bp, op, R, C, _GELU_DTYPES[x.dtype], int(not same), vec,
+            threads, rows, gx, gy,
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(lib, rc, "bias_gelu")
         bias_gelu.launches += 1
