@@ -32,7 +32,9 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
 - ``epilogue``: ``chip_smoke.check_bias_gelu`` (#1 held and timed at
   (16, 64, 4096) x 3072, a ragged C 770 and the tp 2 bias shard C 1536,
   fp32 and bf16, beside the timer's floor, with the host's enqueue µs a
-  call beside ``F.gelu(x + b)``'s), then the serving model served 48
+  call beside ``F.gelu(x + b)``'s; on a tree with ``bias_gelu_plan`` the
+  other launches of ``chip_smoke.GELU_LAUNCHES``), then the serving
+  model served 48
   requests per-op at tp 1 (12 launches of #1 a decode step and a prefill
   chunk): tokens/s, decode p50, prefill chunk p50;
 - ``lstm``: the LSTM kernels' build report (ptxas registers and spills),
@@ -143,7 +145,9 @@ def run(tree, phases, steps):
                              profile_steps=3, **kw)
             cs.log("bert %s: %s" % (name, json.dumps(st)))
     if "epilogue" in phases:
+        from mxnet_tpu_torch.ops.kernels import epilogue as ep
         cs.check_bias_gelu(torch, timer, {})
+        cs.bias_gelu_launches(torch, ep, timer)
         lm, _ = decode_models(cs, torch)
         _, _, _, st = cs.serve(torch, lm, cs.traffic(0, 48), "per_op", False)
         cs.log("epilogue serve per_op: %s" % json.dumps(st))

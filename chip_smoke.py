@@ -337,6 +337,58 @@ def check_bias_gelu(torch, timer, report):
     bias_gelu_host(torch, ep)
 
 
+#: launches of #1 timed beside its plan (``bias_gelu_launches``): (R, C,
+#: dtype name, elements a thread, threads, rows a pass, row groups or
+#: None for ceil(R / rows)); at (4096, 3072) a grid-strided launch of 8
+#: blocks of 128 threads an SM and one pass of 1, 2 or 4 rows, at the
+#: bf16 serving shapes 16- and 8-byte vectors of one or two rows
+GELU_LAUNCHES = tuple(
+    [(4096, 3072, dt, v, 128, 4, 1056 // (3072 // v // 128))
+     for dt, v in (("float32", 4), ("bfloat16", 8))]
+    + [(4096, 3072, dt, v, 128, r, None)
+       for dt, v in (("float32", 4), ("bfloat16", 8)) for r in (1, 2, 4)]
+    + [(R, C, "bfloat16", v, 128, r, None) for R, C in ((16, 3072),
+                                                       (64, 3072),
+                                                       (64, 1536))
+       for v in (8, 4) for r in (1, 2)])
+
+
+def bias_gelu_launches(torch, ep, timer, launches=GELU_LAUNCHES):
+    """#1 launched as each of ``launches`` describes (through the C entry
+    point, bypassing the plan), held against the plain version and timed;
+    a tree without ``bias_gelu_plan`` prints nothing."""
+    if not hasattr(ep, "bias_gelu_plan"):
+        return
+    from mxnet_tpu_torch.ops.kernels import _build
+    g = torch.Generator(device=DEV).manual_seed(8)
+    lib = ep._lib()
+    for R, C, name, vec, threads, rows, gy in launches:
+        dt = getattr(torch, name)
+        x = torch.randn(R, C, device=DEV, generator=g).to(dt)
+        b = torch.randn(C, device=DEV, generator=g).to(dt)
+        out = torch.empty_like(x)
+        gx, gy = -(-C // vec // threads), gy or -(-R // rows)
+
+        def launch():
+            _build.check(lib, lib.mxt_bias_gelu_fwd(
+                x.data_ptr(), b.data_ptr(), out.data_ptr(), R, C,
+                ep._GELU_DTYPES[dt], 0, vec, threads, rows, gx, gy,
+                torch.cuda.current_stream().cuda_stream), "bias_gelu")
+
+        launch()
+        ref = ep.bias_gelu_plain(x, b)
+        err = (float((out - ref).abs().max()) if dt == torch.float32
+               else within_bf16_step(out, ref))
+        log("bias_gelu (%d, %d) %s launched with %d elements a thread, %d "
+            "threads, %d rows a pass, grid (%d, %d): %.4f ms, max_abs_err "
+            "%.3g; the plan: %s" % (R, C, name, vec, threads, rows, gx, gy,
+                                    timer(launch), err,
+                                    ep.bias_gelu_plan(R, C, x.element_size(),
+                                                      True)))
+        if not err <= TOL_BIAS_GELU:
+            raise AssertionError("bias_gelu launch disagrees")
+
+
 def bias_gelu_host(torch, ep, n=500):
     """The host's enqueue time of one call (us, median of 5 runs of n
     calls issued back to back, then one synchronize): bias_gelu, its

@@ -174,12 +174,9 @@ def bias_gelu_plan(R, C, itemsize, aligned, sms=SMS):
       groups, at most 65535 (the kernel grid-strides over rows beyond
       them).
 
-    On an H100 (the module's design note in ``csrc/epilogue.cu``): at
-    (4096, 3072) a grid-strided launch of 8 blocks an SM took 0.0405 ms
-    (fp32) and 0.0284 (bf16) against 0.0398 and 0.0260 for one pass a
-    thread, and 4 fp32 rows a pass 0.0399-0.0404 against 0.0397-0.0398
-    for 2; at the bf16 serving shapes 8-byte vectors and one row a pass
-    were the fastest, by 0.0001-0.0002 ms."""
+    The choices were timed on an H100 against the other launches of
+    ``chip_smoke.GELU_LAUNCHES`` (a grid-strided launch at large R, other
+    rows a pass, 16-byte vectors at the serving shapes)."""
     small = R * C <= GELU_SMALL
     per = min(16 // itemsize, 4) if small else 16 // itemsize
     vec = per if aligned and C % per == 0 else 1
