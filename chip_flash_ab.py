@@ -9,6 +9,12 @@ parent, change, change, parent), each run a process of its own that
 imports that TREE's ``mxnet_tpu_torch`` and this checkout's
 ``chip_smoke.py``:
 
+- ``delta``: ``chip_smoke.check_flash_delta`` (the delta kernel held in
+  every case, bit for bit across views, shards and, on a tree with
+  ``delta_plan``, its other plans), then ``chip_smoke.delta_timing``
+  (fp32 and bf16 at B 32, H 12, L 128, D 32, 64 and 128 and at B 4,
+  L 2048, D 64; the plans of ``chip_smoke.DELTA_PLANS``; the flash
+  backward, delta + #6 + #7, of a BERT layer);
 - ``route``: ``chip_smoke.check_flash_delta``, then
   ``chip_smoke.check_sharded_attention`` with its profile of the #16
   route's backward (dp 2 x tp 2, B 32, H 12, L 128, D 64, causal):
@@ -90,8 +96,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("route", "kernels", "host", "bert", "amp", "epilogue", "lstm",
-          "tp", "paged", "fused", "qmm")
+PHASES = ("delta", "route", "kernels", "host", "bert", "amp", "epilogue",
+          "lstm", "tp", "paged", "fused", "qmm")
 
 
 def build(trees, names):
@@ -120,6 +126,9 @@ def run(tree, phases, steps):
     torch.backends.cudnn.allow_tf32 = False
     cs.log("card: %s" % cs.card_line())
     timer = cs.Timer(torch)
+    if "delta" in phases:
+        cs.check_flash_delta(torch, fa, timer, {})
+        cs.delta_timing(torch, fa, timer)
     if "route" in phases:
         cs.check_flash_delta(torch, fa, timer, {})
         cs.check_sharded_attention(torch, timer, {}, profile=True)
@@ -275,7 +284,8 @@ def main():
         print("chip_flash_ab: no CUDA device", file=sys.stderr)
         return 2
     trees = [os.path.abspath(t) for t in args.trees]
-    names = [n for n, ps in (("flash_attention", {"route", "kernels", "host"}),
+    names = [n for n, ps in (("flash_attention", {"delta", "route", "kernels",
+                                                 "host"}),
                              ("fused_decode", {"fused"}),
                              ("epilogue", {"epilogue"})) if ps & set(phases)]
     rcs = build(sorted(set(trees)), None if {"bert", "amp", "lstm", "tp",

@@ -734,8 +734,12 @@ def check_fused(torch, timer, report, lm, lm_gqa):
 
 
 QMM_SHAPES = ((768, 768), (3072, 768), (768, 3072))   # (O, I) of a layer
-# row shards at tp 2 and 4: out_proj (I 384, 192) and FFN2 at tp 2 (1536)
-QMM_TP_SHAPES = ((768, 384), (768, 192), (768, 1536))
+# the shards the quantized tensor-parallel runs launch: at tp 2 the column
+# shards of q, k, v (384, 768) and FFN1 (1536, 768), the row shards of the
+# out-projection (768, 384) and FFN2 (768, 1536); at tp 4 (192, 768),
+# (768, 192), and FFN1 and FFN2 both (768, 768), a layer's own shape
+QMM_TP_SHAPES = ((384, 768), (768, 384), (1536, 768), (768, 1536),
+                 (192, 768), (768, 192))
 # input dims no K stage divides, (fmt, O, I, group asked of quantize_w4):
 # int8 with unaligned code rows (I 100) and x rows (99); int4 groups that
 # w4_group shrinks to 8 (I 200), 40 (not a multiple of the MMA's k step)
@@ -1636,18 +1640,31 @@ def check_flash_strided_bwd(torch, fa, g, dt, B, H, L, D):
 TOL_DELTA = 1e-5
 
 
+# (B, H, L) beside FLASH_SHAPES where the delta kernel's split has edges:
+# fewer rows than a warp's step (3), rows no step divides (1155, 15015,
+# 2 * 3 * 37), and fewer rows than one wave at every D (222)
+DELTA_EDGE_SHAPES = ((1, 1, 3), (3, 5, 77), (5, 3, 1001), (2, 3, 37))
+# other delta_plan knobs checked bit for bit and timed beside the plan's
+# own: blocks an SM filled, and vectors of dO and of O a lane in flight
+DELTA_PLANS = tuple(dict(per_sm=s, unroll=u, evict_first=e)
+                    for e in (0, 1, 3) for u in (4, 8) for s in (2, 4, 8))
+
+
 def check_flash_delta(torch, fa, timer, report):
     """The delta kernel against its plain version in float32 and bfloat16
-    at D 32, 64 and 128 and the (B, H, L) of FLASH_SHAPES, each row's
-    error over its sum of |dO O|; its results on BERT's transposed dO and
-    per (dp 2, tp 2) shard of the route's shape equal the whole contiguous
-    call's bit for bit (its sum order depends on D and the dtype alone).
-    Timed at the training shape beside its plain version, its bound and,
-    in fp32, ``torch.linalg.vecdot`` (the same function in one call)."""
+    at D 32, 64 and 128 and the (B, H, L) of FLASH_SHAPES and
+    DELTA_EDGE_SHAPES, each row's error over its sum of |dO O|; its
+    results on BERT's transposed dO, per (dp 2, tp 2) shard where B and H
+    split, and (a tree with ``delta_plan``) under every other plan of
+    DELTA_PLANS equal the whole contiguous call's bit for bit (its sum
+    order depends on D and the dtype alone).  Timed at the training shape
+    beside its plain version, its bound and, in fp32,
+    ``torch.linalg.vecdot`` (the same function in one call)."""
     g = torch.Generator(device=DEV).manual_seed(18)
+    planned = hasattr(fa, "delta_plan")
     worst, n = 0.0, 0
     for dt in (torch.float32, torch.bfloat16):
-        for B, H, L in FLASH_SHAPES:
+        for B, H, L in FLASH_SHAPES + DELTA_EDGE_SHAPES:
             for D in FLASH_DIMS[str(dt)[6:]]:
                 do, out = (torch.randn(B, H, L, D, device=DEV,
                                        generator=g).to(dt) for _ in range(2))
@@ -1675,14 +1692,24 @@ def check_flash_delta(torch, fa, timer, report):
                         for t in range(2)] for d in range(2)]
                     same.append(torch.cat([torch.cat(r, dim=1)
                                            for r in parts], dim=0))
+                if planned:
+                    rows = B * H * L
+                    for kw in DELTA_PLANS:
+                        same.append(fa.flash_attention_bwd_delta(
+                            do, out, plan=fa.delta_plan(
+                                rows, D, do.element_size(),
+                                fa._sms(do.device.index), **kw)))
                 if not all(torch.equal(t, got) for t in same):
                     raise AssertionError(
                         "flash_attention_bwd_delta (B %d, H %d, L %d, D %d) "
-                        "%s: a view or the shards differ from the whole "
-                        "contiguous call" % (B, H, L, D, str(dt)[6:]))
+                        "%s: a view, the shards or another plan differ from "
+                        "the whole contiguous call"
+                        % (B, H, L, D, str(dt)[6:]))
     log("flash_attention_bwd_delta: %d cases pass, worst error / the row's "
-        "sum of |dO O| %.3g (tol %g); transposed dO and dp 2 x tp 2 shards "
-        "bit for bit the whole call" % (n, worst, TOL_DELTA))
+        "sum of |dO O| %.3g (tol %g); transposed dO, dp 2 x tp 2 shards%s "
+        "bit for bit the whole call"
+        % (n, worst, TOL_DELTA,
+           " and %d other plans" % len(DELTA_PLANS) if planned else ""))
     if not worst <= TOL_DELTA:
         raise AssertionError("flash_attention_bwd_delta disagrees with its "
                              "plain version: %g" % worst)
@@ -1704,10 +1731,13 @@ def check_flash_delta(torch, fa, timer, report):
         bms, by = bound(2 * do.numel() * do.element_size() + B * H * L * 4,
                         2 * do.numel())
         log("flash_attention_bwd_delta (B %d, H %d, L %d, D %d) %s: max abs "
-            "err %.3g; kernel %.4f ms plain %.4f ms bound %.4f ms (%s) %s"
+            "err %.3g; kernel %.4f ms plain %.4f ms bound %.4f ms (%s) %s%s"
             % (B, H, L, D, str(dt)[6:], err, ms, plain_ms, bms, by,
                "torch.linalg.vecdot %.4f ms" % lib if f32 else
-               "(no single PyTorch call sums bf16 products in fp32)"))
+               "(no single PyTorch call sums bf16 products in fp32)",
+               "; plan %s" % (fa.delta_plan(B * H * L, D, do.element_size(),
+                                            fa._sms(do.device.index)),)
+               if planned else ""))
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    library_ms=lib, max_abs_err=err)
         if f32:
@@ -1718,6 +1748,103 @@ def check_flash_delta(torch, fa, timer, report):
                 "reduction, not a TPU kernel)", **row)
         else:
             report["flash_delta_bf16"] = row
+
+
+def delta_bound(B, H, L, D, itemsize):
+    """(ms, by) of the delta kernel: dO and O read once, delta written
+    once; D products and sums a row."""
+    return bound(2 * B * H * L * D * itemsize + B * H * L * 4,
+                 2 * B * H * L * D)
+
+
+def clean_l2_time(torch, timer, fn, iters=20, spin=FLASH_SPIN):
+    """``fn``'s median time as ``Timer`` takes it, but with the L2 emptied
+    by reading the flush buffer instead of writing it: the L2 then holds
+    clean lines, which the kernel's loads evict with no write-back.  A
+    diagnostic of what the timer's dirty L2 costs a streaming kernel."""
+    fn()
+    words = timer.flush.view(torch.int32)
+    ms = []
+    for _ in range(iters):
+        words.amax()
+        torch.cuda._sleep(spin)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ms.append(s.elapsed_time(e))
+    return statistics.median(ms)
+
+
+def delta_timing(torch, fa, timer):
+    """The delta kernel's times in fp32 and bf16 at the training shape
+    (B 32, H 12, L 128) at D 32, 64 and 128 and at the long shape (B 4,
+    L 2048, D 64), beside the bound; at D 64 (a tree with ``delta_plan``)
+    every plan of DELTA_PLANS beside the plan's own; then the flash
+    backward of a BERT layer (the delta kernel, #6 and #7 at D 64,
+    kv_length and dropout 0.1) at the training shape in both dtypes."""
+    g = torch.Generator(device=DEV).manual_seed(19)
+    planned = hasattr(fa, "delta_plan")
+    H = BERT["num_heads"]
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        for B, L, D in ([(TRAIN_B, TRAIN_L, d) for d in (32, 64, 128)]
+                        + [(LONG_B, LONG_L, 64)]):
+            do, out = (torch.randn(B, H, L, D, device=DEV,
+                                   generator=g).to(dt) for _ in range(2))
+            ms = timer(lambda: fa.flash_attention_bwd_delta(do, out),
+                       spin=FLASH_SPIN)
+            clean = clean_l2_time(torch, timer, lambda: (
+                fa.flash_attention_bwd_delta(do, out)))
+            bms, by = delta_bound(B, H, L, D, do.element_size())
+            rows, sms = B * H * L, torch.cuda.get_device_properties(
+                do.device).multi_processor_count
+            log("delta timing (B %d, H %d, L %d, D %d) %s: kernel %.4f ms "
+                "(after a read flush, the L2 clean: %.4f ms) bound %.4f ms "
+                "(%s)%s" % (
+                    B, H, L, D, name, ms, clean, bms, by, "; plan %s" % (
+                        fa.delta_plan(rows, D, do.element_size(), sms),)
+                    if planned else ""))
+            if not planned or D != 64:
+                continue
+            want = fa.flash_attention_bwd_delta(do, out)
+            for kw in DELTA_PLANS:
+                plan = fa.delta_plan(rows, D, do.element_size(), sms, **kw)
+                got = fa.flash_attention_bwd_delta(do, out, plan=plan)
+                t = timer(lambda: fa.flash_attention_bwd_delta(
+                    do, out, plan=plan), spin=FLASH_SPIN)
+                log("delta timing (B %d, H %d, L %d, D %d) %s plan %s: "
+                    "%.4f ms, bit-equal %s"
+                    % (B, H, L, D, name, plan, t, torch.equal(got, want)))
+                if not torch.equal(got, want):
+                    raise AssertionError("delta plan %s changes the bits"
+                                         % (plan,))
+        B, L, D = TRAIN_B, TRAIN_L, 64
+        q, k, v, do = (torch.randn(B, H, L, D, device=DEV,
+                                   generator=g).to(dt) for _ in range(4))
+        kvl = pretrain_batch(torch, 0, B, L, DEV)["valid"].to(torch.int32)
+        seed = torch.randint(0, 2 ** 32, (1,), dtype=torch.int64, device=DEV,
+                             generator=g)
+        kw = dict(dropout=0.1, seed=seed, kv_length=kvl)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+
+        def backward(**plan):
+            delta = fa.flash_attention_bwd_delta(do, out, **plan)
+            fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+
+        log("flash backward timing (B %d, H %d, L %d, D %d, kv_length, rate "
+            "0.1) %s: delta + #6 + #7 %.4f ms"
+            % (B, H, L, D, name, timer(backward, spin=2 * FLASH_SPIN)))
+        for ef in (0, 1, 3) if planned else ():
+            plan = fa.delta_plan(B * H * L, D, do.element_size(),
+                                 fa._sms(do.device.index), evict_first=ef)
+            log("flash backward timing (B %d, H %d, L %d, D %d) %s, the "
+                "delta plan %s: %.4f ms" % (
+                    B, H, L, D, name, plan, timer(lambda: backward(
+                        plan=plan), spin=2 * FLASH_SPIN)))
 
 
 def check_flash_attention(torch, timer, report):
@@ -1769,6 +1896,7 @@ def check_flash_attention(torch, timer, report):
     check_flash_mask(torch, fa)
     check_flash_strided(torch, fa)
     check_flash_delta(torch, fa, timer, report)
+    delta_timing(torch, fa, timer)
     flash_timing(torch, fa, timer, torch.float32, report)
     report["flash_bf16"] = flash_timing(torch, fa, timer, torch.bfloat16,
                                         report)
@@ -2863,7 +2991,7 @@ def serve(torch, lm, reqs, label, fused, sharding=None, **quant):
         want["bias_gelu"] = (chunks + steps) * L * tp
     if eng.quant is not None:
         fmt = "w8" if eng.quant[0] == "int8" else "w4"
-        want["quant_matmul_" + fmt] = 6 * L * (steps + chunks)
+        want["quant_matmul_" + fmt] = 6 * L * tp * (steps + chunks)
     gen = sum(len(o["tokens"]) for o in outs)
     step = snap["generate"]["decode_step"]
     log("serve %s (decode %s, weights %s, kv %s, tp %d): %d requests, %d "
@@ -2893,6 +3021,40 @@ def serve(torch, lm, reqs, label, fused, sharding=None, **quant):
         tokens_per_s=gen / wall, decode_step_p50_ms=step["p50_ms"],
         decode_step_p99_ms=step["p99_ms"],
         prefill_chunk_p50_ms=statistics.median(chunk_ms), tp=tp)
+
+
+# quantized tensor-parallel serving runs: (label, tp, engine arguments)
+QUANT_TP_RUNS = (("int8_kv8_tp2", 2, dict(quantize="int8", kv_dtype="int8")),
+                 ("int4_tp4", 4, dict(quantize="int4", quant_group=128)))
+
+
+def check_quant_tp(torch, runs, seqs, tf8, fp_ref, cfg):
+    """The quantized TP runs' logits, teacher-forced through each engine's
+    own prefill and decode programs: int8 weights + int8 KV at tp 2
+    against the tp 1 int8_kv8 engine's (``tf8``; the codes and each KV
+    head's scale latch are the same at any tp, but the row-parallel sums
+    run in another order, so K and V can round to neighbouring codes:
+    ``TOL_LOGITS_INT8KV``); int4 at tp 4 against ``full_forward`` over the
+    engine's own tp 4 integer weights (``TOL_LOGITS``), with its top-1
+    agreement with the fp32 model."""
+    eng = runs["int8_kv8_tp2"][0]
+    tf = teacher_forced(torch, eng, eng.params, seqs)
+    err = max_err(tf, tf8)
+    log("teacher-forced int8_kv8_tp2 vs the tp 1 int8_kv8 engine over %d "
+        "sequences: max_abs_err %.3g (tol %g); top-1 agreement with the fp32 "
+        "model %.4f" % (len(seqs), err, TOL_LOGITS_INT8KV,
+                        top1_agreement(tf, fp_ref)))
+    if not err <= TOL_LOGITS_INT8KV:
+        raise AssertionError("int8/int8-KV tp 2 logits disagree with tp 1")
+    eng = runs["int4_tp4"][0]
+    tf = teacher_forced(torch, eng, eng.params, seqs)
+    err = max_err(tf, full_logits(torch, eng.model.params(tp=4), cfg, seqs))
+    log("teacher-forced int4_tp4 vs full_forward(its tp 4 int4 weights) over "
+        "%d sequences: max_abs_err %.3g (tol %g); top-1 agreement with the "
+        "fp32 model %.4f" % (len(seqs), err, TOL_LOGITS,
+                             top1_agreement(tf, fp_ref)))
+    if not err <= TOL_LOGITS:
+        raise AssertionError("int4 tp 4 logits disagree with full_forward")
 
 
 def fresh_pool(torch, kv_dtype, shape, dev):
@@ -3625,6 +3787,24 @@ def main():
                              ("tp2_per_op", False, 2)):
         runs[label] = serve(torch, lm, reqs, label, fused,
                             sharding=tp_sharding(tp))
+    # quantized tensor-parallel serving: each asks for the fused step and
+    # must be given the per-op one; int4 at tp 4 quantizes wo with group 64
+    # (its shard's 192 inputs)
+    for label, tp, quant in QUANT_TP_RUNS:
+        runs[label] = serve(torch, lm, reqs, label, True,
+                            sharding=tp_sharding(tp), **quant)
+        eng = runs[label][0]
+        wo = eng.params[0]["layers"][0]["wo"]
+        log("serve %s: decode step %s; wo's shard %s with %s scales"
+            % (label, "fused" if eng.decode_fused else "per-op",
+               tuple(wo.q.shape), tuple(wo.s.shape)))
+        if eng.decode_fused or eng.tp != tp:
+            raise AssertionError("%s: a quantized engine must take the "
+                                 "per-op TP step at tp %d" % (label, tp))
+    same = sum(a["tokens"] == b["tokens"] for a, b in zip(
+        runs["int8_kv8"][1], runs["int8_kv8_tp2"][1]))
+    log("int8_kv8_tp2 streams identical to the tp 1 int8_kv8 run's for %d of "
+        "%d requests" % (same, len(reqs)))
     outs_f = runs["fused"][1]
     for label in ("per_op", "tp2_fused", "tp4_fused", "tp2_per_op"):
         same = sum(a["tokens"] == b["tokens"]
@@ -3681,6 +3861,7 @@ def main():
     if not err <= TOL_LOGITS_INT8KV:
         raise AssertionError("int8-KV engine logits on the card disagree "
                              "with the CPU")
+    check_quant_tp(torch, runs, seqs, tf8, fp_ref, cfg)
     if args.profile:
         for fused, tp in ((True, 1), (False, 1), (True, 2)):
             profile(torch, lm, reqs[:16], fused,

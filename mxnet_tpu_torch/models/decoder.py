@@ -30,7 +30,8 @@ runs on one card, so the shards run in turn there and the all-reduce is a
 fixed-order sum; the page pools keep the tp = 1 layout, a shard's slab
 being a contiguous view (:meth:`TPPlan.kv_view`).  The fused TP step runs
 one ``fused_cell.decode_attn_phase`` and one ``decode_ffn_phase`` launch
-per layer per shard.
+per layer per shard (fp weights and fp pages only); the per-op TP step and
+the TP chunk also take quantized shards and int8 ``QPages`` slabs.
 
 Quantized serving: the six GEMM leaves (:data:`_QUANT_KINDS`) may be
 ``quant_matmul.QuantW8``/``QuantW4`` (``serving.quantize``), which every
@@ -150,53 +151,57 @@ def _quantized(params):
 # KV page access: fp tensors or int8 QPages behind one set of helpers
 # ---------------------------------------------------------------------------
 def _kv_append(pages, li, wp, ws, val):
-    """Scatter new tokens into layer ``li``'s pages, in place.
+    """Scatter new tokens into layer ``li``'s pages of an engine pool
+    ``(L, KVH, P, S, D)`` (or :class:`~..ops.kernels.paged_attention.
+    QPages` of that layout), in place: :func:`_kv_write` on the layer's
+    view."""
+    _kv_write(_kv_layer(pages, li), wp, ws, val)
+
+
+def _kv_write(pages_li, wp, ws, val):
+    """Scatter new tokens into one layer's pages, in place: fp pages
+    ``(KVH, P, S, D)`` or int8 ``QPages`` of that layer (codes of that
+    shape, scales ``(KVH, P)``), whole or a tensor-parallel shard's
+    KV-head slab (:meth:`TPPlan.kv_view`), written where they lie.
 
     ``wp``/``ws``: (..., T) write page/slot per token; the last axis holds
     consecutive positions of one sequence (decode passes T=1, prefill the
     chunk); ``val``: ``ws.shape + (KVH, D)``, the layout of the JAX
     package's ``pages.at[li, :, wp, ws, :].set(val)``.  NumPy counts the
     integer ``li`` as an advanced index, so there the index dimensions go
-    first; torch applies ``li`` as a plain index and keeps the (adjacent)
+    first; torch indexes the layer's view and keeps the (adjacent)
     page/slot dimensions in place, behind the KV-head axis — hence the
     explicit moves of the head axis of ``val``, of the codes and of the
     scales.
 
-    int8 :class:`~..ops.kernels.paged_attention.QPages` quantize with the
-    page-start scale latch: a token landing at page slot 0 sets its page's
-    per-head scale to ``amax / 127``; every other token reuses the scale
-    its page start latched — looked up in this call's window when the
-    start is in it (``src = t - ws``), from the scales pool otherwise."""
+    int8 pages quantize with the page-start scale latch: a token landing
+    at page slot 0 sets its page's per-head scale to ``amax / 127``; every
+    other token reuses the scale its page start latched — looked up in
+    this call's window when the start is in it (``src = t - ws``), from
+    the scales pool otherwise.  The latch is per KV head, so a shard's
+    slab latches the scales the whole pool would."""
     wpl, wsl = wp.long(), ws.long()
-    if not isinstance(pages, _paged.QPages):
-        _kv_write(pages[li], wpl, wsl, val)
+    if not isinstance(pages_li, _paged.QPages):
+        pages_li[:, wpl, wsl, :] = val.movedim(-2, 0)
         return
     vf = val.to(torch.float32)
     amax = vf.abs().amax(dim=-1)                        # ws.shape + (KVH,)
     fresh = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    old = pages.s[li][:, wpl].movedim(0, -1)            # ws.shape + (KVH,)
+    old = pages_li.s[:, wpl].movedim(0, -1)             # ws.shape + (KVH,)
     t = ws.shape[-1]
     src = torch.arange(t, device=ws.device) - wsl       # page-start index
     start_fresh = torch.take_along_dim(
         fresh, src.clamp(0, t - 1)[..., None], dim=-2)
     snew = torch.where((src >= 0)[..., None], start_fresh, old)
     codes = torch.round(vf / snew[..., None]).clamp(-127, 127).to(torch.int8)
-    pages.q[li][:, wpl, wsl, :] = codes.movedim(-2, 0)
-    pages.s[li][:, wpl] = snew.movedim(-1, 0)
-
-
-def _kv_write(pages_li, wp, ws, val):
-    """fp pages: scatter ``val`` (``ws.shape + (KVH, D)``) into one layer's
-    (KVH, P, S, D) pages at (``wp``, ``ws``), in place."""
-    pages_li[:, wp.long(), ws.long(), :] = val.movedim(-2, 0)
+    pages_li.q[:, wpl, wsl, :] = codes.movedim(-2, 0)
+    pages_li.s[:, wpl] = snew.movedim(-1, 0)
 
 
 def _kv_layer(pages, li):
     """Layer ``li``'s page view (``QPages[li]`` would index the tuple's
     fields, not the layer axis)."""
-    if isinstance(pages, _paged.QPages):
-        return _paged.QPages(q=pages.q[li], s=pages.s[li])
-    return pages[li]
+    return _paged.kv_heads(pages, li)
 
 
 def _gather_kv(pages_li, tables):
@@ -275,32 +280,42 @@ class TPPlan:
 
     def shard_params(self, params):
         """The tp per-shard weight dicts ``[{"embed", "pos", "layers"}]``
-        of a full fp32 weight dict, built once (at engine init).  Column
-        shards (:data:`_TP_COLUMN`) are contiguous row slices of the full
-        tensors (views); row shards of ``wo``/``w2`` are contiguous copies
-        of column slices, as the phase kernels read them; ``bo``, ``b2``,
-        the LN affines and the embeddings are the full tensors, shared."""
-        if _quantized(params):
-            raise NotImplementedError(
-                "quantized tensor-parallel serving is not ported yet")
+        of a full weight dict, fp32 or quantized, built once (at engine
+        init).  Column shards (:data:`_TP_COLUMN`) are contiguous row
+        slices of the full tensors (views); row shards of ``wo``/``w2`` are
+        contiguous copies of column slices, as the phase kernels read
+        them; ``bo``, ``b2``, the LN affines and the embeddings are the
+        full tensors, shared.  Quantized leaves (``QuantW8``/``QuantW4``)
+        are cut by ``quant_matmul.shard_quantized`` along the same axes, as
+        the JAX plan's ``param_specs`` places them: the codes follow the
+        fp weight's axes, int8 scales its output axis only (replicated on
+        the row shards), int4 group scales both."""
         tp = self.tp
         shards = [{"embed": params["embed"], "pos": params["pos"],
                    "layers": []} for _ in range(tp)]
         for lp in params["layers"]:
+            parts = {k: self._cut(lp[k], 0) for k in _TP_COLUMN}
+            parts.update((k, self._cut(lp[k], 1)) for k in _TP_ROW)
             for r in range(tp):
                 d = dict(lp)
-                for k in _TP_COLUMN:
-                    d[k] = lp[k].chunk(tp, dim=0)[r]
-                for k in _TP_ROW:
-                    d[k] = lp[k].chunk(tp, dim=1)[r].contiguous()
+                d.update((k, p[r]) for k, p in parts.items())
                 shards[r]["layers"].append(d)
         return shards
 
+    def _cut(self, w, dim):
+        """A leaf's tp parts along ``dim`` (0: column, 1: row)."""
+        if _qmm.is_quantized(w):
+            return _qmm.shard_quantized(w, self.tp, dim)
+        parts = w.chunk(self.tp, dim=dim)
+        return [p.contiguous() for p in parts] if dim else list(parts)
+
     def kv_view(self, pages, li, r):
         """Shard ``r``'s page slab of layer ``li``: its KV heads of the
-        engine's ``(L, KVH, total, S, D)`` pool, a contiguous view."""
+        engine's ``(L, KVH, total, S, D)`` pool, or of ``QPages`` of that
+        layout (codes and their ``(L, KVH, total)`` scales split alike), a
+        contiguous view."""
         n = self.local_cfg.num_kv_heads
-        return pages[li, r * n:(r + 1) * n]
+        return _paged.kv_heads(pages, li, r * n, (r + 1) * n)
 
 
 def tp_plan(cfg, sharding):
@@ -336,23 +351,22 @@ def tp_plan(cfg, sharding):
     return TPPlan(sharding, cfg)
 
 
-def _tp_inputs(params, k_pages, plan):
-    """The per-shard weights a TP step takes, checked, with fp pages."""
+def _tp_inputs(params, plan):
+    """The per-shard weights a TP step takes (fp or quantized; the pages fp
+    or ``QPages``), checked."""
     if not isinstance(params, (list, tuple)) or len(params) != plan.tp:
         raise TypeError("a tensor-parallel step takes the %d per-shard weight "
                         "dicts of TPPlan.shard_params, not %s"
                         % (plan.tp, type(params).__name__))
-    if isinstance(k_pages, _paged.QPages):
-        raise NotImplementedError(
-            "quantized tensor-parallel serving is not ported yet")
     return params
 
 
 def _ffn_part(x, lp):
     """A shard's FFN partial product, per op: FFN1 on its column shard, the
-    bias_gelu kernel, FFN2 on its row shard with no bias."""
-    return F.linear(_epilogue.bias_gelu(F.linear(x, lp["w1"]), lp["b1"]),
-                    lp["w2"])
+    bias_gelu kernel, FFN2 on its row shard with no bias (fp leaves by
+    ``F.linear``, quantized ones by ``quant_matmul``)."""
+    return _proj(_epilogue.bias_gelu(_proj(x, lp["w1"]), lp["b1"]),
+                 lp["w2"])
 
 
 def _layer_tail_tp(x, o_parts, lps, plan, ffn_part=_ffn_part):
@@ -421,7 +435,7 @@ def make_decode_step(cfg, page_size, plan=None):
 
     fn(params, k_pages, v_pages, tokens, positions, page_tables, active)
       params:     fp or quantized weights (GEMMs through quant_matmul); with
-                  a plan, the fp per-shard list of ``plan.shard_params``
+                  a plan, the per-shard list of ``plan.shard_params``
       k_pages/v_pages: (layers, KVH, total_pages, page_size, head_dim),
                        or QPages of that layout, updated in place
       tokens:     (B,) int — this step's input token per slot
@@ -473,11 +487,16 @@ def _tp_decode_step(cfg, S, plan, fused):
         _kv_write(vp, wp[:, None], ws[:, None], v[:, None])
         att = _paged.paged_attention(q.contiguous(), kp, vp, lengths,
                                      page_tables)
-        return F.linear(att.reshape(x.shape[0], Cl), lp["wo"])
+        return _proj(att.reshape(x.shape[0], Cl), lp["wo"])
 
     def step(params, k_pages, v_pages, tokens, positions, page_tables,
              active):
-        shards = _tp_inputs(params, k_pages, plan)
+        shards = _tp_inputs(params, plan)
+        if fused and (isinstance(k_pages, _paged.QPages)
+                      or _quantized(shards[0])):
+            raise ValueError("make_decode_step_fused: the phase kernels take "
+                             "fp32 weights and fp32 pages; quantized weights "
+                             "or int8 QPages take make_decode_step")
         x, wp, ws, lengths = _step_inputs(shards[0], cfg, S, tokens,
                                           positions, page_tables, active)
         meta = torch.stack([wp, ws])
@@ -606,7 +625,7 @@ def make_prefill_chunk(cfg, page_size, chunk, plan=None):
 
     def prefill(params, k_pages, v_pages, tokens, pos0, n_valid, page_row):
         if plan is not None:
-            params = _tp_inputs(params, k_pages, plan)
+            params = _tp_inputs(params, plan)
         base = params[0] if plan is not None else params
         dev = page_row.device
         pps = page_row.shape[0]
@@ -639,8 +658,8 @@ def make_prefill_chunk(cfg, page_size, chunk, plan=None):
                           plan.kv_view(v_pages, li, r))
                 _kv_write(kp, wp, ws, k)
                 _kv_write(vp, wp, ws, v)
-                o_parts.append(F.linear(attend(q, kp, vp, page_row, causal),
-                                        lp["wo"]))
+                o_parts.append(_proj(attend(q, kp, vp, page_row, causal),
+                                     lp["wo"]))
             x = _layer_tail_tp(x, o_parts, lps, plan)
         last = x[min(max(int(n_valid) - 1, 0), P - 1)]
         last_logits = _logits(last, base)

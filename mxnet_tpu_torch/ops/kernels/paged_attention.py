@@ -37,7 +37,7 @@ from . import _build
 
 __all__ = ["paged_attention", "paged_attention_reference", "gather_pages",
            "gather_pages_deq", "attend_ctx", "copy_page", "QPages",
-           "paged_attention_times", "PAGED_PHASES"]
+           "kv_heads", "paged_attention_times", "PAGED_PHASES"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +57,19 @@ class QPages(NamedTuple):
     it (``models.decoder._kv_append``)."""
     q: torch.Tensor
     s: torch.Tensor
+
+
+def kv_heads(pages, li, lo=0, hi=None):
+    """Layer ``li``'s pages of KV heads ``lo:hi`` (all by default) from an
+    engine pool ``(L, KVH, P, S, D)``, or from :class:`QPages` of that
+    layout (codes ``(hi - lo, P, S, D)`` and scales ``(hi - lo, P)``): a
+    contiguous view, which :func:`paged_attention` reads and
+    ``models.decoder._kv_write`` writes in place, with no copy.  A
+    tensor-parallel shard's slab is its KV heads (``decoder.TPPlan.
+    kv_view``)."""
+    if isinstance(pages, QPages):
+        return QPages(q=pages.q[li, lo:hi], s=pages.s[li, lo:hi])
+    return pages[li, lo:hi]
 
 
 def gather_pages(pages, page_indices):

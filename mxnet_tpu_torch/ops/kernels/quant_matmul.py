@@ -35,6 +35,7 @@ from . import _build
 
 __all__ = ["QuantW8", "QuantW4", "is_quantized", "group_for", "w4_group",
            "quantize_w8", "quantize_w4", "pack_int4", "unpack_int4",
+           "shard_quantized",
            "dequantize_weight", "quant_matmul", "quant_matmul_plain",
            "qmm_plan", "QmmPlan", "qmm_phase_times"]
 
@@ -133,6 +134,37 @@ def dequantize_weight(qw):
     w = (unpack_int4(qw.q).to(torch.float32).reshape(o, g, i // g)
          * qw.s[:, :, None])
     return w.reshape(o, i)
+
+
+def shard_quantized(qw, tp, dim):
+    """Cut an integer weight into its ``tp`` tensor-parallel parts, as the
+    JAX plan places them (``mxnet_tpu/models/decoder.py:TPPlan.
+    param_specs``): ``dim`` 0 is a column shard (output channels: ``q``
+    and ``s`` split along O, contiguous views), ``dim`` 1 a row shard
+    (input dims, contiguous copies): int8 ``q`` split along I with ``s``
+    replicated (the same tensor in every part), int4 ``q`` along its
+    packed bytes (I / 2) and ``s`` along its groups.  An int4 row shard
+    whose boundary would cut a scale group raises ``ValueError``
+    (``quantize_params(tp=)`` shrinks the group so none does)."""
+    tp, dim = int(tp), int(dim)
+    o, i = qw.q.shape[0], _in_dim(qw)
+    n = (o, i)[dim]
+    if dim not in (0, 1) or tp < 1 or n % tp:
+        raise ValueError("shard_quantized: %d %s do not split %d ways"
+                         % (n, ("outputs", "inputs")[dim], tp))
+    if dim == 0:
+        return [type(qw)(q=q, s=s) for q, s in zip(qw.q.chunk(tp, 0),
+                                                    qw.s.chunk(tp, 0))]
+    if isinstance(qw, QuantW8):
+        return [QuantW8(q=q.contiguous(), s=qw.s) for q in qw.q.chunk(tp, 1)]
+    groups = qw.s.shape[1]
+    if groups % tp or (i // tp) % 2:
+        raise ValueError(
+            "shard_quantized: int4 groups of %d inputs straddle the %d-input "
+            "row shards of tp %d (quantize with quantize_params(tp=%d))"
+            % (i // groups, i // tp, tp, tp))
+    return [QuantW4(q=q.contiguous(), s=s.contiguous())
+            for q, s in zip(qw.q.chunk(tp, 1), qw.s.chunk(tp, 1))]
 
 
 def _in_dim(qw):

@@ -33,8 +33,12 @@ The port of ``mxnet_tpu/serving/generate.py``'s synchronous core:
   paged-attention kernel per shard, and the shards' partial products are
   summed by ``models.decoder._all_reduce``.  The port runs on one card, so
   the shards run there in turn.  A geometry tp does not divide serves
-  replicated, with a warning, as in the JAX engine.  Quantized weights or
-  int8 KV pages under ``sharding=`` are not ported yet and raise.
+  replicated, with a warning, as in the JAX engine.  Quantized weights
+  and int8 KV pages serve under ``sharding=`` too, through the per-op TP
+  step: each shard's GEMMs launch ``quant_matmul`` on its cut of the
+  integer weights, its attention the int8-page kernel on its KV heads'
+  slab; int4 weights are quantized with the shard-local group
+  (``QuantizedLM.params(tp=)``).
 
 The KV page pools are tensors on the engine's device, updated in place by
 every step (the JAX engine donates them to each jitted step instead).
@@ -45,8 +49,7 @@ Not ported yet, and refused with ``NotImplementedError`` when asked for:
 the async decode pipeline (``async_decode``/``MXNET_GEN_ASYNC``),
 decode sessions and migration (``session=``, ``migrate``, ``pagestore``),
 the prefix cache (``prefix_cache``/``MXNET_GEN_PREFIX_CACHE``),
-speculative decoding, role specialization, and quantized serving under
-tensor parallelism.
+speculative decoding and role specialization.
 
 Admission control mirrors the JAX engine: a bounded queue sheds with
 ``QueueFullError``, draining rejects with ``ServerClosedError``,
@@ -185,12 +188,13 @@ def _check_quant_matmul_lane():
 
 def _kernels_per_layer(quant, kv_dtype, tp):
     """Kernel launches per layer of one per-op decode step and of one
-    prefill chunk (each of the tp shards launches its own)."""
+    prefill chunk (each of the tp shards launches its own: one
+    ``quant_matmul`` a GEMM of its six)."""
     decode = {"paged_attention_int8" if kv_dtype == "int8"
               else "paged_attention": tp, "bias_gelu": tp}
     prefill = {"bias_gelu": tp}
     if quant is not None:
-        decode["quant_matmul"] = prefill["quant_matmul"] = 6
+        decode["quant_matmul"] = prefill["quant_matmul"] = 6 * tp
     return decode, prefill
 
 
@@ -281,15 +285,14 @@ class DecodeEngine:
         # tp does not divide resolves to None (tp_plan warns) and serves
         # replicated
         self._tp_plan = _decoder.tp_plan(self.cfg, sharding)
-        if self._tp_plan is not None and (self.quant is not None
-                                          or self.kv_dtype == "int8"):
-            raise NotImplementedError(
-                "quantized tensor-parallel serving is not ported yet "
-                "(weights %r, kv_dtype %s under sharding=%s)"
-                % (self.quant, self.kv_dtype, sharding.describe()))
         self.sharding = sharding if self._tp_plan is not None else None
         self.tp = self._tp_plan.tp if self._tp_plan is not None else 1
-        self.params = model.params()
+        # int4 scale groups must not straddle the row-parallel shards: a
+        # quantized model gives the params quantized with the shard-local
+        # group at this tp (int8 ignores it), as the JAX engine re-derives
+        # them (mxnet_tpu/serving/generate.py:320-324)
+        self.params = (model.params(tp=self.tp) if self.quant is not None
+                       else model.params())
         if self._tp_plan is not None:
             self.params = self._tp_plan.shard_params(self.params)
         self.slots = int(slots if slots is not None

@@ -22,9 +22,14 @@ KV-cache quantization (``kv_dtype="int8"``) is the engine's side: pages
 hold int8 codes with one scale per (layer, KV head, page), latched by the
 first token written to the page (``ops/kernels/paged_attention.QPages``).
 
-Not ported: quantization for tensor-parallel serving (``tp > 1``, whose
-int4 groups shrink to the per-shard input dim) and the
-``calibrate_kv_ranges`` diagnostic.
+Under tensor parallelism an int4 scale group must not straddle the
+row-parallel shards of ``wo`` and ``w2`` (a scale spans a contiguous
+range of inputs, a shard owns its own range), so ``quantize_params(tp=)``
+and :meth:`QuantizedLM.params` shrink those leaves' group to divide the
+per-shard input dim, as the JAX package does; int8's per-channel scales
+need nothing.
+
+Not ported: the ``calibrate_kv_ranges`` diagnostic.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import torch
 from ..models import decoder as _decoder
 from ..ops.kernels import quant_matmul as _qmm
 
-__all__ = ["QuantizedLM", "quantize_lm", "quantize_params"]
+__all__ = ["QuantizedLM", "quantize_lm", "quantize_params", "tp_group"]
 
 _MODES = ("int8", "int4")
 
@@ -51,13 +56,12 @@ def quantize_params(params, mode="int8", group=128, tp=1):
     ``params`` is the ``CausalLM.params()`` dict; the qkv/proj/ffn weights
     become :class:`QuantW8`/:class:`QuantW4` on the weights' device,
     everything else is returned as is.  The codes and scales are the JAX
-    package's, bit for bit.  ``tp > 1`` (tensor-parallel groups) is not
-    ported and raises ``NotImplementedError``."""
+    package's, bit for bit.  With ``tp > 1`` the int4 group of the
+    row-parallel ``wo`` and ``w2`` shrinks to divide their per-shard input
+    dim (:func:`tp_group`), as ``mxnet_tpu/serving/quantize.py:74-83``
+    does."""
     _check_mode(mode)
-    if int(tp) > 1:
-        raise NotImplementedError(
-            "quantize_params(tp=%d): tensor-parallel quantization is not "
-            "ported to mxnet_tpu_torch yet" % int(tp))
+    tp = max(1, int(tp))
     out = dict(params)
     layers = []
     for lp in params["layers"]:
@@ -65,18 +69,30 @@ def quantize_params(params, mode="int8", group=128, tp=1):
         for kind in _decoder._QUANT_KINDS:
             w = lp[kind].detach()
             qlp[kind] = (_qmm.quantize_w8(w) if mode == "int8"
-                         else _qmm.quantize_w4(w, group=group))
+                         else _qmm.quantize_w4(w, group=tp_group(
+                             kind, w.shape[1], group, tp)))
         layers.append(qlp)
     out["layers"] = layers
     return out
+
+
+def tp_group(kind, in_dim, group, tp):
+    """The int4 group asked of ``quantize_w4`` for GEMM leaf ``kind`` of
+    ``in_dim`` inputs at tensor-parallel degree ``tp``: the row-parallel
+    leaves (``wo``, ``w2``) split their inputs ``tp`` ways, so their group
+    is :func:`~..ops.kernels.quant_matmul.group_for` the shard's inputs
+    (``wo`` at I 768 and tp 4: 64 of 192); the others keep ``group``."""
+    local = in_dim // tp if kind in _decoder._TP_ROW else in_dim
+    return _qmm.group_for(local, group)
 
 
 class QuantizedLM:
     """A served LM with weight-only quantized GEMMs.
 
     Offers what ``DecodeEngine`` reads off a model: ``config``,
-    ``eos_id``, ``device`` and ``params()``, the quantized params dict,
-    made once at the first call and cached.  The engine reads
+    ``eos_id``, ``device`` and ``params(tp=)``, the quantized params dict,
+    made once at the first call and cached, per tensor-parallel degree
+    for int4 (whose row-parallel groups depend on it).  The engine reads
     :meth:`quant_token` to report the format."""
 
     def __init__(self, model, mode="int8", group=128):
@@ -84,7 +100,7 @@ class QuantizedLM:
         self.model = model
         self.quant_mode = str(mode)
         self.group = int(group)
-        self._params = None
+        self._params = {}        # tp degree (1 for int8) -> params dict
 
     @property
     def config(self):
@@ -104,21 +120,29 @@ class QuantizedLM:
             return ("int8",)
         return ("int4", self.group)
 
-    def params(self):
-        """The quantized params dict (made once, then cached)."""
-        if self._params is None:
-            self._params = quantize_params(self.model.params(),
-                                           self.quant_mode, group=self.group)
-        return self._params
+    def _key(self, tp):
+        return max(1, int(tp)) if self.quant_mode == "int4" else 1
+
+    def params(self, tp=1):
+        """The quantized params dict for tensor-parallel degree ``tp`` (made
+        once, then cached; int8 ignores ``tp``)."""
+        key = self._key(tp)
+        if key not in self._params:
+            self._params[key] = quantize_params(
+                self.model.params(), self.quant_mode, group=self.group,
+                tp=key)
+        return self._params[key]
 
     @torch.no_grad()
-    def load_jax_params(self, params_np):
+    def load_jax_params(self, params_np, tp=1):
         """Load a JAX quantized pytree, the numpy form of
         ``mxnet_tpu.serving.quantize.quantize_params(jax_params(), mode,
-        group)``: its fp leaves go into the wrapped model, its
-        ``QuantW8``/``QuantW4`` leaves become this wrapper's params.  The
-        format must be this wrapper's (mode and group); the wrapped model's
-        fp GEMM weights are left as they are."""
+        group, tp)``: its fp leaves go into the wrapped model, its
+        ``QuantW8``/``QuantW4`` leaves become this wrapper's params at
+        ``tp`` (the cache of every other degree is dropped).  The format
+        must be this wrapper's (mode, and the group of each leaf at
+        ``tp``); the wrapped model's fp GEMM weights are left as they
+        are."""
         state = _decoder.params_from_jax(params_np)
         own = dict(self.model.named_parameters())
         if set(state) != set(own):
@@ -136,13 +160,13 @@ class QuantizedLM:
                                          name, type(t).__name__,
                                          self.quant_mode))
                 i = own[name].shape[1]
-                if (want is _qmm.QuantW4 and 2 * t.q.shape[1] // t.s.shape[1]
-                        != _qmm.w4_group(i, self.group)):
+                group = _qmm.w4_group(i, tp_group(kind, i, self.group, tp))
+                if (want is _qmm.QuantW4
+                        and 2 * t.q.shape[1] // t.s.shape[1] != group):
                     raise ValueError("load_jax_params: %s has int4 group %d, "
-                                     "this wrapper quantizes with %d" % (
-                                         name, 2 * t.q.shape[1]
-                                         // t.s.shape[1],
-                                         _qmm.w4_group(i, self.group)))
+                                     "this wrapper quantizes with %d at tp "
+                                     "%d" % (name, 2 * t.q.shape[1]
+                                             // t.s.shape[1], group, tp))
                 layers[int(name.split(".")[1])][kind] = type(t)(
                     q=t.q.to(dev), s=t.s.to(dev))
                 continue
@@ -154,8 +178,8 @@ class QuantizedLM:
         for lp, flp in zip(layers, fp["layers"]):
             for k in _decoder.LAYER_KEYS:
                 lp.setdefault(k, flp[k])
-        self._params = {"embed": fp["embed"], "pos": fp["pos"],
-                        "layers": layers}
+        self._params = {self._key(tp): {"embed": fp["embed"],
+                                        "pos": fp["pos"], "layers": layers}}
         return self
 
     def __repr__(self):

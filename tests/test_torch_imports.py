@@ -105,8 +105,9 @@ _TP2 = ShardingConfig.for_transformer(mesh_shape=(1, 2),
     # tensor parallelism is ported: what is not a ShardingConfig is refused
     ({"sharding": object()}, TypeError),
     ({"role": "prefill"}, NotImplementedError),
-    # quantized serving under tensor parallelism is not ported yet
-    ({"sharding": _TP2, "quantize": "int8"}, NotImplementedError),
+    # quantized serving under tensor parallelism is ported: a format the
+    # JAX engine refuses too is refused under it as well
+    ({"sharding": _TP2, "quantize": "fp8"}, ValueError),
 ], ids=["prefix_cache", "async_decode", "dispatch_ahead", "migrate",
         "pagestore", "speculate", "draft_model", "sharding", "role",
         "sharding+quantize"])

@@ -302,15 +302,6 @@ def test_tp_engine_stats_and_census(monkeypatch, setup, fused):
         assert eng.stop()
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"quantize": "int8"}, {"quantize": "int4", "quant_group": 32},
-    {"kv_dtype": "int8"}], ids=["int8", "int4", "kv-int8"])
-def test_quantized_tp_is_refused(setup, kwargs):
-    with pytest.raises(NotImplementedError, match="quantized tensor-parallel"):
-        DecodeEngine(setup[1], device="cpu", sharding=tp_config(), **ENGINE,
-                     **kwargs)
-
-
 def test_sharding_must_be_a_sharding_config(setup):
     with pytest.raises(TypeError, match="ShardingConfig"):
         DecodeEngine(setup[1], device="cpu", **ENGINE,
