@@ -10,11 +10,11 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
 ``chip_smoke.py``:
 
 - ``delta``: ``chip_smoke.check_flash_delta`` (the delta kernel held in
-  every case, bit for bit across views, shards and, on a tree with
-  ``delta_plan``, its other plans), then ``chip_smoke.delta_timing``
-  (fp32 and bf16 at B 32, H 12, L 128, D 32, 64 and 128 and at B 4,
-  L 2048, D 64; the plans of ``chip_smoke.DELTA_PLANS``; the flash
-  backward, delta + #6 + #7, of a BERT layer);
+  every case, bit for bit across views and shards), then
+  ``chip_smoke.delta_timing`` (fp32 and bf16 at B 32, H 12, L 128, D 32,
+  64 and 128 and at B 4, L 2048, D 64, each also after a flush that
+  leaves the L2 clean; the flash backward, delta + #6 + #7, of a BERT
+  layer);
 - ``route``: ``chip_smoke.check_flash_delta``, then
   ``chip_smoke.check_sharded_attention`` with its profile of the #16
   route's backward (dp 2 x tp 2, B 32, H 12, L 128, D 64, causal):

@@ -1641,27 +1641,21 @@ TOL_DELTA = 1e-5
 
 
 # (B, H, L) beside FLASH_SHAPES where the delta kernel's split has edges:
-# fewer rows than a warp's step (3), rows no step divides (1155, 15015,
-# 2 * 3 * 37), and fewer rows than one wave at every D (222)
+# fewer rows than a warp's pass at every D (3), rows no block's pass
+# divides (1155, 15015, 222), and a grid of one or two blocks (3, 222)
 DELTA_EDGE_SHAPES = ((1, 1, 3), (3, 5, 77), (5, 3, 1001), (2, 3, 37))
-# other delta_plan knobs checked bit for bit and timed beside the plan's
-# own: blocks an SM filled, and vectors of dO and of O a lane in flight
-DELTA_PLANS = tuple(dict(per_sm=s, unroll=u, evict_first=e)
-                    for e in (0, 1, 3) for u in (4, 8) for s in (2, 4, 8))
 
 
 def check_flash_delta(torch, fa, timer, report):
     """The delta kernel against its plain version in float32 and bfloat16
     at D 32, 64 and 128 and the (B, H, L) of FLASH_SHAPES and
     DELTA_EDGE_SHAPES, each row's error over its sum of |dO O|; its
-    results on BERT's transposed dO, per (dp 2, tp 2) shard where B and H
-    split, and (a tree with ``delta_plan``) under every other plan of
-    DELTA_PLANS equal the whole contiguous call's bit for bit (its sum
+    results on BERT's transposed dO and per (dp 2, tp 2) shard where B
+    and H split equal the whole contiguous call's bit for bit (its sum
     order depends on D and the dtype alone).  Timed at the training shape
     beside its plain version, its bound and, in fp32,
     ``torch.linalg.vecdot`` (the same function in one call)."""
     g = torch.Generator(device=DEV).manual_seed(18)
-    planned = hasattr(fa, "delta_plan")
     worst, n = 0.0, 0
     for dt in (torch.float32, torch.bfloat16):
         for B, H, L in FLASH_SHAPES + DELTA_EDGE_SHAPES:
@@ -1692,24 +1686,14 @@ def check_flash_delta(torch, fa, timer, report):
                         for t in range(2)] for d in range(2)]
                     same.append(torch.cat([torch.cat(r, dim=1)
                                            for r in parts], dim=0))
-                if planned:
-                    rows = B * H * L
-                    for kw in DELTA_PLANS:
-                        same.append(fa.flash_attention_bwd_delta(
-                            do, out, plan=fa.delta_plan(
-                                rows, D, do.element_size(),
-                                fa._sms(do.device.index), **kw)))
                 if not all(torch.equal(t, got) for t in same):
                     raise AssertionError(
                         "flash_attention_bwd_delta (B %d, H %d, L %d, D %d) "
-                        "%s: a view, the shards or another plan differ from "
-                        "the whole contiguous call"
-                        % (B, H, L, D, str(dt)[6:]))
+                        "%s: a view or the shards differ from the whole "
+                        "contiguous call" % (B, H, L, D, str(dt)[6:]))
     log("flash_attention_bwd_delta: %d cases pass, worst error / the row's "
-        "sum of |dO O| %.3g (tol %g); transposed dO, dp 2 x tp 2 shards%s "
-        "bit for bit the whole call"
-        % (n, worst, TOL_DELTA,
-           " and %d other plans" % len(DELTA_PLANS) if planned else ""))
+        "sum of |dO O| %.3g (tol %g); transposed dO and dp 2 x tp 2 shards "
+        "bit for bit the whole call" % (n, worst, TOL_DELTA))
     if not worst <= TOL_DELTA:
         raise AssertionError("flash_attention_bwd_delta disagrees with its "
                              "plain version: %g" % worst)
@@ -1731,13 +1715,10 @@ def check_flash_delta(torch, fa, timer, report):
         bms, by = bound(2 * do.numel() * do.element_size() + B * H * L * 4,
                         2 * do.numel())
         log("flash_attention_bwd_delta (B %d, H %d, L %d, D %d) %s: max abs "
-            "err %.3g; kernel %.4f ms plain %.4f ms bound %.4f ms (%s) %s%s"
+            "err %.3g; kernel %.4f ms plain %.4f ms bound %.4f ms (%s) %s"
             % (B, H, L, D, str(dt)[6:], err, ms, plain_ms, bms, by,
                "torch.linalg.vecdot %.4f ms" % lib if f32 else
-               "(no single PyTorch call sums bf16 products in fp32)",
-               "; plan %s" % (fa.delta_plan(B * H * L, D, do.element_size(),
-                                            fa._sms(do.device.index)),)
-               if planned else ""))
+               "(no single PyTorch call sums bf16 products in fp32)"))
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    library_ms=lib, max_abs_err=err)
         if f32:
@@ -1781,12 +1762,11 @@ def clean_l2_time(torch, timer, fn, iters=20, spin=FLASH_SPIN):
 def delta_timing(torch, fa, timer):
     """The delta kernel's times in fp32 and bf16 at the training shape
     (B 32, H 12, L 128) at D 32, 64 and 128 and at the long shape (B 4,
-    L 2048, D 64), beside the bound; at D 64 (a tree with ``delta_plan``)
-    every plan of DELTA_PLANS beside the plan's own; then the flash
-    backward of a BERT layer (the delta kernel, #6 and #7 at D 64,
-    kv_length and dropout 0.1) at the training shape in both dtypes."""
+    L 2048, D 64), beside the bound and beside its time after a flush that
+    leaves the L2 clean (``clean_l2_time``); then the flash backward of a
+    BERT layer (the delta kernel, #6 and #7 at D 64, kv_length and dropout
+    0.1) at the training shape in both dtypes."""
     g = torch.Generator(device=DEV).manual_seed(19)
-    planned = hasattr(fa, "delta_plan")
     H = BERT["num_heads"]
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt)[6:]
@@ -1799,28 +1779,9 @@ def delta_timing(torch, fa, timer):
             clean = clean_l2_time(torch, timer, lambda: (
                 fa.flash_attention_bwd_delta(do, out)))
             bms, by = delta_bound(B, H, L, D, do.element_size())
-            rows, sms = B * H * L, torch.cuda.get_device_properties(
-                do.device).multi_processor_count
             log("delta timing (B %d, H %d, L %d, D %d) %s: kernel %.4f ms "
                 "(after a read flush, the L2 clean: %.4f ms) bound %.4f ms "
-                "(%s)%s" % (
-                    B, H, L, D, name, ms, clean, bms, by, "; plan %s" % (
-                        fa.delta_plan(rows, D, do.element_size(), sms),)
-                    if planned else ""))
-            if not planned or D != 64:
-                continue
-            want = fa.flash_attention_bwd_delta(do, out)
-            for kw in DELTA_PLANS:
-                plan = fa.delta_plan(rows, D, do.element_size(), sms, **kw)
-                got = fa.flash_attention_bwd_delta(do, out, plan=plan)
-                t = timer(lambda: fa.flash_attention_bwd_delta(
-                    do, out, plan=plan), spin=FLASH_SPIN)
-                log("delta timing (B %d, H %d, L %d, D %d) %s plan %s: "
-                    "%.4f ms, bit-equal %s"
-                    % (B, H, L, D, name, plan, t, torch.equal(got, want)))
-                if not torch.equal(got, want):
-                    raise AssertionError("delta plan %s changes the bits"
-                                         % (plan,))
+                "(%s)" % (B, H, L, D, name, ms, clean, bms, by))
         B, L, D = TRAIN_B, TRAIN_L, 64
         q, k, v, do = (torch.randn(B, H, L, D, device=DEV,
                                    generator=g).to(dt) for _ in range(4))
@@ -1830,21 +1791,14 @@ def delta_timing(torch, fa, timer):
         kw = dict(dropout=0.1, seed=seed, kv_length=kvl)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
 
-        def backward(**plan):
-            delta = fa.flash_attention_bwd_delta(do, out, **plan)
+        def backward():
+            delta = fa.flash_attention_bwd_delta(do, out)
             fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
             fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
 
         log("flash backward timing (B %d, H %d, L %d, D %d, kv_length, rate "
             "0.1) %s: delta + #6 + #7 %.4f ms"
             % (B, H, L, D, name, timer(backward, spin=2 * FLASH_SPIN)))
-        for ef in (0, 1, 3) if planned else ():
-            plan = fa.delta_plan(B * H * L, D, do.element_size(),
-                                 fa._sms(do.device.index), evict_first=ef)
-            log("flash backward timing (B %d, H %d, L %d, D %d) %s, the "
-                "delta plan %s: %.4f ms" % (
-                    B, H, L, D, name, plan, timer(lambda: backward(
-                        plan=plan), spin=2 * FLASH_SPIN)))
 
 
 def check_flash_attention(torch, timer, report):

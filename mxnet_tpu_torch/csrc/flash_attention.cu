@@ -2281,81 +2281,45 @@ int dispatch(const Args& a, int BH, int D, int dtype, cudaStream_t st) {
 // Bound: bytes, dO and O read once, delta written once (25.2 MB in fp32
 // at B 32, H 12, L 128, D 64: 7.5 us at 3.35 TB/s; 12.6 MB in bf16).
 //
-// The design streams: the grid is one wave (blocks an SM times the SMs,
-// from delta_plan in ops/kernels/flash_attention.py), and each warp owns
-// a contiguous run of rows, `run` of them, a multiple of R = U * 32 / G.
-// It walks its run R rows a step: each lane issues its U 16-byte loads of
-// dO and its U of O (rows r0 + u * 32 / G + lane / G) before any
-// arithmetic, so 2 U vectors a lane are in flight; then the U sums and
-// their butterflies; then the warp stages its R sums in shared memory and
-// writes them as 16-byte stores (R and the run's start are multiples of 4
-// rows, delta is contiguous), a last partial step as 4-byte ones.  The
-// parent design (one vector of each a lane, one row a lane group, 4-byte
-// stores by one lane of G, a grid of up to 4096 blocks) took 0.0178 ms in
-// fp32 and 0.0122 in bf16 at that shape (PERF.md).
+// Measured on the H100 against this design (PERF.md): a grid of one wave
+// whose warps each walk a contiguous run of rows with 4 or 8 vectors of
+// dO and of O in flight a lane and store delta as 16-byte vectors timed
+// the same (0.0178 ms fp32 at that shape, 0.0122 bf16), under every
+// blocks-an-SM and vectors-a-lane choice tried; L2 evict-first loads took
+// it to 0.0160-0.0166 but left the backward (delta, #6, #7) where it was.
+// After a flush that leaves the L2 clean, both designs take 0.0141 ms:
+// what separates the kernel from its bound is the write-back of the dirty
+// lines the reads evict, which the kernel's shape does not move.
 struct DeltaArgs {
   const void *dout, *out;
   float* delta;  // (BH, L), contiguous
   Strides sdo, so;
-  int rows, run;  // BH * L; rows a warp, a multiple of U * 32 / G
+  long long rows;
   int H, L, G;
 };
 
-constexpr int kDeltaWarps = 8;  // a block's warps
-
-// A 16-byte read-only load; EF: with an L2 evict-first policy, so the
-// lines it brings in are the first the L2 gives up again, before the
-// lines other kernels left there (dirty ones must be written back)
-template <bool EF>
-__device__ __forceinline__ uint4 delta_load(const void* a, uint64_t pol) {
-  if constexpr (!EF) return __ldg(reinterpret_cast<const uint4*>(a));
-  uint4 v;
-  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(a), "l"(pol));
-  return v;
-}
-
-// EF: which loads are evict-first, bit 0 O's (only this kernel reads O
-// in the backward), bit 1 dO's (#6 and #7 read dO next)
-template <typename T, int U, int EF>
-__global__ void __launch_bounds__(kDeltaWarps * 32)
-    flash_bwd_delta_kernel(DeltaArgs p) {
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(DeltaArgs p) {
   constexpr int V = 16 / sizeof(T);  // elements of a 16-byte vector
-  __shared__ __align__(16) float stage[kDeltaWarps][U * 8];  // G >= 4
-  uint64_t pol = 0;
-  if constexpr (EF != 0)
-    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
-  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5, G = p.G;
-  const int c = lane % G, sub = lane / G, per_pass = 32 / G;
-  const int R = U * per_pass;  // rows a step of the warp
-  const long long lo0 = (long long)(blockIdx.x * kDeltaWarps + wib) * p.run;
-  if (lo0 >= p.rows) return;  // the whole warp, so its shuffles stay whole
-  const int lo = (int)lo0, hi = min(p.rows, lo + p.run);
-  float* st = stage[wib];
-  for (int r0 = lo; r0 < hi; r0 += R) {
-    uint4 va[U], vb[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int r = r0 + u * per_pass + sub;
-      if (r < hi) {
-        const int bh = r / p.L, i = r - bh * p.L;
-        const T* a = static_cast<const T*>(p.dout) + p.sdo.at(bh, p.H) +
-                     (long long)i * p.sdo.sl + c * V;
-        const T* b = static_cast<const T*>(p.out) + p.so.at(bh, p.H) +
-                     (long long)i * p.so.sl + c * V;
-        va[u] = delta_load<(EF & 2) != 0>(a, pol);
-        vb[u] = delta_load<(EF & 1) != 0>(b, pol);
-      } else {
-        va[u] = vb[u] = make_uint4(0, 0, 0, 0);
-      }
-    }
-    float s[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const T* ea = reinterpret_cast<const T*>(&va[u]);
-      const T* eb = reinterpret_cast<const T*>(&vb[u]);
-      s[u] = 0.f;
+  const int lane = threadIdx.x & 31, G = p.G;
+  const int c = lane % G, sub = lane / G, per_warp = 32 / G;
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
+                         >> 5;
+  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  // r0 is the same in every lane of the warp, so the shuffles converge
+  for (long long r0 = warp * per_warp; r0 < p.rows; r0 += warps * per_warp) {
+    const long long r = r0 + sub;
+    float s = 0.f;
+    if (r < p.rows) {
+      const int bh = (int)(r / p.L), i = (int)(r - (long long)bh * p.L);
+      const T* a = static_cast<const T*>(p.dout) + p.sdo.at(bh, p.H) +
+                   (long long)i * p.sdo.sl + c * V;
+      const T* b = static_cast<const T*>(p.out) + p.so.at(bh, p.H) +
+                   (long long)i * p.so.sl + c * V;
+      const uint4 va = __ldg(reinterpret_cast<const uint4*>(a));
+      const uint4 vb = __ldg(reinterpret_cast<const uint4*>(b));
+      const T* ea = reinterpret_cast<const T*>(&va);
+      const T* eb = reinterpret_cast<const T*>(&vb);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         float x, y;
@@ -2366,58 +2330,24 @@ __global__ void __launch_bounds__(kDeltaWarps * 32)
           x = __bfloat162float(ea[e]);
           y = __bfloat162float(eb[e]);
         }
-        s[u] = __fadd_rn(s[u], __fmul_rn(x, y));
+        s = __fadd_rn(s, __fmul_rn(x, y));
       }
     }
-    for (int o = G >> 1; o > 0; o >>= 1) {
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
-    }
-    if (c == 0) {
-#pragma unroll
-      for (int u = 0; u < U; ++u) st[u * per_pass + sub] = s[u];
-    }
-    __syncwarp();
-    const int n = min(R, hi - r0);
-    if (n == R) {
-      for (int k = lane; k < R / 4; k += 32)
-        reinterpret_cast<float4*>(p.delta + r0)[k] =
-            reinterpret_cast<const float4*>(st)[k];
-    } else {
-      for (int k = lane; k < n; k += 32) p.delta[r0 + k] = st[k];
-    }
-    __syncwarp();  // the stage is read before the next step writes it
+    for (int o = G >> 1; o > 0; o >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (c == 0 && r < p.rows) p.delta[r] = s;
   }
 }
 
-template <typename T, int EF>
-int run_delta_t(const DeltaArgs& p, int unroll, int blocks, cudaStream_t st) {
-  const dim3 grid(blocks), block(kDeltaWarps * 32);
-  if (unroll == 4)
-    flash_bwd_delta_kernel<T, 4, EF><<<grid, block, 0, st>>>(p);
-  else if (unroll == 8)
-    flash_bwd_delta_kernel<T, 8, EF><<<grid, block, 0, st>>>(p);
+int run_delta(const DeltaArgs& p, int dtype, cudaStream_t st) {
+  const long long per_block = 8LL * (32 / p.G);  // rows a block's pass
+  const long long want = (p.rows + per_block - 1) / per_block;
+  const int grid = (int)(want < 4096 ? want : 4096);
+  if (dtype == 0)
+    flash_bwd_delta_kernel<float><<<grid, 256, 0, st>>>(p);
   else
-    return (int)cudaErrorInvalidValue;
+    flash_bwd_delta_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(p);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int run_delta_ef(const DeltaArgs& p, int unroll, int blocks, int evict_first,
-                 cudaStream_t st) {
-  if (evict_first == 0) return run_delta_t<T, 0>(p, unroll, blocks, st);
-  if (evict_first == 1) return run_delta_t<T, 1>(p, unroll, blocks, st);
-  if (evict_first == 3) return run_delta_t<T, 3>(p, unroll, blocks, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-int run_delta(const DeltaArgs& p, int dtype, int unroll, int blocks,
-              int evict_first, cudaStream_t st) {
-  return dtype == 0
-             ? run_delta_ef<float>(p, unroll, blocks, evict_first, st)
-             : run_delta_ef<__nv_bfloat16>(p, unroll, blocks, evict_first,
-                                           st);
 }
 
 // (BH, L, D) and (BH, L) contiguous
@@ -2545,15 +2475,11 @@ extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 // delta (B, H, L) float32, contiguous, from dout and out like q (dtype 0
-// float32 or 1 bfloat16, D in {32, 64, 128}), as delta_plan splits it:
-// U = unroll (4 or 8) vectors a lane in flight, `blocks` blocks of 8
-// warps, `run` rows a warp; evict_first: 0, 1 (O's loads L2
-// evict-first) or 3 (dO's too).  strides: 6 int64, dout's and out's B, H and
-// L strides, or null for contiguous tensors.
+// float32 or 1 bfloat16, D in {32, 64, 128}).  strides: 6 int64, dout's
+// and out's B, H and L strides, or null for contiguous tensors.
 extern "C" int mxt_flash_bwd_delta(const void* dout, const void* out,
                                    void* delta, int BH, int H, int L, int D,
-                                   int dtype, int unroll, int blocks, int run,
-                                   int evict_first, void* stream,
+                                   int dtype, void* stream,
                                    const long long* strides) {
   DeltaArgs p = {};
   p.dout = dout;
@@ -2564,19 +2490,10 @@ extern "C" int mxt_flash_bwd_delta(const void* dout, const void* out,
     Strides* const views[2] = {&p.sdo, &p.so};
     read_strides(strides, views, 2, nullptr, 0);
   }
-  const long long rows = (long long)BH * L;
+  p.rows = (long long)BH * L;
   p.H = H;
   p.L = L;
   p.G = D * (dtype == 0 ? 4 : 2) / 16;
   if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
-  // a run holds whole steps of R rows, each step a multiple of 4 rows (16
-  // bytes of delta), and the grid covers every row
-  const long long R = (long long)unroll * (32 / p.G);
-  if (rows <= 0 || rows > 0x7fffffffLL || blocks <= 0 || run <= 0 ||
-      run % R || (long long)blocks * kDeltaWarps * run < rows)
-    return (int)cudaErrorInvalidValue;
-  p.rows = (int)rows;
-  p.run = run;
-  return run_delta(p, dtype, unroll, blocks, evict_first,
-                   (cudaStream_t)stream);
+  return run_delta(p, dtype, (cudaStream_t)stream);
 }

@@ -49,19 +49,17 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
 
 import torch
 
 from . import _build
 from . import dropout_hash as _hash
-from .epilogue import SMS, _sms
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
            "flash_attention_bwd_delta", "flash_attention_bwd_delta_plain",
-           "delta_plan", "DeltaPlan", "HEAD_DIMS"]
+           "HEAD_DIMS"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -81,7 +79,7 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes = [_P] * n_ptr + _TAIL + [_P]    # ... strides
         fn.restype = _I
-    lib.mxt_flash_bwd_delta.argtypes = [_P] * 3 + [_I] * 9 + [_P, _P]
+    lib.mxt_flash_bwd_delta.argtypes = [_P] * 3 + [_I] * 5 + [_P, _P]
     lib.mxt_flash_bwd_delta.restype = _I
     return lib
 
@@ -482,72 +480,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     return _deliver(out_k, dk), _deliver(out_v, dv)
 
 
-#: the delta kernel's warps a block (``kDeltaWarps`` in the CUDA source)
-DELTA_WARPS = 8
-#: blocks an SM the plan fills, and the 16-byte vectors of dO and of O a
-#: lane keeps in flight (the kernel is built for 4 and 8)
-DELTA_PER_SM, DELTA_UNROLL = 4, 4
-
-
-class DeltaPlan(NamedTuple):
-    """How the delta kernel splits B H L rows: ``blocks`` blocks of
-    :data:`DELTA_WARPS` warps, each warp a contiguous run of ``run`` rows
-    that it walks ``unroll * 32 / G`` rows a step, ``unroll`` 16-byte
-    vectors of dO and of O a lane in flight (G lanes read a row);
-    ``evict_first``: which loads ask the L2 to give their lines up first:
-    0 none, 1 O's, 3 O's and dO's."""
-    unroll: int
-    blocks: int
-    run: int
-    evict_first: int = 0
-
-    def runs(self, rows):
-        """(lo, hi) of each warp's rows, in warp order; empty runs left
-        out."""
-        return [(lo, min(rows, lo + self.run))
-                for lo in range(0, min(rows, self.blocks * DELTA_WARPS
-                                       * self.run), self.run)]
-
-
-@functools.lru_cache(maxsize=1024)
-def delta_plan(rows, D, itemsize, sms=SMS, per_sm=DELTA_PER_SM,
-               unroll=DELTA_UNROLL, evict_first=0):
-    """The delta kernel's plan for ``rows`` = B H L rows of head dim ``D``
-    in elements of ``itemsize`` bytes: one wave of at most ``per_sm``
-    blocks an SM over ``sms`` SMs, each warp's run the fewest whole steps
-    (``unroll * 32 / G`` rows, G = D itemsize / 16 lanes a row) that
-    cover the rows; then as many blocks as those runs need.  ``per_sm``
-    and ``unroll`` are the knobs the card's measurements chose
-    (``chip_smoke.DELTA_PLANS``)."""
-    step = unroll * (32 // (D * itemsize // 16))
-    warps = sms * per_sm * DELTA_WARPS
-    run = -(-(-(-rows // step)) // warps) * step
-    return DeltaPlan(unroll=unroll, blocks=-(-rows // (run * DELTA_WARPS)),
-                     run=run, evict_first=int(evict_first))
-
-
-def _launch_delta(do, out, delta, plan):
-    """One launch of the delta kernel on checked CUDA views, split as
-    ``plan`` says (not counted)."""
-    B, H, L, D = do.shape
-    lib = _lib()
-    rc = lib.mxt_flash_bwd_delta(
-        do.data_ptr(), out.data_ptr(), delta.data_ptr(), B * H, H, L, D,
-        _DTYPES[do.dtype], plan.unroll, plan.blocks, plan.run,
-        plan.evict_first,
-        torch.cuda.current_stream(do.device).cuda_stream,
-        _stride_args([do, out], []))
-    _build.check(lib, rc, "flash_attention_bwd_delta")
-
-
-def flash_attention_bwd_delta(do, out, plan=None):
+def flash_attention_bwd_delta(do, out):
     """``delta = sum_d dO * O``, (B, H, L) float32, from dO and O (B, H, L,
     D) of one dtype: a CPU tensor takes
     :func:`flash_attention_bwd_delta_plain`; a CUDA tensor launches the
-    delta kernel (counted in ``flash_attention.launches_delta``), split
-    as :func:`delta_plan` says, or as ``plan`` when given.  dO and O may
-    be strided views, read where they lie when :func:`_strided_ok` admits
-    them, else from contiguous copies."""
+    delta kernel (counted in ``flash_attention.launches_delta``).  dO and
+    O may be strided views, read where they lie when :func:`_strided_ok`
+    admits them, else from contiguous copies."""
     what = "flash_attention_bwd_delta"
     if _on_cpu(what, do):
         return flash_attention_bwd_delta_plain(do, out)
@@ -559,16 +498,17 @@ def flash_attention_bwd_delta(do, out, plan=None):
     if do.dtype not in _DTYPES:
         raise TypeError("%s: unsupported dtype %s (float32, bfloat16)"
                         % (what, do.dtype))
-    if D not in HEAD_DIMS or not B * H * L or B * H * L >= 2 ** 31:
-        raise ValueError("%s: shape %s; the kernel takes head dims %s, no "
-                         "empty dim and fewer than 2**31 rows"
-                         % (what, tuple(do.shape), HEAD_DIMS))
+    if D not in HEAD_DIMS or not B * H * L:
+        raise ValueError("%s: shape %s; the kernel takes head dims %s and "
+                         "no empty dim" % (what, tuple(do.shape), HEAD_DIMS))
     do, out = _as_read(do), _as_read(out)
     delta = torch.empty(B, H, L, dtype=torch.float32, device=do.device)
-    if plan is None:
-        plan = delta_plan(B * H * L, D, do.element_size(),
-                          _sms(do.device.index))
-    _launch_delta(do, out, delta, plan)
+    lib = _lib()
+    rc = lib.mxt_flash_bwd_delta(
+        do.data_ptr(), out.data_ptr(), delta.data_ptr(), B * H, H, L, D,
+        _DTYPES[do.dtype], torch.cuda.current_stream(do.device).cuda_stream,
+        _stride_args([do, out], []))
+    _build.check(lib, rc, what)
     flash_attention.launches_delta += 1
     return delta
 

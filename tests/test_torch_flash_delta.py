@@ -2,18 +2,17 @@
 in fp32, the row statistic #6 and #7 read.
 
 The kernel (``csrc/flash_attention.cu``, ``flash_bwd_delta_kernel``) runs
-only on the card; here its plan (``delta_plan``: a wave of blocks, a
-contiguous run of rows a warp, walked a step of ``unroll * 32 / G`` rows
-at a time) and its summation order (G lanes of one 16-byte vector each,
-each lane adding its rounded products in element order, the G partials
-meeting in an xor butterfly) are emulated in plain PyTorch and held
-against the JAX package's expression (``jnp.sum(g * out)`` in fp32,
+only on the card; here its row split (``run_delta``'s grid: blocks of 8
+warps, a warp's pass ``32 / G`` rows, at most 4096 blocks, the warps
+striding over the rest) and its summation order (G lanes of one 16-byte
+vector each, each lane adding its rounded products in element order, the
+G partials meeting in an xor butterfly) are emulated in plain PyTorch and
+held against the JAX package's expression (``jnp.sum(g * out)`` in fp32,
 ``mxnet_tpu/ops/pallas/flash_attention.py:466``) within ``TOL_DELTA``
-(``chip_smoke``'s: the error over each row's sum of |dO O|).  Every plan
-must cover each row once, give the same bits (the order depends on D and
-the dtype alone), and store whole steps at 16-byte aligned rows.  On the
-card ``chip_smoke.check_flash_delta`` holds the kernel itself in the same
-edge shapes.
+(``chip_smoke``'s: the error over each row's sum of |dO O|).  Every split
+must cover each row once and give the same bits (the order depends on D
+and the dtype alone).  On the card ``chip_smoke.check_flash_delta`` holds
+the kernel itself in the same edge shapes.
 """
 from __future__ import annotations
 
@@ -31,12 +30,11 @@ torch.set_num_threads(2)
 # ~D 2**-24 of the row's sum of |products|: chip_smoke.TOL_DELTA
 TOL_DELTA = 1e-5
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# fewer rows than a warp's step (3); fewer than one wave of a 4-SM plan
-# (222); rows no step divides, over runs of several steps (1155); and a
-# whole number of runs (3072)
+# fewer rows than a warp's pass at every D (3); rows no block's pass
+# divides (222, 1155); and a whole number of passes (3072)
 SHAPES = ((1, 1, 3), (2, 3, 37), (3, 5, 77), (4, 6, 128))
-#: a small card's SMs, so that runs hold several steps at these sizes
-SMS_SMALL = 4
+#: the kernel's grid: warps a block, and the most blocks (``run_delta``)
+WARPS, MAX_BLOCKS = 8, 4096
 
 
 def _inputs(B, H, L, D, dtype, seed=0):
@@ -45,6 +43,17 @@ def _inputs(B, H, L, D, dtype, seed=0):
                             dtype=torch.float32).to(DTYPES[dtype])
                for _ in range(2))
     return do, out
+
+
+def _lanes(D, itemsize):
+    """G: the lanes that read a row, one 16-byte vector each."""
+    return D * itemsize // 16
+
+
+def _grid(rows, G, max_blocks=MAX_BLOCKS):
+    """``run_delta``'s blocks: one warp pass of 32 / G rows a warp, at
+    most ``max_blocks``."""
+    return min(-(-rows // (WARPS * (32 // G))), max_blocks)
 
 
 def _kernel_sums(do_rows, out_rows):
@@ -68,29 +77,24 @@ def _kernel_sums(do_rows, out_rows):
     return s[:, 0]
 
 
-def _emulate(do, out, plan):
-    """The kernel under ``plan``: each warp walks its run a step at a time,
-    reads the step's rows (those past the run's end as zeros), sums them
-    and stores the step's rows, as 16-byte vectors where the step is
-    whole.  Returns delta (B, H, L) and each row's store count."""
+def _emulate(do, out, max_blocks=MAX_BLOCKS):
+    """The kernel: warp ``w`` of the grid takes the pass of rows ``w *
+    32 / G`` on, then strides by the grid's warps; each pass's rows past
+    the end are not read or written.  Returns delta (B, H, L) and each
+    row's store count."""
     B, H, L, D = do.shape
     rows = B * H * L
-    V = 16 // do.element_size()
-    step = plan.unroll * (32 // (D // V))
+    G = _lanes(D, do.element_size())
+    per_warp = 32 // G
+    warps = _grid(rows, G, max_blocks) * WARPS
     d, o = do.reshape(rows, D), out.reshape(rows, D)
     delta = torch.full((rows,), float("nan"))
     stores = torch.zeros(rows, dtype=torch.int64)
-    for w in range(plan.blocks * tfa.DELTA_WARPS):
-        lo = w * plan.run
-        if lo >= rows:
-            break                     # the warps past the rows return
-        hi = min(rows, lo + plan.run)
-        for r0 in range(lo, hi, step):
-            n = min(step, hi - r0)
-            if n == step:
-                assert r0 % 4 == 0    # a whole step: 16-byte stores
-            delta[r0:r0 + n] = _kernel_sums(d[r0:r0 + n], o[r0:r0 + n])
-            stores[r0:r0 + n] += 1
+    for w in range(warps):
+        for r0 in range(w * per_warp, rows, warps * per_warp):
+            r1 = min(rows, r0 + per_warp)
+            delta[r0:r1] = _kernel_sums(d[r0:r1], o[r0:r1])
+            stores[r0:r1] += 1
     return delta.reshape(B, H, L), stores
 
 
@@ -106,23 +110,20 @@ def _jax_delta(do, out):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_delta_emulation_matches_jax(shape, dtype, D):
-    """The emulated kernel under its plan on a 4-SM card matches the JAX
-    expression within TOL_DELTA, stores every row once, and gives the
-    same bits under the H100's plan and under other knobs."""
+    """The emulated kernel matches the JAX expression within TOL_DELTA,
+    stores every row once, and gives the same bits when its grid is cut
+    to a block or two (the warps then stride over the rows)."""
     B, H, L = shape
     do, out = _inputs(B, H, L, D, dtype, seed=sum(shape) + D)
-    rows, item = B * H * L, do.element_size()
-    got, stores = _emulate(do, out, tfa.delta_plan(rows, D, item,
-                                                   sms=SMS_SMALL))
+    rows = B * H * L
+    got, stores = _emulate(do, out)
     assert torch.equal(stores, torch.ones(rows, dtype=torch.int64))
     want = _jax_delta(do, out)
     row = (do.float() * out.float()).abs().sum(-1).clamp_min(1e-30)
     err = float(((got - torch.tensor(want)).abs() / row).max())
     assert err <= TOL_DELTA, err
-    for plan in (tfa.delta_plan(rows, D, item),
-                 tfa.delta_plan(rows, D, item, sms=SMS_SMALL, per_sm=1,
-                                unroll=8, evict_first=3)):
-        again, stores = _emulate(do, out, plan)
+    for max_blocks in (1, 2):
+        again, stores = _emulate(do, out, max_blocks)
         assert torch.equal(stores, torch.ones(rows, dtype=torch.int64))
         assert torch.equal(again, got)
     # the CPU wrapper takes the plain version: within the tolerance too
@@ -130,23 +131,21 @@ def test_delta_emulation_matches_jax(shape, dtype, D):
     assert float(((plain - got).abs() / row).max()) <= TOL_DELTA
 
 
-@pytest.mark.parametrize("rows,D,item,sms", [
-    (32 * 12 * 128, 64, 4, 132), (32 * 12 * 128, 64, 2, 132),
-    (4 * 12 * 2048, 64, 2, 132), (32 * 12 * 128, 128, 4, 132),
-    (3, 32, 4, 132), (1155, 128, 2, 4), (2 * 2 * 12 * 128, 64, 4, 132)])
-@pytest.mark.parametrize("knobs", [{}, dict(per_sm=1), dict(unroll=8),
-                                   dict(per_sm=8, unroll=8)],
-                         ids=["default", "per_sm1", "unroll8", "both"])
-def test_delta_plan_is_one_wave_of_whole_steps(rows, D, item, sms, knobs):
-    """A plan is at most one wave (``per_sm`` blocks an SM), its runs are
-    whole steps of a multiple of 4 rows, and the runs cover [0, rows) in
-    order, once."""
-    plan = tfa.delta_plan(rows, D, item, sms=sms, **knobs)
-    step = plan.unroll * (32 // (D * item // 16))
-    assert step % 4 == 0 and plan.run % step == 0
-    assert plan.blocks <= sms * knobs.get("per_sm", tfa.DELTA_PER_SM)
-    runs = plan.runs(rows)
-    assert runs[0][0] == 0 and runs[-1][1] == rows
-    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
-    # the last block holds a warp with rows: no block is empty
-    assert (plan.blocks - 1) * tfa.DELTA_WARPS * plan.run < rows
+@pytest.mark.parametrize("rows,D,item", [
+    (32 * 12 * 128, 64, 4), (32 * 12 * 128, 64, 2), (4 * 12 * 2048, 64, 4),
+    (4 * 12 * 2048, 64, 2), (32 * 12 * 128, 128, 4), (3, 32, 4),
+    (1155, 128, 2)])
+@pytest.mark.parametrize("max_blocks", [MAX_BLOCKS, 7, 1])
+def test_delta_grid_covers_rows_once(rows, D, item, max_blocks):
+    """The grid's warps, each at its first pass and then striding by the
+    grid, start every pass of ``32 / G`` rows once, in no gap; no block is
+    without rows."""
+    G = _lanes(D, item)
+    per_warp = 32 // G
+    blocks = _grid(rows, G, max_blocks)
+    warps = blocks * WARPS
+    starts = sorted(r0 for w in range(warps)
+                    for r0 in range(w * per_warp, rows, warps * per_warp))
+    assert starts == list(range(0, rows, per_warp))
+    assert (blocks - 1) * WARPS * per_warp < rows
+    assert blocks <= max_blocks
