@@ -155,7 +155,7 @@ def _kv_append(pages, li, wp, ws, val):
     ``(L, KVH, P, S, D)`` (or :class:`~..ops.kernels.paged_attention.
     QPages` of that layout), in place: :func:`_kv_write` on the layer's
     view."""
-    _kv_write(_kv_layer(pages, li), wp, ws, val)
+    _kv_write(_paged.kv_heads(pages, li), wp, ws, val)
 
 
 def _kv_write(pages_li, wp, ws, val):
@@ -196,12 +196,6 @@ def _kv_write(pages_li, wp, ws, val):
     codes = torch.round(vf / snew[..., None]).clamp(-127, 127).to(torch.int8)
     pages_li.q[:, wpl, wsl, :] = codes.movedim(-2, 0)
     pages_li.s[:, wpl] = snew.movedim(-1, 0)
-
-
-def _kv_layer(pages, li):
-    """Layer ``li``'s page view (``QPages[li]`` would index the tuple's
-    fields, not the layer axis)."""
-    return _paged.kv_heads(pages, li)
 
 
 def _gather_kv(pages_li, tables):
@@ -459,8 +453,8 @@ def make_decode_step(cfg, page_size, plan=None):
             _kv_append(k_pages, li, wp[:, None], ws[:, None], k[:, None])
             _kv_append(v_pages, li, wp[:, None], ws[:, None], v[:, None])
             att = _paged.paged_attention(
-                q.contiguous(), _kv_layer(k_pages, li),
-                _kv_layer(v_pages, li), lengths, page_tables)
+                q.contiguous(), _paged.kv_heads(k_pages, li),
+                _paged.kv_heads(v_pages, li), lengths, page_tables)
             x = _layer_tail(x, att.reshape(B, cfg.units), lp)
         logits = _logits(x, params)
         return (k_pages, v_pages,
@@ -646,8 +640,9 @@ def make_prefill_chunk(cfg, page_size, chunk, plan=None):
                 q, k, v = _qkv(x, lp, cfg)              # (P, H/KVH, D)
                 _kv_append(k_pages, li, wp, ws, k)
                 _kv_append(v_pages, li, wp, ws, v)
-                merged = attend(q, _kv_layer(k_pages, li),
-                                _kv_layer(v_pages, li), page_row, causal)
+                merged = attend(q, _paged.kv_heads(k_pages, li),
+                                _paged.kv_heads(v_pages, li), page_row,
+                                causal)
                 x = _layer_tail(x, merged.to(x.dtype), lp)
                 continue
             lps = [sh["layers"][li] for sh in params]
