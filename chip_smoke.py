@@ -215,12 +215,19 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(96 << 20, dtype=torch.uint8, device=DEV)
 
-    def __call__(self, fn, iters=20, spin=200_000):
+    def __call__(self, fn, iters=20, spin=200_000, clean=False):
+        """``clean``: empty the L2 by reading the buffer instead of writing
+        it, so the lines ``fn``'s reads evict need no write-back (a
+        diagnostic of what the dirty lines cost a streaming kernel)."""
         torch = self.torch
         fn()
         ms = []
+        words = self.flush.view(torch.int32)
         for _ in range(iters):
-            self.flush.zero_()
+            if clean:
+                words.amax()
+            else:
+                self.flush.zero_()
             torch.cuda._sleep(spin)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -1738,32 +1745,11 @@ def delta_bound(B, H, L, D, itemsize):
                  2 * B * H * L * D)
 
 
-def clean_l2_time(torch, timer, fn, iters=20, spin=FLASH_SPIN):
-    """``fn``'s median time as ``Timer`` takes it, but with the L2 emptied
-    by reading the flush buffer instead of writing it: the L2 then holds
-    clean lines, which the kernel's loads evict with no write-back.  A
-    diagnostic of what the timer's dirty L2 costs a streaming kernel."""
-    fn()
-    words = timer.flush.view(torch.int32)
-    ms = []
-    for _ in range(iters):
-        words.amax()
-        torch.cuda._sleep(spin)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        ms.append(s.elapsed_time(e))
-    return statistics.median(ms)
-
-
 def delta_timing(torch, fa, timer):
     """The delta kernel's times in fp32 and bf16 at the training shape
     (B 32, H 12, L 128) at D 32, 64 and 128 and at the long shape (B 4,
     L 2048, D 64), beside the bound and beside its time after a flush that
-    leaves the L2 clean (``clean_l2_time``); then the flash backward of a
+    leaves the L2 clean (``Timer(clean=True)``); then the flash backward of a
     BERT layer (the delta kernel, #6 and #7 at D 64, kv_length and dropout
     0.1) at the training shape in both dtypes."""
     g = torch.Generator(device=DEV).manual_seed(19)
@@ -1776,8 +1762,8 @@ def delta_timing(torch, fa, timer):
                                    generator=g).to(dt) for _ in range(2))
             ms = timer(lambda: fa.flash_attention_bwd_delta(do, out),
                        spin=FLASH_SPIN)
-            clean = clean_l2_time(torch, timer, lambda: (
-                fa.flash_attention_bwd_delta(do, out)))
+            clean = timer(lambda: fa.flash_attention_bwd_delta(do, out),
+                          spin=FLASH_SPIN, clean=True)
             bms, by = delta_bound(B, H, L, D, do.element_size())
             log("delta timing (B %d, H %d, L %d, D %d) %s: kernel %.4f ms "
                 "(after a read flush, the L2 clean: %.4f ms) bound %.4f ms "

@@ -38,7 +38,7 @@ import torch
 from ..models import decoder as _decoder
 from ..ops.kernels import quant_matmul as _qmm
 
-__all__ = ["QuantizedLM", "quantize_lm", "quantize_params", "tp_group"]
+__all__ = ["QuantizedLM", "quantize_lm", "quantize_params"]
 
 _MODES = ("int8", "int4")
 
@@ -58,7 +58,7 @@ def quantize_params(params, mode="int8", group=128, tp=1):
     everything else is returned as is.  The codes and scales are the JAX
     package's, bit for bit.  With ``tp > 1`` the int4 group of the
     row-parallel ``wo`` and ``w2`` shrinks to divide their per-shard input
-    dim (:func:`tp_group`), as ``mxnet_tpu/serving/quantize.py:74-83``
+    dim (:func:`_tp_group`), as ``mxnet_tpu/serving/quantize.py:74-83``
     does."""
     _check_mode(mode)
     tp = max(1, int(tp))
@@ -69,14 +69,14 @@ def quantize_params(params, mode="int8", group=128, tp=1):
         for kind in _decoder._QUANT_KINDS:
             w = lp[kind].detach()
             qlp[kind] = (_qmm.quantize_w8(w) if mode == "int8"
-                         else _qmm.quantize_w4(w, group=tp_group(
+                         else _qmm.quantize_w4(w, group=_tp_group(
                              kind, w.shape[1], group, tp)))
         layers.append(qlp)
     out["layers"] = layers
     return out
 
 
-def tp_group(kind, in_dim, group, tp):
+def _tp_group(kind, in_dim, group, tp):
     """The int4 group asked of ``quantize_w4`` for GEMM leaf ``kind`` of
     ``in_dim`` inputs at tensor-parallel degree ``tp``: the row-parallel
     leaves (``wo``, ``w2``) split their inputs ``tp`` ways, so their group
@@ -160,7 +160,7 @@ class QuantizedLM:
                                          name, type(t).__name__,
                                          self.quant_mode))
                 i = own[name].shape[1]
-                group = _qmm.w4_group(i, tp_group(kind, i, self.group, tp))
+                group = _qmm.w4_group(i, _tp_group(kind, i, self.group, tp))
                 if (want is _qmm.QuantW4
                         and 2 * t.q.shape[1] // t.s.shape[1] != group):
                     raise ValueError("load_jax_params: %s has int4 group %d, "
