@@ -2280,16 +2280,7 @@ int dispatch(const Args& a, int BH, int D, int dtype, cudaStream_t st) {
 // the tensors are cut (the #16 route against its per-shard composition).
 // Bound: bytes, dO and O read once, delta written once (25.2 MB in fp32
 // at B 32, H 12, L 128, D 64: 7.5 us at 3.35 TB/s; 12.6 MB in bf16).
-//
-// Measured on the H100 against this design (PERF.md): a grid of one wave
-// whose warps each walk a contiguous run of rows with 4 or 8 vectors of
-// dO and of O in flight a lane and store delta as 16-byte vectors timed
-// the same (0.0178 ms fp32 at that shape, 0.0122 bf16), under every
-// blocks-an-SM and vectors-a-lane choice tried; L2 evict-first loads took
-// it to 0.0160-0.0166 but left the backward (delta, #6, #7) where it was.
-// After a flush that leaves the L2 clean, both designs take 0.0141 ms:
-// what separates the kernel from its bound is the write-back of the dirty
-// lines the reads evict, which the kernel's shape does not move.
+// A one-wave grid of contiguous row runs timed the same (PERF.md section 6).
 struct DeltaArgs {
   const void *dout, *out;
   float* delta;  // (BH, L), contiguous

@@ -92,7 +92,9 @@ class QuantizedLM:
     Offers what ``DecodeEngine`` reads off a model: ``config``,
     ``eos_id``, ``device`` and ``params(tp=)``, the quantized params dict,
     made once at the first call and cached, per tensor-parallel degree
-    for int4 (whose row-parallel groups depend on it).  The engine reads
+    for int4 (whose row-parallel groups depend on it).  A wrapper whose
+    codes came from :meth:`load_jax_params` serves them at the degree they
+    were quantized for, and no other.  The engine reads
     :meth:`quant_token` to report the format."""
 
     def __init__(self, model, mode="int8", group=128):
@@ -101,6 +103,7 @@ class QuantizedLM:
         self.quant_mode = str(mode)
         self.group = int(group)
         self._params = {}        # tp degree (1 for int8) -> params dict
+        self._loaded = None      # the key of load_jax_params' codes
 
     @property
     def config(self):
@@ -125,9 +128,18 @@ class QuantizedLM:
 
     def params(self, tp=1):
         """The quantized params dict for tensor-parallel degree ``tp`` (made
-        once, then cached; int8 ignores ``tp``)."""
+        once, then cached; int8 ignores ``tp``).  After
+        :meth:`load_jax_params` an int4 wrapper has no fp GEMM weights to
+        quantize at another degree (the wrapped model's were not loaded):
+        asking for one raises ``ValueError``."""
         key = self._key(tp)
         if key not in self._params:
+            if self._loaded is not None:
+                raise ValueError(
+                    "this int4 wrapper holds the codes loaded from JAX at "
+                    "tp %d and no fp GEMM weights, so it cannot quantize "
+                    "for tp %d: load the pytree quantized at tp %d"
+                    % (self._loaded, key, key))
             self._params[key] = quantize_params(
                 self.model.params(), self.quant_mode, group=self.group,
                 tp=key)
@@ -142,7 +154,7 @@ class QuantizedLM:
         ``tp`` (the cache of every other degree is dropped).  The format
         must be this wrapper's (mode, and the group of each leaf at
         ``tp``); the wrapped model's fp GEMM weights are left as they
-        are."""
+        are, so an int4 wrapper then serves ``tp`` alone (:meth:`params`)."""
         state = _decoder.params_from_jax(params_np)
         own = dict(self.model.named_parameters())
         if set(state) != set(own):
@@ -178,8 +190,9 @@ class QuantizedLM:
         for lp, flp in zip(layers, fp["layers"]):
             for k in _decoder.LAYER_KEYS:
                 lp.setdefault(k, flp[k])
-        self._params = {self._key(tp): {"embed": fp["embed"],
-                                        "pos": fp["pos"], "layers": layers}}
+        self._loaded = self._key(tp)
+        self._params = {self._loaded: {"embed": fp["embed"],
+                                       "pos": fp["pos"], "layers": layers}}
         return self
 
     def __repr__(self):

@@ -17,7 +17,6 @@ import torch
 
 from mxnet_tpu_torch import context
 from mxnet_tpu_torch.models import decoder as tdec
-from mxnet_tpu_torch.parallel import ShardingConfig
 from mxnet_tpu_torch.serving import DecodeEngine
 
 torch.set_num_threads(2)
@@ -90,10 +89,6 @@ def test_resolve_cpu():
     assert context.gpu(1) == torch.device("cuda", 1)
 
 
-_TP2 = ShardingConfig.for_transformer(mesh_shape=(1, 2),
-                                      axis_names=("dp", "tp"))
-
-
 @pytest.mark.parametrize("kwargs,error", [
     ({"prefix_cache": True}, NotImplementedError),
     ({"async_decode": True}, NotImplementedError),
@@ -105,12 +100,8 @@ _TP2 = ShardingConfig.for_transformer(mesh_shape=(1, 2),
     # tensor parallelism is ported: what is not a ShardingConfig is refused
     ({"sharding": object()}, TypeError),
     ({"role": "prefill"}, NotImplementedError),
-    # quantized serving under tensor parallelism is ported: a format the
-    # JAX engine refuses too is refused under it as well
-    ({"sharding": _TP2, "quantize": "fp8"}, ValueError),
 ], ids=["prefix_cache", "async_decode", "dispatch_ahead", "migrate",
-        "pagestore", "speculate", "draft_model", "sharding", "role",
-        "sharding+quantize"])
+        "pagestore", "speculate", "draft_model", "sharding", "role"])
 def test_unported_engine_features_raise(tiny_lm, kwargs, error):
     with pytest.raises(error):
         DecodeEngine(tiny_lm, device="cpu", slots=2, page_size=4,

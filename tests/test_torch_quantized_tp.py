@@ -234,6 +234,48 @@ def test_load_jax_params_at_tp(models):
             assert torch.equal(gl[k], wl[k])
     with pytest.raises(ValueError, match="int4 group"):
         quantize_lm(fresh, "int4", group=128).load_jax_params(jq)
+    # the wrapped model's fp GEMM weights are seed 5's: no other tp is
+    # quantized from them
+    with pytest.raises(ValueError, match="at tp 2"):
+        qlm.params()
+
+
+@pytest.mark.parametrize("loaded,served", [(1, 2), (2, 1), (4, 2), (2, 4)],
+                         ids=["tp1-to-tp2", "tp2-to-tp1", "tp4-to-tp2",
+                              "tp2-to-tp4"])
+def test_loaded_int4_engine_refuses_other_tp(models, models4, loaded,
+                                              served):
+    """An int4 wrapper loaded from a JAX pytree quantized at one tp holds
+    no fp GEMM weights to quantize for another: an engine at another tp
+    raises ValueError naming the loaded tp, and one at the loaded tp
+    serves its codes."""
+    jlm = (models4 if 4 in (loaded, served) else models)[0]
+    kvh = jlm.config.num_kv_heads
+    jq = jax.tree.map(np.asarray, _jax_quantized(jlm, "int4", 128, loaded))
+    fresh = tdec.decoder_tiny_lm(device="cpu", seed=5, num_kv_heads=kvh)
+    qlm = quantize_lm(fresh, "int4", group=128).load_jax_params(jq,
+                                                                tp=loaded)
+
+    def engine(tp):
+        mesh = dict(mesh_shape=(8 // tp, tp), axis_names=("dp", "tp"))
+        return DecodeEngine(qlm, name="llm", device="cpu",
+                            sharding=ShardingConfig.for_transformer(**mesh),
+                            **ENGINE)
+
+    with pytest.raises(ValueError, match="at tp %d" % loaded):
+        engine(served)
+    eng = engine(loaded)
+    try:
+        assert eng.tp == loaded
+        wo = qlm.params(tp=loaded)["layers"][0]["wo"]
+        if loaded == 1:
+            assert eng.params["layers"][0]["wo"] is wo
+        else:
+            for p, w in zip(eng.params, tqm.shard_quantized(wo, loaded, 1)):
+                assert torch.equal(p["layers"][0]["wo"].q, w.q)
+                assert torch.equal(p["layers"][0]["wo"].s, w.s)
+    finally:
+        assert eng.stop()
 
 
 # ---------------------------------------------------------------------------
