@@ -85,12 +85,14 @@ plain version):
    768 units, FFN 3072, 12 heads, max length 512; random weights from
    ``--seed``, with random biases and LN affines, which the kernel checks
    use too) served by ``DecodeEngine`` (16 slots, page size 16, prefill
-   chunk 64) with 48 requests, seven times: with the fused decode kernel;
+   chunk 64) with 48 requests, nine times: with the fused decode kernel;
    with ``MXNET_DECODE_FUSED=0``; with int8 weights and int8 KV pages;
    with int4 weights (group 128) and fp KV pages; and tensor-parallel
    (``sharding=ShardingConfig.for_transformer(mesh_shape=(1, tp),
    axis_names=("dp", "tp"))``, the shards in turn on the card) fused at
-   tp 2 and tp 4 and per-op at tp 2.  Kernel launch counts are set to 0
+   tp 2 and tp 4 and per-op at tp 2; int8 weights + int8 KV at tp 2 and
+   int4 weights at tp 4, per-op (the TP rows serve the first
+   ``TP_REQUESTS`` = 24 of the 48 requests).  Kernel launch counts are set to 0
    before each run and read after it (a fused TP step launches #13 and
    #14 12 tp times each, a per-op one paged attention 12 tp times), and
    a TP engine's collective census must read 24 all-reduces and nothing
@@ -99,6 +101,35 @@ plain version):
    through the flash forward kernel; over the quantized weights for
    int4), each TP engine's also against the tp 1 engine's, and for the
    int8-KV run against the same programs on CPU copies of the params.
+   Every serving row runs the engine's defaults: the async decode
+   pipeline (dispatch depth 1; the inputs staged from pinned rings, each
+   step's tokens read back through a pinned buffer once its CUDA event
+   has passed) and the prefix cache on.  Prefill chunks are timed by CUDA
+   events recorded around each call and read after the run.  Each row
+   also prints its host gap, dispatch depth, deferred reads, the drains a
+   completing prompt caused, staging-ring waits and the host time of the
+   launch and retire halves; launched decode steps must equal retired
+   ones (the discarded flights are printed where they differ).  The
+   fused tp 1 and int8 + int8 KV tp 2 rows run the launch half under
+   ``torch.cuda.set_sync_debug_mode("error")``: an operation there that
+   synchronises the stream fails the run.  The fused, per-op and int8 +
+   int8 KV tp 1 rows are served again by the synchronous loop
+   (``async_decode=False``): streams equal token for token, both loops'
+   numbers side by side.  Prefix traffic (fused tp 1, and int8 weights +
+   int8 KV tp 1): a shared prefix (fp 200 tokens, 12 full pages and 8
+   tokens, so every hit forks the partial page copy-on-write; int8 192,
+   12 whole pages) served alone, then 47 requests of the prefix and 8-56
+   unique tokens (a distinct first token each), 16-64 new, from
+   ``--seed``, with the prefix cache on and off: 47 hits, 47 x the
+   prefix's tokens saved, 47 forks (fp) or none (int8), streams equal
+   (where one differs, ``full_forward``'s top-2 margin there below
+   1e-4), time to first token and chunks on and off.  Sessions (fused
+   tp 1): 16 two-turn sessions (64 prompt tokens and 32 new, then 32 and
+   32), each continuation equal to the one-shot request over the whole
+   conversation; 4 parked sessions exported and imported into a second
+   engine (pages bit-equal), a third turn equal on both; the same between
+   two int8-KV engines (v2 blobs with scales).  Launch counts are set to
+   0 before the prefix and session phases and read after them.
    The sharded-attention path: forward and backward through
    ``flash_attention_sharded`` (dp 2 x tp 2, causal) in fp32 and bf16,
    launching #5, the delta kernel, #6 and #7 once a call.
@@ -2879,44 +2910,70 @@ def launch_counts(reset=False):
     return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
 
-def serve(torch, lm, reqs, label, fused, sharding=None, **quant):
-    """Serve ``reqs`` through a fresh engine; check every request's length,
-    that the run launched exactly the kernels of its path and, under
-    ``sharding``, the engine's collective census."""
-    from mxnet_tpu_torch.serving import DecodeEngine
-    os.environ["MXNET_DECODE_FUSED"] = "1" if fused else "0"
-    eng = DecodeEngine(lm, name="smoke", slots=SLOTS, page_size=PAGE,
-                       max_ctx=MAX_CTX, prefill_chunk=CHUNK, device=DEV,
-                       sharding=sharding, **quant)
-    eng.warmup()
-    prefill_fn, chunk_ms = eng._prefill_fn, []
+class Driven:
+    """One engine's run, counted and timed from outside: the decode steps
+    it launched, its prefill chunks (timed on the card by CUDA events
+    recorded around each call and read after the run — a synchronise
+    after each chunk would be a host wait the engine does not have), and
+    the host time of each launch half and retire half of the async loop.
+    With ``sync_check`` the launch half runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: an operation there that
+    synchronises the stream raises, and the lanes it carried fail."""
 
-    def timed_prefill(*a):
-        t = time.perf_counter()
-        out = prefill_fn(*a)
-        torch.cuda.synchronize()
-        chunk_ms.append((time.perf_counter() - t) * 1e3)
-        return out
+    def __init__(self, torch, eng, sync_check=False):
+        self.torch, self.eng = torch, eng
+        self.launched, self.events = 0, []
+        self.launch_ms, self.retire_ms = [], []
+        self.saved = {k: getattr(eng, k) for k in (
+            "_decode_fn", "_prefill_fn", "_launch_decode", "_retire_one")}
+        decode, prefill = self.saved["_decode_fn"], self.saved["_prefill_fn"]
+        launch, retire = self.saved["_launch_decode"], self.saved["_retire_one"]
 
-    eng._prefill_fn = timed_prefill
-    torch.cuda.synchronize()
-    launch_counts(reset=True)
-    t0 = time.perf_counter()
-    futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
-    outs = [f.result(timeout=900) for f in futs]
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
-    if not eng.stop():
-        raise AssertionError("engine worker did not stop")
-    snap = eng.metrics.snapshot()["models"]["smoke"]
-    steps = snap["counters"]["decode_steps_total"]
-    for (p, n), o in zip(reqs, outs):
-        if len(o["tokens"]) != n or o["finish_reason"] != "length":
-            raise AssertionError("request finished early or short: %r"
-                                 % ({k: o[k] for k in ("finish_reason",
-                                                       "completion_tokens")},))
-    L, tp = lm.config.num_layers, eng.tp
-    chunks = len(chunk_ms)
+        def counted_decode(*a):
+            self.launched += 1
+            return decode(*a)
+
+        def timed_prefill(*a):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = prefill(*a)
+            e.record()
+            self.events.append((s, e))
+            return out
+
+        def timed_launch():
+            t = time.perf_counter()
+            if sync_check:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return launch()
+            finally:
+                if sync_check:
+                    torch.cuda.set_sync_debug_mode("default")
+                self.launch_ms.append((time.perf_counter() - t) * 1e3)
+
+        def timed_retire():
+            t = time.perf_counter()
+            out = retire()
+            self.retire_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        eng._decode_fn, eng._prefill_fn = counted_decode, timed_prefill
+        eng._launch_decode, eng._retire_one = timed_launch, timed_retire
+
+    def restore(self):
+        """Put the engine's own methods back; the chunks' device ms."""
+        for k, fn in self.saved.items():
+            setattr(self.eng, k, fn)
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def path_launches(eng, steps, chunks):
+    """The kernel launches of ``steps`` decode steps and ``chunks`` prefill
+    chunks of ``eng``'s path, by the names of ``KERNELS``."""
+    L, tp = eng.cfg.num_layers, eng.tp
     want = dict.fromkeys(KERNELS, 0)
     if eng.decode_fused and eng.sharding is not None:
         want["decode_attn_phase"] = want["decode_ffn_phase"] = steps * L * tp
@@ -2932,22 +2989,94 @@ def serve(torch, lm, reqs, label, fused, sharding=None, **quant):
     if eng.quant is not None:
         fmt = "w8" if eng.quant[0] == "int8" else "w4"
         want["quant_matmul_" + fmt] = 6 * L * tp * (steps + chunks)
+    return want
+
+
+def check_launches(what, counts, want, runs):
+    """``counts`` (launches read after a phase) must equal ``want``; ``runs``
+    are (label, Driven, decode_steps_total) of the phase's engines.  Where
+    an engine launched more steps than it retired, the discarded flights
+    are printed (the check stays exact)."""
+    for label, drv, steps in runs:
+        if drv.launched != steps:
+            log("%s %s: %d decode steps launched, %d retired: %d discarded "
+                "flights" % (what, label, drv.launched, steps,
+                             drv.launched - steps))
+    if counts != want:
+        raise AssertionError("%s: launch counts do not match the path: %s, "
+                             "want %s" % (what, counts, want))
+
+
+def pct(xs, q):
+    return float(np.percentile(xs, q)) if xs else float("nan")
+
+
+def serve(torch, lm, reqs, label, fused, sharding=None, async_decode=None,
+          sync_check=False, **quant):
+    """Serve ``reqs`` through a fresh engine (the engine's defaults: async,
+    dispatch depth 1, prefix cache on, unless ``async_decode`` says
+    otherwise); check every request's length, that the run launched
+    exactly the kernels of its path and, under ``sharding``, the engine's
+    collective census.  ``sync_check``: the launch half runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from mxnet_tpu_torch.serving import DecodeEngine
+    os.environ["MXNET_DECODE_FUSED"] = "1" if fused else "0"
+    eng = DecodeEngine(lm, name="smoke", slots=SLOTS, page_size=PAGE,
+                       max_ctx=MAX_CTX, prefill_chunk=CHUNK, device=DEV,
+                       sharding=sharding, async_decode=async_decode, **quant)
+    eng.warmup()
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    drv = Driven(torch, eng, sync_check)
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
+    outs = [f.result(timeout=900) for f in futs]
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if not eng.stop():
+        raise AssertionError("engine worker did not stop")
+    chunk_ms = drv.restore()
+    snap = eng.metrics.snapshot()["models"]["smoke"]
+    steps = snap["counters"]["decode_steps_total"]
+    for (p, n), o in zip(reqs, outs):
+        if len(o["tokens"]) != n or o["finish_reason"] != "length":
+            raise AssertionError("request finished early or short: %r"
+                                 % ({k: o[k] for k in ("finish_reason",
+                                                       "completion_tokens")},))
+    tp = eng.tp
+    chunks = len(chunk_ms)
     gen = sum(len(o["tokens"]) for o in outs)
     step = snap["generate"]["decode_step"]
-    log("serve %s (decode %s, weights %s, kv %s, tp %d): %d requests, %d "
-        "tokens in %.3f s = %.1f tokens/s; %d decode steps p50 %.3f ms p99 "
-        "%.3f ms; %d prefill chunks p50 %.3f ms total %.1f ms; launches %s"
+    gap = snap["generate"]["host_gap_us"]
+    depth = snap["generate"]["dispatch_depth"]
+    st = eng.stats()["async"]
+    loop = "async" if eng.async_decode else "sync"
+    log("serve %s (decode %s, weights %s, kv %s, tp %d, %s loop%s): %d "
+        "requests, %d tokens in %.3f s = %.1f tokens/s; %d decode steps p50 "
+        "%.3f ms p99 %.3f ms; %d prefill chunks p50 %.3f ms total %.1f ms "
+        "(device, CUDA events); launches %s"
         % (label, "fused" if eng.decode_fused else "per-op",
            eng.quant and "/".join(map(str, eng.quant)), eng.kv_dtype, tp,
-           len(outs), gen, wall, gen / wall, steps, step["p50_ms"],
+           loop, ", sync debug 'error' in the launch half" if sync_check
+           else "", len(outs), gen, wall, gen / wall, steps, step["p50_ms"],
            step["p99_ms"], chunks, statistics.median(chunk_ms),
            sum(chunk_ms), counts))
-    if counts != want or not chunks or not steps:
-        raise AssertionError("launch counts do not match the path: %s, want "
-                             "%s (%d steps, %d chunks)"
-                             % (counts, want, steps, chunks))
+    log("serve %s %s loop: host gap p50 %.1f us p99 %.1f us (%d steps); "
+        "dispatch depth p50 %s max %s; deferred reads %d; prompt-completion "
+        "drains %d; staging waits %d; launch half host p50 %.3f ms, retire "
+        "half host p50 %.3f ms (%d retires)"
+        % (label, loop, gap.get("p50_us", 0.0), gap.get("p99_us", 0.0),
+           gap["count"], depth.get("p50"), depth.get("max"),
+           snap["counters"]["deferred_reads_total"], st["prefill_drains"],
+           st["staging_waits"], pct(drv.launch_ms, 50),
+           pct(drv.retire_ms, 50), len(drv.retire_ms)))
+    check_launches("serve " + label, counts, path_launches(eng, steps, chunks),
+                   [(label, drv, steps)])
+    if not chunks or not steps:
+        raise AssertionError("serve %s: no decode step or no chunk" % label)
     if sharding is not None:
         shd = eng.stats()["sharding"]
+        L = lm.config.num_layers
         log("serve %s: mesh %s, collectives per decode step (counted at "
             "attach) %s" % (label, shd["mesh"], shd["collectives"]))
         if (eng.tp != sharding.axis_size("tp")
@@ -2956,11 +3085,275 @@ def serve(torch, lm, reqs, label, fused, sharding=None, **quant):
             raise AssertionError("tp %d engine: census %s, want %d "
                                  "all-reduces and nothing else"
                                  % (eng.tp, shd["collectives"], 2 * L))
-    eng._prefill_fn = prefill_fn
     return eng, outs, counts, dict(
         tokens_per_s=gen / wall, decode_step_p50_ms=step["p50_ms"],
         decode_step_p99_ms=step["p99_ms"],
-        prefill_chunk_p50_ms=statistics.median(chunk_ms), tp=tp)
+        prefill_chunk_p50_ms=statistics.median(chunk_ms), tp=tp, loop=loop,
+        host_gap_p50_us=gap.get("p50_us", 0.0),
+        dispatch_depth_max=depth.get("max"),
+        deferred_reads=snap["counters"]["deferred_reads_total"],
+        prefill_drains=st["prefill_drains"],
+        staging_waits=st["staging_waits"],
+        launch_half_p50_ms=pct(drv.launch_ms, 50),
+        retire_half_p50_ms=pct(drv.retire_ms, 50))
+
+
+#: requests of the tensor-parallel rows: the first half of the traffic,
+#: which keeps the smoke's time near its length before the async/sync
+#: A/B and the prefix and session phases came
+TP_REQUESTS = 24
+
+#: the tp 1 rows served again by the synchronous loop (async_decode=False),
+#: whose streams must equal the async rows' token for token
+AB_ROWS = (("fused", True, {}), ("per_op", False, {}),
+           ("int8_kv8", True, dict(quantize="int8", kv_dtype="int8")))
+#: the rows whose launch half runs under set_sync_debug_mode("error")
+SYNC_CHECKED = ("fused", "int8_kv8_tp2")
+
+
+def check_ab(torch, lm, reqs, runs):
+    """The A/B rows: each served by the synchronous loop, streams held
+    against the async run's, and both loops' numbers side by side."""
+    for label, fused, quant in AB_ROWS:
+        sync = label + "_sync"
+        runs[sync] = serve(torch, lm, reqs, sync, fused, async_decode=False,
+                           **quant)
+        a, s = runs[label], runs[sync]
+        same = sum(x["tokens"] == y["tokens"] for x, y in zip(a[1], s[1]))
+        log("A/B %s: async vs sync streams identical for %d of %d; "
+            "tokens/s %.1f vs %.1f; decode p50 %.3f vs %.3f ms, p99 %.3f vs "
+            "%.3f ms; host gap p50 %.1f vs %.1f us; dispatch depth max %s vs "
+            "%s; deferred reads %d vs %d; prompt-completion drains %d vs %d"
+            % (label, same, len(reqs), a[3]["tokens_per_s"],
+               s[3]["tokens_per_s"], a[3]["decode_step_p50_ms"],
+               s[3]["decode_step_p50_ms"], a[3]["decode_step_p99_ms"],
+               s[3]["decode_step_p99_ms"], a[3]["host_gap_p50_us"],
+               s[3]["host_gap_p50_us"], a[3]["dispatch_depth_max"],
+               s[3]["dispatch_depth_max"], a[3]["deferred_reads"],
+               s[3]["deferred_reads"], a[3]["prefill_drains"],
+               s[3]["prefill_drains"]))
+        if same != len(reqs):
+            raise AssertionError("A/B %s: the async and sync loops' streams "
+                                 "differ" % label)
+
+
+#: the shared prefix of the prefix traffic, by KV dtype: fp 12 full pages
+#: of 16 and 8 tokens, so every hit forks the partial page copy-on-write;
+#: int8 12 whole pages (a partial page's scale latches at its first
+#: write, which the cache moves into another chunk)
+PREFIX_TOKENS = {"float32": 200, "int8": 192}
+PREFIX_REQUESTS = 47
+PREFIX_RUNS = (("prefix_fused", True, {}),
+               ("prefix_int8_kv8", True, dict(quantize="int8",
+                                              kv_dtype="int8")))
+
+
+def prefix_traffic(seed, n_prefix):
+    """The shared prefix, then ``PREFIX_REQUESTS`` requests of the prefix
+    plus 8-56 unique tokens (a distinct first token each) asking for
+    16-64 new tokens."""
+    rng = np.random.default_rng(seed + 1000)
+    V = WIDTHS["vocab_size"]
+    prefix = rng.integers(0, V, n_prefix).tolist()
+    firsts = rng.choice(V, PREFIX_REQUESTS, replace=False)
+    reqs = [(prefix + [int(f)] + rng.integers(0, V, int(rng.integers(
+        7, 56))).tolist(), int(rng.integers(16, 65))) for f in firsts]
+    return prefix, reqs
+
+
+def near_tie(torch, eng, prompt, got, want):
+    """The first position where two streams differ, and the top-2 margin
+    of ``full_forward`` over the engine's weights there."""
+    from mxnet_tpu_torch.models import decoder as dec
+    i = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    with torch.no_grad():
+        lg = dec.full_forward(eng.params, eng.cfg, torch.tensor(
+            [prompt + got[:i]], device=DEV))[0, -1]
+    top2 = torch.topk(lg, 2).values
+    return i, float(top2[0] - top2[1])
+
+
+def prefix_phase(torch, lm, seed):
+    """Prefix traffic, as many chats sharing one system prompt send it: per
+    row of ``PREFIX_RUNS``, the shared prefix alone (waited for), then
+    ``PREFIX_REQUESTS`` requests at once, with the prefix cache on and
+    off.  The streams must be equal (or differ only at a near-tie of
+    ``full_forward``); the hits, tokens saved and forks must be what the
+    traffic gives.  Returns the phase's launch counts."""
+    from mxnet_tpu_torch.serving import DecodeEngine
+    os.environ["MXNET_DECODE_FUSED"] = "1"
+    total = dict.fromkeys(KERNELS, 0)
+    for label, _, quant in PREFIX_RUNS:
+        kv = quant.get("kv_dtype", "float32")
+        n_prefix = PREFIX_TOKENS[kv]
+        prefix, reqs = prefix_traffic(seed, n_prefix)
+        res = {}
+        for on in (True, False):
+            eng = DecodeEngine(lm, name="smoke", slots=SLOTS, page_size=PAGE,
+                               max_ctx=MAX_CTX, prefill_chunk=CHUNK,
+                               device=DEV, prefix_cache=on, **quant)
+            eng.warmup()
+            torch.cuda.synchronize()
+            launch_counts(reset=True)
+            drv = Driven(torch, eng)
+            t0 = time.perf_counter()
+            warm = eng.submit(prefix, max_new_tokens=16).result(timeout=900)
+            outs = [f.result(timeout=900) for f in
+                    [eng.submit(p, max_new_tokens=n) for p, n in reqs]]
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            if not eng.stop():
+                raise AssertionError("engine worker did not stop")
+            chunk_ms = drv.restore()
+            snap = eng.metrics.snapshot()["models"]["smoke"]
+            c, steps = snap["counters"], snap["counters"]["decode_steps_total"]
+            check_launches(label, counts, path_launches(eng, steps,
+                                                        len(chunk_ms)),
+                           [(label, drv, steps)])
+            for k in KERNELS:
+                total[k] += counts[k]
+            res[on] = (eng, [warm] + outs)
+            log("%s cache %s: %d requests in %.3f s; prefix hits %d, tokens "
+                "saved %d, copy-on-write forks %d; ttft p50 %.3f ms; %d "
+                "prefill chunks (%.1f device ms); decode p50 %.3f ms"
+                % (label, "on" if on else "off", len(reqs) + 1, wall,
+                   c["prefix_hits_total"], c["prefix_tokens_saved_total"],
+                   c["cow_forks_total"], snap["generate"]["ttft"]["p50_ms"],
+                   len(chunk_ms), sum(chunk_ms),
+                   snap["generate"]["decode_step"]["p50_ms"]))
+            want = ((PREFIX_REQUESTS, PREFIX_REQUESTS * n_prefix,
+                     PREFIX_REQUESTS if kv == "float32" else 0) if on
+                    else (0, 0, 0))
+            got = (c["prefix_hits_total"], c["prefix_tokens_saved_total"],
+                   c["cow_forks_total"])
+            if got != want:
+                raise AssertionError("%s cache %s: hits, tokens saved, forks "
+                                     "%s, want %s" % (label, on, got, want))
+        eng = res[True][0]
+        same = 0
+        for (p, _), a, b in zip([(prefix, 16)] + reqs, res[True][1],
+                                res[False][1]):
+            if a["tokens"] == b["tokens"]:
+                same += 1
+                continue
+            i, margin = near_tie(torch, eng, p, a["tokens"], b["tokens"])
+            log("%s: streams differ at %d, full_forward top-2 margin %.3g"
+                % (label, i, margin))
+            if not margin < 1e-4:
+                raise AssertionError("%s: cache on and off differ without a "
+                                     "near-tie" % label)
+        log("%s: cache on vs off streams identical for %d of %d"
+            % (label, same, len(reqs) + 1))
+    return total
+
+
+SESSIONS, SESSION_EXPORTS = 16, 4
+
+
+def session_pages(torch, eng, sid):
+    """A parked session's pages (codes and scales for int8) on the card."""
+    idx = torch.tensor(eng.alloc.pages(eng._sessions[sid].owner),
+                       device=DEV)
+    if eng.kv_dtype == "int8":
+        return [t[:, :, idx] for t in (eng._kp.q, eng._vp.q, eng._kp.s,
+                                       eng._vp.s)]
+    return [eng._kp[:, :, idx], eng._vp[:, :, idx]]
+
+
+def session_phase(torch, lm, seed):
+    """Decode sessions on the fused tp 1 engine: ``SESSIONS`` two-turn
+    conversations (64 prompt tokens and 32 new, then 32 more and 32 new),
+    each continuation held against the one-shot request over the whole
+    conversation; ``SESSION_EXPORTS`` parked sessions exported and imported
+    into a second engine on the same weights, pages bit-equal and a third
+    turn equal on both; then the same export and import between two int8-KV
+    engines (v2 blobs, with scales).  Returns the phase's launch counts."""
+    from mxnet_tpu_torch.serving import DecodeEngine, unpack_session
+    os.environ["MXNET_DECODE_FUSED"] = "1"
+    rng = np.random.default_rng(seed + 2000)
+    V = WIDTHS["vocab_size"]
+
+    def toks(n):
+        return rng.integers(0, V, n).tolist()
+
+    def engine(**kw):
+        eng = DecodeEngine(lm, name="smoke", slots=SLOTS, page_size=PAGE,
+                           max_ctx=MAX_CTX, prefill_chunk=CHUNK, device=DEV,
+                           **kw)
+        eng.warmup()
+        return eng
+
+    def turn(eng, prompts, n, sids, resume):
+        futs = [eng.submit(p, max_new_tokens=n, session=s, resume=resume)
+                for p, s in zip(prompts, sids)]
+        return [f.result(timeout=900)["tokens"] for f in futs]
+
+    engines = {"e1": engine(), "e2": engine(),
+               "i1": engine(kv_dtype="int8"), "i2": engine(kv_dtype="int8")}
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    runs_driven = {k: Driven(torch, e) for k, e in engines.items()}
+    e1, e2, i1, i2 = (engines[k] for k in ("e1", "e2", "i1", "i2"))
+    sids = ["s%d" % i for i in range(SESSIONS)]
+    t1 = [toks(64) for _ in sids]
+    r1 = turn(e1, t1, 32, sids, False)
+    t2 = [toks(32) for _ in sids]
+    r2 = turn(e1, t2, 32, sids, True)
+    one = turn(e1, [a + b + c for a, b, c in zip(t1, r1, t2)], 32,
+               [None] * SESSIONS, False)
+    same = sum(a == b for a, b in zip(r2, one))
+    log("sessions: %d two-turn sessions on %s; continuations equal to the "
+        "one-shot stream for %d of %d" % (SESSIONS, "fused tp 1", same,
+                                          SESSIONS))
+    if same != SESSIONS:
+        raise AssertionError("session continuations differ from one-shot")
+    for src, dst, label, kv in ((e1, e2, "fp", "float32"),
+                                (i1, i2, "int8 KV", "int8")):
+        moved = sids[:SESSION_EXPORTS]
+        if kv == "int8":
+            turn(src, t1[:SESSION_EXPORTS], 32, moved, False)
+        sizes = []
+        t = time.perf_counter()
+        for sid in moved:
+            blob = src.export_session(sid)
+            sizes.append(len(blob))
+            _, _, _, ks, _ = unpack_session(blob, with_scales=True)
+            if (ks is not None) != (kv == "int8"):
+                raise AssertionError("%s blob has the wrong format" % label)
+            dst.import_session(blob)
+            for a, b in zip(session_pages(torch, src, sid),
+                            session_pages(torch, dst, sid)):
+                if not torch.equal(a, b):
+                    raise AssertionError("imported %s pages differ" % label)
+        ms = (time.perf_counter() - t) * 1e3
+        t3 = [toks(16) for _ in moved]
+        a = turn(src, t3, 16, moved, True)
+        b = turn(dst, t3, 16, moved, True)
+        log("sessions %s: %d exported and imported (blobs %d-%d bytes, %.1f "
+            "ms host for the lot, pages bit-equal); continuations on the "
+            "importer equal the exporter's for %d of %d"
+            % (label, len(moved), min(sizes), max(sizes), ms,
+               sum(x == y for x, y in zip(a, b)), len(moved)))
+        if a != b:
+            raise AssertionError("imported %s sessions continue otherwise"
+                                 % label)
+    counts = launch_counts()
+    want, runs = dict.fromkeys(KERNELS, 0), []
+    for k, eng in engines.items():
+        if not eng.stop():
+            raise AssertionError("engine worker did not stop")
+        drv = runs_driven[k]
+        chunks = len(drv.restore())
+        steps = eng.metrics.snapshot()["models"]["smoke"]["counters"][
+            "decode_steps_total"]
+        runs.append(("sessions " + k, drv, steps))
+        for name, n in path_launches(eng, steps, chunks).items():
+            want[name] += n
+        if eng.alloc.num_used:
+            raise AssertionError("sessions: pages left after stop")
+    check_launches("sessions", counts, want, runs)
+    return counts
 
 
 # quantized tensor-parallel serving runs: (label, tp, engine arguments)
@@ -3109,16 +3502,18 @@ def span_ms(torch, prof, keys):
     return out, total
 
 
-def profile(torch, lm, reqs, fused, sharding=None, **quant):
+def profile(torch, lm, reqs, fused, sharding=None, async_decode=None,
+            **quant):
     """torch.profiler over one engine serving ``reqs`` (``quant``: the
-    engine's quantization options): the device's busy share of the window
-    and the kernels that took the most device time."""
+    engine's quantization options; ``async_decode`` its loop): the
+    device's busy share of the window and the kernels that took the most
+    device time."""
     from torch.profiler import ProfilerActivity
     from mxnet_tpu_torch.serving import DecodeEngine
     os.environ["MXNET_DECODE_FUSED"] = "1" if fused else "0"
     eng = DecodeEngine(lm, name="prof", slots=SLOTS, page_size=PAGE,
                        max_ctx=MAX_CTX, prefill_chunk=CHUNK, device=DEV,
-                       sharding=sharding, **quant)
+                       sharding=sharding, async_decode=async_decode, **quant)
     eng.warmup()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
@@ -3130,10 +3525,11 @@ def profile(torch, lm, reqs, fused, sharding=None, **quant):
         wall = time.perf_counter() - t0
     eng.stop()
     busy, n, top = device_summary(torch, prof, wall)
-    log("profile fused=%s tp=%d%s: %d requests in %.3f s, device busy "
-        "%.1f%% (%d kernel spans); top kernels by device ms: %s"
-        % (fused, eng.tp, " %s" % (quant,) if quant else "", len(reqs),
-           wall, busy, n, top))
+    log("profile fused=%s tp=%d%s %s loop: %d requests in %.3f s, device "
+        "busy %.1f%% (%d kernel spans); top kernels by device ms: %s"
+        % (fused, eng.tp, " %s" % (quant,) if quant else "",
+           "async" if eng.async_decode else "sync", len(reqs), wall, busy,
+           n, top))
 
 
 # ---------------------------------------------------------------------------
@@ -3641,7 +4037,8 @@ def main():
                     help="stop after the kernel checks")
     ap.add_argument("--profile", action="store_true",
                     help="also profile 16 requests through each decode step "
-                    "(fused and per-op at tp 1, fused at tp 2) and 3 "
+                    "(fused, per-op and int8 + int8 KV at tp 1, fused at tp "
+                    "2; async and sync loops) and 3 "
                     "steps of each training phase (the flash kernels' "
                     "share of the BERT ones), the #16 route's backward "
                     "(its ops and kernel spans by kind) and a BERT layer's "
@@ -3721,18 +4118,24 @@ def main():
             # the per-op one
             ("int8_kv8", True, dict(quantize="int8", kv_dtype="int8")),
             ("int4", True, dict(quantize="int4", quant_group=128))):
-        runs[label] = serve(torch, lm, reqs, label, fused, **quant)
-    # tensor-parallel serving: the shards run in turn on the card
+        runs[label] = serve(torch, lm, reqs, label, fused,
+                            sync_check=label in SYNC_CHECKED, **quant)
+    # the synchronous loop beside the async one, streams held equal
+    check_ab(torch, lm, reqs, runs)
+    # tensor-parallel serving: the shards run in turn on the card, on the
+    # first TP_REQUESTS requests
+    tp_reqs = reqs[:TP_REQUESTS]
     for label, fused, tp in (("tp2_fused", True, 2), ("tp4_fused", True, 4),
                              ("tp2_per_op", False, 2)):
-        runs[label] = serve(torch, lm, reqs, label, fused,
+        runs[label] = serve(torch, lm, tp_reqs, label, fused,
                             sharding=tp_sharding(tp))
     # quantized tensor-parallel serving: each asks for the fused step and
     # must be given the per-op one; int4 at tp 4 quantizes wo with group 64
     # (its shard's 192 inputs)
     for label, tp, quant in QUANT_TP_RUNS:
-        runs[label] = serve(torch, lm, reqs, label, True,
-                            sharding=tp_sharding(tp), **quant)
+        runs[label] = serve(torch, lm, tp_reqs, label, True,
+                            sharding=tp_sharding(tp),
+                            sync_check=label in SYNC_CHECKED, **quant)
         eng = runs[label][0]
         wo = eng.params[0]["layers"][0]["wo"]
         log("serve %s: decode step %s; wo's shard %s with %s scales"
@@ -3744,13 +4147,13 @@ def main():
     same = sum(a["tokens"] == b["tokens"] for a, b in zip(
         runs["int8_kv8"][1], runs["int8_kv8_tp2"][1]))
     log("int8_kv8_tp2 streams identical to the tp 1 int8_kv8 run's for %d of "
-        "%d requests" % (same, len(reqs)))
+        "%d requests" % (same, len(tp_reqs)))
     outs_f = runs["fused"][1]
     for label in ("per_op", "tp2_fused", "tp4_fused", "tp2_per_op"):
         same = sum(a["tokens"] == b["tokens"]
                    for a, b in zip(outs_f, runs[label][1]))
         log("%s streams identical to the tp 1 fused run's for %d of %d "
-            "requests" % (label, same, len(reqs)))
+            "requests" % (label, same, len(runs[label][1])))
     seqs = [p + o["tokens"] for (p, _), o in zip(reqs[:3], outs_f[:3])]
     cfg, params = lm.config, lm.params()
     fp_ref = full_logits(torch, params, cfg, seqs)
@@ -3802,12 +4205,18 @@ def main():
         raise AssertionError("int8-KV engine logits on the card disagree "
                              "with the CPU")
     check_quant_tp(torch, runs, seqs, tf8, fp_ref, cfg)
+    paths = {"prefix": prefix_phase(torch, lm, args.seed),
+             "sessions": session_phase(torch, lm, args.seed)}
     if args.profile:
-        for fused, tp in ((True, 1), (False, 1), (True, 2)):
-            profile(torch, lm, reqs[:16], fused,
-                    tp_sharding(tp) if tp > 1 else None)
+        for fused, tp, quant in ((True, 1, {}), (False, 1, {}), (True, 2, {}),
+                                 (True, 1, dict(quantize="int8",
+                                                kv_dtype="int8"))):
+            for async_decode in (True, False):
+                profile(torch, lm, reqs[:16], fused,
+                        tp_sharding(tp) if tp > 1 else None,
+                        async_decode=async_decode, **quant)
     log("serving done at %.1f s" % (time.perf_counter() - t_start))
-    paths = {"sharded_attention": sharded_attention_path(torch, args.seed)}
+    paths["sharded_attention"] = sharded_attention_path(torch, args.seed)
     trains = {}
     trains["fp32"] = train(torch, args.seed, "fp32", TRAIN_B, TRAIN_L,
                            TRAIN_STEPS, profile_steps=3 if args.profile

@@ -9,7 +9,7 @@ its feature — see :func:`requested`.
 
 API:
   config.get("MXNET_GEN_SLOTS") -> typed value
-  config.requested("MXNET_GEN_ASYNC") -> True when the env asks for it
+  config.requested("MXNET_GEN_SPECULATE") -> True when the env asks for it
   config.describe() -> {name: ConfigVar}
   config.check_env() -> [warnings]
 """
@@ -113,6 +113,27 @@ register("MXNET_GEN_PREFILL_CHUNK", int, 32, "honored",
 register("MXNET_GEN_MAX_CTX", int, 0, "honored",
          "max prompt+output tokens per sequence (0 = model max_length)",
          "serving.DecodeEngine")
+register("MXNET_GEN_SESSION_TTL", float, 300.0, "honored",
+         "idle parked decode-session lifetime in seconds before its KV "
+         "pages are reclaimed (resume after that -> SessionResetError)",
+         "serving.DecodeEngine")
+register("MXNET_GEN_PREFIX_CACHE", int, 1, "honored",
+         "1 = share prompt-prefix KV pages copy-on-write across "
+         "sequences (vLLM-style prefix caching); 0 = every sequence "
+         "prefills privately",
+         "serving.DecodeEngine")
+register("MXNET_GEN_ASYNC", int, 1, "honored",
+         "1 = async decode engine: the host schedules step N+1 while step "
+         "N runs on the card (the sampled tokens stay on the card and "
+         "chain into the next launch; each step's tokens are read back "
+         "through a pinned buffer once its CUDA event has passed; "
+         "emission/metrics/EOS shift to retire time).  0 restores the "
+         "fully synchronous step loop", "serving.DecodeEngine")
+register("MXNET_GEN_DISPATCH_AHEAD", int, 1, "honored",
+         "async decode dispatch depth: launched-but-unretired decode "
+         "steps the engine keeps in flight (1 = classic double "
+         "buffering; raise only when a slow host cannot fill one "
+         "device step of schedule work)", "serving.DecodeEngine")
 register("MXNET_DECODE_FUSED", str, "", "honored",
          "decode step of the LLM engine: ''/'1' = the fused decode-layer-"
          "group kernel (one launch per layer group), '0'/'off' = the "
@@ -160,7 +181,8 @@ register("MXNET_SERVING_REPLICA_ID", str, "", "honored",
          "serving.metrics.ServingMetrics")
 register("MXNET_FAULT_SPEC", str, "", "honored",
          "deterministic fault injection spec: site:kind[@p=F|n=I] joined "
-         "by ';' (sites: decode.step, kvcache.alloc)", "faults")
+         "by ';' (sites: decode.step, engine.retire, kvcache.alloc, "
+         "session.export, session.import)", "faults")
 register("MXNET_FAULT_SEED", int, 0, "honored",
          "seed for probability-based fault-injection rules (deterministic "
          "trip sequences per (seed, site, kind))", "faults.FaultRule")
@@ -169,8 +191,6 @@ register("MXNET_FAULT_SEED", int, 0, "honored",
 # JAX-package knobs whose features the port has not reached
 # ---------------------------------------------------------------------------
 for _name, _help in [
-    ("MXNET_GEN_ASYNC", "async decode pipeline"),
-    ("MXNET_GEN_PREFIX_CACHE", "copy-on-write prefix caching"),
     ("MXNET_GEN_SPECULATE", "speculative decoding"),
     ("MXNET_GEN_PAGESTORE", "session migration through the page store"),
     ("MXNET_GEN_ROLE", "prefill/decode role specialization"),

@@ -6,9 +6,20 @@ slice has so far.  Sites (grep for ``faults.check``):
   decode.step        LLM decode engine, before one whole-batch decode
                      iteration (exception kinds poison the in-flight
                      decode batch typed; the engine keeps serving)
+  engine.retire      async decode engine, before one in-flight step's
+                     deferred host read (its CUDA event wait); exception
+                     kinds typed-fail only that step's lanes, the rest of
+                     the pipeline is discarded, and the engine keeps
+                     serving
   kvcache.alloc      paged KV-cache page allocation (exception kinds fail
                      only the allocating sequence; genuine exhaustion is
                      NOT a fault — it triggers preemption)
+  session.export     decode-session KV export (page table + pages read to
+                     the host and packed); a raise aborts the export and
+                     the session stays parked
+  session.import     decode-session KV import (a blob scattered into fresh
+                     pool pages); a raise fails the import typed and
+                     installs nothing
 
 Kinds: ``reset`` (ConnectionResetError), ``timeout`` (socket.timeout),
 ``error``/``crash`` (RuntimeError), plus site-interpreted kinds that
@@ -61,7 +72,8 @@ _EXC_KINDS = {
 # site-interpreted kinds check() hands back to the caller
 _SOFT_KINDS = ("drop", "torn", "preempt", "kill")
 
-KNOWN_SITES = ("decode.step", "kvcache.alloc")
+KNOWN_SITES = ("decode.step", "engine.retire", "kvcache.alloc",
+               "session.export", "session.import")
 
 
 class FaultRule:

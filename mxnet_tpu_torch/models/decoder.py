@@ -515,6 +515,25 @@ def _tp_decode_step(cfg, S, plan, fused):
     return step
 
 
+def make_token_combine(slots):
+    """The async engine's lane merge, the port of the JAX package's
+    ``make_token_combine`` (``decoder.py:571-587``): the next step's input
+    tokens without a host read.  Continuing lanes chain on the in-flight
+    step's ``next_tokens`` on the card (``carry`` true); lanes that joined
+    the batch since (fresh prefills) feed their host-staged pending token.
+    One ``torch.where`` on the engine's device, queued behind the
+    in-flight step; there is no program to build or cache.
+
+    fn(chained (B,) int32, staged (B,) int32, carry (B,) bool) -> (B,) int32
+    """
+    del slots  # the JAX package keys its program cache on it
+
+    def combine(chained, staged, carry):
+        return torch.where(carry, chained, staged)
+
+    return combine
+
+
 def _group_bounds(num_layers, layer_group):
     """[(lo, hi), …] contiguous layer groups of size ≤ layer_group
     (0 / >=L collapses to one group — the default: ONE launch/step)."""

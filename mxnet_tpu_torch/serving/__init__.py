@@ -1,14 +1,20 @@
 """mxnet_tpu_torch.serving — the LLM decode-serving slice of the port.
 
 - ``DecodeEngine`` (``generate.py``) — continuous batching over a paged
-  KV cache with chunked prefill and preemption by recompute; decode runs
-  the fused decode-layer-group kernel, or the per-op step with the
-  paged-attention and bias_gelu kernels.
+  KV cache with chunked prefill and preemption by recompute, on the JAX
+  engine's defaults: the async decode pipeline (CUDA events and pinned
+  staging on one stream), copy-on-write prefix caching and decode
+  sessions with export and import; decode runs the fused
+  decode-layer-group kernel, or the per-op step with the paged-attention
+  and bias_gelu kernels.  The fleet page store (``pagestore=``,
+  ``migrate_out()``), ``role=`` and speculative decoding are refused with
+  ``NotImplementedError``.
 - ``quantize_lm`` / ``QuantizedLM`` (``quantize.py``) — weight-only int8 /
   int4 serving through the ``quant_matmul`` kernel; int8 KV pages are the
   engine's ``kv_dtype="int8"``.
-- ``PageAllocator`` (``kvcache.py``) — host-side page bookkeeping, the
-  JAX package's allocator.
+- ``PageAllocator``, ``PrefixCache``, ``pack_session``/``unpack_session``
+  (``kvcache.py``) — host-side page bookkeeping, the prefix cache and the
+  session wire format, the JAX package's.
 - ``ServingMetrics`` (``metrics.py``), ``SLOPolicy`` (``autoscale.py``)
   and the error taxonomy (``errors.py``).
 
@@ -20,6 +26,9 @@ Quick start::
                   hidden_size=3072, num_heads=12, max_length=512)
     eng = DecodeEngine(lm, slots=16, page_size=16, prefill_chunk=64)
     print(eng.submit([101, 2023, 2003], max_new_tokens=16).result())
+    # a two-turn session: the second turn decodes on the parked pages
+    eng.submit([101, 2023], max_new_tokens=8, session="chat").result()
+    eng.submit([2003], max_new_tokens=8, session="chat", resume=True)
     eng.stop()
     # quantized: int8 weights and int8 KV pages
     eng = DecodeEngine(quantize_lm(lm, "int8"), kv_dtype="int8", slots=16,
@@ -30,14 +39,17 @@ from __future__ import annotations
 from .autoscale import SLOPolicy
 from .errors import (BadRequestError, DeadlineExceededError,
                      DeadlineInfeasibleError, KVLeakError, QueueFullError,
-                     ServerClosedError, ServingError)
+                     ServerClosedError, ServingError, SessionResetError)
 from .generate import DecodeEngine
-from .kvcache import PageAllocator, pages_for
+from .kvcache import (PageAllocator, PrefixCache, pack_session, pages_for,
+                      unpack_session)
 from .metrics import LatencyHistogram, ModelMetrics, ServingMetrics
 from .quantize import QuantizedLM, quantize_lm
 
 __all__ = ["DecodeEngine", "QuantizedLM", "quantize_lm", "PageAllocator",
+           "PrefixCache", "pack_session", "unpack_session",
            "pages_for", "ServingMetrics",
            "ModelMetrics", "LatencyHistogram", "SLOPolicy", "ServingError",
            "BadRequestError", "QueueFullError", "ServerClosedError",
-           "DeadlineExceededError", "DeadlineInfeasibleError", "KVLeakError"]
+           "DeadlineExceededError", "DeadlineInfeasibleError", "KVLeakError",
+           "SessionResetError"]

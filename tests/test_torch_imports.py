@@ -90,9 +90,6 @@ def test_resolve_cpu():
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    ({"prefix_cache": True}, NotImplementedError),
-    ({"async_decode": True}, NotImplementedError),
-    ({"dispatch_ahead": 2}, NotImplementedError),
     ({"migrate": True}, NotImplementedError),
     ({"pagestore": "localhost:1"}, NotImplementedError),
     ({"speculate": True}, NotImplementedError),
@@ -100,8 +97,8 @@ def test_resolve_cpu():
     # tensor parallelism is ported: what is not a ShardingConfig is refused
     ({"sharding": object()}, TypeError),
     ({"role": "prefill"}, NotImplementedError),
-], ids=["prefix_cache", "async_decode", "dispatch_ahead", "migrate",
-        "pagestore", "speculate", "draft_model", "sharding", "role"])
+], ids=["migrate", "pagestore", "speculate", "draft_model", "sharding",
+        "role"])
 def test_unported_engine_features_raise(tiny_lm, kwargs, error):
     with pytest.raises(error):
         DecodeEngine(tiny_lm, device="cpu", slots=2, page_size=4,
@@ -109,7 +106,7 @@ def test_unported_engine_features_raise(tiny_lm, kwargs, error):
 
 
 @pytest.mark.parametrize("var,value", [
-    ("MXNET_GEN_ASYNC", "1"), ("MXNET_GEN_PREFIX_CACHE", "1"),
+    ("MXNET_GEN_PAGESTORE", "localhost:1"),
     ("MXNET_GEN_SPECULATE", "1"), ("MXNET_GEN_ROLE", "decode")])
 def test_unported_features_asked_by_env_raise(monkeypatch, tiny_lm, var,
                                               value):
@@ -136,12 +133,14 @@ def test_unsupported_quantization_asks_raise(monkeypatch, tiny_lm, kwargs,
                      max_ctx=16, **kwargs)
 
 
-def test_sessions_raise(tiny_lm):
+def test_migrate_out_raises(tiny_lm):
+    """Shipping parked sessions needs the fleet page store, which the port
+    lacks: ``migrate_out()`` refuses and names it."""
     eng = DecodeEngine(tiny_lm, device="cpu", slots=2, page_size=4,
                        max_ctx=16)
     try:
-        with pytest.raises(NotImplementedError):
-            eng.submit([1, 2], max_new_tokens=2, session="s1")
+        with pytest.raises(NotImplementedError, match="page store"):
+            eng.migrate_out()
     finally:
         assert eng.stop()
 

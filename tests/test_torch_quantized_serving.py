@@ -30,7 +30,7 @@ from mxnet_tpu_torch.models import decoder as tdec
 from mxnet_tpu_torch.ops.kernels import paged_attention as tpa
 from mxnet_tpu_torch.serving import DecodeEngine, quantize_lm
 from mxnet_tpu_torch.serving import kvcache as tkv
-from torch_parity import tiny_lm_with_affine
+from torch_parity import check_stream, tiny_lm_with_affine
 
 torch.set_num_threads(2)
 
@@ -72,41 +72,9 @@ def _serve(eng, reqs):
     return outs
 
 
-def _last_logits(model, kv_dtype, toks):
-    """Last-position logits of ``toks`` through the port's own prefill
-    program on a fresh one-sequence pool of ``kv_dtype`` pages."""
-    cfg, S, chunk = model.config, ENGINE["page_size"], ENGINE["prefill_chunk"]
-    pps = -(-len(toks) // S)
-    shape = (cfg.num_layers, cfg.num_kv_heads, pps + 1, S, cfg.head_dim)
-
-    def pool():
-        if kv_dtype == "int8":
-            return tpa.QPages(q=torch.zeros(shape, dtype=torch.int8),
-                              s=torch.ones(shape[:3]))
-        return torch.zeros(shape)
-
-    kp, vp = pool(), pool()
-    fn = tdec.make_prefill_chunk(cfg, S, chunk)
-    row = torch.arange(1, pps + 1, dtype=torch.int32)
-    for p0 in range(0, len(toks), chunk):
-        n = min(chunk, len(toks) - p0)
-        padded = torch.zeros(chunk, dtype=torch.int64)
-        padded[:n] = torch.tensor(toks[p0:p0 + n])
-        _, _, _, last = fn(model.params(), kp, vp, padded, p0, n, row)
-    return last
-
-
 def _check_stream(model, kv_dtype, prompt, got, want):
-    if got == want:
-        return
-    i = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
-             min(len(got), len(want)))
-    top2 = torch.topk(_last_logits(model, kv_dtype, prompt + got[:i]),
-                      2).values
-    margin = float(top2[0] - top2[1])
-    assert margin < 1e-4, (
-        "streams differ at %d without a near-tie (margin %.3g): %s vs %s"
-        % (i, margin, got, want))
+    check_stream(model, kv_dtype, prompt, got, want, ENGINE["page_size"],
+                 ENGINE["prefill_chunk"])
 
 
 @pytest.mark.parametrize("quantize,group,kv_dtype", COMBOS, ids=IDS)

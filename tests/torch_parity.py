@@ -41,3 +41,61 @@ def tiny_bert_with_affine(seed=0, **kw):
                        .astype(np.float32))
         params[name] = np.asarray(p.data().asnumpy())
     return jnet, params
+
+
+def carried_models(**geom):
+    """``(jlm, tlm)``: :func:`tiny_lm_with_affine` and the port's tiny LM on
+    the CPU with its weights, carried across by ``load_jax_params``."""
+    import jax
+    from mxnet_tpu_torch.models import decoder as tdec
+    jlm = tiny_lm_with_affine(**geom)
+    params_np = jax.tree.map(np.asarray, jlm.jax_params())
+    tlm = tdec.decoder_tiny_lm(device="cpu", **geom).load_jax_params(
+        params_np)
+    return jlm, tlm
+
+
+def last_logits(tlm, kv_dtype, toks, page_size, chunk):
+    """Last-position logits of ``toks`` through the port's own prefill
+    program on a fresh one-sequence pool of ``kv_dtype`` pages."""
+    import torch
+    from mxnet_tpu_torch.models import decoder as tdec
+    from mxnet_tpu_torch.ops.kernels import paged_attention as tpa
+    cfg = tlm.config
+    pps = -(-len(toks) // page_size)
+    shape = (cfg.num_layers, cfg.num_kv_heads, pps + 1, page_size,
+             cfg.head_dim)
+
+    def pool():
+        if kv_dtype == "int8":
+            return tpa.QPages(q=torch.zeros(shape, dtype=torch.int8),
+                              s=torch.ones(shape[:3]))
+        return torch.zeros(shape)
+
+    kp, vp = pool(), pool()
+    fn = tdec.make_prefill_chunk(cfg, page_size, chunk)
+    row = torch.arange(1, pps + 1, dtype=torch.int32)
+    for p0 in range(0, len(toks), chunk):
+        n = min(chunk, len(toks) - p0)
+        padded = torch.zeros(chunk, dtype=torch.int64)
+        padded[:n] = torch.tensor(toks[p0:p0 + n])
+        _, _, _, last = fn(tlm.params(), kp, vp, padded, p0, n, row)
+    return last
+
+
+def check_stream(tlm, kv_dtype, prompt, got, want, page_size, chunk):
+    """The port's stream ``got`` equals the JAX package's ``want``; where
+    they differ, the port's prefill program over the stream's prefix must
+    show a near-tie there (top-2 margin below 1e-4: two fp32 stacks that
+    sum in other orders may pick either of two logits that close)."""
+    import torch
+    if got == want:
+        return
+    i = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    top2 = torch.topk(last_logits(tlm, kv_dtype, prompt + got[:i],
+                                  page_size, chunk), 2).values
+    margin = float(top2[0] - top2[1])
+    assert margin < 1e-4, (
+        "streams differ at %d without a near-tie (margin %.3g): %s vs %s"
+        % (i, margin, got, want))
