@@ -16,6 +16,7 @@ the card by ``chip_smoke.py``.
 """
 from __future__ import annotations
 
+import threading
 import time
 
 import pytest
@@ -25,6 +26,7 @@ import mxnet_tpu.serving as jserving
 from mxnet_tpu_torch import faults
 from mxnet_tpu_torch.parallel import ShardingConfig
 from mxnet_tpu_torch.serving import DecodeEngine, PrefixCache, ServingError
+from mxnet_tpu_torch.serving import generate
 from torch_parity import carried_models, check_stream
 
 torch.set_num_threads(2)
@@ -204,41 +206,78 @@ def test_engine_retire_fault_poisons_flight_only(models):
     eng.alloc.check_leaks()
 
 
-def test_async_deadline_expires_under_deep_queue(models):
+class _StepClock:
+    """The engine module's ``time`` with a ``perf_counter`` that steps
+    ``step`` seconds a call: a deadline then expires after a count of the
+    engine's clock reads (about four a decoded token on the CPU), never
+    with the host's speed.  Everything else is the real ``time``."""
+
+    def __init__(self, step):
+        self.step, self._t, self._lock = step, 0.0, threading.Lock()
+
+    def perf_counter(self):
+        with self._lock:
+            self._t += self.step
+            return self._t
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_async_deadline_expires_under_deep_queue(models, monkeypatch):
     """Deadlines are judged at launch and retire: with a dispatch depth of
     3 an expired stream still ends with ``finish_reason="deadline"``
-    instead of riding the pipeline to its length."""
+    instead of riding the pipeline to its length, and its pages come
+    back."""
     tlm = models[1]
+    # 1 ms a clock read, a 40 ms deadline: the 120-token stream expires
+    # after some 40 reads, with tokens out and launches in flight
+    monkeypatch.setattr(generate, "time", _StepClock(1e-3))
     eng = _engine(tlm, async_decode=True, dispatch_ahead=3, max_ctx=128)
     try:
-        # pace one short stream, then give a 120-token stream the short
-        # stream's wall time (about a sixth of its own)
-        t0 = time.perf_counter()
-        eng.submit([9, 9], max_new_tokens=20).result(timeout=120)
-        pace = time.perf_counter() - t0
         res = eng.submit([1, 2, 3], max_new_tokens=120,
-                         deadline_ms=max(10.0, 1e3 * pace)).result(
-                             timeout=120)
+                         deadline_ms=40.0).result(timeout=120)
         assert res["finish_reason"] == "deadline"
-        assert len(res["tokens"]) < 120
+        assert 0 < len(res["tokens"]) < 120
     finally:
         assert eng.stop()
     assert eng.alloc.num_used == 0
     eng.alloc.check_leaks()
 
 
-def test_async_drain_mid_pipeline_completes_all(models):
+def test_async_drain_mid_pipeline_completes_all(models, monkeypatch):
     """stop(drain=True) while launches are in flight: the worker drains the
     pipe, every stream completes as the sync loop's, and occupancy ends at
     zero (every in-flight pin released)."""
     tlm = models[1]
     ref = _serve(_engine(tlm, async_decode=False), PROMPTS, max_new=12)
     eng = _engine(tlm, async_decode=True, dispatch_ahead=2)
+    # the worker waits at its first retire, launches in the pipe, until
+    # stop(drain=True) has been asked for
+    held, go = threading.Event(), threading.Event()
+    retire = eng._retire_one
+
+    def gated_retire():
+        if not held.is_set():
+            held.set()
+            assert go.wait(120)
+        return retire()
+
+    monkeypatch.setattr(eng, "_retire_one", gated_retire)
     futs = [eng.submit(list(p), max_new_tokens=12) for p in PROMPTS]
-    deadline = time.time() + 30
-    while not eng._pipe and time.time() < deadline:
-        time.sleep(0.001)
-    assert eng.stop(drain=True)
+    stopped = []
+    try:
+        assert held.wait(120)
+        assert eng._pipe
+        stopper = threading.Thread(
+            target=lambda: stopped.append(eng.stop(drain=True)))
+        stopper.start()
+        with eng._cond:
+            assert eng._cond.wait_for(lambda: eng._stopping, timeout=120)
+    finally:
+        go.set()
+    stopper.join(120)
+    assert stopped == [True]
     assert [f.result(timeout=10)["tokens"] for f in futs] == ref
     assert eng.stats()["async"]["inflight"] == 0
     assert eng.alloc.num_used == 0

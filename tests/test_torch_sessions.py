@@ -25,6 +25,7 @@ from mxnet_tpu.serving import kvcache as jkv
 from mxnet_tpu_torch import faults
 from mxnet_tpu_torch.serving import (DecodeEngine, SessionResetError,
                                      pack_session, unpack_session)
+from mxnet_tpu_torch.serving import generate
 from torch_parity import carried_models, check_stream
 
 torch.set_num_threads(2)
@@ -116,15 +117,37 @@ def test_resume_not_held_resets_typed(models):
         _stopped_clean(eng)
 
 
-def test_ttl_expiry_resets_typed(models):
+class _Monotonic:
+    """The engine module's ``time`` with a ``monotonic`` the test moves
+    forward by hand (``skip``): a session's TTL then runs out when the test
+    says so, never with the host's speed.  Everything else is the real
+    ``time``."""
+
+    def __init__(self):
+        self.offset = 0.0
+
+    def monotonic(self):
+        return time.monotonic() + self.offset
+
+    def skip(self, seconds):
+        self.offset += seconds
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_ttl_expiry_resets_typed(models, monkeypatch):
     """A session idle past ``session_ttl_s`` loses its pages; resuming it
     raises the typed reset and counts ``sessions_reset_total``."""
     tlm = models[1]
-    eng = _engine(tlm, session_ttl_s=0.2, prefix_cache=False)
+    clock = _Monotonic()
+    monkeypatch.setattr(generate, "time", clock)
+    eng = _engine(tlm, session_ttl_s=60.0, prefix_cache=False)
     try:
         eng.submit([1, 2, 3], max_new_tokens=2, session="brief").result(120)
         assert eng.alloc.num_used > 0
-        deadline = time.time() + 10
+        clock.skip(120.0)                # the session is now idle past 60 s
+        deadline = time.time() + 60
         while eng.alloc.num_used and time.time() < deadline:
             time.sleep(0.05)             # the idle worker sweeps the TTL
         assert eng.alloc.num_used == 0
