@@ -79,7 +79,13 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   ``check_paged_attention_int8`` (#15 over fp and int8 pages at H 12 over
   12 and 4 KV heads, D 64, and over 4 KV heads at D 32 and 128, held in
   every case of ``TP_CASES``; timed at D 64, B 16, with mixed lengths and
-  with every row at 512, with its phases by ``%globaltimer``).
+  with every row at 512, with its phases by ``%globaltimer``);
+- ``dims``: ``chip_smoke.check_decode_dims`` (#12, #13 and #15 over fp
+  and int8 pages at every head dim that is a multiple of 16 up to 128,
+  held and timed) and ``chip_smoke.check_flash_dims`` (#5-#7 and the
+  delta kernel at D 16, 48, 80, 96 and 112 in fp32 and bf16, held; timed
+  at D 16, 64, 80 and 96); only in a tree whose kernels take those head
+  dims.
 
 A TREE named more than once runs that many more turns; a TREE whose
 build fails is left out of the turns (the exit code is then 1).  Every
@@ -97,7 +103,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("delta", "route", "kernels", "host", "bert", "amp", "epilogue",
-          "lstm", "tp", "paged", "fused", "qmm")
+          "lstm", "tp", "paged", "fused", "qmm", "dims")
 
 
 def build(trees, names):
@@ -192,6 +198,11 @@ def run(tree, phases, steps):
         cs.log("fused: %s" % json.dumps(report["fused"]))
     if "qmm" in phases:
         qmm_phase(cs, torch, timer)
+    if "dims" in phases:
+        report = {}
+        cs.check_decode_dims(torch, timer, report)
+        cs.check_flash_dims(torch, timer, report)
+        cs.log("dims: %s" % json.dumps(report))
     if "amp" in phases:
         torch.cuda.empty_cache()
         _, st = cs.train(torch, 0, "amp_bf16", cs.TRAIN_B, cs.TRAIN_L, steps,

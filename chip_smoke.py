@@ -2539,6 +2539,235 @@ def check_tp_phases(torch, timer, report, lm, lm_gqa):
     report["tp_phases"] = rows
 
 
+#: every head dim the decode kernels #12, #13 and #15 are built for, and
+#: the (units, heads, KV heads) of the 2-layer model check_decode_dims
+#: holds them at: units at most 768 and a multiple of D, GQA groups of 1
+#: to 4
+DECODE_DIMS = {16: (768, 48, 16), 32: (768, 24, 8), 48: (768, 16, 4),
+               64: (768, 12, 4), 80: (640, 8, 4), 96: (768, 8, 8),
+               112: (672, 6, 2), 128: (768, 6, 2)}
+#: the head dims the flash kernels take on the kernels of the next of 32,
+#: 64 and 128 (their columns past D zero-filled by TMA)
+FLASH_NEW_DIMS = (16, 48, 80, 96, 112)
+#: (B, H, L) of the flash checks at FLASH_NEW_DIMS: the training shape's
+#: L with fewer rows, and the ragged L
+FLASH_NEW_SHAPES = ((8, 12, 128), (2, 6, 200))
+
+
+def check_decode_dims(torch, timer, report):
+    """#12, #13 and #15 (fp and int8 pages) at every head dim of
+    DECODE_DIMS against their plain versions, on a 2-layer model of that
+    head dim at B 16 with mixed lengths 1..512 (row 7 of length 0): #12
+    over both layers, #13 on shard 0 and 1 of tp 2, #15 over the model's
+    heads; each timed beside its plain version and its bound."""
+    from mxnet_tpu_torch.models import decoder as dec
+    from mxnet_tpu_torch.ops.kernels import fused_cell as fc
+    from mxnet_tpu_torch.ops.kernels import paged_attention as pa
+    pps, B = MAX_CTX // PAGE, SLOTS
+    P = B * pps + 1
+    rows = {}
+    for D, (C, H, KVH) in DECODE_DIMS.items():
+        model = perturb_affine(torch, dec.CausalLM(
+            vocab_size=64, num_layers=2, units=C, hidden_size=3072,
+            num_heads=H, num_kv_heads=KVH, max_length=MAX_CTX, device=DEV,
+            seed=41), 41)
+        cfg = model.config
+        rng = np.random.default_rng(42)
+        after = rng.integers(1, 513, B)
+        after[7] = 0
+        tb_np = tables_for(rng, after, pps)
+        pos = np.maximum(after - 1, 0)
+        meta = torch.tensor(np.stack([
+            np.where(after > 0, tb_np[np.arange(B), pos // PAGE], 0),
+            np.where(after > 0, pos % PAGE, 0)]), dtype=torch.int32,
+            device=DEV)
+        tb = torch.tensor(tb_np, device=DEV)
+        ln = torch.tensor(after, dtype=torch.int32, device=DEV)
+        g = torch.Generator(device=DEV).manual_seed(43)
+        shape = (cfg.num_layers, KVH, P, PAGE, D)
+        kp0 = torch.randn(shape, device=DEV, generator=g) * 0.5
+        vp0 = torch.randn(shape, device=DEV, generator=g) * 0.5
+        x = torch.randn(B, C, device=DEV, generator=g)
+        row = {}
+        # 12: both layers in one launch
+        layers = model.params()["layers"]
+        table = fc.WeightTable(layers, x.device)
+        k1, v1, k2, v2 = (t.clone() for t in (kp0, vp0, kp0, vp0))
+        _, _, xk = fc.decode_layer_group(x, k1, v1, table, meta, tb, ln, cfg)
+        _, _, xp = fc.decode_layer_group_plain(x, k2, v2, layers, meta, tb,
+                                               ln, cfg)
+        err = max(float((xk - xp).abs().max()), float(max(
+            (k1[:, :, 1:] - k2[:, :, 1:]).abs().max(),
+            (v1[:, :, 1:] - v2[:, :, 1:]).abs().max())))
+        bms, by = fused_bound(cfg, after, pps)
+        row["decode_layer_group"] = dict(
+            max_abs_err=err, tol=TOL_FUSED, bound_ms=bms, bound_by=by,
+            ms=timer(lambda: fc.decode_layer_group(
+                x, k1, v1, table, meta, tb, ln, cfg), iters=10),
+            plain_ms=timer(lambda: fc.decode_layer_group_plain(
+                x, k2, v2, layers, meta, tb, ln, cfg), iters=10))
+        # 13: both shards of tp 2, layer 0
+        plan = dec.tp_plan(cfg, tp_sharding(2))
+        lcfg = plan.local_cfg
+        shards = plan.shard_params(model.params())
+        err = 0.0
+        for r in range(2):
+            lp = shards[r]["layers"][0]
+            k1, v1, k2, v2 = (t[:1].clone() for t in (kp0, vp0, kp0, vp0))
+            _, _, ok = fc.decode_attn_phase(
+                x, plan.kv_view(k1, 0, r), plan.kv_view(v1, 0, r), lp, meta,
+                tb, ln, lcfg)
+            _, _, op = fc.decode_attn_phase_plain(
+                x, plan.kv_view(k2, 0, r), plan.kv_view(v2, 0, r), lp, meta,
+                tb, ln, lcfg)
+            if bool(ok[7].any()):
+                raise AssertionError("decode_attn_phase D %d: the length-0 "
+                                     "row's partial is not zero" % D)
+            err = max(err, float((ok - op).abs().max()), float(max(
+                (k1[:, :, 1:] - k2[:, :, 1:]).abs().max(),
+                (v1[:, :, 1:] - v2[:, :, 1:]).abs().max())))
+        args = (x, plan.kv_view(k1, 0, 1), plan.kv_view(v1, 0, 1), lp, meta,
+                tb, ln, lcfg)
+        (bms, by), _ = phase_bounds(cfg, lcfg, after, pps)
+        row["decode_attn_phase"] = dict(
+            max_abs_err=err, tol=TOL_PHASE, bound_ms=bms, bound_by=by,
+            ms=timer(lambda: fc.decode_attn_phase(*args)),
+            plain_ms=timer(lambda: fc.decode_attn_phase_plain(*args),
+                           spin=4_000_000))
+        # 15 over fp and int8 pages
+        q = torch.randn(B, H, D, device=DEV, generator=g)
+        toks = int(after.sum())
+        for name in ("paged_attention", "paged_attention_int8"):
+            if name.endswith("int8"):
+                kp, vp = (pa.QPages(
+                    q=torch.randint(-127, 128, (KVH, P, PAGE, D), device=DEV,
+                                    generator=g).to(torch.int8),
+                    s=torch.rand(KVH, P, device=DEV, generator=g) * 0.05)
+                    for _ in range(2))
+                pages_read = int(sum(-(-int(n) // PAGE) for n in after))
+                nbytes = (2 * toks * KVH * D + 2 * 4 * pages_read * KVH
+                          + 4 * (2 * B * H * D + B + B * pps))
+            else:
+                kp, vp = kp0[0], vp0[0]
+                nbytes = 4 * (2 * B * H * D + 2 * toks * KVH * D + B
+                              + B * pps)
+            out = pa.paged_attention(q, kp, vp, ln, tb)
+            ref = pa.paged_attention_reference(q, kp, vp, ln, tb)
+            if bool(out[7].any()):
+                raise AssertionError("%s D %d: a length-0 row is not zero"
+                                     % (name, D))
+            bms, by = bound(nbytes, 4 * H * D * toks)
+            row[name] = dict(
+                max_abs_err=float((out - ref).abs().max()),
+                tol=TOL_ATTENTION, bound_ms=bms, bound_by=by,
+                ms=timer(lambda: pa.paged_attention(q, kp, vp, ln, tb)),
+                plain_ms=timer(lambda: pa.paged_attention_reference(
+                    q, kp, vp, ln, tb)))
+        for name, r in row.items():
+            log("%s D %d (C %d, H %d, KVH %d, B %d mixed lengths): max_abs_err "
+                "%.3g (tol %g); kernel %.4f ms plain %.4f ms bound %.4f ms "
+                "(%s)" % (name, D, C, H, KVH, B, r["max_abs_err"], r["tol"],
+                          r["ms"], r["plain_ms"], r["bound_ms"],
+                          r["bound_by"]))
+            if not r["max_abs_err"] <= r["tol"]:
+                raise AssertionError("%s disagrees with its plain version at "
+                                     "head dim %d" % (name, D))
+        rows[D] = row
+        del model, kp0, vp0
+        torch.cuda.empty_cache()
+    report["decode_dims"] = rows
+
+
+def check_flash_dims(torch, timer, report):
+    """#5-#7 and the delta kernel at the head dims of FLASH_NEW_DIMS, in
+    float32 and bfloat16, against the plain versions: ``flash_case`` at
+    FLASH_NEW_SHAPES with no mask, causal, a window of 32 and kv_length
+    with a row of length 0, at dropout 0 and 0.1; the delta kernel at
+    those shapes and DELTA_EDGE_SHAPES.  Then #5-#7 and delta timed at
+    the training shape (B 32, H 12, L 128, kv_length, dropout 0.1) at D
+    16, 64, 80 and 96 beside their plain versions and bounds."""
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    g = torch.Generator(device=DEV).manual_seed(51)
+    worst, n = {}, 0
+    for dt in (torch.float32, torch.bfloat16):
+        key = str(dt)[6:]
+        for D in FLASH_NEW_DIMS:
+            for B, H, L in FLASH_NEW_SHAPES:
+                for mask in ("none", "causal", "window", "kv_length"):
+                    for rate in (0.0, 0.1):
+                        errs = flash_case(torch, fa, g, B, H, L, D, dt, mask,
+                                          rate)
+                        n += 1
+                        w = worst.setdefault(key, {})
+                        for name, e in errs.items():
+                            w[name] = max(w.get(name, 0.0), e)
+            for B, H, L in FLASH_NEW_SHAPES + DELTA_EDGE_SHAPES:
+                do, out = (torch.randn(B, H, L, D, device=DEV,
+                                       generator=g).to(dt) for _ in range(2))
+                got = fa.flash_attention_bwd_delta(do, out)
+                want = fa.flash_attention_bwd_delta_plain(do, out)
+                rows = (do.float() * out.float()).abs().sum(-1)
+                e = float(((got - want).abs() / rows.clamp_min(1e-30)).max())
+                w = worst.setdefault(key, {})
+                w["delta"] = max(w.get("delta", 0.0), e)
+        torch.cuda.empty_cache()
+    log("flash attention at D %s: %d cases pass; worst error / largest "
+        "element %s (tol fp32 %g, fp32 out/dq/dk/dv %g, bf16 %g, bf16 vs "
+        "autograd %g, delta over the row's sum of |dO O| %g)"
+        % (FLASH_NEW_DIMS, n, json.dumps(worst), TOL_FLASH_F32,
+           TOL_FLASH_3XTF32, TOL_FLASH_BF16, TOL_FLASH_GRAD_BF16, TOL_DELTA))
+    if not all(w["delta"] <= TOL_DELTA for w in worst.values()):
+        raise AssertionError("flash_attention_bwd_delta disagrees with its "
+                             "plain version at a new head dim")
+    B, H, L = TRAIN_B, BERT["num_heads"], TRAIN_L
+    kvl = pretrain_batch(torch, 0, B, L, DEV)["valid"].to(torch.int32)
+    seed = torch.randint(0, 2 ** 32, (1,), dtype=torch.int64, device=DEV,
+                         generator=g)
+    kw = dict(dropout=0.1, seed=seed, kv_length=kvl)
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        peak = TF32X3_FLOPS if dt == torch.float32 else BF16_FLOPS
+        for D in (16, 64, 80, 96):
+            q, k, v, do = (torch.randn(B, H, L, D, device=DEV,
+                                       generator=g).to(dt) for _ in range(4))
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            delta = fa.flash_attention_bwd_delta(do, out)
+            bwd = (q, k, v, do, lse, delta)
+            elt = q.element_size()
+            keys = float(kvl.sum()) * H * L
+            full = B * H * L * D * elt
+            kv = 2 * float(kvl.sum()) * H * D * elt
+            stat = B * H * L * 4
+            for name, fn, plain, flops, nbytes in (
+                    ("flash_attention_fwd",
+                     lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                     lambda: fa.flash_attention_plain(q, k, v, **kw),
+                     4 * keys * D, 2 * full + kv + stat),
+                    ("flash_attention_bwd_dq",
+                     lambda: fa.flash_attention_bwd_dq(*bwd, **kw),
+                     lambda: fa.flash_attention_bwd_dq_plain(*bwd, **kw),
+                     6 * keys * D, 3 * full + kv + 2 * stat),
+                    ("flash_attention_bwd_dkv",
+                     lambda: fa.flash_attention_bwd_dkv(*bwd, **kw),
+                     lambda: fa.flash_attention_bwd_dkv_plain(*bwd, **kw),
+                     8 * keys * D, 4 * full + kv + 2 * stat),
+                    ("flash_attention_bwd_delta",
+                     lambda: fa.flash_attention_bwd_delta(do, out),
+                     lambda: fa.flash_attention_bwd_delta_plain(do, out),
+                     2 * B * H * L * D, 2 * full + stat)):
+                bms, by = bound(nbytes, flops, peak)
+                r = dict(ms=timer(fn, spin=FLASH_SPIN),
+                         plain_ms=timer(plain, spin=FLASH_SPIN),
+                         bound_ms=bms, bound_by=by)
+                log("%s (B %d, H %d, L %d, D %d, kv_length, rate 0.1) %s: "
+                    "kernel %.4f ms plain %.4f ms bound %.4f ms (%s)"
+                    % (name, B, H, L, D, str(dt)[6:], r["ms"], r["plain_ms"],
+                       bms, by))
+                rows["%s %s D %d" % (name, str(dt)[6:], D)] = r
+        torch.cuda.empty_cache()
+    report["flash_dims"] = rows
+
+
 def per_shard_causal(torch, q, k, v, dp, tp):
     """The #16 route composed per shard, as it ran before it became one
     call: contiguous slices, the scale folded into q in q's dtype,
@@ -4098,6 +4327,8 @@ def main():
     check_flash_attention(torch, timer, report)
     check_lstm(torch, timer, report)
     check_tp_phases(torch, timer, report, lm, lm_gqa)
+    check_decode_dims(torch, timer, report)
+    check_flash_dims(torch, timer, report)
     check_sharded_attention(torch, timer, report, profile=args.profile)
     if args.profile:
         for dt, B, L in ((torch.float32, TRAIN_B, TRAIN_L),

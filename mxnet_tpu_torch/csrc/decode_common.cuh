@@ -459,7 +459,11 @@ __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
 // takes unit blockIdx.x, then every gridDim.x-th one, so a long row's keys
 // spread over as many blocks as it has chunks and the batch's work over
 // the grid.  Inside a unit each warp owns 8 consecutive keys, and each
-// lane E = D / 32 consecutive columns of every key: a lane loads its
+// of its first D / E lanes E consecutive columns of every key
+// (split_cols: E = D / 32 at D 32, 64 and 128, every lane busy; at D 16,
+// 48, 80, 96 and 112 the fewest of 1, 2 or 4 columns that fit D in a
+// warp, the lanes from D / E on idle, so every load stays one aligned
+// 4-, 8- or 16-byte vector): a lane loads its
 // columns of the 8 key rows and the 8 value rows at once (one round trip
 // to memory), sums its part of each dot product with the query heads of
 // the group, and 8 warp sums give every lane all 8 logits; the max, the
@@ -474,6 +478,21 @@ __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
 
 constexpr int SPLIT_KEYS = 64;       // keys per unit
 constexpr int SPLIT_WARP_KEYS = 8;   // keys per warp of a unit
+
+// The head dims the split attention is built for: every multiple of 16 up
+// to 128.  X(D) once for each; a launch switch names them all and returns
+// an error for any other D.
+#define MXT_SPLIT_HEAD_DIMS(X) \
+  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+
+// columns a lane of split_attend at head dim D: 1, 2 or 4, the fewest that
+// fit D in a warp's 32 lanes
+template <int D>
+__host__ __device__ constexpr int split_cols() {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128,
+                "split attention: D a multiple of 16 in [16, 128]");
+  return D <= 32 ? 1 : D <= 64 ? 2 : 4;
+}
 
 // chunks of a row of `length` keys (0 for an inactive row)
 __device__ __forceinline__ int split_chunks(int length, int max_keys) {
@@ -576,16 +595,19 @@ struct SplitI8 {
 //                value into their page slot
 // pages:         SplitF32 or SplitI8 over the (KVH, P, S, D) slabs
 // po/pm/pl:      per unit, (g D) unnormalised outputs, (g) maxima, (g) sums
-// D = 32 E.  Pages are read with L2-only loads: blocks write them in the
-// same launch.
-template <int E, class QAt, class Append, class Pages>
+// D a multiple of 16 in [16, 128] (split_cols).  Pages are read with
+// L2-only loads: blocks write them in the same launch.
+template <int D, class QAt, class Append, class Pages>
 __device__ void split_attend(QAt q_at, Append append, const Pages& pages,
                              const int* tables, const int* lengths, int B,
                              int KVH, int g, int P, int S, int pps,
                              float scale, float* po, float* pm, float* pl,
                              float* smem) {
-  constexpr int D = 32 * E;
+  constexpr int E = split_cols<D>();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // lanes past D / E hold no columns: they load nothing and add 0 to the
+  // warp sums (true for every lane, at compile time, where D / E is 32)
+  const bool cols = D / E == 32 || lane < D / E;
   const int gD = g * D, max_keys = pps * S, wstride = gD + 2 * g;
   float* o_w = smem + warp * wstride;  // this warp's rows, then m, then l
   const int units = split_units(lengths, B, KVH, max_keys);
@@ -626,8 +648,9 @@ __device__ void split_attend(QAt q_at, Append append, const Pages& pages,
 #pragma unroll
       for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {
         const long long rk = __shfl_sync(0xffffffffu, row, k) + lane * E;
-        kr[k] = k < nk ? Pages::template raw<E>(pages.k + rk) : 0u;
-        vr[k] = k < nk ? Pages::template raw<E>(pages.v + rk) : 0u;
+        const bool ld = k < nk && cols;
+        kr[k] = ld ? Pages::template raw<E>(pages.k + rk) : 0u;
+        vr[k] = ld ? Pages::template raw<E>(pages.v + rk) : 0u;
       }
 #pragma unroll
       for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {
@@ -640,7 +663,7 @@ __device__ void split_attend(QAt q_at, Append append, const Pages& pages,
 #pragma unroll
       for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {
         const long long rk = __shfl_sync(0xffffffffu, row, k) + lane * E;
-        if (k < nk) {
+        if (k < nk && cols) {
           pages.template load<E>(rk, kc[k], vc[k]);
         } else {
           kc[k].zero();
@@ -652,7 +675,8 @@ __device__ void split_attend(QAt q_at, Append append, const Pages& pages,
       const int col = (kvh * g + i) * D + lane * E;
       float qv[E];
 #pragma unroll
-      for (int e = 0; e < E; ++e) qv[e] = q_at(b, col + e) * scale;
+      for (int e = 0; e < E; ++e)
+        qv[e] = cols ? q_at(b, col + e) * scale : 0.f;
       float s[SPLIT_WARP_KEYS];
 #pragma unroll
       for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {
@@ -675,8 +699,10 @@ __device__ void split_attend(QAt q_at, Append append, const Pages& pages,
 #pragma unroll
         for (int e = 0; e < E; ++e) o[e] = fmaf(p, vc[k].v[e], o[e]);
       }
+      if (cols) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) o_w[i * D + lane * E + e] = o[e];
+        for (int e = 0; e < E; ++e) o_w[i * D + lane * E + e] = o[e];
+      }
       if (lane == 0) {
         o_w[gD + i] = m;  // -inf where the warp has no key
         o_w[gD + g + i] = l;

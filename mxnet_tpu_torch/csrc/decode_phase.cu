@@ -172,9 +172,9 @@ __device__ void sum_slices(float* out, const float* parts, int ks, int n) {
   }
 }
 
-// one kernel per head dim, D = 32 E, so each carries one attention path
-// under the register budget of three blocks an SM
-template <int E>
+// one kernel per head dim DH, so each carries one attention path under
+// the register budget of three blocks an SM
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
@@ -238,7 +238,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
         vp[dst + d] = qkv_at(b, Cl + KVC + c) + bv[c];
     }
   };
-  mxt::split_attend<E>(q_at, append, mxt::SplitF32{kp, vp}, a.tables,
+  mxt::split_attend<DH>(q_at, append, mxt::SplitF32{kp, vp}, a.tables,
                        a.lengths, B, a.KVH, g, P, S, a.pps, a.scale, po, pm,
                        pl, smem);
   sync();
@@ -383,13 +383,21 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
 
 using AttnKernel = void (*)(AttnArgs);
 
-// the attention phase kernel of head dim D (32, 64 or 128)
+// the attention phase kernel of head dim D (a multiple of 16 in [16,
+// 128]), or null
 AttnKernel attn_kernel(int D) {
-  return D == 32 ? attn_phase_kernel<1>
-       : D == 64 ? attn_phase_kernel<2> : attn_phase_kernel<4>;
+  switch (D) {
+#define MXT_KERNEL(d) \
+  case d:             \
+    return attn_phase_kernel<d>;
+    MXT_SPLIT_HEAD_DIMS(MXT_KERNEL)
+#undef MXT_KERNEL
+  }
+  return nullptr;
 }
 
 cudaError_t attn_geometry(int g, int D, int* grid, size_t* smem) {
+  if (attn_kernel(D) == nullptr) return cudaErrorInvalidValue;
   return mxt::coop_geometry(
       attn_kernel(D),
       std::max(mxt::STAGE_FLOATS, mxt::split_smem_floats(g, D)), grid, smem);
@@ -441,7 +449,7 @@ extern "C" long long mxt_decode_phase_scratch(int ffn, int B, int C, int Cl,
 // mxt_decode_phase_scratch floats; out (B, C); timing null, or
 // mxt_decode_attn_phases() + 1 int64 that block 0 fills with %globaltimer
 // stamps (the start, then the end of each phase).  C must be a multiple of
-// 4 and D 32, 64 or 128.
+// 4 and D a multiple of 16 in [16, 128].
 extern "C" int mxt_decode_attn_phase(const void* x, void* kp, void* vp,
                                      const void* wq, const void* bq,
                                      const void* wk, const void* bk,
@@ -452,7 +460,6 @@ extern "C" int mxt_decode_attn_phase(const void* x, void* kp, void* vp,
                                      int B, int C, int H, int KVH, int D,
                                      int P, int S, int pps, float scale,
                                      void* stream) {
-  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   int grid = 0;
   size_t smem = 0;
   cudaError_t e = attn_geometry(H / KVH, D, &grid, &smem);

@@ -9,7 +9,9 @@
 //   dk, dv    dV = (P * keep)^T dO;  dK = dS^T Q * scale
 //
 // q, k, v, out, dO, dq, dk, dv: (B, H, L, D) views at any strides TMA
-// admits (unit stride along D), float32 or bfloat16, D in {32, 64, 128};
+// admits (unit stride along D), float32 or bfloat16, D in {32, 64, 128}
+// (and every other multiple of 16 up to 128 on the next of those kernels,
+// its columns past D zero-filled by TMA: pad_dim);
 // lse and delta = sum_d dO * O: (B, H, L) float32 at any B and H strides.
 // A (batch, head) is numbered bh = b * H + h.  The mask is the JAX
 // kernel's (_block_mask, :49): key j of row i
@@ -2122,10 +2124,10 @@ int map_view(CUtensorMap* m, CUtensorMapDataType t, int elt, const void* p,
   return mxt_tensor_map(m, t, 4, p, dims, strides, box, sw);
 }
 
-// the bf16 kernels' maps, in boxes of (min(D, 64), 64, 1, 1), swizzled as
-// their rows are wide
-int make_maps(Maps& mp, const Args& a, int BH, int D, Which w) {
-  const int cols = D < 64 ? D : 64;
+// the bf16 kernels' maps over D columns, in boxes of (min(DP, 64), 64, 1,
+// 1) for the kernels of head dim DP, swizzled as their rows are wide
+int make_maps(Maps& mp, const Args& a, int BH, int D, int DP, Which w) {
+  const int cols = DP < 64 ? DP : 64;
   const CUtensorMapSwizzle sw = cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                                            : CU_TENSOR_MAP_SWIZZLE_64B;
   const Views vs(mp, a, w);
@@ -2187,15 +2189,16 @@ int launch_sm90(const Sm90Args& p, int BH, Which w, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int run_sm90(const Args& a, int BH, Which w, cudaStream_t st) {
+// the kernels of head dim DP on tensors of head dim D <= DP (pad_dim)
+template <int DP>
+int run_sm90(const Args& a, int BH, int D, Which w, cudaStream_t st) {
   Sm90Args p = {};
   p.a = a;
   p.BH = BH;
-  const int rc = make_maps(p.maps, a, BH, D, w);
+  const int rc = make_maps(p.maps, a, BH, D, DP, w);
   if (rc) return rc;
-  return a.seed ? launch_sm90<D, true>(p, BH, w, st)
-                : launch_sm90<D, false>(p, BH, w, st);
+  return a.seed ? launch_sm90<DP, true>(p, BH, w, st)
+                : launch_sm90<DP, false>(p, BH, w, st);
 }
 
 // the float32 kernels' maps, in boxes of 32 columns (128-byte rows,
@@ -2244,27 +2247,40 @@ int launch_tf32(const Sm90Args& p, int BH, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <Which W, int D>
-int run_tf32(const Args& a, int BH, cudaStream_t st) {
+template <Which W, int DP>
+int run_tf32(const Args& a, int BH, int D, cudaStream_t st) {
   Sm90Args p = {};
   p.a = a;
   p.BH = BH;
-  const int rc = make_maps_f32(p.maps, a, BH, D, W, CfgF<W, D>::kR);
+  const int rc = make_maps_f32(p.maps, a, BH, D, W, CfgF<W, DP>::kR);
   if (rc) return rc;
-  return a.seed ? launch_tf32<W, D, true>(p, BH, st)
-                : launch_tf32<W, D, false>(p, BH, st);
+  return a.seed ? launch_tf32<W, DP, true>(p, BH, st)
+                : launch_tf32<W, DP, false>(p, BH, st);
+}
+
+// The head dim of the kernels that serve D, or 0 for a D they do not take.
+// D 32, 64 and 128 run their own.  Every other multiple of 16 up to 128 runs
+// the kernels of the next of them, DP, on maps over D columns in DP-column
+// boxes: TMA fills a loaded box's columns past D with zeros, which add
+// nothing to S = Q K^T and give output columns of 0, and clips a stored
+// box at D, so no store lands past a row's D columns.  The kernels do the
+// products of DP columns (D 80: 1.6 times D's).
+int pad_dim(int D) {
+  if (D < 16 || D > 128 || D % 16) return 0;
+  return D <= 32 ? 32 : D <= 64 ? 64 : 128;
 }
 
 template <Which W>
 int dispatch(const Args& a, int BH, int D, int dtype, cudaStream_t st) {
+  const int DP = pad_dim(D);
   if (dtype == 0) {
-    if (D == 32) return run_tf32<W, 32>(a, BH, st);
-    if (D == 64) return run_tf32<W, 64>(a, BH, st);
-    if (D == 128) return run_tf32<W, 128>(a, BH, st);
+    if (DP == 32) return run_tf32<W, 32>(a, BH, D, st);
+    if (DP == 64) return run_tf32<W, 64>(a, BH, D, st);
+    if (DP == 128) return run_tf32<W, 128>(a, BH, D, st);
   } else {
-    if (D == 32) return run_sm90<32>(a, BH, W, st);
-    if (D == 64) return run_sm90<64>(a, BH, W, st);
-    if (D == 128) return run_sm90<128>(a, BH, W, st);
+    if (DP == 32) return run_sm90<32>(a, BH, D, W, st);
+    if (DP == 64) return run_sm90<64>(a, BH, D, W, st);
+    if (DP == 128) return run_sm90<128>(a, BH, D, W, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -2272,10 +2288,11 @@ int dispatch(const Args& a, int BH, int D, int dtype, cudaStream_t st) {
 // delta = sum_d dO * O, the row statistic #6 and #7 read (the JAX package
 // computes it in jnp between its kernels, flash_attention.py:466, so it
 // replaces no TPU kernel).  A row of (batch, head) bh is read by G lanes
-// of one warp, G = D * sizeof(T) / 16 (4 to 32), each lane one 16-byte
+// of one warp, G = D * sizeof(T) / 16 (2 to 32), each lane one 16-byte
 // vector of dO and one of O at the views' strides; each lane adds its
 // rounded products in element order, then the G partials meet in a
-// butterfly of shuffles.  That order depends on D and T alone, not on B,
+// butterfly of shuffles over GP lanes, G rounded up to a power of two (the
+// GP - G lanes past the row add 0).  That order depends on D and T alone, not on B,
 // H, L, the strides or the grid, so a row's sum has the same bits however
 // the tensors are cut (the #16 route against its per-shard composition).
 // Bound: bytes, dO and O read once, delta written once (25.2 MB in fp32
@@ -2286,14 +2303,14 @@ struct DeltaArgs {
   float* delta;  // (BH, L), contiguous
   Strides sdo, so;
   long long rows;
-  int H, L, G;
+  int H, L, G, GP;
 };
 
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(DeltaArgs p) {
   constexpr int V = 16 / sizeof(T);  // elements of a 16-byte vector
-  const int lane = threadIdx.x & 31, G = p.G;
-  const int c = lane % G, sub = lane / G, per_warp = 32 / G;
+  const int lane = threadIdx.x & 31, GP = p.GP;
+  const int c = lane % GP, sub = lane / GP, per_warp = 32 / GP;
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
                          >> 5;
   const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
@@ -2301,7 +2318,7 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(DeltaArgs p) {
   for (long long r0 = warp * per_warp; r0 < p.rows; r0 += warps * per_warp) {
     const long long r = r0 + sub;
     float s = 0.f;
-    if (r < p.rows) {
+    if (r < p.rows && c < p.G) {
       const int bh = (int)(r / p.L), i = (int)(r - (long long)bh * p.L);
       const T* a = static_cast<const T*>(p.dout) + p.sdo.at(bh, p.H) +
                    (long long)i * p.sdo.sl + c * V;
@@ -2324,14 +2341,14 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(DeltaArgs p) {
         s = __fadd_rn(s, __fmul_rn(x, y));
       }
     }
-    for (int o = G >> 1; o > 0; o >>= 1)
+    for (int o = GP >> 1; o > 0; o >>= 1)
       s += __shfl_xor_sync(0xffffffffu, s, o);
     if (c == 0 && r < p.rows) p.delta[r] = s;
   }
 }
 
 int run_delta(const DeltaArgs& p, int dtype, cudaStream_t st) {
-  const long long per_block = 8LL * (32 / p.G);  // rows a block's pass
+  const long long per_block = 8LL * (32 / p.GP);  // rows a block's pass
   const long long want = (p.rows + per_block - 1) / per_block;
   const int grid = (int)(want < 4096 ? want : 4096);
   if (dtype == 0)
@@ -2385,7 +2402,8 @@ extern "C" const char* mxt_error_string(int e) {
 }
 
 // Common arguments: q, k, v (B, H, L, D) with BH = B * H <= 65535, of dtype
-// 0 float32 or 1 bfloat16; D in {32, 64, 128}.  seed: one int64 on the
+// 0 float32 or 1 bfloat16; D a multiple of 16 in [16, 128] (pad_dim).
+// seed: one int64 on the
 // card (its low 32 bits the seed), or null for no dropout; kvlen: (B,)
 // int32 on the card, or null for no padding mask; window < 0 for no band;
 // thr and ks: the rate's uint32 keep threshold and keep scale.  strides,
@@ -2466,7 +2484,8 @@ extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 // delta (B, H, L) float32, contiguous, from dout and out like q (dtype 0
-// float32 or 1 bfloat16, D in {32, 64, 128}).  strides: 6 int64, dout's
+// float32 or 1 bfloat16, D a multiple of 16 in [16, 128]).  strides: 6
+// int64, dout's
 // and out's B, H and L strides, or null for contiguous tensors.
 extern "C" int mxt_flash_bwd_delta(const void* dout, const void* out,
                                    void* delta, int BH, int H, int L, int D,
@@ -2484,7 +2503,9 @@ extern "C" int mxt_flash_bwd_delta(const void* dout, const void* out,
   p.rows = (long long)BH * L;
   p.H = H;
   p.L = L;
+  if (pad_dim(D) == 0) return (int)cudaErrorInvalidValue;
   p.G = D * (dtype == 0 ? 4 : 2) / 16;
-  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  p.GP = 1;
+  while (p.GP < p.G) p.GP *= 2;
   return run_delta(p, dtype, (cudaStream_t)stream);
 }

@@ -200,11 +200,10 @@ __device__ void residual_layer_norm(float* x, const float* parts, int ks,
 
 using mxt::globaltimer;
 
-template <int E>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
-  constexpr int D = 32 * E;
   const int B = a.B, C = a.C, F = a.F, S = a.S, P = a.P, Lg = a.Lg;
   // with a timing buffer: block 0 stamps the start and the end of every
   // phase (right after the grid barrier that closes it); every block
@@ -358,7 +357,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
           vp[dst + e - D] = __ldcg(src + KVC + e - D);
       }
     };
-    mxt::split_attend<E>(q_at, append, mxt::SplitF32{kp, vp}, a.tables,
+    mxt::split_attend<D>(q_at, append, mxt::SplitF32{kp, vp}, a.tables,
                          a.lengths, B, KVH, g, P, S, a.pps, a.scale, po, pm,
                          pl, stage);
     sync();
@@ -397,10 +396,16 @@ __global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
 
 using Kernel = void (*)(Args);
 
-// the kernel of head dim D (32, 64 or 128)
+// the kernel of head dim D (a multiple of 16 in [16, 128]), or null
 Kernel kernel_for(int D) {
-  return D == 32 ? fused_decode_kernel<1>
-       : D == 64 ? fused_decode_kernel<2> : fused_decode_kernel<4>;
+  switch (D) {
+#define MXT_KERNEL(d) \
+  case d:             \
+    return fused_decode_kernel<d>;
+    MXT_SPLIT_HEAD_DIMS(MXT_KERNEL)
+#undef MXT_KERNEL
+  }
+  return nullptr;
 }
 
 // floats of the stage: 16 rows of 384 columns, the split attention's
@@ -415,6 +420,7 @@ int stage_floats(int C, int g, int D) {
 // shared memory an SM has, which three blocks of 72.5 KB need.
 cudaError_t geometry(int C, int g, int D, int* grid, size_t* smem) {
   const Kernel k = kernel_for(D);
+  if (k == nullptr) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       k, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
@@ -437,7 +443,6 @@ extern "C" int mxt_decode_layer_group_gemvs() { return GEMVS; }
 // Blocks the fused kernel launches with (for the caller's records).
 extern "C" int mxt_decode_layer_group_grid(int C, int H, int KVH, int D,
                                            int* grid) {
-  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   size_t smem = 0;
   return (int)geometry(C, H / KVH, D, grid, &smem);
 }
@@ -459,7 +464,7 @@ extern "C" long long mxt_decode_layer_group_scratch(int B, int C, int F,
 // layer and GEMV when the last block's weight rows had landed (0: no
 // block had its rows copied), then per layer and GEMV the units whose
 // weight rows were streamed from device memory.  C and F must be
-// multiples of 4, D 32, 64 or 128 and B at least 1.
+// multiples of 4, D a multiple of 16 in [16, 128] and B at least 1.
 extern "C" int mxt_decode_layer_group(void* x, void* kp, void* vp,
                                       const void* w, const void* meta,
                                       const void* tables, const void* lengths,
@@ -467,8 +472,7 @@ extern "C" int mxt_decode_layer_group(void* x, void* kp, void* vp,
                                       int C, int F, int H, int KVH, int D,
                                       int P, int S, int pps, int Lg,
                                       float scale, void* stream) {
-  if ((D != 32 && D != 64 && D != 128) || B < 1)
-    return (int)cudaErrorInvalidValue;
+  if (kernel_for(D) == nullptr || B < 1) return (int)cudaErrorInvalidValue;
   int grid = 0;
   size_t smem = 0;
   cudaError_t e = geometry(C, H / KVH, D, &grid, &smem);

@@ -16,11 +16,13 @@
 // keys) in turn, each writing its chunk's max, sum and unnormalised output
 // to a scratch the wrapper allocates; a grid barrier; then each output
 // element merges its row's chunks in chunk order.  Inside a unit each warp
-// owns 8 keys and each lane D / 32 columns of them, so a lane's loads of
+// owns 8 keys and each lane E = D / 32 columns of them (at D 16, 48, 80, 96
+// and 112 the lanes past D / E idle: decode_common.cuh's split_cols), so a
+// lane's loads of
 // all 8 key and value rows go out at once: one round trip to memory per
 // unit, where one block a (row, KV head) walked the row's whole length in
 // tiles of 64 keys, four block barriers a tile (the parent design).  int8
-// pages take the same units: a lane loads its E = D / 32 codes of a row
+// pages take the same units: a lane loads its E codes of a row
 // (2 bytes at D 64) and
 // multiplies them by the page's scale, which the lane that found the
 // key's page loads beside it; the loads are as many as for fp pages, each
@@ -52,11 +54,10 @@ constexpr int PAGED_PHASES = 2;
 // the units, a grid barrier, the merge; with a timing buffer block 0
 // stamps the start and the end of each phase (the merge then gets a
 // barrier of its own)
-template <int E, class Pages>
+template <int D, class Pages>
 __global__ void __launch_bounds__(mxt::NTHREADS, 4)
 paged_split_kernel(PagedArgs a, Pages pages) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int D = 32 * E;
   const int g = a.H / a.KVH, max_keys = a.pps * a.S, Cq = a.H * D;
   const size_t U = mxt::split_units_max(a.B, a.KVH, max_keys);
   float* po = a.scratch;
@@ -67,7 +68,7 @@ paged_split_kernel(PagedArgs a, Pages pages) {
   long long* stamp =
       blockIdx.x == 0 && threadIdx.x == 0 ? a.timing : nullptr;
   if (stamp) stamp[0] = mxt::globaltimer();
-  mxt::split_attend<E>(
+  mxt::split_attend<D>(
       [=](int b, int c) { return __ldg(q + (size_t)b * Cq + c); },
       [](int, int) {}, pages, a.tables, a.lengths, a.B, a.KVH, g, a.P, a.S,
       a.pps, a.scale, po, pm, pl, smem);
@@ -80,14 +81,14 @@ paged_split_kernel(PagedArgs a, Pages pages) {
   }
 }
 
-template <int E, class Pages>
+template <int D, class Pages>
 cudaError_t launch_split(const PagedArgs& a, const Pages& pages,
                          cudaStream_t stream) {
-  auto kernel = paged_split_kernel<E, Pages>;
+  auto kernel = paged_split_kernel<D, Pages>;
   int grid = 0;
   size_t smem = 0;
   cudaError_t e = mxt::coop_geometry(
-      kernel, mxt::split_smem_floats(a.H / a.KVH, 32 * E), &grid, &smem);
+      kernel, mxt::split_smem_floats(a.H / a.KVH, D), &grid, &smem);
   if (e != cudaSuccess) return e;
   PagedArgs args = a;
   Pages p = pages;
@@ -102,9 +103,11 @@ template <class Pages>
 int launch(const PagedArgs& a, const Pages& pages, int D, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 32: return (int)launch_split<1>(a, pages, s);
-    case 64: return (int)launch_split<2>(a, pages, s);
-    case 128: return (int)launch_split<4>(a, pages, s);
+#define MXT_LAUNCH(d) \
+  case d:             \
+    return (int)launch_split<d>(a, pages, s);
+    MXT_SPLIT_HEAD_DIMS(MXT_LAUNCH)
+#undef MXT_LAUNCH
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -148,7 +151,7 @@ extern "C" long long mxt_paged_attention_scratch(int B, int H, int KVH,
 // except the int32 lengths and tables; timing null, or
 // mxt_paged_attention_phases() + 1 int64 that block 0 fills with
 // %globaltimer stamps (the start, then the end of each phase).  D must be
-// 32, 64 or 128.
+// a multiple of 16 in [16, 128].
 extern "C" int mxt_paged_attention(const void* q, const void* kp,
                                    const void* vp, const void* lengths,
                                    const void* tables, void* scratch,

@@ -22,7 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["build", "load", "check", "SOURCES", "BUILD_DIR"]
+__all__ = ["build", "load", "check", "check_head_dim", "SOURCES",
+           "BUILD_DIR", "HEAD_DIMS", "HEAD_DIM_RULE"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -32,6 +33,11 @@ SOURCES = ("paged_attention", "fused_decode", "decode_phase", "quant_matmul",
            "epilogue", "flash_attention", "lstm")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: head dims the attention kernels (#5-#7 and the delta kernel, #12, #13,
+#: #15) are built for
+HEAD_DIMS = tuple(range(16, 129, 16))
+HEAD_DIM_RULE = "a multiple of 16 in [16, 128]"
 
 _lock = threading.Lock()
 _libs = {}
@@ -105,3 +111,11 @@ def check(lib, rc, what):
     if rc != 0:
         raise RuntimeError("%s: CUDA error %d (%s)" % (
             what, rc, lib.mxt_error_string(rc).decode()))
+
+
+def check_head_dim(what, D):
+    """Raise ``ValueError`` naming the rule unless the attention kernels are
+    built for head dim ``D`` (:data:`HEAD_DIMS`)."""
+    if D not in HEAD_DIMS:
+        raise ValueError("%s: head dim %d; the kernels take a head dim that "
+                         "is %s" % (what, D, HEAD_DIM_RULE))

@@ -191,7 +191,8 @@ def decode_layer_group(x, kp, vp, layers, meta, page_tables, lengths, cfg):
     Returns (kp, vp, x_out); kp/vp are the tensors passed in.  A CPU
     tensor takes :func:`decode_layer_group_plain`; a CUDA tensor launches
     the kernel (counted in ``decode_layer_group.launches``) or raises (a
-    head dim other than 32, 64 or 128 raises ``ValueError``).  An empty
+    head dim that is not a multiple of 16 in [16, 128] raises
+    ``ValueError``).  An empty
     batch launches nothing."""
     if x.device.type == "cpu":
         return decode_layer_group_plain(x, kp, vp, layers, meta,
@@ -237,6 +238,7 @@ def phase_times(x, kp, vp, layers, meta, page_tables, lengths, cfg):
 
 
 def _launch(x, kp, vp, layers, meta, page_tables, lengths, cfg, stamps):
+    _build.check_head_dim("decode_layer_group", kp.shape[-1])
     if x.device.type != "cuda":
         raise ValueError("decode_layer_group: unsupported device %s"
                          % x.device)
@@ -254,10 +256,9 @@ def _launch(x, kp, vp, layers, meta, page_tables, lengths, cfg, stamps):
         raise ValueError("decode_layer_group: shapes do not match the "
                          "config (x %s, pages %s, %d layers)"
                          % (tuple(x.shape), tuple(kp.shape), len(layers)))
-    if C % 4 or F % 4 or D not in (32, 64, 128):
+    if C % 4 or F % 4:
         raise ValueError("decode_layer_group: units and hidden_size must be "
-                         "multiples of 4 and the head dim 32, 64 or 128 (a "
-                         "lane takes D / 32 columns), not %d" % D)
+                         "multiples of 4, not %d and %d" % (C, F))
     for name, t, dt in (("x", x, torch.float32), ("kp", kp, torch.float32),
                         ("vp", vp, torch.float32), ("meta", meta, torch.int32),
                         ("page_tables", page_tables, torch.int32),
@@ -404,6 +405,7 @@ def decode_attn_phase_times(x, kp, vp, lp, meta, page_tables, lengths, cfg):
 
 
 def _attn_launch(x, kp, vp, lp, meta, page_tables, lengths, cfg, stamps):
+    _build.check_head_dim("decode_attn_phase", kp.shape[-1])
     if x.device.type != "cuda":
         raise ValueError("decode_attn_phase: unsupported device %s"
                          % x.device)
@@ -414,11 +416,10 @@ def _attn_launch(x, kp, vp, lp, meta, page_tables, lengths, cfg, stamps):
     pps = page_tables.shape[-1]
     lengths = lengths.reshape(B)
     if (KVH != cfg.num_kv_heads or D != cfg.head_dim or H % KVH
-            or C % 4 or D not in (32, 64, 128)):
+            or C % 4):
         raise ValueError("decode_attn_phase: pages %s do not match the "
                          "shard's config (%d heads, %d KV heads, head dim "
-                         "%d), or C is not a multiple of 4, or the head dim "
-                         "not 32, 64 or 128 (a lane takes D / 32 columns)"
+                         "%d), or C is not a multiple of 4"
                          % (tuple(kp.shape), H, cfg.num_kv_heads,
                             cfg.head_dim))
     Cl, KVC = H * D, KVH * D

@@ -172,8 +172,8 @@ def _lib():
 def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None):
     """Decode-phase paged attention (one query token per sequence).
 
-    q:            (B, num_heads, head_dim) fp32; head_dim 32, 64 or 128
-                  for a CUDA tensor
+    q:            (B, num_heads, head_dim) fp32; for a CUDA tensor a
+                  head_dim that is a multiple of 16 in [16, 128]
     k_pages/v_pages: (num_kv_heads, total_pages, page_size, head_dim) fp32,
                   or :class:`QPages` of that layout (int8 codes, fp32
                   scales (num_kv_heads, total_pages))
@@ -204,6 +204,7 @@ def paged_attention_times(q, k_pages, v_pages, lengths, page_indices,
 
 
 def _launch(q, k_pages, v_pages, lengths, page_indices, scale, stamps):
+    _build.check_head_dim("paged_attention", q.shape[-1])
     if q.device.type != "cuda":
         raise ValueError("paged_attention: unsupported device %s" % q.device)
     int8 = isinstance(k_pages, QPages)
@@ -239,9 +240,6 @@ def _launch(q, k_pages, v_pages, lengths, page_indices, scale, stamps):
                              "tensor of shape %s on %s (got %s %s on %s)"
                              % (name, dt, tuple(shape), q.device, t.dtype,
                                 tuple(t.shape), t.device))
-    if D not in (32, 64, 128):
-        raise ValueError("paged_attention: head_dim must be 32, 64 or 128 "
-                         "(a lane takes head_dim / 32 columns), got %d" % D)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     lib = _lib()

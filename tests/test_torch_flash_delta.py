@@ -6,7 +6,8 @@ only on the card; here its row split (``run_delta``'s grid: blocks of 8
 warps, a warp's pass ``32 / G`` rows, at most 4096 blocks, the warps
 striding over the rest) and its summation order (G lanes of one 16-byte
 vector each, each lane adding its rounded products in element order, the
-G partials meeting in an xor butterfly) are emulated in plain PyTorch and
+partials meeting in an xor butterfly over G rounded up to a power of two,
+GP, the lanes past G adding 0) are emulated in plain PyTorch and
 held against the JAX package's expression (``jnp.sum(g * out)`` in fp32,
 ``mxnet_tpu/ops/pallas/flash_attention.py:466``) within ``TOL_DELTA``
 (``chip_smoke``'s: the error over each row's sum of |dO O|).  Every split
@@ -31,9 +32,11 @@ torch.set_num_threads(2)
 TOL_DELTA = 1e-5
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (B, H, L), D: fewer rows than a warp's pass (3); rows no block's pass
-# divides (222, 1155); and a whole number of passes (3072)
+# divides (222, 1155); and a whole number of passes (3072); then the head
+# dims whose G is no power of two (48, 80, 96) or a lane pair (16)
 CASES = (((1, 1, 3), 32), ((2, 3, 37), 64), ((3, 5, 77), 128),
-         ((4, 6, 128), 64))
+         ((4, 6, 128), 64), ((2, 3, 37), 16), ((1, 2, 45), 48),
+         ((2, 2, 33), 80), ((1, 3, 29), 96))
 #: the kernel's grid: warps a block, and the most blocks (``run_delta``)
 WARPS, MAX_BLOCKS = 8, 4096
 
@@ -47,47 +50,50 @@ def _inputs(B, H, L, D, dtype, seed=0):
 
 
 def _lanes(D, itemsize):
-    """G: the lanes that read a row, one 16-byte vector each."""
-    return D * itemsize // 16
+    """GP: G, the lanes that read a row, one 16-byte vector each, rounded
+    up to a power of two (the lanes a row takes in the warp)."""
+    G = D * itemsize // 16
+    return 1 << (G - 1).bit_length()
 
 
-def _grid(rows, G, max_blocks=MAX_BLOCKS):
-    """``run_delta``'s blocks: one warp pass of 32 / G rows a warp, at
+def _grid(rows, GP, max_blocks=MAX_BLOCKS):
+    """``run_delta``'s blocks: one warp pass of 32 / GP rows a warp, at
     most ``max_blocks``."""
-    return min(-(-rows // (WARPS * (32 // G))), max_blocks)
+    return min(-(-rows // (WARPS * (32 // GP))), max_blocks)
 
 
 def _kernel_sums(do_rows, out_rows):
     """Each row's sum in the kernel's order: G lanes of V elements (16
     bytes), each lane adding its rounded fp32 products in element order
-    from 0, then the partials of lanes ``c`` and ``c ^ o`` added for ``o``
-    = G/2, ..., 1.  Rows (n, D) -> (n,) fp32."""
+    from 0, the lanes up to GP holding 0, then the partials of lanes ``c``
+    and ``c ^ o`` added for ``o`` = GP/2, ..., 1.  Rows (n, D) -> (n,)
+    fp32."""
     n, D = do_rows.shape
     V = 16 // do_rows.element_size()
-    G = D // V
+    G, GP = D // V, _lanes(D, do_rows.element_size())
     p = (do_rows.float() * out_rows.float()).reshape(n, G, V)
-    s = torch.zeros(n, G)
+    s = torch.zeros(n, GP)
     for e in range(V):
-        s = s + p[:, :, e]
-    lanes = torch.arange(G)
-    o = G // 2
+        s[:, :G] = s[:, :G] + p[:, :, e]
+    lanes = torch.arange(GP)
+    o = GP // 2
     while o:
         s = s + s[:, lanes ^ o]
         o //= 2
-    assert torch.equal(s, s[:, :1].expand(n, G))     # every lane the same
+    assert torch.equal(s, s[:, :1].expand(n, GP))    # every lane the same
     return s[:, 0]
 
 
 def _emulate(do, out, max_blocks=MAX_BLOCKS):
     """The kernel: warp ``w`` of the grid takes the pass of rows ``w *
-    32 / G`` on, then strides by the grid's warps; each pass's rows past
+    32 / GP`` on, then strides by the grid's warps; each pass's rows past
     the end are not read or written.  Returns delta (B, H, L) and each
     row's store count."""
     B, H, L, D = do.shape
     rows = B * H * L
-    G = _lanes(D, do.element_size())
-    per_warp = 32 // G
-    warps = _grid(rows, G, max_blocks) * WARPS
+    GP = _lanes(D, do.element_size())
+    per_warp = 32 // GP
+    warps = _grid(rows, GP, max_blocks) * WARPS
     d, o = do.reshape(rows, D), out.reshape(rows, D)
     delta = torch.full((rows,), float("nan"))
     stores = torch.zeros(rows, dtype=torch.int64)
