@@ -179,6 +179,13 @@ register("MXNET_SLO_TENANT_WEIGHTS", str, "", "honored",
 register("MXNET_SERVING_REPLICA_ID", str, "", "honored",
          "replica label stamped on ServingMetrics snapshots",
          "serving.metrics.ServingMetrics")
+register("MXNET_SERVING_RETRIES", int, 2, "honored",
+         "serving client: bounded retries on connect/connection-reset "
+         "errors for requests the server has not processed yet "
+         "(exponential backoff + jitter)", "serving.client.ServingClient")
+register("MXNET_SERVING_BACKOFF_MS", float, 50.0, "honored",
+         "serving client: base retry backoff in ms, doubled per attempt "
+         "with jitter", "serving.client.ServingClient")
 register("MXNET_FAULT_SPEC", str, "", "honored",
          "deterministic fault injection spec: site:kind[@p=F|n=I] joined "
          "by ';' (sites: decode.step, engine.retire, kvcache.alloc, "
@@ -196,3 +203,7 @@ for _name, _help in [
     ("MXNET_GEN_ROLE", "prefill/decode role specialization"),
 ]:
     register(_name, str, "", "not_ported", _help, "serving.DecodeEngine")
+register("MXNET_COMPILE_CACHE_DIR", str, "", "not_ported",
+         "the XLA compile cache: the port's kernels are built once into "
+         "mxnet_tpu_torch/_build, so setting it raises",
+         "serving.registry.maybe_enable_compile_cache")

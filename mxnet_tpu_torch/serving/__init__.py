@@ -15,6 +15,12 @@
 - ``PageAllocator``, ``PrefixCache``, ``pack_session``/``unpack_session``
   (``kvcache.py``) — host-side page bookkeeping, the prefix cache and the
   session wire format, the JAX package's.
+- ``ModelRegistry`` (``registry.py``), ``DynamicBatcher``
+  (``batcher.py``), ``ModelServer`` (``server.py``) and ``ServingClient``
+  (``client.py``) — the HTTP surface: versioned batch functions behind a
+  size-or-timeout batcher, ``:predict`` and ``:generate`` over HTTP on an
+  attached ``DecodeEngine``, health, readiness, stats and Prometheus
+  text; the admin plane (``/v1/admin/*``) is refused.
 - ``ServingMetrics`` (``metrics.py``), ``SLOPolicy`` (``autoscale.py``)
   and the error taxonomy (``errors.py``).
 
@@ -33,18 +39,28 @@ Quick start::
     # quantized: int8 weights and int8 KV pages
     eng = DecodeEngine(quantize_lm(lm, "int8"), kv_dtype="int8", slots=16,
                        page_size=16, prefill_chunk=64)
+    # over HTTP: a server on an ephemeral port, and a client
+    from mxnet_tpu_torch.serving import ModelServer, ServingClient
+    with ModelServer() as srv:
+        srv.attach_engine("llm", DecodeEngine(lm, slots=16))
+        print(ServingClient(*srv.address).generate("llm", [101, 2023]))
 """
 from __future__ import annotations
 
 from .autoscale import SLOPolicy
+from .batcher import DynamicBatcher
+from .client import ServingClient
 from .errors import (BadRequestError, DeadlineExceededError,
-                     DeadlineInfeasibleError, KVLeakError, QueueFullError,
-                     ServerClosedError, ServingError, SessionResetError)
+                     DeadlineInfeasibleError, KVLeakError, ModelNotFoundError,
+                     QueueFullError, ServerClosedError, ServingError,
+                     SessionResetError)
 from .generate import DecodeEngine
 from .kvcache import (PageAllocator, PrefixCache, pack_session, pages_for,
                       unpack_session)
 from .metrics import LatencyHistogram, ModelMetrics, ServingMetrics
 from .quantize import QuantizedLM, quantize_lm
+from .registry import ModelRegistry, ServedModel, default_buckets
+from .server import ModelServer
 
 __all__ = ["DecodeEngine", "QuantizedLM", "quantize_lm", "PageAllocator",
            "PrefixCache", "pack_session", "unpack_session",
@@ -52,4 +68,6 @@ __all__ = ["DecodeEngine", "QuantizedLM", "quantize_lm", "PageAllocator",
            "ModelMetrics", "LatencyHistogram", "SLOPolicy", "ServingError",
            "BadRequestError", "QueueFullError", "ServerClosedError",
            "DeadlineExceededError", "DeadlineInfeasibleError", "KVLeakError",
-           "SessionResetError"]
+           "SessionResetError", "ModelNotFoundError", "ModelRegistry",
+           "ServedModel", "default_buckets", "DynamicBatcher", "ModelServer",
+           "ServingClient"]
