@@ -66,14 +66,19 @@ def _engine(lm, make=DecodeEngine, **kw):
 
 def _serve(eng, prompts, max_new=MAX_NEW, serial_first=False):
     """Serve ``prompts`` (the first alone when ``serial_first``); stop the
-    engine and check that its pages are all back."""
+    engine and check that its pages are all back.  The requests are
+    submitted under the engine's lock, so all are queued before its first
+    step and the schedule (admissions, preemptions) does not depend on
+    how fast the host runs the worker."""
     try:
         out = []
         if serial_first:
             out.append(eng.submit(prompts[0], max_new_tokens=max_new)
                        .result(timeout=300)["tokens"])
             prompts = prompts[1:]
-        futs = [eng.submit(list(p), max_new_tokens=max_new) for p in prompts]
+        with eng._cond:
+            futs = [eng.submit(list(p), max_new_tokens=max_new)
+                    for p in prompts]
         out += [f.result(timeout=300)["tokens"] for f in futs]
     finally:
         assert eng.stop()

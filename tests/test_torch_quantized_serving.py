@@ -64,8 +64,11 @@ def _quant_kw(quantize, group, kv_dtype):
 
 
 def _serve(eng, reqs):
+    """Every request queued before the engine's first step (submitted
+    under its lock), so the schedule does not depend on the host."""
     try:
-        futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
+        with eng._cond:
+            futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
         outs = [f.result(timeout=300) for f in futs]
     finally:
         assert eng.stop()

@@ -65,7 +65,8 @@ def setup():
                                 prefix_cache=False, async_decode=False,
                                 **ENGINE)
     try:
-        futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
+        with eng._cond:      # every request queued before the first step
+            futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
         ref = [f.result(timeout=300) for f in futs]
     finally:
         assert eng.stop()
@@ -93,7 +94,8 @@ def test_engine_streams_match_jax(monkeypatch, setup, fused):
     eng = DecodeEngine(tlm, name="llm", eos_id=eos, device="cpu", **ENGINE)
     assert eng.decode_fused == (fused == "1")
     try:
-        futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
+        with eng._cond:      # every request queued before the first step
+            futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
         outs = [f.result(timeout=120) for f in futs]
     finally:
         assert eng.stop()
@@ -120,8 +122,9 @@ def test_preemption_inside_decode_batch(monkeypatch, setup, fused):
     monkeypatch.setenv("MXNET_DECODE_FUSED", fused)
     eng = DecodeEngine(tlm, name="llm", device="cpu", **ENGINE)
     try:
-        outs = [f.result(timeout=120) for f in
-                [eng.submit(p, max_new_tokens=n) for p, n in reqs]]
+        with eng._cond:      # every request queued before the first step
+            futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
+        outs = [f.result(timeout=120) for f in futs]
     finally:
         assert eng.stop()
     counters = eng.metrics.snapshot()["models"]["llm"]["counters"]

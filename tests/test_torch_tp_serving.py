@@ -62,7 +62,8 @@ def setup():
                                 .for_transformer(**MESH), prefix_cache=False,
                                 async_decode=False, **ENGINE)
     try:
-        futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
+        with eng._cond:      # every request queued before the first step
+            futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
         ref = [f.result(timeout=300)["tokens"] for f in futs]
         jstats = eng.stats()
         jcounters = eng.metrics.snapshot()["models"]["llm"]["counters"]
