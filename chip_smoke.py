@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's LLM serving (tensor-parallel serving
-included), BERT training and LSTM training paths on one CUDA card.
+"""Drive the PyTorch/CUDA port's LLM serving (tensor-parallel serving and
+the HTTP surface included), BERT training and LSTM training paths on one
+CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -79,7 +80,14 @@ plain version):
    floor.  The delta kernel (``delta = sum_d dO * O``, which #6 and #7
    read) against its plain version in both dtypes at D 32, 64 and 128,
    on a transposed dO and per shard bit for bit, timed beside its plain
-   version and ``torch.linalg.vecdot``.
+   version and ``torch.linalg.vecdot``.  The head dims (``check_decode_dims``,
+   ``check_flash_dims``): #12, #13 (both shards of tp 2) and #15 over fp
+   and int8 pages at every head dim that is a multiple of 16 up to 128, on
+   a 2-layer model of that head dim at B 16 with mixed lengths, each held
+   and timed; #5-#7 and the delta kernel at D 16, 48, 80, 96 and 112 in
+   fp32 and bf16 (160 flash cases at (8, 12, 128) and (2, 6, 200), every
+   mask, dropout 0 and 0.1), timed at the training shape at D 16, 64, 80
+   and 96.
    ``--kernels-only`` stops here.
 3. Serving: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
@@ -130,6 +138,16 @@ plain version):
    engine (pages bit-equal), a third turn equal on both; the same between
    two int8-KV engines (v2 blobs with scales).  Launch counts are set to
    0 before the prefix and session phases and read after them.
+   The JAX package's serving-test model, ``decoder_tiny_lm(seed=0)`` (head
+   dim 16), served 16 requests fused, per-op and with int8 KV pages, each
+   run's launches held to its path and its streams to the same engine's on
+   CPU copies of the weights (equal, or apart only after a near-tie).  The
+   HTTP surface: a ``ModelServer`` on 127.0.0.1 serving the full-width
+   model and the tiny LM through ``attach_engine``, a ``ServingClient``
+   sending 4 generate requests to each and a resume of an unknown session
+   (typed ``SessionResetError``); the tokens must equal the same requests
+   sent straight to the engines; round trips printed beside the engines'
+   own times.
    The sharded-attention path: forward and backward through
    ``flash_attention_sharded`` (dp 2 x tp 2, causal) in fp32 and bf16,
    launching #5, the delta kernel, #6 and #7 once a call.
@@ -2683,7 +2701,10 @@ def check_flash_dims(torch, timer, report):
     float32 and bfloat16, against the plain versions: ``flash_case`` at
     FLASH_NEW_SHAPES with no mask, causal, a window of 32 and kv_length
     with a row of length 0, at dropout 0 and 0.1; the delta kernel at
-    those shapes and DELTA_EDGE_SHAPES.  Then #5-#7 and delta timed at
+    those shapes and DELTA_EDGE_SHAPES; the #16 route
+    (``flash_attention_sharded``, dp 2 x tp 2, causal) at D 16 and 80,
+    forward and gradients against autograd through the plain attention.
+    Then #5-#7 and delta timed at
     the training shape (B 32, H 12, L 128, kv_length, dropout 0.1) at D
     16, 64, 80 and 96 beside their plain versions and bounds."""
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
@@ -2719,6 +2740,34 @@ def check_flash_dims(torch, timer, report):
     if not all(w["delta"] <= TOL_DELTA for w in worst.values()):
         raise AssertionError("flash_attention_bwd_delta disagrees with its "
                              "plain version at a new head dim")
+    # the #16 route at D 16 and 80: one flash call over the whole tensors
+    # of a (dp 2, tp 2) mesh, forward and gradients against autograd
+    # through the plain causal attention
+    from mxnet_tpu_torch.ops import attention as att
+    cfg = tp_sharding(SHARDED_MESH[1], SHARDED_MESH[0])
+    for dt in (torch.float32, torch.bfloat16):
+        f32 = dt == torch.float32
+        for D in (16, 80):
+            q, k, v, do = (torch.randn(8, 12, 128, D, device=DEV,
+                                       generator=g).to(dt) for _ in range(4))
+            ls = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            lp = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            out = att.flash_attention_sharded(*ls, cfg, causal=True)
+            ref = fa.flash_attention_plain(*lp, causal=True)[0]
+            gs = torch.autograd.grad(out, ls, do)
+            gp = torch.autograd.grad(ref, lp, do)
+            err = rel_err(out, ref)
+            err_g = max(rel_err(a, b) for a, b in zip(gs, gp))
+            tol = TOL_FLASH_F32 if f32 else TOL_FLASH_BF16
+            tol_g = TOL_FLASH_F32 if f32 else TOL_FLASH_GRAD_BF16
+            log("flash_attention_sharded dp 2 x tp 2 (8, 12, 128, D %d) %s "
+                "causal, route %s: out err %.3g (tol %g), gradients %.3g "
+                "(tol %g)" % (D, str(dt)[6:], att.last_path, err, tol, err_g,
+                              tol_g))
+            if not (err <= tol and err_g <= tol_g
+                    and att.last_path == "flash-causal-shard"):
+                raise AssertionError("flash_attention_sharded disagrees at "
+                                     "head dim %d" % D)
     B, H, L = TRAIN_B, BERT["num_heads"], TRAIN_L
     kvl = pretrain_batch(torch, 0, B, L, DEV)["valid"].to(torch.int32)
     seed = torch.randint(0, 2 ** 32, (1,), dtype=torch.int64, device=DEV,
@@ -3475,6 +3524,188 @@ def prefix_phase(torch, lm, seed):
         log("%s: cache on vs off streams identical for %d of %d"
             % (label, same, len(reqs) + 1))
     return total
+
+
+#: the tiny LM's serving rows: (label, MXNET_DECODE_FUSED, engine
+#: kwargs); int8 KV asks for the fused step and is given the per-op one
+TINY_RUNS = (("tiny_fused", "1", {}), ("tiny_per_op", "0", {}),
+             ("tiny_int8_kv8", "1", dict(kv_dtype="int8")))
+TINY_ENGINE = dict(slots=8, page_size=8, max_ctx=128, prefill_chunk=16)
+TINY_REQUESTS = 16
+
+
+def tiny_traffic(seed, n, vocab=128, max_ctx=128):
+    """``n`` (prompt, max_new) of the tiny LM: prompts of 2..48 tokens,
+    8..48 new, within its context."""
+    rng = np.random.default_rng(seed + 23)
+    out = []
+    for _ in range(n):
+        p = int(rng.integers(2, 49))
+        out.append((rng.integers(0, vocab, p).tolist(),
+                    int(rng.integers(8, min(49, max_ctx - p + 1)))))
+    return out
+
+
+def tiny_phase(torch, seed):
+    """The JAX package's serving-test model, ``decoder_tiny_lm(seed=0)``
+    (units 64 over 4 heads over 2 KV heads: head dim 16), served on the
+    card in each row of TINY_RUNS on the engine's defaults, the launches of
+    each run held to its path (#12 at D 16 fused, #15 at D 16 per-op, over
+    fp or int8 pages); every stream equal to the same engine's on CPU
+    copies of the weights (where the plain versions serve), or differing
+    only after a near-tie of ``full_forward`` (top-2 margin below 1e-4).
+    Returns the phase's launch counts."""
+    from mxnet_tpu_torch.models import decoder as dec
+    from mxnet_tpu_torch.serving import DecodeEngine
+    lm = dec.decoder_tiny_lm(seed=0, device=DEV)
+    cpu_lm = dec.decoder_tiny_lm(seed=0, device="cpu")
+    reqs = tiny_traffic(seed, TINY_REQUESTS)
+    total = dict.fromkeys(KERNELS, 0)
+    for label, fused, kw in TINY_RUNS:
+        os.environ["MXNET_DECODE_FUSED"] = fused
+        eng = DecodeEngine(lm, name="tiny", device=DEV, **TINY_ENGINE, **kw)
+        eng.warmup()
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        drv = Driven(torch, eng)
+        t0 = time.perf_counter()
+        outs = [f.result(timeout=900)["tokens"] for f in
+                [eng.submit(p, max_new_tokens=n) for p, n in reqs]]
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if not eng.stop():
+            raise AssertionError("engine worker did not stop")
+        chunk_ms = drv.restore()
+        steps = eng.metrics.snapshot()["models"]["tiny"]["counters"][
+            "decode_steps_total"]
+        check_launches(label, counts, path_launches(eng, steps,
+                                                    len(chunk_ms)),
+                       [(label, drv, steps)])
+        for k in KERNELS:
+            total[k] += counts[k]
+        ceng = DecodeEngine(cpu_lm, name="tiny", device="cpu", **TINY_ENGINE,
+                            **kw)
+        try:
+            ref = [f.result(timeout=900)["tokens"] for f in
+                   [ceng.submit(p, max_new_tokens=n) for p, n in reqs]]
+        finally:
+            ceng.stop()
+        same = 0
+        for (p, _), got, want in zip(reqs, outs, ref):
+            if got == want:
+                same += 1
+                continue
+            i, margin = near_tie(torch, eng, p, got, want)
+            log("%s: the card's stream leaves the CPU's at %d, full_forward "
+                "top-2 margin %.3g" % (label, i, margin))
+            if not margin < 1e-4:
+                raise AssertionError("%s: the card's stream differs from the "
+                                     "CPU's without a near-tie" % label)
+        log("%s: decoder_tiny_lm (D %d) decode step %s, %s KV: %d requests, "
+            "%d tokens in %.3f s; %d decode steps, launches %s; streams "
+            "equal to the CPU run's for %d of %d"
+            % (label, eng.cfg.head_dim,
+               "fused" if eng.decode_fused else "per-op", eng.kv_dtype,
+               len(reqs), sum(len(o) for o in outs), wall, steps,
+               {k: v for k, v in counts.items() if v}, same, len(reqs)))
+    os.environ["MXNET_DECODE_FUSED"] = "1"
+    return total
+
+
+#: the HTTP phase's requests per model, and the full-width model's engine
+HTTP_REQUESTS = 4
+
+
+def http_phase(torch, lm, seed):
+    """The HTTP surface on the card: a ``ModelServer`` on 127.0.0.1 (an
+    ephemeral port) serves the full-width ``lm`` as "lm" and
+    ``decoder_tiny_lm(seed=0)`` as "tiny" through ``attach_engine`` (fused
+    decode, the prefix cache off so a request's pages never depend on an
+    earlier one's); a ``ServingClient`` sends HTTP_REQUESTS generate
+    requests to each, one after another, and a resume of a session the
+    server does not hold, which must come back as the typed
+    ``SessionResetError`` (409 ``session_reset``).  The same requests then
+    go straight to each engine: the tokens must be equal.  Prints each
+    model's round trip (p50 over its requests) beside the engine's own
+    time for the same request, with the card's line.  Launch counts are
+    set to 0 after the engines' warmup and read after the last request,
+    held to both engines' paths.  Returns them."""
+    from mxnet_tpu_torch.models import decoder as dec
+    from mxnet_tpu_torch.serving import (DecodeEngine, ModelRegistry,
+                                         ModelServer, ServingClient,
+                                         SessionResetError)
+    os.environ["MXNET_DECODE_FUSED"] = "1"
+    tiny = dec.decoder_tiny_lm(seed=0, device=DEV)
+    engines = {
+        "lm": DecodeEngine(lm, device=DEV, slots=SLOTS, page_size=PAGE,
+                           max_ctx=MAX_CTX, prefill_chunk=CHUNK,
+                           prefix_cache=False),
+        "tiny": DecodeEngine(tiny, device=DEV, prefix_cache=False,
+                             **TINY_ENGINE)}
+    rng = np.random.default_rng(seed + 31)
+    reqs = {"lm": [(rng.integers(0, WIDTHS["vocab_size"],
+                                 int(rng.integers(16, 129))).tolist(),
+                    int(rng.integers(16, 65))) for _ in range(HTTP_REQUESTS)],
+            "tiny": tiny_traffic(seed + 1, HTTP_REQUESTS)}
+    srv = ModelServer(ModelRegistry(), host="127.0.0.1", port=0)
+    cli = None
+    try:
+        srv.start()
+        for name, eng in engines.items():
+            srv.attach_engine(name, eng)     # warms the engine up
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        drivers = {name: Driven(torch, eng) for name, eng in engines.items()}
+        cli = ServingClient(*srv.address, timeout=300.0)
+        rows = {}
+        for name, eng in engines.items():
+            wire, direct, rtt, own = [], [], [], []
+            for p, n in reqs[name]:
+                t = time.perf_counter()
+                wire.append(cli.generate(name, p, max_tokens=n)["tokens"])
+                rtt.append((time.perf_counter() - t) * 1e3)
+            for p, n in reqs[name]:
+                t = time.perf_counter()
+                direct.append(eng.submit(p, max_new_tokens=n).result(
+                    timeout=900)["tokens"])
+                own.append((time.perf_counter() - t) * 1e3)
+            if wire != direct:
+                raise AssertionError("http %s: the tokens over HTTP differ "
+                                     "from the engine's" % name)
+            rows[name] = dict(requests=len(wire),
+                              tokens=sum(len(t) for t in wire),
+                              rtt_p50_ms=pct(rtt, 50),
+                              engine_p50_ms=pct(own, 50))
+        try:
+            cli.generate("lm", [1, 2, 3], max_tokens=2, session="unknown",
+                         resume=True)
+            raise AssertionError("http: resuming an unknown session did not "
+                                 "raise")
+        except SessionResetError as e:
+            log("http: resume of an unknown session: %s (typed, 409)"
+                % type(e).__name__)
+        counts = launch_counts()
+        want = dict.fromkeys(KERNELS, 0)
+        runs = []
+        for name, eng in engines.items():
+            chunk_ms = drivers[name].restore()
+            steps = eng.metrics.snapshot()["models"][name]["counters"][
+                "decode_steps_total"]
+            for k, v in path_launches(eng, steps, len(chunk_ms)).items():
+                want[k] += v
+            runs.append((name, drivers[name], steps))
+        check_launches("http", counts, want, runs)
+    finally:
+        if cli is not None:
+            cli.close()
+        srv.stop()
+    for name, r in rows.items():
+        log("http %s (D %d): %d requests, %d tokens over HTTP equal to the "
+            "engine's; round trip p50 %.3f ms, the engine's own p50 %.3f ms "
+            "(%s)" % (name, engines[name].cfg.head_dim, r["requests"],
+                      r["tokens"], r["rtt_p50_ms"], r["engine_p50_ms"],
+                      card_line()))
+    return counts
 
 
 SESSIONS, SESSION_EXPORTS = 16, 4
@@ -4437,7 +4668,9 @@ def main():
                              "with the CPU")
     check_quant_tp(torch, runs, seqs, tf8, fp_ref, cfg)
     paths = {"prefix": prefix_phase(torch, lm, args.seed),
-             "sessions": session_phase(torch, lm, args.seed)}
+             "sessions": session_phase(torch, lm, args.seed),
+             "tiny_lm": tiny_phase(torch, args.seed),
+             "http": http_phase(torch, lm, args.seed)}
     if args.profile:
         for fused, tp, quant in ((True, 1, {}), (False, 1, {}), (True, 2, {}),
                                  (True, 1, dict(quantize="int8",

@@ -1,16 +1,21 @@
 """Port parity: the async decode pipeline of ``mxnet_tpu_torch.serving.
 DecodeEngine`` against its own synchronous loop and the JAX package's
-async engine on the CPU (the port of ``tests/test_async_engine.py``, without
-its speculative cases).
+engine on the CPU (the port of ``tests/test_async_engine.py``, without its
+speculative cases).
 
 The model is the JAX ``decoder_tiny_lm(seed=0)`` with random biases and LN
 affines, carried across by ``load_jax_params``.  The async engine changes
 when host work happens, never what is computed: within the port its
 streams must equal the synchronous loop's exactly (the same programs on
-the same inputs).  Against the JAX async engine they must be equal too;
-where one differs, the port's prefill program over the stream's prefix
-must show a near-tie at the first differing position (top-2 margin below
-1e-4, ``torch_parity.check_stream``).  On the CPU every kernel's plain
+the same inputs).  Against the JAX engine they must be equal too; where
+one differs, the port's prefill program over the stream's prefix must
+show a near-tie at the first differing position (top-2 margin below
+1e-4, ``torch_parity.check_stream``).  The JAX reference runs its
+synchronous loop, as every other port serving test's does: the JAX async
+engine's int8-KV streams depend on the host's load (one run in 100 under
+five concurrent processes decoded ``[12, 12, 12, 12, 12, 12, 93, 93]``
+where it otherwise decodes ``[12, 12, 12, 93, 93, 93, 93, 93]``), which
+the JAX package's own tests hold it to apart.  On the CPU every kernel's plain
 version serves; the CUDA stream, pinned staging and events are held on
 the card by ``chip_smoke.py``.
 """
@@ -91,11 +96,12 @@ _JAX_REF = {}
 
 
 def _jax_ref(jlm, case):
-    """The JAX async engine's streams for a matrix case (computed once)."""
+    """The JAX engine's streams for a matrix case (computed once), on its
+    synchronous loop."""
     if case not in _JAX_REF:
         kw, prompts = MATRIX[case]
         _JAX_REF[case] = _serve(
-            _engine(jlm, jserving.DecodeEngine, async_decode=True, **kw),
+            _engine(jlm, jserving.DecodeEngine, async_decode=False, **kw),
             prompts, serial_first=case == "prefix_cow")
     return _JAX_REF[case]
 
@@ -128,7 +134,7 @@ def test_async_streams_match_sync_and_jax(monkeypatch, models, case, fused):
 def test_async_tp2_streams_match_sync(models):
     """Tensor-parallel serving (tp 2, the shards in turn on the CPU) under
     the pipeline: its streams equal the TP synchronous loop's exactly and
-    the JAX 1-chip async engine's by the near-tie rule (the row-parallel
+    the JAX 1-chip engine's by the near-tie rule (the row-parallel
     sums add in another order)."""
     jlm, tlm = models
     tp2 = ShardingConfig.for_transformer(mesh_shape=(1, 2),

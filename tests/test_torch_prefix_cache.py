@@ -10,7 +10,8 @@ computes a prefix's K and V, not what the engine computes for any token:
 within the port, streams with the cache on must equal streams with it off
 exactly.  Against the JAX engine they must be equal, or show a near-tie
 (top-2 margin below 1e-4, ``torch_parity.check_stream``) at the first
-difference.
+difference.  The JAX engine runs its synchronous loop, whose streams do
+not depend on the host's load (``test_torch_async_engine.py`` says why).
 """
 from __future__ import annotations
 
@@ -173,7 +174,7 @@ def test_cow_fork_streams_match_cache_off_and_jax(monkeypatch, models,
     assert _serve(off, SHARED, TAILS) == got
     assert _counters(off)["prefix_hits_total"] == 0
     jeng = jserving.DecodeEngine(jlm, name="llm", prefix_cache=True,
-                                 **ENGINE)
+                                 async_decode=False, **ENGINE)
     want = _serve(jeng, SHARED, TAILS)
     jc = _counters(jeng)
     assert (jc["prefix_hits_total"], jc["cow_forks_total"]) == (
@@ -229,7 +230,8 @@ def test_int8_partial_fork_copies_codes_and_scales(models):
     assert eng.alloc.num_used == 0
     eng.alloc.check_leaks()
     jeng = jserving.DecodeEngine(jlm, name="llm", prefix_cache=True,
-                                 kv_dtype="int8", **ENGINE)
+                                 kv_dtype="int8", async_decode=False,
+                                 **ENGINE)
     try:
         want = [jeng.submit(SHARED, max_new_tokens=MAX_NEW).result(300),
                 jeng.submit(SHARED + TAILS[0], max_new_tokens=MAX_NEW)

@@ -10,7 +10,9 @@ decodes on pages it prefills itself; the two must be equal exactly (the
 same programs; the decode step's K and V equal the prefill's row for row),
 as ``tests/test_llm_serving.py`` holds the JAX engine.  Against the JAX
 engine, a continuation must be equal or show a near-tie (top-2 margin
-below 1e-4, ``torch_parity.check_stream``) at the first difference.
+below 1e-4, ``torch_parity.check_stream``) at the first difference.  The
+JAX engine runs its synchronous loop, whose streams do not depend on the
+host's load (``test_torch_async_engine.py`` says why).
 """
 from __future__ import annotations
 
@@ -89,8 +91,8 @@ def test_continuation_matches_jax_engine(models):
     """The same two turns through the JAX engine's session."""
     jlm, tlm = models
     outs = []
-    for eng in (_engine(tlm), jserving.DecodeEngine(jlm, name="llm",
-                                                    **ENGINE)):
+    for eng in (_engine(tlm), jserving.DecodeEngine(
+            jlm, name="llm", async_decode=False, **ENGINE)):
         try:
             r1 = eng.submit(TURN1, 5, session="s").result(120)["tokens"]
             r2 = eng.submit(TURN2, 5, session="s",
@@ -273,7 +275,8 @@ def test_port_blob_imports_into_jax_engine(models):
     in the port."""
     jlm, tlm = models
     eng = _engine(tlm)
-    jeng = jserving.DecodeEngine(jlm, name="llm", **ENGINE)
+    jeng = jserving.DecodeEngine(jlm, name="llm", async_decode=False,
+                                 **ENGINE)
     try:
         r1 = eng.submit(TURN1, 5, session="m").result(120)["tokens"]
         assert jeng.import_session(eng.export_session("m")) == "m"
