@@ -2292,9 +2292,10 @@ int dispatch(const Args& a, int BH, int D, int dtype, cudaStream_t st) {
 // vector of dO and one of O at the views' strides; each lane adds its
 // rounded products in element order, then the G partials meet in a
 // butterfly of shuffles over GP lanes, G rounded up to a power of two (the
-// GP - G lanes past the row add 0).  That order depends on D and T alone, not on B,
-// H, L, the strides or the grid, so a row's sum has the same bits however
-// the tensors are cut (the #16 route against its per-shard composition).
+// GP - G lanes past the row add 0).  That order depends on D and T alone,
+// not on B, H, L, the strides or the grid, so a row's sum has the same
+// bits however the tensors are cut (the #16 route against its per-shard
+// composition).
 // Bound: bytes, dO and O read once, delta written once (25.2 MB in fp32
 // at B 32, H 12, L 128, D 64: 7.5 us at 3.35 TB/s; 12.6 MB in bf16).
 // A one-wave grid of contiguous row runs timed the same (PERF.md section 6).
@@ -2403,9 +2404,9 @@ extern "C" const char* mxt_error_string(int e) {
 
 // Common arguments: q, k, v (B, H, L, D) with BH = B * H <= 65535, of dtype
 // 0 float32 or 1 bfloat16; D a multiple of 16 in [16, 128] (pad_dim).
-// seed: one int64 on the
-// card (its low 32 bits the seed), or null for no dropout; kvlen: (B,)
-// int32 on the card, or null for no padding mask; window < 0 for no band;
+// seed: one int64 on the card (its low 32 bits the seed), or null for no
+// dropout; kvlen: (B,) int32 on the card, or null for no padding mask;
+// window < 0 for no band;
 // thr and ks: the rate's uint32 keep threshold and keep scale.  strides,
 // on the host, or null for contiguous tensors: each (B, H, L, D) view's B,
 // H and L strides in elements (unit stride along D), then each (B, H, L)
@@ -2485,8 +2486,8 @@ extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 // delta (B, H, L) float32, contiguous, from dout and out like q (dtype 0
 // float32 or 1 bfloat16, D a multiple of 16 in [16, 128]).  strides: 6
-// int64, dout's
-// and out's B, H and L strides, or null for contiguous tensors.
+// int64, dout's and out's B, H and L strides, or null for contiguous
+// tensors.
 extern "C" int mxt_flash_bwd_delta(const void* dout, const void* out,
                                    void* delta, int BH, int H, int L, int D,
                                    int dtype, void* stream,

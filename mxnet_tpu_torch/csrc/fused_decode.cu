@@ -30,9 +30,9 @@
 //   8. residual + bias + the partial sums, LayerNorm per row
 // The (B, C) and (B, F) activations live in one small device scratch
 // buffer that stays in the 50 MB L2 between phases, in place of the
-// TPU's VMEM carry (fused_cell.py:358-366).  One kernel per head dim
-// (D = 32 E), so each carries one attention path under the register
-// budget of three blocks an SM.
+// TPU's VMEM carry (fused_cell.py:358-366).  One kernel per head dim (a
+// multiple of 16 up to 128: MXT_SPLIT_HEAD_DIMS), so each carries one
+// attention path under the register budget of three blocks an SM.
 //
 // Bound on the card: bytes.  At full width (C 768, F 3072, B 16) a layer
 // reads 4 C^2 + 2 C F fp32 weights = 28.3 MB and does 2 B flops per
@@ -134,7 +134,7 @@ struct Args {
   const int* lengths;    // (B,) valid keys after this step's append
   float* scratch;        // scratch_floats(...) floats
   long long* timing;     // null, or 1 + 2 Lg (PHASES + GEMVS) slots
-  int B, C, F, H, KVH, P, S, pps, Lg, stage_floats;  // head dim 32 E
+  int B, C, F, H, KVH, P, S, pps, Lg, stage_floats;  // head dim: the kernel's
   float scale;
 };
 

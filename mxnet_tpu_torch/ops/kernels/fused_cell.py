@@ -192,8 +192,7 @@ def decode_layer_group(x, kp, vp, layers, meta, page_tables, lengths, cfg):
     tensor takes :func:`decode_layer_group_plain`; a CUDA tensor launches
     the kernel (counted in ``decode_layer_group.launches``) or raises (a
     head dim that is not a multiple of 16 in [16, 128] raises
-    ``ValueError``).  An empty
-    batch launches nothing."""
+    ``ValueError``).  An empty batch launches nothing."""
     if x.device.type == "cpu":
         return decode_layer_group_plain(x, kp, vp, layers, meta,
                                         page_tables, lengths, cfg)
