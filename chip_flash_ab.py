@@ -81,11 +81,15 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   every case of ``TP_CASES``; timed at D 64, B 16, with mixed lengths and
   with every row at 512, with its phases by ``%globaltimer``);
 - ``dims``: ``chip_smoke.check_decode_dims`` (#12, #13 and #15 over fp
-  and int8 pages at every head dim that is a multiple of 16 up to 128,
-  held and timed) and ``chip_smoke.check_flash_dims`` (#5-#7 and the
-  delta kernel at D 16, 48, 80, 96 and 112 in fp32 and bf16, held; timed
-  at D 16, 64, 80 and 96); only in a tree whose kernels take those head
-  dims.
+  and int8 pages at every head dim that is a multiple of 8 up to 256,
+  held; timed at ``DECODE_TIMED``) and ``chip_smoke.check_flash_dims``
+  (#5-#7 and the delta kernel at every multiple of 8 up to 120 but 32 and
+  64 in fp32 and bf16, held; timed at ``FLASH_TIMED``); only in a tree
+  whose kernels take those head dims;
+- ``spec``: ``chip_smoke.spec_phase`` (speculative decoding on the
+  serving model: each row of ``SPEC_RUNS`` beside the same engine
+  without speculation, streams held, launches held to the path); only in
+  a tree that speculates.
 
 A TREE named more than once runs that many more turns; a TREE whose
 build fails is left out of the turns (the exit code is then 1).  Every
@@ -103,7 +107,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("delta", "route", "kernels", "host", "bert", "amp", "epilogue",
-          "lstm", "tp", "paged", "fused", "qmm", "dims")
+          "lstm", "tp", "paged", "fused", "qmm", "dims", "spec")
 
 
 def build(trees, names):
@@ -203,6 +207,9 @@ def run(tree, phases, steps):
         cs.check_decode_dims(torch, timer, report)
         cs.check_flash_dims(torch, timer, report)
         cs.log("dims: %s" % json.dumps(report))
+    if "spec" in phases:
+        lm, _ = decode_models(cs, torch)
+        cs.spec_phase(torch, lm, 0)
     if "amp" in phases:
         torch.cuda.empty_cache()
         _, st = cs.train(torch, 0, "amp_bf16", cs.TRAIN_B, cs.TRAIN_L, steps,
@@ -300,7 +307,8 @@ def main():
                              ("fused_decode", {"fused"}),
                              ("epilogue", {"epilogue"})) if ps & set(phases)]
     rcs = build(sorted(set(trees)), None if {"bert", "amp", "lstm", "tp",
-                                             "paged", "qmm", "epilogue"}
+                                             "paged", "qmm", "epilogue",
+                                             "dims", "spec"}
                 & set(phases) else names)
     built = {t for t, rc in zip(sorted(set(trees)), rcs) if not rc}
     failed = len(set(trees) - built)

@@ -82,12 +82,13 @@ plain version):
    on a transposed dO and per shard bit for bit, timed beside its plain
    version and ``torch.linalg.vecdot``.  The head dims (``check_decode_dims``,
    ``check_flash_dims``): #12, #13 (both shards of tp 2) and #15 over fp
-   and int8 pages at every head dim that is a multiple of 16 up to 128, on
-   a 2-layer model of that head dim at B 16 with mixed lengths, each held
-   and timed; #5-#7 and the delta kernel at D 16, 48, 80, 96 and 112 in
-   fp32 and bf16 (160 flash cases at (8, 12, 128) and (2, 6, 200), every
-   mask, dropout 0 and 0.1), timed at the training shape at D 16, 64, 80
-   and 96.
+   and int8 pages at every head dim that is a multiple of 8 up to 256, on
+   a 2-layer model of that head dim at B 16 with mixed lengths, each held,
+   and timed at ``DECODE_TIMED``; #5-#7 and the delta kernel at every
+   multiple of 8 up to 120 but 32 and 64 in fp32 and bf16 (416 flash cases
+   at (8, 12, 128) and (2, 6, 200), every mask, dropout 0 and 0.1), the
+   #16 route at ``ROUTE_DIMS``, timed at the training shape at
+   ``FLASH_TIMED``.
    ``--kernels-only`` stops here.
 3. Serving: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
@@ -148,6 +149,16 @@ plain version):
    (typed ``SessionResetError``); the tokens must equal the same requests
    sent straight to the engines; round trips printed beside the engines'
    own times.
+   Speculative decoding (``spec_phase``): 32 requests (three in four
+   repeating a 3-8 token phrase to 16-128 tokens, 32-128 new) through
+   each row of ``SPEC_RUNS`` (n-gram fp on the sync and the async loop,
+   the draft model, n-gram with int8 weights + int8 KV, int4, tp 2), each
+   beside the same engine without speculation: streams equal (or apart
+   only at a near-tie of the engine's own prefill program, printed),
+   launches held to the path (plain steps, each verify step's census, the
+   draft model's steps and chunks), tokens/s, accepted / drafted, tokens
+   a step, the verify step's device time (CUDA events), the draft's host
+   time.
    The sharded-attention path: forward and backward through
    ``flash_attention_sharded`` (dp 2 x tp 2, causal) in fp32 and bf16,
    launching #5, the delta kernel, #6 and #7 once a call.
@@ -181,8 +192,9 @@ plain version):
    and every tensor autograd saves must be on the card.  Then one SGD
    step of a small word LM (vocab 100, 2 x 64, B 4, T 8) on the card and
    on CPU copies: loss, gradients and weights agree.
-6. The kernels line (launches summed over the serving runs, the
-   sharded-attention path and the training phases), the card line and,
+6. The kernels line (launches summed over the serving runs, the prefix,
+   session, tiny-LM, HTTP and speculative phases, the sharded-attention
+   path and the training phases), the card line and,
    last, the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2557,16 +2569,48 @@ def check_tp_phases(torch, timer, report, lm, lm_gqa):
     report["tp_phases"] = rows
 
 
-#: every head dim the decode kernels #12, #13 and #15 are built for, and
-#: the (units, heads, KV heads) of the 2-layer model check_decode_dims
-#: holds them at: units at most 768 and a multiple of D, GQA groups of 1
-#: to 4
-DECODE_DIMS = {16: (768, 48, 16), 32: (768, 24, 8), 48: (768, 16, 4),
-               64: (768, 12, 4), 80: (640, 8, 4), 96: (768, 8, 8),
-               112: (672, 6, 2), 128: (768, 6, 2)}
+def decode_instance(D):
+    """The instance of #12 and #15 that serves head dim D: its own (D a
+    compile-time constant) at a multiple of 16 up to 128, else its class's
+    (``csrc/decode_common.cuh:split_class``, D a runtime value); #13 runs
+    every D on its class's."""
+    if D % 16 == 0 and D <= 128:
+        return "own"
+    return "class %d" % next(c for c in (32, 64, 128, 256) if D <= c)
+
+
+def decode_dim_geometry(D):
+    """(units, heads, KV heads) of the 2-layer model ``check_decode_dims``
+    holds head dim ``D`` at: the most heads of D that fit 768 units, an
+    even count, over the largest GQA group of 4, 3, 2 or 1 that leaves an
+    even count of KV heads (tp 2 cuts both)."""
+    H = 768 // D
+    H -= H % 2
+    g = next(g for g in (4, 3, 2, 1) if H % g == 0 and (H // g) % 2 == 0)
+    return H * D, H, H // g
+
+
+#: every head dim the decode kernels #12, #13 and #15 take (each multiple
+#: of 8 in [8, 256]: its own instance, or its class's), and the (units,
+#: heads, KV heads) of the 2-layer model
+#: check_decode_dims holds them at: units at most 768 and a multiple of D,
+#: GQA groups of 1 to 4 (the multiples of 16 up to 128 keep PR 22's
+#: geometries)
+DECODE_DIMS = {D: decode_dim_geometry(D) for D in range(8, 257, 8)}
+DECODE_DIMS.update({16: (768, 48, 16), 32: (768, 24, 8), 48: (768, 16, 4),
+                    64: (768, 12, 4), 80: (640, 8, 4), 96: (768, 8, 8),
+                    112: (672, 6, 2), 128: (768, 6, 2)})
+#: the head dims check_decode_dims times (each beside its plain version and
+#: bound): D 64, and D on each class's instance (E 1, 2, 4, 8) across the
+#: range each serves
+DECODE_TIMED = (8, 24, 40, 64, 72, 120, 136, 160, 192, 200, 256)
 #: the head dims the flash kernels take on the kernels of the next of 32,
 #: 64 and 128 (their columns past D zero-filled by TMA)
-FLASH_NEW_DIMS = (16, 48, 80, 96, 112)
+FLASH_NEW_DIMS = (8, 16, 24, 40, 48, 56, 72, 80, 88, 96, 104, 112, 120)
+#: the head dims check_flash_dims times at the training shape
+FLASH_TIMED = (8, 16, 24, 40, 64, 80, 96, 120)
+#: the head dims of the #16 route's check
+ROUTE_DIMS = (16, 24, 80, 120)
 #: (B, H, L) of the flash checks at FLASH_NEW_DIMS: the training shape's
 #: L with fewer rows, and the ragged L
 FLASH_NEW_SHAPES = ((8, 12, 128), (2, 6, 200))
@@ -2577,7 +2621,8 @@ def check_decode_dims(torch, timer, report):
     DECODE_DIMS against their plain versions, on a 2-layer model of that
     head dim at B 16 with mixed lengths 1..512 (row 7 of length 0): #12
     over both layers, #13 on shard 0 and 1 of tp 2, #15 over the model's
-    heads; each timed beside its plain version and its bound."""
+    heads; at DECODE_TIMED each timed beside its plain version and its
+    bound."""
     from mxnet_tpu_torch.models import decoder as dec
     from mxnet_tpu_torch.ops.kernels import fused_cell as fc
     from mxnet_tpu_torch.ops.kernels import paged_attention as pa
@@ -2607,6 +2652,10 @@ def check_decode_dims(torch, timer, report):
         vp0 = torch.randn(shape, device=DEV, generator=g) * 0.5
         x = torch.randn(B, C, device=DEV, generator=g)
         row = {}
+        timed = D in DECODE_TIMED
+
+        def time_of(fn, **kw):
+            return timer(fn, **kw) if timed else float("nan")
         # 12: both layers in one launch
         layers = model.params()["layers"]
         table = fc.WeightTable(layers, x.device)
@@ -2620,9 +2669,9 @@ def check_decode_dims(torch, timer, report):
         bms, by = fused_bound(cfg, after, pps)
         row["decode_layer_group"] = dict(
             max_abs_err=err, tol=TOL_FUSED, bound_ms=bms, bound_by=by,
-            ms=timer(lambda: fc.decode_layer_group(
+            ms=time_of(lambda: fc.decode_layer_group(
                 x, k1, v1, table, meta, tb, ln, cfg), iters=10),
-            plain_ms=timer(lambda: fc.decode_layer_group_plain(
+            plain_ms=time_of(lambda: fc.decode_layer_group_plain(
                 x, k2, v2, layers, meta, tb, ln, cfg), iters=10))
         # 13: both shards of tp 2, layer 0
         plan = dec.tp_plan(cfg, tp_sharding(2))
@@ -2649,9 +2698,9 @@ def check_decode_dims(torch, timer, report):
         (bms, by), _ = phase_bounds(cfg, lcfg, after, pps)
         row["decode_attn_phase"] = dict(
             max_abs_err=err, tol=TOL_PHASE, bound_ms=bms, bound_by=by,
-            ms=timer(lambda: fc.decode_attn_phase(*args)),
-            plain_ms=timer(lambda: fc.decode_attn_phase_plain(*args),
-                           spin=4_000_000))
+            ms=time_of(lambda: fc.decode_attn_phase(*args)),
+            plain_ms=time_of(lambda: fc.decode_attn_phase_plain(*args),
+                             spin=4_000_000))
         # 15 over fp and int8 pages
         q = torch.randn(B, H, D, device=DEV, generator=g)
         toks = int(after.sum())
@@ -2678,15 +2727,16 @@ def check_decode_dims(torch, timer, report):
             row[name] = dict(
                 max_abs_err=float((out - ref).abs().max()),
                 tol=TOL_ATTENTION, bound_ms=bms, bound_by=by,
-                ms=timer(lambda: pa.paged_attention(q, kp, vp, ln, tb)),
-                plain_ms=timer(lambda: pa.paged_attention_reference(
+                ms=time_of(lambda: pa.paged_attention(q, kp, vp, ln, tb)),
+                plain_ms=time_of(lambda: pa.paged_attention_reference(
                     q, kp, vp, ln, tb)))
         for name, r in row.items():
-            log("%s D %d (C %d, H %d, KVH %d, B %d mixed lengths): max_abs_err "
-                "%.3g (tol %g); kernel %.4f ms plain %.4f ms bound %.4f ms "
-                "(%s)" % (name, D, C, H, KVH, B, r["max_abs_err"], r["tol"],
-                          r["ms"], r["plain_ms"], r["bound_ms"],
-                          r["bound_by"]))
+            log("%s D %d (C %d, H %d, KVH %d, B %d mixed lengths; instance "
+                "%s): max_abs_err %.3g (tol %g); kernel %.4f ms plain %.4f "
+                "ms bound %.4f ms (%s)"
+                % (name, D, C, H, KVH, B, decode_instance(D),
+                   r["max_abs_err"], r["tol"], r["ms"], r["plain_ms"],
+                   r["bound_ms"], r["bound_by"]))
             if not r["max_abs_err"] <= r["tol"]:
                 raise AssertionError("%s disagrees with its plain version at "
                                      "head dim %d" % (name, D))
@@ -2702,11 +2752,11 @@ def check_flash_dims(torch, timer, report):
     FLASH_NEW_SHAPES with no mask, causal, a window of 32 and kv_length
     with a row of length 0, at dropout 0 and 0.1; the delta kernel at
     those shapes and DELTA_EDGE_SHAPES; the #16 route
-    (``flash_attention_sharded``, dp 2 x tp 2, causal) at D 16 and 80,
+    (``flash_attention_sharded``, dp 2 x tp 2, causal) at ROUTE_DIMS,
     forward and gradients against autograd through the plain attention.
     Then #5-#7 and delta timed at
-    the training shape (B 32, H 12, L 128, kv_length, dropout 0.1) at D
-    16, 64, 80 and 96 beside their plain versions and bounds."""
+    the training shape (B 32, H 12, L 128, kv_length, dropout 0.1) at
+    FLASH_TIMED beside their plain versions and bounds."""
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     g = torch.Generator(device=DEV).manual_seed(51)
     worst, n = {}, 0
@@ -2740,14 +2790,14 @@ def check_flash_dims(torch, timer, report):
     if not all(w["delta"] <= TOL_DELTA for w in worst.values()):
         raise AssertionError("flash_attention_bwd_delta disagrees with its "
                              "plain version at a new head dim")
-    # the #16 route at D 16 and 80: one flash call over the whole tensors
-    # of a (dp 2, tp 2) mesh, forward and gradients against autograd
-    # through the plain causal attention
+    # the #16 route at ROUTE_DIMS: one flash call over the whole tensors of
+    # a (dp 2, tp 2) mesh, forward and gradients against autograd through
+    # the plain causal attention
     from mxnet_tpu_torch.ops import attention as att
     cfg = tp_sharding(SHARDED_MESH[1], SHARDED_MESH[0])
     for dt in (torch.float32, torch.bfloat16):
         f32 = dt == torch.float32
-        for D in (16, 80):
+        for D in ROUTE_DIMS:
             q, k, v, do = (torch.randn(8, 12, 128, D, device=DEV,
                                        generator=g).to(dt) for _ in range(4))
             ls = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -2776,7 +2826,7 @@ def check_flash_dims(torch, timer, report):
     rows = {}
     for dt in (torch.float32, torch.bfloat16):
         peak = TF32X3_FLOPS if dt == torch.float32 else BF16_FLOPS
-        for D in (16, 64, 80, 96):
+        for D in FLASH_TIMED:
             q, k, v, do = (torch.randn(B, H, L, D, device=DEV,
                                        generator=g).to(dt) for _ in range(4))
             out, lse = fa.flash_attention_fwd(q, k, v, **kw)
@@ -3709,6 +3759,257 @@ def http_phase(torch, lm, seed):
 
 
 SESSIONS, SESSION_EXPORTS = 16, 4
+
+
+#: the speculative rows: (label, drafter, engine knobs); each is served
+#: beside the same engine without speculation
+SPEC_RUNS = (("spec_ngram_sync", "ngram", dict(async_decode=False)),
+             ("spec_ngram", "ngram", {}),
+             ("spec_draft", "model", {}),
+             ("spec_ngram_int8_kv8", "ngram",
+              dict(quantize="int8", kv_dtype="int8")),
+             ("spec_ngram_int4", "ngram",
+              dict(quantize="int4", quant_group=128)),
+             ("spec_ngram_tp2", "ngram", dict(tp=2)))
+SPEC_REQUESTS = 32
+SPEC_K = 4
+#: a speculative stream may leave the plain run's only where the engine's
+#: own prefill program's top-2 logits are this close at the first
+#: difference: the verify step (cuBLAS at M = B W, fp32 attention over
+#: gathered pages) and the decode step (#12, or #15 per-op) round apart,
+#: by up to TOL_FUSED through 12 layers; with int8 pages a code may also
+#: round the other way (TOL_LOGITS_INT8KV)
+TOL_SPEC_TIE = {"float32": TOL_FUSED, "int8": TOL_LOGITS_INT8KV}
+
+
+def spec_traffic(seed, n):
+    """``n`` requests of 32-128 new tokens: three in four repeat a random
+    3-8 token phrase to 16-128 tokens (code, templates and chat quoting
+    itself: what prompt lookup is for), one in four is random."""
+    rng = np.random.default_rng(seed + 2300)
+    V = WIDTHS["vocab_size"]
+    reqs = []
+    for i in range(n):
+        L = int(rng.integers(16, 129))
+        if i % 4 == 3:
+            prompt = rng.integers(0, V, L)
+        else:
+            phrase = rng.integers(0, V, int(rng.integers(3, 9)))
+            prompt = np.tile(phrase, L // len(phrase) + 1)[:L]
+        reqs.append(([int(t) for t in prompt], int(rng.integers(32, 129))))
+    return reqs
+
+
+def own_margin(torch, eng, seq):
+    """The top-2 margin of the last logits of ``eng``'s own prefill
+    program over ``seq``, on a fresh one-sequence pool of its KV format."""
+    cfg = eng.cfg
+    pps = -(-len(seq) // PAGE)
+    shape = (cfg.num_layers, cfg.num_kv_heads, pps + 1, PAGE, cfg.head_dim)
+    kp = fresh_pool(torch, eng.kv_dtype, shape, DEV)
+    vp = fresh_pool(torch, eng.kv_dtype, shape, DEV)
+    row = torch.arange(1, pps + 1, dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        for c0 in range(0, len(seq), CHUNK):
+            n = min(CHUNK, len(seq) - c0)
+            toks = torch.zeros(CHUNK, dtype=torch.int64, device=DEV)
+            toks[:n] = torch.tensor(seq[c0:c0 + n])
+            _, _, _, last = eng._prefill_fn(eng.params, kp, vp, toks, c0, n,
+                                            row)
+    top2 = torch.topk(last, 2).values
+    return float(top2[0] - top2[1])
+
+
+class SpecDriven:
+    """One speculative engine's run, counted from outside: its plain decode
+    steps and prefill chunks, its verify steps (by width, each timed by
+    CUDA events recorded around the call and read after the run) and the
+    draft model's decode steps and chunks."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng = torch, eng
+        self.n = dict(steps=0, chunks=0, draft_steps=0, draft_chunks=0)
+        self.verifies, self.events = [], []
+        drafter = eng._spec.drafter if eng._spec is not None else None
+        self.saved = [(eng, k, getattr(eng, k)) for k in (
+            "_decode_fn", "_prefill_fn", "_verify_fn")]
+        if hasattr(drafter, "_decode_fn"):
+            self.saved += [(drafter, k, getattr(drafter, k))
+                           for k in ("_decode_fn", "_prefill_fn")]
+        for obj, k, fn in self.saved:
+            setattr(obj, k, self._wrap(obj is eng, k, fn))
+
+    def _wrap(self, target, k, fn):
+        torch = self.torch
+        if k == "_verify_fn":
+            def verify_fn(width):
+                step = fn(width)
+
+                def timed(*a):
+                    s = torch.cuda.Event(enable_timing=True)
+                    e = torch.cuda.Event(enable_timing=True)
+                    s.record()
+                    out = step(*a)
+                    e.record()
+                    self.verifies.append(width)
+                    self.events.append((s, e))
+                    return out
+                return timed
+            return verify_fn
+        name = ("" if target else "draft_") + (
+            "steps" if k == "_decode_fn" else "chunks")
+
+        def counted(*a):
+            self.n[name] += 1
+            return fn(*a)
+        return counted
+
+    def restore(self):
+        """Put the methods back; the verify steps' device ms."""
+        for obj, k, fn in self.saved:
+            setattr(obj, k, fn)
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def spec_launches(eng, drv):
+    """The kernel launches of a speculative run's path: its plain decode
+    steps and prefill chunks (``path_launches``), each verify step's
+    census (``verify_launch_stats``: #1, and #8/#9 under quantized
+    weights), and the draft model's per-op decode steps (#15 and #1 a
+    layer) and chunks (#1 a layer)."""
+    want = path_launches(eng, drv.n["steps"], drv.n["chunks"])
+    fmt = None if eng.quant is None else (
+        "quant_matmul_w8" if eng.quant[0] == "int8" else "quant_matmul_w4")
+    for width in drv.verifies:
+        for k, n in eng.verify_launch_stats(width)["kernels"].items():
+            want[fmt if k == "quant_matmul" else k] += n
+    if drv.n["draft_steps"] or drv.n["draft_chunks"]:
+        Ld = eng._spec.drafter.cfg.num_layers
+        want["paged_attention"] += drv.n["draft_steps"] * Ld
+        want["bias_gelu"] += (drv.n["draft_steps"]
+                              + drv.n["draft_chunks"]) * Ld
+    return want
+
+
+def spec_serve(torch, lm, reqs, label, drafter, speculate, tp=1, **kw):
+    """``reqs`` through a fresh engine (fused decode asked for; the
+    engine's defaults otherwise), with speculation (``spec_k`` SPEC_K) or
+    without; the run's launches held to its path.  Returns (engine,
+    streams, counts, numbers)."""
+    from mxnet_tpu_torch.serving import DecodeEngine
+    os.environ["MXNET_DECODE_FUSED"] = "1"
+    eng = DecodeEngine(lm, name="smoke", slots=SLOTS, page_size=PAGE,
+                       max_ctx=MAX_CTX, prefill_chunk=CHUNK, device=DEV,
+                       sharding=tp_sharding(tp) if tp > 1 else None,
+                       speculate=speculate, spec_k=SPEC_K,
+                       drafter=drafter if speculate else None, **kw)
+    eng.warmup()
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    drv = SpecDriven(torch, eng)
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, max_new_tokens=n) for p, n in reqs]
+    outs = [f.result(timeout=900)["tokens"] for f in futs]
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if not eng.stop():
+        raise AssertionError("engine worker did not stop")
+    verify_ms = drv.restore()
+    eng.alloc.check_leaks()
+    if eng.alloc.num_used:
+        raise AssertionError("%s: %d pages still held after stop"
+                             % (label, eng.alloc.num_used))
+    for (p, n), o in zip(reqs, outs):
+        if len(o) != n:
+            raise AssertionError("%s: a request ended early" % label)
+    check_launches("spec " + label, counts, spec_launches(eng, drv), [])
+    snap = eng.metrics.snapshot()["models"]["smoke"]
+    c, gen = snap["counters"], snap["generate"]
+    tokens = sum(len(o) for o in outs)
+    st = dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+              decode_steps=c["decode_steps_total"],
+              tokens_per_step_p50=gen["tokens_per_step"].get("p50"),
+              plain_steps=drv.n["steps"], verify_steps=len(verify_ms),
+              verify_p50_ms=pct(verify_ms, 50),
+              drafted=c["spec_draft_tokens_total"],
+              accepted=c["spec_accepted_tokens_total"],
+              draft_p50_ms=(gen.get("speculative") or {}).get(
+                  "draft_step", {}).get("p50_ms"),
+              draft_model_steps=drv.n["draft_steps"],
+              draft_model_chunks=drv.n["draft_chunks"],
+              rollbacks=c["spec_rollbacks_total"],
+              launches={k: v for k, v in counts.items() if v})
+    return eng, outs, counts, st
+
+
+def spec_phase(torch, lm, seed):
+    """Speculative decoding on the full-width model: SPEC_REQUESTS
+    requests of ``spec_traffic`` per row of SPEC_RUNS, each row served
+    without speculation, then with it (k up to SPEC_K).  Per row: tokens/s
+    beside the plain run's, the accepted / drafted rate, tokens a step
+    (p50), the verify step's device time (p50, CUDA events), the draft's
+    host time (p50), the streams equal to the plain run's (a difference
+    allowed only at a near-tie of the engine's own prefill program, each
+    printed) and the launches, held to the path.  Returns the phase's
+    launch counts (the speculative runs')."""
+    reqs = spec_traffic(seed, SPEC_REQUESTS)
+    total = dict.fromkeys(KERNELS, 0)
+    plain = {}
+    rows = {}
+    for label, drafter, kw in SPEC_RUNS:
+        key = json.dumps(kw, sort_keys=True)
+        if key not in plain:
+            plain[key] = spec_serve(torch, lm, reqs, label + "_plain", None,
+                                    False, **kw)
+        peng, pouts, _, pst = plain[key]
+        eng, outs, counts, st = spec_serve(torch, lm, reqs, label, drafter,
+                                           True, **kw)
+        for k in KERNELS:
+            total[k] += counts[k]
+        same, ties = 0, []
+        tol = TOL_SPEC_TIE[eng.kv_dtype]
+        for (p, _), got, want in zip(reqs, outs, pouts):
+            if got == want:
+                same += 1
+                continue
+            i = next((j for j, (a, b) in enumerate(zip(got, want))
+                      if a != b), min(len(got), len(want)))
+            margin = own_margin(torch, eng, p + got[:i])
+            ties.append((i, margin))
+            log("%s: stream leaves the plain run's at %d; the engine's own "
+                "top-2 margin there %.3g (tol %g)" % (label, i, margin, tol))
+            if not margin < tol:
+                raise AssertionError("%s: a speculative stream differs from "
+                                     "plain decode without a near-tie"
+                                     % label)
+        st.update(plain_tokens_per_s=pst["tokens_per_s"],
+                  plain_decode_steps=pst["decode_steps"],
+                  speedup=st["tokens_per_s"] / pst["tokens_per_s"],
+                  streams_equal=same, near_ties=len(ties))
+        rate = st["accepted"] / max(1, st["drafted"])
+        log("spec %s (drafter %s, decode %s, weights %s, kv %s, tp %d, %s "
+            "loop, k <= %d): %d requests, %d tokens in %.3f s = %.1f tokens/s "
+            "vs %.1f plain (%.3fx); accepted/drafted %d/%d = %.3f; %d decode "
+            "steps (%d plain) vs %d plain, tokens a step p50 %s; %d verify "
+            "steps p50 %.3f ms (device, CUDA events); draft p50 %s ms (host); "
+            "draft model %d steps, %d chunks; %d rollbacks; streams equal to "
+            "plain %d of %d, %d near-tie differences; launches %s"
+            % (label, drafter, "fused" if eng.decode_fused else "per-op",
+               eng.quant and "/".join(map(str, eng.quant)), eng.kv_dtype,
+               eng.tp, "async" if eng.async_decode else "sync", SPEC_K,
+               len(reqs), st["tokens"], st["wall_s"], st["tokens_per_s"],
+               pst["tokens_per_s"], st["speedup"], st["accepted"],
+               st["drafted"], rate, st["decode_steps"], st["plain_steps"],
+               pst["decode_steps"], st["tokens_per_step_p50"],
+               st["verify_steps"], st["verify_p50_ms"], st["draft_p50_ms"],
+               st["draft_model_steps"], st["draft_model_chunks"],
+               st["rollbacks"], same, len(reqs), len(ties), st["launches"]))
+        if not st["verify_steps"] or not st["drafted"]:
+            raise AssertionError("%s: no verify step ran" % label)
+        rows[label] = st
+    log("spec rows: %s" % json.dumps(rows))
+    return total
 
 
 def session_pages(torch, eng, sid):
@@ -4670,7 +4971,8 @@ def main():
     paths = {"prefix": prefix_phase(torch, lm, args.seed),
              "sessions": session_phase(torch, lm, args.seed),
              "tiny_lm": tiny_phase(torch, args.seed),
-             "http": http_phase(torch, lm, args.seed)}
+             "http": http_phase(torch, lm, args.seed),
+             "speculative": spec_phase(torch, lm, args.seed)}
     if args.profile:
         for fused, tp, quant in ((True, 1, {}), (False, 1, {}), (True, 2, {}),
                                  (True, 1, dict(quantize="int8",

@@ -9,7 +9,7 @@ its feature — see :func:`requested`.
 
 API:
   config.get("MXNET_GEN_SLOTS") -> typed value
-  config.requested("MXNET_GEN_SPECULATE") -> True when the env asks for it
+  config.requested("MXNET_GEN_ROLE") -> True when the env asks for it
   config.describe() -> {name: ConfigVar}
   config.check_env() -> [warnings]
 """
@@ -134,6 +134,29 @@ register("MXNET_GEN_DISPATCH_AHEAD", int, 1, "honored",
          "steps the engine keeps in flight (1 = classic double "
          "buffering; raise only when a slow host cannot fill one "
          "device step of schedule work)", "serving.DecodeEngine")
+register("MXNET_GEN_SPECULATE", int, 0, "honored",
+         "1 = speculative decoding in the LLM engine: a drafter proposes "
+         "up to MXNET_GEN_SPEC_K tokens per slot and one wide verify step "
+         "scores them; greedy output stays the plain decode's (off by "
+         "default, as in the JAX package)", "serving.DecodeEngine")
+register("MXNET_GEN_SPEC_K", int, 4, "honored",
+         "speculation depth cap: the per-sequence adaptive-k controller "
+         "moves between 1 and this many drafted tokens per step (0 "
+         "disables a sequence when acceptance collapses)",
+         "serving.speculate.SpeculativeScheduler")
+register("MXNET_GEN_SPEC_DRAFTER", str, "ngram", "honored",
+         "drafter choice: 'ngram' (prompt lookup over the transcript, no "
+         "model) or 'model' (a small draft CausalLM with its own paged KV "
+         "pool; see MXNET_GEN_SPEC_DRAFT_BUILDER)", "serving.DecodeEngine")
+register("MXNET_GEN_SPEC_NGRAM", int, 3, "honored",
+         "longest transcript n-gram the prompt-lookup drafter matches "
+         "before backing off to shorter ones",
+         "serving.speculate.NGramDrafter")
+register("MXNET_GEN_SPEC_DRAFT_BUILDER", str, "", "honored",
+         "'module:callable' building the draft model from the target "
+         "(callable(target_model) -> CausalLM); empty = "
+         "models.decoder.decoder_draft's one-layer, 32-unit default",
+         "serving.DecodeEngine")
 register("MXNET_DECODE_FUSED", str, "", "honored",
          "decode step of the LLM engine: ''/'1' = the fused decode-layer-"
          "group kernel (one launch per layer group), '0'/'off' = the "
@@ -189,7 +212,8 @@ register("MXNET_SERVING_BACKOFF_MS", float, 50.0, "honored",
 register("MXNET_FAULT_SPEC", str, "", "honored",
          "deterministic fault injection spec: site:kind[@p=F|n=I] joined "
          "by ';' (sites: decode.step, engine.retire, kvcache.alloc, "
-         "session.export, session.import)", "faults")
+         "session.export, session.import, speculate.draft, "
+         "speculate.verify)", "faults")
 register("MXNET_FAULT_SEED", int, 0, "honored",
          "seed for probability-based fault-injection rules (deterministic "
          "trip sequences per (seed, site, kind))", "faults.FaultRule")
@@ -198,7 +222,6 @@ register("MXNET_FAULT_SEED", int, 0, "honored",
 # JAX-package knobs whose features the port has not reached
 # ---------------------------------------------------------------------------
 for _name, _help in [
-    ("MXNET_GEN_SPECULATE", "speculative decoding"),
     ("MXNET_GEN_PAGESTORE", "session migration through the page store"),
     ("MXNET_GEN_ROLE", "prefill/decode role specialization"),
 ]:

@@ -459,11 +459,17 @@ __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
 // takes unit blockIdx.x, then every gridDim.x-th one, so a long row's keys
 // spread over as many blocks as it has chunks and the batch's work over
 // the grid.  Inside a unit each warp owns 8 consecutive keys, and each
-// of its first D / E lanes E consecutive columns of every key
-// (split_cols: E = D / 32 at D 32, 64 and 128, every lane busy; at D 16,
-// 48, 80, 96 and 112 the fewest of 1, 2 or 4 columns that fit D in a
-// warp, the lanes from D / E on idle, so every load stays one aligned
-// 4-, 8- or 16-byte vector): a lane loads its
+// of its first D / E lanes E consecutive columns of every key, E =
+// split_cols<DI> of the instance DI the kernel was built for (1, 2, 4 or
+// 8, the fewest that fit DI in 32 lanes).  A head dim D (a multiple of 8
+// in [8, 256]) runs on its class's instance (split_class: DI 32, 64, 128
+// or 256, the next up), where D is a runtime value and D / E lanes are
+// busy: every lane's load stays one aligned 4-, 8- or 16-byte vector (two
+// at E 8) at the real row stride D, so pages, q and out keep their real
+// D, with no padded copy.  The head dims of MXT_SPLIT_HEAD_DIMS also have
+// an instance of their own, where D is a compile-time constant (a runtime
+// D spilled the D 64 kernels of #12 and #15, PERF.md section 6, PR 23).
+// A lane loads its
 // columns of the 8 key rows and the 8 value rows at once (one round trip
 // to memory), sums its part of each dot product with the query heads of
 // the group, and 8 warp sums give every lane all 8 logits; the max, the
@@ -479,19 +485,41 @@ __device__ void ffn_gemv(const FfnUnits& u, int B, int K, int N, Row row,
 constexpr int SPLIT_KEYS = 64;       // keys per unit
 constexpr int SPLIT_WARP_KEYS = 8;   // keys per warp of a unit
 
-// The head dims the split attention is built for: every multiple of 16 up
-// to 128.  X(D) once for each; a launch switch names them all and returns
-// an error for any other D.
+// The head dims with an instance of their own (D a compile-time
+// constant): every multiple of 16 up to 128.  X(D) once for each.
 #define MXT_SPLIT_HEAD_DIMS(X) \
   X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+// The instances of the classes (D a runtime value), one for each E.
+#define MXT_SPLIT_CLASSES(X) X(32) X(64) X(128) X(256)
 
-// columns a lane of split_attend at head dim D: 1, 2 or 4, the fewest that
-// fit D in a warp's 32 lanes
-template <int D>
+// columns a lane of split_attend's instance DI: 1, 2, 4 or 8, the fewest
+// that fit DI in a warp's 32 lanes
+template <int DI>
 __host__ __device__ constexpr int split_cols() {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 128,
-                "split attention: D a multiple of 16 in [16, 128]");
-  return D <= 32 ? 1 : D <= 64 ? 2 : 4;
+  static_assert((DI % 16 == 0 && DI >= 16 && DI <= 128) || DI == 256,
+                "split attention: an instance of MXT_SPLIT_HEAD_DIMS or "
+                "MXT_SPLIT_CLASSES");
+  return DI <= 32 ? 1 : DI <= 64 ? 2 : DI <= 128 ? 4 : 8;
+}
+
+// The class instance that serves head dim D, or 0 for a D the kernels do
+// not take: D a multiple of 8 in [8, 256] runs on the next of 32, 64, 128
+// and 256.  The class's E divides every D it serves (24 / 1, 40 / 2, 72 /
+// 4, 136 / 8), so the busy lanes D / E hold whole vectors.
+__host__ __device__ constexpr int split_class(int D) {
+  return (D < 8 || D > 256 || D % 8) ? 0
+         : D <= 32                   ? 32
+         : D <= 64                   ? 64
+         : D <= 128                  ? 128
+                                     : 256;
+}
+
+// blocks an SM the split kernels ask the compiler to fit: the instance of
+// 256 keeps 16 columns of 8 keys' rows in registers and gets room for
+// them
+template <int DI>
+__host__ __device__ constexpr int split_min_blocks(int below) {
+  return DI > 128 ? 1 : below;
 }
 
 // chunks of a row of `length` keys (0 for an inactive row)
@@ -519,12 +547,18 @@ __host__ __device__ inline int split_smem_floats(int g, int D) {
   return NWARPS * (g * D + 2 * g);
 }
 
-// E consecutive floats at p (8- or 16-byte aligned for E 2 and 4)
+// E consecutive floats at p (8- or 16-byte aligned for E 2 and 4, and 16
+// for E 8, two vectors)
 template <int E>
 struct Cols {
   float v[E];
   __device__ __forceinline__ void load(const float* p) {
-    if constexpr (E == 4) {
+    if constexpr (E == 8) {
+      const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+      const float4 u = __ldcg(reinterpret_cast<const float4*>(p + 4));
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+      v[4] = u.x; v[5] = u.y; v[6] = u.z; v[7] = u.w;
+    } else if constexpr (E == 4) {
       const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
       v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
     } else if constexpr (E == 2) {
@@ -559,10 +593,20 @@ struct SplitF32 {
   }
 };
 
+// the word a lane keeps its E raw int8 codes in until cvt
+template <int E>
+struct RawCodes {
+  using type = unsigned;
+};
+template <>
+struct RawCodes<8> {
+  using type = unsigned long long;
+};
+
 // int8 pages: codes in the fp layout, one fp32 scale per (KV head, page)
 // in (KVH, P); a value is its code times its page's scale, one multiply,
-// as gather_pages_deq computes it.  E codes a lane: one 1-, 2- or 4-byte
-// load per row, kept in the low bytes of a word until cvt.
+// as gather_pages_deq computes it.  E codes a lane: one 1-, 2-, 4- or
+// 8-byte load per row, kept in the low bytes of a word until cvt.
 struct SplitI8 {
   static constexpr bool SCALED = true;
   const signed char* k;
@@ -570,8 +614,11 @@ struct SplitI8 {
   const float* ks;
   const float* vs;
   template <int E>
-  __device__ __forceinline__ static unsigned raw(const signed char* p) {
-    if constexpr (E == 4)
+  __device__ __forceinline__ static typename RawCodes<E>::type raw(
+      const signed char* p) {
+    if constexpr (E == 8)
+      return (unsigned long long)__ldcg(reinterpret_cast<const long long*>(p));
+    else if constexpr (E == 4)
       return (unsigned)__ldcg(reinterpret_cast<const int*>(p));
     else if constexpr (E == 2)
       return (unsigned short)__ldcg(reinterpret_cast<const short*>(p));
@@ -580,11 +627,17 @@ struct SplitI8 {
   }
   // code e of w (its signed byte e) times s
   template <int E>
-  __device__ __forceinline__ static void cvt(unsigned w, float s,
-                                             Cols<E>& c) {
+  __device__ __forceinline__ static void cvt(typename RawCodes<E>::type w,
+                                             float s, Cols<E>& c) {
+    if constexpr (E == 8) {
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      c.v[e] = (float)((int)(w << (24 - 8 * e)) >> 24) * s;
+      for (int e = 0; e < E; ++e)
+        c.v[e] = (float)(signed char)(unsigned char)(w >> (8 * e)) * s;
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        c.v[e] = (float)((int)(w << (24 - 8 * e)) >> 24) * s;
+    }
   }
 };
 
@@ -595,19 +648,20 @@ struct SplitI8 {
 //                value into their page slot
 // pages:         SplitF32 or SplitI8 over the (KVH, P, S, D) slabs
 // po/pm/pl:      per unit, (g D) unnormalised outputs, (g) maxima, (g) sums
-// D a multiple of 16 in [16, 128] (split_cols).  Pages are read with
-// L2-only loads: blocks write them in the same launch.
-template <int D, class QAt, class Append, class Pages>
+// DI the instance of head dim D: D itself, or split_class(D).  Pages are
+// read with L2-only loads: blocks write them in the same launch.
+template <int DI, class QAt, class Append, class Pages>
 __device__ void split_attend(QAt q_at, Append append, const Pages& pages,
                              const int* tables, const int* lengths, int B,
-                             int KVH, int g, int P, int S, int pps,
+                             int KVH, int g, int D, int P, int S, int pps,
                              float scale, float* po, float* pm, float* pl,
                              float* smem) {
-  constexpr int E = split_cols<D>();
+  constexpr int E = split_cols<DI>();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // lanes past D / E hold no columns: they load nothing and add 0 to the
-  // warp sums (true for every lane, at compile time, where D / E is 32)
-  const bool cols = D / E == 32 || lane < D / E;
+  // warp sums (every lane, known at compile time, where the caller's D is
+  // the instance's own and DI / E is 32)
+  const bool cols = (DI / E == 32 && D == DI) || lane * E < D;
   const int gD = g * D, max_keys = pps * S, wstride = gD + 2 * g;
   float* o_w = smem + warp * wstride;  // this warp's rows, then m, then l
   const int units = split_units(lengths, B, KVH, max_keys);
@@ -644,13 +698,13 @@ __device__ void split_attend(QAt q_at, Append append, const Pages& pages,
     if constexpr (Pages::SCALED) {
       // every code load first, then the scales (loaded beside the table
       // entries) shuffled and applied
-      unsigned kr[SPLIT_WARP_KEYS], vr[SPLIT_WARP_KEYS];
+      typename RawCodes<E>::type kr[SPLIT_WARP_KEYS], vr[SPLIT_WARP_KEYS];
 #pragma unroll
       for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {
         const long long rk = __shfl_sync(0xffffffffu, row, k) + lane * E;
         const bool ld = k < nk && cols;
-        kr[k] = ld ? Pages::template raw<E>(pages.k + rk) : 0u;
-        vr[k] = ld ? Pages::template raw<E>(pages.v + rk) : 0u;
+        kr[k] = ld ? Pages::template raw<E>(pages.k + rk) : 0;
+        vr[k] = ld ? Pages::template raw<E>(pages.v + rk) : 0;
       }
 #pragma unroll
       for (int k = 0; k < SPLIT_WARP_KEYS; ++k) {

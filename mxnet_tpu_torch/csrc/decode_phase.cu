@@ -172,10 +172,12 @@ __device__ void sum_slices(float* out, const float* parts, int ks, int n) {
   }
 }
 
-// one kernel per head dim DH, so each carries one attention path under
-// the register budget of three blocks an SM
+// one kernel per class DH of the head dims (split_class; D is a runtime
+// value), so each carries one attention path under the register budget
+// of three blocks an SM (one at DH 256, split_min_blocks)
 template <int DH>
-__global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
+__global__ void __launch_bounds__(NTHREADS, mxt::split_min_blocks<DH>(3))
+    attn_phase_kernel(AttnArgs a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   // with a timing buffer, block 0 stamps the start and the end of every
@@ -239,8 +241,8 @@ __global__ void __launch_bounds__(NTHREADS, 3) attn_phase_kernel(AttnArgs a) {
     }
   };
   mxt::split_attend<DH>(q_at, append, mxt::SplitF32{kp, vp}, a.tables,
-                       a.lengths, B, a.KVH, g, P, S, a.pps, a.scale, po, pm,
-                       pl, smem);
+                        a.lengths, B, a.KVH, g, D, P, S, a.pps, a.scale, po,
+                        pm, pl, smem);
   sync();
 
   // 3. the chunks merged in chunk order
@@ -383,14 +385,14 @@ __global__ void __launch_bounds__(NTHREADS, 3) ffn_phase_kernel(FfnArgs a) {
 
 using AttnKernel = void (*)(AttnArgs);
 
-// the attention phase kernel of head dim D (a multiple of 16 in [16,
-// 128]), or null
+// the attention phase kernel of head dim D (a multiple of 8 in [8, 256]:
+// its class's), or null
 AttnKernel attn_kernel(int D) {
-  switch (D) {
+  switch (mxt::split_class(D)) {
 #define MXT_KERNEL(d) \
   case d:             \
     return attn_phase_kernel<d>;
-    MXT_SPLIT_HEAD_DIMS(MXT_KERNEL)
+    MXT_SPLIT_CLASSES(MXT_KERNEL)
 #undef MXT_KERNEL
   }
   return nullptr;
@@ -449,7 +451,7 @@ extern "C" long long mxt_decode_phase_scratch(int ffn, int B, int C, int Cl,
 // mxt_decode_phase_scratch floats; out (B, C); timing null, or
 // mxt_decode_attn_phases() + 1 int64 that block 0 fills with %globaltimer
 // stamps (the start, then the end of each phase).  C must be a multiple of
-// 4 and D a multiple of 16 in [16, 128].
+// 4 and D a multiple of 8 in [8, 256].
 extern "C" int mxt_decode_attn_phase(const void* x, void* kp, void* vp,
                                      const void* wq, const void* bq,
                                      const void* wk, const void* bk,

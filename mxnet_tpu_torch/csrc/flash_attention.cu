@@ -10,7 +10,7 @@
 //
 // q, k, v, out, dO, dq, dk, dv: (B, H, L, D) views at any strides TMA
 // admits (unit stride along D), float32 or bfloat16, D in {32, 64, 128}
-// (and every other multiple of 16 up to 128 on the next of those kernels,
+// (and every other multiple of 8 up to 128 on the next of those kernels,
 // its columns past D zero-filled by TMA: pad_dim);
 // lse and delta = sum_d dO * O: (B, H, L) float32 at any B and H strides.
 // A (batch, head) is numbered bh = b * H + h.  The mask is the JAX
@@ -2259,14 +2259,16 @@ int run_tf32(const Args& a, int BH, int D, cudaStream_t st) {
 }
 
 // The head dim of the kernels that serve D, or 0 for a D they do not take.
-// D 32, 64 and 128 run their own.  Every other multiple of 16 up to 128 runs
+// D 32, 64 and 128 run their own.  Every other multiple of 8 up to 128 runs
 // the kernels of the next of them, DP, on maps over D columns in DP-column
 // boxes: TMA fills a loaded box's columns past D with zeros, which add
 // nothing to S = Q K^T and give output columns of 0, and clips a stored
-// box at D, so no store lands past a row's D columns.  The kernels do the
-// products of DP columns (D 80: 1.6 times D's).
+// box at D, so no store lands past a row's D columns.  At a multiple of 8
+// a bf16 row is a multiple of 16 bytes, as a map's strides must be, so the
+// tensors are mapped in place.  The kernels do the products of DP columns
+// (D 80: 1.6 times D's; D 8: 4 times).
 int pad_dim(int D) {
-  if (D < 16 || D > 128 || D % 16) return 0;
+  if (D < 8 || D > 128 || D % 8) return 0;
   return D <= 32 ? 32 : D <= 64 ? 64 : 128;
 }
 
@@ -2288,7 +2290,7 @@ int dispatch(const Args& a, int BH, int D, int dtype, cudaStream_t st) {
 // delta = sum_d dO * O, the row statistic #6 and #7 read (the JAX package
 // computes it in jnp between its kernels, flash_attention.py:466, so it
 // replaces no TPU kernel).  A row of (batch, head) bh is read by G lanes
-// of one warp, G = D * sizeof(T) / 16 (2 to 32), each lane one 16-byte
+// of one warp, G = D * sizeof(T) / 16 (1 to 32), each lane one 16-byte
 // vector of dO and one of O at the views' strides; each lane adds its
 // rounded products in element order, then the G partials meet in a
 // butterfly of shuffles over GP lanes, G rounded up to a power of two (the
@@ -2403,7 +2405,7 @@ extern "C" const char* mxt_error_string(int e) {
 }
 
 // Common arguments: q, k, v (B, H, L, D) with BH = B * H <= 65535, of dtype
-// 0 float32 or 1 bfloat16; D a multiple of 16 in [16, 128] (pad_dim).
+// 0 float32 or 1 bfloat16; D a multiple of 8 in [8, 128] (pad_dim).
 // seed: one int64 on the card (its low 32 bits the seed), or null for no
 // dropout; kvlen: (B,) int32 on the card, or null for no padding mask;
 // window < 0 for no band;

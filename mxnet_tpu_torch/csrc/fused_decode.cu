@@ -30,9 +30,13 @@
 //   8. residual + bias + the partial sums, LayerNorm per row
 // The (B, C) and (B, F) activations live in one small device scratch
 // buffer that stays in the 50 MB L2 between phases, in place of the
-// TPU's VMEM carry (fused_cell.py:358-366).  One kernel per head dim (a
-// multiple of 16 up to 128: MXT_SPLIT_HEAD_DIMS), so each carries one
-// attention path under the register budget of three blocks an SM.
+// TPU's VMEM carry (fused_cell.py:358-366).  One kernel per head dim
+// that is a multiple of 16 up to 128 (MXT_SPLIT_HEAD_DIMS, FULL: D a
+// compile-time constant; a runtime D cost D 64 ~15% in the A/B of
+// PERF.md section 6, PR 23), and one per class of the other multiples of
+// 8 up to 256 (MXT_SPLIT_CLASSES, D a runtime value, split_class), so
+// each carries one attention path under the register budget of three
+// blocks an SM (one at 256).
 //
 // Bound on the card: bytes.  At full width (C 768, F 3072, B 16) a layer
 // reads 4 C^2 + 2 C F fp32 weights = 28.3 MB and does 2 B flops per
@@ -134,7 +138,7 @@ struct Args {
   const int* lengths;    // (B,) valid keys after this step's append
   float* scratch;        // scratch_floats(...) floats
   long long* timing;     // null, or 1 + 2 Lg (PHASES + GEMVS) slots
-  int B, C, F, H, KVH, P, S, pps, Lg, stage_floats;  // head dim: the kernel's
+  int B, C, F, H, KVH, D, P, S, pps, Lg, stage_floats;
   float scale;
 };
 
@@ -200,11 +204,13 @@ __device__ void residual_layer_norm(float* x, const float* parts, int ks,
 
 using mxt::globaltimer;
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
+template <int DI, bool FULL>
+__global__ void __launch_bounds__(NTHREADS, mxt::split_min_blocks<DI>(3))
+    fused_decode_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int B = a.B, C = a.C, F = a.F, S = a.S, P = a.P, Lg = a.Lg;
+  const int D = FULL ? DI : a.D;
   // with a timing buffer: block 0 stamps the start and the end of every
   // phase (right after the grid barrier that closes it); every block
   // raises a slot per phase to the time it reached that barrier (the
@@ -357,9 +363,9 @@ __global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
           vp[dst + e - D] = __ldcg(src + KVC + e - D);
       }
     };
-    mxt::split_attend<D>(q_at, append, mxt::SplitF32{kp, vp}, a.tables,
-                         a.lengths, B, KVH, g, P, S, a.pps, a.scale, po, pm,
-                         pl, stage);
+    mxt::split_attend<DI>(q_at, append, mxt::SplitF32{kp, vp}, a.tables,
+                          a.lengths, B, KVH, g, D, P, S, a.pps, a.scale, po,
+                          pm, pl, stage);
     sync();
 
     // 3. the chunks merged in chunk order
@@ -396,13 +402,21 @@ __global__ void __launch_bounds__(NTHREADS, 3) fused_decode_kernel(Args a) {
 
 using Kernel = void (*)(Args);
 
-// the kernel of head dim D (a multiple of 16 in [16, 128]), or null
+// the kernel of head dim D (a multiple of 8 in [8, 256]: its own, or its
+// class's), or null
 Kernel kernel_for(int D) {
   switch (D) {
 #define MXT_KERNEL(d) \
   case d:             \
-    return fused_decode_kernel<d>;
+    return fused_decode_kernel<d, true>;
     MXT_SPLIT_HEAD_DIMS(MXT_KERNEL)
+#undef MXT_KERNEL
+  }
+  switch (mxt::split_class(D)) {
+#define MXT_KERNEL(d) \
+  case d:             \
+    return fused_decode_kernel<d, false>;
+    MXT_SPLIT_CLASSES(MXT_KERNEL)
 #undef MXT_KERNEL
   }
   return nullptr;
@@ -464,7 +478,7 @@ extern "C" long long mxt_decode_layer_group_scratch(int B, int C, int F,
 // layer and GEMV when the last block's weight rows had landed (0: no
 // block had its rows copied), then per layer and GEMV the units whose
 // weight rows were streamed from device memory.  C and F must be
-// multiples of 4, D a multiple of 16 in [16, 128] and B at least 1.
+// multiples of 4, D a multiple of 8 in [8, 256] and B at least 1.
 extern "C" int mxt_decode_layer_group(void* x, void* kp, void* vp,
                                       const void* w, const void* meta,
                                       const void* tables, const void* lengths,
@@ -487,7 +501,7 @@ extern "C" int mxt_decode_layer_group(void* x, void* kp, void* vp,
   a.lengths = (const int*)lengths;
   a.scratch = (float*)scratch;
   a.timing = (long long*)timing;
-  a.B = B; a.C = C; a.F = F; a.H = H; a.KVH = KVH;
+  a.B = B; a.C = C; a.F = F; a.H = H; a.KVH = KVH; a.D = D;
   a.P = P; a.S = S; a.pps = pps; a.Lg = Lg;
   a.stage_floats = stage_floats(C, H / KVH, D);
   a.scale = scale;

@@ -16,9 +16,12 @@
 // keys) in turn, each writing its chunk's max, sum and unnormalised output
 // to a scratch the wrapper allocates; a grid barrier; then each output
 // element merges its row's chunks in chunk order.  Inside a unit each warp
-// owns 8 keys and each lane E = D / 32 columns of them (at D 16, 48, 80, 96
-// and 112 the lanes past D / E idle: decode_common.cuh's split_cols), so a
-// lane's loads of
+// owns 8 keys and each lane E columns of them (D / 32 at D 32, 64 and
+// 128; the multiples of 16 up to 128 have kernels of their own, FULL, D a
+// compile-time constant, which keeps the 64-register budget of D 64
+// unspilled; any other multiple of 8 up to 256 runs on its class's kernel
+// with the lanes past D / E idle: decode_common.cuh's split_class and
+// split_cols), so a lane's loads of
 // all 8 key and value rows go out at once: one round trip to memory per
 // unit, where one block a (row, KV head) walked the row's whole length in
 // tiles of 64 keys, four block barriers a tile (the parent design).  int8
@@ -44,7 +47,7 @@ struct PagedArgs {
   float* scratch;        // mxt_paged_attention_scratch floats
   float* out;            // (B, H, D)
   long long* timing;     // null, or PAGED_PHASES + 1 phase-end timestamps
-  int B, H, KVH, P, S, pps;
+  int B, H, KVH, D, P, S, pps;
   float scale;
 };
 
@@ -54,10 +57,11 @@ constexpr int PAGED_PHASES = 2;
 // the units, a grid barrier, the merge; with a timing buffer block 0
 // stamps the start and the end of each phase (the merge then gets a
 // barrier of its own)
-template <int D, class Pages>
-__global__ void __launch_bounds__(mxt::NTHREADS, 4)
+template <int DI, bool FULL, class Pages>
+__global__ void __launch_bounds__(mxt::NTHREADS, mxt::split_min_blocks<DI>(4))
 paged_split_kernel(PagedArgs a, Pages pages) {
   extern __shared__ __align__(16) float smem[];
+  const int D = FULL ? DI : a.D;
   const int g = a.H / a.KVH, max_keys = a.pps * a.S, Cq = a.H * D;
   const size_t U = mxt::split_units_max(a.B, a.KVH, max_keys);
   float* po = a.scratch;
@@ -68,9 +72,9 @@ paged_split_kernel(PagedArgs a, Pages pages) {
   long long* stamp =
       blockIdx.x == 0 && threadIdx.x == 0 ? a.timing : nullptr;
   if (stamp) stamp[0] = mxt::globaltimer();
-  mxt::split_attend<D>(
+  mxt::split_attend<DI>(
       [=](int b, int c) { return __ldg(q + (size_t)b * Cq + c); },
-      [](int, int) {}, pages, a.tables, a.lengths, a.B, a.KVH, g, a.P, a.S,
+      [](int, int) {}, pages, a.tables, a.lengths, a.B, a.KVH, g, D, a.P, a.S,
       a.pps, a.scale, po, pm, pl, smem);
   grid.sync();
   if (stamp) stamp[1] = mxt::globaltimer();
@@ -81,14 +85,14 @@ paged_split_kernel(PagedArgs a, Pages pages) {
   }
 }
 
-template <int D, class Pages>
+template <int DI, bool FULL, class Pages>
 cudaError_t launch_split(const PagedArgs& a, const Pages& pages,
                          cudaStream_t stream) {
-  auto kernel = paged_split_kernel<D, Pages>;
+  auto kernel = paged_split_kernel<DI, FULL, Pages>;
   int grid = 0;
   size_t smem = 0;
   cudaError_t e = mxt::coop_geometry(
-      kernel, mxt::split_smem_floats(a.H / a.KVH, D), &grid, &smem);
+      kernel, mxt::split_smem_floats(a.H / a.KVH, a.D), &grid, &smem);
   if (e != cudaSuccess) return e;
   PagedArgs args = a;
   Pages p = pages;
@@ -100,13 +104,20 @@ cudaError_t launch_split(const PagedArgs& a, const Pages& pages,
 }
 
 template <class Pages>
-int launch(const PagedArgs& a, const Pages& pages, int D, void* stream) {
+int launch(const PagedArgs& a, const Pages& pages, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
+  switch (a.D) {
 #define MXT_LAUNCH(d) \
   case d:             \
-    return (int)launch_split<d>(a, pages, s);
+    return (int)launch_split<d, true>(a, pages, s);
     MXT_SPLIT_HEAD_DIMS(MXT_LAUNCH)
+#undef MXT_LAUNCH
+  }
+  switch (mxt::split_class(a.D)) {
+#define MXT_LAUNCH(d) \
+  case d:             \
+    return (int)launch_split<d, false>(a, pages, s);
+    MXT_SPLIT_CLASSES(MXT_LAUNCH)
 #undef MXT_LAUNCH
   }
   return (int)cudaErrorInvalidValue;
@@ -114,7 +125,7 @@ int launch(const PagedArgs& a, const Pages& pages, int D, void* stream) {
 
 PagedArgs make_args(const void* q, const void* lengths, const void* tables,
                     void* scratch, void* out, void* timing, int B, int H,
-                    int KVH, int P, int S, int pps, float scale) {
+                    int KVH, int D, int P, int S, int pps, float scale) {
   PagedArgs a;
   a.q = (const float*)q;
   a.lengths = (const int*)lengths;
@@ -122,7 +133,7 @@ PagedArgs make_args(const void* q, const void* lengths, const void* tables,
   a.scratch = (float*)scratch;
   a.out = (float*)out;
   a.timing = (long long*)timing;
-  a.B = B; a.H = H; a.KVH = KVH; a.P = P; a.S = S; a.pps = pps;
+  a.B = B; a.H = H; a.KVH = KVH; a.D = D; a.P = P; a.S = S; a.pps = pps;
   a.scale = scale;
   return a;
 }
@@ -151,7 +162,7 @@ extern "C" long long mxt_paged_attention_scratch(int B, int H, int KVH,
 // except the int32 lengths and tables; timing null, or
 // mxt_paged_attention_phases() + 1 int64 that block 0 fills with
 // %globaltimer stamps (the start, then the end of each phase).  D must be
-// a multiple of 16 in [16, 128].
+// a multiple of 8 in [8, 256] (split_class).
 extern "C" int mxt_paged_attention(const void* q, const void* kp,
                                    const void* vp, const void* lengths,
                                    const void* tables, void* scratch,
@@ -159,9 +170,8 @@ extern "C" int mxt_paged_attention(const void* q, const void* kp,
                                    int KVH, int P, int S, int D, int pps,
                                    float scale, void* stream) {
   return launch(make_args(q, lengths, tables, scratch, out, timing, B, H,
-                          KVH, P, S, pps, scale),
-                mxt::SplitF32{(const float*)kp, (const float*)vp}, D,
-                stream);
+                          KVH, D, P, S, pps, scale),
+                mxt::SplitF32{(const float*)kp, (const float*)vp}, stream);
 }
 
 // As mxt_paged_attention, over int8 pages: kq/vq (KVH, P, S, D) int8 codes,
@@ -174,8 +184,8 @@ extern "C" int mxt_paged_attention_i8(const void* q, const void* kq,
                                       int KVH, int P, int S, int D, int pps,
                                       float scale, void* stream) {
   return launch(make_args(q, lengths, tables, scratch, out, timing, B, H,
-                          KVH, P, S, pps, scale),
+                          KVH, D, P, S, pps, scale),
                 mxt::SplitI8{(const signed char*)kq, (const signed char*)vq,
                              (const float*)ks, (const float*)vs},
-                D, stream);
+                stream);
 }

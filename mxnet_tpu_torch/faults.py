@@ -20,6 +20,14 @@ slice has so far.  Sites (grep for ``faults.check``):
   session.import     decode-session KV import (a blob scattered into fresh
                      pool pages); a raise fails the import typed and
                      installs nothing
+  speculate.draft    speculative-decoding draft proposal (exception kinds
+                     poison ONE sequence's adaptive-k controller: that
+                     sequence degrades to plain decode, the engine keeps
+                     serving)
+  speculate.verify   speculative-decoding wide verify, before the step
+                     (exception kinds degrade the whole step to plain
+                     decode and poison the planned sequences' controllers;
+                     no token is lost, no reset)
 
 Kinds: ``reset`` (ConnectionResetError), ``timeout`` (socket.timeout),
 ``error``/``crash`` (RuntimeError), plus site-interpreted kinds that
@@ -73,7 +81,8 @@ _EXC_KINDS = {
 _SOFT_KINDS = ("drop", "torn", "preempt", "kill")
 
 KNOWN_SITES = ("decode.step", "engine.retire", "kvcache.alloc",
-               "session.export", "session.import")
+               "session.export", "session.import", "speculate.draft",
+               "speculate.verify")
 
 
 class FaultRule:

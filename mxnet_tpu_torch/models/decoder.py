@@ -18,6 +18,13 @@ positions, tied LM head) with the pieces an LLM server needs:
 - :func:`make_decode_step_fused` — the same step as one
   ``fused_cell.decode_layer_group`` kernel launch per layer group (fp
   weights and fp pages only).
+- :func:`make_verify_step`   — speculative decoding's wide verify step:
+  ``width`` candidate tokens per slot scattered into the slots' pages and
+  attending causally over each slot's gathered pages (plain PyTorch, as
+  the JAX package computes it outside any Pallas kernel), the argmax at
+  every position; its FFN runs the ``bias_gelu`` kernel and quantized
+  GEMMs the ``quant_matmul`` kernel.  :func:`verify_launch_stats` is its
+  launch census and :func:`decoder_draft` the small draft model.
 
 Tensor parallelism (:class:`TPPlan`, from :func:`tp_plan` and a
 ``parallel.ShardingConfig`` with a ``tp`` axis): the steps and the chunk
@@ -69,8 +76,10 @@ from ..ops.kernels import paged_attention as _paged
 from ..ops.kernels import quant_matmul as _qmm
 
 __all__ = ["DecoderConfig", "CausalLM", "full_forward", "make_decode_step",
-           "make_decode_step_fused", "make_prefill_chunk", "params_from_jax",
-           "TPPlan", "tp_plan", "decoder_tiny", "decoder_tiny_lm"]
+           "make_decode_step_fused", "make_prefill_chunk",
+           "make_verify_step", "verify_launch_stats", "params_from_jax",
+           "TPPlan", "tp_plan", "decoder_tiny", "decoder_tiny_lm",
+           "decoder_draft"]
 
 LAYER_KEYS = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
               "w1", "b1", "w2", "b2", "ln1g", "ln1b", "ln2g", "ln2b")
@@ -683,6 +692,125 @@ def make_prefill_chunk(cfg, page_size, chunk, plan=None):
     return prefill
 
 
+def make_verify_step(cfg, page_size, width, plan=None):
+    """The wide VERIFY step of speculative decoding for (cfg, page_size,
+    width), the port of the JAX package's ``_build_verify_step``
+    (``decoder.py:913-969``); with a :class:`TPPlan` shard by shard per
+    layer, with the row-parallel tail (:func:`_layer_tail_tp`), on fp or
+    quantized shards and fp or int8 ``QPages`` slabs.
+
+    One call scores ``width`` candidate tokens per slot (the slot's
+    pending token, then up to ``width - 1`` drafted ones): their KV is
+    scattered into the slot's pages as a prefill chunk's is
+    (:func:`_kv_write` with (B, width) write indices; int8 pages latch
+    each page's scale at its slot 0, inside the window or from the pool),
+    the queries attend causally in fp32 over the slot's own gathered
+    pages, and the argmax at EVERY position comes back: position ``i``'s
+    is the greedy successor of the prefix ending at token ``i``, what
+    longest-prefix acceptance compares the draft with.  Rejected positions
+    leave KV behind that the causal mask never reads; the engine trims
+    the pages they opened.
+
+    fn(params, k_pages, v_pages, tokens, positions, n_valid, page_tables,
+       active)
+      tokens:     (B, width) int — [pending, draft...] per slot, padded
+                  past n_valid
+      positions:  (B,) int — the cache index tokens[:, 0] lands at
+      n_valid:    (B,) int — real tokens this step per slot (1: a slot
+                  without a draft riding the wide step)
+      page_tables:(B, pages_per_seq) int32
+      active:     (B,) bool — inactive slots write the scratch page
+    -> (k_pages, v_pages, out_tokens (B, width) int32)
+
+    The attention is plain PyTorch, as the JAX package computes it outside
+    any kernel; the FFN's epilogue launches ``bias_gelu`` and quantized
+    GEMMs ``quant_matmul`` (:func:`verify_launch_stats`)."""
+    S = int(page_size)
+    W = int(width)
+    lcfg = plan.local_cfg if plan is not None else cfg
+    g = cfg.num_heads // cfg.num_kv_heads
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+
+    def attend(q, kp_li, vp_li, page_tables, causal):
+        """One layer's (or shard's) attention of the B x W queries over
+        each slot's gathered pages: q (B, W, H, D) -> (B, W, H D)."""
+        kr = _repeat_kv(_gather_kv(kp_li, page_tables), g, 1).float()
+        vr = _repeat_kv(_gather_kv(vp_li, page_tables), g, 1).float()
+        qf = q.float().transpose(1, 2) * scale          # (B, H, W, D)
+        # every query sees key 0 (its position is >= 0): no row is empty
+        logits = (qf @ kr.transpose(2, 3)).masked_fill(
+            ~causal[:, None], float("-inf"))
+        att = torch.softmax(logits, dim=-1) @ vr         # (B, H, W, D)
+        return att.transpose(1, 2).reshape(q.shape[0], W,
+                                           q.shape[2] * q.shape[3])
+
+    def verify(params, k_pages, v_pages, tokens, positions, n_valid,
+               page_tables, active):
+        if plan is not None:
+            params = _tp_inputs(params, plan)
+        base = params[0] if plan is not None else params
+        dev = tokens.device
+        pps = page_tables.shape[1]
+        ar = torch.arange(W, device=dev)
+        idx = positions.long()[:, None] + ar[None, :]    # (B, W)
+        valid = (ar[None, :] < n_valid.long()[:, None]) & active[:, None]
+        x = (base["embed"][tokens.long()]
+             + base["pos"][idx.clamp(0, cfg.max_length - 1)])
+        page_of = page_tables.long().gather(1, (idx // S).clamp(0, pps - 1))
+        # padded and inactive positions write the scratch page
+        wp = torch.where(valid, page_of, 0)
+        ws = torch.where(valid, idx % S, 0)
+        ctx = torch.arange(pps * S, device=dev)
+        causal = ctx[None, None, :] <= idx[:, :, None]   # key <= query pos
+        for li in range(cfg.num_layers):
+            if plan is None:
+                lp = params["layers"][li]
+                q, k, v = _qkv(x, lp, cfg)              # (B, W, H/KVH, D)
+                _kv_append(k_pages, li, wp, ws, k)
+                _kv_append(v_pages, li, wp, ws, v)
+                merged = attend(q, _paged.kv_heads(k_pages, li),
+                                _paged.kv_heads(v_pages, li), page_tables,
+                                causal)
+                x = _layer_tail(x, merged.to(x.dtype), lp)
+                continue
+            lps = [sh["layers"][li] for sh in params]
+            o_parts = []
+            for r, lp in enumerate(lps):
+                q, k, v = _qkv(x, lp, lcfg)             # (B, W, Hl/KVHl, D)
+                kp, vp = (plan.kv_view(k_pages, li, r),
+                          plan.kv_view(v_pages, li, r))
+                _kv_write(kp, wp, ws, k)
+                _kv_write(vp, wp, ws, v)
+                o_parts.append(_proj(attend(q, kp, vp, page_tables, causal),
+                                     lp["wo"]))
+            x = _layer_tail_tp(x, o_parts, lps, plan)
+        return (k_pages, v_pages,
+                _logits(x, base).argmax(dim=-1).to(torch.int32))
+
+    return verify
+
+
+def verify_launch_stats(cfg, width, quant=None, tp=1):
+    """The kernel launches of one :func:`make_verify_step` call, the port's
+    counterpart of the JAX package's ``verify_launch_stats``
+    (``decoder.py:971-995``): per layer and shard one ``bias_gelu`` (the
+    FFN epilogue) and, with quantized weights, six ``quant_matmul``; the
+    attention is plain PyTorch.  A property of (cfg, width, weights, tp)
+    alone, never of which drafts land: the wrappers' launch counters on
+    the card must move by exactly this much a verify step.
+
+    Returns ``{width, launches_per_step, kernels,
+    launches_per_emitted_token}``, the last at full acceptance (``width``
+    tokens from the one step)."""
+    L, tp = cfg.num_layers, int(tp)
+    kernels = {"bias_gelu": L * tp}
+    if quant is not None:
+        kernels["quant_matmul"] = 6 * L * tp
+    n = sum(kernels.values())
+    return {"width": int(width), "launches_per_step": n, "kernels": kernels,
+            "launches_per_emitted_token": n / float(width)}
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
@@ -851,3 +979,24 @@ def decoder_tiny(vocab_size=128, *, device=None, seed=0, **kw):
 def decoder_tiny_lm(seed=0, vocab_size=128, *, device=None, **kw):
     """Initialized, deterministic tiny LM made from ``seed``."""
     return decoder_tiny(vocab_size, device=device, seed=seed, **kw)
+
+
+def decoder_draft(target, seed=0, num_layers=1, units=32, hidden_size=64,
+                  num_heads=2, num_kv_heads=1, *, device=None):
+    """The reduced-depth and -width draft LM of speculative decoding, the
+    port of the JAX package's ``decoder_draft`` (``decoder.py:1114-1130``):
+    the target's vocab, context length and EOS, one layer of 32 units over
+    2 heads (head dim 16) by default, its weights made from ``seed``.
+    ``target`` is the CausalLM (or its DecoderConfig) the drafts are
+    verified against; the draft lives on the target's device unless
+    ``device`` is given."""
+    cfg = target.config if hasattr(target, "config") else target
+    if device is None:
+        device = getattr(target, "device", None)
+    return CausalLM(cfg.vocab_size, num_layers=int(num_layers),
+                    units=int(units), hidden_size=int(hidden_size),
+                    num_heads=int(num_heads),
+                    num_kv_heads=int(num_kv_heads),
+                    max_length=cfg.max_length,
+                    eos_id=getattr(target, "eos_id", None), device=device,
+                    seed=seed)

@@ -34,10 +34,17 @@ SOURCES = ("paged_attention", "fused_decode", "decode_phase", "quant_matmul",
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: head dims the attention kernels (#5-#7 and the delta kernel, #12, #13,
-#: #15) are built for
-HEAD_DIMS = tuple(range(16, 129, 16))
-HEAD_DIM_RULE = "a multiple of 16 in [16, 128]"
+#: head dims each family of attention kernels takes: the decode kernels
+#: (#12, #13, #15, fp and int8 pages) every multiple of 8 in [8, 256], the
+#: multiples of 16 up to 128 on kernels of their own, any other D on the
+#: kernel of its class (``decode_common.cuh:split_class``, the next of 32,
+#: 64, 128 and 256); the flash kernels (#5-#7 and
+#: the delta kernel) every multiple of 8 in [8, 128], each D on the
+#: kernels of the next of 32, 64 and 128 (``flash_attention.cu:pad_dim``)
+HEAD_DIMS = {"decode": tuple(range(8, 257, 8)),
+             "flash": tuple(range(8, 129, 8))}
+HEAD_DIM_RULE = {"decode": "a multiple of 8 in [8, 256]",
+                 "flash": "a multiple of 8 in [8, 128]"}
 
 _lock = threading.Lock()
 _libs = {}
@@ -113,9 +120,11 @@ def check(lib, rc, what):
             what, rc, lib.mxt_error_string(rc).decode()))
 
 
-def check_head_dim(what, D):
-    """Raise ``ValueError`` naming the rule unless the attention kernels are
-    built for head dim ``D`` (:data:`HEAD_DIMS`)."""
-    if D not in HEAD_DIMS:
-        raise ValueError("%s: head dim %d; the kernels take a head dim that "
-                         "is %s" % (what, D, HEAD_DIM_RULE))
+def check_head_dim(what, D, family):
+    """Raise ``ValueError`` naming the rule unless the kernels of
+    ``family`` (``"decode"`` or ``"flash"``) take head dim ``D``
+    (:data:`HEAD_DIMS`)."""
+    if D not in HEAD_DIMS[family]:
+        raise ValueError("%s: head dim %d; the %s kernels take a head dim "
+                         "that is %s" % (what, D, family,
+                                         HEAD_DIM_RULE[family]))

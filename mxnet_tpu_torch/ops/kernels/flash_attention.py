@@ -36,8 +36,8 @@ its kernel on a CUDA tensor (or raises), counting launches in
 ``.launches_delta``;
 ``flash_attention.last_dtype`` is the dtype of the last launch.  The
 kernels take float32 and bfloat16 and any head dim that is a multiple of
-16 in [16, 128] (:data:`HEAD_DIMS`; D 16, 48, 80, 96 and 112 run the
-kernels of the next of 32, 64 and 128 on zero-filled columns); in
+8 in [8, 128] (:data:`HEAD_DIMS`; every D but 32, 64 and 128 runs the
+kernels of the next of them on zero-filled columns); in
 bfloat16 the probabilities are rounded to bf16 before ``P @ V`` and
 ``dS`` before its two products, as the JAX kernel casts.  The float32
 kernels run their products on the tensor cores in 3xTF32, which keeps
@@ -66,8 +66,8 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the CUDA kernels take: every multiple of 16 in [16, 128]
-HEAD_DIMS = _build.HEAD_DIMS
+#: head dims the CUDA kernels take: every multiple of 8 in [8, 128]
+HEAD_DIMS = _build.HEAD_DIMS["flash"]
 _TAIL = [_I] * 5 + [ctypes.c_float, _I, _I, ctypes.c_uint, ctypes.c_float,
                     _P]
 
@@ -308,7 +308,7 @@ def _check(what, q, k, v, window, kv_length):
     if q.dtype not in _DTYPES:
         raise TypeError("%s: unsupported dtype %s (float32, bfloat16)"
                         % (what, q.dtype))
-    _build.check_head_dim(what, D)
+    _build.check_head_dim(what, D, "flash")
     for t in (k, v):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError("%s: q, k and v must match: %s %s %s"
@@ -498,7 +498,7 @@ def flash_attention_bwd_delta(do, out):
     if do.dtype not in _DTYPES:
         raise TypeError("%s: unsupported dtype %s (float32, bfloat16)"
                         % (what, do.dtype))
-    _build.check_head_dim(what, D)
+    _build.check_head_dim(what, D, "flash")
     if not B * H * L:
         raise ValueError("%s: shape %s; the kernel takes no empty dim"
                          % (what, tuple(do.shape)))

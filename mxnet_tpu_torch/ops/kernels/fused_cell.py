@@ -191,7 +191,7 @@ def decode_layer_group(x, kp, vp, layers, meta, page_tables, lengths, cfg):
     Returns (kp, vp, x_out); kp/vp are the tensors passed in.  A CPU
     tensor takes :func:`decode_layer_group_plain`; a CUDA tensor launches
     the kernel (counted in ``decode_layer_group.launches``) or raises (a
-    head dim that is not a multiple of 16 in [16, 128] raises
+    head dim that is not a multiple of 8 in [8, 256] raises
     ``ValueError``).  An empty batch launches nothing."""
     if x.device.type == "cpu":
         return decode_layer_group_plain(x, kp, vp, layers, meta,
@@ -237,7 +237,7 @@ def phase_times(x, kp, vp, layers, meta, page_tables, lengths, cfg):
 
 
 def _launch(x, kp, vp, layers, meta, page_tables, lengths, cfg, stamps):
-    _build.check_head_dim("decode_layer_group", kp.shape[-1])
+    _build.check_head_dim("decode_layer_group", kp.shape[-1], "decode")
     if x.device.type != "cuda":
         raise ValueError("decode_layer_group: unsupported device %s"
                          % x.device)
@@ -404,7 +404,7 @@ def decode_attn_phase_times(x, kp, vp, lp, meta, page_tables, lengths, cfg):
 
 
 def _attn_launch(x, kp, vp, lp, meta, page_tables, lengths, cfg, stamps):
-    _build.check_head_dim("decode_attn_phase", kp.shape[-1])
+    _build.check_head_dim("decode_attn_phase", kp.shape[-1], "decode")
     if x.device.type != "cuda":
         raise ValueError("decode_attn_phase: unsupported device %s"
                          % x.device)

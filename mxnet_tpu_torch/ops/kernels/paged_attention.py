@@ -173,7 +173,7 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None):
     """Decode-phase paged attention (one query token per sequence).
 
     q:            (B, num_heads, head_dim) fp32; for a CUDA tensor a
-                  head_dim that is a multiple of 16 in [16, 128]
+                  head_dim that is a multiple of 8 in [8, 256]
     k_pages/v_pages: (num_kv_heads, total_pages, page_size, head_dim) fp32,
                   or :class:`QPages` of that layout (int8 codes, fp32
                   scales (num_kv_heads, total_pages))
@@ -204,7 +204,7 @@ def paged_attention_times(q, k_pages, v_pages, lengths, page_indices,
 
 
 def _launch(q, k_pages, v_pages, lengths, page_indices, scale, stamps):
-    _build.check_head_dim("paged_attention", q.shape[-1])
+    _build.check_head_dim("paged_attention", q.shape[-1], "decode")
     if q.device.type != "cuda":
         raise ValueError("paged_attention: unsupported device %s" % q.device)
     int8 = isinstance(k_pages, QPages)

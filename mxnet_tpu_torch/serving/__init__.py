@@ -6,9 +6,13 @@
   staging on one stream), copy-on-write prefix caching and decode
   sessions with export and import; decode runs the fused
   decode-layer-group kernel, or the per-op step with the paged-attention
-  and bias_gelu kernels.  The fleet page store (``pagestore=``,
-  ``migrate_out()``), ``role=`` and speculative decoding are refused with
-  ``NotImplementedError``.
+  and bias_gelu kernels; ``speculate=True`` turns on speculative decoding.
+  The fleet page store (``pagestore=``, ``migrate_out()``) and ``role=``
+  are refused with ``NotImplementedError``.
+- ``NGramDrafter``, ``DraftModelDrafter``, ``AdaptiveK``,
+  ``SpeculativeScheduler`` (``speculate.py``) — speculative decoding's
+  drafters (prompt lookup; a small draft model on its own page pool), its
+  per-sequence depth controller and the engine's per-step policy.
 - ``quantize_lm`` / ``QuantizedLM`` (``quantize.py``) — weight-only int8 /
   int4 serving through the ``quant_matmul`` kernel; int8 KV pages are the
   engine's ``kv_dtype="int8"``.
@@ -39,6 +43,9 @@ Quick start::
     # quantized: int8 weights and int8 KV pages
     eng = DecodeEngine(quantize_lm(lm, "int8"), kv_dtype="int8", slots=16,
                        page_size=16, prefill_chunk=64)
+    # speculative: prompt-lookup drafts of up to 4 tokens a slot
+    eng = DecodeEngine(lm, slots=16, speculate=True, spec_k=4,
+                       drafter="ngram")
     # over HTTP: a server on an ephemeral port, and a client
     from mxnet_tpu_torch.serving import ModelServer, ServingClient
     with ModelServer() as srv:
@@ -61,6 +68,8 @@ from .metrics import LatencyHistogram, ModelMetrics, ServingMetrics
 from .quantize import QuantizedLM, quantize_lm
 from .registry import ModelRegistry, ServedModel, default_buckets
 from .server import ModelServer
+from .speculate import (AdaptiveK, DraftModelDrafter, Drafter, NGramDrafter,
+                        SpeculativeScheduler)
 
 __all__ = ["DecodeEngine", "QuantizedLM", "quantize_lm", "PageAllocator",
            "PrefixCache", "pack_session", "unpack_session",
@@ -70,4 +79,5 @@ __all__ = ["DecodeEngine", "QuantizedLM", "quantize_lm", "PageAllocator",
            "DeadlineExceededError", "DeadlineInfeasibleError", "KVLeakError",
            "SessionResetError", "ModelNotFoundError", "ModelRegistry",
            "ServedModel", "default_buckets", "DynamicBatcher", "ModelServer",
-           "ServingClient"]
+           "ServingClient", "Drafter", "NGramDrafter", "DraftModelDrafter",
+           "AdaptiveK", "SpeculativeScheduler"]

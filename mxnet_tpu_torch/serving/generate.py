@@ -65,6 +65,20 @@ defaults:
   The KV pool stays one tensor on the card, so page ids, forks and
   session blobs are the same at any tp.  Quantized weights and int8 KV
   pages serve under ``sharding=`` through the per-op TP step.
+- **Speculative decoding** (``speculate``/``MXNET_GEN_SPECULATE``, off by
+  default) — a drafter (n-gram prompt lookup or a small draft model,
+  ``serving/speculate``) proposes up to ``spec_k`` tokens per decode slot,
+  one wide verify step (``decoder.make_verify_step``) scores the whole
+  batch, longest-prefix greedy acceptance keeps what the target itself
+  would emit, and the pages rejected positions opened are trimmed
+  (``_rollback_kv``, copy-on-write aware).  A per-sequence adaptive-k
+  controller turns speculation off for a sequence whose drafts stop
+  landing.  On the async loop a verify's input depends on the host's
+  acceptance, so a verify retires before the next launch instead of
+  chaining; drafting the next step overlaps the verify in flight
+  (``reuse_predraft``) and slots whose end is decided park in
+  ``finishing`` until the deferred bookkeeping runs.  Fp, quantized and
+  tensor-parallel engines speculate alike.
 
 The KV page pools are tensors on the engine's device, updated in place by
 every step (the JAX engine donates them to each jitted step instead).
@@ -73,15 +87,15 @@ case every kernel's plain PyTorch version serves.
 
 Not ported yet, and refused with ``NotImplementedError``: the fleet page
 store (``pagestore=``/``MXNET_GEN_PAGESTORE``, ``migrate=True``,
-:meth:`DecodeEngine.migrate_out`), role specialization (``role=``/
-``MXNET_GEN_ROLE``) and speculative decoding (``speculate``, ``spec_k``,
-``drafter``, ``draft_model``/``MXNET_GEN_SPECULATE``).
+:meth:`DecodeEngine.migrate_out`) and role specialization (``role=``/
+``MXNET_GEN_ROLE``).
 
 Admission control mirrors the JAX engine: a bounded queue sheds with
 ``QueueFullError``, draining rejects with ``ServerClosedError``,
 deadlines expire typed, and a failed sequence poisons only its own
 future.  Fault sites: ``decode.step``, ``engine.retire``,
-``kvcache.alloc``, ``session.export`` and ``session.import``.
+``kvcache.alloc``, ``session.export``, ``session.import``,
+``speculate.draft`` and ``speculate.verify``.
 """
 from __future__ import annotations
 
@@ -149,17 +163,18 @@ class _Request:
 class _Slot:
     __slots__ = ("req", "state", "owner", "prompt", "done", "pos",
                  "history", "generated", "pending", "t_last", "admit_seq",
-                 "idx", "cacheable", "flight")
+                 "idx", "cacheable", "flight", "predraft")
 
     def __init__(self, idx):
         self.idx = idx
         self.req = None
         self.owner = None
-        # idle | prefill | decode | finishing (the JAX engine's
-        # speculative pipeline parks decided slots there; the port has no
-        # path into it yet, and _preempt_victim skips it all the same)
+        # idle | prefill | decode | finishing (the async speculative
+        # pipeline parks a slot whose end its retire decided there, until
+        # the deferred bookkeeping finishes it)
         self.state = "idle"
         self.flight = 0       # launched-but-unretired lanes (async)
+        self.predraft = None  # the overlapped draft (async speculation)
 
     @property
     def active(self):
@@ -172,7 +187,10 @@ class _Flight:
     ``out`` is the step's ``next_tokens`` on the card (the next launch
     chains on it); ``host`` the pinned buffer a ``non_blocking`` copy of
     it lands in, and ``event`` the CUDA event recorded after that copy
-    (None on the CPU, where ``host`` is ``out``).  ``lanes`` are the
+    (None on the CPU, where ``host`` is ``out``).  A speculative engine's
+    flight is ``kind`` "verify" (``out`` the (B, width) argmax of a wide
+    verify step) or "plain", and ``fed`` maps each lane's slot index to
+    the token row it fed (pending token, then its draft).  ``lanes`` are the
     ``(slot, admit_seq-at-launch)`` pairs it carries — a slot recycled
     since launch fails the seq check and its lane is discarded;
     ``owners`` the page owners the step writes (pinned: their pages are
@@ -180,9 +198,10 @@ class _Flight:
     releases of sequences that ended while the step was in flight."""
 
     __slots__ = ("out", "host", "event", "t_launch", "lanes", "owners",
-                 "on_retire")
+                 "on_retire", "kind", "fed")
 
-    def __init__(self, out, host, event, t_launch, lanes, owners):
+    def __init__(self, out, host, event, t_launch, lanes, owners,
+                 kind="plain", fed=None):
         self.out = out
         self.host = host
         self.event = event
@@ -190,6 +209,8 @@ class _Flight:
         self.lanes = lanes
         self.owners = owners
         self.on_retire = []
+        self.kind = kind
+        self.fed = fed or {}
 
 
 class _Session:
@@ -273,21 +294,13 @@ def _not_ported(what):
         "mxnet_tpu.serving.DecodeEngine has it)" % what)
 
 
-def _refuse_unported(role, migrate, pagestore, speculate, spec_k, drafter,
-                     draft_model):
+def _refuse_unported(role, migrate, pagestore):
     """Raise NotImplementedError for every feature of the JAX engine that
     the port lacks and the caller (or the environment) asks for."""
-    asks = [
-        ("session migration through the fleet page store "
-         "(kvstore/pagestore.py)", migrate or pagestore,
-         "MXNET_GEN_PAGESTORE"),
-        ("speculative decoding",
-         speculate or spec_k or drafter or draft_model,
-         "MXNET_GEN_SPECULATE"),
-    ]
-    for what, arg, env in asks:
-        if arg or (arg is None and _config.requested(env)):
-            _not_ported(what)
+    arg = migrate or pagestore
+    if arg or (arg is None and _config.requested("MXNET_GEN_PAGESTORE")):
+        _not_ported("session migration through the fleet page store "
+                    "(kvstore/pagestore.py)")
     r = role if role is not None else (
         os.environ.get("MXNET_GEN_ROLE") or "mixed")
     if str(r) != "mixed":
@@ -329,6 +342,19 @@ def _kernels_per_layer(quant, kv_dtype, tp):
     if quant is not None:
         decode["quant_matmul"] = prefill["quant_matmul"] = 6 * tp
     return decode, prefill
+
+
+def _accept(row, preds):
+    """Longest-prefix greedy acceptance of one slot's verify: draft token
+    ``i`` survives iff it equals the target's own argmax after everything
+    before it, so the emitted tokens are exactly what plain decode would
+    give.  ``row`` is [pending, draft...], ``preds`` the verify's argmax at
+    each of its positions; returns (emitted tokens, accepted drafts)."""
+    preds = [int(t) for t in preds]
+    accepted = 0
+    while accepted < len(row) - 1 and row[accepted + 1] == preds[accepted]:
+        accepted += 1
+    return preds[:accepted + 1], accepted
 
 
 #: the collective classes of the JAX package's census
@@ -378,6 +404,15 @@ class DecodeEngine:
     and the metrics then carry the mesh, tp and the collectives of one
     decode step, counted on a step run at construction with every slot
     inactive.
+
+    ``speculate`` (``MXNET_GEN_SPECULATE``) turns speculative decoding on:
+    ``drafter`` a ``speculate.Drafter``, or "ngram" / "model"
+    (``MXNET_GEN_SPEC_DRAFTER``), ``draft_model`` the draft ``CausalLM``
+    (default ``decoder.decoder_draft`` of the target, or
+    ``MXNET_GEN_SPEC_DRAFT_BUILDER``), ``spec_k`` the depth cap
+    (``MXNET_GEN_SPEC_K``); ``stats()["speculative"]`` reports the
+    scheduler, and ``verify_launch_stats(width)`` a verify step's kernel
+    launches.
     """
 
     def __init__(self, model, *, name="llm", slots=None, page_size=None,
@@ -388,8 +423,7 @@ class DecodeEngine:
                  role=None, migrate=None, pagestore=None, speculate=None,
                  spec_k=None, drafter=None, draft_model=None, sharding=None,
                  quantize=None, quant_group=None, kv_dtype=None):
-        _refuse_unported(role, migrate, pagestore, speculate, spec_k,
-                         drafter, draft_model)
+        _refuse_unported(role, migrate, pagestore)
         if sharding is not None and not isinstance(sharding, ShardingConfig):
             raise TypeError("sharding must be a mxnet_tpu_torch.parallel."
                             "ShardingConfig, got %s"
@@ -570,6 +604,16 @@ class DecodeEngine:
         }
         self._active_dev = None
         self._active_key = None
+
+        # speculative decoding (MXNET_GEN_SPECULATE): a drafter proposes k
+        # tokens per decode slot and one wide verify step scores them all
+        # (see serving/speculate.py)
+        self._spec = None
+        self._verify_fns = {}             # width -> verify step
+        use_spec = (bool(speculate) if speculate is not None
+                    else bool(_config.get("MXNET_GEN_SPECULATE")))
+        if use_spec:
+            self._spec = self._build_spec(drafter, draft_model, spec_k)
 
     # -- admission --------------------------------------------------------
     def _evict_bulk_locked(self):
@@ -943,6 +987,7 @@ class DecodeEngine:
                     if not s.busy and s.last_used < cutoff]:
             sess = self._sessions.pop(sid)
             self._free_owner(sess.owner)
+            self._spec_release(sess.owner, sid)
 
     # -- scheduling -------------------------------------------------------
     def _free_slot(self):
@@ -1116,6 +1161,7 @@ class DecodeEngine:
             victim = min(idle, key=lambda s: s.last_used)
             del self._sessions[victim.sid]
         self._free_owner(victim.owner)
+        self._spec_release(victim.owner, victim.sid)
         return True
 
     def _resume_missing(self, req):
@@ -1255,6 +1301,7 @@ class DecodeEngine:
         new.ttft_recorded = req.ttft_recorded
         new.prompt_tokens = req.prompt_tokens
         self._free_owner(slot.owner)
+        self._spec_release(slot.owner)  # the draft cache goes with the pages
         if req.session is not None:
             # the parked context is gone with the pages; the requeued
             # request re-creates the session from the full history
@@ -1350,6 +1397,8 @@ class DecodeEngine:
         live = [s for s in live if s.state == "decode"]  # after preemption
         if not live:
             return
+        if self._spec is not None and self._decode_speculative(live):
+            return
         tokens = self._stage_tokens
         positions = self._stage_positions
         active = self._stage_active
@@ -1395,7 +1444,9 @@ class DecodeEngine:
         sampled tokens stay on the card and chain into the next launch;
         the host reads a step's tokens (its event wait) only once the
         next launch is queued, so scheduling hides behind the card's
-        work."""
+        work.  A speculative engine runs :meth:`_decode_async_spec`."""
+        if self._spec is not None:
+            return self._decode_async_spec()
         launched = self._launch_decode()
         limit = self.dispatch_ahead if launched else 0
         while len(self._pipe) > limit:
@@ -1588,7 +1639,7 @@ class DecodeEngine:
         last confirmed token."""
         while self._pipe:
             if not discard:
-                self._retire_one()
+                self._retire_oldest()
                 continue
             with self._cond:
                 if not self._pipe:
@@ -1627,6 +1678,501 @@ class DecodeEngine:
                                 "kv page allocation failed: %r" % (e,)))
             return False
 
+    def _retire_oldest(self):
+        """Retire the oldest in-flight step: :meth:`_retire_one`, or on a
+        speculative engine :meth:`_retire_spec` with its deferred
+        bookkeeping run at once."""
+        if self._spec is not None:
+            rec = self._retire_spec()
+            if rec is not None:
+                self._run_spec_deferred(rec)
+            return
+        self._retire_one()
+
+    # -- async speculative pipeline ---------------------------------------
+    def _decode_async_spec(self):
+        """Speculative pipelining.  A verify's input depends on the host's
+        acceptance, so two launches cannot stack; the overlap comes from
+        the order instead: retire the step in flight with only the state
+        updates the next launch needs, launch at once (its draft was made
+        while the step ran on the card), then do the rest of the
+        bookkeeping (metrics, finishes, futures) behind the new launch."""
+        rec = self._retire_spec()
+        try:
+            self._launch_spec()
+        finally:
+            if rec is not None:
+                self._run_spec_deferred(rec)
+
+    def _retire_spec(self):
+        """Retire the in-flight spec step: wait for its tokens (its CUDA
+        event), run longest-prefix acceptance, advance the slots, roll
+        back rejected positions' pages, feed adaptive-k, check the
+        pre-draft, and DECIDE finishes (such slots park in ``finishing``,
+        which the next launch skips).  Returns the deferred record for
+        :meth:`_run_spec_deferred`, or None."""
+        with self._cond:
+            if not self._pipe:
+                return None
+            fl = self._pipe.popleft()
+        try:
+            faults.check("engine.retire")
+            if fl.event is not None:
+                fl.event.synchronize()
+            out = fl.host.numpy().copy()
+        except Exception as e:
+            self._retire_poisoned(fl, e)
+            return None
+        now = time.perf_counter()
+        self._t_force_end = now
+        self.metrics.count(self.name, "deferred_reads_total")
+        with self._cond:
+            self._unpin_owners(fl)
+        spec = self._spec
+        lanes = []
+        emitted_total = 0
+        for s, seq in fl.lanes:
+            if s.req is None or s.admit_seq != seq or s.state != "decode":
+                continue
+            s.flight = 0
+            row = fl.fed[s.idx]
+            nv = len(row)
+            pos0 = s.pos
+            if fl.kind == "verify":
+                emitted, accepted = _accept(row, out[s.idx, :nv])
+            else:
+                emitted, accepted = [int(out[s.idx])], 0
+            emitted = self._clip_emission(s, emitted)
+            gap = (now - s.t_last) / len(emitted)
+            self._emit(s, emitted, now)
+            emitted_total += len(emitted)
+            drafted = nv - 1
+            if drafted:
+                # adaptive-k learns the outcome before the next launch
+                # budgets its draft, as on the sync loop
+                spec.observe(self._spec_key(s), drafted, accepted)
+            if fl.kind == "verify":
+                self._rollback_kv(s, pos0 + nv)
+            # keep the overlapped draft's tail only if it predicted this
+            # step's emission exactly (any draft is safe: the verify
+            # gates it; this decides whether the next launch re-drafts)
+            s.predraft = spec.reuse_predraft(s.predraft, emitted,
+                                             spec.k_cap)
+            reason = None
+            if self.eos_id is not None and s.pending == self.eos_id:
+                reason = "eos"
+            elif len(s.generated) + len(s.req.prefix) >= s.req.max_new:
+                reason = "length"
+            elif s.req.expired(now):
+                reason = "deadline"
+            if reason is not None:
+                s.state = "finishing"
+            lanes.append((s, len(emitted), gap, drafted, accepted, reason))
+        for cb in fl.on_retire:
+            cb()
+        return {"lanes": lanes, "kind": fl.kind, "t_launch": fl.t_launch,
+                "now": now, "emitted_total": emitted_total}
+
+    def _plan_drafts(self, live, predrafts=False):
+        """Draft for the live slots: ``{slot index: draft}`` of the slots
+        with a depth budget and a non-empty draft.  With ``predrafts`` a
+        slot's overlapped draft (checked at retire) stands in for a fresh
+        one."""
+        spec = self._spec
+        plan = {}
+        for s in live:
+            req = s.req
+            budget = req.max_new - len(req.prefix) - len(s.generated)
+            max_k = min(spec.k_cap, budget - 1, self.max_ctx - s.pos - 1)
+            k = spec.budget(self._spec_key(s), max_k)
+            if k <= 0:
+                continue
+            pre, s.predraft = s.predraft, None
+            if predrafts and pre:
+                draft = pre[:k]
+            else:
+                t0 = time.perf_counter()
+                draft = spec.propose(self._spec_key(s), s.owner,
+                                     list(s.history) + [s.pending], k)
+                self.metrics.observe_draft(self.name,
+                                           time.perf_counter() - t0)
+            if draft:
+                plan[s.idx] = [int(t) for t in draft]
+        return plan
+
+    def _grow_for_plan(self, live, plan):
+        """Page growth AFTER the verify gate: a speculating slot writes 1 +
+        k cache positions this step (peers may be preempted to fit).
+        Returns the slots still decoding; drops the plans of the others."""
+        survivors = []
+        for s in live:
+            if s.state != "decode":
+                plan.pop(s.idx, None)
+                continue
+            if self._ensure_pages(s, 1 + len(plan.get(s.idx, ()))):
+                if s.state == "decode":
+                    survivors.append(s)
+                    continue
+            plan.pop(s.idx, None)
+        return [s for s in survivors if s.state == "decode"]
+
+    def _verify_inputs(self, live, plan, width):
+        """The host arrays of one verify step over ``live`` (every live
+        slot rides it: a slot without a draft feeds its pending token
+        alone, ``n_valid`` 1), and each slot's fed row."""
+        B = self.slots
+        tokens = onp.zeros((B, self._spec.k_cap + 1), onp.int32)
+        positions = onp.zeros(B, onp.int32)
+        n_valid = onp.zeros(B, onp.int32)
+        active = onp.zeros(B, bool)
+        fed = {}
+        for s in live:
+            row = [s.pending] + plan.get(s.idx, [])
+            fed[s.idx] = row
+            tokens[s.idx, :len(row)] = row
+            positions[s.idx] = s.pos
+            n_valid[s.idx] = len(row)
+            active[s.idx] = True
+        return tokens, positions, n_valid, active, fed
+
+    def _run_verify(self, width, tokens, positions, n_valid, active):
+        """Queue one verify step of ``width`` on the card (inputs through
+        the staging rings); returns its (B, width) argmax tokens."""
+        rings = self._rings
+        _, _, out = self._verify_fn(width)(
+            self.params, self._kp, self._vp,
+            rings["vtokens"].upload(tokens)[:, :width],
+            rings["positions"].upload(positions),
+            rings["nvalid"].upload(n_valid), self._tables_device(),
+            self._active_device(active))
+        return out
+
+    def _launch_spec(self):
+        """Launch the next spec step (a wide verify, or a plain step when
+        nothing drafted), then pre-draft the step after it while this one
+        runs on the card.  Admission, the gate and page growth run in the
+        sync loop's order (:meth:`_decode_speculative`), so the streams
+        are the same."""
+        spec = self._spec
+        now = time.perf_counter()
+        batch = []
+        for s in self._slots:
+            if s.state != "decode":
+                continue
+            if s.req.expired(now):
+                self._finish(s, "deadline")
+                continue
+            batch.append(s)
+        if not batch:
+            return False
+        try:
+            faults.check("decode.step")
+        except Exception as e:
+            for s in batch:
+                self._fail_slot(s, ServingError(
+                    "decode step failed: %r" % (e,)))
+            return False
+        live = []
+        for s in batch:
+            if s.state != "decode":
+                continue
+            if self._ensure_pages(s, 1) and s.state == "decode":
+                live.append(s)
+        live = [s for s in live if s.state == "decode"]
+        if not live:
+            return False
+        plan = self._plan_drafts(live, predrafts=True)
+        if plan and not spec.verify_gate([self._spec_key(s) for s in live
+                                          if s.idx in plan]):
+            plan = {}
+        live = self._grow_for_plan(live, plan)
+        if not live:
+            return False
+        t0 = time.perf_counter()
+        if self._t_force_end is not None:
+            self.metrics.observe_host_gap(
+                self.name, max(0.0, t0 - self._t_force_end))
+        rings = self._rings
+        try:
+            if plan:
+                width = 1 + max(len(d) for d in plan.values())
+                tokens, positions, n_valid, active, fed = \
+                    self._verify_inputs(live, plan, width)
+                out = self._run_verify(width, tokens, positions, n_valid,
+                                       active)
+                wide = self._spec.k_cap + 1
+                host, event = rings["vout"].download(
+                    torch.nn.functional.pad(out, (0, wide - width)))
+                kind = "verify"
+            else:
+                st = self._stage_tokens
+                sp = self._stage_positions
+                sa = self._stage_active
+                st.fill(0)
+                sp.fill(0)
+                sa.fill(False)
+                fed = {}
+                for s in live:
+                    fed[s.idx] = [s.pending]
+                    st[s.idx] = s.pending
+                    sp[s.idx] = s.pos
+                    sa[s.idx] = True
+                _, _, out, _ = self._decode_fn(
+                    self.params, self._kp, self._vp,
+                    rings["tokens"].upload(st), rings["positions"].upload(sp),
+                    self._tables_device(), self._active_device(sa))
+                host, event = rings["out"].download(out)
+                kind = "plain"
+        except Exception as e:
+            _log.exception("speculative launch failed")
+            for s in live:
+                self._fail_slot(s, ServingError(
+                    "decode launch failed: %r" % (e,)))
+            return False
+        fl = _Flight(out, host, event, t0, [(s, s.admit_seq) for s in live],
+                     set(s.owner for s in live), kind, fed)
+        for s in live:
+            s.flight = 1
+        with self._cond:
+            self._pipe.append(fl)
+            self._pin_owners(fl)
+        self.metrics.observe_dispatch_depth(self.name, len(self._pipe))
+        # overlapped drafting: propose the NEXT step's continuation from
+        # the confirmed context while this step runs on the card, covering
+        # this step's largest emission plus k; the retire keeps the tail
+        # only if the emission matched it (propose absorbs drafter faults)
+        for s in live:
+            k = spec.budget(self._spec_key(s), spec.k_cap)
+            if k <= 0:
+                continue
+            t1 = time.perf_counter()
+            s.predraft = spec.propose(self._spec_key(s), s.owner,
+                                      list(s.history) + [s.pending],
+                                      len(fed[s.idx]) + k)
+            self.metrics.observe_draft(self.name, time.perf_counter() - t1)
+        return True
+
+    def _run_spec_deferred(self, rec):
+        """The retired spec step's remaining bookkeeping, run AFTER the
+        next launch is queued: metrics, the verify and step histograms,
+        and the finishes (futures resolved, pages released or parked)."""
+        now = rec["now"]
+        if not rec["lanes"]:
+            return
+        for s, n_emitted, gap, drafted, accepted, reason in rec["lanes"]:
+            for _ in range(n_emitted):
+                self.metrics.observe_inter_token(self.name, gap)
+            if drafted:
+                self.metrics.count(self.name, "spec_draft_tokens_total",
+                                   drafted)
+                self.metrics.count(self.name, "spec_accepted_tokens_total",
+                                   accepted)
+            if reason is not None and s.state == "finishing":
+                self._finish(s, reason)
+        if rec["kind"] == "verify":
+            self.metrics.observe_verify(self.name, now - rec["t_launch"])
+            self.metrics.count(self.name, "spec_verify_steps_total")
+        self.metrics.observe_decode_step(
+            self.name, now - rec["t_launch"], now - rec["t_launch"],
+            len(rec["lanes"]), self.slots, rec["emitted_total"])
+
+    # -- speculative decoding ---------------------------------------------
+    def _build_spec(self, drafter, draft_model, spec_k):
+        from .speculate import (DraftModelDrafter, Drafter, NGramDrafter,
+                                SpeculativeScheduler)
+        if isinstance(drafter, Drafter):
+            d = drafter
+        else:
+            kind = str(drafter if drafter is not None
+                       else _config.get("MXNET_GEN_SPEC_DRAFTER")
+                       or "ngram")
+            if kind not in ("ngram", "model"):
+                raise ValueError("drafter must be a speculate.Drafter, "
+                                 "'ngram' or 'model', got %r" % (kind,))
+            if kind == "model" or draft_model is not None:
+                dm = draft_model
+                if dm is None:
+                    builder = str(_config.get(
+                        "MXNET_GEN_SPEC_DRAFT_BUILDER") or "")
+                    if builder:
+                        import importlib
+                        mod, _, attr = builder.partition(":")
+                        dm = getattr(importlib.import_module(mod),
+                                     attr)(self.model)
+                    else:
+                        dm = _decoder.decoder_draft(self.model,
+                                                    device=self.device)
+                if dm.device != self.device:
+                    raise ValueError(
+                        "the draft model's weights live on %s but the "
+                        "engine runs on %s" % (dm.device, self.device))
+                # one draft cache per slot, so that drafting a full batch
+                # evicts no peer (the JAX engine keeps its default of 8)
+                d = DraftModelDrafter(dm, page_size=self.page_size,
+                                      max_seqs=self.slots)
+            else:
+                d = NGramDrafter()
+        sched = SpeculativeScheduler(d, k_cap=spec_k, name=self.name)
+        # a verify's (B, width) inputs and tokens travel through pinned
+        # buffers as wide as the widest verify
+        B, dev = self.slots, self.device
+        n, wide = self.dispatch_ahead + 1, sched.k_cap + 1
+        self._rings["vtokens"] = _Ring(n, (B, wide), torch.int32, dev)
+        self._rings["nvalid"] = _Ring(n, (B,), torch.int32, dev)
+        self._rings["vout"] = _Ring(n, (B, wide), torch.int32, dev,
+                                    twins=False)
+        return sched
+
+    def _verify_fn(self, width):
+        """The verify step of ``width`` (built once per width)."""
+        fn = self._verify_fns.get(width)
+        if fn is None:
+            fn = self._verify_fns[width] = _decoder.make_verify_step(
+                self.cfg, self.page_size, width, plan=self._tp_plan)
+        return fn
+
+    def verify_launch_stats(self, width):
+        """Kernel launches of one verify step of ``width`` on this engine
+        (``decoder.verify_launch_stats``): independent of acceptance."""
+        return _decoder.verify_launch_stats(self.cfg, width, self.quant,
+                                            self.tp)
+
+    def _spec_key(self, slot):
+        """Controller key: the session id of a session request (learned
+        acceptance carries across turns), else the slot's owner."""
+        if slot.req is not None and slot.req.session is not None:
+            return slot.req.session
+        return slot.owner
+
+    def _spec_release(self, owner, key=None):
+        """Drop the drafter's state of ``owner`` when its pages are retired
+        (finish, fail, preempt, evict, expiry, stop); with ``key`` the
+        adaptive-k controller goes too."""
+        if self._spec is None or owner is None:
+            return
+        try:
+            self._spec.release(owner, key)
+        except Exception:
+            _log.exception("drafter release failed")
+
+    def _clip_emission(self, s, emitted):
+        """``emitted`` cut to the request's remaining budget (at least one
+        token) and at the first EOS."""
+        budget = s.req.max_new - len(s.req.prefix) - len(s.generated)
+        emitted = emitted[:max(1, budget)]
+        if self.eos_id is not None and self.eos_id in emitted:
+            emitted = emitted[:emitted.index(self.eos_id) + 1]
+        return emitted
+
+    @staticmethod
+    def _emit(s, emitted, now):
+        for tok in emitted:
+            s.history.append(s.pending)
+            s.pos += 1
+            s.generated.append(tok)
+            s.pending = tok
+        s.t_last = now
+
+    def _decode_speculative(self, live):
+        """One draft, wide-verify, accept and rollback step over the whole
+        decode batch (sync loop).  Returns False (nothing consumed) when no
+        slot drafted or the verify gate trips: the caller then runs the
+        plain one-token step.
+
+        Every live slot rides the SAME verify step: speculating slots feed
+        ``1 + k`` positions, the others their pending token with
+        ``n_valid`` 1, so a mixed batch costs no extra launch and the
+        launches a step stay a property of the width alone."""
+        spec = self._spec
+        plan = self._plan_drafts(live)
+        if not plan:
+            return False
+        if not spec.verify_gate([self._spec_key(s) for s in live
+                                 if s.idx in plan]):
+            return False
+        live = self._grow_for_plan(live, plan)
+        if not live:
+            return True   # the page scramble consumed the whole batch
+        if not plan:
+            return False  # every draft's slot died: plain decode serves
+        width = 1 + max(len(d) for d in plan.values())
+        tokens, positions, n_valid, active, fed = self._verify_inputs(
+            live, plan, width)
+        t0 = time.perf_counter()
+        if self._t_force_end is not None:
+            self.metrics.observe_host_gap(
+                self.name, max(0.0, t0 - self._t_force_end))
+        out = self._run_verify(width, tokens, positions, n_valid, active)
+        out = out.cpu().numpy()
+        now = time.perf_counter()
+        self._t_force_end = now
+        self.metrics.observe_verify(self.name, now - t0)
+        self.metrics.count(self.name, "spec_verify_steps_total")
+        emitted_total = 0
+        for s in live:
+            row = fed[s.idx]
+            nv = len(row)
+            pos0 = s.pos
+            emitted, accepted = _accept(row, out[s.idx, :nv])
+            emitted = self._clip_emission(s, emitted)
+            gap = (now - s.t_last) / len(emitted)
+            self._emit(s, emitted, now)
+            for _ in emitted:
+                self.metrics.observe_inter_token(self.name, gap)
+            emitted_total += len(emitted)
+            drafted = nv - 1
+            if drafted:
+                spec.observe(self._spec_key(s), drafted, accepted)
+                self.metrics.count(self.name, "spec_draft_tokens_total",
+                                   drafted)
+                self.metrics.count(self.name, "spec_accepted_tokens_total",
+                                   accepted)
+            self._rollback_kv(s, pos0 + nv)
+            self._maybe_finish(s, now)
+        self.metrics.observe_decode_step(
+            self.name, now - t0, now - t0, len(live), self.slots,
+            emitted_total)
+        return True
+
+    def _rollback_kv(self, slot, written_end):
+        """Return the slot's page list to exactly what its confirmed length
+        needs after a verify wrote ``written_end`` positions.
+
+        Rejected positions leave KV at offsets the causal mask never reads
+        (a query sees key positions ``<= its own``), so the rollback is
+        accounting: whole pages past the confirmed length go back through
+        :meth:`PageAllocator.trim`.  If the kept boundary page is SHARED (a
+        published prefix page, refcount > 1) and this verify wrote past
+        the confirmed length, it is forked copy-on-write first, so that the
+        truncation never leaves this sequence writing into a page another
+        sequence (or the prefix cache) still holds."""
+        keep = pages_for(slot.pos, self.page_size)
+        pages = self.alloc.pages(slot.owner)
+        if written_end > slot.pos and 0 < keep <= len(pages) \
+                and slot.pos % self.page_size != 0 \
+                and self.alloc.refcount(pages[keep - 1]) > 1:
+            old = pages[keep - 1]
+            try:
+                new = self.alloc.fork(slot.owner, old)
+            except CacheOOM:
+                new = None
+                if self._reclaim(keep=slot.req.session
+                                 if slot.req else None):
+                    try:
+                        new = self.alloc.fork(slot.owner, old)
+                    except CacheOOM:
+                        new = None
+            if new is not None:
+                _paged.copy_page(self._kp, old, new)
+                _paged.copy_page(self._vp, old, new)
+                self.metrics.count(self.name, "cow_forks_total")
+            # (an unforkable pool is safe all the same: the written
+            # offsets lie past every sharer's published token count, which
+            # no reader touches; the fork keeps the invariant airtight)
+        if self.alloc.trim(slot.owner, keep):
+            self.metrics.count(self.name, "spec_rollbacks_total")
+        self._sync_table(slot)
+
     # -- completion -------------------------------------------------------
     def _maybe_finish(self, slot, now):
         req = slot.req
@@ -1655,6 +2201,7 @@ class DecodeEngine:
             sess.last_used = time.monotonic()
         else:
             self._free_owner(slot.owner)
+            self._spec_release(slot.owner, slot.owner)
         self.metrics.count(self.name, "sequences_completed_total")
         self.metrics.observe_generate_done(self.name, now - req.t_enqueue)
         self.slo.observe_served(1)  # feeds the drain-rate estimator
@@ -1672,6 +2219,7 @@ class DecodeEngine:
     def _fail_slot(self, slot, exc):
         req = slot.req
         self._free_owner(slot.owner)
+        self._spec_release(slot.owner, self._spec_key(slot))
         if req.session is not None:
             self._sessions.pop(req.session, None)
         self.metrics.count(self.name, "errors_total")
@@ -1686,6 +2234,7 @@ class DecodeEngine:
         slot.history = []
         slot.pending = None
         slot.flight = 0
+        slot.predraft = None
         self._tables[slot.idx, :] = 0
         self._tables_dev = None
 
@@ -1727,7 +2276,21 @@ class DecodeEngine:
                         device=dev),
             torch.zeros(self.slots, dtype=torch.bool, device=dev))
         toks.cpu()
-        return 2
+        if self._spec is None:
+            return 2
+        # every verify width the adaptive-k controller can reach (2 ..
+        # k_cap + 1), on inactive slots that write only the scratch page
+        zeros = torch.zeros(self.slots, dtype=torch.int64, device=dev)
+        for w in range(2, self._spec.k_cap + 2):
+            _, _, out = self._verify_fn(w)(
+                self.params, self._kp, self._vp,
+                torch.zeros((self.slots, w), dtype=torch.int64, device=dev),
+                zeros, zeros,
+                torch.zeros((self.slots, self.pages_per_seq),
+                            dtype=torch.int32, device=dev),
+                torch.zeros(self.slots, dtype=torch.bool, device=dev))
+            out.cpu()
+        return 2 + self._spec.k_cap
 
     def drain(self, timeout=30.0):
         return self.stop(drain=True, timeout=timeout)
@@ -1751,6 +2314,7 @@ class DecodeEngine:
                         s.req.future.set_exception(ServerClosedError(
                             "decode engine stopped mid-generation"))
                         self._free_owner(s.owner)
+                        self._spec_release(s.owner, self._spec_key(s))
                         self._clear(s)
             self._cond.notify_all()
             worker = self._worker
@@ -1761,6 +2325,7 @@ class DecodeEngine:
         with self._cond:
             for sess in self._sessions.values():
                 self._free_owner(sess.owner)
+                self._spec_release(sess.owner, sess.sid)
             self._sessions.clear()
         if self.prefix_cache is not None:
             self.prefix_cache.clear()
@@ -1824,4 +2389,6 @@ class DecodeEngine:
                 "collectives": dict(self.collective_stats["collectives"])}
         if self.prefix_cache is not None:
             out["prefix_cache"] = self.prefix_cache.stats()
+        if self._spec is not None:
+            out["speculative"] = self._spec.stats()
         return out

@@ -375,6 +375,18 @@ class ModelServer:
                     if gen.get(gauge) is not None:
                         lines.append("mxtpu_serving_%s{%s} %g"
                                      % (gauge, labels, gen[gauge]))
+                spec = gen.get("speculative")
+                if spec:
+                    for hist in ("draft_step", "verify_step"):
+                        for k, v in sorted((spec.get(hist) or {}).items()):
+                            if k == "count":
+                                continue
+                            lines.append("mxtpu_serving_spec_%s_%s{%s} %g"
+                                         % (hist, k, labels, v))
+                    if spec.get("accepted_token_rate") is not None:
+                        lines.append(
+                            "mxtpu_serving_accepted_token_rate{%s} %g"
+                            % (labels, spec["accepted_token_rate"]))
                 for k, v in sorted((gen.get("kv_cache") or {}).items()):
                     # used/total/peak_used/shared/leaked page gauges —
                     # leaked_pages nonzero is the alert condition

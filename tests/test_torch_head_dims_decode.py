@@ -1,6 +1,8 @@
 """Port parity at the head dims the decode kernels take beyond 32, 64 and
-128: D 16, 48, 80 and 96 (every multiple of 16 in [16, 128] is built; see
-``csrc/decode_common.cuh:split_cols``).
+128: D 16, 48, 80 and 96 (every multiple of 8 in [8, 256] runs: the
+multiples of 16 up to 128 on kernels of their own, any other D on its
+class's; see ``csrc/decode_common.cuh:split_class``).
+``test_torch_head_dims_any.py`` holds the other multiples of 8.
 
 On the CPU each wrapper takes its plain version, which the card's kernel
 is held to by ``chip_smoke.py``; here those plain versions are held
@@ -16,8 +18,8 @@ against the JAX package at each new D:
   the JAX ``paged_attention`` (its XLA gather path);
 - the wrappers' head-dim rule on the path a CUDA tensor takes (a ``meta``
   tensor stands in for the card, as the other refusal tests do): a
-  multiple of 16 in [16, 128] passes to the device check, 8, 24 and 144
-  raise naming the rule;
+  multiple of 8 in [8, 256] passes to the device check, any other D
+  raises naming the decode kernels' rule;
 - ``decoder_tiny_lm(seed=0)`` (units 64 over 4 heads: D 16, the JAX
   package's own serving-test model) served by the port's engine, fused and
   per-op, with fp and int8 KV pages, against the JAX engine.
@@ -211,22 +213,22 @@ def _meta_calls(d):
     }
 
 
-@pytest.mark.parametrize("d", _build.HEAD_DIMS)
+@pytest.mark.parametrize("d", _build.HEAD_DIMS["decode"])
 def test_head_dims_taken(d):
-    """Every multiple of 16 in [16, 128] passes the head-dim check and
+    """Every multiple of 8 in [8, 256] passes the head-dim check and
     stops at the device check."""
     for name, call in _meta_calls(d).items():
         with pytest.raises(ValueError, match="unsupported device"):
             call()
 
 
-@pytest.mark.parametrize("d", [8, 24, 144])
+@pytest.mark.parametrize("d", [4, 12, 20, 132, 260, 264])
 def test_head_dims_refused(d):
     """Any other head dim raises on the kernel's path, naming the rule."""
     for name, call in _meta_calls(d).items():
         with pytest.raises(ValueError,
-                           match=r"head dim %d; .*a multiple of 16 in "
-                                 r"\[16, 128\]" % d):
+                           match=r"head dim %d; the decode kernels .*a "
+                                 r"multiple of 8 in \[8, 256\]" % d):
             call()
 
 

@@ -11,8 +11,9 @@ mode at each new D, in fp32 and bf16, with the tolerances of
   batch row no key;
 - the gradients of q, k and v through ``flash_attention``;
 - the wrappers' head-dim rule on the kernel's path (``meta`` tensors
-  stand in for the card): a multiple of 16 in [16, 128] passes, 8, 24 and
-  144 raise naming it.
+  stand in for the card): a multiple of 8 in [8, 128] passes, any other D
+  raises naming it.  ``test_torch_head_dims_any.py`` holds the other
+  multiples of 8.
 """
 from __future__ import annotations
 
@@ -81,11 +82,11 @@ def _meta(d, dtype=torch.bfloat16):
             for _ in range(3)]
 
 
-@pytest.mark.parametrize("d", _build.HEAD_DIMS)
+@pytest.mark.parametrize("d", _build.HEAD_DIMS["flash"])
 def test_head_dims_taken(d):
     """The forward's and the backward's checks (``_check``, which #5, #6
-    and #7 run before building anything) pass every multiple of 16 in
-    [16, 128]; the wrappers refuse the ``meta`` device itself."""
+    and #7 run before building anything) pass every multiple of 8 in
+    [8, 128]; the wrappers refuse the ``meta`` device itself."""
     q, k, v = _meta(d)
     for what in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
@@ -96,10 +97,11 @@ def test_head_dims_taken(d):
         tfa.flash_attention_bwd_delta(q, k)
 
 
-@pytest.mark.parametrize("d", [8, 24, 144])
+@pytest.mark.parametrize("d", [4, 12, 20, 136, 144, 256])
 def test_head_dims_refused(d):
     """Any other head dim raises, naming the rule, in both dtypes."""
-    rule = r"head dim %d; .*a multiple of 16 in \[16, 128\]" % d
+    rule = (r"head dim %d; the flash kernels .*a multiple of 8 in "
+            r"\[8, 128\]" % d)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = _meta(d, dtype)
         for what in ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -107,4 +109,4 @@ def test_head_dims_refused(d):
             with pytest.raises(ValueError, match=rule):
                 tfa._check(what, q, k, v, None, None)
     with pytest.raises(ValueError, match=rule):
-        _build.check_head_dim("flash_attention_bwd_delta", d)
+        _build.check_head_dim("flash_attention_bwd_delta", d, "flash")

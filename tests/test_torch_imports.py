@@ -46,7 +46,8 @@ def test_import_loads_no_jax_and_no_reference_package():
                     "ops.attention", "ops.kernels.flash_attention", "amp",
                     "amp.lists", "amp.loss_scaler", "ops.rnn", "gluon.rnn",
                     "gluon.rnn.rnn_layer", "gluon.rnn.rnn_cell",
-                    "parallel", "parallel.shardcfg"):
+                    "parallel", "parallel.shardcfg",
+                    "serving.speculate"):
             assert "mxnet_tpu_torch." + mod in names, (mod, names)
         print(len(names), bad)
         sys.exit(1 if bad else 0)
@@ -92,14 +93,26 @@ def test_resolve_cpu():
 @pytest.mark.parametrize("kwargs,error", [
     ({"migrate": True}, NotImplementedError),
     ({"pagestore": "localhost:1"}, NotImplementedError),
-    ({"speculate": True}, NotImplementedError),
-    ({"draft_model": object()}, NotImplementedError),
+    # speculative decoding is ported: the engine speculates
+    ({"speculate": True}, None),
+    ({"speculate": True, "draft_model": "tiny"}, None),
     # tensor parallelism is ported: what is not a ShardingConfig is refused
     ({"sharding": object()}, TypeError),
     ({"role": "prefill"}, NotImplementedError),
 ], ids=["migrate", "pagestore", "speculate", "draft_model", "sharding",
         "role"])
 def test_unported_engine_features_raise(tiny_lm, kwargs, error):
+    """The features the port lacks raise; the ported ones (error None)
+    build an engine that uses them."""
+    if kwargs.get("draft_model") == "tiny":
+        kwargs = dict(kwargs, draft_model=tdec.decoder_draft(tiny_lm))
+    if error is None:
+        eng = DecodeEngine(tiny_lm, device="cpu", slots=2, page_size=4,
+                           max_ctx=16, **kwargs)
+        drafter = "model" if "draft_model" in kwargs else "ngram"
+        assert eng.stats()["speculative"]["drafter"] == drafter
+        assert eng.stop()
+        return
     with pytest.raises(error):
         DecodeEngine(tiny_lm, device="cpu", slots=2, page_size=4,
                      max_ctx=16, **kwargs)
@@ -110,10 +123,28 @@ def test_unported_engine_features_raise(tiny_lm, kwargs, error):
     ("MXNET_GEN_SPECULATE", "1"), ("MXNET_GEN_ROLE", "decode")])
 def test_unported_features_asked_by_env_raise(monkeypatch, tiny_lm, var,
                                               value):
+    """The knobs of features the port lacks raise; MXNET_GEN_SPECULATE,
+    now ported, turns speculation on."""
     monkeypatch.setenv(var, value)
+    if var == "MXNET_GEN_SPECULATE":
+        eng = DecodeEngine(tiny_lm, device="cpu", slots=2, page_size=4,
+                           max_ctx=16)
+        assert eng.stats()["speculative"]["drafter"] == "ngram"
+        assert eng.stop()
+        return
     with pytest.raises(NotImplementedError):
         DecodeEngine(tiny_lm, device="cpu", slots=2, page_size=4,
                      max_ctx=16)
+
+
+def test_speculative_engine_runs_on_cuda_by_default(no_gpu, tiny_lm):
+    """DecodeEngine(speculate=True) serves on cuda unless the CPU is asked
+    for: without a card and without ``device=`` it raises."""
+    with pytest.raises(RuntimeError):
+        DecodeEngine(tiny_lm, speculate=True, slots=2, page_size=4,
+                     max_ctx=16)
+    with pytest.raises(RuntimeError):
+        tdec.decoder_draft(tiny_lm.config)
 
 
 @pytest.mark.parametrize("kwargs,env", [
