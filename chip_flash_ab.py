@@ -82,10 +82,13 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   with every row at 512, with its phases by ``%globaltimer``);
 - ``dims``: ``chip_smoke.check_decode_dims`` (#12, #13 and #15 over fp
   and int8 pages at every head dim that is a multiple of 8 up to 256,
-  held; timed at ``DECODE_TIMED``) and ``chip_smoke.check_flash_dims``
-  (#5-#7 and the delta kernel at every multiple of 8 up to 120 but 32 and
-  64 in fp32 and bf16, held; timed at ``FLASH_TIMED``); only in a tree
-  whose kernels take those head dims;
+  each held and timed) and ``chip_smoke.check_flash_dims`` (#5-#7 and
+  the delta kernel at every multiple of 8 up to 120 but 32 and 64 in fp32
+  and bf16, held; timed there and at D 64); only in a tree whose kernels
+  take those head dims;
+- ``dims16``: ``chip_smoke.check_decode_dims`` at the multiples of 16 up
+  to 128 alone, each held and timed: the head dims that a checkout from
+  before the multiples of 8 takes too, so that it can be the other TREE;
 - ``spec``: ``chip_smoke.spec_phase`` (speculative decoding on the
   serving model: each row of ``SPEC_RUNS`` beside the same engine
   without speculation, streams held, launches held to the path); only in
@@ -107,7 +110,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("delta", "route", "kernels", "host", "bert", "amp", "epilogue",
-          "lstm", "tp", "paged", "fused", "qmm", "dims", "spec")
+          "lstm", "tp", "paged", "fused", "qmm", "dims", "dims16",
+          "spec")
 
 
 def build(trees, names):
@@ -204,9 +208,15 @@ def run(tree, phases, steps):
         qmm_phase(cs, torch, timer)
     if "dims" in phases:
         report = {}
-        cs.check_decode_dims(torch, timer, report)
-        cs.check_flash_dims(torch, timer, report)
+        cs.check_decode_dims(torch, timer, report, timed=cs.DECODE_DIMS)
+        cs.check_flash_dims(torch, timer, report, timed=sorted(
+            cs.FLASH_NEW_DIMS + (64,)))
         cs.log("dims: %s" % json.dumps(report))
+    if "dims16" in phases:
+        report = {}
+        d16 = range(16, 129, 16)
+        cs.check_decode_dims(torch, timer, report, dims=d16, timed=d16)
+        cs.log("dims16: %s" % json.dumps(report))
     if "spec" in phases:
         lm, _ = decode_models(cs, torch)
         cs.spec_phase(torch, lm, 0)
@@ -308,7 +318,7 @@ def main():
                              ("epilogue", {"epilogue"})) if ps & set(phases)]
     rcs = build(sorted(set(trees)), None if {"bert", "amp", "lstm", "tp",
                                              "paged", "qmm", "epilogue",
-                                             "dims", "spec"}
+                                             "dims", "dims16", "spec"}
                 & set(phases) else names)
     built = {t for t, rc in zip(sorted(set(trees)), rcs) if not rc}
     failed = len(set(trees) - built)

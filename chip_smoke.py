@@ -152,8 +152,9 @@ plain version):
    Speculative decoding (``spec_phase``): 32 requests (three in four
    repeating a 3-8 token phrase to 16-128 tokens, 32-128 new) through
    each row of ``SPEC_RUNS`` (n-gram fp on the sync and the async loop,
-   the draft model, n-gram with int8 weights + int8 KV, int4, tp 2), each
-   beside the same engine without speculation: streams equal (or apart
+   the draft model, n-gram with int8 weights + int8 KV, int4, tp 2, and
+   fp and int8 + int8 KV again with drafts the target accepts in part),
+   each beside the same engine without speculation: streams equal (or apart
    only at a near-tie of the engine's own prefill program, printed),
    launches held to the path (plain steps, each verify step's census, the
    draft model's steps and chunks), tokens/s, accepted / drafted, tokens
@@ -2569,12 +2570,12 @@ def check_tp_phases(torch, timer, report, lm, lm_gqa):
     report["tp_phases"] = rows
 
 
-def decode_instance(D):
-    """The instance of #12 and #15 that serves head dim D: its own (D a
-    compile-time constant) at a multiple of 16 up to 128, else its class's
-    (``csrc/decode_common.cuh:split_class``, D a runtime value); #13 runs
-    every D on its class's."""
-    if D % 16 == 0 and D <= 128:
+def decode_instance(D, name):
+    """The instance of kernel ``name`` that serves head dim D: for #12 and
+    #15 its own (D a compile-time constant) at a multiple of 16 up to 128,
+    else its class's (``csrc/decode_common.cuh:split_class``, D a runtime
+    value); #13 (``decode_attn_phase``) runs every D on its class's."""
+    if D % 16 == 0 and D <= 128 and name != "decode_attn_phase":
         return "own"
     return "class %d" % next(c for c in (32, 64, 128, 256) if D <= c)
 
@@ -2616,20 +2617,21 @@ ROUTE_DIMS = (16, 24, 80, 120)
 FLASH_NEW_SHAPES = ((8, 12, 128), (2, 6, 200))
 
 
-def check_decode_dims(torch, timer, report):
-    """#12, #13 and #15 (fp and int8 pages) at every head dim of
-    DECODE_DIMS against their plain versions, on a 2-layer model of that
-    head dim at B 16 with mixed lengths 1..512 (row 7 of length 0): #12
-    over both layers, #13 on shard 0 and 1 of tp 2, #15 over the model's
-    heads; at DECODE_TIMED each timed beside its plain version and its
-    bound."""
+def check_decode_dims(torch, timer, report, dims=None, timed=DECODE_TIMED):
+    """#12, #13 and #15 (fp and int8 pages) at each head dim of ``dims``
+    (every one of DECODE_DIMS when None) against their plain versions, on
+    a 2-layer model of that head dim at B 16 with mixed lengths 1..512
+    (row 7 of length 0): #12 over both layers, #13 on shard 0 and 1 of tp
+    2, #15 over the model's heads; at the head dims of ``timed`` each
+    timed beside its plain version and its bound."""
     from mxnet_tpu_torch.models import decoder as dec
     from mxnet_tpu_torch.ops.kernels import fused_cell as fc
     from mxnet_tpu_torch.ops.kernels import paged_attention as pa
     pps, B = MAX_CTX // PAGE, SLOTS
     P = B * pps + 1
     rows = {}
-    for D, (C, H, KVH) in DECODE_DIMS.items():
+    for D in DECODE_DIMS if dims is None else dims:
+        C, H, KVH = DECODE_DIMS[D]
         model = perturb_affine(torch, dec.CausalLM(
             vocab_size=64, num_layers=2, units=C, hidden_size=3072,
             num_heads=H, num_kv_heads=KVH, max_length=MAX_CTX, device=DEV,
@@ -2652,10 +2654,8 @@ def check_decode_dims(torch, timer, report):
         vp0 = torch.randn(shape, device=DEV, generator=g) * 0.5
         x = torch.randn(B, C, device=DEV, generator=g)
         row = {}
-        timed = D in DECODE_TIMED
-
         def time_of(fn, **kw):
-            return timer(fn, **kw) if timed else float("nan")
+            return timer(fn, **kw) if D in timed else float("nan")
         # 12: both layers in one launch
         layers = model.params()["layers"]
         table = fc.WeightTable(layers, x.device)
@@ -2734,7 +2734,7 @@ def check_decode_dims(torch, timer, report):
             log("%s D %d (C %d, H %d, KVH %d, B %d mixed lengths; instance "
                 "%s): max_abs_err %.3g (tol %g); kernel %.4f ms plain %.4f "
                 "ms bound %.4f ms (%s)"
-                % (name, D, C, H, KVH, B, decode_instance(D),
+                % (name, D, C, H, KVH, B, decode_instance(D, name),
                    r["max_abs_err"], r["tol"], r["ms"], r["plain_ms"],
                    r["bound_ms"], r["bound_by"]))
             if not r["max_abs_err"] <= r["tol"]:
@@ -2746,7 +2746,7 @@ def check_decode_dims(torch, timer, report):
     report["decode_dims"] = rows
 
 
-def check_flash_dims(torch, timer, report):
+def check_flash_dims(torch, timer, report, timed=FLASH_TIMED):
     """#5-#7 and the delta kernel at the head dims of FLASH_NEW_DIMS, in
     float32 and bfloat16, against the plain versions: ``flash_case`` at
     FLASH_NEW_SHAPES with no mask, causal, a window of 32 and kv_length
@@ -2755,8 +2755,8 @@ def check_flash_dims(torch, timer, report):
     (``flash_attention_sharded``, dp 2 x tp 2, causal) at ROUTE_DIMS,
     forward and gradients against autograd through the plain attention.
     Then #5-#7 and delta timed at
-    the training shape (B 32, H 12, L 128, kv_length, dropout 0.1) at
-    FLASH_TIMED beside their plain versions and bounds."""
+    the training shape (B 32, H 12, L 128, kv_length, dropout 0.1) at the
+    head dims of ``timed`` beside their plain versions and bounds."""
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     g = torch.Generator(device=DEV).manual_seed(51)
     worst, n = {}, 0
@@ -2826,7 +2826,7 @@ def check_flash_dims(torch, timer, report):
     rows = {}
     for dt in (torch.float32, torch.bfloat16):
         peak = TF32X3_FLOPS if dt == torch.float32 else BF16_FLOPS
-        for D in FLASH_TIMED:
+        for D in timed:
             q, k, v, do = (torch.randn(B, H, L, D, device=DEV,
                                        generator=g).to(dt) for _ in range(4))
             out, lse = fa.flash_attention_fwd(q, k, v, **kw)
@@ -3770,7 +3770,14 @@ SPEC_RUNS = (("spec_ngram_sync", "ngram", dict(async_decode=False)),
               dict(quantize="int8", kv_dtype="int8")),
              ("spec_ngram_int4", "ngram",
               dict(quantize="int4", quant_group=128)),
-             ("spec_ngram_tp2", "ngram", dict(tp=2)))
+             ("spec_ngram_tp2", "ngram", dict(tp=2)),
+             ("spec_partial", "partial", {}),
+             ("spec_partial_int8_kv8", "partial",
+              dict(quantize="int8", kv_dtype="int8")))
+#: the rows whose drafts the target must accept in part (0 < accepted <
+#: drafted, with rollbacks): the random model's greedy output repeats its
+#: prompt, which the plain n-gram drafter predicts in full
+SPEC_PARTIAL = ("spec_partial", "spec_partial_int8_kv8")
 SPEC_REQUESTS = 32
 SPEC_K = 4
 #: a speculative stream may leave the plain run's only where the engine's
@@ -3818,6 +3825,29 @@ def own_margin(torch, eng, seq):
                                             row)
     top2 = torch.topk(last, 2).values
     return float(top2[0] - top2[1])
+
+
+def partial_drafter(seed):
+    """An n-gram drafter that changes one token, at a seeded random place,
+    of half its drafts: the verify then rejects the tail from there, and
+    the rejected positions' pages are rolled back, at a rate strictly
+    between 0 and 1."""
+    from mxnet_tpu_torch.serving.speculate import NGramDrafter
+
+    class PartialDrafter(NGramDrafter):
+        name = "partial"
+
+        def __init__(self):
+            super().__init__()
+            self.rng = np.random.default_rng(seed + 2301)
+
+        def propose(self, owner, context, k):
+            out = super().propose(owner, context, k)
+            if out and self.rng.random() < 0.5:
+                i = int(self.rng.integers(len(out)))
+                out[i] = (out[i] + 1) % WIDTHS["vocab_size"]
+            return out
+    return PartialDrafter()
 
 
 class SpecDriven:
@@ -3899,6 +3929,8 @@ def spec_serve(torch, lm, reqs, label, drafter, speculate, tp=1, **kw):
     streams, counts, numbers)."""
     from mxnet_tpu_torch.serving import DecodeEngine
     os.environ["MXNET_DECODE_FUSED"] = "1"
+    if drafter == "partial":
+        drafter = partial_drafter(0)
     eng = DecodeEngine(lm, name="smoke", slots=SLOTS, page_size=PAGE,
                        max_ctx=MAX_CTX, prefill_chunk=CHUNK, device=DEV,
                        sharding=tp_sharding(tp) if tp > 1 else None,
@@ -4007,6 +4039,10 @@ def spec_phase(torch, lm, seed):
                st["rollbacks"], same, len(reqs), len(ties), st["launches"]))
         if not st["verify_steps"] or not st["drafted"]:
             raise AssertionError("%s: no verify step ran" % label)
+        if label in SPEC_PARTIAL and not (
+                0 < st["accepted"] < st["drafted"] and st["rollbacks"]):
+            raise AssertionError("%s: the drafts were not accepted in part"
+                                 % label)
         rows[label] = st
     log("spec rows: %s" % json.dumps(rows))
     return total

@@ -75,9 +75,11 @@ defaults:
   controller turns speculation off for a sequence whose drafts stop
   landing.  On the async loop a verify's input depends on the host's
   acceptance, so a verify retires before the next launch instead of
-  chaining; drafting the next step overlaps the verify in flight
-  (``reuse_predraft``) and slots whose end is decided park in
-  ``finishing`` until the deferred bookkeeping runs.  Fp, quantized and
+  chaining; a host drafter drafts the next step while the verify is in
+  flight (``reuse_predraft``; a draft model, whose launches would queue
+  behind the verify, drafts at launch) and slots whose end is decided
+  park in ``finishing`` until the deferred bookkeeping runs, or until
+  page growth finds the pool dry.  Fp, quantized and
   tensor-parallel engines speculate alike.
 
 The KV page pools are tensors on the engine's device, updated in place by
@@ -577,6 +579,7 @@ class DecodeEngine:
         self._pipe = collections.deque()  # in-flight _Flight entries
         self._flight_owners = {}          # owner -> in-flight refcount
         self._t_force_end = None          # last forced-read end (host gap)
+        self._spec_rec = None             # retired spec step, finishes due
         self._t_last_retire = None        # retire cadence (decode_step)
         self._combine = _decoder.make_token_combine(self.slots)
         # last prefill chunks whose first-token read waited for flights
@@ -1251,6 +1254,10 @@ class DecodeEngine:
                                                               "decode"):
                         return False  # the flush finished or failed it
                     continue
+                # likewise the slots a retired spec step decided but whose
+                # finishes still wait behind this launch
+                if self._finish_decided():
+                    continue
                 # cheapest relief first: drop an LRU prefix-cache entry
                 # (pure capacity) before preempting live work
                 if self.prefix_cache is not None \
@@ -1697,12 +1704,28 @@ class DecodeEngine:
         updates the next launch needs, launch at once (its draft was made
         while the step ran on the card), then do the rest of the
         bookkeeping (metrics, finishes, futures) behind the new launch."""
-        rec = self._retire_spec()
+        rec = self._spec_rec = self._retire_spec()
         try:
             self._launch_spec()
         finally:
+            self._spec_rec = None
             if rec is not None:
                 self._run_spec_deferred(rec)
+
+    def _finish_decided(self):
+        """Finish at once the slots the retired spec step decided (parked
+        in ``finishing`` with their pages held until its deferred
+        bookkeeping).  Page growth calls this when the pool is dry, before
+        it evicts or preempts, so that no live sequence is preempted or
+        failed for pages a decided one frees a few lines later.  Returns
+        whether any slot finished."""
+        rec, done = self._spec_rec, False
+        if rec is not None:
+            for s, _, _, _, _, reason in rec["lanes"]:
+                if reason is not None and s.state == "finishing":
+                    self._finish(s, reason)
+                    done = True
+        return done
 
     def _retire_spec(self):
         """Retire the in-flight spec step: wait for its tokens (its CUDA
@@ -1940,7 +1963,10 @@ class DecodeEngine:
         # overlapped drafting: propose the NEXT step's continuation from
         # the confirmed context while this step runs on the card, covering
         # this step's largest emission plus k; the retire keeps the tail
-        # only if the emission matched it (propose absorbs drafter faults)
+        # only if the emission matched it (propose absorbs drafter faults).
+        # A drafter on the card would only queue behind this step.
+        if spec.drafter.on_device:
+            return True
         for s in live:
             k = spec.budget(self._spec_key(s), spec.k_cap)
             if k <= 0:

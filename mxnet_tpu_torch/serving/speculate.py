@@ -67,6 +67,10 @@ class Drafter:
     an error."""
 
     name = "null"
+    #: whether :meth:`propose` queues work on the engine's stream and reads
+    #: it back: such a drafter waits for any verify in flight, so the async
+    #: engine drafts for it at launch only, never overlapped
+    on_device = False
 
     def propose(self, owner, context, k):
         return []
@@ -138,6 +142,7 @@ class DraftModelDrafter(Drafter):
     nothing."""
 
     name = "model"
+    on_device = True
 
     def __init__(self, model, page_size=8, total_pages=None,
                  prefill_chunk=16, max_seqs=8):

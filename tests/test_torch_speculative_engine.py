@@ -261,6 +261,69 @@ def test_rollback_forks_a_shared_boundary_page(models, monkeypatch):
                                  prefix_cache=False), [prompt], max_new=6)[0]
 
 
+@pytest.mark.parametrize("kind", ["ngram", "model"])
+def test_async_predraft_only_for_host_drafters(models, kind):
+    """The async loop drafts the next step while a verify is in flight for
+    the n-gram drafter (its overlapped drafts are checked at retire) and
+    not for the draft model, whose launches would only queue behind the
+    verify on the engine's stream."""
+    tlm, td = models[1], models[2]
+    eng = _engine(tlm, speculate=True, spec_k=3, drafter=_drafter(kind, td))
+    assert eng._spec.drafter.on_device == (kind == "model")
+    got = _serve(eng, stop=False)
+    try:
+        c = eng.stats()["speculative"]["counters"]
+        checked = c["predraft_hits"] + c["predraft_misses"]
+        assert c["proposals"] > 0
+        if kind == "ngram":
+            assert c["predraft_hits"] > 0
+        else:
+            assert checked == 0
+    finally:
+        assert eng.stop()
+    assert got == _plain_ref(tlm)
+
+
+#: (total pages, A's and B's new tokens) of a pool that holds both
+#: sequences only if A's pages come back as soon as its last verify
+#: decides it: a finish deferred past B's page growth preempts or fails B
+TIGHT_POOLS = {"9p": (9, 9, 24), "11p": (11, 13, 30)}
+
+
+@pytest.mark.parametrize("loop", ["sync", "async"])
+@pytest.mark.parametrize("pool", sorted(TIGHT_POOLS))
+def test_decided_slot_frees_pages_before_preemption(models, pool, loop):
+    """On a tight pool one sequence reaches its length in a verify while
+    the other needs a page for the next one.  The async loop parks the
+    decided slot in ``finishing`` with its pages held until the step's
+    deferred bookkeeping; when the next launch's page growth finds the
+    pool dry it finishes that slot first, so nothing is preempted or
+    failed (as on the sync loop, which finishes it at once) and both
+    streams equal plain decode's."""
+    tlm = models[1]
+    pages, new_a, new_b = TIGHT_POOLS[pool]
+    reqs = [(PROMPTS[0], new_a), (PROMPTS[3], new_b)]
+    eng = _engine(tlm, speculate=True, spec_k=3, drafter="ngram",
+                  total_pages=pages, prefix_cache=False,
+                  async_decode=loop == "async")
+    try:
+        with eng._cond:
+            futs = [eng.submit(list(p), max_new_tokens=n) for p, n in reqs]
+        got = [f.result(timeout=300)["tokens"] for f in futs]
+        c = eng.metrics.snapshot()["models"]["llm"]["counters"]
+        assert c["spec_verify_steps_total"] > 0
+        assert c.get("preemptions_total", 0) == 0
+        assert c.get("errors_total", 0) == 0
+    finally:
+        assert eng.stop()
+    assert eng.alloc.num_used == 0
+    eng.alloc.check_leaks()
+    plain = _engine(tlm, async_decode=False, prefix_cache=False)
+    want = [_serve(plain, [p], max_new=n, stop=False)[0] for p, n in reqs]
+    assert plain.stop()
+    assert got == want
+
+
 @pytest.mark.parametrize("loop", ["sync", "async"])
 @pytest.mark.parametrize("site", ["speculate.draft", "speculate.verify"])
 def test_fault_sites_degrade_to_plain(models, site, loop):
