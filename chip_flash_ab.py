@@ -92,7 +92,14 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
 - ``spec``: ``chip_smoke.spec_phase`` (speculative decoding on the
   serving model: each row of ``SPEC_RUNS`` beside the same engine
   without speculation, streams held, launches held to the path); only in
-  a tree that speculates.
+  a tree that speculates;
+- ``array``: ``chip_smoke.array_core_phase`` (the BERT-base encoder
+  through np/npx and ``npx.rnn`` on the card, held and counted), then
+  the np/npx encoder step and the torch-native ``BERTEncoder``'s on the
+  same weights in turns (np, native, native, np, three rounds), each the
+  median of 10 CUDA-event spans beside the host's enqueue ms of one step
+  (from an idle card to the call's return, median of 5); only in a tree
+  with the array core.
 
 A TREE named more than once runs that many more turns; a TREE whose
 build fails is left out of the turns (the exit code is then 1).  Every
@@ -105,13 +112,15 @@ import argparse
 import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("delta", "route", "kernels", "host", "bert", "amp", "epilogue",
           "lstm", "tp", "paged", "fused", "qmm", "dims", "dims16",
-          "spec")
+          "spec", "array")
 
 
 def build(trees, names):
@@ -220,11 +229,58 @@ def run(tree, phases, steps):
     if "spec" in phases:
         lm, _ = decode_models(cs, torch)
         cs.spec_phase(torch, lm, 0)
+    if "array" in phases:
+        array_phase(cs, torch)
     if "amp" in phases:
         torch.cuda.empty_cache()
         _, st = cs.train(torch, 0, "amp_bf16", cs.TRAIN_B, cs.TRAIN_L, steps,
                          amp=True)
         cs.log("amp %d steps: %s" % (steps, json.dumps(st)))
+
+
+def array_phase(cs, torch):
+    """The ``array`` phase (the module docstring says what it runs)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    cs.array_core_phase(torch, 0)
+    net = cs.encoder_weights(torch, 5, cs.DEV)
+    params = cs.np_params(mx, net, cs.DEV)
+    rng = np.random.default_rng(5)
+    x, w = (mx.np.array(rng.standard_normal(
+        (cs.NP_B, cs.NP_L, cs.BERT["units"])).astype(np.float32), ctx=cs.DEV)
+        for _ in range(2))
+    valid = mx.np.array(rng.integers(cs.NP_L // 2, cs.NP_L + 1, cs.NP_B)
+                        .astype(np.int32), ctx=cs.DEV)
+    gen = torch.Generator(device=cs.DEV).manual_seed(0)
+    for layer in net.layers:
+        for mod in (layer, layer.attention, layer.ffn):
+            mod._dropout, mod._generator = cs.NP_DROPOUT, gen
+
+    def np_step():
+        cs.np_step(mx, params, x, valid, w, cs.NP_DROPOUT)
+
+    def native():
+        out = net(x._data, valid._data)
+        ((out - w._data) ** 2).mean().backward()
+
+    def enqueue_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        t = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        return t
+
+    rows = {"np": [], "native": []}
+    for label, fn in [("np", np_step), ("native", native),
+                      ("native", native), ("np", np_step)] * 3:
+        ms = cs.event_ms(torch, fn, iters=10)
+        host = statistics.median(enqueue_ms(fn) for _ in range(5))
+        rows[label].append((ms, host))
+        cs.log("array step %s (B %d, L %d, dropout %g, fp32): device span "
+               "%.3f ms, host enqueue %.3f ms" % (label, cs.NP_B, cs.NP_L,
+                                                 cs.NP_DROPOUT, ms, host))
+    cs.log("array steps: %s" % json.dumps(rows))
 
 
 def decode_models(cs, torch):

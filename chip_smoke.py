@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's LLM serving (tensor-parallel serving and
-the HTTP surface included), BERT training and LSTM training paths on one
-CUDA card.
+the HTTP surface included), BERT training, LSTM training and array-core
+(``mx.np``/``mx.npx``/``mx.autograd``) paths on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -36,18 +36,18 @@ plain version):
    six run on wgmma and TMA, the fp32 ones in 3xTF32 with out, dq, dk and
    dv within the tighter TOL_FLASH_3XTF32), (B, H, L) of
    (32, 12, 128), (4, 12, 2048) and a ragged (2, 6, 200), with no mask,
-   causal, a window of 32 and kv_length with a row of length 0, at
-   dropout 0 and 0.1 (144 cases); the dropout mask read off the output
-   (q = k = 0, V = I) in every element at rates 0.1 and 0.5 and seeds 0
-   and 2**32 - 1; the three kernels on strided views (BERT's permuted
-   projection and transposed dO, head slices; the backward at D 32, 64
-   and 128) and into output views, bit for bit their results on
-   contiguous copies; the three kernels timed at the training shape in
-   fp32 and bf16 and at the long-context shape (B 4, L 2048) in bf16,
-   beside their plain versions and SDPA, on BERT's layout, the
-   kernels' fixed part (every kv_length 0) in both types, and at
-   dropout 0 beside SDPA given the same key mask (the same function).
-   The LSTM time loop
+   causal, a window of 32 and kv_length with a row of length 0 (and one
+   of length 1 where B > 2), at dropout 0 and 0.1 (144 cases); the
+   dropout mask read off the output (q = k = 0, V = I) in every element
+   at rates 0.1 and 0.5 and seeds 0 and 2**32 - 1; the three kernels on
+   strided views (BERT's permuted projection and transposed dO, head
+   slices; the backward at D 32, 64 and 128) and into output views, bit
+   for bit their results on contiguous copies; the three kernels timed
+   at the training shape in fp32 and bf16 and at the long-context shape
+   (B 4, L 2048) in bf16, beside their plain versions and SDPA, on
+   BERT's layout, the kernels' fixed part (every kv_length 0) in both
+   types, and at dropout 0 beside SDPA given the same key mask (the same
+   function).  The LSTM time loop
    (#10 forward, #11 backward: its gate recompute and its time loop)
    against its plain versions, #11's recompute against its own, two
    launches of #10 and of #11 bit for bit, and #11 (through the autograd
@@ -85,10 +85,11 @@ plain version):
    and int8 pages at every head dim that is a multiple of 8 up to 256, on
    a 2-layer model of that head dim at B 16 with mixed lengths, each held,
    and timed at ``DECODE_TIMED``; #5-#7 and the delta kernel at every
-   multiple of 8 up to 120 but 32 and 64 in fp32 and bf16 (416 flash cases
-   at (8, 12, 128) and (2, 6, 200), every mask, dropout 0 and 0.1), the
-   #16 route at ``ROUTE_DIMS``, timed at the training shape at
-   ``FLASH_TIMED``.
+   multiple of 8 up to 120 but 32 and 64, and at D 12, 20, 36 and 100,
+   which the wrappers zero-pad to the next multiple of 8
+   (``FLASH_PADDED``), in fp32 and bf16 (544 flash cases at (8, 12, 128)
+   and (2, 6, 200), every mask, dropout 0 and 0.1), the #16 route at
+   ``ROUTE_DIMS``, timed at the training shape at ``FLASH_TIMED``.
    ``--kernels-only`` stops here.
 3. Serving: a ``CausalLM`` at BERT-base widths (vocab 30522, 12 layers,
    768 units, FFN 3072, 12 heads, max length 512; random weights from
@@ -193,10 +194,32 @@ plain version):
    and every tensor autograd saves must be on the card.  Then one SGD
    step of a small word LM (vocab 100, 2 x 64, B 4, T 8) on the card and
    on CPU copies: loss, gradients and weights agree.
-6. The kernels line (launches summed over the serving runs, the prefix,
+6. The array and op core (``array_core_phase``): the BERT-base encoder
+   (12 layers, 768 units, FFN 3072, 12 heads) composed of ``mx.np`` /
+   ``mx.npx`` ops (``models.bert.encoder_np``, the JAX package's
+   composition with flash attention and the fused epilogues) with
+   ``np.ndarray`` parameters under ``autograd.record()`` at B 32, L 128,
+   valid lengths L/2..L, dropout 0.1: 3 forward + backward steps in fp32
+   and one under ``amp.init("bfloat16")`` + ``amp.op_scope()`` (on step
+   1's dropout masks, its loss within 1% of step 1's), the second fp32
+   step under ``torch.cuda.set_sync_debug_mode("error")`` (it must
+   enqueue without a host wait), each step
+   launching ``bias_gelu`` and its backward 12 times,
+   ``bias_dropout_residual`` forward and backward 24 times each and #5,
+   the delta kernel, #6 and #7 12 times; then the 2 x 650 LSTM through
+   ``npx.rnn`` on one flat parameter vector (B 32, T 35), forward and
+   backward: #10 and #11's two kernels twice each.  Every ``.grad`` must
+   be on the card.  At dropout 0 the encoder's output and gradients are
+   held to ``models.bert.BERTEncoder`` on the same weights, ``npx.rnn``
+   to ``gluon.rnn.LSTM``; the encoder at B 2, L 32 with hash dropout 0.1
+   (the FFN's ``npx.dropout`` off) to the same program on the CPU;
+   ``nd.save``/``nd.load`` round trips on the card, npz and legacy; the
+   np/npx step timed beside the torch-native encoder's by CUDA events,
+   and one ``apply_op`` dispatch's host time beside ``torch.add``'s.
+7. The kernels line (launches summed over the serving runs, the prefix,
    session, tiny-LM, HTTP and speculative phases, the sharded-attention
-   path and the training phases), the card line and,
-   last, the result line ``{"ok": true, "device": {...}}``.
+   path, the training phases and the array-core phase), the card line
+   and, last, the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1196,6 +1219,29 @@ def rel_err(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
+def one_key_bounds(q, k, v, do, rate):
+    """The scale of the rounding noise in dq and dk of (B, H, L, D) rows
+    whose only valid key is key 0, element by element.  There dS_i =
+    dP_i * keep * ks - delta_i is a difference of two dot products of dO_i
+    with v_0 (delta through O = ks v_0), each rounded to within a small
+    multiple of eps * |dO_i| |v_0|.  So dq_i = scale dS_i k_0 is held to
+    scale ks |dO_i| |v_0| |k_0| (a bound, not a typical size), and dk_j =
+    scale sum_i dS_i q_i, whose terms' roundings are independent, to scale
+    ks |v_j| sqrt(sum_i |dO_i|^2 q_i^2).  A value of ordinary size, dS_i of
+    about |dO_i| |v_0| / sqrt(D), is 1 / sqrt(D) of these: a kernel writing
+    one into such a row exceeds tol times the bound 1 / (tol sqrt(D))
+    times over, 11x and more in bf16 up to D 128 and ~10^4x in fp32."""
+    D = q.shape[-1]
+    ks = 1.0 / (1.0 - rate) if rate else 1.0
+    c = ks / D ** 0.5
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    nv = v.norm(dim=-1, keepdim=True)
+    ndo = do.norm(dim=-1, keepdim=True)
+    b_dq = c * ndo * nv[:, :, :1] * k[:, :, :1].abs()
+    b_dk = c * nv * (ndo.square() * q.square()).sum(2, keepdim=True).sqrt()
+    return b_dq, b_dk
+
+
 def flash_case(torch, fa, g, B, H, L, D, dt, mask, rate):
     """One flash check: the kernels' out, lse, dq, dk, dv against the plain
     version (forward and backward with the kernels' rounding) and against
@@ -1214,6 +1260,8 @@ def flash_case(torch, fa, g, B, H, L, D, dt, mask, rate):
     elif mask == "kv_length":
         kvl = torch.randint(1, L + 1, (B,), device=DEV, generator=g)
         kvl[0] = 0
+        if B > 2:
+            kvl[1] = 1
         kw["kv_length"] = kvl
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     pout, plse = fa.flash_attention_plain(q, k, v, **kw)
@@ -1229,15 +1277,44 @@ def flash_case(torch, fa, g, B, H, L, D, dt, mask, rate):
     pdq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     pdk, pdv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
                                                 **kw)
-    errs.update(dq=rel_err(dq, pdq), dk=rel_err(dk, pdk), dv=rel_err(dv, pdv))
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    ref, _ = fa.flash_attention_plain(*leaves, **kw)
-    grads = torch.autograd.grad(ref, leaves, do)
-    errs["autograd"] = max(rel_err(a, b) for a, b in zip((dq, dk, dv), grads))
     f32 = dt == torch.float32
     tol = TOL_FLASH_F32 if f32 else TOL_FLASH_BF16
     tol_ag = TOL_FLASH_F32 if f32 else TOL_FLASH_GRAD_BF16
-    tols = dict(lse=tol, autograd=tol_ag,
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref, _ = fa.flash_attention_plain(*leaves, **kw)
+    grads = torch.autograd.grad(ref, leaves, do)
+    # a batch row with exactly one valid key has P = 1 there and dS = P (dP
+    # - delta) = 0, so its dq and dk are 0 in exact arithmetic and both
+    # sides hold rounding noise: the ratio over their largest element means
+    # nothing there.  Those rows' differences are held element by element
+    # to tol times the size of the terms whose rounding makes the noise
+    # (one_key_bounds; "one_key" and "one_key_autograd" are the worst
+    # difference over that, at most 1), the other rows to the ratio over
+    # their largest element.
+    rows = torch.ones(B, dtype=torch.bool, device=q.device)
+    if mask == "kv_length":
+        one = kvl == 1
+        rows = ~one
+        if bool(one.any()):
+            b_dq, b_dk = one_key_bounds(q[one], k[one], v[one], do[one], rate)
+
+            def over(a, b, t, bnd):
+                return float(((a[one].float() - b[one].float()).abs()
+                              / (t * bnd).clamp_min(1e-30)).max())
+
+            errs["one_key"] = max(over(dq, pdq, tol, b_dq),
+                                  over(dk, pdk, tol, b_dk))
+            errs["one_key_autograd"] = max(over(dq, grads[0], tol_ag, b_dq),
+                                           over(dk, grads[1], tol_ag, b_dk))
+
+    def rows_err(a, b):
+        return rel_err(a[rows], b[rows]) if bool(rows.any()) else 0.0
+
+    errs.update(dq=rows_err(dq, pdq), dk=rows_err(dk, pdk),
+                dv=rel_err(dv, pdv))
+    errs["autograd"] = max(rows_err(dq, grads[0]), rows_err(dk, grads[1]),
+                           rel_err(dv, grads[2]))
+    tols = dict(lse=tol, autograd=tol_ag, one_key=1.0, one_key_autograd=1.0,
                 **{n: TOL_FLASH_3XTF32 if f32 else tol
                    for n in ("out", "dq", "dk", "dv")})
     bad = [n for n, e in errs.items() if not e <= tols[n]]
@@ -1855,7 +1932,8 @@ def check_flash_attention(torch, timer, report):
     float32 and bfloat16 at D 32, 64 and 128, at (B, H, L)
     of the training shape (BH 384), the long-context shape (BH 48) and a
     ragged L 200, with no mask, causal, a window of 32 and kv_length with
-    a row of length 0, at dropout 0 and 0.1; then the mask exactly, and
+    a row of length 0 (and one of length 1 where B > 2), at dropout 0 and
+    0.1; then the mask exactly, and
     the times at the training shape (and the long one in bf16)."""
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     g = torch.Generator(device=DEV).manual_seed(11)
@@ -2606,12 +2684,16 @@ DECODE_DIMS.update({16: (768, 48, 16), 32: (768, 24, 8), 48: (768, 16, 4),
 #: range each serves
 DECODE_TIMED = (8, 24, 40, 64, 72, 120, 136, 160, 192, 200, 256)
 #: the head dims the flash kernels take on the kernels of the next of 32,
-#: 64 and 128 (their columns past D zero-filled by TMA)
-FLASH_NEW_DIMS = (8, 16, 24, 40, 48, 56, 72, 80, 88, 96, 104, 112, 120)
+#: 64 and 128 (their columns past D zero-filled by TMA), and (FLASH_PADDED)
+#: head dims that are not a multiple of 8, which the wrappers zero-pad to
+#: the next multiple of 8 before the kernels run
+FLASH_PADDED = (12, 20, 36, 100)
+FLASH_NEW_DIMS = (8, 16, 24, 40, 48, 56, 72, 80, 88, 96, 104, 112,
+                  120) + FLASH_PADDED
 #: the head dims check_flash_dims times at the training shape
-FLASH_TIMED = (8, 16, 24, 40, 64, 80, 96, 120)
+FLASH_TIMED = (8, 16, 24, 40, 64, 80, 96, 120) + FLASH_PADDED
 #: the head dims of the #16 route's check
-ROUTE_DIMS = (16, 24, 80, 120)
+ROUTE_DIMS = (16, 20, 24, 80, 120)
 #: (B, H, L) of the flash checks at FLASH_NEW_DIMS: the training shape's
 #: L with fewer rows, and the ragged L
 FLASH_NEW_SHAPES = ((8, 12, 128), (2, 6, 200))
@@ -2750,7 +2832,8 @@ def check_flash_dims(torch, timer, report, timed=FLASH_TIMED):
     """#5-#7 and the delta kernel at the head dims of FLASH_NEW_DIMS, in
     float32 and bfloat16, against the plain versions: ``flash_case`` at
     FLASH_NEW_SHAPES with no mask, causal, a window of 32 and kv_length
-    with a row of length 0, at dropout 0 and 0.1; the delta kernel at
+    with a row of length 0 (and one of length 1 where B > 2), at dropout 0
+    and 0.1; the delta kernel at
     those shapes and DELTA_EDGE_SHAPES; the #16 route
     (``flash_attention_sharded``, dp 2 x tp 2, causal) at ROUTE_DIMS,
     forward and gradients against autograd through the plain attention.
@@ -2863,6 +2946,29 @@ def check_flash_dims(torch, timer, report, timed=FLASH_TIMED):
                     % (name, B, H, L, D, str(dt)[6:], r["ms"], r["plain_ms"],
                        bms, by))
                 rows["%s %s D %d" % (name, str(dt)[6:], D)] = r
+            if D % 8:
+                # the main path at such a D: forward and backward through
+                # flash_attention, which pads q, k, v and dO once, beside
+                # the same at the padded D
+                Dp = D + -D % 8
+                pad_in = [torch.randn(B, H, L, Dp, device=DEV,
+                                      generator=g).to(dt) for _ in range(4)]
+
+                def step(ts, grad):
+                    ls = [t.detach().requires_grad_() for t in ts]
+                    return torch.autograd.grad(fa.flash_attention(*ls, **kw),
+                                               ls, grad)
+
+                # autograd's enqueue of the whole step outlasts FLASH_SPIN:
+                # spin ~2 ms, so the time is the card's
+                r = dict(ms=timer(lambda: step((q, k, v), do),
+                                  spin=4_000_000),
+                         padded_ms=timer(lambda: step(pad_in[:3], pad_in[3]),
+                                         spin=4_000_000))
+                log("flash_attention forward + backward (B %d, H %d, L %d, "
+                    "kv_length, rate 0.1) %s: D %d %.4f ms, D %d %.4f ms"
+                    % (B, H, L, str(dt)[6:], D, r["ms"], Dp, r["padded_ms"]))
+                rows["flash_attention fwd+bwd %s D %d" % (str(dt)[6:], D)] = r
         torch.cuda.empty_cache()
     report["flash_dims"] = rows
 
@@ -4826,6 +4932,351 @@ def lm_card_vs_cpu_step(torch, seed):
                              "CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the array and op core (mx.np, mx.npx, mx.autograd on the card)
+# ---------------------------------------------------------------------------
+#: the BERT-base encoder through np/npx: B, L, dropout, steps in fp32
+NP_B, NP_L, NP_DROPOUT, NP_STEPS = 32, 128, 0.1, 3
+#: kernel launches of one np/npx encoder step (forward and backward, 12
+#: layers): FFN1's bias + GELU, the two residual joins, the attention
+NP_PER_STEP = {"bias_gelu": 12, "bias_gelu_backward": 12,
+               "bias_dropout_residual_fwd": 24,
+               "bias_dropout_residual_bwd": 24, "flash_attention_fwd": 12,
+               "flash_attention_bwd_dq": 12, "flash_attention_bwd_dkv": 12,
+               "flash_attention_bwd_delta": 12}
+#: of one npx.rnn LSTM forward and backward over 2 layers
+NP_RNN_LAUNCHES = {"lstm_sequence_fwd": 2, "lstm_sequence_bwd": 2,
+                   "lstm_sequence_bwd_gates": 2}
+# the np/npx encoder against the torch-native BERTEncoder on the same
+# weights at dropout 0: the same kernels on the same shapes, the graphs
+# built by different code (split views vs indexing), so fp32 sums may
+# differ in order only; the output and each gradient within 1e-5 of the
+# tensor's largest element
+TOL_NP_ENCODER = 1e-5
+# npx.rnn against gluon.rnn.LSTM on the same weights: the same kernels
+TOL_NP_LSTM = 1e-6
+# the np program at B 2, L 32 on the card and on the CPU (plain
+# versions), hash dropout 0.1: fp32 in another order through 12 layers
+# (as card_vs_cpu_step); 1e-4 of each gradient's largest element
+TOL_NP_CARD_CPU = 1e-4
+
+
+def encoder_weights(torch, seed, device):
+    """The port's torch-native ``BERTEncoder`` at BERT-base widths with
+    weights N(0, 0.02) and biases / LN affines N(0, 0.1) (gammas about 1)
+    drawn on the CPU from ``seed``."""
+    from mxnet_tpu_torch.models import bert
+    net = bert.BERTEncoder(BERT["num_layers"], BERT["units"],
+                           BERT["hidden_size"], BERT["num_heads"],
+                           dropout=0.0, device=device)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if p.dim() == 1:
+                base = 1.0 if name.endswith("gamma") else 0.0
+                p.copy_(base + 0.1 * torch.randn(p.shape, generator=g))
+            else:
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    return net
+
+
+def np_params(mx, net, device):
+    """The encoder's parameters as mx.np arrays with gradients attached
+    (copies of the module's)."""
+    out = {}
+    for name, p in net.named_parameters():
+        a = mx.np.array(p.detach(), ctx=device)
+        a.attach_grad()
+        out[name] = a
+    return out
+
+
+def np_step(mx, params, x, valid, w, dropout, ffn_dropout=None):
+    """One forward and backward of the np/npx encoder with the scalar loss
+    mean((out - w)**2): returns (the loss array, the output array); nothing
+    waits on the card."""
+    from mxnet_tpu_torch.models.bert import encoder_np
+    with mx.autograd.record():
+        out = encoder_np(params, x, valid, BERT["num_heads"], dropout,
+                         ffn_dropout=ffn_dropout)
+        loss = ((out - w) ** 2).mean()
+    loss.backward()
+    return loss, out
+
+
+def grad_err(torch, got, want):
+    """The largest error of ``got`` against ``want`` over each tensor's
+    largest element."""
+    return max(float((a.detach() - b.detach()).abs().max())
+               / max(float(b.detach().abs().max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def host_dispatch_us(torch, mx, n=2000):
+    """Host microseconds of one ``apply_op`` dispatch (``mx.np.add`` on two
+    (256,) arrays on the card, recording off) beside ``torch.add`` on
+    their tensors: the median of ``n`` calls' perf_counter spans."""
+    a = mx.np.ones((256,), ctx=DEV)
+    b = mx.np.ones((256,), ctx=DEV)
+    ta, tb = a._data, b._data
+    out = {}
+    for label, fn in (("np.add", lambda: mx.np.add(a, b)),
+                      ("torch.add", lambda: torch.add(ta, tb))):
+        for _ in range(50):
+            fn()
+        ts = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t) * 1e6)
+        torch.cuda.synchronize()
+        out[label] = statistics.median(ts)
+    return out
+
+
+def event_ms(torch, fn, iters=5):
+    """Median device-timeline ms of ``fn`` between two CUDA events (the
+    host runs ahead as it does in training; one warm-up call first)."""
+    fn()
+    ms = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ms.append(s.elapsed_time(e))
+    return statistics.median(ms)
+
+
+def lstm_flat_grad(torch, lstm):
+    """The gradients of a gluon LSTM's parameters in the order of its flat
+    vector (``_flat_params``: weights layer-major, then biases)."""
+    sfx = [s for s, _ in lstm._suffixes()]
+    chunks = [getattr(lstm, k + s).grad.reshape(-1) for s in sfx
+              for k in ("i2h_weight", "h2h_weight")]
+    chunks += [getattr(lstm, k + s).grad for s in sfx
+               for k in ("i2h_bias", "h2h_bias")]
+    return torch.cat(chunks)
+
+
+def array_core_phase(torch, seed):
+    """The array and op core on the card.  The main path (counted): the
+    BERT-base encoder composed of np/npx ops (``models.bert.encoder_np``,
+    the JAX package's composition) with ``np.ndarray`` parameters under
+    ``autograd.record()``, NP_STEPS forward + backward steps in fp32 at
+    dropout 0.1 and one under AMP bf16 (``amp.init`` + ``amp.op_scope``),
+    each step's launches held to NP_PER_STEP; then the 2 x 650 LSTM
+    through ``npx.rnn`` on one flat parameter vector, forward and
+    backward (NP_RNN_LAUNCHES).  Then the checks: every ``.grad`` on the
+    card; at dropout 0 the encoder's output and gradients against the
+    port's ``BERTEncoder`` on the same weights; the LSTM against
+    ``gluon.rnn.LSTM``; the encoder at B 2, L 32 with hash dropout 0.1 on
+    the card and on the CPU (the same masks for one seed); ``nd.save`` /
+    ``nd.load`` round trips, npz and legacy; the np/npx step beside the
+    torch-native step (CUDA events) and the host microseconds of one
+    ``apply_op`` dispatch.  Returns the main path's launches."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon import rnn as grnn
+    from mxnet_tpu_torch.ops import rnn as orn
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    C = BERT["units"]
+    net = encoder_weights(torch, seed + 5, DEV)
+    params = np_params(mx, net, DEV)
+    rng = np.random.default_rng(seed + 5)
+    x_np = rng.standard_normal((NP_B, NP_L, C)).astype(np.float32)
+    w_np = rng.standard_normal((NP_B, NP_L, C)).astype(np.float32)
+    valid_np = rng.integers(NP_L // 2, NP_L + 1, NP_B).astype(np.int32)
+    x = mx.np.array(x_np, ctx=DEV)
+    w = mx.np.array(w_np, ctx=DEV)
+    valid = mx.np.array(valid_np, ctx=DEV)
+    # -- the main path, counted -------------------------------------------
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    losses, prev = [], launch_counts()
+    for step in range(NP_STEPS + 1):
+        bf16 = step == NP_STEPS
+        if step in (0, NP_STEPS):
+            # the AMP step draws the dropout masks of step 0 again
+            mx.random.seed(seed)
+        if bf16:
+            saved_target = amp._TARGET
+            amp.init("bfloat16")
+            with amp.op_scope():
+                loss, out = np_step(mx, params, x, valid, w, NP_DROPOUT)
+            amp._TARGET = saved_target
+            if out.dtype != mx.np.bfloat16 or fa.flash_attention.last_dtype \
+                    != torch.bfloat16:
+                raise AssertionError("np/npx encoder under AMP: output %s, "
+                                     "flash kernels %s" % (
+                                         out.dtype,
+                                         fa.flash_attention.last_dtype))
+        elif step == 1:
+            # the step enqueues without a host wait: an operation that
+            # synchronises the stream raises here
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                loss, out = np_step(mx, params, x, valid, w, NP_DROPOUT)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        else:
+            loss, out = np_step(mx, params, x, valid, w, NP_DROPOUT)
+        losses.append(float(loss))
+        now = launch_counts()
+        got = {k: now[k] - prev[k] for k in KERNELS}
+        prev = now
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(NP_PER_STEP)
+        if got != want:
+            raise AssertionError("np/npx encoder step %d launches %s, want "
+                                 "%s" % (step, got, want))
+    L2, H2 = LM["nlayers"], LM["nhid"]
+    T, Bl = LM_T, LM_B
+    lstm = grnn.LSTM(H2, num_layers=L2, input_size=H2, device=DEV)
+    g = torch.Generator().manual_seed(seed + 6)
+    with torch.no_grad():
+        for p in lstm.parameters():
+            p.copy_((0.08 * torch.randn(p.shape, generator=g)))
+    xs_np = rng.standard_normal((T, Bl, H2)).astype(np.float32)
+    st_np = [rng.standard_normal((L2, Bl, H2)).astype(np.float32)
+             for _ in range(2)]
+    flat = mx.np.array(lstm._flat_params().detach(), ctx=DEV)
+    if flat.shape != (orn.param_size("lstm", H2, H2, L2),):
+        raise AssertionError("npx.rnn flat vector of %s" % (flat.shape,))
+    xs = mx.np.array(xs_np, ctx=DEV)
+    h0, c0 = (mx.np.array(s, ctx=DEV) for s in st_np)
+    for a in (flat, xs, h0, c0):
+        a.attach_grad()
+    with mx.autograd.record():
+        rout, hT, cT = mx.npx.rnn(xs, flat, h0, c0, mode="lstm",
+                                  state_size=H2, num_layers=L2)
+        rloss = (rout * rout).sum() + hT.sum() + (cT * cT).sum()
+    rloss.backward()
+    counts = launch_counts()
+    rnn_got = {k: counts[k] - prev[k] for k in KERNELS}
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(NP_RNN_LAUNCHES)
+    if rnn_got != want:
+        raise AssertionError("npx.rnn launches %s, want %s" % (rnn_got,
+                                                                want))
+    log("array core: np/npx BERT-base encoder (B %d, L %d, dropout %g) "
+        "losses %s (fp32 x %d, then AMP bf16 on step 1's masks); npx.rnn "
+        "%d x %d LSTM (B %d, T %d) forward and backward; launches %s"
+        % (NP_B, NP_L, NP_DROPOUT, " ".join("%.6f" % v for v in losses),
+           NP_STEPS, L2, H2, Bl, T, {k: v for k, v in counts.items() if v}))
+    if not all(np.isfinite(losses)) or abs(losses[-1] - losses[0]) > \
+            TOL_AMP_LOSS * abs(losses[0]):
+        raise AssertionError("np/npx encoder losses %s: AMP bf16 differs "
+                             "from fp32 step 0 (the same masks) by more "
+                             "than %g" % (losses, TOL_AMP_LOSS))
+    # -- checks (launches not counted) --------------------------------------
+    card = torch.device(DEV).type
+    bad = [n for n, p in params.items() if p.grad is None
+           or p.grad.ctx.type != card]
+    bad += [n for n, a in (("flat", flat), ("x", xs), ("h0", h0), ("c0", c0))
+            if a.grad is None or a.grad.ctx.type != card]
+    if bad:
+        raise AssertionError("gradients missing or off the card: %s" % bad)
+    # the encoder at dropout 0 against the torch-native BERTEncoder
+    for p in params.values():
+        p.grad[:] = 0
+    _, out = np_step(mx, params, x, valid, w, 0.0)
+    ref = net(x._data, valid._data)
+    ((ref - w._data) ** 2).mean().backward()
+    names = [n for n, _ in net.named_parameters()]
+    err_out = grad_err(torch, [out._data], [ref.detach()])
+    err_g = grad_err(torch, [params[n].grad._data for n in names],
+                     [p.grad for _, p in net.named_parameters()])
+    log("array core: np/npx encoder vs models.bert.BERTEncoder on the same "
+        "weights (dropout 0): output err / max %.3g, gradients err / max "
+        "%.3g (tol %g)" % (err_out, err_g, TOL_NP_ENCODER))
+    if not (err_out <= TOL_NP_ENCODER and err_g <= TOL_NP_ENCODER):
+        raise AssertionError("np/npx encoder disagrees with BERTEncoder")
+    # npx.rnn against gluon.rnn.LSTM on the same weights
+    lx = torch.tensor(xs_np, device=DEV)
+    ls = [torch.tensor(s, device=DEV) for s in st_np]
+    lout, (lh, lc) = lstm(lx, ls)
+    ((lout * lout).sum() + lh.sum() + (lc * lc).sum()).backward()
+    err_r = grad_err(torch, [rout._data, hT._data, cT._data,
+                             flat.grad._data],
+                     [lout.detach(), lh.detach(), lc.detach(),
+                      lstm_flat_grad(torch, lstm)])
+    log("array core: npx.rnn vs gluon.rnn.LSTM on the same weights: outputs "
+        "and flat gradient err / max %.3g (tol %g)" % (err_r, TOL_NP_LSTM))
+    if not err_r <= TOL_NP_LSTM:
+        raise AssertionError("npx.rnn disagrees with gluon.rnn.LSTM")
+    # the np program at B 2, L 32 on the card and on the CPU, hash dropout
+    res = {}
+    small = encoder_weights(torch, seed + 7, "cpu")
+    xsm = rng.standard_normal((2, 32, C)).astype(np.float32)
+    wsm = rng.standard_normal((2, 32, C)).astype(np.float32)
+    vsm = np.array([32, 19], np.int32)
+    for dev in (DEV, "cpu"):
+        with mx.Context(dev):
+            ps = np_params(mx, small, dev)
+            mx.random.seed(seed + 7)
+            lv, o = np_step(mx, ps, mx.np.array(xsm), mx.np.array(vsm),
+                            mx.np.array(wsm), 0.1, ffn_dropout=0.0)
+            res[dev] = (float(lv), [o._data.detach().cpu()] + [
+                ps[n].grad._data.cpu() for n in sorted(ps)])
+    lerr = abs(res[DEV][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    gerr = grad_err(torch, res[DEV][1], res["cpu"][1])
+    log("array core: np/npx encoder at B 2, L 32, hash dropout 0.1, card vs "
+        "CPU: loss rel err %.3g, output and gradients err / max %.3g (tol "
+        "%g)" % (lerr, gerr, TOL_NP_CARD_CPU))
+    if not (lerr <= TOL_NP_CARD_CPU and gerr <= TOL_NP_CARD_CPU):
+        raise AssertionError("np/npx program on the card disagrees with the "
+                             "CPU")
+    # nd.save / nd.load round trips on the card
+    arrs = {"w": params["layers.0.attention.qkv.weight"],
+            "i": mx.np.array(valid_np, ctx=DEV),
+            "b": mx.np.array(valid_np > 70, ctx=DEV)}
+    with tempfile.TemporaryDirectory() as d:
+        for fmt in ("npz", "legacy"):
+            f = os.path.join(d, "a." + fmt)
+            mx.nd.save(f, arrs, format=fmt)
+            back = mx.nd.load(f, ctx=DEV)
+            for k, a in arrs.items():
+                if back[k].ctx.type != card or back[k].dtype != a.dtype \
+                        or not torch.equal(back[k]._data, a._data):
+                    raise AssertionError("nd.load(%s) of %s differs" % (fmt,
+                                                                        k))
+    log("array core: nd.save / nd.load on the card, npz and legacy: 3 "
+        "arrays (float32, int32, bool) equal after the round trip")
+    # the np/npx step beside the torch-native step, and one op's dispatch
+    np_ms = event_ms(torch, lambda: np_step(mx, params, x, valid, w,
+                                            NP_DROPOUT))
+    net.train()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    for layer in net.layers:
+        for mod in (layer, layer.attention, layer.ffn):
+            mod._dropout, mod._generator = NP_DROPOUT, gen
+
+    def native():
+        out = net(x._data, valid._data)
+        ((out - w._data) ** 2).mean().backward()
+    nat_ms = event_ms(torch, native)
+    host = host_dispatch_us(torch, mx)
+    log("array core: encoder step (B %d, L %d, dropout %g, fp32, forward + "
+        "backward, CUDA events, median of 5): np/npx %.3f ms, torch-native "
+        "BERTEncoder %.3f ms (ratio %.3f); host us a dispatch (median of "
+        "2000): %s; card %s"
+        % (NP_B, NP_L, NP_DROPOUT, np_ms, nat_ms, np_ms / nat_ms,
+           json.dumps({k: round(v, 2) for k, v in host.items()}),
+           card_line()))
+    log("array core phase done in %.1f s" % (time.perf_counter() - t0))
+    del net, params, small
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in KERNELS}, dict(
+        np_step_ms=np_ms, native_step_ms=nat_ms,
+        host_us_np_add=host["np.add"], host_us_torch_add=host["torch.add"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5053,6 +5504,8 @@ def main():
         raise AssertionError("LSTM LM AMP step-1 loss disagrees with fp32")
     lm_card_vs_cpu_step(torch, args.seed)
     log("LSTM training done at %.1f s" % (time.perf_counter() - t_start))
+    paths["array_core"], array_core = array_core_phase(torch, args.seed)
+    log("array core done at %.1f s" % (time.perf_counter() - t_start))
     kernels = []
     for name in KERNELS:
         row = report[name]
@@ -5073,6 +5526,7 @@ def main():
                     "lstm_bf16": report["lstm_bf16"],
                     "fused": report["fused"],
                     "tp_phases": report["tp_phases"],
+                    "array_core": array_core,
                     "sharded_attention": report["sharded_attention"]}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -22,12 +22,35 @@ Ported so far:
   with a ``parallel.ShardingConfig``, every layer split over tp shards
   that run in turn on the one card, through the attention and FFN phase
   kernels; and ``ops.attention.flash_attention_sharded`` over a (dp, tp)
-  mesh.
+  mesh;
+- the array and op core — ``mx.np`` (``numpy/``), ``mx.npx``
+  (``numpy_extension/``), ``mx.nd``, ``mx.autograd`` and ``mx.random``
+  on ``ndarray``s that hold torch tensors, ``npx``'s fused ops routed to
+  the kernels.
 
-Entry points run on ``cuda`` unless ``device="cpu"`` is passed
+Entry points run on ``cuda`` unless ``device="cpu"`` (or ``ctx=mx.cpu()``,
+or an open ``mx.Context("cpu")`` scope) asks for the CPU
 (``context.resolve``).
+
+Import convention: ``import mxnet_tpu_torch as mx``, then ``mx.np``,
+``mx.npx``, ``mx.nd``, ``mx.autograd``, ``mx.random``, ``mx.waitall``.
 """
 from . import config, context, faults, profiler  # noqa: F401
-from .context import cpu, gpu  # noqa: F401
+from .context import (cpu, gpu, Context, Device, current_context,  # noqa
+                      num_gpus)
 
-__all__ = ["config", "context", "faults", "profiler", "cpu", "gpu"]
+from . import ndarray as _ndarray_mod  # noqa: F401
+from .ndarray import ndarray, NDArray, waitall  # noqa: F401
+from . import autograd  # noqa: F401
+from . import util  # noqa: F401
+from .util import is_np_array, is_np_shape, set_np, reset_np  # noqa: F401
+from . import numpy as np  # noqa: F401
+from . import numpy_extension as npx  # noqa: F401
+from . import _rng  # noqa: F401
+from . import random  # noqa: F401
+from . import nd  # noqa: F401
+
+__all__ = ["config", "context", "faults", "profiler", "cpu", "gpu",
+           "Context", "Device", "current_context", "num_gpus", "ndarray",
+           "NDArray", "waitall", "autograd", "util", "np", "npx", "random",
+           "nd", "is_np_array", "is_np_shape", "set_np", "reset_np"]

@@ -9,6 +9,11 @@ copies (autograd carries the gradients back through the casts), and the
 outputs return in fp32.  bf16 has fp32's exponent range, so it needs no
 loss scaling; ``init("float16")`` + ``init_trainer`` attach the dynamic
 :class:`LossScaler` for fp16, as the JAX package does.
+
+Code written against ``np``/``npx`` rather than a module opens the same
+scope with ``op_scope()``: inside it the ``npx`` ops of the list cast their
+operands to ``init``'s target dtype, as the JAX package's
+``_amp_cast1``/``_amp_cast2`` do; on leaving it, fp32 again.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from . import lists
 from .loss_scaler import LossScaler
 
 __all__ = ["init", "init_trainer", "scale_loss", "unscale",
-           "convert_hybrid_block", "lists", "LossScaler"]
+           "convert_hybrid_block", "op_scope", "lists", "LossScaler"]
 
 _TARGET = None
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -44,6 +49,20 @@ def init(target_dtype="bfloat16", target_precision_ops=None,
     itself is ``convert_hybrid_block``'s."""
     global _TARGET
     _TARGET = _dtype(target_dtype)
+
+
+@contextlib.contextmanager
+def op_scope():
+    """Open the AMP op-list scope on this thread for a ``with`` block: the
+    ops of ``lists.TARGET_DTYPE_OPS`` cast their operands to ``init``'s
+    target dtype.  The scope that was open before is restored on
+    leaving."""
+    prev = _ops_nn._amp_state()
+    _ops_nn._amp_set((_dtype(_TARGET), frozenset(lists.TARGET_DTYPE_OPS)))
+    try:
+        yield
+    finally:
+        _ops_nn._amp_set(prev)
 
 
 def init_trainer(trainer):

@@ -45,7 +45,7 @@ from ..ops.kernels.epilogue import fuse_epilogue_enabled
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerLayer",
            "BERTEncoder", "BERTModel", "bert_base", "bert_large",
-           "bert_tiny", "params_from_jax"]
+           "bert_tiny", "params_from_jax", "encoder_np"]
 
 def _dense_nobias(dense, x):
     """A Dense layer's matmul without its bias, which the next fused
@@ -305,3 +305,60 @@ def bert_tiny(vocab_size=1000, **kw):
     kw.setdefault("max_length", 128)
     return BERTModel(vocab_size, num_layers=2, units=64, hidden_size=128,
                      num_heads=2, **kw)
+
+
+def encoder_np(params, x, valid_length=None, num_heads=12, dropout=0.0,
+               np=None, npx=None, ffn_dropout=None):
+    """The encoder of :class:`BERTEncoder` written against the ``mx.np`` /
+    ``mx.npx`` API, composed as the JAX package's layers compose it
+    (``mxnet_tpu/models/bert.py:35-157``, ``use_flash=True``, fused
+    epilogues): per layer the biased QKV projection, ``npx.flash_attention``
+    (with ``kv_length``), the bias-free output projection into
+    ``npx.bias_dropout_residual``, ``npx.layer_norm``, the FFN as
+    ``npx.bias_gelu`` between bias-free projections with ``npx.dropout``,
+    and the second ``bias_dropout_residual`` and layer norm.
+
+    ``params``: ``{name: ndarray}`` under :class:`BERTEncoder`'s
+    ``named_parameters()`` names (``layers.0.attention.qkv.weight``, ...);
+    ``x`` (B, L, C); ``valid_length`` (B,) or None.  ``ffn_dropout`` (the
+    rate of the FFN's ``npx.dropout``) defaults to ``dropout``, the rate of
+    the flash and bias-dropout-residual kernels' hash masks.  ``np``/``npx``
+    default to this package's; any namespaces with the same API compose
+    the same encoder (the parity tests pass the JAX package's)."""
+    if np is None:
+        from .. import numpy as np
+    if npx is None:
+        from .. import numpy_extension as npx
+    ffn_dropout = dropout if ffn_dropout is None else ffn_dropout
+    n_layers = len({k.split(".")[1] for k in params
+                    if k.startswith("layers.")})
+    B, L, C = x.shape
+    H = num_heads
+    D = C // H
+    for i in range(n_layers):
+        p = {k[len("layers.%d." % i):]: v for k, v in params.items()
+             if k.startswith("layers.%d." % i)}
+        qkv = npx.fully_connected(x, p["attention.qkv.weight"],
+                                  p["attention.qkv.bias"], flatten=False)
+        qkv = qkv.reshape(B, L, 3, H, D).transpose(2, 0, 3, 1, 4)
+        parts = np.split(qkv, 3, axis=0)
+        q, k, v = (t.squeeze(0) for t in parts)
+        out = npx.flash_attention(q, k, v, dropout=dropout,
+                                  kv_length=valid_length)
+        out = out.transpose(0, 2, 1, 3).reshape(B, L, C)
+        h = npx.fully_connected(out, p["attention.proj.weight"], None,
+                                no_bias=True, flatten=False)
+        x = npx.layer_norm(npx.bias_dropout_residual(
+            h, p["attention.proj.bias"], x, p=dropout), p["ln1.gamma"],
+            p["ln1.beta"], axis=-1, eps=1e-5)
+        h = npx.bias_gelu(npx.fully_connected(
+            x, p["ffn.ffn1.weight"], None, no_bias=True, flatten=False),
+            p["ffn.ffn1.bias"])
+        if ffn_dropout:
+            h = npx.dropout(h, p=ffn_dropout)
+        h = npx.fully_connected(h, p["ffn.ffn2.weight"], None, no_bias=True,
+                                flatten=False)
+        x = npx.layer_norm(npx.bias_dropout_residual(
+            h, p["ffn.ffn2.bias"], x, p=dropout), p["ln2.gamma"],
+            p["ln2.beta"], axis=-1, eps=1e-5)
+    return x

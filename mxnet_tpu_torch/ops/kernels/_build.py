@@ -23,7 +23,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["build", "load", "check", "check_head_dim", "SOURCES",
-           "BUILD_DIR", "HEAD_DIMS", "HEAD_DIM_RULE"]
+           "BUILD_DIR", "HEAD_DIMS", "HEAD_DIM_RULE", "FLASH_KERNEL_DIMS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -38,13 +38,17 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: (#12, #13, #15, fp and int8 pages) every multiple of 8 in [8, 256], the
 #: multiples of 16 up to 128 on kernels of their own, any other D on the
 #: kernel of its class (``decode_common.cuh:split_class``, the next of 32,
-#: 64, 128 and 256); the flash kernels (#5-#7 and
-#: the delta kernel) every multiple of 8 in [8, 128], each D on the
-#: kernels of the next of 32, 64 and 128 (``flash_attention.cu:pad_dim``)
+#: 64, 128 and 256); the flash wrappers (#5-#7 and the delta kernel) any D
+#: in [1, 128]: the kernels run a multiple of 8 (:data:`FLASH_KERNEL_DIMS`)
+#: on the kernels of the next of 32, 64 and 128
+#: (``flash_attention.cu:pad_dim``), and the wrappers zero-pad any other D
+#: to the next multiple of 8 first
 HEAD_DIMS = {"decode": tuple(range(8, 257, 8)),
-             "flash": tuple(range(8, 129, 8))}
+             "flash": tuple(range(1, 129))}
 HEAD_DIM_RULE = {"decode": "a multiple of 8 in [8, 256]",
-                 "flash": "a multiple of 8 in [8, 128]"}
+                 "flash": "any D in [1, 128]"}
+#: the head dims the flash kernels themselves run
+FLASH_KERNEL_DIMS = tuple(range(8, 129, 8))
 
 _lock = threading.Lock()
 _libs = {}

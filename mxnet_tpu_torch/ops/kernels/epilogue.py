@@ -409,8 +409,8 @@ def bias_dropout_residual(x, b, r, rate=0.0, seed=None, generator=None):
     (C,).
 
     The mask is the hash of (seed, global row, column) of the (R, C) view.
-    ``seed`` (a uint32 int) fixes it, as the tests do to match the JAX
-    package; otherwise a uint32 is drawn on ``x``'s device from
+    ``seed`` (a uint32 int, or an int64 tensor of one element) fixes it,
+    as the tests do to match the JAX package; otherwise a uint32 is drawn on ``x``'s device from
     ``generator`` (the default generator when None).  At rate 0 the
     backward is ``dx = g`` and launches nothing."""
     if not 0.0 <= rate < 1.0:
@@ -419,6 +419,9 @@ def bias_dropout_residual(x, b, r, rate=0.0, seed=None, generator=None):
     rate = float(rate)
     if rate == 0.0:
         seed_t = None
+    elif isinstance(seed, torch.Tensor):
+        seed_t = (seed.reshape(1).to(device=x.device, dtype=torch.int64)
+                  & 0xFFFFFFFF)
     elif seed is not None:
         seed_t = torch.tensor([int(seed) & 0xFFFFFFFF], dtype=torch.int64,
                               device=x.device)

@@ -35,10 +35,17 @@ its kernel on a CUDA tensor (or raises), counting launches in
 ``flash_attention.launches_fwd``, ``.launches_dq``, ``.launches_dkv`` and
 ``.launches_delta``;
 ``flash_attention.last_dtype`` is the dtype of the last launch.  The
-kernels take float32 and bfloat16 and any head dim that is a multiple of
-8 in [8, 128] (:data:`HEAD_DIMS`; every D but 32, 64 and 128 runs the
-kernels of the next of them on zero-filled columns); in
-bfloat16 the probabilities are rounded to bf16 before ``P @ V`` and
+kernels take float32 and bfloat16 and any head dim in [1, 128]
+(:data:`HEAD_DIMS`).  The kernels themselves run a multiple of 8 (every D
+but 32, 64 and 128 on the kernels of the next of them, on zero-filled
+columns); for any other D each wrapper zero-pads q, k, v (and dO, O) to
+the next multiple of 8, takes the default scale from the true D, and
+slices out, dq, dk and dv back to D (:func:`_pad8`);
+:func:`flash_attention` pads q, k, v and dO once for its forward and
+backward together.  That is exact: zero columns add nothing to QK^T, the
+zero columns of V give zero columns of O, which the slice drops, lse is
+unchanged, and the dropout hash keys on (batch * head, row, key), not on
+D.  In bfloat16 the probabilities are rounded to bf16 before ``P @ V`` and
 ``dS`` before its two products, as the JAX kernel casts.  The float32
 kernels run their products on the tensor cores in 3xTF32, which keeps
 them fp32-accurate.  What bounds
@@ -66,7 +73,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the CUDA kernels take: every multiple of 8 in [8, 128]
+#: head dims the wrappers take on the card: any D in [1, 128]
 HEAD_DIMS = _build.HEAD_DIMS["flash"]
 _TAIL = [_I] * 5 + [ctypes.c_float, _I, _I, ctypes.c_uint, ctypes.c_float,
                     _P]
@@ -338,6 +345,13 @@ def _common(q, causal, window, scale, dropout, seed, kv_length):
     return tail, ptrs, (seed_t, kvl)
 
 
+def _pad8(D, *tensors):
+    """``tensors`` zero-padded along their last dim from ``D`` to the next
+    multiple of 8, as the kernels take them (they are contiguous after)."""
+    pad = -D % 8
+    return [torch.nn.functional.pad(t, (0, pad)) for t in tensors]
+
+
 def _check_like(what, q, **outs):
     """Raise unless each given output view is shaped, typed and placed
     like q."""
@@ -384,6 +398,12 @@ def flash_attention_fwd(q, k, v, causal=False, window=None, scale=None,
             l = lse.copy_(l)
         return o, l
     _check("flash_attention", q, k, v, window, kv_length)
+    D = q.shape[-1]
+    if D % 8:
+        o, l = flash_attention_fwd(*_pad8(D, q, k, v), causal, window,
+                                   _scale(scale, D), dropout, seed, kv_length,
+                                   lse=lse)
+        return _deliver(o[..., :D], out), l
     q, k, v = _as_read(q), _as_read(k), _as_read(v)
     B, H, L, _ = q.shape
     ko = _target(q, out)
@@ -437,6 +457,12 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
             window, scale, dropout, seed, kv_length)
         return _deliver(r, dq)
     ins = _bwd_inputs(what, q, k, v, do, lse, delta, window, kv_length)
+    D = q.shape[-1]
+    if D % 8:
+        r = flash_attention_bwd_dq(*_pad8(D, q, k, v, do), lse, delta,
+                                   causal, window, _scale(scale, D), dropout,
+                                   seed, kv_length)
+        return _deliver(r[..., :D], dq)
     out_q = _target(q, dq)
     tail, ptrs, _alive = _common(ins[0], causal, window, scale, dropout,
                                  seed, kv_length)
@@ -466,6 +492,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
             window, scale, dropout, seed, kv_length)
         return _deliver(rk, dk), _deliver(rv, dv)
     ins = _bwd_inputs(what, q, k, v, do, lse, delta, window, kv_length)
+    D = q.shape[-1]
+    if D % 8:
+        rk, rv = flash_attention_bwd_dkv(*_pad8(D, q, k, v, do), lse, delta,
+                                         causal, window, _scale(scale, D),
+                                         dropout, seed, kv_length)
+        return _deliver(rk[..., :D], dk), _deliver(rv[..., :D], dv)
     out_k, out_v = _target(q, dk), _target(q, dv)
     tail, ptrs, _alive = _common(ins[0], causal, window, scale, dropout,
                                  seed, kv_length)
@@ -502,6 +534,8 @@ def flash_attention_bwd_delta(do, out):
     if not B * H * L:
         raise ValueError("%s: shape %s; the kernel takes no empty dim"
                          % (what, tuple(do.shape)))
+    if D % 8:
+        return flash_attention_bwd_delta(*_pad8(D, do, out))
     do, out = _as_read(do), _as_read(out)
     delta = torch.empty(B, H, L, dtype=torch.float32, device=do.device)
     lib = _lib()
@@ -518,21 +552,33 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seed, kv_length, causal, window, scale,
                 dropout):
+        D = q.shape[-1]
+        if D % 8 and not _on_cpu("flash_attention", q):
+            # pad q, k and v once for the forward and the backward, rather
+            # than in each of the four wrappers they reach
+            _check("flash_attention", q, k, v, window, kv_length)
+            q, k, v = _pad8(D, q, k, v)
+            scale = _scale(scale, D)
         out, lse = flash_attention_fwd(q, k, v, causal, window, scale,
                                        dropout, seed, kv_length)
         ctx.cfg = (causal, window, scale, dropout)
         ctx.save_for_backward(q, k, v, out, lse, seed, kv_length)
-        return out
+        return out if out.shape[-1] == D else out[..., :D]
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse, seed, kv_length = ctx.saved_tensors
+        D = g.shape[-1]
+        if out.shape[-1] != D:
+            g, = _pad8(D, g)
         # g (the transposed gradient of BERT's output, say) is read where
         # it lies, as q, k and v are
         delta = flash_attention_bwd_delta(g, out)
         args = ctx.cfg + (seed, kv_length)
         dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, *args)
         dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, *args)
+        if out.shape[-1] != D:
+            dq, dk, dv = dq[..., :D], dk[..., :D], dv[..., :D]
         return dq, dk, dv, None, None, None, None, None, None
 
 

@@ -24,6 +24,8 @@ plain versions there.  Here:
 """
 from __future__ import annotations
 
+import re
+
 import pytest
 import torch
 
@@ -45,21 +47,28 @@ FLASH_NEW = (8, 24, 120)
 @pytest.mark.parametrize("family,taken,refused", [
     ("decode", [8, 24, 40, 72, 120, 136, 160, 168, 192, 200, 256],
      [0, 4, 12, 20, 100, 250, 260, 264, 512]),
-    ("flash", [8, 24, 40, 56, 72, 88, 104, 120],
-     [0, 4, 12, 20, 100, 132, 136, 160, 256])])
+    ("flash", [1, 4, 8, 12, 20, 24, 40, 56, 72, 88, 100, 104, 120, 127, 128],
+     [0, 129, 132, 136, 160, 256])])
 def test_head_dim_rule_per_family(family, taken, refused):
-    """Each family takes every multiple of 8 up to its limit and nothing
-    else; a refusal names the family and its rule."""
-    limit = {"decode": 256, "flash": 128}[family]
-    assert _build.HEAD_DIMS[family] == tuple(range(8, limit + 1, 8))
-    assert _build.HEAD_DIM_RULE[family] == "a multiple of 8 in [8, %d]" % limit
+    """The decode family takes every multiple of 8 up to 256 and nothing
+    else; the flash family any D in [1, 128] (the wrappers pad a D that is
+    not a multiple of 8 for the kernels, which run the multiples of 8 up
+    to 128).  A refusal names the family and its rule."""
+    if family == "decode":
+        assert _build.HEAD_DIMS[family] == tuple(range(8, 257, 8))
+        rule = "a multiple of 8 in [8, 256]"
+    else:
+        assert _build.HEAD_DIMS[family] == tuple(range(1, 129))
+        assert _build.FLASH_KERNEL_DIMS == tuple(range(8, 129, 8))
+        rule = "any D in [1, 128]"
+    assert _build.HEAD_DIM_RULE[family] == rule
     for d in taken:
         _build.check_head_dim("k", d, family)
     for d in refused:
         with pytest.raises(ValueError,
                            match=r"k: head dim %d; the %s kernels take a head "
-                                 r"dim that is a multiple of 8 in \[8, %d\]"
-                           % (d, family, limit)):
+                                 r"dim that is %s"
+                           % (d, family, re.escape(rule))):
             _build.check_head_dim("k", d, family)
 
 

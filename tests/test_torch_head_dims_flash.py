@@ -11,8 +11,9 @@ mode at each new D, in fp32 and bf16, with the tolerances of
   batch row no key;
 - the gradients of q, k and v through ``flash_attention``;
 - the wrappers' head-dim rule on the kernel's path (``meta`` tensors
-  stand in for the card): a multiple of 8 in [8, 128] passes, any other D
-  raises naming it.  ``test_torch_head_dims_any.py`` holds the other
+  stand in for the card): any D in [1, 128] passes (the wrappers pad one
+  that is not a multiple of 8, ``test_torch_flash_pad.py``), any other D
+  raises naming the rule.  ``test_torch_head_dims_any.py`` holds the other
   multiples of 8.
 """
 from __future__ import annotations
@@ -85,8 +86,8 @@ def _meta(d, dtype=torch.bfloat16):
 @pytest.mark.parametrize("d", _build.HEAD_DIMS["flash"])
 def test_head_dims_taken(d):
     """The forward's and the backward's checks (``_check``, which #5, #6
-    and #7 run before building anything) pass every multiple of 8 in
-    [8, 128]; the wrappers refuse the ``meta`` device itself."""
+    and #7 run before building anything) pass every D in [1, 128]; the
+    wrappers refuse the ``meta`` device itself."""
     q, k, v = _meta(d)
     for what in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
@@ -97,11 +98,12 @@ def test_head_dims_taken(d):
         tfa.flash_attention_bwd_delta(q, k)
 
 
-@pytest.mark.parametrize("d", [4, 12, 20, 136, 144, 256])
+@pytest.mark.parametrize("d", [0, 129, 136, 144, 200, 256])
 def test_head_dims_refused(d):
-    """Any other head dim raises, naming the rule, in both dtypes."""
-    rule = (r"head dim %d; the flash kernels .*a multiple of 8 in "
-            r"\[8, 128\]" % d)
+    """A head dim above 128 (or 0) raises, naming the rule, in both
+    dtypes; any D in [1, 128] passes (the wrappers pad a D that is not a
+    multiple of 8 before the kernels run)."""
+    rule = r"head dim %d; the flash kernels .*any D in \[1, 128\]" % d
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = _meta(d, dtype)
         for what in ("flash_attention_fwd", "flash_attention_bwd_dq",

@@ -1,6 +1,6 @@
 """The port stands alone: importing ``mxnet_tpu_torch`` and every module of
-its serving, training, RNN and tensor-parallel slices loads neither
-``jax`` nor any ``mxnet_tpu`` module; its
+its serving, training, RNN, tensor-parallel and array-core slices loads
+neither ``jax`` nor any ``mxnet_tpu`` module; its
 entry points run on CUDA unless the CPU is asked for; and every feature
 of the JAX engine that the port lacks is refused, not ignored.
 """
@@ -47,8 +47,15 @@ def test_import_loads_no_jax_and_no_reference_package():
                     "amp.lists", "amp.loss_scaler", "ops.rnn", "gluon.rnn",
                     "gluon.rnn.rnn_layer", "gluon.rnn.rnn_cell",
                     "parallel", "parallel.shardcfg",
-                    "serving.speculate"):
+                    "serving.speculate", "ndarray", "numpy", "numpy.linalg",
+                    "numpy.random", "numpy_extension", "nd", "_nd_contrib",
+                    "autograd", "random", "_rng", "util", "numpy_dispatch",
+                    "legacy_serialization", "ops.control_flow",
+                    "_unported"):
             assert "mxnet_tpu_torch." + mod in names, (mod, names)
+        mx = mxnet_tpu_torch
+        for ns in ("np", "npx", "nd", "autograd", "random", "waitall"):
+            assert hasattr(mx, ns), ns
         print(len(names), bad)
         sys.exit(1 if bad else 0)
     """)
@@ -71,6 +78,20 @@ def tiny_lm():
 def test_engine_without_device_raises_without_gpu(no_gpu, tiny_lm):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DecodeEngine(tiny_lm, slots=2, page_size=4, max_ctx=16)
+
+
+def test_array_without_device_raises_without_gpu(no_gpu):
+    """``mx.np.array(...)`` (and a creation op, and a random draw) with no
+    device and no open CPU scope is made on cuda, and raises without a
+    GPU."""
+    import mxnet_tpu_torch as mx
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx.np.array([1.0, 2.0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx.np.zeros((2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx.np.random.uniform(size=2)
+    assert mx.np.array([1.0], ctx=mx.cpu()).ctx == torch.device("cpu")
 
 
 def test_model_without_device_raises_without_gpu(no_gpu):

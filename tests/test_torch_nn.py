@@ -85,8 +85,13 @@ def test_activation_matches_jax(act):
 
 
 def test_activation_not_ported_raises():
-    with pytest.raises(ValueError, match="not ported"):
-        tnn.activation(torch.zeros(2), "relu")
+    """Every act_type of the JAX package is ported (relu among them since
+    the array core); an act_type neither package has raises ValueError,
+    as the JAX package's does."""
+    assert torch.equal(tnn.activation(torch.tensor([-1.0, 2.0]), "relu"),
+                       torch.tensor([0.0, 2.0]))
+    with pytest.raises(ValueError, match="unknown act_type"):
+        tnn.activation(torch.zeros(2), "swishy")
 
 
 def test_dropout_scales_kept_and_follows_generator():
