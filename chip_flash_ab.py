@@ -99,7 +99,11 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
   same weights in turns (np, native, native, np, three rounds), each the
   median of 10 CUDA-event spans beside the host's enqueue ms of one step
   (from an idle card to the call's return, median of 5); only in a tree
-  with the array core.
+  with the array core;
+- ``gluon``: ``chip_smoke.gluon_phase`` (LeNet, the BERT-base FFN and
+  the 2 x 650 word LM through Gluon on the card, held and counted, the
+  Gluon LM step timed beside the torch-native one); only in a tree with
+  Gluon.
 
 A TREE named more than once runs that many more turns; a TREE whose
 build fails is left out of the turns (the exit code is then 1).  Every
@@ -120,7 +124,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("delta", "route", "kernels", "host", "bert", "amp", "epilogue",
           "lstm", "tp", "paged", "fused", "qmm", "dims", "dims16",
-          "spec", "array")
+          "spec", "array", "gluon")
 
 
 def build(trees, names):
@@ -231,6 +235,9 @@ def run(tree, phases, steps):
         cs.spec_phase(torch, lm, 0)
     if "array" in phases:
         array_phase(cs, torch)
+    if "gluon" in phases:
+        _, rep = cs.gluon_phase(torch, 0)
+        cs.log("gluon: %s" % json.dumps(rep))
     if "amp" in phases:
         torch.cuda.empty_cache()
         _, st = cs.train(torch, 0, "amp_bf16", cs.TRAIN_B, cs.TRAIN_L, steps,

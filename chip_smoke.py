@@ -216,10 +216,33 @@ plain version):
    ``nd.save``/``nd.load`` round trips on the card, npz and legacy; the
    np/npx step timed beside the torch-native encoder's by CUDA events,
    and one ``apply_op`` dispatch's host time beside ``torch.add``'s.
-7. The kernels line (launches summed over the serving runs, the prefix,
+7. Gluon (``gluon_phase``), through the user's entry points on
+   ``ndarray``s (counts set to 0 before the main path): LeNet (bench
+   config 1: ``Conv2D(6, 5, tanh)``, ``MaxPool2D``, ``Conv2D(16, 5,
+   tanh)``, ``MaxPool2D``, ``Flatten``, ``Dense(120, tanh)``,
+   ``Dense(84, tanh)``, ``Dense(10)``, ``initialize(Xavier())``) for 20
+   SGD steps (lr 0.05) on the MNIST synthetic fallback through
+   ``ToTensor`` and a shuffled ``DataLoader(batch_size=64)``, with
+   ``metric.Accuracy``: the loss on the first batch must fall; the
+   BERT-base FFN as ``HybridSequential(Dense(3072, "gelu"), Dense(768))``
+   at (32, 128, 768), forward and backward under ``record()``: one launch
+   of #1 and of #2; the word LM of ``example/gluon/word_language_model.py``
+   (vocab 10000, 2 x 650, NTC, dropout 0.2, ``hybridize()``d) for 5 SGD
+   steps (lr 1) at B 32, bptt 35 with ``clip_global_norm(grads, 0.25)``:
+   the loss on segment 0 must fall and #10/#11 launch twice a step.  Then
+   the checks (not counted): the FFN's output and its four gradients
+   against ``F.linear`` -> ``F.gelu`` -> ``F.linear`` on the same
+   weights; the Gluon word LM at dropout 0 against the torch-native
+   ``word_lm`` from the same weights, one step's loss and gradients; one
+   LeNet step at B 4 and one small word-LM step on the card and on the
+   CPU from the same weights; the Gluon LM step timed in turns beside the
+   torch-native one (``train_lm``'s); one layer call's host time with
+   ``ndarray``s beside torch tensors and ``F.linear``.
+8. The kernels line (launches summed over the serving runs, the prefix,
    session, tiny-LM, HTTP and speculative phases, the sharded-attention
-   path, the training phases and the array-core phase), the card line
-   and, last, the result line ``{"ok": true, "device": {...}}``.
+   path, the training phases, the array-core and the Gluon phases), the
+   card line and, last, the result line ``{"ok": true, "device":
+   {...}}``.
 """
 from __future__ import annotations
 
@@ -5055,9 +5078,10 @@ def lstm_flat_grad(torch, lstm):
     """The gradients of a gluon LSTM's parameters in the order of its flat
     vector (``_flat_params``: weights layer-major, then biases)."""
     sfx = [s for s, _ in lstm._suffixes()]
-    chunks = [getattr(lstm, k + s).grad.reshape(-1) for s in sfx
+    leaves = lstm._parameters
+    chunks = [leaves[k + s].grad.reshape(-1) for s in sfx
               for k in ("i2h_weight", "h2h_weight")]
-    chunks += [getattr(lstm, k + s).grad for s in sfx
+    chunks += [leaves[k + s].grad for s in sfx
                for k in ("i2h_bias", "h2h_bias")]
     return torch.cat(chunks)
 
@@ -5275,6 +5299,401 @@ def array_core_phase(torch, seed):
     return {k: counts[k] for k in KERNELS}, dict(
         np_step_ms=np_ms, native_step_ms=nat_ms,
         host_us_np_add=host["np.add"], host_us_torch_add=host["torch.add"])
+
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Gluon (Parameter, Block, layers, loss, metric, data, Trainer)
+# ---------------------------------------------------------------------------
+#: LeNet (bench config 1): batch, SGD steps, learning rate
+GL_LENET_B, GL_LENET_STEPS, GL_LENET_LR = 64, 20, 0.05
+#: the BERT-base FFN as Gluon layers: (B, L, units), hidden width
+GL_FFN_SHAPE, GL_FFN_HIDDEN = (32, 128, 768), 3072
+#: the word LM of example/gluon/word_language_model.py at config 5's
+#: widths: SGD steps, lr, dropout, the clip of the global gradient norm
+GL_LM_STEPS, GL_LM_LR, GL_LM_DROPOUT, GL_LM_CLIP = 5, 1.0, 0.2, 0.25
+GL_FFN_LAUNCHES = {"bias_gelu": 1, "bias_gelu_backward": 1}
+# the Gluon FFN against F.linear -> F.gelu -> F.linear on the same
+# weights: the same fp32 GEMMs, but the bias added by #1 after a
+# bias-free GEMM where addmm adds it in the GEMM's epilogue (one rounding
+# apart), and #1/#2's erf a few ulps from ATen's; the output and each
+# gradient within 1e-5 of the tensor's largest element
+TOL_GL_FFN = 1e-5
+# the Gluon word LM at dropout 0 against the torch-native word_lm from the
+# same weights: the same kernels and ops on the same shapes, reached by
+# different code; the loss and each gradient within 1e-5 (relative, of
+# each tensor's largest element)
+TOL_GL_LM = 1e-5
+# one step on the card and on the CPU from the same weights: fp32 sums in
+# another order (cuDNN's convolutions, the LSTM kernels' blocking), ~1e-6
+# relative; these allow 100x that, as lm_card_vs_cpu_step does
+TOL_GL_CARD_CPU_LOSS = 1e-4
+TOL_GL_CARD_CPU_GRAD = 1e-4
+
+
+def gluon_lenet(mx):
+    net = mx.gluon.nn.Sequential()
+    nn = mx.gluon.nn
+    net.add(nn.Conv2D(6, 5, activation="tanh"), nn.MaxPool2D(2),
+            nn.Conv2D(16, 5, activation="tanh"), nn.MaxPool2D(2),
+            nn.Flatten(), nn.Dense(120, activation="tanh"),
+            nn.Dense(84, activation="tanh"), nn.Dense(10))
+    return net
+
+
+def gluon_word_lm(mx, vocab, emsize, nhid, nlayers, dropout):
+    """``example/gluon/word_language_model.py``'s ``RNNModel``."""
+    g = mx.gluon
+
+    class RNNModel(g.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.drop = g.nn.Dropout(dropout)
+            self.encoder = g.nn.Embedding(vocab, emsize)
+            self.lstm = g.rnn.LSTM(nhid, num_layers=nlayers, layout="NTC",
+                                   dropout=dropout, input_size=emsize)
+            self.decoder = g.nn.Dense(vocab, flatten=False, in_units=nhid)
+
+        def forward(self, x, state=None):
+            emb = self.drop(self.encoder(x))
+            if state is None:
+                return self.decoder(self.drop(self.lstm(emb)))
+            out, state = self.lstm(emb, state)
+            return self.decoder(self.drop(out)), state
+
+    return RNNModel()
+
+
+def gluon_lm_step(mx, model, trainer, ce, x, y, vocab, clip=True):
+    """One training step as the example takes it: the mean cross entropy
+    over every token, the global gradient norm clipped to GL_LM_CLIP,
+    ``trainer.step(1)``.  Returns the loss (an ndarray on the card)."""
+    with mx.autograd.record():
+        logits = model(x)
+        loss = ce(logits.reshape((-1, vocab)), y.reshape((-1,))).mean()
+    loss.backward()
+    if clip:
+        mx.gluon.utils.clip_global_norm(
+            [p.grad() for p in model.collect_params().values()
+             if p.grad_req != "null"], GL_LM_CLIP)
+    trainer.step(1)
+    return loss
+
+
+def gluon_lenet_step_grads(mx, net, x, y, dev):
+    """One LeNet SGD step on ``dev``: (loss, {name: grad}, {name: weight
+    after the step}) on the host."""
+    with mx.Context(dev):
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": GL_LENET_LR})
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        with mx.autograd.record():
+            loss = ce(net(mx.np.array(x)), mx.np.array(y))
+        loss.backward()
+        grads = {n: p.grad()._data.detach().cpu().clone()
+                 for n, p in net.collect_params().items()}
+        trainer.step(x.shape[0])
+    return (loss._data.detach().cpu(), grads,
+            {n: p.leaf.detach().cpu() for n, p in
+             net.collect_params().items()})
+
+
+def gluon_phase(torch, seed):
+    """Gluon on the card, through the user's entry points (see the module
+    docstring, item 7).  Returns the main path's launches and the
+    numbers."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    F = torch.nn.functional
+    t0 = time.perf_counter()
+    g = mx.gluon
+    V = LM["vocab"]
+    # -- build everything before the counted main path --------------------
+    np.random.seed(seed)
+    mx.random.seed(seed)
+    with mx.Context(DEV):
+        lenet = gluon_lenet(mx)
+        lenet.initialize(mx.init.Xavier())
+        tf = g.data.vision.transforms.ToTensor()
+        loader = g.data.DataLoader(
+            g.data.vision.MNIST(train=True).transform_first(tf),
+            batch_size=GL_LENET_B, shuffle=True)
+        ffn = g.nn.HybridSequential()
+        ffn.add(g.nn.Dense(GL_FFN_HIDDEN, activation="gelu", flatten=False,
+                           in_units=GL_FFN_SHAPE[-1]),
+                g.nn.Dense(GL_FFN_SHAPE[-1], flatten=False,
+                           in_units=GL_FFN_HIDDEN))
+        ffn.initialize(mx.init.Xavier())
+        rng = np.random.default_rng(seed + 9)
+        fx_np = rng.standard_normal(GL_FFN_SHAPE).astype(np.float32)
+        fw_np = rng.standard_normal(GL_FFN_SHAPE).astype(np.float32)
+        fx, fw = mx.np.array(fx_np), mx.np.array(fw_np)
+        fx.attach_grad()
+        lm = gluon_word_lm(mx, V, LM["emsize"], LM["nhid"], LM["nlayers"],
+                           GL_LM_DROPOUT)
+        lm.initialize(mx.init.Xavier())
+        lm.hybridize()
+        lm_trainer = g.Trainer(lm.collect_params(), "sgd",
+                               {"learning_rate": GL_LM_LR})
+        segs = [(mx.np.array(a), mx.np.array(b)) for a, b in lm_segments(
+            torch, seed, LM_B, LM_T, GL_LM_STEPS, V, DEV)]
+    ce = g.loss.SoftmaxCrossEntropyLoss()
+    metric = g.metric.Accuracy()
+    lenet_trainer = g.Trainer(lenet.collect_params(), "sgd",
+                              {"learning_rate": GL_LENET_LR})
+
+    def lenet_eval(x0, y0):
+        return float(ce(lenet(x0), y0).mean())
+
+    def lm_eval():
+        x, y = segs[0]
+        return float(ce(lm(x).reshape((-1, V)), y.reshape((-1,))).mean())
+
+    # -- the main path, counted -------------------------------------------
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    lenet_ms, lenet_losses, first = [], [], None
+    with mx.Context(DEV):
+        for i, (x, y) in enumerate(loader):
+            if i == GL_LENET_STEPS:
+                break
+            if first is None:
+                first = (x, y)
+                lenet_before = lenet_eval(x, y)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            with mx.autograd.record():
+                out = lenet(x)
+                loss = ce(out, y)
+            loss.backward()
+            lenet_trainer.step(x.shape[0])
+            e.record()
+            metric.update(y, out)
+            lenet_losses.append(loss)
+            lenet_ms.append((s, e))
+        lenet_after = lenet_eval(*first)
+        with mx.autograd.record():
+            fout = ffn(fx)
+        fout.backward(fw)
+        lm_before = lm_eval()
+        lm_losses = [gluon_lm_step(mx, lm, lm_trainer, ce, x, y, V)
+                     for x, y in segs]
+        lm_after = lm_eval()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # -- checks (launches not counted) --------------------------------------
+    step_ms = [s.elapsed_time(e) for s, e in lenet_ms]
+    lenet_p50 = statistics.median(step_ms[1:])
+    acc = metric.get()[1]
+    log("gluon: LeNet (bench config 1) B %d, %d SGD steps (lr %g) on the "
+        "MNIST synthetic fallback via DataLoader: loss %s; first-batch loss "
+        "%.6f before, %.6f after; accuracy %.4f; step p50 %.3f ms (CUDA "
+        "events, first %.1f ms), %.0f images/s"
+        % (GL_LENET_B, GL_LENET_STEPS, GL_LENET_LR,
+           " ".join("%.4f" % float(v.mean()) for v in lenet_losses),
+           lenet_before, lenet_after, acc, lenet_p50, step_ms[0],
+           GL_LENET_B / lenet_p50 * 1e3))
+    if not (np.isfinite(lenet_after) and lenet_after < lenet_before):
+        raise AssertionError("Gluon LeNet loss did not fall: %.6f -> %.6f"
+                             % (lenet_before, lenet_after))
+    lm_vals = [float(v) for v in lm_losses]
+    log("gluon: word LM (vocab %d, %d x %d, NTC, dropout %g, hybridized) "
+        "B %d, bptt %d, %d SGD steps (lr %g, clip_global_norm %g): loss %s; "
+        "segment-0 loss %.6f before, %.6f after"
+        % (V, LM["nlayers"], LM["nhid"], GL_LM_DROPOUT, LM_B, LM_T,
+           GL_LM_STEPS, GL_LM_LR, GL_LM_CLIP,
+           " ".join("%.4f" % v for v in lm_vals), lm_before, lm_after))
+    if not (all(np.isfinite(lm_vals)) and lm_after < lm_before):
+        raise AssertionError("Gluon word LM loss did not fall: %.6f -> %.6f"
+                             % (lm_before, lm_after))
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(GL_FFN_LAUNCHES)
+    for k, n in LM_PER_STEP.items():
+        want[k] = want.get(k, 0) + n * GL_LM_STEPS + LM_PER_EVAL.get(k, 0) * 2
+    if counts != want:
+        raise AssertionError("Gluon main path launches %s, want %s"
+                             % ({k: v for k, v in counts.items() if v},
+                                {k: v for k, v in want.items() if v}))
+    # the FFN against F.linear -> F.gelu -> F.linear on the same weights
+    d1, d2 = ffn[0], ffn[1]
+    ref_leaves = [p.leaf.detach().clone().requires_grad_(True) for p in
+                  (d1.weight, d1.bias, d2.weight, d2.bias)]
+    rx = fx._data.detach().clone().requires_grad_(True)
+    w1, b1, w2, b2 = ref_leaves
+    ref = F.linear(F.gelu(F.linear(rx, w1, b1)), w2, b2)
+    ref.backward(fw._data)
+    got = [fout._data, fx.grad._data] + [
+        p.grad()._data for p in (d1.weight, d1.bias, d2.weight, d2.bias)]
+    err_ffn = grad_err(torch, got, [ref, rx.grad] + [t.grad for t in
+                                                      ref_leaves])
+    log("gluon: BERT-base FFN as HybridSequential(Dense(3072, gelu), "
+        "Dense(768)) on ndarrays %s, forward + backward under record(): "
+        "#1 %d launch, #2 %d launch; output, dx and the four gradients vs "
+        "F.linear -> F.gelu -> F.linear, err / max %.3g (tol %g)"
+        % (GL_FFN_SHAPE, counts["bias_gelu"], counts["bias_gelu_backward"],
+           err_ffn, TOL_GL_FFN))
+    if not err_ffn <= TOL_GL_FFN:
+        raise AssertionError("Gluon FFN disagrees with the plain chain")
+    # the Gluon word LM at dropout 0 against the torch-native word_lm
+    native = word_lm(torch, seed + 3, DEV, **LM)
+    with mx.Context(DEV):
+        glm = gluon_word_lm(mx, V, LM["emsize"], LM["nhid"], LM["nlayers"],
+                            0.0)
+        glm.initialize(mx.init.Zero())
+    rename = {"embed.": "encoder."}
+    with torch.no_grad():
+        for n, t in native.named_parameters():
+            for a, b in rename.items():
+                n = n.replace(a, b)
+            glm.collect_params()[n].leaf.copy_(t)
+    x, y = segs[1]
+    nlog, _ = native(x._data, native.lstm.begin_state(LM_B))
+    nloss = ce(nlog, y._data)
+    nloss.backward(torch.ones_like(nloss))
+    with mx.autograd.record():
+        gloss = ce(glm(x), y)
+    gloss.backward()
+    pairs = [(glm.collect_params()[n.replace("embed.", "encoder.")].grad()
+              ._data, t.grad) for n, t in native.named_parameters()]
+    err_lm = grad_err(torch, [gloss._data] + [a for a, _ in pairs],
+                      [nloss.detach()] + [b for _, b in pairs])
+    log("gluon: word LM at dropout 0 vs the torch-native word_lm on the "
+        "same weights (segment 1, zero state): loss and gradients err / max "
+        "%.3g (tol %g)" % (err_lm, TOL_GL_LM))
+    if not err_lm <= TOL_GL_LM:
+        raise AssertionError("Gluon word LM disagrees with the torch-native "
+                             "one")
+    # card against CPU: one LeNet step at B 4, one small word-LM step
+    with tempfile.TemporaryDirectory() as d:
+        xb, yb = first[0][:4].asnumpy(), first[1][:4].asnumpy()
+        res = {}
+        for dev in ("cpu", DEV):
+            with mx.Context(dev):
+                net = gluon_lenet(mx)
+                net.initialize(mx.init.Xavier())
+                net(mx.np.array(xb))
+            if dev == "cpu":
+                net.save_parameters(os.path.join(d, "lenet.npz"))
+            else:
+                net.load_parameters(os.path.join(d, "lenet.npz"), device=dev)
+            res[dev] = gluon_lenet_step_grads(mx, net, xb, yb, dev)
+        small = dict(vocab=100, emsize=64, nhid=64, nlayers=2)
+        tokens = synthetic_corpus(4 * 9, small["vocab"], seed).reshape(4, 9)
+        for dev in ("cpu", DEV):
+            with mx.Context(dev):
+                net = gluon_word_lm(mx, small["vocab"], small["emsize"],
+                                    small["nhid"], small["nlayers"], 0.0)
+                net.initialize(mx.init.Xavier())
+                if dev == "cpu":
+                    net.save_parameters(os.path.join(d, "lm.npz"))
+                else:
+                    net.load_parameters(os.path.join(d, "lm.npz"), device=dev)
+                tr = g.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": GL_LM_LR})
+                loss = gluon_lm_step(mx, net, tr, ce,
+                                     mx.np.array(tokens[:, :8]),
+                                     mx.np.array(tokens[:, 1:]),
+                                     small["vocab"], clip=False)
+                res[dev + "_lm"] = (loss._data.detach().cpu().reshape(1), {
+                    n: p.leaf.detach().cpu()
+                    for n, p in net.collect_params().items()})
+    (lc, gc, wc), (lp, gp, wp) = res[DEV], res["cpu"]
+    lenet_loss_err = float(((lc - lp).abs() / lp.abs()).max())
+    lenet_grad_err = grad_err(torch, [gc[n] for n in gp], [gp[n] for n in gp])
+    lenet_w_err = max(float((wc[n] - wp[n]).abs().max()) for n in wp)
+    (llc, lwc), (llp, lwp) = res[DEV + "_lm"], res["cpu_lm"]
+    lm_loss_err = float(((llc - llp).abs() / llp.abs()).max())
+    lm_w_err = max(float((lwc[n] - lwp[n]).abs().max()) for n in lwp)
+    log("gluon: card vs CPU from the same weights: one LeNet step at B 4, "
+        "loss rel err %.3g (tol %g), gradients err / max %.3g (tol %g), "
+        "weights max abs diff %.3g; one word-LM step (vocab 100, 2 x 64, "
+        "B 4, T 8), loss rel err %.3g, weights max abs diff %.3g (tol %g)"
+        % (lenet_loss_err, TOL_GL_CARD_CPU_LOSS, lenet_grad_err,
+           TOL_GL_CARD_CPU_GRAD, lenet_w_err, lm_loss_err, lm_w_err,
+           TOL_LM_STEP_W))
+    if not (lenet_loss_err <= TOL_GL_CARD_CPU_LOSS
+            and lenet_grad_err <= TOL_GL_CARD_CPU_GRAD
+            and lenet_w_err <= TOL_LM_STEP_W
+            and lm_loss_err <= TOL_GL_CARD_CPU_LOSS
+            and lm_w_err <= TOL_LM_STEP_W):
+        raise AssertionError("Gluon step on the card disagrees with the CPU")
+    # the Gluon LM step beside the torch-native one (train_lm's), in turns
+    n_trainer = g.Trainer(dict(native.named_parameters()), "sgd",
+                          {"learning_rate": LM_LR})
+    n_states = native.lstm.begin_state(LM_B)
+    xn, yn = segs[0][0]._data, segs[0][1]._data
+
+    def native_step():
+        logits, _ = native(xn, n_states)
+        loss = ce(logits, yn)
+        loss.backward(torch.ones_like(loss))
+        n_trainer.step(LM_B)
+
+    # train_lm's work on the dropout-0 Gluon copy of the native weights
+    glm_trainer = g.Trainer(glm.collect_params(), "sgd",
+                            {"learning_rate": LM_LR})
+
+    def gluon_step_same_work():
+        with mx.autograd.record():
+            loss = ce(glm(segs[0][0]), segs[0][1])
+        loss.backward()
+        glm_trainer.step(LM_B)
+
+    times = {"gluon_example": [], "gluon_same_work": [], "native": []}
+    fns = {"gluon_example": lambda: gluon_lm_step(
+        mx, lm, lm_trainer, ce, segs[0][0], segs[0][1], V),
+        "gluon_same_work": gluon_step_same_work, "native": native_step}
+    for _ in range(2):
+        for k in ("gluon_example", "native", "gluon_same_work"):
+            times[k].append(event_ms(torch, fns[k], iters=3))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    # one layer call's host time: ndarray call, torch call, F.linear
+    with mx.Context(DEV):
+        dense = g.nn.Dense(768, flatten=False, in_units=768)
+        dense.initialize()
+        xa = mx.np.ones((8, 768))
+    xt, wt, bt = xa._data, dense.weight.leaf, dense.bias.leaf
+    host = {}
+    with torch.no_grad():
+        for label, fn in (("gluon_ndarray", lambda: dense(xa)),
+                          ("gluon_torch", lambda: dense(xt)),
+                          ("F.linear", lambda: F.linear(xt, wt, bt))):
+            for _ in range(50):
+                fn()
+            ts = []
+            for _ in range(2000):
+                t = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t) * 1e6)
+            torch.cuda.synchronize()
+            host[label] = statistics.median(ts)
+    log("gluon: word-LM step (vocab %d, %d x %d, B %d, bptt %d, CUDA "
+        "events, median of 2 x 3, in turns): Gluon as the example (dropout "
+        "%g, mean loss, clip_global_norm, step(1)) %.3f ms, Gluon on "
+        "train_lm's work (dropout 0, per-sample loss, step(B)) %.3f ms, "
+        "torch-native word_lm %.3f ms (ratio %.3f); host us of a Dense(768) "
+        "call on (8, 768) (median of 2000): %s; card %s"
+        % (V, LM["nlayers"], LM["nhid"], LM_B, LM_T, GL_LM_DROPOUT,
+           med["gluon_example"],
+           med["gluon_same_work"], med["native"],
+           med["gluon_same_work"] / med["native"],
+           json.dumps({k: round(v, 2) for k, v in host.items()}),
+           card_line()))
+    log("gluon phase done in %.1f s" % (time.perf_counter() - t0))
+    del lenet, ffn, lm, glm, native
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in KERNELS}, dict(
+        lenet_step_p50_ms=lenet_p50,
+        lenet_images_per_s=GL_LENET_B / lenet_p50 * 1e3,
+        lenet_loss_before=lenet_before, lenet_loss_after=lenet_after,
+        lm_loss_before=lm_before, lm_loss_after=lm_after,
+        lm_step_ms_example=med["gluon_example"],
+        lm_step_ms_same_work=med["gluon_same_work"],
+        lm_step_ms_native=med["native"],
+        host_us_dense=host["gluon_ndarray"],
+        host_us_dense_torch=host["gluon_torch"],
+        host_us_f_linear=host["F.linear"])
 
 
 def main():
@@ -5506,6 +5925,8 @@ def main():
     log("LSTM training done at %.1f s" % (time.perf_counter() - t_start))
     paths["array_core"], array_core = array_core_phase(torch, args.seed)
     log("array core done at %.1f s" % (time.perf_counter() - t_start))
+    paths["gluon"], gluon_report = gluon_phase(torch, args.seed)
+    log("gluon done at %.1f s" % (time.perf_counter() - t_start))
     kernels = []
     for name in KERNELS:
         row = report[name]
@@ -5527,6 +5948,7 @@ def main():
                     "fused": report["fused"],
                     "tp_phases": report["tp_phases"],
                     "array_core": array_core,
+                    "gluon": gluon_report,
                     "sharded_attention": report["sharded_attention"]}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -26,14 +26,19 @@ Ported so far:
 - the array and op core — ``mx.np`` (``numpy/``), ``mx.npx``
   (``numpy_extension/``), ``mx.nd``, ``mx.autograd`` and ``mx.random``
   on ``ndarray``s that hold torch tensors, ``npx``'s fused ops routed to
-  the kernels.
+  the kernels;
+- Gluon — ``mx.gluon`` (``Parameter``, ``Block``/``HybridBlock``, every
+  layer, loss, metric and data module, the one-card ``Trainer``),
+  ``mx.init``, ``mx.optimizer`` and ``mx.lr_scheduler``; a block takes
+  ``ndarray``s (the JAX package's contract) or torch tensors.
 
 Entry points run on ``cuda`` unless ``device="cpu"`` (or ``ctx=mx.cpu()``,
 or an open ``mx.Context("cpu")`` scope) asks for the CPU
 (``context.resolve``).
 
 Import convention: ``import mxnet_tpu_torch as mx``, then ``mx.np``,
-``mx.npx``, ``mx.nd``, ``mx.autograd``, ``mx.random``, ``mx.waitall``.
+``mx.npx``, ``mx.nd``, ``mx.autograd``, ``mx.random``, ``mx.waitall``,
+``mx.gluon``, ``mx.init``, ``mx.optimizer``, ``mx.lr_scheduler``.
 """
 from . import config, context, faults, profiler  # noqa: F401
 from .context import (cpu, gpu, Context, Device, current_context,  # noqa
@@ -49,8 +54,16 @@ from . import numpy_extension as npx  # noqa: F401
 from . import _rng  # noqa: F401
 from . import random  # noqa: F401
 from . import nd  # noqa: F401
+from . import initializer  # noqa: F401
+from . import initializer as init  # noqa: F401
+from . import lr_scheduler  # noqa: F401
+from . import optimizer  # noqa: F401
+from .optimizer import Optimizer  # noqa: F401
+from . import gluon  # noqa: F401
 
 __all__ = ["config", "context", "faults", "profiler", "cpu", "gpu",
            "Context", "Device", "current_context", "num_gpus", "ndarray",
            "NDArray", "waitall", "autograd", "util", "np", "npx", "random",
-           "nd", "is_np_array", "is_np_shape", "set_np", "reset_np"]
+           "nd", "is_np_array", "is_np_shape", "set_np", "reset_np",
+           "initializer", "init", "lr_scheduler", "optimizer", "Optimizer",
+           "gluon"]

@@ -18,7 +18,8 @@ The draw itself is made where the data lives:
   plain versions) and on the card for one seed.
 
 ``trace_keys`` (the JAX package's keys as arguments of a compiled
-HybridBlock trace) belongs to ``hybridize`` and waits for it.
+HybridBlock trace) has no use here: the port's ``hybridize`` runs
+eagerly and traces nothing.
 """
 from __future__ import annotations
 

@@ -91,7 +91,7 @@ def unscale(trainer):
     scale, in place (nothing without a scaler)."""
     scaler = trainer._amp_loss_scaler
     if scaler is not None:
-        for p in trainer._params:
+        for p in trainer._leaves():
             if p.grad is not None:
                 p.grad.div_(scaler.loss_scale)
 

@@ -19,15 +19,20 @@ mutating an array that an op produced inside ``record()`` (``x[:] = ``,
 ``x += ``, ``copyto``) while recording raises ``RuntimeError``
 (``ndarray._set_data``).
 
-Training mode, two flags: ``record(train_mode=True)`` (and
-``train_mode()``/``predict_mode()``) set :func:`is_training`, which the
-``np``/``npx`` ops read (``npx.dropout`` is the identity outside
-training, ``npx.batch_norm`` uses batch statistics inside it), as in the
-JAX package.  The port's Gluon layers are ``torch.nn.Module``s and read
-``Module.training`` (``gluon/nn/basic_layers.py``), which ``.train()`` and
-``.eval()`` set.  Neither flag sets the other: a caller that mixes both
-layers states both, e.g. ``with autograd.record(train_mode=net.training)``
-(``tests/test_torch_autograd.py::test_train_mode_and_module_flag``).
+Training mode, one flag for each calling convention:
+
+- ``record(train_mode=True)`` (and ``train_mode()``/``predict_mode()``)
+  set :func:`is_training`.  The ``np``/``npx`` ops read it
+  (``npx.dropout`` is the identity outside training, ``npx.batch_norm``
+  uses batch statistics inside it), and so does every Gluon block called
+  with ``ndarray``s, as in the JAX package and MXNet.
+- A Gluon block called with torch tensors reads ``Module.training``,
+  which ``.train()`` and ``.eval()`` set, as torch modules do.
+
+Neither flag sets the other (``gluon/block.py``; held by
+``tests/test_torch_autograd.py::test_train_mode_and_module_flag``).  A
+gradient of a Gluon parameter's leaf goes to the leaf's ``.grad``
+(``gluon.parameter._ParamView``), per its ``grad_req``.
 """
 from __future__ import annotations
 
@@ -212,6 +217,10 @@ def _write_leaf_grad(arr, g):
     if req == "null":
         return False
     g = g.to(arr._data.dtype)
+    write = getattr(arr, "_write_grad", None)
+    if write is not None:           # a gluon Parameter's leaf: leaf.grad
+        write(g)
+        return True
     if arr._grad is None:
         arr._grad = _wrap(g)
     elif req == "add":

@@ -1,40 +1,40 @@
 """Fused RNN layers (the port of ``RNN``, ``LSTM`` and ``GRU`` of
-``mxnet_tpu/gluon/rnn/rnn_layer.py``) as ``nn.Module``s.
+``mxnet_tpu/gluon/rnn/rnn_layer.py``) as Gluon blocks.
 
 Per-layer parameters carry gluon's names (``i2h_weight_l0``,
 ``h2h_weight_l0``, ``i2h_bias_l0``, ``h2h_bias_l0``, with ``_r`` for the
-reverse direction), so :meth:`load_jax_params` carries a JAX layer's
-weights across by name.  They are packed into the fused op's flat vector
-at every forward (``ops.rnn``), as in the JAX package; the unidirectional
-LSTM layers run the ``lstm_sequence`` kernels.  Shapes are given at
-construction (``input_size`` is required: deferred shape inference is
-not ported).  Weights are made in fp32 on ``device`` (``cuda`` unless
-``"cpu"`` is asked for) and filled by :mod:`mxnet_tpu_torch.initializer`;
-biases start at 0.  ``begin_state`` follows the parameters' dtype, so a
-layer cast with ``.to(torch.bfloat16)`` starts from bf16 states.
+reverse direction), so ``load_parameters`` or :meth:`load_jax_params`
+carries a JAX layer's weights across by name.  They are packed into the
+fused op's flat vector at every forward (``ops.rnn``), as in the JAX
+package; the unidirectional LSTM layers run the ``lstm_sequence`` kernels
+(#10 forward, #11 backward).  Without ``input_size`` the first layer's
+input weights take their shape at the first forward.  ``begin_state``
+gives torch tensors in the parameters' dtype, on their device; an
+``ndarray`` call takes them as they are.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
-from ... import context
+from ... import _rng
 from ...ops import rnn as _rnn
+from ..block import _Layer, _nd_mode, eager_init
+from ..parameter import Parameter
+from ..nn.basic_layers import _init_of, _zeros_init
 
 __all__ = ["RNN", "LSTM", "GRU"]
 
 
-class _RNNLayer(nn.Module):
+class _RNNLayer(_Layer):
     def __init__(self, mode, hidden_size, num_layers, layout, dropout,
-                 bidirectional, input_size, device=None, generator=None):
+                 bidirectional, input_size, i2h_weight_initializer=None,
+                 h2h_weight_initializer=None, i2h_bias_initializer="zeros",
+                 h2h_bias_initializer="zeros", dtype="float32", device=None,
+                 generator=None):
         super().__init__()
         if layout not in ("TNC", "NTC"):
             raise ValueError("layout must be TNC or NTC, got %r" % (layout,))
-        if input_size <= 0:
-            raise ValueError("%s: input_size must be given (deferred shape "
-                             "inference is not ported)" % type(self).__name__)
-        dev = context.resolve(device)
         self._mode = mode
         self._hidden_size = hidden_size
         self._num_layers = num_layers
@@ -42,18 +42,26 @@ class _RNNLayer(nn.Module):
         self._dropout = dropout
         self._dir = 2 if bidirectional else 1
         self._input_size = input_size
+        self._dtype = dtype
         #: the ``torch.Generator`` of inter-layer dropout (None: the
-        #: device's default one)
+        #: device's default one, or the global seed's for ndarray calls)
         self.generator = generator
         G = _rnn._gates(mode) * hidden_size
         for suffix, in_sz in self._suffixes():
-            for name, shape in (("i2h_weight", (G, in_sz)),
-                                ("h2h_weight", (G, hidden_size)),
-                                ("i2h_bias", (G,)), ("h2h_bias", (G,))):
-                t = torch.empty(shape, device=dev)
-                if name.endswith("bias"):
-                    t.zero_()
-                setattr(self, name + suffix, nn.Parameter(t))
+            setattr(self, "i2h_weight" + suffix, Parameter(
+                "i2h_weight" + suffix, shape=(G, in_sz), dtype=dtype,
+                init=_init_of(i2h_weight_initializer),
+                allow_deferred_init=True))
+            setattr(self, "h2h_weight" + suffix, Parameter(
+                "h2h_weight" + suffix, shape=(G, hidden_size), dtype=dtype,
+                init=_init_of(h2h_weight_initializer)))
+            setattr(self, "i2h_bias" + suffix, Parameter(
+                "i2h_bias" + suffix, shape=(G,), dtype=dtype,
+                init=_zeros_init(i2h_bias_initializer)))
+            setattr(self, "h2h_bias" + suffix, Parameter(
+                "h2h_bias" + suffix, shape=(G,), dtype=dtype,
+                init=_zeros_init(h2h_bias_initializer)))
+        eager_init(self, device)
 
     def _suffixes(self):
         for layer in range(self._num_layers):
@@ -62,28 +70,39 @@ class _RNNLayer(nn.Module):
             for d in range(self._dir):
                 yield "_l%d%s" % (layer, "_r" if d else ""), in_sz
 
+    def infer_shape(self, x, *args):
+        self._input_size = x.shape[-1]
+        G = _rnn._gates(self._mode) * self._hidden_size
+        for suffix, in_sz in self._suffixes():
+            getattr(self, "i2h_weight" + suffix).shape_and_init((G, in_sz))
+
     def _flat_params(self):
         """The flat vector of ``rnn-inl.h``: all weights (layer-major,
         direction-minor), then all biases."""
         sfx = [s for s, _ in self._suffixes()]
-        chunks = [getattr(self, k + s).reshape(-1) for s in sfx
+        p = self._parameters
+        chunks = [p[k + s].reshape(-1) for s in sfx
                   for k in ("i2h_weight", "h2h_weight")]
-        chunks += [getattr(self, k + s) for s in sfx
-                   for k in ("i2h_bias", "h2h_bias")]
+        chunks += [p[k + s] for s in sfx for k in ("i2h_bias", "h2h_bias")]
         return torch.cat(chunks)
 
-    def begin_state(self, batch_size=0):
-        """Zero states (h, and c for LSTM) of shape (L*D, B, H), in the
-        parameters' dtype and on their device."""
-        p = self.i2h_weight_l0
+    def state_info(self, batch_size=0):
         shape = (self._num_layers * self._dir, batch_size, self._hidden_size)
         n = 2 if self._mode == "lstm" else 1
-        return [torch.zeros(shape, dtype=p.dtype, device=p.device)
-                for _ in range(n)]
+        return [{"shape": shape, "__layout__": "LNC"} for _ in range(n)]
 
-    def forward(self, x, states=None):
+    def begin_state(self, batch_size=0, func=None, **kwargs):
+        """Zero states (h, and c for LSTM) of shape (L*D, B, H), in the
+        parameters' dtype and on their device."""
+        w = self.h2h_weight_l0.leaf
+        return [torch.zeros(info["shape"], dtype=w.dtype, device=w.device)
+                for info in self.state_info(batch_size)]
+
+    def _forward(self, training, x, states=None):
         """``x`` (T, B, C) or (B, T, C) by layout; returns the output, and
         the new states too when ``states`` were given."""
+        if self.i2h_weight_l0._var is None:
+            self.infer_shape(x)
         if self._layout == "NTC":
             x = x.transpose(0, 1)
         ret_states = states is not None
@@ -91,12 +110,16 @@ class _RNNLayer(nn.Module):
             states = self.begin_state(x.shape[1])
         elif isinstance(states, torch.Tensor):
             states = [states]
+        gen = self.generator
+        if (gen is None and _nd_mode() and training and self._dropout
+                and self._num_layers > 1):
+            gen = _rng.generator(x.device)
         res = _rnn.rnn(x, self._flat_params(), states[0],
                        states[1] if self._mode == "lstm" else None,
                        mode=self._mode, state_size=self._hidden_size,
                        num_layers=self._num_layers,
                        bidirectional=self._dir == 2, p=self._dropout,
-                       training=self.training, generator=self.generator)
+                       training=training, generator=gen)
         out, new_states = res[0], list(res[1:])
         if self._layout == "NTC":
             out = out.transpose(0, 1)

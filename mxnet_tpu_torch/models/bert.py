@@ -50,7 +50,8 @@ __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerLayer",
 def _dense_nobias(dense, x):
     """A Dense layer's matmul without its bias, which the next fused
     epilogue adds."""
-    return _ops.fully_connected(x, dense.weight, no_bias=True, flatten=False)
+    return _ops.fully_connected(x, dense.weight.leaf, no_bias=True,
+                                flatten=False)
 
 
 class MultiHeadAttention(nn.Module):
@@ -122,7 +123,8 @@ class PositionwiseFFN(nn.Module):
         on (the layer's bias_dropout_residual adds it)."""
         fused = self._activation == "gelu" and fuse_epilogue_enabled()
         if fused:
-            h = _ops.bias_gelu(_dense_nobias(self.ffn1, x), self.ffn1.bias)
+            h = _ops.bias_gelu(_dense_nobias(self.ffn1, x),
+                               self.ffn1.bias.leaf)
         else:
             h = _ops.activation(self.ffn1(x), self._activation)
         h = _ops.dropout(h, self._dropout, self.training, self._generator)
@@ -149,11 +151,12 @@ class TransformerLayer(nn.Module):
         if fuse_epilogue_enabled():
             h = self.attention(x, mask)
             x = self.ln1(_ops.bias_dropout_residual(
-                h, self.attention.proj.bias, x, self._dropout, self.training,
-                gen))
+                h, self.attention.proj.bias.leaf, x, self._dropout,
+                self.training, gen))
             h = self.ffn(x)
             return self.ln2(_ops.bias_dropout_residual(
-                h, self.ffn.ffn2.bias, x, self._dropout, self.training, gen))
+                h, self.ffn.ffn2.bias.leaf, x, self._dropout, self.training,
+                gen))
         h = _ops.dropout(self.attention(x, mask), self._dropout,
                          self.training, gen)
         x = self.ln1(x + h)
@@ -254,12 +257,12 @@ class BERTModel(nn.Module):
         pooled = self.pooler(seq[:, 0])                       # CLS
         if fuse_epilogue_enabled():
             h = _ops.bias_gelu(_dense_nobias(self.mlm_dense, seq),
-                               self.mlm_dense.bias)
+                               self.mlm_dense.bias.leaf)
         else:
             h = _ops.activation(self.mlm_dense(seq), "gelu")
         h = self.mlm_ln(h)
         if self._tie:
-            logits = _ops.fully_connected(h, self.word_embed.weight,
+            logits = _ops.fully_connected(h, self.word_embed.weight.leaf,
                                           self.mlm_bias, flatten=False)
         else:
             logits = self.mlm_decoder(h) + self.mlm_bias

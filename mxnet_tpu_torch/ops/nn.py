@@ -264,11 +264,11 @@ def convolution(x, weight, bias=None, kernel=None, stride=None, dilate=None,
                 pad=None, num_filter=None, num_group=1, no_bias=False,
                 layout=None):
     """N-d convolution, weight (O, I/groups, *k) as the reference lays it
-    out, data NC... or channels-last by ``layout``."""
+    out whatever the data's layout, data NC... or channels-last by
+    ``layout`` (the JAX package's dimension numbers: rhs ``OI`` + the
+    spatial dims)."""
     nd = x.dim() - 2
     x, last = _channels_first(x, layout)
-    if last:
-        weight = weight.movedim(-1, 1)
     x, weight = _amp_cast2("convolution", x, weight)
     b = None if (bias is None or no_bias) else bias.to(x.dtype)
     out = _CONV[nd](x, weight, b, _tup(stride or 1, nd), _tup(pad or 0, nd),
@@ -280,12 +280,11 @@ def deconvolution(x, weight, bias=None, kernel=None, stride=None,
                   dilate=None, pad=None, adj=None, num_filter=None,
                   num_group=1, no_bias=False, layout=None,
                   target_shape=None):
-    """Transposed convolution, weight (I, O/groups, *k); ``target_shape``
-    overrides the padding as in the reference."""
+    """Transposed convolution, weight (I, O/groups, *k) whatever the
+    data's layout; ``target_shape`` overrides the padding as in the
+    reference."""
     nd = x.dim() - 2
     x, last = _channels_first(x, layout)
-    if last:
-        weight = weight.movedim(-1, 1)
     x, weight = _amp_cast2("deconvolution", x, weight)
     stride, dilate = _tup(stride or 1, nd), _tup(dilate or 1, nd)
     pad, adj = _tup(pad or 0, nd), _tup(adj or 0, nd)

@@ -4,13 +4,16 @@
 A served model is a batch function ``fn(batch_np) -> batch_np`` plus the
 metadata the batcher needs (item shape/dtype, batch buckets).  Sources:
 
+- a Gluon block: hybridized, and called with the batch as an ``ndarray``
+  on the block's device outside ``autograd.record()`` (predict mode), as
+  the JAX package serves it;
 - a ``torch.nn.Module`` (the port's ``CausalLM``, for instance): the batch
   goes in as a tensor on the module's device, under ``torch.no_grad()``;
 - any plain callable (tests / custom pre-post-processing).
 
-Gluon blocks and exported checkpoints (``SymbolBlock.imports``) are the
-JAX package's; the port's Gluon layers do not export or import yet, so
-registering a block or a checkpoint raises ``NotImplementedError``.
+Exported checkpoints (``load_checkpoint``, ``SymbolBlock.imports`` in the
+JAX package) wait for the symbolic graph API (ROADMAP Queue 1 item 9)
+and raise ``NotImplementedError``.
 
 Batch bucketing: each model declares a sorted tuple of batch buckets
 (default: powers of two up to ``max_batch_size``); the batcher pads a
@@ -114,9 +117,28 @@ def default_buckets(max_batch_size):
     return tuple(buckets)
 
 
-_GLUON = ("Gluon blocks and exported checkpoints are not served by the port "
-          "yet (its Gluon layers do not export or import); register a "
-          "torch.nn.Module or a batch function")
+_CHECKPOINT = ("ModelRegistry.load_checkpoint is not ported yet: it imports "
+               "an exported artifact pair through SymbolBlock.imports, which "
+               "waits for sym_api.py (the symbolic graph API), ROADMAP Queue "
+               "1 item 9; register a Gluon block, a torch.nn.Module or a "
+               "batch function")
+
+
+def _block_batch_fn(block):
+    """Gluon block -> batch function over host arrays, as the JAX
+    package's: the batch as an ``ndarray`` on the block's device, called
+    outside ``autograd.record()`` (predict mode, nothing recorded), the
+    (first) output back as a numpy array."""
+    from ..ndarray import array
+
+    def fn(batch_np):
+        dev = next((p._var.device for p in block.collect_params().values()
+                    if getattr(p, "_var", None) is not None), None)
+        out = block(array(batch_np, ctx=dev))
+        if isinstance(out, (list, tuple)):
+            out = out[0]
+        return out.asnumpy()
+    return fn
 
 
 def _module_batch_fn(module):
@@ -227,19 +249,25 @@ class ModelRegistry:
 
     def load(self, name, model, version=None, *, item_shape=None,
              dtype="float32", max_batch_size=32, buckets=None, warmup=True):
-        """Register ``model`` (a ``torch.nn.Module`` or ``fn(batch) ->
-        batch``) as ``name``/``version`` (default: current latest + 1) and
-        return the ``ServedModel``.  With ``warmup`` every bucket runs
-        here, before the version becomes routable (hot-swap safety).  A
-        Gluon block raises ``NotImplementedError``."""
+        """Register ``model`` (a Gluon block, a ``torch.nn.Module`` or
+        ``fn(batch) -> batch``) as ``name``/``version`` (default: current
+        latest + 1) and return the ``ServedModel``.  A Gluon block is
+        hybridized and called with ``ndarray``s in predict mode, as in the
+        JAX package.  With ``warmup`` every bucket runs here, before the
+        version becomes routable (hot-swap safety)."""
         import torch
-        if hasattr(model, "collect_params"):
-            raise NotImplementedError(_GLUON)
         if not callable(model):
-            raise TypeError("model must be a torch.nn.Module or callable, "
-                            "got %r" % (type(model).__name__,))
-        fn = (_module_batch_fn(model) if isinstance(model, torch.nn.Module)
-              else model)
+            raise TypeError("model must be a Gluon block, a torch.nn.Module "
+                            "or callable, got %r" % (type(model).__name__,))
+        if hasattr(model, "collect_params"):
+            if hasattr(model, "hybridize") and not getattr(
+                    model, "_active", False):
+                model.hybridize(active=True)
+            fn = _block_batch_fn(model)
+        elif isinstance(model, torch.nn.Module):
+            fn = _module_batch_fn(model)
+        else:
+            fn = model
         with self._lock:
             if version is None:
                 version = self._latest.get(name, 0) + 1
@@ -256,9 +284,8 @@ class ModelRegistry:
 
     def load_checkpoint(self, name, symbol_file, param_file=None, **kwargs):
         """The JAX package registers an exported artifact pair through
-        ``SymbolBlock.imports``; the port's Gluon layers import no
-        checkpoint yet."""
-        raise NotImplementedError(_GLUON)
+        ``SymbolBlock.imports`` (ROADMAP Queue 1 item 9)."""
+        raise NotImplementedError(_CHECKPOINT)
 
     def get(self, name, version=None):
         with self._lock:

@@ -135,9 +135,10 @@ def test_train_and_predict_modes():
 
 
 def test_train_mode_and_module_flag():
-    """The np/npx ops read autograd.is_training(); the port's Gluon layers
-    (torch modules) read Module.training.  Neither sets the other: a
-    caller mixing both states both."""
+    """The np/npx ops, and a Gluon layer called with ndarrays, read
+    autograd.is_training(); a Gluon layer called with torch tensors reads
+    Module.training.  Neither sets the other: a caller mixing both
+    states both."""
     tmx = port_mx()
     from mxnet_tpu_torch.gluon import nn as gnn
     drop = gnn.Dropout(0.5)
@@ -154,6 +155,32 @@ def test_train_mode_and_module_flag():
         assert (tmx.npx.dropout(x, p=0.5).asnumpy() == 0).any()
     with tmx.autograd.record(train_mode=drop.training):
         assert tmx.npx.dropout(x, p=0.5) is x
+    # the same Dropout and a BatchNorm called with ndarrays: autograd's
+    # flag, whatever the module's
+    with tmx.Context("cpu"):
+        bn = gnn.BatchNorm(in_channels=64)
+        bn.initialize()
+        y = tmx.np.array(np.random.default_rng(0).standard_normal(
+            (4, 64)).astype(np.float32))
+        drop.eval()
+        bn.eval()
+        with tmx.autograd.record(train_mode=True):
+            assert (drop(x).asnumpy() == 0).any()
+            out = bn(y).asnumpy()
+        np.testing.assert_allclose(out.mean(0), 0, atol=1e-5)
+        assert not np.allclose(bn.running_mean.data().asnumpy(), 0)
+        drop.train()
+        bn.train()
+        before = bn.running_mean.data().asnumpy().copy()
+        with tmx.autograd.record(train_mode=False):
+            assert drop(x) is x
+            np.testing.assert_allclose(
+                bn(y).asnumpy(), y.asnumpy() / np.sqrt(
+                    bn.running_var.data().asnumpy() + 1e-5)
+                - before / np.sqrt(bn.running_var.data().asnumpy() + 1e-5),
+                rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(bn.running_mean.data().asnumpy(),
+                                      before)
 
 
 def test_head_gradients():

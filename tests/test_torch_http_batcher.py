@@ -97,9 +97,10 @@ def test_registry_serves_a_module_and_refuses_gluon(monkeypatch):
         def collect_params(self):
             return {}
 
-    with pytest.raises(NotImplementedError, match="Gluon"):
-        reg.load("blk", Block())
-    with pytest.raises(NotImplementedError, match="Gluon"):
+    # a Gluon block is served (tests/test_torch_gluon_serving.py holds its
+    # outputs against the JAX registry's); checkpoints wait for item 9
+    assert reg.load("blk", Block()).name == "blk"
+    with pytest.raises(NotImplementedError, match="item 9"):
         reg.load_checkpoint("ckpt", "net-symbol.json", "net-0000.params")
     assert tserving.registry.maybe_enable_compile_cache() is None
     with pytest.raises(NotImplementedError, match="compile cache"):

@@ -51,10 +51,18 @@ def test_import_loads_no_jax_and_no_reference_package():
                     "numpy.random", "numpy_extension", "nd", "_nd_contrib",
                     "autograd", "random", "_rng", "util", "numpy_dispatch",
                     "legacy_serialization", "ops.control_flow",
-                    "_unported"):
+                    "_unported", "gluon.parameter", "gluon.block",
+                    "gluon.nn.activations", "gluon.nn.conv_layers",
+                    "gluon.metric", "gluon.utils", "gluon.data",
+                    "gluon.data.dataset", "gluon.data.sampler",
+                    "gluon.data.batchify", "gluon.data.dataloader",
+                    "gluon.data.vision", "gluon.data.vision.datasets",
+                    "gluon.data.vision.transforms",
+                    "gluon.rnn.conv_rnn_cell", "lr_scheduler"):
             assert "mxnet_tpu_torch." + mod in names, (mod, names)
         mx = mxnet_tpu_torch
-        for ns in ("np", "npx", "nd", "autograd", "random", "waitall"):
+        for ns in ("np", "npx", "nd", "autograd", "random", "waitall",
+                   "gluon", "init", "optimizer", "lr_scheduler"):
             assert hasattr(mx, ns), ns
         print(len(names), bad)
         sys.exit(1 if bad else 0)

@@ -74,8 +74,9 @@ def test_optimizer_registry():
     assert isinstance(topt.create("adamw"), topt.AdamW)
     sgd = topt.SGD(learning_rate=0.5)
     assert topt.create(sgd) is sgd
+    assert isinstance(topt.create("lamb"), topt.LAMB)
     with pytest.raises(KeyError):
-        topt.create("lamb")
+        topt.create("no_such_optimizer")
 
 
 B, L, V = 4, 10, 1000
