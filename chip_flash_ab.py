@@ -103,7 +103,20 @@ imports that TREE's ``mxnet_tpu_torch`` and this checkout's
 - ``gluon``: ``chip_smoke.gluon_phase`` (LeNet, the BERT-base FFN and
   the 2 x 650 word LM through Gluon on the card, held and counted, the
   Gluon LM step timed beside the torch-native one); only in a tree with
-  Gluon.
+  Gluon;
+- ``zoo_grad``: where the fp32 ResNet-50's first-step gradients part:
+  from ``chip_smoke.zoo_model``'s first weights and batch (fp32 NCHW,
+  B 32), the gradients of the Gluon model, of the torch-native model
+  twice (cuDNN's BatchNorm), of the torch-native model with
+  ``torch.native_batch_norm`` (the Gluon layer's kernel) and of the
+  torch-native model in fp64, each against fp64 (``zoo_grad_errors``);
+  then the loss after one SGD step (lr 0.05) from each of those
+  gradients, evaluated in fp64 and in the fp32 torch-native model;
+- ``zoo``: ``chip_smoke.zoo_phase`` (ResNet-50 v1 training through the
+  model zoo and ``gluon.Trainer`` in fp32 NCHW and NHWC at B 32 and bf16
+  NHWC at B 256, the torch-native ResNet-50 beside it, the profiler's
+  trace, each family against the CPU, every ``get_model`` name, the
+  examples on the card); only in a tree with the model zoo.
 
 A TREE named more than once runs that many more turns; a TREE whose
 build fails is left out of the turns (the exit code is then 1).  Every
@@ -115,6 +128,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -124,7 +138,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("delta", "route", "kernels", "host", "bert", "amp", "epilogue",
           "lstm", "tp", "paged", "fused", "qmm", "dims", "dims16",
-          "spec", "array", "gluon")
+          "spec", "array", "gluon", "zoo_grad", "zoo")
 
 
 def build(trees, names):
@@ -238,11 +252,119 @@ def run(tree, phases, steps):
     if "gluon" in phases:
         _, rep = cs.gluon_phase(torch, 0)
         cs.log("gluon: %s" % json.dumps(rep))
+    if "zoo_grad" in phases:
+        zoo_grad_phase(cs, torch)
+    if "zoo" in phases:
+        _, rep = cs.zoo_phase(torch, 0)
+        cs.log("zoo: %s" % json.dumps(rep))
     if "amp" in phases:
         torch.cuda.empty_cache()
         _, st = cs.train(torch, 0, "amp_bf16", cs.TRAIN_B, cs.TRAIN_L, steps,
                          amp=True)
         cs.log("amp %d steps: %s" % (steps, json.dumps(st)))
+
+
+def zoo_grad_phase(cs, torch):
+    """The ``zoo_grad`` phase (the module docstring says what it runs)."""
+    import copy
+    import types
+    import mxnet_tpu_torch as mx
+    F = torch.nn.functional
+    B = 32
+    net, x, y = cs.zoo_model(torch, mx, 0, B, "NCHW")
+    twin = cs.resnet50_native(torch, net, cs.ZOO_CLASSES)
+    xt, yt = x._data, y._data.long()
+    with mx.autograd.record():
+        loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+    loss.backward()
+    grads = {"gluon": {cs.zoo_twin_name(k): p.leaf.grad / B
+                       for k, p in net.collect_params().items()
+                       if p.grad_req != "null"}}
+    losses = {"gluon": float(loss.mean())}
+
+    def native_bn(self, inp):
+        return torch.native_batch_norm(inp, self.weight, self.bias, None,
+                                       None, True, 0.0, self.eps)[0]
+
+    twin_nbn = copy.deepcopy(twin)
+    for m in twin_nbn.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.forward = types.MethodType(native_bn, m)
+    twin64 = copy.deepcopy(twin).double()
+    for name, model, xin in (("native", twin, xt), ("native_again", twin, xt),
+                             ("native_bn", twin_nbn, xt),
+                             ("fp64", twin64, xt.double())):
+        lo, g = cs.native_grads(torch, model, xin, yt)
+        grads[name] = {k: v.detach().clone() for k, v in g.items()}
+        losses[name] = float(lo)
+    ref = grads["fp64"]
+    for name in ("gluon", "native", "native_again", "native_bn"):
+        errs, zero, l2 = cs.zoo_grad_errors(grads[name], ref)
+        cs.log("zoo_grad: %s: first loss %.8f (fp64 %.8f); against fp64: "
+               "relative L2 %.4g, worst %s; zero-gradient largest %.3g"
+               % (name, losses[name], losses["fp64"], l2, cs.zoo_worst(errs),
+                  max(zero.values())))
+    # over each fp64 gradient's largest; the gradients zero but for
+    # rounding over the net's largest (zoo_grad_errors)
+    top = max(float(r.abs().max()) for r in ref.values())
+    zero = {k for k, r in ref.items()
+            if float(r.abs().max()) <= cs.ZOO_ZERO_GRAD * top}
+    for a, b in (("gluon", "native_bn"), ("gluon", "native"),
+                 ("native", "native_again")):
+        d = {k: float((grads[a][k] - grads[b][k]).abs().max())
+             / (top if k in zero else float(ref[k].abs().max()))
+             for k in ref}
+        cs.log("zoo_grad: %s against %s: largest difference over the fp64 "
+               "gradient's largest %.4g (worst %s); over the net's largest "
+               "for the %d zero but for rounding %.3g"
+               % (a, b, max(v for k, v in d.items() if k not in zero),
+                  cs.zoo_worst({k: v for k, v in d.items() if k not in zero}),
+                  len(zero), max(d[k] for k in zero)))
+    w0 = {k: p.detach().clone() for k, p in twin64.named_parameters()}
+
+    def loss_after(g, model, xin):
+        """The mean loss of ``model`` at w0 - lr g (training mode)."""
+        with torch.no_grad():
+            params = dict(model.named_parameters())
+            keep = {k: p.detach().clone() for k, p in params.items()}
+            for k, p in params.items():
+                p.copy_((w0[k] - cs.ZOO_LR * g[k].double()).to(p.dtype))
+            out = float(F.cross_entropy(model(xin), yt))
+            for k, p in params.items():
+                p.copy_(keep[k])
+        return out
+
+    for name in ("gluon", "native", "native_again", "native_bn", "fp64"):
+        cs.log("zoo_grad: the loss after one SGD step (lr %g) from the %s "
+               "gradient: evaluated in fp64 %.6f, in fp32 (torch-native) "
+               "%.6f" % (cs.ZOO_LR, name,
+                         loss_after(grads[name], twin64, xt.double()),
+                         loss_after(grads[name], twin, xt)))
+    # the fp64 gradient against a central finite difference in fp64 along
+    # a random unit direction r (each fp32 gradient's r-component beside)
+    gen = torch.Generator(device=xt.device).manual_seed(5)
+    r = {k: torch.randn(w.shape, generator=gen, device=xt.device,
+                        dtype=torch.float64) for k, w in w0.items()}
+    norm = math.sqrt(sum(float((v * v).sum()) for v in r.values()))
+    h = 1e-7
+    with torch.no_grad():
+        side = []
+        for sgn in (1.0, -1.0):
+            for k, p in twin64.named_parameters():
+                p.copy_(w0[k] + sgn * h * r[k] / norm)
+            side.append(float(F.cross_entropy(twin64(xt.double()), yt)))
+        for k, p in twin64.named_parameters():
+            p.copy_(w0[k])
+    fd = (side[0] - side[1]) / (2 * h)
+    dots = {name: sum(float((grads[name][k].double() * r[k]).sum())
+                      for k in r) / norm
+            for name in ("fp64", "gluon", "native", "native_bn")}
+    cs.log("zoo_grad: along a random unit direction, a central difference "
+           "of the fp64 loss (h %g) %.7g; the gradients' components: %s"
+           % (h, fd, ", ".join("%s %.7g" % kv for kv in dots.items())))
+    cs.log("zoo_grad: card %s" % cs.card_line())
+    del net, twin, twin64, twin_nbn, grads
+    torch.cuda.empty_cache()
 
 
 def array_phase(cs, torch):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's LLM serving (tensor-parallel serving and
-the HTTP surface included), BERT training, LSTM training and array-core
-(``mx.np``/``mx.npx``/``mx.autograd``) paths on one CUDA card.
+the HTTP surface included), BERT training, LSTM training, array-core
+(``mx.np``/``mx.npx``/``mx.autograd``), Gluon and model-zoo (ResNet-50
+training) paths on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -238,9 +239,37 @@ plain version):
    CPU from the same weights; the Gluon LM step timed in turns beside the
    torch-native one (``train_lm``'s); one layer call's host time with
    ``ndarray``s beside torch tensors and ``F.linear``.
-8. The kernels line (launches summed over the serving runs, the prefix,
+8. The model zoo (``zoo_phase``; counts set to 0 before the ResNet-50
+   runs and read after them: no hand kernel runs there, the convolutions
+   are cuDNN's): ``gluon.model_zoo.vision.resnet50_v1(classes=1000)``,
+   ``Xavier()``, ``SoftmaxCrossEntropyLoss``, SGD (lr 0.05, momentum 0.9)
+   through the one-card ``gluon.Trainer`` on one batch of 224 x 224
+   images from ``--seed``, as bench config 2 (``bench.py:141-200``) runs
+   it: fp32 at B 32 in NCHW and in NHWC, and bf16 at B 256 in NHWC
+   (``net.cast("bfloat16")``, the loss on ``out.astype("float32")``);
+   3 warm-up and 10 timed steps each: the loss must fall at each of the
+   first two updates, step p50
+   between CUDA events, images/s, the host's enqueue time of a step, the
+   peak memory read through ``profiler.device_memory_stats`` (it must
+   equal ``torch.cuda.max_memory_allocated``) and the bound (3 x 8.2
+   GFLOP an image at 67 TFLOP/s fp32, 989 bf16).  A torch-native ResNet-50
+   (``torch.nn``, the zoo's module paths) from the fp32 NCHW run's first
+   weights: its first loss against the Gluon one's, then both steps timed
+   in turns; each fp32 run's first gradients held against such a model
+   in fp64, beside the torch-native fp32 model's own error
+   (``TOL_ZOO_GRAD``).  ``profiler.Task`` around two steps with a device
+   trace (``set_config(xplane_dir=)``): the chrome trace parsed back, a
+   convolution kernel named in the torch.profiler trace.  One member of
+   each family (``ZOO_FAMILY``) on the card and on the CPU from the same
+   weights at B 2 (inceptionv3 at 299, the others at 224), err / max
+   printed; every other ``get_model`` name built and run once on the card
+   (output shape, finite).  The examples of ``tests/example_runner.py``
+   on the card (``mxnet_tpu`` imported as the port, no CPU scope, a
+   process each, six at once): each must exit 0 and print its closing
+   line.
+9. The kernels line (launches summed over the serving runs, the prefix,
    session, tiny-LM, HTTP and speculative phases, the sharded-attention
-   path, the training phases, the array-core and the Gluon phases), the
+   path, the training phases, the array-core, Gluon and zoo phases), the
    card line and, last, the result line ``{"ok": true, "device":
    {...}}``.
 """
@@ -254,6 +283,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -5102,7 +5132,6 @@ def array_core_phase(torch, seed):
     ``nd.load`` round trips, npz and legacy; the np/npx step beside the
     torch-native step (CUDA events) and the host microseconds of one
     ``apply_op`` dispatch.  Returns the main path's launches."""
-    import tempfile
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import amp
     from mxnet_tpu_torch.gluon import rnn as grnn
@@ -5402,7 +5431,6 @@ def gluon_phase(torch, seed):
     """Gluon on the card, through the user's entry points (see the module
     docstring, item 7).  Returns the main path's launches and the
     numbers."""
-    import tempfile
     import mxnet_tpu_torch as mx
     F = torch.nn.functional
     t0 = time.perf_counter()
@@ -5696,6 +5724,588 @@ def gluon_phase(torch, seed):
         host_us_f_linear=host["F.linear"])
 
 
+# ---------------------------------------------------------------------------
+# the model zoo (zoo_phase): ResNet-50 training at bench config 2's widths
+# ---------------------------------------------------------------------------
+ZOO_IMAGE, ZOO_CLASSES = 224, 1000
+# (label, dtype, B, layout): bench config 2's runs (bench.py:141-200) on
+# the one-card gluon.Trainer; NCHW is the reference's default layout
+ZOO_RUNS = (("fp32_nchw", "float32", 32, "NCHW"),
+            ("fp32_nhwc", "float32", 32, "NHWC"),
+            ("bf16_nhwc", "bfloat16", 256, "NHWC"))
+ZOO_WARMUP, ZOO_STEPS = 3, 10
+ZOO_LR, ZOO_MOMENTUM = 0.05, 0.9
+# the loss must fall at each of the first ZOO_FALLING updates: on one batch
+# at lr 0.05 and momentum 0.9 it falls for two, then the momentum
+# overshoots and it wanders, in the torch-native model's run too
+ZOO_FALLING = 2
+# training FLOPs an image: 3 x ResNet-50's forward 8.2 GFLOP (bench.py:89)
+RESNET50_TRAIN_FLOPS = 3 * 8.2e9
+ZOO_PROFILE_STEPS = 2
+# one member of each family, run on the card and on the CPU from the same
+# weights at B 2 and its own input size
+ZOO_FAMILY = ("resnet50_v1", "resnet50_v2", "vgg16_bn", "alexnet",
+              "mobilenet1.0", "mobilenetv2_1.0", "squeezenet1.1",
+              "densenet121", "inceptionv3")
+ZOO_CPU_B = 2
+# the torch-native ResNet-50's first loss against the Gluon one's, the
+# same weights and batch in fp32: the same cuDNN and cuBLAS calls in the
+# same order but for the layers' own bookkeeping, so a few ulps of a loss
+# of order 7 at most
+TOL_ZOO_NATIVE_LOSS = 1e-6
+# the first step's gradients of each fp32 run against a torch-native copy
+# of the model in fp64 (the same weights and batch), per parameter, error
+# over the fp64 gradient's largest element.  In training mode (BatchNorm on
+# the batch's statistics) fp32 rounding alone moves them far: on the
+# card at this shape the torch-native fp32 model's gradients are 2.2-2.5%
+# off in L2, a median parameter ~2.4% of its largest and the worst ~0.1
+# (Gluon's alike; ``chip_flash_ab.py --phases zoo_grad`` holds the fp64
+# gradient against a finite difference), so one fp32 model's gradients
+# are not a yardstick for another's at any tight tolerance.  The Gluon run's relative L2 error
+# and its largest per-parameter error must each be within TOL_ZOO_GRAD
+# times the fp32 torch-native model's (its largest over all parameters);
+# a wrong term in a backward puts whole parameters off by their own size.
+# A gradient that is zero but for rounding in fp64 (a convolution's bias
+# before BatchNorm; its largest below ZOO_ZERO_GRAD of the net's largest)
+# is held by its largest over the net's largest, within TOL_ZOO_GRAD times
+# the torch-native model's or ZOO_ZERO_FLOOR
+TOL_ZOO_GRAD = 2.0
+ZOO_ZERO_GRAD, ZOO_ZERO_FLOOR = 1e-9, 1e-6
+# card against CPU, forward outside training from the same weights, error
+# over the largest output element: up to 120 fp32 layers (densenet121),
+# each summing up to 25088 products (VGG's first Dense) in another order
+# in cuDNN/cuBLAS than on the CPU
+TOL_ZOO_CARD_CPU = 1e-4
+# the example scripts the runner drives on the card, and how many at once
+ZOO_EXAMPLE_WORKERS = 6
+
+
+def zoo_twin_name(name):
+    """The torch-native ResNet-50's name of a zoo parameter."""
+    return name.replace(".gamma", ".weight").replace(".beta", ".bias")
+
+
+def zoo_grad_errors(grads, ref):
+    """Per parameter (torch-native names), the largest error of
+    ``grads`` against ``ref`` (fp64) over ref's largest element, and for
+    the parameters whose ref gradient is zero but for rounding
+    (``ZOO_ZERO_GRAD``) the gradient's largest over the net's largest;
+    with the relative L2 error of the whole gradient."""
+    top = max(float(r.abs().max()) for r in ref.values())
+    errs, zero, num, den = {}, {}, 0.0, 0.0
+    for k, r in ref.items():
+        g = grads[k].double()
+        m = float(r.abs().max())
+        num += float(((g - r) ** 2).sum())
+        den += float((r ** 2).sum())
+        if m <= ZOO_ZERO_GRAD * top:
+            zero[k] = float(g.abs().max()) / top
+        else:
+            errs[k] = float((g - r).abs().max()) / m
+    return errs, zero, math.sqrt(num / den)
+
+
+def zoo_worst(errs, n=3):
+    """The ``n`` largest of ``errs`` as text."""
+    return ", ".join("%s %.3g" % (k, v) for k, v in sorted(
+        errs.items(), key=lambda kv: -kv[1])[:n])
+
+
+def resnet50_native(torch, gnet, classes):
+    """A ``torch.nn`` ResNet-50 v1 (NCHW) with the module paths of the
+    zoo's ``resnet50_v1`` (BottleneckV1: the stride on the first 1 x 1
+    convolution, which has a bias as the third does), its weights and
+    BatchNorm statistics copied from ``gnet``: the yardstick of the Gluon
+    layer's cost, as ``word_lm`` is the LSTM's."""
+    nn = torch.nn
+
+    def bn(c):
+        # Gluon's momentum 0.9 keeps 0.9 of the running value; torch's 0.1
+        return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+
+    class Bottleneck(nn.Module):
+        def __init__(self, cin, c, stride):
+            super().__init__()
+            mid = c // 4
+            self.body = nn.Sequential(
+                nn.Conv2d(cin, mid, 1, stride), bn(mid), nn.ReLU(),
+                nn.Conv2d(mid, mid, 3, 1, 1, bias=False), bn(mid),
+                nn.ReLU(), nn.Conv2d(mid, c, 1), bn(c))
+            self.downsample = None
+            if stride != 1 or cin != c:
+                self.downsample = nn.Sequential(
+                    nn.Conv2d(cin, c, 1, stride, bias=False), bn(c))
+
+        def forward(self, x):
+            r = x if self.downsample is None else self.downsample(x)
+            return torch.relu(self.body(x) + r)
+
+    class ResNet50(nn.Module):
+        def __init__(self):
+            super().__init__()
+            chans = [64, 256, 512, 1024, 2048]
+            stages = []
+            for i, n in enumerate([3, 4, 6, 3]):
+                blocks = [Bottleneck(chans[i], chans[i + 1],
+                                     1 if i == 0 else 2)]
+                blocks += [Bottleneck(chans[i + 1], chans[i + 1], 1)
+                           for _ in range(n - 1)]
+                stages.append(nn.Sequential(*blocks))
+            self.features = nn.Sequential(
+                nn.Conv2d(3, 64, 7, 2, 3, bias=False), bn(64), nn.ReLU(),
+                nn.MaxPool2d(3, 2, 1), *stages, nn.AdaptiveAvgPool2d(1))
+            self.output = nn.Linear(2048, classes)
+
+        def forward(self, x):
+            return self.output(self.features(x).flatten(1))
+
+    net = ResNet50().to(DEV)
+    sd = net.state_dict(keep_vars=True)
+    names = set(k for k in sd if not k.endswith("num_batches_tracked"))
+    copied = set()
+    with torch.no_grad():
+        for name, p in gnet.collect_params().items():
+            tname = zoo_twin_name(name)
+            sd[tname].copy_(p.leaf)
+            copied.add(tname)
+    if copied != names:
+        raise AssertionError("the native ResNet-50's parameters differ: %s"
+                             % sorted(copied ^ names)[:6])
+    return net
+
+
+def kernel_table(torch, fn, path, top=5):
+    """``fn`` under ``torch.profiler`` (host and card): (kernels, their ms,
+    the ``top`` kernels by time as (ms, count, name)), read from the
+    chrome trace written to ``path``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if DEV != "cpu":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    cat = "kernel" if DEV != "cpu" else "cpu_op"
+    by = {}
+    for e in events:
+        if e.get("cat") == cat:
+            ms, n = by.get(e["name"], (0.0, 0))
+            by[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
+    rows = sorted(((ms, n, name) for name, (ms, n) in by.items()),
+                  reverse=True)
+    return (sum(n for _, n, _ in rows), sum(ms for ms, _, _ in rows),
+            rows[:top])
+
+
+def log_kernel_table(label, table):
+    n, ms, rows = table
+    log("zoo: %s: %d kernels, %.3f ms of kernel time; top: %s"
+        % (label, n, ms, "; ".join("%.3f ms x%d %s" % (k_ms, k_n, name[:70])
+                                   for k_ms, k_n, name in rows)))
+
+
+def zoo_batch(torch, seed, B, layout, dtype):
+    """A fixed batch from ``seed``, made on the card: uniform images and
+    labels in [0, classes)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    shape = ((B, 3, ZOO_IMAGE, ZOO_IMAGE) if layout == "NCHW"
+             else (B, ZOO_IMAGE, ZOO_IMAGE, 3))
+    x = torch.rand(shape, generator=gen, device=DEV)
+    y = torch.randint(0, ZOO_CLASSES, (B,), generator=gen, device=DEV)
+    return x.to(getattr(torch, dtype)), y.to(torch.int32)
+
+
+def zoo_step(mx, net, trainer, ce, x, y, cast):
+    """One training step as bench config 2 takes it: the loss in fp32 on
+    the (cast) output, per sample, its backward, ``step(B)``."""
+    with mx.autograd.record():
+        out = net(x)
+        loss = ce(out.astype("float32") if cast else out, y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def zoo_model(torch, mx, seed, B, layout):
+    """ResNet-50 v1 (1000 classes, Xavier from ``seed``, its deferred
+    shapes made) on the card, and one fixed batch (``zoo_batch``) as
+    ndarrays."""
+    mx.random.seed(seed)
+    torch.manual_seed(seed)
+    xt, yt = zoo_batch(torch, seed, B, layout, "float32")
+    with mx.Context(DEV):
+        net = mx.gluon.model_zoo.vision.resnet50_v1(classes=ZOO_CLASSES,
+                                                    layout=layout)
+        net.initialize(mx.init.Xavier())
+        x, y = mx.np.array(xt), mx.np.array(yt)
+        net(x[:1])
+    return net, x, y
+
+
+def zoo_train(torch, mx, seed, label, dtype, B, layout, native=False):
+    """ResNet-50 v1 (``zoo_model``) trained by the one-card
+    ``gluon.Trainer`` (SGD lr 0.05, momentum 0.9) on one fixed batch:
+    ``ZOO_WARMUP`` steps, then ``ZOO_STEPS`` timed by CUDA events, each
+    step's host enqueue time beside it.  Returns the numbers, and with
+    ``native`` the net, trainer, batch, a torch-native copy of the first
+    weights, the first loss and the first step's gradients (a mean over
+    the batch, by the copy's names)."""
+    from mxnet_tpu_torch import profiler
+    g = mx.gluon
+    # what earlier phases keep on the card (their models, engines, pools):
+    # the run's own peak is the peak above it
+    base = torch.cuda.memory_allocated()
+    net, x, y = zoo_model(torch, mx, seed, B, layout)
+    cast = dtype != "float32"
+    if cast:
+        net.cast(dtype)
+        x = x.astype(dtype)
+    ce = g.loss.SoftmaxCrossEntropyLoss()
+    trainer = g.Trainer(net.collect_params(), "sgd",
+                        {"learning_rate": ZOO_LR, "momentum": ZOO_MOMENTUM})
+    check = dtype == "float32"
+    twin = resnet50_native(torch, net, ZOO_CLASSES) if check else None
+    first_grads = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, events, host_ms = [], [], []
+    for i in range(ZOO_WARMUP + ZOO_STEPS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        t = time.perf_counter()
+        losses.append(zoo_step(mx, net, trainer, ce, x, y, cast))
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        e.record()
+        events.append((s, e))
+        if check and i == 0:
+            # the gradient the first step applied (of the summed loss)
+            first_grads = {zoo_twin_name(k): p.grad()._data / B
+                           for k, p in net.collect_params().items()
+                           if p.grad_req != "null"}
+    torch.cuda.synchronize()
+    mem = profiler.device_memory_stats(DEV)
+    peak = torch.cuda.max_memory_allocated()
+    if mem["peak_bytes_in_use"] != peak or \
+            mem["source"] != "torch.cuda.memory_stats":
+        raise AssertionError("profiler.device_memory_stats %s disagrees "
+                             "with torch.cuda.max_memory_allocated %d"
+                             % (mem, peak))
+    vals = [float(v.mean()) for v in losses]
+    own = peak - base
+    step_ms = [s.elapsed_time(e) for s, e in events][ZOO_WARMUP:]
+    p50 = statistics.median(step_ms)
+    host_p50 = statistics.median(host_ms[ZOO_WARMUP:])
+    flops = RESNET50_TRAIN_FLOPS * B
+    bound = flops / (FP32_FLOPS if dtype == "float32" else BF16_FLOPS) * 1e3
+    log("zoo: resnet50_v1 train %s (B %d, %s, %s, %d classes, SGD lr %g "
+        "momentum %g, %d warm-up + %d timed steps on one batch): loss %s; "
+        "step p50 %.3f ms (CUDA events; min %.3f, max %.3f), %.1f images/s; "
+        "host enqueue p50 %.3f ms a step; peak memory %.3f GB above the "
+        "%.3f GB that earlier phases hold (profiler.device_memory_stats %s "
+        "peak %.3f GB, = max_memory_allocated); bound %.3f ms (3 x 8.2 "
+        "GFLOP x %d at %g TFLOP/s), %.1f%% of it; card %s"
+        % (label, B, layout, dtype, ZOO_CLASSES, ZOO_LR, ZOO_MOMENTUM,
+           ZOO_WARMUP, ZOO_STEPS, " ".join("%.4f" % v for v in vals), p50,
+           min(step_ms), max(step_ms), B / p50 * 1e3, host_p50,
+           own / 1e9, base / 1e9, mem["source"], peak / 1e9, bound, B,
+           (FP32_FLOPS if dtype == "float32" else BF16_FLOPS) / 1e12,
+           bound / p50 * 100, card_line()))
+    head = vals[:ZOO_FALLING + 1]
+    if not (all(np.isfinite(vals))
+            and all(a > b for a, b in zip(head, head[1:]))):
+        raise AssertionError("ResNet-50 %s loss did not fall at each of "
+                             "the first %d updates: %s"
+                             % (label, ZOO_FALLING, vals))
+    table = kernel_table(torch, lambda: zoo_step(mx, net, trainer, ce, x, y,
+                                                 cast),
+                         os.path.join(tempfile.gettempdir(),
+                                      "zoo_%d.json" % os.getpid()))
+    log_kernel_table("one %s step" % label, table)
+    stats = dict(batch=B, layout=layout, dtype=dtype, step_p50_ms=p50,
+                 images_per_s=B / p50 * 1e3, host_enqueue_ms=host_p50,
+                 peak_bytes=own, bound_ms=bound, first_loss=vals[0],
+                 least_loss=min(vals), last_loss=vals[-1],
+                 losses=vals, kernels_a_step=table[0],
+                 kernel_ms_a_step=table[1])
+    if check:
+        xt = x._data if layout == "NCHW" else \
+            x._data.permute(0, 3, 1, 2).contiguous()
+        stats["grads"], native_loss = zoo_grad_check(
+            torch, label, twin, xt, y._data.long(), first_grads)
+    if not native:
+        del net, trainer, x, y, twin
+        return stats, None
+    return stats, (net, trainer, ce, x, y, twin, vals[0], native_loss)
+
+
+def native_grads(torch, model, x, y):
+    """The mean cross-entropy of ``model`` on (x, y) and its gradients by
+    name (training mode: BatchNorm on the batch's statistics)."""
+    model.zero_grad(set_to_none=True)
+    loss = torch.nn.functional.cross_entropy(model(x), y)
+    loss.backward()
+    return loss, {k: p.grad for k, p in model.named_parameters()}
+
+
+def zoo_grad_check(torch, label, twin, xt, yt, gluon_grads):
+    """The first step's gradients of a Gluon fp32 run (``gluon_grads``,
+    by the torch-native names) and of ``twin`` (the torch-native model at
+    the same first weights) on (xt, yt) in NCHW, each held against
+    ``twin`` in fp64 (``TOL_ZOO_GRAD``).  Leaves ``twin``'s fp32
+    gradients on it; returns the numbers and ``twin``'s loss."""
+    import copy
+    twin64 = copy.deepcopy(twin).double()
+    _, ref = native_grads(torch, twin64, xt.double(), yt)
+    del twin64
+    loss, native32 = native_grads(torch, twin, xt, yt)
+    g_errs, g_zero, g_l2 = zoo_grad_errors(gluon_grads, ref)
+    n_errs, n_zero, n_l2 = zoo_grad_errors(native32, ref)
+    del ref
+    g_max, n_max = max(g_errs.values()), max(n_errs.values())
+    g_zmax = max(g_zero.values(), default=0.0)
+    n_zmax = max(n_zero.values(), default=0.0)
+    log("zoo: %s: the first step's gradients (B %d, %d parameters) against "
+        "the torch-native model's in fp64 from the same weights and batch, "
+        "error over each fp64 gradient's largest element: Gluon relative "
+        "L2 %.4g, median %.3g, worst %s; the fp32 torch-native model "
+        "relative L2 %.4g, median %.3g, worst %s; the %d gradients zero but "
+        "for rounding (biases before BatchNorm), largest over the net's "
+        "largest: Gluon %.3g, native %.3g (tol %g x native's); card %s"
+        % (label, xt.shape[0], len(g_errs) + len(g_zero), g_l2,
+           statistics.median(g_errs.values()), zoo_worst(g_errs), n_l2,
+           statistics.median(n_errs.values()), zoo_worst(n_errs),
+           len(g_zero), g_zmax, n_zmax, TOL_ZOO_GRAD, card_line()))
+    if not (g_l2 <= TOL_ZOO_GRAD * n_l2 and g_max <= TOL_ZOO_GRAD * n_max
+            and g_zmax <= max(TOL_ZOO_GRAD * n_zmax, ZOO_ZERO_FLOOR)):
+        raise AssertionError("ResNet-50 %s: Gluon's first gradients are "
+                             "further from fp64 than %g x the torch-native "
+                             "model's: %s" % (label, TOL_ZOO_GRAD,
+                                              zoo_worst(g_errs, 6)))
+    return dict(err_gluon=g_max, l2_gluon=g_l2, err_native=n_max,
+                l2_native=n_l2, zero_gluon=g_zmax, zero_native=n_zmax), loss
+
+
+def zoo_yardstick(torch, mx, state):
+    """The torch-native ResNet-50 against the Gluon one (fp32 NCHW), from
+    its first step (``zoo_grad_check`` left its gradients): its first
+    loss, then both models trained on and their steps timed in turns."""
+    net, trainer, ce, x, y, twin, first, loss = state
+    xt, yt = x._data, y._data.long()
+    opt = torch.optim.SGD(twin.parameters(), lr=ZOO_LR,
+                          momentum=ZOO_MOMENTUM)
+    opt.step()
+
+    def native_step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(twin(xt), yt)
+        loss.backward()
+        opt.step()
+        return loss
+
+    native_vals = [float(loss.detach())] + [
+        float(native_step().detach())
+        for _ in range(ZOO_WARMUP + ZOO_STEPS - 1)]
+    native_first = native_vals[0]
+    err = abs(native_first - first) / abs(first)
+    log("zoo: torch-native ResNet-50 trained as the Gluon one (fp32 NCHW, "
+        "the same first weights and batch, torch.optim.SGD lr %g momentum "
+        "%g): loss %s" % (ZOO_LR, ZOO_MOMENTUM,
+                          " ".join("%.4f" % v for v in native_vals)))
+    fns = {"gluon": lambda: zoo_step(mx, net, trainer, ce, x, y, False),
+           "native": native_step}
+    times = {k: [] for k in fns}
+    for _ in range(2):
+        for k in ("gluon", "native"):
+            times[k].append(event_ms(torch, fns[k], iters=3))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    table = kernel_table(torch, native_step, os.path.join(
+        tempfile.gettempdir(), "zoo_native_%d.json" % os.getpid()))
+    log_kernel_table("one torch-native fp32_nchw step", table)
+    log("zoo: torch-native ResNet-50 (torch.nn, the same weights, fp32 "
+        "NCHW B %d): first loss %.7f vs Gluon's %.7f, rel err %.3g (tol %g); "
+        "step (CUDA events, median of 2 x 3, in turns) Gluon %.3f ms, "
+        "native %.3f ms, ratio %.3f; card %s"
+        % (x.shape[0], native_first, first, err, TOL_ZOO_NATIVE_LOSS,
+           med["gluon"], med["native"], med["gluon"] / med["native"],
+           card_line()))
+    if not err <= TOL_ZOO_NATIVE_LOSS:
+        raise AssertionError("the torch-native ResNet-50 disagrees with the "
+                             "Gluon one")
+    return dict(gluon_ms=med["gluon"], native_ms=med["native"],
+                ratio=med["gluon"] / med["native"], loss_rel_err=err,
+                native_losses=native_vals,
+                native_kernels_a_step=table[0],
+                native_kernel_ms_a_step=table[1])
+
+
+def zoo_profile(torch, mx, state, tmp):
+    """``profiler.Task`` around two Gluon ResNet-50 steps with a device
+    trace (``set_config(xplane_dir=)``): the chrome trace parsed back, and
+    the torch.profiler trace must name a convolution kernel."""
+    import re
+    from mxnet_tpu_torch import profiler
+    net, trainer, ce, x, y = state[:5]
+    profiler.set_config(filename=os.path.join(tmp, "zoo_profile.json"),
+                        xplane_dir=os.path.join(tmp, "device"))
+    profiler.start()
+    for i in range(ZOO_PROFILE_STEPS):
+        with profiler.Task("resnet50_step_%d" % i):
+            zoo_step(mx, net, trainer, ce, x, y, False)
+    profiler.stop()
+    profiler.set_config(xplane_dir=None)
+    with open(profiler.dump()) as f:
+        host = json.load(f)["traceEvents"]
+    tasks = [(e["name"], e["ph"]) for e in host if e["cat"] == "task"]
+    want = [("resnet50_step_%d" % i, ph) for i in range(ZOO_PROFILE_STEPS)
+            for ph in ("B", "E")]
+    if tasks != want:
+        raise AssertionError("profiler trace tasks %s, want %s"
+                             % (tasks, want))
+    with open(profiler.device_trace()) as f:
+        dev = json.load(f)["traceEvents"]
+    # the card's kernels (a CPU rehearsal has only the host's ops)
+    cat = "kernel" if DEV != "cpu" else "cpu_op"
+    kernels = [e for e in dev if e.get("cat") == cat]
+    conv = [e["name"] for e in kernels if re.search(
+        r"conv|fprop|dgrad|wgrad|implicit|xmma", e["name"], re.I)]
+    dev_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    log("zoo: profiler.Task around %d ResNet-50 steps: chrome trace %d "
+        "events (tasks %s); torch.profiler trace %d kernels, %.3f ms of "
+        "kernel time, %d convolution kernels (e.g. %s)"
+        % (ZOO_PROFILE_STEPS, len(host), tasks, len(kernels), dev_ms,
+           len(conv), conv[0][:80] if conv else None))
+    if not conv:
+        raise AssertionError("the device trace names no convolution kernel")
+    return dict(kernels=len(kernels), conv_kernels=len(conv),
+                kernel_ms=dev_ms)
+
+
+def zoo_vs_cpu(torch, mx, seed, tmp):
+    """One member of each family on the card and through the port on the
+    CPU, the same weights (made on the CPU, carried by file), B 2 at its
+    own input size, outside training; every other name built and run
+    once on the card (shape and finite values)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    rng = np.random.default_rng(seed + 21)
+    errs = {}
+    for name in ZOO_FAMILY:
+        size = 299 if name.startswith("inception") else ZOO_IMAGE
+        xn = rng.standard_normal((ZOO_CPU_B, 3, size, size)).astype(
+            np.float32)
+        path = os.path.join(tmp, name + ".npz")
+        with mx.Context("cpu"):
+            cnet = vision.get_model(name, classes=ZOO_CLASSES)
+            cnet.initialize(mx.init.Xavier())
+            want = cnet(mx.np.array(xn)).asnumpy()
+            cnet.save_parameters(path)
+        del cnet
+        with mx.Context(DEV):
+            gnet = vision.get_model(name, classes=ZOO_CLASSES)
+            gnet.load_parameters(path, device=DEV)
+            got = gnet(mx.np.array(xn)).asnumpy()
+        del gnet
+        os.remove(path)
+        scale = float(np.abs(want).max())
+        errs[name] = float(np.abs(got - want).max()) / scale
+        if not (got.shape == (ZOO_CPU_B, ZOO_CLASSES)
+                and errs[name] <= TOL_ZOO_CARD_CPU):
+            raise AssertionError("%s on the card disagrees with the CPU: "
+                                 "err / max %.3g" % (name, errs[name]))
+    log("zoo: card vs the port on the CPU, the same weights, B %d, forward "
+        "outside training (inceptionv3 at 299, the others at %d): err / "
+        "max %s (tol %g)" % (ZOO_CPU_B, ZOO_IMAGE, json.dumps(
+            {k: float("%.3g" % v) for k, v in errs.items()}),
+            TOL_ZOO_CARD_CPU))
+    others = [n for n in sorted(vision._MODELS) if n not in ZOO_FAMILY]
+    for name in others:
+        size = 299 if name.startswith("inception") else ZOO_IMAGE
+        with mx.Context(DEV):
+            net = vision.get_model(name, classes=ZOO_CLASSES)
+            net.initialize(mx.init.Xavier())
+            out = net(mx.np.array(rng.standard_normal(
+                (1, 3, size, size)).astype(np.float32))).asnumpy()
+        del net
+        if out.shape != (1, ZOO_CLASSES) or not np.isfinite(out).all():
+            raise AssertionError("%s on the card: output %s, finite %s"
+                                 % (name, out.shape,
+                                    bool(np.isfinite(out).all())))
+    torch.cuda.empty_cache()
+    log("zoo: the other %d networks of get_model built and run on the card "
+        "(B 1): output (1, %d), finite: %s" % (len(others), ZOO_CLASSES,
+                                               " ".join(others)))
+    return errs
+
+
+def zoo_examples(tmp):
+    """Every example of the runner (``tests/example_runner.py``) on the
+    card: ``mxnet_tpu`` imported as the port, no CPU scope, a process
+    each, ``ZOO_EXAMPLE_WORKERS`` at once; each must exit 0 and print its
+    closing line."""
+    from concurrent.futures import ThreadPoolExecutor
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import example_runner as er
+
+    def run(name):
+        cwd = os.path.join(tmp, "ex_" + name)
+        os.makedirs(cwd)
+        t = time.perf_counter()
+        res = er.run_example(name, cpu=False, cwd=cwd, timeout=600)
+        return name, res, time.perf_counter() - t
+
+    with ThreadPoolExecutor(ZOO_EXAMPLE_WORKERS) as pool:
+        results = list(pool.map(run, sorted(er.EXAMPLES)))
+    bad = []
+    for name, res, sec in results:
+        ok = res.returncode == 0 and er.EXAMPLES[name][2] in res.stdout
+        last = [ln for ln in res.stdout.splitlines() if ln.strip()]
+        log("zoo: example %s on the card: rc %d in %.1f s; %s"
+            % (name, res.returncode, sec, last[-1][:120] if last else ""))
+        if not ok:
+            bad.append(name)
+            log(res.stdout[-1500:])
+            log(res.stderr[-3000:])
+    if bad:
+        raise AssertionError("examples failed on the card: %s" % bad)
+    return {name: sec for name, _, sec in results}
+
+
+def zoo_phase(torch, seed):
+    """The model zoo on the card (see the module docstring, item 8).
+    Returns the main path's launches (none of the hand kernels: the
+    convolutions, BatchNorm and pools are cuDNN's) and the numbers."""
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    report = {}
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    states = {}
+    for label, dtype, B, layout in ZOO_RUNS:
+        report[label], states[label] = zoo_train(
+            torch, mx, seed, label, dtype, B, layout,
+            native=label == "fp32_nchw")
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError("the ResNet-50 path launched hand kernels: %s"
+                             % {k: v for k, v in counts.items() if v})
+    state = states["fp32_nchw"]
+    with tempfile.TemporaryDirectory() as tmp:
+        report["native"] = zoo_yardstick(torch, mx, state)
+        report["profile"] = zoo_profile(torch, mx, state, tmp)
+        del state, states
+        torch.cuda.empty_cache()
+        report["card_vs_cpu"] = zoo_vs_cpu(torch, mx, seed, tmp)
+        report["examples_s"] = zoo_examples(tmp)
+    log("zoo phase done in %.1f s" % (time.perf_counter() - t0))
+    return {k: counts[k] for k in KERNELS}, report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5927,6 +6537,8 @@ def main():
     log("array core done at %.1f s" % (time.perf_counter() - t_start))
     paths["gluon"], gluon_report = gluon_phase(torch, args.seed)
     log("gluon done at %.1f s" % (time.perf_counter() - t_start))
+    paths["zoo"], zoo_report = zoo_phase(torch, args.seed)
+    log("zoo done at %.1f s" % (time.perf_counter() - t_start))
     kernels = []
     for name in KERNELS:
         row = report[name]
@@ -5949,6 +6561,7 @@ def main():
                     "tp_phases": report["tp_phases"],
                     "array_core": array_core,
                     "gluon": gluon_report,
+                    "zoo": zoo_report,
                     "sharded_attention": report["sharded_attention"]}))
     log(json.dumps({"kernels": kernels}))
     log(card)

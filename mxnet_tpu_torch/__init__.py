@@ -30,10 +30,13 @@ Ported so far:
 - Gluon — ``mx.gluon`` (``Parameter``, ``Block``/``HybridBlock``, every
   layer, loss, metric and data module, the one-card ``Trainer``),
   ``mx.init``, ``mx.optimizer`` and ``mx.lr_scheduler``; a block takes
-  ``ndarray``s (the JAX package's contract) or torch tensors.
+  ``ndarray``s (the JAX package's contract) or torch tensors;
+- the model zoo — ``mx.gluon.model_zoo.vision`` (ResNet v1/v2, VGG,
+  AlexNet, MobileNet v1/v2, SqueezeNet, DenseNet, Inception v3; the
+  offline weight store); ``mx.profiler`` and ``mx.test_utils``.
 
 Entry points run on ``cuda`` unless ``device="cpu"`` (or ``ctx=mx.cpu()``,
-or an open ``mx.Context("cpu")`` scope) asks for the CPU
+or an open ``with mx.cpu():`` scope) asks for the CPU
 (``context.resolve``).
 
 Import convention: ``import mxnet_tpu_torch as mx``, then ``mx.np``,
@@ -60,10 +63,11 @@ from . import lr_scheduler  # noqa: F401
 from . import optimizer  # noqa: F401
 from .optimizer import Optimizer  # noqa: F401
 from . import gluon  # noqa: F401
+from . import test_utils  # noqa: F401
 
 __all__ = ["config", "context", "faults", "profiler", "cpu", "gpu",
            "Context", "Device", "current_context", "num_gpus", "ndarray",
            "NDArray", "waitall", "autograd", "util", "np", "npx", "random",
            "nd", "is_np_array", "is_np_shape", "set_np", "reset_np",
            "initializer", "init", "lr_scheduler", "optimizer", "Optimizer",
-           "gluon"]
+           "gluon", "test_utils"]

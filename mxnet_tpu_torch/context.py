@@ -1,18 +1,19 @@
 """Device contexts (the port's counterpart of ``mxnet_tpu/context.py``).
 
-``cpu()`` and ``gpu(i)`` name ``torch.device``s.  The default-device rule
-of the whole port lives in :func:`resolve`: an entry point given no
-device runs on the device of the innermost open :class:`Context` scope,
-else on ``cuda``, and raises when ``cuda`` is asked for and no GPU is
-present.  It never carries on on the CPU unless the caller asked for the
-CPU, by name or by a scope.
+``cpu()`` and ``gpu(i)`` return :class:`Context`s, as in the JAX
+package.  The default-device rule of the whole port lives in
+:func:`resolve`: an entry point given no device runs on the device of the
+innermost open :class:`Context` scope, else on ``cuda``, and raises when
+``cuda`` is asked for and no GPU is present.  It never carries on on the
+CPU unless the caller asked for the CPU, by name or by a scope.
 
 :class:`Context` (``Device``) is the JAX package's ``with`` scope:
-``with Context("cpu"): ...`` makes the CPU the default of the arrays and
-random draws made inside it, per thread.  ``current_context()`` is the
-scope's device, or ``cuda`` when no scope is open.  A ``torch.device``
-is not a scope of its own here: ``with mx.cpu():`` is torch's default-
-device scope and does not reach :func:`resolve`.
+``with mx.cpu():`` (or ``with Context("cpu"):``) makes the CPU the
+default of the arrays, random draws and layers made inside it, per
+thread.  Every entry point takes a :class:`Context`, a ``torch.device``
+or a string, through :func:`resolve`; a torch call needs the
+``torch.device`` itself (``ctx.device``).  ``current_context()`` is the
+scope's device, or ``cuda`` when no scope is open.
 """
 from __future__ import annotations
 
@@ -27,11 +28,13 @@ _SCOPE = threading.local()
 
 
 def cpu(device_id=0):
-    return torch.device("cpu")
+    """The CPU as a :class:`Context` (a ``with`` scope, or a ``ctx=``)."""
+    return Context("cpu", device_id)
 
 
 def gpu(device_id=0):
-    return torch.device("cuda", int(device_id))
+    """Card ``device_id`` as a :class:`Context`."""
+    return Context("gpu", device_id)
 
 
 def _stack():

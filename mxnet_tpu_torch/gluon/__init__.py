@@ -1,10 +1,10 @@
 """Gluon of the port (the port of ``mxnet_tpu/gluon/``): ``Parameter``,
-``Block``/``HybridBlock``, the layers (``nn``, ``rnn``), ``loss``,
-``metric``, ``data``, ``utils`` and the one-card ``Trainer``.
+``Block``/``HybridBlock``, the layers (``nn``, ``rnn``), ``loss``, ``metric``, ``data``, ``utils``, the one-card ``Trainer`` and
+the ``model_zoo``.
 
-``model_zoo`` (ROADMAP Queue 1 item 5), ``contrib`` (the estimator) and
-``probability`` (item 9), and ``SymbolBlock`` (item 9) are stand-ins that
-raise ``NotImplementedError`` naming their item.
+``contrib`` (the estimator) and ``probability`` (ROADMAP Queue 1 item 9),
+and ``SymbolBlock`` (item 9) are stand-ins that raise
+``NotImplementedError`` naming their item.
 """
 from .parameter import Parameter, Constant, DeferredInitializationError  # noqa
 from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
@@ -15,9 +15,9 @@ from . import metric  # noqa: F401
 from . import data  # noqa: F401
 from . import utils  # noqa: F401
 from . import rnn  # noqa: F401
+from . import model_zoo  # noqa: F401
 from .._unported import _Unported
 
-model_zoo = _Unported("mx.gluon.model_zoo", 5, "the model zoo")
 contrib = _Unported("mx.gluon.contrib", 9,
                     "gluon/contrib (the estimator and its event handlers)")
 probability = _Unported("mx.gluon.probability", 9,

@@ -20,7 +20,9 @@ leaf in its ``_parameters`` under the attribute's name, so
   gradient, ``"null"`` does not.  An ``ndarray`` backward
   (``autograd.backward``) writes or adds per ``grad_req``; a torch
   ``backward()`` adds, as torch does, and ``Trainer.step`` hands a
-  ``"write"`` parameter's gradient back as ``None`` once applied.
+  ``"write"`` parameter's gradient back as ``None`` once applied, so the
+  next backward writes; ``grad()`` and the next step still read the
+  applied gradient until a backward writes a new one.
 
 A parameter stands in for its leaf where torch expects a tensor, as
 the port's layers' attributes were tensors before: torch functions take
@@ -35,6 +37,7 @@ import weakref
 
 import numpy as onp
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from .. import autograd
 from .. import context as _context
@@ -51,6 +54,20 @@ def _shape_is_known(shape):
     if shape is None:
         return False
     return all(s is not None and s > 0 for s in shape)
+
+
+# A "write" gradient that a Trainer step applied, by leaf: still the
+# parameter's gradient (grad(), the next step) while leaf.grad is None, so
+# that the next torch backward writes a new one; dropped as soon as a
+# backward writes the leaf's next gradient (a post-accumulate hook, or an
+# ndarray backward's write), so the old and new gradients of a leaf are
+# not both held past that point.
+_SPENT = WeakTensorKeyDictionary()
+_HOOKED = WeakTensorKeyDictionary()
+
+
+def _drop_spent(leaf):
+    _SPENT.pop(leaf, None)
 
 
 class _ParamView(ndarray):
@@ -72,6 +89,7 @@ class _ParamView(ndarray):
             leaf.grad.add_(g)
         else:
             leaf.grad = g.detach()
+        _SPENT.pop(leaf, None)
 
     @property
     def grad(self):
@@ -212,6 +230,7 @@ class Parameter:
             self._var.requires_grad_(req != "null")
             if req == "null":
                 self._var.grad = None
+                _SPENT.pop(self._var, None)
         if self._nd is not None:
             self._nd._grad_req = req
 
@@ -357,9 +376,32 @@ class Parameter:
         if self._grad_req == "null":
             raise RuntimeError("Cannot get gradient of Parameter %s: "
                                "grad_req='null'" % self.name)
-        if leaf.grad is None:
-            leaf.grad = torch.zeros_like(leaf)
-        return _view(leaf.grad)
+        return _view(self._current_grad())
+
+    def _current_grad(self):
+        """The gradient a step applies: the leaf's, else the one the last
+        step applied (a "write" gradient no backward has written since),
+        else zeros, as in the JAX package."""
+        leaf = self.leaf
+        if leaf.grad is not None:
+            return leaf.grad
+        spent = _SPENT.get(leaf)
+        if spent is not None:
+            return spent
+        leaf.grad = torch.zeros_like(leaf)
+        return leaf.grad
+
+    def _spend_grad(self):
+        """After a step: hand a "write" gradient back as ``None`` (the next
+        torch backward writes, not adds) and keep it as the gradient until
+        a backward writes the leaf's next one."""
+        leaf = self._var
+        if self._grad_req == "write" and leaf.grad is not None:
+            if leaf not in _HOOKED:
+                leaf.register_post_accumulate_grad_hook(_drop_spent)
+                _HOOKED[leaf] = True
+            _SPENT[leaf] = leaf.grad
+            leaf.grad = None
 
     def list_grad(self):
         return [self.grad()]
@@ -367,6 +409,9 @@ class Parameter:
     def zero_grad(self):
         if self._var is not None and self._var.grad is not None:
             self._var.grad.zero_()
+        spent = _SPENT.get(self._var) if self._var is not None else None
+        if spent is not None:
+            spent.zero_()
 
     def reset_ctx(self, ctx):
         """Move the leaf to ``ctx`` in place (the same ``nn.Parameter``)."""
@@ -376,6 +421,8 @@ class Parameter:
                 self._var.data = self._var.data.to(dev)
                 if self._var.grad is not None:
                     self._var.grad = self._var.grad.to(dev)
+                if self._var in _SPENT:
+                    _SPENT[self._var] = _SPENT[self._var].to(dev)
         elif self._deferred_init is not None:
             self._deferred_init = (self._deferred_init[0], dev)
 
@@ -391,6 +438,8 @@ class Parameter:
                 self._var.data = self._var.data.to(td)
                 if self._var.grad is not None:
                     self._var.grad = self._var.grad.to(td)
+                if self._var in _SPENT:
+                    _SPENT[self._var] = _SPENT[self._var].to(td)
 
     def var(self):
         return self.data()

@@ -11,11 +11,15 @@ before the first forward sees the parameters that deferred
 initialisation makes later.
 
 ``step(batch_size)`` sets ``rescale_grad = scale / batch_size`` and
-updates, in place, every parameter that holds a gradient; a parameter
-without one (``grad_req="null"``, or no backward reached it) is left as
-it is.  MXNet's backward writes a ``grad_req="write"`` gradient afresh
-where torch's adds to it, so ``step`` hands such a gradient back as
-``None`` once applied: the next backward writes a new one.  A
+updates, in place, every initialised parameter whose ``grad_req`` is not
+``"null"``, as the JAX package does: with its gradient, which is the last
+one a backward wrote (a layer the step's backward did not reach, or a
+second step with no backward, applies it again), or zeros if none ever
+was (weight decay and momentum still move the parameter).  MXNet's
+backward writes a ``grad_req="write"`` gradient afresh where torch's
+adds to it, so ``step`` hands such a gradient back as ``None`` on the
+leaf once applied, keeping it as the parameter's gradient
+(``Parameter.grad()``): the next backward writes a new one.  A
 ``grad_req="add"`` gradient keeps its sum until ``zero_grad``.
 
 ``amp.init_trainer`` attaches a dynamic loss scaler for fp16 AMP as
@@ -121,27 +125,28 @@ class Trainer:
         """Nothing to reduce on one card (the gradients are whole)."""
 
     def update(self, batch_size, ignore_stale_grad=False):
-        """The optimizer step alone, for every parameter with a gradient;
-        a ``"write"`` gradient is handed back as ``None``."""
+        """The optimizer step alone, for every initialised parameter whose
+        ``grad_req`` is not ``"null"`` (``ignore_stale_grad`` is accepted
+        and ignored, as in the JAX package); a ``"write"`` gradient is
+        handed back as ``None`` on the leaf."""
         self._optimizer.rescale_grad = self._scale / batch_size
-        idxs, ws, gs, sts, spent = [], [], [], [], []
+        idxs, ws, gs, sts, live = [], [], [], [], []
         for i, p in enumerate(self._params):
             w = p._var
-            if w is None or p.grad_req == "null" or w.grad is None:
+            if w is None or p.grad_req == "null":
                 continue
             if i not in self._states:
                 self._states[i] = \
                     self._optimizer.create_state_multi_precision(i, w)
             idxs.append(i)
             ws.append(w)
-            gs.append(w.grad)
+            gs.append(p._current_grad())
             sts.append(self._states[i])
-            if p.grad_req == "write":
-                spent.append(w)
+            live.append(p)
         if idxs:
             self._optimizer.update_multi_precision(idxs, ws, gs, sts)
-        for w in spent:
-            w.grad = None
+        for p in live:
+            p._spend_grad()
 
     def save_states(self, fname):
         """Pickle the optimizer states (as numpy) and the optimizer, its

@@ -43,12 +43,14 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 
 import numpy as onp
 import torch
 
 from . import autograd
 from . import context as _context
+from .profiler import _AGG as _profiler_agg
 
 __all__ = ["ndarray", "NDArray", "apply_op", "array", "from_numpy",
            "waitall", "X64"]
@@ -206,6 +208,20 @@ def apply_op(fn, *args, **kwargs):
     ``kwargs``, recording for autograd inside ``record()``; wrap every
     tensor of the result (one, or a tuple or list of them) as an ndarray
     with its dtype made canonical (:func:`_canon`)."""
+    if _profiler_agg["enabled"]:
+        # per-op aggregate statistics (profiler.set_config(
+        # aggregate_stats=True)): the host time of the call
+        t0 = time.perf_counter()
+        try:
+            return _apply(fn, args, kwargs)
+        finally:
+            from . import profiler
+            profiler.record_op_stat(getattr(fn, "__name__", "op"),
+                                    time.perf_counter() - t0)
+    return _apply(fn, args, kwargs)
+
+
+def _apply(fn, args, kwargs):
     vals = [_unwrap_deep(a) for a in args]
     with torch.set_grad_enabled(autograd.is_recording()):
         out = fn(*vals, **kwargs)

@@ -163,8 +163,18 @@ def _angle(x):
     return torch.angle(_inexact(x))
 
 
+def _abs(x):
+    return x.clone() if x.dtype == torch.bool else torch.abs(x)
+
+
+def _sign(x):
+    if x.dtype == torch.bool:
+        raise TypeError("sign does not accept dtype bool")
+    return torch.sign(x)
+
+
 _UNARY_IMPL = {
-    "abs": torch.abs, "absolute": torch.abs, "sign": torch.sign,
+    "abs": _abs, "absolute": _abs, "sign": _sign,
     "sqrt": _fp(torch.sqrt), "cbrt": _cbrt, "square": _square,
     "exp": _fp(torch.exp), "expm1": _fp(torch.expm1), "log": _fp(torch.log),
     "log2": _fp(torch.log2), "log10": _fp(torch.log10),
@@ -209,7 +219,80 @@ def _heaviside(a, b):
 
 
 def _ldexp(a, b):
+    if b.is_floating_point() or b.is_complex():
+        raise ValueError("ldexp's second argument must be an integer, got "
+                         "%s" % (b.dtype,))
     return torch.ldexp(_inexact(a), b)
+
+
+def _int_div_safe(a, b):
+    """``(a, b, zero)`` promoted to their result type, with ``b``'s zeros
+    made ones and ``zero`` marking them: jax.numpy's integer division and
+    remainder never divide by zero (torch raises)."""
+    a, b = _promote(a, b)
+    zero = b == 0
+    return a, torch.where(zero, torch.ones_like(b), b), zero
+
+
+def _floor_divide(a, b):
+    """``a // b`` as jax.numpy computes it: integers from XLA's truncating
+    division (``x / 0`` is -1, ``x % 0`` is ``x``) floored; floats from
+    the remainder (``(a - fmod(a, b)) / b``, so ``x // 0.`` is nan)."""
+    dt = torch.result_type(a, b)
+    if dt == torch.bool or not (dt.is_floating_point or dt.is_complex):
+        a, bs, zero = _int_div_safe(a, b)
+        q = torch.where(zero, torch.full_like(a, -1),
+                        torch.div(a, bs, rounding_mode="trunc"))
+        r = torch.where(zero, a, torch.fmod(a, bs))
+        return torch.where((torch.sign(a) != torch.sign(b)) & (r != 0),
+                           q - 1, q)
+    a, b = _promote(a, b)
+    mod = torch.fmod(a, b)
+    div = (a - mod) / b
+    fix = (mod != 0) & (torch.sign(b) != torch.sign(mod))
+    return torch.round(torch.where(fix, div - 1, div))
+
+
+def _remainder(a, b):
+    """jax.numpy's remainder: an integer ``x % 0`` is 0."""
+    dt = torch.result_type(a, b)
+    if dt.is_floating_point or dt.is_complex:
+        return torch.remainder(a, b)
+    a, bs, _ = _int_div_safe(a, b)
+    return torch.remainder(a, bs)
+
+
+def _fmod(a, b):
+    """jax.numpy's fmod: an integer ``fmod(x, 0)`` is 0."""
+    dt = torch.result_type(a, b)
+    if dt.is_floating_point or dt.is_complex:
+        return torch.fmod(a, b)
+    a, bs, _ = _int_div_safe(a, b)
+    return torch.fmod(a, bs)
+
+
+def _fmod_of_bools(a, b):
+    """fmod of two bool operands (as int32): jax.numpy keeps XLA's
+    ``fmod(x, 0) = x`` there, since their common type is not an
+    integer."""
+    a, bs, zero = _int_div_safe(a, b)
+    return torch.where(zero, a, torch.fmod(a, bs))
+
+
+def _bool_via_int(fn):
+    """A product-sum of two bool operands is a bool (any pair both
+    true), as in jax.numpy; torch has no bool matmul."""
+    def f(a, b):
+        if a.dtype == torch.bool and b.dtype == torch.bool:
+            return fn(a.to(torch.int32), b.to(torch.int32)) != 0
+        return fn(a, b)
+    return f
+
+
+def _kron(a, b):
+    if a.dtype == torch.bool or b.dtype == torch.bool:
+        raise TypeError("kron does not accept dtype bool")
+    return torch.kron(*_promote(a, b))
 
 
 def _dot(a, b):
@@ -221,6 +304,9 @@ def _dot(a, b):
 
 
 def _vdot(a, b):
+    if a.numel() != b.numel():
+        raise TypeError("vdot needs operands of one size, got %s and %s"
+                        % (tuple(a.shape), tuple(b.shape)))
     a, b = _promote(a.reshape(-1), b.reshape(-1))
     return (torch.conj_physical(a) * b).sum() if a.is_complex() else (
         a * b).sum()
@@ -307,9 +393,9 @@ def _matmul(a, b):
 _BINARY_IMPL = {
     "add": torch.add, "subtract": torch.subtract,
     "multiply": torch.multiply, "divide": torch.true_divide,
-    "true_divide": torch.true_divide, "floor_divide": torch.floor_divide,
-    "mod": torch.remainder, "remainder": torch.remainder,
-    "fmod": torch.fmod, "power": _power,
+    "true_divide": torch.true_divide, "floor_divide": _floor_divide,
+    "mod": _remainder, "remainder": _remainder,
+    "fmod": _fmod, "power": _power,
     "float_power": lambda a, b: torch.pow(*_promote(_inexact(a),
                                                     _inexact(b))),
     "arctan2": _fp2(torch.atan2), "hypot": _fp2(torch.hypot),
@@ -332,11 +418,11 @@ _BINARY_IMPL = {
     "nextafter": _fp2(torch.nextafter), "equal": torch.eq,
     "not_equal": torch.ne, "greater": torch.gt, "greater_equal": torch.ge,
     "less": torch.lt, "less_equal": torch.le, "array_equal": _array_equal,
-    "array_equiv": _array_equiv, "dot": _dot, "vdot": _vdot,
-    "inner": _inner,
+    "array_equiv": _array_equiv, "dot": _bool_via_int(_dot),
+    "vdot": _bool_via_int(_vdot), "inner": _bool_via_int(_inner),
     "outer": lambda a, b: torch.outer(*_promote(a.reshape(-1),
                                                 b.reshape(-1))),
-    "matmul": _matmul, "kron": lambda a, b: torch.kron(*_promote(a, b)),
+    "matmul": _bool_via_int(_matmul), "kron": _kron,
     "polyval": _polyval, "convolve": _convolve, "correlate": _correlate,
 }
 
@@ -1261,8 +1347,57 @@ def _maybe_out(res, out):
     return res
 
 
+#: binary ops whose bool operands jax.numpy computes as int32, also
+#: when both are bool
+_BOOL_AS_INT = {"floor_divide", "mod", "remainder", "fmod", "power",
+                "ldexp", "left_shift", "right_shift", "bitwise_left_shift",
+                "bitwise_right_shift"}
+
+
+def _is_bool(v):
+    return type(v) is builtins.bool or (isinstance(v, torch.Tensor)
+                                        and v.dtype == torch.bool)
+
+
+def _as_int32(v):
+    return int(v) if type(v) is builtins.bool else v.to(torch.int32)
+
+
+def _bool_operands(name, a, b, ba, bb):
+    """The operands ``a``, ``b`` of binary op ``name`` (``ba``, ``bb``:
+    which are bool) with bool ones promoted as jax.numpy promotes them:
+    beside an operand of another type, a bool takes that type (a python
+    int as int32, a float as float32, so ``1 - (x == y)`` is int32); two
+    bools stay bool (``True - True`` raises in both packages), except in
+    the ops of :data:`_BOOL_AS_INT`."""
+    if name in _BOOL_AS_INT:
+        return (_as_int32(a) if ba else a), (_as_int32(b) if bb else b)
+    if ba and bb:
+        return a, b
+    other = b if ba else a
+    if isinstance(other, torch.Tensor):
+        dt = other.dtype
+    else:
+        from ..ndarray import _SCALAR_DTYPE
+        dt = _SCALAR_DTYPE.get(type(other))
+        if dt is None:
+            return a, b
+    cast = (lambda v: v.to(dt) if isinstance(v, torch.Tensor)
+            else other.__class__(v))
+    return (cast(a), b) if ba else (a, cast(b))
+
+
 def _make_wrapper(tfn, name, k):
+    binary = name in _BINARY_IMPL and k == 2 or name == "power"
+
     def fn(*vals, **kwargs):
+        if binary and len(vals) >= 2:
+            ba, bb = _is_bool(vals[0]), _is_bool(vals[1])
+            if ba or bb:
+                vals = _bool_operands(name, vals[0], vals[1], ba,
+                                      bb) + tuple(vals[2:])
+                if ba and bb and name == "fmod":
+                    return _fmod_of_bools(*_as_tensors(vals, k), **kwargs)
         if name == "apply_along_axis":
             return tfn(*vals, **kwargs)
         if name in ("select", "lexsort"):
@@ -1270,6 +1405,8 @@ def _make_wrapper(tfn, name, k):
                 v, (list, tuple)) else v for v in vals[:k]]
             return tfn(*seqs, *vals[k:], **kwargs)
         return tfn(*_as_tensors(vals, k), **kwargs)
+
+    fn.__name__ = name      # the op's name in the profiler's tables
 
     def wrapper(*args, **kwargs):
         out = kwargs.pop("out", None)

@@ -382,20 +382,36 @@ def _bshape(x, axis, n):
 def batch_norm_train(x, gamma, beta, running_mean, running_var,
                      momentum=0.9, eps=1e-5, axis=1, fix_gamma=False):
     """(out, new running mean, new running var) from the batch's
-    statistics (biased variance, fp32)."""
+    statistics (biased variance, fp32), as the JAX package computes them.
+    The normalisation is ``torch.native_batch_norm`` (one fused kernel
+    each way on the card; a channel axis other than 1 is moved there as a
+    view, so an NHWC tensor is read as channels-last), in fp32 for a
+    16-bit input.  Its running-statistics update, given zeros and
+    momentum 1, writes the batch's mean and unbiased variance, which the
+    kernel computes directly (so a near-constant channel's variance is as
+    exact as the reference's); the biased variance is that times
+    (n - 1) / n."""
     axis = axis % x.dim()
-    axes = tuple(i for i in range(x.dim()) if i != axis)
-    xf = x.float()
-    mean = xf.mean(dim=axes)
-    var = xf.var(dim=axes, correction=0)
     if fix_gamma:
         gamma = torch.ones_like(gamma)
-    shape = _bshape(x, axis, x.shape[axis])
-    out = (xf - mean.reshape(shape)) * torch.rsqrt(var + eps).reshape(shape)
-    out = out * gamma.reshape(shape) + beta.reshape(shape)
-    new_mean = momentum * running_mean + (1 - momentum) * mean
-    new_var = momentum * running_var + (1 - momentum) * var
-    return (out.to(x.dtype), new_mean.to(running_mean.dtype),
+    xc = x if axis == 1 else x.movedim(axis, 1)
+    if xc.dtype in (torch.float16, torch.bfloat16):
+        gamma, beta = gamma.float(), beta.float()
+    c = xc.shape[1]
+    n = xc.numel() // c
+    mean = torch.zeros(c, dtype=gamma.dtype, device=xc.device)
+    var = torch.zeros_like(mean)
+    out = torch.native_batch_norm(xc, gamma, beta, mean, var, True, 1.0,
+                                  eps)[0]
+    if axis != 1:
+        out = out.movedim(1, axis)
+    with torch.no_grad():
+        # one value a channel: the biased variance is 0 (the unbiased one
+        # divides by n - 1 = 0)
+        var = var * ((n - 1) / n) if n > 1 else torch.zeros_like(var)
+        new_mean = momentum * running_mean + (1 - momentum) * mean.float()
+        new_var = momentum * running_var + (1 - momentum) * var.float()
+    return (out, new_mean.to(running_mean.dtype),
             new_var.to(running_var.dtype))
 
 

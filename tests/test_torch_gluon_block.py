@@ -367,6 +367,13 @@ def test_every_public_name_is_ported(path):
     (lambda g: g.Trainer([], "sgd").attach_preemption("d"), 7),
 ])
 def test_left_out_names_raise_naming_their_item(call, item):
+    if item == 5:
+        # Queue 1 item 5, the model zoo, is ported: its networks build
+        with port_mx().Context("cpu"):
+            net = call(port_mx().gluon)
+        assert type(net).__name__ == "ResNetV1"
+        assert len(net.collect_params()) == 102
+        return
     with pytest.raises(NotImplementedError, match="item %d" % item):
         call(port_mx().gluon)
 

@@ -1,5 +1,6 @@
 """The port stands alone: importing ``mxnet_tpu_torch`` and every module of
-its serving, training, RNN, tensor-parallel and array-core slices loads
+its serving, training, RNN, tensor-parallel, array-core, Gluon and model
+zoo slices, its profiler and ``test_utils`` loads
 neither ``jax`` nor any ``mxnet_tpu`` module; its
 entry points run on CUDA unless the CPU is asked for; and every feature
 of the JAX engine that the port lacks is refused, not ignored.
@@ -58,11 +59,23 @@ def test_import_loads_no_jax_and_no_reference_package():
                     "gluon.data.batchify", "gluon.data.dataloader",
                     "gluon.data.vision", "gluon.data.vision.datasets",
                     "gluon.data.vision.transforms",
-                    "gluon.rnn.conv_rnn_cell", "lr_scheduler"):
+                    "gluon.rnn.conv_rnn_cell", "lr_scheduler",
+                    "gluon.model_zoo", "gluon.model_zoo.model_store",
+                    "gluon.model_zoo.vision",
+                    "gluon.model_zoo.vision._pretrained",
+                    "gluon.model_zoo.vision.resnet",
+                    "gluon.model_zoo.vision.vgg",
+                    "gluon.model_zoo.vision.alexnet",
+                    "gluon.model_zoo.vision.mobilenet",
+                    "gluon.model_zoo.vision.squeezenet",
+                    "gluon.model_zoo.vision.densenet",
+                    "gluon.model_zoo.vision.inception", "profiler",
+                    "test_utils"):
             assert "mxnet_tpu_torch." + mod in names, (mod, names)
         mx = mxnet_tpu_torch
         for ns in ("np", "npx", "nd", "autograd", "random", "waitall",
-                   "gluon", "init", "optimizer", "lr_scheduler"):
+                   "gluon", "init", "optimizer", "lr_scheduler",
+                   "test_utils", "profiler"):
             assert hasattr(mx, ns), ns
         print(len(names), bad)
         sys.exit(1 if bad else 0)

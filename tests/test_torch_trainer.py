@@ -136,8 +136,11 @@ def test_trainer_accessors_and_stores():
     tr.step(8)                       # rescale 2 / 8: w -= 0.25 * 4 / 4
     torch.testing.assert_close(w.detach(), torch.full((3,), 0.75))
     assert w.grad is None
-    tr.step(8)                       # no gradient: nothing moves
-    torch.testing.assert_close(w.detach(), torch.full((3,), 0.75))
+    # no backward since: the applied gradient applies again, as in the JAX
+    # package's Trainer (a "write" gradient stays until one is written)
+    tr.step(8)
+    torch.testing.assert_close(w.detach(), torch.full((3,), 0.5))
+    assert w.grad is None
     for kv in ("local", None):
         Trainer([w], "sgd", kvstore=kv)
     for kv in ("dist_sync", "dist_async", "nccl"):
